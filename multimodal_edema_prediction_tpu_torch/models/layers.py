@@ -1,12 +1,17 @@
-"""Shared PyTorch building blocks: the eval-mode counterparts of
+"""Shared PyTorch building blocks: the counterparts of
 ``multimodal_edema_prediction_tpu/models/layers.py``.
 
 Every module keeps its parameters in float32 and casts them to the input's
 dtype at use, as the flax modules do (``param_dtype=float32``,
 ``dtype=x.dtype``). Submodule and parameter names mirror the flax tree, so
 ``convert.py`` maps a flax checkpoint onto ``state_dict()`` by a fixed rule.
-Only inference is ported in this slice: dropout is the identity and
-BatchNorm reads its running statistics.
+
+As in flax, every module takes an explicit ``train`` flag rather than
+reading ``nn.Module.training``, so that a frozen submodule can run in eval
+mode inside a training step. With ``train=True`` dropout draws from the
+``torch.Generator`` passed as ``gen`` (flax's ``"dropout"`` rng), and
+BatchNorm normalizes with batch statistics and updates its running buffers
+in place (flax's mutable ``"batch_stats"``).
 """
 from __future__ import annotations
 
@@ -17,6 +22,37 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_mha
+
+
+def dropout(x: torch.Tensor, p: float, train: bool,
+            gen: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element is kept with probability 1 - p and
+    scaled by 1/(1 - p), the rest set to zero. The identity unless training
+    with p > 0."""
+    if not train or p == 0.0:
+        return x
+    if gen is None:
+        raise ValueError("dropout while training needs a torch.Generator")
+    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
+def _batch_moments(x: torch.Tensor, dims: tuple, running_mean: torch.Tensor,
+                   running_var: torch.Tensor):
+    """Batch mean and biased variance over ``dims`` in float32, with the
+    running update of torch BatchNorm1d: momentum 0.1 and the UNBIASED
+    variance (×n/(n−1)), as the JAX ``_TorchBatchNorm`` does."""
+    x32 = x.float()
+    mean = x32.mean(dim=dims)
+    var = x32.var(dim=dims, unbiased=False)
+    n = 1
+    for d in dims:
+        n *= x.shape[d]
+    with torch.no_grad():
+        running_mean.copy_(0.9 * running_mean + 0.1 * mean)
+        running_var.copy_(0.9 * running_var
+                          + 0.1 * (var * (n / max(n - 1, 1))))
+    return mean, var
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -74,9 +110,9 @@ class ScaleNorm(nn.Module):
 
 
 class BatchNormLastDim(nn.Module):
-    """BatchNorm1d over the last axis in eval mode (eps 1e-5): the flax
-    ``BatchNormLastDim``/``_TorchBatchNorm`` pair reading its running
-    statistics, which are buffers here."""
+    """BatchNorm1d over the last axis, statistics over all leading axes
+    (eps 1e-5): the flax ``BatchNormLastDim``/``_TorchBatchNorm`` pair. Its
+    running statistics are buffers here."""
 
     def __init__(self, d: int):
         super().__init__()
@@ -85,9 +121,14 @@ class BatchNormLastDim(nn.Module):
         self.register_buffer("running_mean", torch.zeros(d))
         self.register_buffer("running_var", torch.ones(d))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + 1e-5) * self.weight
-        return (x - self.running_mean.to(x.dtype)) * inv.to(x.dtype) \
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            mean, var = _batch_moments(x.reshape(-1, x.shape[-1]), (0,),
+                                       self.running_mean, self.running_var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + 1e-5) * self.weight
+        return (x - mean.to(x.dtype)) * inv.to(x.dtype) \
             + self.bias.to(x.dtype)
 
 
@@ -95,8 +136,8 @@ class SimpleMLP(nn.Module):
     """``simple_mlp`` (reference duett/duett.py:24-39), ReLU activation.
 
     For n_hidden >= 1: in act {[bn_i] hidden_i act}*(n_hidden-1) [bn_out]
-    out. (The flax module's ``input_batch_norm`` and ``final_activation``
-    have no caller in either package and are not ported.)"""
+    out. (The flax module's ``input_batch_norm``, ``final_activation`` and
+    ``dropout`` have no caller in the teacher and are not ported.)"""
 
     def __init__(self, d_in: int, d_out: int, n_hidden: int = 1,
                  d_hidden: int = 64, hidden_batch_norm: bool = False):
@@ -115,16 +156,16 @@ class SimpleMLP(nn.Module):
             else None
         self.add_module("out", Dense(d_hidden, d_out))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.n_hidden > 0:
             x = F.relu(getattr(self, "in")(x))
             for i in range(self.n_hidden - 1):
                 bn = getattr(self, f"bn_{i}", None)
                 if bn is not None:
-                    x = bn(x)
+                    x = bn(x, train)
                 x = F.relu(getattr(self, f"hidden_{i}")(x))
             if self.bn_out is not None:
-                x = self.bn_out(x)
+                x = self.bn_out(x, train)
         return self.out(x)
 
 
@@ -139,16 +180,18 @@ class CVE(nn.Module):
         self.bn = BatchNormLastDim(d_hidden) if batch_norm else None
         self.out = Dense(d_hidden, d_embedding)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         h = torch.tanh(getattr(self, "in")(x))
         if self.bn is not None:
-            h = self.bn(h)
+            h = self.bn(h, train)
         return self.out(h)
 
 
 class PerVariableMLP(nn.Module):
     """V independent 2→d_hidden→d_out MLPs as one batched einsum stack, with
-    per-variable BatchNorm statistics of shape [V, d_hidden]."""
+    per-variable BatchNorm statistics of shape [V, d_hidden] (taken over all
+    leading axes while training). The flax module's ``dropout`` has no caller
+    in the teacher and is not ported."""
 
     def __init__(self, n_variables: int, d_out: int, d_hidden: int = 64):
         super().__init__()
@@ -162,13 +205,18 @@ class PerVariableMLP(nn.Module):
         self.register_buffer("running_mean", torch.zeros(V, dh))
         self.register_buffer("running_var", torch.ones(V, dh))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         dt = x.dtype
         h = torch.einsum("...vc,vcd->...vd", x, self.w1.to(dt)) \
             + self.b1.to(dt)
         h = F.relu(h)
-        inv = torch.rsqrt(self.running_var + 1e-5) * self.bn_scale
-        h = (h - self.running_mean.to(dt)) * inv.to(dt) + self.bn_bias.to(dt)
+        if train:
+            mean, var = _batch_moments(h, tuple(range(h.dim() - 2)),
+                                       self.running_mean, self.running_var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + 1e-5) * self.bn_scale
+        h = (h - mean.to(dt)) * inv.to(dt) + self.bn_bias.to(dt)
         return torch.einsum("...vd,vdo->...vo", h, self.w2.to(dt)) \
             + self.b2.to(dt)
 
@@ -178,18 +226,21 @@ class MultiHeadAttention(nn.Module):
     600/840, 2 heads × d_head 12). ``q``/``k``/``v`` weights are
     ``[H·d_head, d_model]``; ``out`` is ``[d_model, H·d_head]``.
 
-    With ``use_flash`` and a 3-D input whose key length is at least 256 and
-    whose head dim is at least 64, the attention goes through ``flash_mha``
-    (the JAX gate at ``models/layers.py:292-296``; the eval-only port has no
-    returned weights, key padding mask or dropout to exclude). ``valid_len``
-    is the true token count of a pre-padded sequence: keys at or past it get
-    zero probability and the outputs of those rows are garbage, to be sliced
-    off by the caller."""
+    With ``use_flash``, no attention dropout in force, and a 3-D input whose
+    key length is at least 256 and whose head dim is at least 64, the
+    attention goes through ``flash_mha`` (the JAX gate at
+    ``models/layers.py:292-296``; the port has no returned weights or key
+    padding mask to exclude). While training, ``dropout`` applies to the
+    attention probabilities. ``valid_len`` is the true token count of a
+    pre-padded sequence: keys at or past it get zero probability and the
+    outputs of those rows are garbage, to be sliced off by the caller."""
 
     def __init__(self, d_model: int, n_heads: int,
                  d_head: Optional[int] = None, qkv_bias: bool = True,
-                 out_bias: bool = True, use_flash: bool = False):
+                 out_bias: bool = True, use_flash: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.n_heads = n_heads
         self.d_head = d_head or d_model // n_heads
         inner = n_heads * self.d_head
@@ -200,10 +251,12 @@ class MultiHeadAttention(nn.Module):
         self.use_flash = use_flash
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
-                valid_len: Optional[int] = None) -> torch.Tensor:
+                valid_len: Optional[int] = None, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         H, dh = self.n_heads, self.d_head
-        flash_ok = (self.use_flash and q_in.dim() == 3
-                    and kv_in.shape[-2] >= 256 and dh >= 64)
+        flash_ok = (self.use_flash and (self.dropout == 0.0 or not train)
+                    and q_in.dim() == 3 and kv_in.shape[-2] >= 256
+                    and dh >= 64)
         if flash_ok:
             B, Nq, Nk = q_in.shape[0], q_in.shape[1], kv_in.shape[1]
             # [B, N, H·dh] → [B, H, N, dh] as strided views: the kernel
@@ -226,31 +279,36 @@ class MultiHeadAttention(nn.Module):
             pad = torch.arange(Nk, device=logits.device) >= valid_len
             logits = logits.masked_fill(pad, -1e30)
         weights = torch.softmax(logits.float(), dim=-1).to(q_in.dtype)
+        weights = dropout(weights, self.dropout, train, gen)
         out = torch.einsum("...hqk,...khd->...qhd", weights, v)
         return self.out(out.reshape(*out.shape[:-2], H * dh))
 
 
 class TransformerEncoderLayer(nn.Module):
-    """Pre-norm block: x + attn(norm(x)); x + ff(norm(x)); no qkv bias."""
+    """Pre-norm block: x + attn(norm(x)); x + ff(norm(x)); no qkv bias;
+    ``dropout`` on the attention probabilities and after each FF layer."""
 
     def __init__(self, d_model: int, n_heads: int,
                  d_head: Optional[int] = None, d_feedforward: int = 512,
-                 scalenorm: bool = True):
+                 scalenorm: bool = True, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         norm = (lambda: ScaleNorm()) if scalenorm else \
             (lambda: LayerNorm(d_model, f32_out=True))
         self.norm_attn = norm()
         self.attn = MultiHeadAttention(d_model, n_heads, d_head,
-                                       qkv_bias=False)
+                                       qkv_bias=False, dropout=dropout)
         self.norm_ff = norm()
         self.ff_in = Dense(d_model, d_feedforward)
         self.ff_out = Dense(d_feedforward, d_model)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        p = self.dropout
         h = self.norm_attn(x)
-        x = x + self.attn(h, h)
-        h = self.ff_out(gelu_exact(self.ff_in(self.norm_ff(x))))
-        return x + h
+        x = x + self.attn(h, h, train=train, gen=gen)
+        h = dropout(gelu_exact(self.ff_in(self.norm_ff(x))), p, train, gen)
+        return x + dropout(self.ff_out(h), p, train, gen)
 
 
 class TransformerEncoder(nn.Module):
@@ -259,16 +317,17 @@ class TransformerEncoder(nn.Module):
 
     def __init__(self, d_model: int, n_layers: int, n_heads: int,
                  d_head: Optional[int] = None, d_feedforward: int = 512,
-                 scalenorm: bool = True):
+                 scalenorm: bool = True, dropout: float = 0.0):
         super().__init__()
         self.n_layers = n_layers
         for i in range(n_layers):
             self.add_module(f"layer_{i}", TransformerEncoderLayer(
-                d_model, n_heads, d_head, d_feedforward, scalenorm))
+                d_model, n_heads, d_head, d_feedforward, scalenorm, dropout))
         self.final_norm = ScaleNorm() if scalenorm else \
             LayerNorm(d_model, f32_out=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x)
+            x = getattr(self, f"layer_{i}")(x, train, gen)
         return self.final_norm(x)

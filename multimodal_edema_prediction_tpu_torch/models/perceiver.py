@@ -1,11 +1,13 @@
-"""Pathology-query Perceiver fusion, eval-mode: the PyTorch counterpart of
+"""Pathology-query Perceiver fusion: the PyTorch counterpart of
 ``PatchDualPathologyPerceiver`` and its blocks in
 ``multimodal_edema_prediction_tpu/models/perceiver.py``.
 
 Residual fusion rule:
-    fusion_logit = img_logit + beta[k] · correction_head(T_k)
-(the JAX package stops the gradient through img_logit; the port serves only,
-so there is no gradient to stop).
+    fusion_logit = stop_grad(img_logit) + beta[k] · correction_head(T_k)
+(JAX ``perceiver.py:189``): the fusion loss trains only the correction path.
+While training, ``dropout`` applies to the attention probabilities and after
+each block's FF layers, ``head_dropout`` inside the image and temporal heads,
+and ``_correction_dropout`` inside the correction head.
 """
 from __future__ import annotations
 
@@ -15,60 +17,72 @@ import torch
 from torch import nn
 
 from ..config import PerceiverConfig
-from .layers import Dense, LayerNorm, MultiHeadAttention, gelu_exact
+from .layers import Dense, LayerNorm, MultiHeadAttention, dropout, gelu_exact
 
 
 class PerceiverBlock(nn.Module):
     """Pre-LN cross-attention + FFN with residuals. The LayerNorms keep
     flax's default eps of 1e-6, not torch's 1e-5."""
 
-    def __init__(self, d: int, n_heads: int, use_flash: bool = False):
+    def __init__(self, d: int, n_heads: int, use_flash: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.norm_q = LayerNorm(d)
         self.norm_kv = LayerNorm(d)
         self.attn = MultiHeadAttention(d, n_heads, d // n_heads, qkv_bias=True,
-                                       use_flash=use_flash)
+                                       use_flash=use_flash, dropout=dropout)
         self.norm_ff = LayerNorm(d)
         self.ff_in = Dense(d, 4 * d)
         self.ff_out = Dense(4 * d, d)
 
-    def forward(self, latents: torch.Tensor, kv: torch.Tensor
+    def forward(self, latents: torch.Tensor, kv: torch.Tensor,
+                train: bool = False, gen: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
+        p = self.dropout
         q = self.norm_q(latents)
         k = self.norm_kv(kv).to(latents.dtype)
-        latents = latents + self.attn(q, k)
-        h = self.ff_out(gelu_exact(self.ff_in(self.norm_ff(latents))))
-        return latents + h
+        latents = latents + self.attn(q, k, train=train, gen=gen)
+        h = dropout(gelu_exact(self.ff_in(self.norm_ff(latents))), p, train,
+                    gen)
+        return latents + dropout(self.ff_out(h), p, train, gen)
 
 
 class _Head(nn.Module):
-    """Linear → GELU → Linear(1) (reference ``_mk_head`` :572-576)."""
+    """Linear → GELU → Dropout → Linear(1) (reference ``_mk_head``
+    :572-576)."""
 
-    def __init__(self, d_in: int, d_hidden: int, use_bias_out: bool = True):
+    def __init__(self, d_in: int, d_hidden: int, use_bias_out: bool = True,
+                 dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.add_module("in", Dense(d_in, d_hidden))
         self.out = Dense(d_hidden, 1, use_bias_out)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(gelu_exact(getattr(self, "in")(x)))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = gelu_exact(getattr(self, "in")(x))
+        return self.out(dropout(h, self.dropout, train, gen))
 
 
 class CorrectionHead(nn.Module):
-    """LN → Linear → GELU → Linear(no bias) (reference :582-589)."""
+    """LN → Linear → GELU → Dropout → Linear(no bias) (reference
+    :582-589)."""
 
-    def __init__(self, d_in: int, d_hidden: int):
+    def __init__(self, d_in: int, d_hidden: int, dropout: float = 0.0):
         super().__init__()
         self.norm = LayerNorm(d_in)
-        self.head = _Head(d_in, d_hidden, use_bias_out=False)
+        self.head = _Head(d_in, d_hidden, use_bias_out=False,
+                          dropout=dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.head(self.norm(x))
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        return self.head(self.norm(x), train, gen)
 
 
 def _correction_dropout(cfg: PerceiverConfig) -> float:
     """Correction-head dropout: ``correction_dropout`` when set, otherwise
-    the shared head dropout. Eval-mode serving applies no dropout; kept so
-    that training slices read the same rule."""
+    the shared head dropout."""
     return cfg.head_dropout if cfg.correction_dropout is None \
         else cfg.correction_dropout
 
@@ -83,20 +97,25 @@ class PatchDualPathologyPerceiver(nn.Module):
         K, d = cfg.n_pathologies, cfg.d_latent
         self.shared_queries = nn.Parameter(torch.zeros(K, d))
         self.ts_proj = Dense(d_ts, d)
+        p = cfg.dropout
         self.img_cross = PerceiverBlock(d, cfg.n_heads,
-                                        use_flash=cfg.use_flash)
-        self.img_self = PerceiverBlock(d, cfg.n_heads)
-        self.ts_cross = PerceiverBlock(d, cfg.n_heads)
-        self.ts_self = PerceiverBlock(d, cfg.n_heads)
+                                        use_flash=cfg.use_flash, dropout=p)
+        self.img_self = PerceiverBlock(d, cfg.n_heads, dropout=p)
+        self.ts_cross = PerceiverBlock(d, cfg.n_heads, dropout=p)
+        self.ts_self = PerceiverBlock(d, cfg.n_heads, dropout=p)
         self.image_label_bias = nn.Parameter(torch.zeros(K))
         self.temporal_label_bias = nn.Parameter(torch.zeros(K))
         self.beta = nn.Parameter(torch.ones(K))
-        self.image_head = _Head(d, cfg.head_hidden)
-        self.temporal_head = _Head(d, cfg.head_hidden)
-        self.correction_head = CorrectionHead(d, cfg.head_hidden)
+        self.image_head = _Head(d, cfg.head_hidden,
+                                dropout=cfg.head_dropout)
+        self.temporal_head = _Head(d, cfg.head_hidden,
+                                   dropout=cfg.head_dropout)
+        self.correction_head = CorrectionHead(d, cfg.head_hidden,
+                                              _correction_dropout(cfg))
 
     def forward(self, ts_tokens: torch.Tensor, img_patches_proj: torch.Tensor,
-                ts_ablation: Optional[str] = None) -> dict:
+                ts_ablation: Optional[str] = None, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> dict:
         cfg = self.cfg
         abl = ts_ablation or cfg.ts_ablation
         if ts_tokens.dim() != 3:
@@ -115,18 +134,18 @@ class PatchDualPathologyPerceiver(nn.Module):
             raise ValueError(f"unknown ts_ablation {abl!r}")
         ts_kv = self.ts_proj(ts_sel)
 
-        I = self.img_cross(q, img_patches_proj)   # noqa: E741
-        Tk = self.ts_cross(q, ts_kv)
-        I = self.img_self(I, I)                   # noqa: E741
-        Tk = self.ts_self(Tk, Tk)
+        I = self.img_cross(q, img_patches_proj, train, gen)   # noqa: E741
+        Tk = self.ts_cross(q, ts_kv, train, gen)
+        I = self.img_self(I, I, train, gen)                   # noqa: E741
+        Tk = self.ts_self(Tk, Tk, train, gen)
 
-        img_logits = self.image_head(I).squeeze(-1).float() \
+        img_logits = self.image_head(I, train, gen).squeeze(-1).float() \
             + self.image_label_bias[None, :]
-        ts_logits = self.temporal_head(Tk).squeeze(-1).float() \
+        ts_logits = self.temporal_head(Tk, train, gen).squeeze(-1).float() \
             + self.temporal_label_bias[None, :]
-        corr = self.correction_head(Tk).squeeze(-1).float()
+        corr = self.correction_head(Tk, train, gen).squeeze(-1).float()
         scaled_corr = self.beta[None, :] * corr
-        fusion_logits = img_logits + scaled_corr
+        fusion_logits = img_logits.detach() + scaled_corr
         return {
             "img_logits": img_logits,
             "ts_logits": ts_logits,

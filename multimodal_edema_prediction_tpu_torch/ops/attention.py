@@ -6,7 +6,9 @@ attention.py::flash_mha``: non-causal softmax(Q Kᵀ·sm_scale)·V on
 ``csrc/flash_attention.cu`` (D = 64, float32 or bfloat16) and raises if it
 cannot; on a CPU tensor it runs ``flash_mha_reference``, the plain version,
 which is also the kernel's oracle in the tests and in ``chip_smoke.py``.
-There is no fallback from one to the other.
+There is no fallback from one to the other. The kernel is forward only: on
+a CUDA tensor that needs a gradient the wrapper raises (the CPU path stays
+differentiable).
 """
 from __future__ import annotations
 
@@ -67,6 +69,13 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_mha_reference(q, k, v, sm_scale, q_valid, kv_valid)
     if q.device.type != "cuda":
         raise ValueError(f"flash_mha: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        # the forward kernel's output has no grad_fn: a gradient would be
+        # dropped without a word
+        raise NotImplementedError(
+            "flash_mha on CUDA has no backward kernel yet (ROADMAP K1 "
+            "backward); run the frozen ViT under torch.no_grad()")
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
     if D != 64:

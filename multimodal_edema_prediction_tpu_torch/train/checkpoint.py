@@ -1,19 +1,22 @@
-"""Read the JAX package's checkpoints without JAX, flax or ``msgpack``.
+"""Checkpoints in the JAX package's format, read and written without JAX,
+flax or ``msgpack``.
 
 ``save_checkpoint`` there (``train/checkpoint.py:30-44``) writes
 ``flax.serialization.msgpack_serialize({"params", "batch_stats", "step",
-"metric", "extra"})`` plus a ``<path>.config.json`` sidecar.
-``_unpack`` decodes the msgpack subset that writer emits: maps, arrays
-(lists), str, bin, ints, floats, nil/bools, and ext type 1 (an ndarray
-packed as ``(shape, dtype name, C-order bytes)``) or 3 (a numpy scalar, the
-same encoding).
+"metric", "extra"})`` plus a ``<path>.config.json`` sidecar. ``_unpack``
+decodes the msgpack subset that writer emits: maps, arrays (lists), str,
+bin, ints, floats, nil/bools, and ext type 1 (an ndarray packed as
+``(shape, dtype name, C-order bytes)``) or 3 (a numpy scalar, the same
+encoding). ``_pack`` writes the same subset, so a checkpoint the port saves
+(its weights in the flax layout, ``convert.to_flax``) loads in the JAX
+package's ``load_checkpoint`` and in the port's own loaders.
 """
 from __future__ import annotations
 
 import json
 import os
 import struct
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -108,6 +111,155 @@ def msgpack_restore(data: bytes):
     if end != len(data):
         raise ValueError(f"trailing bytes after msgpack object at {end}")
     return value
+
+
+def _pack_len(out: List[bytes], n: int, fix: Optional[int], fix_max: int,
+              codes: Tuple[int, int, int]) -> None:
+    """A length header: the fix form when ``n <= fix_max``, else the 8-,
+    16- or 32-bit form."""
+    if fix is not None and n <= fix_max:
+        out.append(bytes([fix | n]))
+    elif n < 2 ** 8 and codes[0]:
+        out.append(struct.pack(">BB", codes[0], n))
+    elif n < 2 ** 16:
+        out.append(struct.pack(">BH", codes[1], n))
+    elif n < 2 ** 32:
+        out.append(struct.pack(">BI", codes[2], n))
+    else:
+        raise ValueError(f"msgpack object of length {n} is too long")
+
+
+def _pack_ext(out: List[bytes], code: int, data: bytes) -> None:
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixext:
+        out.append(bytes([fixext[len(data)]]))
+    else:
+        _pack_len(out, len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack(">b", code))
+    out.append(data)
+
+
+def _pack(obj, out: List[bytes]) -> None:
+    """Append the msgpack encoding of ``obj`` (the subset ``_unpack``
+    reads) to ``out``."""
+    if obj is None:
+        out.append(b"\xc0")
+    elif isinstance(obj, bool):
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, int):
+        if 0 <= obj < 128 or -32 <= obj < 0:
+            out.append(struct.pack(">b", obj) if obj < 0 else bytes([obj]))
+        elif obj >= 0:
+            out.append(struct.pack(">BQ", 0xCF, obj))
+        else:
+            out.append(struct.pack(">Bq", 0xD3, obj))
+    elif isinstance(obj, float):
+        out.append(struct.pack(">Bd", 0xCB, obj))
+    elif isinstance(obj, str):
+        raw = obj.encode()
+        _pack_len(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out.append(raw)
+    elif isinstance(obj, bytes):
+        _pack_len(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out.append(obj)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        if arr.nbytes > 2 ** 30:
+            raise ValueError("arrays over 1 GiB are written chunked by flax; "
+                             "not supported")
+        payload: List[bytes] = []
+        _pack([list(arr.shape), arr.dtype.name,
+               np.ascontiguousarray(arr).tobytes()], payload)
+        _pack_ext(out, 1 if isinstance(obj, np.ndarray) else 3,
+                  b"".join(payload))
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), 0x80, 15, (0, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _pack(str(k), out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), 0x90, 15, (0, 0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    else:
+        raise TypeError(f"cannot msgpack a {type(obj).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """The counterpart of ``flax.serialization.msgpack_serialize`` for
+    trees of dicts, lists, numbers, strings and numpy arrays."""
+    out: List[bytes] = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def save_checkpoint(path: str, model, step: int, metric: float,
+                    config: Optional[dict] = None,
+                    extra: Optional[dict] = None) -> None:
+    """Write ``model``'s weights in the JAX package's checkpoint format
+    (flax layout, ``convert.to_flax``) plus the ``.config.json`` sidecar."""
+    from ..convert import to_flax
+    params, batch_stats = to_flax(model)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    payload = {"params": params, "batch_stats": batch_stats,
+               "step": int(step), "metric": float(metric),
+               "extra": extra or {}}
+    with open(path, "wb") as f:
+        f.write(msgpack_serialize(payload))
+    if config is not None:
+        with open(path + ".config.json", "w") as f:
+            json.dump(config, f, indent=2, default=str)
+
+
+class BestKTracker:
+    """Keep the k best checkpoints by a metric (higher- or lower-is-better):
+    the JAX package's tracker, saving a torch model."""
+
+    def __init__(self, ckpt_dir: str, k: int = 1, mode: str = "max",
+                 prefix: str = "ckpt"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+        self.ckpt_dir = ckpt_dir
+        self.k = k
+        self.mode = mode
+        self.prefix = prefix
+        self.entries: List[Tuple[float, str]] = []  # (metric, path)
+
+    def _better(self, a: float, b: float) -> bool:
+        return a > b if self.mode == "max" else a < b
+
+    @property
+    def best(self) -> Optional[Tuple[float, str]]:
+        return self.entries[0] if self.entries else None
+
+    def offer(self, metric: float, model, step: int,
+              config: Optional[dict] = None) -> bool:
+        """Save if within top-k. Returns True if this is the new best."""
+        if len(self.entries) >= self.k and not self._better(
+                metric, self.entries[-1][0]):
+            return False
+        path = os.path.join(self.ckpt_dir,
+                            f"{self.prefix}-step{step}-{metric:.4f}.msgpack")
+        save_checkpoint(path, model, step, metric, config)
+        self.entries.append((metric, path))
+        self.entries.sort(key=lambda e: e[0], reverse=(self.mode == "max"))
+        while len(self.entries) > self.k:
+            _, drop = self.entries.pop()
+            for p in (drop, drop + ".config.json"):
+                if os.path.exists(p):
+                    os.remove(p)
+        return self.entries[0][1] == path
+
+    def ensure_saved(self, model, step: int,
+                     config: Optional[dict] = None) -> None:
+        """Guarantee at least one checkpoint exists (e.g. every epoch's
+        metric was NaN): save the final state with a sentinel metric."""
+        if not self.entries:
+            sentinel = float("-inf") if self.mode == "max" else float("inf")
+            path = os.path.join(self.ckpt_dir,
+                                f"{self.prefix}-step{step}-final.msgpack")
+            save_checkpoint(path, model, step, sentinel, config)
+            self.entries.append((sentinel, path))
 
 
 def load_checkpoint(path: str) -> dict:

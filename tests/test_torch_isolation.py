@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of it, and what
-``chip_smoke.py`` imports, brings in neither JAX nor flax nor msgpack nor the
-JAX package; its entry points default to the card; and its attention wrapper
-takes the plain version only for CPU tensors."""
+``chip_smoke.py`` imports, brings in neither JAX nor flax nor optax nor
+msgpack nor sklearn nor ml_dtypes nor the JAX package; its entry points
+default to the card; and its kernel wrappers take their plain versions only
+for CPU tensors."""
 import json
 import os
 import pkgutil
@@ -13,11 +14,12 @@ import torch
 
 import multimodal_edema_prediction_tpu_torch as port
 from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
-from multimodal_edema_prediction_tpu_torch.ops import attention
+from multimodal_edema_prediction_tpu_torch.cli import train_teacher as cli_train
+from multimodal_edema_prediction_tpu_torch.ops import attention, gather
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "msgpack",
-             "multimodal_edema_prediction_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
+             "ml_dtypes", "multimodal_edema_prediction_tpu")
 
 
 def _all_port_modules():
@@ -27,20 +29,25 @@ def _all_port_modules():
 
 def test_imports_bring_in_no_jax():
     mods = _all_port_modules()
-    assert "multimodal_edema_prediction_tpu_torch.serve.predictor" in mods
+    for name in ("serve.predictor", "ops.gather", "data.features",
+                 "train.teacher_loop", "cli.train_teacher"):
+        assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
         f"sys.path.insert(0, {REPO!r})\n"
-        f"for m in {mods!r}: importlib.import_module(m)\n"
         "import chip_smoke\n"
         "chip_smoke.import_port()\n"
-        f"print(json.dumps(sorted(n for n in sys.modules if n.split('.')[0]"
-        f" in {FORBIDDEN!r})))\n")
+        f"missing = [m for m in {mods!r} if m not in sys.modules]\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        f"print(json.dumps([missing, sorted(n for n in sys.modules if "
+        f"n.split('.')[0] in {FORBIDDEN!r})]))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=REPO, env=env)
     assert out.returncode == 0, out.stderr
-    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    # chip_smoke.import_port() covers every module of the port, and nothing
+    # of the port brings in a forbidden package
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == [[], []]
 
 
 def test_sources_name_no_jax_import():
@@ -65,6 +72,16 @@ def test_cli_device_default_is_cuda():
     assert args.image_mode == "pixel"
 
 
+def test_train_cli_device_default_is_cuda(tmp_path):
+    args = cli_train.build_parser().parse_args([])
+    assert args.device == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--vit_size", "tiny", "--synthetic_stays", "40",
+                        "--ckpt_dir", str(tmp_path)])
+
+
 @pytest.mark.parametrize("mode", ["jpeg_root", "synthetic"])
 def test_cli_queued_image_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -82,3 +99,17 @@ def test_flash_wrapper_plain_path_is_cpu_only(monkeypatch):
     cpu = torch.zeros(1, 2, 300, 64)
     with pytest.raises(AssertionError, match="plain version taken"):
         attention.flash_mha(cpu, cpu, cpu, 0.125)   # CPU does take it
+
+
+def test_gather_wrapper_plain_path_is_cpu_only(monkeypatch):
+    def forbidden(*a, **k):
+        raise AssertionError("plain version taken for a non-CPU tensor")
+
+    monkeypatch.setattr(gather, "gather_rows_reference", forbidden)
+    rows = torch.zeros(2, dtype=torch.int32)
+    for bank in (torch.empty(4, 3, 8, device="meta"),
+                 torch.empty(4, 8, device="meta")):
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            gather.gather_rows(bank, rows.to("meta"))
+    with pytest.raises(AssertionError, match="plain version taken"):
+        gather.gather_rows(torch.zeros(4, 3, 8), rows)   # CPU does take it

@@ -1,0 +1,156 @@
+"""The port's teacher loop (``train/teacher_loop.py::train_teacher``) against
+the JAX package's, end to end on the encode-once tier, and what the loop and
+the CLI refuse.
+
+Both loops start from the same converted weights on the same synthetic
+cohort, with ``feature_cache="hbm"``, float32, dropout and augmentation off,
+2 epochs × 2 batches of 16; the JAX side is driven as
+``tests/test_feature_cache.py:207-225`` drives it, and both feature banks
+are built from the same procedural pixels (the port's numpy source, handed
+to the JAX loop as its image source). Tolerance: the per-epoch train losses
+and val AUROCs within 5e-3 relative (the precedent of
+``tests/test_student_loop_parity.py``).
+"""
+import jax
+import numpy as np
+import pytest
+
+from multimodal_edema_prediction_tpu.config import (
+    DataConfig as JData, DuettConfig as JDuett, OptimConfig as JOptim,
+    PerceiverConfig as JPerc, TeacherConfig as JTeacher, TrainConfig as JTrain,
+    ViTConfig as JViT)
+from multimodal_edema_prediction_tpu.data import pipeline as JP
+from multimodal_edema_prediction_tpu.data import synthetic as JS
+from multimodal_edema_prediction_tpu.models.teacher import TeacherModel as JT
+from multimodal_edema_prediction_tpu.train import teacher_loop as JL
+from multimodal_edema_prediction_tpu_torch.cli import train_teacher as cli
+from multimodal_edema_prediction_tpu_torch.config import (DataConfig,
+                                                          TeacherConfig,
+                                                          TrainConfig)
+from multimodal_edema_prediction_tpu_torch.convert import load_flax
+from multimodal_edema_prediction_tpu_torch.data import pipeline as P
+from multimodal_edema_prediction_tpu_torch.data import synthetic as S
+from multimodal_edema_prediction_tpu_torch.models.teacher import TeacherModel
+from multimodal_edema_prediction_tpu_torch.train import teacher_loop as L
+
+JCFG = JTeacher(
+    duett=JDuett(n_variables=8, n_timesteps=24, d_static=18, d_embedding=8,
+                 n_layers=1, d_feedforward=32, d_hidden_mlp_embedding=16,
+                 d_hidden_tab_encoder=16),
+    vit=JViT(image_size=56, patch_size=14, d_model=32, n_layers=2, n_heads=2,
+             d_feedforward=64),
+    perceiver=JPerc(n_pathologies=7, d_latent=32, n_heads=2, dropout=0.0,
+                    head_dropout=0.0, head_hidden=16))
+TRAIN = dict(batch_size=16, epochs=2, limit_batches=2, patience=3,
+             dtype="float32",
+             optim=dict(lr=2e-3, warmup_steps=2, weight_decay=1e-4))
+COHORT = dict(seed=0, n_subjects=30, n_stays=60, n_variables=8, min_len=26,
+              max_len=40)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("loops")
+    hook = L.make_synthetic_pixel_hook(JCFG.vit.image_size)
+
+    jds = JS.make_synthetic(**COHORT)
+    jad = JP.build_anchor_dataset(jds, JP.meta_from_events(jds, JData()),
+                                  JData())
+    # host copies: the JAX loop donates its state's buffers
+    variables = jax.tree.map(np.asarray, JL.init_teacher(
+        JT(JCFG), JCFG, 16, 24, jax.random.key(0)))
+    jres = JL.train_teacher(
+        jad, JCFG, JTrain(**{**TRAIN, "optim": JOptim(**TRAIN["optim"])}),
+        str(root / "jax"), JData().pathology_labels,
+        init_variables=jax.tree.map(jax.numpy.asarray, variables),
+        image_source=lambda b: hook(b)["pixel_values"],
+        feature_cache="hbm")
+
+    cfg = TeacherConfig.from_dict(JCFG.to_dict())
+    ds = S.make_synthetic(**COHORT)
+    ad = P.build_anchor_dataset(ds, P.meta_from_events(ds, DataConfig()),
+                                DataConfig())
+    model = load_flax(TeacherModel(cfg), variables["params"],
+                      variables["batch_stats"])
+    res = L.train_teacher(ad, cfg, TrainConfig.from_dict(TRAIN),
+                          str(root / "port"), DataConfig().pathology_labels,
+                          model=model, device="cpu", image_hook=hook,
+                          feature_cache="hbm", log=lambda s: None)
+    return jres, res, ad
+
+
+def test_loop_matches_jax_per_epoch(runs):
+    jres, res, _ = runs
+    assert len(res.history) == len(jres.history) == 2
+    for got, want in zip(res.history, jres.history):
+        for k in ("train_total", "train_img_total", "train_ts_total",
+                  "train_fus_total", "val_main_auroc"):
+            np.testing.assert_allclose(got[k], want[k], rtol=5e-3,
+                                       err_msg=f"epoch {got['epoch']} {k}")
+    np.testing.assert_allclose(res.best_metric, jres.best_metric, rtol=5e-3)
+    np.testing.assert_allclose(res.test_metrics["main_auroc"],
+                               jres.test_metrics["main_auroc"], rtol=5e-3)
+
+
+def test_loop_bookkeeping(runs):
+    _, res, ad = runs
+    ex = res.extras
+    assert ex["n_train_steps"] == 4
+    # the val split once per epoch, the test split once at the end
+    n_batches = {k: -(-ad.split_size(k) // 16) for k in ("val", "test")}
+    assert ex["n_eval_steps"] == 2 * n_batches["val"] + n_batches["test"]
+    assert set(ex["phase_seconds"]) == {"feature_build", "train", "eval"}
+    # the best checkpoint reloads (as the test evaluation did) and its val
+    # eval equals the loop's own at the best epoch
+    model, _, _ = L.load_teacher_from_ckpt(res.best_path, device="cpu")
+    again = ex["evaluate"](model, "val")
+    assert again["main_auroc"] == res.best_metric
+    np.testing.assert_array_equal(again["outputs"]["fus"],
+                                  ex["best_val_outputs"]["fus"])
+
+
+def _tiny(**kw):
+    return TeacherConfig.from_dict({**JCFG.to_dict(), **kw})
+
+
+@pytest.mark.parametrize("kw,match", [
+    ({"freeze_cxr": False}, "K1 backward"),
+    ({"perceiver_type": "dual"}, "P13")])
+def test_loop_refuses_what_is_not_ported(kw, match, tmp_path):
+    with pytest.raises(NotImplementedError, match=match):
+        L.train_teacher(None, _tiny(**kw), TrainConfig(), str(tmp_path),
+                        DataConfig().pathology_labels, device="cpu")
+    with pytest.raises(NotImplementedError, match="P8"):
+        L.train_teacher(None, _tiny(), TrainConfig(), str(tmp_path),
+                        DataConfig().pathology_labels, device="cpu",
+                        feature_cache="host")
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--unfreeze_cxr"], "K1 backward"),
+    (["--cxr_jpeg_root", "/x"], "P15"),
+    (["--resume_dir", "/x"], "P16"),
+    (["--state_backend", "orbax"], "P16"),
+    (["--lp_only_correction"], "P13"),
+    (["--perceiver_type", "single"], "P13"),
+    (["--steps_per_call", "4"], "P10"),
+    (["--vit_quant", "int8"], "P20"),
+    (["--vit_weights", "/x"], "P3"),
+    (["--duett_ckpt", "/x"], "P12"),
+    (["--cxr_feature_cache", "host"], "P8"),
+    (["--cxr_feature_cache", "auto", "--hbm_feature_budget_gb", "0"], "P8")])
+def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
+    with pytest.raises(NotImplementedError, match=match):
+        cli.main(["--device", "cpu", "--vit_size", "tiny",
+                  "--synthetic_stays", "40", "--ckpt_dir", str(tmp_path)]
+                 + argv)
+
+
+def test_cli_trains_on_the_cpu_when_asked(tmp_path):
+    res = cli.main(["--device", "cpu", "--vit_size", "tiny",
+                    "--synthetic_stays", "60", "--batch_size", "16",
+                    "--epochs", "1", "--limit_batches", "2",
+                    "--warmup_steps", "2", "--cxr_feature_cache", "hbm",
+                    "--ckpt_dir", str(tmp_path)])
+    assert np.isfinite(res.history[0]["train_total"])
+    assert res.best_path.startswith(str(tmp_path))
