@@ -42,6 +42,31 @@ prints the final ``ok`` line:
             per step, idle share, time by kernel; "not measured" if the
             trace holds no device time).
 
+Training through the ViT (``--unfreeze_cxr``, ROADMAP S3) adds:
+
+3b. backward  holds K1's dkv and dq kernels (through ``flash_mha``'s
+            autograd Function) against ``flash_mha_backward_reference``:
+            bf16 at the unfrozen pixel step's [32, 12, 1370, 64], a ragged
+            bf16 case (N 1001, kv_valid 900) and a float32 case; the
+            forward's log-sum-exp against the plain one; two backward
+            passes bit-equal; masked keys' dk, dv exactly 0; times the
+            forward with and without lse, each backward kernel, the plain
+            backward, ``scaled_dot_product_attention``'s backward (a
+            yardstick only) and the bounds.
+4b. block_grad  one full-width ``DinoBlock`` (N 1370, d 768, batch 2,
+            float32, TF32 off): every parameter's and the input's gradient
+            through the kernels on the card against a CPU copy running the
+            plain versions (BLOCK_TOL).
+9.  unfreeze  the training CLI with ``--unfreeze_cxr`` on the pixel tier at
+            full width (240 stays, batch 32, 1 epoch of 4 batches); K1's
+            launches counted over exactly this run (forward, dkv, dq 12 each
+            per train step, the forward 12 per eval step); finite losses;
+            the ViT's, DuETT's and the perceiver's weights moved; the
+            reloaded best checkpoint evaluates the val split bit-equal.
+10. unfreeze_step  the unfrozen step at batch 32: steady time (CUDA
+            events), peak memory (and its estimate at batch 128), and a
+            ``torch.profiler`` breakdown.
+
 Then the least times of the two kernels still to port (K3, K4) at the main
 path's shapes, the kernel summary line and, last,
 ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX package.
@@ -74,6 +99,15 @@ K2_SOURCE = f"{PKG}/csrc/gather_rows.cu"
 K2_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_gather.py:60 "
                "gather_rows (:42 _gather_rows_3d, pallas_call :52, "
                ":37 _kernel)")
+K1_BWD_SOURCE = f"{PKG}/csrc/flash_attention_bwd.cu"
+K1_DKV_REPLACES = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1121 "
+                   "(pallas_call of _flash_attention_bwd_dkv :941, kernel "
+                   "_flash_attention_dkv_kernel :796), the gradient of "
+                   "multimodal_edema_prediction_tpu/ops/attention.py:127")
+K1_DQ_REPLACES = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
+                  "(pallas_call of _flash_attention_bwd_dq :1287, kernel "
+                  "_flash_attention_dq_kernel :1146), the gradient of "
+                  "multimodal_edema_prediction_tpu/ops/attention.py:127")
 RUNS = os.path.join(REPO, "build", "chip_smoke_runs")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
@@ -84,6 +118,25 @@ TOL_BF16 = 2e-2
 # float32 kernel vs float32 plain version (TF32 off): same math, another
 # summation order (64-term dot products, online vs direct softmax)
 TOL_F32 = 1e-5
+# K1's backward kernels against the float32 plain backward, each gradient
+# relative to its max abs. bf16: P and dS are rounded to bf16 before their
+# products (as FA2 does) and o, lse, D come from the bf16 forward.
+TOL_BWD_BF16 = 2e-2
+# float32 SIMT kernels (TF32 off): the same arithmetic in another order, P
+# from exp(S·scale − lse) against the plain softmax
+TOL_BWD_F32 = 1e-4
+# the forward's log-sum-exp against torch.logsumexp of the same scores,
+# absolute: both accumulate in float32, on values ≲ 10
+TOL_LSE = 1e-4
+# one full-width DinoBlock, float32, TF32 off: every parameter's and the
+# input's gradient on the card (K1's float32 kernels, cuBLAS) against a CPU
+# copy running the plain versions, relative to each gradient's max abs
+# floored at 1e-2 of the largest: the key bias's exact gradient is 0
+# (softmax is shift-invariant), and both sides hold only rounding noise
+# there, 9e-8 of the largest gradient apart on an H100. Elsewhere
+# the same float32 math in other summation orders (~1e-6 relative).
+BLOCK_TOL = 1e-4
+BLOCK_FLOOR = 1e-2
 # a served batch re-run directly: same kernels on the same shapes, so equal
 # up to cuBLAS's choice of algorithm in another thread's handle; responses
 # travel as JSON floats (float32 → shortest repr → float32 is exact)
@@ -197,9 +250,10 @@ def phase_build(port) -> dict:
     build = port["build"]
     t0 = time.time()
     built = build.build_all()
-    log = build.build_log("flash_attention")
-    ptxas = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: [ln.strip() for ln in build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
+             for name in build.SOURCES}
     info = {"phase": "build", "seconds": round(time.time() - t0, 3),
             "built": sorted(built), "ptxas": ptxas}
     emit(info)
@@ -321,6 +375,36 @@ def phase_gather(port, device, n_bank: int = 400, batch: int = 32) -> dict:
     return results
 
 
+def _reload_val(port, res, device) -> tuple:
+    """The run's best checkpoint through the port's own loader, evaluated
+    by the loop's own eval on the val split: (model, TeacherConfig, raw
+    checkpoint, the eval, its largest difference from the loop's reading of
+    the same split)."""
+    model, tcfg, ck = port["checkpoint"].load_teacher_from_ckpt(
+        res.best_path, device)
+    again = res.extras["evaluate"](model, "val")
+    best = res.extras["best_val_outputs"]
+    diff = max(float(np.abs(again["outputs"][k] - best[k]).max())
+               for k in ("img", "ts", "fus", "corr", "main"))
+    return model, tcfg, ck, again, diff
+
+
+def _train_batch(port, device, cfg) -> tuple:
+    """The steady-step phases' data: the synthetic cohort of the train
+    phase on ``device``, one shuffled train batch of 32 (host arrays) and
+    the procedural pixel hook."""
+    cfgmod, P, S = port["config"], port["pipeline"], port["synthetic"]
+    dcfg = cfgmod.DataConfig()
+    ds = S.make_synthetic(seed=0, n_stays=240, n_subjects=80,
+                          n_variables=cfg.duett.n_variables)
+    data = P.build_anchor_dataset(ds, P.meta_from_events(ds, dcfg),
+                                  dcfg).to(device)
+    host = next(data.iter_batches("train", 32, shuffle=True, seed=0))
+    host.pop("valid")
+    hook = port["teacher_loop"].make_synthetic_pixel_hook(cfg.vit.image_size)
+    return data, host, hook
+
+
 def phase_train(port, device, card: str = "") -> dict:
     """The training CLI at full width on the encode-once tier, with K1's and
     K2's launches counted over exactly this run."""
@@ -342,15 +426,8 @@ def phase_train(port, device, card: str = "") -> dict:
     ex = res.extras
     steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
     phase = ex["phase_seconds"]
-    # the best checkpoint through the port's own loader, evaluated by the
-    # loop's own eval on the val split, against the loop's reading of it
-    model, _, _ = port["checkpoint"].load_teacher_from_ckpt(res.best_path,
-                                                            device)
-    again = ex["evaluate"](model, "val")
+    _, _, _, again, reload_diff = _reload_val(port, res, device)
     k2_reload = G.LAUNCHES["gather_rows"] - k2
-    best = ex["best_val_outputs"]
-    reload_diff = max(float(np.abs(again["outputs"][k] - best[k]).max())
-                      for k in ("img", "ts", "fus", "corr", "main"))
     info = {"phase": "train", "card": card, "argv": argv,
             "wall_s": wall, "feature_build_s": phase["feature_build"],
             "k1_launches_in_bank_build": k1,
@@ -382,10 +459,12 @@ def phase_train(port, device, card: str = "") -> dict:
     return info
 
 
-def _profile(fn, n: int, step_ms: float) -> dict:
+def _profile(fn, n: int, step_ms: float, watch: dict) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``: device busy time per
     call (the sum of every device event's self time), the idle share of the
-    unprofiled ``step_ms``, the heaviest kernels, and K2's device time."""
+    unprofiled ``step_ms``, the heaviest kernels, and, for each ``watch``
+    name, the device time and launches per call of the kernels whose names
+    hold its substring."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -407,14 +486,16 @@ def _profile(fn, n: int, step_ms: float) -> dict:
         return {"device_time": "not measured (no device events)"}
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3 / n
-    k2 = [r for r in rows if "gather_rows_kernel" in r[1]]
-    return {"device_busy_ms_per_step": busy,
-            "idle_share": 1.0 - busy / step_ms,
-            "k2_device_ms_per_step": sum(r[0] for r in k2) / 1e3 / n,
-            "k2_launches_per_step": sum(r[2] for r in k2) / n,
-            "top_kernels": [{"name": k[:90], "ms_per_step": us / 1e3 / n,
-                             "launches_per_step": c / n}
-                            for us, k, c in rows[:8]]}
+    out = {"device_busy_ms_per_step": busy,
+           "idle_share": 1.0 - busy / step_ms}
+    for name, sub in watch.items():
+        hit = [r for r in rows if sub in r[1]]
+        out[f"{name}_device_ms_per_step"] = sum(r[0] for r in hit) / 1e3 / n
+        out[f"{name}_launches_per_step"] = sum(r[2] for r in hit) / n
+    out["top_kernels"] = [{"name": k[:90], "ms_per_step": us / 1e3 / n,
+                           "launches_per_step": c / n}
+                          for us, k, c in rows[:8]]
+    return out
 
 
 def _tier_diffs(a: dict, b: dict) -> dict:
@@ -446,18 +527,10 @@ def phase_tiers(port, device, cfg, gather_ms: float, reps: int = 5) -> dict:
     another image, to show that the comparison sees a wrong row."""
     import torch
     tl, eng = port["teacher_loop"], port["engine"]
-    cfgmod, P, S = port["config"], port["pipeline"], port["synthetic"]
-    dcfg = cfgmod.DataConfig()
-    tcfg = cfgmod.TrainConfig(batch_size=32)
-    ds = S.make_synthetic(seed=0, n_stays=240, n_subjects=80,
-                          n_variables=cfg.duett.n_variables)
-    data = P.build_anchor_dataset(ds, P.meta_from_events(ds, dcfg),
-                                  dcfg).to(device)
+    tcfg = port["config"].TrainConfig(batch_size=32)
+    data, host, hook = _train_batch(port, device, cfg)
     base = port["teacher"].init_teacher(cfg, 0).to(device)
-    hook = tl.make_synthetic_pixel_hook(cfg.vit.image_size)
     bank = tl.build_feature_bank(base, data, hook, torch.bfloat16)
-    host = next(data.iter_batches("train", 32, shuffle=True, seed=0))
-    host.pop("valid")
     feat_batch = bank.host_fn()(host)
     n_bank = bank.cls.shape[0] - 1
     shifted = {**feat_batch,
@@ -501,7 +574,8 @@ def phase_tiers(port, device, cfg, gather_ms: float, reps: int = 5) -> dict:
                                     after[name].items()
                                     if k.startswith("loss:")},
                          "step_ms": step_ms,
-                         "profile": _profile(run, 3, step_ms)}
+                         "profile": _profile(run, 3, step_ms,
+                                             {"k2": "gather_rows_kernel"})}
         del model, state
     diffs = _tier_diffs(after["pixels"], after["features"])
     worst = _worst(diffs)
@@ -530,6 +604,301 @@ def phase_tiers(port, device, cfg, gather_ms: float, reps: int = 5) -> dict:
     if not max(v[0] for v in wrong.values()) > TIER_TOL:
         raise AssertionError(f"the comparison misses a wrong bank row: "
                              f"{wrong}")
+    return info
+
+
+def backward_bound_ms(kind: str, B, H, N, n_keys, itemsize, peak_flops
+                      ) -> tuple:
+    """(bound_ms, bound_by) of K1's dkv kernel, dq kernel or their "pair"
+    at self-attention [B, H, N, 64]: operations 8, 6 and 10 × B·H·N·n_keys·64
+    (the products over the keys that take part; 10 is the pair's least,
+    with S and dP shared) against ``peak_flops``; bytes: q, k, v, dO read
+    once, lse and D (float32) read once, the gradients written once."""
+    D = 64
+    units, n_out = {"dkv": (8, 2), "dq": (6, 1), "pair": (10, 3)}[kind]
+    flops = float(units) * B * H * N * n_keys * D
+    nbytes = float(itemsize) * B * H * N * D * (4 + n_out) + 8.0 * B * H * N
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_backward(port, device, cases) -> dict:
+    """K1's backward (the dkv and dq kernels, through ``flash_mha``'s
+    autograd Function) against ``flash_mha_backward_reference``; the
+    forward's log-sum-exp against the plain one; two backward passes
+    bit-equal; keys past ``kv_valid`` exactly zero. Timed cases: the forward
+    with and without ``lse``, each backward kernel, the plain backward and
+    ``scaled_dot_product_attention``'s backward (a yardstick only).
+    cases: (label, B, H, N, kv_valid, dtype, tol, timed)."""
+    import torch
+    import torch.nn.functional as F
+    att = port["attention"]
+    results = {}
+    for label, B, H, N, kv_valid, dtype, tol, timed in cases:
+        q, k, v = _qkv(B, H, N, dtype, device, seed=10 + len(results))
+        do = _qkv(B, H, N, dtype, device, seed=20 + len(results))[0]
+        scale = 64 ** -0.5
+        n_keys = N if kv_valid is None else kv_valid
+
+        def grads():
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = att.flash_mha(*leaves, scale, kv_valid=kv_valid)
+            return torch.autograd.grad(o, leaves, do)
+
+        got, again = grads(), grads()
+        o, lse = att.forward_kernel(q, k, v, scale, n_keys, True)
+        o_ref = att.flash_mha_reference(q, k, v, scale, kv_valid=kv_valid)
+        lse_ref = att.flash_mha_lse_reference(q, k, scale, kv_valid)
+        want = att.flash_mha_backward_reference(q, k, v, o_ref, lse_ref, do,
+                                                scale, kv_valid)
+        torch.cuda.synchronize()
+        rel, err = {}, {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            diff = (g.float() - w.float()).abs().max().item()
+            err[name] = diff
+            rel[name] = diff / max(w.float().abs().max().item(), 1e-12)
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        same_bits = all(torch.equal(_bits(a), _bits(b))
+                        for a, b in zip(got, again))
+        masked_zero = n_keys == N or (not got[1][:, :, n_keys:].any()
+                                      and not got[2][:, :, n_keys:].any())
+        lse_err = (lse - lse_ref).abs().max().item()
+        res = {"phase": "kernel_check", "kernel": "flash_attention_bwd",
+               "case": label, "shape": [B, H, N, 64], "kv_valid": kv_valid,
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+               "lse_max_abs_err": lse_err, "lse_tol": TOL_LSE,
+               "bit_equal_rerun": same_bits, "masked_keys_zero": masked_zero}
+        if timed:
+            dlt = att.delta(o, do)
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+                else PEAK_F32_FLOPS
+            res["fwd_ms"] = device_ms(
+                lambda: att.forward_kernel(q, k, v, scale, n_keys, False),
+                device)
+            res["fwd_lse_ms"] = device_ms(
+                lambda: att.forward_kernel(q, k, v, scale, n_keys, True),
+                device)
+            res["dkv_ms"] = device_ms(
+                lambda: att.dkv_kernel(q, k, v, do, lse, dlt, scale, n_keys),
+                device)
+            res["dq_ms"] = device_ms(
+                lambda: att.dq_kernel(q, k, v, do, lse, dlt, scale, n_keys),
+                device)
+            res["plain_ms"] = device_ms(
+                lambda: att.flash_mha_backward_reference(
+                    q, k, v, o_ref, lse_ref, do, scale, kv_valid), device,
+                reps=3, inner=2)
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            mask = None
+            if n_keys < N:
+                mask = (torch.arange(N, device=device) < n_keys)[None, :]
+            out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                                 scale=scale)
+            res["library_ms"] = device_ms(
+                lambda: torch.autograd.grad(out, leaves, do,
+                                            retain_graph=True), device)
+            for kind in ("dkv", "dq", "pair"):
+                res[f"{kind}_bound_ms"], res[f"{kind}_bound_by"] = \
+                    backward_bound_ms(kind, B, H, N, n_keys,
+                                      q.element_size(), peak)
+            del out, leaves
+        emit(res)
+        if not (finite and max(rel.values()) <= tol and lse_err <= TOL_LSE
+                and same_bits and masked_zero):
+            raise AssertionError(f"flash_attention backward {label}: {res}")
+        results[label] = res
+        del q, k, v, do, got, again, o, lse, o_ref, lse_ref, want
+        torch.cuda.empty_cache()
+    return results
+
+
+def phase_block_grad(port, device, batch: int = 2) -> dict:
+    """The gradient of a fixed loss through one full-width ``DinoBlock``
+    (d 768, 12 heads, N 1370, float32, TF32 off) on the card, through K1's
+    forward and backward kernels, against a CPU copy of the same block
+    running the plain versions: every parameter's and the input's
+    gradient within BLOCK_TOL of its max abs. This is the check that the
+    ViT's weights receive the kernels' gradients (fault F1's kind)."""
+    import torch
+    att, vit = port["attention"], port["vit"]
+    cfg = port["config"].ViTConfig()
+    g = torch.Generator().manual_seed(3)
+    block = vit.DinoBlock(cfg)
+    with torch.no_grad():
+        for name, p in block.named_parameters():
+            if p.dim() == 2:                        # lecun-scaled weights
+                p.copy_(torch.randn(p.shape, generator=g) / p.shape[1] ** .5)
+            elif "norm" in name and name.endswith("weight") or \
+                    "layerscale" in name:
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g))
+            else:
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    N = cfg.n_patches + 1
+    x = torch.randn(batch, N, cfg.d_model, generator=g)
+    w = torch.randn(batch, N, cfg.d_model, generator=g)
+
+    def grads(blk, dev):
+        xin = x.to(dev).requires_grad_()
+        loss = (blk(xin, train=True) * w.to(dev)).sum()
+        loss.backward()
+        return {"x": xin.grad, **{n: p.grad for n, p in
+                                  blk.named_parameters()}}
+
+    card = copy.deepcopy(block).to(device)
+    att.reset_launches()
+    got = grads(card, device)
+    torch.cuda.synchronize()
+    launches = dict(att.LAUNCHES)
+    want = grads(block, torch.device("cpu"))
+    floor = BLOCK_FLOOR * max(float(t.abs().max()) for t in want.values())
+    rel = {n: float((got[n].cpu() - want[n]).abs().max()
+                    / max(float(want[n].abs().max()), floor)) for n in want}
+    worst = max(rel, key=rel.get)
+    info = {"phase": "block_grad", "shape": [batch, N, cfg.d_model],
+            "dtype": "float32", "launches": launches, "leaves": len(rel),
+            "max_rel_err": rel[worst], "worst_leaf": worst,
+            "floor": floor,
+            "rel_err": rel,
+            "tol": BLOCK_TOL}
+    emit(info)
+    if launches != {"flash_attention": 1, "flash_attention_bwd_dkv": 1,
+                    "flash_attention_bwd_dq": 1}:
+        raise AssertionError(f"the block's gradient did not run K1's "
+                             f"forward and backward once each: {launches}")
+    if not rel[worst] <= BLOCK_TOL:
+        raise AssertionError(f"block gradients disagree: {worst} "
+                             f"{rel[worst]}")
+    return info
+
+
+def phase_unfreeze(port, device, card: str = "") -> dict:
+    """The training CLI with the CXR branch trainable (``--unfreeze_cxr``,
+    pixel tier) at full width: K1's launches counted over exactly this run
+    (forward, dkv and dq 12 each per train step, the forward alone 12 per
+    eval step); finite losses; the ViT's, DuETT's and the perceiver's
+    weights moved from ``init_teacher``'s; the best checkpoint, reloaded,
+    evaluates the val split bit-equal to the loop."""
+    import torch
+    att = port["attention"]
+    shutil.rmtree(RUNS, ignore_errors=True)
+    argv = ["--device", "cuda", "--unfreeze_cxr", "--cxr_feature_cache",
+            "none", "--synthetic_stays", "240", "--batch_size", "32",
+            "--epochs", "1", "--limit_batches", "4", "--ckpt_dir", RUNS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    att.reset_launches()
+    t0 = time.perf_counter()
+    res = port["train_teacher"].main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(att.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    ex = res.extras
+    steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
+    model, tcfg, ck, again, reload_diff = _reload_val(port, res, device)
+    init = port["teacher"].init_teacher(
+        tcfg, ck["config"]["train"]["seed"]).state_dict()
+    trained = {k: t.detach().cpu() for k, t in model.named_parameters()}
+    moved = {}
+    for prefix in ("cxr", "duett", "perceiver"):
+        keys = [k for k in trained if k.startswith(prefix + ".")
+                and trained[k].dim() >= 2]
+        moved[prefix] = {
+            "weights": len(keys),
+            "moved": sum(not torch.equal(trained[k], init[k]) for k in keys),
+            "max_abs_change": max(float((trained[k] - init[k]).abs().max())
+                                  for k in keys)}
+    n = tcfg.vit.n_layers
+    expect = {"flash_attention": n * (steps + evals),
+              "flash_attention_bwd_dkv": n * steps,
+              "flash_attention_bwd_dq": n * steps}
+    info = {"phase": "unfreeze", "card": card, "argv": argv, "wall_s": wall,
+            "train_steps": steps, "eval_steps": evals,
+            "launches": launches, "expected_launches": expect,
+            "train_s": ex["phase_seconds"]["train"],
+            "train_step_ms": ex["phase_seconds"]["train"] / steps * 1e3,
+            "epoch_losses": [h["train_total"] for h in res.history],
+            "val_auroc": [h["val_main_auroc"] for h in res.history],
+            "test_auroc": res.test_metrics["main_auroc"],
+            "moved": moved, "reload_max_abs_diff": reload_diff,
+            "reload_val_auroc": again["main_auroc"],
+            "peak_memory_bytes": peak}
+    emit(info)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    if not all(np.isfinite(x) for x in info["epoch_losses"]):
+        raise AssertionError(f"non-finite losses {info['epoch_losses']}")
+    if launches != expect:
+        raise AssertionError(f"K1 launches {launches} over {steps} train and "
+                             f"{evals} eval steps, expected {expect}")
+    if any(m["moved"] != m["weights"] for m in moved.values()):
+        raise AssertionError(f"weights that did not train: {moved}")
+    if reload_diff != 0.0 or again["main_auroc"] != res.best_metric:
+        raise AssertionError("the reloaded best checkpoint evaluates the val "
+                             "split differently from the loop")
+    return info
+
+
+def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
+    """The unfrozen pixel-tier train step at batch 32 on one fixed batch:
+    the steady step time (CUDA events, median of ``reps`` after two warm-up
+    steps), the peak memory and its estimate at the CLI's default batch of
+    128 (the static part plus 4× the activations measured at 32), and a
+    ``torch.profiler`` reading (device busy, idle share, time by kernel,
+    K1's three kernels)."""
+    import torch
+    tl, eng = port["teacher_loop"], port["engine"]
+    tcfg = port["config"].TrainConfig(batch_size=32)
+    ucfg = cfg.replace(freeze_cxr=False)
+    data, host, hook = _train_batch(port, device, ucfg)
+    model = port["teacher"].init_teacher(ucfg, 0).to(device)
+    state = port["state"].TrainState(model, port["optim"].MultiGroupAdamW(
+        model, tcfg.optim, 100,
+        frozen_prefixes=tl.teacher_frozen_prefixes(ucfg)))
+    step = eng.make_teacher_step(tcfg, ucfg.duett, 24, np.ones(7, np.float32))
+    batch = eng.to_device(hook(host), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def run():
+        return step(state, data.grid, data.static, batch, gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        losses = run()
+    torch.cuda.synchronize()
+    static_bytes = torch.cuda.memory_allocated()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = statistics.median(times)
+    prof = _profile(run, 3, step_ms, {"k1_fwd": "flash_fwd_bf16",
+                                      "k1_dkv": "flash_bwd_dkv_bf16",
+                                      "k1_dq": "flash_bwd_dq_bf16"})
+    n_params = sum(p.numel() for p in model.parameters())
+    info = {"phase": "unfreeze_step", "batch": 32, "dtype": "bfloat16",
+            "params": n_params, "trainable_params": sum(
+                p.numel() for p in model.parameters() if p.requires_grad),
+            "step_ms": step_ms, "step_ms_all": times,
+            "samples_per_s": 32e3 / step_ms,
+            "loss": float(losses["total"]),
+            "peak_memory_bytes": peak, "static_bytes": static_bytes,
+            "est_peak_bytes_at_batch_128": static_bytes
+            + 4 * (peak - static_bytes),
+            "profile": prof}
+    emit(info)
+    if not np.isfinite(info["loss"]):
+        raise AssertionError(f"non-finite unfrozen-step loss {info['loss']}")
+    del model, state, data
+    torch.cuda.empty_cache()
     return info
 
 
@@ -817,7 +1186,13 @@ def main() -> int:
         ("ragged_bf16", 2, 12, 1000, 900, bf16, TOL_BF16, False),
         ("f32", 2, 12, 1370, 1301, f32, TOL_F32, True),
     ])
+    bwd = phase_backward(port, device, [
+        ("pixel_step_bf16", 32, 12, 1370, None, bf16, TOL_BWD_BF16, True),
+        ("ragged_bf16", 2, 12, 1001, 900, bf16, TOL_BWD_BF16, False),
+        ("f32", 2, 12, 1370, 1301, f32, TOL_BWD_F32, False),
+    ])
     phase_golden(port, device, cfgmod.ViTConfig(), GOLDEN)
+    phase_block_grad(port, device)
     serve = phase_serve(port, device, cfgmod.TeacherConfig(), n_clients=12,
                         posts_per_client=4, card=dev["nvidia_smi"])
 
@@ -825,21 +1200,41 @@ def main() -> int:
     train = phase_train(port, device, card=dev["nvidia_smi"])
     phase_tiers(port, device, cfgmod.TeacherConfig(),
                 gathers["patch_bf16"]["ms"] + gathers["cls_bf16"]["ms"])
+    unfreeze = phase_unfreeze(port, device, card=dev["nvidia_smi"])
+    phase_unfreeze_step(port, device, cfgmod.TeacherConfig())
     bounds_to_port(cfgmod.TeacherConfig())
 
-    # K1's launches are counted on the train run, whose K1 work is the bank
-    # build's chunks of 16: its row comes from that case
-    k1, k2 = checks["bank_build_bf16"], gathers["patch_bf16"]
+    # this slice's main path is the unfrozen training run, whose K1 work is
+    # the pixel step's batch of 32: K1's three rows come from that case
+    k1, k2 = checks["pixel_step_bf16"], gathers["patch_bf16"]
+    b = bwd["pixel_step_bf16"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
+    n_k1 = unfreeze["launches"]
+    case = "pixel_step_bf16 [32, 12, 1370, 64]"
+    bwd_rows = [
+        {"name": f"flash_attention_bwd_{kind}", "route": "cuda",
+         "source": K1_BWD_SOURCE, "replaces": replaces,
+         "launches": n_k1[f"flash_attention_bwd_{kind}"],
+         "launches_by_path": {
+             "unfreeze": n_k1[f"flash_attention_bwd_{kind}"]},
+         "case": case,
+         "max_abs_err": max(b["max_abs_err"][g] for g in grads),
+         "ms": b[f"{kind}_ms"], "plain_ms": b["plain_ms"],
+         "bound_ms": b[f"{kind}_bound_ms"], "bound_by": b[f"{kind}_bound_by"],
+         "library_ms": b["library_ms"]}
+        for kind, replaces, grads in (("dkv", K1_DKV_REPLACES, ("dk", "dv")),
+                                      ("dq", K1_DQ_REPLACES, ("dq",)))]
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,
-         "launches": train["k1_launches_in_bank_build"],
+         "launches": n_k1["flash_attention"],
          "launches_by_path": {"serve": serve["k1_launches"],
-                              "train": train["k1_launches_in_bank_build"]},
-         "case": "bank_build_bf16 [16, 12, 1370, 64]",
+                              "train": train["k1_launches_in_bank_build"],
+                              "unfreeze": n_k1["flash_attention"]},
+         "case": case, "ms_with_lse": b["fwd_lse_ms"],
          **{k: k1[k] for k in keys}},
+        *bwd_rows,
         {"name": "gather_rows", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2_launches"],
          "case": "patch_bf16 [401, 1370, 768] x 32 rows",

@@ -4,17 +4,25 @@
     python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
         --device cuda --cxr_feature_cache hbm --epochs 30 --batch_size 128
 
-Trains the ``dual_patch`` teacher with the frozen RAD-DINO branch, on the
-pixel tier (``--cxr_feature_cache none``: the ViT runs in every step) or
-the encode-once tier (``hbm``: each image is encoded once, steps gather
-cached tokens through K2). Flags of what is not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+Trains the ``dual_patch`` teacher. With the RAD-DINO branch frozen (the
+default), on the pixel tier (``--cxr_feature_cache none``: the ViT runs in
+every step) or the encode-once tier (``hbm``: each image is encoded once,
+steps gather cached tokens through K2). ``--unfreeze_cxr`` fine-tunes the
+ViT too, on the pixel tier only, its attention's gradient through K1's
+backward kernels; ``--vit_weights`` starts the ViT from a converted
+RAD-DINO checkpoint (``scripts/convert_rad_dino.py``). Flags of what is not
+ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+
+    python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
+        --device cuda --unfreeze_cxr --vit_weights rad_dino_flax.msgpack
 """
 from __future__ import annotations
 
 import argparse
 
 from ..config import PerceiverConfig, TeacherConfig, ViTConfig
+from ..models.teacher import init_teacher
+from ..models.vit import load_vit_params
 from ..train.teacher_loop import train_teacher
 from .common import (add_common_flags, configs_from_args, load_data,
                      make_run_dir, sync_duett_with_meta)
@@ -34,8 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vit_quant", type=str, default="none",
                    choices=["none", "int8"])
     p.add_argument("--vit_weights", type=str, default="",
-                   help="converted RAD-DINO checkpoint for the frozen CXR "
-                        "branch")
+                   help="converted RAD-DINO checkpoint for the CXR branch "
+                        "(scripts/convert_rad_dino.py)")
     p.add_argument("--duett_ckpt", type=str, default="",
                    help="SSL checkpoint to initialize the DuETT backbone")
     p.add_argument("--lp_only_correction", action="store_true")
@@ -56,9 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flag → (value that is not ported, ROADMAP item)
 _QUEUED = (
-    ("unfreeze_cxr", True, "K1 backward: training through the ViT"),
     ("vit_quant", "int8", "P20"),
-    ("vit_weights", None, "P3"),
     ("duett_ckpt", None, "P12"),
     ("lp_only_correction", True, "P13"),
     ("cxr_jpeg_root", None, "P15"),
@@ -69,7 +75,11 @@ _QUEUED = (
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
+    if args.vit_quant != "none" and args.unfreeze_cxr:
+        p.error("--vit_quant requires a frozen CXR branch (the quantized "
+                "matmuls are inference-only)")
     for flag, value, item in _QUEUED:
         got = getattr(args, flag)
         if (got if value is None else got == value):
@@ -95,9 +105,16 @@ def main(argv=None):
         perceiver_type=args.perceiver_type,
         freeze_duett=args.freeze_duett, freeze_cxr=not args.unfreeze_cxr)
 
+    model = None
+    if args.vit_weights:
+        model = init_teacher(teacher_cfg, tcfg.seed)
+        model.cxr.load_state_dict(load_vit_params(args.vit_weights,
+                                                  teacher_cfg.vit))
+        print(f"CXR branch (RAD-DINO) from {args.vit_weights}", flush=True)
     run_dir = make_run_dir(args.ckpt_dir, tcfg)
     res = train_teacher(anchor_ds, teacher_cfg, tcfg, run_dir,
-                        dcfg.pathology_labels, device=args.device,
+                        dcfg.pathology_labels, model=model,
+                        device=args.device,
                         feature_cache=args.cxr_feature_cache,
                         hbm_feature_budget_gb=args.hbm_feature_budget_gb)
     print(f"best val macro fusion AUROC: {res.best_metric:.4f}  "

@@ -66,19 +66,25 @@ def flax_to_state_dict(params: dict, batch_stats: Optional[dict] = None
     return out
 
 
-def load_flax(model: nn.Module, params: dict,
-              batch_stats: Optional[dict] = None) -> nn.Module:
-    """Copy flax weights into ``model`` (in place, keeping its device)."""
-    sd = flax_to_state_dict(params, batch_stats)
-    want = model.state_dict()
+def check_fit(sd: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+              what: str = "flax → torch weights") -> None:
+    """Raise ``ValueError`` unless ``sd`` has exactly ``want``'s keys, each
+    of ``want``'s shape."""
     missing = sorted(set(want) - set(sd))
     extra = sorted(set(sd) - set(want))
     bad = sorted(f"{k}: flax {tuple(sd[k].shape)} vs torch "
                  f"{tuple(want[k].shape)}" for k in set(sd) & set(want)
                  if sd[k].shape != want[k].shape)
     if missing or extra or bad:
-        raise ValueError(f"flax → torch weights do not fit: missing "
-                         f"{missing}, left over {extra}, wrong shape {bad}")
+        raise ValueError(f"{what} do not fit: missing {missing}, left over "
+                         f"{extra}, wrong shape {bad}")
+
+
+def load_flax(model: nn.Module, params: dict,
+              batch_stats: Optional[dict] = None) -> nn.Module:
+    """Copy flax weights into ``model`` (in place, keeping its device)."""
+    sd = flax_to_state_dict(params, batch_stats)
+    check_fit(sd, model.state_dict())
     model.load_state_dict(sd, strict=True)
     return model
 

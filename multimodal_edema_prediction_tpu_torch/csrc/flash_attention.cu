@@ -28,12 +28,21 @@
 // (in elements) and a contiguous head dim, so q/k/v can be strided views of a
 // [B, N, H*64] projection and o can be written as [B, N, H, 64].
 //
+// For training, the kernel also writes each query row's log-sum-exp of the
+// scaled scores, lse = m + log(l) (float32 [B, H, Nq]), which the backward
+// kernels (flash_attention_bwd.cu) use to recompute P without a second
+// softmax pass; JAX's kernel saves l and m separately under save_residuals
+// (flash_attention.py:246-251), the same information in two arrays. A null
+// lse pointer skips the write (serving, the frozen ViT).
+//
 // Entry point: flash_attention_fwd(...) launches on the given stream, allocates
 // nothing and returns cudaGetLastError() as an int (0 = launched).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -44,71 +53,27 @@ constexpr int kRow = kD + 8;  // padded shared-memory row (bf16 elements):
                               // 144 B rows make the fragment loads
                               // bank-conflict free
 constexpr int kBNf = 32;      // keys per tile (f32 kernel)
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   void* o;
+  float* lse;        // [B, H, Nq] float32, or null: not written
   int Nq, Nk;        // token counts of q and k/v
   int n_keys;        // min(Nk, kv_valid): keys that take part
   float scale_log2;  // sm_scale * log2(e)
   long long sqb, sqh, sqn, skb, skh, skn, svb, svh, svn, sob, soh, son;
 };
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; with `valid` false the destination is
-// zero-filled and nothing is read.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// D += A * B, A 16x16 bf16 (row), B 16x8 bf16 (col), D 16x8 f32.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// lse = m + log(l) in natural units, from the running max m (log2 units of
+// the scaled scores) and sum l of exp2(s - m)
+__device__ __forceinline__ void store_lse(const Params& p, int b, int h,
+                                          int row, float m, float l) {
+  if (p.lse != nullptr && row < p.Nq)
+    p.lse[(static_cast<long long>(b) * gridDim.y + h) * p.Nq + row] =
+        (m + log2f(l)) * kLn2;
 }
 
 __global__ void __launch_bounds__(128)
@@ -132,19 +97,10 @@ flash_fwd_bf16(const Params p) {
 
   // Q as A fragments, 4 k-steps of 16 over the head dim; rows past Nq read 0
   uint32_t qf[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + 2 * t;
-    qf[kk][0] = r0 < p.Nq ? ld_u32(q + r0 * p.sqn + c) : 0u;
-    qf[kk][1] = r1 < p.Nq ? ld_u32(q + r1 * p.sqn + c) : 0u;
-    qf[kk][2] = r0 < p.Nq ? ld_u32(q + r0 * p.sqn + c + 8) : 0u;
-    qf[kk][3] = r1 < p.Nq ? ld_u32(q + r1 * p.sqn + c + 8) : 0u;
-  }
+  load_a_rows(qf, q, p.sqn, r0, p.Nq, t);
 
   float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  zero_acc(acc);
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
 
   // stage a 64 x 64 K and V tile: 512 16-byte chunks each, 4 per thread;
@@ -161,7 +117,6 @@ flash_fwd_bf16(const Params p) {
   const int n_tiles = (p.n_keys + kBN - 1) / kBN;
   load_tile(0, 0);
   cp_async_commit();
-  const int lr = lane & 7, lm = lane >> 3;  // ldmatrix row / matrix index
 
   for (int it = 0; it < n_tiles; ++it) {
     const int st = it & 1, n0 = it * kBN;
@@ -174,20 +129,10 @@ flash_fwd_bf16(const Params p) {
     }
     __syncthreads();
 
-    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys);
-    // one ldmatrix.x4 gives the B fragments of two k-steps
+    // S = Q K^T for this warp's 16 rows x 64 keys (8 n-tiles of 8 keys)
     float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kp = 0; kp < 2; ++kp) {
-        uint32_t b[4];
-        ldsm_x4(b, smem_u32(&Ks[st][j * 8 + lr][kp * 32 + lm * 8]));
-        mma_bf16(s[j], qf[2 * kp], b[0], b[1]);
-        mma_bf16(s[j], qf[2 * kp + 1], b[2], b[3]);
-      }
-    }
+    zero_acc(s);
+    mma_abt<kRow>(s, qf, Ks[st], lane);
 
     // scale into log2 units, mask keys past n_keys, row max over the tile
     float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -227,25 +172,9 @@ flash_fwd_bf16(const Params p) {
       acc[j][3] *= a1;
     }
 
-    // O += P V: the S accumulator layout is the A fragment layout of P
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // V fragments (keys x head dim, read transposed): one
-      // ldmatrix.x4.trans covers two 8-wide n-tiles of the head dim
-#pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, smem_u32(&Vs[st][kk * 16 + (lm & 1) * 8 + lr]
-                                     [jp * 16 + (lm >> 1) * 8]));
-        mma_bf16(acc[2 * jp], pa, b[0], b[1]);
-        mma_bf16(acc[2 * jp + 1], pa, b[2], b[3]);
-      }
-    }
+    // O += P V: the S accumulator layout is the A fragment layout of P;
+    // V (keys x head dim) is read transposed
+    mma_cm<kRow>(acc, s, Vs[st], lane);
     __syncthreads();  // stage st is free for the load two tiles ahead
   }
 
@@ -253,6 +182,10 @@ flash_fwd_bf16(const Params p) {
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if (t == 0) {
+    store_lse(p, b, h, r0, m0, l0);
+    store_lse(p, b, h, r1, m1, l1);
+  }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + b * p.sob +
                      h * p.soh;
@@ -326,6 +259,7 @@ flash_fwd_f32(const Params p) {
     }
   }
 
+  store_lse(p, b, h, row, m, l);
   if (row < p.Nq) {
     float* o = static_cast<float*>(p.o) + b * p.sob + h * p.soh +
                row * p.son;
@@ -338,9 +272,11 @@ flash_fwd_f32(const Params p) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 12 element strides in the order
-// q(b, h, n), k(b, h, n), v(b, h, n), o(b, h, n).
+// q(b, h, n), k(b, h, n), v(b, h, n), o(b, h, n). lse: a contiguous float32
+// [B, H, Nq] output, or null.
 extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
-                                   const void* v, void* o, int B, int H,
+                                   const void* v, void* o, float* lse,
+                                   int B, int H,
                                    int Nq, int Nk, int kv_valid,
                                    float sm_scale, const long long* strides,
                                    void* stream) {
@@ -349,6 +285,7 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.Nq = Nq;
   p.Nk = Nk;
   p.n_keys = kv_valid < Nk ? kv_valid : Nk;

@@ -230,8 +230,10 @@ class MultiHeadAttention(nn.Module):
     key length is at least 256 and whose head dim is at least 64, the
     attention goes through ``flash_mha`` (the JAX gate at
     ``models/layers.py:292-296``; the port has no returned weights or key
-    padding mask to exclude). While training, ``dropout`` applies to the
-    attention probabilities. ``valid_len`` is the true token count of a
+    padding mask to exclude), gradient included: ``flash_mha``'s autograd
+    Function backs it with K1's dkv and dq kernels on the card. While
+    training, ``dropout`` applies to the attention probabilities (and so
+    closes the gate). ``valid_len`` is the true token count of a
     pre-padded sequence: keys at or past it get zero probability and the
     outputs of those rows are garbage, to be sliced off by the caller."""
 
@@ -259,8 +261,9 @@ class MultiHeadAttention(nn.Module):
                     and dh >= 64)
         if flash_ok:
             B, Nq, Nk = q_in.shape[0], q_in.shape[1], kv_in.shape[1]
-            # [B, N, H·dh] → [B, H, N, dh] as strided views: the kernel
-            # reads them in place and writes its output in [B, N, H, dh]
+            # [B, N, H·dh] → [B, H, N, dh] as strided views: the kernels
+            # read them in place and write the output (and, training, the
+            # gradients of q, k, v) in [B, N, H, dh]
             q = self.q(q_in).view(B, Nq, H, dh).transpose(1, 2)
             k = self.k(kv_in).view(B, Nk, H, dh).transpose(1, 2)
             v = self.v(kv_in).view(B, Nk, H, dh).transpose(1, 2)

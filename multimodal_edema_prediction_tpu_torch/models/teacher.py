@@ -65,10 +65,12 @@ class TeacherModel(nn.Module):
                                  "a trainable CXR branch untrained")
             _, patches = cxr_feats
         else:
-            # the ViT has no train-time behaviour (ViTConfig.dropout has no
-            # reader in the dual_patch path), so it always runs as in eval
+            # a trainable ViT trains (attention dropout of ViTConfig.dropout
+            # from gen, JAX teacher.py:64,83-84); a frozen one runs in eval
+            # mode without a graph
+            cxr_train = train and not cfg.freeze_cxr
             with torch.no_grad() if cfg.freeze_cxr else nullcontext():
-                _, patches = self.cxr(pixel_values)
+                _, patches = self.cxr(pixel_values, cxr_train, gen)
         if cfg.freeze_cxr:
             patches = patches.detach()
         out = self.perceiver(ts_tokens, self.img_proj(patches), train=train,

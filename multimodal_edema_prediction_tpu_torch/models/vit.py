@@ -14,10 +14,14 @@ multiple, and masks the pad through ``valid_len``. The port does not pad:
 its kernel masks its own ragged edge, so every row is a real token and
 nothing is sliced off. ``MultiHeadAttention`` keeps ``valid_len`` for
 callers that pre-pad.
+
+As in the JAX package, ``train=True`` turns on the attention-probability
+dropout of ``ViTConfig.dropout`` (drawn from ``gen``), which closes the
+flash gate; the teacher trains the ViT so only with ``freeze_cxr=False``.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,16 +50,18 @@ class DinoBlock(nn.Module):
         self.norm1 = LayerNorm(d)
         self.attn = MultiHeadAttention(d, cfg.n_heads, d // cfg.n_heads,
                                        qkv_bias=True,
-                                       use_flash=cfg.use_flash_attention)
+                                       use_flash=cfg.use_flash_attention,
+                                       dropout=cfg.dropout)
         self.layerscale1 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
         self.norm2 = LayerNorm(d)
         self.mlp_in = Dense(d, cfg.d_feedforward)
         self.mlp_out = Dense(cfg.d_feedforward, d)
         self.layerscale2 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
         h = self.norm1(x)
-        h = self.attn(h, h).to(x.dtype)
+        h = self.attn(h, h, train=train, gen=gen).to(x.dtype)
         x = x + h * self.layerscale1.to(x.dtype)
         h = self.mlp_out(gelu_exact(self.mlp_in(self.norm2(x))))
         return x + h * self.layerscale2.to(x.dtype)
@@ -82,7 +88,8 @@ class DinoViT(nn.Module):
             self.add_module(f"block_{i}", DinoBlock(cfg))
         self.final_norm = LayerNorm(d)
 
-    def forward(self, pixel_values: torch.Tensor
+    def forward(self, pixel_values: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
         B = pixel_values.shape[0]
@@ -98,7 +105,7 @@ class DinoViT(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(B, 1, cfg.d_model)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         for i in range(cfg.n_layers):
-            x = getattr(self, f"block_{i}")(x)
+            x = getattr(self, f"block_{i}")(x, train, gen)
         x = self.final_norm(x).to(pixel_values.dtype)
         return x[:, 0], x[:, 1:]
 
@@ -166,3 +173,20 @@ def convert_hf_dinov2(state_dict: dict, cfg: ViTConfig) -> dict:
     out["final_norm.weight"] = sd["layernorm.weight"]
     out["final_norm.bias"] = sd["layernorm.bias"]
     return out
+
+
+def load_vit_params(path: str, cfg: ViTConfig) -> dict:
+    """A converted RAD-DINO checkpoint (``scripts/convert_rad_dino.py``
+    output, the JAX package's ``save_checkpoint`` format) as a ``DinoViT``
+    state dict, every array's presence and shape checked against
+    ``DinoViT(cfg)``: the counterpart of the JAX package's
+    ``models/vit.py::load_vit_params``. Raises ``ValueError`` on a missing,
+    left-over or misshapen array (a checkpoint of another geometry)."""
+    from ..convert import check_fit, flax_to_state_dict
+    from ..train.checkpoint import load_checkpoint
+    sd = flax_to_state_dict(load_checkpoint(path)["params"])
+    with torch.device("meta"):
+        want = DinoViT(cfg).state_dict()
+    check_fit(sd, want, f"{path} (ViT {cfg.n_layers} layers, "
+                        f"d={cfg.d_model}, image {cfg.image_size})")
+    return sd

@@ -2,23 +2,27 @@
 
 ``flash_mha`` is the counterpart of ``multimodal_edema_prediction_tpu/ops/
 attention.py::flash_mha``: non-causal softmax(Q Kᵀ·sm_scale)·V on
-``[B, H, N, D]``. On a CUDA tensor it launches the hand-written kernel in
-``csrc/flash_attention.cu`` (D = 64, float32 or bfloat16) and raises if it
-cannot; on a CPU tensor it runs ``flash_mha_reference``, the plain version,
-which is also the kernel's oracle in the tests and in ``chip_smoke.py``.
-There is no fallback from one to the other. The kernel is forward only: on
-a CUDA tensor that needs a gradient the wrapper raises (the CPU path stays
-differentiable).
+``[B, H, N, D]``, differentiable. On a CUDA tensor it launches the
+hand-written kernels (D = 64, float32 or bfloat16): the forward in
+``csrc/flash_attention.cu`` and, when q, k or v needs a gradient, the dkv
+and dq backward kernels in ``csrc/flash_attention_bwd.cu`` behind a
+``torch.autograd.Function``, whose forward also keeps each query row's
+log-sum-exp for them. On a CPU tensor the same Function runs the plain
+versions, ``flash_mha_reference`` and ``flash_mha_backward_reference``,
+which are also the kernels' oracles in the tests and in ``chip_smoke.py``.
+There is no fallback from one to the other: a kernel that cannot build or
+launch raises.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 # launches of each kernel wrapper; chip_smoke.py resets and reads them
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dkv": 0,
+            "flash_attention_bwd_dq": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -26,6 +30,18 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor, sm_scale: float,
+                   kv_valid: Optional[int]) -> torch.Tensor:
+    """float32 Q Kᵀ with keys at or past ``kv_valid`` biased by -1e30, then
+    scaled (the order of the JAX package's masked ``mha_reference``)."""
+    Nk = k.shape[2]
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if kv_valid is not None and kv_valid < Nk:
+        pad = torch.arange(Nk, device=q.device) >= kv_valid
+        logits = logits + pad.float() * -1e30
+    return logits * sm_scale
 
 
 def flash_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -37,45 +53,51 @@ def flash_mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     accumulation type), returned in the input dtype. ``q_valid`` is accepted
     for parity: rows past it are garbage by contract either way."""
     del q_valid
-    Nk = k.shape[2]
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    if kv_valid is not None and kv_valid < Nk:
-        pad = torch.arange(Nk, device=q.device) >= kv_valid
-        logits = logits + pad.float() * -1e30
-    weights = torch.softmax(logits * sm_scale, dim=-1)
+    weights = torch.softmax(_scaled_logits(q, k, sm_scale, kv_valid), dim=-1)
     return torch.matmul(weights, v.float()).to(q.dtype)
 
 
+def flash_mha_lse_reference(q: torch.Tensor, k: torch.Tensor,
+                            sm_scale: float = 1.0,
+                            kv_valid: Optional[int] = None) -> torch.Tensor:
+    """The forward kernel's second output, plainly: float32 [B, H, Nq]
+    log-sum-exp of each query row's scaled, masked scores (JAX's ``m +
+    log(l)`` of ``mha_reference_no_custom_vjp(save_residuals=True)``)."""
+    return torch.logsumexp(_scaled_logits(q, k, sm_scale, kv_valid), dim=-1)
+
+
+def flash_mha_backward_reference(q, k, v, o, lse, do, sm_scale: float = 1.0,
+                                 kv_valid: Optional[int] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """(dq, dk, dv) of ``flash_mha`` at ``do``, plainly and in float32, as
+    JAX 0.9.0's ``mha_reference_bwd`` writes them out
+    (``flash_attention.py:1615-1674``), with the scale carried through:
+    P = exp(S·scale − lse), dV = Pᵀ·dO, dP = dO·Vᵀ, D = rowsum(dO∘O),
+    dS = P∘(dP − D), dQ = dS·K·scale, dK = dSᵀ·Q·scale. Returned in the
+    inputs' dtypes."""
+    p = torch.exp(_scaled_logits(q, k, sm_scale, kv_valid)
+                  - lse.float()[..., None])
+    dof = do.float()
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, v.float().transpose(-1, -2))
+    ds = p * (dp - (o.float() * dof).sum(-1, keepdim=True))
+    dq = torch.matmul(ds, k.float()) * sm_scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * sm_scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
-    """The kernel reads 16-byte rows: head dim contiguous, other strides a
+    """The kernels read 16-byte rows: head dim contiguous, other strides a
     multiple of 8 elements, base 16-byte aligned. Other layouts are copied."""
     ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
           and all(s % 8 == 0 for s in x.stride()[:-1]))
     return x if ok else x.contiguous()
 
 
-def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              sm_scale: float = 1.0, q_valid: Optional[int] = None,
-              kv_valid: Optional[int] = None) -> torch.Tensor:
-    """[B, H, Nq, D] x [B, H, Nk, D] attention. Keys at or past ``kv_valid``
-    get zero probability; query rows at or past ``q_valid`` are computed but
-    meaningless (the caller slices them off).
-
-    CUDA tensors go through the kernel, whose output is laid out as
-    [B, Nq, H, D] and returned as a [B, H, Nq, D] view, so the caller's
-    merge of heads is free. CPU tensors go through ``flash_mha_reference``.
-    """
-    if q.device.type == "cpu":
-        return flash_mha_reference(q, k, v, sm_scale, q_valid, kv_valid)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_mha: no kernel for device {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
-        # the forward kernel's output has no grad_fn: a gradient would be
-        # dropped without a word
-        raise NotImplementedError(
-            "flash_mha on CUDA has no backward kernel yet (ROADMAP K1 "
-            "backward); run the frozen ViT under torch.no_grad()")
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           kv_valid: Optional[int]) -> int:
+    """What the kernels take; returns the number of keys that take part."""
     B, H, Nq, D = q.shape
     Nk = k.shape[2]
     if D != 64:
@@ -92,26 +114,141 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     n_keys = Nk if kv_valid is None else int(kv_valid)
     if not 1 <= n_keys <= Nk:
         raise ValueError(f"flash_mha: kv_valid {kv_valid} outside [1, {Nk}]")
-    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
-    out = torch.empty(B, Nq, H, D, dtype=q.dtype, device=q.device)
-    o = out.permute(0, 2, 1, 3)
+    return n_keys
 
+
+def _bound(name: str, n_ptr: int, n_int: int):
+    """The C entry point ``name`` with its ctypes signature: dtype, then
+    ``n_ptr`` pointers, ``n_int`` ints, the scale, the strides and the
+    stream."""
     from .build import load
-    fn = load("flash_attention").flash_attention_fwd
+    lib = "flash_attention_bwd" if "bwd" in name else "flash_attention"
+    fn = getattr(load(lib), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + \
-            [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p,
-                                  ctypes.c_void_p]
-    strides = (ctypes.c_longlong * 12)(*(
-        s for t in (q, k, v, o) for s in t.stride()[:3]))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 o.data_ptr(), B, H, Nq, Nk, n_keys, float(sm_scale),
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + \
+            [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p,
+                                      ctypes.c_void_p]
+    return fn
+
+
+def _launch(name: str, n_ptr: int, tensors, ints, sm_scale: float,
+            strided, device) -> None:
+    """Launch ``name`` on the current stream; raise if CUDA refused it."""
+    fn = _bound(name, n_ptr, len(ints))
+    strides = (ctypes.c_longlong * (3 * len(strided)))(*(
+        s for t in strided for s in t.stride()[:3]))
+    ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(_DTYPES[tensors[0].dtype], *ptrs, *ints, float(sm_scale),
                  ctypes.addressof(strides), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _bnhd_empty(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor like [B, H, N, D] ``x``, laid out as [B, N, H, D]
+    (the layout of the projections the ViT views q, k, v from) and returned
+    as a [B, H, N, D] view."""
+    B, H, N, D = x.shape
+    return torch.empty(B, N, H, D, dtype=x.dtype,
+                       device=x.device).permute(0, 2, 1, 3)
+
+
+def forward_kernel(q, k, v, sm_scale: float, n_keys: int, with_lse: bool):
+    """K1's forward on ready tensors: (o, lse or None). ``o`` is laid out
+    as [B, Nq, H, D] and returned as a [B, H, Nq, D] view."""
+    B, H, Nq, D = q.shape
+    o = _bnhd_empty(q)
+    lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) \
+        if with_lse else None
+    _launch("flash_attention_fwd", 5, (q, k, v, o, lse),
+            (B, H, Nq, k.shape[2], n_keys), sm_scale, (q, k, v, o), q.device)
     LAUNCHES["flash_attention"] += 1
-    return o
+    return o, lse
+
+
+def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO∘O) in float32, [B, H, Nq] contiguous: the backward
+    kernels' second row statistic, computed outside them as JAX computes
+    ``di`` (``flash_attention.py:273-275``)."""
+    return (o.float() * do.float()).sum(-1).contiguous()
+
+
+def dkv_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
+    """K1's dkv kernel on ready tensors: (dk, dv)."""
+    dk, dv = _bnhd_empty(k), _bnhd_empty(v)
+    _launch("flash_attention_bwd_dkv", 8, (q, k, v, do, lse, dlt, dk, dv),
+            (q.shape[0], q.shape[1], q.shape[2], k.shape[2], n_keys),
+            sm_scale, (q, k, v, do, dk, dv), q.device)
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def dq_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
+    """K1's dq kernel on ready tensors: dq."""
+    dq = _bnhd_empty(q)
+    _launch("flash_attention_bwd_dq", 7, (q, k, v, do, lse, dlt, dq),
+            (q.shape[0], q.shape[1], q.shape[2], k.shape[2], n_keys),
+            sm_scale, (q, k, v, do, dq), q.device)
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+class _FlashMHA(torch.autograd.Function):
+    """``flash_mha`` with a gradient: the kernels on a CUDA tensor, the plain
+    versions on a CPU tensor, the same wiring (lse saved by the forward, D
+    and the [B, N, H, D] gradient layouts in the backward) either way."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale: float, kv_valid: Optional[int]):
+        if q.device.type == "cpu":
+            o = flash_mha_reference(q, k, v, sm_scale, kv_valid=kv_valid)
+            lse = flash_mha_lse_reference(q, k, sm_scale, kv_valid)
+        else:
+            n_keys = _check(q, k, v, kv_valid)
+            q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+            o, lse = forward_kernel(q, k, v, sm_scale, n_keys, True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.sm_scale, ctx.kv_valid = sm_scale, kv_valid
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_mha_backward_reference(
+                q, k, v, o, lse, do, ctx.sm_scale, ctx.kv_valid)
+        else:
+            do = _kernel_ready(do.to(q.dtype))
+            n_keys = _check(q, k, v, ctx.kv_valid)
+            dlt = delta(o, do)
+            dk, dv = dkv_kernel(q, k, v, do, lse, dlt, ctx.sm_scale, n_keys)
+            dq = dq_kernel(q, k, v, do, lse, dlt, ctx.sm_scale, n_keys)
+        return dq, dk, dv, None, None
+
+
+def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              sm_scale: float = 1.0, q_valid: Optional[int] = None,
+              kv_valid: Optional[int] = None) -> torch.Tensor:
+    """[B, H, Nq, D] x [B, H, Nk, D] attention. Keys at or past ``kv_valid``
+    get zero probability; query rows at or past ``q_valid`` are computed but
+    meaningless (the caller slices them off).
+
+    CUDA tensors go through the kernels, whose outputs are laid out as
+    [B, N, H, D] and returned as [B, H, N, D] views, so the caller's merge
+    of heads (and the projections' gradients) are free. Without a gradient
+    to keep, the forward writes no log-sum-exp. CPU tensors go through the
+    plain versions.
+    """
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_mha: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashMHA.apply(q, k, v, float(sm_scale), kv_valid)
+    if q.device.type == "cpu":
+        return flash_mha_reference(q, k, v, sm_scale, q_valid, kv_valid)
+    n_keys = _check(q, k, v, kv_valid)
+    q, k, v = _kernel_ready(q), _kernel_ready(k), _kernel_ready(v)
+    return forward_kernel(q, k, v, sm_scale, n_keys, False)[0]

@@ -3,9 +3,10 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C entry point, loaded with ``ctypes``. Libraries go to
 ``build/torch_kernels/`` at the repo root (listed in ``.gitignore``), keyed by
-a hash of the source and flags, so a checkout builds them at first use and
-reuses them afterwards. Nothing here runs at import time: this module imports
-on a machine without ``nvcc`` or a card.
+a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so a
+checkout builds them at first use and reuses them afterwards. Nothing here
+runs at import time: this module imports on a machine without ``nvcc`` or a
+card.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # the kernels of the port: library name -> source file under csrc/
 SOURCES = {"flash_attention": "flash_attention.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "gather_rows": "gather_rows.cu"}
 
 _lock = threading.Lock()
@@ -45,8 +47,11 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [SOURCES[name]] + sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

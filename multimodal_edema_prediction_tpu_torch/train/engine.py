@@ -7,7 +7,9 @@ A step runs eagerly on the device that holds the batch: window gather →
 augmentation → model forward/backward → optimizer update. The encode-once
 tier's ``feature_source`` (``data/features.py``) and the pixel tier's
 ``image_source`` share one code path, as in JAX: the first replaces the ViT
-forward with two K2 gathers.
+forward with two K2 gathers. On the pixel tier with ``freeze_cxr=False`` the
+ViT trains in the step: nothing here detaches its tokens, and its
+attention's backward runs K1's dkv and dq kernels.
 """
 from __future__ import annotations
 

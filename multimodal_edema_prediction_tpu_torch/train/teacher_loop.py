@@ -12,10 +12,12 @@ Image tiers: ``feature_cache="none"`` runs the frozen ViT inside every step
 on pixels; ``"hbm"`` encodes every unique image once into a
 ``CXRFeatureBank`` on the card and gathers its rows through K2 in every
 train and eval step; ``"auto"`` takes the bank when it fits
-``hbm_feature_budget_gb``. Single process only. Not ported yet, each named
-by its ROADMAP item: the host feature store (P8), LP mode and the other
-perceiver modes (P13), full-state resume (P16), multi-process (P18), and
-training through the ViT (K1 backward).
+``hbm_feature_budget_gb``. With ``freeze_cxr=False`` the ViT trains inside
+every step on pixels (its attention's gradient through K1's backward
+kernels), so only ``feature_cache="none"`` is legal. Single process only.
+Not ported yet, each named by its ROADMAP item: the host feature store
+(P8), LP mode and the other perceiver modes (P13), full-state resume (P16),
+multi-process (P18).
 """
 from __future__ import annotations
 
@@ -74,10 +76,6 @@ def check_ported(cfg: TeacherConfig) -> None:
         raise NotImplementedError(
             f"perceiver_type={cfg.perceiver_type!r} is not ported yet "
             "(ROADMAP P13); the port trains 'dual_patch'")
-    if not cfg.freeze_cxr:
-        raise NotImplementedError(
-            "freeze_cxr=False (--unfreeze_cxr) trains through the ViT, whose "
-            "attention kernel has no backward yet (ROADMAP K1 backward)")
 
 
 def build_feature_bank(model, dataset: AnchorDataset, image_hook, dtype
@@ -120,16 +118,22 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     checkpoint, the per-epoch history and the test metrics.
 
     ``model``: the initial weights (default: ``init_teacher`` from
-    ``cfg.seed``); it is moved to ``device`` and trained in place.
+    ``cfg.seed``), e.g. with a loaded RAD-DINO ViT
+    (``models/vit.py::load_vit_params``); it is moved to ``device`` and
+    trained in place.
     ``image_hook``: host batch hook that attaches ``pixel_values`` (default:
     the synthetic cohort's procedural images); the pixel tier runs it on
     every batch, the encode-once tier once per unique image."""
     check_ported(teacher_cfg)
+    if feature_cache not in ("none", "auto", "hbm", "host"):
+        raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
+    if feature_cache != "none" and not teacher_cfg.freeze_cxr:
+        raise ValueError(
+            "feature_cache requires freeze_cxr=True: cached ViT tokens are "
+            "constants, so a trainable CXR branch would never update")
     if feature_cache == "host":
         raise NotImplementedError("feature_cache='host' (the host feature "
                                   "store) is not ported yet (ROADMAP P8)")
-    if feature_cache not in ("none", "auto", "hbm"):
-        raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     if model is None:

@@ -5,9 +5,12 @@ without the suite's conftest, which imports JAX:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: K1 bf16 2e-2 (P and the output rounded to bf16 against a
-float32 plain version), float32 1e-5 (TF32 off; another summation order);
-K2 bit-exact (a gather moves bytes).
+Tolerances: K1 forward bf16 2e-2 (P and the output rounded to bf16 against
+a float32 plain version), float32 1e-5 (TF32 off; another summation order);
+K1 backward bf16 2e-2 and float32 1e-4 of each gradient's largest magnitude
+(P and dS rounded to bf16 before their products; in float32, exp of
+recomputed scores against the plain softmax); K2 bit-exact (a gather moves
+bytes).
 """
 import numpy as np
 import pytest
@@ -78,15 +81,81 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         A.flash_mha(f, f, f, kv_valid=0)
 
 
-def test_flash_refuses_a_gradient_it_cannot_give(cuda):
-    """The forward kernel's output has no grad_fn: on the card a q, k or v
-    that requires a gradient raises instead of losing it."""
-    q = torch.zeros(1, 2, 300, 64, device=cuda, requires_grad=True)
-    k = torch.zeros(1, 2, 300, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="K1 backward"):
-        A.flash_mha(q, k, k, 0.125)
-    with torch.no_grad():
-        assert A.flash_mha(q, k, k, 0.125).grad_fn is None
+def _grads(q, k, v, do, kv_valid):
+    """(o, dq, dk, dv) of ``flash_mha`` at ``do``, through the autograd
+    Function (the kernels on the card)."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    o = A.flash_mha(q, k, v, 0.125, kv_valid=kv_valid)
+    return (o, *torch.autograd.grad(o, (q, k, v), do))
+
+
+def _plain_grads(q, k, v, do, kv_valid):
+    o = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
+    lse = A.flash_mha_lse_reference(q, k, 0.125, kv_valid)
+    return A.flash_mha_backward_reference(q, k, v, o, lse, do, 0.125,
+                                          kv_valid)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("Nq,Nk,kv_valid", [
+    (1, 1, None), (63, 63, None), (64, 64, None), (65, 65, 1),
+    (300, 300, 257), (7, 1369, None), (1370, 1370, 1370)])
+def test_backward_kernels_match_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
+    """dq, dk, dv from the dkv and dq kernels against
+    ``flash_mha_backward_reference`` (float32, from the plain forward's o
+    and lse), each relative to its largest magnitude floored at 1e-2 (at
+    one key dS is 0 and the gradients of q and k are rounding noise);
+    keys at or past ``kv_valid`` get exactly zero dk and dv."""
+    q, k, v = _qkv(2, 3, Nq, Nk, dtype, cuda)
+    do = _qkv(2, 3, Nq, Nq, dtype, cuda, seed=1)[0]
+    before = dict(A.LAUNCHES)
+    _, *got = _grads(q, k, v, do, kv_valid)
+    torch.cuda.synchronize()
+    for name in ("flash_attention", "flash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq"):
+        assert A.LAUNCHES[name] == before[name] + 1, name
+    want = _plain_grads(q, k, v, do, kv_valid)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        scale = max(w.float().abs().max().item(), 1e-2)
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= tol * scale, f"d{name}: {err} vs scale {scale}"
+    if kv_valid is not None and kv_valid < Nk:
+        assert not got[1][:, :, kv_valid:].any()
+        assert not got[2][:, :, kv_valid:].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_forward_lse_matches_logsumexp(cuda, dtype):
+    """The forward's log-sum-exp output against the plain logsumexp of the
+    scaled, masked scores (float32 accumulation on both sides)."""
+    q, k, _ = _qkv(2, 3, 300, 300, dtype, cuda)
+    _, lse = A.forward_kernel(q, k, k, 0.125, 257, True)
+    want = A.flash_mha_lse_reference(q, k, 0.125, 257)
+    assert (lse - want).abs().max().item() <= 1e-4
+
+
+def test_backward_is_bit_reproducible_on_strided_views(cuda):
+    """No atomics: two backward passes give the same bits. q, k, v are
+    [B, N, H·64] projections viewed as [B, H, N, 64], as the ViT passes
+    them; their gradients come back in that layout."""
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(2, 300, 3 * 128, generator=g, device=cuda).bfloat16()
+    x.requires_grad_()
+    q, k, v = (x[..., i * 128:(i + 1) * 128].view(2, 300, 2, 64)
+               .transpose(1, 2) for i in range(3))
+    do = torch.randn(2, 2, 300, 64, generator=g, device=cuda).bfloat16()
+    runs = []
+    for _ in range(2):
+        o = A.flash_mha(q, k, v, 0.125)
+        runs.append(torch.autograd.grad(o, (x,), do)[0])
+    assert torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
+    want = _plain_grads(q.detach(), k.detach(), v.detach(), do, None)
+    got = runs[0].view(2, 300, 3, 2, 64).permute(2, 0, 3, 1, 4)
+    for gi, w in zip(got, want):
+        scale = w.float().abs().max().item()
+        assert (gi.float() - w.float()).abs().max().item() <= 2e-2 * scale
 
 
 @pytest.mark.parametrize("shape,dtype", [

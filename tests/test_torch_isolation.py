@@ -29,8 +29,8 @@ def _all_port_modules():
 
 def test_imports_bring_in_no_jax():
     mods = _all_port_modules()
-    for name in ("serve.predictor", "ops.gather", "data.features",
-                 "train.teacher_loop", "cli.train_teacher"):
+    for name in ("serve.predictor", "ops.gather", "ops.attention",
+                 "data.features", "train.teacher_loop", "cli.train_teacher"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -99,6 +99,30 @@ def test_flash_wrapper_plain_path_is_cpu_only(monkeypatch):
     cpu = torch.zeros(1, 2, 300, 64)
     with pytest.raises(AssertionError, match="plain version taken"):
         attention.flash_mha(cpu, cpu, cpu, 0.125)   # CPU does take it
+
+
+def test_flash_backward_plain_path_is_cpu_only(monkeypatch):
+    """The gradient's plain version too runs only for CPU tensors."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain backward taken for a non-CPU tensor")
+
+    monkeypatch.setattr(attention, "flash_mha_backward_reference", forbidden)
+    q = torch.empty(1, 2, 300, 64, device="meta", requires_grad=True)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        attention.flash_mha(q, q, q, 0.125)
+    cpu = torch.zeros(1, 2, 300, 64, requires_grad=True)
+    out = attention.flash_mha(cpu, cpu, cpu, 0.125)
+    with pytest.raises(AssertionError, match="plain backward taken"):
+        out.sum().backward()                        # CPU does take it
+
+
+def test_every_kernel_source_is_built():
+    """``ops/build.py`` builds every CUDA source of ``csrc/`` (what
+    ``chip_smoke.py`` compiles), the backward kernels' among them."""
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    sources = sorted(f for f in os.listdir(build.CSRC) if f.endswith(".cu"))
+    assert sorted(build.SOURCES.values()) == sources
+    assert "flash_attention_bwd.cu" in sources
 
 
 def test_gather_wrapper_plain_path_is_cpu_only(monkeypatch):

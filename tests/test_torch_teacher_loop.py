@@ -1,6 +1,7 @@
 """The port's teacher loop (``train/teacher_loop.py::train_teacher``) against
-the JAX package's, end to end on the encode-once tier, and what the loop and
-the CLI refuse.
+the JAX package's, end to end on the encode-once tier; what the loop and
+the CLI refuse; and the CLI training the ViT (``--unfreeze_cxr``) on the
+pixel tier.
 
 Both loops start from the same converted weights on the same synthetic
 cohort, with ``feature_cache="hbm"``, float32, dropout and augmentation off,
@@ -14,6 +15,7 @@ and val AUROCs within 5e-3 relative (the precedent of
 import jax
 import numpy as np
 import pytest
+import torch
 
 from multimodal_edema_prediction_tpu.config import (
     DataConfig as JData, DuettConfig as JDuett, OptimConfig as JOptim,
@@ -23,15 +25,20 @@ from multimodal_edema_prediction_tpu.data import pipeline as JP
 from multimodal_edema_prediction_tpu.data import synthetic as JS
 from multimodal_edema_prediction_tpu.models.teacher import TeacherModel as JT
 from multimodal_edema_prediction_tpu.train import teacher_loop as JL
+from multimodal_edema_prediction_tpu.train.checkpoint import \
+    load_checkpoint as jax_load
 from multimodal_edema_prediction_tpu_torch.cli import train_teacher as cli
 from multimodal_edema_prediction_tpu_torch.config import (DataConfig,
                                                           TeacherConfig,
                                                           TrainConfig)
-from multimodal_edema_prediction_tpu_torch.convert import load_flax
+from multimodal_edema_prediction_tpu_torch.convert import load_flax, to_flax
 from multimodal_edema_prediction_tpu_torch.data import pipeline as P
 from multimodal_edema_prediction_tpu_torch.data import synthetic as S
-from multimodal_edema_prediction_tpu_torch.models.teacher import TeacherModel
+from multimodal_edema_prediction_tpu_torch.models.teacher import (
+    TeacherModel, init_teacher)
 from multimodal_edema_prediction_tpu_torch.train import teacher_loop as L
+from multimodal_edema_prediction_tpu_torch.train.checkpoint import \
+    load_checkpoint
 
 JCFG = JTeacher(
     duett=JDuett(n_variables=8, n_timesteps=24, d_static=18, d_embedding=8,
@@ -114,7 +121,6 @@ def _tiny(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"freeze_cxr": False}, "K1 backward"),
     ({"perceiver_type": "dual"}, "P13")])
 def test_loop_refuses_what_is_not_ported(kw, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
@@ -126,8 +132,18 @@ def test_loop_refuses_what_is_not_ported(kw, match, tmp_path):
                         feature_cache="host")
 
 
+@pytest.mark.parametrize("feature_cache", ["hbm", "auto"])
+def test_loop_refuses_a_feature_cache_for_a_trainable_vit(feature_cache,
+                                                          tmp_path):
+    """The JAX loop's rule (``teacher_loop.py:204-207``): cached ViT tokens
+    are constants, so a trainable CXR branch takes the pixel tier only."""
+    with pytest.raises(ValueError, match="freeze_cxr=True"):
+        L.train_teacher(None, _tiny(freeze_cxr=False), TrainConfig(),
+                        str(tmp_path), DataConfig().pathology_labels,
+                        device="cpu", feature_cache=feature_cache)
+
+
 @pytest.mark.parametrize("argv,match", [
-    (["--unfreeze_cxr"], "K1 backward"),
     (["--cxr_jpeg_root", "/x"], "P15"),
     (["--resume_dir", "/x"], "P16"),
     (["--state_backend", "orbax"], "P16"),
@@ -135,7 +151,6 @@ def test_loop_refuses_what_is_not_ported(kw, match, tmp_path):
     (["--perceiver_type", "single"], "P13"),
     (["--steps_per_call", "4"], "P10"),
     (["--vit_quant", "int8"], "P20"),
-    (["--vit_weights", "/x"], "P3"),
     (["--duett_ckpt", "/x"], "P12"),
     (["--cxr_feature_cache", "host"], "P8"),
     (["--cxr_feature_cache", "auto", "--hbm_feature_budget_gb", "0"], "P8")])
@@ -154,3 +169,48 @@ def test_cli_trains_on_the_cpu_when_asked(tmp_path):
                     "--ckpt_dir", str(tmp_path)])
     assert np.isfinite(res.history[0]["train_total"])
     assert res.best_path.startswith(str(tmp_path))
+
+
+@pytest.mark.parametrize("argv,error", [
+    (["--unfreeze_cxr", "--vit_quant", "int8"], SystemExit),
+    (["--unfreeze_cxr", "--cxr_feature_cache", "hbm"], ValueError)])
+def test_cli_refuses_an_unfrozen_vit_it_cannot_train(argv, error, tmp_path):
+    """As the JAX CLI: int8 matmuls are inference-only (an argument error),
+    and the encode-once tier needs a frozen branch."""
+    with pytest.raises(error):
+        cli.main(["--device", "cpu", "--vit_size", "tiny",
+                  "--synthetic_stays", "40", "--ckpt_dir", str(tmp_path)]
+                 + argv)
+
+
+def test_cli_trains_the_vit_when_unfrozen(tmp_path):
+    """``--unfreeze_cxr`` on the pixel tier: 2 batches on the CPU move the
+    ViT's parameters (and DuETT's and the perceiver's). The checkpoint's
+    trained ``cxr`` subtree reads the same in both packages' loaders, and
+    round-trips torch → flax msgpack → torch → flax bit for bit."""
+    res = cli.main(["--device", "cpu", "--vit_size", "tiny",
+                    "--unfreeze_cxr", "--synthetic_stays", "60",
+                    "--batch_size", "16", "--epochs", "1",
+                    "--limit_batches", "2", "--warmup_steps", "2",
+                    "--ckpt_dir", str(tmp_path)])
+    assert np.isfinite(res.history[0]["train_total"])
+    model, tcfg, ck = L.load_teacher_from_ckpt(res.best_path, device="cpu")
+    assert not tcfg.freeze_cxr
+    init = dict(init_teacher(tcfg, ck["config"]["train"]["seed"])
+                .named_parameters())
+    trained = dict(model.named_parameters())
+    for prefix in ("cxr.", "duett.", "perceiver."):
+        weights = [k for k in trained if k.startswith(prefix)
+                   and trained[k].dim() >= 2]
+        assert weights and all(not torch.equal(trained[k], init[k])
+                               for k in weights), prefix
+    ours = load_checkpoint(res.best_path)["params"]["cxr"]
+    theirs = jax_load(res.best_path)["params"]["cxr"]
+    again = to_flax(model)[0]["cxr"]
+    flat = jax.tree_util.tree_flatten_with_path(ours)[0]
+    for other in (theirs, again):
+        other = dict(jax.tree_util.tree_flatten_with_path(other)[0])
+        assert len(other) == len(flat) > 0
+        for path, leaf in flat:
+            np.testing.assert_array_equal(np.asarray(other[path]), leaf,
+                                          err_msg=str(path))
