@@ -67,8 +67,33 @@ Training through the ViT (``--unfreeze_cxr``, ROADMAP S3) adds:
             events), peak memory (and its estimate at batch 128), and a
             ``torch.profiler`` breakdown.
 
-Then the least times of the two kernels still to port (K3, K4) at the main
-path's shapes, the kernel summary line and, last,
+The last two TPU kernels (K3 fused DuETT block, K4 fused LayerNorm → QKV)
+and DuETT SSL pretraining (ROADMAP P12) add:
+
+3c. dual_axis  holds K3 against ``encoder_block_reference`` at DuETT's two
+            axes, event [32, 35, 600] and time [32, 25, 840] (2 heads × 12,
+            FF 512), in bf16 and float32; reruns bit-equal; times the kernel,
+            the plain version and the bound; one backward through the
+            autograd Function against autograd of the plain version.
+3d. ln_qkv  holds K4 against ``ln_qkv_reference`` at the ViT's
+            [32, 1536, 768] (12 × 64, bf16) and [2, 512, 256] (4 × 64,
+            float32); reruns bit-equal; times the kernel, the plain version,
+            the bound and a yardstick of several PyTorch calls.
+11. ssl     the SSL CLI (``cli/train_ssl.main``) at the full default DuETT
+            width on the 240 synthetic stays, batch 128, 2 epochs; every
+            kernel's launches counted over exactly this run (none of the
+            six is on this path); finite losses, the train loss falling,
+            ``meta_with_stats.pkl`` written, the best checkpoint reloaded
+            evaluates the val split as the loop did; then the steady SSL
+            step (CUDA events, peak memory, ``torch.profiler``).
+12. trained_layer  K3 fed each DuETT axis's first layer's own input (a
+            forward hook in a bf16 eval step of the best SSL checkpoint)
+            with that layer's weights, against the layer's output.
+13. ssl_to_teacher  the teacher CLI with ``--duett_ckpt`` on the
+            encode-once tier (1 epoch of 4 batches of 32): its DuETT starts
+            equal to the SSL encoder; finite losses; launches counted.
+
+Then the kernel summary line (six kernels) and, last,
 ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -108,7 +133,15 @@ K1_DQ_REPLACES = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
                   "(pallas_call of _flash_attention_bwd_dq :1287, kernel "
                   "_flash_attention_dq_kernel :1146), the gradient of "
                   "multimodal_edema_prediction_tpu/ops/attention.py:127")
+K3_SOURCE = f"{PKG}/csrc/dual_axis_block.cu"
+K3_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_dual_axis.py:192 "
+               "fused_encoder_block (pallas_call :171, _fused_forward :136, "
+               ":78 _block_kernel)")
+K4_SOURCE = f"{PKG}/csrc/ln_qkv.cu"
+K4_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_ln_qkv.py:126 "
+               "fused_ln_qkv (pallas_call :108, _forward :82, :58 _kernel)")
 RUNS = os.path.join(REPO, "build", "chip_smoke_runs")
+SSL_RUNS = os.path.join(REPO, "build", "chip_smoke_ssl")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
@@ -128,6 +161,15 @@ TOL_BWD_F32 = 1e-4
 # the forward's log-sum-exp against torch.logsumexp of the same scores,
 # absolute: both accumulate in float32, on values ≲ 10
 TOL_LSE = 1e-4
+# K3 and K4 against their plain versions, relative to each output's max
+# abs. Both sides take the same inputs and weights (cast to x's dtype) and
+# compute in float32, in other summation orders; at bf16 the output (and
+# K4's h) is rounded to bf16, 2^-8 relative.
+TOL_FUSED_BF16 = 2e-2
+TOL_FUSED_F32 = 1e-4
+# K3 fed a trained DuETT layer's own input at bf16, against that layer's
+# output: the layer rounds every product to bf16 (both take GELU's tanh form)
+TOL_TRAINED_LAYER = 2e-2
 # one full-width DinoBlock, float32, TF32 off: every parameter's and the
 # input's gradient on the card (K1's float32 kernels, cuBLAS) against a CPU
 # copy running the plain versions, relative to each gradient's max abs
@@ -162,27 +204,32 @@ def import_port():
     and check that it covers the port and that no JAX comes with it)."""
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
-    from multimodal_edema_prediction_tpu_torch import config
+    from multimodal_edema_prediction_tpu_torch import config, convert
     from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
-    from multimodal_edema_prediction_tpu_torch.cli import train_teacher
+    from multimodal_edema_prediction_tpu_torch.cli import (train_ssl,
+                                                           train_teacher)
     from multimodal_edema_prediction_tpu_torch.data import (features, ingest,
-                                                            pipeline,
+                                                            pipeline, sliding,
                                                             synthetic)
-    from multimodal_edema_prediction_tpu_torch.models import teacher, vit
+    from multimodal_edema_prediction_tpu_torch.models import (duett, teacher,
+                                                              vit)
     from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
-                                                           gather)
+                                                           dual_axis, gather,
+                                                           ln_qkv)
     from multimodal_edema_prediction_tpu_torch.serve import predictor, server
     from multimodal_edema_prediction_tpu_torch.train import (checkpoint,
                                                              engine, optim,
-                                                             state,
+                                                             ssl_loop, state,
                                                              teacher_loop)
-    return dict(config=config, teacher=teacher, vit=vit, attention=attention,
-                build=build, gather=gather, predictor=predictor,
+    return dict(config=config, convert=convert, teacher=teacher, vit=vit,
+                duett=duett, attention=attention, build=build, gather=gather,
+                dual_axis=dual_axis, ln_qkv=ln_qkv, predictor=predictor,
                 server=server, engine=engine, checkpoint=checkpoint,
                 optim=optim, state=state, teacher_loop=teacher_loop,
-                features=features, pipeline=pipeline, synthetic=synthetic,
-                ingest=ingest, cli_serve=cli_serve,
-                train_teacher=train_teacher)
+                ssl_loop=ssl_loop, features=features, pipeline=pipeline,
+                sliding=sliding, synthetic=synthetic, ingest=ingest,
+                cli_serve=cli_serve, train_teacher=train_teacher,
+                train_ssl=train_ssl)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -902,45 +949,428 @@ def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
     return info
 
 
-def bounds_to_port(cfg, batch: int = 32) -> dict:
-    """The least times of the TPU kernels still to port, at the main path's
-    shapes and batch, from the H100's peaks (bf16 operations; inputs read
-    once and outputs written once; float32 weights, as the parameters are
-    kept):
+def reset_counts(port) -> None:
+    for name in ("attention", "gather", "dual_axis", "ln_qkv"):
+        port[name].reset_launches()
 
-    - K3 (one DuETT dual-axis block, ``ops/pallas_dual_axis.py``): the event
-      axis (L = V+1 tokens of D = et_dim) and the time axis (L = T+1 tokens
-      of D = tt_dim), 2 heads × d_head 12, FF d_feedforward; QKV, QKᵀ, PV,
-      W_o and the two FF matmuls.
-    - K4 (LayerNorm + QKV projection, ``ops/pallas_ln_qkv.py``): x
-      [B, 1370, 768] bf16 → q, k, v [B, 12, 1370, 64] bf16, W [768, 2304].
-    """
-    d, v = cfg.duett, cfg.vit
 
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                "flops": flops, "bytes": nbytes}
+def read_counts(port) -> dict:
+    return {k: v for name in ("attention", "gather", "dual_axis", "ln_qkv")
+            for k, v in port[name].LAUNCHES.items()}
 
+
+def dual_axis_bound_ms(B, L, D, inner, ff, itemsize, peak_flops) -> tuple:
+    """(bound_ms, bound_by) of one K3 call: the QKV, QKᵀ, PV, W_o and the two
+    FF products against ``peak_flops``; x read and the output written once
+    in x's dtype, the float32 parameters read once."""
+    flops = 2.0 * B * L * (3 * D * inner + inner * D + 2 * D * ff) \
+        + 4.0 * B * L * L * inner
+    nbytes = 2.0 * itemsize * B * L * D \
+        + 4.0 * (4 * D * inner + 2 * D * ff + 2 * D + ff + 3)
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _dual_axis_params(D, inner, ff, device, seed) -> dict:
+    """K3's parameters at DuETT's scales, float32 as the model keeps them:
+    weights N(0, 1/fan_in), biases N(0, 0.02²), gains 1 + N(0, 0.1²)."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=device)
+    return {**{k: 1.0 + r(1, std=0.1) for k in ("g1", "g2", "gf")},
+            **{k: r(D, inner, std=D ** -0.5) for k in ("wq", "wk", "wv")},
+            "wo": r(inner, D, std=inner ** -0.5), "bo": r(D, std=0.02),
+            "w1": r(D, ff, std=D ** -0.5), "b1": r(ff, std=0.02),
+            "w2": r(ff, D, std=ff ** -0.5), "b2": r(D, std=0.02)}
+
+
+def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
+                    ff: int = 512) -> dict:
+    """K3 against ``encoder_block_reference`` at DuETT's two axes (2 heads ×
+    12, FF 512): max abs error relative to the output's, two launches
+    bit-equal; times the kernel (through its wrapper, weight casts
+    included), the plain version and the bound (no single PyTorch call
+    computes the block: ``library_ms`` null). Then one backward through the
+    autograd Function against autograd of the plain version.
+    cases: (label, B, L, D, dtype, tol)."""
+    import torch
+    DA = port["dual_axis"]
+    inner = n_heads * d_head
+    results = {}
+    for label, B, L, D, dtype, tol in cases:
+        params = _dual_axis_params(D, inner, ff, device, 30 + len(results))
+        g = torch.Generator(device=device).manual_seed(40 + len(results))
+        x = torch.randn(B, L, D, generator=g, device=device).to(dtype)
+
+        def kernel():
+            return DA.fused_encoder_block(x, params, n_heads, d_head)
+
+        got, again = kernel(), kernel()
+        want = DA.encoder_block_reference(x, params, n_heads, d_head)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / max(want.float().abs().max().item(), 1e-12)
+        same = torch.equal(_bits(got), _bits(again))
+        finite = bool(torch.isfinite(got).all())
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        bound, by = dual_axis_bound_ms(B, L, D, inner, ff, x.element_size(),
+                                       peak)
+        res = {"phase": "kernel_check", "kernel": "dual_axis_block",
+               "case": label, "shape": [B, L, D], "heads": [n_heads, d_head],
+               "ff": ff, "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": err, "max_rel_err": rel, "tol": tol,
+               "bit_equal_rerun": same,
+               "smem_bytes": DA.smem_bytes(L, D, n_heads, d_head),
+               "ms": device_ms(kernel, device),
+               "plain_ms": device_ms(lambda: DA.encoder_block_reference(
+                   x, params, n_heads, d_head), device),
+               "library_ms": None, "bound_ms": bound, "bound_by": by}
+        emit(res)
+        if not (finite and rel <= tol and same):
+            raise AssertionError(f"dual_axis_block {label}: {res}")
+        results[label] = res
+
+    # one backward through the autograd Function (the kernel forward, a
+    # recompute of the plain version backward, as JAX's custom VJP)
+    B, L, D = 4, 35, 600
+    leaves = {k: v.requires_grad_() for k, v in
+              _dual_axis_params(D, inner, ff, device, 50).items()}
+    x = torch.randn(B, L, D, device=device, requires_grad=True)
+    w = torch.randn(B, L, D, device=device)
+    before = DA.LAUNCHES["dual_axis_block"]
+    (DA.fused_encoder_block(x, leaves, n_heads, d_head) * w).sum().backward()
+    launched = DA.LAUNCHES["dual_axis_block"] - before
+    got = {"x": x.grad, **{k: v.grad for k, v in leaves.items()}}
+    ref = [t.detach().requires_grad_() for t in (x, *leaves.values())]
+    out = DA.encoder_block_reference(ref[0], dict(zip(leaves, ref[1:])),
+                                     n_heads, d_head)
+    want = dict(zip(got, torch.autograd.grad((out * w).sum(), ref)))
+    rel = {k: float((got[k] - want[k]).abs().max()
+                    / max(float(want[k].abs().max()), 1e-12)) for k in got}
+    info = {"phase": "kernel_check", "kernel": "dual_axis_block",
+            "case": "backward_f32", "shape": [B, L, D], "launches": launched,
+            "max_rel_err": max(rel.values()), "tol": 1e-6}
+    emit(info)
+    if launched != 1 or not max(rel.values()) <= 1e-6:
+        raise AssertionError(f"dual_axis_block backward: {info} {rel}")
+    results["backward_f32"] = info
+    return results
+
+
+def ln_qkv_bound_ms(B, N, D, inner, itemsize, peak_flops) -> tuple:
+    """(bound_ms, bound_by) of one K4 call: the three projections against
+    ``peak_flops``; x read and q, k, v written once in x's dtype, the
+    float32 LayerNorm rows, weights and biases read once."""
+    flops = 2.0 * B * N * D * 3 * inner
+    nbytes = itemsize * B * N * (D + 3.0 * inner) \
+        + 4.0 * (3 * D * inner + 3 * inner + 2 * D)
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, \
+        ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def phase_ln_qkv(port, device, cases) -> dict:
+    """K4 against ``ln_qkv_reference``: each of q, k, v within ``tol`` of its
+    max abs, two launches bit-equal; times the kernel (through its wrapper,
+    weight casts included), the plain version, the bound and a library
+    yardstick of several calls (``F.layer_norm``, one ``F.linear`` on the
+    stacked [3·H·64, D] weight, the head-major copy; no single PyTorch call
+    computes K4). cases: (label, B, N, D, H, dtype, tol)."""
+    import torch
+    import torch.nn.functional as F
+    LQ = port["ln_qkv"]
+    results = {}
+    for label, B, N, D, H, dtype, tol in cases:
+        inner = H * 64
+        g = torch.Generator(device=device).manual_seed(60 + len(results))
+
+        def r(*shape, std):
+            return std * torch.randn(*shape, generator=g, device=device)
+        params = {"ln_scale": 1.0 + r(D, std=0.1), "ln_bias": r(D, std=0.1),
+                  **{k: r(D, inner, std=D ** -0.5) for k in ("wq", "wk",
+                                                              "wv")},
+                  **{k: r(inner, std=0.02) for k in ("bq", "bk", "bv")}}
+        x = (2.0 * torch.randn(B, N, D, generator=g, device=device)
+             + 0.5).to(dtype)
+
+        def kernel():
+            return LQ.fused_ln_qkv(x, params, H, 64)
+
+        def library():
+            dt = x.dtype
+            w = torch.cat([params[k] for k in ("wq", "wk", "wv")], 1)
+            b = torch.cat([params[k] for k in ("bq", "bk", "bv")])
+            h = F.layer_norm(x, (D,), params["ln_scale"].to(dt),
+                             params["ln_bias"].to(dt), 1e-6)
+            y = F.linear(h, w.t().to(dt), b.to(dt))
+            return y.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4).contiguous()
+
+        got, again = kernel(), kernel()
+        want = LQ.ln_qkv_reference(x, params, H, 64)
+        torch.cuda.synchronize()
+        err, rel = {}, {}
+        for name, a, w_ in zip("qkv", got, want):
+            err[name] = (a.float() - w_.float()).abs().max().item()
+            rel[name] = err[name] / max(w_.float().abs().max().item(), 1e-12)
+        same = all(torch.equal(_bits(a), _bits(b_))
+                   for a, b_ in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        shapes = all(tuple(a.shape) == (B, H, N, 64) for a in got)
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+        bound, by = ln_qkv_bound_ms(B, N, D, inner, x.element_size(), peak)
+        res = {"phase": "kernel_check", "kernel": "ln_qkv", "case": label,
+               "shape": [B, N, D], "heads": [H, 64],
+               "dtype": str(dtype).replace("torch.", ""),
+               "max_abs_err": max(err.values()), "max_rel_err": rel,
+               "tol": tol, "bit_equal_rerun": same,
+               "ms": device_ms(kernel, device),
+               "plain_ms": device_ms(lambda: LQ.ln_qkv_reference(
+                   x, params, H, 64), device),
+               "library_ms": device_ms(library, device),
+               "library_calls": "F.layer_norm + F.linear (stacked weight) "
+                                "+ head-major copy, weight casts included",
+               "bound_ms": bound, "bound_by": by}
+        emit(res)
+        if not (finite and shapes and max(rel.values()) <= tol and same):
+            raise AssertionError(f"ln_qkv {label}: {res}")
+        results[label] = res
+        del x, got, again, want
+    torch.cuda.empty_cache()
+    return results
+
+
+def _ssl_data(port, argv, device) -> tuple:
+    """The SSL CLI's DuETT config and sliding-window dataset (on
+    ``device``) for ``argv``, built by the CLI's own helpers."""
+    cli = port["train_ssl"]
+    args = cli.build_parser().parse_args(argv)
+    dcfg, duett, _ = cli.configs_from_args(args)
+    duett = duett.replace(pretrain_masked_steps=args.pretrain_masked_steps)
+    ds, meta, _ = cli.load_data(args, dcfg)
+    duett = cli.sync_duett_with_meta(duett, meta)
+    data = cli.build_sliding_ssl_dataset(ds, meta, dcfg.n_timesteps,
+                                         args.stride, args.max_stay_hours)
+    return duett, data.to(device)
+
+
+def phase_ssl(port, device, card: str = "", reps: int = 5) -> dict:
+    """DuETT SSL pretraining through the CLI (``cli/train_ssl.main``) at the
+    full default width, on the train phase's 240 synthetic stays, batch 128,
+    2 epochs; every kernel's launches counted over exactly this run; finite
+    per-epoch losses, the train loss falling, ``meta_with_stats.pkl`` beside
+    the best checkpoint, which reloads and evaluates the val split as the
+    loop did. Then the steady SSL step at batch 128 on one fixed batch:
+    CUDA events (median of ``reps`` after two warm-up steps), peak memory
+    and a ``torch.profiler`` reading."""
+    import torch
+    shutil.rmtree(SSL_RUNS, ignore_errors=True)
+    # stride 4 (the CLI's is 12) gives 8 batches of 128 an epoch from the
+    # 240 stays, and warmup 8 (the CLI's is 2000) a learning rate that
+    # moves the weights within 2 epochs; the widths are the CLI's defaults
+    argv = ["--device", "cuda", "--synthetic_stays", "240", "--batch_size",
+            "128", "--epochs", "2", "--stride", "4", "--limit_batches", "8",
+            "--ssl_warmup", "8", "--ckpt_dir", SSL_RUNS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_ssl"].main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    run_dir = os.path.dirname(res.best_path)
+    meta_ok = os.path.exists(os.path.join(run_dir, "meta_with_stats.pkl"))
+
+    duett_cfg, data = _ssl_data(port, argv, device)
+    ck = port["checkpoint"].load_checkpoint(res.best_path)
+    cfg = port["config"].DuettConfig.from_dict(ck["config"]["duett"])
+    model = port["convert"].load_flax(port["duett"].DuettPretrainModel(cfg),
+                                      ck["params"], ck["batch_stats"])
+    reload_val = res.extras["evaluate"](model.to(device))
+    reload_rel = abs(reload_val - res.best_metric) / abs(res.best_metric)
+
+    # the steady step
+    opt = port["optim"]
+    fresh = port["duett"].init_pretrain_model(duett_cfg, 0).to(device)
+    state = port["state"].TrainState(fresh, opt.MultiGroupAdamW.one_group(
+        fresh, opt.invsqrt_warmup(3e-4, 8), 0.1, 1.0))
+    eng = port["engine"]
+    step = eng.make_ssl_step(duett_cfg, data.n_timesteps, torch.bfloat16)
+    batch = eng.to_device(next(data.iter_batches("train", 128, shuffle=True,
+                                                 seed=0)), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+
+    def run():
+        return step(state, data.grid, data.static, batch, gen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        parts = run()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times)
+    step_peak = torch.cuda.max_memory_allocated()
+    ex = res.extras
+    info = {"phase": "ssl", "card": card, "argv": argv, "wall_s": wall,
+            "duett": {k: getattr(duett_cfg, k) for k in (
+                "n_variables", "n_timesteps", "d_embedding", "n_layers",
+                "n_heads", "d_feedforward", "et_dim", "tt_dim")},
+            "params": sum(p.numel() for p in fresh.parameters()),
+            "windows": {k: len(v) for k, v in data.samples.items()},
+            "launches": launches, "train_steps": ex["n_train_steps"],
+            "loop_seconds": ex["train_seconds"],
+            "loop_samples_per_s_incl_val_and_ckpt":
+                ex["n_train_steps"] * 128 / ex["train_seconds"],
+            "history": res.history, "best_val_loss": res.best_metric,
+            "meta_with_stats": meta_ok, "reload_val_loss": reload_val,
+            "reload_rel_diff": reload_rel, "peak_memory_bytes": peak,
+            "step_ms": step_ms, "step_ms_all": times,
+            "step_samples_per_s": 128e3 / step_ms,
+            "step_loss": float(parts["total"]),
+            "step_peak_memory_bytes": step_peak,
+            "step_profile": _profile(run, 3, step_ms, {})}
+    emit(info)
+    losses = [h[k] for h in res.history for k in ("train_loss", "val_loss")]
+    if len(res.history) != 2 or not all(np.isfinite(x) for x in losses):
+        raise AssertionError(f"SSL history {res.history}")
+    if not res.history[1]["train_loss"] < res.history[0]["train_loss"]:
+        raise AssertionError(f"the SSL train loss did not fall: "
+                             f"{res.history}")
+    if not meta_ok:
+        raise AssertionError("no meta_with_stats.pkl beside the checkpoints")
+    if not reload_rel <= 1e-4:
+        raise AssertionError(f"the reloaded SSL checkpoint evaluates to "
+                             f"{reload_val}, the loop's best "
+                             f"{res.best_metric}")
+    if not np.isfinite(info["step_loss"]):
+        raise AssertionError(f"non-finite SSL step loss {info['step_loss']}")
+    del fresh, state, model
+    torch.cuda.empty_cache()
+    return {**info, "best_path": res.best_path, "data": data,
+            "duett_cfg": cfg}
+
+
+def phase_trained_layer(port, device, ssl) -> dict:
+    """K3 on the SSL run's best checkpoint: each DuETT axis's first layer
+    (``event_transformer_0``, ``time_transformer_0``) gets its input
+    captured by a forward hook during a bf16 eval step, and K3, fed that
+    input with the layer's weights through ``params_from_encoder``, gives
+    the layer's own output within TOL_TRAINED_LAYER of its max abs."""
+    import torch
+    DA, eng = port["dual_axis"], port["engine"]
+    cfg, data = ssl["duett_cfg"], ssl["data"]
+    ck = port["checkpoint"].load_checkpoint(ssl["best_path"])
+    model = port["convert"].load_flax(port["duett"].DuettPretrainModel(cfg),
+                                      ck["params"],
+                                      ck["batch_stats"]).to(device)
+    seen, hooks = {}, []
+
+    def capture(axis):
+        def hook(module, args, out):
+            seen[axis] = (args[0], out)
+        return hook
+
+    for axis in ("event", "time"):
+        enc = getattr(model.encoder, f"{axis}_transformer_0")
+        hooks.append(enc.register_forward_hook(capture(axis)))
+    n_val = min(128, data.split_size("val"))
+    batch = eng.to_device(next(data.iter_batches("val", n_val,
+                                                 shuffle=False)), device)
+    eng.make_ssl_eval(cfg, data.n_timesteps, torch.bfloat16)(
+        model, data.grid, data.static, batch,
+        torch.Generator(device=device).manual_seed(1000))
+    for h in hooks:
+        h.remove()
+    reset_counts(port)
     out = {}
-    inner = d.n_heads * (d.d_embedding // d.n_heads)
-    for axis, L, D in (("event", d.n_variables + 1, d.et_dim),
-                       ("time", d.n_timesteps + 1, d.tt_dim)):
-        ff = d.d_feedforward
-        flops = 2.0 * batch * L * (3 * D * inner + inner * D + 2 * D * ff) \
-            + 4.0 * batch * L * L * inner
-        weights = 4.0 * (3 * D * inner + inner * D + D + 2 * D * ff + ff + D
-                         + 3)
-        out[f"K3_{axis}_block"] = {"shape": [batch, L, D],
-                                   **bound(flops, 2.0 * 2 * batch * L * D
-                                           + weights)}
-    N, D = v.n_patches + 1, v.d_model
-    flops = 2.0 * batch * N * D * 3 * D
-    nbytes = 2.0 * batch * N * D * 4 + 4.0 * (3 * D * D + 3 * D + 2 * D)
-    out["K4_ln_qkv"] = {"shape": [batch, N, D], **bound(flops, nbytes)}
-    emit({"phase": "bounds_to_port", "batch": batch, **out})
-    return out
+    with torch.inference_mode():
+        for axis, (x, y) in seen.items():
+            enc = getattr(model.encoder, f"{axis}_transformer_0")
+            got = DA.fused_encoder_block(x, DA.params_from_encoder(enc),
+                                         cfg.n_heads,
+                                         cfg.d_embedding // cfg.n_heads)
+            torch.cuda.synchronize()
+            err = (got.float() - y.float()).abs().max().item()
+            out[axis] = {"shape": list(x.shape),
+                         "dtype": str(x.dtype).replace("torch.", ""),
+                         "max_abs_err": err,
+                         "max_rel_err": err / y.float().abs().max().item()}
+    launches = read_counts(port)["dual_axis_block"]
+    info = {"phase": "trained_layer", "checkpoint": ssl["best_path"],
+            "axes": out, "launches": launches, "tol": TOL_TRAINED_LAYER}
+    emit(info)
+    if launches != 2 or len(out) != 2 or \
+            not max(a["max_rel_err"] for a in out.values()) \
+            <= TOL_TRAINED_LAYER:
+        raise AssertionError(f"K3 against a trained DuETT layer: {info}")
+    return info
+
+
+def phase_ssl_to_teacher(port, device, best_path: str, card: str = "") -> dict:
+    """The teacher CLI started from the SSL checkpoint (``--duett_ckpt``) on
+    the encode-once tier, 1 epoch of 4 batches of 32: before its first step
+    the teacher's DuETT weights and BatchNorm statistics equal the SSL
+    encoder's; finite losses; every kernel's launches counted over exactly
+    this run."""
+    import torch
+    tt, conv = port["train_teacher"], port["convert"]
+    ck = port["checkpoint"].load_checkpoint(best_path)
+    want = conv.flax_to_state_dict(ck["params"]["encoder"],
+                                   ck["batch_stats"]["encoder"])
+    seen = {}
+    train = tt.train_teacher
+
+    def spy(*args, model=None, **kw):
+        seen.update({k: v.detach().cpu().clone()
+                     for k, v in model.duett.state_dict().items()})
+        return train(*args, model=model, **kw)
+
+    shutil.rmtree(RUNS, ignore_errors=True)
+    argv = ["--device", "cuda", "--duett_ckpt", best_path,
+            "--cxr_feature_cache", "hbm", "--synthetic_stays", "240",
+            "--batch_size", "32", "--epochs", "1", "--limit_batches", "4",
+            "--ckpt_dir", RUNS]
+    torch.cuda.synchronize()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    tt.train_teacher = spy
+    try:
+        res = tt.main(argv)
+    finally:
+        tt.train_teacher = train
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    same = seen.keys() == want.keys() and all(
+        torch.equal(seen[k], want[k].to(seen[k].dtype)) for k in want)
+    info = {"phase": "ssl_to_teacher", "card": card, "argv": argv,
+            "wall_s": wall, "launches": launches,
+            "duett_tensors": len(want), "duett_equals_ssl_encoder": same,
+            "epoch_losses": [h["train_total"] for h in res.history],
+            "val_auroc": [h["val_main_auroc"] for h in res.history]}
+    emit(info)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    if not same:
+        raise AssertionError("the teacher's DuETT did not start from the SSL "
+                             "encoder")
+    if not all(np.isfinite(x) for x in info["epoch_losses"]):
+        raise AssertionError(f"non-finite losses {info['epoch_losses']}")
+    if launches["flash_attention"] == 0 or launches["gather_rows"] == 0:
+        raise AssertionError(f"the teacher run did not launch K1 and K2: "
+                             f"{launches}")
+    return info
 
 
 def phase_golden(port, device, cfg, golden_path) -> dict:
@@ -1191,6 +1621,18 @@ def main() -> int:
         ("ragged_bf16", 2, 12, 1001, 900, bf16, TOL_BWD_BF16, False),
         ("f32", 2, 12, 1370, 1301, f32, TOL_BWD_F32, False),
     ])
+    k3 = phase_dual_axis(port, device, [
+        ("event_bf16", 32, 35, 600, bf16, TOL_FUSED_BF16),
+        ("time_bf16", 32, 25, 840, bf16, TOL_FUSED_BF16),
+        ("event_f32", 32, 35, 600, f32, TOL_FUSED_F32),
+        ("time_f32", 32, 25, 840, f32, TOL_FUSED_F32),
+    ])
+    k4 = phase_ln_qkv(port, device, [
+        ("vit_bf16", 32, 1536, 768, 12, bf16, TOL_FUSED_BF16),
+        ("f32", 2, 512, 256, 4, f32, TOL_FUSED_F32),
+    ])
+    k3_checks, k4_checks = read_counts(port)["dual_axis_block"], \
+        read_counts(port)["ln_qkv"]
     phase_golden(port, device, cfgmod.ViTConfig(), GOLDEN)
     phase_block_grad(port, device)
     serve = phase_serve(port, device, cfgmod.TeacherConfig(), n_clients=12,
@@ -1202,22 +1644,36 @@ def main() -> int:
                 gathers["patch_bf16"]["ms"] + gathers["cls_bf16"]["ms"])
     unfreeze = phase_unfreeze(port, device, card=dev["nvidia_smi"])
     phase_unfreeze_step(port, device, cfgmod.TeacherConfig())
-    bounds_to_port(cfgmod.TeacherConfig())
+    ssl = phase_ssl(port, device, card=dev["nvidia_smi"])
+    trained = phase_trained_layer(port, device, ssl)
+    to_teacher = phase_ssl_to_teacher(port, device, ssl["best_path"],
+                                      card=dev["nvidia_smi"])
 
-    # this slice's main path is the unfrozen training run, whose K1 work is
-    # the pixel step's batch of 32: K1's three rows come from that case
+    # K1's three rows take their launches from the unfrozen training run,
+    # whose K1 work is the pixel step's batch of 32, and K2's from the
+    # encode-once training run. This slice's main path, SSL pretraining,
+    # runs none of the six kernels (K3 and K4 have no caller in either
+    # package): its counts, and the teacher's start from its checkpoint,
+    # stand under launches_by_path; K3's and K4's launches under their
+    # checks stand under check_launches.
     k1, k2 = checks["pixel_step_bf16"], gathers["patch_bf16"]
     b = bwd["pixel_step_bf16"]
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     n_k1 = unfreeze["launches"]
+    n_ssl, n_s2t = ssl["launches"], to_teacher["launches"]
     case = "pixel_step_bf16 [32, 12, 1370, 64]"
+
+    def by_path(name, **earlier):
+        return {**earlier, "ssl": n_ssl[name], "ssl_to_teacher": n_s2t[name]}
+
     bwd_rows = [
         {"name": f"flash_attention_bwd_{kind}", "route": "cuda",
          "source": K1_BWD_SOURCE, "replaces": replaces,
          "launches": n_k1[f"flash_attention_bwd_{kind}"],
-         "launches_by_path": {
-             "unfreeze": n_k1[f"flash_attention_bwd_{kind}"]},
+         "launches_by_path": by_path(
+             f"flash_attention_bwd_{kind}",
+             unfreeze=n_k1[f"flash_attention_bwd_{kind}"]),
          "case": case,
          "max_abs_err": max(b["max_abs_err"][g] for g in grads),
          "ms": b[f"{kind}_ms"], "plain_ms": b["plain_ms"],
@@ -1229,17 +1685,34 @@ def main() -> int:
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,
          "launches": n_k1["flash_attention"],
-         "launches_by_path": {"serve": serve["k1_launches"],
-                              "train": train["k1_launches_in_bank_build"],
-                              "unfreeze": n_k1["flash_attention"]},
+         "launches_by_path": by_path(
+             "flash_attention", serve=serve["k1_launches"],
+             train=train["k1_launches_in_bank_build"],
+             unfreeze=n_k1["flash_attention"]),
          "case": case, "ms_with_lse": b["fwd_lse_ms"],
          **{k: k1[k] for k in keys}},
         *bwd_rows,
         {"name": "gather_rows", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2_launches"],
          "case": "patch_bf16 [401, 1370, 768] x 32 rows",
-         "launches_by_path": {"train": train["k2_launches"]},
-         **{k: k2[k] for k in keys}}]})
+         "launches_by_path": by_path("gather_rows",
+                                     train=train["k2_launches"]),
+         **{k: k2[k] for k in keys}},
+        {"name": "dual_axis_block", "route": "cuda", "source": K3_SOURCE,
+         "replaces": K3_REPLACES, "launches": n_ssl["dual_axis_block"],
+         "launches_by_path": by_path("dual_axis_block"),
+         "check_launches": {"kernel_check": k3_checks,
+                            "trained_layer": trained["launches"]},
+         "case": "time_bf16 [32, 25, 840]",
+         "ms_by_case": {c: k3[c]["ms"] for c in k3 if "ms" in k3[c]},
+         **{k: k3["time_bf16"][k] for k in keys}},
+        {"name": "ln_qkv", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4_REPLACES, "launches": n_ssl["ln_qkv"],
+         "launches_by_path": by_path("ln_qkv"),
+         "check_launches": {"kernel_check": k4_checks},
+         "case": "vit_bf16 [32, 1536, 768] 12 x 64",
+         "library_calls": k4["vit_bf16"]["library_calls"],
+         **{k: k4["vit_bf16"][k] for k in keys}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0

@@ -10,8 +10,10 @@ every step) or the encode-once tier (``hbm``: each image is encoded once,
 steps gather cached tokens through K2). ``--unfreeze_cxr`` fine-tunes the
 ViT too, on the pixel tier only, its attention's gradient through K1's
 backward kernels; ``--vit_weights`` starts the ViT from a converted
-RAD-DINO checkpoint (``scripts/convert_rad_dino.py``). Flags of what is not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+RAD-DINO checkpoint (``scripts/convert_rad_dino.py``); ``--duett_ckpt``
+starts the DuETT backbone (weights and BatchNorm statistics) from an SSL
+checkpoint of ``cli.train_ssl``, written by either package. Flags of what is
+not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 
     python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
         --device cuda --unfreeze_cxr --vit_weights rad_dino_flax.msgpack
@@ -23,6 +25,7 @@ import argparse
 from ..config import PerceiverConfig, TeacherConfig, ViTConfig
 from ..models.teacher import init_teacher
 from ..models.vit import load_vit_params
+from ..train.ssl_loop import transplant_encoder
 from ..train.teacher_loop import train_teacher
 from .common import (add_common_flags, configs_from_args, load_data,
                      make_run_dir, sync_duett_with_meta)
@@ -65,7 +68,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flag → (value that is not ported, ROADMAP item)
 _QUEUED = (
     ("vit_quant", "int8", "P20"),
-    ("duett_ckpt", None, "P12"),
     ("lp_only_correction", True, "P13"),
     ("cxr_jpeg_root", None, "P15"),
     ("resume_dir", None, "P16"),
@@ -106,8 +108,13 @@ def main(argv=None):
         freeze_duett=args.freeze_duett, freeze_cxr=not args.unfreeze_cxr)
 
     model = None
-    if args.vit_weights:
+    if args.duett_ckpt or args.vit_weights:
         model = init_teacher(teacher_cfg, tcfg.seed)
+    if args.duett_ckpt:
+        changed = transplant_encoder(args.duett_ckpt, model)
+        print(f"DuETT backbone from {args.duett_ckpt} ({len(changed)} keys "
+              "adjusted)", flush=True)
+    if args.vit_weights:
         model.cxr.load_state_dict(load_vit_params(args.vit_weights,
                                                   teacher_cfg.vit))
         print(f"CXR branch (RAD-DINO) from {args.vit_weights}", flush=True)

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import pickle
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -90,6 +91,23 @@ class Meta:
             test_ids=np.asarray(d["test_ids"]) if "test_ids" in d else None,
         )
 
+    def to_reference_dict(self) -> dict:
+        d = {
+            "ALL_VARS": list(self.all_vars),
+            "ALL_COUNTS": list(self.all_counts),
+            "ONEHOT_STATIC": list(self.onehot_static),
+            "D_STATIC": self.d_static, "LABEL_COL": self.label_col,
+            "N_TIMESTEPS": self.n_timesteps,
+            "means": {v: float(m) for v, m in zip(self.all_vars, self.means)},
+            "stds": {v: float(s) for v, s in zip(self.all_vars, self.stds)},
+            "age_mean": self.age_mean, "age_std": self.age_std,
+        }
+        for k, ids in (("train_ids", self.train_ids),
+                       ("val_ids", self.val_ids), ("test_ids", self.test_ids)):
+            if ids is not None:
+                d[k] = np.asarray(ids)
+        return d
+
     @classmethod
     def load(cls, path: str) -> "Meta":
         if path.endswith(".json"):
@@ -100,3 +118,7 @@ class Meta:
                 d = pickle.load(f)
         return cls.from_reference_dict(d)
 
+    def save(self, path: str):
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as f:
+            pickle.dump(self.to_reference_dict(), f)

@@ -1,10 +1,13 @@
 """DuETT dual-axis transformer over the (time × event) grid: the PyTorch
 counterpart of ``multimodal_edema_prediction_tpu/models/duett.py``
-(``feats_to_input`` and ``DuettEncoder``).
+(``feats_to_input``, ``DuettEncoder``, the SSL masking
+``pretrain_prep_batch`` and ``DuettPretrainModel``).
 
-Train-time augmentation draws from a ``torch.Generator``; the JAX package
-draws from ``jax.random``, so the two give different noise from the same
-seed and are compared in distribution (``tests/test_torch_train_layers.py``).
+Train-time augmentation and the SSL masks draw from a ``torch.Generator``;
+the JAX package draws from ``jax.random``, so the two give different noise
+from the same seed and are compared in distribution
+(``tests/test_torch_train_layers.py``, ``tests/test_torch_ssl.py``), or
+with the masks handed to both (``mask_idx``/``event_var``).
 
 Shape conventions
     x_ts    [B, T, 2V]   dense window: values(V) | counts(V)
@@ -14,13 +17,14 @@ Shape conventions
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..config import DuettConfig
-from .layers import CVE, PerVariableMLP, SimpleMLP, TransformerEncoder
+from .layers import (CVE, PerVariableMLP, SimpleMLP, TransformerEncoder,
+                     init_like_flax)
 
 MASKED_KEY = 0           # duett.py:79
 REP_KEY = 1              # duett.py:80
@@ -60,6 +64,84 @@ def feats_to_input(x_ts: torch.Tensor, x_static: torch.Tensor,
             counts = counts.masked_fill(m[..., None], 0.0)
             mask_col = m[..., None].to(x_ts.dtype)
     return torch.cat([values, counts, mask_col], dim=-1), x_static
+
+
+class PretrainBatch(NamedTuple):
+    """Masked SSL inputs and reconstruction targets (reference
+    duett.py:189-237)."""
+    x_in: torch.Tensor             # [B, T, 2V+1] masked input
+    mask_idx: torch.Tensor         # [B, S] masked timestep indices (int64)
+    y_value: torch.Tensor          # [B, S, V] target values
+    y_presence_mask: torch.Tensor  # [B, S, V] target presence (counts 0..1)
+    event_var: torch.Tensor        # [B] masked variable index (int64)
+    y_events: torch.Tensor         # [B, T] the masked variable's values
+    y_events_mask: torch.Tensor    # [B, T]
+
+
+def pretrain_prep_batch(x_ts: torch.Tensor, masked_steps: int = 1,
+                        pretrain_dropout: float = 0.5,
+                        predict_events: bool = True,
+                        mask_idx: Optional[torch.Tensor] = None,
+                        event_var: Optional[torch.Tensor] = None,
+                        gen: Optional[torch.Generator] = None
+                        ) -> PretrainBatch:
+    """SSL masking of dense windows [B, T, 2V] (JAX ``duett.py:83-147``):
+    ``masked_steps`` timesteps per sample drawn with replacement and
+    zeroed (mask column 1), one variable per sample event-masked (values 0,
+    counts −1) when ``predict_events``, and, with ``pretrain_dropout`` > 0,
+    each variable dropped with that probability unless it was observed at
+    a masked step. ``mask_idx`` [B, S] / ``event_var`` [B] replace the draws
+    with the caller's masks. The draws come from ``gen``, in that order."""
+    B, T, C = x_ts.shape
+    V = C // 2
+    S = masked_steps
+    dev = x_ts.device
+
+    def need_gen():
+        if gen is None:
+            raise ValueError("SSL masking draws need a torch.Generator")
+        return gen
+
+    values, counts = x_ts[..., :V], x_ts[..., V:]
+    if mask_idx is None:
+        mask_idx = torch.randint(0, T, (B, S), generator=need_gen(),
+                                 device=dev)
+    mask_idx = mask_idx.to(device=dev, dtype=torch.int64).reshape(B, S)
+    idx = mask_idx[..., None].expand(B, S, V)
+    y_value = torch.gather(values, 1, idx)                     # [B,S,V]
+    y_presence_mask = torch.gather(counts, 1, idx).clamp(0.0, 1.0)
+
+    row_masked = torch.zeros(B, T, dtype=torch.bool, device=dev)
+    row_masked[torch.arange(B, device=dev)[:, None], mask_idx] = True
+    x_masked = x_ts.masked_fill(row_masked[..., None], 0.0)
+    mask_col = row_masked[..., None].to(x_ts.dtype)
+
+    if event_var is None:
+        event_var = torch.randint(0, V, (B,), generator=need_gen(),
+                                  device=dev)
+    event_var = event_var.to(device=dev, dtype=torch.int64).reshape(B)
+    rows = torch.arange(B, device=dev)
+    y_events = values[rows, :, event_var]                      # [B,T]
+    y_events_mask = counts[rows, :, event_var].clamp(0.0, 1.0)
+    x_val, x_cnt = x_masked[..., :V], x_masked[..., V:]
+    if predict_events:
+        vmask = (torch.arange(V, device=dev) == event_var[:, None])[:, None]
+        x_val = x_val.masked_fill(vmask, 0.0)
+        x_cnt = x_cnt.masked_fill(vmask, -1.0)
+
+    if pretrain_dropout > 0:
+        keep = torch.rand(B, V, generator=need_gen(), device=dev) \
+            > pretrain_dropout
+        observed_at_masked = y_presence_mask.sum(dim=1).clamp(0.0, 1.0)
+        keep = (observed_at_masked < 0.5) | keep                # [B,V]
+        kb = keep[:, None, :]
+        x_val = torch.where(kb, x_val, torch.zeros_like(x_val))
+        x_cnt = torch.where(kb | (x_cnt == -1.0), x_cnt,
+                            torch.zeros_like(x_cnt))
+
+    x_in = torch.cat([x_val, x_cnt, mask_col], dim=-1)
+    return PretrainBatch(x_in, mask_idx, y_value, y_presence_mask,
+                         event_var, y_events, y_events_mask)
 
 
 class DuettEncoder(nn.Module):
@@ -140,3 +222,66 @@ class DuettEncoder(nn.Module):
             tt = getattr(self, f"time_transformer_{i}")(tt, train, gen)
             psi = tt.reshape(B, T + 1, V + 1, d)
         return psi.reshape(B, T + 1, tt_dim), psi
+
+
+class DuettPretrainModel(nn.Module):
+    """SSL pretraining: ``encoder`` plus the reconstruction heads (JAX
+    ``duett.py:256-296``, reference heads duett.py:110-122). The masked
+    timesteps' contextual tokens feed ``pretrain_value_proj`` and
+    ``pretrain_presence_proj`` ([B, S, V] each); with ``predict_events``
+    the masked variable's psi column, flattened over time to ``et_dim``,
+    feeds ``predict_events_proj`` and ``predict_events_presence_proj``
+    ([B, T] each). A head whose flag is off is absent and its output None.
+    Every head is a ``SimpleMLP`` with hidden BatchNorm."""
+
+    def __init__(self, cfg: DuettConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.encoder = DuettEncoder(cfg)
+
+        def head(d_in, d_out):
+            return SimpleMLP(d_in, d_out, cfg.pretrain_n_hidden,
+                             cfg.pretrain_d_hidden, hidden_batch_norm=True)
+
+        V, T = cfg.n_variables, cfg.n_timesteps
+        if cfg.pretrain_value:
+            self.pretrain_value_proj = head(cfg.tt_dim, V)
+        if cfg.pretrain_presence:
+            self.pretrain_presence_proj = head(cfg.tt_dim, V)
+        if cfg.predict_events:
+            self.predict_events_proj = head(cfg.et_dim, T)
+            if cfg.pretrain_presence:
+                self.predict_events_presence_proj = head(cfg.et_dim, T)
+
+    def forward(self, pb: PretrainBatch, x_static: torch.Tensor,
+                times: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> dict:
+        cfg = self.cfg
+        tokens, psi = self.encoder(pb.x_in, x_static, times, train, gen)
+        B, _, R = tokens.shape
+        # the masked timesteps' contextual tokens [B, S, R]
+        z = torch.gather(tokens, 1, pb.mask_idx[..., None].expand(
+            B, pb.mask_idx.shape[1], R))
+
+        def run(name, inp):
+            head = getattr(self, name, None)
+            return None if head is None else head(inp, train)
+
+        out = {"y_hat_value": run("pretrain_value_proj", z),
+               "y_hat_presence": run("pretrain_presence_proj", z),
+               "y_hat_events": None, "y_hat_events_presence": None}
+        if cfg.predict_events:
+            # psi column of the masked variable, flattened over time
+            z_events = psi[torch.arange(B, device=psi.device), :,
+                           pb.event_var].reshape(B, cfg.et_dim)
+            out["y_hat_events"] = run("predict_events_proj", z_events)
+            out["y_hat_events_presence"] = run(
+                "predict_events_presence_proj", z_events)
+        return out
+
+
+def init_pretrain_model(cfg: DuettConfig, seed: int) -> DuettPretrainModel:
+    """A ``DuettPretrainModel`` initialized from ``seed`` after the flax
+    modules' initializers (``layers.init_like_flax``; in distribution, as
+    ``init_teacher``)."""
+    return init_like_flax(DuettPretrainModel(cfg), seed)

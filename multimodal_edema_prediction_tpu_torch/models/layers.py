@@ -15,6 +15,7 @@ in place (flax's mutable ``"batch_stats"``).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -334,3 +335,56 @@ class TransformerEncoder(nn.Module):
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(x, train, gen)
         return self.final_norm(x)
+
+
+def init_like_flax(model: nn.Module, seed: int,
+                   layerscale_init: float = 1.0) -> nn.Module:
+    """Fill ``model`` in place from ``seed`` after the flax modules'
+    initializers (in distribution: ``torch.Generator`` draws are not
+    ``jax.random``'s), in the order of ``named_modules``: dense, conv and
+    per-variable kernels truncated-normal with variance 1/fan_in (flax
+    ``lecun_normal``), biases zero, norm scales and ``beta`` one, LayerScale
+    ``layerscale_init``, the correction head's output zero, the DuETT
+    special/rep/event embeddings and count embedding N(0, 1), the queries,
+    CLS token and position embedding N(0, 0.02²), BatchNorm statistics
+    (0, 1). Returns ``model``."""
+    g = torch.Generator().manual_seed(seed)
+
+    def lecun(t, fan_in):
+        std = math.sqrt(1.0 / fan_in) / .87962566103423978
+        vals = torch.randn(t.shape, generator=g)
+        while True:     # redraw outside ±2σ, as jax.random.truncated_normal
+            bad = vals.abs() > 2.0
+            if not bad.any():
+                break
+            vals[bad] = torch.randn(int(bad.sum()), generator=g)
+        t.copy_(vals * std)
+
+    ones = ("g", "beta", "bn_scale", "running_var")
+    unit_normal = ("special_embeddings", "full_rep_embedding",
+                   "full_event_embedding")
+    small_normal = ("shared_queries", "cls_token", "pos_embed")
+    with torch.no_grad():
+        for mname, m in model.named_modules():
+            for name, t in list(m.named_parameters(recurse=False)) + \
+                    list(m.named_buffers(recurse=False)):
+                if isinstance(m, Dense) and name == "weight":
+                    if mname.endswith("correction_head.head.out"):
+                        t.zero_()
+                    else:
+                        lecun(t, t.shape[1])
+                elif isinstance(m, PerVariableMLP) and name in ("w1", "w2"):
+                    lecun(t, t.shape[0] * t.shape[1])   # flax's fan_in
+                elif name in ("layerscale1", "layerscale2"):
+                    t.fill_(layerscale_init)
+                elif name in ones or (name == "weight" and isinstance(
+                        m, (LayerNorm, BatchNormLastDim))):
+                    t.fill_(1.0)
+                elif name in unit_normal or (name == "weight" and isinstance(
+                        m, nn.Embedding)):
+                    t.copy_(torch.randn(t.shape, generator=g))
+                elif name in small_normal:
+                    t.copy_(0.02 * torch.randn(t.shape, generator=g))
+                else:
+                    t.zero_()
+    return model

@@ -9,7 +9,6 @@ optimizer leaves its parameters out (``train/optim.py``).
 """
 from __future__ import annotations
 
-import math
 from contextlib import nullcontext
 from typing import Optional, Tuple
 
@@ -18,7 +17,7 @@ from torch import nn
 
 from ..config import TeacherConfig
 from .duett import DuettEncoder
-from .layers import BatchNormLastDim, Dense, LayerNorm, PerVariableMLP
+from .layers import Dense, init_like_flax
 from .perceiver import PatchDualPathologyPerceiver
 from .vit import DinoViT
 
@@ -88,52 +87,7 @@ class TeacherModel(nn.Module):
 def init_teacher(cfg: TeacherConfig, seed: int) -> "TeacherModel":
     """A ``TeacherModel`` initialized from ``seed`` after the flax modules'
     initializers (the counterpart of ``teacher_loop.init_teacher``, in
-    distribution: ``torch.Generator`` draws are not ``jax.random``'s): dense,
-    conv and per-variable kernels truncated-normal with variance 1/fan_in
-    (flax ``lecun_normal``), biases zero, norm scales and ``beta`` one,
-    LayerScale ``layerscale_init``, the correction head's output zero, the
-    DuETT special/rep/event embeddings and count embedding N(0, 1), the
-    queries, CLS token and position embedding N(0, 0.02²), BatchNorm
-    statistics (0, 1)."""
-    model = TeacherModel(cfg)
-    g = torch.Generator().manual_seed(seed)
-
-    def lecun(t, fan_in):
-        std = math.sqrt(1.0 / fan_in) / .87962566103423978
-        vals = torch.randn(t.shape, generator=g)
-        while True:     # redraw outside ±2σ, as jax.random.truncated_normal
-            bad = vals.abs() > 2.0
-            if not bad.any():
-                break
-            vals[bad] = torch.randn(int(bad.sum()), generator=g)
-        t.copy_(vals * std)
-
-    ones = ("g", "beta", "bn_scale", "running_var")
-    unit_normal = ("special_embeddings", "full_rep_embedding",
-                   "full_event_embedding")
-    small_normal = ("shared_queries", "cls_token", "pos_embed")
-    with torch.no_grad():
-        for mname, m in model.named_modules():
-            for name, t in list(m.named_parameters(recurse=False)) + \
-                    list(m.named_buffers(recurse=False)):
-                if isinstance(m, Dense) and name == "weight":
-                    if mname.endswith("correction_head.head.out"):
-                        t.zero_()
-                    else:
-                        lecun(t, t.shape[1])
-                elif isinstance(m, PerVariableMLP) and name in ("w1", "w2"):
-                    lecun(t, t.shape[0] * t.shape[1])   # flax's fan_in
-                elif name in ("layerscale1", "layerscale2"):
-                    t.fill_(cfg.vit.layerscale_init)
-                elif name in ones or (name == "weight" and isinstance(
-                        m, (LayerNorm, BatchNormLastDim))):
-                    t.fill_(1.0)
-                elif name in unit_normal or (name == "weight" and isinstance(
-                        m, nn.Embedding)):
-                    t.copy_(torch.randn(t.shape, generator=g))
-                elif name in small_normal:
-                    t.copy_(0.02 * torch.randn(t.shape, generator=g))
-                else:
-                    t.zero_()
-    return model
+    distribution; the rules are ``layers.init_like_flax``'s), LayerScale at
+    ``layerscale_init``."""
+    return init_like_flax(TeacherModel(cfg), seed, cfg.vit.layerscale_init)
 

@@ -28,7 +28,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # the kernels of the port: library name -> source file under csrc/
 SOURCES = {"flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
-           "gather_rows": "gather_rows.cu"}
+           "gather_rows": "gather_rows.cu",
+           "dual_axis_block": "dual_axis_block.cu",
+           "ln_qkv": "ln_qkv.cu"}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,7 @@
-"""Losses of the teacher step: the counterparts of ``bce_with_logits``,
-``masked_per_label_bce``, ``dual_pathology_loss`` and ``aux_residual_kl`` in
-``multimodal_edema_prediction_tpu/ops/losses.py:18-108``.
+"""Losses of the teacher and SSL steps: the counterparts of
+``bce_with_logits``, ``masked_per_label_bce``, ``dual_pathology_loss``,
+``aux_residual_kl`` and ``ssl_pretrain_loss`` in
+``multimodal_edema_prediction_tpu/ops/losses.py:18-108, 154-199``.
 
 Every function computes in float32 whatever the dtype of its inputs, and
 returns float32 scalars or [K] vectors.
@@ -74,3 +75,44 @@ def aux_residual_kl(img_logits, scaled_correction, y_multi, y_multi_mask,
         (1.0 - y_s) * (torch.log(1.0 - y_s) - torch.log(1.0 - p))
     m = y_multi_mask.float()
     return (kl * m).sum() / m.sum().clamp_min(1.0)
+
+
+def ssl_pretrain_loss(y_hat_value, y_hat_presence, y_hat_events,
+                      y_hat_events_presence, y_value, y_presence_mask,
+                      y_events, y_events_mask,
+                      pretrain_value: bool = True,
+                      pretrain_presence: bool = True,
+                      presence_weight: float = 0.2,
+                      predict_events: bool = True) -> dict:
+    """Masked value MSE + presence BCE + event value MSE + event presence
+    BCE (reference duett.py:337-358), with the reference's quirk kept: the
+    masked MSE is averaged over ALL elements
+    (``F.mse_loss(y_hat·mask, y·mask)``), not only the observed ones.
+
+    Shapes: y_hat_value/presence, y_value, y_presence_mask [B, S, V];
+    y_hat_events(_presence), y_events, y_events_mask [B, T]."""
+    out = {}
+    total = torch.zeros((), dtype=torch.float32,
+                        device=y_presence_mask.device)
+    mask = y_presence_mask.float()
+    if pretrain_value:
+        diff = y_hat_value.float() * mask - y_value.float() * mask
+        # mean over [B, V] per masked step, then over the steps
+        out["value"] = (diff ** 2).mean(dim=(0, 2)).mean()
+        total = total + out["value"]
+    if pretrain_presence:
+        pres = bce_with_logits(y_hat_presence, mask, reduce=False)
+        out["presence"] = presence_weight * pres.mean(dim=(0, 2)).mean()
+        total = total + out["presence"]
+    if predict_events:
+        em = y_events_mask.float()
+        ediff = y_hat_events.float() * em - y_events.float() * em
+        if pretrain_value:
+            out["event_value"] = (ediff ** 2).mean()
+            total = total + out["event_value"]
+        if pretrain_presence:
+            out["event_presence"] = presence_weight * bce_with_logits(
+                y_hat_events_presence, em)
+            total = total + out["event_presence"]
+    out["total"] = total
+    return out

@@ -10,13 +10,21 @@ bin, ints, floats, nil/bools, and ext type 1 (an ndarray packed as
 encoding). ``_pack`` writes the same subset, so a checkpoint the port saves
 (its weights in the flax layout, ``convert.to_flax``) loads in the JAX
 package's ``load_checkpoint`` and in the port's own loaders.
+
+Full-state resume (the SSL loop's; JAX ``checkpoint.py:100-221``):
+``save_train_state`` writes the weights in the flax layout, the AdamW
+moments in parameter order and the step count to one msgpack file in the
+port's own layout (it does not read a JAX train-state file);
+``FullStateResumer`` adds a JSON sidecar with the loop's bookkeeping and the
+``torch.Generator`` state, so a restarted run continues bit for bit.
 """
 from __future__ import annotations
 
+import base64
 import json
 import os
 import struct
-from typing import List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -290,3 +298,123 @@ def load_teacher_from_ckpt(path: str, device="cuda"):
     model = load_flax(TeacherModel(tcfg), ckpt["params"],
                       ckpt["batch_stats"])
     return model.to(dev).eval(), tcfg, ckpt
+
+
+def restore_tolerant(template: dict, loaded: dict,
+                     skip_prefixes: Sequence[str] = ("head",)
+                     ) -> Tuple[dict, list]:
+    """Load the numpy tree ``loaded`` into the tree ``template``: missing
+    leaves keep the template's, a leaf of another shape under
+    ``skip_prefixes`` is skipped, any other shape mismatch raises (JAX
+    ``checkpoint.py:57-90``, reference duett.py:459-487). Returns (tree,
+    the list of ``missing:``/``shape-skip:`` paths)."""
+    changed = []
+
+    def walk(tmpl, lo, prefix):
+        out = {}
+        for k, tv in tmpl.items():
+            path = f"{prefix}/{k}" if prefix else k
+            lv = lo.get(k) if isinstance(lo, dict) else None
+            if isinstance(tv, dict):
+                out[k] = walk(tv, lv if isinstance(lv, dict) else {}, path)
+            elif lv is None:
+                changed.append(f"missing:{path}")
+                out[k] = tv
+            elif np.shape(lv) != np.shape(tv):
+                if not any(path.startswith(p) or f"/{p}" in path
+                           for p in skip_prefixes):
+                    raise ValueError(f"shape mismatch at {path}: "
+                                     f"{np.shape(lv)} vs {np.shape(tv)}")
+                changed.append(f"shape-skip:{path}")
+                out[k] = tv
+            else:
+                out[k] = np.asarray(lv, dtype=np.asarray(tv).dtype)
+        return out
+
+    return walk(template, loaded, ""), changed
+
+
+def save_train_state(path: str, state, epoch: int,
+                     extra: Optional[dict] = None) -> None:
+    """The full train state (weights, BatchNorm statistics, AdamW moments,
+    step count) of a ``TrainState`` whose optimizer has ``state_dict``."""
+    from ..convert import to_flax
+    params, batch_stats = to_flax(state.model)
+    payload = {"step": int(state.step), "epoch": int(epoch),
+               "params": params, "batch_stats": batch_stats,
+               "opt_state": state.optimizer.state_dict(),
+               "extra": extra or {}}
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path + ".tmp", "wb") as f:
+        f.write(msgpack_serialize(payload))
+    os.replace(path + ".tmp", path)
+
+
+def load_train_state(path: str, state) -> Tuple[int, dict]:
+    """Restore ``save_train_state``'s file into ``state`` in place (the
+    model keeps its device); returns (epoch, extra)."""
+    from ..convert import load_flax
+    with open(path, "rb") as f:
+        payload = msgpack_restore(f.read())
+    load_flax(state.model, payload["params"], payload["batch_stats"])
+    state.optimizer.load_state_dict(payload["opt_state"])
+    state.step = int(payload["step"])
+    return int(payload["epoch"]), payload.get("extra", {})
+
+
+class FullStateResumer:
+    """Epoch-boundary full-state saves and their restore for a training
+    loop (JAX ``checkpoint.py:136-221``, msgpack backend): the train state
+    (``save_train_state``) plus a JSON sidecar with the early-stop
+    watermark, the best-checkpoint tracker's entries, the history, the step
+    count and the ``torch.Generator`` state. The orbax backend is ROADMAP
+    P16."""
+
+    def __init__(self, ckpt_dir: str, backend: str = "msgpack"):
+        if backend == "orbax":
+            raise NotImplementedError("state_backend='orbax' is not ported "
+                                      "yet (ROADMAP P16)")
+        if backend != "msgpack":
+            raise ValueError(f"unknown state_backend {backend!r}")
+        self.ckpt_dir = ckpt_dir
+        self.state_path = os.path.join(ckpt_dir, "train_state.msgpack")
+        self.meta_path = os.path.join(ckpt_dir, "train_state.meta.json")
+
+    def restore(self, state) -> Optional[dict]:
+        """Load the saved state into ``state``; → its meta, or None when
+        there is nothing to resume."""
+        if not (os.path.exists(self.meta_path)
+                and os.path.exists(self.state_path)):
+            return None
+        with open(self.meta_path) as f:
+            meta = json.load(f)
+        load_train_state(self.state_path, state)
+        return meta
+
+    @staticmethod
+    def apply_meta(meta: dict, stopper, tracker, gen) -> Tuple[int, list,
+                                                                 int]:
+        """Restore the loop's bookkeeping and ``gen``'s state; → (start
+        epoch, history, n_steps)."""
+        import torch
+        stopper.best = meta["stopper_best"]
+        stopper.bad_epochs = int(meta["bad_epochs"])
+        tracker.entries = [(m, p) for m, p in meta["tracker"]
+                           if os.path.exists(p)]
+        gen.set_state(torch.frombuffer(
+            bytearray(base64.b64decode(meta["rng"])), dtype=torch.uint8))
+        return int(meta["epoch"]) + 1, list(meta["history"]), \
+            int(meta["n_steps"])
+
+    def save(self, state, epoch: int, stopper, tracker, history: list,
+             n_steps: int, gen) -> None:
+        meta: Any = {"epoch": epoch, "stopper_best": stopper.best,
+                     "bad_epochs": stopper.bad_epochs,
+                     "tracker": tracker.entries, "history": history,
+                     "n_steps": n_steps,
+                     "rng": base64.b64encode(gen.get_state().numpy()
+                                             .tobytes()).decode()}
+        save_train_state(self.state_path, state, epoch)
+        with open(self.meta_path + ".tmp", "w") as f:
+            json.dump(meta, f)
+        os.replace(self.meta_path + ".tmp", self.meta_path)

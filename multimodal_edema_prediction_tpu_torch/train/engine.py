@@ -1,7 +1,8 @@
-"""Per-batch teacher steps: the PyTorch counterpart of
+"""Per-batch teacher and SSL steps: the PyTorch counterpart of
 ``multimodal_edema_prediction_tpu/train/engine.py`` (``_prep_inputs``,
 ``_cxr_inputs``, ``make_teacher_step``, ``make_teacher_eval``,
-``default_image_source``, ``make_teacher_eval_from_windows``).
+``default_image_source``, ``make_teacher_eval_from_windows``,
+``make_ssl_step``, ``make_ssl_eval``).
 
 A step runs eagerly on the device that holds the batch: window gather →
 augmentation → model forward/backward → optimizer update. The encode-once
@@ -20,7 +21,7 @@ import torch
 
 from ..config import DuettConfig, TrainConfig
 from ..data.pipeline import gather_windows
-from ..models.duett import feats_to_input
+from ..models.duett import feats_to_input, pretrain_prep_batch
 from ..models.vit import normalize_image
 from ..ops import losses as L
 from .state import TrainState
@@ -147,5 +148,65 @@ def make_teacher_eval_from_windows(
             pixels = image_source(b).to(dtype)
             out = model(x_in, xs, b["bin_ends"].to(dtype), pixels)
             return {k: out[k].float() for k in EVAL_KEYS}
+
+    return step
+
+
+def _ssl_forward(model, duett_cfg: DuettConfig, n_timesteps: int, grid,
+                 static, batch, dtype, gen, train: bool) -> dict:
+    """Window gather → SSL masking (or the batch's ``ssl_mask_idx`` /
+    ``ssl_event_var``) → the pretrain model → ``ssl_pretrain_loss``."""
+    x_ts = gather_windows(grid, batch["stay_rows"], batch["slot_idx"],
+                          n_timesteps)
+    x_static = static[batch["stay_rows"].long()].to(dtype)
+    times = batch["bin_ends"].to(dtype)
+    pb = pretrain_prep_batch(
+        x_ts, duett_cfg.pretrain_masked_steps, duett_cfg.pretrain_dropout,
+        duett_cfg.predict_events, mask_idx=batch.get("ssl_mask_idx"),
+        event_var=batch.get("ssl_event_var"), gen=gen)
+    pb = pb._replace(x_in=pb.x_in.to(dtype))
+    out = model(pb, x_static, times, train=train, gen=gen)
+    return L.ssl_pretrain_loss(
+        out["y_hat_value"], out["y_hat_presence"], out["y_hat_events"],
+        out["y_hat_events_presence"], pb.y_value, pb.y_presence_mask,
+        pb.y_events, pb.y_events_mask,
+        pretrain_value=duett_cfg.pretrain_value,
+        pretrain_presence=duett_cfg.pretrain_presence,
+        presence_weight=duett_cfg.pretrain_presence_weight,
+        predict_events=duett_cfg.predict_events)
+
+
+def make_ssl_step(duett_cfg: DuettConfig, n_timesteps: int,
+                  dtype=torch.bfloat16) -> Callable:
+    """``step(state, grid, static, batch, gen)`` → loss parts: one DuETT SSL
+    update (JAX ``engine.py:97-134``, reference duett.py:329-358). The masks
+    and dropout draw from ``gen``; the parts come back detached, on the
+    device; ``state`` is updated in place."""
+    def step(state: TrainState, grid, static, batch, gen
+             ) -> Dict[str, torch.Tensor]:
+        parts = _ssl_forward(state.model, duett_cfg, n_timesteps, grid,
+                             static, batch, dtype, gen, train=True)
+        state.apply_gradients(parts["total"])
+        return {k: v.detach() for k, v in parts.items()}
+
+    return step
+
+
+def make_ssl_eval(duett_cfg: DuettConfig, n_timesteps: int,
+                  dtype=torch.bfloat16) -> Callable:
+    """``step(model, grid, static, batch, gen)`` → loss parts in eval mode,
+    no gradients (JAX ``engine.py:480-516``). The reference's quirk is
+    kept: ``total`` leaves out the event-presence term that the training
+    step includes (duett.py:394-399 against :355-358), so the best
+    checkpoint is chosen on value + presence + event value;
+    ``total_all_terms`` is the full sum."""
+    def step(model, grid, static, batch, gen) -> Dict[str, torch.Tensor]:
+        with torch.inference_mode():
+            parts = _ssl_forward(model, duett_cfg, n_timesteps, grid, static,
+                                 batch, dtype, gen, train=False)
+        parts["total_all_terms"] = parts["total"]
+        if duett_cfg.predict_events and duett_cfg.pretrain_presence:
+            parts["total"] = parts["total"] - parts["event_presence"]
+        return parts
 
     return step

@@ -17,13 +17,17 @@ before the update; weight decay applies to every trainable parameter; with
 ``grad_clip > 0`` each group's gradients are clipped by the global norm of
 that group alone. Frozen parameters get no update and no decay, and stop
 requiring gradients. The Adam state lives beside the parameters (two
-float32 tensors each); there is no checkpoint of it yet (full-state resume
-is ROADMAP P16).
+float32 tensors each); ``state_dict`` hands it to the SSL loop's full-state
+checkpoint (the teacher loop's resume is ROADMAP P16).
+
+SSL pretraining (``ssl_loop.py:82-85``) takes one group over every
+parameter: ``MultiGroupAdamW.one_group`` with ``invsqrt_warmup``, behind
+``clip_by_global_norm(grad_clip)``.
 """
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -51,6 +55,22 @@ def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
         count = min(step - warmup, cosine_steps)
         cosine = 0.5 * (1.0 + math.cos(math.pi * count / cosine_steps))
         return base_lr * ((1.0 - min_lr_ratio) * cosine + min_lr_ratio)
+
+    return schedule
+
+
+def invsqrt_warmup(base_lr: float, warmup_steps: int = 2000
+                   ) -> Callable[[int], float]:
+    """The reference's WarmUp callback (duett/train_duett_ssl.py:27-50), as
+    the JAX package writes it in float32: lr(s) = base·s/w for s < w, then
+    base·(w/s)^0.5; the first update (s = 0) has lr 0."""
+    w = float(warmup_steps)
+    a, b = np.float32(base_lr * w ** 0.5), np.float32(w ** -1.5)
+
+    def schedule(step: int) -> float:
+        s = np.float32(step)
+        inv = s ** np.float32(-0.5) if step > 0 else np.float32(0.0)
+        return float(a * min(inv, s * b))
 
     return schedule
 
@@ -103,8 +123,7 @@ class MultiGroupAdamW:
                 groups.setdefault(label, []).append(p)
         self.labels = list(groups)
         self.params = [groups[label] for label in self.labels]
-        self.mu = [[torch.zeros_like(p) for p in ps] for ps in self.params]
-        self.nu = [[torch.zeros_like(p) for p in ps] for ps in self.params]
+        self._moments()
         self.schedules = []
         for label in self.labels:
             mult = mults[label]
@@ -115,6 +134,41 @@ class MultiGroupAdamW:
             self.schedules.append(warmup_cosine(
                 cfg.lr * mult, cfg.warmup_steps, total_steps, alpha))
         self.cfg = cfg
+
+    @classmethod
+    def one_group(cls, model: nn.Module, schedule: Callable[[int], float],
+                  weight_decay: float, grad_clip: float = 0.0,
+                  b1: float = 0.9, b2: float = 0.999) -> "MultiGroupAdamW":
+        """One group over every parameter of ``model`` with ``schedule``:
+        ``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule,
+        weight_decay=weight_decay))`` (no clip when ``grad_clip`` is 0)."""
+        self = cls.__new__(cls)
+        self.labels = ["all"]
+        self.params = [list(model.parameters())]
+        self._moments()
+        self.schedules = [schedule]
+        self.cfg = OptimConfig(weight_decay=weight_decay, grad_clip=grad_clip,
+                               b1=b1, b2=b2)
+        return self
+
+    def _moments(self) -> None:
+        self.mu = [[torch.zeros_like(p) for p in ps] for ps in self.params]
+        self.nu = [[torch.zeros_like(p) for p in ps] for ps in self.params]
+
+    def state_dict(self) -> Dict[str, List[np.ndarray]]:
+        """The Adam moments as float32 numpy arrays, in parameter order."""
+        return {k: [t.detach().cpu().numpy() for ts in getattr(self, k)
+                    for t in ts] for k in ("mu", "nu")}
+
+    def load_state_dict(self, sd: Dict[str, List[np.ndarray]]) -> None:
+        for k in ("mu", "nu"):
+            flat = [t for ts in getattr(self, k) for t in ts]
+            if len(sd[k]) != len(flat):
+                raise ValueError(f"optimizer state holds {len(sd[k])} {k} "
+                                 f"tensors, the optimizer {len(flat)}")
+            with torch.no_grad():
+                for t, a in zip(flat, sd[k]):
+                    t.copy_(torch.as_tensor(np.asarray(a)).reshape(t.shape))
 
     def zero_grad(self) -> None:
         for ps in self.params:

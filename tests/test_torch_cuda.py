@@ -207,6 +207,97 @@ def test_gather_kernel_rejects_what_it_does_not_take(cuda):
         G.gather_rows(bank, torch.zeros(2, dtype=torch.int32))
 
 
+def _block_params(D, inner, F, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def r(*s):
+        return 0.1 * torch.randn(*s, generator=g, device=device)
+    return {"g1": 1.0 + r(1), "g2": 1.0 + r(1), "gf": 1.0 + r(1),
+            "wq": r(D, inner), "wk": r(D, inner), "wv": r(D, inner),
+            "wo": r(inner, D), "bo": r(D), "w1": r(D, F), "b1": r(F),
+            "w2": r(F, D), "b2": r(D)}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,L,D,F", [(4, 35, 600, 512), (3, 25, 840, 512),
+                                     (2, 7, 96, 64), (2, 1, 8, 130)])
+def test_dual_axis_kernel_matches_plain(cuda, dtype, tol, B, L, D, F):
+    """K3 against ``encoder_block_reference`` (float32 arithmetic on both
+    sides; another summation order), relative to the output's max abs; two
+    launches give the same bits."""
+    from multimodal_edema_prediction_tpu_torch.ops import dual_axis as DA
+    params = _block_params(D, 24, F, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(B, L, D, generator=g, device=cuda).to(dtype)
+    before = DA.LAUNCHES["dual_axis_block"]
+    got = DA.fused_encoder_block(x, params, 2, 12)
+    again = DA.fused_encoder_block(x, params, 2, 12)
+    torch.cuda.synchronize()
+    assert DA.LAUNCHES["dual_axis_block"] == before + 2
+    want = DA.encoder_block_reference(x, params, 2, 12)
+    assert got.shape == want.shape and got.dtype == dtype
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    assert torch.equal(got, again)
+
+
+def test_dual_axis_kernel_backward_recomputes_plain(cuda):
+    from multimodal_edema_prediction_tpu_torch.ops import dual_axis as DA
+    params = {k: v.requires_grad_() for k, v in
+              _block_params(96, 24, 64, cuda).items()}
+    x = torch.randn(2, 7, 96, device=cuda, requires_grad=True)
+    (DA.fused_encoder_block(x, params, 2, 12) ** 2).mean().backward()
+    leaves = [x.detach().requires_grad_()] + [
+        v.detach().requires_grad_() for v in params.values()]
+    out = DA.encoder_block_reference(
+        leaves[0], dict(zip(params, leaves[1:])), 2, 12)
+    want = torch.autograd.grad((out ** 2).mean(), leaves)
+    for got, w in zip([x.grad] + [v.grad for v in params.values()], want):
+        assert torch.allclose(got, w, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,N,D,H", [(2, 1536, 768, 12), (2, 512, 256, 4),
+                                     (3, 100, 128, 2), (1, 1, 64, 1)])
+def test_ln_qkv_kernel_matches_plain(cuda, dtype, tol, B, N, D, H):
+    """K4 against ``ln_qkv_reference``: h rounded to x's dtype on both
+    sides, products accumulated in float32 in another order; relative to
+    each output's max abs; reruns bit-equal."""
+    from multimodal_edema_prediction_tpu_torch.ops import ln_qkv as LQ
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def r(*s):
+        return 0.05 * torch.randn(*s, generator=g, device=cuda)
+    params = {"ln_scale": 1.0 + r(D), "ln_bias": r(D),
+              **{k: r(D, H * 64) for k in ("wq", "wk", "wv")},
+              **{k: r(H * 64) for k in ("bq", "bk", "bv")}}
+    x = (2.0 * torch.randn(B, N, D, generator=g, device=cuda) + 0.5).to(dtype)
+    before = LQ.LAUNCHES["ln_qkv"]
+    got = LQ.fused_ln_qkv(x, params, H, 64)
+    again = LQ.fused_ln_qkv(x, params, H, 64)
+    torch.cuda.synchronize()
+    assert LQ.LAUNCHES["ln_qkv"] == before + 2
+    want = LQ.ln_qkv_reference(x, params, H, 64)
+    for a, b, w in zip(got, again, want):
+        assert a.shape == (B, H, N, 64) and a.dtype == dtype
+        scale = w.float().abs().max().item()
+        assert (a.float() - w.float()).abs().max().item() <= tol * scale
+        assert torch.equal(a, b)
+
+
+def test_ln_qkv_kernel_rejects_what_it_does_not_take(cuda):
+    from multimodal_edema_prediction_tpu_torch.ops import ln_qkv as LQ
+    params = {"ln_scale": torch.ones(48, device=cuda),
+              "ln_bias": torch.zeros(48, device=cuda),
+              **{k: torch.zeros(48, 96, device=cuda)
+                 for k in ("wq", "wk", "wv")},
+              **{k: torch.zeros(96, device=cuda) for k in ("bq", "bk", "bv")}}
+    with pytest.raises(ValueError, match="head dim 64"):
+        LQ.fused_ln_qkv(torch.zeros(1, 8, 48, device=cuda), params, 2, 48)
+
+
 def test_encode_once_train_step_on_the_card(cuda):
     """One bf16 teacher step of the encode-once tier at a small geometry:
     finite losses and exactly two K2 launches (CLS and patch banks)."""

@@ -14,8 +14,10 @@ import torch
 
 import multimodal_edema_prediction_tpu_torch as port
 from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
+from multimodal_edema_prediction_tpu_torch.cli import train_ssl as cli_ssl
 from multimodal_edema_prediction_tpu_torch.cli import train_teacher as cli_train
-from multimodal_edema_prediction_tpu_torch.ops import attention, gather
+from multimodal_edema_prediction_tpu_torch.ops import (attention, dual_axis,
+                                                       gather, ln_qkv)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
@@ -30,7 +32,9 @@ def _all_port_modules():
 def test_imports_bring_in_no_jax():
     mods = _all_port_modules()
     for name in ("serve.predictor", "ops.gather", "ops.attention",
-                 "data.features", "train.teacher_loop", "cli.train_teacher"):
+                 "ops.dual_axis", "ops.ln_qkv", "data.features",
+                 "data.sliding", "train.teacher_loop", "train.ssl_loop",
+                 "cli.train_teacher", "cli.train_ssl"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -82,6 +86,15 @@ def test_train_cli_device_default_is_cuda(tmp_path):
                         "--ckpt_dir", str(tmp_path)])
 
 
+def test_ssl_cli_device_default_is_cuda(tmp_path):
+    assert cli_ssl.build_parser().parse_args([]).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_ssl.main(["--synthetic_stays", "40", "--n_variables", "6",
+                      "--ckpt_dir", str(tmp_path)])
+
+
 @pytest.mark.parametrize("mode", ["jpeg_root", "synthetic"])
 def test_cli_queued_image_modes_raise(mode):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -122,7 +135,8 @@ def test_every_kernel_source_is_built():
     from multimodal_edema_prediction_tpu_torch.ops import build
     sources = sorted(f for f in os.listdir(build.CSRC) if f.endswith(".cu"))
     assert sorted(build.SOURCES.values()) == sources
-    assert "flash_attention_bwd.cu" in sources
+    for name in ("flash_attention_bwd.cu", "dual_axis_block.cu", "ln_qkv.cu"):
+        assert name in sources
 
 
 def test_gather_wrapper_plain_path_is_cpu_only(monkeypatch):
@@ -137,3 +151,49 @@ def test_gather_wrapper_plain_path_is_cpu_only(monkeypatch):
             gather.gather_rows(bank, rows.to("meta"))
     with pytest.raises(AssertionError, match="plain version taken"):
         gather.gather_rows(torch.zeros(4, 3, 8), rows)   # CPU does take it
+
+
+def _dual_axis_params(device, D=8, inner=4, F=16):
+    def z(*s):
+        return torch.zeros(*s, device=device)
+    return {"g1": z(1), "g2": z(1), "gf": z(1), "wq": z(D, inner),
+            "wk": z(D, inner), "wv": z(D, inner), "wo": z(inner, D),
+            "bo": z(D), "w1": z(D, F), "b1": z(F), "w2": z(F, D), "b2": z(D)}
+
+
+def _ln_qkv_params(device, D=8, inner=64):
+    def z(*s):
+        return torch.zeros(*s, device=device)
+    return {"ln_scale": z(D), "ln_bias": z(D), "wq": z(D, inner),
+            "wk": z(D, inner), "wv": z(D, inner), "bq": z(inner),
+            "bk": z(inner), "bv": z(inner)}
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_dual_axis_wrapper_plain_path_is_cpu_only(monkeypatch, grad):
+    """K3's plain version runs only for CPU tensors, forward and (through
+    the autograd Function) backward alike."""
+    def forbidden(*a, **k):
+        raise AssertionError("plain version taken")
+
+    monkeypatch.setattr(dual_axis, "encoder_block_reference", forbidden)
+    x = torch.empty(2, 5, 8, device="meta", requires_grad=grad)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        dual_axis.fused_encoder_block(x, _dual_axis_params("meta"), 2, 2)
+    cpu = torch.zeros(2, 5, 8, requires_grad=grad)
+    with pytest.raises(AssertionError, match="plain version taken"):
+        dual_axis.fused_encoder_block(cpu, _dual_axis_params("cpu"), 2, 2)
+
+
+@pytest.mark.parametrize("grad", [False, True])
+def test_ln_qkv_wrapper_plain_path_is_cpu_only(monkeypatch, grad):
+    def forbidden(*a, **k):
+        raise AssertionError("plain version taken")
+
+    monkeypatch.setattr(ln_qkv, "ln_qkv_reference", forbidden)
+    x = torch.empty(2, 5, 8, device="meta", requires_grad=grad)
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        ln_qkv.fused_ln_qkv(x, _ln_qkv_params("meta"), 1, 64)
+    cpu = torch.zeros(2, 5, 8, requires_grad=grad)
+    with pytest.raises(AssertionError, match="plain version taken"):
+        ln_qkv.fused_ln_qkv(cpu, _ln_qkv_params("cpu"), 1, 64)

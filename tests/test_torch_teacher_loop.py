@@ -151,7 +151,6 @@ def test_loop_refuses_a_feature_cache_for_a_trainable_vit(feature_cache,
     (["--perceiver_type", "single"], "P13"),
     (["--steps_per_call", "4"], "P10"),
     (["--vit_quant", "int8"], "P20"),
-    (["--duett_ckpt", "/x"], "P12"),
     (["--cxr_feature_cache", "host"], "P8"),
     (["--cxr_feature_cache", "auto", "--hbm_feature_budget_gb", "0"], "P8")])
 def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):

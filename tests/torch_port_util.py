@@ -40,12 +40,14 @@ def perturb(tree, seed: int = 0, scale: float = 0.05):
     return walk(jax.tree.map(np.asarray, dict(tree)))
 
 
-def init_perturbed(module, *inputs, seed: int = 0, **kw):
-    """(params, batch_stats) of a flax module, initialized and perturbed."""
+def init_perturbed(module, *inputs, seed: int = 0, scale: float = 0.05,
+                   **kw):
+    """(params, batch_stats) of a flax module, initialized and perturbed
+    by N(0, ``scale``²)."""
     variables = jax.jit(lambda *a: module.init(jax.random.key(seed), *a,
                                                **kw))(*inputs)
-    params = perturb(variables["params"], seed)
-    stats = perturb(variables.get("batch_stats", {}), seed + 1)
+    params = perturb(variables["params"], seed, scale)
+    stats = perturb(variables.get("batch_stats", {}), seed + 1, scale)
     return params, stats
 
 
