@@ -93,7 +93,20 @@ and DuETT SSL pretraining (ROADMAP P12) add:
             encode-once tier (1 epoch of 4 batches of 32): its DuETT starts
             equal to the SSL encoder; finite losses; launches counted.
 
-Then the kernel summary line (six kernels) and, last,
+K1's backward redesigned for Hopper (warpgroup MMA, TMA; ROADMAP Queue 2)
+adds:
+
+2b. bwd_build  the bf16 dkv and dq kernels as built: registers, spills and
+            shared memory (``ptxas -v``) and their HGMMA count (``cuobjdump``
+            SASS); fails on a spill or on a kernel without HGMMA.
+3b. backward  also the pair (dkv + dq) and the autograd Function's whole
+            backward (dO made ready, D, dkv, dq) against SDPA's backward in
+            the same run (``pair_ms``, ``pair_vs_library``, ``delta_ms``,
+            ``backward_ms``, ``backward_vs_library``); 10. unfreeze_step
+            also dkv's and dq's device ms per step at the top level.
+
+Then the kernel summary line (six kernels; the dkv and dq rows with the
+build facts, the pair and the whole backward) and, last,
 ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
@@ -304,6 +317,41 @@ def phase_build(port) -> dict:
     info = {"phase": "build", "seconds": round(time.time() - t0, 3),
             "built": sorted(built), "ptxas": ptxas}
     emit(info)
+    return info
+
+
+def phase_bwd_build(port) -> dict:
+    """K1's bf16 dkv and dq kernels as built: registers, spills (bytes
+    stored plus loaded) and static shared memory from the ``ptxas -v`` log,
+    the dynamic shared memory a launch asks for, and the warpgroup MMAs
+    (HGMMA) in the library's SASS (``cuobjdump``). Fails if either kernel
+    spills or holds no HGMMA, or if there is no SASS listing to count."""
+    import ctypes
+    build = port["build"]
+    usage = build.ptxas_usage(build.build_log("flash_attention_bwd"))
+    listing = build.sass("flash_attention_bwd")
+    if listing is None:
+        raise AssertionError("no SASS listing of flash_attention_bwd "
+                             "(cuobjdump missing or failed)")
+    hgmma = build.sass_opcode_counts(listing, "HGMMA")
+    dynamic = build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
+    dynamic.restype, dynamic.argtypes = ctypes.c_int, [ctypes.c_int]
+    info = {"phase": "bwd_build"}
+    for i, kind in enumerate(("dkv", "dq")):
+        name = f"flash_bwd_{kind}_bf16"
+        found = [u for fn, u in usage.items() if name in fn]
+        if len(found) != 1:
+            raise AssertionError(f"{name}: no single ptxas entry: {usage}")
+        u = found[0]
+        info[kind] = {
+            "registers": u["registers"],
+            "spills": u["spill_stores"] + u["spill_loads"],
+            "smem_bytes": u["smem_bytes"] + dynamic(i),
+            "sass_hgmma": sum(n for fn, n in hgmma.items() if name in fn)}
+    emit(info)
+    for kind in ("dkv", "dq"):
+        if info[kind]["spills"] or not info[kind]["sass_hgmma"] > 0:
+            raise AssertionError(f"K1 {kind}: {info[kind]}")
     return info
 
 
@@ -675,8 +723,9 @@ def phase_backward(port, device, cases) -> dict:
     autograd Function) against ``flash_mha_backward_reference``; the
     forward's log-sum-exp against the plain one; two backward passes
     bit-equal; keys past ``kv_valid`` exactly zero. Timed cases: the forward
-    with and without ``lse``, each backward kernel, the plain backward and
-    ``scaled_dot_product_attention``'s backward (a yardstick only).
+    with and without ``lse``, each backward kernel, D, the Function's whole
+    backward, the plain backward and ``scaled_dot_product_attention``'s
+    backward (a yardstick only).
     cases: (label, B, H, N, kv_valid, dtype, tol, timed)."""
     import torch
     import torch.nn.functional as F
@@ -746,11 +795,22 @@ def phase_backward(port, device, cases) -> dict:
             res["library_ms"] = device_ms(
                 lambda: torch.autograd.grad(out, leaves, do,
                                             retain_graph=True), device)
+            res["delta_ms"] = device_ms(lambda: att.delta(o, do), device)
+            # the Function's whole backward as training runs it (dO made
+            # ready, D, dkv, dq), timed the way SDPA's backward is above
+            fn_out = att.flash_mha(*leaves, scale, kv_valid=kv_valid)
+            res["backward_ms"] = device_ms(
+                lambda: torch.autograd.grad(fn_out, leaves, do,
+                                            retain_graph=True), device)
+            res["pair_ms"] = res["dkv_ms"] + res["dq_ms"]
+            res["pair_vs_library"] = res["pair_ms"] / res["library_ms"]
+            res["backward_vs_library"] = res["backward_ms"] / \
+                res["library_ms"]
             for kind in ("dkv", "dq", "pair"):
                 res[f"{kind}_bound_ms"], res[f"{kind}_bound_by"] = \
                     backward_bound_ms(kind, B, H, N, n_keys,
                                       q.element_size(), peak)
-            del out, leaves
+            del out, fn_out, leaves
         emit(res)
         if not (finite and max(rel.values()) <= tol and lse_err <= TOL_LSE
                 and same_bits and masked_zero):
@@ -940,6 +1000,9 @@ def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
             "peak_memory_bytes": peak, "static_bytes": static_bytes,
             "est_peak_bytes_at_batch_128": static_bytes
             + 4 * (peak - static_bytes),
+            **{f"{kind}_device_ms_per_step":
+               prof.get(f"k1_{kind}_device_ms_per_step", "not measured")
+               for kind in ("dkv", "dq")},
             "profile": prof}
     emit(info)
     if not np.isfinite(info["loss"]):
@@ -1608,6 +1671,7 @@ def main() -> int:
 
     dev = phase_device()
     phase_build(port)
+    built = phase_bwd_build(port)
     bf16, f32 = torch.bfloat16, torch.float32
     checks = phase_kernels(port, device, [
         ("vit_bf16", 8, 12, 1370, None, bf16, TOL_BF16, True),
@@ -1678,7 +1742,10 @@ def main() -> int:
          "max_abs_err": max(b["max_abs_err"][g] for g in grads),
          "ms": b[f"{kind}_ms"], "plain_ms": b["plain_ms"],
          "bound_ms": b[f"{kind}_bound_ms"], "bound_by": b[f"{kind}_bound_by"],
-         "library_ms": b["library_ms"]}
+         "library_ms": b["library_ms"], "pair_ms": b["pair_ms"],
+         "pair_vs_library": b["pair_vs_library"], "delta_ms": b["delta_ms"],
+         "backward_ms": b["backward_ms"],
+         "backward_vs_library": b["backward_vs_library"], **built[kind]}
         for kind, replaces, grads in (("dkv", K1_DKV_REPLACES, ("dk", "dv")),
                                       ("dq", K1_DQ_REPLACES, ("dq",)))]
     emit({"kernels": [

@@ -11,6 +11,10 @@
 //     (:1287), pallas_call :1456  ->  flash_bwd_dq_{bf16,f32} below.
 // Split as JAX splits them, so no block ever adds into another block's
 // output: no atomics, and the gradients are bit-reproducible run to run.
+// The split stays on purpose: a dq fused into the dkv pass (sharing S and
+// dP) would add into dQ from every key block, with atomics (whose order
+// changes the bits from run to run) or through per-key-block partial sums
+// and a second pass (~1.5 GB more traffic at [32, 12, 1370, 64]).
 //
 // Inputs: q, k, v and dO as [B, H, N, 64] with arbitrary batch/head/token
 // strides and a contiguous head dim (the forward's views); the forward's
@@ -18,9 +22,9 @@
 // di at flash_attention.py:273-275), both float32 [B, H, Nq] contiguous.
 // Per tile both kernels recompute S = Q K^T * scale and P = exp(S - lse)
 // from them, then dP = dO V^T and dS = P * (dP - D):
-//   dkv: one block owns 64 keys and streams the query tiles;
+//   dkv: a block owns keys and streams the query tiles;
 //        dV += P^T dO, dK += dS^T Q * scale;
-//   dq:  one block owns 64 queries and streams the key tiles;
+//   dq:  a block owns queries and streams the key tiles;
 //        dQ += dS K * scale.
 // Keys at or past kv_valid get P = 0, so their dK and dV are exactly 0;
 // ragged tiles are zero-filled on load and never written past N. Outputs are
@@ -28,42 +32,71 @@
 //
 // Bound on an H100 SXM: dkv does 4 products of 2*N^2*D per (b, h)
 // (8*B*H*N^2*D operations), dq 3 (6*B*H*N^2*D); the pair's algorithmic least
-// is 5 (10*B*H*N^2*D: dq shares S and dP with dkv in a fused kernel). At
-// [32, 12, 1370, 64] that is 0.373 / 0.280 / 0.466 ms at 989 TFLOP/s bf16,
-// while the bytes (q, k, v, dO read, two gradients written, ~0.1 GB) take
-// ~0.04 ms: bound by operations. The bf16 kernels therefore keep every
-// N x N tile in registers and run all products on the tensor cores through
-// mma.sync m16n8k16 (bf16 in, f32 accumulate): one block of 4 warps, 16 rows
-// per warp, the block's own 64 rows held as A fragments for the whole loop,
-// the streamed 64-row tiles double-buffered in shared memory with cp.async
-// and read with ldmatrix (.trans where the tile is the right-hand side
-// k-major). P and dS are rounded to bf16 before their products, as FA2 does;
-// row statistics (lse, D) stay in f32. In the dkv kernel the warp computes
-// S^T = K Q^T rather than S, so that P^T and dS^T come out of the
-// accumulator already in the A-fragment layout of dV += P^T dO and
-// dK += dS^T Q. No wgmma, TMA or warp specialisation yet: later work.
+// is 5 (10*B*H*N^2*D: a fused kernel shares S and dP). At [32, 12, 1370, 64]
+// that is 0.373 / 0.280 / 0.466 ms at 989 TFLOP/s bf16, while the bytes
+// (q, k, v, dO read, the gradients written, ~0.1 GB) take ~0.04 ms: bound by
+// operations, so the bf16 kernels are built around the tensor cores:
+//   - Every product is a warpgroup MMA (wgmma m64n64k16, bf16 in, f32
+//     accumulate; wgmma_bf16.cuh), Hopper's only path to its full tensor
+//     rate, where the previous design issued mma.sync m16n8k16.
+//   - A block owns 128 rows (keys in dkv, queries in dq): two consumer
+//     warpgroups of 64. Each warp keeps its 16 rows of K and V (dkv) or Q
+//     and dO (dq) in registers as A fragments for the whole loop, so the
+//     score products read only their B tile from shared memory, once per
+//     warpgroup, where each of the previous design's warps re-read the
+//     whole streamed tile with ldmatrix for its own 16 rows.
+//   - A producer warp streams the tiles with TMA (128-byte swizzle, the
+//     layout wgmma reads) into a 3-stage ring guarded by mbarriers (full:
+//     the tile and, in dkv, its lse and D landed; empty: every consumer warp
+//     is done with it), so loads run under the products, and the two
+//     warpgroups never meet at a block-wide barrier: one computes exp while
+//     the other's wgmma runs. Within a warpgroup, exp runs under the dP
+//     product and dS under dV's. The tensor maps (64, rows, H, B) are
+//     encoded per call from the views' strides (ops/attention.py::
+//     tma_geometry); rows past the map's count (Nq; n_keys for K and V)
+//     load as 0, so no load is masked.
+//   - dkv computes S^T = K Q^T and dP^T = V dO^T, so that P^T and dS^T come
+//     out of the accumulator in the register-A layout of dV += P^T dO and
+//     dK += dS^T Q, whose B (the dO and Q tiles) is read MN-major. dq
+//     computes S = Q K^T, dP = dO V^T and dQ += dS K, K read MN-major. P and
+//     dS are rounded to bf16 before their products, as FA2 does; lse and D
+//     stay in f32.
+//   - 384 threads: the two consumer warpgroups and a producer warpgroup,
+//     whose setmaxnreg hands its registers to the consumers (40 and 232 a
+//     thread); at one block per SM the 168 a thread of an even split made
+//     dkv spill. (The previous design's 174 registers left 8 warps an SM.)
+// Keys at or past n_keys load as 0 but exp(0 - lse) is not 0, so P is masked
+// in arithmetic; queries past Nq get lse = +inf, so their P is 0.
 //
 // The float32 kernels are plain SIMT loops (one thread per owned row, f32
 // FMA, no TF32) for the reference-precision checks.
 //
 // Entry points: flash_attention_bwd_dkv(...) and flash_attention_bwd_dq(...)
-// launch on the given stream, allocate nothing and return cudaGetLastError()
+// launch on the given stream, allocate nothing and return a CUDA error code
 // as an int (0 = launched).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 constexpr int kD = 64;         // head dim
-constexpr int kBM = 64;        // owned rows per block (keys: dkv, queries: dq)
-constexpr int kBN = 64;        // streamed rows per tile (bf16 kernels)
-constexpr int kRow = kD + 8;   // padded bf16 shared-memory row (144 B rows:
-                               // conflict-free fragment loads)
-constexpr int kBNf = 16;       // streamed rows per tile (f32 kernels)
+constexpr int kOwn = 128;      // owned rows per block (bf16): 64 a warpgroup
+constexpr int kTile = 64;      // streamed rows per tile (bf16)
+constexpr int kStages = 3;     // depth of the TMA ring
+constexpr int kThreads = 384;  // two consumer warpgroups + the producer's
+constexpr int kProducer = 8;   // the producer's warp (its group's first)
+constexpr int kProducerRegs = 40;   // registers a thread after setmaxnreg:
+constexpr int kConsumerRegs = 232;  // 128 (40 + 2 x 232) <= 65536
+constexpr uint32_t kTileBytes = kTile * kD * 2;
+constexpr int kBM = 64;        // owned rows per block (f32)
+constexpr int kBNf = 16;       // streamed rows per tile (f32)
 constexpr int kRowf = kD + 1;  // padded f32 row of an owned row: thread i
                                // reads row i, conflict-free
 constexpr float kLog2e = 1.4426950408889634f;
@@ -86,6 +119,40 @@ struct Params {
   long long sdqb, sdqh, sdqn, sdkb, sdkh, sdkn, sdvb, sdvh, sdvn;
 };
 
+// a bf16 kernel's tensor maps of its two streamed tensors, each (64, rows,
+// H, B): Q and dO for dkv, K and V for dq
+struct Maps {
+  CUtensorMap a, b;
+};
+
+using Tile = __nv_bfloat16[kTile * kD];  // one swizzled [64][64] tile, 8 KB
+
+struct DkvSmem {
+  Tile q[kStages], o[kStages];  // the ring of query tiles
+  float lse[kStages][kTile];    // their lse (log2 units) and D
+  float dlt[kStages][kTile];
+  uint64_t full[kStages], empty[kStages];
+};
+
+struct DqSmem {
+  Tile k[kStages], v[kStages];  // the ring of key tiles
+  uint64_t full[kStages], empty[kStages];
+};
+
+// dynamic shared memory, 1024 extra bytes to put S on the 1024-byte boundary
+// the 128-byte swizzle repeats on
+template <typename S>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(S)) + 1024;
+}
+
+template <typename S>
+__device__ __forceinline__ S& smem_1024() {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  return *reinterpret_cast<S*>(smem_raw + pad);
+}
+
 template <typename T>
 __device__ __forceinline__ const T* at(const void* base, int b, int h,
                                        long long sb, long long sh) {
@@ -98,18 +165,11 @@ __device__ __forceinline__ T* at_out(void* base, int b, int h, long long sb,
   return static_cast<T*>(base) + b * sb + h * sh;
 }
 
-// Stage a 64 x 64 bf16 tile of rows [n0, n0 + 64) of x (rows at or past
-// n_valid zero-filled): 512 16-byte chunks, 4 per thread.
-__device__ __forceinline__ void stage_tile(__nv_bfloat16 (*dst)[kRow],
-                                           const __nv_bfloat16* x,
-                                           long long stride, int n0,
-                                           int n_valid) {
-  for (int c = threadIdx.x; c < kBN * kD / 8; c += blockDim.x) {
-    const int r = c >> 3, col = (c & 7) * 8;
-    const bool ok = n0 + r < n_valid;
-    const long long row = ok ? n0 + r : 0;
-    cp_async16(smem_u32(&dst[r][col]), x + row * stride + col, ok);
-  }
+// 2^x on the special function unit (2 ulp; 0 for -inf)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Write a warp's 16 x 64 f32 accumulator (times `mul`) as bf16 rows r0 and
@@ -131,182 +191,240 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* out,
   }
 }
 
-__global__ void __launch_bounds__(128)
-flash_bwd_dkv_bf16(const Params p) {
-  // two stages of the streamed query tile: Q, dO and the rows' lse (in log2
-  // units) and D
-  __shared__ __align__(128) __nv_bfloat16 Qs[2][kBN][kRow];
-  __shared__ __align__(128) __nv_bfloat16 Os[2][kBN][kRow];
-  __shared__ float Ls[2][kBN];
-  __shared__ float Ds[2][kBN];
-
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16(const __grid_constant__ Maps m, const Params p) {
+  DkvSmem& s = smem_1024<DkvSmem>();
   const int b = blockIdx.z, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* q = at<__nv_bfloat16>(p.q, b, h, p.sqb, p.sqh);
-  const __nv_bfloat16* k = at<__nv_bfloat16>(p.k, b, h, p.skb, p.skh);
-  const __nv_bfloat16* v = at<__nv_bfloat16>(p.v, b, h, p.svb, p.svh);
-  const __nv_bfloat16* dout = at<__nv_bfloat16>(p.dout, b, h, p.sob, p.soh);
-  const long long bh = static_cast<long long>(b) * p.H + h;
-  const float* lse = p.lse + bh * p.Nq;
-  const float* delta = p.delta + bh * p.Nq;
-  const int c0 = blockIdx.x * kBM + warp * 16 + g;  // this thread's keys
-  const int c1 = c0 + 8;
-
-  // the warp's 16 keys of K and V as A fragments; keys past n_keys read 0
-  uint32_t kf[4][4], vf[4][4];
-  load_a_rows(kf, k, p.skn, c0, p.n_keys, t);
-  load_a_rows(vf, v, p.svn, c0, p.n_keys, t);
-
-  float dk[8][4], dv[8][4];
-  zero_acc(dk);
-  zero_acc(dv);
-
-  auto load_tile = [&](int stage, int m0) {
-    stage_tile(Qs[stage], q, p.sqn, m0, p.Nq);
-    stage_tile(Os[stage], dout, p.son, m0, p.Nq);
-    if (threadIdx.x < kBN) {
-      const int r = m0 + threadIdx.x;
-      Ls[stage][threadIdx.x] = r < p.Nq ? lse[r] * kLog2e : 0.f;
-      Ds[stage][threadIdx.x] = r < p.Nq ? delta[r] : 0.f;
+  const int n_tiles = (p.Nq + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.full[i], 33);  // the tx arrive, then each producer lane
+      mbar_init(&s.empty[i], 8);  // lane 0 of each consumer warp
     }
-  };
-  const int n_tiles = (p.Nq + kBN - 1) / kBN;
-  load_tile(0, 0);
-  cp_async_commit();
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1, m0 = it * kBN;
-    if (it + 1 < n_tiles) {
-      load_tile(st ^ 1, m0 + kBN);  // stage st^1 was released below
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // S^T = K Q^T: this warp's 16 keys x 64 queries
-    float s[8][4];
-    zero_acc(s);
-    mma_abt<kRow>(s, kf, Qs[st], lane);
-    // P^T = exp(S^T * scale - lse); keys past n_keys and queries past Nq
-    // get 0
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qi = j * 8 + 2 * t + (e & 1);
-        const int key = e < 2 ? c0 : c1;
-        s[j][e] = (m0 + qi < p.Nq && key < p.n_keys)
-                      ? exp2f(s[j][e] * p.scale_log2 - Ls[st][qi])
-                      : 0.f;
-      }
-    }
-    // dV += P^T dO
-    mma_cm<kRow>(dv, s, Os[st], lane);
-    // dP^T = V dO^T, then dS^T = P^T * (dP^T - D)
-    float ds[8][4];
-    zero_acc(ds);
-    mma_abt<kRow>(ds, vf, Os[st], lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[j][e] = s[j][e] * (ds[j][e] - Ds[st][j * 8 + 2 * t + (e & 1)]);
-    }
-    // dK += dS^T Q
-    mma_cm<kRow>(dk, ds, Qs[st], lane);
-    __syncthreads();  // stage st is free for the load two tiles ahead
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  store_rows(at_out<__nv_bfloat16>(p.dk, b, h, p.sdkb, p.sdkh), p.sdkn, dk,
-             p.scale, c0, p.Nk, t);
-  store_rows(at_out<__nv_bfloat16>(p.dv, b, h, p.sdvb, p.sdvh), p.sdvn, dv,
-             1.f, c0, p.Nk, t);
+  if (warp >= kProducer) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducer) return;
+    const long long bh = static_cast<long long>(b) * p.H + h;
+    const float* lse = p.lse + bh * p.Nq;
+    const float* delta = p.delta + bh * p.Nq;
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, m0 = it * kTile;
+      mbar_wait(&s.empty[st], ((it / kStages) & 1) ^ 1);
+      if (lane == 0) {  // the tiles first, the row statistics under them
+        mbar_arrive_tx(&s.full[st], 2 * kTileBytes);
+        tma_load_tile(s.q[st], &m.a, m0, h, b, &s.full[st]);
+        tma_load_tile(s.o[st], &m.b, m0, h, b, &s.full[st]);
+      }
+      for (int r = lane; r < kTile; r += 32) {
+        const int row = m0 + r;
+        s.lse[st][r] = row < p.Nq ? lse[row] * kLog2e : INFINITY;
+        s.dlt[st][r] = row < p.Nq ? delta[row] : 0.f;
+      }
+      mbar_arrive(&s.full[st]);
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    // consumer warpgroup wg owns keys 128 blockIdx.x + 64 wg .. + 63; this
+    // thread's rows of the accumulators are keys c0 and c1. The warp's 16
+    // keys of K and V stay in registers as A fragments for the whole loop
+    // (keys past n_keys read 0).
+    const int wg = warp >> 2, wl = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int c0 = blockIdx.x * kOwn + wg * 64 + wl * 16 + g, c1 = c0 + 8;
+    const bool live0 = c0 < p.n_keys, live1 = c1 < p.n_keys;
+    uint32_t kf[4][4], vf[4][4];
+    load_a_rows(kf, at<__nv_bfloat16>(p.k, b, h, p.skb, p.skh), p.skn, c0,
+                p.n_keys, t);
+    load_a_rows(vf, at<__nv_bfloat16>(p.v, b, h, p.svb, p.svh), p.svn, c0,
+                p.n_keys, t);
+    float dk[8][4], dv[8][4];
+    zero_acc(dk);
+    zero_acc(dv);
+
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages;
+      mbar_wait(&s.full[st], (it / kStages) & 1);
+      const uint64_t qd = sw128_desc(s.q[st]), od = sw128_desc(s.o[st]);
+      // S^T = K Q^T, then dP^T = V dO^T, as two groups: 64 keys x 64
+      // queries, Q and dO read K-major (16 of the head dim a step)
+      float sc[8][4], dp[8][4];
+      wgmma_fence();
+      wgmma_rs_first<0>(sc, kf[0], qd);
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk) wgmma_rs<0>(sc, kf[kk], qd + 2 * kk);
+      wgmma_commit();
+      wgmma_rs_first<0>(dp, vf[0], od);
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk) wgmma_rs<0>(dp, vf[kk], od + 2 * kk);
+      wgmma_commit();
+      // P^T = exp(S^T * scale - lse), 0 for keys past n_keys, while dP^T
+      // runs
+      wgmma_wait<1>();
+      fence_acc(sc);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l =
+            *reinterpret_cast<const float2*>(&s.lse[st][8 * j + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = sc[j][e] * p.scale_log2 - ((e & 1) ? l.y : l.x);
+          sc[j][e] = (e < 2 ? live0 : live1) ? exp2_fast(x) : 0.f;
+        }
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(pa[kk], sc, kk);
+      // dV += P^T dO: A from registers, dO read MN-major (16 query rows a
+      // step); then dS^T = P^T * (dP^T - D) while it runs
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(dv, pa[kk], od + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d =
+            *reinterpret_cast<const float2*>(&s.dlt[st][8 * j + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = sc[j][e] * (dp[j][e] - ((e & 1) ? d.y : d.x));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], dp, kk);
+      // dK += dS^T Q, Q read MN-major
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(dk, da[kk], qd + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dv);
+      fence_acc(dk);
+      fence_frag(pa);
+      fence_frag(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[st]);  // stage st is free
+    }
+
+    store_rows(at_out<__nv_bfloat16>(p.dk, b, h, p.sdkb, p.sdkh), p.sdkn, dk,
+               p.scale, c0, p.Nk, t);
+    store_rows(at_out<__nv_bfloat16>(p.dv, b, h, p.sdvb, p.sdvh), p.sdvn, dv,
+               1.f, c0, p.Nk, t);
+  }
 }
 
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_bf16(const Params p) {
-  // two stages of the streamed K and V tiles
-  __shared__ __align__(128) __nv_bfloat16 Ks[2][kBN][kRow];
-  __shared__ __align__(128) __nv_bfloat16 Vs[2][kBN][kRow];
-
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16(const __grid_constant__ Maps m, const Params p) {
+  DqSmem& s = smem_1024<DqSmem>();
   const int b = blockIdx.z, h = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* q = at<__nv_bfloat16>(p.q, b, h, p.sqb, p.sqh);
-  const __nv_bfloat16* k = at<__nv_bfloat16>(p.k, b, h, p.skb, p.skh);
-  const __nv_bfloat16* v = at<__nv_bfloat16>(p.v, b, h, p.svb, p.svh);
-  const __nv_bfloat16* dout = at<__nv_bfloat16>(p.dout, b, h, p.sob, p.soh);
-  const long long bh = static_cast<long long>(b) * p.H + h;
-  const int r0 = blockIdx.x * kBM + warp * 16 + g;  // this thread's rows
-  const int r1 = r0 + 8;
-
-  // the warp's 16 rows of Q and dO as A fragments; rows past Nq read 0
-  uint32_t qf[4][4], of[4][4];
-  load_a_rows(qf, q, p.sqn, r0, p.Nq, t);
-  load_a_rows(of, dout, p.son, r0, p.Nq, t);
-  // the rows' lse (log2 units) and D; rows past Nq: P = 1 against Q = 0,
-  // dO = 0, so dS = 0 and nothing is written
-  const float L0 = r0 < p.Nq ? p.lse[bh * p.Nq + r0] * kLog2e : 0.f;
-  const float L1 = r1 < p.Nq ? p.lse[bh * p.Nq + r1] * kLog2e : 0.f;
-  const float D0 = r0 < p.Nq ? p.delta[bh * p.Nq + r0] : 0.f;
-  const float D1 = r1 < p.Nq ? p.delta[bh * p.Nq + r1] : 0.f;
-
-  float dq[8][4];
-  zero_acc(dq);
-
-  auto load_tile = [&](int stage, int n0) {
-    stage_tile(Ks[stage], k, p.skn, n0, p.n_keys);
-    stage_tile(Vs[stage], v, p.svn, n0, p.n_keys);
-  };
-  const int n_tiles = (p.n_keys + kBN - 1) / kBN;
-  load_tile(0, 0);
-  cp_async_commit();
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int st = it & 1, n0 = it * kBN;
-    if (it + 1 < n_tiles) {
-      load_tile(st ^ 1, n0 + kBN);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  const int n_tiles = (p.n_keys + kTile - 1) / kTile;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&s.full[i], 1);   // the producer's arrive with the tx
+      mbar_init(&s.empty[i], 8);  // lane 0 of each consumer warp
     }
-    __syncthreads();
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    // S = Q K^T and P = exp(S * scale - lse), keys past n_keys 0
-    float s[8][4];
-    zero_acc(s);
-    mma_abt<kRow>(s, qf, Ks[st], lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = n0 + j * 8 + 2 * t + (e & 1);
-        s[j][e] = key < p.n_keys
-                      ? exp2f(s[j][e] * p.scale_log2 - (e < 2 ? L0 : L1))
-                      : 0.f;
+  if (warp >= kProducer) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducer) return;
+    if (lane == 0) {
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages, n0 = it * kTile;
+        mbar_wait(&s.empty[st], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_tx(&s.full[st], 2 * kTileBytes);
+        tma_load_tile(s.k[st], &m.a, n0, h, b, &s.full[st]);
+        tma_load_tile(s.v[st], &m.b, n0, h, b, &s.full[st]);
       }
     }
-    // dP = dO V^T, then dS = P * (dP - D)
-    float ds[8][4];
-    zero_acc(ds);
-    mma_abt<kRow>(ds, of, Vs[st], lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        ds[j][e] = s[j][e] * (ds[j][e] - (e < 2 ? D0 : D1));
-    }
-    // dQ += dS K
-    mma_cm<kRow>(dq, ds, Ks[st], lane);
-    __syncthreads();
-  }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    // consumer warpgroup wg owns queries 128 blockIdx.x + 64 wg .. + 63;
+    // this thread's rows of the accumulators are r0 and r1. The warp's 16
+    // rows of Q and dO stay in registers as A fragments (rows past Nq 0).
+    const int wg = warp >> 2, wl = warp & 3;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = blockIdx.x * kOwn + wg * 64 + wl * 16 + g, r1 = r0 + 8;
+    uint32_t qf[4][4], of[4][4];
+    load_a_rows(qf, at<__nv_bfloat16>(p.q, b, h, p.sqb, p.sqh), p.sqn, r0,
+                p.Nq, t);
+    load_a_rows(of, at<__nv_bfloat16>(p.dout, b, h, p.sob, p.soh), p.son, r0,
+                p.Nq, t);
+    const long long bh = static_cast<long long>(b) * p.H + h;
+    // the rows' lse (log2 units) and D; rows past Nq: lse +inf, so P = 0
+    const float L0 = r0 < p.Nq ? p.lse[bh * p.Nq + r0] * kLog2e : INFINITY;
+    const float L1 = r1 < p.Nq ? p.lse[bh * p.Nq + r1] * kLog2e : INFINITY;
+    const float D0 = r0 < p.Nq ? p.delta[bh * p.Nq + r0] : 0.f;
+    const float D1 = r1 < p.Nq ? p.delta[bh * p.Nq + r1] : 0.f;
+    float dq[8][4];
+    zero_acc(dq);
 
-  store_rows(at_out<__nv_bfloat16>(p.dq, b, h, p.sdqb, p.sdqh), p.sdqn, dq,
-             p.scale, r0, p.Nq, t);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int st = it % kStages, n0 = it * kTile;
+      mbar_wait(&s.full[st], (it / kStages) & 1);
+      const uint64_t kd = sw128_desc(s.k[st]), vd = sw128_desc(s.v[st]);
+      // S = Q K^T, then dP = dO V^T, as two groups: 64 queries x 64 keys,
+      // K and V read K-major
+      float sc[8][4], dp[8][4];
+      wgmma_fence();
+      wgmma_rs_first<0>(sc, qf[0], kd);
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk) wgmma_rs<0>(sc, qf[kk], kd + 2 * kk);
+      wgmma_commit();
+      wgmma_rs_first<0>(dp, of[0], vd);
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk) wgmma_rs<0>(dp, of[kk], vd + 2 * kk);
+      wgmma_commit();
+      // P = exp(S * scale - lse), 0 for keys past n_keys (only the last
+      // tile has any), while dP runs
+      wgmma_wait<1>();
+      fence_acc(sc);
+      const bool ragged = n0 + kTile > p.n_keys;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = n0 + j * 8 + 2 * t + (e & 1);
+          const float pe =
+              exp2_fast(sc[j][e] * p.scale_log2 - (e < 2 ? L0 : L1));
+          sc[j][e] = ragged && key >= p.n_keys ? 0.f : pe;
+        }
+      }
+      // dS = P * (dP - D)
+      wgmma_wait<0>();
+      fence_acc(dp);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = sc[j][e] * (dp[j][e] - (e < 2 ? D0 : D1));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc_to_a(da[kk], dp, kk);
+      // dQ += dS K: A from registers, K read MN-major (16 key rows a step)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<1>(dq, da[kk], kd + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_acc(dq);
+      fence_frag(da);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&s.empty[st]);  // stage st is free
+    }
+
+    store_rows(at_out<__nv_bfloat16>(p.dq, b, h, p.sdqb, p.sdqh), p.sdqn, dq,
+               p.scale, r0, p.Nq, t);
+  }
 }
 
 // Load the block's 64 own rows [r0, r0 + 64) of a float32 [N, 64] matrix into
@@ -467,11 +585,73 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime so
+// that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess &&
+        ptr != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// One bf16 tensor map with [64][64] boxes and the 128-byte swizzle. geo:
+// dims (64, rows, H, B), innermost first, then the byte strides of rows,
+// heads and batches (ops/attention.py::tma_geometry).
+bool encode_map(CUtensorMap* map, const void* base,
+                const unsigned long long* geo) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || geo[0] != kD) return false;
+  const cuuint64_t dims[4] = {geo[0], geo[1], geo[2], geo[3]};
+  const cuuint64_t strides[3] = {geo[4], geo[5], geo[6]};
+  const cuuint32_t box[4] = {kD, kTile, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch a bf16 kernel on the maps of `a` and `b`, 7 values of geo each.
+template <typename Kernel>
+int launch_bf16(Kernel kernel, int smem, dim3 grid, const Params& p,
+                const void* a, const void* b, const unsigned long long* geo,
+                cudaStream_t s) {
+  Maps m;
+  if (geo == nullptr || !encode_map(&m.a, a, geo) ||
+      !encode_map(&m.b, b, geo + 7))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, s>>>(m, p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 18 element strides in the order
 // q, k, v, dout, dk, dv, each (b, h, n). lse, delta: contiguous float32
-// [B, H, Nq].
+// [B, H, Nq]. maps (bfloat16 only, else unread): the tensor-map geometry of
+// q and dout, 7 values each (encode_map).
 extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
                                        const void* k, const void* v,
                                        const void* dout, const float* lse,
@@ -479,6 +659,7 @@ extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
                                        int B, int H, int Nq, int Nk,
                                        int kv_valid, float sm_scale,
                                        const long long* strides,
+                                       const unsigned long long* maps,
                                        void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, H, Nq, Nk, kv_valid,
                          sm_scale, strides);
@@ -486,36 +667,41 @@ extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
   p.dv = dv;
   p.sdkb = strides[12]; p.sdkh = strides[13]; p.sdkn = strides[14];
   p.sdvb = strides[15]; p.sdvh = strides[16]; p.sdvn = strides[17];
-  const dim3 grid((Nk + kBM - 1) / kBM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    flash_bwd_dkv_bf16<<<grid, 128, 0, s>>>(p);
-  else if (dtype == 0)
-    flash_bwd_dkv_f32<<<grid, kBM, 0, s>>>(p);
-  else
-    return (int)cudaErrorInvalidValue;
+    return launch_bf16(flash_bwd_dkv_bf16, smem_bytes<DkvSmem>(),
+                       dim3((Nk + kOwn - 1) / kOwn, H, B), p, q, dout, maps,
+                       s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  flash_bwd_dkv_f32<<<dim3((Nk + kBM - 1) / kBM, H, B), kBM, 0, s>>>(p);
   return (int)cudaGetLastError();
 }
 
-// strides: 15 element strides in the order q, k, v, dout, dq, each (b, h, n).
+// strides: 15 element strides in the order q, k, v, dout, dq, each (b, h, n);
+// maps: the geometry of k and v, with n_keys rows.
 extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const float* lse, const float* delta,
                                       void* dq, int B, int H, int Nq, int Nk,
                                       int kv_valid, float sm_scale,
                                       const long long* strides,
+                                      const unsigned long long* maps,
                                       void* stream) {
   Params p = make_params(q, k, v, dout, lse, delta, H, Nq, Nk, kv_valid,
                          sm_scale, strides);
   p.dq = dq;
   p.sdqb = strides[12]; p.sdqh = strides[13]; p.sdqn = strides[14];
-  const dim3 grid((Nq + kBM - 1) / kBM, H, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    flash_bwd_dq_bf16<<<grid, 128, 0, s>>>(p);
-  else if (dtype == 0)
-    flash_bwd_dq_f32<<<grid, kBM, 0, s>>>(p);
-  else
-    return (int)cudaErrorInvalidValue;
+    return launch_bf16(flash_bwd_dq_bf16, smem_bytes<DqSmem>(),
+                       dim3((Nq + kOwn - 1) / kOwn, H, B), p, k, v, maps,
+                       s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  flash_bwd_dq_f32<<<dim3((Nq + kBM - 1) / kBM, H, B), kBM, 0, s>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory of a bf16 kernel's block: 0 = dkv, 1 = dq.
+extern "C" int flash_attention_bwd_smem_bytes(int kernel) {
+  return kernel == 0 ? smem_bytes<DkvSmem>() : smem_bytes<DqSmem>();
 }

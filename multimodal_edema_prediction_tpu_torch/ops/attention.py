@@ -87,12 +87,51 @@ def flash_mha_backward_reference(q, k, v, o, lse, do, sm_scale: float = 1.0,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _layout_ok(x: torch.Tensor) -> bool:
+    """The kernels' one layout rule: head dim contiguous, base 16-byte
+    aligned, every other stride a multiple of 8 elements and not 0 (a
+    broadcast dim) unless its dim has one element. It is what the kernels'
+    16-byte row loads need, and what a bf16 tensor map describes."""
+    return (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
+            and all(st % 8 == 0 and (st > 0 or size == 1)
+                    for size, st in zip(x.shape[:-1], x.stride()[:-1])))
+
+
 def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
-    """The kernels read 16-byte rows: head dim contiguous, other strides a
-    multiple of 8 elements, base 16-byte aligned. Other layouts are copied."""
-    ok = (x.stride(-1) == 1 and x.data_ptr() % 16 == 0
-          and all(s % 8 == 0 for s in x.stride()[:-1]))
-    return x if ok else x.contiguous()
+    """``x`` if it keeps ``_layout_ok``'s rule, else a contiguous copy."""
+    return x if _layout_ok(x) else \
+        x.clone(memory_format=torch.contiguous_format)
+
+
+def tma_geometry(x: torch.Tensor, rows: int) -> Tuple[int, ...]:
+    """The bf16 backward kernels' tensor map of [B, H, N, 64] ``x``, as the
+    C entry points take it: dims (64, rows, H, B), innermost first, then the
+    byte strides of rows, heads and batches. Rows at or past ``rows``
+    (≤ N) read as zeros. A dim of one element gets the stride of one row (it
+    is never stepped over). Raises on a float32 tensor (its kernels read
+    through the strides) and on a layout that breaks ``_layout_ok``'s rule,
+    which ``_kernel_ready`` copies first."""
+    B, H, N, D = x.shape
+    if x.dtype != torch.bfloat16 or D != 64 or not _layout_ok(x):
+        raise ValueError(f"no tensor map for a {x.dtype} tensor of shape "
+                         f"{tuple(x.shape)}, strides {x.stride()}")
+    if not 1 <= rows <= N:
+        raise ValueError(f"tensor map rows {rows} outside [1, {N}]")
+    strides = tuple(st * 2 if size > 1 else D * 2
+                    for size, st in ((N, x.stride(2)), (H, x.stride(1)),
+                                     (B, x.stride(0))))
+    return (D, rows, H, B) + strides
+
+
+def _tma_maps(a: torch.Tensor, b: torch.Tensor, rows: int):
+    """The geometry of the tensor maps of a bf16 backward kernel's two
+    streamed tensors (dkv: q and dO, Nq rows; dq: k and v, ``n_keys``
+    rows), flattened for ctypes; None for float32, whose kernels read
+    through the strides."""
+    if a.dtype != torch.bfloat16:
+        return None
+    geo = tma_geometry(a, rows) + tma_geometry(b, rows)
+    return (ctypes.c_ulonglong * len(geo))(*geo)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -119,30 +158,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bound(name: str, n_ptr: int, n_int: int):
     """The C entry point ``name`` with its ctypes signature: dtype, then
-    ``n_ptr`` pointers, ``n_int`` ints, the scale, the strides and the
-    stream."""
+    ``n_ptr`` pointers, ``n_int`` ints, the scale, the strides, the tensor
+    maps' geometry (backward only) and the stream."""
     from .build import load
-    lib = "flash_attention_bwd" if "bwd" in name else "flash_attention"
-    fn = getattr(load(lib), name)
+    bwd = "bwd" in name
+    fn = getattr(load("flash_attention_bwd" if bwd else "flash_attention"),
+                 name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + \
-            [ctypes.c_int] * n_int + [ctypes.c_float, ctypes.c_void_p,
-                                      ctypes.c_void_p]
+            [ctypes.c_int] * n_int + [ctypes.c_float] + \
+            [ctypes.c_void_p] * (3 if bwd else 2)
     return fn
 
 
 def _launch(name: str, n_ptr: int, tensors, ints, sm_scale: float,
-            strided, device) -> None:
+            strided, device, maps=None) -> None:
     """Launch ``name`` on the current stream; raise if CUDA refused it."""
     fn = _bound(name, n_ptr, len(ints))
     strides = (ctypes.c_longlong * (3 * len(strided)))(*(
         s for t in strided for s in t.stride()[:3]))
     ptrs = [None if t is None else t.data_ptr() for t in tensors]
+    tail = [ctypes.addressof(strides)]
+    if "bwd" in name:
+        tail.append(None if maps is None else ctypes.addressof(maps))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(_DTYPES[tensors[0].dtype], *ptrs, *ints, float(sm_scale),
-                 ctypes.addressof(strides), stream)
+                 *tail, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -181,7 +224,8 @@ def dkv_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
     dk, dv = _bnhd_empty(k), _bnhd_empty(v)
     _launch("flash_attention_bwd_dkv", 8, (q, k, v, do, lse, dlt, dk, dv),
             (q.shape[0], q.shape[1], q.shape[2], k.shape[2], n_keys),
-            sm_scale, (q, k, v, do, dk, dv), q.device)
+            sm_scale, (q, k, v, do, dk, dv), q.device,
+            _tma_maps(q, do, q.shape[2]))
     LAUNCHES["flash_attention_bwd_dkv"] += 1
     return dk, dv
 
@@ -191,7 +235,8 @@ def dq_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
     dq = _bnhd_empty(q)
     _launch("flash_attention_bwd_dq", 7, (q, k, v, do, lse, dlt, dq),
             (q.shape[0], q.shape[1], q.shape[2], k.shape[2], n_keys),
-            sm_scale, (q, k, v, do, dq), q.device)
+            sm_scale, (q, k, v, do, dq), q.device,
+            _tma_maps(k, v, n_keys))
     LAUNCHES["flash_attention_bwd_dq"] += 1
     return dq
 

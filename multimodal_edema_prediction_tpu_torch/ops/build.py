@@ -13,11 +13,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -89,6 +90,70 @@ def build_all() -> Dict[str, float]:
 def build_log(name: str) -> str:
     with open(_lib_path(name) + ".log") as f:
         return f.read()
+
+
+def ptxas_usage(log: str) -> Dict[str, dict]:
+    """Per entry function of a ``ptxas -v`` log (``build_log``): registers,
+    spill stores and loads (bytes) and static shared memory (bytes)."""
+    out: Dict[str, dict] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {
+                "registers": None, "spill_stores": 0, "spill_loads": 0,
+                "smem_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"] = int(m.group(1))
+            cur["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def _cuobjdump() -> Optional[str]:
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    return cand if os.path.exists(cand) else None
+
+
+def sass(name: str) -> Optional[str]:
+    """The SASS of library ``name`` (built first if needed), from
+    ``cuobjdump --dump-sass``; None where the toolkit has no cuobjdump."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    load(name)
+    return subprocess.run([tool, "--dump-sass", _lib_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+
+
+def sass_opcode_counts(listing: str, opcode: str) -> Dict[str, int]:
+    """Per function of a ``cuobjdump --dump-sass`` listing, the number of
+    instructions whose opcode is ``opcode`` (any predicate or suffix)."""
+    ins = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]\s+)?"
+                     + re.escape(opcode) + r"[.\s]")
+    out: Dict[str, int] = {}
+    cur = None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = 0
+        elif cur is not None and ins.search(line):
+            out[cur] += 1
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

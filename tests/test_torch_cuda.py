@@ -9,7 +9,8 @@ Tolerances: K1 forward bf16 2e-2 (P and the output rounded to bf16 against
 a float32 plain version), float32 1e-5 (TF32 off; another summation order);
 K1 backward bf16 2e-2 and float32 1e-4 of each gradient's largest magnitude
 (P and dS rounded to bf16 before their products; in float32, exp of
-recomputed scores against the plain softmax); K2 bit-exact (a gather moves
+recomputed scores against the plain softmax), at the edges of the bf16
+kernels' 128-row blocks and 64-row tiles; K2 bit-exact (a gather moves
 bytes).
 """
 import numpy as np
@@ -100,7 +101,9 @@ def _plain_grads(q, k, v, do, kv_valid):
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("Nq,Nk,kv_valid", [
     (1, 1, None), (63, 63, None), (64, 64, None), (65, 65, 1),
-    (300, 300, 257), (7, 1369, None), (1370, 1370, 1370)])
+    (127, 127, None), (128, 128, None), (129, 129, None),
+    (300, 300, 257), (7, 1369, None), (1370, 1370, 1370),
+    (1370, 1370, 1301), (200, 1369, 1000)])
 def test_backward_kernels_match_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
     """dq, dk, dv from the dkv and dq kernels against
     ``flash_mha_backward_reference`` (float32, from the plain forward's o
@@ -156,6 +159,19 @@ def test_backward_is_bit_reproducible_on_strided_views(cuda):
     for gi, w in zip(got, want):
         scale = w.float().abs().max().item()
         assert (gi.float() - w.float()).abs().max().item() <= 2e-2 * scale
+
+
+def test_backward_kernels_issue_wgmma(cuda):
+    """Both bf16 backward kernels run their products as warpgroup MMAs: the
+    built library's SASS holds HGMMA instructions in each."""
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    listing = build.sass("flash_attention_bwd")
+    if listing is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    counts = build.sass_opcode_counts(listing, "HGMMA")
+    for kernel in ("flash_bwd_dkv_bf16", "flash_bwd_dq_bf16"):
+        hits = [n for fn, n in counts.items() if kernel in fn]
+        assert hits and min(hits) > 0, (kernel, counts)
 
 
 @pytest.mark.parametrize("shape,dtype", [
