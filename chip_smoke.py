@@ -105,9 +105,28 @@ adds:
             ``backward_ms``, ``backward_vs_library``); 10. unfreeze_step
             also dkv's and dq's device ms per step at the top level.
 
-Then the kernel summary line (six kernels; the dkv and dq rows with the
-build facts, the pair and the whole backward) and, last,
-``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX package.
+K1's forward redesigned for Hopper (warpgroup MMA, TMA) and the backward's
+D in a one-pass kernel add:
+
+2b. bwd_build  also the bf16 forward (``flash_fwd_bf16``): registers,
+            spills, shared memory, HGMMA count, and each kernel's ``ptxas``
+            warnings (C7511 / C7515: wgmma serialised); fails on a spill or
+            on a kernel without HGMMA.
+3.  kernels  the timed bf16 cases also time the forward against SDPA's
+            within one call, their repetitions alternating
+            (``fwd_vs_library``).
+3b. backward  D (``flash_attention_bwd_delta``) against ``delta_reference``
+            in every case (1e-6 of its max abs, reruns bit-equal); its time,
+            plain time and bound (``delta_ms``, ``delta_plain_ms``,
+            ``delta_bound_ms``); the Function's whole backward and SDPA's
+            timed in alternation (``backward_vs_library``). 9. unfreeze
+            counts D's launches (12 per train step), 10. unfreeze_step its
+            device time and the forward's.
+
+Then the kernel summary line (seven kernels; the forward, dkv and dq rows
+with the build facts; the D row; the pair and the whole backward) and,
+last, ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX
+package.
 """
 from __future__ import annotations
 
@@ -146,6 +165,9 @@ K1_DQ_REPLACES = ("jax/experimental/pallas/ops/tpu/flash_attention.py:1456 "
                   "(pallas_call of _flash_attention_bwd_dq :1287, kernel "
                   "_flash_attention_dq_kernel :1146), the gradient of "
                   "multimodal_edema_prediction_tpu/ops/attention.py:127")
+K1_DELTA_REPLACES = ("jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                     "273-275 (di = sum(o * do, -1) in the backward of "
+                     "flash_attention, outside Pallas: no pallas_call)")
 K3_SOURCE = f"{PKG}/csrc/dual_axis_block.cu"
 K3_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_dual_axis.py:192 "
                "fused_encoder_block (pallas_call :171, _fused_forward :136, "
@@ -174,6 +196,10 @@ TOL_BWD_F32 = 1e-4
 # the forward's log-sum-exp against torch.logsumexp of the same scores,
 # absolute: both accumulate in float32, on values ≲ 10
 TOL_LSE = 1e-4
+# the backward's D against delta_reference, relative to its max abs: the
+# same 64 float32 products per row (exact for bf16 inputs) summed in
+# another order
+TOL_DELTA = 1e-6
 # K3 and K4 against their plain versions, relative to each output's max
 # abs. Both sides take the same inputs and weights (cast to x's dtype) and
 # compute in float32, in other summation orders; at bf16 the output (and
@@ -287,6 +313,30 @@ def device_ms(fn, device, reps: int = 7, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def paired_ms(fns, device, reps: int = 7, inner: int = 5) -> list:
+    """The median time of each of ``fns`` (as ``device_ms``), taken within
+    one call: each repetition times every function once, in alternating
+    order (a b, b a, ...), so that a drift of the card's clocks or of the
+    host's pace falls on both sides of a comparison."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    times = [[] for _ in fns]
+    for r in range(reps):
+        order = range(len(fns)) if r % 2 == 0 else reversed(range(len(fns)))
+        for i in order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fns[i]()
+            end.record()
+            end.synchronize()
+            times[i].append(start.elapsed_time(end) / inner)
+    return [statistics.median(t) for t in times]
+
+
 def phase_device() -> dict:
     import torch
     smi = subprocess.run(
@@ -321,35 +371,51 @@ def phase_build(port) -> dict:
 
 
 def phase_bwd_build(port) -> dict:
-    """K1's bf16 dkv and dq kernels as built: registers, spills (bytes
-    stored plus loaded) and static shared memory from the ``ptxas -v`` log,
-    the dynamic shared memory a launch asks for, and the warpgroup MMAs
-    (HGMMA) in the library's SASS (``cuobjdump``). Fails if either kernel
-    spills or holds no HGMMA, or if there is no SASS listing to count."""
+    """K1's bf16 forward, dkv and dq kernels as built: registers, spills
+    (bytes stored plus loaded) and static shared memory from the ``ptxas
+    -v`` log, its warnings about the kernel (C7511 / C7515: wgmma
+    serialised), the dynamic shared memory a launch asks for, and the
+    warpgroup MMAs (HGMMA) in the library's SASS (``cuobjdump``). Fails if a
+    kernel spills or holds no HGMMA, or if there is no SASS listing to
+    count."""
     import ctypes
     build = port["build"]
-    usage = build.ptxas_usage(build.build_log("flash_attention_bwd"))
-    listing = build.sass("flash_attention_bwd")
-    if listing is None:
-        raise AssertionError("no SASS listing of flash_attention_bwd "
-                             "(cuobjdump missing or failed)")
-    hgmma = build.sass_opcode_counts(listing, "HGMMA")
-    dynamic = build.load("flash_attention_bwd").flash_attention_bwd_smem_bytes
-    dynamic.restype, dynamic.argtypes = ctypes.c_int, [ctypes.c_int]
     info = {"phase": "bwd_build"}
-    for i, kind in enumerate(("dkv", "dq")):
-        name = f"flash_bwd_{kind}_bf16"
-        found = [u for fn, u in usage.items() if name in fn]
-        if len(found) != 1:
-            raise AssertionError(f"{name}: no single ptxas entry: {usage}")
-        u = found[0]
-        info[kind] = {
-            "registers": u["registers"],
-            "spills": u["spill_stores"] + u["spill_loads"],
-            "smem_bytes": u["smem_bytes"] + dynamic(i),
-            "sass_hgmma": sum(n for fn, n in hgmma.items() if name in fn)}
+    # library, its dynamic shared memory query → (kernel, the query's
+    # argument)
+    for lib, query, kernels in (
+            ("flash_attention", "flash_attention_fwd_smem_bytes",
+             (("fwd", None),)),
+            ("flash_attention_bwd", "flash_attention_bwd_smem_bytes",
+             (("dkv", 0), ("dq", 1)))):
+        log = build.build_log(lib)
+        usage, warnings = build.ptxas_usage(log), build.ptxas_warnings(log)
+        listing = build.sass(lib)
+        if listing is None:
+            raise AssertionError(f"no SASS listing of {lib} (cuobjdump "
+                                 f"missing or failed)")
+        hgmma = build.sass_opcode_counts(listing, "HGMMA")
+        dynamic = getattr(build.load(lib), query)
+        dynamic.restype = ctypes.c_int
+        for kind, arg in kernels:
+            dynamic.argtypes = [] if arg is None else [ctypes.c_int]
+            name = f"flash_{'fwd' if kind == 'fwd' else 'bwd_' + kind}_bf16"
+            found = [u for fn, u in usage.items() if name in fn]
+            if len(found) != 1:
+                raise AssertionError(f"{name}: no single ptxas entry: "
+                                     f"{usage}")
+            u = found[0]
+            info[kind] = {
+                "registers": u["registers"],
+                "spills": u["spill_stores"] + u["spill_loads"],
+                "smem_bytes": u["smem_bytes"] + (
+                    dynamic() if arg is None else dynamic(arg)),
+                "sass_hgmma": sum(n for fn, n in hgmma.items() if name in fn),
+                "ptxas_warnings": [w["code"] for w in warnings
+                                   if w["function"] is None
+                                   or name in w["function"]]}
     emit(info)
-    for kind in ("dkv", "dq"):
+    for kind in ("fwd", "dkv", "dq"):
         if info[kind]["spills"] or not info[kind]["sass_hgmma"] > 0:
             raise AssertionError(f"K1 {kind}: {info[kind]}")
     return info
@@ -394,18 +460,18 @@ def phase_kernels(port, device, cases) -> dict:
                "max_abs_err": err, "tol": tol}
         if timed:
             n_keys = N if kv_valid is None else kv_valid
-            res["ms"] = device_ms(
-                lambda: att.flash_mha(q, k, v, scale, kv_valid=kv_valid),
-                device)
             res["plain_ms"] = device_ms(
                 lambda: att.flash_mha_reference(q, k, v, scale,
                                                 kv_valid=kv_valid), device)
             mask = None
             if n_keys < N:
                 mask = (torch.arange(N, device=device) < n_keys)[None, :]
-            res["library_ms"] = device_ms(
+            # the kernel and SDPA's forward, their repetitions alternating
+            res["ms"], res["library_ms"] = paired_ms([
+                lambda: att.flash_mha(q, k, v, scale, kv_valid=kv_valid),
                 lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, scale=scale), device)
+                    q, k, v, attn_mask=mask, scale=scale)], device)
+            res["fwd_vs_library"] = res["ms"] / res["library_ms"]
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
                 else PEAK_F32_FLOPS
             res["bound_ms"], res["bound_by"] = attention_bound_ms(
@@ -718,14 +784,22 @@ def backward_bound_ms(kind: str, B, H, N, n_keys, itemsize, peak_flops
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def delta_bound_ms(B, H, N, itemsize) -> float:
+    """D's least time: O and dO read once, D (float32) written once, over
+    the memory rate (it does 2·64 operations a row: bound by bytes)."""
+    return (2.0 * itemsize * B * H * N * 64 + 4.0 * B * H * N) \
+        / PEAK_BYTES * 1e3
+
+
 def phase_backward(port, device, cases) -> dict:
-    """K1's backward (the dkv and dq kernels, through ``flash_mha``'s
-    autograd Function) against ``flash_mha_backward_reference``; the
-    forward's log-sum-exp against the plain one; two backward passes
-    bit-equal; keys past ``kv_valid`` exactly zero. Timed cases: the forward
-    with and without ``lse``, each backward kernel, D, the Function's whole
-    backward, the plain backward and ``scaled_dot_product_attention``'s
-    backward (a yardstick only).
+    """K1's backward (the D, dkv and dq kernels, through ``flash_mha``'s
+    autograd Function) against ``flash_mha_backward_reference``; D against
+    ``delta_reference``; the forward's log-sum-exp against the plain one;
+    two backward passes and two D launches bit-equal; keys past
+    ``kv_valid`` exactly zero. Timed cases: the forward with and without
+    ``lse``, each backward kernel, D and its plain version, the Function's
+    whole backward and ``scaled_dot_product_attention``'s backward (a
+    yardstick only; the two timed in alternation), the plain backward.
     cases: (label, B, H, N, kv_valid, dtype, tol, timed)."""
     import torch
     import torch.nn.functional as F
@@ -760,14 +834,21 @@ def phase_backward(port, device, cases) -> dict:
         masked_zero = n_keys == N or (not got[1][:, :, n_keys:].any()
                                       and not got[2][:, :, n_keys:].any())
         lse_err = (lse - lse_ref).abs().max().item()
+        dlt, dlt_again = att.delta(o, do), att.delta(o, do)
+        dlt_ref = att.delta_reference(o, do)
+        torch.cuda.synchronize()
+        dlt_err = (dlt - dlt_ref).abs().max().item()
+        dlt_rel = dlt_err / max(dlt_ref.abs().max().item(), 1e-12)
+        dlt_same = torch.equal(_bits(dlt), _bits(dlt_again))
         res = {"phase": "kernel_check", "kernel": "flash_attention_bwd",
                "case": label, "shape": [B, H, N, 64], "kv_valid": kv_valid,
                "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": err, "max_rel_err": rel, "tol": tol,
                "lse_max_abs_err": lse_err, "lse_tol": TOL_LSE,
+               "delta_max_abs_err": dlt_err, "delta_max_rel_err": dlt_rel,
+               "delta_tol": TOL_DELTA, "delta_bit_equal_rerun": dlt_same,
                "bit_equal_rerun": same_bits, "masked_keys_zero": masked_zero}
         if timed:
-            dlt = att.delta(o, do)
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
                 else PEAK_F32_FLOPS
             res["fwd_ms"] = device_ms(
@@ -792,16 +873,19 @@ def phase_backward(port, device, cases) -> dict:
                 mask = (torch.arange(N, device=device) < n_keys)[None, :]
             out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                                  scale=scale)
-            res["library_ms"] = device_ms(
-                lambda: torch.autograd.grad(out, leaves, do,
-                                            retain_graph=True), device)
             res["delta_ms"] = device_ms(lambda: att.delta(o, do), device)
+            res["delta_plain_ms"] = device_ms(
+                lambda: att.delta_reference(o, do), device)
+            res["delta_bound_ms"] = delta_bound_ms(B, H, N, o.element_size())
             # the Function's whole backward as training runs it (dO made
-            # ready, D, dkv, dq), timed the way SDPA's backward is above
+            # ready, D, dkv, dq) and SDPA's backward, their repetitions
+            # alternating
             fn_out = att.flash_mha(*leaves, scale, kv_valid=kv_valid)
-            res["backward_ms"] = device_ms(
+            res["backward_ms"], res["library_ms"] = paired_ms([
                 lambda: torch.autograd.grad(fn_out, leaves, do,
-                                            retain_graph=True), device)
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(out, leaves, do,
+                                            retain_graph=True)], device)
             res["pair_ms"] = res["dkv_ms"] + res["dq_ms"]
             res["pair_vs_library"] = res["pair_ms"] / res["library_ms"]
             res["backward_vs_library"] = res["backward_ms"] / \
@@ -813,10 +897,12 @@ def phase_backward(port, device, cases) -> dict:
             del out, fn_out, leaves
         emit(res)
         if not (finite and max(rel.values()) <= tol and lse_err <= TOL_LSE
-                and same_bits and masked_zero):
+                and same_bits and masked_zero and dlt_rel <= TOL_DELTA
+                and dlt_same):
             raise AssertionError(f"flash_attention backward {label}: {res}")
         results[label] = res
-        del q, k, v, do, got, again, o, lse, o_ref, lse_ref, want
+        del q, k, v, do, got, again, o, lse, o_ref, lse_ref, want, dlt, \
+            dlt_again, dlt_ref
         torch.cuda.empty_cache()
     return results
 
@@ -870,7 +956,8 @@ def phase_block_grad(port, device, batch: int = 2) -> dict:
             "rel_err": rel,
             "tol": BLOCK_TOL}
     emit(info)
-    if launches != {"flash_attention": 1, "flash_attention_bwd_dkv": 1,
+    if launches != {"flash_attention": 1, "flash_attention_bwd_delta": 1,
+                    "flash_attention_bwd_dkv": 1,
                     "flash_attention_bwd_dq": 1}:
         raise AssertionError(f"the block's gradient did not run K1's "
                              f"forward and backward once each: {launches}")
@@ -883,8 +970,8 @@ def phase_block_grad(port, device, batch: int = 2) -> dict:
 def phase_unfreeze(port, device, card: str = "") -> dict:
     """The training CLI with the CXR branch trainable (``--unfreeze_cxr``,
     pixel tier) at full width: K1's launches counted over exactly this run
-    (forward, dkv and dq 12 each per train step, the forward alone 12 per
-    eval step); finite losses; the ViT's, DuETT's and the perceiver's
+    (forward, D, dkv and dq 12 each per train step, the forward alone 12
+    per eval step); finite losses; the ViT's, DuETT's and the perceiver's
     weights moved from ``init_teacher``'s; the best checkpoint, reloaded,
     evaluates the val split bit-equal to the loop."""
     import torch
@@ -919,6 +1006,7 @@ def phase_unfreeze(port, device, card: str = "") -> dict:
                                   for k in keys)}
     n = tcfg.vit.n_layers
     expect = {"flash_attention": n * (steps + evals),
+              "flash_attention_bwd_delta": n * steps,
               "flash_attention_bwd_dkv": n * steps,
               "flash_attention_bwd_dq": n * steps}
     info = {"phase": "unfreeze", "card": card, "argv": argv, "wall_s": wall,
@@ -953,7 +1041,7 @@ def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
     steps), the peak memory and its estimate at the CLI's default batch of
     128 (the static part plus 4× the activations measured at 32), and a
     ``torch.profiler`` reading (device busy, idle share, time by kernel,
-    K1's three kernels)."""
+    K1's four kernels)."""
     import torch
     tl, eng = port["teacher_loop"], port["engine"]
     tcfg = port["config"].TrainConfig(batch_size=32)
@@ -988,6 +1076,7 @@ def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(times)
     prof = _profile(run, 3, step_ms, {"k1_fwd": "flash_fwd_bf16",
+                                      "k1_delta": "flash_bwd_delta",
                                       "k1_dkv": "flash_bwd_dkv_bf16",
                                       "k1_dq": "flash_bwd_dq_bf16"})
     n_params = sum(p.numel() for p in model.parameters())
@@ -1002,7 +1091,7 @@ def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
             + 4 * (peak - static_bytes),
             **{f"{kind}_device_ms_per_step":
                prof.get(f"k1_{kind}_device_ms_per_step", "not measured")
-               for kind in ("dkv", "dq")},
+               for kind in ("fwd", "delta", "dkv", "dq")},
             "profile": prof}
     emit(info)
     if not np.isfinite(info["loss"]):
@@ -1713,7 +1802,7 @@ def main() -> int:
     to_teacher = phase_ssl_to_teacher(port, device, ssl["best_path"],
                                       card=dev["nvidia_smi"])
 
-    # K1's three rows take their launches from the unfrozen training run,
+    # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
     # encode-once training run. This slice's main path, SSL pretraining,
     # runs none of the six kernels (K3 and K4 have no caller in either
@@ -1748,6 +1837,19 @@ def main() -> int:
          "backward_vs_library": b["backward_vs_library"], **built[kind]}
         for kind, replaces, grads in (("dkv", K1_DKV_REPLACES, ("dk", "dv")),
                                       ("dq", K1_DQ_REPLACES, ("dq",)))]
+    delta_row = {
+        "name": "flash_attention_bwd_delta", "route": "cuda",
+        "source": K1_BWD_SOURCE, "replaces": K1_DELTA_REPLACES,
+        "launches": n_k1["flash_attention_bwd_delta"],
+        "launches_by_path": by_path(
+            "flash_attention_bwd_delta",
+            unfreeze=n_k1["flash_attention_bwd_delta"]),
+        "case": case, "max_abs_err": b["delta_max_abs_err"],
+        "max_rel_err": b["delta_max_rel_err"], "ms": b["delta_ms"],
+        "plain_ms": b["delta_plain_ms"], "bound_ms": b["delta_bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "backward_ms": b["backward_ms"],
+        "backward_vs_library": b["backward_vs_library"]}
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,
@@ -1757,7 +1859,9 @@ def main() -> int:
              train=train["k1_launches_in_bank_build"],
              unfreeze=n_k1["flash_attention"]),
          "case": case, "ms_with_lse": b["fwd_lse_ms"],
+         "fwd_vs_library": k1["fwd_vs_library"], **built["fwd"],
          **{k: k1[k] for k in keys}},
+        delta_row,
         *bwd_rows,
         {"name": "gather_rows", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2_launches"],

@@ -5,8 +5,15 @@ and defaults for what the port trains).
 
 Data: ``--data_dir`` reads a cohort converted by the JAX package's
 preprocessing (``cohort.npz`` + ``meta_with_stats.pkl``); otherwise the
-learnable synthetic cohort is generated. ``--device`` (default ``cuda``)
-picks where training runs.
+learnable synthetic cohort is generated (``--synthetic``, the default, as
+in the JAX CLIs). ``--device`` (default ``cuda``) picks where training
+runs.
+
+Every flag of the JAX CLIs parses here. The flags of what is not ported yet
+(``COMMON_QUEUED`` and each CLI's own table) have no default, so a parsed
+attribute means the flag was given, and ``refuse_queued_flags`` raises
+``NotImplementedError`` naming its ROADMAP item before any data, model or
+device work.
 """
 from __future__ import annotations
 
@@ -19,8 +26,38 @@ from ..data import pipeline as P
 from ..data import synthetic as S
 
 
+# JAX flags whose feature is not ported yet → their ROADMAP item
+COMMON_QUEUED = {"--log_every": "P20", "--wandb_project": "P20",
+                 "--wandb_run_name": "P20", "--wandb_disabled": "P20"}
+# the queued flags that take no value (store_true in the JAX CLIs)
+_SWITCHES = ("--wandb_disabled", "--use_aux_cxr")
+
+
+def add_queued_flags(p: argparse.ArgumentParser, queued: dict) -> None:
+    """Parse the flags of ``queued`` ({flag: ROADMAP item}) with no default:
+    the parsed args carry one only if it was given."""
+    for flag, item in queued.items():
+        kw = {"action": "store_true"} if flag in _SWITCHES else {}
+        p.add_argument(flag, default=argparse.SUPPRESS,
+                       help=f"not ported yet (ROADMAP {item}); refused", **kw)
+
+
+def refuse_queued_flags(args, *tables: dict) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
+    flag of ``tables`` ({flag: item} each) that was given."""
+    for queued in tables:
+        for flag, item in queued.items():
+            if hasattr(args, flag[2:]):
+                raise NotImplementedError(
+                    f"{flag} {getattr(args, flag[2:])} is not ported yet "
+                    f"(ROADMAP {item})")
+
+
 def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--data_dir", type=str, default="")
+    p.add_argument("--synthetic", action="store_true", default=True,
+                   help="the synthetic cohort when --data_dir is empty "
+                        "(which it is by default; as in the JAX CLIs)")
     p.add_argument("--synthetic_stays", type=int, default=500)
     p.add_argument("--n_variables", type=int, default=34)
     p.add_argument("--n_timesteps", type=int, default=24)
@@ -50,6 +87,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--patience", type=int, default=5)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--limit_batches", type=int, default=0)
+    p.add_argument("--eval_train_batches", type=int, default=0,
+                   help="teacher: evaluate this many train batches after "
+                        "each epoch and print their gap table")
     p.add_argument("--mixed_precision", type=str, default="bf16",
                    choices=["no", "bf16"])
     p.add_argument("--steps_per_call", type=int, default=1,
@@ -63,6 +103,7 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--aux_residual_alpha", type=float, default=0.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
+    add_queued_flags(p, COMMON_QUEUED)
 
 
 def configs_from_args(args) -> tuple:
@@ -82,6 +123,7 @@ def configs_from_args(args) -> tuple:
         batch_size=args.batch_size, epochs=args.epochs,
         patience=args.patience, seed=args.seed,
         limit_batches=args.limit_batches,
+        eval_train_batches=args.eval_train_batches,
         dtype="bfloat16" if args.mixed_precision == "bf16" else "float32",
         alpha_img=args.aux_img_alpha, alpha_ts=args.aux_ts_alpha,
         alpha_fus=args.aux_fus_alpha,

@@ -7,9 +7,11 @@ endpoint on the card (the counterpart of
 
 ``--image_mode pixel``: clients send ``pixel_u8_b64`` (raw uint8 bytes of the
 [S, S, 3] resized CXR; normalization runs on the device). The JAX CLI's
-``jpeg_root`` (encode-once feature bank, ROADMAP P8/P15) and ``synthetic``
-(procedural images, P6) modes are not ported yet. Every bucket runs once
-before the port opens, so the first request never pays a kernel build.
+``jpeg_root`` (encode-once feature bank, ROADMAP P17 with P8 and P15) and
+``synthetic`` (procedural images, P17) modes are not ported yet, nor are
+``--cxr_jpeg_root``, ``--data_parallel`` and ``--aot_dir`` (P17), which
+raise when given. Every bucket runs once before the port opens, so the
+first request never pays a kernel build.
 """
 from __future__ import annotations
 
@@ -18,7 +20,13 @@ import argparse
 import numpy as np
 import torch
 
-_QUEUED = {"jpeg_root": "ROADMAP P8/P15", "synthetic": "ROADMAP P6"}
+from .common import add_queued_flags, refuse_queued_flags
+
+_QUEUED = {"jpeg_root": "ROADMAP P17, with P8 and P15",
+           "synthetic": "ROADMAP P17"}
+# JAX flags whose feature is not ported yet → their ROADMAP item
+QUEUED_FLAGS = {"--cxr_jpeg_root": "P17", "--data_parallel": "P17",
+                "--aot_dir": "P17"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,11 +46,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "DataConfig pathology set)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
+    add_queued_flags(p, QUEUED_FLAGS)
     return p
 
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    refuse_queued_flags(args, QUEUED_FLAGS)
     if args.image_mode in _QUEUED:
         raise NotImplementedError(
             f"--image_mode {args.image_mode} is not ported yet "

@@ -9,8 +9,10 @@ Writes ``pretrain-step<N>-<val>.msgpack`` (the best val loss, JAX format),
 ``meta_with_stats.pkl`` and, by default, the full train state of every
 epoch into a new run directory under ``--ckpt_dir``; ``--resume_dir``
 continues such a run bit for bit. The teacher starts from the checkpoint
-with ``cli.train_teacher --duett_ckpt``. ``--state_backend orbax`` (P16) and
-``--steps_per_call`` > 1 (P10) are not ported and raise.
+with ``cli.train_teacher --duett_ckpt``. ``--state_backend orbax`` (P16),
+``--steps_per_call`` > 1 (P10) and the wandb flags (P20) are not ported and
+raise; ``--eval_train_batches`` is accepted and, as in the JAX CLI, unused
+by the SSL loop.
 """
 from __future__ import annotations
 
@@ -18,8 +20,9 @@ import argparse
 
 from ..data.sliding import build_sliding_ssl_dataset
 from ..train.ssl_loop import train_ssl
-from .common import (add_common_flags, configs_from_args, load_data,
-                     make_run_dir, sync_duett_with_meta)
+from .common import (COMMON_QUEUED, add_common_flags, configs_from_args,
+                     load_data, make_run_dir, refuse_queued_flags,
+                     sync_duett_with_meta)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,6 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    refuse_queued_flags(args, COMMON_QUEUED)
     dcfg, duett, tcfg = configs_from_args(args)
     duett = duett.replace(pretrain_masked_steps=args.pretrain_masked_steps)
     ds, meta, _ = load_data(args, dcfg)

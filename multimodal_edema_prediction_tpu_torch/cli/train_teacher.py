@@ -12,8 +12,12 @@ ViT too, on the pixel tier only, its attention's gradient through K1's
 backward kernels; ``--vit_weights`` starts the ViT from a converted
 RAD-DINO checkpoint (``scripts/convert_rad_dino.py``); ``--duett_ckpt``
 starts the DuETT backbone (weights and BatchNorm statistics) from an SSL
-checkpoint of ``cli.train_ssl``, written by either package. Flags of what is
-not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
+checkpoint of ``cli.train_ssl``, written by either package.
+``--eval_train_batches N`` evaluates N train batches after each epoch and
+prints their gap table, as the JAX loop does. Every flag of the JAX CLI
+parses: ``--flash_block_b`` (a TPU tuning knob) is ignored, and the flags
+of what is not ported yet raise ``NotImplementedError`` naming their
+ROADMAP item.
 
     python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
         --device cuda --unfreeze_cxr --vit_weights rad_dino_flax.msgpack
@@ -27,8 +31,27 @@ from ..models.teacher import init_teacher
 from ..models.vit import load_vit_params
 from ..train.ssl_loop import transplant_encoder
 from ..train.teacher_loop import train_teacher
-from .common import (add_common_flags, configs_from_args, load_data,
-                     make_run_dir, sync_duett_with_meta)
+from .common import (COMMON_QUEUED, add_common_flags, add_queued_flags,
+                     configs_from_args, load_data, make_run_dir,
+                     refuse_queued_flags, sync_duett_with_meta)
+
+# JAX flags of this CLI whose feature is not ported yet → their ROADMAP
+# item (the common ones: COMMON_QUEUED)
+QUEUED_FLAGS = {
+    # the other teacher modes and LP mode
+    "--n_latents": "P13", "--n_perceiver_layers": "P13",
+    "--aux_stage2_alpha": "P13", "--aux_stage4_alpha": "P13",
+    "--use_aux_cxr": "P13", "--aux_cxr_alpha": "P13",
+    "--pretrained_cxr_head_ckpt": "P13", "--lp_ckpt": "P13",
+    "--lp_beta_l2": "P13", "--lp_corr_l2": "P13",
+    "--lp_correction_dropout": "P13",
+    # the host feature store and the image feed tiers
+    "--cxr_feature_store_path": "P8", "--image_bank": "P15",
+    "--hbm_image_budget_gb": "P15", "--u8_store_path": "P15",
+    "--prefetch_depth": "P15",
+    # the loop's gradient-flow diagnostics
+    "--grad_diag_every": "P19", "--grad_diag_batches": "P19",
+}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,6 +85,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume_dir", type=str, default="")
     p.add_argument("--state_backend", type=str, default="msgpack",
                    choices=["msgpack", "orbax"])
+    p.add_argument("--save_state", action="store_true", default=True,
+                   help="the JAX CLI's full train state every epoch; the "
+                        "port writes none yet (ROADMAP P16) and says so")
+    p.add_argument("--no_save_state", dest="save_state",
+                   action="store_false")
+    p.add_argument("--flash_block_b", type=int, default=2,
+                   help="ignored: a TPU tuning knob of the JAX package (the "
+                        "flash-attention batch block of its fused step)")
+    add_queued_flags(p, QUEUED_FLAGS)
     return p
 
 
@@ -79,6 +111,7 @@ _QUEUED = (
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
+    refuse_queued_flags(args, COMMON_QUEUED, QUEUED_FLAGS)
     if args.vit_quant != "none" and args.unfreeze_cxr:
         p.error("--vit_quant requires a frozen CXR branch (the quantized "
                 "matmuls are inference-only)")
@@ -91,6 +124,11 @@ def main(argv=None):
         raise NotImplementedError(
             f"--perceiver_type {args.perceiver_type} is not ported yet "
             "(ROADMAP P13)")
+
+    if args.save_state:
+        print("--save_state: no full train state is written (teacher "
+              "resume is ROADMAP P16); the run keeps its best checkpoint",
+              flush=True)
 
     dcfg, duett, tcfg = configs_from_args(args)
     vit = ViTConfig() if args.vit_size == "base" else ViTConfig(

@@ -18,8 +18,10 @@
 //
 // Inputs: q, k, v and dO as [B, H, N, 64] with arbitrary batch/head/token
 // strides and a contiguous head dim (the forward's views); the forward's
-// lse = m + log(l) and D = rowsum(dO * O) (computed outside, as JAX computes
-// di at flash_attention.py:273-275), both float32 [B, H, Nq] contiguous.
+// lse = m + log(l) and D = rowsum(dO * O), both float32 [B, H, Nq]
+// contiguous. D comes from flash_bwd_delta_* below, a pass of its own ahead of
+// the two kernels, as JAX computes di outside Pallas
+// (flash_attention.py:273-275).
 // Per tile both kernels recompute S = Q K^T * scale and P = exp(S - lse)
 // from them, then dP = dO V^T and dS = P * (dP - D):
 //   dkv: a block owns keys and streams the query tiles;
@@ -71,9 +73,19 @@
 // The float32 kernels are plain SIMT loops (one thread per owned row, f32
 // FMA, no TF32) for the reference-precision checks.
 //
-// Entry points: flash_attention_bwd_dkv(...) and flash_attention_bwd_dq(...)
-// launch on the given stream, allocate nothing and return a CUDA error code
-// as an int (0 = launched).
+// D = rowsum(dO * O) (flash_bwd_delta_*): float32 [B, H, Nq] from bf16 or
+// float32 O and dO read through their strides. Bound by bytes: O and dO read
+// once, D written once, 2 B H N 64 itemsize + 4 B H N (0.041 ms at
+// [32, 12, 1370, 64] bf16 on 3.35 TB/s), where three float32 passes of
+// PyTorch (two upcasts, the product, the sum) moved about 0.94 GB. In bf16
+// each row's 64 values are 8 16-byte chunks, one per thread; a thread sums
+// its chunk's products in order and the row's threads add their sums in a
+// fixed butterfly of shuffles, so reruns are bit-equal. The float32 kernel
+// is a plain loop, one thread a row, for the reference-precision checks.
+//
+// Entry points: flash_attention_bwd_delta(...), flash_attention_bwd_dkv(...)
+// and flash_attention_bwd_dq(...) launch on the given stream, allocate
+// nothing and return a CUDA error code as an int (0 = launched).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -119,12 +131,6 @@ struct Params {
   long long sdqb, sdqh, sdqn, sdkb, sdkh, sdkn, sdvb, sdvh, sdvn;
 };
 
-// a bf16 kernel's tensor maps of its two streamed tensors, each (64, rows,
-// H, B): Q and dO for dkv, K and V for dq
-struct Maps {
-  CUtensorMap a, b;
-};
-
 using Tile = __nv_bfloat16[kTile * kD];  // one swizzled [64][64] tile, 8 KB
 
 struct DkvSmem {
@@ -139,20 +145,6 @@ struct DqSmem {
   uint64_t full[kStages], empty[kStages];
 };
 
-// dynamic shared memory, 1024 extra bytes to put S on the 1024-byte boundary
-// the 128-byte swizzle repeats on
-template <typename S>
-constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(S)) + 1024;
-}
-
-template <typename S>
-__device__ __forceinline__ S& smem_1024() {
-  extern __shared__ __align__(16) uint8_t smem_raw[];
-  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
-  return *reinterpret_cast<S*>(smem_raw + pad);
-}
-
 template <typename T>
 __device__ __forceinline__ const T* at(const void* base, int b, int h,
                                        long long sb, long long sh) {
@@ -163,13 +155,6 @@ template <typename T>
 __device__ __forceinline__ T* at_out(void* base, int b, int h, long long sb,
                                      long long sh) {
   return static_cast<T*>(base) + b * sb + h * sh;
-}
-
-// 2^x on the special function unit (2 ulp; 0 for -inf)
-__device__ __forceinline__ float exp2_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // Write a warp's 16 x 64 f32 accumulator (times `mul`) as bf16 rows r0 and
@@ -561,6 +546,57 @@ flash_bwd_dq_f32(const Params p) {
   }
 }
 
+constexpr int kDeltaThreads = 256;
+constexpr int kDeltaLanes = 8;  // bf16: threads a row, 16 bytes each
+
+// bf16: one row of O and dO per kDeltaLanes neighbouring threads of a warp,
+// 8 values of each a thread (one 16-byte load); block (Nq tile, h, b)
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_bf16(const __nv_bfloat16* o, const __nv_bfloat16* dout,
+                     float* delta, int H, int Nq, long long sob,
+                     long long soh, long long son, long long sdb,
+                     long long sdh, long long sdn) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int sub = threadIdx.x % kDeltaLanes;
+  const int n = blockIdx.x * (kDeltaThreads / kDeltaLanes) +
+                threadIdx.x / kDeltaLanes;
+  float acc = 0.f;
+  if (n < Nq) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + b * sob + h * soh +
+                                                    n * son + sub * 8);
+    const uint4 c = *reinterpret_cast<const uint4*>(dout + b * sdb + h * sdh +
+                                                    n * sdn + sub * 8);
+    const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&c);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 u = __bfloat1622float2(x[i]), w = __bfloat1622float2(y[i]);
+      acc = fmaf(u.x, w.x, acc);
+      acc = fmaf(u.y, w.y, acc);
+    }
+  }
+#pragma unroll
+  for (int off = kDeltaLanes / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (sub == 0 && n < Nq)
+    delta[(static_cast<long long>(b) * H + h) * Nq + n] = acc;
+}
+
+// float32: one thread a row, the 64 products summed in order (dot64), as the
+// float32 dkv and dq kernels sum dP, so that dP - D cancels exactly where
+// it should (one key: P = 1, O = V)
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta_f32(const float* o, const float* dout, float* delta, int H,
+                    int Nq, long long sob, long long soh, long long son,
+                    long long sdb, long long sdh, long long sdn) {
+  const int b = blockIdx.z, h = blockIdx.y;
+  const int n = blockIdx.x * kDeltaThreads + threadIdx.x;
+  if (n < Nq)
+    delta[(static_cast<long long>(b) * H + h) * Nq + n] =
+        dot64(o + b * sob + h * soh + n * son,
+              dout + b * sdb + h * sdh + n * sdn);
+}
+
 Params make_params(const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    int H, int Nq, int Nk, int kv_valid, float sm_scale,
@@ -585,68 +621,35 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-// cuTensorMapEncodeTiled, a driver function, reached through the runtime so
-// that the library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
+}  // namespace
 
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess &&
-        ptr != nullptr)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// One bf16 tensor map with [64][64] boxes and the 128-byte swizzle. geo:
-// dims (64, rows, H, B), innermost first, then the byte strides of rows,
-// heads and batches (ops/attention.py::tma_geometry).
-bool encode_map(CUtensorMap* map, const void* base,
-                const unsigned long long* geo) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || geo[0] != kD) return false;
-  const cuuint64_t dims[4] = {geo[0], geo[1], geo[2], geo[3]};
-  const cuuint64_t strides[3] = {geo[4], geo[5], geo[6]};
-  const cuuint32_t box[4] = {kD, kTile, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// Launch a bf16 kernel on the maps of `a` and `b`, 7 values of geo each.
-template <typename Kernel>
-int launch_bf16(Kernel kernel, int smem, dim3 grid, const Params& p,
-                const void* a, const void* b, const unsigned long long* geo,
-                cudaStream_t s) {
-  Maps m;
-  if (geo == nullptr || !encode_map(&m.a, a, geo) ||
-      !encode_map(&m.b, b, geo + 7))
+// D = rowsum(dO * O) into a contiguous float32 [B, H, Nq] `delta`. dtype:
+// 0 = float32, 1 = bfloat16. strides: 6 element strides, o (b, h, n) then
+// dout (b, h, n); rows 16-byte aligned.
+extern "C" int flash_attention_bwd_delta(int dtype, const void* o,
+                                         const void* dout, float* delta,
+                                         int B, int H, int Nq,
+                                         const long long* strides,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* s = strides;
+  if (dtype == 1) {
+    constexpr int rows = kDeltaThreads / kDeltaLanes;
+    flash_bwd_delta_bf16<<<dim3((Nq + rows - 1) / rows, H, B), kDeltaThreads,
+                           0, st>>>(
+        static_cast<const __nv_bfloat16*>(o),
+        static_cast<const __nv_bfloat16*>(dout), delta, H, Nq, s[0], s[1],
+        s[2], s[3], s[4], s[5]);
+  } else if (dtype == 0) {
+    flash_bwd_delta_f32<<<dim3((Nq + kDeltaThreads - 1) / kDeltaThreads, H,
+                               B), kDeltaThreads, 0, st>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), delta,
+        H, Nq, s[0], s[1], s[2], s[3], s[4], s[5]);
+  } else {
     return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, s>>>(m, p);
+  }
   return (int)cudaGetLastError();
 }
-
-}  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. strides: 18 element strides in the order
 // q, k, v, dout, dk, dv, each (b, h, n). lse, delta: contiguous float32
@@ -669,7 +672,7 @@ extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
   p.sdvb = strides[15]; p.sdvh = strides[16]; p.sdvn = strides[17];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_bf16(flash_bwd_dkv_bf16, smem_bytes<DkvSmem>(),
+    return launch_bf16(flash_bwd_dkv_bf16, kThreads, smem_bytes<DkvSmem>(),
                        dim3((Nk + kOwn - 1) / kOwn, H, B), p, q, dout, maps,
                        s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
@@ -693,7 +696,7 @@ extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
   p.sdqb = strides[12]; p.sdqh = strides[13]; p.sdqn = strides[14];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return launch_bf16(flash_bwd_dq_bf16, smem_bytes<DqSmem>(),
+    return launch_bf16(flash_bwd_dq_bf16, kThreads, smem_bytes<DqSmem>(),
                        dim3((Nq + kOwn - 1) / kOwn, H, B), p, k, v, maps,
                        s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;

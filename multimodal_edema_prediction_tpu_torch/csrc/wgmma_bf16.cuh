@@ -1,7 +1,9 @@
-// Hopper building blocks of the bf16 flash-attention backward kernels
-// (flash_attention_bwd.cu): mbarriers, TMA tile loads, and warpgroup matrix
-// multiply (wgmma m64n64k16, bf16 in, f32 accumulate) on tiles stored with
-// the 128-byte swizzle.
+// Hopper building blocks of the bf16 flash-attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile loads,
+// warpgroup matrix multiply (wgmma m64n64k16 and m64n128k16, bf16 in, f32
+// accumulate) on tiles stored with the 128-byte swizzle, and on the host
+// the tensor maps those loads read and the launch that hands them to a
+// kernel.
 //
 // Tile format: a [64 rows][64] bf16 tile, one 128-byte row each, as a TMA
 // load with CU_TENSOR_MAP_SWIZZLE_128B writes it: row r at byte 128 r, its
@@ -22,6 +24,7 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
@@ -96,6 +99,27 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
          (1ull << 62);
 }
 
+// 2^x on the special function unit (2 ulp; 0 for -inf)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// dynamic shared memory of a kernel whose shared storage is S, 1024 extra
+// bytes to put S on the 1024-byte boundary the 128-byte swizzle repeats on
+template <typename S>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(S)) + 1024;
+}
+
+template <typename S>
+__device__ __forceinline__ S& smem_1024() {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t pad = (1024 - (smem_u32(smem_raw) & 1023)) & 1023;
+  return *reinterpret_cast<S*>(smem_raw + pad);
+}
+
 // a warpgroup's registers per thread, lowered or raised to N (every warp of
 // the group executes it)
 template <int N>
@@ -124,16 +148,18 @@ __device__ __forceinline__ void wgmma_wait() {
 // Ties the registers to this point of the program, so that the compiler
 // neither reads an accumulator before the wgmma that writes it has been
 // waited for nor reuses an A operand's registers while it is in flight.
-__device__ __forceinline__ void fence_acc(float (&acc)[8][4]) {
+template <int J>
+__device__ __forceinline__ void fence_acc(float (&acc)[J][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < J; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(acc[j][e])::"memory");
 }
 
-__device__ __forceinline__ void fence_frag(uint32_t (&a)[4][4]) {
+template <int K>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int k = 0; k < 4; ++k)
+  for (int k = 0; k < K; ++k)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[k][e])::"memory");
 }
@@ -186,10 +212,142 @@ __device__ __forceinline__ void wgmma_rs_first(float (&d)[8][4],
         "n"(kMN));
 }
 
+#define WGMMA_D64 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, " \
+  "%58, %59, %60, %61, %62, %63}"
+#define WGMMA_ACC64(d) \
+  WGMMA_ACC8(d, 0), WGMMA_ACC8(d, 1), WGMMA_ACC8(d, 2), \
+  WGMMA_ACC8(d, 3), WGMMA_ACC8(d, 4), WGMMA_ACC8(d, 5), \
+  WGMMA_ACC8(d, 6), WGMMA_ACC8(d, 7), WGMMA_ACC8(d, 8), \
+  WGMMA_ACC8(d, 9), WGMMA_ACC8(d, 10), WGMMA_ACC8(d, 11), \
+  WGMMA_ACC8(d, 12), WGMMA_ACC8(d, 13), WGMMA_ACC8(d, 14), \
+  WGMMA_ACC8(d, 15)
+#define WGMMA_OUT64(d) \
+  WGMMA_OUT8(d, 0), WGMMA_OUT8(d, 1), WGMMA_OUT8(d, 2), \
+  WGMMA_OUT8(d, 3), WGMMA_OUT8(d, 4), WGMMA_OUT8(d, 5), \
+  WGMMA_OUT8(d, 6), WGMMA_OUT8(d, 7), WGMMA_OUT8(d, 8), \
+  WGMMA_OUT8(d, 9), WGMMA_OUT8(d, 10), WGMMA_OUT8(d, 11), \
+  WGMMA_OUT8(d, 12), WGMMA_OUT8(d, 13), WGMMA_OUT8(d, 14), \
+  WGMMA_OUT8(d, 15)
+
+// the same for a 64 x 128 accumulator (64 f32 per thread, acc[j][e] as
+// above for j < 16): B a tile of 128 columns, K-major only (the forward's
+// scores against a 128-key tile)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WGMMA_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_first_n128(float (&d)[16][4],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : WGMMA_OUT64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+// The A fragment of k-step kk (16 columns) from the 8-column groups
+// 2kk, 2kk + 1 of a J-group accumulator, rounded to bf16 (mma_bf16.cuh's
+// acc_to_a for any width)
+template <int J>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
+                                         const float (&c)[J][4], int kk) {
+  a[0] = pack_bf16(c[2 * kk][0], c[2 * kk][1]);
+  a[1] = pack_bf16(c[2 * kk][2], c[2 * kk][3]);
+  a[2] = pack_bf16(c[2 * kk + 1][0], c[2 * kk + 1][1]);
+  a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
+}
+
 #undef WGMMA_ACC8
 #undef WGMMA_OUT8
 #undef WGMMA_OUT32
 #undef WGMMA_ACC32
 #undef WGMMA_D32
+#undef WGMMA_D64
+#undef WGMMA_ACC64
+#undef WGMMA_OUT64
+
+// ---- host side: tensor maps and the launch of a kernel that streams two
+// tensors through them ----
+
+// a bf16 kernel's tensor maps of its two streamed tensors, each (64, rows,
+// H, B): K and V for the forward and dq, Q and dO for dkv
+struct Maps {
+  CUtensorMap a, b;
+};
+
+// cuTensorMapEncodeTiled, a driver function, reached through the runtime so
+// that the library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess &&
+        ptr != nullptr)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// One bf16 tensor map with [64][64] boxes (the tile format above) and the
+// 128-byte swizzle. geo: dims (64, rows, H, B), innermost first, then the
+// byte strides of rows, heads and batches (ops/attention.py::tma_geometry).
+inline bool encode_map(CUtensorMap* map, const void* base,
+                       const unsigned long long* geo) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || geo[0] != 64) return false;
+  const cuuint64_t dims[4] = {geo[0], geo[1], geo[2], geo[3]};
+  const cuuint64_t strides[3] = {geo[4], geo[5], geo[6]};
+  const cuuint32_t box[4] = {64, 64, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch a bf16 kernel(Maps, P) of `threads` threads on the maps of `a` and
+// `b`, 7 values of geo each; returns a CUDA error code (0 = launched).
+template <typename Kernel, typename P>
+int launch_bf16(Kernel kernel, int threads, int smem, dim3 grid, const P& p,
+                const void* a, const void* b, const unsigned long long* geo,
+                cudaStream_t s) {
+  Maps m;
+  if (geo == nullptr || !encode_map(&m.a, a, geo) ||
+      !encode_map(&m.b, b, geo + 7))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, s>>>(m, p);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace

@@ -4,14 +4,14 @@
 attention.py::flash_mha``: non-causal softmax(Q Kᵀ·sm_scale)·V on
 ``[B, H, N, D]``, differentiable. On a CUDA tensor it launches the
 hand-written kernels (D = 64, float32 or bfloat16): the forward in
-``csrc/flash_attention.cu`` and, when q, k or v needs a gradient, the dkv
-and dq backward kernels in ``csrc/flash_attention_bwd.cu`` behind a
-``torch.autograd.Function``, whose forward also keeps each query row's
-log-sum-exp for them. On a CPU tensor the same Function runs the plain
-versions, ``flash_mha_reference`` and ``flash_mha_backward_reference``,
-which are also the kernels' oracles in the tests and in ``chip_smoke.py``.
-There is no fallback from one to the other: a kernel that cannot build or
-launch raises.
+``csrc/flash_attention.cu`` and, when q, k or v needs a gradient, the D
+(rowsum(dO∘O)), dkv and dq backward kernels in ``csrc/flash_attention_bwd.cu``
+behind a ``torch.autograd.Function``, whose forward also keeps each query
+row's log-sum-exp for them. On a CPU tensor the same Function runs the
+plain versions, ``flash_mha_reference``, ``flash_mha_backward_reference``
+and ``delta_reference``, which are also the kernels' oracles in the tests
+and in ``chip_smoke.py``. There is no fallback from one to the other: a
+kernel that cannot build or launch raises.
 """
 from __future__ import annotations
 
@@ -21,10 +21,25 @@ from typing import Optional, Tuple
 import torch
 
 # launches of each kernel wrapper; chip_smoke.py resets and reads them
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_dkv": 0,
-            "flash_attention_bwd_dq": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_delta": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_I, _P = ctypes.c_int, ctypes.c_void_p
+# each C entry point: its library and its ctypes signature, the dtype first
+# and the stream last; the three attention kernels take pointers, then
+# B, H, Nq, Nk and kv_valid, the scale, the strides and the tensor maps
+ENTRY_POINTS = {
+    "flash_attention_fwd": ("flash_attention", [_I] + [_P] * 5 + [_I] * 5
+                            + [ctypes.c_float] + [_P] * 3),
+    "flash_attention_bwd_delta": ("flash_attention_bwd",
+                                  [_I] + [_P] * 3 + [_I] * 3 + [_P] * 2),
+    "flash_attention_bwd_dkv": ("flash_attention_bwd", [_I] + [_P] * 8
+                                + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+    "flash_attention_bwd_dq": ("flash_attention_bwd", [_I] + [_P] * 7
+                               + [_I] * 5 + [ctypes.c_float] + [_P] * 3),
+}
 
 
 def reset_launches() -> None:
@@ -104,7 +119,7 @@ def _kernel_ready(x: torch.Tensor) -> torch.Tensor:
 
 
 def tma_geometry(x: torch.Tensor, rows: int) -> Tuple[int, ...]:
-    """The bf16 backward kernels' tensor map of [B, H, N, 64] ``x``, as the
+    """The bf16 attention kernels' tensor map of [B, H, N, 64] ``x``, as the
     C entry points take it: dims (64, rows, H, B), innermost first, then the
     byte strides of rows, heads and batches. Rows at or past ``rows``
     (≤ N) read as zeros. A dim of one element gets the stride of one row (it
@@ -124,10 +139,10 @@ def tma_geometry(x: torch.Tensor, rows: int) -> Tuple[int, ...]:
 
 
 def _tma_maps(a: torch.Tensor, b: torch.Tensor, rows: int):
-    """The geometry of the tensor maps of a bf16 backward kernel's two
-    streamed tensors (dkv: q and dO, Nq rows; dq: k and v, ``n_keys``
-    rows), flattened for ctypes; None for float32, whose kernels read
-    through the strides."""
+    """The geometry of the tensor maps of a bf16 attention kernel's two
+    streamed tensors (the forward and dq: k and v, ``n_keys`` rows; dkv: q
+    and dO, Nq rows), flattened for ctypes; None for float32, whose kernels
+    read through the strides."""
     if a.dtype != torch.bfloat16:
         return None
     geo = tma_geometry(a, rows) + tma_geometry(b, rows)
@@ -156,36 +171,29 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return n_keys
 
 
-def _bound(name: str, n_ptr: int, n_int: int):
-    """The C entry point ``name`` with its ctypes signature: dtype, then
-    ``n_ptr`` pointers, ``n_int`` ints, the scale, the strides, the tensor
-    maps' geometry (backward only) and the stream."""
+def _strides(*tensors):
+    """The (b, h, n) element strides of each tensor, flattened for ctypes."""
+    return (ctypes.c_longlong * (3 * len(tensors)))(*(
+        st for t in tensors for st in t.stride()[:3]))
+
+
+def _launch(name: str, dtype: torch.dtype, args, device) -> None:
+    """Launch the C entry point ``name`` (``ENTRY_POINTS``) on the current
+    stream; ``args`` are what comes between the dtype and the stream:
+    tensors (as their data pointers, None as a null pointer), ints, floats
+    and ctypes arrays (as their addresses). Raise if CUDA refused it."""
     from .build import load
-    bwd = "bwd" in name
-    fn = getattr(load("flash_attention_bwd" if bwd else "flash_attention"),
-                 name)
+    lib, argtypes = ENTRY_POINTS[name]
+    fn = getattr(load(lib), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * n_ptr + \
-            [ctypes.c_int] * n_int + [ctypes.c_float] + \
-            [ctypes.c_void_p] * (3 if bwd else 2)
-    return fn
-
-
-def _launch(name: str, n_ptr: int, tensors, ints, sm_scale: float,
-            strided, device, maps=None) -> None:
-    """Launch ``name`` on the current stream; raise if CUDA refused it."""
-    fn = _bound(name, n_ptr, len(ints))
-    strides = (ctypes.c_longlong * (3 * len(strided)))(*(
-        s for t in strided for s in t.stride()[:3]))
-    ptrs = [None if t is None else t.data_ptr() for t in tensors]
-    tail = [ctypes.addressof(strides)]
-    if "bwd" in name:
-        tail.append(None if maps is None else ctypes.addressof(maps))
+        fn.argtypes = argtypes
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
+            else ctypes.addressof(a) if isinstance(a, ctypes.Array) else a
+            for a in args]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(_DTYPES[tensors[0].dtype], *ptrs, *ints, float(sm_scale),
-                 *tail, stream)
+        err = fn(_DTYPES[dtype], *conv, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
@@ -206,26 +214,55 @@ def forward_kernel(q, k, v, sm_scale: float, n_keys: int, with_lse: bool):
     o = _bnhd_empty(q)
     lse = torch.empty(B, H, Nq, dtype=torch.float32, device=q.device) \
         if with_lse else None
-    _launch("flash_attention_fwd", 5, (q, k, v, o, lse),
-            (B, H, Nq, k.shape[2], n_keys), sm_scale, (q, k, v, o), q.device)
+    _launch("flash_attention_fwd", q.dtype,
+            [q, k, v, o, lse, B, H, Nq, k.shape[2], n_keys, float(sm_scale),
+             _strides(q, k, v, o), _tma_maps(k, v, n_keys)], q.device)
     LAUNCHES["flash_attention"] += 1
     return o, lse
 
 
-def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """D = rowsum(dO∘O) in float32, [B, H, Nq] contiguous: the backward
-    kernels' second row statistic, computed outside them as JAX computes
-    ``di`` (``flash_attention.py:273-275``)."""
+def delta_reference(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """D = rowsum(dO∘O) in float32, [B, H, Nq] contiguous, plainly: the
+    backward kernels' second row statistic, as JAX computes ``di``
+    (``flash_attention.py:273-275``)."""
     return (o.float() * do.float()).sum(-1).contiguous()
+
+
+def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """``delta_reference`` through the one-pass kernel
+    (``flash_attention_bwd.cu::flash_bwd_delta_*``) for CUDA tensors: o and
+    dO of one dtype (float32 or bfloat16), [B, H, Nq, 64] in any layout
+    that keeps ``_layout_ok``'s rule (others are copied first). CPU tensors
+    take the plain version."""
+    if o.device.type == "cpu" and do.device.type == "cpu":
+        return delta_reference(o, do)
+    if o.device.type != "cuda" or do.device != o.device:
+        raise ValueError(f"delta: no kernel for o on {o.device} and dO on "
+                         f"{do.device}")
+    if o.shape != do.shape or o.shape[-1] != 64:
+        raise ValueError(f"delta kernel takes o and dO of one [B, H, N, 64] "
+                         f"shape, got {tuple(o.shape)} / {tuple(do.shape)}")
+    if o.dtype not in _DTYPES or do.dtype != o.dtype:
+        raise ValueError(f"delta kernel takes float32 or bfloat16 o and dO "
+                         f"of one dtype, got {o.dtype}/{do.dtype}")
+    o, do = _kernel_ready(o), _kernel_ready(do)
+    B, H, Nq, _ = o.shape
+    out = torch.empty(B, H, Nq, dtype=torch.float32, device=o.device)
+    if out.numel():
+        _launch("flash_attention_bwd_delta", o.dtype,
+                [o, do, out, B, H, Nq, _strides(o, do)], o.device)
+        LAUNCHES["flash_attention_bwd_delta"] += 1
+    return out
 
 
 def dkv_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
     """K1's dkv kernel on ready tensors: (dk, dv)."""
     dk, dv = _bnhd_empty(k), _bnhd_empty(v)
-    _launch("flash_attention_bwd_dkv", 8, (q, k, v, do, lse, dlt, dk, dv),
-            (q.shape[0], q.shape[1], q.shape[2], k.shape[2], n_keys),
-            sm_scale, (q, k, v, do, dk, dv), q.device,
-            _tma_maps(q, do, q.shape[2]))
+    _launch("flash_attention_bwd_dkv", q.dtype,
+            [q, k, v, do, lse, dlt, dk, dv, q.shape[0], q.shape[1],
+             q.shape[2], k.shape[2], n_keys, float(sm_scale),
+             _strides(q, k, v, do, dk, dv), _tma_maps(q, do, q.shape[2])],
+            q.device)
     LAUNCHES["flash_attention_bwd_dkv"] += 1
     return dk, dv
 
@@ -233,10 +270,10 @@ def dkv_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
 def dq_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
     """K1's dq kernel on ready tensors: dq."""
     dq = _bnhd_empty(q)
-    _launch("flash_attention_bwd_dq", 7, (q, k, v, do, lse, dlt, dq),
-            (q.shape[0], q.shape[1], q.shape[2], k.shape[2], n_keys),
-            sm_scale, (q, k, v, do, dq), q.device,
-            _tma_maps(k, v, n_keys))
+    _launch("flash_attention_bwd_dq", q.dtype,
+            [q, k, v, do, lse, dlt, dq, q.shape[0], q.shape[1], q.shape[2],
+             k.shape[2], n_keys, float(sm_scale), _strides(q, k, v, do, dq),
+             _tma_maps(k, v, n_keys)], q.device)
     LAUNCHES["flash_attention_bwd_dq"] += 1
     return dq
 
@@ -244,7 +281,8 @@ def dq_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
 class _FlashMHA(torch.autograd.Function):
     """``flash_mha`` with a gradient: the kernels on a CUDA tensor, the plain
     versions on a CPU tensor, the same wiring (lse saved by the forward, D
-    and the [B, N, H, D] gradient layouts in the backward) either way."""
+    and the [B, N, H, D] gradient layouts in the backward) either way. On
+    the card the backward is three launches: D, dkv, dq."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale: float, kv_valid: Optional[int]):

@@ -18,7 +18,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -116,6 +116,23 @@ def ptxas_usage(log: str) -> Dict[str, dict]:
             cur["registers"] = int(m.group(1))
             smem = re.search(r"(\d+) bytes smem", line)
             cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def ptxas_warnings(log: str) -> List[dict]:
+    """The coded ``ptxas`` messages of a build log, warnings and the infos
+    that carry a code (e.g. C7514 or C7515: wgmma serialized; C7519: a
+    warpgroup.arrive injected): code, the function named in the message
+    (None if none is) and the message."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"ptxas (?:warning|info)\s*:\s*\((C\d+)\)\s*(.*)",
+                      line)
+        if m:
+            fn = re.search(r"function '([^']+)'", m.group(2))
+            out.append({"code": m.group(1),
+                        "function": fn.group(1) if fn else None,
+                        "text": m.group(2).strip()})
     return out
 
 

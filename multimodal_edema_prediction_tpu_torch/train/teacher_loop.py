@@ -5,8 +5,9 @@
 Per epoch: shuffled train batches through ``engine.make_teacher_step`` (loss
 sums stay on the device; one host sync per epoch), a finite-loss guard, the
 validation macro fusion AUROC, early stopping and the best checkpoint (JAX
-format); at the end the test split is evaluated from the best checkpoint,
-reloaded through ``load_teacher_from_ckpt``.
+format), and with ``cfg.eval_train_batches`` > 0 a train-subset evaluation
+and its gap table; at the end the test split is evaluated from the best
+checkpoint, reloaded through ``load_teacher_from_ckpt``.
 
 Image tiers: ``feature_cache="none"`` runs the frozen ViT inside every step
 on pixels; ``"hbm"`` encodes every unique image once into a
@@ -189,11 +190,12 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         n_eval[0] += 1
         return loop_eval(m, grid, static, batch)
 
-    def run_eval(m, split: str):
+    def run_eval(m, split: str, limit: int = 0):
         beta = m.perceiver.beta.detach().cpu().numpy()
         t0 = time.perf_counter()
         r = evaluate_dual_pathology(eval_step, m, dataset, split,
-                                    cfg.batch_size, pathology_labels, beta)
+                                    cfg.batch_size, pathology_labels, beta,
+                                    limit=limit)
         phase["eval"] = phase.get("eval", 0.0) + time.perf_counter() - t0
         return r
 
@@ -247,6 +249,15 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         log(f"epoch {epoch:3d}  loss={run['total'] / max(nb, 1):.4f} "
             f"({parts})  val_AUROC={val_metric:.4f}"
             f"{'  *' if improved else ''}")
+        if cfg.eval_train_batches > 0:
+            # train-vs-val overfit reading (JAX teacher_loop.py:656-675;
+            # its wandb scalars are history keys here)
+            tr = run_eval(model, "train", limit=cfg.eval_train_batches)
+            history[-1]["train_eval_main_auroc"] = tr["main_auroc"]
+            history[-1]["train_eval_main_gap_over_val"] = \
+                tr["main_auroc"] - val_metric
+            log("train-subset gap table:\n"
+                + format_dual_pathology_gap_table(tr))
         if stopper.should_stop:
             log(f"early stop at epoch {epoch}")
             break

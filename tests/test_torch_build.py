@@ -1,12 +1,21 @@
-"""What ``ops/build.py`` reads out of the toolkit's reports, on the CPU.
+"""What ``ops/build.py`` reads out of the toolkit's reports, and the C
+entry points ``ops/attention.py`` binds, on the CPU.
 
-``chip_smoke.py`` reports each backward kernel's registers, spills and
-shared memory from the ``ptxas -v`` log of its build, and its warpgroup MMA
-count from ``cuobjdump --dump-sass``; the card test
-``test_backward_kernels_issue_wgmma`` counts the same. These tests hold the
-two parsers against excerpts in the tools' formats.
+``chip_smoke.py`` reports K1's bf16 kernels' registers, spills, shared
+memory and ptxas warnings from the ``ptxas -v`` log of their build, and
+their warpgroup MMA count from ``cuobjdump --dump-sass``; the card tests
+``test_backward_kernels_issue_wgmma`` and ``test_forward_kernel_issues_wgmma``
+count the same. These tests hold the parsers against excerpts in the tools'
+formats, and the ctypes signatures against the ``extern "C"`` declarations
+of ``csrc/``, which no compiler checks here.
 """
-from multimodal_edema_prediction_tpu_torch.ops import build
+import ctypes
+import os
+import re
+
+import pytest
+
+from multimodal_edema_prediction_tpu_torch.ops import attention, build
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
@@ -59,3 +68,47 @@ def test_sass_opcode_counts_per_function():
     # an opcode is matched whole: the warpgroup fences are not HGMMAs
     assert sum(build.sass_opcode_counts(SASS, "WARPGROUP").values()) == 2
     assert sum(build.sass_opcode_counts(SASS, "HMMA").values()) == 0
+
+
+WARNINGS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_bf16E4Maps6Params' for 'sm_90a'
+ptxas warning : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to the presence of Extern calls in the function '_ZN12_GLOBAL__N_114flash_fwd_bf16E4Maps6Params'.
+ptxas warning : (C7508) Potential Performance Loss: wgmma.mma_async instructions are serialized.
+ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async instructions are serialized due to non wgmma instructions reading accumulator registers of  a wgmma between start and end of the pipeline stage in the function '_ZN12_GLOBAL__N_114flash_fwd_bf16E4Maps6Params'
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
+"""
+
+
+def test_ptxas_coded_messages_with_their_functions():
+    got = build.ptxas_warnings(WARNINGS)
+    assert [(w["code"], w["function"]) for w in got] == [
+        ("C7515", "_ZN12_GLOBAL__N_114flash_fwd_bf16E4Maps6Params"),
+        ("C7508", None),
+        ("C7514", "_ZN12_GLOBAL__N_114flash_fwd_bf16E4Maps6Params")]
+    assert got[0]["text"].startswith("Potential Performance Loss")
+    assert build.ptxas_warnings(PTXAS) == []
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+
+
+def _c_signature(source: str, name: str) -> list:
+    """The parameters of the ``extern "C"`` function ``name`` of
+    ``csrc/<source>`` as ctypes types (every pointer a void pointer, as
+    ctypes passes it)."""
+    with open(os.path.join(build.CSRC, source)) as f:
+        found = re.findall(r'extern "C" int ' + name + r"\(([^)]*)\)",
+                           f.read())
+    assert len(found) == 1, (source, name)
+    return [ctypes.c_void_p if "*" in p else _C_TYPES[p.split()[-2]]
+            for p in found[0].split(",")]
+
+
+@pytest.mark.parametrize("name", sorted(attention.ENTRY_POINTS))
+def test_entry_point_signatures_match_the_c_sources(name):
+    """The forward (with its tensor maps), D, dkv and dq: the library each
+    is bound from builds from a source that declares it, with the
+    parameters ctypes is told."""
+    lib, argtypes = attention.ENTRY_POINTS[name]
+    assert _c_signature(build.SOURCES[lib], name) == argtypes
+

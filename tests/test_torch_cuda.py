@@ -6,12 +6,13 @@ without the suite's conftest, which imports JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: K1 forward bf16 2e-2 (P and the output rounded to bf16 against
-a float32 plain version), float32 1e-5 (TF32 off; another summation order);
-K1 backward bf16 2e-2 and float32 1e-4 of each gradient's largest magnitude
-(P and dS rounded to bf16 before their products; in float32, exp of
-recomputed scores against the plain softmax), at the edges of the bf16
-kernels' 128-row blocks and 64-row tiles; K2 bit-exact (a gather moves
-bytes).
+a float32 plain version), float32 1e-5 (TF32 off; another summation order),
+its lse 1e-4; K1 backward bf16 2e-2 and float32 1e-4 of each gradient's
+largest magnitude (P and dS rounded to bf16 before their products; in
+float32, exp of recomputed scores against the plain softmax), at the edges
+of the bf16 kernels' 128-row blocks and 64-row tiles; the backward's D
+1e-6 of its largest magnitude (64 float32 products summed in another
+order); K2 bit-exact (a gather moves bytes).
 """
 import numpy as np
 import pytest
@@ -42,7 +43,9 @@ def _qkv(B, H, Nq, Nk, dtype, device, seed=0):
                                        (torch.float32, 1e-5)])
 @pytest.mark.parametrize("Nq,Nk,kv_valid", [
     (1, 1, None), (63, 63, None), (64, 64, None), (65, 65, 1),
-    (300, 300, 257), (7, 1369, None), (1370, 1370, 1370)])
+    (300, 300, 257), (7, 1369, None), (1370, 1370, 1370),
+    (127, 127, None), (128, 128, None), (129, 129, None), (7, 1369, 1369),
+    (300, 300, 63), (300, 300, 64), (300, 300, 65), (1370, 1370, 1301)])
 def test_kernel_matches_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
     q, k, v = _qkv(2, 3, Nq, Nk, dtype, cuda)
     before = A.LAUNCHES["flash_attention"]
@@ -70,6 +73,87 @@ def test_kernel_reads_strided_views(cuda):
     assert (got - want).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("kv_valid", [1, 63, 64, 65, 1301])
+def test_keys_past_kv_valid_take_no_weight(cuda, kv_valid):
+    """Keys at or past ``kv_valid`` (on and off the forward's 64-key tiles)
+    carry no weight: filling them with other values changes no bit of the
+    output."""
+    q, k, v = _qkv(2, 3, 300, 1370, torch.bfloat16, cuda, seed=3)
+    got = A.flash_mha(q, k, v, 0.125, kv_valid=kv_valid)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, :, kv_valid:] = 30.0
+    v2[:, :, kv_valid:] = -7.0
+    again = A.flash_mha(q, k2, v2, 0.125, kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    want = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("with_lse", [False, True])
+def test_forward_is_bit_reproducible(cuda, with_lse):
+    """No atomics: two forward launches give the same bits, o and lse."""
+    q, k, v = _qkv(3, 2, 1370, 1370, torch.bfloat16, cuda, seed=4)
+    o1, l1 = A.forward_kernel(q, k, v, 0.125, 1301, with_lse)
+    o2, l2 = A.forward_kernel(q, k, v, 0.125, 1301, with_lse)
+    torch.cuda.synchronize()
+    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert (l1 is None) == (l2 is None) == (not with_lse)
+    if with_lse:
+        assert torch.equal(l1.view(torch.int32), l2.view(torch.int32))
+
+
+@pytest.mark.parametrize("N,kv_valid", [(129, 64), (1370, 1301), (1370, 1)])
+def test_forward_lse_at_the_tile_edges(cuda, N, kv_valid):
+    q, k, v = _qkv(2, 3, N, N, torch.bfloat16, cuda, seed=5)
+    o, lse = A.forward_kernel(q, k, v, 0.125, kv_valid, True)
+    want = A.flash_mha_lse_reference(q, k, 0.125, kv_valid)
+    assert (lse - want).abs().max().item() <= 1e-4
+    ref = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
+    assert (o.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_forward_kernel_issues_wgmma(cuda):
+    """The bf16 forward runs its products as warpgroup MMAs: the built
+    library's SASS holds HGMMA instructions in flash_fwd_bf16."""
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    listing = build.sass("flash_attention")
+    if listing is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    counts = build.sass_opcode_counts(listing, "HGMMA")
+    hits = [n for fn, n in counts.items() if "flash_fwd_bf16" in fn]
+    assert hits and min(hits) > 0, counts
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("Nq", [1, 31, 33, 1370])
+def test_delta_kernel_matches_plain(cuda, dtype, Nq):
+    """D = rowsum(dO∘O) from the one-pass kernel against ``delta_reference``
+    on the forward's output layout ([B, N, H, 64] storage) and a strided
+    dO, Nq on and off the bf16 kernel's 32-row blocks; reruns bit-equal;
+    an odd-strided dO is copied to a layout the kernel reads."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    o = torch.randn(2, Nq, 3, 64, generator=g, device=cuda).to(dtype) \
+        .permute(0, 2, 1, 3)
+    do = torch.randn(2, Nq, 3 * 128, generator=g, device=cuda).to(dtype)[
+        ..., 64:256].reshape(2, Nq, 3, 64).transpose(1, 2)
+    before = A.LAUNCHES["flash_attention_bwd_delta"]
+    got, again = A.delta(o, do), A.delta(o, do)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_attention_bwd_delta"] == before + 2
+    want = A.delta_reference(o, do)
+    assert got.shape == (2, 3, Nq) and got.dtype == torch.float32
+    assert got.is_contiguous()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    scale = max(want.abs().max().item(), 1e-6)
+    assert (got - want).abs().max().item() <= 1e-6 * scale
+    odd = torch.randn(2, 3, Nq, 65, generator=g, device=cuda).to(dtype)[
+        ..., 1:]
+    want = A.delta_reference(o, odd)
+    assert (A.delta(o, odd) - want).abs().max().item() <= 1e-6 * max(
+        want.abs().max().item(), 1e-6)
+
+
 def test_kernel_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 8, 32, device=cuda)
     with pytest.raises(ValueError, match="head dim 64"):
@@ -91,10 +175,17 @@ def _grads(q, k, v, do, kv_valid):
 
 
 def _plain_grads(q, k, v, do, kv_valid):
-    o = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
-    lse = A.flash_mha_lse_reference(q, k, 0.125, kv_valid)
-    return A.flash_mha_backward_reference(q, k, v, o, lse, do, 0.125,
-                                          kv_valid)
+    """(dq, dk, dv) of plain masked attention at ``do``, by autograd in
+    float64: an oracle whose own rounding is far below the kernels'. (With
+    one live key the exact dq and dk are 0, and a float32 oracle's rounding
+    noise alone reaches the float32 tolerance there.)"""
+    leaves = [x.detach().double().requires_grad_() for x in (q, k, v)]
+    s = leaves[0] @ leaves[1].transpose(-1, -2) * 0.125
+    if kv_valid is not None:
+        s = s.masked_fill(torch.arange(s.shape[-1], device=s.device)
+                          >= kv_valid, float("-inf"))
+    o = torch.softmax(s, dim=-1) @ leaves[2]
+    return torch.autograd.grad(o, leaves, do.double())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
@@ -105,18 +196,18 @@ def _plain_grads(q, k, v, do, kv_valid):
     (300, 300, 257), (7, 1369, None), (1370, 1370, 1370),
     (1370, 1370, 1301), (200, 1369, 1000)])
 def test_backward_kernels_match_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
-    """dq, dk, dv from the dkv and dq kernels against
-    ``flash_mha_backward_reference`` (float32, from the plain forward's o
-    and lse), each relative to its largest magnitude floored at 1e-2 (at
-    one key dS is 0 and the gradients of q and k are rounding noise);
-    keys at or past ``kv_valid`` get exactly zero dk and dv."""
+    """dq, dk, dv from the D, dkv and dq kernels against plain attention's
+    gradients (``_plain_grads``, float64), each relative to its largest
+    magnitude floored at 1e-2 (at one key dS is 0 and the gradients of q
+    and k are rounding noise); keys at or past ``kv_valid`` get exactly
+    zero dk and dv."""
     q, k, v = _qkv(2, 3, Nq, Nk, dtype, cuda)
     do = _qkv(2, 3, Nq, Nq, dtype, cuda, seed=1)[0]
     before = dict(A.LAUNCHES)
     _, *got = _grads(q, k, v, do, kv_valid)
     torch.cuda.synchronize()
-    for name in ("flash_attention", "flash_attention_bwd_dkv",
-                 "flash_attention_bwd_dq"):
+    for name in ("flash_attention", "flash_attention_bwd_delta",
+                 "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
         assert A.LAUNCHES[name] == before[name] + 1, name
     want = _plain_grads(q, k, v, do, kv_valid)
     for name, g, w in zip("qkv", got, want):
