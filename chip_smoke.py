@@ -96,7 +96,7 @@ and DuETT SSL pretraining (ROADMAP P12) add:
 K1's backward redesigned for Hopper (warpgroup MMA, TMA; ROADMAP Queue 2)
 adds:
 
-2b. bwd_build  the bf16 dkv and dq kernels as built: registers, spills and
+2b. build_facts  the bf16 dkv and dq kernels as built: registers, spills and
             shared memory (``ptxas -v``) and their HGMMA count (``cuobjdump``
             SASS); fails on a spill or on a kernel without HGMMA.
 3b. backward  also the pair (dkv + dq) and the autograd Function's whole
@@ -108,7 +108,7 @@ adds:
 K1's forward redesigned for Hopper (warpgroup MMA, TMA) and the backward's
 D in a one-pass kernel add:
 
-2b. bwd_build  also the bf16 forward (``flash_fwd_bf16``): registers,
+2b. build_facts  also the bf16 forward (``flash_fwd_bf16``): registers,
             spills, shared memory, HGMMA count, and each kernel's ``ptxas``
             warnings (C7511 / C7515: wgmma serialised); fails on a spill or
             on a kernel without HGMMA.
@@ -123,10 +123,30 @@ D in a one-pass kernel add:
             counts D's launches (12 per train step), 10. unfreeze_step its
             device time and the forward's.
 
-Then the kernel summary line (seven kernels; the forward, dkv and dq rows
-with the build facts; the D row; the pair and the whole backward) and,
-last, ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX
-package.
+K4's bf16 kernel redesigned on wgmma and TMA, and K2 on TMA bulk copies,
+add:
+
+2b. build_facts  also K4's bf16 kernel (registers at entry and, from the
+            SASS, the counts setmaxnreg asks for; spills, shared memory,
+            HGMMA, ptxas codes); fails on a spill, on a kernel without
+            HGMMA or on a serialised wgmma (C7511, C7514, C7515), K1's
+            kernels included.
+3d. ln_qkv  also a ragged case ([2, 200, 96], 3 × 64, bf16); the kernel
+            and the library's calls timed in alternation (``vs_library``,
+            ``share_of_bound``).
+6.  kernels  K2's route in each case (``bulk`` for the three main-path
+            banks, asserted; ``vector`` for a bank of 8,220-byte rows), the
+            kernel and ``index_select`` timed in alternation
+            (``vs_library``, host dispatch included) and each one's device
+            time under ``torch.profiler`` (``device_vs_library``), the
+            rate (``gb_per_s``, from the device time) and its share of
+            3.35 TB/s. 7. train fails if a gather of the path took the
+            vector route.
+
+Then the kernel summary line (seven kernels; the forward, dkv, dq and K4
+rows with the build facts; the D row; the pair and the whole backward; K2
+with its routes) and, last, ``{"ok": true, "device": ...}``. Imports
+nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -370,24 +390,33 @@ def phase_build(port) -> dict:
     return info
 
 
-def phase_bwd_build(port) -> dict:
-    """K1's bf16 forward, dkv and dq kernels as built: registers, spills
-    (bytes stored plus loaded) and static shared memory from the ``ptxas
-    -v`` log, its warnings about the kernel (C7511 / C7515: wgmma
-    serialised), the dynamic shared memory a launch asks for, and the
-    warpgroup MMAs (HGMMA) in the library's SASS (``cuobjdump``). Fails if a
-    kernel spills or holds no HGMMA, or if there is no SASS listing to
-    count."""
+def phase_build_facts(port) -> dict:
+    """The warpgroup-MMA kernels as built: K1's bf16 forward, dkv and dq
+    and K4's bf16 kernel: registers at entry (``ptxas -v``) and the counts
+    its warps ask for after launch (``setmaxnreg`` in the SASS:
+    ``TRY_ALLOC`` the consumers', ``DEALLOC`` the producer's), spills
+    (bytes stored plus loaded), static plus the dynamic shared memory a
+    launch asks for, its ``ptxas`` codes (C7511 / C7514 / C7515: wgmma
+    serialised) and the warpgroup MMAs (HGMMA) in the library's SASS
+    (``cuobjdump``). Fails if a kernel spills, holds no HGMMA or carries
+    one of those codes, or if there is no SASS listing to count."""
     import ctypes
     build = port["build"]
-    info = {"phase": "bwd_build"}
-    # library, its dynamic shared memory query → (kernel, the query's
-    # argument)
-    for lib, query, kernels in (
+    info = {"phase": "build_facts"}
+    serialised = {"C7511", "C7514", "C7515"}
+    # library, its dynamic shared memory query, the query's result and
+    # argument types → (key, the kernel's name in the build log, the
+    # query's arguments)
+    for lib, query, restype, argtypes, kernels in (
             ("flash_attention", "flash_attention_fwd_smem_bytes",
-             (("fwd", None),)),
+             ctypes.c_int, [], (("fwd", "flash_fwd_bf16", ()),)),
             ("flash_attention_bwd", "flash_attention_bwd_smem_bytes",
-             (("dkv", 0), ("dq", 1)))):
+             ctypes.c_int, [ctypes.c_int],
+             (("dkv", "flash_bwd_dkv_bf16", (0,)),
+              ("dq", "flash_bwd_dq_bf16", (1,)))),
+            ("ln_qkv", "ln_qkv_smem_bytes", ctypes.c_longlong,
+             [ctypes.c_int] * 2,
+             (("k4", "ln_qkv_bf16_kernel", (1, 768)),))):
         log = build.build_log(lib)
         usage, warnings = build.ptxas_usage(log), build.ptxas_warnings(log)
         listing = build.sass(lib)
@@ -395,29 +424,31 @@ def phase_bwd_build(port) -> dict:
             raise AssertionError(f"no SASS listing of {lib} (cuobjdump "
                                  f"missing or failed)")
         hgmma = build.sass_opcode_counts(listing, "HGMMA")
+        maxnreg = build.sass_setmaxnreg(listing)
         dynamic = getattr(build.load(lib), query)
-        dynamic.restype = ctypes.c_int
-        for kind, arg in kernels:
-            dynamic.argtypes = [] if arg is None else [ctypes.c_int]
-            name = f"flash_{'fwd' if kind == 'fwd' else 'bwd_' + kind}_bf16"
+        dynamic.restype = restype
+        dynamic.argtypes = argtypes
+        for key, name, args in kernels:
             found = [u for fn, u in usage.items() if name in fn]
             if len(found) != 1:
                 raise AssertionError(f"{name}: no single ptxas entry: "
                                      f"{usage}")
             u = found[0]
-            info[kind] = {
+            info[key] = {
                 "registers": u["registers"],
+                "sass_setmaxnreg": {k: v for fn, kinds in maxnreg.items()
+                                    if name in fn for k, v in kinds.items()},
                 "spills": u["spill_stores"] + u["spill_loads"],
-                "smem_bytes": u["smem_bytes"] + (
-                    dynamic() if arg is None else dynamic(arg)),
+                "smem_bytes": u["smem_bytes"] + dynamic(*args),
                 "sass_hgmma": sum(n for fn, n in hgmma.items() if name in fn),
                 "ptxas_warnings": [w["code"] for w in warnings
                                    if w["function"] is None
                                    or name in w["function"]]}
     emit(info)
-    for kind in ("fwd", "dkv", "dq"):
-        if info[kind]["spills"] or not info[kind]["sass_hgmma"] > 0:
-            raise AssertionError(f"K1 {kind}: {info[kind]}")
+    for key in ("fwd", "dkv", "dq", "k4"):
+        if info[key]["spills"] or not info[key]["sass_hgmma"] > 0 or \
+                serialised & set(info[key]["ptxas_warnings"]):
+            raise AssertionError(f"{key}: {info[key]}")
     return info
 
 
@@ -494,7 +525,17 @@ def _bits(x):
 def phase_gather(port, device, n_bank: int = 400, batch: int = 32) -> dict:
     """K2 against its plain version, bit for bit, at the main path's shapes:
     bank rows N + 1 (the NaN sentinel last), 32 rows with repeats and the
-    sentinel."""
+    sentinel; the route each case took (``bulk``: TMA bulk copies;
+    ``vector``: the vector copy kernel, for a bank whose 8,220-byte rows
+    are not 16-byte aligned), asserted against ``gather.route``. Times the
+    kernel and ``torch.index_select`` (a yardstick only) in alternation
+    (``ms``, ``library_ms``, ``vs_library``: CUDA events around 5 calls,
+    so each holds its host dispatch, which for K2's wrapper is near the
+    copy's own time), then the device time of each over 20 calls under
+    ``torch.profiler`` (``device_ms``, ``library_device_ms``,
+    ``device_vs_library``: the kernels alone), the plain version and the
+    bound; the achieved rate and its share of the HBM peak from the device
+    time."""
     import torch
     G = port["gather"]
     g = torch.Generator(device=device).manual_seed(7)
@@ -502,34 +543,65 @@ def phase_gather(port, device, n_bank: int = 400, batch: int = 32) -> dict:
                          dtype=torch.int32)
     rows[1] = rows[0]
     rows[-1] = n_bank                                  # the sentinel
+    kernels = {"bulk": "gather_rows_bulk", "vector": "gather_rows"}
     results = {}
-    for label, shape, dtype in (
-            ("patch_bf16", (n_bank + 1, 1370, 768), torch.bfloat16),
-            ("cls_bf16", (n_bank + 1, 768), torch.bfloat16),
-            ("patch_f32", (n_bank + 1, 1370, 768), torch.float32)):
+    for label, shape, dtype, route in (
+            ("patch_bf16", (n_bank + 1, 1370, 768), torch.bfloat16, "bulk"),
+            ("cls_bf16", (n_bank + 1, 768), torch.bfloat16, "bulk"),
+            ("patch_f32", (n_bank + 1, 1370, 768), torch.float32, "bulk"),
+            ("vector_bf16", (n_bank + 1, 1370, 3), torch.bfloat16,
+             "vector")):
         bank = torch.randn(shape, generator=g, device=device, dtype=dtype)
         bank[-1] = float("nan")
+        before = dict(G.LAUNCHES)
         got = G.gather_rows(bank, rows)
+        took = [r for r, k in kernels.items()
+                if G.LAUNCHES[k] == before[k] + 1]
         want = G.gather_rows_reference(bank, rows)
         torch.cuda.synchronize()
         exact = bool(torch.equal(_bits(got), _bits(want)))
         err = (got.float() - want.float()).nan_to_num(0.0).abs().max().item()
         row_bytes = bank[0].numel() * bank.element_size()
-        res = {"phase": "kernel_check", "kernel": "gather_rows",
+
+        def kernel():
+            return G.gather_rows(bank, rows)
+
+        def library():
+            return torch.index_select(bank, 0, rows)
+        ms, library_ms = paired_ms([kernel, library], device)
+        dev_ms, lib_dev_ms = (
+            _profile(fn, 20, t, {}).get("device_busy_ms_per_step",
+                                        "not measured")
+            for fn, t in ((kernel, ms), (library, library_ms)))
+        measured = not isinstance(dev_ms, str)
+        nbytes = 2.0 * batch * row_bytes
+        res = {"phase": "kernel_check", "kernel": kernels[route],
                "case": label, "bank": list(shape), "rows": batch,
                "dtype": str(dtype).replace("torch.", ""),
+               "route": took[0] if len(took) == 1 else took,
+               "expected_route": route,
                "bit_exact": exact, "max_abs_err": err,
-               "ms": device_ms(lambda: G.gather_rows(bank, rows), device),
+               "ms": ms, "library_ms": library_ms,
+               "vs_library": ms / library_ms,
+               "device_ms": dev_ms, "library_device_ms": lib_dev_ms,
+               "device_vs_library": dev_ms / lib_dev_ms
+               if measured and not isinstance(lib_dev_ms, str)
+               else "not measured",
                "plain_ms": device_ms(
                    lambda: G.gather_rows_reference(bank, rows), device),
-               "library_ms": device_ms(
-                   lambda: torch.index_select(bank, 0, rows), device),
-               "bound_ms": 2.0 * batch * row_bytes / PEAK_BYTES * 1e3,
-               "bound_by": "bytes"}
+               "bound_ms": nbytes / PEAK_BYTES * 1e3, "bound_by": "bytes",
+               "gb_per_s": nbytes / dev_ms * 1e-6 if measured
+               else "not measured",
+               "share_of_peak_bytes": nbytes / dev_ms * 1e3 / PEAK_BYTES
+               if measured else "not measured"}
         emit(res)
         if not exact:
             raise AssertionError(f"gather_rows {label}: not bit-exact "
                                  f"(max abs err {err})")
+        if took != [route] or G.route(row_bytes, bank.data_ptr(),
+                                      got.data_ptr()) != route:
+            raise AssertionError(f"gather_rows {label}: took {took}, "
+                                 f"expected the {route} route")
         results[label] = res
         del bank, got, want
     torch.cuda.empty_cache()
@@ -583,16 +655,18 @@ def phase_train(port, device, card: str = "") -> dict:
     res = port["train_teacher"].main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = att.LAUNCHES["flash_attention"], G.LAUNCHES["gather_rows"]
+    k1, k2 = att.LAUNCHES["flash_attention"], G.LAUNCHES["gather_rows_bulk"]
+    k2_vector = G.LAUNCHES["gather_rows"]
     ex = res.extras
     steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
     phase = ex["phase_seconds"]
     _, _, _, again, reload_diff = _reload_val(port, res, device)
-    k2_reload = G.LAUNCHES["gather_rows"] - k2
+    k2_reload = G.LAUNCHES["gather_rows_bulk"] - k2
     info = {"phase": "train", "card": card, "argv": argv,
             "wall_s": wall, "feature_build_s": phase["feature_build"],
             "k1_launches_in_bank_build": k1,
-            "k2_launches": k2, "train_steps": steps, "eval_steps": evals,
+            "k2_launches": k2, "k2_vector_launches": k2_vector,
+            "train_steps": steps, "eval_steps": evals,
             "train_s": phase["train"], "eval_s": phase["eval"],
             "train_step_ms": phase["train"] / steps * 1e3,
             "train_samples_per_s": steps * int(argv[argv.index(
@@ -613,6 +687,9 @@ def phase_train(port, device, card: str = "") -> dict:
                              f"{evals} eval steps, expected 2 per step")
     if k1 == 0 or k2 == 0 or k2_reload == 0:
         raise AssertionError("the train path did not launch K1 and K2")
+    if k2_vector:
+        raise AssertionError(f"the train path's gathers took the vector "
+                             f"route {k2_vector} times, not the bulk one")
     if reload_diff > SERVE_TOL or again["main_auroc"] != res.best_metric:
         raise AssertionError(f"reloaded best checkpoint evaluates "
                              f"differently: {reload_diff}, "
@@ -736,7 +813,7 @@ def phase_tiers(port, device, cfg, gather_ms: float, reps: int = 5) -> dict:
                                     if k.startswith("loss:")},
                          "step_ms": step_ms,
                          "profile": _profile(run, 3, step_ms,
-                                             {"k2": "gather_rows_kernel"})}
+                                             {"k2": "gather_rows"})}
         del model, state
     diffs = _tier_diffs(after["pixels"], after["features"])
     worst = _worst(diffs)
@@ -1227,10 +1304,11 @@ def ln_qkv_bound_ms(B, N, D, inner, itemsize, peak_flops) -> tuple:
 def phase_ln_qkv(port, device, cases) -> dict:
     """K4 against ``ln_qkv_reference``: each of q, k, v within ``tol`` of its
     max abs, two launches bit-equal; times the kernel (through its wrapper,
-    weight casts included), the plain version, the bound and a library
-    yardstick of several calls (``F.layer_norm``, one ``F.linear`` on the
-    stacked [3·H·64, D] weight, the head-major copy; no single PyTorch call
-    computes K4). cases: (label, B, N, D, H, dtype, tol)."""
+    weight casts included) and a library yardstick of several calls
+    (``F.layer_norm``, one ``F.linear`` on the stacked [3·H·64, D] weight,
+    the head-major copy; no single PyTorch call computes K4) in alternation
+    (``vs_library``), the plain version and the bound.
+    cases: (label, B, N, D, H, dtype, tol)."""
     import torch
     import torch.nn.functional as F
     LQ = port["ln_qkv"]
@@ -1278,13 +1356,15 @@ def phase_ln_qkv(port, device, cases) -> dict:
                "dtype": str(dtype).replace("torch.", ""),
                "max_abs_err": max(err.values()), "max_rel_err": rel,
                "tol": tol, "bit_equal_rerun": same,
-               "ms": device_ms(kernel, device),
                "plain_ms": device_ms(lambda: LQ.ln_qkv_reference(
                    x, params, H, 64), device),
-               "library_ms": device_ms(library, device),
                "library_calls": "F.layer_norm + F.linear (stacked weight) "
                                 "+ head-major copy, weight casts included",
                "bound_ms": bound, "bound_by": by}
+        # the kernel and the library's calls, their repetitions alternating
+        res["ms"], res["library_ms"] = paired_ms([kernel, library], device)
+        res["vs_library"] = res["ms"] / res["library_ms"]
+        res["share_of_bound"] = bound / res["ms"]
         emit(res)
         if not (finite and shapes and max(rel.values()) <= tol and same):
             raise AssertionError(f"ln_qkv {label}: {res}")
@@ -1519,7 +1599,8 @@ def phase_ssl_to_teacher(port, device, best_path: str, card: str = "") -> dict:
                              "encoder")
     if not all(np.isfinite(x) for x in info["epoch_losses"]):
         raise AssertionError(f"non-finite losses {info['epoch_losses']}")
-    if launches["flash_attention"] == 0 or launches["gather_rows"] == 0:
+    if launches["flash_attention"] == 0 or \
+            launches["gather_rows_bulk"] == 0:
         raise AssertionError(f"the teacher run did not launch K1 and K2: "
                              f"{launches}")
     return info
@@ -1760,7 +1841,7 @@ def main() -> int:
 
     dev = phase_device()
     phase_build(port)
-    built = phase_bwd_build(port)
+    built = phase_build_facts(port)
     bf16, f32 = torch.bfloat16, torch.float32
     checks = phase_kernels(port, device, [
         ("vit_bf16", 8, 12, 1370, None, bf16, TOL_BF16, True),
@@ -1782,6 +1863,7 @@ def main() -> int:
     ])
     k4 = phase_ln_qkv(port, device, [
         ("vit_bf16", 32, 1536, 768, 12, bf16, TOL_FUSED_BF16),
+        ("ragged_bf16", 2, 200, 96, 3, bf16, TOL_FUSED_BF16),
         ("f32", 2, 512, 256, 4, f32, TOL_FUSED_F32),
     ])
     k3_checks, k4_checks = read_counts(port)["dual_axis_block"], \
@@ -1863,12 +1945,19 @@ def main() -> int:
          **{k: k1[k] for k in keys}},
         delta_row,
         *bwd_rows,
-        {"name": "gather_rows", "route": "cuda", "source": K2_SOURCE,
+        {"name": "gather_rows_bulk", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2_launches"],
          "case": "patch_bf16 [401, 1370, 768] x 32 rows",
-         "launches_by_path": by_path("gather_rows",
+         "launches_by_path": by_path("gather_rows_bulk",
                                      train=train["k2_launches"]),
-         **{k: k2[k] for k in keys}},
+         "vector_launches_by_path": by_path(
+             "gather_rows", train=train["k2_vector_launches"]),
+         "routes": {c: gathers[c]["route"] for c in gathers},
+         "ms_by_case": {c: gathers[c]["ms"] for c in gathers},
+         "device_ms_by_case": {c: gathers[c]["device_ms"] for c in gathers},
+         **{k: k2[k] for k in keys + (
+             "vs_library", "device_ms", "library_device_ms",
+             "device_vs_library", "gb_per_s", "share_of_peak_bytes")}},
         {"name": "dual_axis_block", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": n_ssl["dual_axis_block"],
          "launches_by_path": by_path("dual_axis_block"),
@@ -1883,7 +1972,9 @@ def main() -> int:
          "check_launches": {"kernel_check": k4_checks},
          "case": "vit_bf16 [32, 1536, 768] 12 x 64",
          "library_calls": k4["vit_bf16"]["library_calls"],
-         **{k: k4["vit_bf16"][k] for k in keys}}]})
+         **built["k4"],
+         **{k: k4["vit_bf16"][k] for k in keys + ("vs_library",
+                                                  "share_of_bound")}}]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0

@@ -14,174 +14,402 @@
 //
 // Bound on an H100 at the ViT's [32, 1536, 768] bf16 with 12 x 64 heads:
 // 2·B·N·768·2304 = 174 GFLOP against ~0.31 GB moved, so the tensor cores
-// bound it (0.176 ms at 989 TFLOP/s). Design: a block owns a tile of 64
-// tokens (bf16) or 32 (float32). Its LayerNorm prologue reads x once and
-// keeps h in shared memory (64 x 768 bf16 = 97 KB with row padding); the
-// block then walks the 3·H·64 output columns in 64-wide tiles, each over
-// the depth in 32-deep W tiles that cp.async double-buffers through shared
-// memory. bf16: 4 warps, each 16 rows x 64 columns of mma.sync m16n8k16
-// (bf16 in, float32 accumulate; ldmatrix fragments, the helpers of
-// mma_bf16.cuh); 2 blocks fit an SM. float32: SIMT FMA, a thread 8 rows of
-// one column. A 64-wide column tile is one head of one projection, so the
-// epilogue writes a [rows, 64] slab of [B, H, N, 64] directly. Rows past N
-// (a ragged last tile) are masked. W is re-read from L2 by every block
-// (768 blocks at [32, 1536, 768]); no atomics, so reruns are bit-equal.
+// bound it (0.176 ms at 989 TFLOP/s). The bf16 kernel is a warp-specialised
+// GEMM over the B·N token rows with the LayerNorm folded into its A operand
+// (wgmma and TMA, the building blocks of wgmma_bf16.cuh):
+// - A block owns 128 token rows of [B·N, D] and every output column: two
+//   consumer warpgroups of 64 rows and a producer warpgroup, whose
+//   registers go to the consumers (setmaxnreg 40 / 232).
+// - Prologue: each consumer warp takes the float32 mean and 1/sqrt(biased
+//   variance + eps) of 16 rows, two rows at a time held in registers from
+//   16-byte loads of x, into shared memory, beside the LN scale and bias
+//   (zero past D). The producer's first loads run under it.
+// - The producer thread streams, per stage, the x tile [128 rows][64 of the
+//   depth] (one 2-D tensor-map box) and the W boxes [64 of the depth][256
+//   columns] (4 boxes of a 3-D map of W [3, D, H·64]), all in the 128-byte
+//   swizzle, into a ring of 4 stages of 48 KB guarded by mbarriers (full:
+//   TMA's byte count; empty: every consumer warp done). Rows past B·N and
+//   depth past D read 0. A ring this deep is what keeping the whole of h
+//   resident in shared memory (192 KB) left no room for: with 32 KB of W in
+//   flight, waiting on W bounded that design (PERF.md).
+// - Per stage each consumer thread normalises 4 16-byte chunks of one of
+//   its warpgroup's rows in place, h = (x - mean) rstd scale + bias in
+//   float32, rounded to bf16 (the reference's h), fences them for the
+//   async proxy and meets its warpgroup at a named barrier; then 4 wgmma
+//   m64n256k16, A (h, K-major) and B (W, MN-major) from shared memory,
+//   float32 accumulators. A stage's products are issued while the previous
+//   stage's retire (wait_group 1), which then frees that stage. x is read
+//   from L2 again for each column tile, W once per block.
+// - Blocks start at different column tiles and walk them cyclically, so
+//   that the SMs do not all read the same W lines at once.
+// - Epilogue per column tile: the bias (loaded under the last products)
+//   added in float32, rounded to bf16; each quad of threads transposes its
+//   packed pairs with shuffles, so that a thread writes 16 contiguous bytes
+//   of a row of one head's [N, 64] slab of out[3, B, H, N, 64] (an output
+//   tile staged in shared memory for TMA stores, at the cost of a ring
+//   stage, ran slower on an H100); rows past B·N are not written. No
+//   atomics, so reruns are bit-equal.
+//
+// float32 (the reference-precision path): a block owns 32 tokens, 256
+// threads, SIMT FMA, a thread 8 rows of one column; W tiles of 32 x 64
+// through shared memory.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 constexpr int kDh = 64;      // head dim = the column tile
-constexpr int kBK = 32;      // depth of a W tile
+constexpr int kBK = 32;      // depth of a W tile (float32)
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// h[r][:] = LN(x[row0 + r]) in T for r < rows (rows past N are zeros); one
-// warp a row, three passes over the row in device memory (mean, variance,
-// normalise).
-template <typename T>
+// h[r][:] = LN(x[row0 + r]) for r < rows (rows past N are zeros), float32;
+// one warp a row, three passes over the row in device memory (mean,
+// variance, normalise).
 __device__ __forceinline__ void layernorm_tile(
-    const T* __restrict__ x, const T* __restrict__ scale,
-    const T* __restrict__ bias, T* h, int ldh, int row0, int rows, int N,
-    int D, float eps) {
+    const float* __restrict__ x, const float* __restrict__ scale,
+    const float* __restrict__ bias, float* h, int ldh, int row0, int rows,
+    int N, int D, float eps) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n_warps = blockDim.x >> 5;
   for (int r = warp; r < rows; r += n_warps) {
-    T* hr = h + (size_t)r * ldh;
+    float* hr = h + (size_t)r * ldh;
     if (row0 + r >= N) {
-      for (int d = lane; d < D; d += 32) hr[d] = from_f<T>(0.f);
+      for (int d = lane; d < D; d += 32) hr[d] = 0.f;
       continue;
     }
-    const T* xr = x + (size_t)(row0 + r) * D;
+    const float* xr = x + (size_t)(row0 + r) * D;
     float s = 0.f;
-    for (int d = lane; d < D; d += 32) s += to_f(xr[d]);
+    for (int d = lane; d < D; d += 32) s += xr[d];
 #pragma unroll
     for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     const float mean = s / D;
     float ss = 0.f;
     for (int d = lane; d < D; d += 32) {
-      const float c = to_f(xr[d]) - mean;
+      const float c = xr[d] - mean;
       ss = fmaf(c, c, ss);
     }
 #pragma unroll
     for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
     const float inv = rsqrtf(ss / D + eps);
     for (int d = lane; d < D; d += 32)
-      hr[d] = from_f<T>((to_f(xr[d]) - mean) * inv * to_f(scale[d]) +
-                        to_f(bias[d]));
+      hr[d] = (xr[d] - mean) * inv * scale[d] + bias[d];
   }
 }
 
 // ---------------------------------------------------------------------------
-// bf16: 64-token tiles, 4 warps, mma.sync
+// bf16: 128-token tiles, x and W streamed by TMA, wgmma
 // ---------------------------------------------------------------------------
-constexpr int kBM16 = 64;
-constexpr int kLdW16 = kDh + 8;   // padded W-tile row (bf16), ldmatrix-friendly
+constexpr int kThreads16 = 384;     // two consumer warpgroups + the producer's
+constexpr int kProducerWarp = 8;    // the producer's warp (its group's first)
+constexpr int kProducerRegs = 40;   // registers a thread after setmaxnreg:
+constexpr int kConsumerRegs = 232;  // 128 (40 + 2 x 232) <= 65536
+constexpr int kBM = 128;            // tokens a block: 64 a consumer warpgroup
+constexpr int kBD = 64;             // depth of a stage: one swizzled row
+constexpr int kBN = 256;            // output columns a tile (4 heads): an
+                                    // A/B on an H100 chose it over 128
+constexpr int kMaxStages = 8;
+constexpr int kMaxD = 2048;         // the scale and bias kept in shared memory
+constexpr uint32_t kXBytes = kBM * kBD * 2;   // a stage's x tile, 16 KB
+constexpr uint32_t kSubBytes = kBD * 64 * 2;  // one [64][64] box of W, 8 KB
+constexpr long long kMaxSmem = 232448;  // an H100 block's dynamic maximum
 
-__global__ void __launch_bounds__(128)
-    ln_qkv_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                       const __nv_bfloat16* __restrict__ scale,
-                       const __nv_bfloat16* __restrict__ bias,
-                       const __nv_bfloat16* __restrict__ w,
-                       const __nv_bfloat16* __restrict__ b,
-                       __nv_bfloat16* __restrict__ out, int B, int N, int D,
-                       int H, float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldh = D + 8;   // padded h row: 16-byte aligned, conflict-free
-  auto* hs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  auto* ws = reinterpret_cast<__nv_bfloat16(*)[kBK][kLdW16]>(
-      smem_raw + (size_t)kBM16 * ldh * sizeof(__nv_bfloat16));
-  const int bi = blockIdx.y, row0 = blockIdx.x * kBM16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int inner = H * kDh;
-  const int KT = D / kBK, n_tiles = 3 * H * KT;
+struct LnQkvParams {
+  const __nv_bfloat16* x;      // [B, N, D]
+  const __nv_bfloat16* scale;  // [D]
+  const __nv_bfloat16* bias;   // [D]
+  const __nv_bfloat16* b;      // [3, H·64]
+  __nv_bfloat16* out;          // [3, B, H, N, 64]
+  int B, N, D, H;
+  int stages;  // depth of the ring
+  float eps;
+};
 
-  layernorm_tile(x + (size_t)bi * N * D, scale, bias, hs, ldh, row0, kBM16,
-                 N, D, eps);
-
-  // W tile `tile` (column tile nt = one head of one projection, depth kt)
-  // into buffer `buf`: 32 rows x 64 columns, 256 16-byte chunks.
-  auto load_w = [&](int tile, int buf) {
-    const int nt = tile / KT, kt = tile % KT;
-    const int proj = nt / H, head = nt % H;
-    const __nv_bfloat16* src =
-        w + ((size_t)proj * D + (size_t)kt * kBK) * inner + head * kDh;
-    for (int c = threadIdx.x; c < kBK * kDh / 8; c += blockDim.x) {
-      const int r = c >> 3, c8 = (c & 7) * 8;
-      cp_async16(smem_u32(&ws[buf][r][c8]), src + (size_t)r * inner + c8,
-                 true);
-    }
-    cp_async_commit();
-  };
-
-  float acc[8][4];
-  load_w(0, 0);
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    const int buf = tile & 1, kt = tile % KT;
-    if (tile + 1 < n_tiles) {
-      load_w(tile + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();   // the tile (and, at the first, h) is in place
-    if (kt == 0) zero_acc(acc);
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
 #pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      const int k0 = kt * kBK + ks * 16;
-      uint32_t a[4];
-      ldsm_x4(a, smem_u32(&hs[(size_t)(warp * 16 + (lane & 7) +
-                                       ((lane >> 3) & 1) * 8) * ldh +
-                                  k0 + (lane >> 4) * 8]));
-      const int lr = lane & 7, lm = lane >> 3;
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float s) {
 #pragma unroll
-      for (int jp = 0; jp < 4; ++jp) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, smem_u32(&ws[buf][ks * 16 + (lm & 1) * 8 + lr]
-                                      [jp * 16 + (lm >> 1) * 8]));
-        mma_bf16(acc[2 * jp], a, bf[0], bf[1]);
-        mma_bf16(acc[2 * jp + 1], a, bf[2], bf[3]);
+  for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// float32 mean and 1/sqrt(biased variance + eps) of the rows m of x
+// [M, D] (M = B·N) in [m0, m0 + 16), one warp, two rows at a time, each
+// row's 16-byte chunks held in registers (D <= 32 · 8 · kLnChunks); rows
+// past M get (0, 0).
+constexpr int kLnChunks = 8;   // 16-byte chunks a lane holds of a row
+
+__device__ __forceinline__ void row_stats(const LnQkvParams& p, long long M,
+                                          long long m0, float2* stats,
+                                          int lane) {
+  const int nch = p.D / 8;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int i = 0; i < 16; i += 2) {
+    uint4 v[2][kLnChunks];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long m = m0 + i + h;
+      const uint4* xr = reinterpret_cast<const uint4*>(
+          p.x + (m < M ? m : 0) * p.D);
+#pragma unroll
+      for (int k = 0; k < kLnChunks; ++k) {
+        const int c = lane + 32 * k;
+        v[h][k] = (m < M && c < nch) ? __ldg(xr + c) : zero;
       }
     }
-    if (kt == KT - 1) {   // epilogue: bias in float32, one head's slab
-      const int nt = tile / KT, proj = nt / H, head = nt % H;
-      const __nv_bfloat16* bp = b + (size_t)proj * inner + head * kDh;
-      __nv_bfloat16* op =
-          out + (((size_t)proj * B + bi) * H + head) * (size_t)N * kDh;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int col = j * 8 + 2 * t;
-        const float b0 = to_f(bp[col]), b1 = to_f(bp[col + 1]);
+    for (int h = 0; h < 2; ++h) {
+      float s = 0.f;
 #pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int row = row0 + warp * 16 + g + half * 8;
-          if (row < N) {
-            __nv_bfloat162 v = __floats2bfloat162_rn(
-                acc[j][2 * half] + b0, acc[j][2 * half + 1] + b1);
-            *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row * kDh + col) =
-                v;
-          }
+      for (int k = 0; k < kLnChunks; ++k) {
+        float f[8];
+        unpack8(v[h][k], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) s += f[e];
+      }
+      const float mean = warp_sum(s) / p.D;
+      float ss = 0.f;
+#pragma unroll
+      for (int k = 0; k < kLnChunks; ++k) {
+        if (lane + 32 * k >= nch) continue;
+        float f[8];
+        unpack8(v[h][k], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float d = f[e] - mean;
+          ss = fmaf(d, d, ss);
+        }
+      }
+      const float inv = rsqrtf(warp_sum(ss) / p.D + p.eps);
+      if (lane == 0)
+        stats[i + h] = m0 + i + h < M ? make_float2(mean, inv)
+                                      : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+// one of four registers by a run-time index, without local memory
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&a)[4], int i) {
+  return i == 0 ? a[0] : i == 1 ? a[1] : i == 2 ? a[2] : a[3];
+}
+
+// The 4 x 4 transpose of a quad (lanes 4g .. 4g + 3, t = lane % 4): lane t
+// gets in[t] of quad lanes 0..3, in that order. From the accumulator's
+// packed pairs of four 8-column groups (lane t: columns 2t, 2t + 1 of
+// each), lane t gets the 8 columns of group t, 16 contiguous bytes.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&in)[4],
+                                                int lane) {
+  const int t = lane & 3;
+  uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const uint32_t v = __shfl_sync(0xffffffffu, pick4(in, (t - r) & 3),
+                                   (lane & ~3) | ((t + r) & 3));
+    const int k = (t + r) & 3;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[e] = k == e ? v : o[e];
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__global__ void __launch_bounds__(kThreads16, 1)
+    ln_qkv_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
+                       const __grid_constant__ CUtensorMap wmap,
+                       const LnQkvParams p) {
+  constexpr int J = kBN / 8;                              // accumulator groups
+  constexpr uint32_t kStageBytes = kXBytes + kSubBytes * (kBN / 64);
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int d_pad = (p.D + kBD - 1) / kBD * kBD;
+  __nv_bfloat16* sc = reinterpret_cast<__nv_bfloat16*>(
+      ring + p.stages * kStageBytes);                    // [d_pad], 0 past D
+  __nv_bfloat16* bs = sc + d_pad;                        // [d_pad], 0 past D
+  float2* stats = reinterpret_cast<float2*>(bs + d_pad);  // [kBM]
+  uint64_t* full = reinterpret_cast<uint64_t*>(stats + kBM);
+  uint64_t* empty = full + kMaxStages;
+  const long long M = static_cast<long long>(p.B) * p.N;
+  const long long row0 = static_cast<long long>(blockIdx.x) * kBM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cols = 3 * p.H * 64, inner = p.H * 64;
+  const int n_col_tiles = (cols + kBN - 1) / kBN, KT = d_pad / kBD;
+  // blocks start at different column tiles and walk them cyclically, so
+  // that at any moment the SMs read different W tiles
+  const int nt0 = blockIdx.x % n_col_tiles;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < p.stages; ++i) {
+      mbar_init(&full[i], 1);   // the producer's arrive with the tx
+      mbar_init(&empty[i], 8);  // lane 0 of each consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp >= kProducerWarp) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (warp != kProducerWarp || lane != 0) return;
+    // per stage: the x tile (rows row0.., depth kt; rows past M and columns
+    // past D read 0) and the W boxes of the column tile (depth rows past D
+    // read 0), for every column tile in turn
+    int it = 0;
+    for (int i = 0; i < n_col_tiles; ++i) {
+      const int c0 = (nt0 + i) % n_col_tiles * kBN;
+      const int n_sub = min(kBN, cols - c0) / 64;
+      for (int kt = 0; kt < KT; ++kt, ++it) {
+        const int st = it % p.stages;
+        uint8_t* stage = ring + st * kStageBytes;
+        mbar_wait(&empty[st], ((it / p.stages) & 1) ^ 1);
+        mbar_arrive_tx(&full[st], kXBytes + n_sub * kSubBytes);
+        tma_load_2d(stage, &xmap, kt * kBD, static_cast<int>(row0),
+                    &full[st]);
+        for (int q = 0; q < n_sub; ++q) {
+          const int c = c0 + 64 * q;   // a 64-column group lies in one proj
+          tma_load_3d(stage + kXBytes + q * kSubBytes, &wmap, c % inner,
+                      kt * kBD, c / inner, &full[st]);
         }
       }
     }
-    __syncthreads();   // the buffer is free for the load two tiles ahead
+    return;
+  }
+
+  setmaxnreg_inc<kConsumerRegs>();
+  const int wg = warp >> 2, wl = warp & 3, tid = threadIdx.x;
+  // the LayerNorm's rows and its scale and bias (zero past D)
+  row_stats(p, M, row0 + warp * 16, stats + warp * 16, lane);
+  for (int d = tid; d < d_pad; d += 256) {
+    sc[d] = d < p.D ? p.scale[d] : __float2bfloat16(0.f);
+    bs[d] = d < p.D ? p.bias[d] : __float2bfloat16(0.f);
+  }
+  named_barrier(1, 256);
+
+  // this thread normalises row xr of its warpgroup's 64 rows of each x
+  // tile, 16-byte chunks xc .. xc + 3 (of 8), in place: h = (x - mean) ·
+  // rstd · scale + bias, rounded to bf16
+  const int xr = wg * 64 + ((tid & 127) >> 1), xc = (tid & 1) * 4;
+  const float2 ms = stats[xr];
+  auto normalise = [&](uint8_t* xs, int kt) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int c = xc + k;
+      uint4* at = reinterpret_cast<uint4*>(xs + xr * 128 +
+                                           ((c ^ (xr & 7)) << 4));
+      float f[8], g[8], o[8];
+      unpack8(*at, f);
+      unpack8(*reinterpret_cast<const uint4*>(sc + kt * kBD + c * 8), g);
+      unpack8(*reinterpret_cast<const uint4*>(bs + kt * kBD + c * 8), o);
+      uint4 hv;
+      uint32_t* w = reinterpret_cast<uint32_t*>(&hv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        w[e] = pack_bf16(fmaf((f[2 * e] - ms.x) * ms.y, g[2 * e],
+                              o[2 * e]),
+                         fmaf((f[2 * e + 1] - ms.x) * ms.y, g[2 * e + 1],
+                              o[2 * e + 1]));
+      *at = hv;
+    }
+    fence_proxy_async();         // h, written generically, read by wgmma
+    named_barrier(2 + wg, 128);  // the warpgroup's 64 rows of h are in place
+  };
+
+  // this thread's accumulator rows, and where each lies in out
+  const int g = lane >> 2, t = lane & 3;
+  long long rm[2];
+  size_t roff[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    rm[h] = row0 + wg * 64 + wl * 16 + g + 8 * h;
+    const long long m = rm[h] < M ? rm[h] : 0;
+    roff[h] = (static_cast<size_t>(m / p.N) * p.H * p.N + m % p.N) * 64;
+  }
+  // A: the warpgroup's 64 rows of the stage's x tile (now h), 16 of the
+  // depth a k-step (32 B, desc + 2); B: the stage's W boxes, kSubBytes apart
+  // along N, 16 rows a k-step (2048 B, + 128)
+  auto a_desc = [&](int st) {
+    return sw128_desc(ring + st * kStageBytes + wg * 64 * 128);
+  };
+  auto b_desc = [&](int st) {
+    return sw128_desc_mn(ring + st * kStageBytes + kXBytes, kSubBytes);
+  };
+  auto release = [&](int st) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  };
+  int it = 0;
+  for (int i = 0; i < n_col_tiles; ++i) {
+    const int nt = (nt0 + i) % n_col_tiles;
+    float acc[J][4];
+    {  // the first stage of the tile writes the accumulators
+      const int st = it % p.stages;
+      mbar_wait(&full[st], (it / p.stages) & 1);
+      normalise(ring + st * kStageBytes, 0);
+      const uint64_t ad = a_desc(st), bd = b_desc(st);
+      wgmma_fence();
+      wgmma_ss<true>(acc, ad, bd);
+#pragma unroll
+      for (int kk = 1; kk < 4; ++kk)
+        wgmma_ss<false>(acc, ad + 2 * kk, bd + 128 * kk);
+      wgmma_commit();
+      ++it;
+    }
+    for (int kt = 1; kt < KT; ++kt, ++it) {
+      const int st = it % p.stages;
+      mbar_wait(&full[st], (it / p.stages) & 1);
+      normalise(ring + st * kStageBytes, kt);
+      const uint64_t ad = a_desc(st), bd = b_desc(st);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss<false>(acc, ad + 2 * kk, bd + 128 * kk);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      release((it - 1) % p.stages);
+    }
+    // the bias of this thread's columns, loaded under the last products
+    uint32_t bias2[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = nt * kBN + 8 * j + 2 * t;
+      bias2[j] = c < cols ? ld_u32(p.b + c) : 0u;
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    release((it - 1) % p.stages);
+
+    // epilogue: bias in float32, rounded to bf16; each quad's four
+    // 8-column groups transposed (quad_transpose), so that a thread writes
+    // 16 contiguous bytes of a row of one head's [N, 64] slab
+#pragma unroll
+    for (int jb = 0; jb < J; jb += 4) {
+      const int c0 = nt * kBN + 8 * jb;   // in a 64-column group
+      if (c0 >= cols) continue;
+      const int proj = c0 / inner, head = (c0 % inner) >> 6;
+      uint32_t lo[4], hi[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float2 bv = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&bias2[jb + k]));
+        lo[k] = pack_bf16(acc[jb + k][0] + bv.x, acc[jb + k][1] + bv.y);
+        hi[k] = pack_bf16(acc[jb + k][2] + bv.x, acc[jb + k][3] + bv.y);
+      }
+      const uint4 v[2] = {quad_transpose(lo, lane), quad_transpose(hi, lane)};
+      __nv_bfloat16* op =
+          p.out + (static_cast<size_t>(proj) * p.B * p.H + head) * p.N * 64 +
+          8 * ((jb + t) & 7);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (rm[h] < M) *reinterpret_cast<uint4*>(op + roff[h]) = v[h];
+    }
   }
 }
 
@@ -238,27 +466,61 @@ __global__ void __launch_bounds__(256)
 
 }  // namespace
 
-// Shared-memory bytes of one block (dtype 0: float32, 1: bfloat16).
+namespace {
+
+// the bf16 kernel's ring depth and dynamic shared memory (the ring, the
+// padded scale and bias, the row statistics, the barriers, 1024 B of
+// alignment); -1 bytes if not even two stages fit
+struct Bf16Config {
+  int stages;
+  long long smem;
+};
+
+Bf16Config bf16_config(int D) {
+  const long long stage = kXBytes + 2LL * kBD * kBN;
+  const long long fixed = 1024 + 2LL * 2 * ((D + kBD - 1) / kBD * kBD) +
+                          8LL * kBM + 2LL * kMaxStages * 8;
+  for (int stages = kMaxStages; stages >= 2; --stages)
+    if (fixed + stages * stage <= kMaxSmem)
+      return {stages, fixed + stages * stage};
+  return {0, -1};
+}
+
+int launch_bf16(const CUtensorMap& xmap, const CUtensorMap& wmap,
+                const LnQkvParams& prm, const Bf16Config& cfg,
+                cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      ln_qkv_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(cfg.smem));
+  if (err != cudaSuccess) return (int)err;
+  const long long M = static_cast<long long>(prm.B) * prm.N;
+  ln_qkv_bf16_kernel<<<static_cast<unsigned>((M + kBM - 1) / kBM),
+                       kThreads16, cfg.smem, s>>>(xmap, wmap, prm);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared-memory bytes of one block (dtype 0: float32, 1: bfloat16); -1 if
+// the block does not fit.
 extern "C" long long ln_qkv_smem_bytes(int dtype, int D) {
   if (dtype == 0) return (long long)(kBM32 * D + kBK * kDh) * 4;
-  return (long long)(kBM16 * (D + 8) + 2 * kBK * kLdW16) * 2;
+  return bf16_config(D).smem;
 }
 
 // x [B, N, D]; scale, bias [D]; w [3, D, H·64] (wq, wk, wv); b [3, H·64];
 // out [3, B, H, N, 64] (q, k, v), all contiguous in x's dtype (dtype 0:
-// float32, 1: bfloat16). D a multiple of 32. Returns the CUDA error of the
-// launch (0 on success).
+// float32, 1: bfloat16; bf16 pointers 16-byte aligned). D a multiple of 32.
+// Returns the CUDA error of the launch (0 on success).
 extern "C" int ln_qkv(int dtype, const void* x, const void* scale,
                       const void* bias, const void* w, const void* b,
                       void* out, int B, int N, int D, int H, float eps,
                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  const int smem = (int)ln_qkv_smem_bytes(dtype, D);
-  cudaError_t err;
   if (dtype == 0) {
-    err = cudaFuncSetAttribute(ln_qkv_f32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    const int smem = (int)ln_qkv_smem_bytes(0, D);
+    cudaError_t err = cudaFuncSetAttribute(
+        ln_qkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((N + kBM32 - 1) / kBM32, B);
     ln_qkv_f32_kernel<<<grid, 256, smem, s>>>(
@@ -266,19 +528,29 @@ extern "C" int ln_qkv(int dtype, const void* x, const void* scale,
         static_cast<const float*>(bias), static_cast<const float*>(w),
         static_cast<const float*>(b), static_cast<float*>(out), B, N, D, H,
         eps);
-  } else {
-    err = cudaFuncSetAttribute(ln_qkv_bf16_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + kBM16 - 1) / kBM16, B);
-    ln_qkv_bf16_kernel<<<grid, 128, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(scale),
-        static_cast<const __nv_bfloat16*>(bias),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(out), B, N, D, H, eps);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  const Bf16Config cfg = bf16_config(D);
+  if (cfg.smem < 0 || D % 32 ||
+      D > 32 * 8 * kLnChunks || D > kMaxD)
+    return (int)cudaErrorInvalidValue;
+  // x as [B·N, D] in [128][64] boxes; W as (H·64, D, 3) in [64][64] boxes
+  const cuuint64_t inner = 64ull * H;
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)B * N};
+  const cuuint64_t xstrides[1] = {2ull * D};
+  const cuuint32_t xbox[2] = {kBD, kBM};
+  const cuuint64_t wdims[3] = {inner, (cuuint64_t)D, 3};
+  const cuuint64_t wstrides[2] = {inner * 2, inner * 2 * D};
+  const cuuint32_t wbox[3] = {64, kBD, 1};
+  CUtensorMap xmap, wmap;
+  if (!encode_bf16_map(&xmap, x, 2, xdims, xstrides, xbox) ||
+      !encode_bf16_map(&wmap, w, 3, wdims, wstrides, wbox))
+    return (int)cudaErrorInvalidValue;
+  const LnQkvParams prm{static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const __nv_bfloat16*>(scale),
+                        static_cast<const __nv_bfloat16*>(bias),
+                        static_cast<const __nv_bfloat16*>(b),
+                        static_cast<__nv_bfloat16*>(out),
+                        B, N, D, H, cfg.stages, eps};
+  return launch_bf16(xmap, wmap, prm, cfg, s);
 }

@@ -1,9 +1,11 @@
 // Hopper building blocks of the bf16 flash-attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): mbarriers, TMA tile loads,
-// warpgroup matrix multiply (wgmma m64n64k16 and m64n128k16, bf16 in, f32
-// accumulate) on tiles stored with the 128-byte swizzle, and on the host
-// the tensor maps those loads read and the launch that hands them to a
-// kernel.
+// (flash_attention.cu, flash_attention_bwd.cu), K4's bf16 kernel
+// (ln_qkv.cu) and the bulk row gather (gather_rows.cu): mbarriers, TMA tile
+// loads, warpgroup matrix multiply (wgmma m64n64k16 and m64n128k16 with A
+// from registers; m64n256k16 with both operands from shared memory; bf16
+// in, f32 accumulate) on tiles stored with the 128-byte
+// swizzle, and on the host the tensor maps those loads read and the launch
+// that hands two of them to a kernel.
 //
 // Tile format: a [64 rows][64] bf16 tile, one 128-byte row each, as a TMA
 // load with CU_TENSOR_MAP_SWIZZLE_128B writes it: row r at byte 128 r, its
@@ -88,6 +90,42 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(0), "r"(row), "r"(h),
       "r"(b), "r"(smem_u32(bar))
       : "memory");
+}
+
+// one box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first;
+// completion adds the box's bytes to `bar`
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a 2-D tensor map at coordinates (c0, c1), innermost first;
+// completion adds the box's bytes to `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// makes this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15) over `threads` threads
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // descriptor of a swizzled [64][64] tile (see the head of this file):
@@ -270,6 +308,71 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
   a[3] = pack_bf16(c[2 * kk + 1][2], c[2 * kk + 1][3]);
 }
 
+// ---- both operands from shared memory (ln_qkv.cu): A a K-major swizzled
+// tile (sw128_desc), B an MN-major one of N columns as N / 64 swizzled
+// [rows][64] tiles `lbo` bytes apart (sw128_desc_mn) ----
+
+// descriptor of an MN-major B operand whose 64-column swizzle atoms lie
+// `lbo` bytes apart along N (LBO), 8-row groups of depth 1024 B apart (SBO)
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile,
+                                                  uint32_t lbo) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
+#define WGMMA_D128                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "            \
+  "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "   \
+  "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "   \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "   \
+  "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "   \
+  "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "   \
+  "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "   \
+  "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "   \
+  "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, " \
+  "%122, %123, %124, %125, %126, %127}"
+#define WGMMA_ACC64_HI(d) \
+  WGMMA_ACC8(d, 16), WGMMA_ACC8(d, 17), WGMMA_ACC8(d, 18), \
+  WGMMA_ACC8(d, 19), WGMMA_ACC8(d, 20), WGMMA_ACC8(d, 21), \
+  WGMMA_ACC8(d, 22), WGMMA_ACC8(d, 23), WGMMA_ACC8(d, 24), \
+  WGMMA_ACC8(d, 25), WGMMA_ACC8(d, 26), WGMMA_ACC8(d, 27), \
+  WGMMA_ACC8(d, 28), WGMMA_ACC8(d, 29), WGMMA_ACC8(d, 30), \
+  WGMMA_ACC8(d, 31)
+#define WGMMA_OUT64_HI(d) \
+  WGMMA_OUT8(d, 16), WGMMA_OUT8(d, 17), WGMMA_OUT8(d, 18), \
+  WGMMA_OUT8(d, 19), WGMMA_OUT8(d, 20), WGMMA_OUT8(d, 21), \
+  WGMMA_OUT8(d, 22), WGMMA_OUT8(d, 23), WGMMA_OUT8(d, 24), \
+  WGMMA_OUT8(d, 25), WGMMA_OUT8(d, 26), WGMMA_OUT8(d, 27), \
+  WGMMA_OUT8(d, 28), WGMMA_OUT8(d, 29), WGMMA_OUT8(d, 30), \
+  WGMMA_OUT8(d, 31)
+
+// d (64 x 256) += A B (m64n256k16), one k-step of 16, A and B from shared
+// memory; kFirst: d = A B, d an output only (the first k-step of a
+// product). acc[j][e] as the m64n64 layout.
+template <bool kFirst>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32][4], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (kFirst) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGMMA_D128
+        ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : WGMMA_OUT64(d), WGMMA_OUT64_HI(d)
+        : "l"(a), "l"(b), "r"(0));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " WGMMA_D128
+        ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : WGMMA_ACC64(d), WGMMA_ACC64_HI(d)
+        : "l"(a), "l"(b), "r"(1));
+  }
+}
+
+#undef WGMMA_D128
+#undef WGMMA_ACC64_HI
+#undef WGMMA_OUT64_HI
 #undef WGMMA_ACC8
 #undef WGMMA_OUT8
 #undef WGMMA_OUT32
@@ -316,21 +419,32 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// A bf16 tensor map of `rank` dims (innermost first; `strides` the byte
+// strides of dims 1..rank-1) read in boxes `box` with the 128-byte swizzle
+// (box[0] = 64: one 128-byte row of the tile format above).
+inline bool encode_bf16_map(CUtensorMap* map, const void* base, int rank,
+                            const cuuint64_t* dims, const cuuint64_t* strides,
+                            const cuuint32_t* box) {
+  const EncodeTiled fn = encode_tiled();
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  if (fn == nullptr || rank > 5) return false;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+            const_cast<void*>(base), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // One bf16 tensor map with [64][64] boxes (the tile format above) and the
 // 128-byte swizzle. geo: dims (64, rows, H, B), innermost first, then the
 // byte strides of rows, heads and batches (ops/attention.py::tma_geometry).
 inline bool encode_map(CUtensorMap* map, const void* base,
                        const unsigned long long* geo) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr || geo[0] != 64) return false;
+  if (geo[0] != 64) return false;
   const cuuint64_t dims[4] = {geo[0], geo[1], geo[2], geo[3]};
   const cuuint64_t strides[3] = {geo[4], geo[5], geo[6]};
   const cuuint32_t box[4] = {64, 64, 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_bf16_map(map, base, 4, dims, strides, box);
 }
 
 // Launch a bf16 kernel(Maps, P) of `threads` threads on the maps of `a` and

@@ -173,6 +173,30 @@ def sass_opcode_counts(listing: str, opcode: str) -> Dict[str, int]:
     return out
 
 
+def sass_setmaxnreg(listing: str) -> Dict[str, Dict[str, List[int]]]:
+    """Per function of a ``cuobjdump --dump-sass`` listing that changes its
+    register count (``setmaxnreg``, SASS ``USETMAXREG``), the counts it asks
+    for by kind: ``TRY_ALLOC`` (raise, the consumers') and ``DEALLOC``
+    (lower, the producer's), each sorted, without repeats."""
+    ins = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]\s+)?"
+                     r"USETMAXREG\.(\w+)[.\w]*\s+(?:U?P[0-9T],\s*)?"
+                     r"(0x[0-9a-f]+|\d+)")
+    out: Dict[str, Dict[str, List[int]]] = {}
+    cur = None
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = ins.search(line) if cur is not None else None
+        if m:
+            kinds = out.setdefault(cur, {})
+            n = int(m.group(2), 0)
+            if n not in kinds.setdefault(m.group(1), []):
+                kinds[m.group(1)] = sorted(kinds[m.group(1)] + [n])
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed."""
     with _lock:

@@ -3,11 +3,14 @@
 ``gather_rows`` is the counterpart of ``multimodal_edema_prediction_tpu/ops/
 pallas_gather.py::gather_rows``: ``out[i] = bank[rows[i]]`` for a
 ``[N, P, D]`` or ``[N, D]`` bank and ``[B]`` int32 rows, a byte-exact copy
-with no gradient. On a CUDA tensor it launches the hand-written kernel in
-``csrc/gather_rows.cu`` and raises if it cannot; on a CPU tensor it runs
-``gather_rows_reference``, the plain version, which is also the kernel's
-oracle in the tests and in ``chip_smoke.py``. There is no fallback from one
-to the other.
+with no gradient. On a CUDA tensor it launches one of the two hand-written
+kernels in ``csrc/gather_rows.cu`` and raises if it cannot: the TMA bulk
+copy kernel where the row size and both base pointers are 16-byte aligned
+(every shape of the main path), the vector copy kernel otherwise;
+``route`` decides before the launch, from the alignment alone. On a CPU
+tensor it runs ``gather_rows_reference``, the plain version, which is also
+the kernels' oracle in the tests and in ``chip_smoke.py``. There is no
+fallback from one to another.
 
 Row indices are not checked on the device (that would cost a sync every
 step): callers map invalid ids to the bank's NaN sentinel row first
@@ -22,8 +25,20 @@ import math
 
 import torch
 
-# launches of the kernel wrapper; chip_smoke.py resets and reads it
-LAUNCHES = {"gather_rows": 0}
+# launches of each C entry point: the bulk copy (``gather_rows_bulk``) and
+# the vector copy (``gather_rows``); chip_smoke.py resets and reads them
+LAUNCHES = {"gather_rows_bulk": 0, "gather_rows": 0}
+
+_P, _LL = ctypes.c_void_p, ctypes.c_longlong
+# each C entry point of csrc/gather_rows.cu: its library and its ctypes
+# signature (bank, rows, out, bank rows, row bytes, output rows, the fill
+# word, the vector copy's word width, the stream)
+ENTRY_POINTS = {
+    "gather_rows_bulk": ("gather_rows", [_P] * 3 + [_LL] * 3
+                         + [ctypes.c_uint, _P]),
+    "gather_rows": ("gather_rows", [_P] * 3 + [_LL] * 3
+                    + [ctypes.c_uint, ctypes.c_int, _P]),
+}
 
 # the 32-bit word an out-of-range output row is filled with
 _NAN_FILL = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC07FC0,
@@ -71,22 +86,42 @@ def _vec_bytes(*nbytes: int) -> int:
     return w
 
 
+def route(row_bytes: int, bank_ptr: int, out_ptr: int) -> str:
+    """The kernel a gather takes: ``"bulk"`` (TMA bulk copies, 16-byte
+    granules) when the row size and both base addresses are multiples of
+    16 bytes, else ``"vector"``."""
+    return "bulk" if _vec_bytes(row_bytes, bank_ptr, out_ptr) == 16 \
+        else "vector"
+
+
+_FNS: dict = {}
+
+
+def _call(name: str, *args) -> None:
+    fn = _FNS.get(name)
+    if fn is None:
+        from .build import load
+        lib, argtypes = ENTRY_POINTS[name]
+        fn = getattr(load(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FNS[name] = fn
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
 def gather_rows(bank: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """``bank[rows]`` for a [N, P, D] or [N, D] bank and [B] int32 rows.
 
-    A [N, D] bank (the CLS tokens) runs as [N, 1, D], as the JAX wrapper
-    does. CUDA tensors go through the kernel; CPU tensors through
+    CUDA tensors go through the kernel ``route`` picks (a row is a run of
+    bytes to either kernel, whatever the bank's rank); CPU tensors through
     ``gather_rows_reference``."""
     _check(bank, rows)
-    if bank.dim() == 2:
-        return gather_rows(bank[:, None, :], rows)[:, 0, :]
     if bank.device.type == "cpu":
         return gather_rows_reference(bank, rows)
     if not bank.is_contiguous():
         raise ValueError("gather_rows kernel takes a contiguous bank")
-    if rows.shape[0] > 65535:
-        raise ValueError(f"gather_rows kernel takes at most 65535 rows, got "
-                         f"{rows.shape[0]}")
     rows = rows.contiguous()
     out = torch.empty((rows.shape[0],) + tuple(bank.shape[1:]),
                       dtype=bank.dtype, device=bank.device)
@@ -94,21 +129,15 @@ def gather_rows(bank: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     row_bytes = math.prod(bank.shape[1:]) * bank.element_size()
     if out.numel() == 0:                   # nothing to copy or fill
         return out
-    vec = _vec_bytes(row_bytes, bank.data_ptr(), out.data_ptr())
-
-    from .build import load
-    fn = load("gather_rows").gather_rows
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + \
-            [ctypes.c_int, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+    args = (bank.data_ptr(), rows.data_ptr(), out.data_ptr(), bank.shape[0],
+            row_bytes, rows.shape[0], _NAN_FILL.get(bank.dtype, 0))
     with torch.cuda.device(bank.device):
-        stream = torch.cuda.current_stream(bank.device).cuda_stream
-        err = fn(bank.data_ptr(), rows.data_ptr(), out.data_ptr(),
-                 bank.shape[0], row_bytes, rows.shape[0],
-                 _NAN_FILL.get(bank.dtype, 0), vec, stream)
-    if err != 0:
-        raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
-                           f"{err}")
-    LAUNCHES["gather_rows"] += 1
+        stream = torch.cuda.current_stream().cuda_stream
+        if route(row_bytes, args[0], args[2]) == "bulk":
+            _call("gather_rows_bulk", *args, stream)
+            LAUNCHES["gather_rows_bulk"] += 1
+        else:
+            _call("gather_rows", *args,
+                  _vec_bytes(row_bytes, args[0], args[2]), stream)
+            LAUNCHES["gather_rows"] += 1
     return out

@@ -17,8 +17,10 @@ weights and biases are cast to x's dtype first, as the TPU wrapper does
 or a multiple of 512 (``:86-88``), so both packages take the same inputs.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/ln_qkv.cu`` (bfloat16 through mma.sync, float32 through FMA; head dim
-64, D a multiple of 32) and raises if it cannot; on a CPU tensor it runs
+``csrc/ln_qkv.cu`` (bfloat16: a GEMM on warpgroup MMAs with x and W
+streamed by TMA and the LayerNorm applied to each x tile in shared memory,
+256 output columns a tile; float32 through FMA; head dim 64, D a multiple
+of 32) and raises if it cannot; on a CPU tensor it runs
 ``ln_qkv_reference``, the plain version, which is also the kernel's oracle
 in the tests and in ``chip_smoke.py``. The gradient is an autograd Function
 whose backward recomputes through ``ln_qkv_reference``, as JAX's custom VJP
@@ -37,6 +39,14 @@ LAUNCHES = {"ln_qkv": 0}
 PARAM_KEYS = ("ln_scale", "ln_bias", "wq", "wk", "wv", "bq", "bk", "bv")
 BLOCK_N = 512              # the JAX wrapper's token block (its N contract)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# the C entry point of csrc/ln_qkv.cu: its library and its ctypes signature
+# (dtype, x, scale, bias, w, b, out, B, N, D, H, eps, stream)
+ENTRY_POINTS = {
+    "ln_qkv": ("ln_qkv", [_I] + [_P] * 6 + [_I] * 4
+               + [ctypes.c_float, _P]),
+}
 
 
 def reset_launches() -> None:
@@ -92,6 +102,13 @@ def _check(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
                          f"{d_head}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if contiguous on a 16-byte boundary (the bf16 kernel's 16-byte
+    loads and tensor map need it), else a contiguous copy."""
+    return t if t.is_contiguous() and t.data_ptr() % 16 == 0 else \
+        t.clone(memory_format=torch.contiguous_format)
+
+
 def ln_qkv_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
                   n_heads: int, d_head: int, eps: float = 1e-6
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -110,19 +127,21 @@ def ln_qkv_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
     def cast(k, shape):
         return params[k].detach().to(device=dev, dtype=dt).reshape(shape)
 
-    x = x.contiguous()
-    scale, bias = cast("ln_scale", (D,)).contiguous(), \
-        cast("ln_bias", (D,)).contiguous()
+    x = _aligned(x)
+    scale, bias = _aligned(cast("ln_scale", (D,))), \
+        _aligned(cast("ln_bias", (D,)))
     w = torch.stack([cast(k, (D, inner)) for k in ("wq", "wk", "wv")])
     b = torch.stack([cast(k, (inner,)) for k in ("bq", "bk", "bv")])
     out = torch.empty(3, B, n_heads, N, d_head, dtype=dt, device=dev)
+    if out.numel() == 0:
+        return out[0], out[1], out[2]
 
     from .build import load
-    fn = load("ln_qkv").ln_qkv
+    lib, argtypes = ENTRY_POINTS["ln_qkv"]
+    fn = load(lib).ln_qkv
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 6 + \
-            [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = argtypes
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[dt], x.data_ptr(), scale.data_ptr(),

@@ -1,20 +1,33 @@
 #!/usr/bin/env python3
-"""Same-call A/B of K1's bf16 forward between repo trees, timed in turns on
-one card.
+"""Same-call A/B of one kernel between repo trees, timed in turns on one
+card: K1's bf16 forward (the default), K2's row gather or K4's bf16
+LayerNorm → QKV.
 
     git archive <parent> | tar -x -C build/ab/parent
     python3 scripts/ab_k1_fwd.py --tree parent=build/ab/parent --tree new=.
+    python3 scripts/ab_k1_fwd.py --kernel k4 --tree parent=... --tree new=.
 
 Each slot of ``--order`` (letters: the trees in the order given; default
 ``abba``) runs one worker process on the card that builds its tree's
-kernels (cached in the tree's ``build/torch_kernels/``), checks the forward
-against ``flash_mha_reference`` and times it with and without lse, its
-repetitions alternating with SDPA's forward on the same inputs (this
-checkout's ``chip_smoke.paired_ms``), at [32, 12, 1370, 64] bf16 unless
-``--shape`` says otherwise. Prints one JSON line per slot (also written to
-``--out``, by default ``build/ab_k1_fwd.jsonl``), then the medians of each
-tree's slots with the card's name and power limit. Needs a CUDA card;
-imports nothing of JAX.
+kernels (cached in the tree's ``build/torch_kernels/``), checks the kernel
+against its plain version and times it, its repetitions alternating with a
+PyTorch yardstick on the same inputs (this checkout's
+``chip_smoke.paired_ms``):
+
+- ``k1_fwd``: ``flash_mha`` at [32, 12, 1370, 64] bf16 unless ``--shape``
+  says otherwise, with and without lse, against SDPA's forward;
+- ``k2``: ``gather_rows`` of 32 rows (a repeat and the NaN sentinel among
+  them) from a [401, 1370, 768] bf16 bank, bit for bit, against
+  ``torch.index_select``; besides the paired times, which hold the
+  wrapper's host dispatch, the device time of each under ``torch.profiler``
+  (``device_ms``, ``library_device_ms``: chip_smoke's ``_profile``);
+- ``k4``: ``fused_ln_qkv`` at [32, 1536, 768] bf16, 12 × 64, against
+  ``F.layer_norm`` + ``F.linear`` + the head-major copy (chip_smoke's
+  yardstick).
+
+Prints one JSON line per slot (also written to ``--out``, by default
+``build/ab_<kernel>.jsonl``), then the medians of each tree's slots with
+the card's name and power limit. Needs a CUDA card; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -28,17 +41,21 @@ import sys
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def worker(tree: str, B: int, H: int, N: int) -> dict:
+def _chip_smoke():
+    """This checkout's chip_smoke.py (its timing helpers and inputs)."""
     import importlib.util
-
-    import torch
-    import torch.nn.functional as F
-
-    # this checkout's timing helpers, the tree's package
     spec = importlib.util.spec_from_file_location(
         "ab_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
+def worker(tree: str, B: int, H: int, N: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    chip_smoke = _chip_smoke()
     sys.path.insert(0, tree)
     from multimodal_edema_prediction_tpu_torch.ops import attention as att
     from multimodal_edema_prediction_tpu_torch.ops import build
@@ -62,16 +79,107 @@ def worker(tree: str, B: int, H: int, N: int) -> dict:
             "fwd_vs_library": fwd / sdpa, "ptxas": usage}
 
 
+def worker_k2(tree: str, n_bank: int = 400, batch: int = 32) -> dict:
+    import torch
+
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, tree)
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    from multimodal_edema_prediction_tpu_torch.ops import gather as G
+    assert G.__file__.startswith(tree), G.__file__
+    device = torch.device("cuda")
+    build.build_all()
+    g = torch.Generator(device=device).manual_seed(7)
+    rows = torch.randint(0, n_bank, (batch,), generator=g, device=device,
+                         dtype=torch.int32)
+    rows[1] = rows[0]
+    rows[-1] = n_bank
+    bank = torch.randn(n_bank + 1, 1370, 768, generator=g, device=device,
+                       dtype=torch.bfloat16)
+    bank[-1] = float("nan")
+    got = G.gather_rows(bank, rows)
+    exact = torch.equal(chip_smoke._bits(got), chip_smoke._bits(
+        G.gather_rows_reference(bank, rows)))
+    def kernel():
+        return G.gather_rows(bank, rows)
+
+    def library():
+        return torch.index_select(bank, 0, rows)
+    ms, lib = chip_smoke.paired_ms([kernel, library], device)
+    dev, lib_dev = (chip_smoke._profile(fn, 20, t, {}).get(
+        "device_busy_ms_per_step") for fn, t in ((kernel, ms),
+                                                 (library, lib)))
+    return {"tree": tree, "shape": [n_bank + 1, 1370, 768], "rows": batch,
+            "bit_exact": exact, "ms": ms, "library_ms": lib,
+            "vs_library": ms / lib, "device_ms": dev,
+            "library_device_ms": lib_dev,
+            "route": G.route(2 * 1370 * 768, bank.data_ptr(), got.data_ptr())
+            if hasattr(G, "route") else "vector"}
+
+
+def worker_k4(tree: str, B: int = 32, N: int = 1536, D: int = 768,
+              H: int = 12) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, tree)
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    from multimodal_edema_prediction_tpu_torch.ops import ln_qkv as LQ
+    assert LQ.__file__.startswith(tree), LQ.__file__
+    device = torch.device("cuda")
+    build.build_all()
+    inner = H * 64
+    g = torch.Generator(device=device).manual_seed(60)
+
+    def r(*shape, std):
+        return std * torch.randn(*shape, generator=g, device=device)
+    params = {"ln_scale": 1.0 + r(D, std=0.1), "ln_bias": r(D, std=0.1),
+              **{k: r(D, inner, std=D ** -0.5) for k in ("wq", "wk", "wv")},
+              **{k: r(inner, std=0.02) for k in ("bq", "bk", "bv")}}
+    x = (2.0 * torch.randn(B, N, D, generator=g, device=device)
+         + 0.5).bfloat16()
+
+    def library():
+        w = torch.cat([params[k] for k in ("wq", "wk", "wv")], 1)
+        b = torch.cat([params[k] for k in ("bq", "bk", "bv")])
+        h = F.layer_norm(x, (D,), params["ln_scale"].bfloat16(),
+                         params["ln_bias"].bfloat16(), 1e-6)
+        y = F.linear(h, w.t().bfloat16(), b.bfloat16())
+        return y.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4).contiguous()
+
+    got = LQ.fused_ln_qkv(x, params, H, 64)
+    want = LQ.ln_qkv_reference(x, params, H, 64)
+    rel = max(float((a.float() - w.float()).abs().max()
+                    / w.float().abs().max()) for a, w in zip(got, want))
+    ms, lib = chip_smoke.paired_ms(
+        [lambda: LQ.fused_ln_qkv(x, params, H, 64), library], device)
+    return {"tree": tree, "shape": [B, N, D], "heads": [H, 64],
+            "max_rel_err": rel, "ms": ms, "library_ms": lib,
+            "vs_library": ms / lib}
+
+
+WORKERS = {"k1_fwd": worker, "k2": worker_k2, "k4": worker_k4}
+MEDIAN_KEYS = {
+    "k1_fwd": ("fwd_ms", "fwd_lse_ms", "sdpa_ms", "fwd_vs_library",
+               "max_abs_err"),
+    "k2": ("ms", "library_ms", "vs_library", "device_ms",
+           "library_device_ms"),
+    "k4": ("ms", "library_ms", "vs_library", "max_rel_err"),
+}
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--tree", action="append", metavar="NAME=DIR",
                    help="a repo tree to time; repeatable")
     p.add_argument("--order", default="abba",
                    help="one letter per slot: a = the first tree, ...")
+    p.add_argument("--kernel", choices=sorted(WORKERS), default="k1_fwd")
     p.add_argument("--shape", type=int, nargs=3, default=[32, 12, 1370],
-                   metavar=("B", "H", "N"))
-    p.add_argument("--out", default=os.path.join(REPO, "build",
-                                                 "ab_k1_fwd.jsonl"))
+                   metavar=("B", "H", "N"), help="k1_fwd's shape")
+    p.add_argument("--out", default=None,
+                   help="default: build/ab_<kernel>.jsonl")
     p.add_argument("--worker", default="", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     try:
@@ -83,8 +191,12 @@ def main(argv=None) -> int:
         print("ab_k1_fwd: no CUDA device", file=sys.stderr)
         return 2
     if args.worker:
-        print(json.dumps(worker(args.worker, *args.shape)), flush=True)
+        extra = args.shape if args.kernel == "k1_fwd" else []
+        print(json.dumps(WORKERS[args.kernel](args.worker, *extra)),
+              flush=True)
         return 0
+    out_path = args.out or os.path.join(REPO, "build",
+                                        f"ab_{args.kernel}.jsonl")
 
     if not args.tree:
         p.error("give at least one --tree NAME=DIR")
@@ -96,14 +208,14 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(smi, flush=True)
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     readings = {name: [] for name, _ in trees}
-    with open(args.out, "w") as out:
+    with open(out_path, "w") as out:
         for slot in args.order:
             name, tree = trees[ord(slot) - ord("a")]
             run = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", tree,
-                 "--shape", *map(str, args.shape)],
+                 "--kernel", args.kernel, "--shape", *map(str, args.shape)],
                 capture_output=True, text=True, timeout=600)
             if run.returncode != 0:
                 print(run.stdout + run.stderr, file=sys.stderr)
@@ -112,11 +224,13 @@ def main(argv=None) -> int:
             readings[name].append(res)
             out.write(json.dumps(res) + "\n")
             print(json.dumps(res), flush=True)
-        summary = {"card": smi, "order": args.order, "medians": {
-            name: {key: statistics.median(r[key] for r in rs)
-                   for key in ("fwd_ms", "fwd_lse_ms", "sdpa_ms",
-                               "fwd_vs_library", "max_abs_err")}
-            for name, rs in readings.items() if rs}}
+        summary = {"card": smi, "kernel": args.kernel, "order": args.order,
+                   "medians": {
+                       name: {key: statistics.median(r[key] for r in rs)
+                              for key in MEDIAN_KEYS[args.kernel]
+                              if all(isinstance(r[key], (int, float))
+                                     for r in rs)}
+                       for name, rs in readings.items() if rs}}
         out.write(json.dumps(summary) + "\n")
     print(json.dumps(summary), flush=True)
     return 0

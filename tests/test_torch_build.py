@@ -1,5 +1,6 @@
 """What ``ops/build.py`` reads out of the toolkit's reports, and the C
-entry points ``ops/attention.py`` binds, on the CPU.
+entry points ``ops/attention.py``, ``ops/gather.py`` and ``ops/ln_qkv.py``
+bind, on the CPU.
 
 ``chip_smoke.py`` reports K1's bf16 kernels' registers, spills, shared
 memory and ptxas warnings from the ``ptxas -v`` log of their build, and
@@ -15,7 +16,8 @@ import re
 
 import pytest
 
-from multimodal_edema_prediction_tpu_torch.ops import attention, build
+from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
+                                                       gather, ln_qkv)
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
@@ -89,7 +91,29 @@ def test_ptxas_coded_messages_with_their_functions():
     assert build.ptxas_warnings(PTXAS) == []
 
 
-_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+SETMAXREG_SASS = """\
+		Function : _ZN12_GLOBAL__N_118ln_qkv_bf16_kernelE14CUtensorMap_stS0_NS_11LnQkvParamsE
+        /*0200*/                   USETMAXREG.DEALLOC.CTAPOOL 0x28 ;        /* 0x00000028000079c8 */
+        /*0a10*/                   USETMAXREG.TRY_ALLOC.CTAPOOL P0, 0xe8 ;  /* 0x000000e8000079c8 */
+        /*0a20*/              @!P0 BRA 0xa10 ;                              /* 0xfffffff800f88947 */
+        /*0a30*/                   USETMAXREG.TRY_ALLOC.CTAPOOL P0, 0xe8 ;  /* 0x000000e8000079c8 */
+		Function : _ZN12_GLOBAL__N_117ln_qkv_f32_kernelEPKfS1_S1_S1_S1_Pfiiiif
+        /*0010*/                   FFMA R3, R4, R5, R3 ;                     /* 0x0000000504037223 */
+"""
+
+
+def test_sass_setmaxnreg_per_function():
+    """The register counts a warp-specialised kernel asks for after launch
+    (producer 40, consumers 232), read from its SASS; a function that asks
+    for none has no entry."""
+    assert build.sass_setmaxnreg(SETMAXREG_SASS) == {
+        "_ZN12_GLOBAL__N_118ln_qkv_bf16_kernelE14CUtensorMap_stS0_NS_"
+        "11LnQkvParamsE": {"DEALLOC": [40], "TRY_ALLOC": [232]}}
+    assert build.sass_setmaxnreg(SASS) == {}
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
+            "long long": ctypes.c_longlong, "unsigned int": ctypes.c_uint}
 
 
 def _c_signature(source: str, name: str) -> list:
@@ -100,15 +124,28 @@ def _c_signature(source: str, name: str) -> list:
         found = re.findall(r'extern "C" int ' + name + r"\(([^)]*)\)",
                            f.read())
     assert len(found) == 1, (source, name)
-    return [ctypes.c_void_p if "*" in p else _C_TYPES[p.split()[-2]]
+    return [ctypes.c_void_p if "*" in p
+            else _C_TYPES[" ".join(p.split()[:-1])]
             for p in found[0].split(",")]
 
 
-@pytest.mark.parametrize("name", sorted(attention.ENTRY_POINTS))
+ENTRY_POINTS = {**attention.ENTRY_POINTS, **gather.ENTRY_POINTS,
+                **ln_qkv.ENTRY_POINTS}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_point_signatures_match_the_c_sources(name):
-    """The forward (with its tensor maps), D, dkv and dq: the library each
+    """Every C entry point the port binds (K1's forward with its tensor
+    maps, D, dkv and dq; K2's bulk and vector copies; K4): the library each
     is bound from builds from a source that declares it, with the
     parameters ctypes is told."""
-    lib, argtypes = attention.ENTRY_POINTS[name]
+    lib, argtypes = ENTRY_POINTS[name]
     assert _c_signature(build.SOURCES[lib], name) == argtypes
+
+
+def test_entry_point_tables_do_not_overlap():
+    """No C entry point is bound by two wrappers."""
+    tables = (attention.ENTRY_POINTS, gather.ENTRY_POINTS,
+              ln_qkv.ENTRY_POINTS)
+    assert sum(map(len, tables)) == len(ENTRY_POINTS)
 

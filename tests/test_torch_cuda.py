@@ -12,7 +12,10 @@ largest magnitude (P and dS rounded to bf16 before their products; in
 float32, exp of recomputed scores against the plain softmax), at the edges
 of the bf16 kernels' 128-row blocks and 64-row tiles; the backward's D
 1e-6 of its largest magnitude (64 float32 products summed in another
-order); K2 bit-exact (a gather moves bytes).
+order); K2 bit-exact (a gather moves bytes), on both of its routes (TMA
+bulk copies for 16-byte-aligned rows, vector copies otherwise); K4 bf16
+2e-2 and float32 1e-4 of each output's largest magnitude (h rounded to
+bf16, products accumulated in float32 in another order).
 """
 import numpy as np
 import pytest
@@ -275,10 +278,12 @@ def test_gather_kernel_matches_plain(cuda, shape, dtype):
     n = shape[0]
     rows = torch.tensor([0, 5, 5, n - 1, 3, n, -1] + [2] * 25,
                         dtype=torch.int32, device=cuda)
-    before = G.LAUNCHES["gather_rows"]
+    row_bytes = bank[0].numel() * bank.element_size()
+    kernel = "gather_rows_bulk" if row_bytes % 16 == 0 else "gather_rows"
+    before = dict(G.LAUNCHES)
     got = G.gather_rows(bank, rows)
     torch.cuda.synchronize()
-    assert G.LAUNCHES["gather_rows"] == before + 1
+    assert G.LAUNCHES == {**before, kernel: before[kernel] + 1}
     want = G.gather_rows_reference(bank, rows)
     assert got.shape == want.shape and got.dtype == dtype
     same = torch.eq(got, want) | (torch.isnan(got.float())
@@ -294,15 +299,64 @@ def test_gather_kernel_fills_rows_of_an_empty_bank(cuda):
     NaN, as the plain version gives; no rows means no launch."""
     bank = torch.zeros(0, 3, 8, device=cuda, dtype=torch.bfloat16)
     rows = torch.zeros(4, dtype=torch.int32, device=cuda)
-    before = G.LAUNCHES["gather_rows"]
+    before = G.LAUNCHES["gather_rows_bulk"]
     got = G.gather_rows(bank, rows)
     torch.cuda.synchronize()
-    assert G.LAUNCHES["gather_rows"] == before + 1
+    assert G.LAUNCHES["gather_rows_bulk"] == before + 1
     assert bool(torch.isnan(got.float()).all())
     assert bool(torch.isnan(G.gather_rows_reference(bank, rows).float()).all())
     empty = G.gather_rows(bank, rows[:0])
     assert empty.shape == (0, 3, 8)
-    assert G.LAUNCHES["gather_rows"] == before + 1
+    assert G.LAUNCHES["gather_rows_bulk"] == before + 1
+
+
+def _bits(x):
+    return x.view({2: torch.int16, 4: torch.int32}.get(x.element_size(),
+                                                       torch.uint8))
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((401, 1370, 768), "bulk"), ((401, 768), "bulk"), ((41, 3), "vector")])
+def test_gather_routes_are_bit_exact(cuda, shape, route):
+    """Each route bit for bit against the plain version: the bulk route at
+    the main path's rows (the patch bank's 2,104,320 B, the CLS bank's
+    1,536 B), the vector route at 6-byte rows ([N, 3] bf16); repeated rows,
+    the NaN sentinel (the bank's last row), rows outside the bank; then an
+    empty bank, whose every row is outside it."""
+    g = torch.Generator(device=cuda).manual_seed(2)
+    bank = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    bank[-1] = float("nan")
+    n = shape[0]
+    rows = torch.randint(0, n, (32,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    rows[1] = rows[0]
+    rows[5] = rows[0]
+    rows[-1] = n - 1
+    rows[-2] = n
+    rows[-3] = -7
+    kernel = {"bulk": "gather_rows_bulk", "vector": "gather_rows"}[route]
+    for b in (bank, bank[:0]):
+        before = dict(G.LAUNCHES)
+        got = G.gather_rows(b, rows)
+        torch.cuda.synchronize()
+        assert G.LAUNCHES == {**before, kernel: before[kernel] + 1}
+        want = G.gather_rows_reference(b, rows)
+        assert torch.equal(_bits(got), _bits(want))
+    assert bool(torch.isnan(got.float()).all())
+
+
+@pytest.mark.parametrize("shape", [(9, 8), (9, 3)])
+def test_gather_takes_more_rows_than_a_grid_dimension(cuda, shape):
+    """70,000 output rows (beyond the 65,535 of a grid's y dimension), on
+    the bulk route (16-byte rows) and the vector route (6-byte rows)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bank = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    rows = torch.randint(-1, shape[0] + 1, (70000,), generator=g,
+                         device=cuda, dtype=torch.int32)
+    got = G.gather_rows(bank, rows)
+    want = G.gather_rows_reference(bank, rows)
+    assert got.shape == (70000, shape[1])
+    assert torch.equal(_bits(got), _bits(want))
 
 
 def test_gather_kernel_rejects_what_it_does_not_take(cuda):
@@ -364,23 +418,25 @@ def test_dual_axis_kernel_backward_recomputes_plain(cuda):
         assert torch.allclose(got, w, rtol=1e-5, atol=1e-7)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-4)])
-@pytest.mark.parametrize("B,N,D,H", [(2, 1536, 768, 12), (2, 512, 256, 4),
-                                     (3, 100, 128, 2), (1, 1, 64, 1)])
+@pytest.mark.parametrize("dtype,tol,B,N,D,H", [
+    (dtype, tol, *shape)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4))
+    for shape in ((2, 1536, 768, 12), (2, 512, 256, 4), (3, 100, 128, 2),
+                  (1, 1, 64, 1), (2, 200, 96, 3), (2, 200, 768, 12))] + [
+    (torch.bfloat16, 2e-2, *shape)
+    for shape in ((2, 200, 96, 1), (1, 512, 2048, 4), (3, 1, 64, 2),
+                  (3, 100, 160, 2))])
 def test_ln_qkv_kernel_matches_plain(cuda, dtype, tol, B, N, D, H):
     """K4 against ``ln_qkv_reference``: h rounded to x's dtype on both
     sides, products accumulated in float32 in another order; relative to
-    each output's max abs; reruns bit-equal."""
+    each output's max abs; reruns bit-equal. Among the cases D = 96 (half
+    of the last 64-wide tile of h) and N = 200 (a ragged last row tile);
+    in bf16 also 3·H heads that do not fill the last 256-column tile
+    (H = 1), the widest D the kernel takes (2048, beyond the float32
+    kernel's shared memory), and row tiles that span batch elements
+    (N = 1, N = 100) with a last tile past B·N."""
     from multimodal_edema_prediction_tpu_torch.ops import ln_qkv as LQ
-    g = torch.Generator(device=cuda).manual_seed(0)
-
-    def r(*s):
-        return 0.05 * torch.randn(*s, generator=g, device=cuda)
-    params = {"ln_scale": 1.0 + r(D), "ln_bias": r(D),
-              **{k: r(D, H * 64) for k in ("wq", "wk", "wv")},
-              **{k: r(H * 64) for k in ("bq", "bk", "bv")}}
-    x = (2.0 * torch.randn(B, N, D, generator=g, device=cuda) + 0.5).to(dtype)
+    params, x = _ln_qkv_inputs(B, N, D, H, dtype, cuda)
     before = LQ.LAUNCHES["ln_qkv"]
     got = LQ.fused_ln_qkv(x, params, H, 64)
     again = LQ.fused_ln_qkv(x, params, H, 64)
@@ -392,6 +448,42 @@ def test_ln_qkv_kernel_matches_plain(cuda, dtype, tol, B, N, D, H):
         scale = w.float().abs().max().item()
         assert (a.float() - w.float()).abs().max().item() <= tol * scale
         assert torch.equal(a, b)
+
+
+def _ln_qkv_inputs(B, N, D, H, dtype, device):
+    g = torch.Generator(device=device).manual_seed(0)
+
+    def r(*s):
+        return 0.05 * torch.randn(*s, generator=g, device=device)
+    params = {"ln_scale": 1.0 + r(D), "ln_bias": r(D),
+              **{k: r(D, H * 64) for k in ("wq", "wk", "wv")},
+              **{k: r(H * 64) for k in ("bq", "bk", "bv")}}
+    x = (2.0 * torch.randn(B, N, D, generator=g, device=device)
+         + 0.5).to(dtype)
+    return params, x
+
+
+def test_ln_qkv_bf16_kernel_issues_wgmma(cuda):
+    """The bf16 kernel runs its products as warpgroup MMAs (HGMMA in its
+    SASS), spills nothing, and ptxas reports no serialised wgmma (C7511,
+    C7514, C7515) for it."""
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    build.load("ln_qkv")
+    log = build.build_log("ln_qkv")
+    usage = {fn: u for fn, u in build.ptxas_usage(log).items()
+             if "ln_qkv_bf16_kernel" in fn}
+    assert len(usage) == 1, build.ptxas_usage(log)
+    for fn, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (fn, u)
+    codes = [w["code"] for w in build.ptxas_warnings(log)
+             if w["function"] is None or "ln_qkv_bf16_kernel" in w["function"]]
+    assert not set(codes) & {"C7511", "C7514", "C7515"}, codes
+    listing = build.sass("ln_qkv")
+    if listing is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    counts = build.sass_opcode_counts(listing, "HGMMA")
+    hits = [n for fn, n in counts.items() if "ln_qkv_bf16_kernel" in fn]
+    assert len(hits) == 1 and hits[0] > 0, counts
 
 
 def test_ln_qkv_kernel_rejects_what_it_does_not_take(cuda):
@@ -442,9 +534,9 @@ def test_encode_once_train_step_on_the_card(cuda):
         "y_multi_mask": np.ones((4, 7), np.float32),
         "bin_ends": np.tile(np.arange(1, 25, dtype=np.float32) / 24, (4, 1)),
     }, cuda)
-    before = G.LAUNCHES["gather_rows"]
+    before = G.LAUNCHES["gather_rows_bulk"]
     out = step(state, grid, torch.randn(3, 18, device=cuda), batch,
                torch.Generator(device=cuda).manual_seed(0))
     torch.cuda.synchronize()
-    assert G.LAUNCHES["gather_rows"] == before + 2
+    assert G.LAUNCHES["gather_rows_bulk"] == before + 2
     assert bool(torch.isfinite(out["total"])) and state.step == 1

@@ -75,6 +75,21 @@ def test_wrapper_rejects_what_it_does_not_take():
         G.gather_rows(bank, torch.empty(2, dtype=torch.int32, device="meta"))
 
 
+@pytest.mark.parametrize("row_bytes,bank_ptr,out_ptr,want", [
+    (1370 * 768 * 2, 0x7F0000000000, 0x7F0000200000, "bulk"),   # patch bank
+    (768 * 2, 0x7F0000000000, 0x7F0000000600, "bulk"),          # CLS bank
+    (1370 * 768 * 4, 16, 4096, "bulk"),                         # float32
+    (3 * 2, 0x7F0000000000, 0x7F0000000000, "vector"),          # [N, 3] bf16
+    (1536, 0x7F0000000008, 0x7F0000000000, "vector"),           # bank offset
+    (1536, 0x7F0000000000, 0x7F0000000004, "vector"),           # out offset
+    (24, 0, 0, "vector"),                                       # 8-byte rows
+])
+def test_route_follows_alignment(row_bytes, bank_ptr, out_ptr, want):
+    """The kernel a CUDA gather takes depends on alignment alone: TMA bulk
+    copies need the row size and both base addresses on 16 bytes."""
+    assert G.route(row_bytes, bank_ptr, out_ptr) == want
+
+
 def test_feature_bank_sentinel_poisons_invalid_rows():
     rng = np.random.default_rng(3)
     n, p, d = 7, 5, 16
