@@ -143,10 +143,27 @@ add:
             3.35 TB/s. 7. train fails if a gather of the path took the
             vector route.
 
-Then the kernel summary line (seven kernels; the forward, dkv, dq and K4
-rows with the build facts; the D row; the pair and the whole backward; K2
-with its routes) and, last, ``{"ok": true, "device": ...}``. Imports
-nothing of JAX or the JAX package.
+K3's bf16 route redesigned for Hopper (mma.sync, a grid split by FF
+hidden units) adds:
+
+2b. build_facts  also K3's tensor-core kernel (``dual_axis_block_tc``):
+            registers, spills, shared memory (against
+            ``dual_axis.tc_smem_bytes``), its mma.sync count (HMMA) and
+            ``ptxas`` codes; fails on a spill or on a kernel without HMMA.
+3c. dual_axis  the route of each case, asserted (``tc`` for DuETT's bf16
+            axes, ``simt`` for float32), a bf16 case of each axis at batch
+            128 (the SSL CLI's batch); the wrapper and the plain version
+            timed in alternation (``ms``, ``plain_ms``), and each one's
+            device time under ``torch.profiler`` (``device_ms``: the
+            kernel alone; ``device_busy_ms``: the wrapper's casts too;
+            ``plain_device_ms``). 12. trained_layer fails unless both
+            axes took the tensor-core route.
+
+Then the kernel summary line (eight rows: the forward, dkv, dq, K4 and
+K3's tensor-core rows with the build facts; the D row; the pair and the
+whole backward; K2 with its routes; K3's two routes, each a row) and,
+last, ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX
+package.
 """
 from __future__ import annotations
 
@@ -189,6 +206,7 @@ K1_DELTA_REPLACES = ("jax/experimental/pallas/ops/tpu/flash_attention.py:"
                      "273-275 (di = sum(o * do, -1) in the backward of "
                      "flash_attention, outside Pallas: no pallas_call)")
 K3_SOURCE = f"{PKG}/csrc/dual_axis_block.cu"
+K3_TC_SOURCE = f"{PKG}/csrc/dual_axis_block_tc.cu"
 K3_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_dual_axis.py:192 "
                "fused_encoder_block (pallas_call :171, _fused_forward :136, "
                ":78 _block_kernel)")
@@ -391,39 +409,46 @@ def phase_build(port) -> dict:
 
 
 def phase_build_facts(port) -> dict:
-    """The warpgroup-MMA kernels as built: K1's bf16 forward, dkv and dq
-    and K4's bf16 kernel: registers at entry (``ptxas -v``) and the counts
-    its warps ask for after launch (``setmaxnreg`` in the SASS:
-    ``TRY_ALLOC`` the consumers', ``DEALLOC`` the producer's), spills
+    """The tensor-core kernels as built: K1's bf16 forward, dkv and dq and
+    K4's bf16 kernel (warpgroup MMA) and K3's tensor-core route (mma.sync,
+    at DuETT's event axis [35, 600]): registers at entry (``ptxas -v``)
+    and the counts its warps ask for after launch (``setmaxnreg`` in the
+    SASS: ``TRY_ALLOC`` the consumers', ``DEALLOC`` the producer's), spills
     (bytes stored plus loaded), static plus the dynamic shared memory a
     launch asks for, its ``ptxas`` codes (C7511 / C7514 / C7515: wgmma
-    serialised) and the warpgroup MMAs (HGMMA) in the library's SASS
-    (``cuobjdump``). Fails if a kernel spills, holds no HGMMA or carries
-    one of those codes, or if there is no SASS listing to count."""
+    serialised) and its matrix instructions in the library's SASS
+    (``cuobjdump``; HGMMA for warpgroup MMA, HMMA for mma.sync). Fails if
+    a kernel spills, holds none of its matrix instructions or carries one
+    of those codes, if K3's dynamic shared memory differs from
+    ``ops/dual_axis.py::tc_smem_bytes``, or if there is no SASS listing to
+    count."""
     import ctypes
     build = port["build"]
     info = {"phase": "build_facts"}
     serialised = {"C7511", "C7514", "C7515"}
-    # library, its dynamic shared memory query, the query's result and
-    # argument types → (key, the kernel's name in the build log, the
-    # query's arguments)
-    for lib, query, restype, argtypes, kernels in (
-            ("flash_attention", "flash_attention_fwd_smem_bytes",
+    # library, its matrix opcode, its dynamic shared memory query, the
+    # query's result and argument types → (key, the kernel's name in the
+    # build log, the query's arguments)
+    for lib, opcode, query, restype, argtypes, kernels in (
+            ("flash_attention", "HGMMA", "flash_attention_fwd_smem_bytes",
              ctypes.c_int, [], (("fwd", "flash_fwd_bf16", ()),)),
-            ("flash_attention_bwd", "flash_attention_bwd_smem_bytes",
-             ctypes.c_int, [ctypes.c_int],
+            ("flash_attention_bwd", "HGMMA",
+             "flash_attention_bwd_smem_bytes", ctypes.c_int, [ctypes.c_int],
              (("dkv", "flash_bwd_dkv_bf16", (0,)),
               ("dq", "flash_bwd_dq_bf16", (1,)))),
-            ("ln_qkv", "ln_qkv_smem_bytes", ctypes.c_longlong,
+            ("ln_qkv", "HGMMA", "ln_qkv_smem_bytes", ctypes.c_longlong,
              [ctypes.c_int] * 2,
-             (("k4", "ln_qkv_bf16_kernel", (1, 768)),))):
+             (("k4", "ln_qkv_bf16_kernel", (1, 768)),)),
+            ("dual_axis_block_tc", "HMMA", "dual_axis_block_tc_smem_bytes",
+             ctypes.c_longlong, [ctypes.c_int] * 4,
+             (("k3_tc", "dual_axis_block_tc_kernel", (35, 600, 2, 12)),))):
         log = build.build_log(lib)
         usage, warnings = build.ptxas_usage(log), build.ptxas_warnings(log)
         listing = build.sass(lib)
         if listing is None:
             raise AssertionError(f"no SASS listing of {lib} (cuobjdump "
                                  f"missing or failed)")
-        hgmma = build.sass_opcode_counts(listing, "HGMMA")
+        mma = build.sass_opcode_counts(listing, opcode)
         maxnreg = build.sass_setmaxnreg(listing)
         dynamic = getattr(build.load(lib), query)
         dynamic.restype = restype
@@ -440,15 +465,22 @@ def phase_build_facts(port) -> dict:
                                     if name in fn for k, v in kinds.items()},
                 "spills": u["spill_stores"] + u["spill_loads"],
                 "smem_bytes": u["smem_bytes"] + dynamic(*args),
-                "sass_hgmma": sum(n for fn, n in hgmma.items() if name in fn),
+                "dynamic_smem_bytes": dynamic(*args),
+                f"sass_{opcode.lower()}": sum(n for fn, n in mma.items()
+                                              if name in fn),
                 "ptxas_warnings": [w["code"] for w in warnings
                                    if w["function"] is None
                                    or name in w["function"]]}
     emit(info)
-    for key in ("fwd", "dkv", "dq", "k4"):
-        if info[key]["spills"] or not info[key]["sass_hgmma"] > 0 or \
+    for key, opcode in (("fwd", "hgmma"), ("dkv", "hgmma"), ("dq", "hgmma"),
+                        ("k4", "hgmma"), ("k3_tc", "hmma")):
+        if info[key]["spills"] or not info[key][f"sass_{opcode}"] > 0 or \
                 serialised & set(info[key]["ptxas_warnings"]):
             raise AssertionError(f"{key}: {info[key]}")
+    if info["k3_tc"]["dynamic_smem_bytes"] != \
+            port["dual_axis"].tc_smem_bytes(35, 600, 2, 12):
+        raise AssertionError(f"k3_tc: the source's shared memory differs "
+                             f"from tc_smem_bytes: {info['k3_tc']}")
     return info
 
 
@@ -1184,6 +1216,7 @@ def reset_counts(port) -> None:
 
 
 def read_counts(port) -> dict:
+    """Every kernel wrapper's launches, by C entry point."""
     return {k: v for name in ("attention", "gather", "dual_axis", "ln_qkv")
             for k, v in port[name].LAUNCHES.items()}
 
@@ -1220,16 +1253,23 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
                     ff: int = 512) -> dict:
     """K3 against ``encoder_block_reference`` at DuETT's two axes (2 heads ×
     12, FF 512): max abs error relative to the output's, two launches
-    bit-equal; times the kernel (through its wrapper, weight casts
-    included), the plain version and the bound (no single PyTorch call
-    computes the block: ``library_ms`` null). Then one backward through the
-    autograd Function against autograd of the plain version.
-    cases: (label, B, L, D, dtype, tol)."""
+    bit-equal; the route each case took (``tc``: the tensor-core kernel,
+    ``simt``: the SIMT kernel), asserted against the case's and against
+    ``dual_axis.route``. Times the kernel through its wrapper (weight casts
+    included) and the plain version in alternation (``ms``, ``plain_ms``:
+    CUDA events around 5 calls, so each holds its host dispatch), then the
+    device time of each over 20 calls under ``torch.profiler``
+    (``device_ms``: the kernel alone; ``device_busy_ms``: every device
+    event of the wrapper, its casts included; ``plain_device_ms``), and
+    the bound (no single PyTorch call computes the block: ``library_ms``
+    null). Then one backward through the autograd Function against
+    autograd of the plain version.
+    cases: (label, B, L, D, dtype, tol, route)."""
     import torch
     DA = port["dual_axis"]
     inner = n_heads * d_head
     results = {}
-    for label, B, L, D, dtype, tol in cases:
+    for label, B, L, D, dtype, tol, way in cases:
         params = _dual_axis_params(D, inner, ff, device, 30 + len(results))
         g = torch.Generator(device=device).manual_seed(40 + len(results))
         x = torch.randn(B, L, D, generator=g, device=device).to(dtype)
@@ -1237,8 +1277,14 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
         def kernel():
             return DA.fused_encoder_block(x, params, n_heads, d_head)
 
+        def plain():
+            return DA.encoder_block_reference(x, params, n_heads, d_head)
+
+        before = dict(DA.LAUNCHES)
         got, again = kernel(), kernel()
-        want = DA.encoder_block_reference(x, params, n_heads, d_head)
+        took = [r for r, k in DA.ROUTE_KERNELS.items()
+                if DA.LAUNCHES[k] == before[k] + 2]
+        want = plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         rel = err / max(want.float().abs().max().item(), 1e-12)
@@ -1247,20 +1293,40 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
         bound, by = dual_axis_bound_ms(B, L, D, inner, ff, x.element_size(),
                                        peak)
-        res = {"phase": "kernel_check", "kernel": "dual_axis_block",
+        ms, plain_ms = paired_ms([kernel, plain], device)
+        prof = _profile(kernel, 20, ms, {"kernel": "dual_axis_block"})
+        plain_prof = _profile(plain, 20, plain_ms, {})
+        dev_ms = prof.get("kernel_device_ms_per_step", "not measured")
+        res = {"phase": "kernel_check", "kernel": DA.ROUTE_KERNELS[way],
                "case": label, "shape": [B, L, D], "heads": [n_heads, d_head],
                "ff": ff, "dtype": str(dtype).replace("torch.", ""),
+               "route": took[0] if len(took) == 1 else took,
+               "expected_route": way,
                "max_abs_err": err, "max_rel_err": rel, "tol": tol,
                "bit_equal_rerun": same,
-               "smem_bytes": DA.smem_bytes(L, D, n_heads, d_head),
-               "ms": device_ms(kernel, device),
-               "plain_ms": device_ms(lambda: DA.encoder_block_reference(
-                   x, params, n_heads, d_head), device),
+               "smem_bytes": DA.tc_smem_bytes(L, D, n_heads, d_head)
+               if way == "tc" else DA.smem_bytes(L, D, n_heads, d_head),
+               "workspace_bytes": DA.workspace_bytes(B, L, D, ff)
+               if way == "tc" else 0,
+               "ms": ms, "plain_ms": plain_ms,
+               "device_ms": dev_ms,
+               "device_busy_ms": prof.get("device_busy_ms_per_step",
+                                          "not measured"),
+               "plain_device_ms": plain_prof.get("device_busy_ms_per_step",
+                                                 "not measured"),
                "library_ms": None, "bound_ms": bound, "bound_by": by}
+        res["device_vs_bound"] = dev_ms / bound \
+            if not isinstance(dev_ms, str) else "not measured"
         emit(res)
         if not (finite and rel <= tol and same):
             raise AssertionError(f"dual_axis_block {label}: {res}")
+        if took != [way] or DA.route(dtype, L, D, ff, n_heads,
+                                     d_head) != way:
+            raise AssertionError(f"dual_axis_block {label}: took {took}, "
+                                 f"expected the {way} route")
         results[label] = res
+        del x, got, again, want
+    torch.cuda.empty_cache()
 
     # one backward through the autograd Function (the kernel forward, a
     # recompute of the plain version backward, as JAX's custom VJP)
@@ -1269,9 +1335,9 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
               _dual_axis_params(D, inner, ff, device, 50).items()}
     x = torch.randn(B, L, D, device=device, requires_grad=True)
     w = torch.randn(B, L, D, device=device)
-    before = DA.LAUNCHES["dual_axis_block"]
+    before = sum(DA.LAUNCHES.values())
     (DA.fused_encoder_block(x, leaves, n_heads, d_head) * w).sum().backward()
-    launched = DA.LAUNCHES["dual_axis_block"] - before
+    launched = sum(DA.LAUNCHES.values()) - before
     got = {"x": x.grad, **{k: v.grad for k, v in leaves.items()}}
     ref = [t.detach().requires_grad_() for t in (x, *leaves.values())]
     out = DA.encoder_block_reference(ref[0], dict(zip(leaves, ref[1:])),
@@ -1499,7 +1565,8 @@ def phase_trained_layer(port, device, ssl) -> dict:
     (``event_transformer_0``, ``time_transformer_0``) gets its input
     captured by a forward hook during a bf16 eval step, and K3, fed that
     input with the layer's weights through ``params_from_encoder``, gives
-    the layer's own output within TOL_TRAINED_LAYER of its max abs."""
+    the layer's own output within TOL_TRAINED_LAYER of its max abs, on the
+    tensor-core route (both axes are bf16 with D % 8 == 0 and F 512)."""
     import torch
     DA, eng = port["dual_axis"], port["engine"]
     cfg, data = ssl["duett_cfg"], ssl["data"]
@@ -1539,11 +1606,14 @@ def phase_trained_layer(port, device, ssl) -> dict:
                          "dtype": str(x.dtype).replace("torch.", ""),
                          "max_abs_err": err,
                          "max_rel_err": err / y.float().abs().max().item()}
-    launches = read_counts(port)["dual_axis_block"]
+    counts = read_counts(port)
+    launches = counts["dual_axis_block"] + counts["dual_axis_block_tc"]
     info = {"phase": "trained_layer", "checkpoint": ssl["best_path"],
-            "axes": out, "launches": launches, "tol": TOL_TRAINED_LAYER}
+            "axes": out, "launches": launches,
+            "tc_launches": counts["dual_axis_block_tc"],
+            "tol": TOL_TRAINED_LAYER}
     emit(info)
-    if launches != 2 or len(out) != 2 or \
+    if launches != 2 or info["tc_launches"] != 2 or len(out) != 2 or \
             not max(a["max_rel_err"] for a in out.values()) \
             <= TOL_TRAINED_LAYER:
         raise AssertionError(f"K3 against a trained DuETT layer: {info}")
@@ -1856,18 +1926,21 @@ def main() -> int:
         ("f32", 2, 12, 1370, 1301, f32, TOL_BWD_F32, False),
     ])
     k3 = phase_dual_axis(port, device, [
-        ("event_bf16", 32, 35, 600, bf16, TOL_FUSED_BF16),
-        ("time_bf16", 32, 25, 840, bf16, TOL_FUSED_BF16),
-        ("event_f32", 32, 35, 600, f32, TOL_FUSED_F32),
-        ("time_f32", 32, 25, 840, f32, TOL_FUSED_F32),
+        ("event_bf16", 32, 35, 600, bf16, TOL_FUSED_BF16, "tc"),
+        ("time_bf16", 32, 25, 840, bf16, TOL_FUSED_BF16, "tc"),
+        ("event_bf16_b128", 128, 35, 600, bf16, TOL_FUSED_BF16, "tc"),
+        ("time_bf16_b128", 128, 25, 840, bf16, TOL_FUSED_BF16, "tc"),
+        ("event_f32", 32, 35, 600, f32, TOL_FUSED_F32, "simt"),
+        ("time_f32", 32, 25, 840, f32, TOL_FUSED_F32, "simt"),
     ])
     k4 = phase_ln_qkv(port, device, [
         ("vit_bf16", 32, 1536, 768, 12, bf16, TOL_FUSED_BF16),
         ("ragged_bf16", 2, 200, 96, 3, bf16, TOL_FUSED_BF16),
         ("f32", 2, 512, 256, 4, f32, TOL_FUSED_F32),
     ])
-    k3_checks, k4_checks = read_counts(port)["dual_axis_block"], \
-        read_counts(port)["ln_qkv"]
+    k3_checks = {way: read_counts(port)[kernel] for way, kernel in
+                 port["dual_axis"].ROUTE_KERNELS.items()}
+    k4_checks = read_counts(port)["ln_qkv"]
     phase_golden(port, device, cfgmod.ViTConfig(), GOLDEN)
     phase_block_grad(port, device)
     serve = phase_serve(port, device, cfgmod.TeacherConfig(), n_clients=12,
@@ -1958,14 +2031,29 @@ def main() -> int:
          **{k: k2[k] for k in keys + (
              "vs_library", "device_ms", "library_device_ms",
              "device_vs_library", "gb_per_s", "share_of_peak_bytes")}},
+        {"name": "dual_axis_block_tc", "route": "cuda",
+         "source": K3_TC_SOURCE, "replaces": K3_REPLACES,
+         "launches": n_ssl["dual_axis_block_tc"],
+         "launches_by_path": by_path("dual_axis_block_tc"),
+         "check_launches": {"kernel_check": k3_checks["tc"],
+                            "trained_layer": trained["tc_launches"]},
+         "case": "time_bf16 [32, 25, 840]",
+         "routes": {c: k3[c]["route"] for c in k3 if "route" in k3[c]},
+         "ms_by_case": {c: k3[c]["ms"] for c in k3 if "ms" in k3[c]},
+         "device_ms_by_case": {c: k3[c]["device_ms"] for c in k3
+                               if "device_ms" in k3[c]},
+         **built["k3_tc"],
+         **{k: k3["time_bf16"][k] for k in keys + (
+             "device_ms", "device_busy_ms", "plain_device_ms")}},
         {"name": "dual_axis_block", "route": "cuda", "source": K3_SOURCE,
          "replaces": K3_REPLACES, "launches": n_ssl["dual_axis_block"],
          "launches_by_path": by_path("dual_axis_block"),
-         "check_launches": {"kernel_check": k3_checks,
-                            "trained_layer": trained["launches"]},
-         "case": "time_bf16 [32, 25, 840]",
-         "ms_by_case": {c: k3[c]["ms"] for c in k3 if "ms" in k3[c]},
-         **{k: k3["time_bf16"][k] for k in keys}},
+         "check_launches": {"kernel_check": k3_checks["simt"],
+                            "trained_layer": trained["launches"]
+                            - trained["tc_launches"]},
+         "case": "time_f32 [32, 25, 840]",
+         **{k: k3["time_f32"][k] for k in keys + (
+             "device_ms", "device_busy_ms", "plain_device_ms")}},
         {"name": "ln_qkv", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": n_ssl["ln_qkv"],
          "launches_by_path": by_path("ln_qkv"),

@@ -31,6 +31,7 @@ SOURCES = {"flash_attention": "flash_attention.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
            "gather_rows": "gather_rows.cu",
            "dual_axis_block": "dual_axis_block.cu",
+           "dual_axis_block_tc": "dual_axis_block_tc.cu",
            "ln_qkv": "ln_qkv.cu"}
 
 _lock = threading.Lock()

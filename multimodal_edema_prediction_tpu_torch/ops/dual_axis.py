@@ -17,11 +17,19 @@ sum, the softmax and the GELU (its tanh form, ``jax.nn.gelu``'s default)
 in float32; the output cast to x's dtype. At float32 this is the JAX
 ``encoder_block_reference`` exactly.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/dual_axis_block.cu`` (one thread block per batch element) and raises
-if it cannot; on a CPU tensor it runs ``encoder_block_reference``, the plain
-version, which is also the kernel's oracle in the tests and in
-``chip_smoke.py``. The gradient is an autograd Function whose backward
+On a CUDA tensor the wrapper launches one of two hand-written kernels and
+raises if it cannot; ``route`` picks it from the dtype and the shape alone,
+before the launch: bfloat16 with D % 8 == 0, F % 128 == 0 and L <= 64 (every
+DuETT axis) takes the tensor-core kernel of ``csrc/dual_axis_block_tc.cu``
+(a grid of batch elements × 128-unit slices of the FF, its partial sums
+reduced in a fixed order); float32 and every other shape take the SIMT
+kernel of ``csrc/dual_axis_block.cu`` (one thread block per batch
+element). Neither gives way to the other or to the plain version. On a CPU
+tensor the wrapper runs ``encoder_block_reference``, the plain version,
+which is also the kernels' oracle in the tests and in ``chip_smoke.py``.
+The tensor-core kernel rounds h, h2, the attention output and the FF
+hidden to bfloat16 as product operands, within the bf16 tolerance (2e-2 of
+the output's max abs). The gradient is an autograd Function whose backward
 recomputes through ``encoder_block_reference``, as JAX's custom VJP does
 (``pallas_dual_axis.py:197-209``): neither package has a backward kernel.
 No model calls this op, in either package: it is an opt-in op.
@@ -34,8 +42,11 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-# launches of the kernel wrapper; chip_smoke.py resets and reads it
-LAUNCHES = {"dual_axis_block": 0}
+# launches of each kernel, by its C entry point; chip_smoke.py resets and
+# reads them
+LAUNCHES = {"dual_axis_block_tc": 0, "dual_axis_block": 0}
+# the entry point each route (``route``) launches
+ROUTE_KERNELS = {"tc": "dual_axis_block_tc", "simt": "dual_axis_block"}
 
 GAINS = ("g1", "g2", "gf")
 WEIGHTS = ("wq", "wk", "wv", "wo", "bo", "w1", "b1", "w2", "b2")
@@ -45,6 +56,25 @@ PARAM_KEYS = GAINS + WEIGHTS
 SMEM_LIMIT = 232448
 _FF_CHUNK = 128            # csrc/dual_axis_block.cu kFFChunk
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/dual_axis_block_tc.cu: FF hidden units per block (kSlice), rows
+# (kMaxMT m16 tiles) and the W ring (kStages x kKC x (kNC + 8) bf16)
+TC_SLICE = 128
+TC_MAX_L = 64
+_TC_RING_BYTES = 2 * 2 * 64 * (128 + 8)
+
+_P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# each C entry point: its library and its ctypes signature
+ENTRY_POINTS = {
+    # dtype, x, wqkv, wo, bo, w1, b1, w2, b2, g, out, B, L, D, H, dh, F,
+    # D^-1/2, dh^-1/2, stream
+    "dual_axis_block": ("dual_axis_block",
+                        [_I] + [_P] * 10 + [_I] * 6 + [_F32] * 2 + [_P]),
+    # x, wqkv, its columns, wo, bo, w1, b1, w2, b2, g, out, the workspace,
+    # the counters, B, L, D, H, dh, F, D^-1/2, dh^-1/2, stream
+    "dual_axis_block_tc": ("dual_axis_block_tc",
+                           [_P, _P, _I] + [_P] * 10 + [_I] * 6
+                           + [_F32] * 2 + [_P]),
+}
 
 
 def reset_launches() -> None:
@@ -103,12 +133,53 @@ def params_from_encoder(encoder) -> Dict[str, torch.Tensor]:
 
 
 def smem_bytes(L: int, D: int, n_heads: int, d_head: int) -> int:
-    """Shared memory the kernel asks for (``smem_floats`` in the source)."""
+    """Shared memory the SIMT kernel asks for (``smem_floats`` in
+    ``csrc/dual_axis_block.cu``)."""
     def r4(n):
         return (n + 3) // 4 * 4
     inner = n_heads * d_head
     attn = L * r4(3 * inner) + L * r4(inner) + n_heads * L * L
     return 4 * (2 * L * r4(D) + max(attn, L * _FF_CHUNK))
+
+
+def tc_smem_bytes(L: int, D: int, n_heads: int, d_head: int) -> int:
+    """Shared memory the tensor-core kernel asks for (``make_layout`` in
+    ``csrc/dual_axis_block_tc.cu``): z float32 [L, D]; h bf16 [Mp, a(D)]
+    (Mp = L rounded up to 16, a(K) = K rounded up to 16, plus 8); then
+    either q|k|v float32 [L, 3I + 1], P [H, L, L] and o bf16 [Mp, a(I)],
+    or f bf16 [Mp, a(128)], whichever is larger; the W ring; bo, b2 and a
+    slice of b1 in float32."""
+    def a16(n):
+        return (n + 15) // 16 * 16
+
+    def ld(k):
+        return a16(k) + 8
+    inner = n_heads * d_head
+    mp = a16(L)
+    work = a16(4 * L * D) + a16(2 * mp * ld(D))
+    attn = a16(4 * L * (3 * inner + 1)) + a16(4 * n_heads * L * L) \
+        + a16(2 * mp * ld(inner))
+    return work + max(attn, a16(2 * mp * ld(TC_SLICE))) + _TC_RING_BYTES \
+        + a16(4 * (2 * D + TC_SLICE))
+
+
+def route(dtype: torch.dtype, L: int, D: int, F_: int, n_heads: int,
+          d_head: int) -> str:
+    """The kernel a CUDA call takes, from the dtype and the shape alone:
+    ``"tc"`` (the tensor-core kernel) for bfloat16 with D % 8 == 0,
+    F % 128 == 0, L <= 64 and its shared memory within one block's, else
+    ``"simt"``."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and F_ % TC_SLICE == 0 \
+            and 1 <= L <= TC_MAX_L \
+            and tc_smem_bytes(L, D, n_heads, d_head) <= SMEM_LIMIT:
+        return "tc"
+    return "simt"
+
+
+def workspace_bytes(B: int, L: int, D: int, F_: int) -> int:
+    """The tensor-core route's float32 scratch: one [B, L, D] partial of
+    the FF per 128 hidden units."""
+    return 4 * (F_ // TC_SLICE) * B * L * D
 
 
 def _check(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
@@ -135,43 +206,106 @@ def _check(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
                          f"{d_head}")
 
 
+_FNS: dict = {}
+# per (device, stream): the tensor-core route's arrival counters, one per
+# batch element, zero between launches (the kernel's last block of each
+# element resets its own)
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _call(name: str, *args) -> None:
+    fn = _FNS.get(name)
+    if fn is None:
+        from .build import load
+        lib, argtypes = ENTRY_POINTS[name]
+        fn = getattr(load(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _FNS[name] = fn
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte-aligned base (the tensor-core
+    kernel's vector loads and cp.async copies need it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _counters(dev: torch.device, stream: int, B: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    cnt = _COUNTERS.get(key)
+    if cnt is None or cnt.numel() < B:
+        cnt = torch.zeros(max(B, 64), dtype=torch.int32, device=dev)
+        _COUNTERS[key] = cnt
+    return cnt
+
+
+def _tc_weights(params: Dict[str, torch.Tensor], D: int, inner: int,
+                dev: torch.device) -> tuple:
+    """The tensor-core kernel's weights, cast to bf16 in one buffer: wq |
+    wk | wv as [D, nq] (nq = 3·inner rounded up to 8, zero columns after),
+    then wo, bo, w1, b1, w2, b2. With D % 8 == 0 and F % 128 == 0 every
+    part starts on a 16-byte boundary. Returns (wqkv, nq, the other six
+    as views)."""
+    qkv = [params[k].detach() for k in ("wq", "wk", "wv")]
+    nq = -(-3 * inner // 8) * 8
+    if nq != 3 * inner:
+        qkv.append(qkv[0].new_zeros(D, nq - 3 * inner))
+    parts = [torch.cat(qkv, dim=1)] + [
+        params[k].detach() for k in ("wo", "bo", "w1", "b1", "w2", "b2")]
+    flat = torch.cat([t.reshape(-1) for t in parts]).to(
+        device=dev, dtype=torch.bfloat16)
+    views = flat.split([t.numel() for t in parts])
+    return views[0], nq, views[1:]
+
+
 def block_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
                  n_heads: int, d_head: int) -> torch.Tensor:
-    """K3 on a CUDA tensor: one launch, no gradient."""
+    """K3 on a CUDA tensor: one launch of the kernel ``route`` picks, no
+    gradient."""
     if x.dtype not in _DTYPES:
         raise ValueError(f"fused_encoder_block kernel takes float32 or "
                          f"bfloat16, got {x.dtype}")
     B, L, D = x.shape
-    smem = smem_bytes(L, D, n_heads, d_head)
-    if smem > SMEM_LIMIT:
+    Fh = params["w1"].shape[-1]
+    way = route(x.dtype, L, D, Fh, n_heads, d_head)
+    if way == "simt" and smem_bytes(L, D, n_heads, d_head) > SMEM_LIMIT:
         raise ValueError(f"fused_encoder_block kernel: [{L}, {D}] needs "
-                         f"{smem} bytes of shared memory, over {SMEM_LIMIT}")
+                         f"{smem_bytes(L, D, n_heads, d_head)} bytes of "
+                         f"shared memory, over {SMEM_LIMIT}")
     dt, dev = x.dtype, x.device
-    x = x.contiguous()
-    w = {k: params[k].detach().to(device=dev, dtype=dt).contiguous()
-         for k in WEIGHTS}
-    wqkv = torch.cat([w["wq"], w["wk"], w["wv"]], dim=1).contiguous()
     g = torch.cat([params[k].detach().reshape(1) for k in GAINS]).to(
         device=dev, dtype=torch.float32)
-    out = torch.empty_like(x)
-
-    from .build import load
-    fn = load("dual_axis_block").dual_axis_block
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 10 + \
-            [ctypes.c_int] * 6 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+    # contiguous whatever x's strides: both kernels write [B, L, D] densely
+    out = torch.empty(B, L, D, dtype=dt, device=dev)
+    scales = (D ** -0.5, d_head ** -0.5)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_DTYPES[dt], x.data_ptr(), wqkv.data_ptr(),
-                 *(w[k].data_ptr() for k in ("wo", "bo", "w1", "b1", "w2",
-                                             "b2")),
-                 g.data_ptr(), out.data_ptr(), B, L, D, n_heads, d_head,
-                 w["w1"].shape[1], D ** -0.5, d_head ** -0.5, stream)
-    if err != 0:
-        raise RuntimeError(f"dual_axis_block kernel launch failed: CUDA "
-                           f"error {err}")
-    LAUNCHES["dual_axis_block"] += 1
+        if way == "tc":
+            x = _aligned(x)
+            wqkv, nq, rest = _tc_weights(params, D, n_heads * d_head, dev)
+            ws = torch.empty(Fh // TC_SLICE, B, L, D, dtype=torch.float32,
+                             device=dev)
+            _call("dual_axis_block_tc", x.data_ptr(), wqkv.data_ptr(), nq,
+                  *(t.data_ptr() for t in rest), g.data_ptr(),
+                  out.data_ptr(), ws.data_ptr(),
+                  _counters(dev, stream, B).data_ptr(), B, L, D, n_heads,
+                  d_head, Fh, *scales, stream)
+        else:
+            x = x.contiguous()
+            w = {k: params[k].detach().to(device=dev, dtype=dt).contiguous()
+                 for k in WEIGHTS}
+            wqkv = torch.cat([w["wq"], w["wk"], w["wv"]], dim=1)
+            _call("dual_axis_block", _DTYPES[dt], x.data_ptr(),
+                  wqkv.data_ptr(),
+                  *(w[k].data_ptr() for k in ("wo", "bo", "w1", "b1", "w2",
+                                              "b2")),
+                  g.data_ptr(), out.data_ptr(), B, L, D, n_heads, d_head,
+                  Fh, *scales, stream)
+    LAUNCHES[ROUTE_KERNELS[way]] += 1
     return out
 
 

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Same-call A/B of one kernel between repo trees, timed in turns on one
-card: K1's bf16 forward (the default), K2's row gather or K4's bf16
-LayerNorm → QKV.
+card: K1's bf16 forward (the default), K2's row gather, K3's bf16 DuETT
+block or K4's bf16 LayerNorm → QKV.
 
     git archive <parent> | tar -x -C build/ab/parent
     python3 scripts/ab_k1_fwd.py --tree parent=build/ab/parent --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k4 --tree parent=... --tree new=.
+    python3 scripts/ab_k1_fwd.py --kernel k3 --tree parent=... --tree new=.
 
 Each slot of ``--order`` (letters: the trees in the order given; default
 ``abba``) runs one worker process on the card that builds its tree's
@@ -21,6 +22,13 @@ PyTorch yardstick on the same inputs (this checkout's
   ``torch.index_select``; besides the paired times, which hold the
   wrapper's host dispatch, the device time of each under ``torch.profiler``
   (``device_ms``, ``library_device_ms``: chip_smoke's ``_profile``);
+- ``k3``: ``fused_encoder_block`` at DuETT's two axes, event [32, 35,
+  600] and time [32, 25, 840] bf16 (2 heads × 12, FF 512; chip_smoke's
+  weights), against the plain version ``encoder_block_reference`` (no
+  PyTorch call computes the block); besides the paired times, each one's
+  device time under ``torch.profiler`` (``*_device_ms``: the kernel
+  alone; ``*_plain_device_ms``), and the route taken where the tree has
+  two;
 - ``k4``: ``fused_ln_qkv`` at [32, 1536, 768] bf16, 12 × 64, against
   ``F.layer_norm`` + ``F.linear`` + the head-major copy (chip_smoke's
   yardstick).
@@ -159,12 +167,57 @@ def worker_k4(tree: str, B: int = 32, N: int = 1536, D: int = 768,
             "vs_library": ms / lib}
 
 
-WORKERS = {"k1_fwd": worker, "k2": worker_k2, "k4": worker_k4}
+def worker_k3(tree: str, n_heads: int = 2, d_head: int = 12,
+              ff: int = 512) -> dict:
+    import torch
+
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, tree)
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    from multimodal_edema_prediction_tpu_torch.ops import dual_axis as DA
+    assert DA.__file__.startswith(tree), DA.__file__
+    device = torch.device("cuda")
+    build.build_all()
+    out = {"tree": tree}
+    for axis, (B, L, D) in (("event", (32, 35, 600)),
+                            ("time", (32, 25, 840))):
+        params = chip_smoke._dual_axis_params(D, n_heads * d_head, ff,
+                                              device, 30)
+        g = torch.Generator(device=device).manual_seed(40)
+        x = torch.randn(B, L, D, generator=g, device=device).bfloat16()
+
+        def kernel():
+            return DA.fused_encoder_block(x, params, n_heads, d_head)
+
+        def plain():
+            return DA.encoder_block_reference(x, params, n_heads, d_head)
+        want = plain().float()
+        rel = float((kernel().float() - want).abs().max()
+                    / want.abs().max())
+        ms, plain_ms = chip_smoke.paired_ms([kernel, plain], device)
+        dev = chip_smoke._profile(kernel, 20, ms, {"k": "dual_axis_block"})
+        plain_dev = chip_smoke._profile(plain, 20, plain_ms, {})
+        out.update({
+            f"{axis}_shape": [B, L, D], f"{axis}_max_rel_err": rel,
+            f"{axis}_ms": ms, f"{axis}_plain_ms": plain_ms,
+            f"{axis}_device_ms": dev.get("k_device_ms_per_step"),
+            f"{axis}_plain_device_ms": plain_dev.get(
+                "device_busy_ms_per_step"),
+            f"{axis}_route": DA.route(x.dtype, L, D, ff, n_heads, d_head)
+            if hasattr(DA, "route") else "simt"})
+    return out
+
+
+WORKERS = {"k1_fwd": worker, "k2": worker_k2, "k3": worker_k3,
+           "k4": worker_k4}
 MEDIAN_KEYS = {
     "k1_fwd": ("fwd_ms", "fwd_lse_ms", "sdpa_ms", "fwd_vs_library",
                "max_abs_err"),
     "k2": ("ms", "library_ms", "vs_library", "device_ms",
            "library_device_ms"),
+    "k3": tuple(f"{axis}_{key}" for axis in ("event", "time")
+                for key in ("ms", "plain_ms", "device_ms", "plain_device_ms",
+                            "max_rel_err")),
     "k4": ("ms", "library_ms", "vs_library", "max_rel_err"),
 }
 

@@ -1,6 +1,6 @@
 """What ``ops/build.py`` reads out of the toolkit's reports, and the C
-entry points ``ops/attention.py``, ``ops/gather.py`` and ``ops/ln_qkv.py``
-bind, on the CPU.
+entry points ``ops/attention.py``, ``ops/gather.py``, ``ops/dual_axis.py``
+and ``ops/ln_qkv.py`` bind, on the CPU.
 
 ``chip_smoke.py`` reports K1's bf16 kernels' registers, spills, shared
 memory and ptxas warnings from the ``ptxas -v`` log of their build, and
@@ -17,7 +17,8 @@ import re
 import pytest
 
 from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
-                                                       gather, ln_qkv)
+                                                       dual_axis, gather,
+                                                       ln_qkv)
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
@@ -130,13 +131,14 @@ def _c_signature(source: str, name: str) -> list:
 
 
 ENTRY_POINTS = {**attention.ENTRY_POINTS, **gather.ENTRY_POINTS,
-                **ln_qkv.ENTRY_POINTS}
+                **ln_qkv.ENTRY_POINTS, **dual_axis.ENTRY_POINTS}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_point_signatures_match_the_c_sources(name):
     """Every C entry point the port binds (K1's forward with its tensor
-    maps, D, dkv and dq; K2's bulk and vector copies; K4): the library each
+    maps, D, dkv and dq; K2's bulk and vector copies; K3's SIMT and
+    tensor-core kernels; K4): the library each
     is bound from builds from a source that declares it, with the
     parameters ctypes is told."""
     lib, argtypes = ENTRY_POINTS[name]
@@ -146,6 +148,6 @@ def test_entry_point_signatures_match_the_c_sources(name):
 def test_entry_point_tables_do_not_overlap():
     """No C entry point is bound by two wrappers."""
     tables = (attention.ENTRY_POINTS, gather.ENTRY_POINTS,
-              ln_qkv.ENTRY_POINTS)
+              ln_qkv.ENTRY_POINTS, dual_axis.ENTRY_POINTS)
     assert sum(map(len, tables)) == len(ENTRY_POINTS)
 

@@ -149,3 +149,144 @@ def test_shared_memory_budget(L, D, fits):
     """DuETT's two axes fit one block's 227 KB; a longer axis is refused
     by the kernel wrapper (the check runs before any launch)."""
     assert (DA.smem_bytes(L, D, 2, 12) <= DA.SMEM_LIMIT) == fits
+
+
+@pytest.mark.parametrize("dtype,L,D,F_,way", [
+    (torch.bfloat16, 35, 600, 512, "tc"),      # DuETT's event axis
+    (torch.bfloat16, 25, 840, 512, "tc"),      # DuETT's time axis
+    (torch.bfloat16, 7, 96, 128, "tc"),
+    (torch.bfloat16, 64, 96, 128, "tc"),       # four m16 row tiles
+    (torch.float32, 35, 600, 512, "simt"),
+    (torch.float32, 7, 96, 128, "simt"),
+    (torch.bfloat16, 1, 8, 130, "simt"),       # F not a multiple of 128
+    (torch.bfloat16, 7, 96, 64, "simt"),
+    (torch.bfloat16, 7, 100, 128, "simt"),     # D not a multiple of 8
+    (torch.bfloat16, 65, 96, 128, "simt"),     # past four row tiles
+    (torch.bfloat16, 64, 840, 512, "simt"),    # over one block's memory
+])
+def test_route_is_chosen_by_dtype_and_shape(dtype, L, D, F_, way):
+    """Which of K3's two kernels a CUDA call takes, decided in Python from
+    the dtype and the shape before any launch (no card needed)."""
+    assert DA.route(dtype, L, D, F_, 2, 12) == way
+
+
+def test_tensor_core_route_memory():
+    """The tensor-core route's workspace is one float32 [B, L, D] partial
+    per 128 FF units (10.8 MB at [32, 35, 600], F 512), and its shared
+    memory at DuETT's axes (``make_layout`` in the source: z, h, the
+    attention or FF work area, the W ring, the biases) fits one block's
+    227 KB."""
+    assert DA.workspace_bytes(32, 35, 600, 512) == 4 * 4 * 32 * 35 * 600
+    assert DA.workspace_bytes(128, 25, 840, 512) == 4 * 4 * 128 * 25 * 840
+    ring = 2 * 2 * 64 * 136
+    # event: z 84,000; h 48 x 616 bf16; q|k|v 35 x 73 float32 (10,224
+    # aligned) + P 9,808 + o 48 x 40 bf16 (larger than f 48 x 136 bf16);
+    # the ring; bo, b2 and 128 of b1 in float32
+    assert DA.tc_smem_bytes(35, 600, 2, 12) == \
+        84000 + 2 * 48 * 616 + 10224 + 9808 + 2 * 48 * 40 + ring \
+        + 4 * (2 * 600 + 128)
+    # time: z 84,000; h 32 x 856 bf16; q|k|v 7,312 + P 5,008 + o 32 x 40
+    # bf16 (larger than f 32 x 136 bf16); the ring; the biases
+    assert DA.tc_smem_bytes(25, 840, 2, 12) == \
+        84000 + 2 * 32 * 856 + 7312 + 5008 + 2 * 32 * 40 + ring \
+        + 4 * (2 * 840 + 128)
+    for L, D in ((35, 600), (25, 840)):
+        assert DA.tc_smem_bytes(L, D, 2, 12) <= DA.SMEM_LIMIT
+
+
+def _tc_arithmetic(x, p, n_heads, d_head, slice_=128):
+    """The tensor-core route's arithmetic written out in torch: bf16
+    weights; h, o, h2 and f rounded to bf16 as product operands; every
+    sum float32; the FF's partials summed slice by slice in order."""
+    def bf(t):
+        return t.bfloat16().float()
+
+    def sn(t, g):
+        n = torch.sqrt((t * t).sum(-1, keepdim=True)) * t.shape[-1] ** -0.5
+        return t / n.clamp_min(1e-5) * g
+
+    B, L, D = x.shape
+    w = {k: bf(p[k]) for k in DA.WEIGHTS}
+    g1, g2, gf = (p[k].reshape(()) for k in DA.GAINS)
+    xf = x.float()
+    h = bf(sn(xf, g1))
+    q, k, v = (t.reshape(B, L, n_heads, d_head)
+               for t in (h @ w["wq"], h @ w["wk"], h @ w["wv"]))
+    att = torch.softmax(torch.einsum("blhd,bmhd->bhlm", q, k)
+                        * d_head ** -0.5, -1)
+    o = bf(torch.einsum("bhlm,bmhd->blhd", att, v).reshape(B, L, -1))
+    z = (xf + o @ w["wo"]) + w["bo"]
+    h2 = bf(sn(z, g2))
+    ff = 0
+    for s in range(0, w["w1"].shape[1], slice_):
+        f = bf(torch.nn.functional.gelu(
+            h2 @ w["w1"][:, s:s + slice_] + w["b1"][s:s + slice_],
+            approximate="tanh"))
+        ff = ff + f @ w["w2"][s:s + slice_]
+    return sn((z + ff) + w["b2"], gf).bfloat16()
+
+
+@pytest.mark.parametrize("B,L,D", [(4, 35, 600), (4, 25, 840)])
+def test_tensor_core_rounding_is_within_the_bf16_tolerance(B, L, D):
+    """The rounding the tensor-core kernel adds (its product operands in
+    bf16) keeps DuETT's axes within 2e-2 of the output's max abs of the
+    float32 plain version, at chip_smoke.py's weight scales (N(0, 1/fan_in),
+    gains 1 + N(0, 0.1²)), and it does move the output (so the check sees
+    the rounding at all)."""
+    rng = np.random.default_rng(5)
+    inner, F_ = 24, 512
+
+    def r(*s, std):
+        return torch.from_numpy((rng.normal(size=s) * std).astype(
+            np.float32))
+    p = {**{k: 1.0 + r(1, std=0.1) for k in DA.GAINS},
+         **{k: r(D, inner, std=D ** -0.5) for k in ("wq", "wk", "wv")},
+         "wo": r(inner, D, std=inner ** -0.5), "bo": r(D, std=0.02),
+         "w1": r(D, F_, std=D ** -0.5), "b1": r(F_, std=0.02),
+         "w2": r(F_, D, std=F_ ** -0.5), "b2": r(D, std=0.02)}
+    x = r(B, L, D, std=1.0).bfloat16()
+    want = DA.encoder_block_reference(x, p, 2, 12).float()
+    got = _tc_arithmetic(x, p, 2, 12).float()
+    err = (got - want).abs().max().item()
+    assert 0 < err <= 2e-2 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("inner", [24, 36])
+def test_tensor_core_weights_share_one_aligned_buffer(inner):
+    """The tensor-core route casts its weights to bf16 in one buffer: wq |
+    wk | wv side by side (zero columns up to a multiple of 8 when 3·inner
+    is not one), then wo, bo, w1, b1, w2, b2, each starting on a 16-byte
+    boundary, each equal to its own cast."""
+    rng = np.random.default_rng(6)
+    D, F_ = 96, 256
+    _, tp = _both(_params(rng, D, inner, F_))
+    wqkv, nq, rest = DA._tc_weights(tp, D, inner, torch.device("cpu"))
+    assert nq % 8 == 0 and nq - 3 * inner in range(8)
+    assert wqkv.shape == (D * nq,) and wqkv.dtype == torch.bfloat16
+    grid = wqkv.view(D, nq)
+    want = torch.cat([tp[k] for k in ("wq", "wk", "wv")], 1).bfloat16()
+    assert torch.equal(grid[:, :3 * inner], want)
+    assert not grid[:, 3 * inner:].any()
+    for t, k in zip(rest, ("wo", "bo", "w1", "b1", "w2", "b2")):
+        assert torch.equal(t, tp[k].reshape(-1).bfloat16()), k
+    for t in (wqkv, *rest):
+        assert t.storage_offset() * t.element_size() % 16 == 0
+
+
+def test_each_route_counts_under_its_entry_point():
+    """K3 counts launches by C entry point, one counter per kernel (the
+    route's kernel in ``ROUTE_KERNELS``); a CPU call launches nothing and
+    ``reset_launches`` zeroes every counter."""
+    assert set(DA.LAUNCHES) == set(DA.ENTRY_POINTS) \
+        == set(DA.ROUTE_KERNELS.values())
+    saved = dict(DA.LAUNCHES)
+    try:
+        rng = np.random.default_rng(7)
+        _, tp = _both(_params(rng, 96, 24, 128))
+        DA.fused_encoder_block(torch.zeros(2, 7, 96).bfloat16(), tp, 2, 12)
+        assert DA.LAUNCHES == saved
+        DA.LAUNCHES["dual_axis_block_tc"] += 3
+        DA.reset_launches()
+        assert set(DA.LAUNCHES.values()) == {0}
+    finally:
+        DA.LAUNCHES.update(saved)
