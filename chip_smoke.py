@@ -159,10 +159,38 @@ hidden units) adds:
             ``plain_device_ms``). 12. trained_layer fails unless both
             axes took the tensor-core route.
 
-Then the kernel summary line (eight rows: the forward, dkv, dq, K4 and
-K3's tensor-core rows with the build facts; the D row; the pair and the
-whole backward; K2 with its routes; K3's two routes, each a row) and,
-last, ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX
+The float32 routes of K1's forward and K4 redesigned on 3xTF32
+tensor-core products (mma.sync m16n8k8, ``csrc/mma_tf32.cuh``) add:
+
+2b. build_facts  also ``flash_fwd_f32`` and ``ln_qkv_f32_kernel``:
+            registers, spills, shared memory and their HMMA count of the
+            TF32 form; fails on a spill or on a kernel without it.
+3.  kernels  timed float32 cases at the bank build's [16, 12, 1370, 64]
+            (the float32 training path's shape) and the pixel step's
+            [32, 12, 1370, 64] (each against SDPA's float32 forward in
+            alternation), and every case's rerun bit-equal.
+3b. backward  the float32 backward timed at [32, 12, 1370, 64] (dkv, dq,
+            D, the pair and the whole backward against SDPA's float32
+            backward); the ragged float32 case kept as a check.
+3d. ln_qkv  a timed float32 case at [32, 1536, 768], 12 × 64.
+7b. f32_train  the training CLI with ``--mixed_precision no`` on the
+            encode-once tier (240 stays, 1 epoch of 4 batches of 32): the
+            float32 forward's and K2's launches over exactly this run,
+            finite losses. The wrappers count each float32 kernel under
+            its own key (``flash_attention_f32``, ``ln_qkv_f32``, ...);
+            the golden ViT and the block's gradient must launch the
+            float32 kernels and no bf16 one.
+Each float32 row of the summary carries ``tc_bound_ms`` beside
+``bound_ms``: the same work as three TF32 products per product at 495
+TFLOP/s, or the bytes, whichever is larger (``bound_ms`` stays float32
+FMA at 67 TFLOP/s, so a 3xTF32 kernel can go under it), and the share of
+each (``tc_share_of_bound``, ``share_of_bound``).
+
+Then the kernel summary line (the forward, dkv, dq, K4 and K3's
+tensor-core rows with the build facts; the D row; the pair and the whole
+backward; K2 with its routes; K3's two routes, each a row; then the
+float32 rows: K1's forward, D, dkv and dq, K2 and K4) and, last,
+``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX
 package.
 """
 from __future__ import annotations
@@ -186,7 +214,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PKG = "multimodal_edema_prediction_tpu_torch"
 GOLDEN = os.path.join(REPO, "tests", "goldens", "rad_dino_full_geometry.npz")
 K1_SOURCE = f"{PKG}/csrc/flash_attention.cu"
-K1_REPLACES = ("multimodal_edema_prediction_tpu/ops/attention.py:61 "
+K1_REPLACES = ("multimodal_edema_prediction_tpu/ops/attention.py:64 "
                "(flash_mha → jax/experimental/pallas/ops/tpu/"
                "flash_attention.py:140 flash_attention)")
 K2_SOURCE = f"{PKG}/csrc/gather_rows.cu"
@@ -217,6 +245,11 @@ RUNS = os.path.join(REPO, "build", "chip_smoke_runs")
 SSL_RUNS = os.path.join(REPO, "build", "chip_smoke_ssl")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 (NVIDIA data sheet)
+# float32-accurate work on the tensor cores: three TF32 products (3xTF32)
+# for each float32 product; the rate behind every float32 row's
+# tc_bound_ms, beside its bound_ms at PEAK_F32_FLOPS
+PEAK_3XTF32_FLOPS = PEAK_TF32_FLOPS / 3
 PEAK_BYTES = 3.35e12         # H100 SXM HBM3
 # bf16 kernel vs float32 plain version: P is rounded to bf16 before the PV
 # product and the output to bf16 (2^-8 relative on outputs of |x| ≲ 1)
@@ -410,55 +443,61 @@ def phase_build(port) -> dict:
 
 def phase_build_facts(port) -> dict:
     """The tensor-core kernels as built: K1's bf16 forward, dkv and dq and
-    K4's bf16 kernel (warpgroup MMA) and K3's tensor-core route (mma.sync,
-    at DuETT's event axis [35, 600]): registers at entry (``ptxas -v``)
-    and the counts its warps ask for after launch (``setmaxnreg`` in the
-    SASS: ``TRY_ALLOC`` the consumers', ``DEALLOC`` the producer's), spills
+    K4's bf16 kernel (warpgroup MMA), K3's tensor-core route (mma.sync, at
+    DuETT's event axis [35, 600]) and the float32 routes of K1's forward
+    and K4 (3xTF32 mma.sync): registers at entry (``ptxas -v``) and the
+    counts its warps ask for after launch (``setmaxnreg`` in the SASS:
+    ``TRY_ALLOC`` the consumers', ``DEALLOC`` the producer's), spills
     (bytes stored plus loaded), static plus the dynamic shared memory a
     launch asks for, its ``ptxas`` codes (C7511 / C7514 / C7515: wgmma
     serialised) and its matrix instructions in the library's SASS
-    (``cuobjdump``; HGMMA for warpgroup MMA, HMMA for mma.sync). Fails if
-    a kernel spills, holds none of its matrix instructions or carries one
-    of those codes, if K3's dynamic shared memory differs from
+    (``cuobjdump``; HGMMA for warpgroup MMA, HMMA for mma.sync, HMMA of
+    the TF32 form for the float32 kernels). Fails if a kernel spills,
+    holds none of its matrix instructions or carries one of those codes,
+    if K3's dynamic shared memory differs from
     ``ops/dual_axis.py::tc_smem_bytes``, or if there is no SASS listing to
     count."""
     import ctypes
     build = port["build"]
     info = {"phase": "build_facts"}
     serialised = {"C7511", "C7514", "C7515"}
-    # library, its matrix opcode, its dynamic shared memory query, the
-    # query's result and argument types → (key, the kernel's name in the
-    # build log, the query's arguments)
-    for lib, opcode, query, restype, argtypes, kernels in (
-            ("flash_attention", "HGMMA", "flash_attention_fwd_smem_bytes",
-             ctypes.c_int, [], (("fwd", "flash_fwd_bf16", ()),)),
-            ("flash_attention_bwd", "HGMMA",
-             "flash_attention_bwd_smem_bytes", ctypes.c_int, [ctypes.c_int],
-             (("dkv", "flash_bwd_dkv_bf16", (0,)),
-              ("dq", "flash_bwd_dq_bf16", (1,)))),
-            ("ln_qkv", "HGMMA", "ln_qkv_smem_bytes", ctypes.c_longlong,
+    # library, its dynamic shared memory query, the query's result and
+    # argument types → (key, the kernel's name in the build log, the
+    # query's arguments, its matrix opcode and the form required of it)
+    for lib, query, restype, argtypes, kernels in (
+            ("flash_attention", "flash_attention_fwd_smem_bytes",
+             ctypes.c_int, [ctypes.c_int],
+             (("fwd", "flash_fwd_bf16", (1,), "HGMMA", None),
+              ("fwd_f32", "flash_fwd_f32", (0,), "HMMA", "TF32"))),
+            ("flash_attention_bwd", "flash_attention_bwd_smem_bytes",
+             ctypes.c_int, [ctypes.c_int],
+             (("dkv", "flash_bwd_dkv_bf16", (0,), "HGMMA", None),
+              ("dq", "flash_bwd_dq_bf16", (1,), "HGMMA", None))),
+            ("ln_qkv", "ln_qkv_smem_bytes", ctypes.c_longlong,
              [ctypes.c_int] * 2,
-             (("k4", "ln_qkv_bf16_kernel", (1, 768)),)),
-            ("dual_axis_block_tc", "HMMA", "dual_axis_block_tc_smem_bytes",
+             (("k4", "ln_qkv_bf16_kernel", (1, 768), "HGMMA", None),
+              ("k4_f32", "ln_qkv_f32_kernel", (0, 768), "HMMA", "TF32"))),
+            ("dual_axis_block_tc", "dual_axis_block_tc_smem_bytes",
              ctypes.c_longlong, [ctypes.c_int] * 4,
-             (("k3_tc", "dual_axis_block_tc_kernel", (35, 600, 2, 12)),))):
+             (("k3_tc", "dual_axis_block_tc_kernel", (35, 600, 2, 12),
+               "HMMA", None),))):
         log = build.build_log(lib)
         usage, warnings = build.ptxas_usage(log), build.ptxas_warnings(log)
         listing = build.sass(lib)
         if listing is None:
             raise AssertionError(f"no SASS listing of {lib} (cuobjdump "
                                  f"missing or failed)")
-        mma = build.sass_opcode_counts(listing, opcode)
         maxnreg = build.sass_setmaxnreg(listing)
         dynamic = getattr(build.load(lib), query)
         dynamic.restype = restype
         dynamic.argtypes = argtypes
-        for key, name, args in kernels:
+        for key, name, args, opcode, form in kernels:
             found = [u for fn, u in usage.items() if name in fn]
             if len(found) != 1:
                 raise AssertionError(f"{name}: no single ptxas entry: "
                                      f"{usage}")
             u = found[0]
+            mma = build.sass_opcode_counts(listing, opcode, form)
             info[key] = {
                 "registers": u["registers"],
                 "sass_setmaxnreg": {k: v for fn, kinds in maxnreg.items()
@@ -466,6 +505,7 @@ def phase_build_facts(port) -> dict:
                 "spills": u["spill_stores"] + u["spill_loads"],
                 "smem_bytes": u["smem_bytes"] + dynamic(*args),
                 "dynamic_smem_bytes": dynamic(*args),
+                "matrix_opcode": opcode + (f".{form}" if form else ""),
                 f"sass_{opcode.lower()}": sum(n for fn, n in mma.items()
                                               if name in fn),
                 "ptxas_warnings": [w["code"] for w in warnings
@@ -473,7 +513,8 @@ def phase_build_facts(port) -> dict:
                                    or name in w["function"]]}
     emit(info)
     for key, opcode in (("fwd", "hgmma"), ("dkv", "hgmma"), ("dq", "hgmma"),
-                        ("k4", "hgmma"), ("k3_tc", "hmma")):
+                        ("k4", "hgmma"), ("k3_tc", "hmma"),
+                        ("fwd_f32", "hmma"), ("k4_f32", "hmma")):
         if info[key]["spills"] or not info[key][f"sass_{opcode}"] > 0 or \
                 serialised & set(info[key]["ptxas_warnings"]):
             raise AssertionError(f"{key}: {info[key]}")
@@ -512,15 +553,17 @@ def phase_kernels(port, device, cases) -> dict:
         q, k, v = _qkv(B, H, N, dtype, device, seed=len(results))
         scale = 64 ** -0.5
         got = att.flash_mha(q, k, v, scale, kv_valid=kv_valid)
+        again = att.flash_mha(q, k, v, scale, kv_valid=kv_valid)
         want = att.flash_mha_reference(q, k, v, scale, kv_valid=kv_valid)
         if device.type == "cuda":
             torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         finite = bool(torch.isfinite(got).all())
+        same = torch.equal(_bits(got), _bits(again))
         res = {"phase": "kernel_check", "kernel": "flash_attention",
                "case": label, "shape": [B, H, N, 64], "kv_valid": kv_valid,
                "dtype": str(dtype).replace("torch.", ""),
-               "max_abs_err": err, "tol": tol}
+               "max_abs_err": err, "tol": tol, "bit_equal_rerun": same}
         if timed:
             n_keys = N if kv_valid is None else kv_valid
             res["plain_ms"] = device_ms(
@@ -539,11 +582,17 @@ def phase_kernels(port, device, cases) -> dict:
                 else PEAK_F32_FLOPS
             res["bound_ms"], res["bound_by"] = attention_bound_ms(
                 B, H, N, n_keys, 64, got.element_size(), peak)
+            if dtype == torch.float32:
+                res["tc_bound_ms"], res["tc_bound_by"] = attention_bound_ms(
+                    B, H, N, n_keys, 64, 4, PEAK_3XTF32_FLOPS)
         emit(res)
-        if not finite or not err <= tol:
+        if not finite or not err <= tol or not same:
             raise AssertionError(f"flash_attention {label}: max abs err "
-                                 f"{err} > {tol} (finite={finite})")
+                                 f"{err} > {tol} (finite={finite}, "
+                                 f"bit-equal rerun={same})")
         results[label] = res
+        del q, k, v, got, again, want
+        torch.cuda.empty_cache()
     return results
 
 
@@ -697,6 +746,7 @@ def phase_train(port, device, card: str = "") -> dict:
     info = {"phase": "train", "card": card, "argv": argv,
             "wall_s": wall, "feature_build_s": phase["feature_build"],
             "k1_launches_in_bank_build": k1,
+            "k1_f32_launches": att.LAUNCHES["flash_attention_f32"],
             "k2_launches": k2, "k2_vector_launches": k2_vector,
             "train_steps": steps, "eval_steps": evals,
             "train_s": phase["train"], "eval_s": phase["eval"],
@@ -726,6 +776,58 @@ def phase_train(port, device, card: str = "") -> dict:
         raise AssertionError(f"reloaded best checkpoint evaluates "
                              f"differently: {reload_diff}, "
                              f"{again['main_auroc']} vs {res.best_metric}")
+    return info
+
+
+def phase_f32_train(port, device, card: str = "") -> dict:
+    """The training CLI at full width in float32 (``--mixed_precision
+    no``, the reference-precision path) on the encode-once tier, 1 epoch
+    of 4 batches of 32 on the 240 synthetic stays: the bank build runs the
+    ViT through K1's float32 forward (``flash_fwd_f32``) and each step
+    gathers float32 bank rows through K2. K1's and K2's launches counted
+    over exactly this run, every K1 launch a float32 one; finite losses;
+    K2 twice per train and eval step, on the bulk route."""
+    import torch
+    shutil.rmtree(RUNS, ignore_errors=True)
+    argv = ["--device", "cuda", "--mixed_precision", "no",
+            "--cxr_feature_cache", "hbm", "--synthetic_stays", "240",
+            "--batch_size", "32", "--epochs", "1", "--limit_batches", "4",
+            "--ckpt_dir", RUNS]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_teacher"].main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    k1, k1_bf16 = launches["flash_attention_f32"], launches["flash_attention"]
+    k2, k2_vector = launches["gather_rows_bulk"], launches["gather_rows"]
+    ex = res.extras
+    steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
+    phase = ex["phase_seconds"]
+    info = {"phase": "f32_train", "card": card, "argv": argv,
+            "wall_s": wall, "feature_build_s": phase["feature_build"],
+            "k1_launches_in_bank_build": k1, "k1_bf16_launches": k1_bf16,
+            "launches": launches,
+            "k2_launches": k2, "k2_vector_launches": k2_vector,
+            "train_steps": steps, "eval_steps": evals,
+            "train_s": phase["train"],
+            "train_step_ms": phase["train"] / steps * 1e3,
+            "epoch_losses": [h["train_total"] for h in res.history],
+            "val_auroc": [h["val_main_auroc"] for h in res.history],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(info)
+    shutil.rmtree(RUNS, ignore_errors=True)
+    if not all(np.isfinite(x) for x in info["epoch_losses"]):
+        raise AssertionError(f"non-finite losses {info['epoch_losses']}")
+    if k1 == 0 or k1_bf16:
+        raise AssertionError(f"the float32 bank build launched K1's float32 "
+                             f"kernel {k1} times and its bf16 one {k1_bf16}")
+    if k2 != 2 * (steps + evals) or k2_vector:
+        raise AssertionError(f"K2 launched {k2} times (vector route "
+                             f"{k2_vector}) over {steps} train and {evals} "
+                             f"eval steps, expected 2 per step, bulk")
     return info
 
 
@@ -1003,6 +1105,9 @@ def phase_backward(port, device, cases) -> dict:
                 res[f"{kind}_bound_ms"], res[f"{kind}_bound_by"] = \
                     backward_bound_ms(kind, B, H, N, n_keys,
                                       q.element_size(), peak)
+                if dtype == torch.float32:
+                    res[f"{kind}_tc_bound_ms"] = backward_bound_ms(
+                        kind, B, H, N, n_keys, 4, PEAK_3XTF32_FLOPS)[0]
             del out, fn_out, leaves
         emit(res)
         if not (finite and max(rel.values()) <= tol and lse_err <= TOL_LSE
@@ -1065,10 +1170,11 @@ def phase_block_grad(port, device, batch: int = 2) -> dict:
             "rel_err": rel,
             "tol": BLOCK_TOL}
     emit(info)
-    if launches != {"flash_attention": 1, "flash_attention_bwd_delta": 1,
-                    "flash_attention_bwd_dkv": 1,
-                    "flash_attention_bwd_dq": 1}:
-        raise AssertionError(f"the block's gradient did not run K1's "
+    once = {**dict.fromkeys(launches, 0),
+            "flash_attention_f32": 1, "flash_attention_bwd_delta_f32": 1,
+            "flash_attention_bwd_dkv_f32": 1, "flash_attention_bwd_dq_f32": 1}
+    if launches != once:
+        raise AssertionError(f"the block's gradient did not run K1's float32 "
                              f"forward and backward once each: {launches}")
     if not rel[worst] <= BLOCK_TOL:
         raise AssertionError(f"block gradients disagree: {worst} "
@@ -1114,7 +1220,8 @@ def phase_unfreeze(port, device, card: str = "") -> dict:
             "max_abs_change": max(float((trained[k] - init[k]).abs().max())
                                   for k in keys)}
     n = tcfg.vit.n_layers
-    expect = {"flash_attention": n * (steps + evals),
+    expect = {**dict.fromkeys(launches, 0),
+              "flash_attention": n * (steps + evals),
               "flash_attention_bwd_delta": n * steps,
               "flash_attention_bwd_dkv": n * steps,
               "flash_attention_bwd_dq": n * steps}
@@ -1216,7 +1323,8 @@ def reset_counts(port) -> None:
 
 
 def read_counts(port) -> dict:
-    """Every kernel wrapper's launches, by C entry point."""
+    """Every kernel's launches: by C entry point, and K1's and K4's float32
+    kernels under their own keys (``flash_attention_f32``, ...)."""
     return {k: v for name in ("attention", "gather", "dual_axis", "ln_qkv")
             for k, v in port[name].LAUNCHES.items()}
 
@@ -1309,6 +1417,9 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
                "workspace_bytes": DA.workspace_bytes(B, L, D, ff)
                if way == "tc" else 0,
                "ms": ms, "plain_ms": plain_ms,
+               **({"tc_bound_ms": dual_axis_bound_ms(
+                   B, L, D, inner, ff, 4, PEAK_3XTF32_FLOPS)[0]}
+                  if dtype == torch.float32 else {}),
                "device_ms": dev_ms,
                "device_busy_ms": prof.get("device_busy_ms_per_step",
                                           "not measured"),
@@ -1431,6 +1542,9 @@ def phase_ln_qkv(port, device, cases) -> dict:
         res["ms"], res["library_ms"] = paired_ms([kernel, library], device)
         res["vs_library"] = res["ms"] / res["library_ms"]
         res["share_of_bound"] = bound / res["ms"]
+        if dtype == torch.float32:
+            res["tc_bound_ms"], res["tc_bound_by"] = ln_qkv_bound_ms(
+                B, N, D, inner, 4, PEAK_3XTF32_FLOPS)
         emit(res)
         if not (finite and shapes and max(rel.values()) <= tol and same):
             raise AssertionError(f"ln_qkv {label}: {res}")
@@ -1688,10 +1802,10 @@ def phase_golden(port, device, cfg, golden_path) -> dict:
     S = cfg.image_size
     px = (np.linspace(0, 1, 2 * S * S * 3, dtype=np.float32)
           .reshape(2, S, S, 3) * 0.8 + 0.1)
-    before = att.LAUNCHES["flash_attention"]
+    before = dict(att.LAUNCHES)
     with torch.inference_mode():
         cls, patches = model(torch.from_numpy(px).to(device))
-    launches = att.LAUNCHES["flash_attention"] - before
+    launches = {k: n - before[k] for k, n in att.LAUNCHES.items()}
     cls = cls.float().cpu().numpy()
     patches = patches.float().cpu().numpy()
     got = {"cls": cls, "patch_slice": patches[:, ::137, ::96],
@@ -1707,9 +1821,11 @@ def phase_golden(port, device, cfg, golden_path) -> dict:
     for k, v in got.items():
         np.testing.assert_allclose(v, ref[k], atol=2e-4, rtol=1e-3,
                                    err_msg=f"golden mismatch: {k}")
-    if device.type == "cuda" and launches != cfg.n_layers:
-        raise AssertionError(f"golden ViT launched K1 {launches} times, "
-                             f"expected {cfg.n_layers}")
+    if device.type == "cuda" and launches != {
+            **dict.fromkeys(launches, 0), "flash_attention_f32": cfg.n_layers}:
+        raise AssertionError(f"golden ViT launched K1's kernels {launches}, "
+                             f"expected the float32 forward {cfg.n_layers} "
+                             f"times")
     return info
 
 
@@ -1803,6 +1919,7 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
             th.join(timeout=600)
         wall = time.perf_counter() - t0
         launches = att.LAUNCHES["flash_attention"]
+        launches_f32 = att.LAUNCHES["flash_attention_f32"]
         stats = pred.stats()
         peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
             else None
@@ -1861,7 +1978,7 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
             "clients": n_clients,
             "batches": stats["n_batches"],
             "batch_size_hist": stats["batch_size_hist"],
-            "k1_launches": launches,
+            "k1_launches": launches, "k1_f32_launches": launches_f32,
             "k1_launches_per_batch": launches / max(stats["n_batches"], 1),
             "samples_per_s": n_req / wall, "wall_s": wall,
             "latency_ms_p50": float(np.percentile(lat, 50)),
@@ -1918,11 +2035,14 @@ def main() -> int:
         ("bank_build_bf16", 16, 12, 1370, None, bf16, TOL_BF16, True),
         ("pixel_step_bf16", 32, 12, 1370, None, bf16, TOL_BF16, True),
         ("ragged_bf16", 2, 12, 1000, 900, bf16, TOL_BF16, False),
+        ("bank_build_f32", 16, 12, 1370, None, f32, TOL_F32, True),
+        ("pixel_step_f32", 32, 12, 1370, None, f32, TOL_F32, True),
         ("f32", 2, 12, 1370, 1301, f32, TOL_F32, True),
     ])
     bwd = phase_backward(port, device, [
         ("pixel_step_bf16", 32, 12, 1370, None, bf16, TOL_BWD_BF16, True),
         ("ragged_bf16", 2, 12, 1001, 900, bf16, TOL_BWD_BF16, False),
+        ("pixel_step_f32", 32, 12, 1370, None, f32, TOL_BWD_F32, True),
         ("f32", 2, 12, 1370, 1301, f32, TOL_BWD_F32, False),
     ])
     k3 = phase_dual_axis(port, device, [
@@ -1936,13 +2056,15 @@ def main() -> int:
     k4 = phase_ln_qkv(port, device, [
         ("vit_bf16", 32, 1536, 768, 12, bf16, TOL_FUSED_BF16),
         ("ragged_bf16", 2, 200, 96, 3, bf16, TOL_FUSED_BF16),
+        ("vit_f32", 32, 1536, 768, 12, f32, TOL_FUSED_F32),
         ("f32", 2, 512, 256, 4, f32, TOL_FUSED_F32),
     ])
     k3_checks = {way: read_counts(port)[kernel] for way, kernel in
                  port["dual_axis"].ROUTE_KERNELS.items()}
     k4_checks = read_counts(port)["ln_qkv"]
-    phase_golden(port, device, cfgmod.ViTConfig(), GOLDEN)
-    phase_block_grad(port, device)
+    k4_f32_checks = read_counts(port)["ln_qkv_f32"]
+    golden = phase_golden(port, device, cfgmod.ViTConfig(), GOLDEN)
+    block = phase_block_grad(port, device)
     serve = phase_serve(port, device, cfgmod.TeacherConfig(), n_clients=12,
                         posts_per_client=4, card=dev["nvidia_smi"])
 
@@ -1950,6 +2072,7 @@ def main() -> int:
     train = phase_train(port, device, card=dev["nvidia_smi"])
     phase_tiers(port, device, cfgmod.TeacherConfig(),
                 gathers["patch_bf16"]["ms"] + gathers["cls_bf16"]["ms"])
+    f32_train = phase_f32_train(port, device, card=dev["nvidia_smi"])
     unfreeze = phase_unfreeze(port, device, card=dev["nvidia_smi"])
     phase_unfreeze_step(port, device, cfgmod.TeacherConfig())
     ssl = phase_ssl(port, device, card=dev["nvidia_smi"])
@@ -1992,6 +2115,89 @@ def main() -> int:
          "backward_vs_library": b["backward_vs_library"], **built[kind]}
         for kind, replaces, grads in (("dkv", K1_DKV_REPLACES, ("dk", "dv")),
                                       ("dq", K1_DQ_REPLACES, ("dq",)))]
+    # the float32 routes (--mixed_precision no, the goldens, the block's
+    # gradient), each counted under its own key. K1's forward takes its
+    # launches, its case and its times from the float32 training run's
+    # bank build, at [16, 12, 1370, 64]; the pixel step's [32, ...] times
+    # stand beside them. The backward's float32 kernels run on no training
+    # path of this script, so theirs come from the full-width block's
+    # gradient, at the pixel step's shape; K4 has no caller.
+    # tc_bound_ms: the same work as 3xTF32 tensor-core products.
+    k1f, k1p, bf = checks["bank_build_f32"], checks["pixel_step_f32"], \
+        bwd["pixel_step_f32"]
+    case_f32 = "pixel_step_f32 [32, 12, 1370, 64]"
+    n_f32 = f32_train["launches"]
+
+    def f32_by_path(name, **earlier):
+        return by_path(name, f32_train=n_f32[name], unfreeze=n_k1[name],
+                       block_grad=block["launches"].get(name, 0), **earlier)
+
+    f32_rows = [
+        {"name": "flash_attention_fwd_f32", "route": "cuda",
+         "source": K1_SOURCE, "replaces": K1_REPLACES,
+         "launches": n_f32["flash_attention_f32"],
+         "launches_by_path": f32_by_path(
+             "flash_attention_f32", serve=serve["k1_f32_launches"],
+             train=train["k1_f32_launches"],
+             golden=golden["kernel_launches"]["flash_attention_f32"]),
+         "case": "bank_build_f32 [16, 12, 1370, 64]",
+         "bit_equal_rerun": k1f["bit_equal_rerun"],
+         "fwd_vs_library": k1f["fwd_vs_library"],
+         "tc_bound_ms": k1f["tc_bound_ms"], **built["fwd_f32"],
+         **{k: k1f[k] for k in keys},
+         "pixel_step": {"case": case_f32, "ms_with_lse": bf["fwd_lse_ms"],
+                        "max_abs_err": k1p["max_abs_err"],
+                        **{k: k1p[k] for k in (
+                            "ms", "library_ms", "fwd_vs_library", "bound_ms",
+                            "tc_bound_ms", "plain_ms")}}},
+        {"name": "flash_attention_bwd_delta_f32", "route": "cuda",
+         "source": K1_BWD_SOURCE, "replaces": K1_DELTA_REPLACES,
+         "launches": block["launches"]["flash_attention_bwd_delta_f32"],
+         "launches_by_path": f32_by_path("flash_attention_bwd_delta_f32"),
+         "case": case_f32, "max_abs_err": bf["delta_max_abs_err"],
+         "ms": bf["delta_ms"], "plain_ms": bf["delta_plain_ms"],
+         "bound_ms": bf["delta_bound_ms"], "bound_by": "bytes",
+         "tc_bound_ms": bf["delta_bound_ms"], "library_ms": None},
+        *[{"name": f"flash_attention_bwd_{kind}_f32", "route": "cuda",
+           "source": K1_BWD_SOURCE, "replaces": replaces,
+           "launches": block["launches"][f"flash_attention_bwd_{kind}_f32"],
+           "launches_by_path": f32_by_path(f"flash_attention_bwd_{kind}_f32"),
+           "case": case_f32,
+           "max_abs_err": max(bf["max_abs_err"][g] for g in grads),
+           "ms": bf[f"{kind}_ms"], "plain_ms": bf["plain_ms"],
+           "bound_ms": bf[f"{kind}_bound_ms"],
+           "bound_by": bf[f"{kind}_bound_by"],
+           "tc_bound_ms": bf[f"{kind}_tc_bound_ms"],
+           "library_ms": bf["library_ms"], "pair_ms": bf["pair_ms"],
+           "pair_vs_library": bf["pair_vs_library"],
+           "delta_ms": bf["delta_ms"], "backward_ms": bf["backward_ms"],
+           "backward_vs_library": bf["backward_vs_library"]}
+          for kind, replaces, grads in (
+              ("dkv", K1_DKV_REPLACES, ("dk", "dv")),
+              ("dq", K1_DQ_REPLACES, ("dq",)))],
+        {"name": "gather_rows_bulk_f32", "route": "cuda",
+         "source": K2_SOURCE, "replaces": K2_REPLACES,
+         "launches": f32_train["k2_launches"],
+         "launches_by_path": {"f32_train": f32_train["k2_launches"]},
+         "case": "patch_f32 [401, 1370, 768] x 32 rows",
+         "tc_bound_ms": gathers["patch_f32"]["bound_ms"],
+         **{k: gathers["patch_f32"][k] for k in keys + (
+             "vs_library", "device_ms", "library_device_ms")}},
+        {"name": "ln_qkv_f32", "route": "cuda", "source": K4_SOURCE,
+         "replaces": K4_REPLACES,
+         "launches": n_f32["ln_qkv_f32"],
+         "launches_by_path": by_path("ln_qkv_f32",
+                                     f32_train=n_f32["ln_qkv_f32"]),
+         "check_launches": {"kernel_check": k4_f32_checks},
+         "case": "vit_f32 [32, 1536, 768] 12 x 64",
+         "library_calls": k4["vit_f32"]["library_calls"],
+         "tc_bound_ms": k4["vit_f32"]["tc_bound_ms"], **built["k4_f32"],
+         **{k: k4["vit_f32"][k] for k in keys + ("vs_library",)}}]
+    # a 3xTF32 kernel can go under bound_ms (float32 FMA), never under
+    # tc_bound_ms: each row gives the share of both
+    for row in f32_rows:
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        row["tc_share_of_bound"] = row["tc_bound_ms"] / row["ms"]
     delta_row = {
         "name": "flash_attention_bwd_delta", "route": "cuda",
         "source": K1_BWD_SOURCE, "replaces": K1_DELTA_REPLACES,
@@ -2021,8 +2227,9 @@ def main() -> int:
         {"name": "gather_rows_bulk", "route": "cuda", "source": K2_SOURCE,
          "replaces": K2_REPLACES, "launches": train["k2_launches"],
          "case": "patch_bf16 [401, 1370, 768] x 32 rows",
-         "launches_by_path": by_path("gather_rows_bulk",
-                                     train=train["k2_launches"]),
+         "launches_by_path": by_path(
+             "gather_rows_bulk", train=train["k2_launches"],
+             f32_train=f32_train["k2_launches"]),
          "vector_launches_by_path": by_path(
              "gather_rows", train=train["k2_vector_launches"]),
          "routes": {c: gathers[c]["route"] for c in gathers},
@@ -2052,8 +2259,11 @@ def main() -> int:
                             "trained_layer": trained["launches"]
                             - trained["tc_launches"]},
          "case": "time_f32 [32, 25, 840]",
+         "tc_share_of_bound": k3["time_f32"]["tc_bound_ms"]
+         / k3["time_f32"]["ms"],
          **{k: k3["time_f32"][k] for k in keys + (
-             "device_ms", "device_busy_ms", "plain_device_ms")}},
+             "tc_bound_ms", "device_ms", "device_busy_ms",
+             "plain_device_ms")}},
         {"name": "ln_qkv", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES, "launches": n_ssl["ln_qkv"],
          "launches_by_path": by_path("ln_qkv"),
@@ -2062,7 +2272,8 @@ def main() -> int:
          "library_calls": k4["vit_bf16"]["library_calls"],
          **built["k4"],
          **{k: k4["vit_bf16"][k] for k in keys + ("vs_library",
-                                                  "share_of_bound")}}]})
+                                                  "share_of_bound")}},
+        *f32_rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0

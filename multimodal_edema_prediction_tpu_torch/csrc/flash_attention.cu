@@ -46,8 +46,33 @@
 // are set to -inf before the row max. l sums P before its rounding to bf16,
 // as FA2 does.
 //
-// The float32 kernel is a plain SIMT loop (one thread per query row, f32 FMA,
-// no TF32) for the reference-precision paths (checks against float32 goldens).
+// The float32 kernel (flash_fwd_f32) serves the reference-precision paths
+// (--mixed_precision no, the float32 goldens). Its bound at [32, 12, 1370,
+// 64] is 2.75 ms of float32 FMA (67 TFLOP/s), where its first design, one
+// thread a query row with every FMA waiting on a shared-memory load, ran
+// at a fifth of that rate. So its products go to the tensor cores in
+// float32 accuracy, as 3xTF32 mma.sync m16n8k8 (mma_tf32.cuh: 1.12 ms of
+// TF32 products at 495 TFLOP/s):
+//   - A block of 8 warps owns 128 query rows, 16 a warp. Each warp loads
+//     its rows of Q once, scaled into log2 units, and keeps them split into
+//     TF32 big and small parts in shared memory.
+//   - 64-key tiles of K and V come in by cp.async into a double buffer.
+//     Once a tile has landed, each thread splits the chunks it copied:
+//     K into big (in place) and small parts, V into big, small and tiny
+//     ones, so every value is split once a block rather than once a warp
+//     (split in each warp, the conversions held the kernel at 1.1x SDPA's
+//     float32 forward on an H100). Rows are padded so that the fragment
+//     loads meet no bank conflict.
+//   - S = Q K^T and O += P V are both 3xTF32 products, V in three parts (a
+//     fourth product) so that a key of weight 1 gives its row of V
+//     exactly. Each pair of k-steps is summed on the tensor cores from
+//     zero, a kind of product at a time over 8 (S) or 4 (P V) accumulator
+//     tiles so that no product waits on the one before it, and then added
+//     in float32. The online softmax (ex2.approx, running max and sum)
+//     stays in registers, and with the k order of mma_tf32.cuh the
+//     scores' accumulator is P's A fragment as it stands.
+//   - Keys past n_keys are zero-filled by the copies and set to -inf before
+//     the row max; lse as for bf16.
 //
 // Layout: every tensor is [B, H, N, 64] with arbitrary batch/head/token strides
 // (in elements) and a contiguous head dim, so q/k/v can be strided views of a
@@ -73,6 +98,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -88,8 +114,9 @@ constexpr int kProducer = 8;   // the producer's warp (its group's first)
 constexpr int kProducerRegs = 40;   // registers a thread after setmaxnreg:
 constexpr int kConsumerRegs = 232;  // 128 (40 + 2 x 232) <= 65536
 constexpr uint32_t kTileBytes = kTile * kD * 2;
-constexpr int kBM = 64;        // query rows per block (f32 kernel)
-constexpr int kBNf = 32;       // keys per tile (f32 kernel)
+constexpr int kRowsF32 = 128;    // query rows per block (f32): 16 a warp
+constexpr int kThreadsF32 = 256;
+constexpr int kKeysF32 = 64;     // keys per streamed tile (f32)
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Params {
@@ -317,71 +344,257 @@ flash_fwd_bf16(const __grid_constant__ Maps m, const Params p) {
   }
 }
 
-__global__ void __launch_bounds__(kBM)
-flash_fwd_f32(const Params p) {
-  __shared__ __align__(16) float Ks[kBNf][kD];
-  __shared__ __align__(16) float Vs[kBNf][kD];
+// ---------------------------------------------------------------------------
+// float32: mma.sync m16n8k8 on split TF32 operands (3xTF32, mma_tf32.cuh)
+// ---------------------------------------------------------------------------
+// the float32 kernel's shared memory. K and V tiles [key][64] land raw in a
+// double buffer and are split in place into their TF32 big parts, their
+// small (and V's tiny) parts beside them; rows are padded so that the
+// fragment loads meet no bank conflict (K read as B [n = key][k = d] by
+// 8-byte loads: a row stride of 8 mod 32 words; V as B [k = key][n = d] by
+// 4-byte loads: 4 mod 16 words). Q, scaled and split, for the whole loop.
+constexpr int kLdK = kD + 8;
+constexpr int kLdV = kD + 4;
 
+struct F32Smem {
+  float kb[2][kKeysF32][kLdK];
+  float vb[2][kKeysF32][kLdV];
+  float ks[kKeysF32][kLdK];
+  float vs[kKeysF32][kLdV];
+  float vt[kKeysF32][kLdV];
+  float qb[kRowsF32][kLdK];
+  float qs[kRowsF32][kLdK];
+};
+
+// The rows of one [kKeysF32, 64] tile from device memory (rows past n_keys
+// zero-filled) into the padded shared rows, 16 bytes a copy: this thread's
+// chunks are rows tid / 16 + 16 i, columns 4 (tid % 16) ...
+constexpr int kCopyStep = kThreadsF32 / (kD / 4);
+
+template <int LD>
+__device__ __forceinline__ void load_tile_f32(float (*dst)[LD],
+                                              const float* src,
+                                              long long stride, int n0,
+                                              int n_keys) {
+  const int r0 = threadIdx.x / (kD / 4), col = threadIdx.x % (kD / 4) * 4;
+#pragma unroll
+  for (int i = 0; i < kKeysF32 / kCopyStep; ++i) {
+    const int r = r0 + kCopyStep * i;
+    const bool ok = n0 + r < n_keys;
+    cp_async16(smem_u32(&dst[r][col]),
+               src + (ok ? (n0 + r) * stride + col : 0), ok);
+  }
+}
+
+// ... which it splits once they have landed (no other thread's copies are
+// read): K into big (in place) and small, V into big, small and tiny
+__device__ __forceinline__ void split_tile_f32(F32Smem& s, int st) {
+  const int r0 = threadIdx.x / (kD / 4), col = threadIdx.x % (kD / 4) * 4;
+#pragma unroll
+  for (int i = 0; i < kKeysF32 / kCopyStep; ++i) {
+    const int r = r0 + kCopyStep * i;
+    float4* kp = reinterpret_cast<float4*>(&s.kb[st][r][col]);
+    float4* vp = reinterpret_cast<float4*>(&s.vb[st][r][col]);
+    const float4 kx = *kp, vx = *vp;
+    const float kv[4] = {kx.x, kx.y, kx.z, kx.w};
+    const float vv[4] = {vx.x, vx.y, vx.z, vx.w};
+    float kbig[4], ksm[4], vbig[4], vsm[4], vtn[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      uint32_t bg, sm;
+      split_tf32(kv[e], bg, sm);
+      kbig[e] = __uint_as_float(bg);
+      ksm[e] = __uint_as_float(sm);
+      const uint32_t vbg = to_tf32(vv[e]);
+      const float rest = vv[e] - __uint_as_float(vbg);
+      const uint32_t vsg = to_tf32(rest);
+      vbig[e] = __uint_as_float(vbg);
+      vsm[e] = __uint_as_float(vsg);
+      vtn[e] = __uint_as_float(to_tf32(rest - vsm[e]));
+    }
+    *kp = make_float4(kbig[0], kbig[1], kbig[2], kbig[3]);
+    *reinterpret_cast<float4*>(&s.ks[r][col]) =
+        make_float4(ksm[0], ksm[1], ksm[2], ksm[3]);
+    *vp = make_float4(vbig[0], vbig[1], vbig[2], vbig[3]);
+    *reinterpret_cast<float4*>(&s.vs[r][col]) =
+        make_float4(vsm[0], vsm[1], vsm[2], vsm[3]);
+    *reinterpret_cast<float4*>(&s.vt[r][col]) =
+        make_float4(vtn[0], vtn[1], vtn[2], vtn[3]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsF32, 1)
+flash_fwd_f32(const Params p) {
+  F32Smem& s = smem_1024<F32Smem>();
   const int b = blockIdx.z, h = blockIdx.y;
-  const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const float* k = static_cast<const float*>(p.k) + b * p.skb + h * p.skh;
   const float* v = static_cast<const float*>(p.v) + b * p.svb + h * p.svh;
-  const int row = blockIdx.x * kBM + threadIdx.x;
+  const int n_tiles = (p.n_keys + kKeysF32 - 1) / kKeysF32;
+  load_tile_f32(s.kb[0], k, p.skn, 0, p.n_keys);
+  load_tile_f32(s.vb[0], v, p.svn, 0, p.n_keys);
+  cp_async_commit();
 
-  float qr[kD], acc[kD];
+  // the warp's 16 query rows (this thread's r0 and r1 = r0 + 8), scaled
+  // into log2 units and split once into shared memory, where the warp
+  // reads them as the A fragments of the 8 k-steps over the head dim
+  // (rows past Nq read 0)
+  const int w0 = warp * 16, r0 = blockIdx.x * kRowsF32 + w0 + g, r1 = r0 + 8;
+  {
+    const float* q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
+    const float2 zero = make_float2(0.f, 0.f);
 #pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    qr[d] = row < p.Nq ? q[row * p.sqn + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-
-  for (int n0 = 0; n0 < p.n_keys; n0 += kBNf) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < kBNf * kD / 4; c += blockDim.x) {
-      const int r = c / (kD / 4), col = (c % (kD / 4)) * 4;
-      float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-      if (n0 + r < p.n_keys) {
-        kv = *reinterpret_cast<const float4*>(k + (n0 + r) * p.skn + col);
-        vv = *reinterpret_cast<const float4*>(v + (n0 + r) * p.svn + col);
+    for (int kk = 0; kk < 8; ++kk) {
+      const int c = kk * 8 + 2 * t;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = hh ? r1 : r0;
+        const float2 x = r < p.Nq
+            ? *reinterpret_cast<const float2*>(q + r * p.sqn + c) : zero;
+        uint32_t big[2], small[2];
+        split_tf32(x.x * p.scale_log2, big[0], small[0]);
+        split_tf32(x.y * p.scale_log2, big[1], small[1]);
+        *reinterpret_cast<uint2*>(&s.qb[w0 + g + 8 * hh][c]) =
+            make_uint2(big[0], big[1]);
+        *reinterpret_cast<uint2*>(&s.qs[w0 + g + 8 * hh][c]) =
+            make_uint2(small[0], small[1]);
       }
-      *reinterpret_cast<float4*>(&Ks[r][col]) = kv;
-      *reinterpret_cast<float4*>(&Vs[r][col]) = vv;
     }
-    __syncthreads();
+    __syncwarp();
+  }
+  float o[8][4];
+  zero_acc(o);
+  float mrow[2] = {-INFINITY, -INFINITY}, lrow[2] = {0.f, 0.f};
 
-    float s[kBNf];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kBNf; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < kD; ++d) dot = fmaf(qr[d], Ks[j][d], dot);
-      s[j] = n0 + j < p.n_keys ? dot * p.scale_log2 : -INFINITY;
-      mx = fmaxf(mx, s[j]);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, n0 = it * kKeysF32;
+    if (it + 1 < n_tiles) {  // the next tile streams in under this one
+      load_tile_f32(s.kb[st ^ 1], k, p.skn, n0 + kKeysF32, p.n_keys);
+      load_tile_f32(s.vb[st ^ 1], v, p.svn, n0 + kKeysF32, p.n_keys);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    const float mn = fmaxf(m, mx);
-    const float a = exp2f(m - mn);
-    m = mn;
-    l *= a;
+    split_tile_f32(s, st);
+    __syncthreads();  // the tile is split and in place
+
+    // S = (Q scale_log2) K^T: 8 key columns of 8, the head dim in 4 pairs
+    // of k-steps, each pair's products summed on the tensor cores and then
+    // added to S in float32
+    float sc[8][4];
 #pragma unroll
-    for (int d = 0; d < kD; ++d) acc[d] *= a;
+    for (int kp = 0; kp < 4; ++kp) {
+      float d[8][4];
 #pragma unroll
-    for (int j = 0; j < kBNf; ++j) {
-      const float pj = exp2f(s[j] - m);
-      l += pj;
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int k0 = (2 * kp + h2) * 8;
+        uint32_t ab[4], as[4], bb[8][2], bs[8][2];
+        load_a_frag(ab, &s.qb[w0][0], kLdK, g, k0, t);
+        load_a_frag(as, &s.qs[w0][0], kLdK, g, k0, t);
 #pragma unroll
-      for (int d = 0; d < kD; ++d) acc[d] = fmaf(pj, Vs[j][d], acc[d]);
+        for (int j = 0; j < 8; ++j) {
+          load_b_nk(bb[j], &s.kb[st][0][0], kLdK, j * 8 + g, k0, t);
+          load_b_nk(bs[j], &s.ks[0][0], kLdK, j * 8 + g, k0, t);
+        }
+        if (h2 == 0)
+          mma_3xtf32_sweep_d<true>(d, ab, as, bb, bs);
+        else
+          mma_3xtf32_sweep_d<false>(d, ab, as, bb, bs);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[j][e] = kp ? sc[j][e] + d[j][e] : d[j][e];
     }
+
+    // online softmax of rows r0 and r1: keys past n_keys (only the last
+    // tile has any) -inf before the row max; every tile holds a key below
+    // n_keys, so the maxima are finite
+    const bool ragged = n0 + kKeysF32 > p.n_keys;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (ragged && n0 + j * 8 + 2 * t + (e & 1) >= p.n_keys)
+          sc[j][e] = -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[j][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(mrow[r], quad_max(mx[r]));
+      alpha[r] = exp2_fast(mrow[r] - mn);
+      mrow[r] = mn;
+      lrow[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[j][e] = exp2_fast(sc[j][e] - mrow[e >> 1]);
+        lrow[e >> 1] += sc[j][e];
+        o[j][e] *= alpha[e >> 1];  // O's column tile j (of the head dim)
+      }
+    }
+
+    // O += P V: P's 8-key column tile j is the A fragment of k-step j;
+    // pairs of k-steps summed on the tensor cores, 4 columns of 8 of the
+    // head dim at a time, then added to O
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      uint32_t pb[2][4], ps[2][4];
+      acc_to_a_tf32(pb[0], ps[0], sc[2 * jp]);
+      acc_to_a_tf32(pb[1], ps[1], sc[2 * jp + 1]);
+#pragma unroll
+      for (int nh = 0; nh < 2; ++nh) {
+        float d[4][4];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const int k0 = (2 * jp + h2) * 8;
+          uint32_t bb[4][2], bs[4][2], bt[4][2];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int n = (nh * 4 + q) * 8 + g;
+            load_b_kn(bb[q], &s.vb[st][0][0], kLdV, n, k0, t);
+            load_b_kn(bs[q], &s.vs[0][0], kLdV, n, k0, t);
+            load_b_kn(bt[q], &s.vt[0][0], kLdV, n, k0, t);
+          }
+          if (h2 == 0)
+            mma_3xtf32_exact_b_sweep_d<true>(d, pb[0], ps[0], bb, bs, bt);
+          else
+            mma_3xtf32_exact_b_sweep_d<false>(d, pb[1], ps[1], bb, bs, bt);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[nh * 4 + q][e] += d[q][e];
+      }
+    }
+    __syncthreads();  // every warp is done with the tile: the next one
+                      // is split into ks, vs, vt and its stage refilled
   }
 
-  store_lse(p, b, h, row, m, l);
-  if (row < p.Nq) {
-    float* o = static_cast<float*>(p.o) + b * p.sob + h * p.soh +
-               row * p.son;
-    const float inv = 1.f / l;
+  const float l0 = quad_sum(lrow[0]), l1 = quad_sum(lrow[1]);
+  if (t == 0) {
+    store_lse(p, b, h, r0, mrow[0], l0);
+    store_lse(p, b, h, r1, mrow[1], l1);
+  }
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  float* out = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
 #pragma unroll
-    for (int d = 0; d < kD; ++d) o[d] = acc[d] * inv;
+  for (int j = 0; j < 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (r0 < p.Nq)
+      *reinterpret_cast<float2*>(out + r0 * p.son + c) =
+          make_float2(o[j][0] * inv0, o[j][1] * inv0);
+    if (r1 < p.Nq)
+      *reinterpret_cast<float2*>(out + r1 * p.son + c) =
+          make_float2(o[j][2] * inv1, o[j][3] * inv1);
   }
 }
 
@@ -418,11 +631,17 @@ extern "C" int flash_attention_fwd(int dtype, const void* q, const void* k,
     return launch_bf16(flash_fwd_bf16, kThreads, smem_bytes<FwdSmem>(),
                        dim3((Nq + kOwn - 1) / kOwn, H, B), p, k, v, maps, s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  flash_fwd_f32<<<dim3((Nq + kBM - 1) / kBM, H, B), kBM, 0, s>>>(p);
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_f32, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<F32Smem>());
+  if (err != cudaSuccess) return (int)err;
+  flash_fwd_f32<<<dim3((Nq + kRowsF32 - 1) / kRowsF32, H, B), kThreadsF32,
+                  smem_bytes<F32Smem>(), s>>>(p);
   return (int)cudaGetLastError();
 }
 
-// Dynamic shared memory of the bf16 kernel's block.
-extern "C" int flash_attention_fwd_smem_bytes() {
-  return smem_bytes<FwdSmem>();
+// Dynamic shared memory of a block of the kernel of `dtype` (0 = float32,
+// 1 = bfloat16).
+extern "C" int flash_attention_fwd_smem_bytes(int dtype) {
+  return dtype == 1 ? smem_bytes<FwdSmem>() : smem_bytes<F32Smem>();
 }

@@ -50,9 +50,39 @@
 //   stage, ran slower on an H100); rows past B·N are not written. No
 //   atomics, so reruns are bit-equal.
 //
-// float32 (the reference-precision path): a block owns 32 tokens, 256
-// threads, SIMT FMA, a thread 8 rows of one column; W tiles of 32 x 64
-// through shared memory.
+// float32 (the reference-precision path): the same GEMM with the same
+// LayerNorm, its products on the tensor cores to float32 accuracy (3xTF32
+// mma.sync m16n8k8, mma_tf32.cuh). At [32, 1536, 768] float32 the FMA
+// bound is 2.6 ms and that of the TF32 products 1.05 ms; the first
+// design, SIMT FMA with W re-staged a 32 x 64 tile at a time and 9 shared
+// loads per 8 FMAs, never came near the first.
+// - A block owns 128 token rows and 256 output columns (4 heads); the
+//   grid walks the column tiles fastest, so that the blocks of one row
+//   tile run together and read x from L2. 8 warps, 2 along the rows x 4
+//   along the columns, each a 64 x 64 accumulator.
+// - The float32 mean and 1/sqrt(biased variance + eps) of every row come
+//   first, from a kernel of their own (ln_stats_f32: a warp a row, two
+//   passes as the reference takes them) into a scratch the wrapper
+//   allocates: taken in each GEMM block, they cost every column tile two
+//   more reads of its x rows, and the L2 traffic of those reads bounded
+//   the kernel.
+// - x tiles [128][32] and W tiles [32][256] come in by 16-byte cp.async
+//   into a 3-stage ring, rows padded so that the fragment loads meet no
+//   bank conflict; rows past B·N and columns past 3·H·64 read 0.
+// - As an x tile lands it is normalised in shared memory, h = (x - mean)
+//   rstd scale + bias in float32, and split once into TF32 big (in place)
+//   and small parts; W's fragments are split as they are loaded. Each
+//   thread normalises the chunks it copied itself, so one barrier a tile
+//   does: a warp normalises the next tile while others still multiply.
+// - The products go straight into the accumulators, a kind at a time over
+//   the warp's 32 accumulator tiles (mma_3xtf32_sweep), so that no product
+//   waits on the one before it: issued a k-step's three at a time into
+//   one tile, each waiting on the last, they ran 1.25x slower on an H100.
+//   The tensor cores' truncated adds along a chain of depth D stay far
+//   inside the 1e-4 of max abs that K4 is held to.
+// - Epilogue: the bias in float32, a float2 per row and column pair
+//   straight into out[3, B, H, N, 64] (row m is (m / N, m % N), so a tile
+//   may span batch elements); rows past B·N are not written. No atomics.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -60,46 +90,10 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
-
-constexpr int kDh = 64;      // head dim = the column tile
-constexpr int kBK = 32;      // depth of a W tile (float32)
-
-// h[r][:] = LN(x[row0 + r]) for r < rows (rows past N are zeros), float32;
-// one warp a row, three passes over the row in device memory (mean,
-// variance, normalise).
-__device__ __forceinline__ void layernorm_tile(
-    const float* __restrict__ x, const float* __restrict__ scale,
-    const float* __restrict__ bias, float* h, int ldh, int row0, int rows,
-    int N, int D, float eps) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  for (int r = warp; r < rows; r += n_warps) {
-    float* hr = h + (size_t)r * ldh;
-    if (row0 + r >= N) {
-      for (int d = lane; d < D; d += 32) hr[d] = 0.f;
-      continue;
-    }
-    const float* xr = x + (size_t)(row0 + r) * D;
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32) s += xr[d];
-#pragma unroll
-    for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / D;
-    float ss = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const float c = xr[d] - mean;
-      ss = fmaf(c, c, ss);
-    }
-#pragma unroll
-    for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
-    const float inv = rsqrtf(ss / D + eps);
-    for (int d = lane; d < D; d += 32)
-      hr[d] = (xr[d] - mean) * inv * scale[d] + bias[d];
-  }
-}
 
 // ---------------------------------------------------------------------------
 // bf16: 128-token tiles, x and W streamed by TMA, wgmma
@@ -414,52 +408,222 @@ __global__ void __launch_bounds__(kThreads16, 1)
 }
 
 // ---------------------------------------------------------------------------
-// float32: 32-token tiles, 256 threads, SIMT FMA
+// float32: 128-token x 256-column tiles, 3xTF32 mma.sync, a cp.async ring
 // ---------------------------------------------------------------------------
-constexpr int kBM32 = 32;
+constexpr int kThreads32 = 256;  // 8 warps: 2 along the rows x 4 the columns
+constexpr int kMT32 = 4;         // 16-row tiles of a warp's accumulator
+constexpr int kBM32 = 128;       // token rows a block
+constexpr int kBN32 = 256;       // output columns a block (4 heads)
+constexpr int kBK32 = 32;        // depth of a stage
+constexpr int kStages32 = 3;
+constexpr int kLdX = kBK32 + 8;  // h read as A by 8-byte loads: 8 mod 32
+constexpr int kLdW = kBN32 + 4;  // W read as B [k][n] by 4-byte loads
+// the rows apart of one thread's 16-byte copies: of an x tile, of a W tile
+constexpr int kXStep = kThreads32 / (kBK32 / 4);
+constexpr int kWStep = kThreads32 / (kBN32 / 4);
 
+struct F32Stage {
+  float x[kBM32][kLdX];  // the x tile, normalised in place to h's big part
+  float w[kBK32][kLdW];
+};
+
+struct F32Smem {
+  F32Stage st[kStages32];
+  float hs[2][kBM32][kLdX];  // h's small part, of the tile multiplied and
+                             // of the next
+  float2 stats[kBM32];       // (mean, rstd) of the block's rows
+};
+
+struct LnQkvF32Params {
+  const float* x;      // [B, N, D]
+  const float2* stats;  // [B·N]: (mean, rstd) of each row
+  const float* scale;  // [D]
+  const float* bias;   // [D]
+  const float* w;      // [3, D, H·64]
+  const float* b;      // [3, H·64]
+  float* out;          // [3, B, H, N, 64]
+  int B, N, D, H;
+  float eps;
+};
+
+// (mean, rstd) of each row of x [M, D], a warp a row: the mean, then the
+// mean of the squared differences from it (the rows are read again, from
+// L1 or L2)
 __global__ void __launch_bounds__(256)
-    ln_qkv_f32_kernel(const float* __restrict__ x,
-                      const float* __restrict__ scale,
-                      const float* __restrict__ bias,
-                      const float* __restrict__ w, const float* __restrict__ b,
-                      float* __restrict__ out, int B, int N, int D, int H,
-                      float eps) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* hs = reinterpret_cast<float*>(smem_raw);          // [kBM32][D]
-  float* ws = hs + (size_t)kBM32 * D;                      // [kBK][kDh]
-  const int bi = blockIdx.y, row0 = blockIdx.x * kBM32;
-  const int col = threadIdx.x & (kDh - 1), rg = threadIdx.x / kDh;  // rg < 4
-  const int inner = H * kDh;
+    ln_stats_f32(const float* __restrict__ x, float2* __restrict__ stats,
+                 long long M, int D, float eps) {
+  const long long m = static_cast<long long>(blockIdx.x) * 8 +
+                      (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, n4 = D / 4;
+  if (m >= M) return;
+  const float4* xr = reinterpret_cast<const float4*>(x + m * D);
+  float sum = 0.f;
+  for (int c = lane; c < n4; c += 32) {
+    const float4 v = __ldg(xr + c);
+    sum += (v.x + v.y) + (v.z + v.w);
+  }
+  const float mean = warp_sum(sum) / D;
+  float ss = 0.f;
+  for (int c = lane; c < n4; c += 32) {
+    const float4 v = __ldg(xr + c);
+    const float a = v.x - mean, b = v.y - mean, c2 = v.z - mean,
+                d = v.w - mean;
+    ss = fmaf(a, a, ss);
+    ss = fmaf(b, b, ss);
+    ss = fmaf(c2, c2, ss);
+    ss = fmaf(d, d, ss);
+  }
+  const float rstd = rsqrtf(warp_sum(ss) / D + eps);
+  if (lane == 0) stats[m] = make_float2(mean, rstd);
+}
 
-  layernorm_tile(x + (size_t)bi * N * D, scale, bias, hs, D, row0, kBM32, N,
-                 D, eps);
-  __syncthreads();
-  for (int nt = 0; nt < 3 * H; ++nt) {
-    const int proj = nt / H, head = nt % H;
-    float acc[8];
+__global__ void __launch_bounds__(kThreads32, 1)
+    ln_qkv_f32_kernel(const LnQkvF32Params p) {
+  F32Smem& s = smem_1024<F32Smem>();
+  const long long M = static_cast<long long>(p.B) * p.N;
+  const long long row0 = static_cast<long long>(blockIdx.y) * kBM32;
+  const int c0 = blockIdx.x * kBN32;
+  const int cols = 3 * p.H * 64, inner = p.H * 64, KT = p.D / kBK32;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // rows wm·64.., columns wn·64..
+
+  // stage kt: x rows row0.., depth kt·32.. (rows past M read 0) and the W
+  // rows of that depth over columns c0.. (columns past `cols` read 0).
+  // Every 16-byte chunk a thread copies lies in one column of chunks, so
+  // its sources are fixed offsets from two pointers set here: x's at
+  // column xcol of rows xr + kXStep i, W's at column wc of depth rows
+  // wr + kWStep i (a chunk of W never straddles two projections:
+  // inner % 64 == 0).
+  const int xcol = (tid & 7) * 4, xr = tid >> 3;
+  const int wc = (tid & 63) * 4, wr = tid >> 6, gc = c0 + wc;
+  const bool w_ok = gc < cols;
+  const float* xsrc = p.x + (row0 + xr) * p.D + xcol;
+  const float* wsrc =
+      p.w + (w_ok ? static_cast<size_t>(gc / inner) * p.D * inner +
+                        gc % inner
+                  : 0);
+  auto load_stage = [&](int kt) {
+    F32Stage& st = s.st[kt % kStages32];
+    const int k0 = kt * kBK32;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
-    for (int k0 = 0; k0 < D; k0 += kBK) {
-      const float* src = w + ((size_t)proj * D + k0) * inner + head * kDh;
-      for (int i = threadIdx.x; i < kBK * kDh; i += blockDim.x)
-        ws[i] = src[(size_t)(i / kDh) * inner + (i % kDh)];
-      __syncthreads();
-#pragma unroll 4
-      for (int k = 0; k < kBK; ++k) {
-        const float wv = ws[k * kDh + col];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          acc[j] = fmaf(hs[(size_t)(rg + 4 * j) * D + k0 + k], wv, acc[j]);
-      }
-      __syncthreads();
+    for (int i = 0; i < kBM32 / kXStep; ++i) {
+      const bool ok = row0 + xr + kXStep * i < M;
+      cp_async16(smem_u32(&st.x[xr + kXStep * i][xcol]),
+                 ok ? xsrc + static_cast<long long>(kXStep * i) * p.D + k0
+                    : p.x,
+                 ok);
     }
-    const float bv = b[(size_t)proj * inner + head * kDh + col];
-    float* op = out + (((size_t)proj * B + bi) * H + head) * (size_t)N * kDh;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int row = row0 + rg + 4 * j;
-      if (row < N) op[(size_t)row * kDh + col] = acc[j] + bv;
+    for (int i = 0; i < kBK32 / kWStep; ++i)
+      cp_async16(
+          smem_u32(&st.w[wr + kWStep * i][wc]),
+          wsrc + (w_ok ? static_cast<size_t>(k0 + wr + kWStep * i) * inner
+                       : 0),
+          w_ok);
+  };
+  for (int i = 0; i < kStages32 - 1; ++i) {
+    if (i < KT) load_stage(i);
+    cp_async_commit();
+  }
+
+  // the LayerNorm's statistics of the block's rows (rows past M: (0, 0))
+  for (int r = tid; r < kBM32; r += kThreads32)
+    s.stats[r] = row0 + r < M ? p.stats[row0 + r] : make_float2(0.f, 0.f);
+  __syncthreads();
+
+  // this thread copied, and normalises, the 16-byte chunk at column xcol
+  // of rows xr + kXStep i of each x tile; the scale and bias of those
+  // columns are loaded a tile ahead
+  float4 sc4 = __ldg(reinterpret_cast<const float4*>(p.scale + xcol));
+  float4 bs4 = __ldg(reinterpret_cast<const float4*>(p.bias + xcol));
+  float acc[kMT32][8][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT32; ++mt) zero_acc(acc[mt]);
+
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_async_wait<kStages32 - 2>();  // this thread's copies of stage kt
+    F32Stage& st = s.st[kt % kStages32];
+    float(*hs)[kLdX] = s.hs[kt & 1];
+    {  // h = (x - mean) rstd scale + bias in float32, split into TF32 parts
+      const float scv[4] = {sc4.x, sc4.y, sc4.z, sc4.w};
+      const float bsv[4] = {bs4.x, bs4.y, bs4.z, bs4.w};
+#pragma unroll
+      for (int i = 0; i < kBM32 / kXStep; ++i) {
+        const int r = xr + kXStep * i;
+        const float2 ms = s.stats[r];
+        const float4 xv = *reinterpret_cast<const float4*>(&st.x[r][xcol]);
+        const float xs[4] = {xv.x, xv.y, xv.z, xv.w};
+        float big[4], small[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          uint32_t hb, hsm;
+          split_tf32(fmaf((xs[e] - ms.x) * ms.y, scv[e], bsv[e]), hb, hsm);
+          big[e] = __uint_as_float(hb);
+          small[e] = __uint_as_float(hsm);
+        }
+        *reinterpret_cast<float4*>(&st.x[r][xcol]) =
+            make_float4(big[0], big[1], big[2], big[3]);
+        *reinterpret_cast<float4*>(&hs[r][xcol]) =
+            make_float4(small[0], small[1], small[2], small[3]);
+      }
+      if (kt + 1 < KT) {
+        const int d1 = (kt + 1) * kBK32 + xcol;
+        sc4 = __ldg(reinterpret_cast<const float4*>(p.scale + d1));
+        bs4 = __ldg(reinterpret_cast<const float4*>(p.bias + d1));
+      }
+    }
+    // h's tile is whole and W's has landed; every warp is done with tile
+    // kt - 1, whose stage the next copies fill
+    __syncthreads();
+    if (kt + kStages32 - 1 < KT) load_stage(kt + kStages32 - 1);
+    cp_async_commit();
+
+    // acc[64 x 64] += h[64 x 32] W[32 x 64] for this warp, 4 k-steps of 8.
+    // Each k-step's three products (small·big, big·small, big·big) are
+    // issued a kind at a time over the warp's 32 accumulator tiles, so that
+    // no product waits on the one before it.
+#pragma unroll
+    for (int kk = 0; kk < kBK32 / 8; ++kk) {
+      uint32_t ab[kMT32][4], as[kMT32][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT32; ++mt) {
+        const int r = wm * 16 * kMT32 + mt * 16 + g;
+        load_a_frag(ab[mt], &st.x[0][0], kLdX, r, kk * 8, t);
+        load_a_frag(as[mt], &hs[0][0], kLdX, r, kk * 8, t);
+      }
+      uint32_t bb[8][2], bs[8][2];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        load_b_kn(bb[nt], bs[nt], &st.w[0][0], kLdW, wn * 64 + nt * 8 + g,
+                  kk * 8, t);
+      mma_3xtf32_sweep(acc, ab, as, bb, bs);
+    }
+  }
+
+  // epilogue: the warp's 64 columns are one head of one projection
+  const int cw = c0 + wn * 64;
+  if (cw >= cols) return;
+  const int proj = cw / inner, head = (cw % inner) >> 6;
+  float* op = p.out + (static_cast<size_t>(proj) * p.B * p.H + head) *
+                          static_cast<size_t>(p.N) * 64;
+  float2 bias2[8];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+    bias2[nt] = *reinterpret_cast<const float2*>(p.b + cw + nt * 8 + 2 * t);
+#pragma unroll
+  for (int mt = 0; mt < kMT32; ++mt) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const long long m = row0 + wm * 16 * kMT32 + mt * 16 + g + 8 * hh;
+      if (m >= M) continue;
+      float* orow = op + (static_cast<size_t>(m / p.N) * p.H * p.N + m % p.N)
+                             * 64;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        *reinterpret_cast<float2*>(orow + nt * 8 + 2 * t) =
+            make_float2(acc[mt][nt][2 * hh] + bias2[nt].x,
+                        acc[mt][nt][2 * hh + 1] + bias2[nt].y);
     }
   }
 }
@@ -504,30 +668,41 @@ int launch_bf16(const CUtensorMap& xmap, const CUtensorMap& wmap,
 // Shared-memory bytes of one block (dtype 0: float32, 1: bfloat16); -1 if
 // the block does not fit.
 extern "C" long long ln_qkv_smem_bytes(int dtype, int D) {
-  if (dtype == 0) return (long long)(kBM32 * D + kBK * kDh) * 4;
+  if (dtype == 0) return smem_bytes<F32Smem>();
   return bf16_config(D).smem;
 }
 
 // x [B, N, D]; scale, bias [D]; w [3, D, H·64] (wq, wk, wv); b [3, H·64];
 // out [3, B, H, N, 64] (q, k, v), all contiguous in x's dtype (dtype 0:
-// float32, 1: bfloat16; bf16 pointers 16-byte aligned). D a multiple of 32.
-// Returns the CUDA error of the launch (0 on success).
+// float32, 1: bfloat16), 16-byte aligned; stats: float32 scratch of
+// 2·B·N values (float32 only, else unread). D a multiple of 32. Returns
+// the CUDA error of the launches (0 on success).
 extern "C" int ln_qkv(int dtype, const void* x, const void* scale,
                       const void* bias, const void* w, const void* b,
-                      void* out, int B, int N, int D, int H, float eps,
-                      void* stream) {
+                      void* out, void* stats, int B, int N, int D, int H,
+                      float eps, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    const int smem = (int)ln_qkv_smem_bytes(0, D);
+    const long long M = static_cast<long long>(B) * N;
+    if (D % kBK32 || (M + kBM32 - 1) / kBM32 > 65535)
+      return (int)cudaErrorInvalidValue;
+    const int smem = smem_bytes<F32Smem>();
     cudaError_t err = cudaFuncSetAttribute(
         ln_qkv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
-    dim3 grid((N + kBM32 - 1) / kBM32, B);
-    ln_qkv_f32_kernel<<<grid, 256, smem, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(scale),
+    ln_stats_f32<<<static_cast<unsigned>((M + 7) / 8), 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<float2*>(stats), M, D, eps);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((3 * H * 64 + kBN32 - 1) / kBN32,
+                    static_cast<unsigned>((M + kBM32 - 1) / kBM32));
+    const LnQkvF32Params prm{
+        static_cast<const float*>(x), static_cast<const float2*>(stats),
+        static_cast<const float*>(scale),
         static_cast<const float*>(bias), static_cast<const float*>(w),
         static_cast<const float*>(b), static_cast<float*>(out), B, N, D, H,
-        eps);
+        eps};
+    ln_qkv_f32_kernel<<<grid, kThreads32, smem, s>>>(prm);
     return (int)cudaGetLastError();
   }
   const Bf16Config cfg = bf16_config(D);

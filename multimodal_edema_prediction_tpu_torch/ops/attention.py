@@ -4,13 +4,14 @@
 attention.py::flash_mha``: non-causal softmax(Q Kᵀ·sm_scale)·V on
 ``[B, H, N, D]``, differentiable. On a CUDA tensor it launches the
 hand-written kernels (D = 64, float32 or bfloat16): the forward in
-``csrc/flash_attention.cu`` and, when q, k or v needs a gradient, the D
-(rowsum(dO∘O)), dkv and dq backward kernels in ``csrc/flash_attention_bwd.cu``
-behind a ``torch.autograd.Function``, whose forward also keeps each query
-row's log-sum-exp for them. On a CPU tensor the same Function runs the
-plain versions, ``flash_mha_reference``, ``flash_mha_backward_reference``
-and ``delta_reference``, which are also the kernels' oracles in the tests
-and in ``chip_smoke.py``. There is no fallback from one to the other: a
+``csrc/flash_attention.cu`` (bfloat16 on warpgroup MMAs, float32 on 3xTF32
+tensor-core products, ``csrc/mma_tf32.cuh``) and, when q, k or v needs a
+gradient, the D (rowsum(dO∘O)), dkv and dq backward kernels in
+``csrc/flash_attention_bwd.cu`` behind a ``torch.autograd.Function``,
+whose forward also keeps each query row's log-sum-exp for them. On a CPU
+tensor the same Function runs the plain versions, ``flash_mha_reference``,
+``flash_mha_backward_reference`` and ``delta_reference``, which are also
+the kernels' oracles in the tests and in ``chip_smoke.py``. There is no fallback from one to the other: a
 kernel that cannot build or launch raises.
 """
 from __future__ import annotations
@@ -20,9 +21,13 @@ from typing import Optional, Tuple
 
 import torch
 
-# launches of each kernel wrapper; chip_smoke.py resets and reads them
-LAUNCHES = {"flash_attention": 0, "flash_attention_bwd_delta": 0,
-            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+# launches of each kernel, by kernel: a wrapper counts its bfloat16 kernel
+# under its own name and its float32 kernel (the reference-precision path)
+# under that name with "_f32" (``launch_key``); chip_smoke.py resets and
+# reads them
+LAUNCHES = {name + suffix: 0 for name in (
+    "flash_attention", "flash_attention_bwd_delta", "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq") for suffix in ("", "_f32")}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -45,6 +50,16 @@ ENTRY_POINTS = {
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def launch_key(name: str, dtype: torch.dtype) -> str:
+    """The key of ``LAUNCHES`` that wrapper ``name`` counts a launch of its
+    kernel for ``dtype`` under."""
+    return name + ("_f32" if dtype == torch.float32 else "")
+
+
+def _count(name: str, dtype: torch.dtype) -> None:
+    LAUNCHES[launch_key(name, dtype)] += 1
 
 
 def _scaled_logits(q: torch.Tensor, k: torch.Tensor, sm_scale: float,
@@ -217,7 +232,7 @@ def forward_kernel(q, k, v, sm_scale: float, n_keys: int, with_lse: bool):
     _launch("flash_attention_fwd", q.dtype,
             [q, k, v, o, lse, B, H, Nq, k.shape[2], n_keys, float(sm_scale),
              _strides(q, k, v, o), _tma_maps(k, v, n_keys)], q.device)
-    LAUNCHES["flash_attention"] += 1
+    _count("flash_attention", q.dtype)
     return o, lse
 
 
@@ -251,7 +266,7 @@ def delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     if out.numel():
         _launch("flash_attention_bwd_delta", o.dtype,
                 [o, do, out, B, H, Nq, _strides(o, do)], o.device)
-        LAUNCHES["flash_attention_bwd_delta"] += 1
+        _count("flash_attention_bwd_delta", o.dtype)
     return out
 
 
@@ -263,7 +278,7 @@ def dkv_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
              q.shape[2], k.shape[2], n_keys, float(sm_scale),
              _strides(q, k, v, do, dk, dv), _tma_maps(q, do, q.shape[2])],
             q.device)
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    _count("flash_attention_bwd_dkv", q.dtype)
     return dk, dv
 
 
@@ -274,7 +289,7 @@ def dq_kernel(q, k, v, do, lse, dlt, sm_scale: float, n_keys: int):
             [q, k, v, do, lse, dlt, dq, q.shape[0], q.shape[1], q.shape[2],
              k.shape[2], n_keys, float(sm_scale), _strides(q, k, v, do, dq),
              _tma_maps(k, v, n_keys)], q.device)
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    _count("flash_attention_bwd_dq", q.dtype)
     return dq
 
 

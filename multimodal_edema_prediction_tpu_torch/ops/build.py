@@ -157,11 +157,14 @@ def sass(name: str) -> Optional[str]:
                           capture_output=True, text=True, check=True).stdout
 
 
-def sass_opcode_counts(listing: str, opcode: str) -> Dict[str, int]:
+def sass_opcode_counts(listing: str, opcode: str,
+                       form: Optional[str] = None) -> Dict[str, int]:
     """Per function of a ``cuobjdump --dump-sass`` listing, the number of
-    instructions whose opcode is ``opcode`` (any predicate or suffix)."""
-    ins = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]\s+)?"
-                     + re.escape(opcode) + r"[.\s]")
+    instructions whose opcode is ``opcode`` (any predicate or suffix) and,
+    if ``form`` is given, among whose suffixes it is (e.g. ``TF32`` for
+    ``HMMA.1688.F32.TF32``)."""
+    ins = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P[0-9T]\s+)?("
+                     + re.escape(opcode) + r")((?:\.\w+)*)\s")
     out: Dict[str, int] = {}
     cur = None
     for line in listing.splitlines():
@@ -169,7 +172,9 @@ def sass_opcode_counts(listing: str, opcode: str) -> Dict[str, int]:
         if m:
             cur = m.group(1)
             out[cur] = 0
-        elif cur is not None and ins.search(line):
+            continue
+        m = ins.search(line) if cur is not None else None
+        if m and (form is None or form in m.group(2).split(".")[1:]):
             out[cur] += 1
     return out
 

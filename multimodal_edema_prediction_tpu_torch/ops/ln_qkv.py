@@ -19,8 +19,10 @@ or a multiple of 512 (``:86-88``), so both packages take the same inputs.
 On a CUDA tensor the wrapper launches the hand-written kernel in
 ``csrc/ln_qkv.cu`` (bfloat16: a GEMM on warpgroup MMAs with x and W
 streamed by TMA and the LayerNorm applied to each x tile in shared memory,
-256 output columns a tile; float32 through FMA; head dim 64, D a multiple
-of 32) and raises if it cannot; on a CPU tensor it runs
+256 output columns a tile; float32: each row's statistics first, into a
+scratch the wrapper allocates, then the same GEMM with its products as
+3xTF32 tensor-core products, ``csrc/mma_tf32.cuh``; head dim 64, D a
+multiple of 32) and raises if it cannot; on a CPU tensor it runs
 ``ln_qkv_reference``, the plain version, which is also the kernel's oracle
 in the tests and in ``chip_smoke.py``. The gradient is an autograd Function
 whose backward recomputes through ``ln_qkv_reference``, as JAX's custom VJP
@@ -33,8 +35,10 @@ from typing import Dict, Tuple
 
 import torch
 
-# launches of the kernel wrapper; chip_smoke.py resets and reads it
-LAUNCHES = {"ln_qkv": 0}
+# launches of the kernel wrapper, by kernel: the bfloat16 kernel under
+# "ln_qkv", the float32 one under "ln_qkv_f32"; chip_smoke.py resets and
+# reads them
+LAUNCHES = {"ln_qkv": 0, "ln_qkv_f32": 0}
 
 PARAM_KEYS = ("ln_scale", "ln_bias", "wq", "wk", "wv", "bq", "bk", "bv")
 BLOCK_N = 512              # the JAX wrapper's token block (its N contract)
@@ -42,9 +46,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # the C entry point of csrc/ln_qkv.cu: its library and its ctypes signature
-# (dtype, x, scale, bias, w, b, out, B, N, D, H, eps, stream)
+# (dtype, x, scale, bias, w, b, out, stats, B, N, D, H, eps, stream)
 ENTRY_POINTS = {
-    "ln_qkv": ("ln_qkv", [_I] + [_P] * 6 + [_I] * 4
+    "ln_qkv": ("ln_qkv", [_I] + [_P] * 7 + [_I] * 4
                + [ctypes.c_float, _P]),
 }
 
@@ -135,6 +139,10 @@ def ln_qkv_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
     out = torch.empty(3, B, n_heads, N, d_head, dtype=dt, device=dev)
     if out.numel() == 0:
         return out[0], out[1], out[2]
+    # the float32 kernel's scratch: each row's (mean, rstd), from its first
+    # launch to its second
+    stats = torch.empty(B * N, 2, dtype=torch.float32, device=dev) \
+        if dt == torch.float32 else None
 
     from .build import load
     lib, argtypes = ENTRY_POINTS["ln_qkv"]
@@ -146,10 +154,11 @@ def ln_qkv_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[dt], x.data_ptr(), scale.data_ptr(),
                  bias.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                 None if stats is None else stats.data_ptr(),
                  B, N, D, n_heads, float(eps), stream)
     if err != 0:
         raise RuntimeError(f"ln_qkv kernel launch failed: CUDA error {err}")
-    LAUNCHES["ln_qkv"] += 1
+    LAUNCHES["ln_qkv_f32" if dt == torch.float32 else "ln_qkv"] += 1
     return out[0], out[1], out[2]
 
 

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Same-call A/B of one kernel between repo trees, timed in turns on one
-card: K1's bf16 forward (the default), K2's row gather, K3's bf16 DuETT
-block or K4's bf16 LayerNorm → QKV.
+card: K1's forward (the default), K2's row gather, K3's bf16 DuETT block
+or K4's LayerNorm → QKV; K1's forward and K4 in bf16 (the default) or,
+with ``--dtype float32``, on their float32 routes.
 
     git archive <parent> | tar -x -C build/ab/parent
     python3 scripts/ab_k1_fwd.py --tree parent=build/ab/parent --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k4 --tree parent=... --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k3 --tree parent=... --tree new=.
+    python3 scripts/ab_k1_fwd.py --dtype float32 --tree parent=... --tree new=.
 
 Each slot of ``--order`` (letters: the trees in the order given; default
 ``abba``) runs one worker process on the card that builds its tree's
@@ -15,8 +17,9 @@ against its plain version and times it, its repetitions alternating with a
 PyTorch yardstick on the same inputs (this checkout's
 ``chip_smoke.paired_ms``):
 
-- ``k1_fwd``: ``flash_mha`` at [32, 12, 1370, 64] bf16 unless ``--shape``
-  says otherwise, with and without lse, against SDPA's forward;
+- ``k1_fwd``: ``flash_mha`` at [32, 12, 1370, 64] unless ``--shape``
+  says otherwise, with and without lse, against SDPA's forward (float32:
+  TF32 off, as everywhere in the port's float32 checks);
 - ``k2``: ``gather_rows`` of 32 rows (a repeat and the NaN sentinel among
   them) from a [401, 1370, 768] bf16 bank, bit for bit, against
   ``torch.index_select``; besides the paired times, which hold the
@@ -29,9 +32,9 @@ PyTorch yardstick on the same inputs (this checkout's
   device time under ``torch.profiler`` (``*_device_ms``: the kernel
   alone; ``*_plain_device_ms``), and the route taken where the tree has
   two;
-- ``k4``: ``fused_ln_qkv`` at [32, 1536, 768] bf16, 12 × 64, against
+- ``k4``: ``fused_ln_qkv`` at [32, 1536, 768], 12 × 64, against
   ``F.layer_norm`` + ``F.linear`` + the head-major copy (chip_smoke's
-  yardstick).
+  yardstick; float32: TF32 off).
 
 Prints one JSON line per slot (also written to ``--out``, by default
 ``build/ab_<kernel>.jsonl``), then the medians of each tree's slots with
@@ -59,7 +62,13 @@ def _chip_smoke():
     return chip_smoke
 
 
-def worker(tree: str, B: int, H: int, N: int) -> dict:
+def _no_tf32():
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def worker(tree: str, dtype: str, B: int, H: int, N: int) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -68,11 +77,13 @@ def worker(tree: str, B: int, H: int, N: int) -> dict:
     from multimodal_edema_prediction_tpu_torch.ops import attention as att
     from multimodal_edema_prediction_tpu_torch.ops import build
     assert att.__file__.startswith(tree), att.__file__
+    _no_tf32()
     device = torch.device("cuda")
     build.build_all()
+    kernel = {"bfloat16": "fwd_bf16", "float32": "fwd_f32"}[dtype]
     usage = [u for fn, u in build.ptxas_usage(
-        build.build_log("flash_attention")).items() if "fwd_bf16" in fn]
-    q, k, v = chip_smoke._qkv(B, H, N, torch.bfloat16, device, seed=0)
+        build.build_log("flash_attention")).items() if kernel in fn]
+    q, k, v = chip_smoke._qkv(B, H, N, getattr(torch, dtype), device, seed=0)
     scale = 64 ** -0.5
     err = (att.flash_mha(q, k, v, scale).float()
            - att.flash_mha_reference(q, k, v, scale).float()).abs().max()
@@ -82,12 +93,14 @@ def worker(tree: str, B: int, H: int, N: int) -> dict:
         device)
     lse_ms = chip_smoke.device_ms(
         lambda: att.forward_kernel(q, k, v, scale, N, True), device)
-    return {"tree": tree, "shape": [B, H, N, 64], "max_abs_err": float(err),
+    return {"tree": tree, "dtype": dtype, "shape": [B, H, N, 64],
+            "max_abs_err": float(err),
             "fwd_ms": fwd, "fwd_lse_ms": lse_ms, "sdpa_ms": sdpa,
             "fwd_vs_library": fwd / sdpa, "ptxas": usage}
 
 
-def worker_k2(tree: str, n_bank: int = 400, batch: int = 32) -> dict:
+def worker_k2(tree: str, dtype: str, n_bank: int = 400,
+              batch: int = 32) -> dict:
     import torch
 
     chip_smoke = _chip_smoke()
@@ -125,8 +138,8 @@ def worker_k2(tree: str, n_bank: int = 400, batch: int = 32) -> dict:
             if hasattr(G, "route") else "vector"}
 
 
-def worker_k4(tree: str, B: int = 32, N: int = 1536, D: int = 768,
-              H: int = 12) -> dict:
+def worker_k4(tree: str, dtype: str, B: int = 32, N: int = 1536,
+              D: int = 768, H: int = 12) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -135,6 +148,8 @@ def worker_k4(tree: str, B: int = 32, N: int = 1536, D: int = 768,
     from multimodal_edema_prediction_tpu_torch.ops import build
     from multimodal_edema_prediction_tpu_torch.ops import ln_qkv as LQ
     assert LQ.__file__.startswith(tree), LQ.__file__
+    _no_tf32()
+    dt = getattr(torch, dtype)
     device = torch.device("cuda")
     build.build_all()
     inner = H * 64
@@ -146,14 +161,14 @@ def worker_k4(tree: str, B: int = 32, N: int = 1536, D: int = 768,
               **{k: r(D, inner, std=D ** -0.5) for k in ("wq", "wk", "wv")},
               **{k: r(inner, std=0.02) for k in ("bq", "bk", "bv")}}
     x = (2.0 * torch.randn(B, N, D, generator=g, device=device)
-         + 0.5).bfloat16()
+         + 0.5).to(dt)
 
     def library():
         w = torch.cat([params[k] for k in ("wq", "wk", "wv")], 1)
         b = torch.cat([params[k] for k in ("bq", "bk", "bv")])
-        h = F.layer_norm(x, (D,), params["ln_scale"].bfloat16(),
-                         params["ln_bias"].bfloat16(), 1e-6)
-        y = F.linear(h, w.t().bfloat16(), b.bfloat16())
+        h = F.layer_norm(x, (D,), params["ln_scale"].to(dt),
+                         params["ln_bias"].to(dt), 1e-6)
+        y = F.linear(h, w.t().to(dt), b.to(dt))
         return y.view(B, N, 3, H, 64).permute(2, 0, 3, 1, 4).contiguous()
 
     got = LQ.fused_ln_qkv(x, params, H, 64)
@@ -162,12 +177,13 @@ def worker_k4(tree: str, B: int = 32, N: int = 1536, D: int = 768,
                     / w.float().abs().max()) for a, w in zip(got, want))
     ms, lib = chip_smoke.paired_ms(
         [lambda: LQ.fused_ln_qkv(x, params, H, 64), library], device)
-    return {"tree": tree, "shape": [B, N, D], "heads": [H, 64],
+    return {"tree": tree, "dtype": dtype, "shape": [B, N, D],
+            "heads": [H, 64],
             "max_rel_err": rel, "ms": ms, "library_ms": lib,
             "vs_library": ms / lib}
 
 
-def worker_k3(tree: str, n_heads: int = 2, d_head: int = 12,
+def worker_k3(tree: str, dtype: str, n_heads: int = 2, d_head: int = 12,
               ff: int = 512) -> dict:
     import torch
 
@@ -231,6 +247,9 @@ def main(argv=None) -> int:
     p.add_argument("--kernel", choices=sorted(WORKERS), default="k1_fwd")
     p.add_argument("--shape", type=int, nargs=3, default=[32, 12, 1370],
                    metavar=("B", "H", "N"), help="k1_fwd's shape")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"),
+                   default="bfloat16",
+                   help="k1_fwd's and k4's dtype (k2 and k3: bfloat16)")
     p.add_argument("--out", default=None,
                    help="default: build/ab_<kernel>.jsonl")
     p.add_argument("--worker", default="", help=argparse.SUPPRESS)
@@ -243,13 +262,16 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_k1_fwd: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernel in ("k2", "k3") and args.dtype != "bfloat16":
+        p.error(f"--kernel {args.kernel} times bfloat16 only")
     if args.worker:
         extra = args.shape if args.kernel == "k1_fwd" else []
-        print(json.dumps(WORKERS[args.kernel](args.worker, *extra)),
-              flush=True)
+        print(json.dumps(WORKERS[args.kernel](args.worker, args.dtype,
+                                              *extra)), flush=True)
         return 0
-    out_path = args.out or os.path.join(REPO, "build",
-                                        f"ab_{args.kernel}.jsonl")
+    out_path = args.out or os.path.join(
+        REPO, "build", f"ab_{args.kernel}"
+        f"{'_f32' if args.dtype == 'float32' else ''}.jsonl")
 
     if not args.tree:
         p.error("give at least one --tree NAME=DIR")
@@ -268,7 +290,8 @@ def main(argv=None) -> int:
             name, tree = trees[ord(slot) - ord("a")]
             run = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), "--worker", tree,
-                 "--kernel", args.kernel, "--shape", *map(str, args.shape)],
+                 "--kernel", args.kernel, "--dtype", args.dtype,
+                 "--shape", *map(str, args.shape)],
                 capture_output=True, text=True, timeout=600)
             if run.returncode != 0:
                 print(run.stdout + run.stderr, file=sys.stderr)
@@ -277,7 +300,8 @@ def main(argv=None) -> int:
             readings[name].append(res)
             out.write(json.dumps(res) + "\n")
             print(json.dumps(res), flush=True)
-        summary = {"card": smi, "kernel": args.kernel, "order": args.order,
+        summary = {"card": smi, "kernel": args.kernel, "dtype": args.dtype,
+                   "order": args.order,
                    "medians": {
                        name: {key: statistics.median(r[key] for r in rs)
                               for key in MEDIAN_KEYS[args.kernel]

@@ -4,11 +4,13 @@ and ``ops/ln_qkv.py`` bind, on the CPU.
 
 ``chip_smoke.py`` reports K1's bf16 kernels' registers, spills, shared
 memory and ptxas warnings from the ``ptxas -v`` log of their build, and
-their warpgroup MMA count from ``cuobjdump --dump-sass``; the card tests
-``test_backward_kernels_issue_wgmma`` and ``test_forward_kernel_issues_wgmma``
-count the same. These tests hold the parsers against excerpts in the tools'
-formats, and the ctypes signatures against the ``extern "C"`` declarations
-of ``csrc/``, which no compiler checks here.
+their warpgroup MMA count from ``cuobjdump --dump-sass`` (the float32
+kernels' mma.sync of the TF32 form); the card tests
+``test_backward_kernels_issue_wgmma``, ``test_forward_kernel_issues_wgmma``
+and ``test_float32_kernels_issue_tf32_mma`` count the same. These tests
+hold the parsers against excerpts in the tools' formats, and the ctypes
+signatures against the ``extern "C"`` declarations of ``csrc/``, which no
+compiler checks here.
 """
 import ctypes
 import os
@@ -71,6 +73,59 @@ def test_sass_opcode_counts_per_function():
     # an opcode is matched whole: the warpgroup fences are not HGMMAs
     assert sum(build.sass_opcode_counts(SASS, "WARPGROUP").values()) == 2
     assert sum(build.sass_opcode_counts(SASS, "HMMA").values()) == 0
+
+
+TF32_SASS = """\
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_113flash_fwd_f32ENS_6ParamsE
+        /*0400*/                   HMMA.1688.F32.TF32 R24, R88, R92, RZ ;  /* 0x0000005c5818723c */
+        /*0410*/                   HMMA.1688.F32.TF32 R24, R80, R84, R24 ;  /* 0x000000545018723c */
+        /*0420*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;  /* 0x0000000c0804723c */
+		Function : _ZN12_GLOBAL__N_117ln_qkv_f32_kernelENS_14LnQkvF32ParamsE
+        /*0100*/              @!P0 HMMA.1688.F32.TF32 R4, R8, R12, R4 ;  /* 0x0000000c0804823c */
+        /*0110*/                   FFMA R3, R4, R5, R3 ;                     /* 0x0000000504037223 */
+		Function : _ZN12_GLOBAL__N_112ln_stats_f32EPKfP6float2xif
+        /*0010*/                   FADD R3, R4, R5 ;                         /* 0x0000000504037221 */
+"""
+
+
+@pytest.mark.parametrize("form,want", [
+    ("TF32", (2, 1, 0)), (None, (3, 1, 0)), ("BF16", (1, 0, 0))])
+def test_sass_opcode_counts_of_a_form(form, want):
+    """The float32 kernels' products are HMMA of the TF32 form
+    (``HMMA.1688.F32.TF32``, mma.sync m16n8k8); ``form`` picks the
+    instructions among whose suffixes it is, and a bf16 HMMA is not one."""
+    got = build.sass_opcode_counts(TF32_SASS, "HMMA", form)
+    assert tuple(got.values()) == want, got
+    assert list(got) == [
+        "_ZN12_GLOBAL__N_113flash_fwd_f32ENS_6ParamsE",
+        "_ZN12_GLOBAL__N_117ln_qkv_f32_kernelENS_14LnQkvF32ParamsE",
+        "_ZN12_GLOBAL__N_112ln_stats_f32EPKfP6float2xif"]
+
+
+F32_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117ln_qkv_f32_kernelENS_14LnQkvF32ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117ln_qkv_f32_kernelENS_14LnQkvF32ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 448 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_113flash_fwd_f32ENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_113flash_fwd_f32ENS_6ParamsE
+    0 bytes stack frame, 48 bytes spill stores, 48 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 480 bytes cmem[0]
+"""
+
+
+def test_ptxas_usage_of_the_float32_kernels():
+    """Registers and spills of the float32 kernels, which keep their
+    shared memory dynamic (0 static bytes)."""
+    got = build.ptxas_usage(F32_PTXAS)
+    assert got == {
+        "_ZN12_GLOBAL__N_117ln_qkv_f32_kernelENS_14LnQkvF32ParamsE": {
+            "registers": 255, "spill_stores": 0, "spill_loads": 0,
+            "smem_bytes": 0},
+        "_ZN12_GLOBAL__N_113flash_fwd_f32ENS_6ParamsE": {
+            "registers": 255, "spill_stores": 48, "spill_loads": 48,
+            "smem_bytes": 0}}
 
 
 WARNINGS = """\

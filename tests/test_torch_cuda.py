@@ -51,69 +51,86 @@ def _qkv(B, H, Nq, Nk, dtype, device, seed=0):
     (300, 300, 63), (300, 300, 64), (300, 300, 65), (1370, 1370, 1301)])
 def test_kernel_matches_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
     q, k, v = _qkv(2, 3, Nq, Nk, dtype, cuda)
-    before = A.LAUNCHES["flash_attention"]
+    key = A.launch_key("flash_attention", dtype)
+    before = dict(A.LAUNCHES)
     got = A.flash_mha(q, k, v, 0.125, kv_valid=kv_valid)
     torch.cuda.synchronize()
-    assert A.LAUNCHES["flash_attention"] == before + 1
+    assert A.LAUNCHES == {**before, key: before[key] + 1}
     want = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
     assert got.shape == want.shape and got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= tol
 
 
-def test_kernel_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
+def test_kernel_reads_strided_views(cuda, dtype, tol):
     """[B, N, H·64] projections viewed as [B, H, N, 64], as the ViT passes
     them; an odd-strided input is copied to a layout the kernel reads."""
     g = torch.Generator(device=cuda).manual_seed(1)
-    x = torch.randn(2, 300, 3 * 128, generator=g, device=cuda).bfloat16()
+    x = torch.randn(2, 300, 3 * 128, generator=g, device=cuda).to(dtype)
     q, k, v = (x[..., i * 128:(i + 1) * 128].view(2, 300, 2, 64)
                .transpose(1, 2) for i in range(3))
     got = A.flash_mha(q, k, v, 0.125)
     want = A.flash_mha_reference(q, k, v, 0.125)
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
     odd = torch.randn(2, 2, 300, 65, generator=g, device=cuda)[..., 1:]
     got = A.flash_mha(odd, odd, odd, 0.125)
     want = A.flash_mha_reference(odd, odd, odd, 0.125)
     assert (got - want).abs().max().item() <= 1e-5
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
 @pytest.mark.parametrize("kv_valid", [1, 63, 64, 65, 1301])
-def test_keys_past_kv_valid_take_no_weight(cuda, kv_valid):
+def test_keys_past_kv_valid_take_no_weight(cuda, kv_valid, dtype, tol):
     """Keys at or past ``kv_valid`` (on and off the forward's 64-key tiles)
     carry no weight: filling them with other values changes no bit of the
     output."""
-    q, k, v = _qkv(2, 3, 300, 1370, torch.bfloat16, cuda, seed=3)
+    q, k, v = _qkv(2, 3, 300, 1370, dtype, cuda, seed=3)
     got = A.flash_mha(q, k, v, 0.125, kv_valid=kv_valid)
     k2, v2 = k.clone(), v.clone()
     k2[:, :, kv_valid:] = 30.0
     v2[:, :, kv_valid:] = -7.0
     again = A.flash_mha(q, k2, v2, 0.125, kv_valid=kv_valid)
     torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int16), again.view(torch.int16))
+    assert torch.equal(_bits(got), _bits(again))
     want = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert (got.float() - want.float()).abs().max().item() <= tol
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("with_lse", [False, True])
-def test_forward_is_bit_reproducible(cuda, with_lse):
+def test_forward_is_bit_reproducible(cuda, with_lse, dtype):
     """No atomics: two forward launches give the same bits, o and lse."""
-    q, k, v = _qkv(3, 2, 1370, 1370, torch.bfloat16, cuda, seed=4)
+    q, k, v = _qkv(3, 2, 1370, 1370, dtype, cuda, seed=4)
     o1, l1 = A.forward_kernel(q, k, v, 0.125, 1301, with_lse)
     o2, l2 = A.forward_kernel(q, k, v, 0.125, 1301, with_lse)
     torch.cuda.synchronize()
-    assert torch.equal(o1.view(torch.int16), o2.view(torch.int16))
+    assert torch.equal(_bits(o1), _bits(o2))
     assert (l1 is None) == (l2 is None) == (not with_lse)
     if with_lse:
         assert torch.equal(l1.view(torch.int32), l2.view(torch.int32))
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)])
 @pytest.mark.parametrize("N,kv_valid", [(129, 64), (1370, 1301), (1370, 1)])
-def test_forward_lse_at_the_tile_edges(cuda, N, kv_valid):
-    q, k, v = _qkv(2, 3, N, N, torch.bfloat16, cuda, seed=5)
+def test_forward_lse_at_the_tile_edges(cuda, N, kv_valid, dtype, tol):
+    """lse and o at the edges of both kernels' 128-row blocks and the
+    float32 kernel's 64-key tiles, on strided views of
+    [B, N, H·64] (the ViT's layout)."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v = (torch.randn(2, N, 3 * 64, generator=g, device=cuda).to(dtype)
+               .view(2, N, 3, 64).transpose(1, 2) for _ in range(3))
     o, lse = A.forward_kernel(q, k, v, 0.125, kv_valid, True)
     want = A.flash_mha_lse_reference(q, k, 0.125, kv_valid)
     assert (lse - want).abs().max().item() <= 1e-4
     ref = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
-    assert (o.float() - ref.float()).abs().max().item() <= 2e-2
+    assert (o.float() - ref.float()).abs().max().item() <= tol
+
+
+def _bits(x):
+    return x.view({2: torch.int16, 4: torch.int32}[x.element_size()])
 
 
 def test_forward_kernel_issues_wgmma(cuda):
@@ -140,10 +157,11 @@ def test_delta_kernel_matches_plain(cuda, dtype, Nq):
         .permute(0, 2, 1, 3)
     do = torch.randn(2, Nq, 3 * 128, generator=g, device=cuda).to(dtype)[
         ..., 64:256].reshape(2, Nq, 3, 64).transpose(1, 2)
-    before = A.LAUNCHES["flash_attention_bwd_delta"]
+    key = A.launch_key("flash_attention_bwd_delta", dtype)
+    before = dict(A.LAUNCHES)
     got, again = A.delta(o, do), A.delta(o, do)
     torch.cuda.synchronize()
-    assert A.LAUNCHES["flash_attention_bwd_delta"] == before + 2
+    assert A.LAUNCHES == {**before, key: before[key] + 2}
     want = A.delta_reference(o, do)
     assert got.shape == (2, 3, Nq) and got.dtype == torch.float32
     assert got.is_contiguous()
@@ -209,9 +227,10 @@ def test_backward_kernels_match_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
     before = dict(A.LAUNCHES)
     _, *got = _grads(q, k, v, do, kv_valid)
     torch.cuda.synchronize()
-    for name in ("flash_attention", "flash_attention_bwd_delta",
-                 "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
-        assert A.LAUNCHES[name] == before[name] + 1, name
+    once = {A.launch_key(name, dtype) for name in (
+        "flash_attention", "flash_attention_bwd_delta",
+        "flash_attention_bwd_dkv", "flash_attention_bwd_dq")}
+    assert A.LAUNCHES == {k: n + (k in once) for k, n in before.items()}
     want = _plain_grads(q, k, v, do, kv_valid)
     for name, g, w in zip("qkv", got, want):
         assert g.shape == w.shape and g.dtype == dtype
@@ -481,26 +500,26 @@ def test_dual_axis_kernel_backward_recomputes_plain(cuda):
     (dtype, tol, *shape)
     for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-4))
     for shape in ((2, 1536, 768, 12), (2, 512, 256, 4), (3, 100, 128, 2),
-                  (1, 1, 64, 1), (2, 200, 96, 3), (2, 200, 768, 12))] + [
-    (torch.bfloat16, 2e-2, *shape)
-    for shape in ((2, 200, 96, 1), (1, 512, 2048, 4), (3, 1, 64, 2),
+                  (1, 1, 64, 1), (2, 200, 96, 3), (2, 200, 768, 12),
+                  (2, 200, 96, 1), (1, 512, 2048, 4), (3, 1, 64, 2),
                   (3, 100, 160, 2))])
 def test_ln_qkv_kernel_matches_plain(cuda, dtype, tol, B, N, D, H):
     """K4 against ``ln_qkv_reference``: h rounded to x's dtype on both
-    sides, products accumulated in float32 in another order; relative to
-    each output's max abs; reruns bit-equal. Among the cases D = 96 (half
-    of the last 64-wide tile of h) and N = 200 (a ragged last row tile);
-    in bf16 also 3·H heads that do not fill the last 256-column tile
-    (H = 1), the widest D the kernel takes (2048, beyond the float32
-    kernel's shared memory), and row tiles that span batch elements
-    (N = 1, N = 100) with a last tile past B·N."""
+    sides, products accumulated in float32 in another order (in float32 as
+    3xTF32 tensor-core products); relative to each output's max abs;
+    reruns bit-equal. Among the cases D = 96 (half of the last 64-wide
+    tile of h in bf16, three 32-deep stages in float32) and N = 200 (a
+    ragged last row tile); 3·H heads that do not fill the last 256-column
+    tile (H = 1), the widest D the bf16 kernel takes (2048), and row tiles
+    that span batch elements (N = 1, N = 100) with a last tile past B·N."""
     from multimodal_edema_prediction_tpu_torch.ops import ln_qkv as LQ
     params, x = _ln_qkv_inputs(B, N, D, H, dtype, cuda)
-    before = LQ.LAUNCHES["ln_qkv"]
+    key = "ln_qkv_f32" if dtype == torch.float32 else "ln_qkv"
+    before = dict(LQ.LAUNCHES)
     got = LQ.fused_ln_qkv(x, params, H, 64)
     again = LQ.fused_ln_qkv(x, params, H, 64)
     torch.cuda.synchronize()
-    assert LQ.LAUNCHES["ln_qkv"] == before + 2
+    assert LQ.LAUNCHES == {**before, key: before[key] + 2}
     want = LQ.ln_qkv_reference(x, params, H, 64)
     for a, b, w in zip(got, again, want):
         assert a.shape == (B, H, N, 64) and a.dtype == dtype
@@ -542,6 +561,27 @@ def test_ln_qkv_bf16_kernel_issues_wgmma(cuda):
         pytest.skip("the CUDA toolkit has no cuobjdump")
     counts = build.sass_opcode_counts(listing, "HGMMA")
     hits = [n for fn, n in counts.items() if "ln_qkv_bf16_kernel" in fn]
+    assert len(hits) == 1 and hits[0] > 0, counts
+
+
+@pytest.mark.parametrize("lib,kernel", [("flash_attention", "flash_fwd_f32"),
+                                        ("ln_qkv", "ln_qkv_f32_kernel")])
+def test_float32_kernels_issue_tf32_mma(cuda, lib, kernel):
+    """The float32 forward of K1 and K4's float32 kernel run their products
+    on the tensor cores (mma.sync TF32: HMMA ... .TF32 in the SASS) and
+    spill nothing."""
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    build.load(lib)
+    usage = {fn: u for fn, u in build.ptxas_usage(
+        build.build_log(lib)).items() if kernel in fn}
+    assert len(usage) == 1, build.ptxas_usage(build.build_log(lib))
+    for fn, u in usage.items():
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (fn, u)
+    listing = build.sass(lib)
+    if listing is None:
+        pytest.skip("the CUDA toolkit has no cuobjdump")
+    counts = build.sass_opcode_counts(listing, "HMMA", "TF32")
+    hits = [n for fn, n in counts.items() if kernel in fn]
     assert len(hits) == 1 and hits[0] > 0, counts
 
 
