@@ -180,6 +180,30 @@ tensor-core products (mma.sync m16n8k8, ``csrc/mma_tf32.cuh``) add:
             its own key (``flash_attention_f32``, ``ln_qkv_f32``, ...);
             the golden ViT and the block's gradient must launch the
             float32 kernels and no bf16 one.
+K1's float32 backward (D, dkv, dq) redesigned on 3xTF32 tensor-core
+products adds:
+
+2b. build_facts  also the float32 dkv and dq (``flash_bwd_dkv_f32``,
+            ``flash_bwd_dq_f32``): registers, spills, shared memory and
+            their HMMA count of the TF32 form; fails on a spill or on a
+            kernel without it.
+9b. f32_unfreeze  the training CLI with ``--unfreeze_cxr --mixed_precision
+            no`` on the pixel tier (240 stays, 1 epoch of 4 batches of 32):
+            K1's float32 launches counted over exactly this run (forward,
+            D, dkv and dq 12 each per train step, the forward 12 per eval
+            step, no bf16 K1 launch); finite losses; the ViT's, DuETT's and
+            the perceiver's weights moved; the reloaded best checkpoint
+            evaluates the val split bit-equal; peak memory. The float32 D,
+            dkv and dq rows of the summary take their launches from it.
+3b. backward  D (both dtypes) and the fastest of two single PyTorch calls
+            that compute it (``torch.linalg.vecdot(o, do)``, an einsum),
+            timed in alternation (``delta_library_ms``,
+            ``delta_vs_library``; the calls give D in O's dtype, so in bf16
+            they write half the bytes).
+10b. f32_unfreeze_step  the unfrozen step of 10 in float32: steady time,
+            peak memory, device busy time, idle share, and the device time
+            by kernel family (``by_family``: K1, GEMMs, the rest).
+
 Each float32 row of the summary carries ``tc_bound_ms`` beside
 ``bound_ms``: the same work as three TF32 products per product at 495
 TFLOP/s, or the bytes, whichever is larger (``bound_ms`` stays float32
@@ -261,15 +285,16 @@ TOL_F32 = 1e-5
 # relative to its max abs. bf16: P and dS are rounded to bf16 before their
 # products (as FA2 does) and o, lse, D come from the bf16 forward.
 TOL_BWD_BF16 = 2e-2
-# float32 SIMT kernels (TF32 off): the same arithmetic in another order, P
-# from exp(S·scale − lse) against the plain softmax
+# float32 kernels (3xTF32 tensor-core products, float32 accuracy; TF32 off
+# on the plain side): the same arithmetic in another order, P from
+# exp(S·scale − lse) against the plain softmax
 TOL_BWD_F32 = 1e-4
 # the forward's log-sum-exp against torch.logsumexp of the same scores,
 # absolute: both accumulate in float32, on values ≲ 10
 TOL_LSE = 1e-4
 # the backward's D against delta_reference, relative to its max abs: the
-# same 64 float32 products per row (exact for bf16 inputs) summed in
-# another order
+# same 64 products per row (exact for bf16 inputs; float32 as 3xTF32, the
+# products of the float32 kernels' dP) summed in another order
 TOL_DELTA = 1e-6
 # K3 and K4 against their plain versions, relative to each output's max
 # abs. Both sides take the same inputs and weights (cast to x's dtype) and
@@ -444,8 +469,8 @@ def phase_build(port) -> dict:
 def phase_build_facts(port) -> dict:
     """The tensor-core kernels as built: K1's bf16 forward, dkv and dq and
     K4's bf16 kernel (warpgroup MMA), K3's tensor-core route (mma.sync, at
-    DuETT's event axis [35, 600]) and the float32 routes of K1's forward
-    and K4 (3xTF32 mma.sync): registers at entry (``ptxas -v``) and the
+    DuETT's event axis [35, 600]) and the float32 routes of K1's forward,
+    dkv and dq and K4 (3xTF32 mma.sync): registers at entry (``ptxas -v``) and the
     counts its warps ask for after launch (``setmaxnreg`` in the SASS:
     ``TRY_ALLOC`` the consumers', ``DEALLOC`` the producer's), spills
     (bytes stored plus loaded), static plus the dynamic shared memory a
@@ -472,7 +497,9 @@ def phase_build_facts(port) -> dict:
             ("flash_attention_bwd", "flash_attention_bwd_smem_bytes",
              ctypes.c_int, [ctypes.c_int],
              (("dkv", "flash_bwd_dkv_bf16", (0,), "HGMMA", None),
-              ("dq", "flash_bwd_dq_bf16", (1,), "HGMMA", None))),
+              ("dq", "flash_bwd_dq_bf16", (1,), "HGMMA", None),
+              ("dkv_f32", "flash_bwd_dkv_f32", (2,), "HMMA", "TF32"),
+              ("dq_f32", "flash_bwd_dq_f32", (2,), "HMMA", "TF32"))),
             ("ln_qkv", "ln_qkv_smem_bytes", ctypes.c_longlong,
              [ctypes.c_int] * 2,
              (("k4", "ln_qkv_bf16_kernel", (1, 768), "HGMMA", None),
@@ -514,7 +541,8 @@ def phase_build_facts(port) -> dict:
     emit(info)
     for key, opcode in (("fwd", "hgmma"), ("dkv", "hgmma"), ("dq", "hgmma"),
                         ("k4", "hgmma"), ("k3_tc", "hmma"),
-                        ("fwd_f32", "hmma"), ("k4_f32", "hmma")):
+                        ("fwd_f32", "hmma"), ("k4_f32", "hmma"),
+                        ("dkv_f32", "hmma"), ("dq_f32", "hmma")):
         if info[key]["spills"] or not info[key][f"sass_{opcode}"] > 0 or \
                 serialised & set(info[key]["ptxas_warnings"]):
             raise AssertionError(f"{key}: {info[key]}")
@@ -831,12 +859,25 @@ def phase_f32_train(port, device, card: str = "") -> dict:
     return info
 
 
-def _profile(fn, n: int, step_ms: float, watch: dict) -> dict:
+# kernel families of a train step's profile: the first whose substrings a
+# kernel's name holds (lower case) takes it, the rest fall to "other"
+FAMILIES = {"k1": ("flash_fwd", "flash_bwd"),
+            "conv": ("conv", "implicit"),
+            "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_"),
+            "optimizer": ("multi_tensor", "foreach", "adam"),
+            "reduce_or_norm": ("reduce", "norm", "softmax"),
+            "copy_or_cast": ("copy", "memcpy", "memset", "cast"),
+            "elementwise": ("elementwise", "vectorized")}
+
+
+def _profile(fn, n: int, step_ms: float, watch: dict,
+             families: bool = False) -> dict:
     """``n`` calls of ``fn`` under ``torch.profiler``: device busy time per
     call (the sum of every device event's self time), the idle share of the
     unprofiled ``step_ms``, the heaviest kernels, and, for each ``watch``
     name, the device time and launches per call of the kernels whose names
-    hold its substring."""
+    hold its substring. ``families``: also the device time per call of
+    each of ``FAMILIES``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -867,6 +908,13 @@ def _profile(fn, n: int, step_ms: float, watch: dict) -> dict:
     out["top_kernels"] = [{"name": k[:90], "ms_per_step": us / 1e3 / n,
                            "launches_per_step": c / n}
                           for us, k, c in rows[:8]]
+    if families:
+        fam = dict.fromkeys([*FAMILIES, "other"], 0.0)
+        for us, k, _ in rows:
+            name = next((f for f, subs in FAMILIES.items()
+                         if any(x in k.lower() for x in subs)), "other")
+            fam[name] += us / 1e3 / n
+        out["by_family_ms_per_step"] = fam
     return out
 
 
@@ -995,6 +1043,11 @@ def backward_bound_ms(kind: str, B, H, N, n_keys, itemsize, peak_flops
         ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# D's yardstick in a row of the summary (``delta_<key>`` of phase_backward)
+DELTA_LIBRARY_KEYS = ("library_ms", "library_call", "library_ms_by_call",
+                      "vs_library")
+
+
 def delta_bound_ms(B, H, N, itemsize) -> float:
     """D's least time: O and dO read once, D (float32) written once, over
     the memory rate (it does 2·64 operations a row: bound by bytes)."""
@@ -1084,7 +1137,18 @@ def phase_backward(port, device, cases) -> dict:
                 mask = (torch.arange(N, device=device) < n_keys)[None, :]
             out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                                  scale=scale)
-            res["delta_ms"] = device_ms(lambda: att.delta(o, do), device)
+            # D and the two single PyTorch calls that compute it, their
+            # repetitions alternating; the faster call is the yardstick
+            lib = {"torch.linalg.vecdot": lambda: torch.linalg.vecdot(o, do),
+                   "torch.einsum": lambda: torch.einsum("bhnd,bhnd->bhn",
+                                                        o, do)}
+            res["delta_ms"], *lib_ms = paired_ms(
+                [lambda: att.delta(o, do), *lib.values()], device)
+            res["delta_library_ms_by_call"] = dict(zip(lib, lib_ms))
+            res["delta_library_ms"], res["delta_library_call"] = min(
+                zip(lib_ms, lib))
+            res["delta_vs_library"] = res["delta_ms"] / \
+                res["delta_library_ms"]
             res["delta_plain_ms"] = device_ms(
                 lambda: att.delta_reference(o, do), device)
             res["delta_bound_ms"] = delta_bound_ms(B, H, N, o.element_size())
@@ -1182,19 +1246,24 @@ def phase_block_grad(port, device, batch: int = 2) -> dict:
     return info
 
 
-def phase_unfreeze(port, device, card: str = "") -> dict:
+def phase_unfreeze(port, device, card: str = "", f32: bool = False) -> dict:
     """The training CLI with the CXR branch trainable (``--unfreeze_cxr``,
     pixel tier) at full width: K1's launches counted over exactly this run
     (forward, D, dkv and dq 12 each per train step, the forward alone 12
     per eval step); finite losses; the ViT's, DuETT's and the perceiver's
     weights moved from ``init_teacher``'s; the best checkpoint, reloaded,
-    evaluates the val split bit-equal to the loop."""
+    evaluates the val split bit-equal to the loop. ``f32``: the same run in
+    float32 (``--mixed_precision no``, the reference-precision path; phase
+    ``f32_unfreeze``), whose launches are K1's float32 kernels', each under
+    its own key, and none of its bf16 ones."""
     import torch
     att = port["attention"]
     shutil.rmtree(RUNS, ignore_errors=True)
     argv = ["--device", "cuda", "--unfreeze_cxr", "--cxr_feature_cache",
             "none", "--synthetic_stays", "240", "--batch_size", "32",
             "--epochs", "1", "--limit_batches", "4", "--ckpt_dir", RUNS]
+    if f32:
+        argv[2:2] = ["--mixed_precision", "no"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     att.reset_launches()
@@ -1220,12 +1289,15 @@ def phase_unfreeze(port, device, card: str = "") -> dict:
             "max_abs_change": max(float((trained[k] - init[k]).abs().max())
                                   for k in keys)}
     n = tcfg.vit.n_layers
+    key = (lambda name: att.launch_key(name, torch.float32)) if f32 \
+        else (lambda name: name)
     expect = {**dict.fromkeys(launches, 0),
-              "flash_attention": n * (steps + evals),
-              "flash_attention_bwd_delta": n * steps,
-              "flash_attention_bwd_dkv": n * steps,
-              "flash_attention_bwd_dq": n * steps}
-    info = {"phase": "unfreeze", "card": card, "argv": argv, "wall_s": wall,
+              key("flash_attention"): n * (steps + evals),
+              key("flash_attention_bwd_delta"): n * steps,
+              key("flash_attention_bwd_dkv"): n * steps,
+              key("flash_attention_bwd_dq"): n * steps}
+    info = {"phase": "f32_unfreeze" if f32 else "unfreeze", "card": card,
+            "argv": argv, "wall_s": wall,
             "train_steps": steps, "eval_steps": evals,
             "launches": launches, "expected_launches": expect,
             "train_s": ex["phase_seconds"]["train"],
@@ -1251,23 +1323,27 @@ def phase_unfreeze(port, device, card: str = "") -> dict:
     return info
 
 
-def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
+def phase_unfreeze_step(port, device, cfg, reps: int = 5,
+                        dtype: str = "bfloat16") -> dict:
     """The unfrozen pixel-tier train step at batch 32 on one fixed batch:
     the steady step time (CUDA events, median of ``reps`` after two warm-up
     steps), the peak memory and its estimate at the CLI's default batch of
     128 (the static part plus 4× the activations measured at 32), and a
     ``torch.profiler`` reading (device busy, idle share, time by kernel,
-    K1's four kernels)."""
+    K1's four kernels, the device time by kernel family). ``dtype``
+    "float32": the step of ``--mixed_precision no`` (phase
+    ``f32_unfreeze_step``), K1's float32 kernels watched."""
     import torch
     tl, eng = port["teacher_loop"], port["engine"]
-    tcfg = port["config"].TrainConfig(batch_size=32)
+    tcfg = port["config"].TrainConfig(batch_size=32, dtype=dtype)
     ucfg = cfg.replace(freeze_cxr=False)
     data, host, hook = _train_batch(port, device, ucfg)
     model = port["teacher"].init_teacher(ucfg, 0).to(device)
     state = port["state"].TrainState(model, port["optim"].MultiGroupAdamW(
         model, tcfg.optim, 100,
         frozen_prefixes=tl.teacher_frozen_prefixes(ucfg)))
-    step = eng.make_teacher_step(tcfg, ucfg.duett, 24, np.ones(7, np.float32))
+    step = eng.make_teacher_step(tcfg, ucfg.duett, 24, np.ones(7, np.float32),
+                                 dtype=getattr(torch, dtype))
     batch = eng.to_device(hook(host), device)
     gen = torch.Generator(device=device).manual_seed(1)
 
@@ -1291,12 +1367,15 @@ def phase_unfreeze_step(port, device, cfg, reps: int = 5) -> dict:
         times.append(start.elapsed_time(end))
     peak = torch.cuda.max_memory_allocated()
     step_ms = statistics.median(times)
-    prof = _profile(run, 3, step_ms, {"k1_fwd": "flash_fwd_bf16",
-                                      "k1_delta": "flash_bwd_delta",
-                                      "k1_dkv": "flash_bwd_dkv_bf16",
-                                      "k1_dq": "flash_bwd_dq_bf16"})
+    sfx = "f32" if dtype == "float32" else "bf16"
+    prof = _profile(run, 3, step_ms, {"k1_fwd": f"flash_fwd_{sfx}",
+                                      "k1_delta": f"flash_bwd_delta_{sfx}",
+                                      "k1_dkv": f"flash_bwd_dkv_{sfx}",
+                                      "k1_dq": f"flash_bwd_dq_{sfx}"},
+                    families=True)
     n_params = sum(p.numel() for p in model.parameters())
-    info = {"phase": "unfreeze_step", "batch": 32, "dtype": "bfloat16",
+    info = {"phase": "unfreeze_step" if sfx == "bf16" else
+            "f32_unfreeze_step", "batch": 32, "dtype": dtype,
             "params": n_params, "trainable_params": sum(
                 p.numel() for p in model.parameters() if p.requires_grad),
             "step_ms": step_ms, "step_ms_all": times,
@@ -2075,6 +2154,10 @@ def main() -> int:
     f32_train = phase_f32_train(port, device, card=dev["nvidia_smi"])
     unfreeze = phase_unfreeze(port, device, card=dev["nvidia_smi"])
     phase_unfreeze_step(port, device, cfgmod.TeacherConfig())
+    f32_unfreeze = phase_unfreeze(port, device, card=dev["nvidia_smi"],
+                                  f32=True)
+    phase_unfreeze_step(port, device, cfgmod.TeacherConfig(),
+                        dtype="float32")
     ssl = phase_ssl(port, device, card=dev["nvidia_smi"])
     trained = phase_trained_layer(port, device, ssl)
     to_teacher = phase_ssl_to_teacher(port, device, ssl["best_path"],
@@ -2119,17 +2202,19 @@ def main() -> int:
     # gradient), each counted under its own key. K1's forward takes its
     # launches, its case and its times from the float32 training run's
     # bank build, at [16, 12, 1370, 64]; the pixel step's [32, ...] times
-    # stand beside them. The backward's float32 kernels run on no training
-    # path of this script, so theirs come from the full-width block's
-    # gradient, at the pixel step's shape; K4 has no caller.
+    # stand beside them. The backward's float32 kernels (D, dkv, dq) take
+    # theirs from the float32 fine-tuning run (f32_unfreeze), whose K1 work
+    # is the pixel step's batch of 32; the full-width block's gradient
+    # stands under launches_by_path. K4 has no caller.
     # tc_bound_ms: the same work as 3xTF32 tensor-core products.
     k1f, k1p, bf = checks["bank_build_f32"], checks["pixel_step_f32"], \
         bwd["pixel_step_f32"]
     case_f32 = "pixel_step_f32 [32, 12, 1370, 64]"
-    n_f32 = f32_train["launches"]
+    n_f32, n_fu = f32_train["launches"], f32_unfreeze["launches"]
 
     def f32_by_path(name, **earlier):
         return by_path(name, f32_train=n_f32[name], unfreeze=n_k1[name],
+                       f32_unfreeze=n_fu[name],
                        block_grad=block["launches"].get(name, 0), **earlier)
 
     f32_rows = [
@@ -2152,15 +2237,16 @@ def main() -> int:
                             "tc_bound_ms", "plain_ms")}}},
         {"name": "flash_attention_bwd_delta_f32", "route": "cuda",
          "source": K1_BWD_SOURCE, "replaces": K1_DELTA_REPLACES,
-         "launches": block["launches"]["flash_attention_bwd_delta_f32"],
+         "launches": n_fu["flash_attention_bwd_delta_f32"],
          "launches_by_path": f32_by_path("flash_attention_bwd_delta_f32"),
          "case": case_f32, "max_abs_err": bf["delta_max_abs_err"],
          "ms": bf["delta_ms"], "plain_ms": bf["delta_plain_ms"],
          "bound_ms": bf["delta_bound_ms"], "bound_by": "bytes",
-         "tc_bound_ms": bf["delta_bound_ms"], "library_ms": None},
+         "tc_bound_ms": bf["delta_bound_ms"],
+         **{k: bf[f"delta_{k}"] for k in DELTA_LIBRARY_KEYS}},
         *[{"name": f"flash_attention_bwd_{kind}_f32", "route": "cuda",
            "source": K1_BWD_SOURCE, "replaces": replaces,
-           "launches": block["launches"][f"flash_attention_bwd_{kind}_f32"],
+           "launches": n_fu[f"flash_attention_bwd_{kind}_f32"],
            "launches_by_path": f32_by_path(f"flash_attention_bwd_{kind}_f32"),
            "case": case_f32,
            "max_abs_err": max(bf["max_abs_err"][g] for g in grads),
@@ -2171,7 +2257,8 @@ def main() -> int:
            "library_ms": bf["library_ms"], "pair_ms": bf["pair_ms"],
            "pair_vs_library": bf["pair_vs_library"],
            "delta_ms": bf["delta_ms"], "backward_ms": bf["backward_ms"],
-           "backward_vs_library": bf["backward_vs_library"]}
+           "backward_vs_library": bf["backward_vs_library"],
+           **built[f"{kind}_f32"]}
           for kind, replaces, grads in (
               ("dkv", K1_DKV_REPLACES, ("dk", "dv")),
               ("dq", K1_DQ_REPLACES, ("dq",)))],
@@ -2208,7 +2295,8 @@ def main() -> int:
         "case": case, "max_abs_err": b["delta_max_abs_err"],
         "max_rel_err": b["delta_max_rel_err"], "ms": b["delta_ms"],
         "plain_ms": b["delta_plain_ms"], "bound_ms": b["delta_bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": "bytes",
+        **{k: b[f"delta_{k}"] for k in DELTA_LIBRARY_KEYS},
         "backward_ms": b["backward_ms"],
         "backward_vs_library": b["backward_vs_library"]}
     emit({"kernels": [

@@ -70,8 +70,34 @@
 // Keys at or past n_keys load as 0 but exp(0 - lse) is not 0, so P is masked
 // in arithmetic; queries past Nq get lse = +inf, so their P is 0.
 //
-// The float32 kernels are plain SIMT loops (one thread per owned row, f32
-// FMA, no TF32) for the reference-precision checks.
+// The float32 kernels serve the reference-precision path (--unfreeze_cxr
+// --mixed_precision no: 12 launches of each a train step). Their bound at
+// [32, 12, 1370, 64] is 5.5 (dkv) and 4.1 ms (dq) of float32 FMA (67
+// TFLOP/s), where their first design, one thread an owned row with every
+// FMA waiting on a shared-memory load, ran at a fifth of that rate. So
+// their products go to the tensor cores in float32 accuracy, as 3xTF32
+// mma.sync m16n8k8 (mma_tf32.cuh; 2.2 and 1.7 ms of TF32 products at 495
+// TFLOP/s), on the float32 forward's model (flash_attention.cu):
+//   - A block of 8 warps owns 128 keys (dkv) or queries (dq), 16 a warp,
+//     split once into TF32 big and small parts in shared memory. 32-row
+//     tiles of Q and dO (dkv) or K and V (dq) come in by cp.async into a
+//     double buffer, and each thread splits the chunks it copied, so every
+//     value is split once a block.
+//   - Per tile, dkv computes S^T = K Q^T and dP^T = V dO^T, P^T and dS^T in
+//     registers, then dV += P^T dO and dK += dS^T Q; dq computes S = Q K^T
+//     and dP = dO V^T, then dQ += dS K. With mma_tf32.cuh's k order the
+//     score accumulators are the A fragments of the second products as
+//     they stand. The streamed rows are read in a fixed order within each
+//     group of 8 (sigma), so that a tile read both as [n][k] and as [k][n]
+//     meets no bank conflict either way.
+//   - Each pair of k-steps is summed on the tensor cores from zero, a kind
+//     of product at a time over 8 accumulator tiles, and then added in
+//     float32 (dK and dV sum over 1370 queries: a chain through the tensor
+//     cores' truncating adds would drift).
+//   - dP = dO V^T and D = rowsum(dO * O) are one computation (below): dkv
+//     takes its transposed products in the swapped order
+//     (mma_3xtf32_sweep_d's kSwap), so that its dP^T has the bits of dq's
+//     dP.
 //
 // D = rowsum(dO * O) (flash_bwd_delta_*): float32 [B, H, Nq] from bf16 or
 // float32 O and dO read through their strides. Bound by bytes: O and dO read
@@ -80,8 +106,10 @@
 // PyTorch (two upcasts, the product, the sum) moved about 0.94 GB. In bf16
 // each row's 64 values are 8 16-byte chunks, one per thread; a thread sums
 // its chunk's products in order and the row's threads add their sums in a
-// fixed butterfly of shuffles, so reruns are bit-equal. The float32 kernel
-// is a plain loop, one thread a row, for the reference-precision checks.
+// fixed butterfly of shuffles, so reruns are bit-equal. In float32, D is
+// the diagonal of dO O^T through the 3xTF32 products of dP (four threads
+// a row), so that at one live key, where the forward passes V whole
+// (O = V), dP - D is exactly 0.
 //
 // Entry points: flash_attention_bwd_delta(...), flash_attention_bwd_dkv(...)
 // and flash_attention_bwd_dq(...) launch on the given stream, allocate
@@ -94,6 +122,7 @@
 #include <stdint.h>
 
 #include "mma_bf16.cuh"
+#include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -107,10 +136,10 @@ constexpr int kProducer = 8;   // the producer's warp (its group's first)
 constexpr int kProducerRegs = 40;   // registers a thread after setmaxnreg:
 constexpr int kConsumerRegs = 232;  // 128 (40 + 2 x 232) <= 65536
 constexpr uint32_t kTileBytes = kTile * kD * 2;
-constexpr int kBM = 64;        // owned rows per block (f32)
-constexpr int kBNf = 16;       // streamed rows per tile (f32)
-constexpr int kRowf = kD + 1;  // padded f32 row of an owned row: thread i
-                               // reads row i, conflict-free
+constexpr int kOwnF = 128;     // owned rows per block (f32): 16 a warp
+constexpr int kThreadsF = 256;
+constexpr int kTileF = 32;     // streamed rows per tile (f32)
+constexpr int kLdF = kD + 8;   // padded f32 row: 8 mod 32 words
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
@@ -412,138 +441,397 @@ flash_bwd_dq_bf16(const __grid_constant__ Maps m, const Params p) {
   }
 }
 
-// Load the block's 64 own rows [r0, r0 + 64) of a float32 [N, 64] matrix into
-// padded shared rows (rows at or past n_valid are 0).
-__device__ __forceinline__ void load_own_rows(float (*dst)[kRowf],
-                                              const float* x,
-                                              long long stride, int r0,
-                                              int n_valid) {
-  for (int c = threadIdx.x; c < kBM * kD; c += blockDim.x) {
-    const int r = c / kD, col = c % kD;
-    dst[r][col] = r0 + r < n_valid ? x[(r0 + r) * stride + col] : 0.f;
+// ---------------------------------------------------------------------------
+// float32: mma.sync m16n8k8 on split TF32 operands (3xTF32, mma_tf32.cuh)
+// ---------------------------------------------------------------------------
+// A block of 8 warps owns 128 rows (keys in dkv, queries in dq), 16 a warp,
+// split once into TF32 big and small parts in shared memory, where each
+// warp reads its 16 rows as A fragments. 32-row tiles of the other side
+// stream in by cp.async into a double buffer and are split in place (big)
+// and beside it (small), each thread the chunks it copied. Rows are padded
+// to 72 floats (8 mod 32 words), and the rows of a streamed tile are read
+// in the order sigma below, so that both of a tile's fragment loads meet no
+// bank conflict: as B [n = row][k = head dim] of the score products (one
+// 8-byte load a part) and as B [k = row][n = head dim] of dV, dK or dQ (two
+// 4-byte loads a part).
+struct F32Smem {
+  float ab[kOwnF][kLdF], as[kOwnF][kLdF];  // owned K (dkv) or Q (dq), split
+  float bb[kOwnF][kLdF], bs[kOwnF][kLdF];  // owned V (dkv) or dO (dq), split
+  float xt[2][kTileF][kLdF], xs[kTileF][kLdF];  // Q (dkv) or K (dq) tiles:
+  float yt[2][kTileF][kLdF], ys[kTileF][kLdF];  // raw, then big; small
+  float lse[2][kTileF], dlt[2][kTileF];  // dkv: the tile's lse (log2) and D
+};
+
+// Column c of an 8-wide score tile is streamed row sigma(c) of its 8-row
+// group, and so is k slot c / 2 + 4 (c & 1) of a product over those rows
+// (mma_tf32.cuh's k order): σ = (0, 1, 2, 3, 5, 4, 7, 6). A warp's score B
+// loads then read rows {0, 1, 2, 3} and {5, 4, 7, 6} in its two half-warps,
+// and its [k][n] loads rows σ(2t) = {0, 2, 5, 7} and σ(2t + 1) =
+// {1, 3, 4, 6}: 8 words apart mod 32 at a row stride of 72 in each case.
+__device__ __forceinline__ int sigma(int c) { return c ^ (c >> 2); }
+
+__device__ __forceinline__ void split4(const float4 x, float4& big,
+                                       float4& small) {
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  uint32_t bg[4], sm[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(v[e], bg[e], sm[e]);
+  big = make_float4(__uint_as_float(bg[0]), __uint_as_float(bg[1]),
+                    __uint_as_float(bg[2]), __uint_as_float(bg[3]));
+  small = make_float4(__uint_as_float(sm[0]), __uint_as_float(sm[1]),
+                      __uint_as_float(sm[2]), __uint_as_float(sm[3]));
+}
+
+// The block's kOwnF own rows [r0, r0 + kOwnF) of a float32 [N, 64] matrix
+// (rows at or past n_valid 0), split into padded shared rows
+__device__ __forceinline__ void load_split_own(float (*big)[kLdF],
+                                               float (*small)[kLdF],
+                                               const float* x,
+                                               long long stride, int r0,
+                                               int n_valid) {
+  for (int c = threadIdx.x; c < kOwnF * kD / 4; c += kThreadsF) {
+    const int r = c / (kD / 4), col = c % (kD / 4) * 4;
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < n_valid)
+      val = *reinterpret_cast<const float4*>(x + (r0 + r) * stride + col);
+    split4(val, *reinterpret_cast<float4*>(&big[r][col]),
+           *reinterpret_cast<float4*>(&small[r][col]));
   }
 }
 
-// Stage kBNf rows [n0, n0 + kBNf) of a float32 [N, 64] matrix (rows at or
-// past n_valid are 0), 16 bytes at a time.
-__device__ __forceinline__ void load_f32_tile(float (*dst)[kD], const float* x,
+// The rows of one [kTileF, 64] tile (rows past n_valid zero-filled) into
+// the padded shared rows, 16 bytes a copy: this thread's chunks are rows
+// tid / 16 + 16 i, columns 4 (tid % 16) ...
+constexpr int kCopyRowsF = kThreadsF / (kD / 4);
+
+__device__ __forceinline__ void load_tile_f32(float (*dst)[kLdF],
+                                              const float* src,
                                               long long stride, int n0,
                                               int n_valid) {
-  for (int c = threadIdx.x; c < kBNf * kD / 4; c += blockDim.x) {
-    const int r = c / (kD / 4), col = (c % (kD / 4)) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (n0 + r < n_valid)
-      val = *reinterpret_cast<const float4*>(x + (n0 + r) * stride + col);
-    *reinterpret_cast<float4*>(&dst[r][col]) = val;
+  const int r0 = threadIdx.x / (kD / 4), col = threadIdx.x % (kD / 4) * 4;
+#pragma unroll
+  for (int i = 0; i < kTileF / kCopyRowsF; ++i) {
+    const int r = r0 + kCopyRowsF * i;
+    const bool ok = n0 + r < n_valid;
+    cp_async16(smem_u32(&dst[r][col]),
+               src + (ok ? (n0 + r) * stride + col : 0), ok);
   }
 }
 
-__device__ __forceinline__ float dot64(const float* a, const float* b) {
-  float acc = 0.f;
+// ... which it splits once they have landed (no other thread's copies are
+// read): big in place, small beside it
+__device__ __forceinline__ void split_tile_f32(float (*raw)[kLdF],
+                                               float (*small)[kLdF]) {
+  const int r0 = threadIdx.x / (kD / 4), col = threadIdx.x % (kD / 4) * 4;
 #pragma unroll
-  for (int d = 0; d < kD; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
+  for (int i = 0; i < kTileF / kCopyRowsF; ++i) {
+    float4* x = reinterpret_cast<float4*>(&raw[r0 + kCopyRowsF * i][col]);
+    split4(*x, *x,
+           *reinterpret_cast<float4*>(&small[r0 + kCopyRowsF * i][col]));
+  }
 }
 
-__global__ void __launch_bounds__(kBM)
-flash_bwd_dkv_f32(const Params p) {
-  __shared__ float Kown[kBM][kRowf];
-  __shared__ float Vown[kBM][kRowf];
-  __shared__ __align__(16) float Qs[kBNf][kD];
-  __shared__ __align__(16) float Os[kBNf][kD];
-  __shared__ float Ls[kBNf];
-  __shared__ float Ds[kBNf];
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0));
+}
 
+// dkv: the lse and D of the query tile from m0 (threads 0-31 and 32-63,
+// one row each; rows past Nq zero-filled) ...
+__device__ __forceinline__ void load_stats_f32(F32Smem& s, int st,
+                                               const float* lse,
+                                               const float* delta, int m0,
+                                               int Nq) {
+  const int r = threadIdx.x & (kTileF - 1);
+  const bool ok = m0 + r < Nq;
+  if (threadIdx.x < kTileF)
+    cp_async4(smem_u32(&s.lse[st][r]), lse + (ok ? m0 + r : 0), ok);
+  else if (threadIdx.x < 2 * kTileF)
+    cp_async4(smem_u32(&s.dlt[st][r]), delta + (ok ? m0 + r : 0), ok);
+}
+
+// ... whose lse the same threads scale into log2 units once it has
+// landed, +inf past Nq (so that P = 0 there)
+__device__ __forceinline__ void scale_lse_f32(F32Smem& s, int st, int m0,
+                                              int Nq) {
+  if (threadIdx.x < kTileF)
+    s.lse[st][threadIdx.x] = m0 + static_cast<int>(threadIdx.x) < Nq
+        ? s.lse[st][threadIdx.x] * kLog2e : INFINITY;
+}
+
+// One k-step's split B fragments of the 32 x 64 score product against a
+// streamed tile (big in `big`, small in `small`): n-tile j's column g is
+// the tile's row 8 j + sigma(g), the k-step's 8 head-dim columns from k0.
+__device__ __forceinline__ void load_score_b(uint32_t (&bb)[kTileF / 8][2],
+                                             uint32_t (&bs)[kTileF / 8][2],
+                                             const float (*big)[kLdF],
+                                             const float (*small)[kLdF],
+                                             int sg, int k0, int t) {
+#pragma unroll
+  for (int j = 0; j < kTileF / 8; ++j) {
+    load_b_nk(bb[j], &big[0][0], kLdF, j * 8 + sg, k0, t);
+    load_b_nk(bs[j], &small[0][0], kLdF, j * 8 + sg, k0, t);
+  }
+}
+
+// 16 rows x 32 streamed rows of scores, sc = A·Bᵀ over the head dim: A the
+// warp's 16 owned rows (split), B a streamed tile; each pair of k-steps
+// summed on the tensor cores from zero (kT: the transposed product's order,
+// mma_3xtf32_sweep_d's kSwap), then added in float32. Two such products at
+// once (S and dP), so that each kind of product runs over 8 tiles.
+template <bool kT>
+__device__ __forceinline__ void score_pair(
+    float (&s1)[kTileF / 8][4], float (&s2)[kTileF / 8][4],
+    const float (*a1b)[kLdF], const float (*a1s)[kLdF],
+    const float (*a2b)[kLdF], const float (*a2s)[kLdF],
+    const float (*x1b)[kLdF], const float (*x1s)[kLdF],
+    const float (*x2b)[kLdF], const float (*x2s)[kLdF], int g, int t) {
+  const int sg = sigma(g);
+#pragma unroll
+  for (int kp = 0; kp < kD / 16; ++kp) {
+    float d1[kTileF / 8][4], d2[kTileF / 8][4];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int k0 = (2 * kp + h2) * 8;
+      uint32_t ab1[4], as1[4], ab2[4], as2[4];
+      uint32_t bb1[kTileF / 8][2], bs1[kTileF / 8][2];
+      uint32_t bb2[kTileF / 8][2], bs2[kTileF / 8][2];
+      load_a_frag(ab1, &a1b[0][0], kLdF, g, k0, t);
+      load_a_frag(as1, &a1s[0][0], kLdF, g, k0, t);
+      load_a_frag(ab2, &a2b[0][0], kLdF, g, k0, t);
+      load_a_frag(as2, &a2s[0][0], kLdF, g, k0, t);
+      load_score_b(bb1, bs1, x1b, x1s, sg, k0, t);
+      load_score_b(bb2, bs2, x2b, x2s, sg, k0, t);
+      if (h2 == 0) {
+        mma_3xtf32_sweep_d<true, kT>(d1, ab1, as1, bb1, bs1);
+        mma_3xtf32_sweep_d<true, kT>(d2, ab2, as2, bb2, bs2);
+      } else {
+        mma_3xtf32_sweep_d<false, kT>(d1, ab1, as1, bb1, bs1);
+        mma_3xtf32_sweep_d<false, kT>(d2, ab2, as2, bb2, bs2);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTileF / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s1[j][e] = kp ? s1[j][e] + d1[j][e] : d1[j][e];
+        s2[j][e] = kp ? s2[j][e] + d2[j][e] : d2[j][e];
+      }
+  }
+}
+
+// acc += W·X over the tile's 32 streamed rows (k): W the 16 x 32 weights in
+// score-accumulator layout (P or dS: column tile j is the A fragment of
+// k-step j, split here), X the tile [k = row][n = head dim] (big, small),
+// its k slots the rows sigma(2t), sigma(2t + 1) of each 8-row group (rk0,
+// rk1: their offsets). Each pair of k-steps summed from zero over the 8
+// head-dim tiles, then added in float32.
+__device__ __forceinline__ void weighted_rows(
+    float (&acc)[8][4], const float (&w)[kTileF / 8][4],
+    const float (*xb)[kLdF], const float (*xs)[kLdF], int rk0, int rk1,
+    int g) {
+#pragma unroll
+  for (int jp = 0; jp < kTileF / 16; ++jp) {
+    float d[8][4];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int j = 2 * jp + h2;
+      uint32_t ab[4], as[4], bb[8][2], bs[8][2];
+      acc_to_a_tf32(ab, as, w[j]);
+      const float* b0 = &xb[j * 8][0];
+      const float* s0 = &xs[j * 8][0];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int c = n * 8 + g;
+        bb[n][0] = __float_as_uint(b0[rk0 + c]);
+        bb[n][1] = __float_as_uint(b0[rk1 + c]);
+        bs[n][0] = __float_as_uint(s0[rk0 + c]);
+        bs[n][1] = __float_as_uint(s0[rk1 + c]);
+      }
+      if (h2 == 0)
+        mma_3xtf32_sweep_d<true>(d, ab, as, bb, bs);
+      else
+        mma_3xtf32_sweep_d<false>(d, ab, as, bb, bs);
+    }
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] += d[n][e];
+  }
+}
+
+// Write a warp's 16 x 64 f32 accumulator (times `mul`) as float32 rows r0
+// and r0 + 8; rows at or past n are not written.
+__device__ __forceinline__ void store_rows_f32(float* out, long long stride,
+                                               const float (&acc)[8][4],
+                                               float mul, int r0, int n,
+                                               int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = j * 8 + 2 * t;
+    if (r0 < n)
+      *reinterpret_cast<float2*>(out + r0 * stride + c) =
+          make_float2(acc[j][0] * mul, acc[j][1] * mul);
+    if (r0 + 8 < n)
+      *reinterpret_cast<float2*>(out + (r0 + 8) * stride + c) =
+          make_float2(acc[j][2] * mul, acc[j][3] * mul);
+  }
+}
+
+__global__ void __launch_bounds__(kThreadsF, 1)
+flash_bwd_dkv_f32(const Params p) {
+  F32Smem& s = smem_1024<F32Smem>();
   const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const float* q = at<float>(p.q, b, h, p.sqb, p.sqh);
   const float* dout = at<float>(p.dout, b, h, p.sob, p.soh);
   const long long bh = static_cast<long long>(b) * p.H + h;
-  const int base = blockIdx.x * kBM, key = base + threadIdx.x;
-  load_own_rows(Kown, at<float>(p.k, b, h, p.skb, p.skh), p.skn, base,
-                p.n_keys);
-  load_own_rows(Vown, at<float>(p.v, b, h, p.svb, p.svh), p.svn, base,
-                p.n_keys);
+  const float* lse = p.lse + bh * p.Nq;
+  const float* delta = p.delta + bh * p.Nq;
+  const int n_tiles = (p.Nq + kTileF - 1) / kTileF;
+  // the first query tile streams in while the owned keys are split
+  load_tile_f32(s.xt[0], q, p.sqn, 0, p.Nq);
+  load_tile_f32(s.yt[0], dout, p.son, 0, p.Nq);
+  load_stats_f32(s, 0, lse, delta, 0, p.Nq);
+  cp_async_commit();
+  const int base = blockIdx.x * kOwnF;
+  load_split_own(s.ab, s.as, at<float>(p.k, b, h, p.skb, p.skh), p.skn, base,
+                 p.n_keys);
+  load_split_own(s.bb, s.bs, at<float>(p.v, b, h, p.svb, p.svh), p.svn, base,
+                 p.n_keys);
 
-  float dk[kD], dv[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) dk[d] = dv[d] = 0.f;
+  // this thread's rows of the accumulators are keys c0 and c0 + 8 (keys
+  // past n_keys: P = 0, so dK and dV are exactly 0 there); its score
+  // columns 2t and 2t + 1 of each n-tile are queries sigma(2t), sigma(2t+1)
+  const int w0 = warp * 16, c0 = base + w0 + g;
+  const bool live0 = c0 < p.n_keys, live1 = c0 + 8 < p.n_keys;
+  const int q0 = sigma(2 * t), q1 = sigma(2 * t + 1);
+  const int rk0 = q0 * kLdF, rk1 = q1 * kLdF;
+  float dk[8][4], dv[8][4];
+  zero_acc(dk);
+  zero_acc(dv);
 
-  for (int m0 = 0; m0 < p.Nq; m0 += kBNf) {
-    __syncthreads();
-    load_f32_tile(Qs, q, p.sqn, m0, p.Nq);
-    load_f32_tile(Os, dout, p.son, m0, p.Nq);
-    if (threadIdx.x < kBNf) {
-      const int r = m0 + threadIdx.x;
-      Ls[threadIdx.x] = r < p.Nq ? p.lse[bh * p.Nq + r] : 0.f;
-      Ds[threadIdx.x] = r < p.Nq ? p.delta[bh * p.Nq + r] : 0.f;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, m0 = it * kTileF;
+    if (it + 1 < n_tiles) {  // the next tile streams in under this one
+      load_tile_f32(s.xt[st ^ 1], q, p.sqn, m0 + kTileF, p.Nq);
+      load_tile_f32(s.yt[st ^ 1], dout, p.son, m0 + kTileF, p.Nq);
+      load_stats_f32(s, st ^ 1, lse, delta, m0 + kTileF, p.Nq);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    const int n = min(kBNf, p.Nq - m0);
-    for (int j = 0; j < n; ++j) {
-      const float pj = key < p.n_keys
-          ? expf(dot64(Kown[threadIdx.x], Qs[j]) * p.scale - Ls[j]) : 0.f;
-      const float ds = pj * (dot64(Vown[threadIdx.x], Os[j]) - Ds[j]);
+    split_tile_f32(s.xt[st], s.xs);
+    split_tile_f32(s.yt[st], s.ys);
+    scale_lse_f32(s, st, m0, p.Nq);
+    __syncthreads();  // the tile is split and in place
+
+    // S^T = K Q^T and dP^T = V dO^T, 16 keys x 32 queries, in the
+    // transposed products' order, so that dP^T has the bits of dq's dP
+    // and of D's products
+    float sc[kTileF / 8][4], dp[kTileF / 8][4];
+    score_pair<true>(sc, dp, s.ab + w0, s.as + w0, s.bb + w0, s.bs + w0,
+                     s.xt[st], s.xs, s.yt[st], s.ys, g, t);
+    // P^T = exp2(S^T scale log2(e) - lse), dS^T = P^T (dP^T - D)
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        dv[d] = fmaf(pj, Os[j][d], dv[d]);
-        dk[d] = fmaf(ds, Qs[j][d], dk[d]);
+    for (int j = 0; j < kTileF / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = j * 8 + ((e & 1) ? q1 : q0);
+        const float pe = (e < 2 ? live0 : live1)
+            ? exp2_fast(sc[j][e] * p.scale_log2 - s.lse[st][col]) : 0.f;
+        sc[j][e] = pe;
+        dp[j][e] = pe * (dp[j][e] - s.dlt[st][col]);
       }
     }
+    // dV += P^T dO, dK += dS^T Q over the tile's queries
+    weighted_rows(dv, sc, s.yt[st], s.ys, rk0, rk1, g);
+    weighted_rows(dk, dp, s.xt[st], s.xs, rk0, rk1, g);
+    __syncthreads();  // every warp is done with the tile: the next one is
+                      // split into xs, ys and its stage refilled
   }
 
-  if (key < p.Nk) {
-    float* dko = at_out<float>(p.dk, b, h, p.sdkb, p.sdkh) + key * p.sdkn;
-    float* dvo = at_out<float>(p.dv, b, h, p.sdvb, p.sdvh) + key * p.sdvn;
-#pragma unroll
-    for (int d = 0; d < kD; ++d) {
-      dko[d] = dk[d] * p.scale;
-      dvo[d] = dv[d];
-    }
-  }
+  store_rows_f32(at_out<float>(p.dk, b, h, p.sdkb, p.sdkh), p.sdkn, dk,
+                 p.scale, c0, p.Nk, t);
+  store_rows_f32(at_out<float>(p.dv, b, h, p.sdvb, p.sdvh), p.sdvn, dv, 1.f,
+                 c0, p.Nk, t);
 }
 
-__global__ void __launch_bounds__(kBM)
+__global__ void __launch_bounds__(kThreadsF, 1)
 flash_bwd_dq_f32(const Params p) {
-  __shared__ float Qown[kBM][kRowf];
-  __shared__ float Oown[kBM][kRowf];
-  __shared__ __align__(16) float Ks[kBNf][kD];
-  __shared__ __align__(16) float Vs[kBNf][kD];
-
+  F32Smem& s = smem_1024<F32Smem>();
   const int b = blockIdx.z, h = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const float* k = at<float>(p.k, b, h, p.skb, p.skh);
   const float* v = at<float>(p.v, b, h, p.svb, p.svh);
+  const int n_tiles = (p.n_keys + kTileF - 1) / kTileF;
+  load_tile_f32(s.xt[0], k, p.skn, 0, p.n_keys);
+  load_tile_f32(s.yt[0], v, p.svn, 0, p.n_keys);
+  cp_async_commit();
+  const int base = blockIdx.x * kOwnF;
+  load_split_own(s.ab, s.as, at<float>(p.q, b, h, p.sqb, p.sqh), p.sqn, base,
+                 p.Nq);
+  load_split_own(s.bb, s.bs, at<float>(p.dout, b, h, p.sob, p.soh), p.son,
+                 base, p.Nq);
+
+  // this thread's rows are queries r0 and r0 + 8: their lse (log2 units;
+  // rows past Nq +inf, so P = 0) and D; its score columns 2t and 2t + 1 of
+  // each n-tile are keys sigma(2t), sigma(2t + 1)
+  const int w0 = warp * 16, r0 = base + w0 + g;
   const long long bh = static_cast<long long>(b) * p.H + h;
-  const int base = blockIdx.x * kBM, row = base + threadIdx.x;
-  load_own_rows(Qown, at<float>(p.q, b, h, p.sqb, p.sqh), p.sqn, base, p.Nq);
-  load_own_rows(Oown, at<float>(p.dout, b, h, p.sob, p.soh), p.son, base,
-                p.Nq);
-  // rows past Nq: P = 1 against Q = 0, dO = 0, so dS = 0
-  const float L = row < p.Nq ? p.lse[bh * p.Nq + row] : 0.f;
-  const float D = row < p.Nq ? p.delta[bh * p.Nq + row] : 0.f;
+  const float L0 = r0 < p.Nq ? p.lse[bh * p.Nq + r0] * kLog2e : INFINITY;
+  const float L1 =
+      r0 + 8 < p.Nq ? p.lse[bh * p.Nq + r0 + 8] * kLog2e : INFINITY;
+  const float D0 = r0 < p.Nq ? p.delta[bh * p.Nq + r0] : 0.f;
+  const float D1 = r0 + 8 < p.Nq ? p.delta[bh * p.Nq + r0 + 8] : 0.f;
+  const int k0r = sigma(2 * t), k1r = sigma(2 * t + 1);
+  const int rk0 = k0r * kLdF, rk1 = k1r * kLdF;
+  float dq[8][4];
+  zero_acc(dq);
 
-  float dq[kD];
-#pragma unroll
-  for (int d = 0; d < kD; ++d) dq[d] = 0.f;
-
-  for (int n0 = 0; n0 < p.n_keys; n0 += kBNf) {
-    __syncthreads();
-    load_f32_tile(Ks, k, p.skn, n0, p.n_keys);
-    load_f32_tile(Vs, v, p.svn, n0, p.n_keys);
-    __syncthreads();
-    const int n = min(kBNf, p.n_keys - n0);
-    for (int j = 0; j < n; ++j) {
-      const float pj = expf(dot64(Qown[threadIdx.x], Ks[j]) * p.scale - L);
-      const float ds = pj * (dot64(Oown[threadIdx.x], Vs[j]) - D);
-#pragma unroll
-      for (int d = 0; d < kD; ++d) dq[d] = fmaf(ds, Ks[j][d], dq[d]);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1, n0 = it * kTileF;
+    if (it + 1 < n_tiles) {
+      load_tile_f32(s.xt[st ^ 1], k, p.skn, n0 + kTileF, p.n_keys);
+      load_tile_f32(s.yt[st ^ 1], v, p.svn, n0 + kTileF, p.n_keys);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    split_tile_f32(s.xt[st], s.xs);
+    split_tile_f32(s.yt[st], s.ys);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T, 16 queries x 32 keys
+    float sc[kTileF / 8][4], dp[kTileF / 8][4];
+    score_pair<false>(sc, dp, s.ab + w0, s.as + w0, s.bb + w0, s.bs + w0,
+                      s.xt[st], s.xs, s.yt[st], s.ys, g, t);
+    // P = exp2(S scale log2(e) - lse), 0 for keys past n_keys (only the
+    // last tile has any); dS = P (dP - D)
+    const bool ragged = n0 + kTileF > p.n_keys;
+#pragma unroll
+    for (int j = 0; j < kTileF / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = n0 + j * 8 + ((e & 1) ? k1r : k0r);
+        const float pe =
+            exp2_fast(sc[j][e] * p.scale_log2 - (e < 2 ? L0 : L1));
+        sc[j][e] = ragged && key >= p.n_keys ? 0.f : pe;
+        dp[j][e] = sc[j][e] * (dp[j][e] - (e < 2 ? D0 : D1));
+      }
+    }
+    // dQ += dS K over the tile's keys
+    weighted_rows(dq, dp, s.xt[st], s.xs, rk0, rk1, g);
+    __syncthreads();
   }
 
-  if (row < p.Nq) {
-    float* o = at_out<float>(p.dq, b, h, p.sdqb, p.sdqh) + row * p.sdqn;
-#pragma unroll
-    for (int d = 0; d < kD; ++d) o[d] = dq[d] * p.scale;
-  }
+  store_rows_f32(at_out<float>(p.dq, b, h, p.sdqb, p.sdqh), p.sdqn, dq,
+                 p.scale, r0, p.Nq, t);
 }
 
 constexpr int kDeltaThreads = 256;
@@ -582,19 +870,73 @@ flash_bwd_delta_bf16(const __nv_bfloat16* o, const __nv_bfloat16* dout,
     delta[(static_cast<long long>(b) * H + h) * Nq + n] = acc;
 }
 
-// float32: one thread a row, the 64 products summed in order (dot64), as the
-// float32 dkv and dq kernels sum dP, so that dP - D cancels exactly where
-// it should (one key: P = 1, O = V)
-__global__ void __launch_bounds__(kDeltaThreads)
+// float32: D is the diagonal of dO·Oᵀ through the products with which dkv
+// and dq compute dP (3xTF32 mma.sync, A = dO and B = O in the roles of dq's
+// dO and V, each pair of k-steps summed from zero and then added in
+// float32), so that D and dP are the same float computation of the same
+// numbers wherever O is a row of V: at one live key (P = 1, O = V to the
+// bit) dP - D is exactly 0, as dS should be. A warp takes 16 rows, each
+// thread two (g and g + 8): one m16n8k8 tile against the first 8 rows of O
+// and one against the other 8 give the 16 diagonal elements. Its loads
+// are those of an A and a B fragment: 8 bytes a thread, 4 threads a row,
+// every 32-byte sector read whole. Bound by bytes, as above.
+__global__ void __launch_bounds__(kThreadsF)
 flash_bwd_delta_f32(const float* o, const float* dout, float* delta, int H,
                     int Nq, long long sob, long long soh, long long son,
                     long long sdb, long long sdh, long long sdn) {
   const int b = blockIdx.z, h = blockIdx.y;
-  const int n = blockIdx.x * kDeltaThreads + threadIdx.x;
-  if (n < Nq)
-    delta[(static_cast<long long>(b) * H + h) * Nq + n] =
-        dot64(o + b * sob + h * soh + n * son,
-              dout + b * sdb + h * sdh + n * sdn);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * kOwnF + warp * 16 + g, r1 = r0 + 8;
+  const float* o0 = o + b * sob + h * soh + r0 * son;
+  const float* o1 = o0 + 8 * son;
+  const float* d0 = dout + b * sdb + h * sdh + r0 * sdn;
+  const float* d1 = d0 + 8 * sdn;
+  const bool ok0 = r0 < Nq, ok1 = r1 < Nq;
+  const float2 zero = make_float2(0.f, 0.f);
+  float acc0[1][4], acc1[1][4];
+#pragma unroll
+  for (int kp = 0; kp < kD / 16; ++kp) {
+    float s0[1][4], s1[1][4];
+#pragma unroll
+    for (int h2 = 0; h2 < 2; ++h2) {
+      const int c = (2 * kp + h2) * 8 + 2 * t;
+      const float2 a0 = ok0 ? *reinterpret_cast<const float2*>(d0 + c) : zero;
+      const float2 a1 = ok1 ? *reinterpret_cast<const float2*>(d1 + c) : zero;
+      const float2 x0 = ok0 ? *reinterpret_cast<const float2*>(o0 + c) : zero;
+      const float2 x1 = ok1 ? *reinterpret_cast<const float2*>(o1 + c) : zero;
+      // dO rows g, g + 8 as A (load_a_frag's order); O row g, then row
+      // g + 8, as column g of B (load_b_nk's)
+      uint32_t ab[4], as[4], bb0[1][2], bs0[1][2], bb1[1][2], bs1[1][2];
+      split_tf32(a0.x, ab[0], as[0]);
+      split_tf32(a1.x, ab[1], as[1]);
+      split_tf32(a0.y, ab[2], as[2]);
+      split_tf32(a1.y, ab[3], as[3]);
+      split_tf32(x0.x, bb0[0][0], bs0[0][0]);
+      split_tf32(x0.y, bb0[0][1], bs0[0][1]);
+      split_tf32(x1.x, bb1[0][0], bs1[0][0]);
+      split_tf32(x1.y, bb1[0][1], bs1[0][1]);
+      if (h2 == 0) {
+        mma_3xtf32_sweep_d<true>(s0, ab, as, bb0, bs0);
+        mma_3xtf32_sweep_d<true>(s1, ab, as, bb1, bs1);
+      } else {
+        mma_3xtf32_sweep_d<false>(s0, ab, as, bb0, bs0);
+        mma_3xtf32_sweep_d<false>(s1, ab, as, bb1, bs1);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc0[0][e] = kp ? acc0[0][e] + s0[0][e] : s0[0][e];
+      acc1[0][e] = kp ? acc1[0][e] + s1[0][e] : s1[0][e];
+    }
+  }
+  // element (g, g) of the first tile and (g + 8, g) of the second are this
+  // quad's thread t = g / 2, columns 2t and 2t + 1
+  if (t == g >> 1) {
+    float* out = delta + (static_cast<long long>(b) * H + h) * Nq;
+    if (ok0) out[r0] = acc0[0][g & 1];
+    if (ok1) out[r1] = acc1[0][2 + (g & 1)];
+  }
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -621,6 +963,18 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// A float32 kernel's launch with its dynamic shared memory (above the
+// 48 KB a launch gets without asking)
+int launch_f32(void (*kernel)(const Params), dim3 grid, const Params& p,
+               cudaStream_t s) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<F32Smem>());
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreadsF, smem_bytes<F32Smem>(), s>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // D = rowsum(dO * O) into a contiguous float32 [B, H, Nq] `delta`. dtype:
@@ -641,8 +995,8 @@ extern "C" int flash_attention_bwd_delta(int dtype, const void* o,
         static_cast<const __nv_bfloat16*>(dout), delta, H, Nq, s[0], s[1],
         s[2], s[3], s[4], s[5]);
   } else if (dtype == 0) {
-    flash_bwd_delta_f32<<<dim3((Nq + kDeltaThreads - 1) / kDeltaThreads, H,
-                               B), kDeltaThreads, 0, st>>>(
+    flash_bwd_delta_f32<<<dim3((Nq + kOwnF - 1) / kOwnF, H, B), kThreadsF,
+                          0, st>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), delta,
         H, Nq, s[0], s[1], s[2], s[3], s[4], s[5]);
   } else {
@@ -676,8 +1030,8 @@ extern "C" int flash_attention_bwd_dkv(int dtype, const void* q,
                        dim3((Nk + kOwn - 1) / kOwn, H, B), p, q, dout, maps,
                        s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  flash_bwd_dkv_f32<<<dim3((Nk + kBM - 1) / kBM, H, B), kBM, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return launch_f32(flash_bwd_dkv_f32, dim3((Nk + kOwnF - 1) / kOwnF, H, B),
+                    p, s);
 }
 
 // strides: 15 element strides in the order q, k, v, dout, dq, each (b, h, n);
@@ -700,11 +1054,13 @@ extern "C" int flash_attention_bwd_dq(int dtype, const void* q, const void* k,
                        dim3((Nq + kOwn - 1) / kOwn, H, B), p, k, v, maps,
                        s);
   if (dtype != 0) return (int)cudaErrorInvalidValue;
-  flash_bwd_dq_f32<<<dim3((Nq + kBM - 1) / kBM, H, B), kBM, 0, s>>>(p);
-  return (int)cudaGetLastError();
+  return launch_f32(flash_bwd_dq_f32, dim3((Nq + kOwnF - 1) / kOwnF, H, B),
+                    p, s);
 }
 
-// Dynamic shared memory of a bf16 kernel's block: 0 = dkv, 1 = dq.
+// Dynamic shared memory of a kernel's block: 0 = dkv bf16, 1 = dq bf16,
+// 2 = dkv or dq float32.
 extern "C" int flash_attention_bwd_smem_bytes(int kernel) {
-  return kernel == 0 ? smem_bytes<DkvSmem>() : smem_bytes<DqSmem>();
+  return kernel == 0 ? smem_bytes<DkvSmem>()
+       : kernel == 1 ? smem_bytes<DqSmem>() : smem_bytes<F32Smem>();
 }

@@ -1,5 +1,6 @@
 // Warp-level building blocks of the float32 kernels' tensor-core products
-// (flash_attention.cu's flash_fwd_f32, ln_qkv.cu's ln_qkv_f32_kernel):
+// (flash_attention.cu's flash_fwd_f32, flash_attention_bwd.cu's float32
+// D, dkv and dq, ln_qkv.cu's ln_qkv_f32_kernel):
 // "3xTF32" products on mma.sync m16n8k8 (TF32 in, f32 accumulate).
 //
 // TF32 keeps 10 of float32's 23 mantissa bits. Each float32 operand x is
@@ -87,21 +88,30 @@ __device__ __forceinline__ void mma_tf32_m16n8k8_zero(float* d,
 // d[n] (+)= A * B[n] for one A fragment and N B fragments of one k-step,
 // the products issued a kind at a time (small·big, big·small, big·big), so
 // that no product waits on the one before it; kFirst: d starts at zero.
-template <bool kFirst, int N>
+// kSwap: the first two kinds swapped (big·small, then small·big), so that
+// A·B here and Bᵀ·Aᵀ without kSwap add the same products in the same order,
+// element for element, and give the same bits (flash_attention_bwd.cu:
+// dkv's dPᵀ = V·dOᵀ and dq's dP = dO·Vᵀ, which D = rowsum(dO∘O) must
+// cancel).
+template <bool kFirst, bool kSwap = false, int N>
 __device__ __forceinline__ void mma_3xtf32_sweep_d(
     float (&d)[N][4], const uint32_t (&a_big)[4],
     const uint32_t (&a_small)[4], const uint32_t (&b_big)[N][2],
     const uint32_t (&b_small)[N][2]) {
+  const uint32_t(&a1)[4] = kSwap ? a_big : a_small;
+  const uint32_t(&b1)[N][2] = kSwap ? b_small : b_big;
+  const uint32_t(&a2)[4] = kSwap ? a_small : a_big;
+  const uint32_t(&b2)[N][2] = kSwap ? b_big : b_small;
 #pragma unroll
   for (int n = 0; n < N; ++n) {
     if (kFirst)
-      mma_tf32_m16n8k8_zero(d[n], a_small, b_big[n][0], b_big[n][1]);
+      mma_tf32_m16n8k8_zero(d[n], a1, b1[n][0], b1[n][1]);
     else
-      mma_tf32_m16n8k8(d[n], a_small, b_big[n][0], b_big[n][1]);
+      mma_tf32_m16n8k8(d[n], a1, b1[n][0], b1[n][1]);
   }
 #pragma unroll
   for (int n = 0; n < N; ++n)
-    mma_tf32_m16n8k8(d[n], a_big, b_small[n][0], b_small[n][1]);
+    mma_tf32_m16n8k8(d[n], a2, b2[n][0], b2[n][1]);
 #pragma unroll
   for (int n = 0; n < N; ++n)
     mma_tf32_m16n8k8(d[n], a_big, b_big[n][0], b_big[n][1]);

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Same-call A/B of one kernel between repo trees, timed in turns on one
-card: K1's forward (the default), K2's row gather, K3's bf16 DuETT block
-or K4's LayerNorm → QKV; K1's forward and K4 in bf16 (the default) or,
-with ``--dtype float32``, on their float32 routes.
+card: K1's forward (the default), K1's backward, K2's row gather, K3's
+bf16 DuETT block or K4's LayerNorm → QKV; K1 and K4 in bf16 (the default)
+or, with ``--dtype float32``, on their float32 routes.
 
     git archive <parent> | tar -x -C build/ab/parent
     python3 scripts/ab_k1_fwd.py --tree parent=build/ab/parent --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k4 --tree parent=... --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k3 --tree parent=... --tree new=.
     python3 scripts/ab_k1_fwd.py --dtype float32 --tree parent=... --tree new=.
+    python3 scripts/ab_k1_fwd.py --kernel k1_bwd --dtype float32 --tree ...
 
 Each slot of ``--order`` (letters: the trees in the order given; default
 ``abba``) runs one worker process on the card that builds its tree's
@@ -20,6 +21,12 @@ PyTorch yardstick on the same inputs (this checkout's
 - ``k1_fwd``: ``flash_mha`` at [32, 12, 1370, 64] unless ``--shape``
   says otherwise, with and without lse, against SDPA's forward (float32:
   TF32 off, as everywhere in the port's float32 checks);
+- ``k1_bwd``: K1's backward at the same shape: the D, dkv and dq
+  kernels, the autograd Function's whole backward as training runs it (dO
+  made ready, D, dkv, dq) and SDPA's backward, the five timed in turns
+  (``paired_ms``); the Function's gradients against
+  ``flash_mha_backward_reference`` (``max_rel_err``, of each gradient's
+  max abs);
 - ``k2``: ``gather_rows`` of 32 rows (a repeat and the NaN sentinel among
   them) from a [401, 1370, 768] bf16 bank, bit for bit, against
   ``torch.index_select``; besides the paired times, which hold the
@@ -97,6 +104,51 @@ def worker(tree: str, dtype: str, B: int, H: int, N: int) -> dict:
             "max_abs_err": float(err),
             "fwd_ms": fwd, "fwd_lse_ms": lse_ms, "sdpa_ms": sdpa,
             "fwd_vs_library": fwd / sdpa, "ptxas": usage}
+
+
+def worker_k1_bwd(tree: str, dtype: str, B: int, H: int, N: int) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    chip_smoke = _chip_smoke()
+    sys.path.insert(0, tree)
+    from multimodal_edema_prediction_tpu_torch.ops import attention as att
+    from multimodal_edema_prediction_tpu_torch.ops import build
+    assert att.__file__.startswith(tree), att.__file__
+    _no_tf32()
+    device = torch.device("cuda")
+    build.build_all()
+    suffix = {"bfloat16": "bf16", "float32": "f32"}[dtype]
+    usage = {fn: u for fn, u in build.ptxas_usage(
+        build.build_log("flash_attention_bwd")).items()
+        if f"dkv_{suffix}" in fn or f"dq_{suffix}" in fn}
+    dt = getattr(torch, dtype)
+    q, k, v = chip_smoke._qkv(B, H, N, dt, device, seed=10)
+    do = chip_smoke._qkv(B, H, N, dt, device, seed=20)[0]
+    scale = 64 ** -0.5
+    o, lse = att.forward_kernel(q, k, v, scale, N, True)
+    dlt = att.delta(o, do)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    fn_out = att.flash_mha(*leaves, scale)
+    sdpa_out = F.scaled_dot_product_attention(*leaves, scale=scale)
+    got = torch.autograd.grad(fn_out, leaves, do, retain_graph=True)
+    want = att.flash_mha_backward_reference(q, k, v, o, lse, do, scale)
+    rel = max(float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max()) for g, w in zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    dkv, dq, delta, backward, library = chip_smoke.paired_ms([
+        lambda: att.dkv_kernel(q, k, v, do, lse, dlt, scale, N),
+        lambda: att.dq_kernel(q, k, v, do, lse, dlt, scale, N),
+        lambda: att.delta(o, do),
+        lambda: torch.autograd.grad(fn_out, leaves, do, retain_graph=True),
+        lambda: torch.autograd.grad(sdpa_out, leaves, do,
+                                    retain_graph=True)], device)
+    return {"tree": tree, "dtype": dtype, "shape": [B, H, N, 64],
+            "max_rel_err": rel, "dkv_ms": dkv, "dq_ms": dq,
+            "delta_ms": delta, "pair_ms": dkv + dq, "backward_ms": backward,
+            "library_ms": library, "backward_vs_library": backward / library,
+            "ptxas": usage}
 
 
 def worker_k2(tree: str, dtype: str, n_bank: int = 400,
@@ -224,11 +276,13 @@ def worker_k3(tree: str, dtype: str, n_heads: int = 2, d_head: int = 12,
     return out
 
 
-WORKERS = {"k1_fwd": worker, "k2": worker_k2, "k3": worker_k3,
-           "k4": worker_k4}
+WORKERS = {"k1_fwd": worker, "k1_bwd": worker_k1_bwd, "k2": worker_k2,
+           "k3": worker_k3, "k4": worker_k4}
 MEDIAN_KEYS = {
     "k1_fwd": ("fwd_ms", "fwd_lse_ms", "sdpa_ms", "fwd_vs_library",
                "max_abs_err"),
+    "k1_bwd": ("dkv_ms", "dq_ms", "delta_ms", "pair_ms", "backward_ms",
+               "library_ms", "backward_vs_library", "max_rel_err"),
     "k2": ("ms", "library_ms", "vs_library", "device_ms",
            "library_device_ms"),
     "k3": tuple(f"{axis}_{key}" for axis in ("event", "time")
@@ -246,10 +300,12 @@ def main(argv=None) -> int:
                    help="one letter per slot: a = the first tree, ...")
     p.add_argument("--kernel", choices=sorted(WORKERS), default="k1_fwd")
     p.add_argument("--shape", type=int, nargs=3, default=[32, 12, 1370],
-                   metavar=("B", "H", "N"), help="k1_fwd's shape")
+                   metavar=("B", "H", "N"),
+                   help="k1_fwd's and k1_bwd's shape")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16",
-                   help="k1_fwd's and k4's dtype (k2 and k3: bfloat16)")
+                   help="k1_fwd's, k1_bwd's and k4's dtype (k2 and k3: "
+                   "bfloat16)")
     p.add_argument("--out", default=None,
                    help="default: build/ab_<kernel>.jsonl")
     p.add_argument("--worker", default="", help=argparse.SUPPRESS)
@@ -265,7 +321,7 @@ def main(argv=None) -> int:
     if args.kernel in ("k2", "k3") and args.dtype != "bfloat16":
         p.error(f"--kernel {args.kernel} times bfloat16 only")
     if args.worker:
-        extra = args.shape if args.kernel == "k1_fwd" else []
+        extra = args.shape if args.kernel in ("k1_fwd", "k1_bwd") else []
         print(json.dumps(WORKERS[args.kernel](args.worker, args.dtype,
                                               *extra)), flush=True)
         return 0

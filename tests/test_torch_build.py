@@ -128,6 +128,50 @@ def test_ptxas_usage_of_the_float32_kernels():
             "smem_bytes": 0}}
 
 
+BWD_F32_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_bwd_dq_f32ENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_bwd_dq_f32ENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 222 registers, used 1 barriers, 576 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_bwd_dkv_f32ENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_bwd_dkv_f32ENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 234 registers, used 1 barriers, 576 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118flash_bwd_dkv_bf16ENS_4MapsENS_6ParamsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118flash_bwd_dkv_bf16ENS_4MapsENS_6ParamsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes cmem[0]
+"""
+
+BWD_F32_SASS = """\
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_117flash_bwd_dq_f32ENS_6ParamsE
+        /*0400*/                   HMMA.1688.F32.TF32 R24, R88, R92, RZ ;  /* 0x0000005c5818723c */
+        /*0410*/                   HMMA.1688.F32.TF32 R24, R80, R84, R24 ;  /* 0x000000545018723c */
+		Function : _ZN12_GLOBAL__N_117flash_bwd_dkv_f32ENS_6ParamsE
+        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, RZ ;  /* 0x0000000c0804723c */
+        /*0110*/                   HMMA.1688.F32.TF32 R4, R8, R14, R4 ;  /* 0x0000000e0804723c */
+        /*0120*/                   HMMA.1688.F32.TF32 R4, R10, R12, R4 ;  /* 0x0000000c0a04723c */
+		Function : _ZN12_GLOBAL__N_118flash_bwd_dkv_bf16ENS_4MapsENS_6ParamsE
+        /*0080*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], RZ, !UPT ;  /* 0x00200000081879f0 */
+"""
+
+
+@pytest.mark.parametrize("kernel,registers,hmma", [
+    ("flash_bwd_dkv_f32", 234, 3), ("flash_bwd_dq_f32", 222, 2)])
+def test_float32_backward_kernel_facts(kernel, registers, hmma):
+    """What ``chip_smoke.py``'s ``build_facts`` reports of the float32 dkv
+    and dq, each found by its name as there: registers and spills from the
+    ``ptxas -v`` log, its mma.sync of the TF32 form from the SASS (the bf16
+    kernel beside it neither matched nor counted)."""
+    usage = [u for fn, u in build.ptxas_usage(BWD_F32_LOG).items()
+             if kernel in fn]
+    assert usage == [{"registers": registers, "spill_stores": 0,
+                      "spill_loads": 0, "smem_bytes": 0}]
+    counts = build.sass_opcode_counts(BWD_F32_SASS, "HMMA", "TF32")
+    assert [n for fn, n in counts.items() if kernel in fn] == [hmma]
+
+
 WARNINGS = """\
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114flash_fwd_bf16E4Maps6Params' for 'sm_90a'
 ptxas warning : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to the presence of Extern calls in the function '_ZN12_GLOBAL__N_114flash_fwd_bf16E4Maps6Params'.

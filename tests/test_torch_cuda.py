@@ -242,6 +242,21 @@ def test_backward_kernels_match_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
         assert not got[2][:, :, kv_valid:].any()
 
 
+@pytest.mark.parametrize("N", [65, 300, 1370])
+def test_float32_backward_at_one_key_is_exactly_zero(cuda, N):
+    """At one live key the float32 forward passes that key's row of V
+    whole, and D takes the products of dP, so dP − D is 0 to the bit: dq
+    and dk are exactly 0 (their exact value), dv that key's Σ dO."""
+    q, k, v = _qkv(2, 3, N, N, torch.float32, cuda, seed=2)
+    do = _qkv(2, 3, N, N, torch.float32, cuda, seed=3)[0]
+    _, dq, dk, dv = _grads(q, k, v, do, 1)
+    torch.cuda.synchronize()
+    assert not dq.any() and not dk.any()
+    want = do.double().sum(2)
+    assert (dv[:, :, 0].double() - want).abs().max().item() <= 1e-4 * \
+        want.abs().max().item()
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_forward_lse_matches_logsumexp(cuda, dtype):
     """The forward's log-sum-exp output against the plain logsumexp of the
@@ -564,12 +579,14 @@ def test_ln_qkv_bf16_kernel_issues_wgmma(cuda):
     assert len(hits) == 1 and hits[0] > 0, counts
 
 
-@pytest.mark.parametrize("lib,kernel", [("flash_attention", "flash_fwd_f32"),
-                                        ("ln_qkv", "ln_qkv_f32_kernel")])
+@pytest.mark.parametrize("lib,kernel", [
+    ("flash_attention", "flash_fwd_f32"), ("ln_qkv", "ln_qkv_f32_kernel"),
+    ("flash_attention_bwd", "flash_bwd_dkv_f32"),
+    ("flash_attention_bwd", "flash_bwd_dq_f32")])
 def test_float32_kernels_issue_tf32_mma(cuda, lib, kernel):
-    """The float32 forward of K1 and K4's float32 kernel run their products
-    on the tensor cores (mma.sync TF32: HMMA ... .TF32 in the SASS) and
-    spill nothing."""
+    """The float32 forward of K1, its float32 dkv and dq and K4's float32
+    kernel run their products on the tensor cores (mma.sync TF32: HMMA ...
+    .TF32 in the SASS) and spill nothing."""
     from multimodal_edema_prediction_tpu_torch.ops import build
     build.load(lib)
     usage = {fn: u for fn, u in build.ptxas_usage(

@@ -1,8 +1,9 @@
 """The float32 kernels' arithmetic, 3xTF32 (``csrc/mma_tf32.cuh``), modelled
 on the CPU and held against the JAX package's float32 functions.
 
-The card's float32 routes of K1's forward (``flash_fwd_f32``) and K4
-(``ln_qkv_f32_kernel``) run their products on the tensor cores: each
+The card's float32 routes of K1's forward (``flash_fwd_f32``) and backward
+(``flash_bwd_delta_f32``, ``flash_bwd_dkv_f32``, ``flash_bwd_dq_f32``) and
+of K4 (``ln_qkv_f32_kernel``) run their products on the tensor cores: each
 operand is split into TF32 parts (``cvt.rna.tf32.f32``: round to nearest,
 ties away from zero, 10 mantissa bits), and each product is summed as
 small·big + big·small + big·big (P·V adds big·tiny, with V = big + small +
@@ -19,12 +20,23 @@ softmax in exp2, keys past kv_valid at -inf; the LayerNorm in float32
 before the projection. The model of the truncation is this file's: the
 tensor cores' internal order within a k-step is not published.
 
+The backward recomputes P = exp2(S·scale·log2 e − lse·log2 e) from its own
+3xTF32 S, then dP, dS = P∘(dP − D), dV = Pᵀ·dO, dK = dSᵀ·Q·scale and
+dQ = dS·K·scale, every product summed in pairs of k-steps as the forward's;
+D = rowsum(dO∘O) is the diagonal of dO·Oᵀ through the same products, so
+that at one live key, where the forward passes V whole (O = V), dP − D is
+exactly 0 and so are dQ and dK.
+
 Tolerances are the card's: attention 1e-5 absolute (``chip_smoke.TOL_F32``)
-and lse 1e-4; LayerNorm → QKV 1e-4 of each output's max abs
+and lse 1e-4; the backward's gradients 1e-4 of each one's max abs floored
+at 1e-2 (``TOL_BWD_F32``, ``tests/test_torch_cuda.py``) and D 1e-6 of its
+max abs (``TOL_DELTA``); LayerNorm → QKV 1e-4 of each output's max abs
 (``TOL_FUSED_F32``). The controls: one TF32 product (big·big) misses them,
-which is why the kernels take three; and the attention kernel's products
+which is why the kernels take three; the attention kernel's products
 added straight into its accumulators, as K4 adds them, miss 1e-5 where one
-key takes most of a row's weight, which is why it sums pairs from zero.
+key takes most of a row's weight, which is why it sums pairs from zero;
+and a D summed in another order than dP misses at one live key, which is
+why D takes dP's products.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -36,6 +48,7 @@ from multimodal_edema_prediction_tpu.ops.pallas_ln_qkv import \
     ln_qkv_reference as jax_ln_qkv
 
 TOL_ATTENTION, TOL_LSE, TOL_LN_QKV = 1e-5, 1e-4, 1e-4
+TOL_BWD, BWD_FLOOR, TOL_DELTA = 1e-4, 1e-2, 1e-6
 LOG2E = np.float32(1.4426950408889634)
 
 
@@ -227,6 +240,116 @@ def test_tf32_rounding_is_to_nearest_ties_away():
     parts = split(x, 3)
     assert torch.equal(sum(t.double() for t in parts), x.double())
     assert all(torch.equal(tf32(t), t) for t in parts)
+
+
+def _pad16(x):
+    """[..., n, c] with zero rows up to a multiple of 16 (a pair of k-steps):
+    the kernels zero-fill the ragged rows of their tiles, whose products
+    add exact zeros."""
+    return torch.nn.functional.pad(x, (0, 0, 0, -x.shape[-2] % 16))
+
+
+def backward(q, k, v, o, lse, do, scale, kv_valid, terms,
+             delta_rule: bool = True):
+    """The float32 backward kernels' arithmetic: (dq, dk, dv, D), from the
+    forward's o and lse. dkv takes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ with the first
+    two kinds of product swapped (big·small, then small·big), dq S = Q·Kᵀ
+    and dP = dO·Vᵀ in the usual order: element for element the same exact
+    products added in the same order, so one model is both. D is the
+    diagonal of dO·Oᵀ through the same products (``delta_rule=False``: the
+    control, a plain float32 sum). dV, dK and dQ sum over the queries or
+    keys (k) in pairs of k-steps, from zero, as everything else."""
+    Nk = k.shape[2]
+    n_keys = Nk if kv_valid is None else kv_valid
+    kt, vt = k[:, :, :n_keys], v[:, :, :n_keys]
+    if delta_rule:
+        dlt = products(do[..., None, :], o[..., :, None], terms,
+                       steps=2)[..., 0, 0]
+    else:
+        dlt = (o * do).sum(-1)
+    s = products(q, kt.transpose(-1, -2), terms, steps=2)
+    p = torch.exp2(s * (np.float32(scale) * LOG2E) - (lse * LOG2E)[..., None])
+    dp = products(do, vt.transpose(-1, -2), terms, steps=2)
+    ds = p * (dp - dlt[..., None])
+    dv = products(_pad16(p).transpose(-1, -2), _pad16(do), terms, steps=2)
+    dk = products(_pad16(ds).transpose(-1, -2), _pad16(q), terms,
+                  steps=2) * np.float32(scale)
+    dq = products(_pad16(ds.transpose(-1, -2)).transpose(-1, -2),
+                  _pad16(kt), terms, steps=2) * np.float32(scale)
+    rest = torch.zeros(*k.shape[:2], Nk - n_keys, 64)
+    return dq, torch.cat([dk, rest], 2), torch.cat([dv, rest], 2), dlt
+
+
+def _backward_errors(terms, N, kv_valid, seed, delta_rule=True):
+    """({dq, dk, dv: max abs error over the gradient's max abs floored at
+    1e-2}, D's max abs error over its max abs): the forward's and the
+    backward's arithmetic against ``jax.vjp`` of the JAX package's
+    ``flash_mha`` (at ``sm_scale=1`` on q·scale, whose off-TPU route is
+    ``mha_reference``), D against float64. With one live key the exact dq
+    and dk are 0 (the softmax of one score is 1 whatever the score), and
+    JAX's float32 rounding noise there is above the tolerance: zeros are
+    their reference."""
+    import jax
+    q, k, v = _qkv(1, 2, N, seed)
+    do = np.random.default_rng(seed + 100).normal(
+        size=q.shape).astype(np.float32)
+    scale = 64 ** -0.5
+    _, vjp = jax.vjp(lambda *a: jax_flash(a[0] * scale, a[1], a[2],
+                                          sm_scale=1.0, q_valid=kv_valid,
+                                          kv_valid=kv_valid),
+                     *map(jnp.asarray, (q, k, v)))
+    want = [np.asarray(w) for w in vjp(jnp.asarray(do))]
+    if kv_valid == 1:
+        want[0], want[1] = np.zeros_like(want[0]), np.zeros_like(want[1])
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    o, lse = attention(*t[:3], scale, kv_valid, "3x")
+    *got, dlt = backward(*t[:3], o, lse, t[3], scale, kv_valid, terms,
+                         delta_rule)
+    rel = {name: float(np.abs(g.numpy() - w).max()
+                       / max(np.abs(w).max(), BWD_FLOOR))
+           for name, g, w in zip(("dq", "dk", "dv"), got, want)}
+    d64 = (o.double() * t[3].double()).sum(-1)
+    return rel, float((dlt.double() - d64).abs().max() / d64.abs().max())
+
+
+@pytest.mark.parametrize("N,kv_valid,seed", [
+    (65, None, 4), (65, 1, 5), (300, None, 6), (300, 1, 7), (300, 257, 8)])
+def test_3xtf32_backward_matches_jax(N, kv_valid, seed):
+    """dq, dk, dv within 1e-4 of each one's max abs (floored at 1e-2) of
+    ``jax.vjp`` and D within 1e-6 of float64, through the forward's and the
+    backward's arithmetic: one 64-key tile and a ragged one, one live key,
+    the masked keys off the tile edge."""
+    rel, d_rel = _backward_errors("3x", N, kv_valid, seed)
+    assert max(rel.values()) <= TOL_BWD, rel
+    assert d_rel <= TOL_DELTA, d_rel
+
+
+def test_3xtf32_backward_at_one_key_is_exactly_zero():
+    """At one live key the forward passes V whole, D takes dP's products,
+    so dP − D is 0 to the bit and dq and dk are exactly 0."""
+    q, k, v = map(torch.from_numpy, _qkv(1, 2, 300, 9))
+    do = torch.from_numpy(np.random.default_rng(9).normal(
+        size=q.shape).astype(np.float32))
+    o, lse = attention(q, k, v, 0.125, 1, "3x")
+    dq, dk, dv, _ = backward(q, k, v, o, lse, do, 0.125, 1, "3x")
+    assert not dq.any() and not dk.any() and dv[:, :, 0].abs().min() > 0
+
+
+def test_1xtf32_backward_misses_the_tolerance():
+    """The control: one TF32 product per product misses 1e-4 on the
+    gradients and 1e-6 on D by more than a factor of 3."""
+    rel, d_rel = _backward_errors("1x", 300, 257, 8)
+    assert max(rel.values()) > 3 * TOL_BWD, rel
+    assert d_rel > 3 * TOL_DELTA, d_rel
+
+
+@pytest.mark.parametrize("N,seed", [(65, 5), (300, 7)])
+def test_delta_in_another_order_misses_at_one_key(N, seed):
+    """The control: D as a plain float32 sum, another order than dP's
+    products, leaves dP − D at rounding size where it should be 0, and at
+    one live key dk misses its 1e-4 of the 1e-2 floor."""
+    rel, _ = _backward_errors("3x", N, 1, seed, delta_rule=False)
+    assert rel["dk"] > 2 * TOL_BWD, rel
 
 
 def _ln_params(rng, D, H):
