@@ -204,6 +204,26 @@ products adds:
             peak memory, device busy time, idle share, and the device time
             by kernel family (``by_family``: K1, GEMMs, the rest).
 
+K3's float32 route redesigned on 3xTF32 tensor-core products (mma.sync
+m16n8k8 on the bf16 route's grid of batch elements × FF slices,
+``csrc/dual_axis_block_tf32.cu``) adds:
+
+2b. build_facts  also ``dual_axis_block_tf32_kernel``'s instances for 3
+            and 2 m16 row tiles (the event and the time axis): registers,
+            spills, shared memory (against ``dual_axis.tf32_smem_bytes`` at
+            each axis), HMMA of the TF32 form; fails on a spill or on an
+            instance without it.
+3c. dual_axis  the float32 cases at [32, 35, 600], [32, 25, 840],
+            [128, 35, 600] and [128, 25, 840] on the ``tf32`` route
+            (asserted), within TOL_FUSED_F32, reruns bit-equal; one
+            ``simt`` case per dtype at [8, 35, 602] (D % 4 != 0: neither
+            tensor-core route takes it).
+12. trained_layer  also a float32 case: the layers' inputs captured in a
+            float32 eval step (TF32 off), K3 on the ``tf32`` route against
+            each layer's output (TOL_TRAINED_LAYER_F32: the layer takes
+            GELU's erf form in float32) and against the plain version on
+            the same input (TOL_FUSED_F32).
+
 Each float32 row of the summary carries ``tc_bound_ms`` beside
 ``bound_ms``: the same work as three TF32 products per product at 495
 TFLOP/s, or the bytes, whichever is larger (``bound_ms`` stays float32
@@ -212,8 +232,9 @@ each (``tc_share_of_bound``, ``share_of_bound``).
 
 Then the kernel summary line (the forward, dkv, dq, K4 and K3's
 tensor-core rows with the build facts; the D row; the pair and the whole
-backward; K2 with its routes; K3's two routes, each a row; then the
-float32 rows: K1's forward, D, dkv and dq, K2 and K4) and, last,
+backward; K2 with its routes; K3's bf16 tensor-core and SIMT routes, each
+a row; then the float32 rows: K1's forward, D, dkv and dq, K2, K3's
+float32 tensor-core route and K4) and, last,
 ``{"ok": true, "device": ...}``. Imports nothing of JAX or the JAX
 package.
 """
@@ -259,6 +280,7 @@ K1_DELTA_REPLACES = ("jax/experimental/pallas/ops/tpu/flash_attention.py:"
                      "flash_attention, outside Pallas: no pallas_call)")
 K3_SOURCE = f"{PKG}/csrc/dual_axis_block.cu"
 K3_TC_SOURCE = f"{PKG}/csrc/dual_axis_block_tc.cu"
+K3_TF32_SOURCE = f"{PKG}/csrc/dual_axis_block_tf32.cu"
 K3_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_dual_axis.py:192 "
                "fused_encoder_block (pallas_call :171, _fused_forward :136, "
                ":78 _block_kernel)")
@@ -305,6 +327,13 @@ TOL_FUSED_F32 = 1e-4
 # K3 fed a trained DuETT layer's own input at bf16, against that layer's
 # output: the layer rounds every product to bf16 (both take GELU's tanh form)
 TOL_TRAINED_LAYER = 2e-2
+# the same at float32 (TF32 off): there the layer takes GELU's erf form
+# (models/layers.py::gelu_exact, as the JAX package does) and K3 the tanh
+# form of the TPU kernel; the two forms move a DuETT layer's output by
+# ~1e-4 of its max abs (the phase reports it), so the kernel is held to
+# 1e-3 here and to TOL_FUSED_F32 against its own plain version on the
+# same input
+TOL_TRAINED_LAYER_F32 = 1e-3
 # one full-width DinoBlock, float32, TF32 off: every parameter's and the
 # input's gradient on the card (K1's float32 kernels, cuBLAS) against a CPU
 # copy running the plain versions, relative to each gradient's max abs
@@ -468,9 +497,11 @@ def phase_build(port) -> dict:
 
 def phase_build_facts(port) -> dict:
     """The tensor-core kernels as built: K1's bf16 forward, dkv and dq and
-    K4's bf16 kernel (warpgroup MMA), K3's tensor-core route (mma.sync, at
-    DuETT's event axis [35, 600]) and the float32 routes of K1's forward,
-    dkv and dq and K4 (3xTF32 mma.sync): registers at entry (``ptxas -v``) and the
+    K4's bf16 kernel (warpgroup MMA), K3's bf16 tensor-core route (mma.sync,
+    at DuETT's event axis [35, 600]) and the float32 routes of K1's
+    forward, dkv and dq, K3 (its instances for the event axis's 3 and the
+    time axis's 2 m16 row tiles) and K4 (3xTF32 mma.sync): registers at
+    entry (``ptxas -v``) and the
     counts its warps ask for after launch (``setmaxnreg`` in the SASS:
     ``TRY_ALLOC`` the consumers', ``DEALLOC`` the producer's), spills
     (bytes stored plus loaded), static plus the dynamic shared memory a
@@ -480,8 +511,8 @@ def phase_build_facts(port) -> dict:
     the TF32 form for the float32 kernels). Fails if a kernel spills,
     holds none of its matrix instructions or carries one of those codes,
     if K3's dynamic shared memory differs from
-    ``ops/dual_axis.py::tc_smem_bytes``, or if there is no SASS listing to
-    count."""
+    ``ops/dual_axis.py::tc_smem_bytes`` (bf16) or ``tf32_smem_bytes``
+    (float32, both axes), or if there is no SASS listing to count."""
     import ctypes
     build = port["build"]
     info = {"phase": "build_facts"}
@@ -507,7 +538,15 @@ def phase_build_facts(port) -> dict:
             ("dual_axis_block_tc", "dual_axis_block_tc_smem_bytes",
              ctypes.c_longlong, [ctypes.c_int] * 4,
              (("k3_tc", "dual_axis_block_tc_kernel", (35, 600, 2, 12),
-               "HMMA", None),))):
+               "HMMA", None),)),
+            # a template on the count of m16 row tiles: 3 at the event
+            # axis, 2 at the time axis
+            ("dual_axis_block_tf32", "dual_axis_block_tf32_smem_bytes",
+             ctypes.c_longlong, [ctypes.c_int] * 4,
+             (("k3_tf32", "dual_axis_block_tf32_kernelILi3E",
+               (35, 600, 2, 12), "HMMA", "TF32"),
+              ("k3_tf32_time", "dual_axis_block_tf32_kernelILi2E",
+               (25, 840, 2, 12), "HMMA", "TF32")))):
         log = build.build_log(lib)
         usage, warnings = build.ptxas_usage(log), build.ptxas_warnings(log)
         listing = build.sass(lib)
@@ -542,14 +581,20 @@ def phase_build_facts(port) -> dict:
     for key, opcode in (("fwd", "hgmma"), ("dkv", "hgmma"), ("dq", "hgmma"),
                         ("k4", "hgmma"), ("k3_tc", "hmma"),
                         ("fwd_f32", "hmma"), ("k4_f32", "hmma"),
-                        ("dkv_f32", "hmma"), ("dq_f32", "hmma")):
+                        ("dkv_f32", "hmma"), ("dq_f32", "hmma"),
+                        ("k3_tf32", "hmma"), ("k3_tf32_time", "hmma")):
         if info[key]["spills"] or not info[key][f"sass_{opcode}"] > 0 or \
                 serialised & set(info[key]["ptxas_warnings"]):
             raise AssertionError(f"{key}: {info[key]}")
-    if info["k3_tc"]["dynamic_smem_bytes"] != \
-            port["dual_axis"].tc_smem_bytes(35, 600, 2, 12):
-        raise AssertionError(f"k3_tc: the source's shared memory differs "
-                             f"from tc_smem_bytes: {info['k3_tc']}")
+    DA = port["dual_axis"]
+    for key, mirror, shape in (
+            ("k3_tc", DA.tc_smem_bytes, (35, 600)),
+            ("k3_tf32", DA.tf32_smem_bytes, (35, 600)),
+            ("k3_tf32_time", DA.tf32_smem_bytes, (25, 840))):
+        if info[key]["dynamic_smem_bytes"] != mirror(*shape, 2, 12):
+            raise AssertionError(f"{key}: the source's shared memory "
+                                 f"differs from {mirror.__name__}: "
+                                 f"{info[key]}")
     return info
 
 
@@ -1440,10 +1485,11 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
                     ff: int = 512) -> dict:
     """K3 against ``encoder_block_reference`` at DuETT's two axes (2 heads ×
     12, FF 512): max abs error relative to the output's, two launches
-    bit-equal; the route each case took (``tc``: the tensor-core kernel,
-    ``simt``: the SIMT kernel), asserted against the case's and against
-    ``dual_axis.route``. Times the kernel through its wrapper (weight casts
-    included) and the plain version in alternation (``ms``, ``plain_ms``:
+    bit-equal; the route each case took (``tc``: the bf16 tensor-core
+    kernel, ``tf32``: the float32 one, ``simt``: the SIMT kernel), asserted
+    against the case's and against ``dual_axis.route``. Times the kernel
+    through its wrapper (weight casts included) and the plain version in
+    alternation (``ms``, ``plain_ms``:
     CUDA events around 5 calls, so each holds its host dispatch), then the
     device time of each over 20 calls under ``torch.profiler``
     (``device_ms``: the kernel alone; ``device_busy_ms``: every device
@@ -1491,10 +1537,12 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
                "expected_route": way,
                "max_abs_err": err, "max_rel_err": rel, "tol": tol,
                "bit_equal_rerun": same,
-               "smem_bytes": DA.tc_smem_bytes(L, D, n_heads, d_head)
-               if way == "tc" else DA.smem_bytes(L, D, n_heads, d_head),
-               "workspace_bytes": DA.workspace_bytes(B, L, D, ff)
-               if way == "tc" else 0,
+               "smem_bytes": {"tc": DA.tc_smem_bytes,
+                              "tf32": DA.tf32_smem_bytes,
+                              "simt": DA.smem_bytes}[way](L, D, n_heads,
+                                                          d_head),
+               "workspace_bytes": DA.workspace_bytes(B, L, D, ff, way)
+               if way != "simt" else 0,
                "ms": ms, "plain_ms": plain_ms,
                **({"tc_bound_ms": dual_axis_bound_ms(
                    B, L, D, inner, ff, 4, PEAK_3XTF32_FLOPS)[0]}
@@ -1756,10 +1804,13 @@ def phase_ssl(port, device, card: str = "", reps: int = 5) -> dict:
 def phase_trained_layer(port, device, ssl) -> dict:
     """K3 on the SSL run's best checkpoint: each DuETT axis's first layer
     (``event_transformer_0``, ``time_transformer_0``) gets its input
-    captured by a forward hook during a bf16 eval step, and K3, fed that
-    input with the layer's weights through ``params_from_encoder``, gives
-    the layer's own output within TOL_TRAINED_LAYER of its max abs, on the
-    tensor-core route (both axes are bf16 with D % 8 == 0 and F 512)."""
+    captured by a forward hook during an eval step, once in bf16 and once
+    in float32 (TF32 off), and K3, fed that input with the layer's weights
+    through ``params_from_encoder``, gives the layer's own output: within
+    TOL_TRAINED_LAYER of its max abs at bf16, on the bf16 tensor-core route
+    (both axes are bf16 with D % 8 == 0 and F 512); within
+    TOL_TRAINED_LAYER_F32 at float32, on the float32 tensor-core route, and
+    there within TOL_FUSED_F32 of the plain version on the same input."""
     import torch
     DA, eng = port["dual_axis"], port["engine"]
     cfg, data = ssl["duett_cfg"], ssl["data"]
@@ -1767,48 +1818,67 @@ def phase_trained_layer(port, device, ssl) -> dict:
     model = port["convert"].load_flax(port["duett"].DuettPretrainModel(cfg),
                                       ck["params"],
                                       ck["batch_stats"]).to(device)
-    seen, hooks = {}, []
-
-    def capture(axis):
-        def hook(module, args, out):
-            seen[axis] = (args[0], out)
-        return hook
-
-    for axis in ("event", "time"):
-        enc = getattr(model.encoder, f"{axis}_transformer_0")
-        hooks.append(enc.register_forward_hook(capture(axis)))
     n_val = min(128, data.split_size("val"))
     batch = eng.to_device(next(data.iter_batches("val", n_val,
                                                  shuffle=False)), device)
-    eng.make_ssl_eval(cfg, data.n_timesteps, torch.bfloat16)(
-        model, data.grid, data.static, batch,
-        torch.Generator(device=device).manual_seed(1000))
-    for h in hooks:
-        h.remove()
-    reset_counts(port)
+    heads = (cfg.n_heads, cfg.d_embedding // cfg.n_heads)
     out = {}
-    with torch.inference_mode():
-        for axis, (x, y) in seen.items():
+    reset_counts(port)
+    for dtype in (torch.bfloat16, torch.float32):
+        seen, hooks = {}, []
+
+        def capture(axis):
+            def hook(module, args, y):
+                seen[axis] = (args[0], y)
+            return hook
+
+        for axis in ("event", "time"):
             enc = getattr(model.encoder, f"{axis}_transformer_0")
-            got = DA.fused_encoder_block(x, DA.params_from_encoder(enc),
-                                         cfg.n_heads,
-                                         cfg.d_embedding // cfg.n_heads)
-            torch.cuda.synchronize()
-            err = (got.float() - y.float()).abs().max().item()
-            out[axis] = {"shape": list(x.shape),
-                         "dtype": str(x.dtype).replace("torch.", ""),
-                         "max_abs_err": err,
-                         "max_rel_err": err / y.float().abs().max().item()}
+            hooks.append(enc.register_forward_hook(capture(axis)))
+        launched = read_counts(port)
+        eng.make_ssl_eval(cfg, data.n_timesteps, dtype)(
+            model, data.grid, data.static, batch,
+            torch.Generator(device=device).manual_seed(1000))
+        for h in hooks:
+            h.remove()
+        if read_counts(port) != launched:
+            raise AssertionError("the SSL eval step launched K3")
+        with torch.inference_mode():
+            for axis, (x, y) in seen.items():
+                enc = getattr(model.encoder, f"{axis}_transformer_0")
+                params = DA.params_from_encoder(enc)
+                got = DA.fused_encoder_block(x, params, *heads)
+                torch.cuda.synchronize()
+                err = (got.float() - y.float()).abs().max().item()
+                res = {"shape": list(x.shape),
+                       "dtype": str(x.dtype).replace("torch.", ""),
+                       "route": DA.route(x.dtype, x.shape[1], x.shape[2],
+                                         params["w1"].shape[-1], *heads),
+                       "max_abs_err": err,
+                       "max_rel_err": err / y.float().abs().max().item()}
+                if dtype == torch.float32:
+                    want = DA.encoder_block_reference(x, params, *heads)
+                    res["plain_max_rel_err"] = \
+                        (got - want).abs().max().item() \
+                        / want.abs().max().item()
+                out[f"{axis}_{res['dtype']}"] = res
     counts = read_counts(port)
-    launches = counts["dual_axis_block"] + counts["dual_axis_block_tc"]
+    launches = sum(counts[k] for k in DA.ROUTE_KERNELS.values())
     info = {"phase": "trained_layer", "checkpoint": ssl["best_path"],
             "axes": out, "launches": launches,
             "tc_launches": counts["dual_axis_block_tc"],
-            "tol": TOL_TRAINED_LAYER}
+            "tf32_launches": counts["dual_axis_block_tf32"],
+            "tol": TOL_TRAINED_LAYER, "tol_f32": TOL_TRAINED_LAYER_F32,
+            "tol_f32_plain": TOL_FUSED_F32}
     emit(info)
-    if launches != 2 or info["tc_launches"] != 2 or len(out) != 2 or \
-            not max(a["max_rel_err"] for a in out.values()) \
-            <= TOL_TRAINED_LAYER:
+    bf16 = [a for a in out.values() if a["dtype"] == "bfloat16"]
+    f32 = [a for a in out.values() if a["dtype"] == "float32"]
+    if launches != 4 or info["tc_launches"] != 2 or \
+            info["tf32_launches"] != 2 or len(bf16) != 2 or len(f32) != 2 \
+            or not max(a["max_rel_err"] for a in bf16) <= TOL_TRAINED_LAYER \
+            or not max(a["max_rel_err"] for a in f32) \
+            <= TOL_TRAINED_LAYER_F32 \
+            or not max(a["plain_max_rel_err"] for a in f32) <= TOL_FUSED_F32:
         raise AssertionError(f"K3 against a trained DuETT layer: {info}")
     return info
 
@@ -2129,8 +2199,13 @@ def main() -> int:
         ("time_bf16", 32, 25, 840, bf16, TOL_FUSED_BF16, "tc"),
         ("event_bf16_b128", 128, 35, 600, bf16, TOL_FUSED_BF16, "tc"),
         ("time_bf16_b128", 128, 25, 840, bf16, TOL_FUSED_BF16, "tc"),
-        ("event_f32", 32, 35, 600, f32, TOL_FUSED_F32, "simt"),
-        ("time_f32", 32, 25, 840, f32, TOL_FUSED_F32, "simt"),
+        ("event_f32", 32, 35, 600, f32, TOL_FUSED_F32, "tf32"),
+        ("time_f32", 32, 25, 840, f32, TOL_FUSED_F32, "tf32"),
+        ("event_f32_b128", 128, 35, 600, f32, TOL_FUSED_F32, "tf32"),
+        ("time_f32_b128", 128, 25, 840, f32, TOL_FUSED_F32, "tf32"),
+        # D % 4 != 0: neither tensor-core route takes it
+        ("simt_bf16", 8, 35, 602, bf16, TOL_FUSED_BF16, "simt"),
+        ("simt_f32", 8, 35, 602, f32, TOL_FUSED_F32, "simt"),
     ])
     k4 = phase_ln_qkv(port, device, [
         ("vit_bf16", 32, 1536, 768, 12, bf16, TOL_FUSED_BF16),
@@ -2205,7 +2280,7 @@ def main() -> int:
     # stand beside them. The backward's float32 kernels (D, dkv, dq) take
     # theirs from the float32 fine-tuning run (f32_unfreeze), whose K1 work
     # is the pixel step's batch of 32; the full-width block's gradient
-    # stands under launches_by_path. K4 has no caller.
+    # stands under launches_by_path. K3 and K4 have no caller.
     # tc_bound_ms: the same work as 3xTF32 tensor-core products.
     k1f, k1p, bf = checks["bank_build_f32"], checks["pixel_step_f32"], \
         bwd["pixel_step_f32"]
@@ -2270,6 +2345,20 @@ def main() -> int:
          "tc_bound_ms": gathers["patch_f32"]["bound_ms"],
          **{k: gathers["patch_f32"][k] for k in keys + (
              "vs_library", "device_ms", "library_device_ms")}},
+        {"name": "dual_axis_block_tf32", "route": "cuda",
+         "source": K3_TF32_SOURCE, "replaces": K3_REPLACES,
+         "launches": n_ssl["dual_axis_block_tf32"],
+         "launches_by_path": by_path("dual_axis_block_tf32"),
+         "check_launches": {"kernel_check": k3_checks["tf32"],
+                            "trained_layer": trained["tf32_launches"]},
+         "case": "time_f32 [32, 25, 840]",
+         "routes": {c: k3[c]["route"] for c in k3 if "route" in k3[c]},
+         "device_ms_by_case": {c: k3[c]["device_ms"] for c in k3
+                               if k3[c].get("dtype") == "float32"},
+         "build_event": built["k3_tf32"], **built["k3_tf32_time"],
+         **{k: k3["time_f32"][k] for k in keys + (
+             "tc_bound_ms", "device_ms", "device_busy_ms",
+             "plain_device_ms")}},
         {"name": "ln_qkv_f32", "route": "cuda", "source": K4_SOURCE,
          "replaces": K4_REPLACES,
          "launches": n_f32["ln_qkv_f32"],
@@ -2345,11 +2434,14 @@ def main() -> int:
          "launches_by_path": by_path("dual_axis_block"),
          "check_launches": {"kernel_check": k3_checks["simt"],
                             "trained_layer": trained["launches"]
-                            - trained["tc_launches"]},
-         "case": "time_f32 [32, 25, 840]",
-         "tc_share_of_bound": k3["time_f32"]["tc_bound_ms"]
-         / k3["time_f32"]["ms"],
-         **{k: k3["time_f32"][k] for k in keys + (
+                            - trained["tc_launches"]
+                            - trained["tf32_launches"]},
+         "case": "simt_f32 [8, 35, 602]",
+         "tc_share_of_bound": k3["simt_f32"]["tc_bound_ms"]
+         / k3["simt_f32"]["ms"],
+         "simt_bf16": {k: k3["simt_bf16"][k] for k in keys + (
+             "device_ms", "plain_device_ms")},
+         **{k: k3["simt_f32"][k] for k in keys + (
              "tc_bound_ms", "device_ms", "device_busy_ms",
              "plain_device_ms")}},
         {"name": "ln_qkv", "route": "cuda", "source": K4_SOURCE,

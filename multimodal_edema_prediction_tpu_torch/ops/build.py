@@ -32,6 +32,7 @@ SOURCES = {"flash_attention": "flash_attention.cu",
            "gather_rows": "gather_rows.cu",
            "dual_axis_block": "dual_axis_block.cu",
            "dual_axis_block_tc": "dual_axis_block_tc.cu",
+           "dual_axis_block_tf32": "dual_axis_block_tf32.cu",
            "ln_qkv": "ln_qkv.cu"}
 
 _lock = threading.Lock()

@@ -17,21 +17,32 @@ sum, the softmax and the GELU (its tanh form, ``jax.nn.gelu``'s default)
 in float32; the output cast to x's dtype. At float32 this is the JAX
 ``encoder_block_reference`` exactly.
 
-On a CUDA tensor the wrapper launches one of two hand-written kernels and
+On a CUDA tensor the wrapper launches one of three hand-written kernels and
 raises if it cannot; ``route`` picks it from the dtype and the shape alone,
-before the launch: bfloat16 with D % 8 == 0, F % 128 == 0 and L <= 64 (every
-DuETT axis) takes the tensor-core kernel of ``csrc/dual_axis_block_tc.cu``
-(a grid of batch elements × 128-unit slices of the FF, its partial sums
-reduced in a fixed order); float32 and every other shape take the SIMT
-kernel of ``csrc/dual_axis_block.cu`` (one thread block per batch
-element). Neither gives way to the other or to the plain version. On a CPU
-tensor the wrapper runs ``encoder_block_reference``, the plain version,
+before the launch:
+
+- ``"tc"``: bfloat16 with D % 8 == 0, F % 128 == 0 and L <= 64 (every DuETT
+  axis) takes ``csrc/dual_axis_block_tc.cu`` (bf16 mma.sync);
+- ``"tf32"``: float32 with D % 4 == 0, F % 128 == 0, L <= 64 and its layout
+  within one block's shared memory (both DuETT axes) takes
+  ``csrc/dual_axis_block_tf32.cu`` (3xTF32 mma.sync m16n8k8);
+- ``"simt"``: every other shape, in either dtype, takes the SIMT kernel of
+  ``csrc/dual_axis_block.cu`` (one thread block per batch element).
+
+The two tensor-core kernels share one design: a grid of batch elements ×
+128-unit slices of the FF, each slice's partial product written to a
+float32 workspace and summed in a fixed order by the element's last block
+to arrive. No kernel gives way to another or to the plain version. On a
+CPU tensor the wrapper runs ``encoder_block_reference``, the plain version,
 which is also the kernels' oracle in the tests and in ``chip_smoke.py``.
-The tensor-core kernel rounds h, h2, the attention output and the FF
-hidden to bfloat16 as product operands, within the bf16 tolerance (2e-2 of
-the output's max abs). The gradient is an autograd Function whose backward
-recomputes through ``encoder_block_reference``, as JAX's custom VJP does
-(``pallas_dual_axis.py:197-209``): neither package has a backward kernel.
+The bf16 kernel rounds h, h2, the attention output and the FF hidden to
+bfloat16 as product operands, within the bf16 tolerance (2e-2 of the
+output's max abs); the float32 one splits each product operand into its
+TF32 big and small parts and sums three products per product, within the
+float32 tolerance (1e-4). The gradient is an autograd Function whose
+backward recomputes through ``encoder_block_reference``, as JAX's custom
+VJP does (``pallas_dual_axis.py:197-209``): neither package has a backward
+kernel.
 No model calls this op, in either package: it is an opt-in op.
 """
 from __future__ import annotations
@@ -44,9 +55,11 @@ import torch.nn.functional as F
 
 # launches of each kernel, by its C entry point; chip_smoke.py resets and
 # reads them
-LAUNCHES = {"dual_axis_block_tc": 0, "dual_axis_block": 0}
+LAUNCHES = {"dual_axis_block_tc": 0, "dual_axis_block_tf32": 0,
+            "dual_axis_block": 0}
 # the entry point each route (``route``) launches
-ROUTE_KERNELS = {"tc": "dual_axis_block_tc", "simt": "dual_axis_block"}
+ROUTE_KERNELS = {"tc": "dual_axis_block_tc", "tf32": "dual_axis_block_tf32",
+                 "simt": "dual_axis_block"}
 
 GAINS = ("g1", "g2", "gf")
 WEIGHTS = ("wq", "wk", "wv", "wo", "bo", "w1", "b1", "w2", "b2")
@@ -61,6 +74,9 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_SLICE = 128
 TC_MAX_L = 64
 _TC_RING_BYTES = 2 * 2 * 64 * (128 + 8)
+# csrc/dual_axis_block_tf32.cu: its W ring (kStages x kKC x (kNC + 8)
+# float32)
+_TF32_RING_BYTES = 4 * 3 * 32 * (128 + 8)
 
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point: its library and its ctypes signature
@@ -74,6 +90,10 @@ ENTRY_POINTS = {
     "dual_axis_block_tc": ("dual_axis_block_tc",
                            [_P, _P, _I] + [_P] * 10 + [_I] * 6
                            + [_F32] * 2 + [_P]),
+    # the same arguments in float32
+    "dual_axis_block_tf32": ("dual_axis_block_tf32",
+                             [_P, _P, _I] + [_P] * 10 + [_I] * 6
+                             + [_F32] * 2 + [_P]),
 }
 
 
@@ -163,23 +183,49 @@ def tc_smem_bytes(L: int, D: int, n_heads: int, d_head: int) -> int:
         + a16(4 * (2 * D + TC_SLICE))
 
 
+def tf32_smem_bytes(L: int, D: int, n_heads: int, d_head: int) -> int:
+    """Shared memory the float32 tensor-core kernel asks for (``make_layout``
+    in ``csrc/dual_axis_block_tf32.cu``): a region holding, in turn, h's two
+    TF32 parts float32 [L, a(D)] each (a(K) = K rounded up to 8, plus 4),
+    or z over the first with q|k|v float32 [L, 3I + 1], P
+    [H, L, L] and o's two parts [L, a(I)] over the second, or f's two parts
+    [L, a(128)], whichever is largest; the W ring; bo, b2 and a slice of b1
+    in float32."""
+    def a16(n):
+        return (n + 15) // 16 * 16
+
+    def ld(k):
+        return -(-k // 8) * 8 + 4
+    inner = n_heads * d_head
+    h = a16(4 * L * ld(D))
+    attn = a16(a16(a16(h + 4 * L * (3 * inner + 1)) + 4 * n_heads * L * L)
+               + 4 * L * ld(inner)) + a16(4 * L * ld(inner))
+    ff = 2 * a16(4 * L * ld(TC_SLICE))
+    return max(2 * h, attn, ff) + _TF32_RING_BYTES + a16(4 * (2 * D + TC_SLICE))
+
+
 def route(dtype: torch.dtype, L: int, D: int, F_: int, n_heads: int,
           d_head: int) -> str:
     """The kernel a CUDA call takes, from the dtype and the shape alone:
-    ``"tc"`` (the tensor-core kernel) for bfloat16 with D % 8 == 0,
-    F % 128 == 0, L <= 64 and its shared memory within one block's, else
-    ``"simt"``."""
-    if dtype == torch.bfloat16 and D % 8 == 0 and F_ % TC_SLICE == 0 \
-            and 1 <= L <= TC_MAX_L \
-            and tc_smem_bytes(L, D, n_heads, d_head) <= SMEM_LIMIT:
-        return "tc"
+    ``"tc"`` (the bf16 tensor-core kernel) for bfloat16 with D % 8 == 0,
+    F % 128 == 0, L <= 64 and its shared memory within one block's;
+    ``"tf32"`` (the float32 tensor-core kernel) for float32 with D % 4 == 0
+    and the rest alike; else ``"simt"``."""
+    if F_ % TC_SLICE == 0 and 1 <= L <= TC_MAX_L:
+        if dtype == torch.bfloat16 and D % 8 == 0 and \
+                tc_smem_bytes(L, D, n_heads, d_head) <= SMEM_LIMIT:
+            return "tc"
+        if dtype == torch.float32 and D % 4 == 0 and \
+                tf32_smem_bytes(L, D, n_heads, d_head) <= SMEM_LIMIT:
+            return "tf32"
     return "simt"
 
 
-def workspace_bytes(B: int, L: int, D: int, F_: int) -> int:
-    """The tensor-core route's float32 scratch: one [B, L, D] partial of
-    the FF per 128 hidden units."""
-    return 4 * (F_ // TC_SLICE) * B * L * D
+def workspace_bytes(B: int, L: int, D: int, F_: int, way: str = "tc") -> int:
+    """A tensor-core route's float32 scratch: one [B, L, D] partial of the
+    FF per 128 hidden units, and on the ``"tf32"`` route one more slot for
+    z."""
+    return 4 * (F_ // TC_SLICE + (way == "tf32")) * B * L * D
 
 
 def _check(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
@@ -207,8 +253,8 @@ def _check(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
 
 
 _FNS: dict = {}
-# per (device, stream): the tensor-core route's arrival counters, one per
-# batch element, zero between launches (the kernel's last block of each
+# per (device, stream): the tensor-core routes' arrival counters, one per
+# batch element, zero between launches (each kernel's last block of each
 # element resets its own)
 _COUNTERS: Dict[tuple, torch.Tensor] = {}
 
@@ -229,7 +275,7 @@ def _call(name: str, *args) -> None:
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
     """``t`` contiguous with a 16-byte-aligned base (the tensor-core
-    kernel's vector loads and cp.async copies need it)."""
+    kernels' vector loads and cp.async copies need it)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -244,20 +290,22 @@ def _counters(dev: torch.device, stream: int, B: int) -> torch.Tensor:
 
 
 def _tc_weights(params: Dict[str, torch.Tensor], D: int, inner: int,
-                dev: torch.device) -> tuple:
-    """The tensor-core kernel's weights, cast to bf16 in one buffer: wq |
-    wk | wv as [D, nq] (nq = 3·inner rounded up to 8, zero columns after),
-    then wo, bo, w1, b1, w2, b2. With D % 8 == 0 and F % 128 == 0 every
-    part starts on a 16-byte boundary. Returns (wqkv, nq, the other six
-    as views)."""
+                dev: torch.device, dtype: torch.dtype = torch.bfloat16
+                ) -> tuple:
+    """A tensor-core kernel's weights, cast to ``dtype`` in one buffer: wq |
+    wk | wv as [D, nq] (nq = 3·inner rounded up to a 16-byte granule, zero
+    columns after), then wo, bo, w1, b1, w2, b2. With D and F multiples of
+    a granule (8 bf16, 4 float32) every part starts on a 16-byte boundary.
+    Returns (wqkv, nq, the other six as views)."""
     qkv = [params[k].detach() for k in ("wq", "wk", "wv")]
-    nq = -(-3 * inner // 8) * 8
+    granule = 16 // torch.empty((), dtype=dtype).element_size()
+    nq = -(-3 * inner // granule) * granule
     if nq != 3 * inner:
         qkv.append(qkv[0].new_zeros(D, nq - 3 * inner))
     parts = [torch.cat(qkv, dim=1)] + [
         params[k].detach() for k in ("wo", "bo", "w1", "b1", "w2", "b2")]
-    flat = torch.cat([t.reshape(-1) for t in parts]).to(
-        device=dev, dtype=torch.bfloat16)
+    flat = torch.cat([t.reshape(-1) for t in parts]).to(device=dev,
+                                                       dtype=dtype)
     views = flat.split([t.numel() for t in parts])
     return views[0], nq, views[1:]
 
@@ -279,17 +327,18 @@ def block_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
     dt, dev = x.dtype, x.device
     g = torch.cat([params[k].detach().reshape(1) for k in GAINS]).to(
         device=dev, dtype=torch.float32)
-    # contiguous whatever x's strides: both kernels write [B, L, D] densely
+    # contiguous whatever x's strides: every kernel writes [B, L, D] densely
     out = torch.empty(B, L, D, dtype=dt, device=dev)
     scales = (D ** -0.5, d_head ** -0.5)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        if way == "tc":
+        if way != "simt":
             x = _aligned(x)
-            wqkv, nq, rest = _tc_weights(params, D, n_heads * d_head, dev)
-            ws = torch.empty(Fh // TC_SLICE, B, L, D, dtype=torch.float32,
-                             device=dev)
-            _call("dual_axis_block_tc", x.data_ptr(), wqkv.data_ptr(), nq,
+            wqkv, nq, rest = _tc_weights(params, D, n_heads * d_head, dev,
+                                         dt)
+            ws = torch.empty(workspace_bytes(B, L, D, Fh, way) // 4,
+                             dtype=torch.float32, device=dev)
+            _call(ROUTE_KERNELS[way], x.data_ptr(), wqkv.data_ptr(), nq,
                   *(t.data_ptr() for t in rest), g.data_ptr(),
                   out.data_ptr(), ws.data_ptr(),
                   _counters(dev, stream, B).data_ptr(), B, L, D, n_heads,

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Same-call A/B of one kernel between repo trees, timed in turns on one
 card: K1's forward (the default), K1's backward, K2's row gather, K3's
-bf16 DuETT block or K4's LayerNorm → QKV; K1 and K4 in bf16 (the default)
+DuETT block or K4's LayerNorm → QKV; K1, K3 and K4 in bf16 (the default)
 or, with ``--dtype float32``, on their float32 routes.
 
     git archive <parent> | tar -x -C build/ab/parent
     python3 scripts/ab_k1_fwd.py --tree parent=build/ab/parent --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k4 --tree parent=... --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k3 --tree parent=... --tree new=.
+    python3 scripts/ab_k1_fwd.py --kernel k3 --dtype float32 --tree ...
     python3 scripts/ab_k1_fwd.py --dtype float32 --tree parent=... --tree new=.
     python3 scripts/ab_k1_fwd.py --kernel k1_bwd --dtype float32 --tree ...
 
@@ -33,12 +34,13 @@ PyTorch yardstick on the same inputs (this checkout's
   wrapper's host dispatch, the device time of each under ``torch.profiler``
   (``device_ms``, ``library_device_ms``: chip_smoke's ``_profile``);
 - ``k3``: ``fused_encoder_block`` at DuETT's two axes, event [32, 35,
-  600] and time [32, 25, 840] bf16 (2 heads × 12, FF 512; chip_smoke's
-  weights), against the plain version ``encoder_block_reference`` (no
-  PyTorch call computes the block); besides the paired times, each one's
-  device time under ``torch.profiler`` (``*_device_ms``: the kernel
-  alone; ``*_plain_device_ms``), and the route taken where the tree has
-  two;
+  600] and time [32, 25, 840] (2 heads × 12, FF 512; chip_smoke's
+  weights), bf16 or float32, against the plain version
+  ``encoder_block_reference`` (no PyTorch call computes the block;
+  float32: TF32 off); besides the paired times, each one's device time
+  under ``torch.profiler`` (``*_device_ms``: the kernel alone;
+  ``*_plain_device_ms``), and the route each tree's ``route`` gives
+  (``simt`` where the tree has none);
 - ``k4``: ``fused_ln_qkv`` at [32, 1536, 768], 12 × 64, against
   ``F.layer_norm`` + ``F.linear`` + the head-major copy (chip_smoke's
   yardstick; float32: TF32 off).
@@ -246,13 +248,15 @@ def worker_k3(tree: str, dtype: str, n_heads: int = 2, d_head: int = 12,
     assert DA.__file__.startswith(tree), DA.__file__
     device = torch.device("cuda")
     build.build_all()
-    out = {"tree": tree}
+    _no_tf32()
+    out = {"tree": tree, "dtype": dtype}
     for axis, (B, L, D) in (("event", (32, 35, 600)),
                             ("time", (32, 25, 840))):
         params = chip_smoke._dual_axis_params(D, n_heads * d_head, ff,
                                               device, 30)
         g = torch.Generator(device=device).manual_seed(40)
-        x = torch.randn(B, L, D, generator=g, device=device).bfloat16()
+        x = torch.randn(B, L, D, generator=g, device=device).to(
+            getattr(torch, dtype))
 
         def kernel():
             return DA.fused_encoder_block(x, params, n_heads, d_head)
@@ -304,7 +308,7 @@ def main(argv=None) -> int:
                    help="k1_fwd's and k1_bwd's shape")
     p.add_argument("--dtype", choices=("bfloat16", "float32"),
                    default="bfloat16",
-                   help="k1_fwd's, k1_bwd's and k4's dtype (k2 and k3: "
+                   help="k1_fwd's, k1_bwd's, k3's and k4's dtype (k2: "
                    "bfloat16)")
     p.add_argument("--out", default=None,
                    help="default: build/ab_<kernel>.jsonl")
@@ -318,8 +322,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("ab_k1_fwd: no CUDA device", file=sys.stderr)
         return 2
-    if args.kernel in ("k2", "k3") and args.dtype != "bfloat16":
-        p.error(f"--kernel {args.kernel} times bfloat16 only")
+    if args.kernel == "k2" and args.dtype != "bfloat16":
+        p.error("--kernel k2 times bfloat16 only")
     if args.worker:
         extra = args.shape if args.kernel in ("k1_fwd", "k1_bwd") else []
         print(json.dumps(WORKERS[args.kernel](args.worker, args.dtype,

@@ -413,26 +413,38 @@ def _block_params(D, inner, F, device, seed=0):
             "w2": r(F, D), "b2": r(D)}
 
 
+def _k3_route(dtype, D, F):
+    """The route a case is expected to take, written out: each dtype's
+    tensor-core kernel where F % 128 == 0 and D is a multiple of its 16-byte
+    granule (8 bf16, 4 float32), else the SIMT kernel (every case here has
+    L <= 35 and fits)."""
+    if F % 128 or D % (8 if dtype == torch.bfloat16 else 4):
+        return "simt"
+    return "tc" if dtype == torch.bfloat16 else "tf32"
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("B,L,D,F", [(4, 35, 600, 512), (3, 25, 840, 512),
                                      (2, 7, 96, 64), (2, 1, 8, 130),
                                      (1, 35, 600, 512), (1, 25, 840, 512),
-                                     (2, 7, 96, 128), (3, 17, 136, 256)])
+                                     (2, 7, 96, 128), (3, 17, 136, 256),
+                                     (2, 35, 602, 512), (3, 9, 100, 128)])
 def test_dual_axis_kernel_matches_plain(cuda, dtype, tol, B, L, D, F):
     """K3 against ``encoder_block_reference`` (float32 arithmetic on both
-    sides; another summation order; the tensor-core route rounds its
-    product operands to bf16), relative to the output's max abs; two
-    launches give the same bits. Each case's route is asserted: DuETT's
-    two axes at bf16 (batch 1 among them), L = 7 and 17 (not multiples of
-    16) and D = 136 (17 granules) take the tensor-core route; F = 64 and
-    F = 130 (not multiples of 128) and every float32 case the SIMT
-    route."""
+    sides; another summation order; the bf16 tensor-core route rounds its
+    product operands to bf16, the float32 one takes three TF32 products a
+    product), relative to the output's max abs; two launches give the same
+    bits. Each case's route is asserted: DuETT's two axes (batch 1 among
+    them), L = 7, 9 and 17 (not multiples of 16) and D = 136 (17 granules)
+    take each dtype's tensor-core route, D = 100 (not a multiple of 8) the
+    float32 one only; F = 64 and F = 130 (not multiples of 128) and
+    D = 602 the SIMT route in both dtypes."""
     from multimodal_edema_prediction_tpu_torch.ops import dual_axis as DA
     params = _block_params(D, 24, F, cuda)
     g = torch.Generator(device=cuda).manual_seed(1)
     x = torch.randn(B, L, D, generator=g, device=cuda).to(dtype)
-    way = "tc" if dtype == torch.bfloat16 and F % 128 == 0 else "simt"
+    way = _k3_route(dtype, D, F)
     assert DA.route(dtype, L, D, F, 2, 12) == way
     kernel = DA.ROUTE_KERNELS[way]
     before = dict(DA.LAUNCHES)
@@ -448,40 +460,47 @@ def test_dual_axis_kernel_matches_plain(cuda, dtype, tol, B, L, D, F):
     assert torch.equal(got, again)
 
 
-def test_dual_axis_tc_kernel_reruns_after_a_larger_batch(cuda):
-    """The tensor-core route's arrival counters are left at 0 by every
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
+def test_dual_axis_tc_kernel_reruns_after_a_larger_batch(cuda, dtype, tol):
+    """Each tensor-core route's arrival counters are left at 0 by every
     launch: a batch of 8, then of 3, then of 8 again on the same stream
     give the bits of fresh launches, and a strided (not dense) input is
     copied to the aligned layout the kernel reads."""
     from multimodal_edema_prediction_tpu_torch.ops import dual_axis as DA
     params = _block_params(96, 24, 256, cuda, seed=3)
     g = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(8, 9, 192, generator=g, device=cuda).bfloat16()
+    x = torch.randn(8, 9, 192, generator=g, device=cuda).to(dtype)
     x = x[:, :, 96:]                         # a strided view
+    kernel = DA.ROUTE_KERNELS[_k3_route(dtype, 96, 256)]
+    before = DA.LAUNCHES[kernel]
     first = DA.fused_encoder_block(x, params, 2, 12)
     small = DA.fused_encoder_block(x[:3], params, 2, 12)
     second = DA.fused_encoder_block(x, params, 2, 12)
     torch.cuda.synchronize()
+    assert DA.LAUNCHES[kernel] == before + 3
     assert torch.equal(first, second)
     assert torch.equal(small, first[:3])
     want = DA.encoder_block_reference(x, params, 2, 12)
     scale = want.float().abs().max().item()
-    assert (first.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    assert (first.float() - want.float()).abs().max().item() <= tol * scale
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
 @pytest.mark.parametrize("F", [256, 64])
-def test_dual_axis_kernel_takes_a_permuted_input(cuda, F):
+def test_dual_axis_kernel_takes_a_permuted_input(cuda, F, dtype, tol):
     """A dense but permuted x (the transpose of a contiguous [L, B, D]) on
-    the tensor-core route (F = 256) and the SIMT route (F = 64): the
-    output is a contiguous [B, L, D] that holds the block of x, equal to
-    the block of x made contiguous."""
+    each dtype's tensor-core route (F = 256) and the SIMT route (F = 64):
+    the output is a contiguous [B, L, D] that holds the block of x, equal
+    to the block of x made contiguous."""
     from multimodal_edema_prediction_tpu_torch.ops import dual_axis as DA
     params = _block_params(96, 24, F, cuda, seed=4)
     g = torch.Generator(device=cuda).manual_seed(5)
-    x = torch.randn(9, 3, 96, generator=g, device=cuda).bfloat16()
+    x = torch.randn(9, 3, 96, generator=g, device=cuda).to(dtype)
     x = x.transpose(0, 1)                    # [3, 9, 96], not contiguous
     assert not x.is_contiguous()
-    way = "tc" if F % 128 == 0 else "simt"
+    way = _k3_route(dtype, 96, F)
     assert DA.route(x.dtype, 9, 96, F, 2, 12) == way
     kernel = DA.ROUTE_KERNELS[way]
     before = DA.LAUNCHES[kernel]
@@ -493,7 +512,7 @@ def test_dual_axis_kernel_takes_a_permuted_input(cuda, F):
     assert torch.equal(got, dense)
     want = DA.encoder_block_reference(x, params, 2, 12)
     scale = want.float().abs().max().item()
-    assert (got.float() - want.float()).abs().max().item() <= 2e-2 * scale
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
 
 
 def test_dual_axis_kernel_backward_recomputes_plain(cuda):

@@ -156,17 +156,31 @@ def test_shared_memory_budget(L, D, fits):
     (torch.bfloat16, 25, 840, 512, "tc"),      # DuETT's time axis
     (torch.bfloat16, 7, 96, 128, "tc"),
     (torch.bfloat16, 64, 96, 128, "tc"),       # four m16 row tiles
-    (torch.float32, 35, 600, 512, "simt"),
-    (torch.float32, 7, 96, 128, "simt"),
+    (torch.float32, 35, 600, 512, "tf32"),     # DuETT's event axis
+    (torch.float32, 25, 840, 512, "tf32"),     # DuETT's time axis
+    (torch.float32, 7, 96, 128, "tf32"),
+    (torch.float32, 64, 96, 128, "tf32"),      # four m16 row tiles
+    (torch.float32, 7, 100, 128, "tf32"),      # D % 8 == 4: zero-filled
     (torch.bfloat16, 1, 8, 130, "simt"),       # F not a multiple of 128
     (torch.bfloat16, 7, 96, 64, "simt"),
     (torch.bfloat16, 7, 100, 128, "simt"),     # D not a multiple of 8
     (torch.bfloat16, 65, 96, 128, "simt"),     # past four row tiles
     (torch.bfloat16, 64, 840, 512, "simt"),    # over one block's memory
+    (torch.float32, 7, 98, 128, "simt"),       # D not a multiple of 4
+    (torch.float32, 35, 602, 512, "simt"),
+    (torch.float32, 7, 96, 64, "simt"),        # F not a multiple of 128
+    (torch.float32, 1, 8, 130, "simt"),
+    (torch.float32, 65, 96, 128, "simt"),      # past four row tiles
+    (torch.float32, 36, 600, 512, "tf32"),     # 231,488 bytes: it fits
+    (torch.float32, 37, 600, 512, "simt"),     # over one block's memory
+    (torch.float32, 26, 840, 512, "simt"),
+    (torch.float32, 64, 840, 512, "simt"),
 ])
 def test_route_is_chosen_by_dtype_and_shape(dtype, L, D, F_, way):
-    """Which of K3's two kernels a CUDA call takes, decided in Python from
-    the dtype and the shape before any launch (no card needed)."""
+    """Which of K3's three kernels a CUDA call takes, decided in Python from
+    the dtype and the shape before any launch (no card needed). DuETT's
+    float32 axes nearly fill the float32 tensor-core kernel's shared memory:
+    the event axis fits one more row, not two, and the time axis none."""
     assert DA.route(dtype, L, D, F_, 2, 12) == way
 
 
@@ -192,6 +206,40 @@ def test_tensor_core_route_memory():
         + 4 * (2 * 840 + 128)
     for L, D in ((35, 600), (25, 840)):
         assert DA.tc_smem_bytes(L, D, 2, 12) <= DA.SMEM_LIMIT
+
+
+def test_tf32_route_memory():
+    """The float32 tensor-core route's workspace holds one more [B, L, D]
+    slot than the bf16 route's (z, for the sum of the partials), and its
+    shared memory at DuETT's axes (``make_layout`` in
+    ``csrc/dual_axis_block_tf32.cu``: h's two TF32 parts, larger than z with
+    the attention buffers or than f's parts; the W ring; the biases) fits
+    one block's 227 KB. A row's stride is K rounded to 8, plus 4: 600 ->
+    604, 840 -> 844, 24 -> 28, 128 -> 132."""
+    assert DA.workspace_bytes(32, 35, 600, 512, "tf32") == \
+        4 * 5 * 32 * 35 * 600
+    assert DA.workspace_bytes(32, 35, 600, 512, "tc") == \
+        DA.workspace_bytes(32, 35, 600, 512) == 4 * 4 * 32 * 35 * 600
+    ring = 4 * 3 * 32 * 136
+    # event: h_big | h_small 35 x 604 float32 each (169,120), larger than
+    # z 84,560 + q|k|v 10,224 + P 9,800 + o's parts 2 x 35 x 28 x 4 and
+    # than f's parts 2 x 35 x 132 x 4; the ring; bo, b2, 128 of b1
+    assert 2 * 4 * 35 * 604 > 84560 + 10224 + 9800 + 2 * 4 * 35 * 28 \
+        > 2 * 4 * 35 * 132
+    assert DA.tf32_smem_bytes(35, 600, 2, 12) == \
+        2 * 4 * 35 * 604 + ring + 4 * (2 * 600 + 128) == 226656
+    # time: h's parts 25 x 844 each
+    assert DA.tf32_smem_bytes(25, 840, 2, 12) == \
+        2 * 4 * 25 * 844 + ring + 4 * (2 * 840 + 128) == 228256
+    # a short axis: f's parts (7 x 132 each) are the largest
+    assert DA.tf32_smem_bytes(7, 96, 2, 12) == \
+        2 * 4 * 7 * 132 + ring + 4 * (2 * 96 + 128)
+    # a long, narrow one: z 64 x 100, q|k|v 64 x 73, P 2 x 64 x 64 and o's
+    # parts 64 x 28 each are
+    assert DA.tf32_smem_bytes(64, 96, 2, 12) == \
+        4 * 64 * (100 + 73 + 2 * 64 + 2 * 28) + ring + 4 * (2 * 96 + 128)
+    for L, D in ((35, 600), (25, 840)):
+        assert DA.tf32_smem_bytes(L, D, 2, 12) <= DA.SMEM_LIMIT
 
 
 def _tc_arithmetic(x, p, n_heads, d_head, slice_=128):
@@ -251,24 +299,29 @@ def test_tensor_core_rounding_is_within_the_bf16_tolerance(B, L, D):
     assert 0 < err <= 2e-2 * want.abs().max().item()
 
 
-@pytest.mark.parametrize("inner", [24, 36])
-def test_tensor_core_weights_share_one_aligned_buffer(inner):
-    """The tensor-core route casts its weights to bf16 in one buffer: wq |
-    wk | wv side by side (zero columns up to a multiple of 8 when 3·inner
-    is not one), then wo, bo, w1, b1, w2, b2, each starting on a 16-byte
-    boundary, each equal to its own cast."""
+@pytest.mark.parametrize("dtype,granule", [(torch.bfloat16, 8),
+                                           (torch.float32, 4)])
+@pytest.mark.parametrize("inner", [24, 36, 22])
+def test_tensor_core_weights_share_one_aligned_buffer(inner, dtype,
+                                                      granule):
+    """Each tensor-core route casts its weights to its dtype in one buffer:
+    wq | wk | wv side by side (zero columns up to a 16-byte granule, 8 bf16
+    or 4 float32, when 3·inner is not a multiple of one), then wo, bo, w1,
+    b1, w2, b2, each starting on a 16-byte boundary, each equal to its own
+    cast."""
     rng = np.random.default_rng(6)
     D, F_ = 96, 256
     _, tp = _both(_params(rng, D, inner, F_))
-    wqkv, nq, rest = DA._tc_weights(tp, D, inner, torch.device("cpu"))
-    assert nq % 8 == 0 and nq - 3 * inner in range(8)
-    assert wqkv.shape == (D * nq,) and wqkv.dtype == torch.bfloat16
+    wqkv, nq, rest = DA._tc_weights(tp, D, inner, torch.device("cpu"),
+                                    dtype)
+    assert nq % granule == 0 and nq - 3 * inner in range(granule)
+    assert wqkv.shape == (D * nq,) and wqkv.dtype == dtype
     grid = wqkv.view(D, nq)
-    want = torch.cat([tp[k] for k in ("wq", "wk", "wv")], 1).bfloat16()
+    want = torch.cat([tp[k] for k in ("wq", "wk", "wv")], 1).to(dtype)
     assert torch.equal(grid[:, :3 * inner], want)
     assert not grid[:, 3 * inner:].any()
     for t, k in zip(rest, ("wo", "bo", "w1", "b1", "w2", "b2")):
-        assert torch.equal(t, tp[k].reshape(-1).bfloat16()), k
+        assert torch.equal(t, tp[k].reshape(-1).to(dtype)), k
     for t in (wqkv, *rest):
         assert t.storage_offset() * t.element_size() % 16 == 0
 
@@ -284,8 +337,10 @@ def test_each_route_counts_under_its_entry_point():
         rng = np.random.default_rng(7)
         _, tp = _both(_params(rng, 96, 24, 128))
         DA.fused_encoder_block(torch.zeros(2, 7, 96).bfloat16(), tp, 2, 12)
+        DA.fused_encoder_block(torch.zeros(2, 7, 96), tp, 2, 12)
         assert DA.LAUNCHES == saved
         DA.LAUNCHES["dual_axis_block_tc"] += 3
+        DA.LAUNCHES["dual_axis_block_tf32"] += 2
         DA.reset_launches()
         assert set(DA.LAUNCHES.values()) == {0}
     finally:

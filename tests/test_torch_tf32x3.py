@@ -2,8 +2,9 @@
 on the CPU and held against the JAX package's float32 functions.
 
 The card's float32 routes of K1's forward (``flash_fwd_f32``) and backward
-(``flash_bwd_delta_f32``, ``flash_bwd_dkv_f32``, ``flash_bwd_dq_f32``) and
-of K4 (``ln_qkv_f32_kernel``) run their products on the tensor cores: each
+(``flash_bwd_delta_f32``, ``flash_bwd_dkv_f32``, ``flash_bwd_dq_f32``), of
+K3 (``dual_axis_block_tf32_kernel``) and of K4 (``ln_qkv_f32_kernel``) run
+their products on the tensor cores: each
 operand is split into TF32 parts (``cvt.rna.tf32.f32``: round to nearest,
 ties away from zero, 10 mantissa bits), and each product is summed as
 small·big + big·small + big·big (P·V adds big·tiny, with V = big + small +
@@ -11,13 +12,15 @@ tiny exactly), one mma.sync m16n8k8 per kind of product and k-step of 8.
 The tensor cores truncate what they add: each mma.sync adds its product to
 its C operand and rounds the sum toward zero. So the attention kernel sums
 each pair of k-steps from zero on the tensor cores and adds the pair to
-its float32 accumulators (rounded to nearest); K4 adds every product
-straight into its accumulators. No compiler or card runs here, so this
+its float32 accumulators (rounded to nearest); K3 and K4 add every product
+straight into their accumulators. No compiler or card runs here, so this
 file models that arithmetic in torch (each mma.sync's product exact in
 float64, its sum with C rounded toward zero to float32) with the kernels'
 structure: Q pre-scaled into log2 units, 64-key tiles with an online
 softmax in exp2, keys past kv_valid at -inf; the LayerNorm in float32
-before the projection. The model of the truncation is this file's: the
+before the projection; K3's four products (QKV, Wo, FF1 and FF2 by
+128-unit slices of the FF) with each ScaleNorm, the softmax, P·V and GELU
+in float32, and the slices' partials summed in order. The model of the truncation is this file's: the
 tensor cores' internal order within a k-step is not published.
 
 The backward recomputes P = exp2(S·scale·log2 e − lse·log2 e) from its own
@@ -31,7 +34,8 @@ Tolerances are the card's: attention 1e-5 absolute (``chip_smoke.TOL_F32``)
 and lse 1e-4; the backward's gradients 1e-4 of each one's max abs floored
 at 1e-2 (``TOL_BWD_F32``, ``tests/test_torch_cuda.py``) and D 1e-6 of its
 max abs (``TOL_DELTA``); LayerNorm → QKV 1e-4 of each output's max abs
-(``TOL_FUSED_F32``). The controls: one TF32 product (big·big) misses them,
+(``TOL_FUSED_F32``), and K3's block 1e-4 of the output's max abs (the
+same). The controls: one TF32 product (big·big) misses them,
 which is why the kernels take three; the attention kernel's products
 added straight into its accumulators, as K4 adds them, miss 1e-5 where one
 key takes most of a row's weight, which is why it sums pairs from zero;
@@ -44,10 +48,12 @@ import pytest
 import torch
 
 from multimodal_edema_prediction_tpu.ops.attention import flash_mha as jax_flash
+from multimodal_edema_prediction_tpu.ops.pallas_dual_axis import \
+    encoder_block_reference as jax_block
 from multimodal_edema_prediction_tpu.ops.pallas_ln_qkv import \
     ln_qkv_reference as jax_ln_qkv
 
-TOL_ATTENTION, TOL_LSE, TOL_LN_QKV = 1e-5, 1e-4, 1e-4
+TOL_ATTENTION, TOL_LSE, TOL_LN_QKV, TOL_BLOCK = 1e-5, 1e-4, 1e-4, 1e-4
 TOL_BWD, BWD_FLOOR, TOL_DELTA = 1e-4, 1e-2, 1e-6
 LOG2E = np.float32(1.4426950408889634)
 
@@ -387,3 +393,76 @@ def test_3xtf32_ln_qkv_matches_jax(B, N, D, H):
 def test_1xtf32_ln_qkv_misses_the_tolerance():
     rel = _ln_qkv_errors("1x", 2, 512, 256, 4)
     assert rel > TOL_LN_QKV, rel
+
+
+def _scalenorm(t, g):
+    n = torch.sqrt((t * t).sum(-1, keepdim=True)) * t.shape[-1] ** -0.5
+    return t / n.clamp_min(1e-5) * g
+
+
+def dual_axis_block(x, p, n_heads, d_head, terms, slice_=128):
+    """dual_axis_block_tf32_kernel's arithmetic: each of the four products
+    (QKV; Wo, its K = 2·12; FF1 and FF2 for each 128-unit slice of the FF)
+    with every product added straight into its accumulators; z = (x +
+    o·Wo) + bo; the slices' partials summed in order, then (z + their sum)
+    + b2 and the final ScaleNorm."""
+    B, L, D = x.shape
+    inner = n_heads * d_head
+    g1, g2, gf = (p[k].reshape(()) for k in ("g1", "g2", "gf"))
+    h = _scalenorm(x, g1)
+    qkv = products(h, torch.cat([p["wq"], p["wk"], p["wv"]], 1), terms)
+    q, k, v = (qkv[..., i * inner:(i + 1) * inner].reshape(
+        B, L, n_heads, d_head) for i in range(3))
+    att = torch.softmax(torch.einsum("blhd,bmhd->bhlm", q, k)
+                        * d_head ** -0.5, -1)
+    o = torch.einsum("bhlm,bmhd->blhd", att, v).reshape(B, L, inner)
+    z = (x + products(o, p["wo"], terms)) + p["bo"]
+    h2 = _scalenorm(z, g2)
+    ff = None
+    for s in range(0, p["w1"].shape[1], slice_):
+        f = torch.nn.functional.gelu(
+            products(h2, p["w1"][:, s:s + slice_], terms)
+            + p["b1"][s:s + slice_], approximate="tanh")
+        part = products(f, p["w2"][s:s + slice_], terms)
+        ff = part if ff is None else ff + part
+    return _scalenorm((z + ff) + p["b2"], gf)
+
+
+def _block_errors(terms, B, L, D, inner=24, F_=512):
+    """The model against JAX's float32 ``encoder_block_reference``, relative
+    to the output's max abs, at chip_smoke.py's weight scales (N(0,
+    1/fan_in), biases N(0, 0.02²), gains 1 + N(0, 0.1²)), x N(0, 1)."""
+    rng = np.random.default_rng(D + L)
+
+    def r(*s, std):
+        return (rng.normal(size=s) * std).astype(np.float32)
+    p = {**{k: 1.0 + r(1, std=0.1) for k in ("g1", "g2", "gf")},
+         **{k: r(D, inner, std=D ** -0.5) for k in ("wq", "wk", "wv")},
+         "wo": r(inner, D, std=inner ** -0.5), "bo": r(D, std=0.02),
+         "w1": r(D, F_, std=D ** -0.5), "b1": r(F_, std=0.02),
+         "w2": r(F_, D, std=F_ ** -0.5), "b2": r(D, std=0.02)}
+    x = r(B, L, D, std=1.0)
+    want = np.asarray(jax_block(jnp.asarray(x), {k: jnp.asarray(v) for k, v
+                                                 in p.items()}, 2, 12))
+    got = dual_axis_block(torch.from_numpy(x), {k: torch.from_numpy(v) for
+                                                k, v in p.items()}, 2, 12,
+                          terms).numpy()
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("B,L,D", [(2, 35, 600), (2, 25, 840)])
+def test_3xtf32_dual_axis_block_matches_jax(B, L, D):
+    """K3's float32 tensor-core route, through its arithmetic, within 1e-4
+    of the output's max abs of JAX's float32 block at DuETT's two axes (the
+    products added straight in, as K4 adds them: 5.3e-6 and 4.7e-6 here, so
+    the pair sums of the attention kernels are not needed)."""
+    rel = _block_errors("3x", B, L, D)
+    assert rel <= TOL_BLOCK, rel
+
+
+@pytest.mark.parametrize("B,L,D", [(2, 35, 600), (2, 25, 840)])
+def test_1xtf32_dual_axis_block_misses_the_tolerance(B, L, D):
+    """One TF32 product (big·big) a product misses 1e-4 (3.0e-4 and
+    2.2e-4 here)."""
+    rel = _block_errors("1x", B, L, D)
+    assert rel > TOL_BLOCK, rel
