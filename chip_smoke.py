@@ -217,7 +217,9 @@ m16n8k8 on the bf16 route's grid of batch elements × FF slices,
             [128, 35, 600] and [128, 25, 840] on the ``tf32`` route
             (asserted), within TOL_FUSED_F32, reruns bit-equal; one
             ``simt`` case per dtype at [8, 35, 602] (D % 4 != 0: neither
-            tensor-core route takes it).
+            tensor-core route takes it); one case per dtype at [8, 35, 96]
+            with 4 heads × 12 on its tensor-core route, whose q|k|v (144
+            columns) span two of the W ring's 128-column chunks.
 12. trained_layer  also a float32 case: the layers' inputs captured in a
             float32 eval step (TF32 off), K3 on the ``tf32`` route against
             each layer's output (TOL_TRAINED_LAYER_F32: the layer takes
@@ -1497,21 +1499,23 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
     the bound (no single PyTorch call computes the block: ``library_ms``
     null). Then one backward through the autograd Function against
     autograd of the plain version.
-    cases: (label, B, L, D, dtype, tol, route)."""
+    cases: (label, B, L, D, dtype, tol, route), or with (heads, d_head)
+    after the route for a case of other heads than the phase's."""
     import torch
     DA = port["dual_axis"]
-    inner = n_heads * d_head
     results = {}
-    for label, B, L, D, dtype, tol, way in cases:
+    for label, B, L, D, dtype, tol, way, *hd in cases:
+        n_h, d_h = hd[0] if hd else (n_heads, d_head)
+        inner = n_h * d_h
         params = _dual_axis_params(D, inner, ff, device, 30 + len(results))
         g = torch.Generator(device=device).manual_seed(40 + len(results))
         x = torch.randn(B, L, D, generator=g, device=device).to(dtype)
 
         def kernel():
-            return DA.fused_encoder_block(x, params, n_heads, d_head)
+            return DA.fused_encoder_block(x, params, n_h, d_h)
 
         def plain():
-            return DA.encoder_block_reference(x, params, n_heads, d_head)
+            return DA.encoder_block_reference(x, params, n_h, d_h)
 
         before = dict(DA.LAUNCHES)
         got, again = kernel(), kernel()
@@ -1531,7 +1535,7 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
         plain_prof = _profile(plain, 20, plain_ms, {})
         dev_ms = prof.get("kernel_device_ms_per_step", "not measured")
         res = {"phase": "kernel_check", "kernel": DA.ROUTE_KERNELS[way],
-               "case": label, "shape": [B, L, D], "heads": [n_heads, d_head],
+               "case": label, "shape": [B, L, D], "heads": [n_h, d_h],
                "ff": ff, "dtype": str(dtype).replace("torch.", ""),
                "route": took[0] if len(took) == 1 else took,
                "expected_route": way,
@@ -1539,8 +1543,7 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
                "bit_equal_rerun": same,
                "smem_bytes": {"tc": DA.tc_smem_bytes,
                               "tf32": DA.tf32_smem_bytes,
-                              "simt": DA.smem_bytes}[way](L, D, n_heads,
-                                                          d_head),
+                              "simt": DA.smem_bytes}[way](L, D, n_h, d_h),
                "workspace_bytes": DA.workspace_bytes(B, L, D, ff, way)
                if way != "simt" else 0,
                "ms": ms, "plain_ms": plain_ms,
@@ -1558,8 +1561,7 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
         emit(res)
         if not (finite and rel <= tol and same):
             raise AssertionError(f"dual_axis_block {label}: {res}")
-        if took != [way] or DA.route(dtype, L, D, ff, n_heads,
-                                     d_head) != way:
+        if took != [way] or DA.route(dtype, L, D, ff, n_h, d_h) != way:
             raise AssertionError(f"dual_axis_block {label}: took {took}, "
                                  f"expected the {way} route")
         results[label] = res
@@ -1569,6 +1571,7 @@ def phase_dual_axis(port, device, cases, n_heads: int = 2, d_head: int = 12,
     # one backward through the autograd Function (the kernel forward, a
     # recompute of the plain version backward, as JAX's custom VJP)
     B, L, D = 4, 35, 600
+    inner = n_heads * d_head
     leaves = {k: v.requires_grad_() for k, v in
               _dual_axis_params(D, inner, ff, device, 50).items()}
     x = torch.randn(B, L, D, device=device, requires_grad=True)
@@ -2206,6 +2209,10 @@ def main() -> int:
         # D % 4 != 0: neither tensor-core route takes it
         ("simt_bf16", 8, 35, 602, bf16, TOL_FUSED_BF16, "simt"),
         ("simt_f32", 8, 35, 602, f32, TOL_FUSED_F32, "simt"),
+        # 4 heads x 12: q|k|v's 144 columns span two of the W ring's
+        # 128-column chunks
+        ("wide_qkv_bf16", 8, 35, 96, bf16, TOL_FUSED_BF16, "tc", (4, 12)),
+        ("wide_qkv_f32", 8, 35, 96, f32, TOL_FUSED_F32, "tf32", (4, 12)),
     ])
     k4 = phase_ln_qkv(port, device, [
         ("vit_bf16", 32, 1536, 768, 12, bf16, TOL_FUSED_BF16),

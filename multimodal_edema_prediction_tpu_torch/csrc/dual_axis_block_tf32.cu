@@ -47,7 +47,9 @@
 // parts of h (and of h2) in one block's 227 KB, z is not kept beside them:
 //   1. x[b] by cp.async into h_big's place, then h = SN1(x) in place, a warp
 //      a row, split into h_big | h_small ([L][ldh] each);
-//   2. QKV = h · Wqkv (N = 3 x 24) into q|k|v float32, over h_small;
+//   2. QKV = h · Wqkv (N = 3 x 24) into q|k|v float32, over h_small when
+//      Wqkv is one n-chunk of the ring (3 H dh <= 128, as at DuETT's 2 x 12),
+//      else after h_small: a later chunk still reads h_small;
 //   3. the attention core in float32 SIMT: one warp a (head, query) row for
 //      the scores and their softmax, keys j and j + 32 on lane j (L <= 64);
 //      o = P · V, split into o_big | o_small;
@@ -135,9 +137,10 @@ __host__ __device__ constexpr int a_ld(int K) { return round_up(K, 8) + 4; }
 // tf32_smem_bytes mirrors it). A region of three lives: h_big | h_small
 // (each [L][ldh] float32; later z over h_big, then h2's parts where h's
 // were); in the attention core z, then q|k|v [L][3I + 1] (an odd stride), P
-// [H][L][L] and o_big | o_small [L][ldo] over h_small; in the FF f_big |
-// f_small [L][ldf] over h2. Then the W ring; bo, b2 and this block's slice
-// of b1.
+// [H][L][L] and o_big | o_small [L][ldo] over h_small, or after it when
+// Wqkv spans more than one n-chunk (the QKV epilogue runs after each chunk,
+// and h_small is A to the next); in the FF f_big | f_small [L][ldf] over
+// h2. Then the W ring; bo, b2 and this block's slice of b1.
 struct Layout {
   int mt, ldh, ldq, ldo, ldf;
   size_t hs, q, p, ob, os, fs, ring, bias, total;
@@ -161,7 +164,7 @@ __host__ __device__ inline Layout make_layout(int L, int D, int H, int dh) {
   s.ldf = a_ld(kSlice);
   s.hs = align16(sizeof(float) * L * s.ldh);
   const size_t h_end = align16(s.hs + sizeof(float) * L * s.ldh);
-  s.q = s.hs;
+  s.q = round_up(3 * inner, 4) <= kNC ? s.hs : h_end;
   s.p = align16(s.q + sizeof(float) * L * s.ldq);
   s.ob = align16(s.p + sizeof(float) * H * L * L);
   s.os = align16(s.ob + sizeof(float) * L * s.ldo);
@@ -704,9 +707,10 @@ extern "C" long long dual_axis_block_tf32_smem_bytes(int L, int D, int H,
 // up to nq, a multiple of 4); wo [H·dh, D]; bo, b2 [D]; w1 [D, F]; b1 [F];
 // w2 [F, D], all float32, contiguous, 16-byte aligned; g [3] float32 (g1,
 // g2, gf); ws [F / 128 + 1, B, L, D] float32 scratch; count [B] uint32,
-// zero (and left zero). Takes 1 <= L <= 64, D % 4 == 0, F % 128 == 0 and a
-// layout within one block's shared memory. Returns the CUDA error of the
-// launch (0 on success).
+// zero (and left zero). Takes 1 <= L <= 64, D % 4 == 0, F % 128 == 0,
+// nq = 3·H·dh rounded up to 4 (the layout places q|k|v by it) and a layout
+// within one block's shared memory. Returns the CUDA error of the launch (0
+// on success).
 extern "C" int dual_axis_block_tf32(const void* x, const void* wqkv, int nq,
                                     const void* wo, const void* bo,
                                     const void* w1, const void* b1,
@@ -716,7 +720,7 @@ extern "C" int dual_axis_block_tf32(const void* x, const void* wqkv, int nq,
                                     int dh, int F, float inv_sqrt_d,
                                     float attn_scale, void* stream) {
   if (B < 1 || L < 1 || L > 16 * kMaxMT || D % 4 || F < kSlice ||
-      F % kSlice || nq % 4 || nq < 3 * H * dh)
+      F % kSlice || nq != round_up(3 * H * dh, 4))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = static_cast<const float*>(x);

@@ -74,9 +74,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 TC_SLICE = 128
 TC_MAX_L = 64
 _TC_RING_BYTES = 2 * 2 * 64 * (128 + 8)
-# csrc/dual_axis_block_tf32.cu: its W ring (kStages x kKC x (kNC + 8)
-# float32)
-_TF32_RING_BYTES = 4 * 3 * 32 * (128 + 8)
+# csrc/dual_axis_block_tf32.cu: the columns of a W tile (kNC) and its W
+# ring (kStages x kKC x (kNC + 8) float32)
+_TF32_NC = 128
+_TF32_RING_BYTES = 4 * 3 * 32 * (_TF32_NC + 8)
 
 _P, _I, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each C entry point: its library and its ctypes signature
@@ -188,7 +189,9 @@ def tf32_smem_bytes(L: int, D: int, n_heads: int, d_head: int) -> int:
     in ``csrc/dual_axis_block_tf32.cu``): a region holding, in turn, h's two
     TF32 parts float32 [L, a(D)] each (a(K) = K rounded up to 8, plus 4),
     or z over the first with q|k|v float32 [L, 3I + 1], P
-    [H, L, L] and o's two parts [L, a(I)] over the second, or f's two parts
+    [H, L, L] and o's two parts [L, a(I)] over the second (after both
+    when 3I rounded up to 4 is over the ring's 128 columns: the QKV
+    product's epilogue would write over its own operand), or f's two parts
     [L, a(128)], whichever is largest; the W ring; bo, b2 and a slice of b1
     in float32."""
     def a16(n):
@@ -198,7 +201,8 @@ def tf32_smem_bytes(L: int, D: int, n_heads: int, d_head: int) -> int:
         return -(-k // 8) * 8 + 4
     inner = n_heads * d_head
     h = a16(4 * L * ld(D))
-    attn = a16(a16(a16(h + 4 * L * (3 * inner + 1)) + 4 * n_heads * L * L)
+    q = h if -(-3 * inner // 4) * 4 <= _TF32_NC else 2 * h
+    attn = a16(a16(a16(q + 4 * L * (3 * inner + 1)) + 4 * n_heads * L * L)
                + 4 * L * ld(inner)) + a16(4 * L * ld(inner))
     ff = 2 * a16(4 * L * ld(TC_SLICE))
     return max(2 * h, attn, ff) + _TF32_RING_BYTES + a16(4 * (2 * D + TC_SLICE))
@@ -221,7 +225,7 @@ def route(dtype: torch.dtype, L: int, D: int, F_: int, n_heads: int,
     return "simt"
 
 
-def workspace_bytes(B: int, L: int, D: int, F_: int, way: str = "tc") -> int:
+def workspace_bytes(B: int, L: int, D: int, F_: int, way: str) -> int:
     """A tensor-core route's float32 scratch: one [B, L, D] partial of the
     FF per 128 hidden units, and on the ``"tf32"`` route one more slot for
     z."""
@@ -290,8 +294,7 @@ def _counters(dev: torch.device, stream: int, B: int) -> torch.Tensor:
 
 
 def _tc_weights(params: Dict[str, torch.Tensor], D: int, inner: int,
-                dev: torch.device, dtype: torch.dtype = torch.bfloat16
-                ) -> tuple:
+                dev: torch.device, dtype: torch.dtype) -> tuple:
     """A tensor-core kernel's weights, cast to ``dtype`` in one buffer: wq |
     wk | wv as [D, nq] (nq = 3·inner rounded up to a 16-byte granule, zero
     columns after), then wo, bo, w1, b1, w2, b2. With D and F multiples of

@@ -462,6 +462,37 @@ def test_dual_axis_kernel_matches_plain(cuda, dtype, tol, B, L, D, F):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-4)])
+@pytest.mark.parametrize("B,L,D,F,n_heads,d_head", [
+    (2, 9, 96, 128, 4, 12), (3, 35, 96, 512, 4, 12),
+    (2, 17, 136, 256, 8, 16)])
+def test_dual_axis_kernel_matches_plain_with_wide_qkv(cuda, dtype, tol, B, L,
+                                                      D, F, n_heads, d_head):
+    """K3 on each dtype's tensor-core route with q|k|v wider than the W
+    ring's 128 columns (3 × 48 = 144: two chunks; 3 × 128 = 384: three),
+    against ``encoder_block_reference``, two launches bit-equal. The float32
+    kernel keeps q|k|v apart from h there, since the QKV product still reads
+    h after its first chunk's sums are written."""
+    from multimodal_edema_prediction_tpu_torch.ops import dual_axis as DA
+    params = _block_params(D, n_heads * d_head, F, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn(B, L, D, generator=g, device=cuda).to(dtype)
+    way = "tc" if dtype == torch.bfloat16 else "tf32"
+    assert DA.route(dtype, L, D, F, n_heads, d_head) == way
+    kernel = DA.ROUTE_KERNELS[way]
+    before = dict(DA.LAUNCHES)
+    got = DA.fused_encoder_block(x, params, n_heads, d_head)
+    again = DA.fused_encoder_block(x, params, n_heads, d_head)
+    torch.cuda.synchronize()
+    assert DA.LAUNCHES == {**before, kernel: before[kernel] + 2}
+    want = DA.encoder_block_reference(x, params, n_heads, d_head)
+    assert torch.isfinite(got).all()
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= tol * scale
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-4)])
 def test_dual_axis_tc_kernel_reruns_after_a_larger_batch(cuda, dtype, tol):
     """Each tensor-core route's arrival counters are left at 0 by every
     launch: a batch of 8, then of 3, then of 8 again on the same stream

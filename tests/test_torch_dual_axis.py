@@ -184,14 +184,34 @@ def test_route_is_chosen_by_dtype_and_shape(dtype, L, D, F_, way):
     assert DA.route(dtype, L, D, F_, 2, 12) == way
 
 
+@pytest.mark.parametrize("dtype,L,D,F_,n_heads,d_head,way", [
+    (torch.float32, 9, 96, 128, 4, 12, "tf32"),    # q|k|v over two chunks
+    (torch.float32, 35, 96, 512, 4, 12, "tf32"),
+    (torch.float32, 17, 136, 256, 8, 16, "tf32"),  # three chunks
+    (torch.float32, 35, 600, 512, 4, 12, "simt"),  # q|k|v after h: too big
+    (torch.float32, 25, 840, 512, 4, 12, "simt"),
+    (torch.bfloat16, 9, 96, 128, 4, 12, "tc"),
+    (torch.bfloat16, 35, 600, 512, 4, 12, "tc"),
+])
+def test_route_counts_qkv_wider_than_a_ring_chunk(dtype, L, D, F_, n_heads,
+                                                  d_head, way):
+    """With 3·H·dh over the W ring's 128 columns, the float32 tensor-core
+    route keeps q|k|v apart from h, and ``route`` sends a shape there only
+    if that larger layout fits: DuETT's axes at 4 heads × 12 go to the SIMT
+    kernel in float32, and stay on the bf16 tensor-core route."""
+    assert DA.route(dtype, L, D, F_, n_heads, d_head) == way
+
+
 def test_tensor_core_route_memory():
     """The tensor-core route's workspace is one float32 [B, L, D] partial
     per 128 FF units (10.8 MB at [32, 35, 600], F 512), and its shared
     memory at DuETT's axes (``make_layout`` in the source: z, h, the
     attention or FF work area, the W ring, the biases) fits one block's
     227 KB."""
-    assert DA.workspace_bytes(32, 35, 600, 512) == 4 * 4 * 32 * 35 * 600
-    assert DA.workspace_bytes(128, 25, 840, 512) == 4 * 4 * 128 * 25 * 840
+    assert DA.workspace_bytes(32, 35, 600, 512, "tc") == \
+        4 * 4 * 32 * 35 * 600
+    assert DA.workspace_bytes(128, 25, 840, 512, "tc") == \
+        4 * 4 * 128 * 25 * 840
     ring = 2 * 2 * 64 * 136
     # event: z 84,000; h 48 x 616 bf16; q|k|v 35 x 73 float32 (10,224
     # aligned) + P 9,808 + o 48 x 40 bf16 (larger than f 48 x 136 bf16);
@@ -219,7 +239,7 @@ def test_tf32_route_memory():
     assert DA.workspace_bytes(32, 35, 600, 512, "tf32") == \
         4 * 5 * 32 * 35 * 600
     assert DA.workspace_bytes(32, 35, 600, 512, "tc") == \
-        DA.workspace_bytes(32, 35, 600, 512) == 4 * 4 * 32 * 35 * 600
+        4 * 4 * 32 * 35 * 600
     ring = 4 * 3 * 32 * 136
     # event: h_big | h_small 35 x 604 float32 each (169,120), larger than
     # z 84,560 + q|k|v 10,224 + P 9,800 + o's parts 2 x 35 x 28 x 4 and
@@ -240,6 +260,30 @@ def test_tf32_route_memory():
         4 * 64 * (100 + 73 + 2 * 64 + 2 * 28) + ring + 4 * (2 * 96 + 128)
     for L, D in ((35, 600), (25, 840)):
         assert DA.tf32_smem_bytes(L, D, 2, 12) <= DA.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("L,D,n_heads,d_head,nbytes", [
+    # 3 x 48 = 144 columns, two 128-column chunks: after h's parts (9 x 100
+    # float32 each, 3,600 B), q|k|v 9 x 145 (5,220 B, 5,232 aligned), P
+    # 4 x 9 x 9 and o's parts 9 x 52 each, larger than f's parts (2 x 4,752)
+    (9, 96, 4, 12, 2 * 3600 + 5232 + 4 * 4 * 9 * 9 + 2 * 4 * 9 * 52),
+    # 3 x 128 = 384 columns, three chunks: h's parts 17 x 140 each, q|k|v
+    # 17 x 385 (26,180 B, 26,192 aligned), P 8 x 17 x 17, o's 17 x 132
+    (17, 136, 8, 16,
+     2 * 4 * 17 * 140 + 26192 + 4 * 8 * 17 * 17 + 2 * 4 * 17 * 132),
+    # 3 x 40 = 120 columns, one chunk: over h_small, as at 2 x 12 (q|k|v
+    # 9 x 121, 4,356 B, 4,368 aligned; o's parts 9 x 44)
+    (9, 96, 4, 10, 3600 + 4368 + 4 * 4 * 9 * 9 + 2 * 4 * 9 * 44),
+])
+def test_tf32_route_places_qkv_after_h_when_it_spans_ring_chunks(
+        L, D, n_heads, d_head, nbytes):
+    """The float32 tensor-core kernel's QKV product writes q|k|v after each
+    128-column chunk of Wqkv while a later chunk still reads h: when 3·H·dh
+    (rounded up to 4) is over 128, ``make_layout`` puts q|k|v, P and o
+    after both of h's TF32 parts rather than over h_small, and the mirror
+    counts it (rows of h: 96 -> 100 floats, 136 -> 140)."""
+    ring, bias = 4 * 3 * 32 * 136, 4 * (2 * D + 128)
+    assert DA.tf32_smem_bytes(L, D, n_heads, d_head) == nbytes + ring + bias
 
 
 def _tc_arithmetic(x, p, n_heads, d_head, slice_=128):
