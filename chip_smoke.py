@@ -226,6 +226,27 @@ m16n8k8 on the bf16 route's grid of batch elements × FF slices,
             GELU's erf form in float32) and against the plain version on
             the same input (TOL_FUSED_F32).
 
+Student distillation and the host feature store (ROADMAP P11, P8) add:
+
+13. ssl_to_teacher  also keeps its teacher checkpoint for the next phase.
+14. kd      the student CLI (``cli/train_student.main``) at full width from
+            that teacher and the SSL checkpoint (240 stays, batch 32, 1
+            epoch of 4 batches, bf16) on each image tier: ``none``,
+            ``hbm``, ``host`` in RAM, ``host`` on disk twice (the second
+            run reopens the store); every kernel's launches over exactly
+            each run (K1's forward 12 a pixel step, only the bank build's
+            on the cached tiers, none on reopening; K2 on the bulk route 2
+            an ``hbm`` step, none on ``host``); finite losses; ``host``
+            bit-equal to ``hbm`` step by step; each reloaded best
+            checkpoint evaluates the val split as its loop did. Then one
+            float32 KD step per tier on one batch (``none`` against ``hbm``
+            within TIER_TOL, ``host`` bit-equal, a wrong-row control), the
+            steady bf16 step of each tier (``step_ms``, the host feed
+            ``feed_ms``, peak memory, ``torch.profiler`` on ``none`` and
+            ``hbm``), and one float32 KD step at batch 2 on the card against
+            a CPU copy (KD_F32_TOL). Every kernel row of the summary has
+            the ``kd`` runs' launches under ``launches_by_path``.
+
 Each float32 row of the summary carries ``tc_bound_ms`` beside
 ``bound_ms``: the same work as three TF32 products per product at 495
 TFLOP/s, or the bytes, whichever is larger (``bound_ms`` stays float32
@@ -291,6 +312,7 @@ K4_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_ln_qkv.py:126 "
                "fused_ln_qkv (pallas_call :108, _forward :82, :58 _kernel)")
 RUNS = os.path.join(REPO, "build", "chip_smoke_runs")
 SSL_RUNS = os.path.join(REPO, "build", "chip_smoke_ssl")
+KD_RUNS = os.path.join(REPO, "build", "chip_smoke_kd")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 (NVIDIA data sheet)
@@ -358,6 +380,14 @@ SERVE_TOL = 1e-3
 # backward. The phase's third step, on other images' bank rows, shows how far
 # a wrong row moves the same readings.
 TIER_TOL = 1e-4
+# one float32 KD step (TF32 off) on the card against a CPU copy of the same
+# teacher and student at batch 2: the teacher's ViT through K1's float32
+# forward (3xTF32) and cuBLAS against the plain versions, the same float32
+# math in other orders; losses relative to their magnitude, each student
+# gradient relative to its max abs floored at BLOCK_FLOOR of the largest
+# (a float32 sum keeps ~1e-7 of its terms' scale, which a leaf far below
+# the largest gradient reads as a larger share of itself)
+KD_F32_TOL = 1e-4
 
 
 def emit(obj: dict) -> None:
@@ -373,19 +403,21 @@ def import_port():
     from multimodal_edema_prediction_tpu_torch import config, convert
     from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
     from multimodal_edema_prediction_tpu_torch.cli import (train_ssl,
+                                                           train_student,
                                                            train_teacher)
     from multimodal_edema_prediction_tpu_torch.data import (features, ingest,
                                                             pipeline, sliding,
                                                             synthetic)
-    from multimodal_edema_prediction_tpu_torch.models import (duett, teacher,
-                                                              vit)
+    from multimodal_edema_prediction_tpu_torch.models import (duett, student,
+                                                              teacher, vit)
     from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
                                                            dual_axis, gather,
                                                            ln_qkv)
     from multimodal_edema_prediction_tpu_torch.serve import predictor, server
     from multimodal_edema_prediction_tpu_torch.train import (checkpoint,
-                                                             engine, optim,
-                                                             ssl_loop, state,
+                                                             engine, kd_loop,
+                                                             optim, ssl_loop,
+                                                             state,
                                                              teacher_loop)
     return dict(config=config, convert=convert, teacher=teacher, vit=vit,
                 duett=duett, attention=attention, build=build, gather=gather,
@@ -395,7 +427,8 @@ def import_port():
                 ssl_loop=ssl_loop, features=features, pipeline=pipeline,
                 sliding=sliding, synthetic=synthetic, ingest=ingest,
                 cli_serve=cli_serve, train_teacher=train_teacher,
-                train_ssl=train_ssl)
+                train_ssl=train_ssl, student=student, kd_loop=kd_loop,
+                train_student=train_student)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -976,10 +1009,11 @@ def _tier_diffs(a: dict, b: dict) -> dict:
 
 
 def _worst(diffs: dict) -> dict:
-    """Per kind of reading, the largest difference and its leaf (None when
-    every leaf of that kind is equal)."""
+    """Per kind of reading (``loss``, ``main_logit`` or ``logits``, ``grad``,
+    ``param``), the largest difference and its leaf (None when every leaf
+    of that kind is equal)."""
     out = {}
-    for kind in ("loss", "main_logit", "grad", "param"):
+    for kind in sorted({k.split(":")[0] for k in diffs}):
         v, k = max(((v, k) for k, v in diffs.items()
                     if k.split(":")[0] == kind), default=(0.0, None))
         out[kind] = (v, k if v > 0 else None)
@@ -997,7 +1031,10 @@ def phase_tiers(port, device, cfg, gather_ms: float, reps: int = 5) -> dict:
     tcfg = port["config"].TrainConfig(batch_size=32)
     data, host, hook = _train_batch(port, device, cfg)
     base = port["teacher"].init_teacher(cfg, 0).to(device)
-    bank = tl.build_feature_bank(base, data, hook, torch.bfloat16)
+    F = port["features"]
+    ids, pixels_for_ids = tl.pixels_for_ids_fn(data, hook)
+    bank = F.CXRFeatureBank.build(
+        F.encode_fn_for_teacher(base, torch.bfloat16), pixels_for_ids, ids)
     feat_batch = bank.host_fn()(host)
     n_bank = bank.cls.shape[0] - 1
     shifted = {**feat_batch,
@@ -1923,11 +1960,18 @@ def phase_ssl_to_teacher(port, device, best_path: str, card: str = "") -> dict:
     launches = read_counts(port)
     same = seen.keys() == want.keys() and all(
         torch.equal(seen[k], want[k].to(seen[k].dtype)) for k in want)
+    # the kd phase distills from this teacher
+    shutil.rmtree(KD_RUNS, ignore_errors=True)
+    os.makedirs(KD_RUNS)
+    kept = os.path.join(KD_RUNS, "teacher.msgpack")
+    for suffix in ("", ".config.json"):
+        shutil.copy(res.best_path + suffix, kept + suffix)
     info = {"phase": "ssl_to_teacher", "card": card, "argv": argv,
             "wall_s": wall, "launches": launches,
             "duett_tensors": len(want), "duett_equals_ssl_encoder": same,
             "epoch_losses": [h["train_total"] for h in res.history],
-            "val_auroc": [h["val_main_auroc"] for h in res.history]}
+            "val_auroc": [h["val_main_auroc"] for h in res.history],
+            "teacher_ckpt": kept}
     emit(info)
     shutil.rmtree(RUNS, ignore_errors=True)
     if not same:
@@ -1939,6 +1983,326 @@ def phase_ssl_to_teacher(port, device, best_path: str, card: str = "") -> dict:
             launches["gather_rows_bulk"] == 0:
         raise AssertionError(f"the teacher run did not launch K1 and K2: "
                              f"{launches}")
+    return info
+
+
+def _kd_cli_run(port, device, argv: list, ckpt_dir: str) -> dict:
+    """One ``cli/train_student.main`` run with every kernel's launches
+    counted over exactly this run; its best checkpoint reloaded through
+    ``load_student_from_ckpt`` and evaluated by the loop's own eval."""
+    import torch
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_student"].main(argv + ["--ckpt_dir", ckpt_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    ex = res.extras
+    model, _, _ = port["checkpoint"].load_student_from_ckpt(res.best_path,
+                                                            device)
+    again = ex["evaluate"](model, "val")
+    steps, phase = ex["n_train_steps"], ex["phase_seconds"]
+    return {"argv": argv, "wall_s": wall, "launches": launches,
+            "train_steps": steps, "eval_steps": ex["n_eval_steps"],
+            "feature_tier": ex["feature_tier"],
+            "feature_build_s": phase.get("feature_build"),
+            "train_s": phase["train"], "eval_s": phase["eval"],
+            "train_step_ms": phase["train"] / steps * 1e3,
+            "train_samples_per_s": steps * 32 / phase["train"],
+            "step_losses": ex["step_losses"],
+            "val_auroc": [h["auroc"] for h in res.history],
+            "best_val_auroc": res.best_metric,
+            "reload_val_auroc": again["auroc"],
+            "test_auroc": res.test_metrics["auroc"],
+            "peak_memory_bytes": peak}
+
+
+def _kd_leaves(res: dict, model) -> dict:
+    """A KD step's readings for ``_tier_diffs``: its losses, the student's
+    logits, every gradient and every updated parameter."""
+    return {**{f"loss:{k}": res[k].float().reshape(1)
+               for k in ("total", "bce", "kd")},
+            "logits": res["logits"].clone(),
+            **{f"grad:{n}": p.grad.detach().float().clone()
+               for n, p in model.named_parameters()},
+            **{f"param:{n}": p.detach().float().clone()
+               for n, p in model.named_parameters()}}
+
+
+def _kd_tier_diffs(a: dict, b: dict) -> dict:
+    """Relative differences of two KD steps' readings (``_kd_leaves``):
+    losses and logits against their magnitude; each gradient against its
+    max abs floored at BLOCK_FLOOR of the largest gradient; each updated
+    parameter against its max abs, for the leaves whose gradient is above
+    that floor (a leaf whose exact gradient is 0, such as a bias before a
+    BatchNorm, holds only rounding noise, which Adam's first update turns
+    into ±lr whatever its size)."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"tiers trained other leaves: "
+                             f"{sorted(a.keys() ^ b.keys())[:5]}")
+    floor = BLOCK_FLOOR * max(float(v.abs().max()) for k, v in a.items()
+                              if k.startswith("grad:"))
+    out = {}
+    for k, v in a.items():
+        kind, _, name = k.partition(":")
+        if kind == "param" and float(a["grad:" + name].abs().max()) < floor:
+            continue
+        scale = max(float(v.abs().max()), floor if kind == "grad" else 1e-12)
+        out[k] = float((v - b[k]).abs().max()) / scale
+    return out
+
+
+def phase_kd(port, device, teacher_ckpt: str, ssl_ckpt: str,
+             card: str = "", reps: int = 5) -> dict:
+    """Student distillation (``cli/train_student.main``) at full width from
+    the ``ssl_to_teacher`` phase's teacher (ViT-B/14 at 518, the default
+    DuETT, perceiver 7 × 256) and the SSL checkpoint for the student's
+    backbone: 240 stays, batch 32, 1 epoch of 4 batches, bf16, on each
+    image tier: ``none`` (the teacher's ViT in every KD step), ``hbm``,
+    ``host`` in RAM, and ``host`` on disk twice (the second run reopens the
+    store). Every kernel's launches counted over exactly each run: K1's
+    forward 12 per pixel-tier step and none in the cached tiers' steps
+    (only their bank build, 12 per chunk of 16 images, none on reopening),
+    K2 on the bulk route 2 per ``hbm`` step and none on ``host``; finite
+    losses; ``hbm`` and every ``host`` run bit-equal step by step; each
+    reloaded best checkpoint evaluates the val split as its loop did.
+
+    Then, outside the CLI, on one fixed batch of 32 from the same weights:
+    one float32 KD step per tier compared (TF32 off: ``none`` against
+    ``hbm`` within TIER_TOL as ``_kd_tier_diffs`` reads it, ``host``
+    against ``hbm`` bit for bit, and a step on other images' bank rows
+    outside TIER_TOL; in bf16 the in-step ViT at batch 32 and the bank's
+    chunks of 16 round the teacher's logit apart by ~1e-3 of the KD loss,
+    so the bf16 steps are reported and only ``host`` against ``hbm`` is
+    held, bit for bit); the steady bf16 step of each tier
+    (CUDA events, median of ``reps``), the host feed of each (hook and
+    copy to the card, host clock), peak memory, and a ``torch.profiler``
+    reading of the ``none`` and ``hbm`` steps. Last, one float32 KD step at
+    batch 2 (TF32 off) on the card against a CPU copy of the teacher and
+    the student (KD_F32_TOL)."""
+    import torch
+    cfgmod, eng, F = port["config"], port["engine"], port["features"]
+    tcfg = cfgmod.TeacherConfig.from_dict(
+        port["checkpoint"].load_checkpoint(teacher_ckpt)["config"]["model"])
+    n_layers = tcfg.vit.n_layers
+    store = os.path.join(KD_RUNS, "store", "feat")
+    base = ["--device", "cuda", "--teacher_ckpt", teacher_ckpt,
+            "--duett_ckpt", ssl_ckpt, "--synthetic_stays", "240",
+            "--batch_size", "32", "--epochs", "1", "--limit_batches", "4"]
+    ways = {"none": ["--cxr_feature_cache", "none"],
+            "hbm": ["--cxr_feature_cache", "hbm"],
+            "host": ["--cxr_feature_cache", "host"],
+            "host_disk": ["--cxr_feature_cache", "host",
+                          "--cxr_feature_store_path", store],
+            "host_reopen": ["--cxr_feature_cache", "host",
+                            "--cxr_feature_store_path", store]}
+    runs = {way: _kd_cli_run(port, device, base + extra,
+                             os.path.join(KD_RUNS, "runs"))
+            for way, extra in ways.items()}
+    shutil.rmtree(os.path.join(KD_RUNS, "runs"), ignore_errors=True)
+    expect = {}
+    for way, r in runs.items():
+        n_img = r["feature_tier"].get("n_images", 0)
+        build = 0 if way in ("none", "host_reopen") else -(-n_img // 16)
+        steps = r["train_steps"]
+        expect[way] = {**dict.fromkeys(r["launches"], 0),
+                       "flash_attention": n_layers * (
+                           steps if way == "none" else build),
+                       "gather_rows_bulk": 2 * steps if way == "hbm" else 0}
+
+    # one step per tier on one batch from the same weights (float32 to
+    # compare the tiers, bf16 to time them), then the steady bf16 steps
+    tl, student = port["teacher_loop"], port["student"]
+    teacher, _, _ = port["checkpoint"].load_teacher_from_ckpt(teacher_ckpt,
+                                                              device)
+    teacher.requires_grad_(False)
+    data, host, hook = _train_batch(port, device, tcfg)
+    scfg = cfgmod.StudentConfig(duett=tcfg.duett, head_dropout=0.2)
+    all_ids, pixels_for_ids = tl.pixels_for_ids_fn(data, hook)
+    pixels = pixels_for_ids(all_ids)
+    bf16, f32 = torch.bfloat16, torch.float32
+    banks = {dt: F.CXRFeatureBank.build(
+        F.encode_fn_for_teacher(teacher, dt),
+        lambda ids: pixels[np.searchsorted(all_ids, ids)], all_ids,
+        out_dtype=dt) for dt in (f32, bf16)}
+    del pixels
+
+    def tiers_of(dt):
+        bank = banks[dt]
+        c, p = bank.cls[:-1], bank.patches[:-1]
+        if dt == bf16:
+            c, p = c.view(torch.int16), p.view(torch.int16)
+        store = F.HostFeatureStore(bank.ids, c.cpu().numpy(),
+                                   p.cpu().numpy())
+        n_bank = bank.cls.shape[0] - 1
+
+        def shifted(b):
+            b = bank.host_fn()(b)
+            return {**b, "image_ids": (b["image_ids"] + 1) % n_bank}
+
+        return {"none": (None, hook),
+                "hbm": (bank.feature_source(), bank.host_fn()),
+                "host": (F.features_from_batch, store.host_fn()),
+                "wrong_rows": (bank.feature_source(), shifted)}
+
+    base_student = student.init_student(scfg, 0).to(device)
+    steady, after = {}, {f32: {}, bf16: {}}
+    for dt in (f32, bf16):
+        trn = cfgmod.TrainConfig(
+            batch_size=32, dtype="float32" if dt == f32 else "bfloat16")
+        for name, (source, feed_fn) in tiers_of(dt).items():
+            if dt == bf16 and name == "wrong_rows":
+                continue
+            model = copy.deepcopy(base_student)
+            state = port["state"].TrainState(
+                model, port["optim"].MultiGroupAdamW(model, trn.optim, 100))
+            step = eng.make_kd_step(trn, scfg.duett, 24, dt,
+                                    feature_source=source)
+            gen = torch.Generator(device=device).manual_seed(1)
+
+            def feed():
+                return eng.to_device(feed_fn(host), device)
+
+            dev_batch = feed()
+
+            def run():
+                return step(state, teacher, data.grid, data.static,
+                            dev_batch, gen)
+
+            after[dt][name] = _kd_leaves(run(), model)
+            if dt == f32:
+                continue
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            feeds = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                feed()
+                torch.cuda.synchronize()
+                feeds.append((time.perf_counter() - t0) * 1e3)
+            times = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                run()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            step_ms = statistics.median(times)
+            steady[name] = {
+                "step_ms": step_ms, "step_ms_all": times,
+                "feed_ms": statistics.median(feeds),
+                "samples_per_s": 32e3 / step_ms,
+                "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+            if name in ("none", "hbm"):
+                steady[name]["profile"] = _profile(
+                    run, 3, step_ms, {"k1_fwd": "flash_fwd",
+                                      "k2": "gather_rows"}, families=True)
+            del model, state
+    del banks
+    diffs = _kd_tier_diffs(after[f32]["none"], after[f32]["hbm"])
+    worst = _worst(diffs)
+    host_diffs = {str(dt).split(".")[-1]: max(_tier_diffs(
+        after[dt]["host"], after[dt]["hbm"]).values()) for dt in (f32, bf16)}
+    wrong = _worst(_kd_tier_diffs(after[f32]["hbm"],
+                                  after[f32]["wrong_rows"]))
+    bf16_diffs = _worst(_kd_tier_diffs(after[bf16]["none"],
+                                       after[bf16]["hbm"]))
+
+    # one float32 step on the card against a CPU copy, batch 2
+    f32_cfg = cfgmod.TrainConfig(batch_size=2, dtype="float32")
+    small = hook({k: v[:2] for k, v in host.items()})
+    cpu = torch.device("cpu")
+    nodrop = scfg.replace(head_dropout=0.0)
+    teacher_cpu = copy.deepcopy(teacher).to(cpu)
+    f32_out, f32_grads = {}, {}
+    for side, dev, t in (("card", device, teacher), ("cpu", cpu, teacher_cpu)):
+        model = student.init_student(nodrop, 0).to(dev)
+        state = port["state"].TrainState(model, port["optim"].MultiGroupAdamW(
+            model, f32_cfg.optim, 10))
+        step = eng.make_kd_step(f32_cfg, nodrop.duett, 24, f32)
+        reset_counts(port)
+        res = step(state, t, data.grid.to(dev), data.static.to(dev),
+                   eng.to_device(small, dev),
+                   torch.Generator(device=dev).manual_seed(0))
+        if side == "card":
+            torch.cuda.synchronize()
+            f32_launches = read_counts(port)
+        f32_out[side] = {k: float(res[k]) for k in ("total", "bce", "kd")}
+        f32_grads[side] = {n: p.grad.detach().cpu()
+                           for n, p in model.named_parameters()}
+    loss_rel = max(abs(f32_out["card"][k] - v) / max(abs(v), 1e-12)
+                   for k, v in f32_out["cpu"].items())
+    want = f32_grads["cpu"]
+    floor = BLOCK_FLOOR * max(float(g.abs().max()) for g in want.values())
+    grad_rel = {n: float((f32_grads["card"][n] - g).abs().max()
+                         / max(float(g.abs().max()), 1e-30))
+                for n, g in want.items()}
+    grad_rel_floored = {n: float((f32_grads["card"][n] - g).abs().max()
+                                 / max(float(g.abs().max()), floor))
+                        for n, g in want.items()}
+    worst_f32 = max(grad_rel_floored, key=grad_rel_floored.get)
+    worst_unfloored = max(grad_rel, key=grad_rel.get)
+    del teacher_cpu
+    torch.cuda.empty_cache()
+
+    info = {"phase": "kd", "card": card, "teacher_ckpt": teacher_ckpt,
+            "ssl_ckpt": ssl_ckpt, "vit_layers": n_layers,
+            "runs": runs, "expected_launches": expect,
+            "steady": steady,
+            **{f"max_rel_{kind}_diff": v[0] for kind, v in worst.items()},
+            "worst_grad_leaf": worst["grad"][1],
+            "worst_param_leaf": worst["param"][1],
+            "params_compared": sum(k.startswith("param:") for k in diffs),
+            "tol": TIER_TOL,
+            "host_vs_hbm_max_diff": host_diffs,
+            "wrong_rows_max_rel_diff": {kind: v[0]
+                                        for kind, v in wrong.items()},
+            "bf16_none_vs_hbm_max_rel_diff": {kind: v[0] for kind, v in
+                                              bf16_diffs.items()},
+            "f32_step": {"batch": 2, "losses": f32_out,
+                         "max_rel_loss_diff": loss_rel,
+                         "max_rel_grad_diff": grad_rel_floored[worst_f32],
+                         "worst_grad_leaf": worst_f32, "floor": floor,
+                         "max_rel_grad_diff_unfloored":
+                         grad_rel[worst_unfloored],
+                         "worst_unfloored_leaf": worst_unfloored,
+                         "launches": f32_launches, "tol": KD_F32_TOL}}
+    emit(info)
+    shutil.rmtree(KD_RUNS, ignore_errors=True)
+    for way, r in runs.items():
+        losses = [x for v in r["step_losses"].values() for x in v]
+        if not losses or not all(np.isfinite(x) for x in losses):
+            raise AssertionError(f"kd {way}: non-finite or no losses")
+        if r["launches"] != expect[way]:
+            raise AssertionError(f"kd {way}: launches {r['launches']}, "
+                                 f"expected {expect[way]}")
+        if r["reload_val_auroc"] != r["best_val_auroc"]:
+            raise AssertionError(f"kd {way}: the reloaded best checkpoint "
+                                 "evaluates the val split differently")
+        if way.startswith("host") and \
+                r["step_losses"] != runs["hbm"]["step_losses"]:
+            raise AssertionError(f"kd {way}: per-step losses differ from "
+                                 "the hbm tier's")
+    if not max(diffs.values()) <= TIER_TOL:
+        raise AssertionError(f"kd tiers none/hbm disagree: {worst}")
+    if max(host_diffs.values()) != 0.0:
+        raise AssertionError(f"kd tiers host/hbm differ on one step: "
+                             f"{host_diffs}")
+    if not max(v[0] for v in wrong.values()) > TIER_TOL:
+        raise AssertionError(f"the kd comparison misses a wrong bank row: "
+                             f"{wrong}")
+    if f32_launches.get("flash_attention_f32") != n_layers:
+        raise AssertionError(f"the float32 KD step launched {f32_launches}")
+    if not (loss_rel <= KD_F32_TOL
+            and grad_rel_floored[worst_f32] <= KD_F32_TOL):
+        raise AssertionError(f"the float32 KD step on the card disagrees "
+                             f"with the CPU: {info['f32_step']}")
     return info
 
 
@@ -2244,6 +2608,8 @@ def main() -> int:
     trained = phase_trained_layer(port, device, ssl)
     to_teacher = phase_ssl_to_teacher(port, device, ssl["best_path"],
                                       card=dev["nvidia_smi"])
+    kd = phase_kd(port, device, to_teacher["teacher_ckpt"], ssl["best_path"],
+                  card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -2261,7 +2627,9 @@ def main() -> int:
     case = "pixel_step_bf16 [32, 12, 1370, 64]"
 
     def by_path(name, **earlier):
-        return {**earlier, "ssl": n_ssl[name], "ssl_to_teacher": n_s2t[name]}
+        return {**earlier, "ssl": n_ssl[name], "ssl_to_teacher": n_s2t[name],
+                "kd": {way: r["launches"][name]
+                       for way, r in kd["runs"].items()}}
 
     bwd_rows = [
         {"name": f"flash_attention_bwd_{kind}", "route": "cuda",

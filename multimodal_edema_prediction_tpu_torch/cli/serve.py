@@ -7,7 +7,7 @@ endpoint on the card (the counterpart of
 
 ``--image_mode pixel``: clients send ``pixel_u8_b64`` (raw uint8 bytes of the
 [S, S, 3] resized CXR; normalization runs on the device). The JAX CLI's
-``jpeg_root`` (encode-once feature bank, ROADMAP P17 with P8 and P15) and
+``jpeg_root`` (encode-once feature bank, ROADMAP P17 with P15) and
 ``synthetic`` (procedural images, P17) modes are not ported yet, nor are
 ``--cxr_jpeg_root``, ``--data_parallel`` and ``--aot_dir`` (P17), which
 raise when given. Every bucket runs once before the port opens, so the
@@ -22,7 +22,7 @@ import torch
 
 from .common import add_queued_flags, refuse_queued_flags
 
-_QUEUED = {"jpeg_root": "ROADMAP P17, with P8 and P15",
+_QUEUED = {"jpeg_root": "ROADMAP P17, with P15",
            "synthetic": "ROADMAP P17"}
 # JAX flags whose feature is not ported yet → their ROADMAP item
 QUEUED_FLAGS = {"--cxr_jpeg_root": "P17", "--data_parallel": "P17",

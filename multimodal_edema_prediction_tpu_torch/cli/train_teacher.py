@@ -6,9 +6,12 @@
 
 Trains the ``dual_patch`` teacher. With the RAD-DINO branch frozen (the
 default), on the pixel tier (``--cxr_feature_cache none``: the ViT runs in
-every step) or the encode-once tier (``hbm``: each image is encoded once,
-steps gather cached tokens through K2). ``--unfreeze_cxr`` fine-tunes the
-ViT too, on the pixel tier only, its attention's gradient through K1's
+every step) or an encode-once tier (``hbm``: each image is encoded once,
+steps gather cached tokens through K2; ``host``: the tokens stay on the
+host, in RAM or in a disk store at ``--cxr_feature_store_path``; ``auto``:
+the card within ``--hbm_feature_budget_gb``, else the host).
+``--unfreeze_cxr`` fine-tunes the ViT too, on the pixel tier only, its
+attention's gradient through K1's
 backward kernels; ``--vit_weights`` starts the ViT from a converted
 RAD-DINO checkpoint (``scripts/convert_rad_dino.py``); ``--duett_ckpt``
 starts the DuETT backbone (weights and BatchNorm statistics) from an SSL
@@ -45,8 +48,8 @@ QUEUED_FLAGS = {
     "--pretrained_cxr_head_ckpt": "P13", "--lp_ckpt": "P13",
     "--lp_beta_l2": "P13", "--lp_corr_l2": "P13",
     "--lp_correction_dropout": "P13",
-    # the host feature store and the image feed tiers
-    "--cxr_feature_store_path": "P8", "--image_bank": "P15",
+    # the image feed tiers
+    "--image_bank": "P15",
     "--hbm_image_budget_gb": "P15", "--u8_store_path": "P15",
     "--prefetch_depth": "P15",
     # the loop's gradient-flow diagnostics
@@ -78,9 +81,13 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "auto", "hbm", "host"],
                    help="encode-once tier: with the CXR branch frozen, "
                         "cache the ViT's (CLS, patch) tokens per unique "
-                        "image on the card and gather them in every step "
-                        "instead of running the ViT; 'auto' takes the bank "
-                        "if it fits --hbm_feature_budget_gb")
+                        "image, on the card ('hbm': gathered in every step "
+                        "instead of running the ViT) or on the host "
+                        "('host'); 'auto' takes the card if the bank fits "
+                        "--hbm_feature_budget_gb, else the host")
+    p.add_argument("--cxr_feature_store_path", type=str, default="",
+                   help="the host tier's token store as a reusable disk "
+                        "memmap at this path (reopened by later runs)")
     p.add_argument("--hbm_feature_budget_gb", type=float, default=8.0)
     p.add_argument("--resume_dir", type=str, default="")
     p.add_argument("--state_backend", type=str, default="msgpack",
@@ -104,7 +111,6 @@ _QUEUED = (
     ("cxr_jpeg_root", None, "P15"),
     ("resume_dir", None, "P16"),
     ("state_backend", "orbax", "P16"),
-    ("cxr_feature_cache", "host", "P8"),
 )
 
 
@@ -161,7 +167,9 @@ def main(argv=None):
                         dcfg.pathology_labels, model=model,
                         device=args.device,
                         feature_cache=args.cxr_feature_cache,
-                        hbm_feature_budget_gb=args.hbm_feature_budget_gb)
+                        hbm_feature_budget_gb=args.hbm_feature_budget_gb,
+                        feature_store_path=args.cxr_feature_store_path
+                        or None)
     print(f"best val macro fusion AUROC: {res.best_metric:.4f}  "
           f"ckpt: {res.best_path}", flush=True)
     return res

@@ -1,7 +1,8 @@
-"""Losses of the teacher and SSL steps: the counterparts of
+"""Losses of the teacher, student and SSL steps: the counterparts of
 ``bce_with_logits``, ``masked_per_label_bce``, ``dual_pathology_loss``,
-``aux_residual_kl`` and ``ssl_pretrain_loss`` in
-``multimodal_edema_prediction_tpu/ops/losses.py:18-108, 154-199``.
+``aux_residual_kl``, ``binary_kl_kd``, ``student_kd_loss`` and
+``ssl_pretrain_loss`` in
+``multimodal_edema_prediction_tpu/ops/losses.py:18-199``.
 
 Every function computes in float32 whatever the dtype of its inputs, and
 returns float32 scalars or [K] vectors.
@@ -75,6 +76,42 @@ def aux_residual_kl(img_logits, scaled_correction, y_multi, y_multi_mask,
         (1.0 - y_s) * (torch.log(1.0 - y_s) - torch.log(1.0 - p))
     m = y_multi_mask.float()
     return (kl * m).sum() / m.sum().clamp_min(1.0)
+
+
+def binary_kl_kd(z_s: torch.Tensor, z_t: torch.Tensor, T: float = 4.0,
+                 eps: float = 1e-7) -> torch.Tensor:
+    """T² · mean KL(σ(z_t/T) ‖ σ(z_s/T)) over binary logits, each
+    probability clipped to [eps, 1 − eps]; the teacher's logits are
+    constants (reference loss/losses_duett.py:8-26)."""
+    z_t = z_t.detach().float()
+    z_s = z_s.float()
+    p_t = torch.sigmoid(z_t / T).clamp(eps, 1 - eps)
+    p_s = torch.sigmoid(z_s / T).clamp(eps, 1 - eps)
+    kl = p_t * (torch.log(p_t) - torch.log(p_s)) + \
+        (1 - p_t) * (torch.log(1 - p_t) - torch.log(1 - p_s))
+    return (T ** 2) * kl.mean()
+
+
+# KD losses by the --kd_name flag (the reference's build_kd_loss,
+# loss/losses_duett.py:28-36, holds 'vanilla_kl' only)
+KD_LOSSES = {"vanilla_kl": binary_kl_kd}
+
+
+def resolve_kd_loss(name: str):
+    if name not in KD_LOSSES:
+        raise ValueError(f"unknown KD loss: {name!r}. "
+                         f"available: {list(KD_LOSSES)}")
+    return KD_LOSSES[name]
+
+
+def student_kd_loss(z_s, z_t, y, kd_T: float = 4.0, kd_alpha: float = 0.5,
+                    pos_weight: Optional[torch.Tensor] = None,
+                    kd_name: str = "vanilla_kl") -> dict:
+    """total = α·BCE(z_s, y) + (1 − α)·KD(z_s, z_t)."""
+    loss_bce = bce_with_logits(z_s, y, pos_weight=pos_weight)
+    loss_kd = resolve_kd_loss(kd_name)(z_s, z_t, T=kd_T)
+    return {"total": kd_alpha * loss_bce + (1.0 - kd_alpha) * loss_kd,
+            "bce": loss_bce, "kd": loss_kd}
 
 
 def ssl_pretrain_loss(y_hat_value, y_hat_presence, y_hat_events,

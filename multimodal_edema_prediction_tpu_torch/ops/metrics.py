@@ -74,6 +74,18 @@ def average_precision(y_true: np.ndarray, scores: np.ndarray) -> float:
     return float(np.sum((recall - prev_recall) * precision))
 
 
+def binary_metrics(y_true: np.ndarray, logits: np.ndarray) -> Dict[str, float]:
+    """AUROC/AUPRC/n/pos_frac of one binary head (evaluator.py:10-37)."""
+    probs = 1.0 / (1.0 + np.exp(-np.asarray(logits, dtype=np.float64)))
+    y = np.asarray(y_true, dtype=np.float64)
+    return {
+        "auroc": auroc(y, probs),
+        "auprc": average_precision(y, probs),
+        "n": int(len(y)),
+        "pos_frac": float(y.mean()) if len(y) else float("nan"),
+    }
+
+
 def masked_multilabel_metrics(
         y: np.ndarray, mask: np.ndarray,
         branches: Dict[str, np.ndarray]) -> List[Dict[str, float]]:

@@ -12,7 +12,7 @@ pixel mode.
 Each request carries ``pixel_u8`` ([S, S, 3] uint8), normalized on the
 device inside the step. The JAX package's ``mesh`` (data-parallel serving)
 and ``aot_dir`` (persisted executables) have no counterpart yet (ROADMAP
-P17/P18), nor its bank and feature-cache image tiers (P8, P15).
+P17/P18), nor its bank and feature-cache image tiers (P15, P17).
 """
 from __future__ import annotations
 

@@ -28,7 +28,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from ..config import TeacherConfig
+from ..config import StudentConfig, TeacherConfig
 
 
 def _unpack(buf: bytes, pos: int = 0) -> Tuple[object, int]:
@@ -298,6 +298,24 @@ def load_teacher_from_ckpt(path: str, device="cuda"):
     model = load_flax(TeacherModel(tcfg), ckpt["params"],
                       ckpt["batch_stats"])
     return model.to(dev).eval(), tcfg, ckpt
+
+
+def load_student_from_ckpt(path: str, device="cuda"):
+    """Rebuild the student from a checkpoint of either package's KD loop and
+    its config sidecar: (model in eval mode on ``device``, StudentConfig,
+    raw checkpoint)."""
+    from ..convert import load_flax
+    from ..models.student import StudentModel
+    from ..utils import resolve_device
+
+    dev = resolve_device(device)
+    ckpt = load_checkpoint(path)
+    if "config" not in ckpt:
+        raise ValueError(f"{path} has no config sidecar")
+    scfg = StudentConfig.from_dict(ckpt["config"]["model"])
+    model = load_flax(StudentModel(scfg), ckpt["params"],
+                      ckpt["batch_stats"])
+    return model.to(dev).eval(), scfg, ckpt
 
 
 def restore_tolerant(template: dict, loaded: dict,

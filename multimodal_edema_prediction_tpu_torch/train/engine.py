@@ -1,16 +1,18 @@
-"""Per-batch teacher and SSL steps: the PyTorch counterpart of
+"""Per-batch teacher, student and SSL steps: the PyTorch counterpart of
 ``multimodal_edema_prediction_tpu/train/engine.py`` (``_prep_inputs``,
 ``_cxr_inputs``, ``make_teacher_step``, ``make_teacher_eval``,
 ``default_image_source``, ``make_teacher_eval_from_windows``,
-``make_ssl_step``, ``make_ssl_eval``).
+``make_supervised_ts_eval``, ``make_kd_step``, ``make_ssl_step``,
+``make_ssl_eval``).
 
 A step runs eagerly on the device that holds the batch: window gather →
 augmentation → model forward/backward → optimizer update. The encode-once
 tier's ``feature_source`` (``data/features.py``) and the pixel tier's
 ``image_source`` share one code path, as in JAX: the first replaces the ViT
-forward with two K2 gathers. On the pixel tier with ``freeze_cxr=False`` the
-ViT trains in the step: nothing here detaches its tokens, and its
-attention's backward runs K1's dkv and dq kernels.
+forward with two K2 gathers (the device bank) or with the tokens the host
+store's hook attached to the batch. On the pixel tier with
+``freeze_cxr=False`` the ViT trains in the step: nothing here detaches its
+tokens, and its attention's backward runs K1's dkv and dq kernels.
 """
 from __future__ import annotations
 
@@ -131,12 +133,16 @@ def make_teacher_eval(n_timesteps: int, dtype=torch.bfloat16,
 
 def make_teacher_eval_from_windows(
         model, dtype=torch.bfloat16,
-        image_source: Callable = default_image_source) -> Callable:
+        image_source: Callable = default_image_source,
+        feature_source: Optional[Callable] = None) -> Callable:
     """``step(x_ts [B,T,2V], x_static [B,D], batch)`` → the five eval
     outputs as float32 tensors on the model's device. ``batch`` carries
-    ``bin_ends`` [B, T] and ``pixel_u8`` [B, S, S, 3]; numpy or torch
-    inputs are moved to the model's device. The ViT runs on pixels here
-    (serving has no feature bank yet: ROADMAP P8/P15)."""
+    ``bin_ends`` [B, T] and either ``pixel_u8`` [B, S, S, 3] for the ViT
+    or, with ``feature_source`` (e.g. ``CXRFeatureBank.feature_source(
+    keyed_by_row=False)`` over raw ``image_ids``), what that source reads:
+    windows perturbed on the host then reuse the cached tokens (JAX
+    ``engine.py:403-432``). numpy or torch inputs are moved to the model's
+    device."""
     device = next(model.parameters()).device
 
     def step(x_ts, x_static, batch: dict) -> Dict[str, torch.Tensor]:
@@ -145,9 +151,63 @@ def make_teacher_eval_from_windows(
             x_in, xs = feats_to_input(
                 _as_tensor(x_ts, device).to(dtype),
                 _as_tensor(x_static, device).to(dtype))
-            pixels = image_source(b).to(dtype)
-            out = model(x_in, xs, b["bin_ends"].to(dtype), pixels)
+            pixels, feats = _cxr_inputs(b, image_source, feature_source,
+                                        dtype)
+            out = model(x_in, xs, b["bin_ends"].to(dtype), pixels,
+                        cxr_feats=feats)
             return {k: out[k].float() for k in EVAL_KEYS}
+
+    return step
+
+
+def make_supervised_ts_eval(n_timesteps: int, dtype=torch.bfloat16
+                            ) -> Callable:
+    """``step(model, grid, static, batch)`` → a time-series model's logits
+    [B] as float32 (the student's eval, JAX ``engine.py:82-92``): eval
+    mode, no gradients, no augmentation."""
+    def step(model, grid, static, batch) -> torch.Tensor:
+        with torch.inference_mode():
+            x_in, x_static, times = _prep_inputs(grid, static, batch,
+                                                 n_timesteps, dtype)
+            return model(x_in, x_static, times).float()
+
+    return step
+
+
+def make_kd_step(cfg: TrainConfig, duett_cfg: DuettConfig, n_timesteps: int,
+                 dtype=torch.bfloat16,
+                 image_source: Callable = default_image_source,
+                 feature_source: Optional[Callable] = None) -> Callable:
+    """``step(state, teacher, grid, static, batch, gen)`` → metrics: one
+    student update by knowledge distillation (JAX ``engine.py:435-477``,
+    reference training_duett/engine.py:270-301). The frozen teacher sees
+    the un-augmented inputs in eval mode under ``torch.no_grad()`` (not
+    ``inference_mode``: the KD loss keeps its probabilities for the
+    student's backward), on pixels through its ViT or on the tier's cached
+    tokens; the student sees the inputs augmented from ``gen``, trains with
+    dropout from ``gen`` and updates its BatchNorm statistics. The loss is
+    α·BCE + (1 − α)·KD (``ops/losses.student_kd_loss``). Returns ``total``,
+    ``bce``, ``kd`` and the student's ``logits``, detached, on the device;
+    ``state`` (the student's) is updated in place."""
+    def step(state: TrainState, teacher, grid, static, batch, gen
+             ) -> Dict[str, torch.Tensor]:
+        with torch.no_grad():
+            x_in_t, x_static_t, times = _prep_inputs(
+                grid, static, batch, n_timesteps, dtype)
+            pixels, feats = _cxr_inputs(batch, image_source, feature_source,
+                                        dtype)
+            z_t = teacher(x_in_t, x_static_t, times, pixels,
+                          cxr_feats=feats)["main_logit"].detach()
+        x_in, x_static, _ = _prep_inputs(
+            grid, static, batch, n_timesteps, dtype, gen,
+            duett_cfg.aug_noise, duett_cfg.aug_mask, train=True)
+        z_s = state.model(x_in, x_static, times, train=True, gen=gen)
+        losses = L.student_kd_loss(z_s, z_t, batch["y"], cfg.kd_T,
+                                   cfg.kd_alpha, kd_name=cfg.kd_name)
+        state.apply_gradients(losses["total"])
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["logits"] = z_s.detach().float()
+        return metrics
 
     return step
 

@@ -12,24 +12,28 @@ checkpoint, reloaded through ``load_teacher_from_ckpt``.
 Image tiers: ``feature_cache="none"`` runs the frozen ViT inside every step
 on pixels; ``"hbm"`` encodes every unique image once into a
 ``CXRFeatureBank`` on the card and gathers its rows through K2 in every
-train and eval step; ``"auto"`` takes the bank when it fits
-``hbm_feature_budget_gb``. With ``freeze_cxr=False`` the ViT trains inside
-every step on pixels (its attention's gradient through K1's backward
-kernels), so only ``feature_cache="none"`` is legal. Single process only.
-Not ported yet, each named by its ROADMAP item: the host feature store
-(P8), LP mode and the other perceiver modes (P13), full-state resume (P16),
+train and eval step; ``"host"`` keeps the same tokens in a
+``HostFeatureStore`` (RAM, or a reusable disk memmap at
+``feature_store_path``) whose batch hook attaches each batch's rows, so no
+kernel runs for them in the step; ``"auto"`` takes the bank when it fits
+``hbm_feature_budget_gb``, else the host store. With ``freeze_cxr=False``
+the ViT trains inside every step on pixels (its attention's gradient
+through K1's backward kernels), so only ``feature_cache="none"`` is legal.
+Single process only. Not ported yet, each named by its ROADMAP item: LP
+mode and the other perceiver modes (P13), full-state resume (P16),
 multi-process (P18).
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..config import TeacherConfig, TrainConfig
-from ..data.features import CXRFeatureBank, encode_fn_for_teacher
+from ..data.features import (CXRFeatureBank, HostFeatureStore,
+                             encode_fn_for_teacher, features_from_batch)
 from ..data.pipeline import AnchorDataset
 from ..data.synthetic import synthetic_image_batch
 from ..models.teacher import TeacherModel, init_teacher
@@ -79,11 +83,11 @@ def check_ported(cfg: TeacherConfig) -> None:
             "(ROADMAP P13); the port trains 'dual_patch'")
 
 
-def build_feature_bank(model, dataset: AnchorDataset, image_hook, dtype
-                        ) -> CXRFeatureBank:
-    """Encode every unique image of the dataset once (JAX
-    ``teacher_loop.py:311-381``): each id's pixels come from the image hook
-    with the labels of its first anchor."""
+def pixels_for_ids_fn(dataset: AnchorDataset, image_hook
+                      ) -> Tuple[np.ndarray, Callable]:
+    """(the dataset's sorted unique image ids, ``pixels_for_ids``): each
+    id's pixels come from the image hook with the labels of its first
+    anchor (JAX ``teacher_loop.py:322-335``, ``kd_loop.py:89-110``)."""
     all_ids = np.unique(dataset.anchor["image_ids"]).astype(np.int64)
     order = np.argsort(dataset.anchor["image_ids"], kind="stable")
     srt = dataset.anchor["image_ids"][order]
@@ -96,9 +100,52 @@ def build_feature_bank(model, dataset: AnchorDataset, image_hook, dtype
                         "y_multi": y_rep[rows]})
         return b["pixel_values"]
 
+    return all_ids, pixels_for_ids
+
+
+def build_feature_tier(model, dataset: AnchorDataset, image_hook, dtype,
+                       feature_cache: str, hbm_feature_budget_gb: float,
+                       feature_store_path: Optional[str], device,
+                       log: Callable[[str], None]) -> Tuple[Callable, dict]:
+    """The encode-once tier of a frozen ViT (``feature_cache`` "hbm",
+    "host" or "auto"; JAX ``teacher_loop.py:315-377``): every unique image
+    of the dataset encoded once through ``model``'s ViT, into a bank on the
+    card ("hbm", or "auto" within ``hbm_feature_budget_gb``) or a host
+    store (otherwise; a disk memmap at ``feature_store_path``, reopened
+    when its fingerprint matches). Sets ``dataset.batch_hook`` to the
+    tier's hook; returns (the step's feature source, {"tier", "n_images",
+    "bytes", "build_s"})."""
+    all_ids, pixels_for_ids = pixels_for_ids_fn(dataset, image_hook)
+    vit = model.cfg.vit
+    # tokens at the loop's compute precision: bf16 storage is lossless for
+    # bf16 compute, float32 loops keep float32
     out_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
-    return CXRFeatureBank.build(encode_fn_for_teacher(model, dtype),
-                                pixels_for_ids, all_ids, out_dtype=out_dtype)
+    nbytes = CXRFeatureBank.nbytes(len(all_ids), vit.n_patches, vit.d_model,
+                                   out_dtype.itemsize)
+    on_card = feature_cache == "hbm" or (
+        feature_cache == "auto" and nbytes <= hbm_feature_budget_gb * 2 ** 30)
+    encode = encode_fn_for_teacher(model, dtype)
+    t0 = time.perf_counter()
+    if on_card:
+        bank = CXRFeatureBank.build(encode, pixels_for_ids, all_ids,
+                                    out_dtype=out_dtype)
+        dataset.batch_hook = bank.host_fn()
+        source, tier = bank.feature_source(), "hbm"
+        where = f"token bank on {device}"
+    else:
+        store = HostFeatureStore.build(encode, pixels_for_ids, all_ids,
+                                       path=feature_store_path,
+                                       out_dtype=out_dtype)
+        dataset.batch_hook = store.host_fn()
+        source, tier = features_from_batch, "host"
+        where = (f"disk memmap token store at {feature_store_path}"
+                 if feature_store_path else "host-RAM token store")
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    log(f"[features] encode-once {where}: {len(all_ids)} images "
+        f"({nbytes / 2 ** 30:.2f} GiB, {build_s:.1f}s build)")
+    return source, {"tier": tier, "n_images": len(all_ids), "bytes": nbytes,
+                    "build_s": build_s}
 
 
 def _sync(device: torch.device) -> None:
@@ -114,6 +161,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                   image_hook: Optional[Callable[[dict], dict]] = None,
                   feature_cache: str = "none",
                   hbm_feature_budget_gb: float = 8.0,
+                  feature_store_path: Optional[str] = None,
                   log: Callable[[str], None] = print) -> TrainResult:
     """Train the teacher; returns the best val macro fusion AUROC, its
     checkpoint, the per-epoch history and the test metrics.
@@ -124,7 +172,9 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     trained in place.
     ``image_hook``: host batch hook that attaches ``pixel_values`` (default:
     the synthetic cohort's procedural images); the pixel tier runs it on
-    every batch, the encode-once tier once per unique image."""
+    every batch, the encode-once tier once per unique image.
+    ``feature_store_path``: where the host tier keeps its disk store (RAM
+    when None)."""
     check_ported(teacher_cfg)
     if feature_cache not in ("none", "auto", "hbm", "host"):
         raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
@@ -132,9 +182,6 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         raise ValueError(
             "feature_cache requires freeze_cxr=True: cached ViT tokens are "
             "constants, so a trainable CXR branch would never update")
-    if feature_cache == "host":
-        raise NotImplementedError("feature_cache='host' (the host feature "
-                                  "store) is not ported yet (ROADMAP P8)")
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     if model is None:
@@ -149,28 +196,13 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         f"  device={dev}")
 
     phase = {}
-    feature_source = None
+    feature_source, tier = None, {"tier": "pixels"}
     dataset.batch_hook = image_hook
     if feature_cache != "none":
-        n_images = len(np.unique(dataset.anchor["image_ids"]))
-        itemsize = 4 if dtype == torch.float32 else 2
-        fb_bytes = CXRFeatureBank.nbytes(n_images, teacher_cfg.vit.n_patches,
-                                         teacher_cfg.vit.d_model, itemsize)
-        if feature_cache == "auto" and \
-                fb_bytes > hbm_feature_budget_gb * 2 ** 30:
-            raise NotImplementedError(
-                f"the feature bank ({fb_bytes / 2 ** 30:.2f} GiB) exceeds "
-                f"hbm_feature_budget_gb={hbm_feature_budget_gb}, and the "
-                "host feature store is not ported yet (ROADMAP P8)")
-        t0 = time.perf_counter()
-        bank = build_feature_bank(model, dataset, image_hook, dtype)
-        _sync(dev)
-        phase["feature_build"] = time.perf_counter() - t0
-        dataset.batch_hook = bank.host_fn()
-        feature_source = bank.feature_source()
-        log(f"[features] encode-once bank on {dev}: {n_images} images "
-            f"({fb_bytes / 2 ** 30:.2f} GiB, "
-            f"{phase['feature_build']:.1f}s build)")
+        feature_source, tier = build_feature_tier(
+            model, dataset, image_hook, dtype, feature_cache,
+            hbm_feature_budget_gb, feature_store_path, dev, log)
+        phase["feature_build"] = tier["build_s"]
 
     steps_per_epoch = dataset.split_size("train") // cfg.batch_size
     if cfg.limit_batches > 0:
@@ -278,6 +310,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         test_metrics=test_metrics, steps_per_sec=sps,
         samples_per_sec=sps * cfg.batch_size,
         extras={"phase_seconds": phase, "n_train_steps": n_steps,
+                "feature_tier": tier,
                 "n_eval_steps": n_eval[0],
                 "best_val_outputs": best_val_outputs,
                 "evaluate": run_eval})

@@ -15,7 +15,10 @@ of the bf16 kernels' 128-row blocks and 64-row tiles; the backward's D
 order); K2 bit-exact (a gather moves bytes), on both of its routes (TMA
 bulk copies for 16-byte-aligned rows, vector copies otherwise); K4 bf16
 2e-2 and float32 1e-4 of each output's largest magnitude (h rounded to
-bf16, products accumulated in float32 in another order).
+bf16, products accumulated in float32 in another order); one float32 KD
+step on the card against a CPU copy, losses 1e-4 relative and each student
+gradient 1e-4 of its max abs floored at 1e-2 of the largest gradient (a
+leaf whose exact gradient is 0 keeps only rounding noise).
 """
 import numpy as np
 import pytest
@@ -706,3 +709,65 @@ def test_encode_once_train_step_on_the_card(cuda):
     torch.cuda.synchronize()
     assert G.LAUNCHES["gather_rows_bulk"] == before + 2
     assert bool(torch.isfinite(out["total"])) and state.step == 1
+
+
+def test_kd_step_on_the_card_matches_a_cpu_copy(cuda):
+    """One float32 KD step on the pixel tier (TF32 off), on the card and on
+    a CPU copy of the same teacher and student: losses within 1e-4
+    relative, each student gradient within 1e-4 of its leaf's max abs
+    (floored at 1e-2 of the largest gradient), one float32 K1 forward per
+    ViT layer."""
+    from multimodal_edema_prediction_tpu_torch.config import (
+        DuettConfig, PerceiverConfig, StudentConfig, TeacherConfig,
+        TrainConfig, ViTConfig)
+    from multimodal_edema_prediction_tpu_torch.models.student import \
+        init_student
+    from multimodal_edema_prediction_tpu_torch.models.teacher import \
+        init_teacher
+    from multimodal_edema_prediction_tpu_torch.train import engine
+    from multimodal_edema_prediction_tpu_torch.train.optim import \
+        MultiGroupAdamW
+    from multimodal_edema_prediction_tpu_torch.train.state import TrainState
+    duett = DuettConfig(n_variables=5, d_embedding=8, n_layers=1)
+    tcfg = TeacherConfig(
+        duett=duett, vit=ViTConfig(image_size=224, d_model=128, n_layers=2,
+                                   n_heads=2, d_feedforward=128),
+        perceiver=PerceiverConfig(d_latent=32, n_heads=2))
+    cfg = TrainConfig(dtype="float32")
+    rng = np.random.default_rng(0)
+    host = {"stay_rows": np.array([0, 2, 1, 2], np.int32),
+            "slot_idx": np.array([24, 30, 26, 28], np.int32),
+            "image_ids": np.arange(4, dtype=np.int32),
+            "y": np.array([1, 0, 0, 1], np.float32),
+            "y_multi": np.ones((4, 7), np.float32),
+            "y_multi_mask": np.ones((4, 7), np.float32),
+            "bin_ends": np.tile(np.arange(1, 25, dtype=np.float32) / 24,
+                                (4, 1)),
+            "pixel_values": rng.normal(size=(4, 224, 224, 3)).astype(
+                np.float32)}
+    grid = torch.from_numpy(np.abs(rng.normal(size=(3, 30, 10))).astype(
+        np.float32))
+    static = torch.from_numpy(rng.normal(size=(3, 18)).astype(np.float32))
+    out, grads = {}, {}
+    for dev in (cuda, torch.device("cpu")):
+        teacher = init_teacher(tcfg, 0).to(dev).eval()
+        student = init_student(StudentConfig(duett=duett, head_dropout=0.0),
+                               1).to(dev)
+        state = TrainState(student, MultiGroupAdamW(student, cfg.optim, 10))
+        step = engine.make_kd_step(cfg, duett, 24, torch.float32)
+        before = A.LAUNCHES["flash_attention_f32"]
+        res = step(state, teacher, grid.to(dev), static.to(dev),
+                   engine.to_device(host, dev),
+                   torch.Generator(device=dev).manual_seed(0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert A.LAUNCHES["flash_attention_f32"] == before + 2
+        out[dev.type] = {k: float(res[k]) for k in ("total", "bce", "kd")}
+        grads[dev.type] = {n: p.grad.detach().cpu()
+                           for n, p in student.named_parameters()}
+    for k, v in out["cpu"].items():
+        assert abs(out["cuda"][k] - v) <= 1e-4 * abs(v), k
+    floor = 1e-2 * max(float(g.abs().max()) for g in grads["cpu"].values())
+    for n, g in grads["cpu"].items():
+        scale = max(float(g.abs().max()), floor)
+        assert float((grads["cuda"][n] - g).abs().max()) <= 1e-4 * scale, n

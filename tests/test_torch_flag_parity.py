@@ -1,8 +1,9 @@
 """Fault F3: every flag of the JAX package's CLIs parses in the port's.
 
-The JAX parsers of ``cli/train_teacher``, ``cli/train_ssl`` and
-``cli/serve`` are collected by intercepting ``parse_args``, as
-``tests/test_flag_parity.py:39-64`` collects the reference's. Each of their
+The JAX parsers of ``cli/train_teacher``, ``cli/train_ssl``,
+``cli/train_student`` and ``cli/serve`` are collected by intercepting
+``parse_args``, as ``tests/test_flag_parity.py:39-64`` collects the
+reference's. Each of their
 flags is either accepted by the port with the JAX default, or listed in
 ``WAIVERS`` with the ROADMAP item that ports it; a waived flag, when given
 (with a value the JAX parser takes), raises ``NotImplementedError`` naming
@@ -19,20 +20,25 @@ import pytest
 
 from multimodal_edema_prediction_tpu.cli import serve as jax_serve
 from multimodal_edema_prediction_tpu.cli import train_ssl as jax_ssl
+from multimodal_edema_prediction_tpu.cli import train_student as jax_student
 from multimodal_edema_prediction_tpu.cli import train_teacher as jax_teacher
 from multimodal_edema_prediction_tpu_torch.cli import serve, train_ssl
-from multimodal_edema_prediction_tpu_torch.cli import train_teacher
+from multimodal_edema_prediction_tpu_torch.cli import (train_student,
+                                                       train_teacher)
 from multimodal_edema_prediction_tpu_torch.train.teacher_loop import \
     load_teacher_from_ckpt
 
 CLIS = {"train_teacher": (jax_teacher, train_teacher),
         "train_ssl": (jax_ssl, train_ssl),
+        "train_student": (jax_student, train_student),
         "serve": (jax_serve, serve)}
-# what a port CLI needs before the flag under test (serve's --ckpt is
-# required; the training CLIs would otherwise default to the card)
-BASE = {"train_teacher": ["--device", "cpu"],
-        "train_ssl": ["--device", "cpu"],
-        "serve": ["--ckpt", "x.msgpack", "--device", "cpu"]}
+# what a CLI needs before the flag under test (serve's --ckpt and the
+# student's --teacher_ckpt are required)
+REQUIRED = {"serve": ["--ckpt", "x.msgpack"],
+            "train_student": ["--teacher_ckpt", "x.msgpack"]}
+# ... and the port's training CLIs would otherwise default to the card
+BASE = {cli: REQUIRED.get(cli, []) + ["--device", "cpu"]
+        for cli in ("train_teacher", "train_ssl", "train_student", "serve")}
 
 _LOGGING = {"--log_every": "P20", "--wandb_project": "P20",
             "--wandb_run_name": "P20", "--wandb_disabled": "P20"}
@@ -46,11 +52,11 @@ WAIVERS = {
         "--pretrained_cxr_head_ckpt": "P13", "--lp_ckpt": "P13",
         "--lp_beta_l2": "P13", "--lp_corr_l2": "P13",
         "--lp_correction_dropout": "P13",
-        "--cxr_feature_store_path": "P8",
         "--image_bank": "P15", "--hbm_image_budget_gb": "P15",
         "--u8_store_path": "P15", "--prefetch_depth": "P15",
         "--grad_diag_every": "P19", "--grad_diag_batches": "P19"},
     "train_ssl": dict(_LOGGING),
+    "train_student": dict(_LOGGING),
     "serve": {"--cxr_jpeg_root": "P17", "--data_parallel": "P17",
               "--aot_dir": "P17"},
 }
@@ -115,8 +121,8 @@ def test_every_jax_flag_parses_or_is_waived(cli):
 def test_waived_flag_raises_naming_its_item(cli, flag):
     jax_mod, port_mod = CLIS[cli]
     argv = _given(_actions(_parser(jax_mod))[flag], flag)
-    jax_base = ["--ckpt", "x.msgpack"] if cli == "serve" else []
-    _parser(jax_mod).parse_args(jax_base + argv)   # a valid JAX invocation
+    # a valid JAX invocation
+    _parser(jax_mod).parse_args(REQUIRED.get(cli, []) + argv)
     with pytest.raises(NotImplementedError,
                        match=f"{flag}.*ROADMAP {WAIVERS[cli][flag]}"):
         port_mod.main(BASE[cli] + argv)

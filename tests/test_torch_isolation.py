@@ -34,7 +34,8 @@ def test_imports_bring_in_no_jax():
     for name in ("serve.predictor", "ops.gather", "ops.attention",
                  "ops.dual_axis", "ops.ln_qkv", "data.features",
                  "data.sliding", "train.teacher_loop", "train.ssl_loop",
-                 "cli.train_teacher", "cli.train_ssl"):
+                 "cli.train_teacher", "cli.train_ssl", "models.student",
+                 "train.kd_loop", "cli.train_student"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

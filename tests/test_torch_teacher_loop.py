@@ -126,10 +126,6 @@ def test_loop_refuses_what_is_not_ported(kw, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         L.train_teacher(None, _tiny(**kw), TrainConfig(), str(tmp_path),
                         DataConfig().pathology_labels, device="cpu")
-    with pytest.raises(NotImplementedError, match="P8"):
-        L.train_teacher(None, _tiny(), TrainConfig(), str(tmp_path),
-                        DataConfig().pathology_labels, device="cpu",
-                        feature_cache="host")
 
 
 @pytest.mark.parametrize("feature_cache", ["hbm", "auto"])
@@ -150,9 +146,7 @@ def test_loop_refuses_a_feature_cache_for_a_trainable_vit(feature_cache,
     (["--lp_only_correction"], "P13"),
     (["--perceiver_type", "single"], "P13"),
     (["--steps_per_call", "4"], "P10"),
-    (["--vit_quant", "int8"], "P20"),
-    (["--cxr_feature_cache", "host"], "P8"),
-    (["--cxr_feature_cache", "auto", "--hbm_feature_budget_gb", "0"], "P8")])
+    (["--vit_quant", "int8"], "P20")])
 def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(["--device", "cpu", "--vit_size", "tiny",
