@@ -247,6 +247,39 @@ Student distillation and the host feature store (ROADMAP P11, P8) add:
             a CPU copy (KD_F32_TOL). Every kernel row of the summary has
             the ``kd`` runs' launches under ``launches_by_path``.
 
+Teacher resume and preemption (ROADMAP P16) and the reference's ``dual``
+chain (the CXR linear head on the catalog, the ``dual`` teacher, KD and
+serving; ROADMAP P13) add:
+
+3.  kernels  a float32 case at [64, 12, 1370, 64], the CXR head's catalog
+            sweep (timed against SDPA's float32 forward).
+15. cxr_head  ``cli/train_cxr_head.main`` at full width over the synthetic
+            catalog of 240 stays: the CLS token of every image in chunks of
+            64 in float32 (K1's float32 forward 12 a chunk, counted over
+            exactly this run), 50 full-batch epochs of the head;
+            ``feature_extract_s``, images/s, the best val macro AUROC.
+16. dual_teacher  ``cli/train_teacher.main --perceiver_type dual
+            --pretrained_cxr_head_ckpt`` (240 stays, batch 32, 2 epochs) on
+            the ``hbm`` tier (K2 once a train and eval step, the CLS bank
+            alone) and the pixel tier (4 batches an epoch, K1 12 a step);
+            launches over exactly each run, the frozen head bit-equal, the
+            reloaded checkpoint; the steady step of each tier (CUDA events,
+            one step's launches, peak memory, ``torch.profiler``).
+17. dual_kd  the student from that teacher (1 epoch of 4 batches) on
+            ``hbm`` (K2 once a step) and ``host``; ``host`` equal to ``hbm``
+            bit for bit.
+18. dual_serve  that teacher served over HTTP (4 clients x 3 POSTs), every
+            response against a direct eval of its batch (SERVE_TOL).
+19. resume  the ``dual_patch`` teacher on ``hbm`` (3 epochs of 4 batches):
+            an uninterrupted run, a control run, a run paused after one
+            epoch and resumed with ``--resume_dir``, and the CLI as a
+            subprocess sent SIGTERM after its first step (exit 0, the state
+            saved at the boundary), resumed; resumed histories within
+            RESUME_SPREAD_FACTOR x the control's difference; the saves'
+            seconds and the state file's bytes.
+
+Then the run's total seconds on a line of their own.
+
 Each float32 row of the summary carries ``tc_bound_ms`` beside
 ``bound_ms``: the same work as three TF32 products per product at 495
 TFLOP/s, or the bytes, whichever is larger (``bound_ms`` stays float32
@@ -313,6 +346,8 @@ K4_REPLACES = ("multimodal_edema_prediction_tpu/ops/pallas_ln_qkv.py:126 "
 RUNS = os.path.join(REPO, "build", "chip_smoke_runs")
 SSL_RUNS = os.path.join(REPO, "build", "chip_smoke_ssl")
 KD_RUNS = os.path.join(REPO, "build", "chip_smoke_kd")
+DUAL_RUNS = os.path.join(REPO, "build", "chip_smoke_dual")
+RESUME_RUNS = os.path.join(REPO, "build", "chip_smoke_resume")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 (NVIDIA data sheet)
@@ -388,6 +423,15 @@ TIER_TOL = 1e-4
 # (a float32 sum keeps ~1e-7 of its terms' scale, which a leaf far below
 # the largest gradient reads as a larger share of itself)
 KD_F32_TOL = 1e-4
+# a resumed teacher run against an uninterrupted one, on the card: each
+# history (per-epoch mean losses and val AUROC) within this many times the
+# difference between two uninterrupted runs of the same tree (the control),
+# and equal when those two are equal. The card's float32 sums may run in
+# another order from run to run (e.g. the DuETT count embedding's index
+# backward), and that noise, amplified by 12 steps, is all a correct resume
+# leaves; a resume that lost the optimizer state or the step generator
+# moves every epoch's loss by orders of magnitude more.
+RESUME_SPREAD_FACTOR = 4.0
 
 
 def emit(obj: dict) -> None:
@@ -402,7 +446,8 @@ def import_port():
         sys.path.insert(0, REPO)
     from multimodal_edema_prediction_tpu_torch import config, convert
     from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
-    from multimodal_edema_prediction_tpu_torch.cli import (train_ssl,
+    from multimodal_edema_prediction_tpu_torch.cli import (train_cxr_head,
+                                                           train_ssl,
                                                            train_student,
                                                            train_teacher)
     from multimodal_edema_prediction_tpu_torch.data import (features, ingest,
@@ -415,10 +460,12 @@ def import_port():
                                                            ln_qkv)
     from multimodal_edema_prediction_tpu_torch.serve import predictor, server
     from multimodal_edema_prediction_tpu_torch.train import (checkpoint,
+                                                             cxr_head_loop,
                                                              engine, kd_loop,
                                                              optim, ssl_loop,
                                                              state,
                                                              teacher_loop)
+    from multimodal_edema_prediction_tpu_torch.utils import preemption
     return dict(config=config, convert=convert, teacher=teacher, vit=vit,
                 duett=duett, attention=attention, build=build, gather=gather,
                 dual_axis=dual_axis, ln_qkv=ln_qkv, predictor=predictor,
@@ -428,7 +475,8 @@ def import_port():
                 sliding=sliding, synthetic=synthetic, ingest=ingest,
                 cli_serve=cli_serve, train_teacher=train_teacher,
                 train_ssl=train_ssl, student=student, kd_loop=kd_loop,
-                train_student=train_student)
+                train_student=train_student, train_cxr_head=train_cxr_head,
+                cxr_head_loop=cxr_head_loop, preemption=preemption)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -2306,6 +2354,383 @@ def phase_kd(port, device, teacher_ckpt: str, ssl_ckpt: str,
     return info
 
 
+def _steady_step(port, device, run, reps: int, watch: dict) -> dict:
+    """One step's launches (counts set to 0 just before it), then ``reps``
+    steady steps timed by CUDA events (median), their peak memory, and a
+    ``torch.profiler`` reading of 3 more (device busy time, idle share,
+    ``watch``'s kernels, time by family)."""
+    import torch
+    run()
+    torch.cuda.synchronize()
+    reset_counts(port)
+    run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts(port).items() if v}
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    step_ms = statistics.median(times)
+    return {"step_ms": step_ms, "step_ms_all": times,
+            "samples_per_s": 32e3 / step_ms,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": launches,
+            "profile": _profile(run, 3, step_ms, watch, families=True)}
+
+
+def phase_cxr_head(port, device, card: str = "") -> dict:
+    """The CXR linear-head CLI (``cli/train_cxr_head.main``) at full width
+    (ViT-B/14 at 518, seeded random weights) over the synthetic catalog of
+    240 stays (the cohort the only cut): the CLS token of every catalog
+    image in chunks of 64, float32 as the JAX package extracts it (K1's
+    float32 forward, 12 a chunk), then 50 full-batch epochs of the head.
+    Every kernel's launches over exactly this run; finite features; the
+    head checkpoint's sidecar."""
+    import math
+
+    import torch
+    shutil.rmtree(DUAL_RUNS, ignore_errors=True)
+    argv = ["--device", "cuda", "--synthetic_stays", "240",
+            "--batch_size", "64", "--epochs", "50",
+            "--ckpt_dir", os.path.join(DUAL_RUNS, "cxr_head")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_cxr_head"].main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    n_img, n_layers = res["n_images"], port["config"].ViTConfig().n_layers
+    expect = {**dict.fromkeys(launches, 0),
+              "flash_attention_f32": n_layers * math.ceil(n_img / 64)}
+    ck = port["checkpoint"].load_checkpoint(res["ckpt_path"])
+    info = {"phase": "cxr_head", "card": card, "argv": argv, "wall_s": wall,
+            "n_images": n_img, "feature_extract_s": res["feature_extract_s"],
+            "images_per_s": n_img / res["feature_extract_s"],
+            "launches": launches, "expected_launches": expect,
+            "best_val_macro_auroc": res["best_val_macro_auroc"],
+            "test_macro_auroc": res["test_macro_auroc"],
+            "val_macro_auroc_first_last": [res["val_macro_auroc"][0],
+                                           res["val_macro_auroc"][-1]],
+            "sidecar": ck.get("config"),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "ckpt_path": res["ckpt_path"]}
+    emit(info)
+    if launches != expect:
+        raise AssertionError(f"cxr_head launches {launches}, expected "
+                             f"{expect}")
+    if not np.isfinite(res["best_val_macro_auroc"]) or \
+            not np.isfinite(ck["params"]["linear"]["kernel"]).all():
+        raise AssertionError("cxr_head: non-finite head or AUROC")
+    if (ck.get("config") or {}).get("kind") != "cxr_linear_head":
+        raise AssertionError(f"cxr_head sidecar {ck.get('config')}")
+    return info
+
+
+def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
+                       reps: int = 5) -> dict:
+    """The ``dual`` teacher through ``cli/train_teacher.main --perceiver_type
+    dual --pretrained_cxr_head_ckpt`` at full width (the default
+    ``TeacherConfig``, bf16), 240 stays, batch 32, 2 epochs: on the ``hbm``
+    tier (K2 once a train and eval step, the CLS bank alone; K1 in the bank
+    build only) and on the pixel tier (4 batches an epoch; K1 12 a train and
+    eval step). Every kernel's launches over exactly each run; finite
+    losses; the frozen head bit-equal to its checkpoint after training; the
+    reloaded best checkpoint evaluates the val split as its loop did. Then
+    the steady bf16 step of each tier on one batch of 32 (CUDA events,
+    median of ``reps``; launches of one step; peak memory;
+    ``torch.profiler``). Keeps the ``hbm`` run's best checkpoint for the
+    ``dual_kd`` and ``dual_serve`` phases."""
+    import math
+
+    import torch
+    ck_mod, n_layers = port["checkpoint"], \
+        port["config"].ViTConfig().n_layers
+    head = ck_mod.load_checkpoint(head_ckpt)["params"]["linear"]
+    base = ["--device", "cuda", "--perceiver_type", "dual",
+            "--pretrained_cxr_head_ckpt", head_ckpt, "--synthetic_stays",
+            "240", "--batch_size", "32", "--epochs", "2"]
+    ways = {"hbm": ["--cxr_feature_cache", "hbm"],
+            "pixels": ["--cxr_feature_cache", "none", "--limit_batches", "4"]}
+    runs, kept = {}, os.path.join(DUAL_RUNS, "teacher.msgpack")
+    for way, extra in ways.items():
+        argv = base + extra + ["--ckpt_dir", os.path.join(DUAL_RUNS, way)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(port)
+        t0 = time.perf_counter()
+        res = port["train_teacher"].main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(port)
+        peak = torch.cuda.max_memory_allocated()
+        ex = res.extras
+        steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
+        n_img = ex["feature_tier"].get("n_images", 0)
+        expect = {**dict.fromkeys(launches, 0),
+                  "flash_attention": n_layers * (
+                      steps + evals if way == "pixels"
+                      else math.ceil(n_img / 16)),
+                  "gather_rows_bulk": steps + evals if way == "hbm" else 0}
+        _, _, ck, again, reload_diff = _reload_val(port, res, device)
+        phase = ex["phase_seconds"]
+        runs[way] = {
+            "argv": argv, "wall_s": wall, "launches": launches,
+            "expected_launches": expect, "train_steps": steps,
+            "eval_steps": evals, "feature_build_s": phase.get(
+                "feature_build"), "train_s": phase["train"],
+            "train_samples_per_s": steps * 32 / phase["train"],
+            "state_save_s": ex["state_save_s"],
+            "epoch_losses": [h["train_total"] for h in res.history],
+            "val_auroc": [h["val_main_auroc"] for h in res.history],
+            "best_val_auroc": res.best_metric,
+            "test_auroc": res.test_metrics["main_auroc"],
+            "reload_max_abs_diff": reload_diff,
+            "sidecar": {k: ck["config"].get(k) for k in (
+                "n_pretrained_labels", "static_keep_idx")},
+            "head_bit_equal": all(np.array_equal(
+                ck["params"]["pretrained_cxr_head"]["linear"][k], head[k])
+                for k in ("kernel", "bias")),
+            "peak_memory_bytes": peak}
+        if way == "hbm":
+            for suffix in ("", ".config.json"):
+                shutil.copy(res.best_path + suffix, kept + suffix)
+        shutil.rmtree(os.path.join(DUAL_RUNS, way), ignore_errors=True)
+
+    # the steady step of each tier, from the kept teacher, on one batch
+    tl, eng, F = port["teacher_loop"], port["engine"], port["features"]
+    model, tcfg, _ = ck_mod.load_teacher_from_ckpt(kept, device)
+    data, host, hook = _train_batch(port, device, tcfg)
+    ids, pixels_for_ids = tl.pixels_for_ids_fn(data, hook)
+    bank = F.CXRFeatureBank.build(
+        F.encode_fn_for_teacher(model, torch.bfloat16), pixels_for_ids, ids)
+    trn = port["config"].TrainConfig(batch_size=32)
+    tiers = {"pixels": (None, hook(host)),
+             "hbm": (bank.feature_source(cls_only=True),
+                     bank.host_fn()(host))}
+    steady = {}
+    for name, (source, batch) in tiers.items():
+        m = copy.deepcopy(model)
+        state = port["state"].TrainState(m, port["optim"].MultiGroupAdamW(
+            m, trn.optim, 100,
+            frozen_prefixes=tl.teacher_frozen_prefixes(tcfg)))
+        step = eng.make_teacher_step(trn, tcfg.duett, 24,
+                                     np.ones(7, np.float32),
+                                     feature_source=source)
+        dev_batch = eng.to_device(batch, device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        steady[name] = _steady_step(
+            port, device,
+            lambda: step(state, data.grid, data.static, dev_batch, gen),
+            reps, {"k1_fwd": "flash_fwd", "k2": "gather_rows"})
+        del m, state, dev_batch
+    del bank, model
+    torch.cuda.empty_cache()
+    info = {"phase": "dual_teacher", "card": card, "head_ckpt": head_ckpt,
+            "runs": runs, "steady": steady, "teacher_ckpt": kept}
+    emit(info)
+    for way, r in runs.items():
+        if not all(np.isfinite(x) for x in r["epoch_losses"]):
+            raise AssertionError(f"dual {way}: non-finite losses")
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(f"dual {way}: launches {r['launches']}, "
+                                 f"expected {r['expected_launches']}")
+        if not r["head_bit_equal"]:
+            raise AssertionError(f"dual {way}: the frozen head moved")
+        if r["reload_max_abs_diff"] > SERVE_TOL:
+            raise AssertionError(f"dual {way}: the reloaded best checkpoint "
+                                 "evaluates the val split differently")
+    if steady["pixels"]["launches_per_step"] != {"flash_attention":
+                                                 n_layers} or \
+            steady["hbm"]["launches_per_step"] != {"gather_rows_bulk": 1}:
+        raise AssertionError(f"dual steady steps launched "
+                             f"{ {k: v['launches_per_step'] for k, v in steady.items()} }")
+    return info
+
+
+def phase_dual_kd(port, device, teacher_ckpt: str, card: str = "") -> dict:
+    """The student distilled from the ``dual`` teacher (``cli/
+    train_student.main``, the default ``StudentConfig``, 240 stays, batch
+    32, 1 epoch of 4 batches, bf16) on the ``hbm`` and ``host`` tiers:
+    every kernel's launches over exactly each run (K1 only in the bank
+    build; K2 once a KD step on ``hbm``, the CLS bank alone, none on
+    ``host``); finite losses; ``host``'s per-step losses equal ``hbm``'s
+    bit for bit; each reloaded best checkpoint evaluates the val split as
+    its loop did."""
+    import math
+    n_layers = port["config"].ViTConfig().n_layers
+    base = ["--device", "cuda", "--teacher_ckpt", teacher_ckpt,
+            "--synthetic_stays", "240", "--batch_size", "32", "--epochs",
+            "1", "--limit_batches", "4"]
+    runs = {way: _kd_cli_run(port, device,
+                             base + ["--cxr_feature_cache", way],
+                             os.path.join(DUAL_RUNS, "kd"))
+            for way in ("hbm", "host")}
+    shutil.rmtree(os.path.join(DUAL_RUNS, "kd"), ignore_errors=True)
+    expect = {way: {**dict.fromkeys(r["launches"], 0),
+                    "flash_attention": n_layers * math.ceil(
+                        r["feature_tier"]["n_images"] / 16),
+                    "gather_rows_bulk": r["train_steps"] if way == "hbm"
+                    else 0} for way, r in runs.items()}
+    info = {"phase": "dual_kd", "card": card, "teacher_ckpt": teacher_ckpt,
+            "runs": runs, "expected_launches": expect,
+            "host_equals_hbm": runs["host"]["step_losses"]
+            == runs["hbm"]["step_losses"]}
+    emit(info)
+    for way, r in runs.items():
+        losses = [x for v in r["step_losses"].values() for x in v]
+        if not losses or not all(np.isfinite(x) for x in losses):
+            raise AssertionError(f"dual_kd {way}: non-finite or no losses")
+        if r["launches"] != expect[way]:
+            raise AssertionError(f"dual_kd {way}: launches {r['launches']}, "
+                                 f"expected {expect[way]}")
+        if r["reload_val_auroc"] != r["best_val_auroc"]:
+            raise AssertionError(f"dual_kd {way}: the reloaded best "
+                                 "checkpoint evaluates the val split "
+                                 "differently")
+    if not info["host_equals_hbm"]:
+        raise AssertionError("dual_kd: the host tier's per-step losses "
+                             "differ from the hbm tier's")
+    return info
+
+
+def _history_diff(a: list, b: list) -> float:
+    """The largest absolute difference between two runs' per-epoch
+    histories (every numeric key), inf when their epochs differ."""
+    if len(a) != len(b) or any(x.keys() != y.keys() for x, y in zip(a, b)):
+        return float("inf")
+    return max((abs(x[k] - y[k]) for x, y in zip(a, b) for k in x),
+               default=0.0)
+
+
+def phase_resume(port, device, card: str = "") -> dict:
+    """Resume and preemption of the ``dual_patch`` teacher at full width on
+    the ``hbm`` tier through ``cli/train_teacher.main`` (240 stays, batch
+    32, 3 epochs of 4 batches, the full state saved every epoch by
+    default): an uninterrupted run and a second one (the control: what two
+    runs of the same tree differ by on the card); a run paused after one
+    epoch (``stop_after_epochs=1``), then ``--resume_dir`` to 3 epochs; and
+    the CLI as a subprocess with ``--no_save_state``, sent SIGTERM after
+    its first step's log line, which must save the state at the epoch
+    boundary and exit 0, then ``--resume_dir`` to 3 epochs. Each resumed
+    history is held to RESUME_SPREAD_FACTOR × the control's difference
+    (to equality when the control's is 0). Reports each save's seconds
+    and the state file's bytes (the saves fall outside the train window
+    that ``train_samples_per_s`` times)."""
+    import signal
+
+    import torch
+    tt = port["train_teacher"]
+    shutil.rmtree(RESUME_RUNS, ignore_errors=True)
+    base = ["--device", "cuda", "--cxr_feature_cache", "hbm",
+            "--synthetic_stays", "240", "--batch_size", "32", "--epochs",
+            "3", "--limit_batches", "4"]
+
+    def cli(name, extra=(), **loop_kw):
+        """The CLI; ``loop_kw`` (which it has no flag for) handed to the
+        loop."""
+        train = tt.train_teacher
+        if loop_kw:
+            tt.train_teacher = lambda *a, **k: train(*a, **k, **loop_kw)
+        try:
+            return tt.main(base + list(extra) + [
+                "--ckpt_dir", os.path.join(RESUME_RUNS, name)])
+        finally:
+            tt.train_teacher = train
+
+    torch.cuda.synchronize()
+    reset_counts(port)
+    whole = cli("whole")
+    torch.cuda.synchronize()
+    launches = read_counts(port)
+    control = cli("control")
+    paused = cli("paused", stop_after_epochs=1)
+    resumed = cli("paused", ["--resume_dir",
+                             os.path.dirname(paused.best_path)])
+
+    # the CLI in a process of its own, sent SIGTERM after its first step
+    torch.cuda.empty_cache()
+    sig_root = os.path.join(RESUME_RUNS, "sigterm")
+    cmd = [sys.executable, "-m", f"{PKG}.cli.train_teacher", *base,
+           "--no_save_state", "--ckpt_dir", sig_root]
+    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    watchdog = threading.Timer(600, proc.kill)
+    watchdog.start()
+    lines, t_sent = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if t_sent is None and line.startswith("step 1 done"):
+                proc.send_signal(signal.SIGTERM)
+                t_sent = time.perf_counter()
+        rc = proc.wait()
+        t_exit = time.perf_counter()
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    run_dirs = os.listdir(sig_root) if os.path.isdir(sig_root) else []
+    sig_dir = os.path.join(sig_root, run_dirs[0]) if run_dirs else ""
+    files = sorted(os.listdir(sig_dir)) if sig_dir else []
+    stopped = [ln for ln in lines if ln.startswith("SIGTERM/preemption")]
+    sig_resumed = cli("sigterm_resume", ["--resume_dir", sig_dir]) \
+        if rc == 0 and "train_state.meta.json" in files else None
+
+    spread = _history_diff(control.history, whole.history)
+    diffs = {"resumed": _history_diff(resumed.history, whole.history),
+             "sigterm_resumed": (_history_diff(sig_resumed.history,
+                                               whole.history)
+                                 if sig_resumed else float("inf"))}
+    bound = RESUME_SPREAD_FACTOR * spread
+    ex = whole.extras
+    info = {"phase": "resume", "card": card, "argv": base,
+            "launches": launches,
+            "epochs_paused_run": len(paused.history),
+            "resumed_start_epoch": resumed.extras["start_epoch"],
+            "control_max_history_diff": spread,
+            "max_history_diff": diffs, "bound": bound,
+            "state_save_s": ex["state_save_s"],
+            "state_bytes": ex["state_bytes"],
+            "train_samples_per_s": ex["n_train_steps"] * 32
+            / ex["phase_seconds"]["train"],
+            "sigterm": {"exit_code": rc, "files": files,
+                        "stopped": stopped,
+                        "sigterm_to_exit_s": (t_exit - t_sent
+                                              if t_sent else None),
+                        "log_tail": lines[-6:]},
+            "history_whole": whole.history}
+    emit(info)
+    shutil.rmtree(RESUME_RUNS, ignore_errors=True)
+    if len(paused.history) != 1 or resumed.extras["start_epoch"] != 1:
+        raise AssertionError("resume: the paused run did not stop after "
+                             "one epoch and resume at the second")
+    if t_sent is None or rc != 0 or not stopped or not {
+            "train_state.msgpack", "train_state.meta.json"} <= set(files):
+        raise AssertionError(f"resume: the SIGTERM run did not save and "
+                             f"exit 0: {info['sigterm']}")
+    if len(sig_resumed.history) != 3:
+        raise AssertionError("resume: the SIGTERM run's resume did not "
+                             "reach 3 epochs")
+    if not max(diffs.values()) <= bound:
+        raise AssertionError(f"resume: resumed histories {diffs} differ from "
+                             f"the uninterrupted run by more than "
+                             f"{RESUME_SPREAD_FACTOR} x the control's "
+                             f"{spread}")
+    if not all(np.isfinite(h["train_total"]) for h in whole.history):
+        raise AssertionError("resume: non-finite losses")
+    return info
+
+
 def phase_golden(port, device, cfg, golden_path) -> dict:
     """The full-geometry ViT in float32 through the kernel against the
     golden tokens (atol 2e-4, rtol 1e-3, the golden test's own bounds)."""
@@ -2361,13 +2786,17 @@ def _post(url: str, payload: dict) -> tuple:
 
 
 def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
-                seed: int = 0, card: str = "") -> dict:
+                seed: int = 0, card: str = "", model=None,
+                name: str = "serve", buckets: tuple = (1, 8, 32)) -> dict:
     """Serve the teacher over HTTP; check every response against a direct
-    eval of the batch it was served in; count K1 launches over the run."""
+    eval of the batch it was served in; count K1 launches over the run.
+    ``model``: the teacher to serve (default: ``init_teacher(cfg, seed)``);
+    ``buckets``: the batch sizes whose direct step is timed afterwards."""
     import torch
     att, engine = port["attention"], port["engine"]
     pred_mod, srv = port["predictor"], port["server"]
-    model = port["teacher"].init_teacher(cfg, seed)
+    if model is None:
+        model = port["teacher"].init_teacher(cfg, seed)
     d, S = cfg.duett, cfg.vit.image_size
     T, V = d.n_timesteps, d.n_variables
     pred = pred_mod.BatchingPredictor(model, max_batch=32, max_wait_ms=20.0,
@@ -2425,7 +2854,7 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
         if device.type == "cuda":
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-        att.reset_launches()
+        reset_counts(port)
         t0 = time.perf_counter()
         threads = [threading.Thread(target=client, args=(c,))
                    for c in range(n_clients)]
@@ -2434,8 +2863,9 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
         for th in threads:
             th.join(timeout=600)
         wall = time.perf_counter() - t0
-        launches = att.LAUNCHES["flash_attention"]
-        launches_f32 = att.LAUNCHES["flash_attention_f32"]
+        every = read_counts(port)
+        launches = every["flash_attention"]
+        launches_f32 = every["flash_attention_f32"]
         stats = pred.stats()
         peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
             else None
@@ -2472,7 +2902,7 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
     # where a batch's time goes: the direct step per bucket (host work, the
     # pixel upload and the device, end to end) against K1's share of it
     breakdown = {}
-    for b in (1, 8, 32):
+    for b in buckets:
         idx = [i % n_req for i in range(b)]
         x_ts = np.stack([reqs[i]["x_ts"] for i in idx])
         static = np.stack([reqs[i]["static"] for i in idx])
@@ -2490,10 +2920,12 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
                         "k1_share": k1 * cfg.vit.n_layers / step_ms,
                         "step_samples_per_s": b / step_ms * 1e3}
     lat = np.asarray(latencies)
-    info = {"phase": "serve", "card": card, "requests": n_req,
+    info = {"phase": name, "card": card, "requests": n_req,
+            "perceiver_type": cfg.perceiver_type,
             "clients": n_clients,
             "batches": stats["n_batches"],
             "batch_size_hist": stats["batch_size_hist"],
+            "launches": every,
             "k1_launches": launches, "k1_f32_launches": launches_f32,
             "k1_launches_per_batch": launches / max(stats["n_batches"], 1),
             "samples_per_s": n_req / wall, "wall_s": wall,
@@ -2536,6 +2968,7 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repo ({PKG}/ and "
               f"{os.path.relpath(GOLDEN, REPO)} not found)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -2554,6 +2987,8 @@ def main() -> int:
         ("bank_build_f32", 16, 12, 1370, None, f32, TOL_F32, True),
         ("pixel_step_f32", 32, 12, 1370, None, f32, TOL_F32, True),
         ("f32", 2, 12, 1370, 1301, f32, TOL_F32, True),
+        # the CXR head's catalog sweep: chunks of 64, float32
+        ("cxr_head_f32", 64, 12, 1370, None, f32, TOL_F32, True),
     ])
     bwd = phase_backward(port, device, [
         ("pixel_step_bf16", 32, 12, 1370, None, bf16, TOL_BWD_BF16, True),
@@ -2610,6 +3045,19 @@ def main() -> int:
                                       card=dev["nvidia_smi"])
     kd = phase_kd(port, device, to_teacher["teacher_ckpt"], ssl["best_path"],
                   card=dev["nvidia_smi"])
+    cxr = phase_cxr_head(port, device, card=dev["nvidia_smi"])
+    dual = phase_dual_teacher(port, device, cxr["ckpt_path"],
+                              card=dev["nvidia_smi"])
+    dual_kd = phase_dual_kd(port, device, dual["teacher_ckpt"],
+                            card=dev["nvidia_smi"])
+    dual_model, dual_cfg, _ = port["checkpoint"].load_teacher_from_ckpt(
+        dual["teacher_ckpt"], device)
+    dual_serve = phase_serve(port, device, dual_cfg, n_clients=4,
+                             posts_per_client=3, card=dev["nvidia_smi"],
+                             model=dual_model, name="dual_serve", buckets=())
+    del dual_model
+    shutil.rmtree(DUAL_RUNS, ignore_errors=True)
+    resume = phase_resume(port, device, card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -2629,7 +3077,14 @@ def main() -> int:
     def by_path(name, **earlier):
         return {**earlier, "ssl": n_ssl[name], "ssl_to_teacher": n_s2t[name],
                 "kd": {way: r["launches"][name]
-                       for way, r in kd["runs"].items()}}
+                       for way, r in kd["runs"].items()},
+                "cxr_head": cxr["launches"][name],
+                "dual_teacher": {way: r["launches"][name]
+                                 for way, r in dual["runs"].items()},
+                "dual_kd": {way: r["launches"][name]
+                            for way, r in dual_kd["runs"].items()},
+                "dual_serve": dual_serve["launches"][name],
+                "resume": resume["launches"][name]}
 
     bwd_rows = [
         {"name": f"flash_attention_bwd_{kind}", "route": "cuda",
@@ -2684,7 +3139,12 @@ def main() -> int:
                         "max_abs_err": k1p["max_abs_err"],
                         **{k: k1p[k] for k in (
                             "ms", "library_ms", "fwd_vs_library", "bound_ms",
-                            "tc_bound_ms", "plain_ms")}}},
+                            "tc_bound_ms", "plain_ms")}},
+         "cxr_head": {"case": "cxr_head_f32 [64, 12, 1370, 64]",
+                      **{k: checks["cxr_head_f32"][k] for k in (
+                          "max_abs_err", "ms", "library_ms",
+                          "fwd_vs_library", "bound_ms", "tc_bound_ms",
+                          "plain_ms")}}},
         {"name": "flash_attention_bwd_delta_f32", "route": "cuda",
          "source": K1_BWD_SOURCE, "replaces": K1_DELTA_REPLACES,
          "launches": n_fu["flash_attention_bwd_delta_f32"],
@@ -2763,6 +3223,7 @@ def main() -> int:
         **{k: b[f"delta_{k}"] for k in DELTA_LIBRARY_KEYS},
         "backward_ms": b["backward_ms"],
         "backward_vs_library": b["backward_vs_library"]}
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     emit({"kernels": [
         {"name": "flash_attention_fwd", "route": "cuda", "source": K1_SOURCE,
          "replaces": K1_REPLACES,

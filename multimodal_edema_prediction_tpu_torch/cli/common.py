@@ -107,6 +107,11 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
 
 
 def configs_from_args(args) -> tuple:
+    # every training CLI passes through here: arm the graceful-preemption
+    # handler (SIGTERM → the state saved at the epoch boundary, a clean
+    # exit; utils/preemption.py)
+    from ..utils import preemption
+    preemption.install_handler()
     if args.steps_per_call != 1:
         raise NotImplementedError(
             f"--steps_per_call {args.steps_per_call}: multi-step dispatch is "

@@ -8,7 +8,8 @@
 Writes ``pretrain-step<N>-<val>.msgpack`` (the best val loss, JAX format),
 ``meta_with_stats.pkl`` and, by default, the full train state of every
 epoch into a new run directory under ``--ckpt_dir``; ``--resume_dir``
-continues such a run bit for bit. The teacher starts from the checkpoint
+continues such a run bit for bit; a SIGTERM saves the state at the next
+epoch boundary and exits cleanly. The teacher starts from the checkpoint
 with ``cli.train_teacher --duett_ckpt``. ``--state_backend orbax`` (P16),
 ``--steps_per_call`` > 1 (P10) and the wandb flags (P20) are not ported and
 raise; ``--eval_train_batches`` is accepted and, as in the JAX CLI, unused
@@ -50,6 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_queued_flags(args, COMMON_QUEUED)
+    if args.state_backend == "orbax":
+        raise NotImplementedError("--state_backend orbax is not ported yet "
+                                  "(ROADMAP P16)")
     dcfg, duett, tcfg = configs_from_args(args)
     duett = duett.replace(pretrain_masked_steps=args.pretrain_masked_steps)
     ds, meta, _ = load_data(args, dcfg)

@@ -16,15 +16,14 @@ ViT in every KD step; ``hbm`` caches its tokens per image on the card;
 ``--cxr_feature_store_path``; ``auto`` the card within 8 GB, else the host.
 Writes ``best-step<N>-<auroc>.msgpack`` and, by default, the full train
 state of every epoch into a new run directory under ``--ckpt_dir``;
-``--resume_dir`` continues such a run bit for bit. Refused, naming their
-ROADMAP item: ``--state_backend orbax`` and SIGTERM preemption (P16),
-``--steps_per_call`` > 1 (P10), the wandb flags (P20).
+``--resume_dir`` continues such a run bit for bit; a SIGTERM saves the
+state at the next epoch boundary and exits cleanly. Refused, naming their
+ROADMAP item: ``--state_backend orbax`` (P16), ``--steps_per_call`` > 1
+(P10), the wandb flags (P20).
 """
 from __future__ import annotations
 
 import argparse
-import signal
-import threading
 
 from ..config import StudentConfig
 from ..ops.losses import resolve_kd_loss
@@ -68,13 +67,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_sigterm(signum, frame):
-    raise NotImplementedError(
-        "SIGTERM: graceful preemption (the state saved at the epoch "
-        "boundary) is not ported yet (ROADMAP P16); with --save_state the "
-        "last completed epoch's state is in the run directory")
-
-
 def main(argv=None):
     args = build_parser().parse_args(argv)
     refuse_queued_flags(args, COMMON_QUEUED)
@@ -91,21 +83,13 @@ def main(argv=None):
                                 head_hidden=args.head_hidden,
                                 head_dropout=args.head_dropout)
     run_dir = args.resume_dir or make_run_dir(args.ckpt_dir, tcfg)
-    main_thread = threading.current_thread() is threading.main_thread()
-    if main_thread:
-        prev = signal.signal(signal.SIGTERM, _refuse_sigterm)
-    try:
-        res = train_student_kd(
-            anchor_ds, student_cfg, args.teacher_ckpt, tcfg, run_dir,
-            device=args.device, ssl_backbone_ckpt=args.duett_ckpt or None,
-            auto_resume=bool(args.resume_dir),
-            save_full_state=args.save_state,
-            state_backend=args.state_backend,
-            feature_cache=args.cxr_feature_cache,
-            feature_store_path=args.cxr_feature_store_path or None)
-    finally:
-        if main_thread:
-            signal.signal(signal.SIGTERM, prev)
+    res = train_student_kd(
+        anchor_ds, student_cfg, args.teacher_ckpt, tcfg, run_dir,
+        device=args.device, ssl_backbone_ckpt=args.duett_ckpt or None,
+        auto_resume=bool(args.resume_dir), save_full_state=args.save_state,
+        state_backend=args.state_backend,
+        feature_cache=args.cxr_feature_cache,
+        feature_store_path=args.cxr_feature_store_path or None)
     print(f"best val AUROC: {res.best_metric:.4f}  ckpt: {res.best_path}",
           flush=True)
     return res

@@ -4,8 +4,11 @@
     python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
         --device cuda --cxr_feature_cache hbm --epochs 30 --batch_size 128
 
-Trains the ``dual_patch`` teacher. With the RAD-DINO branch frozen (the
-default), on the pixel tier (``--cxr_feature_cache none``: the ViT runs in
+Trains the ``dual_patch`` teacher, or with ``--perceiver_type dual
+--pretrained_cxr_head_ckpt <cli.train_cxr_head's cxr_linear_head.msgpack>``
+the ``dual`` one, whose image branch is that frozen CXR linear head on the
+ViT's CLS token. With the RAD-DINO branch frozen (the default), on the
+pixel tier (``--cxr_feature_cache none``: the ViT runs in
 every step) or an encode-once tier (``hbm``: each image is encoded once,
 steps gather cached tokens through K2; ``host``: the tokens stay on the
 host, in RAM or in a disk store at ``--cxr_feature_store_path``; ``auto``:
@@ -17,8 +20,11 @@ RAD-DINO checkpoint (``scripts/convert_rad_dino.py``); ``--duett_ckpt``
 starts the DuETT backbone (weights and BatchNorm statistics) from an SSL
 checkpoint of ``cli.train_ssl``, written by either package.
 ``--eval_train_batches N`` evaluates N train batches after each epoch and
-prints their gap table, as the JAX loop does. Every flag of the JAX CLI
-parses: ``--flash_block_b`` (a TPU tuning knob) is ignored, and the flags
+prints their gap table, as the JAX loop does. By default (``--save_state``)
+the full train state is written into the run directory at every epoch
+boundary; ``--resume_dir <run dir>`` continues such a run bit for bit, and
+a SIGTERM saves the state at the next epoch boundary and exits cleanly.
+Every flag of the JAX CLI parses: ``--flash_block_b`` (a TPU tuning knob) is ignored, and the flags
 of what is not ported yet raise ``NotImplementedError`` naming their
 ROADMAP item.
 
@@ -33,7 +39,7 @@ from ..config import PerceiverConfig, TeacherConfig, ViTConfig
 from ..models.teacher import init_teacher
 from ..models.vit import load_vit_params
 from ..train.ssl_loop import transplant_encoder
-from ..train.teacher_loop import train_teacher
+from ..train.teacher_loop import pretrained_head_spec, train_teacher
 from .common import (COMMON_QUEUED, add_common_flags, add_queued_flags,
                      configs_from_args, load_data, make_run_dir,
                      refuse_queued_flags, sync_duett_with_meta)
@@ -44,8 +50,7 @@ QUEUED_FLAGS = {
     # the other teacher modes and LP mode
     "--n_latents": "P13", "--n_perceiver_layers": "P13",
     "--aux_stage2_alpha": "P13", "--aux_stage4_alpha": "P13",
-    "--use_aux_cxr": "P13", "--aux_cxr_alpha": "P13",
-    "--pretrained_cxr_head_ckpt": "P13", "--lp_ckpt": "P13",
+    "--use_aux_cxr": "P13", "--aux_cxr_alpha": "P13", "--lp_ckpt": "P13",
     "--lp_beta_l2": "P13", "--lp_corr_l2": "P13",
     "--lp_correction_dropout": "P13",
     # the image feed tiers
@@ -89,12 +94,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the host tier's token store as a reusable disk "
                         "memmap at this path (reopened by later runs)")
     p.add_argument("--hbm_feature_budget_gb", type=float, default=8.0)
-    p.add_argument("--resume_dir", type=str, default="")
+    p.add_argument("--pretrained_cxr_head_ckpt", type=str, default="",
+                   help="--perceiver_type dual: the CXR linear head of "
+                        "cli.train_cxr_head (either package's)")
+    p.add_argument("--resume_dir", type=str, default="",
+                   help="existing run directory to continue: restores the "
+                        "full train state saved at the last completed epoch "
+                        "and trains on bit for bit")
     p.add_argument("--state_backend", type=str, default="msgpack",
-                   choices=["msgpack", "orbax"])
+                   choices=["msgpack", "orbax"],
+                   help="'orbax' is not ported yet (ROADMAP P16)")
     p.add_argument("--save_state", action="store_true", default=True,
-                   help="the JAX CLI's full train state every epoch; the "
-                        "port writes none yet (ROADMAP P16) and says so")
+                   help="write the full train state every epoch so that the "
+                        "run resumes with --resume_dir (default on)")
     p.add_argument("--no_save_state", dest="save_state",
                    action="store_false")
     p.add_argument("--flash_block_b", type=int, default=2,
@@ -109,7 +121,6 @@ _QUEUED = (
     ("vit_quant", "int8", "P20"),
     ("lp_only_correction", True, "P13"),
     ("cxr_jpeg_root", None, "P15"),
-    ("resume_dir", None, "P16"),
     ("state_backend", "orbax", "P16"),
 )
 
@@ -126,15 +137,10 @@ def main(argv=None):
         if (got if value is None else got == value):
             raise NotImplementedError(
                 f"--{flag} {got} is not ported yet (ROADMAP {item})")
-    if args.perceiver_type != "dual_patch":
+    if args.perceiver_type not in ("dual_patch", "dual"):
         raise NotImplementedError(
             f"--perceiver_type {args.perceiver_type} is not ported yet "
             "(ROADMAP P13)")
-
-    if args.save_state:
-        print("--save_state: no full train state is written (teacher "
-              "resume is ROADMAP P16); the run keeps its best checkpoint",
-              flush=True)
 
     dcfg, duett, tcfg = configs_from_args(args)
     vit = ViTConfig() if args.vit_size == "base" else ViTConfig(
@@ -151,9 +157,11 @@ def main(argv=None):
         perceiver_type=args.perceiver_type,
         freeze_duett=args.freeze_duett, freeze_cxr=not args.unfreeze_cxr)
 
+    head_ckpt = args.pretrained_cxr_head_ckpt or None
     model = None
     if args.duett_ckpt or args.vit_weights:
-        model = init_teacher(teacher_cfg, tcfg.seed)
+        model = init_teacher(teacher_cfg, tcfg.seed, **pretrained_head_spec(
+            teacher_cfg, head_ckpt, dcfg.pathology_labels))
     if args.duett_ckpt:
         changed = transplant_encoder(args.duett_ckpt, model)
         print(f"DuETT backbone from {args.duett_ckpt} ({len(changed)} keys "
@@ -162,14 +170,17 @@ def main(argv=None):
         model.cxr.load_state_dict(load_vit_params(args.vit_weights,
                                                   teacher_cfg.vit))
         print(f"CXR branch (RAD-DINO) from {args.vit_weights}", flush=True)
-    run_dir = make_run_dir(args.ckpt_dir, tcfg)
+    run_dir = args.resume_dir or make_run_dir(args.ckpt_dir, tcfg)
     res = train_teacher(anchor_ds, teacher_cfg, tcfg, run_dir,
                         dcfg.pathology_labels, model=model,
                         device=args.device,
                         feature_cache=args.cxr_feature_cache,
                         hbm_feature_budget_gb=args.hbm_feature_budget_gb,
                         feature_store_path=args.cxr_feature_store_path
-                        or None)
+                        or None, pretrained_head_ckpt=head_ckpt,
+                        auto_resume=bool(args.resume_dir),
+                        save_full_state=args.save_state,
+                        state_backend=args.state_backend)
     print(f"best val macro fusion AUROC: {res.best_metric:.4f}  "
           f"ckpt: {res.best_path}", flush=True)
     return res

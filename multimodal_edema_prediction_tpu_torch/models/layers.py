@@ -343,11 +343,15 @@ def init_like_flax(model: nn.Module, seed: int,
     initializers (in distribution: ``torch.Generator`` draws are not
     ``jax.random``'s), in the order of ``named_modules``: dense, conv and
     per-variable kernels truncated-normal with variance 1/fan_in (flax
-    ``lecun_normal``), biases zero, norm scales and ``beta`` one, LayerScale
-    ``layerscale_init``, the correction head's output zero, the DuETT
+    ``lecun_normal``; the per-label heads' stacked ``w1 [K, d, H]`` and
+    ``w2 [K, H, 1]`` with fan-in ``d`` and ``H``, flax's
+    ``lecun_normal(batch_axis=(0,))``), biases zero, norm scales and
+    ``beta`` one, LayerScale ``layerscale_init``, the correction head's
+    output zero, the DuETT
     special/rep/event embeddings and count embedding N(0, 1), the queries,
     CLS token and position embedding N(0, 0.02²), BatchNorm statistics
     (0, 1). Returns ``model``."""
+    from .perceiver import StackedLabelHeads
     g = torch.Generator().manual_seed(seed)
 
     def lecun(t, fan_in):
@@ -375,6 +379,9 @@ def init_like_flax(model: nn.Module, seed: int,
                         lecun(t, t.shape[1])
                 elif isinstance(m, PerVariableMLP) and name in ("w1", "w2"):
                     lecun(t, t.shape[0] * t.shape[1])   # flax's fan_in
+                elif isinstance(m, StackedLabelHeads) and name in ("w1",
+                                                                   "w2"):
+                    lecun(t, t.shape[1])    # axis 0 is the batch of heads
                 elif name in ("layerscale1", "layerscale2"):
                     t.fill_(layerscale_init)
                 elif name in ones or (name == "weight" and isinstance(

@@ -1,5 +1,6 @@
-"""Pathology-query Perceiver fusion: the PyTorch counterpart of
-``PatchDualPathologyPerceiver`` and its blocks in
+"""Pathology-query Perceiver fusion: the PyTorch counterparts of
+``PatchDualPathologyPerceiver`` (``dual_patch``), ``DualPathologyPerceiver``
+(``dual``) and their blocks in
 ``multimodal_edema_prediction_tpu/models/perceiver.py``.
 
 Residual fusion rule:
@@ -155,4 +156,85 @@ class PatchDualPathologyPerceiver(nn.Module):
             "fusion_tokens": Tk,
             "ts_correction": corr,
             "scaled_correction": scaled_corr,
+        }
+
+
+class StackedLabelHeads(nn.Module):
+    """K independent per-label MLP heads (the reference ``dual`` perceiver's
+    ``nn.ModuleList([_mk_head() for _ in range(K)])``, :688-694) as
+    stacked parameters, flax's leaves: ``w1 [K, d, H]``, ``b1 [K, H]``,
+    ``w2 [K, H, 1]``, ``b2 [K, 1]``; x [B, K, d] → [B, K] (JAX
+    ``perceiver.py:509-534``)."""
+
+    def __init__(self, n_labels: int, d_in: int, d_hidden: int,
+                 dropout: float = 0.0):
+        super().__init__()
+        self.dropout = dropout
+        self.w1 = nn.Parameter(torch.zeros(n_labels, d_in, d_hidden))
+        self.b1 = nn.Parameter(torch.zeros(n_labels, d_hidden))
+        self.w2 = nn.Parameter(torch.zeros(n_labels, d_hidden, 1))
+        self.b2 = nn.Parameter(torch.zeros(n_labels, 1))
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = x.dtype
+        h = torch.einsum("bkd,kdh->bkh", x, self.w1.to(dt)) + self.b1.to(dt)
+        h = dropout(gelu_exact(h), self.dropout, train, gen)
+        o = torch.einsum("bkh,kho->bko", h, self.w2.to(dt)) + self.b2.to(dt)
+        return o[..., 0]
+
+
+class DualPathologyPerceiver(nn.Module):
+    """``dual`` mode (JAX ``perceiver.py:537-603``, reference :659-741): the
+    image branch is the frozen pretrained CXR head's logits, passed in and
+    detached; K shared queries cross-attend the DuETT tokens; per-label
+    temporal and residual heads; plain additive fusion with no β:
+    ``fusion_logit[k] = img_logit[k] + residual_head_k(T_k)``."""
+
+    def __init__(self, cfg: PerceiverConfig, d_ts: int):
+        super().__init__()
+        self.cfg = cfg
+        K, d = cfg.n_pathologies, cfg.d_latent
+        self.shared_queries = nn.Parameter(torch.zeros(K, d))
+        self.ts_proj = Dense(d_ts, d)
+        self.ts_cross = PerceiverBlock(d, cfg.n_heads, dropout=cfg.dropout)
+        self.ts_self = PerceiverBlock(d, cfg.n_heads, dropout=cfg.dropout)
+        self.temporal_heads = StackedLabelHeads(K, d, cfg.head_hidden,
+                                                cfg.head_dropout)
+        self.residual_heads = StackedLabelHeads(K, d, cfg.head_hidden,
+                                                cfg.head_dropout)
+
+    def forward(self, ts_tokens: torch.Tensor, img_logits: torch.Tensor,
+                ts_ablation: Optional[str] = None, train: bool = False,
+                gen: Optional[torch.Generator] = None) -> dict:
+        cfg = self.cfg
+        abl = ts_ablation or cfg.ts_ablation
+        B = ts_tokens.shape[0]
+        q = self.shared_queries.to(ts_tokens.dtype).expand(
+            B, cfg.n_pathologies, cfg.d_latent)
+        if abl == "full":
+            ts_sel = ts_tokens
+        elif abl == "hourly_only":
+            ts_sel = ts_tokens[:, :-1, :]
+        elif abl == "rep_only":
+            ts_sel = ts_tokens[:, -1:, :]
+        else:
+            raise ValueError(f"unknown ts_ablation {abl!r}; expected one of "
+                             "{'full', 'hourly_only', 'rep_only'}")
+        Tk = self.ts_cross(q, self.ts_proj(ts_sel), train, gen)
+        Tk = self.ts_self(Tk, Tk, train, gen)
+        ts_logits = self.temporal_heads(Tk, train, gen).float()
+        residuals = self.residual_heads(Tk, train, gen).float()
+        img_logits = img_logits.float().detach()
+        return {
+            "img_logits": img_logits,
+            "ts_logits": ts_logits,
+            "fusion_logits": img_logits + residuals,
+            "ts_tokens": Tk,
+            "fusion_tokens": Tk,
+            "residuals": residuals,
+            # the evaluator reads the additive residual as an unscaled
+            # correction
+            "ts_correction": residuals,
+            "scaled_correction": residuals,
         }

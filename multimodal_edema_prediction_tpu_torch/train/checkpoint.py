@@ -11,12 +11,14 @@ encoding). ``_pack`` writes the same subset, so a checkpoint the port saves
 (its weights in the flax layout, ``convert.to_flax``) loads in the JAX
 package's ``load_checkpoint`` and in the port's own loaders.
 
-Full-state resume (the SSL loop's; JAX ``checkpoint.py:100-221``):
-``save_train_state`` writes the weights in the flax layout, the AdamW
-moments in parameter order and the step count to one msgpack file in the
-port's own layout (it does not read a JAX train-state file);
-``FullStateResumer`` adds a JSON sidecar with the loop's bookkeeping and the
-``torch.Generator`` state, so a restarted run continues bit for bit.
+Full-state resume (the teacher, SSL and KD loops'; JAX
+``checkpoint.py:100-221``): ``save_train_state`` writes the weights in the
+flax layout, the AdamW moments in parameter order and the step count to one
+msgpack file in the port's own layout; ``FullStateResumer`` adds a JSON
+sidecar with the loop's bookkeeping and the ``torch.Generator`` state, so a
+restarted run continues bit for bit. A run directory the JAX package wrote
+has the same two file names but an optax tree and a JAX key; the resumer
+refuses it before it loads anything.
 """
 from __future__ import annotations
 
@@ -283,9 +285,11 @@ def load_checkpoint(path: str) -> dict:
 
 
 def load_teacher_from_ckpt(path: str, device="cuda"):
-    """Rebuild the teacher from a JAX checkpoint and its config sidecar (the
-    counterpart of ``train/kd_loop.py::load_teacher_from_ckpt``):
-    (model in eval mode on ``device``, TeacherConfig, raw checkpoint)."""
+    """Rebuild the teacher from a checkpoint of either package and its
+    config sidecar (the counterpart of ``train/kd_loop.py::
+    load_teacher_from_ckpt``): (model in eval mode on ``device``,
+    TeacherConfig, raw checkpoint). A ``dual`` teacher's head width and
+    label index ride the sidecar (JAX ``kd_loop.py:35-49``)."""
     from ..convert import load_flax
     from ..models.teacher import TeacherModel
     from ..utils import resolve_device
@@ -295,8 +299,11 @@ def load_teacher_from_ckpt(path: str, device="cuda"):
     if "config" not in ckpt:
         raise ValueError(f"{path} has no config sidecar")
     tcfg = TeacherConfig.from_dict(ckpt["config"]["model"])
-    model = load_flax(TeacherModel(tcfg), ckpt["params"],
-                      ckpt["batch_stats"])
+    keep = ckpt["config"].get("static_keep_idx")
+    model = TeacherModel(
+        tcfg, int(ckpt["config"].get("n_pretrained_labels", 7)),
+        static_keep_idx=None if keep is None else tuple(keep))
+    model = load_flax(model, ckpt["params"], ckpt["batch_stats"])
     return model.to(dev).eval(), tcfg, ckpt
 
 
@@ -386,7 +393,7 @@ class FullStateResumer:
     (``save_train_state``) plus a JSON sidecar with the early-stop
     watermark, the best-checkpoint tracker's entries, the history, the step
     count and the ``torch.Generator`` state. The orbax backend is ROADMAP
-    P16."""
+    P16 (the port may not import orbax)."""
 
     def __init__(self, ckpt_dir: str, backend: str = "msgpack"):
         if backend == "orbax":
@@ -406,6 +413,14 @@ class FullStateResumer:
             return None
         with open(self.meta_path) as f:
             meta = json.load(f)
+        if not isinstance(meta.get("rng"), str):
+            # the JAX package keeps its step key as a list of uint32 and
+            # its optimizer state as an optax tree
+            raise ValueError(
+                f"{self.ckpt_dir} holds a train state written by the JAX "
+                "package (multimodal_edema_prediction_tpu: a JAX key and an "
+                "optax tree), which this package cannot resume; start a new "
+                "run from its best checkpoint instead")
         load_train_state(self.state_path, state)
         return meta
 

@@ -65,11 +65,13 @@ def _prep_inputs(grid, static, batch, n_timesteps, dtype, gen=None,
 def _cxr_inputs(batch, image_source, feature_source, dtype):
     """(pixels, cxr_feats) for the teacher forward: the encode-once tier
     (``feature_source``) replaces the frozen-ViT forward with a cached-token
-    gather; otherwise pixels flow to the in-step ViT."""
+    gather (patches None from a CLS-only source, which a ``dual`` teacher
+    takes); otherwise pixels flow to the in-step ViT."""
     if feature_source is None:
         return image_source(batch).to(dtype), None
     cls, patches = feature_source(batch)
-    return None, (cls.to(dtype), patches.to(dtype))
+    return None, (cls.to(dtype),
+                  None if patches is None else patches.to(dtype))
 
 
 def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,

@@ -24,10 +24,11 @@ needs no teacher and no image.
 
 With ``save_full_state`` the full train state is saved at every epoch
 boundary (msgpack, ``FullStateResumer``) and ``auto_resume`` continues from
-it bit for bit. Not ported, each refused naming its ROADMAP item:
-multi-step dispatch (``steps_per_call > 1``, P10), the orbax backend (P16),
-more than one process (P18); graceful SIGTERM preemption (P16) is refused
-by ``cli/train_student.py``.
+it bit for bit; a SIGTERM (``utils/preemption.py``) saves it at the next
+boundary and ends the call cleanly. The teacher may be ``dual_patch`` or
+``dual`` (the reference distills only from ``dual``). Not ported, each
+refused naming its ROADMAP item: multi-step dispatch (``steps_per_call >
+1``, P10), the orbax backend (P16), more than one process (P18).
 """
 from __future__ import annotations
 
@@ -40,7 +41,7 @@ import torch
 from ..config import StudentConfig, TrainConfig
 from ..data.pipeline import AnchorDataset
 from ..models.student import StudentModel, init_student
-from ..utils import resolve_device
+from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer,
                          load_student_from_ckpt, load_teacher_from_ckpt)
@@ -199,9 +200,14 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
         log(f"epoch {epoch:3d}  loss={run['total'] / nb:.4f} "
             f"(bce={run['bce'] / nb:.3f} kd={run['kd'] / nb:.3f})  "
             f"val_auroc={val['auroc']:.4f}{'  *' if improved else ''}")
-        if save_full_state:
+        preempted = preemption.requested()
+        if save_full_state or preempted:
             resumer.save(state, epoch, stopper, tracker, history, n_steps,
                          gen)
+        if preempted:
+            log(f"SIGTERM/preemption at epoch {epoch}: state saved; resume "
+                "with auto_resume / --resume_dir")
+            break
         if stopper.should_stop:
             break
         if stop_after_epochs is not None \

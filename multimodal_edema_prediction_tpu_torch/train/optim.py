@@ -17,8 +17,8 @@ before the update; weight decay applies to every trainable parameter; with
 ``grad_clip > 0`` each group's gradients are clipped by the global norm of
 that group alone. Frozen parameters get no update and no decay, and stop
 requiring gradients. The Adam state lives beside the parameters (two
-float32 tensors each); ``state_dict`` hands it to the SSL loop's full-state
-checkpoint (the teacher loop's resume is ROADMAP P16).
+float32 tensors each); ``state_dict`` hands it to the loops' full-state
+checkpoint (``train/checkpoint.py::FullStateResumer``).
 
 SSL pretraining (``ssl_loop.py:82-85``) takes one group over every
 parameter: ``MultiGroupAdamW.one_group`` with ``invsqrt_warmup``, behind

@@ -9,9 +9,10 @@ global norm, the best checkpoint by the lowest val loss (JAX format, prefix
 the checkpoints: the contract every later stage reads. With
 ``save_full_state`` the full train state is saved at every epoch boundary
 (msgpack, ``FullStateResumer``), and ``auto_resume`` continues from it bit
-for bit. Single process. Not ported, each named by its ROADMAP item:
-multi-step dispatch (``steps_per_call > 1``, P10), SIGTERM preemption and
-the orbax backend (P16), multi-process (P18).
+for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
+and ends the call cleanly. Single process. Not ported, each named by its
+ROADMAP item: multi-step dispatch (``steps_per_call > 1``, P10), the orbax
+backend (P16), multi-process (P18).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import torch
 from ..config import DuettConfig, TrainConfig
 from ..data.sliding import SlidingSSLDataset
 from ..models.duett import DuettPretrainModel, init_pretrain_model
-from ..utils import resolve_device
+from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer, load_checkpoint,
                          restore_tolerant)
@@ -127,9 +128,14 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
                         "val_loss": val_loss})
         log(f"epoch {epoch:3d}  train={train_loss:.4f}  val={val_loss:.4f}"
             f"{'  *' if improved else ''}")
-        if save_full_state:
+        preempted = preemption.requested()
+        if save_full_state or preempted:
             resumer.save(state, epoch, stopper, tracker, history, n_steps,
                          gen)
+        if preempted:
+            log(f"SIGTERM/preemption at epoch {epoch}: state saved; resume "
+                "with auto_resume / --resume_dir")
+            break
         if stopper.should_stop:
             break
         if stop_after_epochs is not None \

@@ -1,4 +1,5 @@
-"""Teacher training loop (``dual_patch``): the port's counterpart of
+"""Teacher training loop (``dual_patch`` and ``dual``): the port's
+counterpart of
 ``multimodal_edema_prediction_tpu/train/teacher_loop.py::train_teacher``
 (reference ``training_duett/trainer.py:216-764``).
 
@@ -19,14 +20,29 @@ kernel runs for them in the step; ``"auto"`` takes the bank when it fits
 ``hbm_feature_budget_gb``, else the host store. With ``freeze_cxr=False``
 the ViT trains inside every step on pixels (its attention's gradient
 through K1's backward kernels), so only ``feature_cache="none"`` is legal.
-Single process only. Not ported yet, each named by its ROADMAP item: LP
-mode and the other perceiver modes (P13), full-state resume (P16),
-multi-process (P18).
+
+``dual`` takes the frozen CXR linear head of ``pretrained_head_ckpt``
+(``train/cxr_head_loop.py``) as its image branch: the head's labels are
+mapped onto the pathology order (``static_keep_idx``), its weights loaded
+and left out of the optimizer, and both facts written into the
+checkpoint's config sidecar. Its cached tiers hand the step the CLS token
+alone (one K2 gather a step on ``hbm``).
+
+Full-state resume and preemption (JAX ``teacher_loop.py:400-413,
+:692-710``): with ``save_full_state`` the train state (weights, AdamW
+moments, step count, the step generator and the loop's bookkeeping) is
+saved at every epoch boundary, and ``auto_resume`` continues from it bit
+for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
+and ends the call cleanly; ``stop_after_epochs`` pauses after that many
+epochs of one call. Single process only. Not ported yet, each named by its
+ROADMAP item: LP mode and the other perceiver modes (P13), the orbax state
+backend (P16), multi-process (P18).
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,9 +54,11 @@ from ..data.pipeline import AnchorDataset
 from ..data.synthetic import synthetic_image_batch
 from ..models.teacher import TeacherModel, init_teacher
 from ..models.vit import IMAGE_MEAN, IMAGE_STD
-from ..utils import resolve_device
+from ..utils import preemption, resolve_device
 from . import engine
-from .checkpoint import BestKTracker, load_teacher_from_ckpt
+from .checkpoint import (BestKTracker, FullStateResumer, load_checkpoint,
+                         load_teacher_from_ckpt)
+from .cxr_head_loop import load_cxr_head_into_teacher
 from .evaluator import (evaluate_dual_pathology,
                         format_dual_pathology_gap_table)
 from .loops import EarlyStopper, TrainResult
@@ -72,15 +90,41 @@ def teacher_frozen_prefixes(cfg: TeacherConfig) -> tuple:
         frozen.append("cxr/")
     if cfg.freeze_duett:
         frozen.append("duett/")
+    if cfg.perceiver_type == "dual":
+        frozen.append("pretrained_cxr_head/")
     return tuple(frozen)
 
 
 def check_ported(cfg: TeacherConfig) -> None:
     """Raise on what the port cannot train yet, on every device."""
-    if cfg.perceiver_type != "dual_patch":
+    if cfg.perceiver_type not in ("dual_patch", "dual"):
         raise NotImplementedError(
             f"perceiver_type={cfg.perceiver_type!r} is not ported yet "
-            "(ROADMAP P13); the port trains 'dual_patch'")
+            "(ROADMAP P13); the port trains 'dual_patch' and 'dual'")
+
+
+def pretrained_head_spec(cfg: TeacherConfig,
+                         pretrained_head_ckpt: Optional[str],
+                         pathology_labels: Sequence[str]) -> dict:
+    """``TeacherModel``'s ``n_pretrained_labels`` and ``static_keep_idx``
+    for a ``dual`` teacher (JAX ``teacher_loop.py:188-197``): the head
+    checkpoint's width and, for each pathology label, its column there;
+    without a checkpoint, one column per pathology label in order. {} for
+    the other modes."""
+    if cfg.perceiver_type != "dual":
+        return {}
+    if not pretrained_head_ckpt:
+        return {"n_pretrained_labels": len(pathology_labels),
+                "static_keep_idx": None}
+    labels = list(load_checkpoint(pretrained_head_ckpt)["config"]
+                  ["label_cols"])
+    missing = [lab for lab in pathology_labels if lab not in labels]
+    if missing:
+        raise ValueError(f"pretrained CXR head missing labels: {missing}; "
+                         f"has {labels}")
+    return {"n_pretrained_labels": len(labels),
+            "static_keep_idx": tuple(labels.index(lab)
+                                     for lab in pathology_labels)}
 
 
 def pixels_for_ids_fn(dataset: AnchorDataset, image_hook
@@ -112,8 +156,9 @@ def build_feature_tier(model, dataset: AnchorDataset, image_hook, dtype,
     of the dataset encoded once through ``model``'s ViT, into a bank on the
     card ("hbm", or "auto" within ``hbm_feature_budget_gb``) or a host
     store (otherwise; a disk memmap at ``feature_store_path``, reopened
-    when its fingerprint matches). Sets ``dataset.batch_hook`` to the
-    tier's hook; returns (the step's feature source, {"tier", "n_images",
+    when its fingerprint matches). A ``dual`` teacher's tier hands the
+    step the CLS token alone. Sets ``dataset.batch_hook`` to the tier's
+    hook; returns (the step's feature source, {"tier", "n_images",
     "bytes", "build_s"})."""
     all_ids, pixels_for_ids = pixels_for_ids_fn(dataset, image_hook)
     vit = model.cfg.vit
@@ -125,18 +170,19 @@ def build_feature_tier(model, dataset: AnchorDataset, image_hook, dtype,
     on_card = feature_cache == "hbm" or (
         feature_cache == "auto" and nbytes <= hbm_feature_budget_gb * 2 ** 30)
     encode = encode_fn_for_teacher(model, dtype)
+    cls_only = model.cfg.perceiver_type == "dual"
     t0 = time.perf_counter()
     if on_card:
         bank = CXRFeatureBank.build(encode, pixels_for_ids, all_ids,
                                     out_dtype=out_dtype)
         dataset.batch_hook = bank.host_fn()
-        source, tier = bank.feature_source(), "hbm"
+        source, tier = bank.feature_source(cls_only=cls_only), "hbm"
         where = f"token bank on {device}"
     else:
         store = HostFeatureStore.build(encode, pixels_for_ids, all_ids,
                                        path=feature_store_path,
                                        out_dtype=out_dtype)
-        dataset.batch_hook = store.host_fn()
+        dataset.batch_hook = store.host_fn(cls_only=cls_only)
         source, tier = features_from_batch, "host"
         where = (f"disk memmap token store at {feature_store_path}"
                  if feature_store_path else "host-RAM token store")
@@ -162,6 +208,11 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                   feature_cache: str = "none",
                   hbm_feature_budget_gb: float = 8.0,
                   feature_store_path: Optional[str] = None,
+                  pretrained_head_ckpt: Optional[str] = None,
+                  auto_resume: bool = False,
+                  save_full_state: Optional[bool] = None,
+                  state_backend: str = "msgpack",
+                  stop_after_epochs: Optional[int] = None,
                   log: Callable[[str], None] = print) -> TrainResult:
     """Train the teacher; returns the best val macro fusion AUROC, its
     checkpoint, the per-epoch history and the test metrics.
@@ -174,7 +225,14 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     the synthetic cohort's procedural images); the pixel tier runs it on
     every batch, the encode-once tier once per unique image.
     ``feature_store_path``: where the host tier keeps its disk store (RAM
-    when None)."""
+    when None).
+    ``pretrained_head_ckpt`` (``dual``): the CXR linear head's checkpoint,
+    written by either package's CXR-head stage; a given ``model`` must
+    match ``pretrained_head_spec``.
+    ``auto_resume``: continue from the full train state in ``ckpt_dir``,
+    if there is one; ``save_full_state`` (default: ``auto_resume``) saves
+    it at every epoch boundary; ``stop_after_epochs`` ends this call after
+    that many epochs (the schedule still spans ``cfg.epochs``)."""
     check_ported(teacher_cfg)
     if feature_cache not in ("none", "auto", "hbm", "host"):
         raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
@@ -182,10 +240,24 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         raise ValueError(
             "feature_cache requires freeze_cxr=True: cached ViT tokens are "
             "constants, so a trainable CXR branch would never update")
+    if save_full_state is None:
+        save_full_state = auto_resume
+    resumer = FullStateResumer(ckpt_dir, state_backend)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
+    head = pretrained_head_spec(teacher_cfg, pretrained_head_ckpt,
+                                pathology_labels)
     if model is None:
-        model = init_teacher(teacher_cfg, cfg.seed)
+        model = init_teacher(teacher_cfg, cfg.seed, **head)
+    elif head and (model.static_keep_idx != head["static_keep_idx"] or
+                   model.pretrained_cxr_head.linear.weight.shape[0]
+                   != head["n_pretrained_labels"]):
+        raise ValueError(f"the given dual teacher does not fit its head "
+                         f"checkpoint: {head}")
+    if pretrained_head_ckpt and head:
+        load_cxr_head_into_teacher(pretrained_head_ckpt, model)
+        log(f"[dual] pretrained head {pretrained_head_ckpt}: "
+            f"keep_idx={head['static_keep_idx']}")
     model = model.to(dev)
     dataset.to(dev)
     T = dataset.n_timesteps
@@ -223,7 +295,9 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         return loop_eval(m, grid, static, batch)
 
     def run_eval(m, split: str, limit: int = 0):
-        beta = m.perceiver.beta.detach().cpu().numpy()
+        # 'dual' fuses additively, with no beta (JAX teacher_loop.py:604-606)
+        beta = m.perceiver.beta.detach().cpu().numpy() \
+            if teacher_cfg.perceiver_type == "dual_patch" else None
         t0 = time.perf_counter()
         r = evaluate_dual_pathology(eval_step, m, dataset, split,
                                     cfg.batch_size, pathology_labels, beta,
@@ -236,15 +310,29 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         loss_keys += ("aux_residual",)
     stopper = EarlyStopper(cfg.patience, mode="max")
     tracker = BestKTracker(ckpt_dir, k=1, mode="max", prefix="best")
-    history: List[dict] = []
+    # the step generator: dropout and augmentation; saved with the state
     gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
     cfg_dict = {"model": teacher_cfg.to_dict(), "train": cfg.to_dict(),
                 "pathology_labels": list(pathology_labels)}
+    if head:
+        # not recoverable from the weights (JAX teacher_loop.py:513-518)
+        cfg_dict["n_pretrained_labels"] = head["n_pretrained_labels"]
+        if head["static_keep_idx"] is not None:
+            cfg_dict["static_keep_idx"] = list(head["static_keep_idx"])
     best_val_outputs = None
-    n_steps = 0
+    history, start_epoch, n_steps = [], 0, 0
+    if auto_resume:
+        meta = resumer.restore(state)
+        if meta is not None:
+            start_epoch, history, n_steps = resumer.apply_meta(
+                meta, stopper, tracker, gen)
+            log(f"[resume:{state_backend}] restored epoch {meta['epoch']} "
+                f"from {ckpt_dir}; continuing at epoch {start_epoch}")
+    resumed_steps = n_steps
     phase["train"] = 0.0
+    saves = []
     t_start = time.perf_counter()
-    for epoch in range(cfg.epochs):
+    for epoch in range(start_epoch, cfg.epochs):
         acc, nb = None, 0
         t0 = time.perf_counter()
         for b in dataset.iter_batches("train", cfg.batch_size, shuffle=True,
@@ -257,6 +345,10 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
             acc = cur if acc is None else acc + cur
             nb += 1
             n_steps += 1
+            if n_steps == resumed_steps + 1:
+                _sync(dev)
+                log(f"step {n_steps} done ({time.perf_counter() - t0:.2f}s "
+                    "after the epoch began)")
         # one host sync per epoch
         sums = acc.tolist() if acc is not None else [0.0] * len(loss_keys)
         phase["train"] += time.perf_counter() - t0
@@ -290,8 +382,23 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                 tr["main_auroc"] - val_metric
             log("train-subset gap table:\n"
                 + format_dual_pathology_gap_table(tr))
+        preempted = preemption.requested()
+        if save_full_state or preempted:
+            t0 = time.perf_counter()
+            resumer.save(state, epoch, stopper, tracker, history, n_steps,
+                         gen)
+            saves.append(time.perf_counter() - t0)
+        if preempted:
+            log(f"SIGTERM/preemption at epoch {epoch}: state saved; resume "
+                "with auto_resume / --resume_dir")
+            break
         if stopper.should_stop:
             log(f"early stop at epoch {epoch}")
+            break
+        if stop_after_epochs is not None \
+                and epoch + 1 - start_epoch >= stop_after_epochs:
+            log(f"pausing after {stop_after_epochs} epochs of this call "
+                "(resume with auto_resume)")
             break
     elapsed = time.perf_counter() - t_start
 
@@ -302,14 +409,18 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     log(f"test: main AUROC={test['main_auroc']:.4f}\n"
         + format_dual_pathology_gap_table(test))
 
-    sps = n_steps / max(elapsed, 1e-9)
+    ran = n_steps - resumed_steps
+    sps = ran / max(elapsed, 1e-9)
     test_metrics = {k: test[k] for k in ("main_auroc", "main_auprc",
                                          "per_label")}
     return TrainResult(
         best_metric=best_metric, best_path=best_path, history=history,
         test_metrics=test_metrics, steps_per_sec=sps,
         samples_per_sec=sps * cfg.batch_size,
-        extras={"phase_seconds": phase, "n_train_steps": n_steps,
+        extras={"phase_seconds": phase, "n_train_steps": ran,
+                "start_epoch": start_epoch, "state_save_s": saves,
+                "state_bytes": (os.path.getsize(resumer.state_path)
+                                if saves else 0),
                 "feature_tier": tier,
                 "n_eval_steps": n_eval[0],
                 "best_val_outputs": best_val_outputs,

@@ -1,4 +1,5 @@
-"""Device selection shared by the port's entry points."""
+"""Device selection shared by the port's entry points; graceful preemption
+is ``utils/preemption.py``."""
 from __future__ import annotations
 
 import torch

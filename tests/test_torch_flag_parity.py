@@ -1,7 +1,8 @@
 """Fault F3: every flag of the JAX package's CLIs parses in the port's.
 
 The JAX parsers of ``cli/train_teacher``, ``cli/train_ssl``,
-``cli/train_student`` and ``cli/serve`` are collected by intercepting
+``cli/train_student``, ``cli/train_cxr_head`` and ``cli/serve`` are
+collected by intercepting
 ``parse_args``, as ``tests/test_flag_parity.py:39-64`` collects the
 reference's. Each of their
 flags is either accepted by the port with the JAX default, or listed in
@@ -14,15 +15,19 @@ train-subset evaluation and its gap table.
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import pytest
 
 from multimodal_edema_prediction_tpu.cli import serve as jax_serve
+from multimodal_edema_prediction_tpu.cli import train_cxr_head as jax_cxr_head
 from multimodal_edema_prediction_tpu.cli import train_ssl as jax_ssl
 from multimodal_edema_prediction_tpu.cli import train_student as jax_student
 from multimodal_edema_prediction_tpu.cli import train_teacher as jax_teacher
-from multimodal_edema_prediction_tpu_torch.cli import serve, train_ssl
+from multimodal_edema_prediction_tpu_torch.cli import (serve,
+                                                       train_cxr_head,
+                                                       train_ssl)
 from multimodal_edema_prediction_tpu_torch.cli import (train_student,
                                                        train_teacher)
 from multimodal_edema_prediction_tpu_torch.train.teacher_loop import \
@@ -31,14 +36,14 @@ from multimodal_edema_prediction_tpu_torch.train.teacher_loop import \
 CLIS = {"train_teacher": (jax_teacher, train_teacher),
         "train_ssl": (jax_ssl, train_ssl),
         "train_student": (jax_student, train_student),
+        "train_cxr_head": (jax_cxr_head, train_cxr_head),
         "serve": (jax_serve, serve)}
 # what a CLI needs before the flag under test (serve's --ckpt and the
 # student's --teacher_ckpt are required)
 REQUIRED = {"serve": ["--ckpt", "x.msgpack"],
             "train_student": ["--teacher_ckpt", "x.msgpack"]}
 # ... and the port's training CLIs would otherwise default to the card
-BASE = {cli: REQUIRED.get(cli, []) + ["--device", "cpu"]
-        for cli in ("train_teacher", "train_ssl", "train_student", "serve")}
+BASE = {cli: REQUIRED.get(cli, []) + ["--device", "cpu"] for cli in CLIS}
 
 _LOGGING = {"--log_every": "P20", "--wandb_project": "P20",
             "--wandb_run_name": "P20", "--wandb_disabled": "P20"}
@@ -48,8 +53,7 @@ WAIVERS = {
         **_LOGGING,
         "--n_latents": "P13", "--n_perceiver_layers": "P13",
         "--aux_stage2_alpha": "P13", "--aux_stage4_alpha": "P13",
-        "--use_aux_cxr": "P13", "--aux_cxr_alpha": "P13",
-        "--pretrained_cxr_head_ckpt": "P13", "--lp_ckpt": "P13",
+        "--use_aux_cxr": "P13", "--aux_cxr_alpha": "P13", "--lp_ckpt": "P13",
         "--lp_beta_l2": "P13", "--lp_corr_l2": "P13",
         "--lp_correction_dropout": "P13",
         "--image_bank": "P15", "--hbm_image_budget_gb": "P15",
@@ -57,6 +61,7 @@ WAIVERS = {
         "--grad_diag_every": "P19", "--grad_diag_batches": "P19"},
     "train_ssl": dict(_LOGGING),
     "train_student": dict(_LOGGING),
+    "train_cxr_head": {},
     "serve": {"--cxr_jpeg_root": "P17", "--data_parallel": "P17",
               "--aot_dir": "P17"},
 }
@@ -148,14 +153,22 @@ def test_accepted_flags_reach_the_configs(cli):
 
 @pytest.mark.parametrize("extra,says", [([], True), (["--no_save_state"],
                                                      False)])
-def test_save_state_default_says_no_state_is_written(extra, says, capsys):
-    """Until teacher resume lands (P16) the default ``--save_state`` says
-    once, at start, that no full state is written."""
-    with pytest.raises(NotImplementedError, match="P10"):
-        train_teacher.main(["--device", "cpu", "--steps_per_call", "2"]
-                           + extra)
-    out = capsys.readouterr().out
-    assert out.count("no full train state is written") == int(says)
+def test_save_state_default_says_no_state_is_written(extra, says, capsys,
+                                                     tmp_path):
+    """``--save_state`` (the JAX default) now writes the full train state
+    into the run directory, which ``--resume_dir`` continues;
+    ``--no_save_state`` writes none; neither prints the note that stood
+    here before teacher resume was ported."""
+    train_teacher.main(["--device", "cpu", "--vit_size", "tiny",
+                        "--synthetic_stays", "40", "--batch_size", "16",
+                        "--epochs", "1", "--limit_batches", "1",
+                        "--cxr_feature_cache", "hbm",
+                        "--ckpt_dir", str(tmp_path)] + extra)
+    assert "no full train state is written" not in capsys.readouterr().out
+    (run_dir,) = [tmp_path / d for d in os.listdir(tmp_path)]
+    files = set(os.listdir(run_dir))
+    assert ({"train_state.msgpack", "train_state.meta.json"} <= files) \
+        == says
 
 
 def test_eval_train_batches_on_the_cpu_teacher_loop(tmp_path, capsys):

@@ -35,7 +35,9 @@ def test_imports_bring_in_no_jax():
                  "ops.dual_axis", "ops.ln_qkv", "data.features",
                  "data.sliding", "train.teacher_loop", "train.ssl_loop",
                  "cli.train_teacher", "cli.train_ssl", "models.student",
-                 "train.kd_loop", "cli.train_student"):
+                 "train.kd_loop", "cli.train_student", "utils.preemption",
+                 "models.cxr_head", "train.cxr_head_loop",
+                 "cli.train_cxr_head"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

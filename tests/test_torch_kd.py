@@ -88,6 +88,7 @@ JTCFG = JTeacher(
              d_feedforward=64),
     perceiver=JPerc(n_pathologies=7, d_latent=32, n_heads=2, dropout=0.0,
                     head_dropout=0.0, head_hidden=16))
+JTCFG_DUAL = JTCFG.replace(perceiver_type="dual")
 JSCFG = JStudent(duett=DUETT, head_hidden=32, head_dropout=0.0)
 KD = dict(kd_T=3.0, kd_alpha=0.4)
 CPU = torch.device("cpu")
@@ -183,17 +184,22 @@ def step_setup():
                                      batch["bin_ends"][:2], pixels[:2])
     sparams, sstats = init_perturbed(JS(JSCFG), x_in, static[:2],
                                      batch["bin_ends"][:2], seed=3)
+    dparams, dstats = init_perturbed(JT(JTCFG_DUAL), x_in, static[:2],
+                                     batch["bin_ends"][:2], pixels[:2],
+                                     seed=4)
     return dict(pixels=pixels, grid=grid, static=static, batch=batch,
                 tparams=tparams, tstats=tstats, sparams=sparams,
-                sstats=sstats)
+                sstats=sstats, dual=dict(tparams=dparams, tstats=dstats))
 
 
 TRAIN_STEP = dict(dtype="float32", optim=dict(lr=2e-2, warmup_steps=2,
                                               weight_decay=1e-2), **KD)
 
 
-def _jax_kd_step(s, tier):
-    jteacher = JT(JTCFG)
+def _jax_kd_step(s, tier, jtcfg=JTCFG):
+    if jtcfg.perceiver_type == "dual":
+        s = {**s, **s["dual"]}
+    jteacher = JT(jtcfg)
     tx = optax.chain(_recorder(), make_optimizer(
         JOptim(**TRAIN_STEP["optim"]), 10))
     state = JState.create(s["sparams"], s["sstats"], tx)
@@ -214,9 +220,12 @@ def _jax_kd_step(s, tier):
                                      new.batch_stats))
 
 
-def _port_kd_step(s, tier):
+def _port_kd_step(s, tier, jtcfg=JTCFG):
+    dual = jtcfg.perceiver_type == "dual"
+    if dual:
+        s = {**s, **s["dual"]}
     teacher = load_flax(TeacherModel(TeacherConfig.from_dict(
-        JTCFG.to_dict())), s["tparams"], s["tstats"]).eval()
+        jtcfg.to_dict())), s["tparams"], s["tstats"]).eval()
     teacher.requires_grad_(False)
     before = {k: v.clone() for k, v in teacher.state_dict().items()}
     student = load_flax(StudentModel(StudentConfig.from_dict(
@@ -228,7 +237,7 @@ def _port_kd_step(s, tier):
         fs = F.CXRFeatureBank.build(
             F.encode_fn_for_teacher(teacher, torch.float32),
             lambda ids: s["pixels"][np.asarray(ids)], np.arange(N_IMG),
-            out_dtype=torch.float32).feature_source()
+            out_dtype=torch.float32).feature_source(cls_only=dual)
     step = engine.make_kd_step(cfg, StudentConfig.from_dict(
         JSCFG.to_dict()).duett, T_, torch.float32,
         image_source=lambda b: b["pixel_values"], feature_source=fs)
@@ -244,8 +253,20 @@ def _port_kd_step(s, tier):
 
 @pytest.mark.parametrize("tier", ["pixels", "features"])
 def test_kd_step_matches_jax(step_setup, tier):
-    want, jgrads, jparams, jstats = _jax_kd_step(step_setup, tier)
-    got, student = _port_kd_step(step_setup, tier)
+    _check_kd_step(step_setup, tier, JTCFG)
+
+
+@pytest.mark.parametrize("tier", ["pixels", "features"])
+def test_kd_step_from_a_dual_teacher_matches_jax(step_setup, tier):
+    """The reference distills from a ``dual`` teacher (its CXR head's
+    logits as the image branch): the same step, held as the one above; on
+    the features tier the teacher reads the CLS bank alone."""
+    _check_kd_step(step_setup, tier, JTCFG_DUAL)
+
+
+def _check_kd_step(step_setup, tier, jtcfg):
+    want, jgrads, jparams, jstats = _jax_kd_step(step_setup, tier, jtcfg)
+    got, student = _port_kd_step(step_setup, tier, jtcfg)
     for k in ("total", "bce", "kd", "logits"):
         np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-5,
                                    atol=1e-5, err_msg=k)
@@ -462,16 +483,17 @@ def test_kd_loop_refuses_what_is_not_ported(teacher_ckpt, tmp_path,
         K.train_student_kd(None, scfg, teacher_ckpt, cfg, str(tmp_path),
                            device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
-    # a teacher of another mode (its sidecar says so) raises naming P13
-    dual = str(tmp_path / "dual.msgpack")
-    shutil.copy(teacher_ckpt, dual)
+    # a teacher of a mode not ported yet (its sidecar says so) raises
+    # naming P13 ('dual' distills: test_kd_step_from_a_dual_teacher_...)
+    single = str(tmp_path / "single.msgpack")
+    shutil.copy(teacher_ckpt, single)
     with open(teacher_ckpt + ".config.json") as f:
         sidecar = json.load(f)
-    sidecar["model"]["perceiver_type"] = "dual"
-    with open(dual + ".config.json", "w") as f:
+    sidecar["model"]["perceiver_type"] = "single"
+    with open(single + ".config.json", "w") as f:
         json.dump(sidecar, f)
     with pytest.raises(NotImplementedError, match="P13"):
-        K.train_student_kd(None, scfg, dual, cfg, str(tmp_path),
+        K.train_student_kd(None, scfg, single, cfg, str(tmp_path),
                            device="cpu")
 
 
@@ -534,20 +556,33 @@ def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path):
 
 
 def test_cli_refuses_sigterm_naming_its_item(chain, monkeypatch):
-    """SIGTERM during the run raises naming P16 (no state is saved at the
-    boundary yet); the previous handler is back afterwards."""
+    """SIGTERM during the run no longer raises: the CLI arms the graceful
+    handler (``utils/preemption.py``), which turns the signal into the flag
+    the loop reads at the epoch boundary, and the run returns normally
+    (the loop's save and resume: ``tests/test_torch_resume.py``)."""
+    from multimodal_edema_prediction_tpu_torch.utils import preemption
     _, teacher_path, common, root = chain
-    prev = signal.getsignal(signal.SIGTERM)
+    prev = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGUSR1)}
+    installed = preemption._installed
+    seen = []
 
     def killed(*a, **k):
         os.kill(os.getpid(), signal.SIGTERM)
-        raise AssertionError("SIGTERM did not stop the run")
+        seen.append(preemption.requested())
+        return K.TrainResult(best_metric=0.5, best_path="x", history=[],
+                             test_metrics={}, steps_per_sec=0.0,
+                             samples_per_sec=0.0)
 
     monkeypatch.setattr(cli, "train_student_kd", killed)
-    with pytest.raises(NotImplementedError, match="SIGTERM.*P16"):
-        cli.main(common + ["--teacher_ckpt", teacher_path,
-                           "--ckpt_dir", str(root / "killed")])
-    assert signal.getsignal(signal.SIGTERM) is prev
+    try:
+        res = cli.main(common + ["--teacher_ckpt", teacher_path,
+                                 "--ckpt_dir", str(root / "killed")])
+    finally:
+        preemption.clear()
+        for s, h in prev.items():
+            signal.signal(s, h)
+        preemption._installed = installed
+    assert seen == [True] and res.best_metric == 0.5
 
 
 def test_cli_device_default_is_cuda(chain, tmp_path):

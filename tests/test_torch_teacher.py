@@ -103,8 +103,7 @@ def test_feats_to_input_used_by_eval(pair):
     np.testing.assert_array_equal(x_in.numpy(), pair["x_in"])
 
 
-@pytest.mark.parametrize("mode", ["dual", "single", "legacy",
-                                  "dual_patch_event"])
+@pytest.mark.parametrize("mode", ["single", "legacy", "dual_patch_event"])
 def test_other_modes_are_queued(mode):
     cfg = TeacherConfig.from_dict({**_jcfg().to_dict(),
                                    "perceiver_type": mode})

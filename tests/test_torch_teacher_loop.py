@@ -1,7 +1,8 @@
 """The port's teacher loop (``train/teacher_loop.py::train_teacher``) against
 the JAX package's, end to end on the encode-once tier; what the loop and
 the CLI refuse; and the CLI training the ViT (``--unfreeze_cxr``) on the
-pixel tier.
+pixel tier. (The ``dual`` mode's loop is ``tests/test_torch_dual.py``'s,
+resume and preemption ``tests/test_torch_resume.py``'s.)
 
 Both loops start from the same converted weights on the same synthetic
 cohort, with ``feature_cache="hbm"``, float32, dropout and augmentation off,
@@ -121,7 +122,9 @@ def _tiny(**kw):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"perceiver_type": "dual"}, "P13")])
+    ({"perceiver_type": "single"}, "P13"),
+    ({"perceiver_type": "legacy"}, "P13"),
+    ({"perceiver_type": "dual_patch_event"}, "P13")])
 def test_loop_refuses_what_is_not_ported(kw, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         L.train_teacher(None, _tiny(**kw), TrainConfig(), str(tmp_path),
@@ -141,7 +144,7 @@ def test_loop_refuses_a_feature_cache_for_a_trainable_vit(feature_cache,
 
 @pytest.mark.parametrize("argv,match", [
     (["--cxr_jpeg_root", "/x"], "P15"),
-    (["--resume_dir", "/x"], "P16"),
+    (["--perceiver_type", "dual_patch_event"], "P13"),
     (["--state_backend", "orbax"], "P16"),
     (["--lp_only_correction"], "P13"),
     (["--perceiver_type", "single"], "P13"),
