@@ -278,6 +278,27 @@ serving; ROADMAP P13) add:
             RESUME_SPREAD_FACTOR x the control's difference; the saves'
             seconds and the state file's bytes.
 
+The teacher's other modes and LP mode (ROADMAP P13's second half) add:
+
+20. modes  ``cli/train_teacher.main`` at full width (240 stays, batch 32,
+            2 epochs, bf16, ``--no_save_state``): ``single`` and
+            ``dual_patch_event`` on ``hbm`` and on pixels (4 batches an
+            epoch), ``legacy`` on pixels (``--use_aux_cxr --aux_cxr_alpha
+            0.5``) and LP (``--lp_only_correction``) from the
+            ``dual_patch_event`` ``hbm`` run's best on ``hbm``; each run's
+            launches exactly as its steps make them (K1 12 a pixel train and
+            eval step, 12 a bank chunk of 16; K2 2 a ``hbm`` train and eval
+            step), finite losses, the reloaded best checkpoint; LP's frozen
+            leaves and BatchNorm statistics bit-equal to its start, β
+            moved. Then each mode and tier's steady step (CUDA events,
+            launches, peak memory, ``torch.profiler``), one ``single``
+            pixel step with the ViT trainable (K1's forward, D, dkv and dq
+            12 each), the ``dual_patch_event`` teacher served over HTTP
+            (``event_serve``), ``cli/serve`` refusing a ``single``
+            checkpoint, and two KD steps from the ``single`` teacher on
+            ``hbm``. Every kernel row of the summary has these paths under
+            ``launches_by_path``.
+
 Then the run's total seconds on a line of their own.
 
 Each float32 row of the summary carries ``tc_bound_ms`` beside
@@ -348,6 +369,7 @@ SSL_RUNS = os.path.join(REPO, "build", "chip_smoke_ssl")
 KD_RUNS = os.path.join(REPO, "build", "chip_smoke_kd")
 DUAL_RUNS = os.path.join(REPO, "build", "chip_smoke_dual")
 RESUME_RUNS = os.path.join(REPO, "build", "chip_smoke_resume")
+MODES_RUNS = os.path.join(REPO, "build", "chip_smoke_modes")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 (NVIDIA data sheet)
@@ -855,7 +877,7 @@ def _reload_val(port, res, device) -> tuple:
     again = res.extras["evaluate"](model, "val")
     best = res.extras["best_val_outputs"]
     diff = max(float(np.abs(again["outputs"][k] - best[k]).max())
-               for k in ("img", "ts", "fus", "corr", "main"))
+               for k in best)
     return model, tcfg, ck, again, diff
 
 
@@ -2434,6 +2456,13 @@ def phase_cxr_head(port, device, card: str = "") -> dict:
     return info
 
 
+def _keep_ckpt(path: str, dest: str) -> str:
+    """Copy a checkpoint and its config sidecar to ``dest``."""
+    for suffix in ("", ".config.json"):
+        shutil.copy(path + suffix, dest + suffix)
+    return dest
+
+
 def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
                        reps: int = 5) -> dict:
     """The ``dual`` teacher through ``cli/train_teacher.main --perceiver_type
@@ -2500,8 +2529,7 @@ def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
                 for k in ("kernel", "bias")),
             "peak_memory_bytes": peak}
         if way == "hbm":
-            for suffix in ("", ".config.json"):
-                shutil.copy(res.best_path + suffix, kept + suffix)
+            _keep_ckpt(res.best_path, kept)
         shutil.rmtree(os.path.join(DUAL_RUNS, way), ignore_errors=True)
 
     # the steady step of each tier, from the kept teacher, on one batch
@@ -2598,6 +2626,288 @@ def phase_dual_kd(port, device, teacher_ckpt: str, card: str = "") -> dict:
     if not info["host_equals_hbm"]:
         raise AssertionError("dual_kd: the host tier's per-step losses "
                              "differ from the hbm tier's")
+    return info
+
+
+def _mode_run(port, device, argv: list, tier: str) -> dict:
+    """One ``cli/train_teacher.main`` run of the ``modes`` phase: every
+    kernel's launches over exactly this run against the ones its steps and
+    tier make (K1 12 a pixel train and eval step, else 12 a bank chunk of
+    16 images; K2 twice a train and eval step on ``hbm``, the CLS and the
+    patch bank), the epochs' losses, and the best checkpoint reloaded and
+    evaluated by the loop's own eval."""
+    import math
+
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_teacher"].main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    peak = torch.cuda.max_memory_allocated()
+    ex = res.extras
+    steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
+    n_img = ex["feature_tier"].get("n_images", 0)
+    n_layers = port["config"].ViTConfig().n_layers
+    expect = {**dict.fromkeys(launches, 0),
+              "flash_attention": n_layers * (
+                  steps + evals if tier == "pixels"
+                  else math.ceil(n_img / 16)),
+              "gather_rows_bulk": 2 * (steps + evals) if tier == "hbm"
+              else 0}
+    _, tcfg, _, again, reload_diff = _reload_val(port, res, device)
+    loss = "train_loss" if tcfg.perceiver_type == "legacy" \
+        else "train_total"
+    phase = ex["phase_seconds"]
+    return {"argv": argv, "mode": tcfg.perceiver_type, "wall_s": wall,
+            "launches": launches, "expected_launches": expect,
+            "train_steps": steps, "eval_steps": evals,
+            "feature_build_s": phase.get("feature_build"),
+            "train_s": phase["train"],
+            "train_samples_per_s": steps * 32 / phase["train"],
+            "epoch_losses": [h[loss] for h in res.history],
+            "val_auroc": [h["val_main_auroc"] for h in res.history],
+            "best_val_auroc": res.best_metric,
+            "test_auroc": res.test_metrics["main_auroc"],
+            "reload_max_abs_diff": reload_diff,
+            "reload_val_auroc": again["main_auroc"],
+            "peak_memory_bytes": peak, "best_path": res.best_path,
+            "history": res.history}
+
+
+def _flat(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
+    """The teacher's other modes and LP mode (ROADMAP P13) through
+    ``cli/train_teacher.main`` at full width (the default ``TeacherConfig``:
+    ViT-B/14 at 518, the default DuETT, the perceiver 256 × 4 heads; bf16;
+    240 stays, batch 32, 2 epochs): ``single`` and ``dual_patch_event`` on
+    ``hbm`` and on pixels (4 batches an epoch), ``legacy`` on pixels with
+    its auxiliary CXR head (``--use_aux_cxr --aux_cxr_alpha 0.5``), and LP
+    (``--lp_only_correction --lp_ckpt`` the ``dual_patch_event`` ``hbm``
+    run's best) on ``hbm``. Each run: every kernel's launches exactly as
+    its steps make them, finite losses, the reloaded best checkpoint
+    evaluating the val split as its loop did; LP: every parameter but the
+    correction head's and β, and every BatchNorm statistic, bit-equal to
+    the checkpoint it started from, and β moved. Then the steady bf16 step
+    of each mode and tier (CUDA events, median of ``reps``; one step's
+    launches; peak memory; ``torch.profiler``); one ``single`` pixel step
+    with the ViT trainable (K1's forward, D, dkv and dq 12 launches each);
+    a ``dual_patch_event`` checkpoint served over HTTP; a ``single`` one
+    refused by ``cli/serve``; two KD steps from the ``single`` teacher on
+    ``hbm`` (``cli/train_student``)."""
+    import math
+
+    import torch
+    shutil.rmtree(MODES_RUNS, ignore_errors=True)
+    os.makedirs(MODES_RUNS)
+    seconds = {"start": time.perf_counter()}
+    base = ["--device", "cuda", "--synthetic_stays", "240", "--batch_size",
+            "32", "--epochs", "2", "--no_save_state"]
+    hbm = ["--cxr_feature_cache", "hbm"]
+    pixels = ["--cxr_feature_cache", "none", "--limit_batches", "4"]
+    kept = {m: os.path.join(MODES_RUNS, f"{m}.msgpack")
+            for m in ("single", "dual_patch_event")}
+    ways = [("single_hbm", ["--perceiver_type", "single"] + hbm),
+            ("single_pixels", ["--perceiver_type", "single"] + pixels),
+            ("event_hbm", ["--perceiver_type", "dual_patch_event"] + hbm),
+            ("event_pixels", ["--perceiver_type", "dual_patch_event"]
+             + pixels),
+            ("legacy_pixels", ["--perceiver_type", "legacy", "--use_aux_cxr",
+                               "--aux_cxr_alpha", "0.5"] + pixels),
+            ("lp_hbm", ["--perceiver_type", "dual_patch_event",
+                        "--lp_only_correction", "--lp_ckpt",
+                        kept["dual_patch_event"]] + hbm)]
+    runs = {}
+    for way, extra in ways:
+        tier = way.rsplit("_", 1)[1]
+        run_dir = os.path.join(MODES_RUNS, way)
+        r = _mode_run(port, device, base + extra + ["--ckpt_dir", run_dir],
+                      tier)
+        if way in ("single_hbm", "event_hbm"):
+            _keep_ckpt(r["best_path"], kept[r["mode"]])
+        if way == "lp_hbm":
+            start = port["checkpoint"].load_checkpoint(
+                kept["dual_patch_event"])
+            end = port["checkpoint"].load_checkpoint(r["best_path"])
+            lp = port["teacher_loop"].LP_TRAINABLE
+            a, b = _flat(start["params"]), _flat(end["params"])
+            r["lp"] = {
+                "frozen_bit_equal": all(np.array_equal(a[k], b[k])
+                                        for k in a if not k.startswith(lp)),
+                "batch_stats_bit_equal": all(
+                    np.array_equal(x, _flat(end["batch_stats"])[k])
+                    for k, x in _flat(start["batch_stats"]).items()),
+                "beta_max_abs_change": float(np.abs(
+                    a["perceiver/beta"] - b["perceiver/beta"]).max()),
+                "trained_leaves": sorted(k for k in a if k.startswith(lp)),
+                "beta_mean_abs_by_epoch": [h["lp_beta_mean_abs"]
+                                           for h in r["history"]]}
+        del r["history"]
+        runs[way] = r
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    seconds["runs"] = time.perf_counter()
+    # the steady bf16 step of each mode and tier on one batch of 32
+    cfgmod, tl, eng, F = (port["config"], port["teacher_loop"],
+                          port["engine"], port["features"])
+    optim, st = port["optim"], port["state"]
+    data, host, hook = _train_batch(port, device, cfgmod.TeacherConfig())
+    trn = cfgmod.TrainConfig(batch_size=32)
+    lw = np.ones(7, np.float32)
+
+    def model_of(mode, **kw):
+        return port["teacher"].init_teacher(cfgmod.TeacherConfig(
+            perceiver_type=mode, **kw), 0).to(device)
+
+    first = model_of("single")
+    ids, pixels_for_ids = tl.pixels_for_ids_fn(data, hook)
+    bank = F.CXRFeatureBank.build(
+        F.encode_fn_for_teacher(first, torch.bfloat16), pixels_for_ids, ids)
+    del first
+    batches = {"pixels": (None, hook(host)),
+               "hbm": (bank.feature_source(), bank.host_fn()(host))}
+    steady = {}
+    for way in ("single_hbm", "single_pixels", "event_hbm", "event_pixels",
+                "legacy_pixels", "lp_hbm"):
+        kind, tier = way.rsplit("_", 1)
+        mode = {"event": "dual_patch_event", "lp": "dual_patch_event"}.get(
+            kind, kind)
+        source, batch = batches[tier]
+        m = model_of(mode)
+        lp = kind == "lp"
+        state = st.TrainState(m, optim.MultiGroupAdamW(
+            m, trn.optim, 100,
+            frozen_prefixes=() if lp else tl.teacher_frozen_prefixes(m.cfg),
+            label_fn=tl.lp_frozen_label_fn if lp
+            else optim.default_label_fn))
+        if mode == "single":
+            step = eng.make_teacher_pathology_step(
+                trn, m.cfg.duett, 24, lw, feature_source=source)
+        elif mode == "legacy":
+            step = eng.make_teacher_legacy_step(trn, m.cfg.duett, 24,
+                                                aux_alpha=0.5)
+        else:
+            step = eng.make_teacher_step(trn, m.cfg.duett, 24, lw,
+                                         feature_source=source, lp_mode=lp,
+                                         lp_beta_l2=1e-3, lp_corr_l2=1e-2)
+        dev_batch = eng.to_device(batch, device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        steady[way] = _steady_step(
+            port, device,
+            lambda: step(state, data.grid, data.static, dev_batch, gen),
+            reps, {"k1_fwd": "flash_fwd", "k2": "gather_rows"})
+        del m, state, dev_batch
+        torch.cuda.empty_cache()
+    del bank, batches
+    torch.cuda.empty_cache()
+    seconds["steady"] = time.perf_counter()
+
+    # one single pixel step with the ViT trainable: K1's backward
+    m = model_of("single", freeze_cxr=False)
+    state = st.TrainState(m, optim.MultiGroupAdamW(
+        m, trn.optim, 100, frozen_prefixes=tl.teacher_frozen_prefixes(m.cfg)))
+    vit_before = m.cxr.patch_embed.weight.detach().clone()
+    step = eng.make_teacher_pathology_step(trn, m.cfg.duett, 24, lw)
+    dev_batch = eng.to_device(hook(host), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    torch.cuda.synchronize()
+    reset_counts(port)
+    out = step(state, data.grid, data.static, dev_batch, gen)
+    torch.cuda.synchronize()
+    unfreeze = {"launches": {k: v for k, v in read_counts(port).items()
+                             if v},
+                "loss": float(out["total"]),
+                "vit_moved": not torch.equal(
+                    vit_before, m.cxr.patch_embed.weight.detach())}
+    del m, state, dev_batch, vit_before
+    torch.cuda.empty_cache()
+
+    # a dual_patch_event checkpoint served; a single one refused
+    ck = port["checkpoint"]
+    event_model, event_cfg, _ = ck.load_teacher_from_ckpt(
+        kept["dual_patch_event"], device)
+    serve = phase_serve(port, device, event_cfg, n_clients=4,
+                        posts_per_client=3, card=card, model=event_model,
+                        name="event_serve", buckets=())
+    del event_model
+    try:
+        port["cli_serve"].main(["--ckpt", kept["single"], "--device",
+                                "cuda", "--port", "0"])
+        refused = None
+    except RuntimeError as e:
+        refused = str(e)
+
+    # two KD steps from the single teacher on hbm
+    kd = _kd_cli_run(port, device, [
+        "--device", "cuda", "--teacher_ckpt", kept["single"],
+        "--synthetic_stays", "240", "--batch_size", "32", "--epochs", "1",
+        "--limit_batches", "2", "--cxr_feature_cache", "hbm",
+        "--no_save_state"], os.path.join(MODES_RUNS, "kd"))
+    n_layers = cfgmod.ViTConfig().n_layers
+    kd["expected_launches"] = {
+        **dict.fromkeys(kd["launches"], 0),
+        "flash_attention": n_layers * math.ceil(
+            kd["feature_tier"]["n_images"] / 16),
+        "gather_rows_bulk": 2 * kd["train_steps"]}
+    shutil.rmtree(MODES_RUNS, ignore_errors=True)
+    seconds["end"] = time.perf_counter()
+    marks = list(seconds.values())
+    info = {"phase": "modes", "card": card,
+            "seconds": dict(zip(("runs", "steady", "unfreeze_serve_kd"),
+                                np.diff(marks).tolist())),
+            "runs": runs, "steady": steady,
+            "unfreeze_step": unfreeze, "serve_single_refused": refused,
+            "event_serve": {k: serve[k] for k in (
+                "launches", "batches", "samples_per_s",
+                "max_abs_diff_response_vs_direct")},
+            "single_kd": kd}
+    emit(info)
+    for way, r in runs.items():
+        if not r["epoch_losses"] or \
+                not all(np.isfinite(x) for x in r["epoch_losses"]):
+            raise AssertionError(f"modes {way}: non-finite losses")
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(f"modes {way}: launches {r['launches']}, "
+                                 f"expected {r['expected_launches']}")
+        if r["reload_max_abs_diff"] > SERVE_TOL or \
+                r["reload_val_auroc"] != r["best_val_auroc"]:
+            raise AssertionError(f"modes {way}: the reloaded best checkpoint "
+                                 "evaluates the val split differently")
+    lp = runs["lp_hbm"]["lp"]
+    if not (lp["frozen_bit_equal"] and lp["batch_stats_bit_equal"]) or \
+            lp["beta_max_abs_change"] == 0.0:
+        raise AssertionError(f"LP trained more than its leaves, or not "
+                             f"beta: {lp}")
+    for way, r in steady.items():
+        want = {"gather_rows_bulk": 2} if way.endswith("hbm") \
+            else {"flash_attention": n_layers}
+        if r["launches_per_step"] != want:
+            raise AssertionError(f"modes steady {way} launched "
+                                 f"{r['launches_per_step']}, expected {want}")
+    if unfreeze["launches"] != {k: n_layers for k in (
+            "flash_attention", "flash_attention_bwd_delta",
+            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")} or \
+            not np.isfinite(unfreeze["loss"]) or not unfreeze["vit_moved"]:
+        raise AssertionError(f"modes unfrozen single step: {unfreeze}")
+    if refused is None or "single/legacy" not in refused:
+        raise AssertionError(f"cli/serve did not refuse a single "
+                             f"checkpoint: {refused}")
+    kd_losses = [x for v in kd["step_losses"].values() for x in v]
+    if kd["train_steps"] != 2 or not all(np.isfinite(x) for x in kd_losses) \
+            or kd["launches"] != kd["expected_launches"]:
+        raise AssertionError(f"modes single KD: {kd['launches']}, expected "
+                             f"{kd['expected_launches']}, losses "
+                             f"{kd_losses}")
     return info
 
 
@@ -3057,6 +3367,7 @@ def main() -> int:
                              model=dual_model, name="dual_serve", buckets=())
     del dual_model
     shutil.rmtree(DUAL_RUNS, ignore_errors=True)
+    modes = phase_modes(port, device, card=dev["nvidia_smi"])
     resume = phase_resume(port, device, card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
@@ -3084,7 +3395,13 @@ def main() -> int:
                 "dual_kd": {way: r["launches"][name]
                             for way, r in dual_kd["runs"].items()},
                 "dual_serve": dual_serve["launches"][name],
-                "resume": resume["launches"][name]}
+                "resume": resume["launches"][name],
+                "modes": {way: r["launches"][name]
+                          for way, r in modes["runs"].items()},
+                "modes_unfreeze_step": modes["unfreeze_step"]["launches"]
+                .get(name, 0),
+                "event_serve": modes["event_serve"]["launches"][name],
+                "single_kd": modes["single_kd"]["launches"][name]}
 
     bwd_rows = [
         {"name": f"flash_attention_bwd_{kind}", "route": "cuda",
@@ -3175,7 +3492,9 @@ def main() -> int:
         {"name": "gather_rows_bulk_f32", "route": "cuda",
          "source": K2_SOURCE, "replaces": K2_REPLACES,
          "launches": f32_train["k2_launches"],
-         "launches_by_path": {"f32_train": f32_train["k2_launches"]},
+         "launches_by_path": {"f32_train": f32_train["k2_launches"],
+                              "modes": "none: every modes run is bf16, "
+                              "its banks bf16"},
          "case": "patch_f32 [401, 1370, 768] x 32 rows",
          "tc_bound_ms": gathers["patch_f32"]["bound_ms"],
          **{k: gathers["patch_f32"][k] for k in keys + (

@@ -30,7 +30,7 @@ from ..data import synthetic as S
 COMMON_QUEUED = {"--log_every": "P20", "--wandb_project": "P20",
                  "--wandb_run_name": "P20", "--wandb_disabled": "P20"}
 # the queued flags that take no value (store_true in the JAX CLIs)
-_SWITCHES = ("--wandb_disabled", "--use_aux_cxr")
+_SWITCHES = ("--wandb_disabled",)
 
 
 def add_queued_flags(p: argparse.ArgumentParser, queued: dict) -> None:
@@ -133,6 +133,11 @@ def configs_from_args(args) -> tuple:
         alpha_img=args.aux_img_alpha, alpha_ts=args.aux_ts_alpha,
         alpha_fus=args.aux_fus_alpha,
         aux_residual_alpha=args.aux_residual_alpha,
+        # the teacher CLI's mode weights (JAX cli/common.py:111-114)
+        aux_stage2_alpha=getattr(args, "aux_stage2_alpha", 1.0),
+        aux_stage4_alpha=getattr(args, "aux_stage4_alpha", 0.5),
+        use_aux_cxr=getattr(args, "use_aux_cxr", False),
+        aux_cxr_alpha=getattr(args, "aux_cxr_alpha", 0.0),
         optim=OptimConfig(
             lr=args.lr, backbone_lr_mult=args.backbone_lr_mult,
             query_lr_mult=args.query_lr_mult,

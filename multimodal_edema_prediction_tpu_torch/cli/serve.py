@@ -75,21 +75,24 @@ def main(argv=None):
     example = {"x_ts": np.zeros((T, 2 * V), np.float32),
                "static": np.zeros(cfg.duett.d_static, np.float32),
                "pixel_u8": np.zeros((S, S, 3), np.uint8)}
-    print("warming buckets ...", flush=True)
-    print(f"warm: {pred.warmup(example)}", flush=True)
-
-    meta = {"n_timesteps": T, "n_variables": V,
-            "d_static": cfg.duett.d_static, "image_size": S,
-            "image_mode": args.image_mode, "perceiver": cfg.perceiver_type}
-    server = make_server(pred, args.host, args.port, meta=meta)
-    print(f"serving on http://{args.host}:{server.server_address[1]} "
-          f"(mode={args.image_mode}, device={args.device})", flush=True)
     try:
-        serve_forever(server)
-    except KeyboardInterrupt:
-        pass
+        # a single/legacy teacher fails here, before the port opens
+        print("warming buckets ...", flush=True)
+        print(f"warm: {pred.warmup(example)}", flush=True)
+        meta = {"n_timesteps": T, "n_variables": V,
+                "d_static": cfg.duett.d_static, "image_size": S,
+                "image_mode": args.image_mode,
+                "perceiver": cfg.perceiver_type}
+        server = make_server(pred, args.host, args.port, meta=meta)
+        print(f"serving on http://{args.host}:{server.server_address[1]} "
+              f"(mode={args.image_mode}, device={args.device})", flush=True)
+        try:
+            serve_forever(server)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            server.server_close()
     finally:
-        server.server_close()
         pred.close()
 
 

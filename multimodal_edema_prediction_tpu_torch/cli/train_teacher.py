@@ -4,10 +4,17 @@
     python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
         --device cuda --cxr_feature_cache hbm --epochs 30 --batch_size 128
 
-Trains the ``dual_patch`` teacher, or with ``--perceiver_type dual
---pretrained_cxr_head_ckpt <cli.train_cxr_head's cxr_linear_head.msgpack>``
-the ``dual`` one, whose image branch is that frozen CXR linear head on the
-ViT's CLS token. With the RAD-DINO branch frozen (the default), on the
+Trains the ``dual_patch`` teacher, or the ``--perceiver_type`` of any
+other mode: ``dual_patch_event``; ``single`` (``--aux_stage2_alpha``,
+``--aux_stage4_alpha``); ``legacy`` (``--n_latents``,
+``--n_perceiver_layers``, ``--use_aux_cxr --aux_cxr_alpha``; pixels only);
+or with ``--pretrained_cxr_head_ckpt <cli.train_cxr_head's
+cxr_linear_head.msgpack>`` ``dual``, whose image branch is that frozen CXR
+linear head on the ViT's CLS token. ``--lp_only_correction --lp_ckpt
+<a dual_patch or dual_patch_event checkpoint>`` trains only its correction
+head and β (LP mode: ``--lp_beta_l2``, ``--lp_corr_l2``,
+``--lp_correction_dropout``). With the RAD-DINO branch frozen (the
+default), on the
 pixel tier (``--cxr_feature_cache none``: the ViT runs in
 every step) or an encode-once tier (``hbm``: each image is encoded once,
 steps gather cached tokens through K2; ``host``: the tokens stay on the
@@ -47,12 +54,6 @@ from .common import (COMMON_QUEUED, add_common_flags, add_queued_flags,
 # JAX flags of this CLI whose feature is not ported yet → their ROADMAP
 # item (the common ones: COMMON_QUEUED)
 QUEUED_FLAGS = {
-    # the other teacher modes and LP mode
-    "--n_latents": "P13", "--n_perceiver_layers": "P13",
-    "--aux_stage2_alpha": "P13", "--aux_stage4_alpha": "P13",
-    "--use_aux_cxr": "P13", "--aux_cxr_alpha": "P13", "--lp_ckpt": "P13",
-    "--lp_beta_l2": "P13", "--lp_corr_l2": "P13",
-    "--lp_correction_dropout": "P13",
     # the image feed tiers
     "--image_bank": "P15",
     "--hbm_image_budget_gb": "P15", "--u8_store_path": "P15",
@@ -81,6 +82,23 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--duett_ckpt", type=str, default="",
                    help="SSL checkpoint to initialize the DuETT backbone")
     p.add_argument("--lp_only_correction", action="store_true")
+    p.add_argument("--lp_ckpt", type=str, default="")
+    p.add_argument("--lp_beta_l2", type=float, default=1e-3)
+    p.add_argument("--lp_corr_l2", type=float, default=1e-2)
+    p.add_argument("--lp_correction_dropout", type=float, default=0.3,
+                   help="[LP mode] correction-head dropout override")
+    p.add_argument("--n_latents", type=int, default=16,
+                   help="[legacy] TemporalPerceiver latent-query count")
+    p.add_argument("--n_perceiver_layers", type=int, default=2,
+                   help="[legacy] TemporalPerceiver img/ts block pairs")
+    p.add_argument("--aux_stage2_alpha", type=float, default=1.0,
+                   help="[single] stage2 (image-only) loss weight")
+    p.add_argument("--aux_stage4_alpha", type=float, default=0.5,
+                   help="[single] stage4 (multimodal) loss weight")
+    p.add_argument("--use_aux_cxr", action="store_true",
+                   help="[legacy] auxiliary CXR-only head BCE")
+    p.add_argument("--aux_cxr_alpha", type=float, default=0.0,
+                   help="[legacy] total = main_bce + aux_cxr_alpha * aux_bce")
     p.add_argument("--cxr_jpeg_root", type=str, default="")
     p.add_argument("--cxr_feature_cache", type=str, default="none",
                    choices=["none", "auto", "hbm", "host"],
@@ -119,10 +137,34 @@ def build_parser() -> argparse.ArgumentParser:
 # flag → (value that is not ported, ROADMAP item)
 _QUEUED = (
     ("vit_quant", "int8", "P20"),
-    ("lp_only_correction", True, "P13"),
     ("cxr_jpeg_root", None, "P15"),
     ("state_backend", "orbax", "P16"),
 )
+
+
+def teacher_config(args, dcfg, duett, vit) -> TeacherConfig:
+    """The ``TeacherConfig`` of the parsed flags (JAX
+    ``cli/train_teacher.py:123-143``): ``correction_dropout`` is
+    ``--lp_correction_dropout`` in LP mode, else unset."""
+    return TeacherConfig(
+        duett=duett, vit=vit,
+        perceiver=PerceiverConfig(
+            n_pathologies=len(dcfg.pathology_labels),
+            d_latent=args.d_latent, n_heads=args.n_perceiver_heads,
+            dropout=args.perceiver_dropout, head_hidden=args.head_hidden,
+            head_dropout=args.head_dropout,
+            n_latents=args.n_latents, n_layers=args.n_perceiver_layers,
+            correction_dropout=(args.lp_correction_dropout
+                                if args.lp_only_correction else None)),
+        perceiver_type=args.perceiver_type,
+        freeze_duett=args.freeze_duett, freeze_cxr=not args.unfreeze_cxr)
+
+
+def lp_kwargs(args) -> dict:
+    """``train_teacher``'s LP arguments: LP mode from ``--lp_ckpt`` only
+    with ``--lp_only_correction`` (JAX ``cli/train_teacher.py:178``)."""
+    return {"lp_from": args.lp_ckpt if args.lp_only_correction else None,
+            "lp_beta_l2": args.lp_beta_l2, "lp_corr_l2": args.lp_corr_l2}
 
 
 def main(argv=None):
@@ -137,25 +179,14 @@ def main(argv=None):
         if (got if value is None else got == value):
             raise NotImplementedError(
                 f"--{flag} {got} is not ported yet (ROADMAP {item})")
-    if args.perceiver_type not in ("dual_patch", "dual"):
-        raise NotImplementedError(
-            f"--perceiver_type {args.perceiver_type} is not ported yet "
-            "(ROADMAP P13)")
 
     dcfg, duett, tcfg = configs_from_args(args)
     vit = ViTConfig() if args.vit_size == "base" else ViTConfig(
         image_size=56, patch_size=14, d_model=64, n_layers=2, n_heads=2,
         d_feedforward=128)
     _, meta, anchor_ds = load_data(args, dcfg)
-    teacher_cfg = TeacherConfig(
-        duett=sync_duett_with_meta(duett, meta, print), vit=vit,
-        perceiver=PerceiverConfig(
-            n_pathologies=len(dcfg.pathology_labels),
-            d_latent=args.d_latent, n_heads=args.n_perceiver_heads,
-            dropout=args.perceiver_dropout, head_hidden=args.head_hidden,
-            head_dropout=args.head_dropout),
-        perceiver_type=args.perceiver_type,
-        freeze_duett=args.freeze_duett, freeze_cxr=not args.unfreeze_cxr)
+    teacher_cfg = teacher_config(
+        args, dcfg, sync_duett_with_meta(duett, meta, print), vit)
 
     head_ckpt = args.pretrained_cxr_head_ckpt or None
     model = None
@@ -180,7 +211,7 @@ def main(argv=None):
                         or None, pretrained_head_ckpt=head_ckpt,
                         auto_resume=bool(args.resume_dir),
                         save_full_state=args.save_state,
-                        state_backend=args.state_backend)
+                        state_backend=args.state_backend, **lp_kwargs(args))
     print(f"best val macro fusion AUROC: {res.best_metric:.4f}  "
           f"ckpt: {res.best_path}", flush=True)
     return res

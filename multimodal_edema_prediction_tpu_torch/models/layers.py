@@ -230,13 +230,17 @@ class MultiHeadAttention(nn.Module):
     With ``use_flash``, no attention dropout in force, and a 3-D input whose
     key length is at least 256 and whose head dim is at least 64, the
     attention goes through ``flash_mha`` (the JAX gate at
-    ``models/layers.py:292-296``; the port has no returned weights or key
-    padding mask to exclude), gradient included: ``flash_mha``'s autograd
-    Function backs it with K1's dkv and dq kernels on the card. While
-    training, ``dropout`` applies to the attention probabilities (and so
-    closes the gate). ``valid_len`` is the true token count of a
-    pre-padded sequence: keys at or past it get zero probability and the
-    outputs of those rows are garbage, to be sliced off by the caller."""
+    ``models/layers.py:292-296``; the port has no returned weights to
+    exclude), gradient included: ``flash_mha``'s autograd Function backs it
+    with K1's dkv and dq kernels on the card. While training, ``dropout``
+    applies to the attention probabilities (and so closes the gate).
+    ``key_padding_mask`` [..., K] bool, True = ignore that key (torch
+    ``MultiheadAttention``'s sense): its logits are set to -1e30 before
+    the float32 softmax, and it closes the gate. ``valid_len`` is the true
+    token count of a pre-padded sequence: keys at or past it get zero
+    probability (the mask ``valid_len`` stands for when no mask is given)
+    and the outputs of those rows are garbage, to be sliced off by the
+    caller."""
 
     def __init__(self, d_model: int, n_heads: int,
                  d_head: Optional[int] = None, qkv_bias: bool = True,
@@ -255,9 +259,12 @@ class MultiHeadAttention(nn.Module):
 
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 valid_len: Optional[int] = None, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+                gen: Optional[torch.Generator] = None,
+                key_padding_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         H, dh = self.n_heads, self.d_head
-        flash_ok = (self.use_flash and (self.dropout == 0.0 or not train)
+        flash_ok = (self.use_flash and key_padding_mask is None
+                    and (self.dropout == 0.0 or not train)
                     and q_in.dim() == 3 and kv_in.shape[-2] >= 256
                     and dh >= 64)
         if flash_ok:
@@ -279,9 +286,13 @@ class MultiHeadAttention(nn.Module):
             heads(self.v(kv_in))
         logits = torch.einsum("...qhd,...khd->...hqk", q, k) * (dh ** -0.5)
         Nk = k.shape[-3]
-        if valid_len is not None and valid_len < Nk:
-            pad = torch.arange(Nk, device=logits.device) >= valid_len
-            logits = logits.masked_fill(pad, -1e30)
+        if valid_len is not None and valid_len < Nk \
+                and key_padding_mask is None:
+            key_padding_mask = torch.arange(Nk, device=logits.device) \
+                >= valid_len
+        if key_padding_mask is not None:
+            logits = logits.masked_fill(key_padding_mask[..., None, None, :],
+                                        -1e30)
         weights = torch.softmax(logits.float(), dim=-1).to(q_in.dtype)
         weights = dropout(weights, self.dropout, train, gen)
         out = torch.einsum("...hqk,...khd->...qhd", weights, v)
@@ -348,8 +359,9 @@ def init_like_flax(model: nn.Module, seed: int,
     ``lecun_normal(batch_axis=(0,))``), biases zero, norm scales and
     ``beta`` one, LayerScale ``layerscale_init``, the correction head's
     output zero, the DuETT
-    special/rep/event embeddings and count embedding N(0, 1), the queries,
-    CLS token and position embedding N(0, 0.02²), BatchNorm statistics
+    special/rep/event embeddings and count embedding N(0, 1), the query
+    banks, the ``legacy`` latents, CLS token and position embedding
+    N(0, 0.02²), BatchNorm statistics
     (0, 1). Returns ``model``."""
     from .perceiver import StackedLabelHeads
     g = torch.Generator().manual_seed(seed)
@@ -367,7 +379,8 @@ def init_like_flax(model: nn.Module, seed: int,
     ones = ("g", "beta", "bn_scale", "running_var")
     unit_normal = ("special_embeddings", "full_rep_embedding",
                    "full_event_embedding")
-    small_normal = ("shared_queries", "cls_token", "pos_embed")
+    small_normal = ("shared_queries", "image_queries", "temporal_queries",
+                    "pathology_queries", "latents", "cls_token", "pos_embed")
     with torch.no_grad():
         for mname, m in model.named_modules():
             for name, t in list(m.named_parameters(recurse=False)) + \

@@ -1,7 +1,7 @@
 """Losses of the teacher, student and SSL steps: the counterparts of
 ``bce_with_logits``, ``masked_per_label_bce``, ``dual_pathology_loss``,
-``aux_residual_kl``, ``binary_kl_kd``, ``student_kd_loss`` and
-``ssl_pretrain_loss`` in
+``pathology_multilabel_loss``, ``aux_residual_kl``, ``binary_kl_kd``,
+``student_kd_loss`` and ``ssl_pretrain_loss`` in
 ``multimodal_edema_prediction_tpu/ops/losses.py:18-199``.
 
 Every function computes in float32 whatever the dtype of its inputs, and
@@ -60,6 +60,26 @@ def dual_pathology_loss(img_logits, ts_logits, fusion_logits, y_multi,
             "img_total": totals["img"], "ts_total": totals["ts"],
             "fus_total": totals["fus"],
             "img_per": per["img"], "ts_per": per["ts"], "fus_per": per["fus"]}
+
+
+def pathology_multilabel_loss(stage2_logits, stage4_logits, y_multi,
+                              y_multi_mask, label_weights,
+                              pos_weight: Optional[torch.Tensor] = None,
+                              alpha_stage2: float = 0.5,
+                              alpha_stage4: float = 1.0) -> dict:
+    """``single`` mode: stage 2 (image only) + stage 4 (multimodal) masked
+    multi-label BCE (JAX ``losses.py:73-89``, reference
+    loss/losses_duett.py:63-125). The defaults are the function's own, as
+    in JAX; the training step passes ``TrainConfig``'s 1.0 and 0.5."""
+    lw = label_weights.float()
+    s2 = masked_per_label_bce(stage2_logits, y_multi, y_multi_mask,
+                              pos_weight)
+    s4 = masked_per_label_bce(stage4_logits, y_multi, y_multi_mask,
+                              pos_weight)
+    s2_total, s4_total = (lw * s2).sum(), (lw * s4).sum()
+    return {"total": alpha_stage2 * s2_total + alpha_stage4 * s4_total,
+            "stage2_total": s2_total, "stage4_total": s4_total,
+            "stage2_per": s2, "stage4_per": s4}
 
 
 def aux_residual_kl(img_logits, scaled_correction, y_multi, y_multi_mask,

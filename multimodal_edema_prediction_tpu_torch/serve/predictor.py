@@ -10,9 +10,12 @@ pixel mode.
   queued within ``max_wait_ms``), runs the step, and resolves futures.
 
 Each request carries ``pixel_u8`` ([S, S, 3] uint8), normalized on the
-device inside the step. The JAX package's ``mesh`` (data-parallel serving)
-and ``aot_dir`` (persisted executables) have no counterpart yet (ROADMAP
-P17/P18), nor its bank and feature-cache image tiers (P15, P17).
+device inside the step. A teacher of a residual-fusion mode serves
+(``dual_patch``, ``dual_patch_event``, ``dual``); a ``single`` or
+``legacy`` one has no fusion logits, and its batches fail with the JAX
+predictor's ``RuntimeError``. The JAX package's ``mesh`` (data-parallel
+serving) and ``aot_dir`` (persisted executables) have no counterpart yet
+(ROADMAP P17/P18), nor its bank and feature-cache image tiers (P15, P17).
 """
 from __future__ import annotations
 
@@ -255,6 +258,11 @@ class BatchingPredictor:
         with torch.inference_mode():
             out = self._step(x_ts, static, batch)
             out = {k: v[:n].cpu().numpy() for k, v in out.items()}
+        if "fusion_logits" not in out:
+            raise RuntimeError(
+                "serving requires a dual_patch/dual-mode teacher (got a "
+                f"model emitting {sorted(out)}); single/legacy-mode "
+                "checkpoints are offline-scoring only (cli/predict.py)")
         probs = 1.0 / (1.0 + np.exp(-out["fusion_logits"]))
         now = time.time()
         if record:      # before the futures resolve, so a client that has

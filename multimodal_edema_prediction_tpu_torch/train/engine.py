@@ -1,9 +1,11 @@
 """Per-batch teacher, student and SSL steps: the PyTorch counterpart of
 ``multimodal_edema_prediction_tpu/train/engine.py`` (``_prep_inputs``,
-``_cxr_inputs``, ``make_teacher_step``, ``make_teacher_eval``,
-``default_image_source``, ``make_teacher_eval_from_windows``,
-``make_supervised_ts_eval``, ``make_kd_step``, ``make_ssl_step``,
-``make_ssl_eval``).
+``_cxr_inputs``, ``make_teacher_step`` with LP mode, ``make_teacher_eval``,
+``make_teacher_pathology_step`` and ``_eval`` (``single``),
+``make_teacher_legacy_step`` and the legacy eval (JAX
+``teacher_loop.py:464-479``), ``default_image_source``,
+``make_teacher_eval_from_windows``, ``make_supervised_ts_eval``,
+``make_kd_step``, ``make_ssl_step``, ``make_ssl_eval``).
 
 A step runs eagerly on the device that holds the batch: window gather →
 augmentation → model forward/backward → optimizer update. The encode-once
@@ -30,6 +32,7 @@ from .state import TrainState
 
 EVAL_KEYS = ("main_logit", "img_logits", "ts_logits", "fusion_logits",
              "scaled_correction")
+PATHOLOGY_EVAL_KEYS = ("main_logit", "stage2_logits", "stage4_logits")
 
 
 def default_image_source(batch: dict) -> torch.Tensor:
@@ -78,22 +81,34 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
                       n_timesteps: int, label_weights,
                       pos_weight=None, dtype=torch.bfloat16,
                       image_source: Callable = default_image_source,
-                      feature_source: Optional[Callable] = None) -> Callable:
+                      feature_source: Optional[Callable] = None,
+                      lp_mode: bool = False, lp_beta_l2: float = 0.0,
+                      lp_corr_l2: float = 0.0) -> Callable:
     """``step(state, grid, static, batch, gen)`` → metrics: one teacher
-    update on a device batch (the JAX step without LP mode). Dropout and
+    update of a residual-fusion mode on a device batch. Dropout and
     augmentation draw from the ``torch.Generator`` ``gen``. The loss is the
     3-branch masked BCE plus ``aux_residual_alpha``·KL. Returns the loss
     parts and ``main_logit``, detached, on the device; ``state`` is updated
-    in place."""
+    in place.
+
+    ``lp_mode``: the correction-only linear probe (JAX ``engine.py:196-
+    264``): the optimizer must already leave out everything but the
+    correction head and β (``teacher_loop.lp_frozen_label_fn``); the
+    forward runs with ``train=False`` (no augmentation, no dropout, even
+    the correction head's, and no BatchNorm update), and the loss gains
+    ``reg_beta_l2 = lp_beta_l2·mean(β²)`` and ``reg_corr_l2 =
+    lp_corr_l2·mean(scaled_correction²)``."""
+    train = not lp_mode
+
     def step(state: TrainState, grid, static, batch, gen
              ) -> Dict[str, torch.Tensor]:
         x_in, x_static, times = _prep_inputs(
             grid, static, batch, n_timesteps, dtype, gen,
-            duett_cfg.aug_noise, duett_cfg.aug_mask, train=True)
+            duett_cfg.aug_noise, duett_cfg.aug_mask, train=train)
         pixels, feats = _cxr_inputs(batch, image_source, feature_source,
                                     dtype)
-        out = state.model(x_in, x_static, times, pixels, train=True, gen=gen,
-                          cxr_feats=feats)
+        out = state.model(x_in, x_static, times, pixels, train=train,
+                          gen=gen, cxr_feats=feats)
         lw = torch.as_tensor(label_weights, dtype=torch.float32,
                              device=x_in.device)
         losses = L.dual_pathology_loss(
@@ -107,6 +122,12 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
                                     batch["y_multi"], batch["y_multi_mask"])
             losses["aux_residual"] = aux
             total = total + cfg.aux_residual_alpha * aux
+        if lp_mode:
+            beta = state.model.perceiver.beta
+            losses["reg_beta_l2"] = lp_beta_l2 * (beta ** 2).mean()
+            losses["reg_corr_l2"] = lp_corr_l2 * (
+                out["scaled_correction"] ** 2).mean()
+            total = total + losses["reg_beta_l2"] + losses["reg_corr_l2"]
         losses["total"] = total
         state.apply_gradients(total)
         metrics = {k: v.detach() for k, v in losses.items()}
@@ -116,19 +137,91 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
     return step
 
 
+def make_teacher_pathology_step(cfg: TrainConfig, duett_cfg: DuettConfig,
+                                n_timesteps: int, label_weights,
+                                pos_weight=None, dtype=torch.bfloat16,
+                                alpha_stage2: float = 1.0,
+                                alpha_stage4: float = 0.5,
+                                image_source: Callable = default_image_source,
+                                feature_source: Optional[Callable] = None
+                                ) -> Callable:
+    """``single`` mode's step (JAX ``engine.py:287-330``, reference
+    training_duett/engine.py:94-129): stage 2 + stage 4 masked multi-label
+    BCE, weighted ``alpha_stage2`` and ``alpha_stage4`` (the loop passes
+    ``TrainConfig.aux_stage2_alpha`` and ``aux_stage4_alpha``). Returns
+    the loss parts and ``main_logit``, detached."""
+    def step(state: TrainState, grid, static, batch, gen
+             ) -> Dict[str, torch.Tensor]:
+        x_in, x_static, times = _prep_inputs(
+            grid, static, batch, n_timesteps, dtype, gen,
+            duett_cfg.aug_noise, duett_cfg.aug_mask, train=True)
+        pixels, feats = _cxr_inputs(batch, image_source, feature_source,
+                                    dtype)
+        out = state.model(x_in, x_static, times, pixels, train=True, gen=gen,
+                          cxr_feats=feats)
+        lw = torch.as_tensor(label_weights, dtype=torch.float32,
+                             device=x_in.device)
+        losses = L.pathology_multilabel_loss(
+            out["stage2_logits"], out["stage4_logits"], batch["y_multi"],
+            batch["y_multi_mask"], lw, pos_weight, alpha_stage2,
+            alpha_stage4)
+        state.apply_gradients(losses["total"])
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["main_logit"] = out["main_logit"].detach().float()
+        return metrics
+
+    return step
+
+
+def make_teacher_legacy_step(cfg: TrainConfig, duett_cfg: DuettConfig,
+                             n_timesteps: int, dtype=torch.bfloat16,
+                             aux_alpha: float = 0.0,
+                             image_source: Callable = default_image_source
+                             ) -> Callable:
+    """``legacy`` mode's step (JAX ``engine.py:350-381``, reference
+    training_duett/engine.py:42-73), on pixels only: the binary BCE of
+    ``main_logit`` on ``batch["y"]``, plus ``aux_alpha`` × the auxiliary
+    CXR head's BCE, which is 0.0 when ``aux_alpha`` is 0. Returns
+    ``loss``, ``main_loss``, ``aux_loss`` and ``logits``, detached."""
+    def step(state: TrainState, grid, static, batch, gen
+             ) -> Dict[str, torch.Tensor]:
+        x_in, x_static, times = _prep_inputs(
+            grid, static, batch, n_timesteps, dtype, gen,
+            duett_cfg.aug_noise, duett_cfg.aug_mask, train=True)
+        out = state.model(x_in, x_static, times,
+                          image_source(batch).to(dtype), train=True, gen=gen)
+        main_loss = L.bce_with_logits(out["main_logit"], batch["y"])
+        aux_loss = L.bce_with_logits(out["aux_logit"], batch["y"]) \
+            if aux_alpha > 0 else torch.zeros((), device=x_in.device)
+        total = main_loss + aux_alpha * aux_loss
+        state.apply_gradients(total)
+        return {"loss": total.detach(), "main_loss": main_loss.detach(),
+                "aux_loss": aux_loss.detach(),
+                "logits": out["main_logit"].detach()}
+
+    return step
+
+
 def make_teacher_eval(n_timesteps: int, dtype=torch.bfloat16,
                       image_source: Callable = default_image_source,
-                      feature_source: Optional[Callable] = None) -> Callable:
-    """``step(model, grid, static, batch)`` → the five eval outputs as
-    float32 tensors: eval mode, no gradients, no augmentation."""
-    def step(model, grid, static, batch) -> Dict[str, torch.Tensor]:
+                      feature_source: Optional[Callable] = None,
+                      keys=EVAL_KEYS) -> Callable:
+    """``step(model, grid, static, batch)`` → the eval outputs ``keys`` as
+    float32 tensors: eval mode, no gradients, no augmentation. ``keys``:
+    ``EVAL_KEYS`` (the residual-fusion modes) or ``PATHOLOGY_EVAL_KEYS``
+    (``single``: JAX ``make_teacher_pathology_eval``); ``None`` returns
+    ``main_logit`` alone as a tensor (``legacy``, the binary eval of JAX
+    ``teacher_loop.py:464-479``)."""
+    def step(model, grid, static, batch):
         with torch.inference_mode():
             x_in, x_static, times = _prep_inputs(grid, static, batch,
                                                  n_timesteps, dtype)
             pixels, feats = _cxr_inputs(batch, image_source, feature_source,
                                         dtype)
             out = model(x_in, x_static, times, pixels, cxr_feats=feats)
-            return {k: out[k].float() for k in EVAL_KEYS}
+            if keys is None:
+                return out["main_logit"].float()
+            return {k: out[k].float() for k in keys}
 
     return step
 
@@ -138,10 +231,12 @@ def make_teacher_eval_from_windows(
         image_source: Callable = default_image_source,
         feature_source: Optional[Callable] = None) -> Callable:
     """``step(x_ts [B,T,2V], x_static [B,D], batch)`` → the five eval
-    outputs as float32 tensors on the model's device. ``batch`` carries
-    ``bin_ends`` [B, T] and either ``pixel_u8`` [B, S, S, 3] for the ViT
-    or, with ``feature_source`` (e.g. ``CXRFeatureBank.feature_source(
-    keyed_by_row=False)`` over raw ``image_ids``), what that source reads:
+    outputs as float32 tensors on the model's device (those the model's
+    mode has: ``main_logit`` alone for ``single`` and ``legacy``).
+    ``batch`` carries ``bin_ends`` [B, T] and either ``pixel_u8``
+    [B, S, S, 3] for the ViT or, with ``feature_source`` (e.g.
+    ``CXRFeatureBank.feature_source(keyed_by_row=False)`` over raw
+    ``image_ids``), what that source reads:
     windows perturbed on the host then reuse the cached tokens (JAX
     ``engine.py:403-432``). numpy or torch inputs are moved to the model's
     device."""
@@ -157,7 +252,7 @@ def make_teacher_eval_from_windows(
                                         dtype)
             out = model(x_in, xs, b["bin_ends"].to(dtype), pixels,
                         cxr_feats=feats)
-            return {k: out[k].float() for k in EVAL_KEYS}
+            return {k: out[k].float() for k in EVAL_KEYS if k in out}
 
     return step
 

@@ -1,9 +1,10 @@
-"""Dual-pathology evaluation: per-label 3-branch metrics + console gap
-tables, the port's counterpart of
+"""Teacher evaluation: per-label 3-branch metrics of the residual-fusion
+modes, stage 2 / stage 4 metrics of ``single``, and their console gap
+tables; the port's counterpart of
 ``multimodal_edema_prediction_tpu/train/evaluator.py`` (reference
-``training_duett/evaluator.py:198-391``). Logits stream from the eval step
-to host numpy; metrics are the sklearn-exact numpy implementations in
-:mod:`..ops.metrics`.
+``training_duett/evaluator.py:101-175, :198-391``). Logits stream from
+the eval step to host numpy; metrics are the sklearn-exact numpy
+implementations in :mod:`..ops.metrics`.
 """
 from __future__ import annotations
 
@@ -84,6 +85,53 @@ def evaluate_dual_pathology(eval_step, model, dataset, split: str,
         "per_label": per,
         "outputs": o,
     }
+
+
+def evaluate_pathology(eval_step, model, dataset, split: str,
+                       batch_size: int, pathology_labels: Sequence[str],
+                       limit: int = 0) -> dict:
+    """``single`` mode (JAX ``evaluator.py:89-119``): per-label stage 2 /
+    stage 4 AUROC and AUPRC and their gaps; main metric = macro stage 4
+    AUROC. ``eval_step`` returns ``stage2_logits`` and
+    ``stage4_logits``."""
+    device = dataset.grid.device
+    acc = {k: [] for k in ("s2", "s4", "y", "mask")}
+    for batch in dataset.iter_batches(split, batch_size, shuffle=False,
+                                      limit=limit):
+        valid = np.asarray(batch.pop("valid")) > 0
+        out = eval_step(model, dataset.grid, dataset.static,
+                        to_device(batch, device))
+        acc["s2"].append(out["stage2_logits"].cpu().numpy()[valid])
+        acc["s4"].append(out["stage4_logits"].cpu().numpy()[valid])
+        acc["y"].append(np.asarray(batch["y_multi"])[valid])
+        acc["mask"].append(np.asarray(batch["y_multi_mask"])[valid])
+    o = {k: np.concatenate(v) for k, v in acc.items()}
+    per = M.masked_multilabel_metrics(o["y"], o["mask"],
+                                      {"stage2": o["s2"], "stage4": o["s4"]})
+    for k, r in enumerate(per):
+        r["name"] = pathology_labels[k]
+        r["gap_auroc"] = r["stage4_auroc"] - r["stage2_auroc"]
+        r["gap_auprc"] = r["stage4_auprc"] - r["stage2_auprc"]
+    return {"labels": list(pathology_labels), "n": int(len(o["y"])),
+            "main_auroc": M.macro_mean(per, "stage4_auroc"),
+            "main_auprc": M.macro_mean(per, "stage4_auprc"),
+            "per_label": per, "outputs": o}
+
+
+def format_pathology_gap_table(result: dict) -> str:
+    """Console stage 2 / stage 4 gap table (evaluator.py:163-175)."""
+    header = (f"{'label':<22s} {'n':>6s} {'pos':>7s} "
+              f"{'s2_auroc':>10s} {'s4_auroc':>10s} {'gap_ro':>8s} "
+              f"{'s2_auprc':>10s} {'s4_auprc':>10s} {'gap_pr':>8s}")
+    lines = [header]
+    for r in result["per_label"]:
+        lines.append(
+            f"{r['name']:<22s} {r['n_valid']:>6d} {r['pos_frac']:>7.4f} "
+            f"{r['stage2_auroc']:>10.4f} {r['stage4_auroc']:>10.4f} "
+            f"{r['gap_auroc']:>+8.4f} "
+            f"{r['stage2_auprc']:>10.4f} {r['stage4_auprc']:>10.4f} "
+            f"{r['gap_auprc']:>+8.4f}")
+    return "\n".join(lines)
 
 
 def _fmt(v, spec="7.3f"):

@@ -25,8 +25,9 @@ needs no teacher and no image.
 With ``save_full_state`` the full train state is saved at every epoch
 boundary (msgpack, ``FullStateResumer``) and ``auto_resume`` continues from
 it bit for bit; a SIGTERM (``utils/preemption.py``) saves it at the next
-boundary and ends the call cleanly. The teacher may be ``dual_patch`` or
-``dual`` (the reference distills only from ``dual``). Not ported, each
+boundary and ends the call cleanly. The teacher may be of any mode: the
+student distills its ``main_logit`` (JAX ``kd_loop.py:80-82``; the
+reference distills only from ``dual``). Not ported, each
 refused naming its ROADMAP item: multi-step dispatch (``steps_per_call >
 1``, P10), the orbax backend (P16), more than one process (P18).
 """

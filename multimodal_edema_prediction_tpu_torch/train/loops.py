@@ -44,11 +44,13 @@ class EarlyStopper:
 
 
 def evaluate_binary_split(eval_step, model, dataset, split: str,
-                          batch_size: int, limit: int = 0) -> Dict[str, float]:
+                          batch_size: int, limit: int = 0,
+                          keep_logits: bool = False) -> Dict[str, float]:
     """Stream a split's logits through ``eval_step(model, grid, static,
     batch)`` to the host and keep the ``valid`` rows (the padded tail's
     are not) → ``binary_metrics`` of ``batch['y']`` (JAX
-    ``loops.py:62-85``, reference evaluator.py:10-37)."""
+    ``loops.py:62-85``, reference evaluator.py:10-37); with
+    ``keep_logits`` the host logits ride along under ``logits``."""
     device = dataset.grid.device
     logits_all, y_all = [], []
     for batch in dataset.iter_batches(split, batch_size, shuffle=False,
@@ -58,7 +60,9 @@ def evaluate_binary_split(eval_step, model, dataset, split: str,
                            to_device(batch, device))
         logits_all.append(logits.cpu().numpy()[keep])
         y_all.append(np.asarray(batch["y"])[keep])
-    return M.binary_metrics(np.concatenate(y_all), np.concatenate(logits_all))
+    logits = np.concatenate(logits_all)
+    r = M.binary_metrics(np.concatenate(y_all), logits)
+    return {**r, "logits": logits} if keep_logits else r
 
 
 @dataclass

@@ -11,6 +11,10 @@ lands in the group its flax counterpart lands in:
     everything else                          lr
     frozen prefixes                          left out of the optimizer
 
+(``label_fn`` replaces these rules, as ``make_optimizer``'s does in JAX:
+LP mode's ``teacher_loop.lp_frozen_label_fn`` puts everything but the
+correction head and β in the frozen group.)
+
 What ``optax.multi_transform`` of per-group ``optax.adamw`` does, in torch:
 every group has its own warmup/cosine schedule read at the step count
 before the update; weight decay applies to every trainable parameter; with
@@ -106,7 +110,8 @@ class MultiGroupAdamW:
     at ``count`` (the number of updates before this one)."""
 
     def __init__(self, model: nn.Module, cfg: OptimConfig, total_steps: int,
-                 frozen_prefixes: Sequence[str] = ()):
+                 frozen_prefixes: Sequence[str] = (),
+                 label_fn: Callable[[str], str] = default_label_fn):
         mults = {"backbone": cfg.backbone_lr_mult,
                  "queries": cfg.query_lr_mult,
                  "correction": cfg.correction_lr_mult, "rest": 1.0}
@@ -116,7 +121,7 @@ class MultiGroupAdamW:
             path = paths[name][1]
             label = "frozen" if any(path.startswith(f)
                                     for f in frozen_prefixes) \
-                else default_label_fn(path)
+                else label_fn(path)
             if label == "frozen":
                 p.requires_grad_(False)
             else:

@@ -1,14 +1,19 @@
-"""Teacher training loop (``dual_patch`` and ``dual``): the port's
-counterpart of
-``multimodal_edema_prediction_tpu/train/teacher_loop.py::train_teacher``
+"""Teacher training loop, every mode and LP mode: the port's counterpart
+of ``multimodal_edema_prediction_tpu/train/teacher_loop.py::train_teacher``
 (reference ``training_duett/trainer.py:216-764``).
 
-Per epoch: shuffled train batches through ``engine.make_teacher_step`` (loss
-sums stay on the device; one host sync per epoch), a finite-loss guard, the
-validation macro fusion AUROC, early stopping and the best checkpoint (JAX
-format), and with ``cfg.eval_train_batches`` > 0 a train-subset evaluation
-and its gap table; at the end the test split is evaluated from the best
-checkpoint, reloaded through ``load_teacher_from_ckpt``.
+Per epoch: shuffled train batches through the mode's step (loss sums stay
+on the device; one host sync per epoch), a finite-loss guard, the
+validation metric, early stopping and the best checkpoint (JAX format),
+and with ``cfg.eval_train_batches`` > 0 a train-subset evaluation and its
+gap table; at the end the test split is evaluated from the best
+checkpoint, reloaded through ``load_teacher_from_ckpt``. The modes (JAX
+``teacher_loop.py:414-501``): ``dual_patch``, ``dual_patch_event`` and
+``dual`` train on the 3-branch loss (``engine.make_teacher_step``) and
+select on the macro fusion AUROC; ``single`` on stage 2 + stage 4
+(``make_teacher_pathology_step``) and the macro stage 4 AUROC; ``legacy``
+on the binary label (``make_teacher_legacy_step``, pixels only) and its
+AUROC.
 
 Image tiers: ``feature_cache="none"`` runs the frozen ViT inside every step
 on pixels; ``"hbm"`` encodes every unique image once into a
@@ -19,7 +24,8 @@ train and eval step; ``"host"`` keeps the same tokens in a
 kernel runs for them in the step; ``"auto"`` takes the bank when it fits
 ``hbm_feature_budget_gb``, else the host store. With ``freeze_cxr=False``
 the ViT trains inside every step on pixels (its attention's gradient
-through K1's backward kernels), so only ``feature_cache="none"`` is legal.
+through K1's backward kernels), so only ``feature_cache="none"`` is legal,
+as it is for ``legacy``.
 
 ``dual`` takes the frozen CXR linear head of ``pretrained_head_ckpt``
 (``train/cxr_head_loop.py``) as its image branch: the head's labels are
@@ -28,6 +34,12 @@ and left out of the optimizer, and both facts written into the
 checkpoint's config sidecar. Its cached tiers hand the step the CLS token
 alone (one K2 gather a step on ``hbm``).
 
+LP mode (``lp_from``, JAX ``teacher_loop.py:81-107, :287-306``): the
+correction-only linear probe of a ``dual_patch`` or ``dual_patch_event``
+checkpoint, loaded into the model (``restore_tolerant``); only the
+correction head and β train, the step runs in eval mode and adds the β
+and correction L2 terms, and each epoch records |β|.
+
 Full-state resume and preemption (JAX ``teacher_loop.py:400-413,
 :692-710``): with ``save_full_state`` the train state (weights, AdamW
 moments, step count, the step generator and the loop's bookkeeping) is
@@ -35,8 +47,7 @@ saved at every epoch boundary, and ``auto_resume`` continues from it bit
 for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
 and ends the call cleanly; ``stop_after_epochs`` pauses after that many
 epochs of one call. Single process only. Not ported yet, each named by its
-ROADMAP item: LP mode and the other perceiver modes (P13), the orbax state
-backend (P16), multi-process (P18).
+ROADMAP item: the orbax state backend (P16), multi-process (P18).
 """
 from __future__ import annotations
 
@@ -48,6 +59,7 @@ import numpy as np
 import torch
 
 from ..config import TeacherConfig, TrainConfig
+from ..convert import load_flax, to_flax
 from ..data.features import (CXRFeatureBank, HostFeatureStore,
                              encode_fn_for_teacher, features_from_batch)
 from ..data.pipeline import AnchorDataset
@@ -57,12 +69,13 @@ from ..models.vit import IMAGE_MEAN, IMAGE_STD
 from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer, load_checkpoint,
-                         load_teacher_from_ckpt)
+                         load_teacher_from_ckpt, restore_tolerant)
 from .cxr_head_loop import load_cxr_head_into_teacher
-from .evaluator import (evaluate_dual_pathology,
-                        format_dual_pathology_gap_table)
-from .loops import EarlyStopper, TrainResult
-from .optim import MultiGroupAdamW
+from .evaluator import (evaluate_dual_pathology, evaluate_pathology,
+                        format_dual_pathology_gap_table,
+                        format_pathology_gap_table)
+from .loops import EarlyStopper, TrainResult, evaluate_binary_split
+from .optim import MultiGroupAdamW, default_label_fn
 from .state import TrainState, param_count
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -95,12 +108,33 @@ def teacher_frozen_prefixes(cfg: TeacherConfig) -> tuple:
     return tuple(frozen)
 
 
-def check_ported(cfg: TeacherConfig) -> None:
-    """Raise on what the port cannot train yet, on every device."""
-    if cfg.perceiver_type not in ("dual_patch", "dual"):
-        raise NotImplementedError(
-            f"perceiver_type={cfg.perceiver_type!r} is not ported yet "
-            "(ROADMAP P13); the port trains 'dual_patch' and 'dual'")
+# the residual-fusion modes: the 3-branch loss, the fusion AUROC, LP mode
+DUAL_MODES = ("dual_patch", "dual_patch_event", "dual")
+LP_MODES = ("dual_patch", "dual_patch_event")
+LP_TRAINABLE = ("perceiver/correction_head", "perceiver/beta")
+
+
+def lp_frozen_label_fn(path: str) -> str:
+    """LP mode's optimizer groups (JAX ``teacher_loop.py:103-107``,
+    reference trainer.py:194-202): only the correction head and β train."""
+    if any(path.startswith(p) for p in LP_TRAINABLE):
+        return "correction"
+    return "frozen"
+
+
+def load_lp_start(model: TeacherModel, lp_from: str,
+                  log: Callable[[str], None]) -> None:
+    """LP mode's start (JAX ``teacher_loop.py:301-306``): the checkpoint's
+    weights and BatchNorm statistics into ``model`` through
+    ``restore_tolerant`` (leaves it lacks keep the model's; any shape
+    mismatch raises)."""
+    ckpt = load_checkpoint(lp_from)
+    params, stats = to_flax(model)
+    params, changed = restore_tolerant(params, ckpt["params"], ())
+    stats, _ = restore_tolerant(stats, ckpt["batch_stats"], ())
+    load_flax(model, params, stats)
+    log(f"[LP] loaded {lp_from} (metric={ckpt['metric']:.4f}); "
+        f"{len(changed)} keys adjusted")
 
 
 def pretrained_head_spec(cfg: TeacherConfig,
@@ -213,9 +247,13 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                   save_full_state: Optional[bool] = None,
                   state_backend: str = "msgpack",
                   stop_after_epochs: Optional[int] = None,
+                  lp_from: Optional[str] = None, lp_beta_l2: float = 1e-3,
+                  lp_corr_l2: float = 1e-2,
                   log: Callable[[str], None] = print) -> TrainResult:
-    """Train the teacher; returns the best val macro fusion AUROC, its
-    checkpoint, the per-epoch history and the test metrics.
+    """Train the teacher; returns the best val metric of its mode (macro
+    fusion AUROC, macro stage 4 AUROC for ``single``, AUROC for
+    ``legacy``), its checkpoint, the per-epoch history and the test
+    metrics.
 
     ``model``: the initial weights (default: ``init_teacher`` from
     ``cfg.seed``), e.g. with a loaded RAD-DINO ViT
@@ -232,14 +270,25 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     ``auto_resume``: continue from the full train state in ``ckpt_dir``,
     if there is one; ``save_full_state`` (default: ``auto_resume``) saves
     it at every epoch boundary; ``stop_after_epochs`` ends this call after
-    that many epochs (the schedule still spans ``cfg.epochs``)."""
-    check_ported(teacher_cfg)
+    that many epochs (the schedule still spans ``cfg.epochs``).
+    ``lp_from``: LP mode from this checkpoint (a ``dual_patch`` or
+    ``dual_patch_event`` teacher's), with the L2 weights ``lp_beta_l2`` of
+    β and ``lp_corr_l2`` of the scaled correction."""
+    mode = teacher_cfg.perceiver_type
+    lp_mode = lp_from is not None
     if feature_cache not in ("none", "auto", "hbm", "host"):
         raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
     if feature_cache != "none" and not teacher_cfg.freeze_cxr:
         raise ValueError(
             "feature_cache requires freeze_cxr=True: cached ViT tokens are "
             "constants, so a trainable CXR branch would never update")
+    if feature_cache != "none" and mode == "legacy":
+        raise ValueError("feature_cache is not supported for the "
+                         "deprecated 'legacy' perceiver mode")
+    if lp_mode and mode not in LP_MODES:
+        # JAX fails here too (no β to regularize, or nothing to train)
+        raise ValueError(f"LP mode trains the correction head and beta of a "
+                         f"{' or '.join(LP_MODES)} teacher, not {mode!r}")
     if save_full_state is None:
         save_full_state = auto_resume
     resumer = FullStateResumer(ckpt_dir, state_backend)
@@ -258,14 +307,16 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         load_cxr_head_into_teacher(pretrained_head_ckpt, model)
         log(f"[dual] pretrained head {pretrained_head_ckpt}: "
             f"keep_idx={head['static_keep_idx']}")
+    if lp_mode:
+        load_lp_start(model, lp_from, log)
     model = model.to(dev)
     dataset.to(dev)
     T = dataset.n_timesteps
     lw = np.ones(len(pathology_labels), np.float32)  # trainer.py:390-391
     image_hook = image_hook or make_synthetic_pixel_hook(
         teacher_cfg.vit.image_size)
-    log(f"params: {param_count(model):,}  mode={teacher_cfg.perceiver_type}"
-        f"  device={dev}")
+    log(f"params: {param_count(model):,}  mode={mode}  lp={lp_mode}  "
+        f"device={dev}")
 
     phase = {}
     feature_source, tier = None, {"tier": "pixels"}
@@ -282,32 +333,75 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     total_steps = max(steps_per_epoch * cfg.epochs, 1)
     state = TrainState(model, MultiGroupAdamW(
         model, cfg.optim, total_steps,
-        frozen_prefixes=teacher_frozen_prefixes(teacher_cfg)))
-    train_step = engine.make_teacher_step(
-        cfg, teacher_cfg.duett, T, lw, None, dtype,
-        feature_source=feature_source)
-    loop_eval = engine.make_teacher_eval(T, dtype,
-                                         feature_source=feature_source)
+        frozen_prefixes=() if lp_mode
+        else teacher_frozen_prefixes(teacher_cfg),
+        label_fn=lp_frozen_label_fn if lp_mode else default_label_fn))
+    uses_dual = mode in DUAL_MODES
+    if uses_dual:
+        train_step = engine.make_teacher_step(
+            cfg, teacher_cfg.duett, T, lw, None, dtype,
+            feature_source=feature_source, lp_mode=lp_mode,
+            lp_beta_l2=lp_beta_l2, lp_corr_l2=lp_corr_l2)
+        loop_eval = engine.make_teacher_eval(T, dtype,
+                                             feature_source=feature_source)
+        loss_keys = ("total", "img_total", "ts_total", "fus_total")
+        if cfg.aux_residual_alpha > 0.0:
+            loss_keys += ("aux_residual",)
+        if lp_mode:
+            loss_keys += ("reg_beta_l2", "reg_corr_l2")
+    elif mode == "single":
+        train_step = engine.make_teacher_pathology_step(
+            cfg, teacher_cfg.duett, T, lw, None, dtype,
+            alpha_stage2=cfg.aux_stage2_alpha,
+            alpha_stage4=cfg.aux_stage4_alpha,
+            feature_source=feature_source)
+        loop_eval = engine.make_teacher_eval(
+            T, dtype, feature_source=feature_source,
+            keys=engine.PATHOLOGY_EVAL_KEYS)
+        loss_keys = ("total", "stage2_total", "stage4_total")
+    else:
+        train_step = engine.make_teacher_legacy_step(
+            cfg, teacher_cfg.duett, T, dtype,
+            aux_alpha=cfg.aux_cxr_alpha if cfg.use_aux_cxr else 0.0)
+        loop_eval = engine.make_teacher_eval(T, dtype, keys=None)
+        loss_keys = ("loss", "main_loss", "aux_loss")
     n_eval = [0]
 
     def eval_step(m, grid, static, batch):
         n_eval[0] += 1
         return loop_eval(m, grid, static, batch)
 
-    def run_eval(m, split: str, limit: int = 0):
-        # 'dual' fuses additively, with no beta (JAX teacher_loop.py:604-606)
-        beta = m.perceiver.beta.detach().cpu().numpy() \
-            if teacher_cfg.perceiver_type == "dual_patch" else None
+    def run_eval(m, split: str, limit: int = 0) -> dict:
+        """The mode's evaluation (JAX ``teacher_loop.py:483-501``); its
+        main metric is under ``main_auroc`` and its gap table under
+        ``table``."""
         t0 = time.perf_counter()
-        r = evaluate_dual_pathology(eval_step, m, dataset, split,
-                                    cfg.batch_size, pathology_labels, beta,
-                                    limit=limit)
+        if uses_dual:
+            # 'dual' fuses additively, with no beta
+            beta = getattr(m.perceiver, "beta", None)
+            r = evaluate_dual_pathology(
+                eval_step, m, dataset, split, cfg.batch_size,
+                pathology_labels,
+                None if beta is None else beta.detach().cpu().numpy(),
+                limit=limit)
+            r["table"] = format_dual_pathology_gap_table(r)
+        elif mode == "single":
+            r = evaluate_pathology(eval_step, m, dataset, split,
+                                   cfg.batch_size, pathology_labels,
+                                   limit=limit)
+            r["table"] = format_pathology_gap_table(r)
+        else:
+            r = evaluate_binary_split(eval_step, m, dataset, split,
+                                      cfg.batch_size, limit=limit,
+                                      keep_logits=True)
+            r = {**r, "main_auroc": r["auroc"], "outputs": {
+                "main": r.pop("logits")}}
+            r["table"] = "binary: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in r.items()
+                if isinstance(v, float))
         phase["eval"] = phase.get("eval", 0.0) + time.perf_counter() - t0
         return r
 
-    loss_keys = ("total", "img_total", "ts_total", "fus_total")
-    if cfg.aux_residual_alpha > 0.0:
-        loss_keys += ("aux_residual",)
     stopper = EarlyStopper(cfg.patience, mode="max")
     tracker = BestKTracker(ckpt_dir, k=1, mode="max", prefix="best")
     # the step generator: dropout and augmentation; saved with the state
@@ -353,10 +447,11 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         sums = acc.tolist() if acc is not None else [0.0] * len(loss_keys)
         phase["train"] += time.perf_counter() - t0
         run = dict(zip(loss_keys, sums))
-        if not np.isfinite(run["total"]):
+        total = run[loss_keys[0]]
+        if not np.isfinite(total):
             raise FloatingPointError(
                 f"non-finite training loss at epoch {epoch} "
-                f"(loss={run['total']}); aborting before the optimizer "
+                f"(loss={total}); aborting before the optimizer "
                 "state is poisoned")
         val = run_eval(model, "val")
         val_metric = val["main_auroc"]
@@ -370,9 +465,17 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                         "val_main_auroc": val_metric})
         parts = " ".join(f"{k}={run[k] / max(nb, 1):.3f}"
                          for k in loss_keys[1:])
-        log(f"epoch {epoch:3d}  loss={run['total'] / max(nb, 1):.4f} "
+        log(f"epoch {epoch:3d}  loss={total / max(nb, 1):.4f} "
             f"({parts})  val_AUROC={val_metric:.4f}"
             f"{'  *' if improved else ''}")
+        if lp_mode:
+            # LP's β telemetry (JAX teacher_loop.py:648-651; its wandb
+            # scalars are history keys here)
+            babs = model.perceiver.beta.detach().abs()
+            history[-1]["lp_beta_mean_abs"] = float(babs.mean())
+            history[-1]["lp_beta_max_abs"] = float(babs.max())
+            log(f"[LP] |beta| mean {history[-1]['lp_beta_mean_abs']:.4f} "
+                f"max {history[-1]['lp_beta_max_abs']:.4f}")
         if cfg.eval_train_batches > 0:
             # train-vs-val overfit reading (JAX teacher_loop.py:656-675;
             # its wandb scalars are history keys here)
@@ -380,8 +483,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
             history[-1]["train_eval_main_auroc"] = tr["main_auroc"]
             history[-1]["train_eval_main_gap_over_val"] = \
                 tr["main_auroc"] - val_metric
-            log("train-subset gap table:\n"
-                + format_dual_pathology_gap_table(tr))
+            log("train-subset gap table:\n" + tr["table"])
         preempted = preemption.requested()
         if save_full_state or preempted:
             t0 = time.perf_counter()
@@ -406,13 +508,12 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     best_metric, best_path = tracker.best
     best_model, _, _ = load_teacher_from_ckpt(best_path, device=dev)
     test = run_eval(best_model, "test")
-    log(f"test: main AUROC={test['main_auroc']:.4f}\n"
-        + format_dual_pathology_gap_table(test))
+    log(f"test: main AUROC={test['main_auroc']:.4f}\n" + test["table"])
 
     ran = n_steps - resumed_steps
     sps = ran / max(elapsed, 1e-9)
     test_metrics = {k: test[k] for k in ("main_auroc", "main_auprc",
-                                         "per_label")}
+                                         "per_label", "auprc") if k in test}
     return TrainResult(
         best_metric=best_metric, best_path=best_path, history=history,
         test_metrics=test_metrics, steps_per_sec=sps,

@@ -771,3 +771,56 @@ def test_kd_step_on_the_card_matches_a_cpu_copy(cuda):
     for n, g in grads["cpu"].items():
         scale = max(float(g.abs().max()), floor)
         assert float((grads["cuda"][n] - g).abs().max()) <= 1e-4 * scale, n
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.1)])
+@pytest.mark.parametrize("mode", ["single", "legacy", "dual_patch_event"])
+def test_mode_forward_on_the_card_matches_plain(cuda, mode, dtype, tol,
+                                                monkeypatch):
+    """The other teacher modes' pixel forward on the card at a geometry
+    that opens K1's gate (224² → 257 tokens, 2 heads of 64): through K1,
+    one launch a ViT layer and no other kernel (``dual_patch_event``'s
+    image cross-attention takes no ``use_flash``, and its event mask
+    closes the gate), against the same model's forward with the plain
+    attention on the same card: float32 (TF32 off) within 1e-4 of each
+    output's largest magnitude (at least 1), bf16 within 0.1 (as
+    ``tests/test_torch_teacher.py`` bounds bf16)."""
+    from multimodal_edema_prediction_tpu_torch.config import (
+        DuettConfig, PerceiverConfig, TeacherConfig, ViTConfig)
+    from multimodal_edema_prediction_tpu_torch.models import layers
+    from multimodal_edema_prediction_tpu_torch.models.teacher import \
+        init_teacher
+    cfg = TeacherConfig(
+        duett=DuettConfig(n_variables=5, d_embedding=8, n_layers=1),
+        vit=ViTConfig(image_size=224, d_model=128, n_layers=2, n_heads=2,
+                      d_feedforward=128),
+        perceiver=PerceiverConfig(d_latent=32, n_heads=2, n_latents=4,
+                                  use_flash=True),
+        perceiver_type=mode)
+    model = init_teacher(cfg, 0).to(cuda).eval()
+    rng = np.random.default_rng(0)
+    counts = rng.integers(0, 3, size=(4, 24, 5)).astype(np.float32)
+    counts[0, :, 2] = 0.0                # variable 2 never observed
+    inputs = [torch.from_numpy(a).to(cuda, dtype) for a in (
+        np.concatenate([rng.normal(size=(4, 24, 5)), counts,
+                        np.zeros((4, 24, 1))], -1).astype(np.float32),
+        rng.normal(size=(4, 18)).astype(np.float32),
+        np.tile(np.arange(1, 25, dtype=np.float32) / 24, (4, 1)),
+        rng.normal(size=(4, 224, 224, 3)).astype(np.float32))]
+    key = A.launch_key("flash_attention", dtype)
+    before = dict(A.LAUNCHES)
+    with torch.no_grad():
+        got = model(*inputs)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES == {**before, key: before[key] + 2}
+    monkeypatch.setattr(layers, "flash_mha", A.flash_mha_reference)
+    with torch.no_grad():
+        want = model(*inputs)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        w = w.float()
+        assert torch.isfinite(got[k]).all(), k
+        scale = max(1.0, float(w.abs().max())) if dtype == torch.float32 \
+            else 1.0
+        assert float((got[k].float() - w).abs().max()) <= tol * scale, k

@@ -10,7 +10,9 @@ flags is either accepted by the port with the JAX default, or listed in
 (with a value the JAX parser takes), raises ``NotImplementedError`` naming
 that item right after parsing, before any data, model or device work.
 ``--eval_train_batches`` is ported: one CPU teacher run shows the
-train-subset evaluation and its gap table.
+train-subset evaluation and its gap table. The teacher's P13 flags (the
+other modes and LP mode) were waived until it was done; each now reaches the
+configuration or the loop's arguments (``PORTED``).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from multimodal_edema_prediction_tpu.cli import serve as jax_serve
 from multimodal_edema_prediction_tpu.cli import train_cxr_head as jax_cxr_head
@@ -32,6 +35,17 @@ from multimodal_edema_prediction_tpu_torch.cli import (train_student,
                                                        train_teacher)
 from multimodal_edema_prediction_tpu_torch.train.teacher_loop import \
     load_teacher_from_ckpt
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The CLI runs here train tiny models, which gain nothing from
+    intra-op threads, and the suite runs several test processes on the
+    host's cores at once."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 CLIS = {"train_teacher": (jax_teacher, train_teacher),
         "train_ssl": (jax_ssl, train_ssl),
@@ -51,11 +65,6 @@ _LOGGING = {"--log_every": "P20", "--wandb_project": "P20",
 WAIVERS = {
     "train_teacher": {
         **_LOGGING,
-        "--n_latents": "P13", "--n_perceiver_layers": "P13",
-        "--aux_stage2_alpha": "P13", "--aux_stage4_alpha": "P13",
-        "--use_aux_cxr": "P13", "--aux_cxr_alpha": "P13", "--lp_ckpt": "P13",
-        "--lp_beta_l2": "P13", "--lp_corr_l2": "P13",
-        "--lp_correction_dropout": "P13",
         "--image_bank": "P15", "--hbm_image_budget_gb": "P15",
         "--u8_store_path": "P15", "--prefetch_depth": "P15",
         "--grad_diag_every": "P19", "--grad_diag_batches": "P19"},
@@ -64,6 +73,24 @@ WAIVERS = {
     "train_cxr_head": {},
     "serve": {"--cxr_jpeg_root": "P17", "--data_parallel": "P17",
               "--aot_dir": "P17"},
+}
+
+
+# the teacher's flags that ROADMAP P13 waived until it was done → where each
+# given value lands: the configs of ``cli/common.configs_from_args`` and
+# ``cli/train_teacher.teacher_config``, or ``train_teacher``'s LP arguments
+PORTED = {
+    "--n_latents": lambda c: c["teacher"].perceiver.n_latents,
+    "--n_perceiver_layers": lambda c: c["teacher"].perceiver.n_layers,
+    "--aux_stage2_alpha": lambda c: c["train"].aux_stage2_alpha,
+    "--aux_stage4_alpha": lambda c: c["train"].aux_stage4_alpha,
+    "--use_aux_cxr": lambda c: c["train"].use_aux_cxr,
+    "--aux_cxr_alpha": lambda c: c["train"].aux_cxr_alpha,
+    "--lp_ckpt": lambda c: c["lp"]["lp_from"],
+    "--lp_beta_l2": lambda c: c["lp"]["lp_beta_l2"],
+    "--lp_corr_l2": lambda c: c["lp"]["lp_corr_l2"],
+    "--lp_correction_dropout":
+        lambda c: c["teacher"].perceiver.correction_dropout,
 }
 
 
@@ -121,13 +148,32 @@ def test_every_jax_flag_parses_or_is_waived(cli):
             assert ours[flag].default == action.default, flag
 
 
-@pytest.mark.parametrize("cli,flag", [(c, f) for c in sorted(WAIVERS)
-                                      for f in sorted(WAIVERS[c])])
+@pytest.mark.parametrize("cli,flag", sorted(
+    [(c, f) for c in WAIVERS for f in WAIVERS[c]]
+    + [("train_teacher", f) for f in PORTED]))
 def test_waived_flag_raises_naming_its_item(cli, flag):
+    """A waived flag raises naming its item; a flag of ``PORTED`` (waived
+    until its item was done) parses to the value given, which reaches the
+    configs or the LP arguments, with ``--lp_only_correction`` (JAX sets
+    LP mode's dropout and checkpoint only with it)."""
     jax_mod, port_mod = CLIS[cli]
     argv = _given(_actions(_parser(jax_mod))[flag], flag)
     # a valid JAX invocation
     _parser(jax_mod).parse_args(REQUIRED.get(cli, []) + argv)
+    if flag in PORTED:
+        from multimodal_edema_prediction_tpu_torch.cli.common import \
+            configs_from_args
+        from multimodal_edema_prediction_tpu_torch.config import ViTConfig
+        args = port_mod.build_parser().parse_args(
+            argv + ["--lp_only_correction"])
+        dcfg, duett, train = configs_from_args(args)
+        got = PORTED[flag]({
+            "train": train, "lp": port_mod.lp_kwargs(args),
+            "teacher": port_mod.teacher_config(args, dcfg, duett,
+                                               ViTConfig())})
+        want = True if len(argv) == 1 else type(got)(argv[1])
+        assert got == want, (flag, got)
+        return
     with pytest.raises(NotImplementedError,
                        match=f"{flag}.*ROADMAP {WAIVERS[cli][flag]}"):
         port_mod.main(BASE[cli] + argv)

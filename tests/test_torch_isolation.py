@@ -37,7 +37,8 @@ def test_imports_bring_in_no_jax():
                  "cli.train_teacher", "cli.train_ssl", "models.student",
                  "train.kd_loop", "cli.train_student", "utils.preemption",
                  "models.cxr_head", "train.cxr_head_loop",
-                 "cli.train_cxr_head"):
+                 "cli.train_cxr_head", "models.perceiver", "models.teacher",
+                 "train.engine", "train.evaluator", "ops.losses"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -87,6 +88,21 @@ def test_train_cli_device_default_is_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli_train.main(["--vit_size", "tiny", "--synthetic_stays", "40",
                         "--ckpt_dir", str(tmp_path)])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--perceiver_type", "single"], ["--perceiver_type", "legacy"],
+    ["--perceiver_type", "dual_patch_event"],
+    ["--perceiver_type", "dual_patch_event", "--lp_only_correction",
+     "--lp_ckpt", "x.msgpack"]])
+def test_every_teacher_mode_defaults_to_the_card(argv, tmp_path):
+    """The other teacher modes and LP mode run on the card unless the CPU
+    is asked for: without one they raise before any model work."""
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--vit_size", "tiny", "--synthetic_stays", "40",
+                        "--ckpt_dir", str(tmp_path)] + argv)
 
 
 def test_ssl_cli_device_default_is_cuda(tmp_path):

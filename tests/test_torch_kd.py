@@ -483,8 +483,9 @@ def test_kd_loop_refuses_what_is_not_ported(teacher_ckpt, tmp_path,
         K.train_student_kd(None, scfg, teacher_ckpt, cfg, str(tmp_path),
                            device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
-    # a teacher of a mode not ported yet (its sidecar says so) raises
-    # naming P13 ('dual' distills: test_kd_step_from_a_dual_teacher_...)
+    # every teacher mode distills since P13 was ported (a 'single' one:
+    # tests/test_torch_modes_step.py); a sidecar that names another mode
+    # than its weights' is refused by the loader, before any work
     single = str(tmp_path / "single.msgpack")
     shutil.copy(teacher_ckpt, single)
     with open(teacher_ckpt + ".config.json") as f:
@@ -492,7 +493,7 @@ def test_kd_loop_refuses_what_is_not_ported(teacher_ckpt, tmp_path,
     sidecar["model"]["perceiver_type"] = "single"
     with open(single + ".config.json", "w") as f:
         json.dump(sidecar, f)
-    with pytest.raises(NotImplementedError, match="P13"):
+    with pytest.raises(ValueError, match="do not fit"):
         K.train_student_kd(None, scfg, single, cfg, str(tmp_path),
                            device="cpu")
 

@@ -104,8 +104,26 @@ def test_feats_to_input_used_by_eval(pair):
 
 
 @pytest.mark.parametrize("mode", ["single", "legacy", "dual_patch_event"])
-def test_other_modes_are_queued(mode):
-    cfg = TeacherConfig.from_dict({**_jcfg().to_dict(),
-                                   "perceiver_type": mode})
-    with pytest.raises(NotImplementedError, match="ROADMAP P13"):
-        TeacherModel(cfg)
+def test_other_modes_are_queued(mode, pair):
+    """The modes ROADMAP P13 queued, now ported, build and run: the
+    eval from windows (serving's step, the ViT through ``flash_mha`` at
+    this geometry) returns the outputs JAX's returns for the mode (the
+    fusion outputs for ``dual_patch_event``, ``main_logit`` alone for
+    ``single`` and ``legacy``), equal within 1e-4."""
+    p = pair
+    jcfg = _jcfg().replace(perceiver_type=mode)
+    jmodel = JT(jcfg)
+    params, stats = init_perturbed(jmodel, p["x_in"], p["static"],
+                                   p["bin_ends"], p["px"])
+    model = load_flax(TeacherModel(TeacherConfig.from_dict(jcfg.to_dict())),
+                      params, stats).eval()
+    batch = {"bin_ends": p["bin_ends"], "pixel_u8": p["pixel_u8"]}
+    want = jengine.make_teacher_eval_from_windows(jmodel, jnp.float32)(
+        params, stats, p["x_ts"], p["static"], batch)
+    got = engine.make_teacher_eval_from_windows(model, torch.float32)(
+        p["x_ts"], p["static"], batch)
+    assert sorted(got) == sorted(want)
+    assert ("fusion_logits" in got) == (mode == "dual_patch_event")
+    for k in got:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   atol=1e-4, rtol=1e-4, err_msg=k)
