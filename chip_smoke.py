@@ -299,6 +299,32 @@ The teacher's other modes and LP mode (ROADMAP P13's second half) add:
             ``hbm``. Every kernel row of the summary has these paths under
             ``launches_by_path``.
 
+Real chest X-rays (ROADMAP P15: the JPEG decoder, the image feed tiers, the
+prefetcher) add:
+
+21. jpeg  the cohort's 405 JPEGs (512 x 416), the catalog's 775 (384 x
+            320) and 8 at MIMIC-CXR-JPG's 3056 x 2544, grayscale, written
+            by ``scripts/jpeg_fixtures.py``; what the host offers a decoder
+            and the route the port takes (libjpeg built with g++, or
+            nvJPEG and the resize kernel ``csrc/jpeg_resize.cu`` on the
+            card, held against its plain version and within JPEG_LEVELS of
+            the rows libjpeg decoded, ``tests/goldens/jpeg_rows_56.npz``);
+            decode images/s of the MIMIC-size files; the teacher CLI with
+            ``--cxr_jpeg_root`` on the card's u8 bank, ``stream`` with
+            ``--prefetch_depth`` 2 and 0 (losses bit-equal), the disk u8
+            store built and reopened (losses bit-equal to the bank's) and
+            the encode-once tier, each run's launches exactly as its steps,
+            tier and decoder route make them; the teacher CLI without JPEGs
+            (procedural pixels, and the encode-once tier) at
+            ``--prefetch_depth`` 0, 2, 2, 0 (losses bit-equal); each tier's
+            steady step and host feed, and a ``stream`` batch's feed at
+            MIMIC size; one unfrozen step from the bank; the CXR head's CLI
+            over the catalog's JPEGs; ``cli/serve``'s ``jpeg_root`` startup
+            serving clients by image id (K2 2 a batch, K1 0), served =
+            direct, an unknown id answering NaN. The summary gains the
+            resize kernel's two rows (u8, float32) and the ``jpeg`` paths
+            under every row's ``launches_by_path``.
+
 Then the run's total seconds on a line of their own.
 
 Each float32 row of the summary carries ``tc_bound_ms`` beside
@@ -472,14 +498,18 @@ def import_port():
                                                            train_ssl,
                                                            train_student,
                                                            train_teacher)
-    from multimodal_edema_prediction_tpu_torch.data import (features, ingest,
-                                                            pipeline, sliding,
+    from multimodal_edema_prediction_tpu_torch.data import (features, images,
+                                                            ingest,
+                                                            native_loader,
+                                                            pipeline,
+                                                            prefetch,
+                                                            sliding,
                                                             synthetic)
     from multimodal_edema_prediction_tpu_torch.models import (duett, student,
                                                               teacher, vit)
     from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
                                                            dual_axis, gather,
-                                                           ln_qkv)
+                                                           jpeg, ln_qkv)
     from multimodal_edema_prediction_tpu_torch.serve import predictor, server
     from multimodal_edema_prediction_tpu_torch.train import (checkpoint,
                                                              cxr_head_loop,
@@ -498,7 +528,9 @@ def import_port():
                 cli_serve=cli_serve, train_teacher=train_teacher,
                 train_ssl=train_ssl, student=student, kd_loop=kd_loop,
                 train_student=train_student, train_cxr_head=train_cxr_head,
-                cxr_head_loop=cxr_head_loop, preemption=preemption)
+                cxr_head_loop=cxr_head_loop, preemption=preemption,
+                images=images, native_loader=native_loader,
+                prefetch=prefetch, jpeg=jpeg)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -1550,15 +1582,18 @@ def phase_unfreeze_step(port, device, cfg, reps: int = 5,
     return info
 
 
+KERNEL_MODULES = ("attention", "gather", "dual_axis", "ln_qkv", "jpeg")
+
+
 def reset_counts(port) -> None:
-    for name in ("attention", "gather", "dual_axis", "ln_qkv"):
+    for name in KERNEL_MODULES:
         port[name].reset_launches()
 
 
 def read_counts(port) -> dict:
     """Every kernel's launches: by C entry point, and K1's and K4's float32
     kernels under their own keys (``flash_attention_f32``, ...)."""
-    return {k: v for name in ("attention", "gather", "dual_axis", "ln_qkv")
+    return {k: v for name in KERNEL_MODULES
             for k, v in port[name].LAUNCHES.items()}
 
 
@@ -3041,6 +3076,719 @@ def phase_resume(port, device, card: str = "") -> dict:
     return info
 
 
+JPEG_RUNS = os.path.join(REPO, "build", "chip_smoke_jpeg")
+# the cohort's files (one per anchor image), the catalog's, and the decode
+# timing's MIMIC-CXR-JPG-size ones: grayscale, quality 90
+JPEG_COHORT_SHAPE = (512, 416)
+JPEG_CATALOG_SHAPE = (384, 320)
+JPEG_N_FULL = 8
+# the card route (nvJPEG + the resize kernel) against the rows libjpeg
+# decoded (tests/goldens/jpeg_rows_56.npz), grayscale files, in levels:
+# another inverse DCT, then the same bilinear resize
+JPEG_LEVELS = 2
+# the resize kernel against its plain version, the same float32 bilinear
+# sample whose position (y + 0.5)·sy − 0.5 the kernel contracts into one
+# FMA: the weights may move by an ulp of a coordinate (≤ 2^-11 for a side
+# ≤ 4096), times a neighbour step ≤ 255 levels, ≤ 0.125 levels. u8: the
+# one level a rounding half may move; float32: 0.125 / 255 / the smallest
+# std (0.224) ≈ 2.2e-3 of the normalized scale
+TOL_RESIZE_U8 = 1.0
+TOL_RESIZE_F32 = 3e-3
+JPEG_RESIZE_SOURCE = f"{PKG}/csrc/jpeg_resize.cu"
+JPEG_RESIZE_REPLACES = (
+    "native/mmedema_native.cpp:130 bilinear_at, :152 "
+    "decode_jpeg_resize_normalize, :173 decode_jpeg_resize_u8 (host C++; "
+    "no TPU kernel: the card's decode where the host has no libjpeg)")
+
+
+def _write_fixtures(ids, shape, out_dir, J) -> dict:
+    """``{id}.jpg`` for each id from ``scripts/jpeg_fixtures.py``, split
+    over 8 runs of that script as subprocesses; {"files", "bytes",
+    "shape", "seconds"}."""
+    t0 = time.perf_counter()
+    sizes = J.write_jpegs(out_dir, ids, *shape, processes=8)
+    return {"files": len(sizes), "bytes": int(sum(sizes.values())),
+            "shape": list(shape), "seconds": time.perf_counter() - t0}
+
+
+def _decoder_probe(port) -> dict:
+    """What the host offers a JPEG decoder, and the route the port takes."""
+    nl = port["native_loader"]
+    flags = ""
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if line.startswith("flags"):
+                flags = line
+                break
+    try:
+        ld = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                            text=True).stdout
+        libs = sorted({ln.split()[0] for ln in ld.splitlines()
+                       if "jpeg" in ln})
+    except OSError as e:
+        libs = [f"ldconfig: {e}"]
+    gxx = shutil.which("g++")
+    return {"route": nl.route(),
+            "gxx": subprocess.run([gxx, "--version"], capture_output=True,
+                                  text=True).stdout.splitlines()[0]
+            if gxx else None,
+            "jpeglib_h": [p for p in nl.JPEG_HEADERS if os.path.exists(p)],
+            "shared_libraries": libs,
+            "nvjpeg": port["jpeg"].nvjpeg_available(),
+            "cpu_avx2": " avx2 " in flags, "cpu_fma": " fma " in flags}
+
+
+def _resize_source_rows(H: int, side: int) -> int:
+    """How many of an ``H``-row source's rows the resize to ``side`` rows
+    reads: rows y0 and y0 + 1 of each output row, the position computed in
+    float32 as the kernel computes it."""
+    sy = np.float32(H) / np.float32(side)
+    fy = (np.arange(side, dtype=np.float32) + np.float32(0.5)) * sy \
+        - np.float32(0.5)
+    y0 = np.clip(np.floor(fy), 0, H - 1).astype(np.int64)
+    return len(np.union1d(y0, np.minimum(y0 + 1, H - 1)))
+
+
+def _resize_check(port, device, full_blob: bytes) -> dict:
+    """The resize kernel at the main path's shapes (a MIMIC-size grayscale
+    file decoded on the card → 518², uint8 and float32) against its plain
+    version, timed with the plain version, a PyTorch yardstick
+    (``F.interpolate``, bilinear, on the float image) and the bound."""
+    import torch
+    import torch.nn.functional as F
+    jp, vit = port["jpeg"], port["vit"]
+    mean, std = vit.IMAGE_MEAN, vit.IMAGE_STD
+    if port["native_loader"].route() == "nvjpeg":
+        dec = jp.decoder(device)
+        src = dec.decode(full_blob)
+        dec.stream.synchronize()
+    else:       # the libjpeg route's full-size image, copied to the card
+        import sys as _sys
+        _sys.path.insert(0, os.path.join(REPO, "scripts"))
+        import jpeg_fixtures as J
+        src = torch.from_numpy(J.cxr_like(7, *J.MIMIC_CXR_SHAPE)[..., None])
+        src = src.to(device)
+    H, W, C = src.shape
+    rows = _resize_source_rows(H, 518)
+    out = {}
+    for kind, m, s in (("u8", None, None), ("f32", mean, std)):
+        got = jp.jpeg_resize(src, 518, m, s)
+        want = jp.jpeg_resize_reference(src, 518, m, s)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        rerun = torch.equal(got, jp.jpeg_resize(src, 518, m, s))
+        out_bytes = 518 * 518 * 3 * (1 if m is None else 4)
+        # the source rows bilinear_at reads, each whole: a row's 2 · 518
+        # sampled columns, ~4.9 apart, touch every 32-byte sector of it
+        nbytes = rows * W * C + out_bytes
+        # ~15 float operations an output value (two lerps of two, the
+        # weights, and for float32 the scale and normalization)
+        ops = 15 * 518 * 518 * 3
+        bytes_ms, ops_ms = nbytes / PEAK_BYTES * 1e3, \
+            ops / PEAK_F32_FLOPS * 1e3
+        x = src.permute(2, 0, 1)[None]
+        ms, plain_ms, lib_ms = paired_ms([
+            lambda: jp.jpeg_resize(src, 518, m, s),
+            lambda: jp.jpeg_resize_reference(src, 518, m, s),
+            lambda: F.interpolate(x.float(), size=(518, 518),
+                                  mode="bilinear", align_corners=False)],
+            device)
+        out[kind] = {"case": f"[{H}, {W}, {C}] uint8 → [518, 518, 3] "
+                             f"{'uint8' if m is None else 'float32'}",
+                     "source_rows_read": rows, "bytes_moved": nbytes,
+                     "max_abs_err": err, "bit_equal_rerun": rerun,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_call": "F.interpolate(bilinear, "
+                                     "align_corners=False) of the float "
+                                     "image, the cast included",
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations"}
+        tol = TOL_RESIZE_U8 if m is None else TOL_RESIZE_F32
+        if err > tol or not rerun:
+            raise AssertionError(f"jpeg_resize {kind}: max abs err {err} "
+                                 f"(tolerance {tol}), rerun {rerun}")
+    return out
+
+
+def _golden_check(port) -> dict:
+    """The route's rows of ``tests/goldens/jpeg_rows_56.npz`` against the
+    rows libjpeg decoded there: per file, the max level difference and its
+    distribution (u8) and the float32 max abs difference."""
+    images = port["images"]
+    g = np.load(os.path.join(REPO, "tests", "goldens", "jpeg_rows_56.npz"))
+    blobs = [g["blob"][a:b].tobytes()
+             for a, b in zip(g["offsets"][:-1], g["offsets"][1:])]
+    vit = port["vit"]
+    u8 = images.host_pixels(images.decode_batch_u8(blobs, 56))
+    f32 = images.host_pixels(images.decode_batch(blobs, 56, vit.IMAGE_MEAN,
+                                                 vit.IMAGE_STD))
+    files = []
+    for i in range(len(blobs)):
+        d = u8[i].astype(int) - g["u8"][i].astype(int)
+        vals, counts = np.unique(d, return_counts=True)
+        files.append({"gray": bool(g["gray"][i]),
+                      "u8_max_levels": int(np.abs(d).max()),
+                      "u8_level_counts": dict(zip(map(str, vals.tolist()),
+                                                  counts.tolist())),
+                      "f32_max_abs": float(np.abs(f32[i] - g["f32"][i])
+                                           .max())})
+    return {"files": files,
+            "gray_max_levels": max(f["u8_max_levels"] for f in files
+                                   if f["gray"])}
+
+
+def _decode_under_load(port, device, blobs: list, reps: int = 4) -> dict:
+    """Fault F5's check: ``decode_batch`` of ``blobs`` while a thread keeps
+    the default stream busy with products (as the training step does while
+    the prefetch worker decodes) against the same decode on an idle card;
+    the number of files that differ in each repetition (0 on either
+    route)."""
+    import torch
+    images, vit = port["images"], port["vit"]
+
+    def decode():
+        return images.host_pixels(images.decode_batch(
+            blobs, 518, vit.IMAGE_MEAN, vit.IMAGE_STD))
+
+    idle = decode()
+    x = torch.randn(8192, 8192, device=device)
+    stop = threading.Event()
+
+    def busy():
+        y = x
+        while not stop.is_set():
+            for _ in range(20):
+                y = (y @ x) * 1e-4
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=busy)
+    th.start()
+    try:
+        differing = [int((np.abs(decode() - idle).reshape(len(blobs), -1)
+                          .max(1) > 0).sum()) for _ in range(reps)]
+    finally:
+        stop.set()
+        th.join()
+    del x
+    return {"files": len(blobs), "differing_files": differing}
+
+
+def _decode_rates(port, blobs: list) -> dict:
+    """Images/s of ``decode_batch_u8`` and ``decode_batch`` over the
+    MIMIC-size files at 518, with 1 and 4 threads (median of 3)."""
+    images, vit = port["images"], port["vit"]
+    out = {}
+    for threads in (1, 4):
+        for kind in ("u8", "f32"):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                if kind == "u8":
+                    images.decode_batch_u8(blobs, 518, n_threads=threads)
+                else:
+                    images.decode_batch(blobs, 518, vit.IMAGE_MEAN,
+                                        vit.IMAGE_STD, n_threads=threads)
+                times.append(time.perf_counter() - t0)
+            out[f"{kind}_threads{threads}_images_per_s"] = \
+                len(blobs) / statistics.median(times)
+    return out
+
+
+def _jpeg_cli_run(port, device, argv: list, way: str, route: str) -> dict:
+    """One ``cli/train_teacher.main`` run, from the cohort's JPEGs or (with
+    no ``--cxr_jpeg_root``) procedural pixels: every kernel's launches over
+    exactly this run against the ones its steps, its tier and the decoder
+    route make; the losses; the train window's samples/s."""
+    import math
+
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_teacher"].main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    ex = res.extras
+    steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
+    itier = ex["image_tier"]
+    n_layers = port["config"].ViTConfig().n_layers
+    features = way == "features"
+    n_img = ex["feature_tier"]["n_images"] if features else \
+        itier.get("n_images", 0)
+    card = route == "nvjpeg" and "--cxr_jpeg_root" in argv
+    # the card route's resize launches: one a decoded file. The bank and
+    # a new u8 store decode every image once (u8); a stream run every
+    # train and eval batch, padded to 32 (float32); the encode-once build
+    # every image once (float32); a reopened store none
+    decoded_u8 = n_img if way in ("hbm", "u8_store") else 0
+    decoded_f32 = 32 * (steps + evals) if way.startswith("stream") else (
+        n_img if features else 0)
+    expect = {**dict.fromkeys(launches, 0),
+              "flash_attention": n_layers * (
+                  math.ceil(n_img / 16) if features else steps + evals),
+              "gather_rows_bulk": 2 * (steps + evals) if features else 0,
+              "jpeg_resize_u8": decoded_u8 if card else 0,
+              "jpeg_resize_f32": decoded_f32 if card else 0}
+    phase = ex["phase_seconds"]
+    return {"argv": [a for a in argv[argv.index("--no_save_state") + 1:]
+                     if not a.startswith(JPEG_RUNS)],
+            "wall_s": wall, "launches": launches,
+            "expected_launches": expect, "train_steps": steps,
+            "eval_steps": evals, "image_tier": itier,
+            "feature_build_s": phase.get("feature_build"),
+            "train_s": phase["train"],
+            "train_samples_per_s": steps * 32 / phase["train"],
+            "history": res.history,
+            "epoch_losses": [h["train_total"] for h in res.history],
+            "val_auroc": [h["val_main_auroc"] for h in res.history],
+            "test_auroc": res.test_metrics["main_auroc"],
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "best_path": res.best_path}
+
+
+def _losses(history: list) -> list:
+    """Each epoch's mean train losses (every ``train_`` key)."""
+    return [{k: v for k, v in h.items() if k.startswith("train_")}
+            for h in history]
+
+
+def _feed_ms(hook, host: dict, device, reps: int = 3) -> float:
+    """Median ms of one batch's host feed: the hook, then the copy to the
+    card (``engine.to_device``), host clock to a sync."""
+    import torch
+    from multimodal_edema_prediction_tpu_torch.train import engine
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.to_device(hook(dict(host)), device)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
+    """Real chest X-rays (ROADMAP P15) at full width: the default
+    ``TeacherConfig`` (ViT-B/14 at 518, DuETT over 34 variables, bf16),
+    240 synthetic stays (405 images), batch 32, 2 epochs, their JPEGs
+    written by ``scripts/jpeg_fixtures.py``.
+
+    The host's decoder facts and the route taken; on the card route
+    (nvJPEG + ``csrc/jpeg_resize.cu``) the golden rows within JPEG_LEVELS
+    of libjpeg's and the resize kernel against its plain version; decode
+    images/s of MIMIC-size files (1 and 4 threads, u8 and float32). The
+    teacher CLI with ``--cxr_jpeg_root`` on each tier (the card's u8 bank,
+    ``stream`` with prefetch depth 2 and 0, the disk u8 store built then
+    reopened: 4 batches an epoch; the encode-once tier: whole epochs), each
+    run's launches exactly as its steps, tier and route make them, the
+    stream runs' losses bit-equal, the store's and the bank's too; the
+    prefetcher's A/B without JPEGs (procedural pixels, the encode-once
+    tier: depth 0, 2, 2, 0, losses bit-equal); each tier's steady step
+    (CUDA events, peak memory, ``torch.profiler``) and host feed, and the
+    ``stream`` feed of 32 MIMIC-size files; one unfrozen step from the bank (K1's forward, D, dkv, dq
+    12 each); the CXR head's CLI over the catalog's 775 JPEGs (K1's float32
+    forward 156 launches); ``cli/serve``'s ``jpeg_root`` startup (every
+    file encoded once) serving clients by image id (K2 2 a batch, K1 0),
+    served = direct within SERVE_TOL, an unknown id NaN."""
+    import math
+
+    import torch
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import jpeg_fixtures as J
+    shutil.rmtree(JPEG_RUNS, ignore_errors=True)
+    os.makedirs(JPEG_RUNS)
+    seconds = {"start": time.perf_counter()}
+    cfgmod, P, S = port["config"], port["pipeline"], port["synthetic"]
+    dcfg = cfgmod.DataConfig()
+    ds = S.make_synthetic(seed=0, n_stays=240, n_subjects=80,
+                          n_variables=34)
+    anchor_ids = np.unique(P.build_anchor_dataset(
+        ds, P.meta_from_events(ds, dcfg), dcfg).anchor["image_ids"])
+    cohort = os.path.join(JPEG_RUNS, "cohort")
+    catalog = os.path.join(JPEG_RUNS, "catalog")
+    fixtures = {
+        "cohort": _write_fixtures(anchor_ids, JPEG_COHORT_SHAPE, cohort, J),
+        "catalog": _write_fixtures(ds.cxr_catalog.image_ids,
+                                   JPEG_CATALOG_SHAPE, catalog, J)}
+    mimic = os.path.join(JPEG_RUNS, "mimic_size")
+    fixtures["mimic_size"] = _write_fixtures(range(JPEG_N_FULL),
+                                             J.MIMIC_CXR_SHAPE, mimic, J)
+    full = [port["images"].JpegStore(root=mimic).get(i)
+            for i in range(JPEG_N_FULL)]
+    seconds["fixtures"] = time.perf_counter()
+
+    probe = _decoder_probe(port)
+    route = probe["route"]
+    t0 = time.perf_counter()
+    if route == "libjpeg":
+        port["native_loader"].build()
+    probe["build_s"] = time.perf_counter() - t0
+    golden = _golden_check(port)
+    resize = _resize_check(port, device, full[0])
+    rates = _decode_rates(port, full)
+    jstore = port["images"].JpegStore(root=cohort)
+    under_load = _decode_under_load(
+        port, device, [jstore.get(i) for i in anchor_ids[:32]])
+    seconds["decoder"] = time.perf_counter()
+
+    base = ["--device", "cuda", "--synthetic_stays", "240", "--batch_size",
+            "32", "--epochs", "2", "--no_save_state", "--cxr_jpeg_root",
+            cohort]
+    pixels = ["--limit_batches", "4"]
+    store = os.path.join(JPEG_RUNS, "store", "u8")
+    ways = [("hbm", pixels + ["--image_bank", "hbm"]),
+            ("stream", pixels + ["--image_bank", "stream"]),
+            ("stream_inline", pixels + ["--image_bank", "stream",
+                                        "--prefetch_depth", "0"]),
+            ("u8_store", pixels + ["--image_bank", "stream",
+                                   "--u8_store_path", store]),
+            ("u8_store_reopened", pixels + ["--image_bank", "stream",
+                                            "--u8_store_path", store]),
+            ("features", ["--cxr_feature_cache", "hbm"])]
+    runs = {}
+    for way, extra in ways:
+        run_dir = os.path.join(JPEG_RUNS, way)
+        runs[way] = _jpeg_cli_run(port, device, base + extra
+                                  + ["--ckpt_dir", run_dir], way, route)
+    served_ckpt = _keep_ckpt(runs["hbm"]["best_path"],
+                             os.path.join(JPEG_RUNS, "teacher.msgpack"))
+    for way, _ in ways:
+        shutil.rmtree(os.path.join(JPEG_RUNS, way), ignore_errors=True)
+    histories = {w: r.pop("history") for w, r in runs.items()}
+    # the prefetcher where the pixels are not JPEGs: procedural pixels (a
+    # numpy hook of ~0.5 s a batch) and the encode-once tier (host
+    # dispatch), each at depth 0, 2, 2, 0
+    plain = base[:base.index("--cxr_jpeg_root")]
+    ab_runs = {}
+    for way, extra in (("pixels", pixels),
+                       ("features", ["--cxr_feature_cache", "hbm"])):
+        for k, depth in enumerate((0, 2, 2, 0)):
+            run_dir = os.path.join(JPEG_RUNS, f"ab_{way}_{k}")
+            r = _jpeg_cli_run(port, device, plain + extra + [
+                "--prefetch_depth", str(depth), "--ckpt_dir", run_dir],
+                way, route)
+            shutil.rmtree(run_dir, ignore_errors=True)
+            ab_runs.setdefault(way, []).append({"depth": depth, **r})
+    prefetch_ab = {}
+    for way, rs in ab_runs.items():
+        hist = [r.pop("history") for r in rs]
+        rate = {d: [r["train_samples_per_s"] for r in rs if r["depth"] == d]
+                for d in (0, 2)}
+        prefetch_ab[way] = {
+            "samples_per_s_depth0": rate[0], "samples_per_s_depth2": rate[2],
+            "depth2_over_depth0": statistics.mean(rate[2])
+            / statistics.mean(rate[0]),
+            "losses_bit_equal": all(_losses(h) == _losses(hist[0])
+                                    for h in hist),
+            "runs": rs}
+    seconds["runs"] = time.perf_counter()
+
+    # the steady bf16 step of each tier on one batch of 32, and its feed
+    tl, eng, F, images = (port["teacher_loop"], port["engine"],
+                          port["features"], port["images"])
+    optim, st = port["optim"], port["state"]
+    tcfg = cfgmod.TeacherConfig()
+    data, host, _ = _train_batch(port, device, tcfg)
+    trn = cfgmod.TrainConfig(batch_size=32)
+    lw = np.ones(7, np.float32)
+    model = port["teacher"].init_teacher(tcfg, 0).to(device)
+    bank = images.HBMImageBank(jstore, anchor_ids, 518, device=device)
+    u8 = images.U8MemmapStore.open(store)
+    jpeg_hook = images.make_jpeg_host_fn(jstore, 518)
+    ids, pixels_for_ids = tl.pixels_for_ids_fn(data, jpeg_hook)
+    fbank = F.CXRFeatureBank.build(
+        F.encode_fn_for_teacher(model, torch.bfloat16), pixels_for_ids, ids)
+    tiers = {"hbm": (bank.image_source(), None, bank.host_fn()),
+             "u8_store": (eng.default_image_source, None, u8.host_fn()),
+             "stream": (eng.default_image_source, None, jpeg_hook),
+             "features": (eng.default_image_source,
+                          fbank.feature_source(), fbank.host_fn())}
+    steady = {}
+    for way, (isrc, fsrc, hook) in tiers.items():
+        state = st.TrainState(model, optim.MultiGroupAdamW(
+            model, trn.optim, 100,
+            frozen_prefixes=tl.teacher_frozen_prefixes(tcfg)))
+        step = eng.make_teacher_step(trn, tcfg.duett, 24, lw,
+                                     image_source=isrc, feature_source=fsrc)
+        dev_batch = eng.to_device(hook(dict(host)), device)
+        gen = torch.Generator(device=device).manual_seed(1)
+        steady[way] = _steady_step(
+            port, device,
+            lambda: step(state, data.grid, data.static, dev_batch, gen),
+            reps, {"k1_fwd": "flash_fwd", "k2": "gather_rows"})
+        steady[way]["feed_ms"] = _feed_ms(hook, host, device)
+        del state, dev_batch
+    # a stream batch's feed at MIMIC-CXR-JPG's size (the cohort's files are
+    # 512 x 416): 32 ids over the 8 full-size files
+    mimic_hook = images.make_jpeg_host_fn(images.JpegStore(
+        blobs={i: full[i % JPEG_N_FULL] for i in range(32)}), 518)
+    feed_mimic_ms = _feed_ms(mimic_hook, {"image_ids": np.arange(32)},
+                             device)
+    del fbank
+    torch.cuda.empty_cache()
+    seconds["steady"] = time.perf_counter()
+
+    # one step with the ViT trainable, its pixels from the card's bank
+    m = port["teacher"].init_teacher(cfgmod.TeacherConfig(freeze_cxr=False),
+                                     0).to(device)
+    state = st.TrainState(m, optim.MultiGroupAdamW(
+        m, trn.optim, 100, frozen_prefixes=tl.teacher_frozen_prefixes(m.cfg)))
+    vit_before = m.cxr.patch_embed.weight.detach().clone()
+    step = eng.make_teacher_step(trn, m.cfg.duett, 24, lw,
+                                 image_source=bank.image_source())
+    dev_batch = eng.to_device(bank.host_fn()(dict(host)), device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    torch.cuda.synchronize()
+    reset_counts(port)
+    out = step(state, data.grid, data.static, dev_batch, gen)
+    torch.cuda.synchronize()
+    unfreeze = {"launches": {k: v for k, v in read_counts(port).items()
+                             if v},
+                "loss": float(out["total"]),
+                "vit_moved": not torch.equal(
+                    vit_before, m.cxr.patch_embed.weight.detach())}
+    del m, state, dev_batch, vit_before, bank, model
+    torch.cuda.empty_cache()
+    seconds["unfreeze"] = time.perf_counter()
+
+    # the CXR head over the catalog's JPEGs
+    torch.cuda.synchronize()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    head = port["train_cxr_head"].main([
+        "--device", "cuda", "--synthetic_stays", "240", "--batch_size", "64",
+        "--epochs", "50", "--ckpt_dir", os.path.join(JPEG_RUNS, "cxr_head"),
+        "--cxr_jpeg_root", catalog])
+    torch.cuda.synchronize()
+    n_cat = head["n_images"]
+    head_launches = read_counts(port)
+    head_expect = {**dict.fromkeys(head_launches, 0),
+                   "flash_attention_f32": 12 * math.ceil(n_cat / 64),
+                   "jpeg_resize_f32": n_cat if route == "nvjpeg" else 0}
+    cxr_head = {"wall_s": time.perf_counter() - t0, "n_images": n_cat,
+                "feature_extract_s": head["feature_extract_s"],
+                "images_per_s": n_cat / head["feature_extract_s"],
+                "best_val_macro_auroc": head["best_val_macro_auroc"],
+                "launches": head_launches, "expected_launches": head_expect}
+    seconds["cxr_head"] = time.perf_counter()
+
+    serve = _jpeg_serve(port, device, served_ckpt, cohort, route)
+    shutil.rmtree(JPEG_RUNS, ignore_errors=True)
+    seconds["end"] = time.perf_counter()
+    marks = list(seconds.values())
+    stream, inline = runs["stream"], runs["stream_inline"]
+    steps = stream["train_steps"]
+    feed = steady["stream"]["feed_ms"]
+    info = {"phase": "jpeg", "card": card,
+            "seconds": dict(zip(("fixtures", "decoder", "runs", "steady",
+                                 "unfreeze", "cxr_head", "serve"),
+                                np.diff(marks).tolist())),
+            "fixtures": fixtures, "probe": probe, "golden_56": golden,
+            "resize_kernel": resize, "decode_mimic_size": rates,
+            "decode_under_load": under_load,
+            "runs": runs, "steady": steady,
+            "prefetch": {
+                "samples_per_s_depth2": stream["train_samples_per_s"],
+                "samples_per_s_depth0": inline["train_samples_per_s"],
+                "feed_ms": feed, "feed_shape": list(JPEG_COHORT_SHAPE),
+                "feed_ms_mimic_size": feed_mimic_ms,
+                "without_jpegs": prefetch_ab,
+                # the share of the inline feed the worker hid
+                "overlap": (inline["train_s"] - stream["train_s"])
+                / max(steps * feed / 1e3, 1e-9),
+                "losses_bit_equal": _losses(histories["stream"])
+                == _losses(histories["stream_inline"]),
+                "history_max_abs_diff": _history_diff(
+                    histories["stream"], histories["stream_inline"])},
+            "store_equals_bank": _losses(histories["u8_store"])
+            == _losses(histories["hbm"])
+            == _losses(histories["u8_store_reopened"]),
+            "store_bank_history_max_abs_diff": max(
+                _history_diff(histories["u8_store"], histories["hbm"]),
+                _history_diff(histories["u8_store_reopened"],
+                              histories["hbm"])),
+            "unfreeze_step": unfreeze, "cxr_head": cxr_head,
+            "serve": serve, "bank_bytes": runs["hbm"]["image_tier"]["bytes"]}
+    emit(info)
+    for way, r in runs.items():
+        if not all(np.isfinite(x) for x in r["epoch_losses"]):
+            raise AssertionError(f"jpeg {way}: non-finite losses")
+        if r["launches"] != r["expected_launches"]:
+            raise AssertionError(f"jpeg {way}: launches {r['launches']}, "
+                                 f"expected {r['expected_launches']}")
+    if route == "nvjpeg" and golden["gray_max_levels"] > JPEG_LEVELS:
+        raise AssertionError(f"the card's decoder is "
+                             f"{golden['gray_max_levels']} levels from "
+                             f"libjpeg's rows (tolerance {JPEG_LEVELS})")
+    if any(under_load["differing_files"]):
+        raise AssertionError(f"files decoded while the card was busy "
+                             f"differ from the idle decode: {under_load}")
+    if route == "libjpeg" and golden["gray_max_levels"] != 0:
+        raise AssertionError("the libjpeg route's rows differ from the "
+                             "golden ones")
+    if not info["prefetch"]["losses_bit_equal"]:
+        raise AssertionError("prefetch depth 2 and 0 gave other losses")
+    for way, rs in ab_runs.items():
+        for r in rs:
+            if r["launches"] != r["expected_launches"] or \
+                    not all(np.isfinite(x) for x in r["epoch_losses"]):
+                raise AssertionError(f"jpeg prefetch A/B {way}: {r}")
+        if not prefetch_ab[way]["losses_bit_equal"]:
+            raise AssertionError(f"prefetch depth 2 and 0 gave other "
+                                 f"losses on {way}")
+    if not info["store_equals_bank"]:
+        raise AssertionError("the u8 store's losses differ from the bank's")
+    if runs["hbm"]["image_tier"]["bytes"] != 326_013_660:
+        raise AssertionError(f"bank bytes {runs['hbm']['image_tier']}")
+    for way, r in steady.items():
+        want = {"gather_rows_bulk": 2} if way == "features" \
+            else {"flash_attention": 12}
+        if r["launches_per_step"] != want:
+            raise AssertionError(f"jpeg steady {way} launched "
+                                 f"{r['launches_per_step']}, expected {want}")
+    if unfreeze["launches"] != {k: 12 for k in (
+            "flash_attention", "flash_attention_bwd_delta",
+            "flash_attention_bwd_dkv", "flash_attention_bwd_dq")} or \
+            not np.isfinite(unfreeze["loss"]) or not unfreeze["vit_moved"]:
+        raise AssertionError(f"jpeg unfrozen step: {unfreeze}")
+    if head_launches != head_expect or \
+            not np.isfinite(cxr_head["best_val_macro_auroc"]):
+        raise AssertionError(f"jpeg cxr_head launches {head_launches}, "
+                             f"expected {head_expect}")
+    return info
+
+
+def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
+                n_clients: int = 4, posts_per_client: int = 3) -> dict:
+    """``cli/serve``'s ``jpeg_root`` startup (``jpeg_feature_source``:
+    every ``{id}.jpg`` decoded and encoded once) behind the HTTP server;
+    clients post windows with an ``image_id``; launches over the startup
+    and over the clients' window; each served batch re-run directly
+    (SERVE_TOL); an id not in the bank answers NaN."""
+    import math
+
+    import torch
+    pred_mod, srv, eng = port["predictor"], port["server"], port["engine"]
+    model, cfg, _ = port["checkpoint"].load_teacher_from_ckpt(ckpt, device)
+    torch.cuda.synchronize()
+    reset_counts(port)
+    source, startup = port["cli_serve"].jpeg_feature_source(model, root)
+    startup["launches"] = {k: v for k, v in read_counts(port).items() if v}
+    ids = sorted(int(f[:-4]) for f in os.listdir(root) if f.endswith(".jpg"))
+    pred = pred_mod.BatchingPredictor(model, feature_source=source,
+                                      max_batch=32, max_wait_ms=20.0,
+                                      dtype=torch.bfloat16, device=device)
+    served = []
+    step = pred._step
+
+    def recording_step(x_ts, static, batch):
+        out = step(x_ts, static, batch)
+        served.append((x_ts, static, batch,
+                       {k: v.cpu() for k, v in out.items()}))
+        return out
+
+    pred._step = recording_step
+    pred.start()
+    d = cfg.duett
+    T, V = d.n_timesteps, d.n_variables
+    rng = np.random.default_rng(3)
+    n_req = n_clients * posts_per_client
+    reqs = [{"x_ts": np.concatenate(
+                [rng.normal(size=(T, V)), rng.integers(-1, 4, size=(T, V))],
+                -1).astype(np.float32),
+             "static": rng.normal(size=d.d_static).astype(np.float32),
+             "image_id": int(ids[i * 7 % len(ids)])} for i in range(n_req)]
+    server = None
+    try:
+        pred.warmup({"x_ts": reqs[0]["x_ts"], "static": reqs[0]["static"],
+                     "image_id": ids[0]})
+        served.clear()
+        server = srv.make_server(pred, "127.0.0.1", 0, meta={})
+        srv.serve_forever(server, background=True)
+        url = f"http://127.0.0.1:{server.server_address[1]}/v1/predict"
+        responses, errors = [None] * n_req, []
+        lock = threading.Lock()
+
+        def client(c):
+            try:
+                for j in range(posts_per_client):
+                    i = c * posts_per_client + j
+                    r = reqs[i]
+                    code, body, _ = _post(url, {"instances": [{
+                        "x_ts": r["x_ts"].tolist(),
+                        "static": r["static"].tolist(),
+                        "image_id": r["image_id"]}]})
+                    if code != 200:
+                        raise RuntimeError(f"HTTP {code}: {body}")
+                    with lock:
+                        responses[i] = body["predictions"][0]
+            except Exception as e:      # noqa: BLE001 — reported below
+                with lock:
+                    errors.append(repr(e))
+
+        torch.cuda.synchronize()
+        reset_counts(port)
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(n_clients)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in read_counts(port).items() if v}
+        stats = pred.stats()
+        if errors or any(th.is_alive() for th in threads):
+            raise RuntimeError(f"jpeg serve clients failed: {errors}")
+        checked = list(served)
+        unknown = pred.predict({**reqs[0], "image_id": -7})
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        pred.close()
+    direct = eng.make_teacher_eval_from_windows(pred._model, torch.bfloat16,
+                                                feature_source=source)
+    rows, max_diff = {}, 0.0
+    for x_ts, static, batch, out in checked:
+        again = {k: v.cpu() for k, v in direct(x_ts, static, batch).items()}
+        for k in out:
+            max_diff = max(max_diff, float((again[k] - out[k]).abs().max()))
+        for i in range(x_ts.shape[0]):
+            rows.setdefault(x_ts[i].tobytes(), again["fusion_logits"][i])
+    for r, resp in zip(reqs, responses):
+        max_diff = max(max_diff, float((torch.tensor(resp["fusion_logits"])
+                                        - rows[r["x_ts"].tobytes()])
+                                       .abs().max()))
+    n_img = startup["n_images"]
+    want_startup = {"flash_attention": 12 * math.ceil(n_img / 16)}
+    if route == "nvjpeg":
+        want_startup["jpeg_resize_f32"] = n_img
+    info = {"startup": startup, "expected_startup_launches": want_startup,
+            "requests": n_req, "batches": stats["n_batches"],
+            "batch_size_hist": stats["batch_size_hist"],
+            "launches": launches, "samples_per_s": n_req / wall,
+            "max_abs_diff_response_vs_direct": max_diff,
+            "unknown_id_fusion_logits": unknown["fusion_logits"]}
+    if startup["launches"] != want_startup:
+        raise AssertionError(f"jpeg serve startup launched "
+                             f"{startup['launches']}, expected "
+                             f"{want_startup}")
+    if launches != {"gather_rows_bulk": 2 * stats["n_batches"]} or \
+            stats["n_requests"] != n_req:
+        raise AssertionError(f"jpeg serve launched {launches} over "
+                             f"{stats['n_batches']} batches")
+    if max_diff > SERVE_TOL:
+        raise AssertionError(f"jpeg serve: served differs from direct by "
+                             f"{max_diff}")
+    if not np.isnan(unknown["fusion_logits"]).all():
+        raise AssertionError("an unknown image id did not answer NaN")
+    return info
+
+
 def phase_golden(port, device, cfg, golden_path) -> dict:
     """The full-geometry ViT in float32 through the kernel against the
     golden tokens (atol 2e-4, rtol 1e-3, the golden test's own bounds)."""
@@ -3369,6 +4117,7 @@ def main() -> int:
     shutil.rmtree(DUAL_RUNS, ignore_errors=True)
     modes = phase_modes(port, device, card=dev["nvidia_smi"])
     resume = phase_resume(port, device, card=dev["nvidia_smi"])
+    jpeg = phase_jpeg(port, device, card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -3401,7 +4150,33 @@ def main() -> int:
                 "modes_unfreeze_step": modes["unfreeze_step"]["launches"]
                 .get(name, 0),
                 "event_serve": modes["event_serve"]["launches"][name],
-                "single_kd": modes["single_kd"]["launches"][name]}
+                "single_kd": modes["single_kd"]["launches"][name],
+                **jpeg_by_path(name)}
+
+    def jpeg_by_path(name):
+        return {"jpeg": {way: r["launches"][name]
+                         for way, r in jpeg["runs"].items()},
+                "jpeg_unfreeze_step": jpeg["unfreeze_step"]["launches"]
+                .get(name, 0),
+                "jpeg_cxr_head": jpeg["cxr_head"]["launches"][name],
+                "jpeg_serve_startup": jpeg["serve"]["startup"]["launches"]
+                .get(name, 0),
+                "jpeg_serve": jpeg["serve"]["launches"].get(name, 0)}
+
+    # the card's JPEG decode (nvJPEG, then csrc/jpeg_resize.cu) replaces
+    # host C++, not a TPU kernel; it is on the main path where the host
+    # has no libjpeg. Its u8 row takes its launches from the bank's run,
+    # its float32 row from the stream run.
+    jpeg_rows = [
+        {"name": name, "route": "cuda", "source": JPEG_RESIZE_SOURCE,
+         "replaces": JPEG_RESIZE_REPLACES,
+         "launches": jpeg["runs"][way]["launches"][name],
+         "launches_by_path": jpeg_by_path(name),
+         "decoder_route": jpeg["probe"]["route"],
+         **{k: jpeg["resize_kernel"][kind][k] for k in keys + (
+             "case", "library_call", "bit_equal_rerun")}}
+        for name, kind, way in (("jpeg_resize_u8", "u8", "hbm"),
+                                ("jpeg_resize_f32", "f32", "stream"))]
 
     bwd_rows = [
         {"name": f"flash_attention_bwd_{kind}", "route": "cuda",
@@ -3608,7 +4383,7 @@ def main() -> int:
          **built["k4"],
          **{k: k4["vit_bf16"][k] for k in keys + ("vs_library",
                                                   "share_of_bound")}},
-        *f32_rows]})
+        *f32_rows, *jpeg_rows]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["kind"],
                                  "count": dev["count"]}})
     return 0

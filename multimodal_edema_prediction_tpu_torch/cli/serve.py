@@ -6,27 +6,30 @@ endpoint on the card (the counterpart of
         --ckpt runs/teacher/best.msgpack --device cuda
 
 ``--image_mode pixel``: clients send ``pixel_u8_b64`` (raw uint8 bytes of the
-[S, S, 3] resized CXR; normalization runs on the device). The JAX CLI's
-``jpeg_root`` (encode-once feature bank, ROADMAP P17 with P15) and
-``synthetic`` (procedural images, P17) modes are not ported yet, nor are
-``--cxr_jpeg_root``, ``--data_parallel`` and ``--aot_dir`` (P17), which
-raise when given. Every bucket runs once before the port opens, so the
-first request never pays a kernel build.
+[S, S, 3] resized CXR; normalization runs on the device).
+``--image_mode jpeg_root --cxr_jpeg_root DIR``: at startup every
+``DIR/{image_id}.jpg`` is decoded and encoded once through the frozen ViT
+into a ``CXRFeatureBank`` on the card; requests name an ``image_id``, and
+each batch gathers its tokens through K2 instead of running the ViT (an
+id not in the bank answers NaN, as in JAX). The JAX CLI's ``synthetic``
+mode (procedural images), ``--data_parallel`` and ``--aot_dir`` are not
+ported yet (ROADMAP P17) and raise when given. Every bucket runs once
+before the port opens, so the first request never pays a kernel build.
 """
 from __future__ import annotations
 
 import argparse
+import os
+import time
 
 import numpy as np
 import torch
 
 from .common import add_queued_flags, refuse_queued_flags
 
-_QUEUED = {"jpeg_root": "ROADMAP P17, with P15",
-           "synthetic": "ROADMAP P17"}
+_QUEUED = {"synthetic": "ROADMAP P17"}
 # JAX flags whose feature is not ported yet → their ROADMAP item
-QUEUED_FLAGS = {"--cxr_jpeg_root": "P17", "--data_parallel": "P17",
-                "--aot_dir": "P17"}
+QUEUED_FLAGS = {"--data_parallel": "P17", "--aot_dir": "P17"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -38,6 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8389)
     p.add_argument("--image_mode", type=str, default="pixel",
                    choices=["pixel", "jpeg_root", "synthetic"])
+    p.add_argument("--cxr_jpeg_root", type=str, default="",
+                   help="directory of {image_id}.jpg files (jpeg_root mode)")
     p.add_argument("--max_batch", type=int, default=32)
     p.add_argument("--max_wait_ms", type=float, default=4.0)
     p.add_argument("--max_queue", type=int, default=1024)
@@ -50,13 +55,49 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def jpeg_feature_source(model, root: str, dtype=torch.bfloat16) -> tuple:
+    """``--image_mode jpeg_root``'s startup (JAX ``cli/serve.py:90-110``):
+    every ``{image_id}.jpg`` under ``root`` decoded and encoded once
+    through ``model``'s frozen ViT into a ``CXRFeatureBank`` on the model's
+    device. Returns (the feature source over raw image ids, {"n_images",
+    "encode_s"})."""
+    from ..data import features as F
+    from ..data.images import JpegStore, decode_batch
+    ids = sorted(int(f[:-4]) for f in os.listdir(root) if f.endswith(".jpg"))
+    if not ids:
+        raise ValueError(f"no {{id}}.jpg files under {root}")
+    store = JpegStore(root=root)
+    side = model.cfg.vit.image_size
+    n_threads = os.cpu_count() or 1
+
+    def pixels_for_ids(batch_ids):
+        blobs = [store.get(i) for i in np.asarray(batch_ids)]
+        return decode_batch(blobs, side, n_threads=n_threads)
+
+    print(f"encoding {len(ids)} images once (frozen ViT) ...", flush=True)
+    t0 = time.perf_counter()
+    bank = F.CXRFeatureBank.build(
+        F.encode_fn_for_teacher(model, dtype), pixels_for_ids,
+        np.asarray(ids, np.int64),
+        out_dtype=torch.float32 if dtype == torch.float32
+        else torch.bfloat16)
+    if bank.cls.device.type == "cuda":
+        torch.cuda.synchronize(bank.cls.device)
+    return bank.feature_source(keyed_by_row=False), {
+        "n_images": len(ids), "encode_s": time.perf_counter() - t0}
+
+
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
     refuse_queued_flags(args, QUEUED_FLAGS)
     if args.image_mode in _QUEUED:
         raise NotImplementedError(
             f"--image_mode {args.image_mode} is not ported yet "
-            f"({_QUEUED[args.image_mode]}); use --image_mode pixel")
+            f"({_QUEUED[args.image_mode]}); use --image_mode pixel or "
+            "jpeg_root")
+    if args.image_mode == "jpeg_root" and not args.cxr_jpeg_root:
+        p.error("--image_mode jpeg_root requires --cxr_jpeg_root")
 
     from ..config import DataConfig
     from ..serve import BatchingPredictor, make_server, serve_forever
@@ -66,15 +107,20 @@ def main(argv=None):
     labels = (args.labels.split(",") if args.labels
               else list(DataConfig().pathology_labels))
     S = cfg.vit.image_size
+    feature_source = None
+    if args.image_mode == "jpeg_root":
+        feature_source, _ = jpeg_feature_source(model.eval(),
+                                                args.cxr_jpeg_root)
     pred = BatchingPredictor(
-        model, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
-        max_queue=args.max_queue, dtype=torch.bfloat16, labels=labels,
-        device=args.device).start()
+        model, feature_source=feature_source, max_batch=args.max_batch,
+        max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
+        dtype=torch.bfloat16, labels=labels, device=args.device).start()
 
     T, V = cfg.duett.n_timesteps, cfg.duett.n_variables
     example = {"x_ts": np.zeros((T, 2 * V), np.float32),
-               "static": np.zeros(cfg.duett.d_static, np.float32),
-               "pixel_u8": np.zeros((S, S, 3), np.uint8)}
+               "static": np.zeros(cfg.duett.d_static, np.float32)}
+    if args.image_mode == "pixel":
+        example["pixel_u8"] = np.zeros((S, S, 3), np.uint8)
     try:
         # a single/legacy teacher fails here, before the port opens
         print("warming buckets ...", flush=True)

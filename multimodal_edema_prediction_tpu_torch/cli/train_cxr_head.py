@@ -10,8 +10,9 @@ Extracts the frozen ViT's CLS token for every image of the CXR catalog
 head and writes ``cxr_linear_head.msgpack`` under ``--ckpt_dir``: the
 artifact ``cli.train_teacher --perceiver_type dual
 --pretrained_cxr_head_ckpt`` loads. The catalog is ``--data_dir``'s or the
-synthetic cohort's (its procedural images). ``--cxr_jpeg_root`` (real
-CXRs) is ROADMAP P15 and raises.
+synthetic cohort's, its images the procedural ones or, with
+``--cxr_jpeg_root DIR``, the real chest X-rays ``DIR/{image_id}.jpg``
+(decoded by the port's own decoder a chunk ahead of the card).
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import time
 
 from ..config import DEFAULT_PATHOLOGY_LABELS, ViTConfig
 from ..data import synthetic as S
+from ..data.images import JpegStore
 from ..models.layers import init_like_flax
 from ..models.vit import DinoViT, load_vit_params
 from ..train.cxr_head_loop import (extract_cls_features,
@@ -51,7 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="U(-1) label mapping at the CXR-head level "
                         "(reference: U->1, cxr_db.ipynb cell 24)")
     p.add_argument("--cxr_jpeg_root", type=str, default="",
-                   help="real CXR JPEGs: not ported yet (ROADMAP P15)")
+                   help="directory of {image_id}.jpg catalog images (real "
+                        "CXRs); the procedural images when empty")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
     return p
@@ -59,9 +62,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.cxr_jpeg_root:
-        raise NotImplementedError(f"--cxr_jpeg_root {args.cxr_jpeg_root} is "
-                                  "not ported yet (ROADMAP P15)")
     dev = resolve_device(args.device)
     vit_cfg = ViTConfig() if args.vit_size == "base" else ViTConfig(
         image_size=56, patch_size=14, d_model=64, n_layers=2, n_heads=2,
@@ -81,11 +81,16 @@ def main(argv=None):
         init_like_flax(vit, 0, vit_cfg.layerscale_init)
         print("using a randomly initialized ViT (no weights provided)",
               flush=True)
+    jpeg_store = None
+    if args.cxr_jpeg_root:
+        jpeg_store = JpegStore(root=args.cxr_jpeg_root)
+        print(f"extracting features from real JPEGs: {args.cxr_jpeg_root}",
+              flush=True)
     t0 = time.perf_counter()
     cls = extract_cls_features(
         vit.to(dev), make_synthetic_pixel_hook(vit_cfg.image_size),
         catalog.image_ids, catalog.labels, args.batch_size,
-        args.feature_cache or None)
+        args.feature_cache or None, jpeg_store=jpeg_store)
     extract_s = time.perf_counter() - t0
     print(f"CLS features of {len(cls)} catalog images in {extract_s:.1f}s",
           flush=True)

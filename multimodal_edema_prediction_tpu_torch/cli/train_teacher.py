@@ -26,14 +26,21 @@ backward kernels; ``--vit_weights`` starts the ViT from a converted
 RAD-DINO checkpoint (``scripts/convert_rad_dino.py``); ``--duett_ckpt``
 starts the DuETT backbone (weights and BatchNorm statistics) from an SSL
 checkpoint of ``cli.train_ssl``, written by either package.
-``--eval_train_batches N`` evaluates N train batches after each epoch and
-prints their gap table, as the JAX loop does. By default (``--save_state``)
-the full train state is written into the run directory at every epoch
-boundary; ``--resume_dir <run dir>`` continues such a run bit for bit, and
-a SIGTERM saves the state at the next epoch boundary and exits cleanly.
-Every flag of the JAX CLI parses: ``--flash_block_b`` (a TPU tuning knob) is ignored, and the flags
-of what is not ported yet raise ``NotImplementedError`` naming their
-ROADMAP item.
+``--cxr_jpeg_root DIR`` trains on the chest X-rays ``DIR/{image_id}.jpg``
+(decoded by the port's own decoder, ``data/native_loader.py``): decoded
+once into a uint8 bank on the card (``--image_bank hbm``, or ``auto``
+within ``--hbm_image_budget_gb``), into a disk memmap
+(``--u8_store_path``), or for every batch (``--image_bank stream``); with
+``--cxr_feature_cache`` they feed the encode-once build.
+``--prefetch_depth`` (2) batches are hooked and copied ahead of the step by
+a worker thread. ``--eval_train_batches N`` evaluates N train batches after
+each epoch and prints their gap table, as the JAX loop does. By default
+(``--save_state``) the full train state is written into the run directory
+at every epoch boundary; ``--resume_dir <run dir>`` continues such a run
+bit for bit, and a SIGTERM saves the state at the next epoch boundary and
+exits cleanly. Every flag of the JAX CLI parses: ``--flash_block_b`` (a
+TPU tuning knob) is ignored, and the flags of what is not ported yet raise
+``NotImplementedError`` naming their ROADMAP item.
 
     python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
         --device cuda --unfreeze_cxr --vit_weights rad_dino_flax.msgpack
@@ -43,6 +50,7 @@ from __future__ import annotations
 import argparse
 
 from ..config import PerceiverConfig, TeacherConfig, ViTConfig
+from ..data.images import JpegStore
 from ..models.teacher import init_teacher
 from ..models.vit import load_vit_params
 from ..train.ssl_loop import transplant_encoder
@@ -54,10 +62,6 @@ from .common import (COMMON_QUEUED, add_common_flags, add_queued_flags,
 # JAX flags of this CLI whose feature is not ported yet → their ROADMAP
 # item (the common ones: COMMON_QUEUED)
 QUEUED_FLAGS = {
-    # the image feed tiers
-    "--image_bank": "P15",
-    "--hbm_image_budget_gb": "P15", "--u8_store_path": "P15",
-    "--prefetch_depth": "P15",
     # the loop's gradient-flow diagnostics
     "--grad_diag_every": "P19", "--grad_diag_batches": "P19",
 }
@@ -99,7 +103,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="[legacy] auxiliary CXR-only head BCE")
     p.add_argument("--aux_cxr_alpha", type=float, default=0.0,
                    help="[legacy] total = main_bce + aux_cxr_alpha * aux_bce")
-    p.add_argument("--cxr_jpeg_root", type=str, default="")
+    p.add_argument("--cxr_jpeg_root", type=str, default="",
+                   help="directory of {image_id}.jpg files: real chest "
+                        "X-rays (the port's decoder) instead of the "
+                        "synthetic cohort's procedural images")
+    p.add_argument("--prefetch_depth", type=int, default=2,
+                   help="train batches the prefetch worker keeps in flight "
+                        "(hook and pinned copy overlap the step; 0 = "
+                        "inline)")
+    p.add_argument("--image_bank", type=str, default="auto",
+                   choices=["auto", "hbm", "stream"],
+                   help="real-image feeding: 'hbm' decodes every image once "
+                        "into a uint8 bank on the card, 'stream' decodes "
+                        "every batch on the host (or reads --u8_store_path),"
+                        " 'auto' takes the bank within "
+                        "--hbm_image_budget_gb")
+    p.add_argument("--hbm_image_budget_gb", type=float, default=8.0)
+    p.add_argument("--u8_store_path", type=str, default="",
+                   help="decode every image once into a disk memmap of "
+                        "uint8 rows at this path (reopened by later runs); "
+                        "used when the card's bank is not")
     p.add_argument("--cxr_feature_cache", type=str, default="none",
                    choices=["none", "auto", "hbm", "host"],
                    help="encode-once tier: with the CXR branch frozen, "
@@ -137,7 +160,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flag → (value that is not ported, ROADMAP item)
 _QUEUED = (
     ("vit_quant", "int8", "P20"),
-    ("cxr_jpeg_root", None, "P15"),
     ("state_backend", "orbax", "P16"),
 )
 
@@ -165,6 +187,17 @@ def lp_kwargs(args) -> dict:
     with ``--lp_only_correction`` (JAX ``cli/train_teacher.py:178``)."""
     return {"lp_from": args.lp_ckpt if args.lp_only_correction else None,
             "lp_beta_l2": args.lp_beta_l2, "lp_corr_l2": args.lp_corr_l2}
+
+
+def image_kwargs(args) -> dict:
+    """``train_teacher``'s real-image and prefetch arguments (JAX
+    ``cli/train_teacher.py:189-194``)."""
+    return {"jpeg_store": (JpegStore(root=args.cxr_jpeg_root)
+                           if args.cxr_jpeg_root else None),
+            "prefetch_depth": args.prefetch_depth,
+            "image_bank": args.image_bank,
+            "u8_store_path": args.u8_store_path or None,
+            "hbm_image_budget_gb": args.hbm_image_budget_gb}
 
 
 def main(argv=None):
@@ -211,7 +244,8 @@ def main(argv=None):
                         or None, pretrained_head_ckpt=head_ckpt,
                         auto_resume=bool(args.resume_dir),
                         save_full_state=args.save_state,
-                        state_backend=args.state_backend, **lp_kwargs(args))
+                        state_backend=args.state_backend, **lp_kwargs(args),
+                        **image_kwargs(args))
     print(f"best val macro fusion AUROC: {res.best_metric:.4f}  "
           f"ckpt: {res.best_path}", flush=True)
     return res

@@ -39,6 +39,14 @@ import torch
 from ..ops.gather import gather_rows
 
 
+def _float_tensor(pixels) -> torch.Tensor:
+    """Pixels from a hook (numpy, or a tensor a card decoder left on the
+    card) as a float32 tensor where they are."""
+    if isinstance(pixels, torch.Tensor):
+        return pixels.float()
+    return torch.from_numpy(np.ascontiguousarray(pixels, np.float32))
+
+
 def encode_fn_for_teacher(model, dtype=torch.bfloat16) -> Callable:
     """``pixels [B, S, S, 3] → (cls [B, D], patches [B, N, D])`` through the
     teacher's frozen ViT (``model.cxr``) in eval mode and without gradients,
@@ -48,9 +56,7 @@ def encode_fn_for_teacher(model, dtype=torch.bfloat16) -> Callable:
 
     def encode(pixels):
         with torch.no_grad():
-            px = torch.as_tensor(np.asarray(pixels, np.float32)).to(
-                device, dtype)
-            return vit(px)
+            return vit(_float_tensor(pixels).to(device, dtype))
 
     return encode
 
@@ -65,10 +71,11 @@ def _encoded_chunks(encode_fn: Callable,
     package, so that every encoder call has one shape."""
     for i in range(0, len(ids), chunk):
         span = ids[i:i + chunk]
-        pixels = np.asarray(pixels_for_ids(span), np.float32)
+        pixels = _float_tensor(pixels_for_ids(span))
         pad = chunk - len(span)
         if pad:
-            pixels = np.concatenate([pixels, pixels[-1:].repeat(pad, 0)])
+            pixels = torch.cat([pixels, pixels[-1:].expand(
+                pad, *pixels.shape[1:])])
         cls, patches = encode_fn(pixels)
         yield i, len(span), cls[:len(span)], patches[:len(span)]
 

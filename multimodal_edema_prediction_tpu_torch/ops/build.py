@@ -33,7 +33,10 @@ SOURCES = {"flash_attention": "flash_attention.cu",
            "dual_axis_block": "dual_axis_block.cu",
            "dual_axis_block_tc": "dual_axis_block_tc.cu",
            "dual_axis_block_tf32": "dual_axis_block_tf32.cu",
-           "ln_qkv": "ln_qkv.cu"}
+           "ln_qkv": "ln_qkv.cu",
+           "jpeg_resize": "jpeg_resize.cu"}
+# what a library links beyond the CUDA runtime
+LINK_FLAGS = {"jpeg_resize": ("-lnvjpeg",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,7 +55,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ()))
+                            .encode())
     for src in [SOURCES[name]] + sorted(
             f for f in os.listdir(CSRC) if f.endswith(".cuh")):
         with open(os.path.join(CSRC, src), "rb") as f:
@@ -74,7 +78,8 @@ def build_all() -> Dict[str, float]:
         tmp = f"{out}.{os.getpid()}.tmp"
         log = open(out + ".log", "w")
         procs[name] = (subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)],
+            [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src),
+             *LINK_FLAGS.get(name, ())],
             stdout=log, stderr=subprocess.STDOUT), tmp, out, log)
     done = {}
     for name, (proc, tmp, out, log) in procs.items():

@@ -9,13 +9,16 @@ pixel mode.
   enqueue; a single batcher thread forms batches (coalescing whatever is
   queued within ``max_wait_ms``), runs the step, and resolves futures.
 
-Each request carries ``pixel_u8`` ([S, S, 3] uint8), normalized on the
-device inside the step. A teacher of a residual-fusion mode serves
-(``dual_patch``, ``dual_patch_event``, ``dual``); a ``single`` or
-``legacy`` one has no fusion logits, and its batches fail with the JAX
-predictor's ``RuntimeError``. The JAX package's ``mesh`` (data-parallel
-serving) and ``aot_dir`` (persisted executables) have no counterpart yet
-(ROADMAP P17/P18), nor its bank and feature-cache image tiers (P15, P17).
+In pixel mode each request carries ``pixel_u8`` ([S, S, 3] uint8),
+normalized on the device inside the step. Given an ``image_source`` or a
+``feature_source`` (the training side's hooks, e.g.
+``CXRFeatureBank.feature_source(keyed_by_row=False)``), requests name an
+``image_id`` instead and batches carry ``image_ids``. A teacher of a
+residual-fusion mode serves (``dual_patch``, ``dual_patch_event``,
+``dual``); a ``single`` or ``legacy`` one has no fusion logits, and its
+batches fail with the JAX predictor's ``RuntimeError``. The JAX package's
+``mesh`` (data-parallel serving) and ``aot_dir`` (persisted executables)
+have no counterpart yet (ROADMAP P17/P18).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import threading
 import time
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,7 +69,8 @@ class _Item:
     x_ts: np.ndarray          # [T, 2V] float32
     static: np.ndarray        # [D] float32
     bin_ends: np.ndarray      # [T] float32
-    pixel_u8: np.ndarray      # [S, S, 3] uint8
+    image_id: int             # keys the image/feature source
+    pixel_u8: Optional[np.ndarray]      # [S, S, 3] uint8 (pixel mode)
     future: Optional[Future]
     t_enqueue: float
 
@@ -86,6 +90,9 @@ class BatchingPredictor:
     Parameters
     ----------
     model: the port's ``TeacherModel`` (its weights already loaded).
+    image_source / feature_source: the training side's hooks; with both
+        None the predictor runs in pixel mode (requests carry
+        ``pixel_u8``), else requests carry ``image_id``.
     max_batch: top of the bucket ladder (1, 2, 4, …, max_batch).
     max_wait_ms: how long the batcher waits to coalesce more requests once
         it holds at least one (0 = no coalescing).
@@ -95,13 +102,19 @@ class BatchingPredictor:
         CPU. The model is moved there.
     """
 
-    def __init__(self, model, *, max_batch: int = 32,
+    def __init__(self, model, *, image_source: Optional[Callable] = None,
+                 feature_source: Optional[Callable] = None,
+                 max_batch: int = 32,
                  max_wait_ms: float = 4.0, max_queue: int = 1024,
                  dtype=torch.bfloat16, labels: Optional[Sequence[str]] = None,
                  device="cuda"):
         self._device = resolve_device(device)
         self._model = model.to(self._device).eval()
-        self._step = engine.make_teacher_eval_from_windows(self._model, dtype)
+        self._pixel_mode = image_source is None and feature_source is None
+        self._step = engine.make_teacher_eval_from_windows(
+            self._model, dtype,
+            image_source=image_source or engine.default_image_source,
+            feature_source=feature_source)
         self._cfg = model.cfg
         self.buckets = _bucket_ladder(max(1, int(max_batch)))
         self.max_wait_s = float(max_wait_ms) / 1e3
@@ -170,15 +183,18 @@ class BatchingPredictor:
                     if be is None else np.asarray(be, np.float32))
         if bin_ends.shape != (T,):
             raise ValueError(f"bin_ends must be [T]={T}, got {bin_ends.shape}")
-        if "pixel_u8" not in req:
-            raise ValueError("pixel mode: request must carry pixel_u8 "
-                             "[S, S, 3] uint8")
-        pixel_u8 = np.asarray(req["pixel_u8"], np.uint8)
-        S = self._cfg.vit.image_size
-        if pixel_u8.shape != (S, S, 3):
-            raise ValueError(f"pixel_u8 must be [{S}, {S}, 3] for this "
-                             f"model, got {list(pixel_u8.shape)}")
+        pixel_u8 = None
+        if self._pixel_mode:
+            if "pixel_u8" not in req:
+                raise ValueError("pixel mode: request must carry pixel_u8 "
+                                 "[S, S, 3] uint8")
+            pixel_u8 = np.asarray(req["pixel_u8"], np.uint8)
+            S = self._cfg.vit.image_size
+            if pixel_u8.shape != (S, S, 3):
+                raise ValueError(f"pixel_u8 must be [{S}, {S}, 3] for this "
+                                 f"model, got {list(pixel_u8.shape)}")
         return _Item(x_ts=x_ts, static=static, bin_ends=bin_ends,
+                     image_id=int(req.get("image_id", 0)),
                      pixel_u8=pixel_u8, future=None, t_enqueue=0.0)
 
     def submit(self, req: dict) -> Future:
@@ -243,8 +259,12 @@ class BatchingPredictor:
         idx = list(range(n)) + [0] * (bucket - n)
         x_ts = np.stack([items[i].x_ts for i in idx])
         static = np.stack([items[i].static for i in idx])
-        batch = {"bin_ends": np.stack([items[i].bin_ends for i in idx]),
-                 "pixel_u8": np.stack([items[i].pixel_u8 for i in idx])}
+        batch = {"bin_ends": np.stack([items[i].bin_ends for i in idx])}
+        if self._pixel_mode:
+            batch["pixel_u8"] = np.stack([items[i].pixel_u8 for i in idx])
+        else:
+            batch["image_ids"] = np.asarray(
+                [items[i].image_id for i in idx], np.int32)
         return x_ts, static, batch
 
     def _run_batch(self, items: list, bucket: Optional[int] = None,

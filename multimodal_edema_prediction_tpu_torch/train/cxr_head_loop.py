@@ -11,8 +11,11 @@ weight_decay)``); the best val macro AUROC picks its weights. The
 checkpoint is the JAX package's format with the sidecar ``{"label_cols",
 "num_classes", "kind": "cxr_linear_head"}``, the artifact a ``dual``
 teacher loads into its ``pretrained_cxr_head``
-(``load_cxr_head_into_teacher``). Real CXR images (``jpeg_store``) are
-ROADMAP P15.
+(``load_cxr_head_into_teacher``). With a ``jpeg_store`` the sweep reads
+real chest X-rays: decoded per chunk on a host thread, or with
+``u8_store_path`` decoded once into a disk memmap of uint8 rows
+(``data/images.py::U8MemmapStore``) whose chunks are normalized on the
+card.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from ..convert import load_flax
+from ..data.images import JpegStore, U8MemmapStore, decode_batch
 from ..data.pipeline import train_test_split
 from ..models.cxr_head import CXRLinearHead
 from ..models.layers import init_like_flax
@@ -31,6 +35,7 @@ from ..ops import metrics as M
 from ..ops.losses import masked_per_label_bce
 from ..utils import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
+from .engine import default_image_source, to_device
 from .optim import MultiGroupAdamW
 
 
@@ -67,37 +72,53 @@ def split_catalog_subjects(subject_ids: np.ndarray, labels: np.ndarray,
             "test": idx[has & np.isin(subject_ids, te)]}
 
 
-def extract_cls_features(vit, image_hook: Callable[[dict], dict],
+def extract_cls_features(vit, image_hook: Optional[Callable[[dict], dict]],
                          image_ids: np.ndarray, labels: np.ndarray,
                          batch_size: int = 64,
-                         cache_path: Optional[str] = None) -> np.ndarray:
+                         cache_path: Optional[str] = None,
+                         jpeg_store: Optional[JpegStore] = None,
+                         u8_store_path: Optional[str] = None) -> np.ndarray:
     """The frozen ViT's CLS token [N, D] (float32, host) for every image of
     ``image_ids``, in chunks of ``batch_size`` in eval mode on the ViT's
-    device, in float32 (as the JAX package runs it). Pixels come
-    from ``image_hook`` (a batch of ``image_ids`` and ``y_multi``, the
-    labels with NaN as 0, → ``pixel_values``), made on a host thread one
-    chunk ahead of the card. A complete ``cache_path`` is read instead; a
-    new one is written."""
+    device, in float32 (as the JAX package runs it). Pixels come from
+    ``image_hook`` (a batch of ``image_ids`` and ``y_multi``, the labels
+    with NaN as 0, → ``pixel_values``), or with ``jpeg_store`` from real
+    JPEGs (JAX ``cxr_head_loop.py:48-107``): decoded per chunk
+    (``pixel_values``), or with ``u8_store_path`` decoded once into a disk
+    memmap whose uint8 rows (``pixel_u8``) are normalized on the card. A
+    host thread makes each chunk's pixels one chunk ahead of the card. A
+    complete ``cache_path`` is read instead; a new one is written."""
     if cache_path and os.path.exists(cache_path):
         return np.load(cache_path)["cls"]
     device = next(vit.parameters()).device
     vit.eval()
+    side = vit.cfg.image_size
+    u8_rows = None
+    if jpeg_store is not None and u8_store_path:
+        u8_rows = U8MemmapStore.build(jpeg_store, image_ids, side,
+                                      u8_store_path).get_batch
 
     def make_batch(i):
         idx = np.arange(i, min(i + batch_size, len(image_ids)))
+        if u8_rows is not None:
+            return {"pixel_u8": u8_rows(image_ids[idx])}
+        if jpeg_store is not None:
+            blobs = [jpeg_store.get(j) for j in image_ids[idx]]
+            return {"pixel_values": decode_batch(blobs, side)}
         b = image_hook({"image_ids": image_ids[idx].astype(np.int32),
                         "y_multi": np.nan_to_num(labels[idx], nan=0.0)})
-        return np.asarray(b["pixel_values"], np.float32)
+        return {"pixel_values": np.asarray(b["pixel_values"], np.float32)}
 
     out = []
     starts = list(range(0, len(image_ids), batch_size))
     with ThreadPoolExecutor(1) as ex, torch.no_grad():
         nxt = ex.submit(make_batch, starts[0])
         for k in range(len(starts)):
-            pixels = nxt.result()
+            batch = nxt.result()
             if k + 1 < len(starts):      # the next chunk's pixels meanwhile
                 nxt = ex.submit(make_batch, starts[k + 1])
-            cls, _ = vit(torch.from_numpy(pixels).to(device))
+            pixels = default_image_source(to_device(batch, device))
+            cls, _ = vit(pixels)
             out.append(cls.float().cpu().numpy())
     cls = np.concatenate(out)
     if cache_path:

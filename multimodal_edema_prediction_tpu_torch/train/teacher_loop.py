@@ -16,8 +16,13 @@ on the binary label (``make_teacher_legacy_step``, pixels only) and its
 AUROC.
 
 Image tiers: ``feature_cache="none"`` runs the frozen ViT inside every step
-on pixels; ``"hbm"`` encodes every unique image once into a
-``CXRFeatureBank`` on the card and gathers its rows through K2 in every
+on pixels: the synthetic cohort's procedural images by default, or with a
+``jpeg_store`` real chest X-rays (JAX ``teacher_loop.py:208-286``), from
+the card's uint8 bank (``image_bank`` "hbm", or "auto" within
+``hbm_image_budget_gb``; the step gathers and normalizes rows on the
+card), else a disk memmap of uint8 rows (``u8_store_path``), else decoded
+for every batch ("stream"); ``"hbm"`` encodes every unique image once into
+a ``CXRFeatureBank`` on the card and gathers its rows through K2 in every
 train and eval step; ``"host"`` keeps the same tokens in a
 ``HostFeatureStore`` (RAM, or a reusable disk memmap at
 ``feature_store_path``) whose batch hook attaches each batch's rows, so no
@@ -48,6 +53,12 @@ for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
 and ends the call cleanly; ``stop_after_epochs`` pauses after that many
 epochs of one call. Single process only. Not ported yet, each named by its
 ROADMAP item: the orbax state backend (P16), multi-process (P18).
+
+With ``prefetch_depth`` > 0 (2, as in JAX) the epoch's train batches come
+through ``data/prefetch.py``: a worker thread runs the batch hook (the
+decode, a store's reads) and copies the batch to the card from pinned
+memory on a side stream while the previous step runs; the steps, their
+order and their generator are those of ``prefetch_depth=0``.
 """
 from __future__ import annotations
 
@@ -62,7 +73,10 @@ from ..config import TeacherConfig, TrainConfig
 from ..convert import load_flax, to_flax
 from ..data.features import (CXRFeatureBank, HostFeatureStore,
                              encode_fn_for_teacher, features_from_batch)
+from ..data.images import (HBMImageBank, JpegStore, U8MemmapStore,
+                           make_jpeg_host_fn)
 from ..data.pipeline import AnchorDataset
+from ..data.prefetch import prefetch
 from ..data.synthetic import synthetic_image_batch
 from ..models.teacher import TeacherModel, init_teacher
 from ..models.vit import IMAGE_MEAN, IMAGE_STD
@@ -228,9 +242,71 @@ def build_feature_tier(model, dataset: AnchorDataset, image_hook, dtype,
                     "build_s": build_s}
 
 
+def build_image_tier(dataset: AnchorDataset, jpeg_store: JpegStore,
+                     side: int, feature_cache: str, image_bank: str,
+                     u8_store_path: Optional[str],
+                     hbm_image_budget_gb: float, device,
+                     log: Callable[[str], None]) -> Tuple[Callable, Callable,
+                                                          dict]:
+    """The real-image feed of one process (JAX ``teacher_loop.py:208-286``):
+    with an encode-once ``feature_cache`` the JPEG hook (decoded float32
+    pixels) feeds the feature build and nothing else; otherwise every image
+    is decoded once into the card's uint8 bank (``image_bank`` "hbm", or
+    "auto" when it fits ``hbm_image_budget_gb``), else into the disk
+    memmap store at ``u8_store_path``, else decoded per batch ("stream").
+    Returns (the batch hook, the step's image source, {"tier", "n_images",
+    "bytes", "build_s"})."""
+    if feature_cache != "none":
+        return (make_jpeg_host_fn(jpeg_store, side),
+                engine.default_image_source, {"tier": "jpeg_for_features"})
+    if image_bank not in ("auto", "hbm", "stream"):
+        raise ValueError(f"unknown image_bank mode {image_bank!r}")
+    all_ids = np.unique(dataset.anchor["image_ids"]).astype(np.int64)
+    nbytes = HBMImageBank.nbytes(len(all_ids), side)
+    use_bank = image_bank == "hbm" or (
+        image_bank == "auto" and nbytes <= hbm_image_budget_gb * 2 ** 30)
+    t0 = time.perf_counter()
+    if use_bank:
+        bank = HBMImageBank(jpeg_store, all_ids, side, device=device)
+        hook, source, tier = bank.host_fn(), bank.image_source(), "hbm"
+        where = f"u8 bank on {device}"
+    elif u8_store_path:
+        store = U8MemmapStore.build(jpeg_store, all_ids, side, u8_store_path)
+        hook, source, tier = (store.host_fn(), engine.default_image_source,
+                              "u8_store")
+        where = f"disk memmap u8 store at {u8_store_path}"
+    else:
+        hook, source, tier = (make_jpeg_host_fn(jpeg_store, side),
+                              engine.default_image_source, "stream")
+        where = "decoded for every batch (no decode-once tier)"
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    log(f"[images] {where}: {len(all_ids)} images "
+        f"({nbytes / 2 ** 30:.2f} GiB of u8 at {side}², {build_s:.1f}s)")
+    return hook, source, {"tier": tier, "n_images": len(all_ids),
+                          "bytes": nbytes, "build_s": build_s}
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _train_batches(dataset: AnchorDataset, cfg: TrainConfig, epoch: int,
+                   device, prefetch_depth: int):
+    """The epoch's shuffled train batches on ``device``: through the
+    prefetch worker with ``prefetch_depth`` > 0, else hooked and copied
+    inline. A generator either way (``close`` stops the worker)."""
+    def host_batches():
+        for b in dataset.iter_batches("train", cfg.batch_size, shuffle=True,
+                                      seed=cfg.seed + epoch,
+                                      limit=cfg.limit_batches):
+            b.pop("valid")
+            yield b
+
+    if prefetch_depth > 0:
+        return prefetch(host_batches(), device, prefetch_depth)
+    return (engine.to_device(b, device) for b in host_batches())
 
 
 def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
@@ -242,6 +318,10 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                   feature_cache: str = "none",
                   hbm_feature_budget_gb: float = 8.0,
                   feature_store_path: Optional[str] = None,
+                  jpeg_store: Optional[JpegStore] = None,
+                  prefetch_depth: int = 2, image_bank: str = "auto",
+                  u8_store_path: Optional[str] = None,
+                  hbm_image_budget_gb: float = 8.0,
                   pretrained_head_ckpt: Optional[str] = None,
                   auto_resume: bool = False,
                   save_full_state: Optional[bool] = None,
@@ -264,6 +344,11 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     every batch, the encode-once tier once per unique image.
     ``feature_store_path``: where the host tier keeps its disk store (RAM
     when None).
+    ``jpeg_store``: real chest X-rays (``data/images.py``) in place of
+    ``image_hook``, fed through ``build_image_tier`` (``image_bank``
+    "auto", "hbm" or "stream"; ``u8_store_path``; ``hbm_image_budget_gb``).
+    ``prefetch_depth``: train batches in flight in the prefetch worker (0:
+    the hook and the copy run inline).
     ``pretrained_head_ckpt`` (``dual``): the CXR linear head's checkpoint,
     written by either package's CXR-head stage; a given ``model`` must
     match ``pretrained_head_spec``.
@@ -313,12 +398,20 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     dataset.to(dev)
     T = dataset.n_timesteps
     lw = np.ones(len(pathology_labels), np.float32)  # trainer.py:390-391
-    image_hook = image_hook or make_synthetic_pixel_hook(
-        teacher_cfg.vit.image_size)
     log(f"params: {param_count(model):,}  mode={mode}  lp={lp_mode}  "
         f"device={dev}")
 
     phase = {}
+    image_source = engine.default_image_source
+    image_tier = {"tier": "synthetic"}
+    if jpeg_store is not None:
+        image_hook, image_source, image_tier = build_image_tier(
+            dataset, jpeg_store, teacher_cfg.vit.image_size, feature_cache,
+            image_bank, u8_store_path, hbm_image_budget_gb, dev, log)
+        if "build_s" in image_tier:
+            phase["image_build"] = image_tier["build_s"]
+    image_hook = image_hook or make_synthetic_pixel_hook(
+        teacher_cfg.vit.image_size)
     feature_source, tier = None, {"tier": "pixels"}
     dataset.batch_hook = image_hook
     if feature_cache != "none":
@@ -340,9 +433,10 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     if uses_dual:
         train_step = engine.make_teacher_step(
             cfg, teacher_cfg.duett, T, lw, None, dtype,
-            feature_source=feature_source, lp_mode=lp_mode,
-            lp_beta_l2=lp_beta_l2, lp_corr_l2=lp_corr_l2)
+            image_source=image_source, feature_source=feature_source,
+            lp_mode=lp_mode, lp_beta_l2=lp_beta_l2, lp_corr_l2=lp_corr_l2)
         loop_eval = engine.make_teacher_eval(T, dtype,
+                                             image_source=image_source,
                                              feature_source=feature_source)
         loss_keys = ("total", "img_total", "ts_total", "fus_total")
         if cfg.aux_residual_alpha > 0.0:
@@ -354,16 +448,19 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
             cfg, teacher_cfg.duett, T, lw, None, dtype,
             alpha_stage2=cfg.aux_stage2_alpha,
             alpha_stage4=cfg.aux_stage4_alpha,
-            feature_source=feature_source)
+            image_source=image_source, feature_source=feature_source)
         loop_eval = engine.make_teacher_eval(
-            T, dtype, feature_source=feature_source,
-            keys=engine.PATHOLOGY_EVAL_KEYS)
+            T, dtype, image_source=image_source,
+            feature_source=feature_source, keys=engine.PATHOLOGY_EVAL_KEYS)
         loss_keys = ("total", "stage2_total", "stage4_total")
     else:
         train_step = engine.make_teacher_legacy_step(
             cfg, teacher_cfg.duett, T, dtype,
-            aux_alpha=cfg.aux_cxr_alpha if cfg.use_aux_cxr else 0.0)
-        loop_eval = engine.make_teacher_eval(T, dtype, keys=None)
+            aux_alpha=cfg.aux_cxr_alpha if cfg.use_aux_cxr else 0.0,
+            image_source=image_source)
+        loop_eval = engine.make_teacher_eval(T, dtype,
+                                             image_source=image_source,
+                                             keys=None)
         loss_keys = ("loss", "main_loss", "aux_loss")
     n_eval = [0]
 
@@ -429,20 +526,22 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     for epoch in range(start_epoch, cfg.epochs):
         acc, nb = None, 0
         t0 = time.perf_counter()
-        for b in dataset.iter_batches("train", cfg.batch_size, shuffle=True,
-                                      seed=cfg.seed + epoch,
-                                      limit=cfg.limit_batches):
-            b.pop("valid")
-            out = train_step(state, dataset.grid, dataset.static,
-                             engine.to_device(b, dev), gen)
-            cur = torch.stack([out[k] for k in loss_keys])
-            acc = cur if acc is None else acc + cur
-            nb += 1
-            n_steps += 1
-            if n_steps == resumed_steps + 1:
-                _sync(dev)
-                log(f"step {n_steps} done ({time.perf_counter() - t0:.2f}s "
-                    "after the epoch began)")
+        batches = _train_batches(dataset, cfg, epoch, dev, prefetch_depth)
+        try:
+            for dev_batch in batches:
+                out = train_step(state, dataset.grid, dataset.static,
+                                 dev_batch, gen)
+                cur = torch.stack([out[k] for k in loss_keys])
+                acc = cur if acc is None else acc + cur
+                nb += 1
+                n_steps += 1
+                if n_steps == resumed_steps + 1:
+                    _sync(dev)
+                    log(f"step {n_steps} done "
+                        f"({time.perf_counter() - t0:.2f}s after the epoch "
+                        "began)")
+        finally:
+            batches.close()
         # one host sync per epoch
         sums = acc.tolist() if acc is not None else [0.0] * len(loss_keys)
         phase["train"] += time.perf_counter() - t0
@@ -522,7 +621,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                 "start_epoch": start_epoch, "state_save_s": saves,
                 "state_bytes": (os.path.getsize(resumer.state_path)
                                 if saves else 0),
-                "feature_tier": tier,
+                "feature_tier": tier, "image_tier": image_tier,
                 "n_eval_steps": n_eval[0],
                 "best_val_outputs": best_val_outputs,
                 "evaluate": run_eval})

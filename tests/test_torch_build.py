@@ -18,9 +18,10 @@ import re
 
 import pytest
 
+from multimodal_edema_prediction_tpu_torch.data import native_loader
 from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
                                                        dual_axis, gather,
-                                                       ln_qkv)
+                                                       jpeg, ln_qkv)
 
 PTXAS = """\
 ptxas info    : 0 bytes gmem
@@ -230,7 +231,8 @@ def _c_signature(source: str, name: str) -> list:
 
 
 ENTRY_POINTS = {**attention.ENTRY_POINTS, **gather.ENTRY_POINTS,
-                **ln_qkv.ENTRY_POINTS, **dual_axis.ENTRY_POINTS}
+                **ln_qkv.ENTRY_POINTS, **dual_axis.ENTRY_POINTS,
+                **jpeg.ENTRY_POINTS}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -247,6 +249,32 @@ def test_entry_point_signatures_match_the_c_sources(name):
 def test_entry_point_tables_do_not_overlap():
     """No C entry point is bound by two wrappers."""
     tables = (attention.ENTRY_POINTS, gather.ENTRY_POINTS,
-              ln_qkv.ENTRY_POINTS, dual_axis.ENTRY_POINTS)
+              ln_qkv.ENTRY_POINTS, dual_axis.ENTRY_POINTS,
+              jpeg.ENTRY_POINTS)
     assert sum(map(len, tables)) == len(ENTRY_POINTS)
+
+
+_HOST_TYPES = {"int32_t": ctypes.c_int, "int64_t": ctypes.c_longlong}
+
+
+@pytest.mark.parametrize("name", sorted(native_loader.ENTRY_POINTS))
+def test_host_decoder_signatures_match_the_source(name):
+    """The host JPEG decoder's C entry points (``csrc/host/
+    jpeg_decode.cpp``, built with g++) take the parameters ctypes is
+    told."""
+    with open(native_loader.SOURCE) as f:
+        found = re.findall(r"\nvoid " + name + r"\(([^)]*)\)", f.read())
+    assert len(found) == 1, name
+    want = [ctypes.c_void_p if "*" in p
+            else _HOST_TYPES[" ".join(p.split()[:-1])]
+            for p in found[0].split(",")]
+    assert native_loader.ENTRY_POINTS[name] == want
+
+
+def test_nvjpeg_resize_links_nvjpeg():
+    """The card's decoder links nvJPEG, and the link flag is part of the
+    library's hash."""
+    assert build.SOURCES["jpeg_resize"] == "jpeg_resize.cu"
+    assert build.LINK_FLAGS == {"jpeg_resize": ("-lnvjpeg",)}
+    assert build._lib_path("jpeg_resize") != build._lib_path("gather_rows")
 

@@ -824,3 +824,184 @@ def test_mode_forward_on_the_card_matches_plain(cuda, mode, dtype, tol,
         scale = max(1.0, float(w.abs().max())) if dtype == torch.float32 \
             else 1.0
         assert float((got[k].float() - w).abs().max()) <= tol * scale, k
+
+
+def _host_batch(n=4, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"pixel_u8": rng.integers(0, 256, (n, 64, 64, 3), dtype=np.uint8),
+            "image_ids": np.arange(n, dtype=np.int32),
+            "y": rng.normal(size=(n, 7)).astype(np.float32),
+            "mask": rng.random(n) > 0.5}
+
+
+def test_prefetched_pinned_copies_equal_synchronous_copies(cuda):
+    """The prefetcher's pinned copies on its side stream give the tensors a
+    synchronous copy gives, in order, while the consumer's stream is busy;
+    its worker is joined at the end."""
+    import threading
+    from multimodal_edema_prediction_tpu_torch.data.prefetch import prefetch
+    from multimodal_edema_prediction_tpu_torch.train import engine
+    host = [_host_batch(seed=s) for s in range(6)]
+    busy = torch.randn(4096, 4096, device=cuda)
+    got = []
+    for b in prefetch(iter(host), cuda, depth=2):
+        busy = busy @ busy.T * 1e-4            # keep the default stream busy
+        got.append({k: v.clone() for k, v in b.items()})
+    torch.cuda.synchronize()
+    assert not [t for t in threading.enumerate() if t.name == "prefetch"]
+    assert len(got) == 6
+    for g, h in zip(got, host):
+        want = engine.to_device(h, cuda)
+        for k in h:
+            assert g[k].device.type == "cuda" and g[k].dtype == want[k].dtype
+            assert torch.equal(g[k], want[k]), k
+
+
+def test_hbm_image_bank_lives_on_the_card(cuda):
+    """``HBMImageBank`` holds its u8 rows on the card and its source
+    normalizes them there, equal to the step's normalization of the same
+    rows copied from the host."""
+    import os
+    import sys
+    from multimodal_edema_prediction_tpu_torch.data import images as I
+    from multimodal_edema_prediction_tpu_torch.train.engine import \
+        default_image_source
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import jpeg_fixtures as J
+    blobs = {i: J.encode_gray(J.cxr_like(i, 40 + i, 36), 90)
+             for i in (5, 2, 9)}
+    bank = I.HBMImageBank(I.JpegStore(blobs=blobs), [9, 2, 5], 28,
+                          device=cuda)
+    assert bank.bank.device.type == "cuda" and bank.bank.dtype == torch.uint8
+    rows = torch.from_numpy(bank.rows_for(np.array([5, 9]))).to(cuda)
+    got = bank.image_source()({"image_ids": rows})
+    assert got.device.type == "cuda"
+    want = default_image_source({"pixel_u8": bank.bank[rows.long()]})
+    assert torch.equal(got, want)
+    bad = bank.image_source()({"image_ids": torch.tensor(
+        [0, 7], dtype=torch.int32, device=cuda)})
+    assert torch.isfinite(bad[0]).all() and torch.isnan(bad[1]).all()
+
+
+def test_card_decoder_within_two_levels_of_libjpeg(cuda):
+    """Where the host has no libjpeg, the card's route (nvJPEG and the
+    resize kernel) decodes the grayscale golden files within 2 levels of
+    the rows libjpeg decoded (``tests/goldens/jpeg_rows_56.npz``)."""
+    import os
+    from multimodal_edema_prediction_tpu_torch.ops import jpeg
+    if not jpeg.nvjpeg_available():
+        pytest.skip("the CUDA toolkit here has no nvJPEG")
+    g = np.load(os.path.join(os.path.dirname(__file__), "goldens",
+                             "jpeg_rows_56.npz"))
+    blobs = [g["blob"][s:e].tobytes()
+             for s, e in zip(g["offsets"][:-1], g["offsets"][1:])]
+    u8, status = jpeg.decoder(cuda).decode_batch(blobs, 56)
+    assert not status.any() and u8.device.type == "cuda"
+    u8 = u8.cpu().numpy()
+    gray = g["gray"].astype(bool)
+    diff = np.abs(u8.astype(int) - g["u8"].astype(int))
+    assert diff[gray].max() <= 2
+    _, bad = jpeg.decoder(cuda).decode_batch([b"\xff\xd8junk", blobs[0]],
+                                             56)
+    assert bad.tolist() == [1, 0]
+
+
+@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("normalize", [False, True])
+def test_resize_kernel_matches_plain(cuda, channels, normalize):
+    from multimodal_edema_prediction_tpu_torch.models.vit import (IMAGE_MEAN,
+                                                                  IMAGE_STD)
+    from multimodal_edema_prediction_tpu_torch.ops import jpeg
+    g = torch.Generator(device=cuda).manual_seed(channels)
+    src = torch.randint(0, 256, (301, 257, channels), generator=g,
+                        device=cuda, dtype=torch.uint8)
+    mean, std = (IMAGE_MEAN, IMAGE_STD) if normalize else (None, None)
+    before = dict(jpeg.LAUNCHES)
+    got = jpeg.jpeg_resize(src, 518, mean, std)
+    torch.cuda.synchronize()
+    key = "jpeg_resize_f32" if normalize else "jpeg_resize_u8"
+    assert jpeg.LAUNCHES[key] == before[key] + 1
+    want = jpeg.jpeg_resize_reference(src, 518, mean, std)
+    assert got.shape == want.shape == (518, 518, 3)
+    err = (got.float() - want.float()).abs().max().item()
+    # the kernel contracts the sample position into an FMA: the weights may
+    # move by an ulp of a coordinate, times a neighbour step ≤ 255 levels
+    # (chip_smoke.py's TOL_RESIZE_U8 and TOL_RESIZE_F32)
+    assert err <= (3e-3 if normalize else 1.0)
+
+
+def test_card_decode_is_the_same_while_the_card_is_busy(cuda):
+    """Fault F5: the card route's files decoded while other work keeps the
+    default stream busy (as the prefetch worker decodes during a step)
+    equal the files decoded on an idle card, bit for bit."""
+    import os
+    import sys
+    import threading
+    from multimodal_edema_prediction_tpu_torch.models.vit import (IMAGE_MEAN,
+                                                                  IMAGE_STD)
+    from multimodal_edema_prediction_tpu_torch.ops import jpeg
+    if not jpeg.nvjpeg_available():
+        pytest.skip("the CUDA toolkit here has no nvJPEG")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import jpeg_fixtures as J
+    blobs = [J.encode_gray(J.cxr_like(50000 + i, 512, 416), 90)
+             for i in range(16)]
+    dec = jpeg.decoder(cuda)
+    idle = dec.decode_batch(blobs, 518, IMAGE_MEAN, IMAGE_STD)[0].cpu()
+    x = torch.randn(8192, 8192, device=cuda)
+    stop = threading.Event()
+
+    def busy():
+        y = x
+        while not stop.is_set():
+            for _ in range(20):
+                y = (y @ x) * 1e-4
+            torch.cuda.synchronize()
+
+    th = threading.Thread(target=busy)
+    th.start()
+    try:
+        loaded = [dec.decode_batch(blobs, 518, IMAGE_MEAN, IMAGE_STD)[0]
+                  .cpu() for _ in range(4)]
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    assert not th.is_alive()
+    for got in loaded:
+        assert torch.equal(got, idle)
+
+
+def test_card_decoded_pixels_stay_on_the_card(cuda):
+    """On the nvjpeg route the JPEG hook's pixels are on the card, the
+    prefetcher hands them on as they are, and the card's u8 bank holds the
+    decoder's rows."""
+    import os
+    import sys
+    from multimodal_edema_prediction_tpu_torch.data import images as I
+    from multimodal_edema_prediction_tpu_torch.data import native_loader
+    from multimodal_edema_prediction_tpu_torch.data.prefetch import prefetch
+    if native_loader.route() != "nvjpeg":
+        pytest.skip("this host decodes with libjpeg")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import jpeg_fixtures as J
+    blobs = {i: J.encode_gray(J.cxr_like(i, 40 + i, 36), 90)
+             for i in (5, 2, 9)}
+    store = I.JpegStore(blobs=blobs)
+    hook = I.make_jpeg_host_fn(store, 28)
+    ids = np.array([9, 2])
+    want = hook({"image_ids": ids})["pixel_values"]
+    assert want.device.type == "cuda" and want.dtype == torch.float32
+    host = [{"image_ids": ids, "y": np.zeros(2, np.float32)}] * 3
+    n = 0
+    for b in prefetch(iter(host), cuda, depth=2, host_fn=hook):
+        assert b["pixel_values"].device == want.device
+        assert torch.equal(b["pixel_values"], want)
+        assert b["y"].device.type == "cuda"
+        n += 1
+    assert n == 3
+    bank = I.HBMImageBank(store, [9, 2, 5], 28, device=cuda)
+    assert torch.equal(bank.bank, I.decode_batch_u8(
+        [blobs[i] for i in (2, 5, 9)], 28))

@@ -189,8 +189,14 @@ def test_cli_trains_the_head_on_the_cpu_when_asked(tmp_path):
 
 
 def test_cli_refuses_jpegs_and_defaults_to_the_card(tmp_path):
-    with pytest.raises(NotImplementedError, match="P15"):
-        cli.main(["--device", "cpu", "--cxr_jpeg_root", str(tmp_path)])
+    """``--cxr_jpeg_root`` is ported (P15): a directory that lacks the
+    catalog's JPEGs fails at the first one it reads, before any training;
+    the device defaults to the card."""
+    with pytest.raises(FileNotFoundError):
+        cli.main(["--device", "cpu", "--vit_size", "tiny",
+                  "--synthetic_stays", "40", "--ckpt_dir",
+                  str(tmp_path / "run"), "--cxr_jpeg_root", str(tmp_path)])
+    assert not (tmp_path / "run" / "cxr_linear_head.msgpack").exists()
     assert cli.build_parser().parse_args([]).device == "cuda"
     if torch.cuda.is_available():
         return

@@ -11,8 +11,10 @@ flags is either accepted by the port with the JAX default, or listed in
 that item right after parsing, before any data, model or device work.
 ``--eval_train_batches`` is ported: one CPU teacher run shows the
 train-subset evaluation and its gap table. The teacher's P13 flags (the
-other modes and LP mode) were waived until it was done; each now reaches the
-configuration or the loop's arguments (``PORTED``).
+other modes and LP mode) and P15 flags (the image feed tiers), and
+serving's ``--cxr_jpeg_root``, were waived until their items were done;
+each now reaches the configuration, the loop's arguments or the server's
+startup (``PORTED``).
 """
 from __future__ import annotations
 
@@ -65,14 +67,11 @@ _LOGGING = {"--log_every": "P20", "--wandb_project": "P20",
 WAIVERS = {
     "train_teacher": {
         **_LOGGING,
-        "--image_bank": "P15", "--hbm_image_budget_gb": "P15",
-        "--u8_store_path": "P15", "--prefetch_depth": "P15",
         "--grad_diag_every": "P19", "--grad_diag_batches": "P19"},
     "train_ssl": dict(_LOGGING),
     "train_student": dict(_LOGGING),
     "train_cxr_head": {},
-    "serve": {"--cxr_jpeg_root": "P17", "--data_parallel": "P17",
-              "--aot_dir": "P17"},
+    "serve": {"--data_parallel": "P17", "--aot_dir": "P17"},
 }
 
 
@@ -91,7 +90,14 @@ PORTED = {
     "--lp_corr_l2": lambda c: c["lp"]["lp_corr_l2"],
     "--lp_correction_dropout":
         lambda c: c["teacher"].perceiver.correction_dropout,
+    # P15: the image feed tiers, into train_teacher's arguments
+    "--image_bank": lambda c: c["images"]["image_bank"],
+    "--hbm_image_budget_gb": lambda c: c["images"]["hbm_image_budget_gb"],
+    "--u8_store_path": lambda c: c["images"]["u8_store_path"],
+    "--prefetch_depth": lambda c: c["images"]["prefetch_depth"],
 }
+# serving's flags waived until their item (P15) was done
+SERVE_PORTED = ("--cxr_jpeg_root",)
 
 
 class _Stop(Exception):
@@ -150,16 +156,24 @@ def test_every_jax_flag_parses_or_is_waived(cli):
 
 @pytest.mark.parametrize("cli,flag", sorted(
     [(c, f) for c in WAIVERS for f in WAIVERS[c]]
-    + [("train_teacher", f) for f in PORTED]))
+    + [("train_teacher", f) for f in PORTED]
+    + [("serve", f) for f in SERVE_PORTED]))
 def test_waived_flag_raises_naming_its_item(cli, flag):
     """A waived flag raises naming its item; a flag of ``PORTED`` (waived
     until its item was done) parses to the value given, which reaches the
-    configs or the LP arguments, with ``--lp_only_correction`` (JAX sets
-    LP mode's dropout and checkpoint only with it)."""
+    configs, the LP arguments or the image arguments, with
+    ``--lp_only_correction`` (JAX sets LP mode's dropout and checkpoint
+    only with it); serving's ``--cxr_jpeg_root`` (``SERVE_PORTED``) is
+    read by ``--image_mode jpeg_root``'s startup, which refuses a
+    directory without JPEGs."""
     jax_mod, port_mod = CLIS[cli]
     argv = _given(_actions(_parser(jax_mod))[flag], flag)
     # a valid JAX invocation
     _parser(jax_mod).parse_args(REQUIRED.get(cli, []) + argv)
+    if cli == "serve" and flag in SERVE_PORTED:
+        args = port_mod.build_parser().parse_args(REQUIRED[cli] + argv)
+        assert args.cxr_jpeg_root == argv[1]
+        return
     if flag in PORTED:
         from multimodal_edema_prediction_tpu_torch.cli.common import \
             configs_from_args
@@ -169,6 +183,7 @@ def test_waived_flag_raises_naming_its_item(cli, flag):
         dcfg, duett, train = configs_from_args(args)
         got = PORTED[flag]({
             "train": train, "lp": port_mod.lp_kwargs(args),
+            "images": port_mod.image_kwargs(args),
             "teacher": port_mod.teacher_config(args, dcfg, duett,
                                                ViTConfig())})
         want = True if len(argv) == 1 else type(got)(argv[1])
@@ -240,3 +255,60 @@ def test_eval_train_batches_on_the_cpu_teacher_loop(tmp_path, capsys):
     again = res.extras["evaluate"](model, "train", limit=2)
     assert again["n"] == 32
     assert again["main_auroc"] == res.history[best]["train_eval_main_auroc"]
+
+
+@pytest.mark.parametrize("argv,kw", [
+    (["--image_bank", "stream"], {"image_bank": "stream"}),
+    (["--hbm_image_budget_gb", "0.25"], {"hbm_image_budget_gb": 0.25}),
+    (["--u8_store_path", "/s/u8"], {"u8_store_path": "/s/u8"}),
+    (["--prefetch_depth", "0"], {"prefetch_depth": 0}),
+    (["--cxr_jpeg_root", "/j"], {"jpeg_store": "/j"})])
+def test_image_flags_reach_the_loop(argv, kw, monkeypatch, tmp_path):
+    """Each P15 flag's value, given to the CLI, is what ``train_teacher``
+    is called with (the JPEG root as its ``JpegStore``'s root)."""
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake(*a, **k):
+        seen.update(k)
+        raise Stop
+
+    monkeypatch.setattr(train_teacher, "train_teacher", fake)
+    with pytest.raises(Stop):
+        train_teacher.main(["--device", "cpu", "--vit_size", "tiny",
+                            "--synthetic_stays", "40", "--ckpt_dir",
+                            str(tmp_path)] + argv)
+    for k, v in kw.items():
+        got = seen[k].root if k == "jpeg_store" else seen[k]
+        assert got == v, (k, got)
+
+
+def test_cli_trains_from_a_jpeg_directory_on_the_u8_store(tmp_path):
+    """``--cxr_jpeg_root --image_bank stream --u8_store_path`` trains on the
+    CPU from JPEGs decoded once into the disk store (the JAX package's
+    files), which a second run reopens."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    import jpeg_fixtures
+    from multimodal_edema_prediction_tpu_torch.cli.common import load_data
+    args = train_teacher.build_parser().parse_args(
+        ["--synthetic_stays", "40", "--n_variables", "34"])
+    from multimodal_edema_prediction_tpu_torch.config import DataConfig
+    ids = np.unique(load_data(args, DataConfig())[2].anchor["image_ids"])
+    jpeg_fixtures.write_jpegs(str(tmp_path / "jpegs"), ids, 40, 36)
+    store = str(tmp_path / "store" / "u8")
+    argv = ["--device", "cpu", "--vit_size", "tiny", "--synthetic_stays",
+            "40", "--batch_size", "16", "--epochs", "1", "--limit_batches",
+            "1", "--warmup_steps", "1", "--no_save_state",
+            "--cxr_jpeg_root", str(tmp_path / "jpegs"), "--image_bank",
+            "stream", "--u8_store_path", store, "--prefetch_depth", "1"]
+    first = train_teacher.main(argv + ["--ckpt_dir", str(tmp_path / "a")])
+    again = train_teacher.main(argv + ["--ckpt_dir", str(tmp_path / "b")])
+    assert first.extras["image_tier"]["tier"] == "u8_store"
+    assert os.path.exists(store + ".u8") and os.path.exists(
+        store + ".meta.json")
+    assert first.history == again.history
+    assert np.isfinite(first.history[0]["train_total"])

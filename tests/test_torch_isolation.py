@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of it, and what
 ``chip_smoke.py`` imports, brings in neither JAX nor flax nor optax nor
-msgpack nor sklearn nor ml_dtypes nor the JAX package; its entry points
+msgpack nor sklearn nor ml_dtypes nor PIL nor the JAX package, and no
+module of it loads the JAX package's native library; its entry points
 default to the card; and its kernel wrappers take their plain versions only
 for CPU tensors."""
 import json
@@ -21,7 +22,7 @@ from multimodal_edema_prediction_tpu_torch.ops import (attention, dual_axis,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
-             "ml_dtypes", "multimodal_edema_prediction_tpu")
+             "ml_dtypes", "PIL", "multimodal_edema_prediction_tpu")
 
 
 def _all_port_modules():
@@ -38,7 +39,9 @@ def test_imports_bring_in_no_jax():
                  "train.kd_loop", "cli.train_student", "utils.preemption",
                  "models.cxr_head", "train.cxr_head_loop",
                  "cli.train_cxr_head", "models.perceiver", "models.teacher",
-                 "train.engine", "train.evaluator", "ops.losses"):
+                 "train.engine", "train.evaluator", "ops.losses",
+                 "data.images", "data.native_loader", "data.prefetch",
+                 "ops.jpeg"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -114,8 +117,32 @@ def test_ssl_cli_device_default_is_cuda(tmp_path):
                       "--ckpt_dir", str(tmp_path)])
 
 
+def _port_sources():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.dirname(port.__file__)):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cpp", ".cu", ".cuh"))]
+    return files
+
+
+def test_no_port_module_loads_the_jax_packages_native_library():
+    """The port builds its own decoder (``csrc/host/jpeg_decode.cpp``) and
+    never names ``native/`` or its library."""
+    for path in _port_sources():
+        with open(path) as f:
+            text = f.read()
+        assert "libmmedema_native" not in text, path
+        assert '"native"' not in text and "'native'" not in text, path
+
+
 @pytest.mark.parametrize("mode", ["jpeg_root", "synthetic"])
 def test_cli_queued_image_modes_raise(mode):
+    """``synthetic`` is not ported (P17); ``jpeg_root`` is, and, as in the
+    JAX CLI, is an argument error without ``--cxr_jpeg_root``."""
+    if mode == "jpeg_root":
+        with pytest.raises(SystemExit):
+            cli_serve.main(["--ckpt", "x.msgpack", "--image_mode", mode])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_serve.main(["--ckpt", "x.msgpack", "--image_mode", mode])
 

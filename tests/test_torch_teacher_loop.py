@@ -133,7 +133,7 @@ def _tiny(**kw):
 
 # ROADMAP items done since their cases were written: their modes and
 # flags now train where they used to raise
-DONE = {"P13"}
+DONE = {"P13", "P15"}
 
 
 def _cohort():
@@ -186,8 +186,9 @@ def test_loop_refuses_a_feature_cache_for_a_trainable_vit(feature_cache,
     (["--vit_quant", "int8"], "P20")])
 def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     """What the CLI does not port raises naming its ROADMAP item; the flags
-    of a done item (P13) train an epoch instead: the two modes, and LP mode
-    from a checkpoint of the CLI's default mode."""
+    of a done item train an epoch instead: P13's two modes, and LP mode
+    from a checkpoint of the CLI's default mode; P15's ``--cxr_jpeg_root``
+    from a directory of JPEGs written here (``scripts/jpeg_fixtures.py``)."""
     base = ["--device", "cpu", "--vit_size", "tiny", "--synthetic_stays",
             "40"]
     if match not in DONE:
@@ -200,6 +201,20 @@ def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     if argv == ["--lp_only_correction"]:
         start = cli.main(run + ["--ckpt_dir", str(tmp_path / "start")])
         argv = argv + ["--lp_ckpt", start.best_path]
+    if argv[0] == "--cxr_jpeg_root":
+        import os
+        import sys
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "scripts"))
+        import jpeg_fixtures
+        ds = S.make_synthetic(seed=0, n_stays=40, n_subjects=13,
+                              n_variables=34)
+        ad = P.build_anchor_dataset(ds, P.meta_from_events(
+            ds, DataConfig()), DataConfig())
+        root = tmp_path / "jpegs"
+        jpeg_fixtures.write_jpegs(str(root), np.unique(
+            ad.anchor["image_ids"]), 40, 36)
+        argv = ["--cxr_jpeg_root", str(root)]
     res = cli.main(run + ["--ckpt_dir", str(tmp_path / "run")] + argv)
     assert np.isfinite(list(res.history[0].values())[1])
     if "--lp_only_correction" in argv:
