@@ -325,6 +325,34 @@ prefetcher) add:
             resize kernel's two rows (u8, float32) and the ``jpeg`` paths
             under every row's ``launches_by_path``.
 
+The supervised DuETT recipe (ROADMAP P14), the inference CLI and serving's
+``synthetic`` mode (P17) add:
+
+3.  kernels  K1 bf16 at ``cli/predict``'s [64, 12, 1370, 64] (timed) and
+            at the remainder of its default split, [62, 12, 1370, 64].
+22. finetune  ``cli/finetune_mimic.main`` at its defaults from the SSL
+            phase's best checkpoint (500 stays, batch 64, seeds 0 1 2,
+            top-k 5), the epochs cut to FINETUNE_EPOCHS, in float32 and
+            with ``--mixed_precision bf16``: every kernel's launches (0),
+            each seed's test AUPRC on the averaged and on the best
+            weights, the averaged weights on the card bit-equal to a CPU
+            average of the same ``ft-*.msgpack`` files; the steady step
+            of each dtype (CUDA events, peak memory, ``torch.profiler``).
+23. physionet  ``cli/train_physionet.main`` at its defaults (400 synthetic
+            patients), SSL and fine-tuning epochs cut to PHYSIONET_EPOCHS:
+            wall seconds, the summary, every kernel's launches (0).
+24. predict  ``cli/predict.main`` on the train phase's teacher, on
+            procedural pixels and on ``--cxr_feature_cache hbm``, at batch
+            64 and 16: launches of the bank's build and of the eval apart
+            (K1 12 a pixel batch; 12 a build chunk, then K2 2 and K1 0 a
+            batch), samples/s, the NPZ's keys and shapes; the tiers within
+            PREDICT_BATCH_TOL at both batches (a shifted bank row beyond
+            it), their time series' outputs bit-equal.
+25. synthetic_serve  that teacher served over HTTP with the ``synthetic``
+            image source: K1 12 a batch, served = direct, the card's
+            procedural pixels against the CPU's (SYNTHETIC_PIXEL_TOL).
+
+Every phase line carries ``t_s``, the seconds since the script started.
 Then the run's total seconds on a line of their own.
 
 Each float32 row of the summary carries ``tc_bound_ms`` beside
@@ -396,6 +424,7 @@ KD_RUNS = os.path.join(REPO, "build", "chip_smoke_kd")
 DUAL_RUNS = os.path.join(REPO, "build", "chip_smoke_dual")
 RESUME_RUNS = os.path.join(REPO, "build", "chip_smoke_resume")
 MODES_RUNS = os.path.join(REPO, "build", "chip_smoke_modes")
+TRAIN_BEST = os.path.join(REPO, "build", "chip_smoke_train_best.msgpack")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12     # H100 SXM dense TF32 (NVIDIA data sheet)
@@ -482,7 +511,14 @@ KD_F32_TOL = 1e-4
 RESUME_SPREAD_FACTOR = 4.0
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (``t_s``), which say where the run's time goes."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T_START, 3)}
     print(json.dumps(obj), flush=True)
 
 
@@ -493,14 +529,20 @@ def import_port():
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     from multimodal_edema_prediction_tpu_torch import config, convert
+    from multimodal_edema_prediction_tpu_torch.analysis import \
+        common as analysis_common
     from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
-    from multimodal_edema_prediction_tpu_torch.cli import (train_cxr_head,
+    from multimodal_edema_prediction_tpu_torch.cli import (finetune_mimic,
+                                                           predict,
+                                                           train_cxr_head,
+                                                           train_physionet,
                                                            train_ssl,
                                                            train_student,
                                                            train_teacher)
     from multimodal_edema_prediction_tpu_torch.data import (features, images,
                                                             ingest,
                                                             native_loader,
+                                                            physionet,
                                                             pipeline,
                                                             prefetch,
                                                             sliding,
@@ -513,7 +555,9 @@ def import_port():
     from multimodal_edema_prediction_tpu_torch.serve import predictor, server
     from multimodal_edema_prediction_tpu_torch.train import (checkpoint,
                                                              cxr_head_loop,
-                                                             engine, kd_loop,
+                                                             engine,
+                                                             finetune_loop,
+                                                             kd_loop, loops,
                                                              optim, ssl_loop,
                                                              state,
                                                              teacher_loop)
@@ -530,7 +574,11 @@ def import_port():
                 train_student=train_student, train_cxr_head=train_cxr_head,
                 cxr_head_loop=cxr_head_loop, preemption=preemption,
                 images=images, native_loader=native_loader,
-                prefetch=prefetch, jpeg=jpeg)
+                prefetch=prefetch, jpeg=jpeg, physionet=physionet,
+                finetune_loop=finetune_loop, loops=loops,
+                finetune_mimic=finetune_mimic,
+                train_physionet=train_physionet, predict=predict,
+                analysis_common=analysis_common)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -971,6 +1019,8 @@ def phase_train(port, device, card: str = "") -> dict:
             "reload_max_abs_diff": reload_diff,
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(info)
+    # the predict and synthetic serving phases read this teacher
+    info["teacher_ckpt"] = _keep_ckpt(res.best_path, TRAIN_BEST)
     shutil.rmtree(RUNS, ignore_errors=True)
     if not all(np.isfinite(x) for x in info["epoch_losses"]):
         raise AssertionError(f"non-finite losses {info['epoch_losses']}")
@@ -1028,6 +1078,8 @@ def phase_f32_train(port, device, card: str = "") -> dict:
             "val_auroc": [h["val_main_auroc"] for h in res.history],
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(info)
+    # the predict and synthetic serving phases read this teacher
+    info["teacher_ckpt"] = _keep_ckpt(res.best_path, TRAIN_BEST)
     shutil.rmtree(RUNS, ignore_errors=True)
     if not all(np.isfinite(x) for x in info["epoch_losses"]):
         raise AssertionError(f"non-finite losses {info['epoch_losses']}")
@@ -2411,11 +2463,12 @@ def phase_kd(port, device, teacher_ckpt: str, ssl_ckpt: str,
     return info
 
 
-def _steady_step(port, device, run, reps: int, watch: dict) -> dict:
+def _steady_step(port, device, run, reps: int, watch: dict,
+                 batch: int = 32) -> dict:
     """One step's launches (counts set to 0 just before it), then ``reps``
     steady steps timed by CUDA events (median), their peak memory, and a
     ``torch.profiler`` reading of 3 more (device busy time, idle share,
-    ``watch``'s kernels, time by family)."""
+    ``watch``'s kernels, time by family); ``batch`` samples a step."""
     import torch
     run()
     torch.cuda.synchronize()
@@ -2435,7 +2488,7 @@ def _steady_step(port, device, run, reps: int, watch: dict) -> dict:
         times.append(start.elapsed_time(end))
     step_ms = statistics.median(times)
     return {"step_ms": step_ms, "step_ms_all": times,
-            "samples_per_s": 32e3 / step_ms,
+            "samples_per_s": batch * 1e3 / step_ms,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
             "launches_per_step": launches,
             "profile": _profile(run, 3, step_ms, watch, families=True)}
@@ -3661,26 +3714,20 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     return info
 
 
-def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
-                n_clients: int = 4, posts_per_client: int = 3) -> dict:
-    """``cli/serve``'s ``jpeg_root`` startup (``jpeg_feature_source``:
-    every ``{id}.jpg`` decoded and encoded once) behind the HTTP server;
-    clients post windows with an ``image_id``; launches over the startup
-    and over the clients' window; each served batch re-run directly
-    (SERVE_TOL); an id not in the bank answers NaN."""
-    import math
-
+def _serve_by_id(port, device, model, source: dict, reqs: list,
+                 n_clients: int, posts_per_client: int, probe=None) -> dict:
+    """``model`` behind the HTTP server with ``source`` (the predictor's
+    ``image_source`` or ``feature_source``): after the warm-up, clients
+    post windows that name an ``image_id`` (``reqs``, in order); the
+    launches over the clients' window, the batcher's stats and the
+    clients' latencies; then every served batch re-run directly and every
+    response against its row there (the largest difference).
+    ``probe(pred)`` runs on the started predictor before it closes."""
     import torch
     pred_mod, srv, eng = port["predictor"], port["server"], port["engine"]
-    model, cfg, _ = port["checkpoint"].load_teacher_from_ckpt(ckpt, device)
-    torch.cuda.synchronize()
-    reset_counts(port)
-    source, startup = port["cli_serve"].jpeg_feature_source(model, root)
-    startup["launches"] = {k: v for k, v in read_counts(port).items() if v}
-    ids = sorted(int(f[:-4]) for f in os.listdir(root) if f.endswith(".jpg"))
-    pred = pred_mod.BatchingPredictor(model, feature_source=source,
-                                      max_batch=32, max_wait_ms=20.0,
-                                      dtype=torch.bfloat16, device=device)
+    pred = pred_mod.BatchingPredictor(model, max_batch=32, max_wait_ms=20.0,
+                                      dtype=torch.bfloat16, device=device,
+                                      **source)
     served = []
     step = pred._step
 
@@ -3692,24 +3739,19 @@ def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
 
     pred._step = recording_step
     pred.start()
-    d = cfg.duett
-    T, V = d.n_timesteps, d.n_variables
-    rng = np.random.default_rng(3)
     n_req = n_clients * posts_per_client
-    reqs = [{"x_ts": np.concatenate(
-                [rng.normal(size=(T, V)), rng.integers(-1, 4, size=(T, V))],
-                -1).astype(np.float32),
-             "static": rng.normal(size=d.d_static).astype(np.float32),
-             "image_id": int(ids[i * 7 % len(ids)])} for i in range(n_req)]
-    server = None
+    server, probed = None, None
     try:
-        pred.warmup({"x_ts": reqs[0]["x_ts"], "static": reqs[0]["static"],
-                     "image_id": ids[0]})
+        t0 = time.perf_counter()
+        warm = pred.warmup({"x_ts": reqs[0]["x_ts"],
+                            "static": reqs[0]["static"],
+                            "image_id": reqs[0]["image_id"]})
+        warm_s = time.perf_counter() - t0
         served.clear()
         server = srv.make_server(pred, "127.0.0.1", 0, meta={})
         srv.serve_forever(server, background=True)
         url = f"http://127.0.0.1:{server.server_address[1]}/v1/predict"
-        responses, errors = [None] * n_req, []
+        responses, latencies, errors = [None] * n_req, [], []
         lock = threading.Lock()
 
         def client(c):
@@ -3717,7 +3759,7 @@ def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
                 for j in range(posts_per_client):
                     i = c * posts_per_client + j
                     r = reqs[i]
-                    code, body, _ = _post(url, {"instances": [{
+                    code, body, ms = _post(url, {"instances": [{
                         "x_ts": r["x_ts"].tolist(),
                         "static": r["static"].tolist(),
                         "image_id": r["image_id"]}]})
@@ -3725,6 +3767,7 @@ def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
                         raise RuntimeError(f"HTTP {code}: {body}")
                     with lock:
                         responses[i] = body["predictions"][0]
+                        latencies.append(ms)
             except Exception as e:      # noqa: BLE001 — reported below
                 with lock:
                     errors.append(repr(e))
@@ -3742,16 +3785,17 @@ def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
         launches = {k: v for k, v in read_counts(port).items() if v}
         stats = pred.stats()
         if errors or any(th.is_alive() for th in threads):
-            raise RuntimeError(f"jpeg serve clients failed: {errors}")
+            raise RuntimeError(f"serving clients failed: {errors}")
         checked = list(served)
-        unknown = pred.predict({**reqs[0], "image_id": -7})
+        if probe is not None:
+            probed = probe(pred)
     finally:
         if server is not None:
             server.shutdown()
             server.server_close()
         pred.close()
     direct = eng.make_teacher_eval_from_windows(pred._model, torch.bfloat16,
-                                                feature_source=source)
+                                                **source)
     rows, max_diff = {}, 0.0
     for x_ts, static, batch, out in checked:
         again = {k: v.cpu() for k, v in direct(x_ts, static, batch).items()}
@@ -3763,29 +3807,456 @@ def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
         max_diff = max(max_diff, float((torch.tensor(resp["fusion_logits"])
                                         - rows[r["x_ts"].tobytes()])
                                        .abs().max()))
+    lat = np.asarray(latencies)
+    return {"requests": n_req, "batches": stats["n_batches"],
+            "n_served": stats["n_requests"],
+            "batch_size_hist": stats["batch_size_hist"],
+            "launches": launches, "samples_per_s": n_req / wall,
+            "wall_s": wall, "latency_ms_p50": float(np.percentile(lat, 50)),
+            "latency_ms_p99": float(np.percentile(lat, 99)),
+            "warmup_s": warm_s, "warm_by_bucket": warm,
+            "max_abs_diff_response_vs_direct": max_diff, "probe": probed,
+            "served_outputs_finite": all(
+                bool(torch.isfinite(v).all()) for *_, out in checked
+                for v in out.values())}
+
+
+def _id_requests(cfg, ids: list, seed: int) -> list:
+    """Windows with an ``image_id`` each, as a client of the id modes
+    sends them."""
+    d = cfg.duett
+    T, V = d.n_timesteps, d.n_variables
+    rng = np.random.default_rng(seed)
+    return [{"x_ts": np.concatenate(
+                [rng.normal(size=(T, V)), rng.integers(-1, 4, size=(T, V))],
+                -1).astype(np.float32),
+             "static": rng.normal(size=d.d_static).astype(np.float32),
+             "image_id": int(i)} for i in ids]
+
+
+def _jpeg_serve(port, device, ckpt: str, root: str, route: str,
+                n_clients: int = 4, posts_per_client: int = 3) -> dict:
+    """``cli/serve``'s ``jpeg_root`` startup (``jpeg_feature_source``:
+    every ``{id}.jpg`` decoded and encoded once) behind the HTTP server;
+    clients post windows with an ``image_id``; launches over the startup
+    and over the clients' window; each served batch re-run directly
+    (SERVE_TOL); an id not in the bank answers NaN."""
+    import math
+
+    import torch
+    model, cfg, _ = port["checkpoint"].load_teacher_from_ckpt(ckpt, device)
+    torch.cuda.synchronize()
+    reset_counts(port)
+    source, startup = port["cli_serve"].jpeg_feature_source(model, root)
+    startup["launches"] = {k: v for k, v in read_counts(port).items() if v}
+    ids = sorted(int(f[:-4]) for f in os.listdir(root) if f.endswith(".jpg"))
+    n_req = n_clients * posts_per_client
+    reqs = _id_requests(cfg, [ids[i * 7 % len(ids)] for i in range(n_req)],
+                        seed=3)
+    run = _serve_by_id(port, device, model, {"feature_source": source},
+                       reqs, n_clients, posts_per_client,
+                       probe=lambda pred: pred.predict(
+                           {**reqs[0], "image_id": -7}))
     n_img = startup["n_images"]
     want_startup = {"flash_attention": 12 * math.ceil(n_img / 16)}
     if route == "nvjpeg":
         want_startup["jpeg_resize_f32"] = n_img
+    unknown = run.pop("probe")
     info = {"startup": startup, "expected_startup_launches": want_startup,
-            "requests": n_req, "batches": stats["n_batches"],
-            "batch_size_hist": stats["batch_size_hist"],
-            "launches": launches, "samples_per_s": n_req / wall,
-            "max_abs_diff_response_vs_direct": max_diff,
-            "unknown_id_fusion_logits": unknown["fusion_logits"]}
+            **run, "unknown_id_fusion_logits": unknown["fusion_logits"]}
     if startup["launches"] != want_startup:
         raise AssertionError(f"jpeg serve startup launched "
                              f"{startup['launches']}, expected "
                              f"{want_startup}")
-    if launches != {"gather_rows_bulk": 2 * stats["n_batches"]} or \
-            stats["n_requests"] != n_req:
-        raise AssertionError(f"jpeg serve launched {launches} over "
-                             f"{stats['n_batches']} batches")
-    if max_diff > SERVE_TOL:
+    if run["launches"] != {"gather_rows_bulk": 2 * run["batches"]} or \
+            run["n_served"] != n_req:
+        raise AssertionError(f"jpeg serve launched {run['launches']} over "
+                             f"{run['batches']} batches")
+    if run["max_abs_diff_response_vs_direct"] > SERVE_TOL:
         raise AssertionError(f"jpeg serve: served differs from direct by "
-                             f"{max_diff}")
+                             f"{run['max_abs_diff_response_vs_direct']}")
     if not np.isnan(unknown["fusion_logits"]).all():
         raise AssertionError("an unknown image id did not answer NaN")
+    return info
+
+
+FINETUNE_RUNS = os.path.join(REPO, "build", "chip_smoke_finetune")
+PHYSIONET_RUNS = os.path.join(REPO, "build", "chip_smoke_physionet")
+PREDICT_RUNS = os.path.join(REPO, "build", "chip_smoke_predict")
+# the epochs cut for the supervised phases (the CLIs' default is 10)
+FINETUNE_EPOCHS = 3
+PHYSIONET_EPOCHS = 2
+# the card's procedural images against the CPU's from the same function:
+# the same threefry bits; erf_inv's polynomial, log1p and exp in another
+# order of rounding (~1 float32 ulp of a value ≲ 5 before the 0.1 scale)
+SYNTHETIC_PIXEL_TOL = 1e-6
+# cli/predict's two image tiers, each output relative to the array's max
+# abs: the bank holds the ViT's bf16 tokens of each image encoded in a chunk
+# of 16 sorted ids, the pixel tier encodes it among its eval batch, and
+# cuBLAS's bf16 GEMMs round an image's rows otherwise in another batch
+# (1.46e-2 to 1.65e-2 of the logits' max abs after 12 layers at batch 64 on
+# an H100, not bit-equal at batch 16 either); a bank row shifted by one
+# moves them by ~0.5, which the phase shows each run
+PREDICT_BATCH_TOL = 5e-2
+
+
+def _finetune_data(port, n_stays: int = 500):
+    """``cli/finetune_mimic``'s default cohort and stay-label dataset (the
+    CLI's own helpers) and its DuETT config."""
+    cfgmod, P, S = port["config"], port["pipeline"], port["synthetic"]
+    ds = S.make_synthetic(seed=0, n_stays=n_stays,
+                          n_subjects=max(n_stays // 3, 10), n_variables=34)
+    meta = P.meta_from_events(ds, cfgmod.DataConfig())
+    data = port["sliding"].build_stay_label_dataset(ds, meta, 24)
+    duett = cfgmod.DuettConfig(n_variables=meta.n_variables,
+                               d_static=meta.d_static, n_timesteps=24,
+                               d_embedding=24, n_layers=2)
+    return data, duett
+
+
+def _avg_bit_equal(port, extras: dict) -> dict:
+    """Per seed: the averaged weights as the loop loaded them on the card
+    against a CPU average (``average_params``, then float32) of the same
+    ``ft-*.msgpack`` files with the best one's statistics, bit for bit."""
+    import torch
+    ck, conv = port["checkpoint"], port["convert"]
+    out = {}
+    for seed, e in extras.items():
+        params = ck.average_params([ck.load_checkpoint(p)["params"]
+                                    for _, p in e["entries"]], np.float32)
+        stats = ck.load_checkpoint(e["entries"][0][1])["batch_stats"]
+        cpu = conv.flax_to_state_dict(params, stats)
+        card = e["avg_state"]
+        out[seed] = {"k": len(e["entries"]),
+                     "bit_equal": cpu.keys() == card.keys() and all(
+                         torch.equal(cpu[k], card[k].cpu()) for k in cpu)}
+    return out
+
+
+def phase_finetune(port, device, ssl_ckpt: str, card: str = "",
+                   reps: int = 5) -> dict:
+    """``cli/finetune_mimic.main`` at its defaults (DuETT V 34, T 24,
+    d_embedding 24, 2 layer pairs, FF 512, batch 64, 500 synthetic stays,
+    seeds 0 1 2, top-k 5), from the SSL phase's best checkpoint, the epochs
+    cut to FINETUNE_EPOCHS: float32 (the default) and ``--mixed_precision
+    bf16``; every kernel's launches over exactly each run (none of the six
+    is on this path); the summary finite; each seed's averaged weights on
+    the card bit-equal to a CPU average of the same files. Then the steady
+    supervised step of each dtype at batch 64 (``_steady_step``)."""
+    import torch
+    shutil.rmtree(FINETUNE_RUNS, ignore_errors=True)
+    runs = {}
+    for way, extra in (("float32", []),
+                       ("bf16", ["--mixed_precision", "bf16"])):
+        argv = ["--device", "cuda", "--ssl_ckpt", ssl_ckpt, "--epochs",
+                str(FINETUNE_EPOCHS), "--ckpt_dir",
+                os.path.join(FINETUNE_RUNS, way)] + extra
+        extras = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(port)
+        t0 = time.perf_counter()
+        summary = port["finetune_mimic"].main(argv, extras=extras)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(port)
+        steps = sum(e["train_steps"] for e in extras.values())
+        train_s = sum(e["train_s"] for e in extras.values())
+        runs[way] = {
+            "argv": argv, "wall_s": wall, "launches": launches,
+            "summary": {k: v for k, v in summary.items() if k != "per_seed"},
+            "per_seed": [{"seed": r["seed"], "val_auprc": r["val_auprc"],
+                          "test_auprc_avg": r["test_avg"]["auprc"],
+                          "test_auprc_best": r["test_best"]["auprc"],
+                          "test_auroc_avg": r["test_avg"]["auroc"],
+                          "test_auroc_best": r["test_best"]["auroc"]}
+                         for r in summary["per_seed"]],
+            "train_steps": steps, "train_s": train_s,
+            "train_samples_per_s": steps * 64 / train_s,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "averaged": _avg_bit_equal(port, extras)}
+    shutil.rmtree(FINETUNE_RUNS, ignore_errors=True)
+
+    data, duett = _finetune_data(port)
+    data.to(device)
+    fl, eng = port["finetune_loop"], port["engine"]
+    steady = {}
+    for way, dtype in (("float32", torch.float32), ("bf16", torch.bfloat16)):
+        model = port["duett"].init_classifier(duett, 0)
+        port["ssl_loop"].transplant_encoder(ssl_ckpt, model, dest="encoder")
+        model = model.to(device)
+        state = port["state"].TrainState(model, port["optim"].simple_adamw(
+            model, 1e-4, 1e-5, warmup_steps=50, total_steps=15,
+            min_lr_ratio=0.01))
+        train_step, _ = fl.make_finetune_steps(24, dtype,
+                                               data.pos_frac("train"))
+        batch = eng.to_device(next(data.iter_batches("train", 64, True,
+                                                     seed=0)), device)
+        gen = torch.Generator(device=device).manual_seed(100)
+
+        def run():
+            return train_step(state, data.grid, data.static, batch, gen)
+
+        steady[way] = _steady_step(port, device, run, reps, {}, batch=64)
+        steady[way]["loss"] = float(run())
+        del model, state
+    info = {"phase": "finetune", "card": card, "epochs": FINETUNE_EPOCHS,
+            "duett": {k: getattr(duett, k) for k in (
+                "n_variables", "n_timesteps", "d_static", "d_embedding",
+                "n_layers", "n_heads", "d_feedforward")},
+            "splits": {k: data.split_size(k) for k in ("train", "val",
+                                                       "test")},
+            "pos_frac": data.pos_frac("train"), "runs": runs,
+            "steady": steady}
+    emit(info)
+    torch.cuda.empty_cache()
+    for way, r in runs.items():
+        if any(r["launches"].values()) or any(
+                steady[w]["launches_per_step"] for w in steady):
+            raise AssertionError(f"finetune {way} launched a kernel: "
+                                 f"{r['launches']}")
+        vals = [v for v in r["summary"].values()] + [
+            x for s in r["per_seed"] for x in s.values()]
+        if not all(np.isfinite(v) for v in vals):
+            raise AssertionError(f"finetune {way}: non-finite summary {r}")
+        if not all(a["bit_equal"] for a in r["averaged"].values()):
+            raise AssertionError(f"finetune {way}: the card's averaged "
+                                 f"weights differ from the CPU average: "
+                                 f"{r['averaged']}")
+        if len(r["per_seed"]) != 3:
+            raise AssertionError(f"finetune {way}: {len(r['per_seed'])} "
+                                 "seeds")
+    if not all(np.isfinite(s["loss"]) for s in steady.values()):
+        raise AssertionError(f"non-finite steady finetune loss {steady}")
+    return info
+
+
+def phase_physionet(port, device, card: str = "") -> dict:
+    """``cli/train_physionet.main`` at its defaults (400 synthetic patients,
+    36 variables, 8 static features, batch 64, seeds 0 1 2, top-k 5), the
+    SSL and fine-tuning epochs cut to PHYSIONET_EPOCHS: wall seconds, the
+    SSL history and the summary, all finite; every kernel's launches over
+    exactly this run (none of the six is on this path)."""
+    import torch
+    shutil.rmtree(PHYSIONET_RUNS, ignore_errors=True)
+    argv = ["--device", "cuda", "--pretrain_epochs", str(PHYSIONET_EPOCHS),
+            "--finetune_epochs", str(PHYSIONET_EPOCHS), "--ckpt_dir",
+            PHYSIONET_RUNS]
+    extras = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    summary = port["train_physionet"].main(argv, extras=extras)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(port)
+    ssl = extras["ssl"]
+    info = {"phase": "physionet", "card": card, "argv": argv,
+            "wall_s": wall, "launches": launches,
+            "ssl_history": ssl.history, "ssl_best_val_loss": ssl.best_metric,
+            "ssl_train_steps": ssl.extras["n_train_steps"],
+            "finetune_train_steps": sum(
+                e["train_steps"] for e in extras["finetune"].values()),
+            "summary": {k: v for k, v in summary.items() if k != "per_seed"},
+            "per_seed": [{"seed": r["seed"], "val_auprc": r["val_auprc"],
+                          "test_auprc_avg": r["test_avg"]["auprc"],
+                          "test_auprc_best": r["test_best"]["auprc"]}
+                         for r in summary["per_seed"]],
+            "averaged": _avg_bit_equal(port, extras["finetune"]),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    emit(info)
+    shutil.rmtree(PHYSIONET_RUNS, ignore_errors=True)
+    vals = [h[k] for h in ssl.history for k in ("train_loss", "val_loss")] \
+        + list(info["summary"].values()) \
+        + [x for s in info["per_seed"] for x in s.values()]
+    if not all(np.isfinite(v) for v in vals):
+        raise AssertionError(f"physionet: non-finite readings {info}")
+    if any(launches.values()):
+        raise AssertionError(f"physionet launched a kernel: {launches}")
+    if not all(a["bit_equal"] for a in info["averaged"].values()):
+        raise AssertionError(f"physionet: averaged weights differ: "
+                             f"{info['averaged']}")
+    return info
+
+
+def phase_predict(port, device, teacher_ckpt: str, card: str = "") -> dict:
+    """``cli/predict.main`` at its defaults (bf16, the test split of 400
+    synthetic stays, batch 64) on the full-width teacher from the train
+    phase's best checkpoint: on procedural pixels (K1 12 a batch, K2 0) and
+    with ``--cxr_feature_cache hbm`` (K1 12 a chunk of 16 in the bank's
+    build, then K2 2 and K1 0 a batch), the launches of the build and of
+    the split's eval counted apart; samples/s of each eval; the NPZ's keys
+    and shapes. The same two runs at ``--batch_size 16``, the bank's chunk.
+    At either batch the two tiers' NPZs are held within PREDICT_BATCH_TOL
+    of each array's max abs, and the same comparison against the bank's
+    outputs shifted by one row must exceed it; the time series' outputs
+    are equal bit for bit. Labels and masks equal throughout."""
+    import math
+
+    import torch
+    shutil.rmtree(PREDICT_RUNS, ignore_errors=True)
+    os.makedirs(PREDICT_RUNS)
+    pred_mod, F = port["predict"], port["features"]
+    runs, npz = {}, {}
+    for way, extra in (("pixels", []),
+                       ("hbm", ["--cxr_feature_cache", "hbm"]),
+                       ("pixels_b16", ["--batch_size", "16"]),
+                       ("hbm_b16", ["--cxr_feature_cache", "hbm",
+                                    "--batch_size", "16"])):
+        out = os.path.join(PREDICT_RUNS, f"{way}.npz")
+        argv = ["--ckpt", teacher_ckpt, "--device", "cuda", "--out",
+                out] + extra
+        batch = int(extra[extra.index("--batch_size") + 1]) \
+            if "--batch_size" in extra else 64
+        seen = {}
+        build_attr = F.CXRFeatureBank.__dict__["build"]
+        build, evaluate = F.CXRFeatureBank.build, \
+            pred_mod.evaluate_dual_pathology
+
+        def timed(name, fn):
+            def wrapped(*a, **k):
+                torch.cuda.synchronize()
+                before = read_counts(port)
+                t0 = time.perf_counter()
+                r = fn(*a, **k)
+                torch.cuda.synchronize()
+                seen[name] = {"s": time.perf_counter() - t0, "launches": {
+                    k: v - before[k] for k, v in read_counts(port).items()
+                    if v - before[k]}}
+                return r
+            return wrapped
+
+        F.CXRFeatureBank.build = timed("build", build)
+        pred_mod.evaluate_dual_pathology = timed("eval", evaluate)
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(port)
+            t0 = time.perf_counter()
+            result = pred_mod.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            F.CXRFeatureBank.build = build_attr
+            pred_mod.evaluate_dual_pathology = evaluate
+        n = result["n"]
+        with np.load(out) as z:
+            npz[way] = {k: z[k] for k in z.files}
+        runs[way] = {"argv": argv, "batch": batch, "wall_s": wall, "n": n,
+                     "batches": math.ceil(n / batch),
+                     "launches": read_counts(port),
+                     "eval": seen["eval"], "build": seen.get("build"),
+                     "samples_per_s": n / seen["eval"]["s"],
+                     "main_auroc": result["main_auroc"],
+                     "keys": {k: list(v.shape) for k, v in npz[way].items()},
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    shutil.rmtree(PREDICT_RUNS, ignore_errors=True)
+    want = {way: ({"gather_rows_bulk": 2 * r["batches"]}
+                  if way.startswith("hbm")
+                  else {"flash_attention": 12 * r["batches"]})
+            for way, r in runs.items()}
+    floats = [k for k, v in npz["pixels"].items()
+              if v.dtype.kind == "f" and k != "y_multi"]
+
+    def rel(a, b):
+        return {k: float(np.abs(a[k] - b[k]).max()
+                         / max(float(np.abs(a[k]).max()), 1e-12))
+                for k in floats}
+
+    diffs = {b: rel(npz[f"pixels{b}"], npz[f"hbm{b}"]) for b in ("", "_b16")}
+    shifted = rel(npz["pixels"], {k: np.roll(v, 1, axis=0)
+                                  for k, v in npz["hbm"].items()})
+    ts_equal = {b or "_b64": all(np.array_equal(npz[f"pixels{b}"][k],
+                                                npz[f"hbm{b}"][k])
+                                 for k in ("ts_logits", "scaled_correction"))
+                for b in diffs}
+    info = {"phase": "predict", "card": card, "runs": runs,
+            "expected_eval_launches": want,
+            "pixels_vs_hbm_max_rel_diff": diffs[""],
+            "pixels_vs_hbm_max_rel_diff_at_batch_16": diffs["_b16"],
+            "pixels_vs_hbm_shifted_row_max_rel_diff": shifted,
+            "ts_outputs_bit_equal": ts_equal, "tol": PREDICT_BATCH_TOL}
+    emit(info)
+    want_keys = {"img_logits", "ts_logits", "fusion_logits",
+                 "scaled_correction", "main_logit", "y_multi",
+                 "y_multi_mask", "labels", "beta"}
+    for way, r in runs.items():
+        if set(r["keys"]) != want_keys:
+            raise AssertionError(f"predict {way}: NPZ keys {r['keys']}")
+        if r["eval"]["launches"] != want[way]:
+            raise AssertionError(f"predict {way}: the eval launched "
+                                 f"{r['eval']['launches']}, expected "
+                                 f"{want[way]}")
+        if not all(np.isfinite(npz[way][k]).all() for k in floats):
+            raise AssertionError(f"predict {way}: non-finite outputs")
+        if way.startswith("pixels") and r["build"] is not None:
+            raise AssertionError(f"predict {way} built a feature bank")
+        if way.startswith("hbm"):
+            chunks = r["build"]["launches"]
+            if set(chunks) != {"flash_attention"} or \
+                    chunks["flash_attention"] % 12:
+                raise AssertionError(f"predict {way}: the build launched "
+                                     f"{chunks}")
+            if {k: v for k, v in r["launches"].items() if v} != {
+                    "flash_attention": chunks["flash_attention"],
+                    **want[way]}:
+                raise AssertionError(f"predict {way} launched "
+                                     f"{r['launches']}")
+        for k in ("y_multi", "y_multi_mask", "labels"):
+            a, b = npz["pixels"][k], npz[way][k]
+            if not (a.shape == b.shape and ((a == b) | (a != a)).all()):
+                raise AssertionError(f"predict: {k} differs in {way}")
+    if not all(ts_equal.values()):
+        raise AssertionError(f"predict: the time series' outputs differ "
+                             f"between the tiers: {ts_equal}")
+    if max(max(d.values()) for d in diffs.values()) > PREDICT_BATCH_TOL:
+        raise AssertionError(f"predict: pixels and hbm differ: {diffs}")
+    if not max(shifted.values()) > PREDICT_BATCH_TOL:
+        raise AssertionError(f"the predict comparison misses a shifted row: "
+                             f"{shifted}")
+    return info
+
+
+def phase_synthetic_serve(port, device, teacher_ckpt: str, card: str = "",
+                          n_clients: int = 4, posts_per_client: int = 3
+                          ) -> dict:
+    """``cli/serve``'s ``--image_mode synthetic`` source behind the HTTP
+    server on the full-width teacher: clients post windows with an
+    ``image_id``; K1's launches over the clients' window (12 a batch, no
+    K2); every served batch re-run directly (SERVE_TOL); and the card's
+    procedural images for a few ids against the same function's on the
+    CPU (SYNTHETIC_PIXEL_TOL)."""
+    import torch
+    model, cfg, _ = port["checkpoint"].load_teacher_from_ckpt(teacher_ckpt,
+                                                              device)
+    source = port["cli_serve"].synthetic_image_source(cfg)
+    n_req = n_clients * posts_per_client
+    reqs = _id_requests(cfg, [1000 + 37 * i for i in range(n_req)], seed=5)
+    run = _serve_by_id(port, device, model, {"image_source": source}, reqs,
+                       n_clients, posts_per_client)
+    run.pop("probe")
+    ids = torch.tensor([r["image_id"] for r in reqs[:4]], dtype=torch.int32)
+    px = {dev: source({"image_ids": ids.to(dev)}).cpu()
+          for dev in (device, torch.device("cpu"))}
+    pixel_diff = float((px[device] - px[torch.device("cpu")]).abs().max())
+    info = {"phase": "synthetic_serve", "card": card, **run,
+            "k1_launches_per_batch": run["launches"].get("flash_attention", 0)
+            / max(run["batches"], 1),
+            "pixels_card_vs_cpu_max_abs_diff": pixel_diff}
+    emit(info)
+    if run["launches"] != {"flash_attention": cfg.vit.n_layers
+                           * run["batches"]} or run["n_served"] != n_req:
+        raise AssertionError(f"synthetic serve launched {run['launches']} "
+                             f"over {run['batches']} batches")
+    if not run["served_outputs_finite"]:
+        raise AssertionError("non-finite outputs in a served batch")
+    if run["max_abs_diff_response_vs_direct"] > SERVE_TOL:
+        raise AssertionError(f"synthetic serve: served differs from direct "
+                             f"by {run['max_abs_diff_response_vs_direct']}")
+    if pixel_diff > SYNTHETIC_PIXEL_TOL:
+        raise AssertionError(f"the card's procedural images differ from the "
+                             f"CPU's by {pixel_diff}")
     return info
 
 
@@ -4012,6 +4483,14 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
     return info
 
 
+def _predict_split(port) -> tuple:
+    """(the size of ``cli/predict``'s default split, its batch size): the
+    CLI's own flags and data."""
+    args = port["predict"].build_parser().parse_args(["--ckpt", "-"])
+    _, _, data, _ = port["analysis_common"].load_analysis_data(args)
+    return data.split_size(args.split), args.batch_size
+
+
 def main() -> int:
     try:
         import torch
@@ -4037,10 +4516,18 @@ def main() -> int:
     phase_build(port)
     built = phase_build_facts(port)
     bf16, f32 = torch.bfloat16, torch.float32
+    n_predict, predict_batch = _predict_split(port)
     checks = phase_kernels(port, device, [
         ("vit_bf16", 8, 12, 1370, None, bf16, TOL_BF16, True),
         ("bank_build_bf16", 16, 12, 1370, None, bf16, TOL_BF16, True),
         ("pixel_step_bf16", 32, 12, 1370, None, bf16, TOL_BF16, True),
+        # cli/predict's batch, and the remainder of its split (the CLI
+        # pads that batch to the full one; a caller that does not pad
+        # hands the kernel this shape)
+        ("predict_bf16", predict_batch, 12, 1370, None, bf16, TOL_BF16,
+         True),
+        ("predict_last_bf16", n_predict % predict_batch or predict_batch,
+         12, 1370, None, bf16, TOL_BF16, False),
         ("ragged_bf16", 2, 12, 1000, 900, bf16, TOL_BF16, False),
         ("bank_build_f32", 16, 12, 1370, None, f32, TOL_F32, True),
         ("pixel_step_f32", 32, 12, 1370, None, f32, TOL_F32, True),
@@ -4118,6 +4605,13 @@ def main() -> int:
     modes = phase_modes(port, device, card=dev["nvidia_smi"])
     resume = phase_resume(port, device, card=dev["nvidia_smi"])
     jpeg = phase_jpeg(port, device, card=dev["nvidia_smi"])
+    finetune = phase_finetune(port, device, ssl["best_path"],
+                              card=dev["nvidia_smi"])
+    physionet = phase_physionet(port, device, card=dev["nvidia_smi"])
+    predict = phase_predict(port, device, train["teacher_ckpt"],
+                            card=dev["nvidia_smi"])
+    synthetic = phase_synthetic_serve(port, device, train["teacher_ckpt"],
+                                      card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -4151,7 +4645,18 @@ def main() -> int:
                 .get(name, 0),
                 "event_serve": modes["event_serve"]["launches"][name],
                 "single_kd": modes["single_kd"]["launches"][name],
-                **jpeg_by_path(name)}
+                **jpeg_by_path(name), **supervised_by_path(name)}
+
+    def supervised_by_path(name):
+        return {"finetune": {way: r["launches"][name]
+                             for way, r in finetune["runs"].items()},
+                "physionet": physionet["launches"][name],
+                "predict": {way: {"total": r["launches"][name],
+                                  "eval": r["eval"]["launches"].get(name, 0),
+                                  "build": (r["build"] or {}).get(
+                                      "launches", {}).get(name, 0)}
+                            for way, r in predict["runs"].items()},
+                "synthetic_serve": synthetic["launches"].get(name, 0)}
 
     def jpeg_by_path(name):
         return {"jpeg": {way: r["launches"][name]
@@ -4328,7 +4833,13 @@ def main() -> int:
              unfreeze=n_k1["flash_attention"]),
          "case": case, "ms_with_lse": b["fwd_lse_ms"],
          "fwd_vs_library": k1["fwd_vs_library"], **built["fwd"],
-         **{k: k1[k] for k in keys}},
+         **{k: k1[k] for k in keys},
+         "predict": {"case": f"predict_bf16 [{predict_batch}, 12, 1370, "
+                             "64]",
+                     **{k: checks["predict_bf16"][k] for k in keys + (
+                         "fwd_vs_library",)},
+                     "last_batch_max_abs_err": checks["predict_last_bf16"]
+                     ["max_abs_err"]}},
         delta_row,
         *bwd_rows,
         {"name": "gather_rows_bulk", "route": "cuda", "source": K2_SOURCE,

@@ -11,23 +11,26 @@ endpoint on the card (the counterpart of
 ``DIR/{image_id}.jpg`` is decoded and encoded once through the frozen ViT
 into a ``CXRFeatureBank`` on the card; requests name an ``image_id``, and
 each batch gathers its tokens through K2 instead of running the ViT (an
-id not in the bank answers NaN, as in JAX). The JAX CLI's ``synthetic``
-mode (procedural images), ``--data_parallel`` and ``--aot_dir`` are not
-ported yet (ROADMAP P17) and raise when given. Every bucket runs once
-before the port opens, so the first request never pays a kernel build.
+id not in the bank answers NaN, as in JAX).
+``--image_mode synthetic``: requests name an ``image_id`` and each batch's
+images are the JAX package's procedural ones for those ids, drawn on the
+device with the labels fixed to zeros, through the ViT (demos, load tests;
+no image payloads). ``--data_parallel`` and ``--aot_dir`` are not ported yet
+(ROADMAP P17) and raise when given. Every bucket runs once before the port
+opens, so the first request never pays a kernel build.
 """
 from __future__ import annotations
 
 import argparse
 import os
 import time
+from typing import Callable
 
 import numpy as np
 import torch
 
 from .common import add_queued_flags, refuse_queued_flags
 
-_QUEUED = {"synthetic": "ROADMAP P17"}
 # JAX flags whose feature is not ported yet → their ROADMAP item
 QUEUED_FLAGS = {"--data_parallel": "P17", "--aot_dir": "P17"}
 
@@ -87,15 +90,26 @@ def jpeg_feature_source(model, root: str, dtype=torch.bfloat16) -> tuple:
         "n_images": len(ids), "encode_s": time.perf_counter() - t0}
 
 
+def synthetic_image_source(cfg) -> Callable[[dict], torch.Tensor]:
+    """``--image_mode synthetic``'s image source (JAX ``cli/serve.py:79-89``):
+    the procedural images of the batch's ``image_ids``, with the labels,
+    which a request does not carry, fixed to zeros."""
+    from ..train.teacher_loop import make_synthetic_image_source
+    base = make_synthetic_image_source(cfg.vit.image_size)
+    K = cfg.perceiver.n_pathologies
+
+    def source(batch: dict) -> torch.Tensor:
+        ids = batch["image_ids"]
+        return base({**batch, "y_multi": torch.zeros(
+            ids.shape[0], K, dtype=torch.float32, device=ids.device)})
+
+    return source
+
+
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
     refuse_queued_flags(args, QUEUED_FLAGS)
-    if args.image_mode in _QUEUED:
-        raise NotImplementedError(
-            f"--image_mode {args.image_mode} is not ported yet "
-            f"({_QUEUED[args.image_mode]}); use --image_mode pixel or "
-            "jpeg_root")
     if args.image_mode == "jpeg_root" and not args.cxr_jpeg_root:
         p.error("--image_mode jpeg_root requires --cxr_jpeg_root")
 
@@ -107,12 +121,15 @@ def main(argv=None):
     labels = (args.labels.split(",") if args.labels
               else list(DataConfig().pathology_labels))
     S = cfg.vit.image_size
-    feature_source = None
-    if args.image_mode == "jpeg_root":
+    image_source = feature_source = None
+    if args.image_mode == "synthetic":
+        image_source = synthetic_image_source(cfg)
+    elif args.image_mode == "jpeg_root":
         feature_source, _ = jpeg_feature_source(model.eval(),
                                                 args.cxr_jpeg_root)
     pred = BatchingPredictor(
-        model, feature_source=feature_source, max_batch=args.max_batch,
+        model, image_source=image_source, feature_source=feature_source,
+        max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
         dtype=torch.bfloat16, labels=labels, device=args.device).start()
 

@@ -177,6 +177,96 @@ def split_anchors_aligned(anchor_subjects: np.ndarray,
 
 
 # =============================================================================
+# Procedural images on the device, drawn as jax.random draws them
+# =============================================================================
+_U32 = 0xFFFFFFFF
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+# XLA's float32 erf_inv (Giles' polynomials in w = -log1p(-x²), split at
+# w = 5), which jax.random.normal lowers to
+_ERFINV_W_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_W_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                 x1: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 (20 rounds), the block function of JAX's default PRNG,
+    on int64 tensors that hold uint32 values (broadcast together)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0, x1 = (x0 + ks[0]) & _U32, (x1 + ks[1]) & _U32
+    for i in range(5):
+        for r in _THREEFRY_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _U32
+            x1 = (((x1 << r) | (x1 >> (32 - r))) & _U32) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _U32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _U32
+    return x0, x1
+
+
+def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_W_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_W_GE5[i], device=x.device))
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_W_LT5)):
+        p = coef(i) + p * w
+    return p * x
+
+
+def jax_normal_f32(image_ids: torch.Tensor, shape: Tuple[int, ...]
+                   ) -> torch.Tensor:
+    """``jax.random.normal(fold_in(key(0), id), shape)`` (float32) for each
+    id, [B, *shape], on the ids' device: the threefry key schedule, the
+    partitionable bit stream (a counter over the flat index), the uniform in
+    (-1, 1) and √2·erf_inv of JAX 0.9. The bits are JAX's exactly; the
+    normals within ~1e-6 (``log1p`` and fused multiply-adds round apart)."""
+    ids = image_ids.to(torch.int64) & _U32
+    zero = torch.zeros_like(ids)
+    k0, k1 = threefry2x32(zero, zero, zero, ids)          # fold_in
+    n = math.prod(shape)
+    counter = torch.arange(n, dtype=torch.int64, device=ids.device)
+    b0, b1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(counter),
+                          counter)
+    mantissa = ((b0 ^ b1) >> 9) | 0x3F800000
+    floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    # float32(1 - lo) is 2.0
+    u = torch.clamp_min(floats * 2.0 + lo, lo)
+    return (float(np.float32(np.sqrt(2.0))) * _erf_inv_f32(u)).reshape(
+        len(ids), *shape)
+
+
+def synthetic_image_device(image_ids: torch.Tensor, labels: torch.Tensor,
+                           size: int = 518) -> torch.Tensor:
+    """Procedural 'CXR' [B, size, size, 3] float32 in [0, 1] on the ids'
+    device: the JAX package's ``data/pipeline.synthetic_image_device``
+    (per-id noise from ``jax.random``, a blob per positive label), which its
+    serving ``synthetic`` mode and analysis CLIs draw. Not the host
+    generator ``synthetic.synthetic_image_batch`` that the training loops
+    use: the two draw their noise differently."""
+    dev = image_ids.device
+    img = 0.3 + 0.1 * jax_normal_f32(image_ids, (size, size))
+    grid = torch.arange(size, dtype=torch.float32, device=dev) / (size - 1)
+    yy, xx = grid[:, None], grid[None, :]
+    lab = torch.nan_to_num(labels.to(device=dev, dtype=torch.float32))
+    for k in range(lab.shape[1]):
+        cx = 0.2 + 0.6 * (k % 3) / 2.0
+        cy = 0.2 + 0.6 * (k // 3) / 2.0
+        blob = torch.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / 0.02))
+        img = img + torch.where(lab[:, k] > 0.5, 0.5, 0.0)[:, None, None] \
+            * blob
+    return img.clamp(0.0, 1.0)[..., None].expand(-1, -1, -1, 3)
+
+
+# =============================================================================
 # Device-side window gather + batch iterator
 # =============================================================================
 def gather_windows(grid: torch.Tensor, stay_rows: torch.Tensor,

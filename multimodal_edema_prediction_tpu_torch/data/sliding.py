@@ -1,14 +1,15 @@
 """Sliding-window SSL samples: the port's counterpart of
 ``multimodal_edema_prediction_tpu/data/sliding.py`` (``sliding_samples``,
-``SlidingSSLDataset``, ``build_sliding_ssl_dataset``; reference
-``MIMICSlidingDataset``, duett/mimic_dataset.py:103-155).
+``SlidingSSLDataset``, ``build_sliding_ssl_dataset``, ``StayLabelDataset``,
+``build_stay_label_dataset``; reference ``MIMICSlidingDataset`` and
+``MIMICDataset``, duett/mimic_dataset.py:59-155).
 
 One sample per (stay, start) pair, the windows stepping by ``stride`` and
 lying wholly inside the stay (capped at ``max_stay_hours``). The dense grid
 and the static table live on a device; a batch is host index arrays that
 ``data/pipeline.gather_windows`` turns into windows there (slot_end =
-start + T). The supervised first-window dataset (``StayLabelDataset``) is
-ROADMAP P14.
+start + T). ``StayLabelDataset`` is the supervised fine-tuning set: the
+first window of each stay and its stay-level label.
 """
 from __future__ import annotations
 
@@ -73,6 +74,41 @@ class SlidingSSLDataset:
                        self.bin_ends, (batch_size, self.n_timesteps))}
             if limit and count >= limit:
                 return
+
+
+@dataclass
+class StayLabelDataset(SlidingSSLDataset):
+    """First window of each stay with a per-stay label (reference
+    ``MIMICDataset``, duett/mimic_dataset.py:59-91: the label is
+    ``death_adm`` of the static frame)."""
+    labels: Optional[np.ndarray] = None    # [S] float32, by grid row
+
+    def iter_batches(self, name: str, batch_size: int, shuffle: bool,
+                     seed: int = 0, limit: int = 0) -> Iterator[dict]:
+        for b in super().iter_batches(name, batch_size, shuffle, seed, limit):
+            b["y"] = self.labels[b["stay_rows"]]
+            yield b
+
+    def pos_frac(self, name: str = "train") -> float:
+        """The positive share over the split's unique stays."""
+        rows = np.unique(self.samples[name][:, 0])
+        return float(self.labels[rows].mean()) if len(rows) else 0.0
+
+
+def build_stay_label_dataset(dataset, meta: Meta, n_timesteps: int = 24,
+                             max_len: Optional[int] = None
+                             ) -> StayLabelDataset:
+    """One first ``n_timesteps``-hour window per stay and its ``death_adm``
+    label (the reference's prepare_from_raw path, mimic_dataset.py:254-330),
+    on the CPU."""
+    base = build_sliding_ssl_dataset(dataset, meta, n_timesteps,
+                                     stride=10 ** 9,   # start 0 only
+                                     max_stay_hours=n_timesteps,
+                                     max_len=max_len or n_timesteps)
+    return StayLabelDataset(
+        grid=base.grid, static=base.static, samples=base.samples,
+        meta=base.meta, n_timesteps=base.n_timesteps,
+        labels=dataset.static.death_adm.astype(np.float32))
 
 
 def build_sliding_ssl_dataset(dataset, meta: Meta, n_timesteps: int = 24,

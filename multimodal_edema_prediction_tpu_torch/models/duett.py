@@ -1,7 +1,8 @@
 """DuETT dual-axis transformer over the (time × event) grid: the PyTorch
 counterpart of ``multimodal_edema_prediction_tpu/models/duett.py``
 (``feats_to_input``, ``DuettEncoder``, the SSL masking
-``pretrain_prep_batch`` and ``DuettPretrainModel``).
+``pretrain_prep_batch``, ``DuettPretrainModel`` and the supervised
+``DuettClassifier``).
 
 Train-time augmentation and the SSL masks draw from a ``torch.Generator``;
 the JAX package draws from ``jax.random``, so the two give different noise
@@ -278,6 +279,49 @@ class DuettPretrainModel(nn.Module):
             out["y_hat_events_presence"] = run(
                 "predict_events_presence_proj", z_events)
         return out
+
+
+FUSION_METHODS = ("rep_token", "averaging")
+
+
+class DuettClassifier(nn.Module):
+    """The supervised fine-tuning model (JAX ``duett.py:302-325``, reference
+    pooling duett.py:282-298): ``encoder``, then the [REP] token
+    (``rep_token``) or the mean of the time tokens (``averaging``) into
+    ``head``, a ``SimpleMLP`` with hidden BatchNorm. Returns the logits,
+    [B] when ``d_target`` is 1, and with ``return_representation`` the
+    pooled representation [B, R] beside them."""
+
+    def __init__(self, cfg: DuettConfig, d_target: int = 1,
+                 fusion_method: str = "rep_token"):
+        super().__init__()
+        if fusion_method not in FUSION_METHODS:
+            raise ValueError(f"unknown fusion_method {fusion_method!r}")
+        self.cfg = cfg
+        self.d_target = d_target
+        self.fusion_method = fusion_method
+        self.encoder = DuettEncoder(cfg)
+        self.head = SimpleMLP(cfg.tt_dim, d_target, cfg.n_hidden_head,
+                              cfg.d_hidden_head, hidden_batch_norm=True)
+
+    def forward(self, x_in: torch.Tensor, x_static: torch.Tensor,
+                times: torch.Tensor, train: bool = False,
+                gen: Optional[torch.Generator] = None,
+                return_representation: bool = False):
+        tokens, _ = self.encoder(x_in, x_static, times, train, gen)
+        z = tokens[:, -1, :] if self.fusion_method == "rep_token" \
+            else tokens[:, :-1, :].mean(dim=1)
+        logits = self.head(z, train)
+        if self.d_target == 1:
+            logits = logits.squeeze(-1)
+        return (logits, z) if return_representation else logits
+
+
+def init_classifier(cfg: DuettConfig, seed: int, d_target: int = 1,
+                    fusion_method: str = "rep_token") -> DuettClassifier:
+    """A ``DuettClassifier`` initialized from ``seed`` after the flax
+    modules' initializers (in distribution, as ``init_pretrain_model``)."""
+    return init_like_flax(DuettClassifier(cfg, d_target, fusion_method), seed)
 
 
 def init_pretrain_model(cfg: DuettConfig, seed: int) -> DuettPretrainModel:

@@ -260,6 +260,12 @@ class BestKTracker:
                     os.remove(p)
         return self.entries[0][1] == path
 
+    def averaged_params(self, dtype=None) -> dict:
+        """The kept checkpoints' parameters averaged (``average_params``):
+        float64 leaves, or ``dtype``."""
+        return average_params([load_checkpoint(p)["params"]
+                               for _, p in self.entries], dtype)
+
     def ensure_saved(self, model, step: int,
                      config: Optional[dict] = None) -> None:
         """Guarantee at least one checkpoint exists (e.g. every epoch's
@@ -270,6 +276,23 @@ class BestKTracker:
                                 f"{self.prefix}-step{step}-final.msgpack")
             save_checkpoint(path, model, step, sentinel, config)
             self.entries.append((sentinel, path))
+
+
+def average_params(param_trees: Sequence[dict], dtype=None) -> dict:
+    """Top-k weight averaging (reference train_duett_finetune.py:56-62, JAX
+    ``checkpoint.py:93-97``): each leaf summed over the trees in float64, in
+    their order, and divided by their count; float64 leaves, as JAX returns
+    them, or cast to ``dtype`` after the division."""
+    n = float(len(param_trees))
+
+    def walk(trees):
+        first = trees[0]
+        if isinstance(first, dict):
+            return {k: walk([t[k] for t in trees]) for k in first}
+        avg = sum(np.asarray(t).astype(np.float64) for t in trees) / n
+        return avg if dtype is None else avg.astype(dtype)
+
+    return walk(list(param_trees))
 
 
 def load_checkpoint(path: str) -> dict:

@@ -4,7 +4,8 @@
 ``make_teacher_pathology_step`` and ``_eval`` (``single``),
 ``make_teacher_legacy_step`` and the legacy eval (JAX
 ``teacher_loop.py:464-479``), ``default_image_source``,
-``make_teacher_eval_from_windows``, ``make_supervised_ts_eval``,
+``make_teacher_eval_from_windows``, ``make_supervised_ts_step``,
+``make_supervised_ts_eval``,
 ``make_kd_step``, ``make_ssl_step``, ``make_ssl_eval``).
 
 A step runs eagerly on the device that holds the batch: window gather →
@@ -253,6 +254,28 @@ def make_teacher_eval_from_windows(
             out = model(x_in, xs, b["bin_ends"].to(dtype), pixels,
                         cxr_feats=feats)
             return {k: out[k].float() for k in EVAL_KEYS if k in out}
+
+    return step
+
+
+def make_supervised_ts_step(duett_cfg: DuettConfig, n_timesteps: int,
+                            dtype=torch.bfloat16, pos_weight=None
+                            ) -> Callable:
+    """``step(state, grid, static, batch, gen)`` → ``loss`` and ``logits``
+    (float32), detached: one update of a time-series model (the student
+    architecture) on the BCE of ``batch["y"]`` (JAX ``engine.py:51-79``).
+    Augmentation and dropout draw from ``gen``; BatchNorm takes batch
+    statistics and updates its running ones; ``state`` is updated in
+    place."""
+    def step(state: TrainState, grid, static, batch, gen
+             ) -> Dict[str, torch.Tensor]:
+        x_in, x_static, times = _prep_inputs(
+            grid, static, batch, n_timesteps, dtype, gen,
+            duett_cfg.aug_noise, duett_cfg.aug_mask, train=True)
+        logits = state.model(x_in, x_static, times, train=True, gen=gen)
+        loss = L.bce_with_logits(logits, batch["y"], pos_weight=pos_weight)
+        state.apply_gradients(loss)
+        return {"loss": loss.detach(), "logits": logits.detach().float()}
 
     return step
 

@@ -1,14 +1,18 @@
-"""Loop bookkeeping shared by the training loops: the port's counterparts of
-``EarlyStopper``, ``evaluate_binary_split`` and ``TrainResult`` in
+"""Loop bookkeeping shared by the training loops, and the supervised
+time-series loop: the port's counterparts of ``EarlyStopper``,
+``evaluate_binary_split``, ``TrainResult`` and ``train_supervised_ts`` in
 ``multimodal_edema_prediction_tpu/train/loops.py``."""
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..ops import metrics as M
+from . import engine
 from .engine import to_device
 
 
@@ -81,3 +85,93 @@ class TrainResult:
     # evaluate(model, split), the loop's own evaluation on its own data and
     # image tier
     extras: dict = field(default_factory=dict)
+
+
+def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
+                        model: Optional[torch.nn.Module] = None,
+                        device="cuda",
+                        log: Callable[[str], None] = print) -> TrainResult:
+    """TS-only supervised training of the student architecture
+    (``models/student.py``) on the BCE of the main label (JAX
+    ``loops.py:97-212``): per epoch, shuffled train batches (the losses
+    stay on the device until the epoch's one host sync), the val AUROC,
+    early stopping and the best checkpoint (JAX format, prefix ``best``,
+    config ``{"model", "train"}``); at the end the best checkpoint,
+    reloaded, is evaluated on the test split. ``dataset`` is an
+    ``AnchorDataset``; ``model``: the initial weights (default:
+    ``init_student`` from ``cfg.seed``), moved to ``device`` and trained in
+    place. Multi-step dispatch (``steps_per_call > 1``) is ROADMAP P10."""
+    from ..models.student import init_student
+    from .checkpoint import BestKTracker, load_student_from_ckpt
+    from .optim import MultiGroupAdamW
+    from .state import TrainState, param_count
+    from .teacher_loop import DTYPES, _sync
+    from ..utils import resolve_device
+
+    if cfg.steps_per_call > 1:
+        raise NotImplementedError(
+            f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
+            "not ported yet (ROADMAP P10)")
+    dev = resolve_device(device)
+    dtype = DTYPES[cfg.dtype]
+    dataset.to(dev)
+    if model is None:
+        model = init_student(model_cfg, cfg.seed)
+    model = model.to(dev)
+    log(f"params: {param_count(model):,}  device={dev}")
+    T = dataset.n_timesteps
+    steps_per_epoch = dataset.split_size("train") // cfg.batch_size
+    if cfg.limit_batches > 0:
+        steps_per_epoch = min(steps_per_epoch, cfg.limit_batches)
+    state = TrainState(model, MultiGroupAdamW(
+        model, cfg.optim, steps_per_epoch * cfg.epochs))
+    train_step = engine.make_supervised_ts_step(model_cfg.duett, T, dtype)
+    eval_step = engine.make_supervised_ts_eval(T, dtype)
+    stopper = EarlyStopper(cfg.patience, mode="max")
+    tracker = BestKTracker(ckpt_dir, k=1, mode="max", prefix="best")
+    cfg_dict = {"model": model_cfg.to_dict(), "train": cfg.to_dict()}
+    gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+    history, n_steps = [], 0
+    t_start = time.perf_counter()
+    for epoch in range(cfg.epochs):
+        losses = []
+        for b in dataset.iter_batches("train", cfg.batch_size, shuffle=True,
+                                      seed=cfg.seed + epoch,
+                                      limit=cfg.limit_batches):
+            b.pop("valid")
+            out = train_step(state, dataset.grid, dataset.static,
+                             to_device(b, dev), gen)
+            losses.append(out["loss"])
+            n_steps += 1
+        # one host sync per epoch
+        train_loss = float(torch.stack(losses).mean()) if losses \
+            else float("nan")
+        val = evaluate_binary_split(eval_step, model, dataset, "val",
+                                    cfg.batch_size)
+        improved = stopper.update(val["auroc"])
+        if improved:
+            tracker.offer(val["auroc"], model, state.step, cfg_dict)
+        history.append({"epoch": epoch, "train_loss": train_loss, **val})
+        log(f"epoch {epoch:3d}  loss={train_loss:.4f}  "
+            f"val_auroc={val['auroc']:.4f}  val_auprc={val['auprc']:.4f}"
+            f"{'  *' if improved else ''}")
+        if stopper.should_stop:
+            log(f"early stop at epoch {epoch}")
+            break
+    _sync(dev)
+    elapsed = time.perf_counter() - t_start
+
+    # reload the best and test (trainer.py:718-764)
+    tracker.ensure_saved(model, state.step, cfg_dict)
+    best_metric, best_path = tracker.best
+    best_model, _, _ = load_student_from_ckpt(best_path, dev)
+    test = evaluate_binary_split(eval_step, best_model, dataset, "test",
+                                 cfg.batch_size)
+    log(f"test: auroc={test['auroc']:.4f} auprc={test['auprc']:.4f}")
+    sps = n_steps / max(elapsed, 1e-9)
+    return TrainResult(best_metric=best_metric, best_path=best_path,
+                       history=history, test_metrics=test,
+                       steps_per_sec=sps,
+                       samples_per_sec=sps * cfg.batch_size,
+                       extras={"n_train_steps": n_steps,
+                               "train_seconds": elapsed})

@@ -26,7 +26,8 @@ checkpoint (``train/checkpoint.py::FullStateResumer``).
 
 SSL pretraining (``ssl_loop.py:82-85``) takes one group over every
 parameter: ``MultiGroupAdamW.one_group`` with ``invsqrt_warmup``, behind
-``clip_by_global_norm(grad_clip)``.
+``clip_by_global_norm(grad_clip)``; the supervised fine-tuning loop takes
+``simple_adamw``, one group on warmup/cosine or a constant rate.
 """
 from __future__ import annotations
 
@@ -77,6 +78,19 @@ def invsqrt_warmup(base_lr: float, warmup_steps: int = 2000
         return float(a * min(inv, s * b))
 
     return schedule
+
+
+def simple_adamw(model: nn.Module, lr: float, weight_decay: float = 1e-2,
+                 warmup_steps: int = 0, total_steps: int = 10_000,
+                 min_lr_ratio: float = 0.0, grad_clip: float = 0.0
+                 ) -> "MultiGroupAdamW":
+    """Single-group AdamW over every parameter of ``model`` (JAX
+    ``optim.py:96-107``): ``warmup_cosine`` when ``warmup_steps > 0``, else
+    the constant ``lr``; ``grad_clip > 0`` puts a global-norm clip in
+    front."""
+    schedule = warmup_cosine(lr, warmup_steps, total_steps, min_lr_ratio) \
+        if warmup_steps > 0 else (lambda step: lr)
+    return MultiGroupAdamW.one_group(model, schedule, weight_decay, grad_clip)
 
 
 def default_label_fn(path: str) -> str:

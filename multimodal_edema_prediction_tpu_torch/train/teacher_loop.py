@@ -75,11 +75,11 @@ from ..data.features import (CXRFeatureBank, HostFeatureStore,
                              encode_fn_for_teacher, features_from_batch)
 from ..data.images import (HBMImageBank, JpegStore, U8MemmapStore,
                            make_jpeg_host_fn)
-from ..data.pipeline import AnchorDataset
+from ..data.pipeline import AnchorDataset, synthetic_image_device
 from ..data.prefetch import prefetch
 from ..data.synthetic import synthetic_image_batch
 from ..models.teacher import TeacherModel, init_teacher
-from ..models.vit import IMAGE_MEAN, IMAGE_STD
+from ..models.vit import IMAGE_MEAN, IMAGE_STD, normalize_image
 from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer, load_checkpoint,
@@ -109,6 +109,21 @@ def make_synthetic_pixel_hook(image_size: int = 518
         return {**batch, "pixel_values": (px - mean) / std}
 
     return hook
+
+
+def make_synthetic_image_source(image_size: int = 518
+                                ) -> Callable[[dict], torch.Tensor]:
+    """Device-side procedural image source (JAX ``teacher_loop.py:40-47``):
+    a device batch's ``image_ids`` and ``y_multi`` → the normalized pixels
+    of ``data/pipeline.synthetic_image_device``, JAX's procedural images,
+    drawn on the batch's device. The analysis CLIs and serving's
+    ``synthetic`` mode take it; the training loops take the host hook
+    above."""
+    def source(batch: dict) -> torch.Tensor:
+        return normalize_image(synthetic_image_device(
+            batch["image_ids"], batch["y_multi"], image_size))
+
+    return source
 
 
 def teacher_frozen_prefixes(cfg: TeacherConfig) -> tuple:

@@ -6,7 +6,8 @@ without the suite's conftest, which imports JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: K1 forward bf16 2e-2 (P and the output rounded to bf16 against
-a float32 plain version), float32 1e-5 (TF32 off; another summation order),
+a float32 plain version; also at ``cli/predict``'s [64, 12, 1370, 64] and a
+ragged batch of 62), float32 1e-5 (TF32 off; another summation order),
 its lse 1e-4; K1 backward bf16 2e-2 and float32 1e-4 of each gradient's
 largest magnitude (P and dS rounded to bf16 before their products; in
 float32, exp of recomputed scores against the plain softmax), at the edges
@@ -62,6 +63,22 @@ def test_kernel_matches_plain(cuda, dtype, tol, Nq, Nk, kv_valid):
     want = A.flash_mha_reference(q, k, v, 0.125, kv_valid=kv_valid)
     assert got.shape == want.shape and got.dtype == dtype
     assert (got.float() - want.float()).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("B", [64, 62])
+def test_bf16_kernel_at_the_predict_batch(cuda, B):
+    """K1's bf16 forward at ``cli/predict``'s batch of 64 ViT-B/14 images
+    (12 heads, 1370 tokens) and at a ragged batch of 62, the remainder of
+    its default split: the TMA descriptors and the grid come from the
+    shape."""
+    q, k, v = _qkv(B, 12, 1370, 1370, torch.bfloat16, cuda, seed=B)
+    got = A.flash_mha(q, k, v, 0.125)
+    again = A.flash_mha(q, k, v, 0.125)
+    want = A.flash_mha_reference(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got.float() - want.float()).abs().max().item() <= 2e-2
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),

@@ -1,7 +1,8 @@
 """Fault F3: every flag of the JAX package's CLIs parses in the port's.
 
 The JAX parsers of ``cli/train_teacher``, ``cli/train_ssl``,
-``cli/train_student``, ``cli/train_cxr_head`` and ``cli/serve`` are
+``cli/train_student``, ``cli/train_cxr_head``, ``cli/serve``,
+``cli/finetune_mimic``, ``cli/train_physionet`` and ``cli/predict`` are
 collected by intercepting
 ``parse_args``, as ``tests/test_flag_parity.py:39-64`` collects the
 reference's. Each of their
@@ -14,7 +15,8 @@ train-subset evaluation and its gap table. The teacher's P13 flags (the
 other modes and LP mode) and P15 flags (the image feed tiers), and
 serving's ``--cxr_jpeg_root``, were waived until their items were done;
 each now reaches the configuration, the loop's arguments or the server's
-startup (``PORTED``).
+startup (``PORTED``). The P14 and P17 CLIs' flags each reach their loop's
+or their eval's arguments (``SUPERVISED_PORTED``, ``PREDICT_PORTED``).
 """
 from __future__ import annotations
 
@@ -25,13 +27,20 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_edema_prediction_tpu.cli import \
+    finetune_mimic as jax_finetune
+from multimodal_edema_prediction_tpu.cli import predict as jax_predict
 from multimodal_edema_prediction_tpu.cli import serve as jax_serve
 from multimodal_edema_prediction_tpu.cli import train_cxr_head as jax_cxr_head
+from multimodal_edema_prediction_tpu.cli import \
+    train_physionet as jax_physionet
 from multimodal_edema_prediction_tpu.cli import train_ssl as jax_ssl
 from multimodal_edema_prediction_tpu.cli import train_student as jax_student
 from multimodal_edema_prediction_tpu.cli import train_teacher as jax_teacher
-from multimodal_edema_prediction_tpu_torch.cli import (serve,
+from multimodal_edema_prediction_tpu_torch.cli import (finetune_mimic,
+                                                       predict, serve,
                                                        train_cxr_head,
+                                                       train_physionet,
                                                        train_ssl)
 from multimodal_edema_prediction_tpu_torch.cli import (train_student,
                                                        train_teacher)
@@ -53,10 +62,14 @@ CLIS = {"train_teacher": (jax_teacher, train_teacher),
         "train_ssl": (jax_ssl, train_ssl),
         "train_student": (jax_student, train_student),
         "train_cxr_head": (jax_cxr_head, train_cxr_head),
-        "serve": (jax_serve, serve)}
-# what a CLI needs before the flag under test (serve's --ckpt and the
-# student's --teacher_ckpt are required)
+        "serve": (jax_serve, serve),
+        "finetune_mimic": (jax_finetune, finetune_mimic),
+        "train_physionet": (jax_physionet, train_physionet),
+        "predict": (jax_predict, predict)}
+# what a CLI needs before the flag under test (serve's and predict's --ckpt
+# and the student's --teacher_ckpt are required)
 REQUIRED = {"serve": ["--ckpt", "x.msgpack"],
+            "predict": ["--ckpt", "x.msgpack"],
             "train_student": ["--teacher_ckpt", "x.msgpack"]}
 # ... and the port's training CLIs would otherwise default to the card
 BASE = {cli: REQUIRED.get(cli, []) + ["--device", "cpu"] for cli in CLIS}
@@ -72,6 +85,9 @@ WAIVERS = {
     "train_student": dict(_LOGGING),
     "train_cxr_head": {},
     "serve": {"--data_parallel": "P17", "--aot_dir": "P17"},
+    "finetune_mimic": {"--wandb_project": "P20"},
+    "train_physionet": {},
+    "predict": {},
 }
 
 
@@ -312,3 +328,165 @@ def test_cli_trains_from_a_jpeg_directory_on_the_u8_store(tmp_path):
         store + ".meta.json")
     assert first.history == again.history
     assert np.isfinite(first.history[0]["train_total"])
+
+
+class _Caught(Exception):
+    pass
+
+
+def _catch(monkeypatch, mod, name: str) -> dict:
+    """Replace ``mod.name`` by a stand-in that records its arguments and
+    stops the CLI."""
+    seen = {}
+
+    def fake(*a, **k):
+        seen.update(k, args=a)
+        raise _Caught
+
+    monkeypatch.setattr(mod, name, fake)
+    return seen
+
+
+# cli/finetune_mimic's flags → where each given value lands in
+# ``finetune_duett``'s arguments (dataset, DuETT config, train config,
+# checkpoint directory), and the value it must have there
+SUPERVISED_PORTED = {
+    "--ssl_ckpt": (["x.msgpack"], lambda s: s["ssl_ckpt"], "x.msgpack"),
+    "--synthetic_stays": (["70"], lambda s: len(s["args"][0].labels), 70),
+    "--n_variables": (["5"], lambda s: s["args"][1].n_variables, 5),
+    "--n_timesteps": (["12"], lambda s: (s["args"][1].n_timesteps,
+                                         s["args"][0].n_timesteps),
+                      (12, 12)),
+    "--d_embedding": (["6"], lambda s: s["args"][1].d_embedding, 6),
+    "--n_duett_layers": (["3"], lambda s: s["args"][1].n_layers, 3),
+    "--epochs": (["4"], lambda s: s["args"][2].epochs, 4),
+    "--patience": (["2"], lambda s: s["args"][2].patience, 2),
+    "--batch_size": (["8"], lambda s: s["args"][2].batch_size, 8),
+    "--lr": (["0.5"], lambda s: s["args"][2].optim.lr, 0.5),
+    "--weight_decay": (["0.25"], lambda s: s["args"][2].optim.weight_decay,
+                       0.25),
+    "--warmup_steps": (["7"], lambda s: s["args"][2].optim.warmup_steps, 7),
+    "--seeds": (["4", "5"], lambda s: s["seeds"], (4, 5)),
+    "--top_k": (["3"], lambda s: s["top_k"], 3),
+    "--mixed_precision": (["bf16"], lambda s: s["args"][2].dtype,
+                          "bfloat16"),
+    "--ckpt_dir": (["/r/ft"], lambda s: s["args"][3], "/r/ft"),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(SUPERVISED_PORTED))
+def test_finetune_flags_reach_the_loop(flag, monkeypatch):
+    vals, got, want = SUPERVISED_PORTED[flag]
+    seen = _catch(monkeypatch, finetune_mimic, "finetune_duett")
+    with pytest.raises(_Caught):
+        finetune_mimic.main(["--device", "cpu", "--synthetic_stays", "40",
+                             flag] + vals)
+    assert got(seen) == want, flag
+    assert seen["device"] == "cpu"
+
+
+# cli/train_physionet's flags → where each lands: the SSL run's arguments
+# (``ssl``) or the fine-tuning's (``ft``)
+PHYSIONET_PORTED = {
+    "--n_patients": (["30"], lambda ssl, ft: ssl["args"][0].grid.shape[0],
+                     30),
+    "--n_timesteps": (["12"], lambda ssl, ft: (ssl["args"][1].n_timesteps,
+                                               ft["args"][0].n_timesteps),
+                      (12, 12)),
+    "--pretrain_epochs": (["3"], lambda ssl, ft: ssl["args"][2].epochs, 3),
+    "--finetune_epochs": (["4"], lambda ssl, ft: ft["args"][2].epochs, 4),
+    "--batch_size": (["8"], lambda ssl, ft: (ssl["args"][2].batch_size,
+                                             ft["args"][2].batch_size),
+                     (8, 8)),
+    "--seeds": (["6"], lambda ssl, ft: ft["seeds"], (6,)),
+    "--top_k": (["2"], lambda ssl, ft: ft["top_k"], 2),
+    "--ckpt_dir": (["/r/p"], lambda ssl, ft: (ssl["args"][3],
+                                              ft["args"][3]),
+                   ("/r/p/ssl", "/r/p/finetune")),
+    "--d_embedding": (["6"], lambda ssl, ft: ssl["args"][1].d_embedding, 6),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(PHYSIONET_PORTED))
+def test_physionet_flags_reach_the_loops(flag, monkeypatch):
+    vals, got, want = PHYSIONET_PORTED[flag]
+    ssl = {}
+
+    class Result:
+        best_path = "ssl.msgpack"
+
+    def fake_ssl(*a, **k):
+        ssl.update(k, args=a)
+        return Result()
+
+    monkeypatch.setattr(train_physionet, "train_ssl", fake_ssl)
+    seen = _catch(monkeypatch, train_physionet, "finetune_duett")
+    with pytest.raises(_Caught):
+        train_physionet.main(["--device", "cpu", "--n_patients", "20", flag]
+                             + vals)
+    assert got(ssl, seen) == want, flag
+    assert seen["ssl_ckpt"] == "ssl.msgpack"
+    assert ssl["device"] == seen["device"] == "cpu"
+
+
+def test_physionet_data_dir_reaches_the_raw_loader(tmp_path):
+    with pytest.raises(FileNotFoundError, match="no P12 records"):
+        train_physionet.main(["--device", "cpu", "--data_dir",
+                              str(tmp_path)])
+
+
+def test_finetune_data_dir_reaches_the_ingest(tmp_path):
+    with pytest.raises(FileNotFoundError, match="cohort.npz"):
+        finetune_mimic.main(["--device", "cpu", "--data_dir",
+                             str(tmp_path)])
+
+
+# cli/predict's flags → where each given value lands: the split's
+# evaluation (``evaluate_dual_pathology``'s arguments), its data, or the
+# feature source ``make_sources`` returns
+PREDICT_PORTED = {
+    "--split": (["val"], lambda s: s["args"][3], "val"),
+    "--batch_size": (["8"], lambda s: s["args"][4], 8),
+    "--synthetic_stays": (["50"], lambda s: len(s["args"][2].grid), 50),
+    "--cxr_feature_cache": (["hbm"], lambda s: s["sources"][1] is not None,
+                            True),
+}
+
+
+@pytest.fixture(scope="module")
+def tiny_ckpt(tmp_path_factory):
+    from multimodal_edema_prediction_tpu_torch.config import TeacherConfig
+    from multimodal_edema_prediction_tpu_torch.models.teacher import \
+        init_teacher
+    from multimodal_edema_prediction_tpu_torch.train.checkpoint import \
+        save_checkpoint
+    from torch_port_util import tiny_teacher_cfg
+    cfg = TeacherConfig.from_dict(tiny_teacher_cfg().to_dict())
+    path = str(tmp_path_factory.mktemp("predict") / "teacher.msgpack")
+    save_checkpoint(path, init_teacher(cfg, 0), 1, 0.5,
+                    config={"model": cfg.to_dict()})
+    return path
+
+
+@pytest.mark.parametrize("flag", sorted(PREDICT_PORTED))
+def test_predict_flags_reach_the_eval(flag, tiny_ckpt, monkeypatch):
+    vals, got, want = PREDICT_PORTED[flag]
+    seen = _catch(monkeypatch, predict, "evaluate_dual_pathology")
+    make_sources = predict.make_sources
+
+    def recording(*a, **k):
+        seen["sources"] = make_sources(*a, **k)
+        return seen["sources"]
+
+    monkeypatch.setattr(predict, "make_sources", recording)
+    with pytest.raises(_Caught):
+        predict.main(["--ckpt", tiny_ckpt, "--device", "cpu", flag] + vals)
+    assert got(seen) == want, flag
+
+
+def test_predict_writes_its_npz_where_out_says(tiny_ckpt, tmp_path):
+    out = str(tmp_path / "sub" / "p.npz")
+    predict.main(["--ckpt", tiny_ckpt, "--device", "cpu",
+                  "--synthetic_stays", "40", "--out", out])
+    with np.load(out) as z:
+        assert "fusion_logits" in z.files

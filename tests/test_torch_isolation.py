@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of it, and what
 ``chip_smoke.py`` imports, brings in neither JAX nor flax nor optax nor
-msgpack nor sklearn nor ml_dtypes nor PIL nor the JAX package, and no
-module of it loads the JAX package's native library; its entry points
+msgpack nor sklearn nor ml_dtypes nor PIL nor pandas nor the JAX package,
+and no module of it loads the JAX package's native library; its entry points
 default to the card; and its kernel wrappers take their plain versions only
 for CPU tensors."""
 import json
@@ -22,7 +22,7 @@ from multimodal_edema_prediction_tpu_torch.ops import (attention, dual_axis,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
-             "ml_dtypes", "PIL", "multimodal_edema_prediction_tpu")
+             "ml_dtypes", "PIL", "pandas", "multimodal_edema_prediction_tpu")
 
 
 def _all_port_modules():
@@ -41,7 +41,9 @@ def test_imports_bring_in_no_jax():
                  "cli.train_cxr_head", "models.perceiver", "models.teacher",
                  "train.engine", "train.evaluator", "ops.losses",
                  "data.images", "data.native_loader", "data.prefetch",
-                 "ops.jpeg"):
+                 "ops.jpeg", "analysis.common", "cli.predict",
+                 "cli.finetune_mimic", "cli.train_physionet",
+                 "data.physionet", "train.finetune_loop"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -117,6 +119,25 @@ def test_ssl_cli_device_default_is_cuda(tmp_path):
                       "--ckpt_dir", str(tmp_path)])
 
 
+@pytest.mark.parametrize("cli,argv", [
+    ("finetune_mimic", ["--synthetic_stays", "40", "--n_variables", "6"]),
+    ("train_physionet", ["--n_patients", "20"]),
+    ("predict", ["--ckpt", "x.msgpack"])])
+def test_supervised_and_predict_clis_default_to_the_card(cli, argv,
+                                                         tmp_path):
+    """The P14 CLIs and ``cli.predict`` run on the card unless the CPU is
+    asked for: without one they raise before any model work."""
+    import importlib
+    mod = importlib.import_module(
+        f"multimodal_edema_prediction_tpu_torch.cli.{cli}")
+    assert mod.build_parser().parse_args(argv).device == "cuda"
+    if torch.cuda.is_available():
+        return
+    extra = [] if cli == "predict" else ["--ckpt_dir", str(tmp_path)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(argv + extra)
+
+
 def _port_sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.dirname(port.__file__)):
@@ -137,14 +158,17 @@ def test_no_port_module_loads_the_jax_packages_native_library():
 
 @pytest.mark.parametrize("mode", ["jpeg_root", "synthetic"])
 def test_cli_queued_image_modes_raise(mode):
-    """``synthetic`` is not ported (P17); ``jpeg_root`` is, and, as in the
-    JAX CLI, is an argument error without ``--cxr_jpeg_root``."""
+    """Both modes once queued are ported: ``jpeg_root`` is, as in the JAX
+    CLI, an argument error without ``--cxr_jpeg_root``; ``synthetic``
+    (P17, ported) is refused by no item and goes on to read the checkpoint,
+    which here does not exist."""
     if mode == "jpeg_root":
         with pytest.raises(SystemExit):
             cli_serve.main(["--ckpt", "x.msgpack", "--image_mode", mode])
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_serve.main(["--ckpt", "x.msgpack", "--image_mode", mode])
+    with pytest.raises(FileNotFoundError, match="x.msgpack"):
+        cli_serve.main(["--ckpt", "x.msgpack", "--image_mode", mode,
+                        "--device", "cpu"])
 
 
 def test_flash_wrapper_plain_path_is_cpu_only(monkeypatch):
