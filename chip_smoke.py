@@ -63,6 +63,10 @@ Training through the ViT (``--unfreeze_cxr``, ROADMAP S3) adds:
             per train step, the forward 12 per eval step); finite losses;
             the ViT's, DuETT's and the perceiver's weights moved; the
             reloaded best checkpoint evaluates the val split bit-equal.
+            With ``--grad_diag_every 1 --grad_diag_batches 1`` the loop
+            runs the gradient-flow diagnostics on one val batch of 32 in
+            float32 (K1's float32 forward, D, dkv and dq 12 each): the
+            logged numbers finite, the image branch's pixel gradient > 0.
 10. unfreeze_step  the unfrozen step at batch 32: steady time (CUDA
             events), peak memory (and its estimate at batch 128), and a
             ``torch.profiler`` breakdown.
@@ -351,6 +355,22 @@ The supervised DuETT recipe (ROADMAP P14), the inference CLI and serving's
 25. synthetic_serve  that teacher served over HTTP with the ``synthetic``
             image source: K1 12 a batch, served = direct, the card's
             procedural pixels against the CPU's (SYNTHETIC_PIXEL_TOL).
+26. analysis  the analysis suite's first half (ROADMAP P19a), each
+            script's ``main``, on 400 synthetic stays: trajectory
+            availability; residual by confidence, complementarity, the
+            logit-fusion probe, the temporal-usage counterfactuals and the
+            unimodal probes on the train phase's teacher (complementarity
+            and the counterfactuals also on ``--cxr_feature_cache hbm``,
+            complementarity's pair again in float32: its per-label
+            floats, and the counterfactuals' per-condition AUROCs, within
+            ANALYSIS_TIER_TOL, their per-sample archives within
+            PREDICT_BATCH_TOL, a shifted row beyond it);
+            the gradient-flow diagnostics on that teacher (pixel gradients
+            exactly 0, no K1 backward) and on the unfreeze phase's (K1's
+            float32 D, dkv and dq 12 each); the ICU-hardness study on the
+            cxr_head phase's head (G1 + G2 + G3 = G0). Each run's launches
+            predicted and asserted (``analysis_run`` lines: wall seconds,
+            the eval's samples/s, the bank build's seconds).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 Then the run's total seconds on a line of their own.
@@ -373,6 +393,7 @@ from __future__ import annotations
 
 import base64
 import copy
+import functools
 import hashlib
 import json
 import os
@@ -529,6 +550,10 @@ def import_port():
     if REPO not in sys.path:
         sys.path.insert(0, REPO)
     from multimodal_edema_prediction_tpu_torch import config, convert
+    from multimodal_edema_prediction_tpu_torch.analysis import (
+        complementarity, diagnose_temporal_usage, grad_flow_diagnostics,
+        logit_fusion_probe, residual_by_confidence, trajectory_availability,
+        unimodal_linear_probe, why_we_need_multimodal)
     from multimodal_edema_prediction_tpu_torch.analysis import \
         common as analysis_common
     from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
@@ -578,7 +603,15 @@ def import_port():
                 finetune_loop=finetune_loop, loops=loops,
                 finetune_mimic=finetune_mimic,
                 train_physionet=train_physionet, predict=predict,
-                analysis_common=analysis_common)
+                analysis_common=analysis_common,
+                complementarity=complementarity,
+                diagnose_temporal_usage=diagnose_temporal_usage,
+                grad_flow_diagnostics=grad_flow_diagnostics,
+                logit_fusion_probe=logit_fusion_probe,
+                residual_by_confidence=residual_by_confidence,
+                trajectory_availability=trajectory_availability,
+                unimodal_linear_probe=unimodal_linear_probe,
+                why_we_need_multimodal=why_we_need_multimodal)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -1502,6 +1535,9 @@ def phase_unfreeze(port, device, card: str = "", f32: bool = False) -> dict:
             "--epochs", "1", "--limit_batches", "4", "--ckpt_dir", RUNS]
     if f32:
         argv[2:2] = ["--mixed_precision", "no"]
+    else:
+        # the loop's gradient-flow diagnostics on one val batch, float32
+        argv += ["--grad_diag_every", "1", "--grad_diag_batches", "1"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     att.reset_launches()
@@ -1534,6 +1570,14 @@ def phase_unfreeze(port, device, card: str = "", f32: bool = False) -> dict:
               key("flash_attention_bwd_delta"): n * steps,
               key("flash_attention_bwd_dkv"): n * steps,
               key("flash_attention_bwd_dq"): n * steps}
+    diag = {k: v for k, v in res.history[-1].items()
+            if k.startswith("grad_diag/")}
+    if not f32:
+        # the diagnostics batch: one float32 ViT forward, and its backward
+        # for the image branch's pixel gradient
+        for name in ("flash_attention", "flash_attention_bwd_delta",
+                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq"):
+            expect[att.launch_key(name, torch.float32)] = n
     info = {"phase": "f32_unfreeze" if f32 else "unfreeze", "card": card,
             "argv": argv, "wall_s": wall,
             "train_steps": steps, "eval_steps": evals,
@@ -1545,9 +1589,19 @@ def phase_unfreeze(port, device, card: str = "", f32: bool = False) -> dict:
             "test_auroc": res.test_metrics["main_auroc"],
             "moved": moved, "reload_max_abs_diff": reload_diff,
             "reload_val_auroc": again["main_auroc"],
+            "grad_diag_s": ex["phase_seconds"].get("grad_diag"),
+            "grad_diag_keys": len(diag),
+            "grad_diag_img_px_input_grad": diag.get(
+                "grad_diag/img_px_input_grad"),
             "peak_memory_bytes": peak}
     emit(info)
+    if not f32:
+        # the analysis phase's unfrozen teacher
+        _keep_ckpt(res.best_path, UNFREEZE_BEST)
     shutil.rmtree(RUNS, ignore_errors=True)
+    if not f32 and not (diag and all(np.isfinite(v) for v in diag.values())
+                        and diag["grad_diag/img_px_input_grad"] > 0):
+        raise AssertionError(f"the loop's gradient-flow diagnostics: {diag}")
     if not all(np.isfinite(x) for x in info["epoch_losses"]):
         raise AssertionError(f"non-finite losses {info['epoch_losses']}")
     if launches != expect:
@@ -4260,6 +4314,353 @@ def phase_synthetic_serve(port, device, teacher_ckpt: str, card: str = "",
     return info
 
 
+ANALYSIS_RUNS = os.path.join(REPO, "build", "chip_smoke_analysis")
+UNFREEZE_BEST = os.path.join(REPO, "build", "chip_smoke_unfreeze_best.msgpack")
+CXR_HEAD_BEST = os.path.join(REPO, "build", "chip_smoke_cxr_head.msgpack")
+# the cohort of the tier-compared runs: the JAX test's (400 stays, its
+# val and test splits 102 and 126 anchors, 670 images), so that one
+# flipped sample moves an accuracy by ~1e-2; why_we_need_multimodal's:
+# the cxr_head phase's 240 stays, whose catalog (775 images) the head was
+# trained on, so that G0 is the head's own test split
+ANALYSIS_STAYS = "400"
+WHY_STAYS = "240"
+# the pixel and hbm tiers' reports: complementarity's every per-label
+# float in float32, and the counterfactuals' per-condition AUROCs and
+# attention entropies (JAX tests/test_analysis.py's bound)
+ANALYSIS_TIER_TOL = 0.02
+
+
+def _timed_main(port, main, argv: list, parts: dict) -> dict:
+    """``main(argv)`` with every kernel's launches counted over exactly
+    this run, and each function of ``parts`` ({(module key, attribute):
+    (name, count of samples from its result or None)}) timed and its
+    launches counted on its own."""
+    import torch
+    seen = {}
+    saved = []
+
+    def timed(name, fn, count):
+        def wrapped(*a, **k):
+            torch.cuda.synchronize()
+            before = read_counts(port)
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            torch.cuda.synchronize()
+            s = seen.setdefault(name, {"s": 0.0, "calls": 0, "samples": 0,
+                                       "launches": {}})
+            s["s"] += time.perf_counter() - t0
+            s["calls"] += 1
+            s["samples"] += count(r) if count else 0
+            for k2, v in read_counts(port).items():
+                if v - before[k2]:
+                    s["launches"][k2] = s["launches"].get(k2, 0) \
+                        + v - before[k2]
+            return r
+        return wrapped
+
+    for (mod, attr), (name, count) in parts.items():
+        obj = port[mod] if isinstance(mod, str) else mod
+        saved.append((obj, attr, getattr(obj, attr)))
+        setattr(obj, attr, timed(name, getattr(obj, attr), count))
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(port)
+        t0 = time.perf_counter()
+        result = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for obj, attr, fn in saved:
+            setattr(obj, attr, fn)
+    launches = {k: v for k, v in read_counts(port).items() if v}
+    return {"result": result, "wall_s": wall, "launches": launches,
+            "parts": seen,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def _finite_floats(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_finite_floats(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_finite_floats(v) for v in tree)
+    if isinstance(tree, float):
+        return bool(np.isfinite(tree))
+    return True
+
+
+def phase_analysis(port, device, frozen_ckpt: str, unfrozen_ckpt: str,
+                   head_ckpt: str, card: str = "") -> dict:
+    """The analysis suite's first half (ROADMAP P19a) at full width: each
+    script's ``main`` as a user runs it (bf16 evals, the flags' defaults
+    but the cohort and the batch counts) on the frozen ``dual_patch``
+    teacher of the train phases, on procedural pixels (K1's bf16 forward,
+    12 a batch), ``complementarity`` and ``diagnose_temporal_usage`` also
+    on ``--cxr_feature_cache hbm`` (K1 12 a chunk of 16 in the bank's
+    build, then K2 2 a forward); ``unimodal_linear_probe``'s float32 ViT
+    pass (K1's float32 forward); ``grad_flow_diagnostics`` on that teacher
+    (float32: 12 forwards a batch, no backward, pixel gradients exactly 0)
+    and on the unfreeze phase's (12 forwards and 12 of each of D, dkv and
+    dq a batch: the image branch's pixel gradient); and
+    ``why_we_need_multimodal`` on the CXR-head phase's head over that
+    phase's catalog (its float32 CLS sweep, 12 a chunk of 64; G1 + G2 +
+    G3 = G0). Every run's launches
+    are predicted from its splits and asserted; its wall seconds, its
+    eval's seconds and samples/s, and the bank builds' seconds are
+    printed. The pixel and hbm tiers: complementarity's per-label counts
+    and time-series accuracy equal in bf16 (its other floats read) and,
+    run again in float32 (the scripts' ``dtype``; K1's float32 forward),
+    every per-label float within ANALYSIS_TIER_TOL; the counterfactuals'
+    per-condition AUROCs and attention entropies within it, their
+    per-sample archives within PREDICT_BATCH_TOL of each array's max abs
+    (the time series' outputs bit-equal) and a one-row shift of the hbm
+    archive beyond it."""
+    import math
+    cm = port["analysis_common"]
+    shutil.rmtree(ANALYSIS_RUNS, ignore_errors=True)
+    os.makedirs(ANALYSIS_RUNS)
+    args = argparse_args(port, ANALYSIS_STAYS)
+    _, _, data, _ = cm.load_analysis_data(args)
+    split = {k: len(v) for k, v in data.splits.items()}
+    n_images = len(np.unique(data.anchor["image_ids"]))
+    n_anchors = len(data.anchor["y"])
+    why_args = argparse_args(port, WHY_STAYS)
+    n_catalog = len(cm.load_analysis_data(why_args)[0].cxr_catalog.image_ids)
+    L = port["config"].ViTConfig().n_layers
+    bank_chunks = math.ceil(n_images / 16)
+    diag_batches = 2                       # --batch_size 32 --max_batches 2
+
+    def batches(name, bs=64):
+        return math.ceil(split[name] / bs)
+
+    def n_out(r):
+        return len(r["y"])
+
+    evals = {("complementarity", "collect_dual_outputs"): ("eval", n_out),
+             ("residual_by_confidence", "collect_dual_outputs"):
+                 ("eval", n_out),
+             ("logit_fusion_probe", "collect_dual_outputs"): ("eval", n_out),
+             ("diagnose_temporal_usage", "collect_predictions"):
+                 ("eval", lambda r: 5 * len(r["y"])),
+             ("unimodal_linear_probe", "extract_features"):
+                 ("eval", lambda r: len(r["cxr_cls"])),
+             ("grad_flow_diagnostics", "run_diagnostics"):
+                 ("eval", lambda r: r["samples"]),
+             ("cxr_head_loop", "extract_cls_features"):
+                 ("eval", lambda r: len(r)),
+             ("analysis_common", "load_teacher"): ("load", None),
+             ("grad_flow_diagnostics", "load_teacher"): ("load", None)}
+    build = {(port["features"].CXRFeatureBank, "build"): ("build", None)}
+    base = ["--device", "cuda", "--synthetic_stays", ANALYSIS_STAYS,
+            "--n_boot", "20"]
+    f32 = port["attention"].launch_key
+    import torch
+    k1, k1f = "flash_attention", f32("flash_attention", torch.float32)
+    bwd = [f32(f"flash_attention_bwd_{k}", torch.float32)
+           for k in ("delta", "dkv", "dq")]
+    plan = [
+        # (run, module, extra flags, predicted launches)
+        ("trajectory_availability", "trajectory_availability", [], {}),
+        ("residual_by_confidence", "residual_by_confidence", [],
+         {k1: L * batches("test")}),
+        ("complementarity", "complementarity", [],
+         {k1: L * (batches("val") + batches("test"))}),
+        ("complementarity_hbm", "complementarity",
+         ["--cxr_feature_cache", "hbm"],
+         {k1: L * bank_chunks,
+          "gather_rows_bulk": 2 * (batches("val") + batches("test"))}),
+        # the same two runs in float32 (the scripts' ``dtype``): the tiers'
+        # comparison where the bf16 rounding of a logit cannot flip it
+        ("complementarity_f32", "complementarity", [],
+         {k1f: L * (batches("val") + batches("test"))}),
+        ("complementarity_hbm_f32", "complementarity",
+         ["--cxr_feature_cache", "hbm"],
+         {k1f: L * bank_chunks,
+          "gather_rows_bulk": 2 * (batches("val") + batches("test"))}),
+        ("logit_fusion_probe", "logit_fusion_probe", [],
+         {k1: L * (batches("train") + batches("test"))}),
+        ("diagnose_temporal_usage", "diagnose_temporal_usage",
+         ["--batch_size", "32", "--max_batches", str(diag_batches)],
+         {k1: L * 5 * diag_batches}),
+        ("diagnose_temporal_usage_hbm", "diagnose_temporal_usage",
+         ["--batch_size", "32", "--max_batches", str(diag_batches),
+          "--cxr_feature_cache", "hbm"],
+         {k1: L * bank_chunks, "gather_rows_bulk": 2 * 5 * diag_batches}),
+        ("unimodal_linear_probe", "unimodal_linear_probe", [],
+         {k1f: L * math.ceil(n_anchors / 64)}),
+        ("grad_flow_frozen", "grad_flow_diagnostics",
+         ["--batch_size", "16", "--n_batches", "1"], {k1f: L}),
+        ("grad_flow_unfrozen", "grad_flow_diagnostics",
+         ["--batch_size", "16", "--n_batches", "1"],
+         {k1f: L, **dict.fromkeys(bwd, L)}),
+        ("why_we_need_multimodal", "why_we_need_multimodal", [],
+         {k1f: L * math.ceil(n_catalog / 64)}),
+    ]
+    runs, results = {}, {}
+    for run, mod, extra, want in plan:
+        out = os.path.join(ANALYSIS_RUNS, run)
+        if mod == "why_we_need_multimodal":
+            argv = ["--device", "cuda", "--head_ckpt", head_ckpt,
+                    "--vit_size", "base", "--synthetic_stays", WHY_STAYS,
+                    "--out_dir", out]
+        else:
+            ckpt = unfrozen_ckpt if run == "grad_flow_unfrozen" \
+                else frozen_ckpt
+            argv = base + ["--out_dir", out] + extra + (
+                [] if mod == "trajectory_availability" else ["--ckpt", ckpt])
+        parts = {**{k: v for k, v in evals.items() if k[0] in (
+            mod, "analysis_common", "cxr_head_loop")}, **build}
+        main = port[mod].main
+        if run.endswith("_f32"):
+            main = functools.partial(main, dtype=torch.float32)
+        r = _timed_main(port, main, argv, parts)
+        ev = r["parts"].get("eval", {"s": 0.0, "samples": 0})
+        runs[run] = {
+            "argv": argv, "wall_s": r["wall_s"],
+            "load_s": r["parts"].get("load", {}).get("s", 0.0),
+            "build_s": r["parts"].get("build", {}).get("s"),
+            "build_launches": r["parts"].get("build", {}).get("launches"),
+            "eval_s": ev["s"], "eval_samples": ev["samples"],
+            "eval_samples_per_s": ev["samples"] / ev["s"] if ev["s"] else
+            None,
+            "launches": r["launches"], "expected_launches": want,
+            "files": sorted(os.listdir(out)),
+            "peak_memory_bytes": r["peak_memory_bytes"]}
+        results[run] = r["result"]
+        emit({"phase": "analysis_run", "run": run, "card": card,
+              **{k: v for k, v in runs[run].items() if k != "argv"}})
+    # the tiers: complementarity's per-label report (bf16 and float32),
+    # diagnose's per-condition report and its per-sample archive
+    def tiers(px, ft):
+        pairs = list(zip(px["per_label"], ft["per_label"]))
+        floats = [(a[k], b.get(k)) for a, b in pairs for k in a
+                  if isinstance(a[k], float)]
+        return {"counts_equal": all(a["n"] == b["n"] for a, b in pairs),
+                "ts_acc_equal": all(a.get("ts_acc") == b.get("ts_acc")
+                                    for a, b in pairs),
+                "nan_equal": all(np.isnan(x) == np.isnan(y)
+                                 for x, y in floats),
+                "max_abs_diff_acc": max(abs(a[k] - b[k]) for a, b in pairs
+                                        if a["n"] for k in (
+                                            "img_acc", "ts_acc", "fus_acc")),
+                "max_abs_diff": max((abs(x - y) for x, y in floats
+                                     if np.isfinite(x) and np.isfinite(y)),
+                                    default=0.0)}
+
+    comp = {"bf16": tiers(results["complementarity"],
+                          results["complementarity_hbm"]),
+            "float32": tiers(results["complementarity_f32"],
+                             results["complementarity_hbm_f32"])}
+    px = results["complementarity"]
+    dpx, dft = results["diagnose_temporal_usage"], \
+        results["diagnose_temporal_usage_hbm"]
+    cond_diff = max(abs(dpx["conditions"][c][k] - dft["conditions"][c][k])
+                    for c in dpx["conditions"]
+                    for k in ("fus_macro_auroc", "ts_macro_auroc"))
+    ent_diff = float(np.max(np.abs(
+        np.asarray(dpx["attention_entropy_per_label"])
+        - np.asarray(dft["attention_entropy_per_label"]))))
+    npz = {}
+    for run in ("diagnose_temporal_usage", "diagnose_temporal_usage_hbm"):
+        with np.load(os.path.join(ANALYSIS_RUNS, run,
+                                  "temporal_usage_predictions.npz")) as z:
+            npz[run] = {k: z[k] for k in z.files}
+    a, b = npz["diagnose_temporal_usage"], npz["diagnose_temporal_usage_hbm"]
+    floats = [k for k, v in a.items() if v.dtype.kind == "f"
+              and k not in ("y", "mask")]
+
+    def rel(x, y):
+        return max(float(np.abs(x[k] - y[k]).max())
+                   / max(float(np.abs(x[k]).max()), 1e-12)
+                   for k in floats if not k.startswith("ts_"))
+
+    archive = {"max_rel_diff": rel(a, b),
+               "shifted_row_max_rel_diff": rel(
+                   a, {k: np.roll(v, 1, axis=0) for k, v in b.items()}),
+               "ts_bit_equal": all(np.array_equal(a[k], b[k])
+                                   for k in floats if k.startswith("ts_"))}
+    gf, gu = results["grad_flow_frozen"], results["grad_flow_unfrozen"]
+    log_f = port["grad_flow_diagnostics"].diagnostics_to_log_dict(gf)
+    log_u = port["grad_flow_diagnostics"].diagnostics_to_log_dict(gu)
+    why = results["why_we_need_multimodal"]
+    info = {"phase": "analysis", "card": card, "stays": ANALYSIS_STAYS,
+            "splits": split, "n_images": n_images, "n_catalog": n_catalog,
+            "seconds": sum(r["wall_s"] for r in runs.values()),
+            "wall_s_by_run": {k: r["wall_s"] for k, r in runs.items()},
+            "eval_samples_per_s_by_run": {
+                k: r["eval_samples_per_s"] for k, r in runs.items()},
+            "build_s_by_run": {k: r["build_s"] for k, r in runs.items()
+                               if r["build_s"] is not None},
+            "launches_by_run": {k: r["launches"] for k, r in runs.items()},
+            "complementarity_tiers": comp,
+            "diagnose_tiers": {"max_condition_auroc_diff": cond_diff,
+                               "max_attention_entropy_diff": ent_diff,
+                               "archive": archive},
+            "tol": ANALYSIS_TIER_TOL, "archive_tol": PREDICT_BATCH_TOL,
+            "grad_flow": {k: {f"{b}_px_input_grad": r[f"{b}_px_input_grad"]
+                              for b in ("img", "ts", "fus")}
+                          for k, r in (("frozen", gf), ("unfrozen", gu))},
+            "why_groups": {g: why[g]["n"] for g in why},
+            "verdict": results["trajectory_availability"]["verdict"],
+            "logit_probe_macro_auroc": {
+                k: results["logit_fusion_probe"][k]["macro_auroc"]
+                for k in ("per_label", "linear", "mlp")},
+            "unimodal_macro_auroc": {
+                k: v["macro_auroc"]
+                for k, v in results["unimodal_linear_probe"].items()}}
+    emit(info)
+    info["runs"] = runs
+    shutil.rmtree(ANALYSIS_RUNS, ignore_errors=True)
+    for run, r in runs.items():
+        want = {k: v for k, v in r["expected_launches"].items() if v}
+        if r["launches"] != want:
+            raise AssertionError(f"analysis {run} launched {r['launches']}, "
+                                 f"expected {want}")
+    # bf16: the counts and the time series' branch equal (a logit's bf16
+    # rounding flips a few samples at the thresholds: read, not held);
+    # float32: every per-label float within the bound
+    if not all(c["counts_equal"] and c["ts_acc_equal"]
+               for c in comp.values()) or not (
+            comp["float32"]["nan_equal"]
+            and comp["float32"]["max_abs_diff"] <= ANALYSIS_TIER_TOL):
+        raise AssertionError(f"complementarity: the tiers differ: {comp}")
+    if not (cond_diff <= ANALYSIS_TIER_TOL and ent_diff <= ANALYSIS_TIER_TOL
+            and archive["max_rel_diff"] <= PREDICT_BATCH_TOL
+            and archive["ts_bit_equal"]):
+        raise AssertionError(f"diagnose_temporal_usage: the tiers differ: "
+                             f"{info['diagnose_tiers']}")
+    if not archive["shifted_row_max_rel_diff"] > PREDICT_BATCH_TOL:
+        raise AssertionError(f"the tier comparison misses a shifted row: "
+                             f"{archive}")
+    if any(gf[f"{b}_px_input_grad"] != 0.0 for b in ("img", "ts", "fus")):
+        raise AssertionError(f"grad_flow on a frozen ViT: pixel gradients "
+                             f"{info['grad_flow']['frozen']}")
+    if not (gu["img_px_input_grad"] > 0 and gu["ts_px_input_grad"] == 0
+            and gu["fus_px_input_grad"] == 0):
+        raise AssertionError(f"grad_flow on a trainable ViT: pixel "
+                             f"gradients {info['grad_flow']['unfrozen']}")
+    for name, logged in (("frozen", log_f), ("unfrozen", log_u)):
+        if not all(np.isfinite(v) for v in logged.values()):
+            raise AssertionError(f"grad_flow {name}: non-finite numbers")
+    if why["G0_all"]["n"] != sum(why[g]["n"] for g in why if g != "G0_all") \
+            or why["G0_all"]["n"] == 0:
+        raise AssertionError(f"why_we_need_multimodal groups {why}")
+    if not any(r.get("n", 0) for r in px["per_label"]):
+        raise AssertionError("complementarity analyzed no label")
+    if not _finite_floats(info["logit_probe_macro_auroc"]) or \
+            not _finite_floats(info["unimodal_macro_auroc"]):
+        raise AssertionError("non-finite probe AUROCs")
+    return info
+
+
+def argparse_args(port, stays: str):
+    """The analysis scripts' parsed default flags at ``stays``."""
+    import argparse
+    p = argparse.ArgumentParser()
+    port["analysis_common"].add_analysis_flags(p, needs_ckpt=False)
+    return p.parse_args(["--synthetic_stays", stays])
+
+
 def phase_golden(port, device, cfg, golden_path) -> dict:
     """The full-geometry ViT in float32 through the kernel against the
     golden tokens (atol 2e-4, rtol 1e-3, the golden test's own bounds)."""
@@ -4591,6 +4992,7 @@ def main() -> int:
     kd = phase_kd(port, device, to_teacher["teacher_ckpt"], ssl["best_path"],
                   card=dev["nvidia_smi"])
     cxr = phase_cxr_head(port, device, card=dev["nvidia_smi"])
+    _keep_ckpt(cxr["ckpt_path"], CXR_HEAD_BEST)
     dual = phase_dual_teacher(port, device, cxr["ckpt_path"],
                               card=dev["nvidia_smi"])
     dual_kd = phase_dual_kd(port, device, dual["teacher_ckpt"],
@@ -4612,6 +5014,9 @@ def main() -> int:
                             card=dev["nvidia_smi"])
     synthetic = phase_synthetic_serve(port, device, train["teacher_ckpt"],
                                       card=dev["nvidia_smi"])
+    analysis = phase_analysis(port, device, train["teacher_ckpt"],
+                              UNFREEZE_BEST, CXR_HEAD_BEST,
+                              card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -4645,7 +5050,9 @@ def main() -> int:
                 .get(name, 0),
                 "event_serve": modes["event_serve"]["launches"][name],
                 "single_kd": modes["single_kd"]["launches"][name],
-                **jpeg_by_path(name), **supervised_by_path(name)}
+                **jpeg_by_path(name), **supervised_by_path(name),
+                "analysis": {run: r["launches"].get(name, 0)
+                             for run, r in analysis["runs"].items()}}
 
     def supervised_by_path(name):
         return {"finetune": {way: r["launches"][name]

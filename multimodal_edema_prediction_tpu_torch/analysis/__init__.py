@@ -1,3 +1,4 @@
-"""The analysis suite's shared machinery (``common.py``), as far as the
-inference CLI (``cli/predict.py``) needs it; the analysis scripts are
-ROADMAP P19."""
+"""The analysis suite: the shared machinery (``common.py``) and the scripts
+ported so far, each runnable as ``python -m
+multimodal_edema_prediction_tpu_torch.analysis.<name>``; the rest of the
+JAX package's ``analysis/`` is ROADMAP P19b."""

@@ -1,18 +1,20 @@
-"""Shared analysis machinery: the part of
-``multimodal_edema_prediction_tpu/analysis/common.py`` that the inference
-CLI (``cli/predict.py``) takes: the flags, the image and feature sources,
-the data and the teacher. The config rides in the checkpoint's sidecar, so
-the teacher is rebuilt in one call (the reference's ``load_teacher``,
-analysis/visualize_pathology.py:94-192); the data from the flags the
-trainers take. The rest of that module (``gather_host_windows``,
-``different_subject_permutation``, ``subject_cluster_bootstrap``,
-``attention_entropy``) goes with the analysis scripts, ROADMAP P19.
+"""Shared analysis machinery, the counterpart of
+``multimodal_edema_prediction_tpu/analysis/common.py``: the flags, the
+image and feature sources, the data and the teacher (the config rides in
+the checkpoint's sidecar, so the teacher is rebuilt in one call: the
+reference's ``load_teacher``, analysis/visualize_pathology.py:94-192), the
+host-side window gather and the counterfactual and bootstrap helpers
+(numpy, as in JAX); and what the probes of the analysis scripts share in
+place of optax and ``jax.random``: ``adam`` (optax's Adam, in its order of
+operations) and ``write_figure`` (matplotlib, imported only when a figure
+is drawn).
 """
 from __future__ import annotations
 
 import argparse
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import DataConfig
@@ -120,3 +122,165 @@ def load_teacher(ckpt_path: str, device="cuda") -> tuple:
     from one checkpoint of either package."""
     from ..train.checkpoint import load_teacher_from_ckpt
     return load_teacher_from_ckpt(ckpt_path, device)
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or an array → a numpy array on the host."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def gather_host_windows(anchor_ds, idx: np.ndarray
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """The windows [N, T, 2V] and static rows [N, D] of anchors ``idx``,
+    on the host, for counterfactual transforms (JAX ``common.py:122-131``).
+    The grid may live on the card; it is copied back for the gather."""
+    grid = _host(anchor_ds.grid)
+    static = _host(anchor_ds.static)
+    a = anchor_ds.anchor
+    T = anchor_ds.n_timesteps
+    rows, ends = a["stay_rows"][idx], a["slot_idx"][idx]
+    x_ts = np.stack([grid[r, e - T:e] for r, e in zip(rows, ends)])
+    return x_ts, static[rows]
+
+
+def different_subject_permutation(subject_ids: np.ndarray,
+                                  rng: np.random.Generator) -> np.ndarray:
+    """Within-batch permutation maximizing cross-subject pairing
+    (reference diagnose_temporal_usage.py:104-126): up to 100 random
+    draws, then the roll with the fewest same-subject pairs."""
+    n = len(subject_ids)
+    if n <= 1:
+        return np.arange(n)
+    for _ in range(100):
+        perm = rng.permutation(n)
+        if np.all(subject_ids[perm] != subject_ids):
+            return perm
+    best_perm = np.roll(np.arange(n), 1)
+    best = int(np.sum(subject_ids[best_perm] == subject_ids))
+    for shift in range(2, n):
+        cand = np.roll(np.arange(n), shift)
+        m = int(np.sum(subject_ids[cand] == subject_ids))
+        if m < best:
+            best_perm, best = cand, m
+            if m == 0:
+                break
+    return best_perm
+
+
+def subject_cluster_bootstrap(subject_ids: np.ndarray,
+                              stat_fn: Callable[[np.ndarray], float],
+                              n_boot: int = 200, seed: int = 0
+                              ) -> Dict[str, float]:
+    """Paired bootstrap resampling whole subjects (reference
+    diagnose_temporal_usage.py:215-242). ``stat_fn`` maps an index array
+    (sample rows) to a scalar; returns the mean, the 95% CI and the count
+    of finite draws."""
+    rng = np.random.default_rng(seed)
+    subjects = np.unique(subject_ids)
+    by_subj = {s: np.nonzero(subject_ids == s)[0] for s in subjects}
+    stats = []
+    for _ in range(n_boot):
+        chosen = rng.choice(subjects, size=len(subjects), replace=True)
+        idx = np.concatenate([by_subj[s] for s in chosen])
+        v = stat_fn(idx)
+        if np.isfinite(v):
+            stats.append(v)
+    stats = np.asarray(stats)
+    if len(stats) == 0:
+        return {"mean": float("nan"), "lo": float("nan"),
+                "hi": float("nan"), "n_valid": 0}
+    return {"mean": float(stats.mean()),
+            "lo": float(np.percentile(stats, 2.5)),
+            "hi": float(np.percentile(stats, 97.5)),
+            "n_valid": int(len(stats))}
+
+
+def attention_entropy(attn: np.ndarray) -> np.ndarray:
+    """Normalized entropy of attention rows [N, K, S] → [N, K] (reference
+    diagnose_temporal_usage.py:397-406)."""
+    p = attn / np.clip(attn.sum(axis=-1, keepdims=True), 1e-12, None)
+    ent = -(p * np.log(np.clip(p, 1e-12, None))).sum(axis=-1)
+    return ent / max(np.log(attn.shape[-1]), 1e-12)
+
+
+def adam(loss_fn: Callable[[Dict[str, torch.Tensor]], torch.Tensor],
+         params: Dict[str, torch.Tensor], lr: float, steps: int,
+         b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8
+         ) -> Dict[str, torch.Tensor]:
+    """``steps`` full-batch updates of ``params`` by optax's ``adam(lr)``:
+    m ← (1−b1)·g + b1·m, v ← (1−b2)·g² + b2·v, p ← p − lr·m̂/(√v̂ + eps)
+    with m̂ = m/(1−b1ᵗ), v̂ = v/(1−b2ᵗ) and the corrections in float32, in
+    optax's order of operations (``torch.optim.Adam`` divides in another
+    order). Returns the final parameters, detached."""
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in
+         params.items()}
+    m = {k: torch.zeros_like(v) for k, v in p.items()}
+    v2 = {k: torch.zeros_like(v) for k, v in p.items()}
+    f32 = torch.float32
+    for t in range(1, steps + 1):
+        grads = torch.autograd.grad(loss_fn(p), list(p.values()))
+        bc1 = 1 - torch.tensor(b1, dtype=f32) ** t
+        bc2 = 1 - torch.tensor(b2, dtype=f32) ** t
+        with torch.no_grad():
+            for (k, x), g in zip(p.items(), grads):
+                m[k] = (1 - b1) * g + b1 * m[k]
+                v2[k] = (1 - b2) * (g * g) + b2 * v2[k]
+                upd = (m[k] / bc1.to(x.device)) / (
+                    torch.sqrt(v2[k] / bc2.to(x.device)) + eps)
+                x.add_(-lr * upd)
+    return {k: x.detach() for k, x in p.items()}
+
+
+def write_figure(draw: Callable[[object], None]) -> bool:
+    """Run ``draw(pyplot)``, which draws and saves one figure. matplotlib
+    is imported here, when a figure is asked for; where it cannot be
+    imported nothing is drawn and False is returned (the caller names the
+    figures it did not draw)."""
+    try:
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+    except ImportError:
+        return False
+    draw(plt)
+    return True
+
+
+def report_skipped_figures(skipped: List[str]) -> None:
+    """One line naming the figures a script did not draw (no
+    matplotlib)."""
+    if skipped:
+        print("matplotlib is not installed: figures not drawn: "
+              + ", ".join(skipped), flush=True)
+
+
+def load_for_analysis(args, dtype=torch.bfloat16, grid_on_device: bool = True
+                      ) -> tuple:
+    """What a teacher analysis starts from: (model in eval mode on
+    ``args.device``, TeacherConfig, AnchorDataset, DataConfig,
+    image_source, feature_source), the cohort built with the teacher's
+    variable count and the sources after ``--cxr_feature_cache`` at
+    ``dtype``. ``grid_on_device``: move the windows' grid to the card (the
+    eval steps gather there); False keeps it on the host for scripts that
+    gather windows on the host (``gather_host_windows``)."""
+    model, cfg, _ = load_teacher(args.ckpt, args.device)
+    _, _, anchor_ds, dcfg = load_analysis_data(
+        args, n_variables=cfg.duett.n_variables)
+    if grid_on_device:
+        anchor_ds.to(next(model.parameters()).device)
+    image_source, feature_source = make_sources(args, anchor_ds, model, cfg,
+                                                dtype)
+    return model, cfg, anchor_ds, dcfg, image_source, feature_source
+
+
+def save_json(obj, out_dir: str, name: str) -> str:
+    """``obj`` as indented JSON at ``out_dir/name`` (numpy scalars as
+    floats); returns the path."""
+    import json
+    import os
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=2, default=float)
+    return path

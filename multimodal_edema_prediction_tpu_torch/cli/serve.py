@@ -32,7 +32,7 @@ import torch
 from .common import add_queued_flags, refuse_queued_flags
 
 # JAX flags whose feature is not ported yet → their ROADMAP item
-QUEUED_FLAGS = {"--data_parallel": "P17", "--aot_dir": "P17"}
+QUEUED_FLAGS = {"--data_parallel": "P18", "--aot_dir": "P10"}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -55,16 +55,9 @@ from ..models.teacher import init_teacher
 from ..models.vit import load_vit_params
 from ..train.ssl_loop import transplant_encoder
 from ..train.teacher_loop import pretrained_head_spec, train_teacher
-from .common import (COMMON_QUEUED, add_common_flags, add_queued_flags,
-                     configs_from_args, load_data, make_run_dir,
-                     refuse_queued_flags, sync_duett_with_meta)
-
-# JAX flags of this CLI whose feature is not ported yet → their ROADMAP
-# item (the common ones: COMMON_QUEUED)
-QUEUED_FLAGS = {
-    # the loop's gradient-flow diagnostics
-    "--grad_diag_every": "P19", "--grad_diag_batches": "P19",
-}
+from .common import (COMMON_QUEUED, add_common_flags, configs_from_args,
+                     load_data, make_run_dir, refuse_queued_flags,
+                     sync_duett_with_meta)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -150,10 +143,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "run resumes with --resume_dir (default on)")
     p.add_argument("--no_save_state", dest="save_state",
                    action="store_false")
+    p.add_argument("--grad_diag_every", type=int, default=0,
+                   help="run the read-only gradient-flow diagnostics "
+                        "(analysis/grad_flow_diagnostics.py) on the val "
+                        "split every N epochs, in the two patch modes "
+                        "(0 = off)")
+    p.add_argument("--grad_diag_batches", type=int, default=4)
     p.add_argument("--flash_block_b", type=int, default=2,
                    help="ignored: a TPU tuning knob of the JAX package (the "
                         "flash-attention batch block of its fused step)")
-    add_queued_flags(p, QUEUED_FLAGS)
     return p
 
 
@@ -203,7 +201,7 @@ def image_kwargs(args) -> dict:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_queued_flags(args, COMMON_QUEUED, QUEUED_FLAGS)
+    refuse_queued_flags(args, COMMON_QUEUED)
     if args.vit_quant != "none" and args.unfreeze_cxr:
         p.error("--vit_quant requires a frozen CXR branch (the quantized "
                 "matmuls are inference-only)")
@@ -244,7 +242,10 @@ def main(argv=None):
                         or None, pretrained_head_ckpt=head_ckpt,
                         auto_resume=bool(args.resume_dir),
                         save_full_state=args.save_state,
-                        state_backend=args.state_backend, **lp_kwargs(args),
+                        state_backend=args.state_backend,
+                        grad_diag_every=args.grad_diag_every,
+                        grad_diag_batches=args.grad_diag_batches,
+                        **lp_kwargs(args),
                         **image_kwargs(args))
     print(f"best val macro fusion AUROC: {res.best_metric:.4f}  "
           f"ckpt: {res.best_path}", flush=True)

@@ -221,27 +221,56 @@ def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     return p * x
 
 
-def jax_normal_f32(image_ids: torch.Tensor, shape: Tuple[int, ...]
-                   ) -> torch.Tensor:
-    """``jax.random.normal(fold_in(key(0), id), shape)`` (float32) for each
-    id, [B, *shape], on the ids' device: the threefry key schedule, the
-    partitionable bit stream (a counter over the flat index), the uniform in
-    (-1, 1) and √2·erf_inv of JAX 0.9. The bits are JAX's exactly; the
-    normals within ~1e-6 (``log1p`` and fused multiply-adds round apart)."""
-    ids = image_ids.to(torch.int64) & _U32
-    zero = torch.zeros_like(ids)
-    k0, k1 = threefry2x32(zero, zero, zero, ids)          # fold_in
-    n = math.prod(shape)
-    counter = torch.arange(n, dtype=torch.int64, device=ids.device)
-    b0, b1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(counter),
-                          counter)
+def _normal_from_key(k0: torch.Tensor, k1: torch.Tensor, n: int
+                     ) -> torch.Tensor:
+    """n float32 normals [..., n] from threefry keys (k0, k1) [...]: the
+    partitionable bit stream (a counter over the flat index), the uniform
+    in (-1, 1) and √2·erf_inv of JAX 0.9's ``jax.random.normal``."""
+    counter = torch.arange(n, dtype=torch.int64, device=k0.device)
+    b0, b1 = threefry2x32(k0[..., None], k1[..., None],
+                          torch.zeros_like(counter), counter)
     mantissa = ((b0 ^ b1) >> 9) | 0x3F800000
     floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
     lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
     # float32(1 - lo) is 2.0
     u = torch.clamp_min(floats * 2.0 + lo, lo)
-    return (float(np.float32(np.sqrt(2.0))) * _erf_inv_f32(u)).reshape(
+    return float(np.float32(np.sqrt(2.0))) * _erf_inv_f32(u)
+
+
+def jax_normal_f32(image_ids: torch.Tensor, shape: Tuple[int, ...]
+                   ) -> torch.Tensor:
+    """``jax.random.normal(fold_in(key(0), id), shape)`` (float32) for each
+    id, [B, *shape], on the ids' device: the threefry key schedule and
+    ``_normal_from_key``. The bits are JAX's exactly; the normals within
+    ~1e-6 (``log1p`` and fused multiply-adds round apart)."""
+    ids = image_ids.to(torch.int64) & _U32
+    zero = torch.zeros_like(ids)
+    k0, k1 = threefry2x32(zero, zero, zero, ids)          # fold_in
+    return _normal_from_key(k0, k1, math.prod(shape)).reshape(
         len(ids), *shape)
+
+
+def jax_key(seed: int) -> Tuple[int, int]:
+    """``jax.random.key(seed)`` (threefry, seed >= 0) as its two uint32
+    words."""
+    return (seed >> 32) & _U32, seed & _U32
+
+
+def jax_split(key: Tuple[int, int], num: int = 2) -> list:
+    """``jax.random.split(key, num)`` (the partitionable form of JAX 0.9):
+    subkey i is threefry(key, (0, i))."""
+    k0, k1 = (torch.tensor(k, dtype=torch.int64) for k in key)
+    c = torch.arange(num, dtype=torch.int64)
+    b0, b1 = threefry2x32(k0, k1, torch.zeros_like(c), c)
+    return [(int(a), int(b)) for a, b in zip(b0.tolist(), b1.tolist())]
+
+
+def jax_normal(key: Tuple[int, int], shape: Tuple[int, ...],
+               device="cpu") -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` (float32) on ``device``."""
+    k0, k1 = (torch.tensor(k, dtype=torch.int64, device=device)
+              for k in key)
+    return _normal_from_key(k0, k1, math.prod(shape)).reshape(shape)
 
 
 def synthetic_image_device(image_ids: torch.Tensor, labels: torch.Tensor,

@@ -230,13 +230,15 @@ class MultiHeadAttention(nn.Module):
     With ``use_flash``, no attention dropout in force, and a 3-D input whose
     key length is at least 256 and whose head dim is at least 64, the
     attention goes through ``flash_mha`` (the JAX gate at
-    ``models/layers.py:292-296``; the port has no returned weights to
-    exclude), gradient included: ``flash_mha``'s autograd Function backs it
+    ``models/layers.py:292-296``), gradient included: ``flash_mha``'s autograd Function backs it
     with K1's dkv and dq kernels on the card. While training, ``dropout``
     applies to the attention probabilities (and so closes the gate).
     ``key_padding_mask`` [..., K] bool, True = ignore that key (torch
     ``MultiheadAttention``'s sense): its logits are set to -1e30 before
-    the float32 softmax, and it closes the gate. ``valid_len`` is the true
+    the float32 softmax, and it closes the gate. ``return_weights`` returns
+    ``(out, weights)``, the attention probabilities before dropout
+    averaged over the heads [..., Nq, Nk] (JAX ``layers.py:362-363``), and
+    closes the gate too. ``valid_len`` is the true
     token count of a pre-padded sequence: keys at or past it get zero
     probability (the mask ``valid_len`` stands for when no mask is given)
     and the outputs of those rows are garbage, to be sliced off by the
@@ -260,10 +262,11 @@ class MultiHeadAttention(nn.Module):
     def forward(self, q_in: torch.Tensor, kv_in: torch.Tensor,
                 valid_len: Optional[int] = None, train: bool = False,
                 gen: Optional[torch.Generator] = None,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                return_weights: bool = False):
         H, dh = self.n_heads, self.d_head
-        flash_ok = (self.use_flash and key_padding_mask is None
+        flash_ok = (self.use_flash and not return_weights
+                    and key_padding_mask is None
                     and (self.dropout == 0.0 or not train)
                     and q_in.dim() == 3 and kv_in.shape[-2] >= 256
                     and dh >= 64)
@@ -294,9 +297,12 @@ class MultiHeadAttention(nn.Module):
             logits = logits.masked_fill(key_padding_mask[..., None, None, :],
                                         -1e30)
         weights = torch.softmax(logits.float(), dim=-1).to(q_in.dtype)
-        weights = dropout(weights, self.dropout, train, gen)
-        out = torch.einsum("...hqk,...khd->...qhd", weights, v)
-        return self.out(out.reshape(*out.shape[:-2], H * dh))
+        dropped = dropout(weights, self.dropout, train, gen)
+        out = torch.einsum("...hqk,...khd->...qhd", dropped, v)
+        out = self.out(out.reshape(*out.shape[:-2], H * dh))
+        if return_weights:
+            return out, weights.mean(dim=-3)
+        return out
 
 
 class TransformerEncoderLayer(nn.Module):

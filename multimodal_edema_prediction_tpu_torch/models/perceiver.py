@@ -14,7 +14,7 @@ and ``_correction_dropout`` inside the correction head.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +26,9 @@ from .layers import Dense, LayerNorm, MultiHeadAttention, dropout, gelu_exact
 
 class PerceiverBlock(nn.Module):
     """Pre-LN cross-attention + FFN with residuals. The LayerNorms keep
-    flax's default eps of 1e-6, not torch's 1e-5."""
+    flax's default eps of 1e-6, not torch's 1e-5. ``return_attn`` returns
+    ``(latents, weights)``, the head-averaged attention [B, Nq, Nk]
+    (which keeps the attention off the flash route, as in JAX)."""
 
     def __init__(self, d: int, n_heads: int, use_flash: bool = False,
                  dropout: float = 0.0):
@@ -41,15 +43,19 @@ class PerceiverBlock(nn.Module):
         self.ff_out = Dense(4 * d, d)
 
     def forward(self, latents: torch.Tensor, kv: torch.Tensor,
-                train: bool = False, gen: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                train: bool = False, gen: Optional[torch.Generator] = None,
+                return_attn: bool = False):
         p = self.dropout
         q = self.norm_q(latents)
         k = self.norm_kv(kv).to(latents.dtype)
-        latents = latents + self.attn(q, k, train=train, gen=gen)
+        a = self.attn(q, k, train=train, gen=gen,
+                      return_weights=return_attn)
+        a, w = a if return_attn else (a, None)
+        latents = latents + a
         h = dropout(gelu_exact(self.ff_in(self.norm_ff(latents))), p, train,
                     gen)
-        return latents + dropout(self.ff_out(h), p, train, gen)
+        latents = latents + dropout(self.ff_out(h), p, train, gen)
+        return (latents, w) if return_attn else latents
 
 
 class _Head(nn.Module):
@@ -106,7 +112,14 @@ def _select_ts(ts_tokens: torch.Tensor, abl: str) -> torch.Tensor:
 
 class PatchDualPathologyPerceiver(nn.Module):
     """K shared pathology queries cross-attend image patches and DuETT
-    hourly tokens; residual fusion on top (reference :538-654)."""
+    hourly tokens; residual fusion on top (reference :538-654).
+    ``return_attn`` adds ``img_attn`` [B, K, N_img] and ``ts_attn``
+    [B, K, N_ts], the cross-attentions averaged over heads.
+    ``token_eps=(eps_img, eps_ts)`` [B, K, d] are added to the
+    post-self-attention tokens (I, T_k) right before the heads: at zero
+    they change nothing, and the gradient w.r.t. them is ∂loss/∂tokens
+    (JAX ``perceiver.py:108-201``; only the gradient-flow diagnostics pass
+    it)."""
 
     def __init__(self, cfg: PerceiverConfig, d_ts: int):
         super().__init__()
@@ -124,7 +137,10 @@ class PatchDualPathologyPerceiver(nn.Module):
 
     def forward(self, ts_tokens: torch.Tensor, img_patches_proj: torch.Tensor,
                 ts_ablation: Optional[str] = None, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> dict:
+                gen: Optional[torch.Generator] = None,
+                return_attn: bool = False,
+                token_eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> dict:
         cfg = self.cfg
         abl = ts_ablation or cfg.ts_ablation
         if ts_tokens.dim() != 3:
@@ -135,11 +151,16 @@ class PatchDualPathologyPerceiver(nn.Module):
             B, cfg.n_pathologies, cfg.d_latent)
         ts_kv = self.ts_proj(_select_ts(ts_tokens, abl))
 
-        I = self.img_cross(q, img_patches_proj, train, gen)   # noqa: E741
-        Tk = self.ts_cross(q, ts_kv, train, gen)
+        I = self.img_cross(q, img_patches_proj, train, gen,  # noqa: E741
+                           return_attn)
+        Tk = self.ts_cross(q, ts_kv, train, gen, return_attn)
+        attn = {}
+        if return_attn:
+            (I, attn["img_attn"]), (Tk, attn["ts_attn"]) = I, Tk  # noqa: E741
         I = self.img_self(I, I, train, gen)                   # noqa: E741
         Tk = self.ts_self(Tk, Tk, train, gen)
-        return _residual_fusion(self, I, Tk, train, gen)
+        return {**_residual_fusion(self, I, Tk, train, gen, token_eps),
+                **attn}
 
 
 def _add_residual_heads(m: nn.Module, cfg: PerceiverConfig) -> None:
@@ -159,10 +180,14 @@ def _add_residual_heads(m: nn.Module, cfg: PerceiverConfig) -> None:
 
 def _residual_fusion(m: nn.Module, I: torch.Tensor,   # noqa: E741
                      Tk: torch.Tensor, train: bool,
-                     gen: Optional[torch.Generator]) -> dict:
+                     gen: Optional[torch.Generator],
+                     token_eps: Optional[tuple] = None) -> dict:
     """The heads of ``_add_residual_heads`` on the image tokens ``I`` and
-    the temporal tokens ``Tk`` [B, K, d]:
-    fusion = stop_grad(img) + β · correction(Tk)."""
+    the temporal tokens ``Tk`` [B, K, d], each plus its ``token_eps``
+    perturbation when given: fusion = stop_grad(img) + β · correction(Tk)."""
+    if token_eps is not None:
+        I = I + token_eps[0].to(I.dtype)                      # noqa: E741
+        Tk = Tk + token_eps[1].to(Tk.dtype)
     img_logits = m.image_head(I, train, gen).squeeze(-1).float() \
         + m.image_label_bias[None, :]
     ts_logits = m.temporal_head(Tk, train, gen).squeeze(-1).float() \
@@ -200,16 +225,20 @@ class EventPerceiverBlock(nn.Module):
 
     def forward(self, queries: torch.Tensor, event_kv: torch.Tensor,
                 train: bool = False, gen: Optional[torch.Generator] = None,
-                key_padding_mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+                key_padding_mask: Optional[torch.Tensor] = None,
+                return_attn: bool = False):
         p = self.dropout
         q = self.event_query_norm(self.event_query_proj(queries))
         k = self.norm_kv(event_kv)
-        latents = queries + self.attn(q, k, train=train, gen=gen,
-                                      key_padding_mask=key_padding_mask)
+        a = self.attn(q, k, train=train, gen=gen,
+                      key_padding_mask=key_padding_mask,
+                      return_weights=return_attn)
+        a, w = a if return_attn else (a, None)
+        latents = queries + a
         h = dropout(gelu_exact(self.ff_in(self.norm_ff(latents))), p, train,
                     gen)
-        return latents + dropout(self.ff_out(h), p, train, gen)
+        latents = latents + dropout(self.ff_out(h), p, train, gen)
+        return (latents, w) if return_attn else latents
 
 
 class EventPatchPerceiver(nn.Module):
@@ -220,7 +249,9 @@ class EventPatchPerceiver(nn.Module):
     clinical variable ([B, T, V, De] → [B, V, T·De] → ``event_kv_proj``),
     with the variables of ``ts_padding_mask`` [B, V] (True = never
     observed) masked, except in a sample where every variable is; the
-    residual fusion of ``dual_patch``."""
+    residual fusion of ``dual_patch``. ``return_attn`` adds ``img_attn``
+    and ``event_attn`` [B, K, V] (which pathology query reads which
+    clinical variable); ``token_eps`` as in ``dual_patch``."""
 
     def __init__(self, cfg: PerceiverConfig, d_event: int):
         super().__init__()
@@ -237,7 +268,10 @@ class EventPatchPerceiver(nn.Module):
 
     def forward(self, event_grid: torch.Tensor, img_patches_proj: torch.Tensor,
                 train: bool = False, gen: Optional[torch.Generator] = None,
-                ts_padding_mask: Optional[torch.Tensor] = None) -> dict:
+                ts_padding_mask: Optional[torch.Tensor] = None,
+                return_attn: bool = False,
+                token_eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> dict:
         cfg = self.cfg
         if event_grid.dim() != 4:
             raise ValueError(f"event_grid must be [B,T,V,d_emb], "
@@ -247,7 +281,11 @@ class EventPatchPerceiver(nn.Module):
         shape = (B, cfg.n_pathologies, cfg.d_latent)
         img_q = self.image_queries.to(dt).expand(shape)
         ts_q = self.temporal_queries.to(dt).expand(shape)
-        I = self.img_cross(img_q, img_patches_proj, train, gen)  # noqa: E741
+        I = self.img_cross(img_q, img_patches_proj, train, gen,  # noqa: E741
+                           return_attn)
+        attn = {}
+        if return_attn:
+            I, attn["img_attn"] = I                              # noqa: E741
         I = self.img_self(I, I, train, gen)                      # noqa: E741
         ev_kv = self.event_kv_proj(
             event_grid.permute(0, 2, 1, 3).reshape(B, V, T * De))
@@ -255,9 +293,13 @@ class EventPatchPerceiver(nn.Module):
         if ts_padding_mask is not None:
             # a sample with no observed variable attends to all of them
             mask = ts_padding_mask & ~ts_padding_mask.all(-1, keepdim=True)
-        Tk = self.event_cross(ts_q, ev_kv, train, gen, key_padding_mask=mask)
+        Tk = self.event_cross(ts_q, ev_kv, train, gen, key_padding_mask=mask,
+                              return_attn=return_attn)
+        if return_attn:
+            Tk, attn["event_attn"] = Tk
         Tk = self.ts_self(Tk, Tk, train, gen)
-        return _residual_fusion(self, I, Tk, train, gen)
+        return {**_residual_fusion(self, I, Tk, train, gen, token_eps),
+                **attn}
 
 
 def adaptive_avg_pool_tokens(patches: torch.Tensor, out_hw: int = 7
@@ -278,7 +320,9 @@ class PathologyPerceiver(nn.Module):
     ``pathology_queries`` read the image (``img_cross``, ``img_self``:
     stage 2), then the DuETT tokens (``ts_cross``, ``ts_self``: stage 4);
     per-label stacked heads on each stage's tokens. Its ablation default
-    is ``"full"``, not ``cfg.ts_ablation`` (the ``dual_patch`` knob)."""
+    is ``"full"``, not ``cfg.ts_ablation`` (the ``dual_patch`` knob).
+    ``return_attn`` adds stage 1's ``img_attn`` and stage 3's
+    ``ts_attn``."""
 
     def __init__(self, cfg: PerceiverConfig, d_ts: int):
         super().__init__()
@@ -297,19 +341,25 @@ class PathologyPerceiver(nn.Module):
 
     def forward(self, ts_tokens: torch.Tensor, img_patches_proj: torch.Tensor,
                 ts_ablation: Optional[str] = None, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> dict:
+                gen: Optional[torch.Generator] = None,
+                return_attn: bool = False) -> dict:
         cfg = self.cfg
         B = ts_tokens.shape[0]
         q = self.pathology_queries.to(ts_tokens.dtype).expand(
             B, cfg.n_pathologies, cfg.d_latent)
         ts_kv = self.ts_proj(_select_ts(ts_tokens, ts_ablation or "full"))
-        h = self.img_cross(q, img_patches_proj, train, gen)
+        attn = {}
+        h = self.img_cross(q, img_patches_proj, train, gen, return_attn)
+        if return_attn:
+            h, attn["img_attn"] = h
         s2 = self.img_self(h, h, train, gen)
-        h = self.ts_cross(s2, ts_kv, train, gen)
+        h = self.ts_cross(s2, ts_kv, train, gen, return_attn)
+        if return_attn:
+            h, attn["ts_attn"] = h
         s4 = self.ts_self(h, h, train, gen)
         return {"stage2_logits": self.stage2_heads(s2, train, gen).float(),
                 "stage4_logits": self.stage4_heads(s4, train, gen).float(),
-                "stage2_tokens": s2, "stage4_tokens": s4}
+                "stage2_tokens": s2, "stage4_tokens": s4, **attn}
 
 
 class TemporalPerceiver(nn.Module):
@@ -376,7 +426,8 @@ class DualPathologyPerceiver(nn.Module):
     image branch is the frozen pretrained CXR head's logits, passed in and
     detached; K shared queries cross-attend the DuETT tokens; per-label
     temporal and residual heads; plain additive fusion with no β:
-    ``fusion_logit[k] = img_logit[k] + residual_head_k(T_k)``."""
+    ``fusion_logit[k] = img_logit[k] + residual_head_k(T_k)``.
+    ``return_attn`` adds ``ts_attn``."""
 
     def __init__(self, cfg: PerceiverConfig, d_ts: int):
         super().__init__()
@@ -393,14 +444,18 @@ class DualPathologyPerceiver(nn.Module):
 
     def forward(self, ts_tokens: torch.Tensor, img_logits: torch.Tensor,
                 ts_ablation: Optional[str] = None, train: bool = False,
-                gen: Optional[torch.Generator] = None) -> dict:
+                gen: Optional[torch.Generator] = None,
+                return_attn: bool = False) -> dict:
         cfg = self.cfg
         abl = ts_ablation or cfg.ts_ablation
         B = ts_tokens.shape[0]
         q = self.shared_queries.to(ts_tokens.dtype).expand(
             B, cfg.n_pathologies, cfg.d_latent)
         Tk = self.ts_cross(q, self.ts_proj(_select_ts(ts_tokens, abl)),
-                           train, gen)
+                           train, gen, return_attn)
+        attn = {}
+        if return_attn:
+            Tk, attn["ts_attn"] = Tk
         Tk = self.ts_self(Tk, Tk, train, gen)
         ts_logits = self.temporal_heads(Tk, train, gen).float()
         residuals = self.residual_heads(Tk, train, gen).float()
@@ -416,4 +471,5 @@ class DualPathologyPerceiver(nn.Module):
             # correction
             "ts_correction": residuals,
             "scaled_correction": residuals,
+            **attn,
         }

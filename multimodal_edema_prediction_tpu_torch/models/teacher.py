@@ -39,6 +39,10 @@ from .perceiver import (DualPathologyPerceiver, EventPatchPerceiver,
 from .vit import DinoViT
 
 MODES = ("dual_patch", "dual_patch_event", "single", "legacy", "dual")
+# what ``return_attn`` adds in the residual-fusion modes, those a mode has
+# (and what the window eval step keeps of it, engine.py)
+ATTN_KEYS = ("img_tokens", "ts_tokens", "fusion_tokens", "img_attn",
+             "ts_attn", "event_attn")
 # the legacy heads' hidden width (JAX teacher.py:156, :166)
 LEGACY_HIDDEN = 128
 
@@ -101,7 +105,9 @@ class TeacherModel(nn.Module):
     def forward(self, x_in: torch.Tensor, x_static: torch.Tensor,
                 times: torch.Tensor, pixel_values: Optional[torch.Tensor],
                 train: bool = False, gen: Optional[torch.Generator] = None,
-                cxr_feats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                cxr_feats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                return_attn: bool = False,
+                token_eps: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> dict:
         """``cxr_feats=(cls, patches)``: the encode-once tier's cached ViT
         tokens, which replace the ViT forward (JAX ``teacher.py:72-87``);
@@ -109,7 +115,15 @@ class TeacherModel(nn.Module):
         ``dual`` teacher reads only ``cls`` (``patches`` may be None).
         Returns the JAX teacher's outputs for its mode: ``main_logit``
         [B] always; the branch logits of the residual modes, stage 2's and
-        4's of ``single``, ``aux_logit`` of ``legacy``."""
+        4's of ``single``, ``aux_logit`` of ``legacy``. ``return_attn``
+        adds the perceiver's attentions and tokens (JAX
+        ``teacher.py:135-140``: ``img_tokens``, ``ts_tokens``,
+        ``fusion_tokens``, ``img_attn``, ``ts_attn``, ``event_attn``, those
+        the mode has; ``single``: ``stage2_tokens``, ``stage4_tokens``,
+        ``img_attn``, ``ts_attn``; ``legacy`` has none).
+        ``token_eps=(eps_img, eps_ts)``: the perceiver's zero-perturbation
+        hook on its fusion tokens, in the two patch modes only (JAX
+        ``teacher.py:89-91``)."""
         cfg = self.cfg
         mode = cfg.perceiver_type
         frozen = cfg.freeze_duett
@@ -134,15 +148,21 @@ class TeacherModel(nn.Module):
         if cfg.freeze_cxr:
             cls = cls.detach()
             patches = None if patches is None else patches.detach()
+        if token_eps is not None and mode not in ("dual_patch",
+                                                  "dual_patch_event"):
+            raise ValueError("token_eps (fusion-token sensitivity hook) is "
+                             "only defined for the patch perceiver modes")
 
         if mode == "dual":
             # the head's logits are detached (JAX teacher.py:160-171): with
             # --unfreeze_cxr the ViT gets no gradient, only weight decay
             out = self.perceiver(ts_tokens, self._image_logits(cls),
-                                 train=train, gen=gen)
+                                 train=train, gen=gen,
+                                 return_attn=return_attn)
         elif mode == "dual_patch":
             out = self.perceiver(ts_tokens, self.img_proj(patches),
-                                 train=train, gen=gen)
+                                 train=train, gen=gen, token_eps=token_eps,
+                                 return_attn=return_attn)
         elif mode == "dual_patch_event":
             # the dynamic grid: psi without the [REP] row and the static
             # column; a variable with no observation in the window (its
@@ -151,17 +171,21 @@ class TeacherModel(nn.Module):
             observed = (x_in[:, :, V:2 * V] > 0).any(dim=1)
             out = self.perceiver(psi_grid[:, :-1, :-1, :],
                                  self.img_proj(patches), train=train,
-                                 gen=gen, ts_padding_mask=~observed)
+                                 gen=gen, ts_padding_mask=~observed,
+                                 token_eps=token_eps,
+                                 return_attn=return_attn)
         elif mode == "single":
             out = self.perceiver(
                 ts_tokens, self.img_proj(adaptive_avg_pool_tokens(patches)),
-                train=train, gen=gen)
+                train=train, gen=gen, return_attn=return_attn)
+            keys = ("stage2_logits", "stage4_logits") + (
+                ("stage2_tokens", "stage4_tokens", "img_attn", "ts_attn")
+                if return_attn else ())
             return {"main_logit": out["stage4_logits"][:, 0],
-                    "stage2_logits": out["stage2_logits"],
-                    "stage4_logits": out["stage4_logits"]}
+                    **{k: out[k] for k in keys}}
         else:
             return self._legacy(ts_tokens, cls, patches, train, gen)
-        return {
+        result = {
             "main_logit": out["fusion_logits"][:, 0],
             "img_logits": out["img_logits"],
             "ts_logits": out["ts_logits"],
@@ -169,6 +193,9 @@ class TeacherModel(nn.Module):
             "ts_correction": out["ts_correction"],
             "scaled_correction": out["scaled_correction"],
         }
+        if return_attn:
+            result.update({k: out[k] for k in ATTN_KEYS if k in out})
+        return result
 
     def _legacy(self, ts_tokens, cls, patches, train, gen) -> dict:
         """CLS before the 49 pooled patches, projected; the temporal

@@ -27,6 +27,7 @@ import torch
 from ..config import DuettConfig, TrainConfig
 from ..data.pipeline import gather_windows
 from ..models.duett import feats_to_input, pretrain_prep_batch
+from ..models.teacher import ATTN_KEYS
 from ..models.vit import normalize_image
 from ..ops import losses as L
 from .state import TrainState
@@ -230,10 +231,15 @@ def make_teacher_eval(n_timesteps: int, dtype=torch.bfloat16,
 def make_teacher_eval_from_windows(
         model, dtype=torch.bfloat16,
         image_source: Callable = default_image_source,
-        feature_source: Optional[Callable] = None) -> Callable:
+        feature_source: Optional[Callable] = None,
+        return_attn: bool = False) -> Callable:
     """``step(x_ts [B,T,2V], x_static [B,D], batch)`` → the five eval
     outputs as float32 tensors on the model's device (those the model's
-    mode has: ``main_logit`` alone for ``single`` and ``legacy``).
+    mode has: ``main_logit`` alone for ``single`` and ``legacy``), and with
+    ``return_attn`` the perceiver's attentions and tokens too
+    (``img_attn``, ``ts_attn``, ``event_attn``, ``img_tokens``,
+    ``ts_tokens``, ``fusion_tokens``, those the mode has; JAX
+    ``engine.py:403-427``).
     ``batch`` carries ``bin_ends`` [B, T] and either ``pixel_u8``
     [B, S, S, 3] for the ViT or, with ``feature_source`` (e.g.
     ``CXRFeatureBank.feature_source(keyed_by_row=False)`` over raw
@@ -252,8 +258,9 @@ def make_teacher_eval_from_windows(
             pixels, feats = _cxr_inputs(b, image_source, feature_source,
                                         dtype)
             out = model(x_in, xs, b["bin_ends"].to(dtype), pixels,
-                        cxr_feats=feats)
-            return {k: out[k].float() for k in EVAL_KEYS if k in out}
+                        cxr_feats=feats, return_attn=return_attn)
+            keys = EVAL_KEYS + (ATTN_KEYS if return_attn else ())
+            return {k: out[k].float() for k in keys if k in out}
 
     return step
 

@@ -344,6 +344,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                   stop_after_epochs: Optional[int] = None,
                   lp_from: Optional[str] = None, lp_beta_l2: float = 1e-3,
                   lp_corr_l2: float = 1e-2,
+                  grad_diag_every: int = 0, grad_diag_batches: int = 4,
                   log: Callable[[str], None] = print) -> TrainResult:
     """Train the teacher; returns the best val metric of its mode (macro
     fusion AUROC, macro stage 4 AUROC for ``single``, AUROC for
@@ -373,7 +374,13 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     that many epochs (the schedule still spans ``cfg.epochs``).
     ``lp_from``: LP mode from this checkpoint (a ``dual_patch`` or
     ``dual_patch_event`` teacher's), with the L2 weights ``lp_beta_l2`` of
-    β and ``lp_corr_l2`` of the scaled correction."""
+    β and ``lp_corr_l2`` of the scaled correction.
+    ``grad_diag_every``: every that many epochs, in the two patch modes,
+    the read-only gradient-flow diagnostics
+    (``analysis/grad_flow_diagnostics.run_diagnostics``) over
+    ``grad_diag_batches`` val batches, on the pixels of the run's image
+    feed (JAX ``teacher_loop.py:677-690``): the report is printed and its
+    scalars go into the epoch's history entry."""
     mode = teacher_cfg.perceiver_type
     lp_mode = lp_from is not None
     if feature_cache not in ("none", "auto", "hbm", "host"):
@@ -598,6 +605,24 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
             history[-1]["train_eval_main_gap_over_val"] = \
                 tr["main_auroc"] - val_metric
             log("train-subset gap table:\n" + tr["table"])
+        if grad_diag_every > 0 and (epoch + 1) % grad_diag_every == 0 \
+                and mode in LP_MODES:
+            # the diagnostics' scalars are history keys here (JAX logs
+            # them to wandb, ROADMAP P20)
+            from ..analysis.grad_flow_diagnostics import (
+                diagnostics_to_log_dict, format_report, run_diagnostics)
+            t0 = time.perf_counter()
+            diag = run_diagnostics(
+                model, dataset, image_source, "val", cfg.batch_size,
+                grad_diag_batches,
+                alphas=(cfg.alpha_img, cfg.alpha_ts, cfg.alpha_fus),
+                label_weights=lw, label_names=list(pathology_labels),
+                image_hook=image_hook)
+            phase["grad_diag"] = phase.get("grad_diag", 0.0) \
+                + time.perf_counter() - t0
+            log("grad-flow diagnostics:\n" + format_report(diag))
+            history[-1].update(diagnostics_to_log_dict(
+                diag, labels=list(pathology_labels)))
         preempted = preemption.requested()
         if save_full_state or preempted:
             t0 = time.perf_counter()

@@ -19,7 +19,9 @@ bulk copies for 16-byte-aligned rows, vector copies otherwise); K4 bf16
 bf16, products accumulated in float32 in another order); one float32 KD
 step on the card against a CPU copy, losses 1e-4 relative and each student
 gradient 1e-4 of its max abs floored at 1e-2 of the largest gradient (a
-leaf whose exact gradient is 0 keeps only rounding noise).
+leaf whose exact gradient is 0 keeps only rounding noise); one float32
+gradient-flow diagnostics batch on the card against a CPU copy, each array
+1e-4 of its max abs.
 """
 import numpy as np
 import pytest
@@ -788,6 +790,58 @@ def test_kd_step_on_the_card_matches_a_cpu_copy(cuda):
     for n, g in grads["cpu"].items():
         scale = max(float(g.abs().max()), floor)
         assert float((grads["cuda"][n] - g).abs().max()) <= 1e-4 * scale, n
+
+
+def test_grad_flow_batch_on_the_card_matches_a_cpu_copy(cuda):
+    """One gradient-flow diagnostics batch (``analysis/
+    grad_flow_diagnostics.make_diag_step``, float32, TF32 off) of a
+    teacher whose ViT trains, at a geometry that opens K1's gate (224² →
+    257 tokens, 2 heads of 64), on the card and on a CPU copy: every
+    array within 1e-4 of its max abs; the pixels' gradient reaches the
+    image branch alone; on the card one float32 K1 forward and one each
+    of D, dkv and dq per ViT layer (the image branch's pixel gradient is
+    the only one that runs the ViT's backward)."""
+    from multimodal_edema_prediction_tpu_torch.analysis import \
+        grad_flow_diagnostics as GF
+    from multimodal_edema_prediction_tpu_torch.config import (
+        DuettConfig, PerceiverConfig, TeacherConfig, ViTConfig)
+    from multimodal_edema_prediction_tpu_torch.models.teacher import \
+        init_teacher
+    from multimodal_edema_prediction_tpu_torch.train import engine
+    tcfg = TeacherConfig(
+        duett=DuettConfig(n_variables=5, d_embedding=8, n_layers=1),
+        vit=ViTConfig(image_size=224, d_model=128, n_layers=2, n_heads=2,
+                      d_feedforward=128),
+        perceiver=PerceiverConfig(d_latent=32, n_heads=2),
+        freeze_cxr=False)
+    rng = np.random.default_rng(0)
+    x_ts = np.abs(rng.normal(size=(4, 24, 10))).astype(np.float32)
+    x_static = rng.normal(size=(4, 18)).astype(np.float32)
+    host = {"y_multi": (rng.random((4, 7)) < 0.5).astype(np.float32),
+            "y_multi_mask": np.ones((4, 7), np.float32),
+            "bin_ends": np.tile(np.arange(1, 25, dtype=np.float32) / 24,
+                                (4, 1)),
+            "pixel_values": rng.normal(size=(4, 224, 224, 3)).astype(
+                np.float32)}
+    keys = [A.launch_key(k, torch.float32) for k in (
+        "flash_attention", "flash_attention_bwd_delta",
+        "flash_attention_bwd_dkv", "flash_attention_bwd_dq")]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = init_teacher(tcfg, 0).to(dev).eval()
+        before = {k: A.LAUNCHES[k] for k in keys}
+        res = GF.make_diag_step(model, engine.default_image_source)(
+            x_ts, x_static, engine.to_device(host, dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert {k: A.LAUNCHES[k] - before[k] for k in keys} == \
+                dict.fromkeys(keys, 2)
+        out[dev.type] = {k: v.detach().cpu().numpy() for k, v in res.items()}
+    for k, want in out["cpu"].items():
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(out["cuda"][k] - want).max()) <= 1e-4 * scale, k
+    px = out["cuda"]["px_input_grad"]
+    assert px[0] > 0 and (px[1:] == 0).all()
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

@@ -17,6 +17,9 @@ serving's ``--cxr_jpeg_root``, were waived until their items were done;
 each now reaches the configuration, the loop's arguments or the server's
 startup (``PORTED``). The P14 and P17 CLIs' flags each reach their loop's
 or their eval's arguments (``SUPERVISED_PORTED``, ``PREDICT_PORTED``).
+The analysis scripts of P19a take every flag of their JAX counterparts;
+the teacher's ``--grad_diag_every`` and ``--grad_diag_batches`` (waived
+until P19a) reach the loop's arguments.
 """
 from __future__ import annotations
 
@@ -27,6 +30,14 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_edema_prediction_tpu.analysis import (
+    complementarity as jax_complementarity,
+    diagnose_temporal_usage as jax_diagnose,
+    grad_flow_diagnostics as jax_grad_flow,
+    logit_fusion_probe as jax_logit_probe,
+    residual_by_confidence as jax_residual,
+    trajectory_availability as jax_trajectory,
+    unimodal_linear_probe as jax_unimodal, why_we_need_multimodal as jax_why)
 from multimodal_edema_prediction_tpu.cli import \
     finetune_mimic as jax_finetune
 from multimodal_edema_prediction_tpu.cli import predict as jax_predict
@@ -37,6 +48,10 @@ from multimodal_edema_prediction_tpu.cli import \
 from multimodal_edema_prediction_tpu.cli import train_ssl as jax_ssl
 from multimodal_edema_prediction_tpu.cli import train_student as jax_student
 from multimodal_edema_prediction_tpu.cli import train_teacher as jax_teacher
+from multimodal_edema_prediction_tpu_torch.analysis import (
+    complementarity, diagnose_temporal_usage, grad_flow_diagnostics,
+    logit_fusion_probe, residual_by_confidence, trajectory_availability,
+    unimodal_linear_probe, why_we_need_multimodal)
 from multimodal_edema_prediction_tpu_torch.cli import (finetune_mimic,
                                                        predict, serve,
                                                        train_cxr_head,
@@ -65,7 +80,16 @@ CLIS = {"train_teacher": (jax_teacher, train_teacher),
         "serve": (jax_serve, serve),
         "finetune_mimic": (jax_finetune, finetune_mimic),
         "train_physionet": (jax_physionet, train_physionet),
-        "predict": (jax_predict, predict)}
+        "predict": (jax_predict, predict),
+        # the analysis scripts of ROADMAP P19a
+        "trajectory_availability": (jax_trajectory, trajectory_availability),
+        "residual_by_confidence": (jax_residual, residual_by_confidence),
+        "complementarity": (jax_complementarity, complementarity),
+        "logit_fusion_probe": (jax_logit_probe, logit_fusion_probe),
+        "diagnose_temporal_usage": (jax_diagnose, diagnose_temporal_usage),
+        "unimodal_linear_probe": (jax_unimodal, unimodal_linear_probe),
+        "grad_flow_diagnostics": (jax_grad_flow, grad_flow_diagnostics),
+        "why_we_need_multimodal": (jax_why, why_we_need_multimodal)}
 # what a CLI needs before the flag under test (serve's and predict's --ckpt
 # and the student's --teacher_ckpt are required)
 REQUIRED = {"serve": ["--ckpt", "x.msgpack"],
@@ -78,16 +102,17 @@ _LOGGING = {"--log_every": "P20", "--wandb_project": "P20",
             "--wandb_run_name": "P20", "--wandb_disabled": "P20"}
 # JAX flag → the ROADMAP item that ports it
 WAIVERS = {
-    "train_teacher": {
-        **_LOGGING,
-        "--grad_diag_every": "P19", "--grad_diag_batches": "P19"},
+    "train_teacher": dict(_LOGGING),
     "train_ssl": dict(_LOGGING),
     "train_student": dict(_LOGGING),
     "train_cxr_head": {},
-    "serve": {"--data_parallel": "P17", "--aot_dir": "P17"},
+    "serve": {"--data_parallel": "P18", "--aot_dir": "P10"},
     "finetune_mimic": {"--wandb_project": "P20"},
     "train_physionet": {},
     "predict": {},
+    **{cli: {} for cli in CLIS if cli not in (
+        "train_teacher", "train_ssl", "train_student", "train_cxr_head",
+        "serve", "finetune_mimic", "train_physionet", "predict")},
 }
 
 
@@ -278,10 +303,14 @@ def test_eval_train_batches_on_the_cpu_teacher_loop(tmp_path, capsys):
     (["--hbm_image_budget_gb", "0.25"], {"hbm_image_budget_gb": 0.25}),
     (["--u8_store_path", "/s/u8"], {"u8_store_path": "/s/u8"}),
     (["--prefetch_depth", "0"], {"prefetch_depth": 0}),
-    (["--cxr_jpeg_root", "/j"], {"jpeg_store": "/j"})])
+    (["--cxr_jpeg_root", "/j"], {"jpeg_store": "/j"}),
+    # P19a: the loop's gradient-flow diagnostics
+    (["--grad_diag_every", "2"], {"grad_diag_every": 2}),
+    (["--grad_diag_batches", "3"], {"grad_diag_batches": 3})])
 def test_image_flags_reach_the_loop(argv, kw, monkeypatch, tmp_path):
     """Each P15 flag's value, given to the CLI, is what ``train_teacher``
-    is called with (the JPEG root as its ``JpegStore``'s root)."""
+    is called with (the JPEG root as its ``JpegStore``'s root); so are the
+    P19a flags ``--grad_diag_every`` and ``--grad_diag_batches``."""
     seen = {}
 
     class Stop(Exception):
