@@ -371,6 +371,21 @@ The supervised DuETT recipe (ROADMAP P14), the inference CLI and serving's
             cxr_head phase's head (G1 + G2 + G3 = G0). Each run's launches
             predicted and asserted (``analysis_run`` lines: wall seconds,
             the eval's samples/s, the bank build's seconds).
+27. analysis_b  the analysis suite's second half (ROADMAP P19b) on the
+            same cohort and teacher: the conditional-information probes
+            over the 7 labels on pixels (bf16), and on label 0 on pixels
+            and on ``--cxr_feature_cache hbm`` in float32 (the four
+            probes' AUROCs within ANALYSIS_TIER_TOL; a bank that hands
+            each image the next image's tokens beyond it); the raw
+            trajectory probe over the 7 labels; the figure suite with
+            ``--dim_reduce auto`` (UMAP) and ``tsne`` (both projections
+            and the token t-SNE finite, [N·K, 2] and [N, 2]; the CSVs);
+            the trajectory-encoder probe (d_model 128, 3 epochs: finite
+            AUROCs, no kernel launched, its checkpoint reloaded into the
+            port's probe reads the logged validation AUROC). Each run's
+            launches predicted and asserted (``analysis_b_run`` lines:
+            wall seconds, eval samples/s, the UMAP's and t-SNE's seconds,
+            the probe's steps/s).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 Then the run's total seconds on a line of their own.
@@ -551,9 +566,11 @@ def import_port():
         sys.path.insert(0, REPO)
     from multimodal_edema_prediction_tpu_torch import config, convert
     from multimodal_edema_prediction_tpu_torch.analysis import (
-        complementarity, diagnose_temporal_usage, grad_flow_diagnostics,
-        logit_fusion_probe, residual_by_confidence, trajectory_availability,
-        unimodal_linear_probe, why_we_need_multimodal)
+        complementarity, conditional_information_probe,
+        diagnose_temporal_usage, grad_flow_diagnostics, logit_fusion_probe,
+        raw_trajectory_conditional_probe, residual_by_confidence,
+        train_trajectory_probe, trajectory_availability, tsne, umap_impl,
+        unimodal_linear_probe, visualize_pathology, why_we_need_multimodal)
     from multimodal_edema_prediction_tpu_torch.analysis import \
         common as analysis_common
     from multimodal_edema_prediction_tpu_torch.cli import serve as cli_serve
@@ -573,7 +590,9 @@ def import_port():
                                                             sliding,
                                                             synthetic)
     from multimodal_edema_prediction_tpu_torch.models import (duett, student,
-                                                              teacher, vit)
+                                                              teacher,
+                                                              trajectory,
+                                                              vit)
     from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
                                                            dual_axis, gather,
                                                            jpeg, ln_qkv)
@@ -611,7 +630,14 @@ def import_port():
                 residual_by_confidence=residual_by_confidence,
                 trajectory_availability=trajectory_availability,
                 unimodal_linear_probe=unimodal_linear_probe,
-                why_we_need_multimodal=why_we_need_multimodal)
+                why_we_need_multimodal=why_we_need_multimodal,
+                conditional_information_probe=conditional_information_probe,
+                raw_trajectory_conditional_probe=(
+                    raw_trajectory_conditional_probe),
+                visualize_pathology=visualize_pathology, tsne=tsne,
+                umap_impl=umap_impl,
+                train_trajectory_probe=train_trajectory_probe,
+                trajectory=trajectory)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -4653,6 +4679,257 @@ def phase_analysis(port, device, frozen_ckpt: str, unfrozen_ckpt: str,
     return info
 
 
+def _next_image_rows(fs, ids_sorted):
+    """A feature source that hands each image the tokens of the next image
+    id of the bank (a wrong row that still names an image)."""
+    import torch
+    ids_dev = None
+
+    def source(batch: dict):
+        nonlocal ids_dev
+        ids = batch["image_ids"].long()
+        if ids_dev is None:
+            ids_dev = torch.as_tensor(ids_sorted, device=ids.device)
+        pos = torch.searchsorted(ids_dev, ids)
+        return fs({**batch, "image_ids": ids_dev[(pos + 1) % len(ids_dev)]})
+
+    return source
+
+
+def phase_analysis_b(port, device, frozen_ckpt: str, card: str = "") -> dict:
+    """The analysis suite's second half (ROADMAP P19b) at full width, each
+    script's ``main`` as a user runs it on the frozen ``dual_patch``
+    teacher of the train phases and ``phase_analysis``'s 400-stay cohort,
+    ``--n_perm 5 --n_boot 20``: ``conditional_information_probe`` over the
+    7 labels on pixels (bf16; both splits collected anew for each label,
+    as in JAX: K1 12 a batch of 64, 7 batches a label), then on label 0
+    in float32 on pixels, on ``--cxr_feature_cache hbm`` (K1's float32
+    forward 12 a chunk of 16 in the bank's build, then K2 2 a forward) and
+    on an ``hbm`` bank that hands each image the next image's tokens: the
+    four probes' AUROCs of the two tiers within ANALYSIS_TIER_TOL, the
+    wrong rows' beyond it; ``raw_trajectory_conditional_probe`` over the
+    7 labels (one collection of both splits); ``visualize_pathology``
+    with ``--dim_reduce auto`` (the port's UMAP: the kNN on the card, the
+    layout on the host) and ``tsne`` (the exact t-SNE on the card), its
+    projections finite and [N·K, 2], its token t-SNE [N, 2], its two CSVs
+    written (the card's host has no matplotlib); and
+    ``train_trajectory_probe`` at ``--d_model 128 --epochs 3`` (no kernel:
+    4 heads of 32 stay off the flash route), its AUROCs finite and its
+    checkpoint, reloaded into the port's probe, reading the logged
+    validation AUROC on the validation split (1e-6). Every run's launches
+    are predicted from the splits and asserted; each run prints its wall
+    seconds, its eval's samples/s, the bank build's seconds, the UMAP's
+    and t-SNE's seconds and the probe's steps/s."""
+    import math
+    import torch
+    from multimodal_edema_prediction_tpu_torch.ops import metrics as M
+    cm = port["analysis_common"]
+    out_root = os.path.join(REPO, "build", "chip_smoke_analysis_b")
+    shutil.rmtree(out_root, ignore_errors=True)
+    os.makedirs(out_root)
+    args = argparse_args(port, ANALYSIS_STAYS)
+    _, meta, data, _ = cm.load_analysis_data(args)
+    split = {k: len(v) for k, v in data.splits.items()}
+    ids_sorted = np.unique(data.anchor["image_ids"])
+    L = port["config"].ViTConfig().n_layers
+    K = len(port["config"].DataConfig().pathology_labels)
+    bank_chunks = math.ceil(len(ids_sorted) / 16)
+
+    def full_batches(name, bs=64):
+        n = split[name]
+        return 1 if 0 < n < bs else n // bs
+
+    per_label = full_batches("train") + full_batches("test")
+    viz_batches = min(full_batches("test"), 8)
+    f32 = port["attention"].launch_key
+    k1, k1f = "flash_attention", f32("flash_attention", torch.float32)
+    vz, ttp = port["visualize_pathology"], port["train_trajectory_probe"]
+    parts = {("conditional_information_probe", "collect_with_tokens"):
+             ("eval", lambda r: len(r["y"])),
+             ("raw_trajectory_conditional_probe", "collect"):
+             ("eval", lambda r: len(r[0])),
+             ("visualize_pathology", "_collect"):
+             ("eval", lambda r: len(r["y"])),
+             (port["umap_impl"].UMAP, "fit_transform"): ("umap", None),
+             (port["tsne"].TSNE, "fit_transform"): ("tsne", None),
+             ("train_trajectory_probe", "train_step"): ("step", None),
+             ("analysis_common", "load_teacher"): ("load", None),
+             (port["features"].CXRFeatureBank, "build"): ("build", None)}
+    base = ["--device", "cuda", "--synthetic_stays", ANALYSIS_STAYS,
+            "--n_boot", "20"]
+    cond = base + ["--ckpt", frozen_ckpt, "--n_perm", "5"]
+    hbm = ["--cxr_feature_cache", "hbm"]
+    plan = [
+        # (run, module, flags, float32, predicted launches)
+        ("conditional", "conditional_information_probe", cond, False,
+         {k1: L * K * per_label}),
+        ("conditional_f32", "conditional_information_probe",
+         cond + ["--label_idx", "0"], True, {k1f: L * per_label}),
+        ("conditional_hbm_f32", "conditional_information_probe",
+         cond + ["--label_idx", "0"] + hbm, True,
+         {k1f: L * bank_chunks, "gather_rows_bulk": 2 * per_label}),
+        ("conditional_hbm_f32_wrong_rows", "conditional_information_probe",
+         cond + ["--label_idx", "0"] + hbm, True,
+         {k1f: L * bank_chunks, "gather_rows_bulk": 2 * per_label}),
+        ("raw_trajectory", "raw_trajectory_conditional_probe",
+         cond, False, {k1: L * per_label}),
+        ("visualize_umap", "visualize_pathology",
+         base + ["--ckpt", frozen_ckpt, "--dim_reduce", "auto"], False,
+         {k1: L * viz_batches}),
+        ("visualize_tsne", "visualize_pathology",
+         base + ["--ckpt", frozen_ckpt, "--dim_reduce", "tsne"], False,
+         {k1: L * viz_batches}),
+        ("trajectory_probe", "train_trajectory_probe",
+         base + ["--d_model", "128", "--epochs", "3"], False, {}),
+    ]
+    runs, results = {}, {}
+    for run, mod, argv, fp32, want in plan:
+        out = os.path.join(out_root, run)
+        argv = argv + ["--out_dir", out]
+        main = port[mod].main
+        if fp32:
+            main = functools.partial(main, dtype=torch.float32)
+        orig = cm.make_sources
+        if run.endswith("_wrong_rows"):
+            def shifted_sources(*a, **k):
+                src, fs = orig(*a, **k)
+                return src, _next_image_rows(fs, ids_sorted)
+            cm.make_sources = shifted_sources
+        try:
+            r = _timed_main(port, main, argv, {
+                k: v for k, v in parts.items() if not isinstance(k[0], str)
+                or k[0] in (mod, "analysis_common")})
+        finally:
+            cm.make_sources = orig
+        p = r["parts"]
+        ev = p.get("eval", {"s": 0.0, "samples": 0})
+        step = p.get("step", {"s": 0.0, "calls": 0})
+        runs[run] = {
+            "wall_s": r["wall_s"], "load_s": p.get("load", {}).get("s", 0.0),
+            "build_s": p.get("build", {}).get("s"),
+            "eval_s": ev["s"], "eval_samples": ev["samples"],
+            "eval_samples_per_s": ev["samples"] / ev["s"] if ev["s"] else
+            None,
+            "umap_s": p.get("umap", {}).get("s"),
+            "umap_calls": p.get("umap", {}).get("calls", 0),
+            "tsne_s": p.get("tsne", {}).get("s"),
+            "tsne_calls": p.get("tsne", {}).get("calls", 0),
+            "steps": step["calls"],
+            "steps_per_s": step["calls"] / step["s"] if step["s"] else None,
+            "launches": r["launches"], "expected_launches": want,
+            "files": sorted(os.listdir(out)),
+            "peak_memory_bytes": r["peak_memory_bytes"]}
+        results[run] = r["result"]
+        emit({"phase": "analysis_b_run", "run": run, "card": card,
+              **runs[run]})
+    # the tiers: each probe's AUROC on label 0, float32
+    label0 = port["config"].DataConfig().pathology_labels[0]
+    aurocs = {run: {probe: results[run][label0][probe]["auroc"]
+                    for probe in port["conditional_information_probe"]
+                    .PROBES}
+              for run in ("conditional_f32", "conditional_hbm_f32",
+                          "conditional_hbm_f32_wrong_rows")}
+
+    def gap(a, b):
+        return max(abs(aurocs[a][k] - aurocs[b][k]) for k in aurocs[a])
+
+    tier_gap = gap("conditional_f32", "conditional_hbm_f32")
+    wrong_gap = gap("conditional_f32", "conditional_hbm_f32_wrong_rows")
+    # the embeddings (N: the samples of the figure suite's full batches),
+    # and the trajectory probe's checkpoint reloaded
+    bs = min(64, split["test"])
+    N = min(split["test"] - split["test"] % bs, 8 * bs)
+    shapes = {}
+    for run in ("visualize_umap", "visualize_tsne"):
+        res = results[run]
+        for kind, arrays, n in (("projection", res["projection"], N * K),
+                                ("token_embedding", res["token_embedding"],
+                                 N)):
+            for tag in ("raw", "centered"):
+                a = arrays.get(tag)
+                shapes[f"{run}:{kind}:{tag}"] = {
+                    "shape": None if a is None else list(a.shape),
+                    "finite": a is not None and bool(np.isfinite(a).all()),
+                    "want": [n, 2]}
+    traj = results["trajectory_probe"]
+    ck = os.path.join(out_root, "trajectory_probe", "trajectory_probe_best"
+                      ".msgpack")
+    with open(ck, "rb") as f:
+        tree = port["checkpoint"].msgpack_restore(f.read())
+    probe = port["convert"].load_flax(ttp.TrajectoryPathologyProbe(
+        meta.n_variables, data.n_timesteps, K, 128), tree).to(device)
+    idx = data.splits["val"]
+    with torch.no_grad():
+        logits = np.concatenate([probe(torch.as_tensor(
+            cm.gather_host_windows(data, idx[i:i + 64])[0],
+            device=device)).cpu().numpy() for i in range(0, len(idx), 64)])
+    reloaded_val = M.macro_mean(M.masked_multilabel_metrics(
+        data.anchor["y_multi"][idx], data.anchor["y_multi_mask"][idx],
+        {"ts": logits}), "ts_auroc")
+    info = {"phase": "analysis_b", "card": card, "stays": ANALYSIS_STAYS,
+            "splits": split, "n_images": len(ids_sorted),
+            "seconds": sum(r["wall_s"] for r in runs.values()),
+            "wall_s_by_run": {k: r["wall_s"] for k, r in runs.items()},
+            "eval_samples_per_s_by_run": {
+                k: r["eval_samples_per_s"] for k, r in runs.items()},
+            "build_s_by_run": {k: r["build_s"] for k, r in runs.items()
+                               if r["build_s"] is not None},
+            "umap_s_by_run": {k: r["umap_s"] for k, r in runs.items()
+                              if r["umap_s"] is not None},
+            "tsne_s_by_run": {k: r["tsne_s"] for k, r in runs.items()
+                              if r["tsne_s"] is not None},
+            "probe_steps_per_s": runs["trajectory_probe"]["steps_per_s"],
+            "launches_by_run": {k: r["launches"] for k, r in runs.items()},
+            "conditional_aurocs_label0": aurocs,
+            "conditional_tier_max_auroc_diff": tier_gap,
+            "conditional_wrong_rows_max_auroc_diff": wrong_gap,
+            "tol": ANALYSIS_TIER_TOL,
+            "evidence": {lab: {p: r[p].get("evidence") for p in r}
+                         for lab, r in results["conditional"].items()},
+            "raw_offset_logistic": {
+                lab: None if "skipped" in r else {
+                    k: r["offset_logistic"][k] for k in (
+                        "auroc", "selected_l2", "p_conditional_perm",
+                        "evidence")}
+                for lab, r in results["raw_trajectory"].items()},
+            "embeddings": shapes,
+            "trajectory_probe": {
+                "val_macro_auroc": traj["val_macro_auroc"],
+                "test_macro_auroc": traj["test_macro_auroc"],
+                "reloaded_val_macro_auroc": reloaded_val}}
+    emit(info)
+    info["runs"] = runs
+    shutil.rmtree(out_root, ignore_errors=True)
+    for run, r in runs.items():
+        want = {k: v for k, v in r["expected_launches"].items() if v}
+        if r["launches"] != want:
+            raise AssertionError(f"analysis_b {run} launched {r['launches']}"
+                                 f", expected {want}")
+    if not (tier_gap <= ANALYSIS_TIER_TOL < wrong_gap):
+        raise AssertionError(f"conditional probe tiers: {aurocs}")
+    if not all(v["finite"] and v["shape"] == v["want"]
+               for v in shapes.values()):
+        raise AssertionError(f"visualize_pathology embeddings: {shapes}")
+    for run in ("visualize_umap", "visualize_tsne"):
+        if not {"query_cosine.csv", "gap_summary.csv"} <= set(
+                runs[run]["files"]):
+            raise AssertionError(f"{run} wrote {runs[run]['files']}")
+    if not (np.isfinite(traj["val_macro_auroc"])
+            and np.isfinite(traj["test_macro_auroc"])
+            and abs(reloaded_val - traj["val_macro_auroc"]) <= 1e-6):
+        raise AssertionError(f"trajectory probe: {info['trajectory_probe']}")
+    grades = {"supported", "suggestive", "not_detected"}
+    main_raw = info["raw_offset_logistic"][label0]
+    if not (all(np.isfinite(v) for r in aurocs.values() for v in r.values())
+            and all(g in grades for r in info["evidence"].values()
+                    for p, g in r.items() if p != "image_cal")
+            and main_raw is not None and np.isfinite(main_raw["auroc"])
+            and main_raw["evidence"] in grades):
+        raise AssertionError(f"conditional probes: {aurocs}, "
+                             f"{info['evidence']}, raw {main_raw}")
+    return info
+
+
 def argparse_args(port, stays: str):
     """The analysis scripts' parsed default flags at ``stays``."""
     import argparse
@@ -5017,6 +5294,8 @@ def main() -> int:
     analysis = phase_analysis(port, device, train["teacher_ckpt"],
                               UNFREEZE_BEST, CXR_HEAD_BEST,
                               card=dev["nvidia_smi"])
+    analysis_b = phase_analysis_b(port, device, train["teacher_ckpt"],
+                                  card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -5052,7 +5331,9 @@ def main() -> int:
                 "single_kd": modes["single_kd"]["launches"][name],
                 **jpeg_by_path(name), **supervised_by_path(name),
                 "analysis": {run: r["launches"].get(name, 0)
-                             for run, r in analysis["runs"].items()}}
+                             for run, r in analysis["runs"].items()},
+                "analysis_b": {run: r["launches"].get(name, 0)
+                               for run, r in analysis_b["runs"].items()}}
 
     def supervised_by_path(name):
         return {"finetune": {way: r["launches"][name]

@@ -1,4 +1,4 @@
-"""The analysis suite: the shared machinery (``common.py``) and the scripts
-ported so far, each runnable as ``python -m
-multimodal_edema_prediction_tpu_torch.analysis.<name>``; the rest of the
-JAX package's ``analysis/`` is ROADMAP P19b."""
+"""The analysis suite: the shared machinery (``common.py``), the UMAP and
+t-SNE of the figure suite (``umap_impl.py``, ``tsne.py``) and every script
+of the JAX package's ``analysis/``, each runnable as ``python -m
+multimodal_edema_prediction_tpu_torch.analysis.<name>``."""

@@ -144,6 +144,24 @@ def gather_host_windows(anchor_ds, idx: np.ndarray
     return x_ts, static[rows]
 
 
+def window_batch(anchor_ds, idx: np.ndarray) -> Tuple[np.ndarray,
+                                                      np.ndarray, dict]:
+    """(x_ts, x_static, batch) of anchors ``idx`` for
+    ``engine.make_teacher_eval_from_windows``: the host windows and the
+    batch of image ids, labels and bin ends, through the dataset's pixel
+    hook where it has one (real JPEGs)."""
+    a = anchor_ds.anchor
+    x_ts, x_static = gather_host_windows(anchor_ds, idx)
+    batch = {"image_ids": a["image_ids"][idx].astype(np.int32),
+             "y_multi": a["y_multi"][idx],
+             "y_multi_mask": a["y_multi_mask"][idx],
+             "bin_ends": np.broadcast_to(anchor_ds.bin_ends,
+                                         (len(idx), anchor_ds.n_timesteps))}
+    if anchor_ds.batch_hook is not None:   # real-JPEG pixel hook
+        batch = anchor_ds.batch_hook(batch)
+    return x_ts, x_static, batch
+
+
 def different_subject_permutation(subject_ids: np.ndarray,
                                   rng: np.random.Generator) -> np.ndarray:
     """Within-batch permutation maximizing cross-subject pairing

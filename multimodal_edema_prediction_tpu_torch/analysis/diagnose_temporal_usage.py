@@ -35,9 +35,8 @@ import torch
 from ..ops import metrics as M
 from ..train import engine
 from .common import (add_analysis_flags, attention_entropy,
-                     different_subject_permutation, gather_host_windows,
-                     load_for_analysis, save_json,
-                     subject_cluster_bootstrap)
+                     different_subject_permutation, load_for_analysis,
+                     save_json, subject_cluster_bootstrap, window_batch)
 
 CONDITIONS = ("full", "patient_shuffle", "ts_shuffle", "time_reverse",
               "time_permute")
@@ -65,17 +64,8 @@ def collect_predictions(model, anchor_ds, split: str, batch_size: int,
         if max_batches and bi >= max_batches:
             break
         idx = idx_all[i:i + batch_size]
-        x_ts, x_static = gather_host_windows(anchor_ds, idx)
+        x_ts, x_static, batch = window_batch(anchor_ds, idx)
         sid = a["subject_ids"][idx]
-        batch = {
-            "image_ids": a["image_ids"][idx].astype(np.int32),
-            "y_multi": a["y_multi"][idx],
-            "y_multi_mask": a["y_multi_mask"][idx],
-            "bin_ends": np.broadcast_to(anchor_ds.bin_ends,
-                                        (len(idx), anchor_ds.n_timesteps)),
-        }
-        if anchor_ds.batch_hook is not None:   # real-JPEG pixel hook
-            batch = anchor_ds.batch_hook(batch)
         rng = np.random.default_rng(seed + 10007 * bi)
         perm = different_subject_permutation(sid, rng)
         same_subject += int(np.sum(sid[perm] == sid))

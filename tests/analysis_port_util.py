@@ -1,7 +1,8 @@
 """Shared fixtures of the analysis suite's port tests
-(tests/test_torch_analysis*.py, test_torch_grad_flow.py): tiny teacher
-checkpoints written by the JAX package, the flags both packages' scripts
-take, and a recursive comparison of two reports."""
+(tests/test_torch_analysis*.py, test_torch_grad_flow.py and the P19b
+files): tiny teacher checkpoints written by the JAX package, the flags
+both packages' scripts take, a recursive comparison of two reports, and
+the module fixture ``_one_thread`` the P19b files import."""
 from __future__ import annotations
 
 import functools
@@ -10,6 +11,8 @@ import math
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from multimodal_edema_prediction_tpu.config import TeacherConfig
 from multimodal_edema_prediction_tpu.models.teacher import TeacherModel as JT
@@ -19,6 +22,20 @@ from multimodal_edema_prediction_tpu.train.checkpoint import save_checkpoint
 from torch_port_util import perturb, tiny_teacher_cfg
 
 STAYS = "60"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One torch thread and one BLAS thread: the suite runs several test
+    processes on the host's cores at once, and the probes' many small
+    numpy products slow down by an order of magnitude when each process's
+    BLAS spins a thread per core."""
+    from threadpoolctl import threadpool_limits
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    with threadpool_limits(1):
+        yield
+    torch.set_num_threads(n)
 
 
 def write_teacher(path: str, freeze_cxr: bool = True,

@@ -21,7 +21,8 @@ step on the card against a CPU copy, losses 1e-4 relative and each student
 gradient 1e-4 of its max abs floored at 1e-2 of the largest gradient (a
 leaf whose exact gradient is 0 keeps only rounding noise); one float32
 gradient-flow diagnostics batch on the card against a CPU copy, each array
-1e-4 of its max abs.
+1e-4 of its max abs; the figure suite's kNN and t-SNE on the card against
+a CPU copy (``test_knn_and_tsne_on_the_card_match_a_cpu_copy``).
 """
 import numpy as np
 import pytest
@@ -1076,3 +1077,41 @@ def test_card_decoded_pixels_stay_on_the_card(cuda):
     bank = I.HBMImageBank(store, [9, 2, 5], 28, device=cuda)
     assert torch.equal(bank.bank, I.decode_batch_u8(
         [blobs[i] for i in (2, 5, 9)], 28))
+
+
+def test_knn_and_tsne_on_the_card_match_a_cpu_copy(cuda):
+    """The figure suite's embeddings on the card (the chip phase's 448
+    fusion tokens of width 256): the UMAP kNN's indices equal and its
+    float64 distances within 1e-12 of their max; t-SNE's P within 1e-9 of
+    its max (float64 exp and sums in another order), the PCA start within
+    1e-5 of its scale, and 200 iterations of the exaggerated descent from
+    one start within 1e-3 of the embedding's scale, the KL read within
+    1e-3 relative (float32 steps; the card sums in another order)."""
+    from multimodal_edema_prediction_tpu_torch.analysis import tsne as T
+    from multimodal_edema_prediction_tpu_torch.analysis import umap_impl as U
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(448, 256))
+         + 3 * rng.normal(size=(7, 256)).repeat(64, axis=0)).astype(
+        np.float32)
+    xc = torch.as_tensor(x, device=cuda)
+    i_c, d_c = U._knn(xc, 15)
+    i_h, d_h = U._knn(x, 15)
+    np.testing.assert_array_equal(i_c, i_h)
+    assert np.abs(d_c - d_h).max() <= 1e-12 * np.abs(d_h).max()
+    P_c = T.joint_probabilities(xc, 30.0)
+    P_h = T.joint_probabilities(torch.as_tensor(x), 30.0)
+    assert P_c.device.type == "cuda"
+    assert float((P_c.cpu() - P_h).abs().max()) <= 1e-9 * float(P_h.max())
+    Y_c, Y_h = T.pca_init(xc), T.pca_init(torch.as_tensor(x))
+    assert float((Y_c.cpu() - Y_h).abs().max()) <= 1e-5 * float(
+        Y_h.abs().max())
+    lr = max(448 / 12 / 4, 50.0)
+    out = {}
+    for dev, P in (("cuda", P_c), ("cpu", P_h)):
+        Y, kl, it = T.gradient_descent(Y_h.to(dev), P * 12.0, 0, 200, 0.5,
+                                       lr, 250)
+        out[dev] = (Y.cpu().numpy(), kl, it)
+    (Yc, klc, itc), (Yh, klh, ith) = out["cuda"], out["cpu"]
+    assert itc == ith == 199 and np.isfinite(Yc).all()
+    assert np.abs(Yc - Yh).max() <= 1e-3 * np.abs(Yh).max()
+    assert abs(klc - klh) <= 1e-3 * abs(klh)

@@ -17,7 +17,8 @@ serving's ``--cxr_jpeg_root``, were waived until their items were done;
 each now reaches the configuration, the loop's arguments or the server's
 startup (``PORTED``). The P14 and P17 CLIs' flags each reach their loop's
 or their eval's arguments (``SUPERVISED_PORTED``, ``PREDICT_PORTED``).
-The analysis scripts of P19a take every flag of their JAX counterparts;
+The analysis scripts of P19a and P19b take every flag of their JAX
+counterparts;
 the teacher's ``--grad_diag_every`` and ``--grad_diag_batches`` (waived
 until P19a) reach the loop's arguments.
 """
@@ -32,12 +33,16 @@ import torch
 
 from multimodal_edema_prediction_tpu.analysis import (
     complementarity as jax_complementarity,
+    conditional_information_probe as jax_conditional,
     diagnose_temporal_usage as jax_diagnose,
     grad_flow_diagnostics as jax_grad_flow,
     logit_fusion_probe as jax_logit_probe,
+    raw_trajectory_conditional_probe as jax_raw_probe,
     residual_by_confidence as jax_residual,
+    train_trajectory_probe as jax_trajectory_probe,
     trajectory_availability as jax_trajectory,
-    unimodal_linear_probe as jax_unimodal, why_we_need_multimodal as jax_why)
+    unimodal_linear_probe as jax_unimodal, visualize_pathology as jax_viz,
+    why_we_need_multimodal as jax_why)
 from multimodal_edema_prediction_tpu.cli import \
     finetune_mimic as jax_finetune
 from multimodal_edema_prediction_tpu.cli import predict as jax_predict
@@ -49,9 +54,11 @@ from multimodal_edema_prediction_tpu.cli import train_ssl as jax_ssl
 from multimodal_edema_prediction_tpu.cli import train_student as jax_student
 from multimodal_edema_prediction_tpu.cli import train_teacher as jax_teacher
 from multimodal_edema_prediction_tpu_torch.analysis import (
-    complementarity, diagnose_temporal_usage, grad_flow_diagnostics,
-    logit_fusion_probe, residual_by_confidence, trajectory_availability,
-    unimodal_linear_probe, why_we_need_multimodal)
+    complementarity, conditional_information_probe, diagnose_temporal_usage,
+    grad_flow_diagnostics, logit_fusion_probe,
+    raw_trajectory_conditional_probe, residual_by_confidence,
+    train_trajectory_probe, trajectory_availability, unimodal_linear_probe,
+    visualize_pathology, why_we_need_multimodal)
 from multimodal_edema_prediction_tpu_torch.cli import (finetune_mimic,
                                                        predict, serve,
                                                        train_cxr_head,
@@ -89,7 +96,15 @@ CLIS = {"train_teacher": (jax_teacher, train_teacher),
         "diagnose_temporal_usage": (jax_diagnose, diagnose_temporal_usage),
         "unimodal_linear_probe": (jax_unimodal, unimodal_linear_probe),
         "grad_flow_diagnostics": (jax_grad_flow, grad_flow_diagnostics),
-        "why_we_need_multimodal": (jax_why, why_we_need_multimodal)}
+        "why_we_need_multimodal": (jax_why, why_we_need_multimodal),
+        # ... and of P19b
+        "conditional_information_probe": (jax_conditional,
+                                          conditional_information_probe),
+        "raw_trajectory_conditional_probe": (
+            jax_raw_probe, raw_trajectory_conditional_probe),
+        "visualize_pathology": (jax_viz, visualize_pathology),
+        "train_trajectory_probe": (jax_trajectory_probe,
+                                   train_trajectory_probe)}
 # what a CLI needs before the flag under test (serve's and predict's --ckpt
 # and the student's --teacher_ckpt are required)
 REQUIRED = {"serve": ["--ckpt", "x.msgpack"],

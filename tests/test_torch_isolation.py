@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of it, and what
 ``chip_smoke.py`` imports, brings in neither JAX nor flax nor optax nor
 msgpack nor sklearn nor ml_dtypes nor PIL nor pandas nor the JAX package,
-nor matplotlib (which the analysis scripts import only to draw a figure),
+nor umap-learn, nor matplotlib or scipy (which the analysis scripts import
+only inside the functions that draw a figure or fit a probe),
 and no module of it loads the JAX package's native library; its entry points
 default to the card; and its kernel wrappers take their plain versions only
 for CPU tensors."""
@@ -23,9 +24,10 @@ from multimodal_edema_prediction_tpu_torch.ops import (attention, dual_axis,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
-             "ml_dtypes", "PIL", "pandas", "multimodal_edema_prediction_tpu")
+             "ml_dtypes", "PIL", "pandas", "umap",
+             "multimodal_edema_prediction_tpu")
 # imported inside a function only, never when a module is imported
-LAZY = ("matplotlib",)
+LAZY = ("matplotlib", "scipy")
 
 
 def _all_port_modules():
@@ -53,7 +55,12 @@ def test_imports_bring_in_no_jax():
                  "analysis.diagnose_temporal_usage",
                  "analysis.unimodal_linear_probe",
                  "analysis.grad_flow_diagnostics",
-                 "analysis.why_we_need_multimodal"):
+                 "analysis.why_we_need_multimodal", "models.trajectory",
+                 "analysis.train_trajectory_probe",
+                 "analysis.conditional_information_probe",
+                 "analysis.raw_trajectory_conditional_probe",
+                 "analysis.umap_impl", "analysis.tsne",
+                 "analysis.visualize_pathology"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
