@@ -320,7 +320,7 @@ prefetcher) add:
             the encode-once tier, each run's launches exactly as its steps,
             tier and decoder route make them; the teacher CLI without JPEGs
             (procedural pixels, and the encode-once tier) at
-            ``--prefetch_depth`` 0, 2, 2, 0 (losses bit-equal); each tier's
+            ``--prefetch_depth`` 0 and 2 (losses bit-equal); each tier's
             steady step and host feed, and a ``stream`` batch's feed at
             MIMIC size; one unfrozen step from the bank; the CXR head's CLI
             over the catalog's JPEGs; ``cli/serve``'s ``jpeg_root`` startup
@@ -386,6 +386,30 @@ The supervised DuETT recipe (ROADMAP P14), the inference CLI and serving's
             launches predicted and asserted (``analysis_b_run`` lines:
             wall seconds, eval samples/s, the UMAP's and t-SNE's seconds,
             the probe's steps/s).
+
+The opt-in extras (ROADMAP P20) add:
+
+28. int8  the int8 ops (``ops/int8.py``) at ViT-B's shapes (43,840
+            tokens; the q/k/v and output projections, both MLP layers,
+            bf16, one float32 case, one of fewer than 17 rows): codes,
+            scales and int32 accumulators equal the exact plain product,
+            outputs equal the op on that product, and the CPU plain
+            version of the first INT8_CPU_ROWS tokens gives the same codes
+            and scales (its output's gap reported); one [43,840 × 768] ×
+            [768 × 3,072] product, bf16 ``matmul`` against
+            ``torch._int_mm`` in alternation, the quantize pass and the
+            whole ``int8_dense``, with their bounds; the golden ViT-B/14
+            at 518² int8 against unquantized in float32 and bf16 (CLS
+            error under INT8_CLS_TOL of its max abs, cosine over
+            INT8_MIN_COS; K1 12 and 72 int8 products a forward); both
+            forwards at batch 32, timed in alternation and profiled under
+            ``utils/profiling.trace``; ``cli/train_teacher --vit_quant
+            int8`` on procedural pixels and on ``--cxr_feature_cache
+            hbm`` (1 epoch of 4 batches of 32; every kernel's launches and
+            the int8 products predicted and asserted, finite losses); the
+            pixel run's checkpoint served at buckets 1 and 8 (K1 12 a
+            batch), its fusion probabilities against the same weights
+            served unquantized beside a shifted-row control.
 
 Every phase line carries ``t_s``, the seconds since the script started.
 Then the run's total seconds on a line of their own.
@@ -595,7 +619,8 @@ def import_port():
                                                               vit)
     from multimodal_edema_prediction_tpu_torch.ops import (attention, build,
                                                            dual_axis, gather,
-                                                           jpeg, ln_qkv)
+                                                           int8, jpeg, ln_qkv,
+                                                           lupi_losses)
     from multimodal_edema_prediction_tpu_torch.serve import predictor, server
     from multimodal_edema_prediction_tpu_torch.train import (checkpoint,
                                                              cxr_head_loop,
@@ -605,8 +630,12 @@ def import_port():
                                                              optim, ssl_loop,
                                                              state,
                                                              teacher_loop)
-    from multimodal_edema_prediction_tpu_torch.utils import preemption
-    return dict(config=config, convert=convert, teacher=teacher, vit=vit,
+    from multimodal_edema_prediction_tpu_torch.utils import (logging,
+                                                             preemption,
+                                                             profiling)
+    return dict(int8=int8, lupi_losses=lupi_losses, logging=logging,
+                profiling=profiling, config=config, convert=convert,
+                teacher=teacher, vit=vit,
                 duett=duett, attention=attention, build=build, gather=gather,
                 dual_axis=dual_axis, ln_qkv=ln_qkv, predictor=predictor,
                 server=server, engine=engine, checkpoint=checkpoint,
@@ -1156,7 +1185,8 @@ def phase_f32_train(port, device, card: str = "") -> dict:
 # kernel's name holds (lower case) takes it, the rest fall to "other"
 FAMILIES = {"k1": ("flash_fwd", "flash_bwd"),
             "conv": ("conv", "implicit"),
-            "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_"),
+            "gemm": ("gemm", "xmma", "cutlass", "cublas", "sm90_", "sm80_",
+                     "nvjet"),
             "optimizer": ("multi_tensor", "foreach", "adam"),
             "reduce_or_norm": ("reduce", "norm", "softmax"),
             "copy_or_cast": ("copy", "memcpy", "memset", "cast"),
@@ -1720,6 +1750,7 @@ KERNEL_MODULES = ("attention", "gather", "dual_axis", "ln_qkv", "jpeg")
 def reset_counts(port) -> None:
     for name in KERNEL_MODULES:
         port[name].reset_launches()
+    port["int8"].reset_calls()
 
 
 def read_counts(port) -> dict:
@@ -2635,10 +2666,10 @@ def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
                        reps: int = 5) -> dict:
     """The ``dual`` teacher through ``cli/train_teacher.main --perceiver_type
     dual --pretrained_cxr_head_ckpt`` at full width (the default
-    ``TeacherConfig``, bf16), 240 stays, batch 32, 2 epochs: on the ``hbm``
+    ``TeacherConfig``, bf16), 240 stays, batch 32: 2 epochs on the ``hbm``
     tier (K2 once a train and eval step, the CLS bank alone; K1 in the bank
-    build only) and on the pixel tier (4 batches an epoch; K1 12 a train and
-    eval step). Every kernel's launches over exactly each run; finite
+    build only) and 1 epoch of 4 batches on the pixel tier (K1 12 a train
+    and eval step). Every kernel's launches over exactly each run; finite
     losses; the frozen head bit-equal to its checkpoint after training; the
     reloaded best checkpoint evaluates the val split as its loop did. Then
     the steady bf16 step of each tier on one batch of 32 (CUDA events,
@@ -2655,7 +2686,9 @@ def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
             "--pretrained_cxr_head_ckpt", head_ckpt, "--synthetic_stays",
             "240", "--batch_size", "32", "--epochs", "2"]
     ways = {"hbm": ["--cxr_feature_cache", "hbm"],
-            "pixels": ["--cxr_feature_cache", "none", "--limit_batches", "4"]}
+            # 1 epoch of 4 batches (cut from 2 for the time limit)
+            "pixels": ["--cxr_feature_cache", "none", "--limit_batches", "4",
+                       "--epochs", "1"]}
     runs, kept = {}, os.path.join(DUAL_RUNS, "teacher.msgpack")
     for way, extra in ways.items():
         argv = base + extra + ["--ckpt_dir", os.path.join(DUAL_RUNS, way)]
@@ -2815,6 +2848,7 @@ def _mode_run(port, device, argv: list, tier: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(port)
+    int8_calls = dict(port["int8"].CALLS)
     peak = torch.cuda.max_memory_allocated()
     ex = res.extras
     steps, evals = ex["n_train_steps"], ex["n_eval_steps"]
@@ -2843,7 +2877,7 @@ def _mode_run(port, device, argv: list, tier: str) -> dict:
             "reload_max_abs_diff": reload_diff,
             "reload_val_auroc": again["main_auroc"],
             "peak_memory_bytes": peak, "best_path": res.best_path,
-            "history": res.history}
+            "int8_calls": int8_calls, "history": res.history}
 
 
 def _flat(tree: dict, prefix: str = "") -> dict:
@@ -2858,8 +2892,9 @@ def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
     """The teacher's other modes and LP mode (ROADMAP P13) through
     ``cli/train_teacher.main`` at full width (the default ``TeacherConfig``:
     ViT-B/14 at 518, the default DuETT, the perceiver 256 × 4 heads; bf16;
-    240 stays, batch 32, 2 epochs): ``single`` and ``dual_patch_event`` on
-    ``hbm`` and on pixels (4 batches an epoch), ``legacy`` on pixels with
+    240 stays, batch 32, 1 epoch, 4 batches of it on pixels): ``single``
+    and ``dual_patch_event`` on ``hbm`` and on pixels, ``legacy`` on pixels
+    with
     its auxiliary CXR head (``--use_aux_cxr --aux_cxr_alpha 0.5``), and LP
     (``--lp_only_correction --lp_ckpt`` the ``dual_patch_event`` ``hbm``
     run's best) on ``hbm``. Each run: every kernel's launches exactly as
@@ -2879,8 +2914,9 @@ def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
     shutil.rmtree(MODES_RUNS, ignore_errors=True)
     os.makedirs(MODES_RUNS)
     seconds = {"start": time.perf_counter()}
+    # 1 epoch a run (cut from 2 to keep the script within its time limit)
     base = ["--device", "cuda", "--synthetic_stays", "240", "--batch_size",
-            "32", "--epochs", "2", "--no_save_state"]
+            "32", "--epochs", "1", "--no_save_state"]
     hbm = ["--cxr_feature_cache", "hbm"]
     pixels = ["--cxr_feature_cache", "none", "--limit_batches", "4"]
     kept = {m: os.path.join(MODES_RUNS, f"{m}.msgpack")
@@ -2933,9 +2969,16 @@ def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
     trn = cfgmod.TrainConfig(batch_size=32)
     lw = np.ones(7, np.float32)
 
+    inits = {}
+
     def model_of(mode, **kw):
-        return port["teacher"].init_teacher(cfgmod.TeacherConfig(
-            perceiver_type=mode, **kw), 0).to(device)
+        """A fresh copy of the mode's seed-0 teacher on the card (each
+        configuration initialized once on the host)."""
+        key = (mode, tuple(sorted(kw.items())))
+        if key not in inits:
+            inits[key] = port["teacher"].init_teacher(cfgmod.TeacherConfig(
+                perceiver_type=mode, **kw), 0).to(device)
+        return copy.deepcopy(inits[key])
 
     first = model_of("single")
     ids, pixels_for_ids = tl.pixels_for_ids_fn(data, hook)
@@ -2977,6 +3020,7 @@ def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
         del m, state, dev_batch
         torch.cuda.empty_cache()
     del bank, batches
+    inits.clear()
     torch.cuda.empty_cache()
     seconds["steady"] = time.perf_counter()
 
@@ -3091,13 +3135,14 @@ def _history_diff(a: list, b: list) -> float:
 def phase_resume(port, device, card: str = "") -> dict:
     """Resume and preemption of the ``dual_patch`` teacher at full width on
     the ``hbm`` tier through ``cli/train_teacher.main`` (240 stays, batch
-    32, 3 epochs of 4 batches, the full state saved every epoch by
-    default): an uninterrupted run and a second one (the control: what two
-    runs of the same tree differ by on the card); a run paused after one
-    epoch (``stop_after_epochs=1``), then ``--resume_dir`` to 3 epochs; and
-    the CLI as a subprocess with ``--no_save_state``, sent SIGTERM after
-    its first step's log line, which must save the state at the epoch
-    boundary and exit 0, then ``--resume_dir`` to 3 epochs. Each resumed
+    32, 2 epochs of 4 batches (cut from 3 for the time limit), the
+    full state saved every epoch by default): an uninterrupted run and a
+    second one (the control: what two runs of the same tree differ by on
+    the card); a run paused after one epoch (``stop_after_epochs=1``), then
+    ``--resume_dir`` to 2 epochs; and the CLI as a subprocess with
+    ``--no_save_state``, sent SIGTERM after its first step's log line,
+    which must save the state at the epoch boundary and exit 0, then
+    ``--resume_dir`` to 2 epochs. Each resumed
     history is held to RESUME_SPREAD_FACTOR × the control's difference
     (to equality when the control's is 0). Reports each save's seconds
     and the state file's bytes (the saves fall outside the train window
@@ -3109,7 +3154,7 @@ def phase_resume(port, device, card: str = "") -> dict:
     shutil.rmtree(RESUME_RUNS, ignore_errors=True)
     base = ["--device", "cuda", "--cxr_feature_cache", "hbm",
             "--synthetic_stays", "240", "--batch_size", "32", "--epochs",
-            "3", "--limit_batches", "4"]
+            "2", "--limit_batches", "4"]
 
     def cli(name, extra=(), **loop_kw):
         """The CLI; ``loop_kw`` (which it has no flag for) handed to the
@@ -3147,7 +3192,8 @@ def phase_resume(port, device, card: str = "") -> dict:
     try:
         for line in proc.stdout:
             lines.append(line.rstrip())
-            if t_sent is None and line.startswith("step 1 done"):
+            # the CLI's Logger prefixes each line with "[teacher +s] "
+            if t_sent is None and "] step 1 done" in line:
                 proc.send_signal(signal.SIGTERM)
                 t_sent = time.perf_counter()
         rc = proc.wait()
@@ -3160,7 +3206,7 @@ def phase_resume(port, device, card: str = "") -> dict:
     run_dirs = os.listdir(sig_root) if os.path.isdir(sig_root) else []
     sig_dir = os.path.join(sig_root, run_dirs[0]) if run_dirs else ""
     files = sorted(os.listdir(sig_dir)) if sig_dir else []
-    stopped = [ln for ln in lines if ln.startswith("SIGTERM/preemption")]
+    stopped = [ln for ln in lines if "] SIGTERM/preemption" in ln]
     sig_resumed = cli("sigterm_resume", ["--resume_dir", sig_dir]) \
         if rc == 0 and "train_state.meta.json" in files else None
 
@@ -3196,9 +3242,9 @@ def phase_resume(port, device, card: str = "") -> dict:
             "train_state.msgpack", "train_state.meta.json"} <= set(files):
         raise AssertionError(f"resume: the SIGTERM run did not save and "
                              f"exit 0: {info['sigterm']}")
-    if len(sig_resumed.history) != 3:
+    if len(sig_resumed.history) != 2:
         raise AssertionError("resume: the SIGTERM run's resume did not "
-                             "reach 3 epochs")
+                             "reach 2 epochs")
     if not max(diffs.values()) <= bound:
         raise AssertionError(f"resume: resumed histories {diffs} differ from "
                              f"the uninterrupted run by more than "
@@ -3506,8 +3552,8 @@ def _feed_ms(hook, host: dict, device, reps: int = 3) -> float:
 def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     """Real chest X-rays (ROADMAP P15) at full width: the default
     ``TeacherConfig`` (ViT-B/14 at 518, DuETT over 34 variables, bf16),
-    240 synthetic stays (405 images), batch 32, 2 epochs, their JPEGs
-    written by ``scripts/jpeg_fixtures.py``.
+    240 synthetic stays (405 images), batch 32, their JPEGs written by
+    ``scripts/jpeg_fixtures.py``.
 
     The host's decoder facts and the route taken; on the card route
     (nvJPEG + ``csrc/jpeg_resize.cu``) the golden rows within JPEG_LEVELS
@@ -3515,11 +3561,12 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     images/s of MIMIC-size files (1 and 4 threads, u8 and float32). The
     teacher CLI with ``--cxr_jpeg_root`` on each tier (the card's u8 bank,
     ``stream`` with prefetch depth 2 and 0, the disk u8 store built then
-    reopened: 4 batches an epoch; the encode-once tier: whole epochs), each
+    reopened: 4 batches; the encode-once tier: a whole epoch; 1 epoch a
+    run), each
     run's launches exactly as its steps, tier and route make them, the
     stream runs' losses bit-equal, the store's and the bank's too; the
     prefetcher's A/B without JPEGs (procedural pixels, the encode-once
-    tier: depth 0, 2, 2, 0, losses bit-equal); each tier's steady step
+    tier: depth 0 and 2, losses bit-equal); each tier's steady step
     (CUDA events, peak memory, ``torch.profiler``) and host feed, and the
     ``stream`` feed of 32 MIMIC-size files; one unfrozen step from the bank (K1's forward, D, dkv, dq
     12 each); the CXR head's CLI over the catalog's 775 JPEGs (K1's float32
@@ -3567,8 +3614,9 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
         port, device, [jstore.get(i) for i in anchor_ids[:32]])
     seconds["decoder"] = time.perf_counter()
 
+    # 1 epoch a run (cut from 2 to keep the script within its time limit)
     base = ["--device", "cuda", "--synthetic_stays", "240", "--batch_size",
-            "32", "--epochs", "2", "--no_save_state", "--cxr_jpeg_root",
+            "32", "--epochs", "1", "--no_save_state", "--cxr_jpeg_root",
             cohort]
     pixels = ["--limit_batches", "4"]
     store = os.path.join(JPEG_RUNS, "store", "u8")
@@ -3593,12 +3641,13 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     histories = {w: r.pop("history") for w, r in runs.items()}
     # the prefetcher where the pixels are not JPEGs: procedural pixels (a
     # numpy hook of ~0.5 s a batch) and the encode-once tier (host
-    # dispatch), each at depth 0, 2, 2, 0
+    # dispatch), each at depth 0 and 2 (cut from 0, 2, 2, 0 to keep the
+    # script within its time limit)
     plain = base[:base.index("--cxr_jpeg_root")]
     ab_runs = {}
     for way, extra in (("pixels", pixels),
                        ("features", ["--cxr_feature_cache", "hbm"])):
-        for k, depth in enumerate((0, 2, 2, 0)):
+        for k, depth in enumerate((0, 2)):
             run_dir = os.path.join(JPEG_RUNS, f"ab_{way}_{k}")
             r = _jpeg_cli_run(port, device, plain + extra + [
                 "--prefetch_depth", str(depth), "--ckpt_dir", run_dir],
@@ -4930,6 +4979,347 @@ def phase_analysis_b(port, device, frozen_ckpt: str, card: str = "") -> dict:
     return info
 
 
+INT8_RUNS = os.path.join(REPO, "build", "chip_smoke_int8")
+# the JAX package's own bounds for the int8 ViT (tests/test_int8.py:47-70):
+# the CLS token's error under 0.05 of its max abs, cosine over 0.999
+INT8_CLS_TOL = 0.05
+INT8_MIN_COS = 0.999
+PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
+# the CPU plain version of each op runs on this many token rows of the
+# card's input (quantization is per token, so rows are independent)
+INT8_CPU_ROWS = 256
+
+
+def _int8_op_case(port, device, name: str, kind: str, B: int, N: int,
+                  K: int, F: int, dtype, H: int = 12) -> dict:
+    """One op of ``ops/int8.py`` at a ViT-B shape on the card: its codes,
+    scales and int32 accumulators against the plain product on the card
+    (exactly), its output against the op with the plain product (exactly)
+    and against the CPU plain version of the first INT8_CPU_ROWS tokens
+    (codes and scales exactly; the output's gap reported)."""
+    import torch
+    I = port["int8"]
+    g = torch.Generator(device=device).manual_seed(len(name))
+    w = torch.randn(F, K, generator=g, device=device) * K ** -0.5
+    b = torch.randn(F, generator=g, device=device) * 0.02
+    if kind == "out_bhnk":      # [B, H, N, dh], a view of [B, N, H, dh]
+        x = torch.randn(B, N, H, K // H, generator=g, device=device) \
+            .to(dtype).transpose(1, 2)
+        rows = x.transpose(1, 2).reshape(B * N, K)
+    else:
+        x = torch.randn(B, N, K, generator=g, device=device).to(dtype)
+        rows = x.reshape(B * N, K)
+    fn = {"dense": lambda x, mm: I.int8_dense(x, w, b, mm=mm),
+          "proj_bhnk": lambda x, mm: I.int8_proj_bhnk(x, w, b, H, F // H,
+                                                      mm=mm),
+          "out_bhnk": lambda x, mm: I.int8_out_bhnk(x, w, b, mm=mm)}[kind]
+    xq, sx = I.quantize_rows(rows)
+    wq, sw = I.quantize_rows(w)
+    acc = I.int_mm(xq, wq.t())
+    acc_equal = torch.equal(acc, I.int_mm_reference(xq, wq.t()))
+    out = fn(x, I.int_mm)
+    out_equal = torch.equal(out, fn(x, I.int_mm_reference))
+    # the CPU plain version on the first tokens of the first image
+    n = min(INT8_CPU_ROWS, N)
+    cpu_x = (x[:1, :, :n] if kind == "out_bhnk" else x[:1, :n]).cpu()
+    cpu_w, cpu_b = w.cpu(), b.cpu()
+    cpu_fn = {"dense": lambda: I.int8_dense_reference(cpu_x, cpu_w, cpu_b),
+              "proj_bhnk": lambda: I.int8_proj_bhnk_reference(
+                  cpu_x, cpu_w, cpu_b, H, F // H),
+              "out_bhnk": lambda: I.int8_out_bhnk_reference(
+                  cpu_x, cpu_w, cpu_b)}[kind]
+    cpu_out = cpu_fn()
+    card_out = (out[:1, :, :n] if kind == "proj_bhnk" else out[:1, :n]).cpu()
+    cq, cs = I.quantize_rows(rows[:n].cpu())
+    cwq, cws = I.quantize_rows(cpu_w)
+    codes_equal = torch.equal(cq, xq[:n].cpu()) and torch.equal(
+        cs, sx[:n].cpu()) and torch.equal(cwq, wq.cpu()) and torch.equal(
+        cws, sw.cpu())
+    gap = (card_out.float() - cpu_out.float()).abs()
+    info = {"case": f"{name} {kind} [{B}, {N}, {K}] -> {F}, "
+                    f"{str(dtype).split('.')[-1]}",
+            "acc_equal": acc_equal, "out_equal_plain": out_equal,
+            "codes_scales_equal_cpu": codes_equal,
+            "cpu_bit_equal": bool(torch.equal(card_out, cpu_out)),
+            "cpu_max_abs_err": float(gap.max()),
+            "cpu_elements_differing": int((gap != 0).sum()),
+            "acc_max_abs": int(acc.abs().max())}
+    if not (acc_equal and out_equal and codes_equal):
+        raise AssertionError(f"int8 op {name} disagrees with its plain "
+                             f"version: {info}")
+    return info
+
+
+def _int8_gemm_times(port, device, M: int = 32 * 1370, K: int = 768,
+                     N: int = 3072) -> dict:
+    """One [M × K] × [K × N] product: bf16 ``torch.matmul`` against
+    ``torch._int_mm`` on int8 codes, timed in alternation; the quantize
+    pass alone; the whole ``int8_dense`` against ``F.linear`` in bf16; each
+    with its bound (989 TFLOP/s bf16, 1,979 TOPS int8, 3.35 TB/s)."""
+    import torch
+    import torch.nn.functional as F
+    I = port["int8"]
+    g = torch.Generator(device=device).manual_seed(0)
+    x = torch.randn(M, K, generator=g, device=device).bfloat16()
+    w = torch.randn(N, K, generator=g, device=device) * K ** -0.5
+    wb = w.bfloat16()
+    xq, _ = I.quantize_rows(x)
+    wq, _ = I.quantize_rows(w)
+    wqt = wq.t()
+    mm_bf16, mm_int8 = paired_ms([lambda: torch.matmul(x, wb.t()),
+                                  lambda: torch._int_mm(xq, wqt)], device)
+    dense_bf16, dense_int8 = paired_ms(
+        [lambda: F.linear(x, wb), lambda: I.int8_dense(x, w)], device)
+    quant = device_ms(lambda: I.quantize_rows(x), device)
+    ops = 2.0 * M * K * N
+    return {"case": f"[{M} x {K}] x [{K} x {N}]",
+            "bf16_matmul_ms": mm_bf16, "int_mm_ms": mm_int8,
+            "int_mm_vs_bf16": mm_int8 / mm_bf16,
+            "bf16_bound_ms": max(ops / PEAK_BF16_FLOPS,
+                                 (M * K + K * N + M * N) * 2 / PEAK_BYTES)
+            * 1e3,
+            "int_mm_bound_ms": max(ops / PEAK_INT8_OPS,
+                                   (M * K + K * N + 4 * M * N) / PEAK_BYTES)
+            * 1e3,
+            "quantize_ms": quant,
+            "quantize_bound_ms": (M * K * 2 + M * K + 4 * M) / PEAK_BYTES
+            * 1e3,
+            "dense_bf16_ms": dense_bf16, "int8_dense_ms": dense_int8,
+            "int8_dense_vs_bf16": dense_int8 / dense_bf16}
+
+
+def _device_families(prof) -> dict:
+    """Device time (ms) of one profiled forward by family (``FAMILIES``),
+    and its heaviest kernels."""
+    rows = sorted([(e.device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if getattr(e.device_type, "name", "") == "CUDA"
+                   and e.device_time_total > 0], reverse=True)
+    if not rows:
+        return {"device_time": "not measured (no device events)"}
+    fam = dict.fromkeys([*FAMILIES, "other"], 0.0)
+    for us, k, _ in rows:
+        name = next((f for f, subs in FAMILIES.items()
+                     if any(x in k.lower() for x in subs)), "other")
+        fam[name] += us / 1e3
+    return {"device_busy_ms": sum(r[0] for r in rows) / 1e3,
+            "by_family_ms": fam,
+            "top_kernels": [{"name": k[:90], "ms": us / 1e3, "launches": c}
+                            for us, k, c in rows[:10]]}
+
+
+def vit_forward_bound_ms(cfg, B: int, int8: bool) -> float:
+    """The least time of one ViT forward: its products at the card's peak
+    rate (the blocks' GEMMs at the int8 rate when quantized, attention and
+    the patch embedding at the bf16 rate); the bytes are far below."""
+    d, ff, L = cfg.d_model, cfg.d_feedforward, cfg.n_layers
+    n = cfg.n_patches + 1
+    gemm = 2.0 * B * n * (4 * d * d + 2 * d * ff) * L
+    attn = 4.0 * B * cfg.n_heads * n * n * (d // cfg.n_heads) * L
+    embed = 2.0 * B * cfg.n_patches * cfg.patch_size ** 2 * 3 * d
+    return ((gemm / (PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS))
+            + (attn + embed) / PEAK_BF16_FLOPS) * 1e3
+
+
+def _int8_vits(port, device, cfg) -> dict:
+    """The golden ViT-B/14 at 518² (``golden_vit_state``) with and without
+    int8 products, in float32 and bf16: the CLS token within JAX's bounds,
+    K1 12 times and 72 int8 products a quantized forward; then both
+    forwards at batch 32 in bf16, timed in alternation, and one of each
+    under ``utils/profiling.trace``."""
+    import torch
+    vit, att, I = port["vit"], port["attention"], port["int8"]
+    sd = vit.convert_hf_dinov2(golden_vit_state(cfg), cfg)
+    models = {}
+    for quant in ("none", "int8"):
+        m = vit.DinoViT(cfg.replace(quant=quant))
+        m.load_state_dict(sd, strict=True)
+        models[quant] = m.to(device).eval()
+    S = cfg.image_size
+    px = torch.from_numpy(np.linspace(0, 1, 2 * S * S * 3, dtype=np.float32)
+                          .reshape(2, S, S, 3) * 0.8 + 0.1).to(device)
+    out = {}
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            cls_f, _ = models["none"](px.to(dtype))
+            att.reset_launches()
+            I.reset_calls()
+            cls_q, patch_q = models["int8"](px.to(dtype))
+            torch.cuda.synchronize()
+            k1 = att.LAUNCHES[att.launch_key("flash_attention", dtype)]
+            cls_f, cls_q = cls_f.float(), cls_q.float()
+            err = float((cls_q - cls_f).abs().max() / cls_f.abs().max())
+            cos = float((cls_q * cls_f).sum() / (cls_q.norm() * cls_f.norm()))
+            name = str(dtype).split(".")[-1]
+            out[name] = {"cls_rel_err": err, "cls_cosine": cos,
+                         "k1_launches": k1,
+                         "int_mm_calls": I.CALLS["int_mm"],
+                         "finite": bool(torch.isfinite(patch_q).all())}
+            if not (err < INT8_CLS_TOL and cos > INT8_MIN_COS
+                    and out[name]["finite"]):
+                raise AssertionError(f"int8 ViT-B ({name}) outside JAX's "
+                                     f"bounds: {out[name]}")
+            if k1 != cfg.n_layers or I.CALLS["int_mm"] != 6 * cfg.n_layers:
+                raise AssertionError(f"int8 ViT-B ({name}) launched K1 {k1} "
+                                     f"times and {I.CALLS['int_mm']} int8 "
+                                     f"products, expected {cfg.n_layers} "
+                                     f"and {6 * cfg.n_layers}")
+        B = 32
+        g = torch.Generator(device=device).manual_seed(0)
+        px32 = torch.randn(B, S, S, 3, generator=g, device=device).bfloat16()
+        bf16_ms, int8_ms = paired_ms(
+            [lambda: models["none"](px32), lambda: models["int8"](px32)],
+            device, reps=5, inner=1)
+        profiles = {}
+        for quant in ("none", "int8"):
+            trace_dir = os.path.join(INT8_RUNS, f"trace_{quant}")
+            with port["profiling"].trace(trace_dir) as prof:
+                models[quant](px32)
+                torch.cuda.synchronize()
+            profiles[quant] = _device_families(prof)
+    fam_q = profiles["int8"].get("by_family_ms", {})
+    fam_f = profiles["none"].get("by_family_ms", {})
+    passes = ("elementwise", "reduce_or_norm", "copy_or_cast")
+    out["batch32_bf16"] = {
+        "bf16_ms": bf16_ms, "int8_ms": int8_ms,
+        "int8_vs_bf16": int8_ms / bf16_ms,
+        "bf16_bound_ms": vit_forward_bound_ms(cfg, B, False),
+        "int8_bound_ms": vit_forward_bound_ms(cfg, B, True),
+        "profile_bf16": profiles["none"], "profile_int8": profiles["int8"],
+        # what the int8 forward spends outside GEMMs and K1 beyond the bf16
+        # one: the quantize and dequantize passes
+        "quant_dequant_ms": (sum(fam_q.get(f, 0.0) for f in passes)
+                             - sum(fam_f.get(f, 0.0) for f in passes))}
+    return out
+
+
+def _int8_serve(port, device, ckpt: str, seed: int = 0) -> dict:
+    """The int8 checkpoint through the predictor: one request (bucket 1),
+    then 8 at once (bucket 8), K1 12 a batch; the fusion probabilities
+    against the same weights served unquantized, beside a control that
+    pairs each with another request's."""
+    import torch
+    att = port["attention"]
+    cfg = None
+    preds = {}
+    for quant in ("int8", "none"):
+        model, cfg, _ = port["checkpoint"].load_teacher_from_ckpt(ckpt,
+                                                                  device)
+        if quant == "none":
+            for m in model.cxr.modules():
+                if hasattr(m, "quant"):
+                    m.quant = "none"
+        pred = port["predictor"].BatchingPredictor(
+            model, max_batch=8, max_wait_ms=200.0, dtype=torch.bfloat16,
+            device=device)
+        d, S = cfg.duett, cfg.vit.image_size
+        rng = np.random.default_rng(seed)
+        reqs = [{"x_ts": np.concatenate(
+                    [rng.normal(size=(d.n_timesteps, d.n_variables)),
+                     rng.integers(-1, 4, size=(d.n_timesteps,
+                                               d.n_variables))],
+                    -1).astype(np.float32),
+                 "static": rng.normal(size=d.d_static).astype(np.float32),
+                 "pixel_u8": rng.integers(0, 256, (S, S, 3), np.uint8)}
+                for _ in range(9)]
+        pred.warmup(reqs[0])
+        pred.start()
+        try:
+            torch.cuda.synchronize()
+            att.reset_launches()
+            first = pred.predict(reqs[0])
+            futures = [pred.submit(r) for r in reqs[1:]]
+            rest = [f.result(timeout=300) for f in futures]
+            torch.cuda.synchronize()
+            stats = pred.stats()
+        finally:
+            pred.close()
+        preds[quant] = {
+            "probs": np.asarray([r["probabilities"]
+                                 for r in [first] + rest], np.float64),
+            "k1_launches": att.LAUNCHES["flash_attention"],
+            "batches": stats["n_batches"],
+            "batch_size_hist": stats["batch_size_hist"]}
+        del model, pred
+    q, f = preds["int8"]["probs"], preds["none"]["probs"]
+    info = {"requests": len(q),
+            "batch_size_hist": preds["int8"]["batch_size_hist"],
+            "k1_launches": preds["int8"]["k1_launches"],
+            "batches": preds["int8"]["batches"],
+            "fusion_prob_gap_vs_unquantized": float(np.abs(q - f).max()),
+            "shuffled_row_control": float(np.abs(
+                q - np.roll(f, 1, axis=0)).max())}
+    if not np.isfinite(q).all():
+        raise AssertionError(f"int8 serving gave non-finite probabilities")
+    if info["k1_launches"] != cfg.vit.n_layers * info["batches"] \
+            or info["batch_size_hist"] != {1: 1, 8: 1}:
+        raise AssertionError(f"int8 serving: {info}, expected one batch of "
+                             f"1 and one of 8, K1 12 a batch")
+    return info
+
+
+def phase_int8(port, device, card: str = "") -> dict:
+    """The int8 branch (ROADMAP P20): the ops at ViT-B's shapes against
+    their plain versions, the GEMM's and the quantize pass's times, the
+    golden ViT-B int8 against unquantized (JAX's bounds, K1 and int8
+    launches), both forwards timed and profiled, the teacher CLI with
+    ``--vit_quant int8`` on procedural pixels and on the encode-once tier
+    (launches as predicted, finite losses), and the int8 checkpoint
+    served."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    t0 = time.perf_counter()
+    shutil.rmtree(INT8_RUNS, ignore_errors=True)
+    B, N = 32, 1370
+    ops = [_int8_op_case(port, device, *case) for case in (
+        ("qkv", "proj_bhnk", B, N, 768, 768, bf16),
+        ("attn_out", "out_bhnk", B, N, 768, 768, bf16),
+        ("mlp_in", "dense", B, N, 768, 3072, bf16),
+        ("mlp_out", "dense", B, N, 3072, 768, bf16),
+        ("mlp_in_f32", "dense", 2, N, 768, 3072, f32),
+        # fewer than 17 rows: padded with zero rows on the card
+        ("serve_cls", "dense", 1, 5, 768, 768, bf16))]
+    gemm = _int8_gemm_times(port, device)
+    vits = _int8_vits(port, device, port["config"].ViTConfig())
+    torch.cuda.empty_cache()
+    base = ["--device", "cuda", "--vit_quant", "int8", "--synthetic_stays",
+            "240", "--batch_size", "32", "--epochs", "1", "--limit_batches",
+            "4", "--warmup_steps", "2", "--no_save_state"]
+    runs = {}
+    for tier in ("pixels", "hbm"):
+        argv = base + ["--ckpt_dir", os.path.join(INT8_RUNS, tier)] + (
+            ["--cxr_feature_cache", "hbm"] if tier == "hbm" else [])
+        r = _mode_run(port, device, argv, tier)
+        n_vit = r["expected_launches"]["flash_attention"] // 12
+        r["expected_int8_calls"] = 6 * 12 * n_vit
+        runs[tier] = r
+    serve = _int8_serve(port, device, runs["pixels"]["best_path"])
+    info = {"phase": "int8", "card": card, "ops": ops, "gemm": gemm,
+            "vit": vits, "serve": serve,
+            "runs": {t: {k: v for k, v in r.items()
+                         if k not in ("history", "best_path")}
+                     for t, r in runs.items()},
+            "seconds": time.perf_counter() - t0}
+    emit(info)
+    for tier, r in runs.items():
+        if r["launches"] != r["expected_launches"] or \
+                r["int8_calls"]["int_mm"] != r["expected_int8_calls"]:
+            raise AssertionError(
+                f"int8 {tier} run launched {r['launches']} and "
+                f"{r['int8_calls']} int8 products, expected "
+                f"{r['expected_launches']} and {r['expected_int8_calls']}")
+        if not all(np.isfinite(x) for x in r["epoch_losses"]):
+            raise AssertionError(f"int8 {tier} run: non-finite losses "
+                                 f"{r['epoch_losses']}")
+        if r["reload_max_abs_diff"] > SERVE_TOL:
+            raise AssertionError(f"int8 {tier} run: the reloaded best "
+                                 f"checkpoint evaluates differently "
+                                 f"({r['reload_max_abs_diff']})")
+    shutil.rmtree(os.path.join(INT8_RUNS, "pixels"), ignore_errors=True)
+    shutil.rmtree(os.path.join(INT8_RUNS, "hbm"), ignore_errors=True)
+    return info
+
+
 def argparse_args(port, stays: str):
     """The analysis scripts' parsed default flags at ``stays``."""
     import argparse
@@ -5296,6 +5686,7 @@ def main() -> int:
                               card=dev["nvidia_smi"])
     analysis_b = phase_analysis_b(port, device, train["teacher_ckpt"],
                                   card=dev["nvidia_smi"])
+    int8 = phase_int8(port, device, card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -5333,7 +5724,11 @@ def main() -> int:
                 "analysis": {run: r["launches"].get(name, 0)
                              for run, r in analysis["runs"].items()},
                 "analysis_b": {run: r["launches"].get(name, 0)
-                               for run, r in analysis_b["runs"].items()}}
+                               for run, r in analysis_b["runs"].items()},
+                "int8": {**{run: r["launches"].get(name, 0)
+                            for run, r in int8["runs"].items()},
+                         "serve": int8["serve"]["k1_launches"]
+                         if name == "flash_attention" else 0}}
 
     def supervised_by_path(name):
         return {"finetune": {way: r["launches"][name]

@@ -10,10 +10,12 @@ in the JAX CLIs). ``--device`` (default ``cuda``) picks where training
 runs.
 
 Every flag of the JAX CLIs parses here. The flags of what is not ported yet
-(``COMMON_QUEUED`` and each CLI's own table) have no default, so a parsed
-attribute means the flag was given, and ``refuse_queued_flags`` raises
-``NotImplementedError`` naming its ROADMAP item before any data, model or
-device work.
+(a CLI's own table) have no default, so a parsed attribute means the flag
+was given, and ``refuse_queued_flags`` raises ``NotImplementedError``
+naming its ROADMAP item before any data, model or device work.
+``--wandb_project`` (unless ``--wandb_disabled``) and ``--wandb_run_name``
+go to the CLI's ``utils/logging.Logger``; ``--log_every`` to
+``TrainConfig.log_every``.
 """
 from __future__ import annotations
 
@@ -26,20 +28,12 @@ from ..data import pipeline as P
 from ..data import synthetic as S
 
 
-# JAX flags whose feature is not ported yet → their ROADMAP item
-COMMON_QUEUED = {"--log_every": "P20", "--wandb_project": "P20",
-                 "--wandb_run_name": "P20", "--wandb_disabled": "P20"}
-# the queued flags that take no value (store_true in the JAX CLIs)
-_SWITCHES = ("--wandb_disabled",)
-
-
 def add_queued_flags(p: argparse.ArgumentParser, queued: dict) -> None:
     """Parse the flags of ``queued`` ({flag: ROADMAP item}) with no default:
     the parsed args carry one only if it was given."""
     for flag, item in queued.items():
-        kw = {"action": "store_true"} if flag in _SWITCHES else {}
         p.add_argument(flag, default=argparse.SUPPRESS,
-                       help=f"not ported yet (ROADMAP {item}); refused", **kw)
+                       help=f"not ported yet (ROADMAP {item}); refused")
 
 
 def refuse_queued_flags(args, *tables: dict) -> None:
@@ -87,6 +81,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--patience", type=int, default=5)
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--limit_batches", type=int, default=0)
+    p.add_argument("--log_every", type=int, default=20,
+                   help="per-step wandb scalar cadence (only with a live "
+                        "wandb sink: the default path has no per-step host "
+                        "sync)")
     p.add_argument("--eval_train_batches", type=int, default=0,
                    help="teacher: evaluate this many train batches after "
                         "each epoch and print their gap table")
@@ -96,6 +94,10 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
                    help="K optimizer steps per dispatch: only 1 is ported "
                         "(ROADMAP P10)")
     p.add_argument("--ckpt_dir", type=str, default="runs")
+    p.add_argument("--wandb_project", type=str, default="")
+    p.add_argument("--wandb_run_name", type=str, default="")
+    p.add_argument("--wandb_disabled", action="store_true",
+                   help="force wandb off even if --wandb_project is set")
     # loss alphas
     p.add_argument("--aux_img_alpha", type=float, default=0.5)
     p.add_argument("--aux_ts_alpha", type=float, default=0.5)
@@ -103,7 +105,14 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--aux_residual_alpha", type=float, default=0.0)
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
-    add_queued_flags(p, COMMON_QUEUED)
+
+
+def wandb_project(args):
+    """The wandb project, or None under ``--wandb_disabled`` (JAX
+    ``cli/common.py:80-84``)."""
+    if getattr(args, "wandb_disabled", False):
+        return None
+    return args.wandb_project or None
 
 
 def configs_from_args(args) -> tuple:
@@ -130,6 +139,7 @@ def configs_from_args(args) -> tuple:
         limit_batches=args.limit_batches,
         eval_train_batches=args.eval_train_batches,
         dtype="bfloat16" if args.mixed_precision == "bf16" else "float32",
+        log_every=args.log_every,
         alpha_img=args.aux_img_alpha, alpha_ts=args.aux_ts_alpha,
         alpha_fus=args.aux_fus_alpha,
         aux_residual_alpha=args.aux_residual_alpha,

@@ -12,7 +12,8 @@ several seeds, the top-k checkpoints of each by val AUPRC under
 weights, and mean ± std across seeds (``train/finetune_loop.
 finetune_duett``), on an ingested cohort (``--data_dir``) or the synthetic
 default. A SIGTERM or SIGUSR1 is taken by the port's preemption handler, as
-in the JAX CLI. ``--wandb_project`` (P20) is not ported and raises.
+in the JAX CLI. ``--wandb_project`` names the wandb project of its
+``Logger`` (off by default; wandb is imported only then).
 """
 from __future__ import annotations
 
@@ -23,11 +24,8 @@ from ..data import pipeline as P
 from ..data import synthetic as S
 from ..data.sliding import build_stay_label_dataset
 from ..train.finetune_loop import finetune_duett
-from ..utils import console_logger
-from .common import add_queued_flags, refuse_queued_flags
-
-# JAX flags whose feature is not ported yet → their ROADMAP item
-QUEUED_FLAGS = {"--wandb_project": "P20"}
+from ..utils.logging import Logger
+from .common import wandb_project
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -57,19 +55,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt_dir", type=str, default="runs/finetune_mimic")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
-    add_queued_flags(p, QUEUED_FLAGS)
+    p.add_argument("--wandb_project", type=str, default="")
     return p
 
 
 def main(argv=None, extras: dict = None):
     """Returns the summary; ``extras`` as ``finetune_duett`` takes it."""
     args = build_parser().parse_args(argv)
-    refuse_queued_flags(args, QUEUED_FLAGS)
 
     from ..utils import preemption
     preemption.install_handler()
 
-    log = console_logger("finetune_mimic")
+    logger = Logger("finetune_mimic", wandb_project(args))
     dcfg = DataConfig(n_timesteps=args.n_timesteps, data_dir=args.data_dir)
     if args.data_dir:
         from ..data.ingest import load_artifacts
@@ -91,10 +88,13 @@ def main(argv=None, extras: dict = None):
         dtype="bfloat16" if args.mixed_precision == "bf16" else "float32",
         optim=OptimConfig(lr=args.lr, weight_decay=args.weight_decay,
                           warmup_steps=args.warmup_steps))
-    return finetune_duett(ft_ds, duett, cfg, args.ckpt_dir,
-                          ssl_ckpt=args.ssl_ckpt or None,
-                          seeds=tuple(args.seeds), top_k=args.top_k,
-                          device=args.device, log=log, extras=extras)
+    summary = finetune_duett(ft_ds, duett, cfg, args.ckpt_dir,
+                            ssl_ckpt=args.ssl_ckpt or None,
+                            seeds=tuple(args.seeds), top_k=args.top_k,
+                            device=args.device, log=logger.info,
+                            extras=extras)
+    logger.finish()
+    return summary
 
 
 if __name__ == "__main__":

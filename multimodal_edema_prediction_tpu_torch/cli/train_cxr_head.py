@@ -29,6 +29,7 @@ from ..train.cxr_head_loop import (extract_cls_features,
                                    split_catalog_subjects, train_cxr_head)
 from ..train.teacher_loop import make_synthetic_pixel_hook
 from ..utils import resolve_device
+from ..utils.logging import Logger
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -62,6 +63,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    log = Logger("cxr_head").info
     dev = resolve_device(args.device)
     vit_cfg = ViTConfig() if args.vit_size == "base" else ViTConfig(
         image_size=56, patch_size=14, d_model=64, n_layers=2, n_heads=2,
@@ -79,21 +81,18 @@ def main(argv=None):
         vit.load_state_dict(load_vit_params(args.vit_params, vit_cfg))
     else:
         init_like_flax(vit, 0, vit_cfg.layerscale_init)
-        print("using a randomly initialized ViT (no weights provided)",
-              flush=True)
+        log("using a randomly initialized ViT (no weights provided)")
     jpeg_store = None
     if args.cxr_jpeg_root:
         jpeg_store = JpegStore(root=args.cxr_jpeg_root)
-        print(f"extracting features from real JPEGs: {args.cxr_jpeg_root}",
-              flush=True)
+        log(f"extracting features from real JPEGs: {args.cxr_jpeg_root}")
     t0 = time.perf_counter()
     cls = extract_cls_features(
         vit.to(dev), make_synthetic_pixel_hook(vit_cfg.image_size),
         catalog.image_ids, catalog.labels, args.batch_size,
         args.feature_cache or None, jpeg_store=jpeg_store)
     extract_s = time.perf_counter() - t0
-    print(f"CLS features of {len(cls)} catalog images in {extract_s:.1f}s",
-          flush=True)
+    log(f"CLS features of {len(cls)} catalog images in {extract_s:.1f}s")
     splits = split_catalog_subjects(catalog.subject_ids, catalog.labels,
                                     args.seed)
     os.makedirs(args.ckpt_dir, exist_ok=True)
@@ -103,8 +102,8 @@ def main(argv=None):
         batch_size=args.head_batch_size,
         uncertain_policy=args.uncertain_policy, lr=args.lr,
         epochs=args.epochs, dropout=args.dropout, seed=args.seed,
-        device=dev)
-    print(f"saved → {result['ckpt_path']}", flush=True)
+        device=dev, log=log)
+    log(f"saved → {result['ckpt_path']}")
     return {**result, "feature_extract_s": extract_s,
             "n_images": len(cls)}
 

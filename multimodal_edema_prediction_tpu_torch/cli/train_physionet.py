@@ -22,7 +22,7 @@ from ..data.physionet import N_STATIC, N_TS_VARS, make_synthetic_physionet
 from ..data.sliding import build_sliding_ssl_dataset, build_stay_label_dataset
 from ..train.finetune_loop import finetune_duett
 from ..train.ssl_loop import train_ssl
-from ..utils import console_logger
+from ..utils.logging import Logger
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -51,7 +51,7 @@ def main(argv=None, extras: dict = None):
     SSL run's ``TrainResult`` under ``ssl`` and ``finetune_duett``'s
     extras under ``finetune``."""
     args = build_parser().parse_args(argv)
-    log = console_logger("physionet")
+    log = Logger("physionet").info
     if args.data_dir:
         from ..data.physionet import load_physionet2012_raw
         ds, meta = load_physionet2012_raw(args.data_dir)

@@ -11,9 +11,9 @@ epoch into a new run directory under ``--ckpt_dir``; ``--resume_dir``
 continues such a run bit for bit; a SIGTERM saves the state at the next
 epoch boundary and exits cleanly. The teacher starts from the checkpoint
 with ``cli.train_teacher --duett_ckpt``. ``--state_backend orbax`` (P16),
-``--steps_per_call`` > 1 (P10) and the wandb flags (P20) are not ported and
-raise; ``--eval_train_batches`` is accepted and, as in the JAX CLI, unused
-by the SSL loop.
+``--steps_per_call`` > 1 (P10) are not ported and raise; the wandb flags
+reach its ``Logger``; ``--eval_train_batches`` and ``--log_every`` are
+accepted and, as in the JAX CLI, unused by the SSL loop.
 """
 from __future__ import annotations
 
@@ -21,9 +21,9 @@ import argparse
 
 from ..data.sliding import build_sliding_ssl_dataset
 from ..train.ssl_loop import train_ssl
-from .common import (COMMON_QUEUED, add_common_flags, configs_from_args,
-                     load_data, make_run_dir, refuse_queued_flags,
-                     sync_duett_with_meta)
+from ..utils.logging import Logger
+from .common import (add_common_flags, configs_from_args, load_data,
+                     make_run_dir, sync_duett_with_meta, wandb_project)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -50,14 +50,15 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_queued_flags(args, COMMON_QUEUED)
     if args.state_backend == "orbax":
         raise NotImplementedError("--state_backend orbax is not ported yet "
                                   "(ROADMAP P16)")
     dcfg, duett, tcfg = configs_from_args(args)
     duett = duett.replace(pretrain_masked_steps=args.pretrain_masked_steps)
+    logger = Logger("duett_ssl", wandb_project(args),
+                    args.wandb_run_name or None, tcfg.to_dict())
     ds, meta, _ = load_data(args, dcfg)
-    duett = sync_duett_with_meta(duett, meta, print)
+    duett = sync_duett_with_meta(duett, meta, logger.info)
     ssl_ds = build_sliding_ssl_dataset(ds, meta, dcfg.n_timesteps,
                                        args.stride, args.max_stay_hours)
     run_dir = args.resume_dir or make_run_dir(args.ckpt_dir, tcfg)
@@ -66,9 +67,11 @@ def main(argv=None):
                     warmup_steps=args.ssl_warmup, grad_clip=args.grad_clip,
                     auto_resume=bool(args.resume_dir),
                     save_full_state=args.save_state,
-                    state_backend=args.state_backend, device=args.device)
-    print(f"best val_loss: {res.best_metric:.4f}  ckpt: {res.best_path}",
-          flush=True)
+                    state_backend=args.state_backend, device=args.device,
+                    log=logger.info)
+    logger.info(f"best val_loss: {res.best_metric:.4f}  ckpt: "
+                f"{res.best_path}")
+    logger.finish()
     return res
 
 

@@ -17,9 +17,9 @@ ViT in every KD step; ``hbm`` caches its tokens per image on the card;
 Writes ``best-step<N>-<auroc>.msgpack`` and, by default, the full train
 state of every epoch into a new run directory under ``--ckpt_dir``;
 ``--resume_dir`` continues such a run bit for bit; a SIGTERM saves the
-state at the next epoch boundary and exits cleanly. Refused, naming their
-ROADMAP item: ``--state_backend orbax`` (P16), ``--steps_per_call`` > 1
-(P10), the wandb flags (P20).
+state at the next epoch boundary and exits cleanly. The wandb flags reach
+its ``Logger``. Refused, naming their ROADMAP item: ``--state_backend
+orbax`` (P16), ``--steps_per_call`` > 1 (P10).
 """
 from __future__ import annotations
 
@@ -28,9 +28,9 @@ import argparse
 from ..config import StudentConfig
 from ..ops.losses import resolve_kd_loss
 from ..train.kd_loop import train_student_kd
-from .common import (COMMON_QUEUED, add_common_flags, configs_from_args,
-                     load_data, make_run_dir, refuse_queued_flags,
-                     sync_duett_with_meta)
+from ..utils.logging import Logger
+from .common import (add_common_flags, configs_from_args, load_data,
+                     make_run_dir, sync_duett_with_meta, wandb_project)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,7 +69,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    refuse_queued_flags(args, COMMON_QUEUED)
     if args.state_backend == "orbax":
         raise NotImplementedError("--state_backend orbax is not ported yet "
                                   "(ROADMAP P16)")
@@ -77,8 +76,11 @@ def main(argv=None):
     dcfg, duett, tcfg = configs_from_args(args)
     tcfg = tcfg.replace(kd_name=args.kd_name, kd_T=args.kd_T,
                         kd_alpha=args.kd_alpha)
+    logger = Logger("student", wandb_project(args),
+                    args.wandb_run_name or None, tcfg.to_dict())
     _, meta, anchor_ds = load_data(args, dcfg)
-    student_cfg = StudentConfig(duett=sync_duett_with_meta(duett, meta, print),
+    student_cfg = StudentConfig(duett=sync_duett_with_meta(duett, meta,
+                                                           logger.info),
                                 pool=args.student_pool,
                                 head_hidden=args.head_hidden,
                                 head_dropout=args.head_dropout)
@@ -89,9 +91,11 @@ def main(argv=None):
         auto_resume=bool(args.resume_dir), save_full_state=args.save_state,
         state_backend=args.state_backend,
         feature_cache=args.cxr_feature_cache,
-        feature_store_path=args.cxr_feature_store_path or None)
-    print(f"best val AUROC: {res.best_metric:.4f}  ckpt: {res.best_path}",
-          flush=True)
+        feature_store_path=args.cxr_feature_store_path or None,
+        log=logger.info)
+    logger.info(f"best val AUROC: {res.best_metric:.4f}  ckpt: "
+                f"{res.best_path}")
+    logger.finish()
     return res
 
 

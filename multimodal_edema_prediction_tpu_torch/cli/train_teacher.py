@@ -38,9 +38,13 @@ each epoch and prints their gap table, as the JAX loop does. By default
 (``--save_state``) the full train state is written into the run directory
 at every epoch boundary; ``--resume_dir <run dir>`` continues such a run
 bit for bit, and a SIGTERM saves the state at the next epoch boundary and
-exits cleanly. Every flag of the JAX CLI parses: ``--flash_block_b`` (a
-TPU tuning knob) is ignored, and the flags of what is not ported yet raise
-``NotImplementedError`` naming their ROADMAP item.
+exits cleanly. ``--vit_quant int8`` runs the frozen ViT's matmuls on int8
+products (``ops/int8.py``; not with ``--unfreeze_cxr``).
+``--wandb_project`` (unless ``--wandb_disabled``) and ``--wandb_run_name``
+send the loop's telemetry to wandb, its per-step losses every
+``--log_every`` steps. Every flag of the JAX CLI parses:
+``--flash_block_b`` (a TPU tuning knob) is ignored, and the flags of what
+is not ported yet raise ``NotImplementedError`` naming their ROADMAP item.
 
     python -m multimodal_edema_prediction_tpu_torch.cli.train_teacher \\
         --device cuda --unfreeze_cxr --vit_weights rad_dino_flax.msgpack
@@ -55,9 +59,9 @@ from ..models.teacher import init_teacher
 from ..models.vit import load_vit_params
 from ..train.ssl_loop import transplant_encoder
 from ..train.teacher_loop import pretrained_head_spec, train_teacher
-from .common import (COMMON_QUEUED, add_common_flags, configs_from_args,
-                     load_data, make_run_dir, refuse_queued_flags,
-                     sync_duett_with_meta)
+from ..utils.logging import Logger
+from .common import (add_common_flags, configs_from_args, load_data,
+                     make_run_dir, sync_duett_with_meta, wandb_project)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -155,11 +159,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-# flag → (value that is not ported, ROADMAP item)
-_QUEUED = (
-    ("vit_quant", "int8", "P20"),
-    ("state_backend", "orbax", "P16"),
-)
+
+
+def vit_config(args) -> ViTConfig:
+    """ViT-B/14 at 518² (``--vit_size base``) or the tiny smoke geometry,
+    with ``--vit_quant`` (JAX ``cli/train_teacher.py:127-131``)."""
+    if args.vit_size == "base":
+        return ViTConfig(quant=args.vit_quant)
+    return ViTConfig(image_size=56, patch_size=14, d_model=64, n_layers=2,
+                     n_heads=2, d_feedforward=128, quant=args.vit_quant)
 
 
 def teacher_config(args, dcfg, duett, vit) -> TeacherConfig:
@@ -201,23 +209,20 @@ def image_kwargs(args) -> dict:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_queued_flags(args, COMMON_QUEUED)
     if args.vit_quant != "none" and args.unfreeze_cxr:
         p.error("--vit_quant requires a frozen CXR branch (the quantized "
                 "matmuls are inference-only)")
-    for flag, value, item in _QUEUED:
-        got = getattr(args, flag)
-        if (got if value is None else got == value):
-            raise NotImplementedError(
-                f"--{flag} {got} is not ported yet (ROADMAP {item})")
+    if args.state_backend == "orbax":
+        raise NotImplementedError("--state_backend orbax is not ported yet "
+                                  "(ROADMAP P16)")
 
     dcfg, duett, tcfg = configs_from_args(args)
-    vit = ViTConfig() if args.vit_size == "base" else ViTConfig(
-        image_size=56, patch_size=14, d_model=64, n_layers=2, n_heads=2,
-        d_feedforward=128)
+    vit = vit_config(args)
+    logger = Logger("teacher", wandb_project(args),
+                    args.wandb_run_name or None, tcfg.to_dict())
     _, meta, anchor_ds = load_data(args, dcfg)
     teacher_cfg = teacher_config(
-        args, dcfg, sync_duett_with_meta(duett, meta, print), vit)
+        args, dcfg, sync_duett_with_meta(duett, meta, logger.info), vit)
 
     head_ckpt = args.pretrained_cxr_head_ckpt or None
     model = None
@@ -226,12 +231,12 @@ def main(argv=None):
             teacher_cfg, head_ckpt, dcfg.pathology_labels))
     if args.duett_ckpt:
         changed = transplant_encoder(args.duett_ckpt, model)
-        print(f"DuETT backbone from {args.duett_ckpt} ({len(changed)} keys "
-              "adjusted)", flush=True)
+        logger.info(f"DuETT backbone from {args.duett_ckpt} "
+                    f"({len(changed)} keys adjusted)")
     if args.vit_weights:
         model.cxr.load_state_dict(load_vit_params(args.vit_weights,
                                                   teacher_cfg.vit))
-        print(f"CXR branch (RAD-DINO) from {args.vit_weights}", flush=True)
+        logger.info(f"CXR branch (RAD-DINO) from {args.vit_weights}")
     run_dir = args.resume_dir or make_run_dir(args.ckpt_dir, tcfg)
     res = train_teacher(anchor_ds, teacher_cfg, tcfg, run_dir,
                         dcfg.pathology_labels, model=model,
@@ -245,10 +250,11 @@ def main(argv=None):
                         state_backend=args.state_backend,
                         grad_diag_every=args.grad_diag_every,
                         grad_diag_batches=args.grad_diag_batches,
-                        **lp_kwargs(args),
+                        logger=logger, **lp_kwargs(args),
                         **image_kwargs(args))
-    print(f"best val macro fusion AUROC: {res.best_metric:.4f}  "
-          f"ckpt: {res.best_path}", flush=True)
+    logger.info(f"best val macro fusion AUROC: {res.best_metric:.4f}  "
+                f"ckpt: {res.best_path}")
+    logger.finish()
     return res
 
 

@@ -199,14 +199,18 @@ def synthetic_image_batch(rng: np.ndarray, image_ids: np.ndarray,
     out = np.empty((B, size, size, 3), np.float32)
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
     K = labels.shape[1]
+    blobs = {}      # label k's blob, the same for every image: made once
     for i in range(B):
         r = np.random.default_rng(int(image_ids[i]))
         img = 0.3 + 0.1 * r.normal(size=(size, size)).astype(np.float32)
         lab = np.nan_to_num(labels[i], nan=0.0)
         for k in range(K):
             if lab[k] > 0.5:
-                cx, cy = 0.2 + 0.6 * (k % 3) / 2.0, 0.2 + 0.6 * (k // 3) / 2.0
-                img += 0.5 * np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2)
-                                      / 0.02))
+                if k not in blobs:
+                    cx = 0.2 + 0.6 * (k % 3) / 2.0
+                    cy = 0.2 + 0.6 * (k // 3) / 2.0
+                    blobs[k] = 0.5 * np.exp(-(((xx - cx) ** 2
+                                               + (yy - cy) ** 2) / 0.02))
+                img += blobs[k]
         out[i] = np.clip(img, 0, 1)[..., None]
     return out

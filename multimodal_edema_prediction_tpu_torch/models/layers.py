@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import flash_mha
+from ..ops.int8 import int8_dense, int8_out_bhnk, int8_proj_bhnk
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,
@@ -238,7 +239,10 @@ class MultiHeadAttention(nn.Module):
     the float32 softmax, and it closes the gate. ``return_weights`` returns
     ``(out, weights)``, the attention probabilities before dropout
     averaged over the heads [..., Nq, Nk] (JAX ``layers.py:362-363``), and
-    closes the gate too. ``valid_len`` is the true
+    closes the gate too. ``quant="int8"`` (a frozen branch only) quantizes
+    the four projections (``ops/int8.py``; JAX ``layers.py:298-357``): on
+    the flash route straight into and out of the head-major layout around
+    ``flash_mha``, else through ``int8_dense``. ``valid_len`` is the true
     token count of a pre-padded sequence: keys at or past it get zero
     probability (the mask ``valid_len`` stands for when no mask is given)
     and the outputs of those rows are garbage, to be sliced off by the
@@ -247,8 +251,11 @@ class MultiHeadAttention(nn.Module):
     def __init__(self, d_model: int, n_heads: int,
                  d_head: Optional[int] = None, qkv_bias: bool = True,
                  out_bias: bool = True, use_flash: bool = False,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, quant: str = "none"):
         super().__init__()
+        if quant not in ("none", "int8"):
+            raise ValueError(f"unknown quant {quant!r}")
+        self.quant = quant
         self.dropout = dropout
         self.n_heads = n_heads
         self.d_head = d_head or d_model // n_heads
@@ -270,23 +277,34 @@ class MultiHeadAttention(nn.Module):
                     and (self.dropout == 0.0 or not train)
                     and q_in.dim() == 3 and kv_in.shape[-2] >= 256
                     and dh >= 64)
+        int8 = self.quant == "int8"
         if flash_ok:
             B, Nq, Nk = q_in.shape[0], q_in.shape[1], kv_in.shape[1]
             # [B, N, H·dh] → [B, H, N, dh] as strided views: the kernels
             # read them in place and write the output (and, training, the
             # gradients of q, k, v) in [B, N, H, dh]
-            q = self.q(q_in).view(B, Nq, H, dh).transpose(1, 2)
-            k = self.k(kv_in).view(B, Nk, H, dh).transpose(1, 2)
-            v = self.v(kv_in).view(B, Nk, H, dh).transpose(1, 2)
+            if int8:
+                q, k, v = (int8_proj_bhnk(x, p.weight, p.bias, H, dh)
+                           for x, p in ((q_in, self.q), (kv_in, self.k),
+                                        (kv_in, self.v)))
+            else:
+                q = self.q(q_in).view(B, Nq, H, dh).transpose(1, 2)
+                k = self.k(kv_in).view(B, Nk, H, dh).transpose(1, 2)
+                v = self.v(kv_in).view(B, Nk, H, dh).transpose(1, 2)
             o = flash_mha(q, k, v, sm_scale=dh ** -0.5,
                           q_valid=valid_len, kv_valid=valid_len)
+            if int8:
+                return int8_out_bhnk(o, self.out.weight, self.out.bias)
             return self.out(o.transpose(1, 2).reshape(B, Nq, H * dh))
+
+        def dense(p, x):
+            return int8_dense(x, p.weight, p.bias) if int8 else p(x)
 
         def heads(y):
             return y.view(*y.shape[:-1], H, dh)
 
-        q, k, v = heads(self.q(q_in)), heads(self.k(kv_in)), \
-            heads(self.v(kv_in))
+        q, k, v = heads(dense(self.q, q_in)), heads(dense(self.k, kv_in)), \
+            heads(dense(self.v, kv_in))
         logits = torch.einsum("...qhd,...khd->...hqk", q, k) * (dh ** -0.5)
         Nk = k.shape[-3]
         if valid_len is not None and valid_len < Nk \
@@ -299,7 +317,7 @@ class MultiHeadAttention(nn.Module):
         weights = torch.softmax(logits.float(), dim=-1).to(q_in.dtype)
         dropped = dropout(weights, self.dropout, train, gen)
         out = torch.einsum("...hqk,...khd->...qhd", dropped, v)
-        out = self.out(out.reshape(*out.shape[:-2], H * dh))
+        out = dense(self.out, out.reshape(*out.shape[:-2], H * dh))
         if return_weights:
             return out, weights.mean(dim=-3)
         return out

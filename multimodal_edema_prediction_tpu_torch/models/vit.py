@@ -15,6 +15,12 @@ its kernel masks its own ragged edge, so every row is a real token and
 nothing is sliced off. ``MultiHeadAttention`` keeps ``valid_len`` for
 callers that pre-pad.
 
+``ViTConfig.quant="int8"`` runs every matmul of the blocks (the four
+attention projections, both MLP layers) on int8 products (``ops/int8.py``)
+with the same float32 weights, as the JAX package does; the patch
+embedding stays in the input's dtype. It is for a frozen ViT only
+(``TeacherConfig`` checks it).
+
 As in the JAX package, ``train=True`` turns on the attention-probability
 dropout of ``ViTConfig.dropout`` (drawn from ``gen``), which closes the
 flash gate; the teacher trains the ViT so only with ``freeze_cxr=False``.
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from ..config import ViTConfig
+from ..ops.int8 import int8_dense
 from .layers import Dense, LayerNorm, MultiHeadAttention, gelu_exact
 
 # Image normalization applied by the HF AutoImageProcessor for rad-dino.
@@ -51,7 +58,8 @@ class DinoBlock(nn.Module):
         self.attn = MultiHeadAttention(d, cfg.n_heads, d // cfg.n_heads,
                                        qkv_bias=True,
                                        use_flash=cfg.use_flash_attention,
-                                       dropout=cfg.dropout)
+                                       dropout=cfg.dropout, quant=cfg.quant)
+        self.quant = cfg.quant
         self.layerscale1 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
         self.norm2 = LayerNorm(d)
         self.mlp_in = Dense(d, cfg.d_feedforward)
@@ -63,7 +71,14 @@ class DinoBlock(nn.Module):
         h = self.norm1(x)
         h = self.attn(h, h, train=train, gen=gen).to(x.dtype)
         x = x + h * self.layerscale1.to(x.dtype)
-        h = self.mlp_out(gelu_exact(self.mlp_in(self.norm2(x))))
+        h = self.norm2(x)
+        if self.quant == "int8":
+            # the same weights as the Dense layers, quantized at each call
+            h = int8_dense(h, self.mlp_in.weight, self.mlp_in.bias)
+            h = int8_dense(gelu_exact(h), self.mlp_out.weight,
+                           self.mlp_out.bias)
+        else:
+            h = self.mlp_out(gelu_exact(self.mlp_in(h)))
         return x + h * self.layerscale2.to(x.dtype)
 
 
@@ -75,10 +90,6 @@ class DinoViT(nn.Module):
         if cfg.image_size % cfg.patch_size:
             raise ValueError(f"image_size {cfg.image_size} is not a multiple "
                              f"of patch_size {cfg.patch_size}")
-        if cfg.quant != "none":
-            raise NotImplementedError(
-                f"vit.quant={cfg.quant!r}: int8 matmuls are not ported yet "
-                "(ROADMAP P20)")
         self.cfg = cfg
         P, d = cfg.patch_size, cfg.d_model
         self.patch_embed = Dense(P * P * 3, d)

@@ -59,6 +59,15 @@ through ``data/prefetch.py``: a worker thread runs the batch hook (the
 decode, a store's reads) and copies the batch to the card from pinned
 memory on a side stream while the previous step runs; the steps, their
 order and their generator are those of ``prefetch_depth=0``.
+
+Telemetry (``logger``, a ``utils/logging.Logger``; JAX
+``teacher_loop.py:554-744``): the rows JAX sends to wandb, with its keys
+and steps: ``train_step/*`` every ``cfg.log_every`` steps, only while a
+wandb sink is live (the only per-step host sync, so the default path
+has none); per epoch the train losses, the per-label validation scalars
+and β (``train/*``, ``val/*``), the train-subset gap (``train_eval/*``)
+and the gradient-flow diagnostics (``grad_diag/*``); at the end the test
+scalars (``test/*``).
 """
 from __future__ import annotations
 
@@ -81,6 +90,7 @@ from ..data.synthetic import synthetic_image_batch
 from ..models.teacher import TeacherModel, init_teacher
 from ..models.vit import IMAGE_MEAN, IMAGE_STD, normalize_image
 from ..utils import preemption, resolve_device
+from ..utils.logging import Logger
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer, load_checkpoint,
                          load_teacher_from_ckpt, restore_tolerant)
@@ -106,7 +116,9 @@ def make_synthetic_pixel_hook(image_size: int = 518
     def hook(batch: dict) -> dict:
         px = synthetic_image_batch(None, batch["image_ids"],
                                    batch["y_multi"], image_size)
-        return {**batch, "pixel_values": (px - mean) / std}
+        px -= mean          # in place: the same values as (px - mean) / std
+        px /= std
+        return {**batch, "pixel_values": px}
 
     return hook
 
@@ -141,6 +153,37 @@ def teacher_frozen_prefixes(cfg: TeacherConfig) -> tuple:
 DUAL_MODES = ("dual_patch", "dual_patch_event", "dual")
 LP_MODES = ("dual_patch", "dual_patch_event")
 LP_TRAINABLE = ("perceiver/correction_head", "perceiver/beta")
+
+# loss part → wandb key, the reference's names (JAX teacher_loop.py:85-93)
+_WB_TRAIN_KEYS = {
+    "img_total": "train/img_loss", "ts_total": "train/ts_loss",
+    "fus_total": "train/fus_loss",
+    "aux_residual": "train/aux_residual_loss",
+    "reg_beta_l2": "train/lp_reg_beta_l2",
+    "reg_corr_l2": "train/lp_reg_corr_l2",
+    "stage2_total": "train/stage2_loss", "stage4_total": "train/stage4_loss",
+    "main_loss": "train/main_loss", "aux_loss": "train/aux_loss",
+}
+
+# per-label val/train_eval/test scalars (JAX teacher_loop.py:96-100)
+_WB_PER_LABEL_KEYS = (
+    "img_auroc", "ts_auroc", "fus_auroc", "gap_i2f", "gap_t2f",
+    "img_auprc", "ts_auprc", "fus_auprc", "beta",
+    "stage2_auroc", "stage4_auroc", "stage2_auprc", "stage4_auprc",
+)
+
+
+def _split_scalars(prefix: str, r: dict) -> dict:
+    """An evaluation's ``{prefix}/auprc`` and per-label
+    ``{prefix}/{label}/{key}`` scalars, where it has them."""
+    out = {}
+    if "main_auprc" in r:
+        out[f"{prefix}/auprc"] = r["main_auprc"]
+    for row in r.get("per_label", []):
+        for key in _WB_PER_LABEL_KEYS:
+            if key in row:
+                out[f"{prefix}/{row['name']}/{key}"] = row[key]
+    return out
 
 
 def lp_frozen_label_fn(path: str) -> str:
@@ -345,7 +388,8 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                   lp_from: Optional[str] = None, lp_beta_l2: float = 1e-3,
                   lp_corr_l2: float = 1e-2,
                   grad_diag_every: int = 0, grad_diag_batches: int = 4,
-                  log: Callable[[str], None] = print) -> TrainResult:
+                  log: Optional[Callable[[str], None]] = None,
+                  logger: Optional[Logger] = None) -> TrainResult:
     """Train the teacher; returns the best val metric of its mode (macro
     fusion AUROC, macro stage 4 AUROC for ``single``, AUROC for
     ``legacy``), its checkpoint, the per-epoch history and the test
@@ -380,9 +424,18 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     (``analysis/grad_flow_diagnostics.run_diagnostics``) over
     ``grad_diag_batches`` val batches, on the pixels of the run's image
     feed (JAX ``teacher_loop.py:677-690``): the report is printed and its
-    scalars go into the epoch's history entry."""
+    scalars go into the epoch's history entry.
+    ``log``: the console lines (default: ``logger.info``, else ``print``);
+    ``logger``: the telemetry sink (module docstring)."""
     mode = teacher_cfg.perceiver_type
     lp_mode = lp_from is not None
+    if log is None:
+        log = logger.info if logger is not None else print
+    metrics = logger.metrics if logger is not None else \
+        (lambda data, step=None: None)
+    # per-step scalars only with a live sink: float() is a host sync
+    step_log = cfg.log_every > 0 \
+        and getattr(logger, "_wb", None) is not None
     if feature_cache not in ("none", "auto", "hbm", "host"):
         raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
     if feature_cache != "none" and not teacher_cfg.freeze_cxr:
@@ -557,6 +610,9 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                 acc = cur if acc is None else acc + cur
                 nb += 1
                 n_steps += 1
+                if step_log and n_steps % cfg.log_every == 0:
+                    metrics({f"train_step/{k}": float(out[k])
+                             for k in loss_keys}, n_steps)
                 if n_steps == resumed_steps + 1:
                     _sync(dev)
                     log(f"step {n_steps} done "
@@ -589,26 +645,42 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         log(f"epoch {epoch:3d}  loss={total / max(nb, 1):.4f} "
             f"({parts})  val_AUROC={val_metric:.4f}"
             f"{'  *' if improved else ''}")
+        # the epoch's row at the reference's depth (JAX
+        # teacher_loop.py:631-654)
+        wb = {"train/loss": total / max(nb, 1), "train/epoch": epoch,
+              "val/auroc": val_metric, "val/main_auroc": val_metric}
+        for k in loss_keys[1:]:
+            wb[_WB_TRAIN_KEYS.get(k, f"train/{k}")] = run[k] / max(nb, 1)
+        wb.update(_split_scalars("val", val))
         if lp_mode:
-            # LP's β telemetry (JAX teacher_loop.py:648-651; its wandb
-            # scalars are history keys here)
+            # LP's β telemetry (JAX teacher_loop.py:648-651), also kept in
+            # the history
             babs = model.perceiver.beta.detach().abs()
             history[-1]["lp_beta_mean_abs"] = float(babs.mean())
             history[-1]["lp_beta_max_abs"] = float(babs.max())
+            wb["train/lp_beta_mean_abs"] = history[-1]["lp_beta_mean_abs"]
+            wb["train/lp_beta_max_abs"] = history[-1]["lp_beta_max_abs"]
             log(f"[LP] |beta| mean {history[-1]['lp_beta_mean_abs']:.4f} "
                 f"max {history[-1]['lp_beta_max_abs']:.4f}")
+        if improved:
+            wb["val/best_auroc"] = stopper.best
+        metrics(wb, epoch)
         if cfg.eval_train_batches > 0:
-            # train-vs-val overfit reading (JAX teacher_loop.py:656-675;
-            # its wandb scalars are history keys here)
+            # train-vs-val overfit reading (JAX teacher_loop.py:656-675)
             tr = run_eval(model, "train", limit=cfg.eval_train_batches)
             history[-1]["train_eval_main_auroc"] = tr["main_auroc"]
             history[-1]["train_eval_main_gap_over_val"] = \
                 tr["main_auroc"] - val_metric
             log("train-subset gap table:\n" + tr["table"])
+            metrics({"train_eval/auroc": tr["main_auroc"],
+                     "train_eval/epoch": epoch,
+                     "train_eval/main_gap_over_val":
+                         tr["main_auroc"] - val_metric,
+                     **_split_scalars("train_eval", tr)}, epoch)
         if grad_diag_every > 0 and (epoch + 1) % grad_diag_every == 0 \
                 and mode in LP_MODES:
-            # the diagnostics' scalars are history keys here (JAX logs
-            # them to wandb, ROADMAP P20)
+            # the diagnostics' scalars go to the history and the logger
+            # (JAX teacher_loop.py:677-690)
             from ..analysis.grad_flow_diagnostics import (
                 diagnostics_to_log_dict, format_report, run_diagnostics)
             t0 = time.perf_counter()
@@ -621,8 +693,10 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
             phase["grad_diag"] = phase.get("grad_diag", 0.0) \
                 + time.perf_counter() - t0
             log("grad-flow diagnostics:\n" + format_report(diag))
-            history[-1].update(diagnostics_to_log_dict(
-                diag, labels=list(pathology_labels)))
+            diag_row = diagnostics_to_log_dict(
+                diag, labels=list(pathology_labels))
+            history[-1].update(diag_row)
+            metrics(diag_row, epoch)
         preempted = preemption.requested()
         if save_full_state or preempted:
             t0 = time.perf_counter()
@@ -648,6 +722,8 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     best_model, _, _ = load_teacher_from_ckpt(best_path, device=dev)
     test = run_eval(best_model, "test")
     log(f"test: main AUROC={test['main_auroc']:.4f}\n" + test["table"])
+    metrics({"test/auroc": test["main_auroc"],
+             **_split_scalars("test", test)})
 
     ran = n_steps - resumed_steps
     sps = ran / max(elapsed, 1e-9)

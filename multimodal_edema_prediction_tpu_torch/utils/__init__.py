@@ -1,9 +1,7 @@
-"""Device selection and console logging shared by the port's entry points;
-graceful preemption is ``utils/preemption.py``."""
+"""Device selection shared by the port's entry points; console and wandb
+logging is ``utils/logging.py``, profiling ``utils/profiling.py``,
+graceful preemption ``utils/preemption.py``."""
 from __future__ import annotations
-
-import time
-from typing import Callable
 
 import torch
 
@@ -19,14 +17,3 @@ def resolve_device(device="cuda") -> torch.device:
                            "CPU)")
     return dev
 
-
-def console_logger(name: str) -> Callable[[str], None]:
-    """The console part of the JAX package's ``utils/logging.Logger``: a
-    ``log(msg)`` that prints ``[name +seconds] msg``, the seconds counted
-    from this call. (Its wandb half is ROADMAP P20.)"""
-    t0 = time.time()
-
-    def log(msg: str) -> None:
-        print(f"[{name} +{time.time() - t0:7.1f}s] {msg}", flush=True)
-
-    return log

@@ -1115,3 +1115,41 @@ def test_knn_and_tsne_on_the_card_match_a_cpu_copy(cuda):
     assert itc == ith == 199 and np.isfinite(Yc).all()
     assert np.abs(Yc - Yh).max() <= 1e-3 * np.abs(Yh).max()
     assert abs(klc - klh) <= 1e-3 * abs(klh)
+
+
+@pytest.mark.parametrize("op", ["dense", "proj_bhnk", "out_bhnk"])
+@pytest.mark.parametrize("rows", [5, 16, 17, 1370])
+def test_int8_ops_on_the_card_match_their_cpu_plain_versions(cuda, op,
+                                                             rows):
+    """The int8 ops (``torch._int_mm`` on the card; fewer than 17 rows
+    padded with zero rows) against their plain versions on a CPU copy:
+    int8 codes, scales and int32 accumulators exactly, outputs bit for bit
+    in bf16 and float32; K or N not a multiple of 8 raises."""
+    from multimodal_edema_prediction_tpu_torch.ops import int8 as I
+    rng = np.random.default_rng(rows)
+    H, dh, d = 12, 64, 768
+    w = torch.from_numpy(rng.normal(size=(d, d)).astype(np.float32) * 0.03)
+    b = torch.from_numpy(rng.normal(size=d).astype(np.float32) * 0.02)
+    shape = (1, H, rows, dh) if op == "out_bhnk" else (1, rows, d)
+    x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    fns = {"dense": (I.int8_dense, I.int8_dense_reference),
+           "proj_bhnk": (lambda x, w, b: I.int8_proj_bhnk(x, w, b, H, dh),
+                         lambda x, w, b: I.int8_proj_bhnk_reference(
+                             x, w, b, H, dh)),
+           "out_bhnk": (I.int8_out_bhnk, I.int8_out_bhnk_reference)}[op]
+    for dtype in (torch.bfloat16, torch.float32):
+        xd = x.to(dtype)
+        got = fns[0](xd.to(cuda), w.to(cuda), b.to(cuda))
+        want = fns[1](xd, w, b)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), (op, rows, dtype)
+    rows2 = xd.reshape(-1, d) if op != "out_bhnk" else \
+        xd.transpose(1, 2).reshape(-1, d)
+    q, s = I.quantize_rows(rows2.to(cuda))
+    qh, sh = I.quantize_rows(rows2)
+    assert torch.equal(q.cpu(), qh) and torch.equal(s.cpu(), sh)
+    wq, _ = I.quantize_rows(w)
+    acc = I.int_mm(q, wq.t().to(cuda))
+    assert torch.equal(acc.cpu(), I.int_mm_reference(qh, wq.t()))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        I.int_mm(q[:, :60].contiguous(), wq.t()[:60].to(cuda))

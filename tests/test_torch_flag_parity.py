@@ -20,7 +20,10 @@ or their eval's arguments (``SUPERVISED_PORTED``, ``PREDICT_PORTED``).
 The analysis scripts of P19a and P19b take every flag of their JAX
 counterparts;
 the teacher's ``--grad_diag_every`` and ``--grad_diag_batches`` (waived
-until P19a) reach the loop's arguments.
+until P19a) reach the loop's arguments. The logging flags (waived until
+P20) reach the CLI's ``Logger`` (``--wandb_project``, off under
+``--wandb_disabled``; ``--wandb_run_name``) or ``TrainConfig.log_every``
+(``LOGGING_PORTED``).
 """
 from __future__ import annotations
 
@@ -113,16 +116,14 @@ REQUIRED = {"serve": ["--ckpt", "x.msgpack"],
 # ... and the port's training CLIs would otherwise default to the card
 BASE = {cli: REQUIRED.get(cli, []) + ["--device", "cpu"] for cli in CLIS}
 
-_LOGGING = {"--log_every": "P20", "--wandb_project": "P20",
-            "--wandb_run_name": "P20", "--wandb_disabled": "P20"}
 # JAX flag → the ROADMAP item that ports it
 WAIVERS = {
-    "train_teacher": dict(_LOGGING),
-    "train_ssl": dict(_LOGGING),
-    "train_student": dict(_LOGGING),
+    "train_teacher": {},
+    "train_ssl": {},
+    "train_student": {},
     "train_cxr_head": {},
     "serve": {"--data_parallel": "P18", "--aot_dir": "P10"},
-    "finetune_mimic": {"--wandb_project": "P20"},
+    "finetune_mimic": {},
     "train_physionet": {},
     "predict": {},
     **{cli: {} for cli in CLIS if cli not in (
@@ -154,6 +155,27 @@ PORTED = {
 }
 # serving's flags waived until their item (P15) was done
 SERVE_PORTED = ("--cxr_jpeg_root",)
+# the logging flags waived until P20 was done: (cli, flag) → the argv that
+# gives it and what it must set: the ``Logger``'s project or run name, or
+# the loop's ``TrainConfig.log_every``
+_LOGGING = {
+    "--log_every": (["--log_every", "7"], "log_every", 7),
+    "--wandb_project": (["--wandb_project", "proj"], "project", "proj"),
+    "--wandb_run_name": (["--wandb_run_name", "run"], "run_name", "run"),
+    "--wandb_disabled": (["--wandb_project", "proj", "--wandb_disabled"],
+                         "project", None),
+}
+LOGGING_PORTED = {
+    **{(cli, flag): want for cli in ("train_teacher", "train_ssl",
+                                     "train_student")
+       for flag, want in _LOGGING.items()},
+    ("finetune_mimic", "--wandb_project"): _LOGGING["--wandb_project"],
+}
+# each CLI's loop, and where its TrainConfig sits among the loop's arguments
+LOOPS = {"train_teacher": ("train_teacher", 2),
+         "train_ssl": ("train_ssl", 2),
+         "train_student": ("train_student_kd", 3),
+         "finetune_mimic": ("finetune_duett", 2)}
 
 
 class _Stop(Exception):
@@ -248,6 +270,35 @@ def test_waived_flag_raises_naming_its_item(cli, flag):
     with pytest.raises(NotImplementedError,
                        match=f"{flag}.*ROADMAP {WAIVERS[cli][flag]}"):
         port_mod.main(BASE[cli] + argv)
+
+
+@pytest.mark.parametrize("cli,flag", sorted(LOGGING_PORTED))
+def test_logging_flags_reach_the_logger(cli, flag, monkeypatch, tmp_path):
+    """A logging flag (waived until P20) as the JAX CLI takes it reaches the
+    CLI's ``Logger`` (``wandb_project`` gated by ``--wandb_disabled``, JAX
+    ``cli/common.py:80-84``; the run name) or the loop's
+    ``TrainConfig.log_every``."""
+    argv, what, want = LOGGING_PORTED[(cli, flag)]
+    jax_mod, port_mod = CLIS[cli]
+    _parser(jax_mod).parse_args(REQUIRED.get(cli, []) + argv)
+    made = {}
+
+    class Recorder:
+        def __init__(self, name, wandb_project=None, wandb_run_name=None,
+                     config=None):
+            made.update(project=wandb_project, run_name=wandb_run_name)
+
+        def info(self, msg):
+            pass
+
+    monkeypatch.setattr(port_mod, "Logger", Recorder)
+    loop, at = LOOPS[cli]
+    seen = _catch(monkeypatch, port_mod, loop)
+    with pytest.raises(_Caught):
+        port_mod.main(BASE[cli] + ["--synthetic_stays", "40", "--ckpt_dir",
+                                   str(tmp_path)] + argv)
+    got = seen["args"][at].log_every if what == "log_every" else made[what]
+    assert got == want, (cli, flag, got)
 
 
 @pytest.mark.parametrize("cli", ["train_teacher", "train_ssl"])

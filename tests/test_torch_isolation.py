@@ -2,7 +2,9 @@
 ``chip_smoke.py`` imports, brings in neither JAX nor flax nor optax nor
 msgpack nor sklearn nor ml_dtypes nor PIL nor pandas nor the JAX package,
 nor umap-learn, nor matplotlib or scipy (which the analysis scripts import
-only inside the functions that draw a figure or fit a probe),
+only inside the functions that draw a figure or fit a probe), nor wandb
+(imported only inside ``utils/logging.Logger``; ``torch.profiler``, which
+torch itself loads, is imported only inside ``utils/profiling.trace``),
 and no module of it loads the JAX package's native library; its entry points
 default to the card; and its kernel wrappers take their plain versions only
 for CPU tensors."""
@@ -27,7 +29,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
              "ml_dtypes", "PIL", "pandas", "umap",
              "multimodal_edema_prediction_tpu")
 # imported inside a function only, never when a module is imported
-LAZY = ("matplotlib", "scipy")
+LAZY = ("matplotlib", "scipy", "wandb")
 
 
 def _all_port_modules():
@@ -60,7 +62,8 @@ def test_imports_bring_in_no_jax():
                  "analysis.conditional_information_probe",
                  "analysis.raw_trajectory_conditional_probe",
                  "analysis.umap_impl", "analysis.tsne",
-                 "analysis.visualize_pathology"):
+                 "analysis.visualize_pathology", "ops.int8",
+                 "ops.lupi_losses", "utils.logging", "utils.profiling"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -94,6 +97,26 @@ def test_sources_name_no_jax_import():
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0].rstrip(",")
                     assert top not in FORBIDDEN, f"{path}: {ln.strip()}"
+
+
+def test_wandb_and_the_profiler_are_imported_inside_functions():
+    """No module-level import of wandb or ``torch.profiler`` in the port or
+    chip_smoke.py: the logger and ``trace`` import them when called."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.dirname(port.__file__)):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        with open(path) as f:
+            for ln in f:
+                words = ln.replace(",", " ").split()
+                if ln[:1].isspace() or words[:1] not in (["import"],
+                                                         ["from"]):
+                    continue
+                mods = words[1:] if words[0] == "import" else \
+                    [words[1]] + [f"{words[1]}.{n}" for n in words[3:]]
+                assert not any(m.split(".")[0] == "wandb"
+                               or m.startswith("torch.profiler")
+                               for m in mods), f"{path}: {ln.strip()}"
 
 
 def test_cli_device_default_is_cuda():
