@@ -32,7 +32,7 @@ from ..ops.losses import bce_with_logits
 from ..utils import resolve_device
 from .checkpoint import BestKTracker, load_checkpoint
 from .engine import to_device
-from .loops import EarlyStopper
+from .loops import EarlyStopper, refuse_multi_process
 from .optim import simple_adamw
 from .ssl_loop import transplant_encoder
 from .state import TrainState
@@ -115,6 +115,7 @@ def finetune_duett(ds: StayLabelDataset, duett_cfg: DuettConfig,
     measurement reads: the averaged model's state as it sits on the device
     (``avg_state``), the kept checkpoints (``entries``), and the train steps
     and their wall seconds."""
+    refuse_multi_process("fine-tuning", "P18")
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     ds.to(dev)

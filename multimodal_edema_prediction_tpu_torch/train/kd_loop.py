@@ -33,7 +33,6 @@ refused naming its ROADMAP item: multi-step dispatch (``steps_per_call >
 """
 from __future__ import annotations
 
-import os
 import time
 from typing import Callable, Optional
 
@@ -46,7 +45,8 @@ from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer,
                          load_student_from_ckpt, load_teacher_from_ckpt)
-from .loops import EarlyStopper, TrainResult, evaluate_binary_split
+from .loops import (EarlyStopper, TrainResult, evaluate_binary_split,
+                    refuse_multi_process)
 from .optim import MultiGroupAdamW
 from .ssl_loop import transplant_encoder
 from .state import TrainState, param_count
@@ -62,14 +62,7 @@ def check_ported(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
             "not ported yet (ROADMAP P10)")
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        world = max(world, torch.distributed.get_world_size())
-    if world > 1:
-        raise NotImplementedError(
-            f"{world} processes: multi-process KD is not ported yet "
-            "(ROADMAP P18)")
+    refuse_multi_process("KD", "P18")
 
 
 def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,

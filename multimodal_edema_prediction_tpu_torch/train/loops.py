@@ -4,6 +4,7 @@ time-series loop: the port's counterparts of ``EarlyStopper``,
 ``multimodal_edema_prediction_tpu/train/loops.py``."""
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
@@ -69,6 +70,27 @@ def evaluate_binary_split(eval_step, model, dataset, split: str,
     return {**r, "logits": logits} if keep_logits else r
 
 
+def world_size() -> int:
+    """The run's process count: the launcher's ``WORLD_SIZE``, or the size
+    of an initialised ``torch.distributed`` group when that is larger."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        world = max(world, torch.distributed.get_world_size())
+    return world
+
+
+def refuse_multi_process(loop: str, item: str) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP ``item`` when ``loop``
+    would run in more than one process: each would train on every batch
+    alone and write the same checkpoints."""
+    world = world_size()
+    if world > 1:
+        raise NotImplementedError(
+            f"{world} processes: multi-process {loop} is not ported yet "
+            f"(ROADMAP {item})")
+
+
 @dataclass
 class TrainResult:
     best_metric: float
@@ -112,6 +134,7 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
         raise NotImplementedError(
             f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
             "not ported yet (ROADMAP P10)")
+    refuse_multi_process("supervised training", "P18")
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     dataset.to(dev)

@@ -30,7 +30,7 @@ from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer, load_checkpoint,
                          restore_tolerant)
-from .loops import EarlyStopper, TrainResult
+from .loops import EarlyStopper, TrainResult, refuse_multi_process
 from .optim import MultiGroupAdamW, invsqrt_warmup
 from .state import TrainState, param_count
 from .teacher_loop import DTYPES, _sync
@@ -55,6 +55,7 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
         raise NotImplementedError(
             f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
             "not ported yet (ROADMAP P10)")
+    refuse_multi_process("SSL pretraining", "P18")
     if save_full_state is None:
         save_full_state = auto_resume
     resumer = FullStateResumer(ckpt_dir, state_backend)

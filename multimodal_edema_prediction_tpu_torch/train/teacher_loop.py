@@ -98,7 +98,8 @@ from .cxr_head_loop import load_cxr_head_into_teacher
 from .evaluator import (evaluate_dual_pathology, evaluate_pathology,
                         format_dual_pathology_gap_table,
                         format_pathology_gap_table)
-from .loops import EarlyStopper, TrainResult, evaluate_binary_split
+from .loops import (EarlyStopper, TrainResult, evaluate_binary_split,
+                    refuse_multi_process)
 from .optim import MultiGroupAdamW, default_label_fn
 from .state import TrainState, param_count
 
@@ -427,6 +428,11 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     scalars go into the epoch's history entry.
     ``log``: the console lines (default: ``logger.info``, else ``print``);
     ``logger``: the telemetry sink (module docstring)."""
+    if cfg.steps_per_call > 1:
+        raise NotImplementedError(
+            f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
+            "not ported yet (ROADMAP P10)")
+    refuse_multi_process("teacher training", "P18")
     mode = teacher_cfg.perceiver_type
     lp_mode = lp_from is not None
     if log is None:
