@@ -411,6 +411,30 @@ The opt-in extras (ROADMAP P20) add:
             batch), its fusion probabilities against the same weights
             served unquantized beside a shifted-row control.
 
+Data parallelism over processes (ROADMAP P18) adds, right after the
+build:
+
+29. parallel  ranks as worker processes of this script (``--parallel-worker
+            RANK WORLD PORT DIR``; each loads the built kernels), the
+            ``dual_patch`` teacher at the CLI's widths (ViT-B/14 at 518²)
+            in float32, 1 epoch of 3 global batches of 32, procedural
+            pixels (PARALLEL_ARGV): (a) one rank in an NCCL group, its
+            pixel run bit-equal to the same run with no group, an
+            all-reduce through NCCL, and the encode-once run with the
+            batches composed for 2 partitions; (b) two ranks sharing the
+            card over gloo, 16 rows each, the pixel run and the encode-once
+            run (each rank encoding its ``image_id % 2`` share into a host
+            store): the ranks agree to PARALLEL_RANKS_TOL, rank 0 equals
+            (a) within JAX's two-process tolerances, only rank 0 wrote
+            files, each rank's K1 launches as predicted (12 a ViT forward
+            of its rows; 12 a build chunk of its share) and K2 none; each
+            rank's step time and the phase's seconds; ``--data_parallel
+            1`` serving bit-equal to the predictor without it, 2 refused on
+            a one-card host. A rank that fails, finds no card or runs past
+            PARALLEL_RANK_TIMEOUT fails the phase. ``python3 chip_smoke.py
+            --only-parallel`` runs the device, build and parallel phases
+            alone (no summary, no ``ok`` line).
+
 Every phase line carries ``t_s``, the seconds since the script started.
 Then the run's total seconds on a line of their own.
 
@@ -621,6 +645,8 @@ def import_port():
                                                            dual_axis, gather,
                                                            int8, jpeg, ln_qkv,
                                                            lupi_losses)
+    from multimodal_edema_prediction_tpu_torch.parallel import (mesh,
+                                                                multihost)
     from multimodal_edema_prediction_tpu_torch.serve import predictor, server
     from multimodal_edema_prediction_tpu_torch.train import (checkpoint,
                                                              cxr_head_loop,
@@ -666,7 +692,7 @@ def import_port():
                 visualize_pathology=visualize_pathology, tsne=tsne,
                 umap_impl=umap_impl,
                 train_trajectory_probe=train_trajectory_probe,
-                trajectory=trajectory)
+                trajectory=trajectory, mesh=mesh, multihost=multihost)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -5559,7 +5585,342 @@ def _predict_split(port) -> tuple:
     return data.split_size(args.split), args.batch_size
 
 
+# --- data parallelism over processes (ROADMAP P18) --------------------------
+PARALLEL_RUNS = os.path.join(REPO, "build", "chip_smoke_parallel")
+# the dual_patch teacher at the CLI's widths (ViT-B/14 at 518², DuETT at its
+# defaults) in float32, one epoch of 3 global batches of 32 on procedural
+# pixels; the encode-once tier adds --cxr_feature_cache host
+PARALLEL_ARGV = ["--device", "cuda", "--mixed_precision", "no",
+                 "--synthetic_stays", "240", "--batch_size", "32",
+                 "--epochs", "1", "--limit_batches", "3", "--no_save_state"]
+PARALLEL_CACHED = ["--cxr_feature_cache", "host"]
+# seconds a rank may take before the phase kills it and fails
+PARALLEL_RANK_TIMEOUT = 420
+# JAX's two-process tolerances (tests/test_multihost_2proc.py): the ranks
+# against each other, and rank 0 against one process
+PARALLEL_RANKS_TOL = 1e-12
+PARALLEL_LOSS_RTOL = 1e-3
+PARALLEL_METRIC_TOL = 5e-3
+# the chunk of a feature build (data/features.py) and K1's launches per ViT
+# forward (one per layer of ViT-B)
+BUILD_CHUNK = 16
+K1_PER_FORWARD = 12
+
+
+def _parallel_teacher(port, argv: list, ckpt_dir: str,
+                      partition: int = 0) -> dict:
+    """One teacher run through the CLI's own helpers (flags → configs, the
+    synthetic cohort, the launcher's group joined) and ``train_teacher``,
+    its launches counted over exactly this run. ``partition`` composes the
+    batches by ``image_id % partition`` in one process, as that many
+    processes compose them."""
+    import torch
+    cli = port["train_teacher"]
+    args = cli.build_parser().parse_args(argv)
+    cli.join_process_group(args)
+    dcfg, duett, tcfg = cli.configs_from_args(args)
+    _, meta, ads = cli.load_data(args, dcfg)
+    if partition:
+        ads.host_partition_count = partition
+    teacher_cfg = cli.teacher_config(
+        args, dcfg, cli.sync_duett_with_meta(duett, meta),
+        cli.vit_config(args))
+    os.makedirs(ckpt_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["teacher_loop"].train_teacher(
+        ads, teacher_cfg, tcfg, ckpt_dir, dcfg.pathology_labels,
+        device="cuda", feature_cache=args.cxr_feature_cache,
+        save_full_state=args.save_state, log=lambda msg: None,
+        **cli.image_kwargs(args))
+    torch.cuda.synchronize()
+    ex = res.extras
+    return {"wall_s": time.perf_counter() - t0,
+            "history": res.history, "best_metric": res.best_metric,
+            "test_auroc": res.test_metrics["main_auroc"],
+            "best_path": res.best_path, "launches": read_counts(port),
+            "train_steps": ex["n_train_steps"],
+            "eval_steps": ex["n_eval_steps"],
+            "step_ms": ex["phase_seconds"]["train"]
+            / ex["n_train_steps"] * 1e3,
+            "feature_tier": {k: v for k, v in ex["feature_tier"].items()
+                             if k in ("tier", "n_images", "build_s")},
+            "files": sorted(os.listdir(ckpt_dir))}
+
+
+def parallel_worker(rank: int, world: int, port_no: int, out: str) -> int:
+    """``chip_smoke.py --parallel-worker RANK WORLD PORT DIR``: one rank of
+    the parallel phase. World 1: the pixel run with no process group, then
+    an NCCL group of one, an all-reduce through it, and the pixel run and
+    the encode-once run (batches composed for 2 partitions) inside it.
+    World 2 (the launcher's environment, set by the phase): the CLI helpers
+    join a gloo group (the ranks share the card), and the pixel and
+    encode-once runs follow on this rank's rows and partition. Writes
+    ``result_{rank}.json`` under ``out``."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: parallel rank without a CUDA device",
+              file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    port = import_port()
+    port["build"].build_all()
+    dist, mh = torch.distributed, port["multihost"]
+    res = {"rank": rank, "world": world}
+    if world == 1:
+        res["no_group"] = _parallel_teacher(
+            port, PARALLEL_ARGV, os.path.join(out, "no_group"))
+        dist.init_process_group(mh.choose_backend(1, "cuda"),
+                                init_method=f"tcp://localhost:{port_no}",
+                                world_size=1, rank=0)
+        t = torch.full((4,), 2.0, device="cuda")
+        dist.all_reduce(t)
+        res["all_reduce"] = t.tolist()
+        res["pixels"] = _parallel_teacher(
+            port, PARALLEL_ARGV, os.path.join(out, "world1_pixels"))
+        res["cached"] = _parallel_teacher(
+            port, PARALLEL_ARGV + PARALLEL_CACHED,
+            os.path.join(out, "world1_cached"), partition=2)
+    else:
+        res["pixels"] = _parallel_teacher(
+            port, PARALLEL_ARGV, os.path.join(out, f"rank{rank}_pixels"))
+        res["cached"] = _parallel_teacher(
+            port, PARALLEL_ARGV + PARALLEL_CACHED,
+            os.path.join(out, f"rank{rank}_cached"))
+    res["backend"] = dist.get_backend()
+    res["process_count"] = mh.process_count()
+    with open(os.path.join(out, f"result_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port_no = s.getsockname()[1]
+    s.close()
+    return port_no
+
+
+def _spawn_ranks(world: int, out: str) -> list:
+    """``world`` worker processes of this script (``--parallel-worker``),
+    under a launcher's environment when ``world`` > 1; each must end
+    within PARALLEL_RANK_TIMEOUT with code 0, else every rank is killed
+    and the phase fails. → their results, by rank."""
+    os.makedirs(out, exist_ok=True)
+    port_no = _free_port()
+    procs = []
+    for r in range(world):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK",
+                            "LOCAL_WORLD_SIZE")}
+        if world > 1:
+            env.update(MASTER_ADDR="localhost", MASTER_PORT=str(port_no),
+                       RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                       LOCAL_WORLD_SIZE=str(world))
+        log = open(os.path.join(out, f"rank{r}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-worker",
+             str(r), str(world), str(port_no), out],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a rank of {world} ran past "
+                             f"{PARALLEL_RANK_TIMEOUT} s")
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"rank {r} of {world} exited with "
+                                 f"{p.returncode}:\n{tail}")
+    results = []
+    for r in range(world):
+        with open(os.path.join(out, f"result_{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def _totals(history: list) -> list:
+    return [h["train_total"] for h in history]
+
+
+def _check_rank_vs_world1(got: dict, want: dict, what: str) -> dict:
+    """Rank 0 against the one-process run: each epoch's losses within
+    PARALLEL_LOSS_RTOL, the best metric and the test AUROC within
+    PARALLEL_METRIC_TOL; → the gaps."""
+    gaps = {"loss_rel": max(abs(g - w) / abs(w) for g, w in zip(
+        _totals(got["history"]), _totals(want["history"]))),
+        "best_metric": abs(got["best_metric"] - want["best_metric"]),
+        "test_auroc": abs(got["test_auroc"] - want["test_auroc"])}
+    if len(got["history"]) != len(want["history"]) \
+            or gaps["loss_rel"] > PARALLEL_LOSS_RTOL \
+            or gaps["best_metric"] > PARALLEL_METRIC_TOL \
+            or gaps["test_auroc"] > PARALLEL_METRIC_TOL:
+        raise AssertionError(f"{what}: two ranks against one process "
+                             f"{gaps}")
+    return gaps
+
+
+def _check_ranks_agree(r0: dict, r1: dict, what: str) -> float:
+    """The two ranks computed the same global losses and metrics."""
+    gap = max([abs(a - b) for a, b in zip(_totals(r0["history"]),
+                                          _totals(r1["history"]))]
+              + [abs(r0["best_metric"] - r1["best_metric"]),
+                 abs(r0["test_auroc"] - r1["test_auroc"])])
+    if gap > PARALLEL_RANKS_TOL:
+        raise AssertionError(f"{what}: the ranks disagree by {gap}")
+    return gap
+
+
+def _predicted_k1(run: dict) -> int:
+    """K1's float32 launches a run should make: one per layer of every ViT
+    forward, on the rank's rows; the encode-once tier runs the ViT only in
+    its build, over the rank's images in chunks of BUILD_CHUNK."""
+    ft = run["feature_tier"]
+    if ft["tier"] == "pixels":
+        return K1_PER_FORWARD * (run["train_steps"] + run["eval_steps"])
+    return K1_PER_FORWARD * -(-ft["n_images"] // BUILD_CHUNK)
+
+
+def _serve_data_parallel(port, device, ckpt: str) -> dict:
+    """``--data_parallel 1`` serves bit for bit as a predictor built
+    without it; 2 raises ``create_mesh``'s error on a one-card host."""
+    import torch
+    model, cfg, _ = port["checkpoint"].load_teacher_from_ckpt(ckpt, device)
+    rng = np.random.default_rng(0)
+    T, V, S = cfg.duett.n_timesteps, cfg.duett.n_variables, \
+        cfg.vit.image_size
+    reqs = [{"x_ts": rng.normal(size=(T, 2 * V)).astype(np.float32),
+             "static": rng.normal(size=cfg.duett.d_static).astype(
+                 np.float32),
+             "pixel_u8": rng.integers(0, 256, (S, S, 3), dtype=np.uint8)}
+            for _ in range(3)]
+    outs = []
+    for kw in ({}, {"data_parallel": 1}):
+        pred = port["predictor"].BatchingPredictor(
+            model, max_batch=4, max_wait_ms=0.0, dtype=torch.bfloat16,
+            device="cuda", **kw)
+        items = [pred._parse(r) for r in reqs]
+        from concurrent.futures import Future
+        for it in items:
+            it.future = Future()
+        pred._run_batch(items)
+        outs.append([it.future.result() for it in items])
+    same = outs[0] == outs[1]
+    refused = None
+    try:
+        port["predictor"].BatchingPredictor(model, device="cuda",
+                                            data_parallel=2)
+    except ValueError as e:
+        refused = str(e)
+    del model
+    if not same:
+        raise AssertionError("--data_parallel 1 serves differently")
+    if torch.cuda.device_count() < 2 and refused is None:
+        raise AssertionError("--data_parallel 2 on one card did not raise")
+    return {"data_parallel_1_bit_equal": same, "data_parallel_2": refused}
+
+
+def phase_parallel(port, device, card: str = "") -> dict:
+    """Data parallelism over processes (ROADMAP P18), each rank a worker
+    process of this script: (a) one rank in an NCCL group, the float32
+    pixel run bit-equal to the same run with no group, then the encode-once
+    run composed for 2 partitions; (b) two ranks sharing the card over
+    gloo, 16 rows each, the pixel run and the encode-once run (each rank
+    encoding its ``image_id % 2`` share into a host store): the ranks
+    agree to PARALLEL_RANKS_TOL, rank 0 equals (a) within JAX's
+    tolerances, only rank 0 wrote files, and each rank's K1 launches are
+    as predicted (``_predicted_k1``; K2 none: the host store's tokens come
+    with the batch). Then ``--data_parallel`` serving."""
+    import torch
+    shutil.rmtree(PARALLEL_RUNS, ignore_errors=True)
+    t0 = time.perf_counter()
+    (a,) = _spawn_ranks(1, os.path.join(PARALLEL_RUNS, "world1"))
+    t_a = time.perf_counter() - t0
+    b = _spawn_ranks(2, os.path.join(PARALLEL_RUNS, "world2"))
+    t_b = time.perf_counter() - t0 - t_a
+    runs = {"no_group": a["no_group"], "world1_pixels": a["pixels"],
+            "world1_cached": a["cached"],
+            **{f"rank{r}_{kind}": b[r][kind] for r in range(2)
+               for kind in ("pixels", "cached")}}
+    info = {"phase": "parallel", "card": card,
+            "backends": {"world1": a["backend"],
+                         "world2": [x["backend"] for x in b]},
+            "nccl_all_reduce": a["all_reduce"],
+            "launches": {k: r["launches"] for k, r in runs.items()},
+            "predicted_k1": {k: _predicted_k1(r) for k, r in runs.items()},
+            "step_ms": {k: r["step_ms"] for k, r in runs.items()},
+            "wall_s": {k: r["wall_s"] for k, r in runs.items()},
+            "feature_tier": {k: r["feature_tier"] for k, r in runs.items()
+                             if "cached" in k},
+            "files": {k: r["files"] for k, r in runs.items()},
+            "losses": {k: _totals(r["history"]) for k, r in runs.items()},
+            "best_metric": {k: r["best_metric"] for k, r in runs.items()},
+            "test_auroc": {k: r["test_auroc"] for k, r in runs.items()},
+            "world1_s": t_a, "world2_s": t_b}
+    problems = []
+    if a["no_group"]["history"] != a["pixels"]["history"] \
+            or a["no_group"]["best_metric"] != a["pixels"]["best_metric"] \
+            or a["no_group"]["test_auroc"] != a["pixels"]["test_auroc"]:
+        problems.append("an NCCL group of one changed the run")
+    if a["backend"] != "nccl" or a["all_reduce"] != [2.0] * 4:
+        problems.append(f"world 1: backend {a['backend']}, all-reduce "
+                        f"{a['all_reduce']}")
+    if any(x["backend"] != "gloo" or x["process_count"] != 2 for x in b):
+        problems.append("world 2 did not run on a gloo group of 2")
+    try:
+        info["rank_gaps"] = {kind: _check_ranks_agree(
+            b[0][kind], b[1][kind], kind) for kind in ("pixels", "cached")}
+        info["vs_world1"] = {kind: _check_rank_vs_world1(
+            b[0][kind], a[kind], kind) for kind in ("pixels", "cached")}
+    except AssertionError as e:
+        problems.append(str(e))
+    for k, r in runs.items():
+        n = r["launches"]
+        if n["flash_attention_f32"] != info["predicted_k1"][k] \
+                or n["flash_attention"] or n["gather_rows_bulk"] \
+                or n["gather_rows"]:
+            problems.append(f"{k}: launches {n}, K1 float32 predicted "
+                            f"{info['predicted_k1'][k]}, K2 none")
+        if not all(np.isfinite(_totals(r["history"]))):
+            problems.append(f"{k}: non-finite losses")
+    for kind in ("pixels", "cached"):
+        if b[1][kind]["files"] or not any(
+                f.startswith("best-") for f in b[0][kind]["files"]):
+            problems.append(f"{kind}: rank 0 wrote {b[0][kind]['files']}, "
+                            f"rank 1 {b[1][kind]['files']}")
+    own = [b[r]["cached"]["feature_tier"]["n_images"] for r in range(2)]
+    if sum(own) != a["cached"]["feature_tier"]["n_images"]:
+        problems.append(f"the ranks' partitions hold {own} images, one "
+                        f"process {a['cached']['feature_tier']['n_images']}")
+    info["serve"] = _serve_data_parallel(port, device,
+                                         a["pixels"]["best_path"])
+    info["seconds"] = time.perf_counter() - t0
+    emit(info)
+    shutil.rmtree(PARALLEL_RUNS, ignore_errors=True)
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("parallel: " + "; ".join(problems))
+    return info
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--parallel-worker"]:
+        rank, world, port_no = (int(a) for a in sys.argv[2:5])
+        return parallel_worker(rank, world, port_no, sys.argv[5])
     try:
         import torch
     except ImportError:
@@ -5582,7 +5943,13 @@ def main() -> int:
 
     dev = phase_device()
     phase_build(port)
+    if sys.argv[1:2] == ["--only-parallel"]:
+        # a short call for the parallel phase alone; no ok line
+        phase_parallel(port, device, card=dev["nvidia_smi"])
+        emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+        return 0
     built = phase_build_facts(port)
+    parallel = phase_parallel(port, device, card=dev["nvidia_smi"])
     bf16, f32 = torch.bfloat16, torch.float32
     n_predict, predict_batch = _predict_split(port)
     checks = phase_kernels(port, device, [
@@ -5721,6 +6088,8 @@ def main() -> int:
                 "event_serve": modes["event_serve"]["launches"][name],
                 "single_kd": modes["single_kd"]["launches"][name],
                 **jpeg_by_path(name), **supervised_by_path(name),
+                "parallel": {run: n.get(name, 0) for run, n in
+                             parallel["launches"].items()},
                 "analysis": {run: r["launches"].get(name, 0)
                              for run, r in analysis["runs"].items()},
                 "analysis_b": {run: r["launches"].get(name, 0)

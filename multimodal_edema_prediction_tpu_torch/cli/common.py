@@ -7,7 +7,9 @@ Data: ``--data_dir`` reads a cohort converted by the JAX package's
 preprocessing (``cohort.npz`` + ``meta_with_stats.pkl``); otherwise the
 learnable synthetic cohort is generated (``--synthetic``, the default, as
 in the JAX CLIs). ``--device`` (default ``cuda``) picks where training
-runs.
+runs. Under a launcher (``torchrun``'s environment) the teacher, SSL and
+student CLIs join its process group (``join_process_group``) and train
+data-parallel, one process per card (or over gloo, ranks sharing one).
 
 Every flag of the JAX CLIs parses here. The flags of what is not ported yet
 (a CLI's own table) have no default, so a parsed attribute means the flag
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import argparse
 import os
+
+import torch
 
 from ..config import (DataConfig, DuettConfig, OptimConfig, TrainConfig,
                       make_run_id)
@@ -185,8 +189,27 @@ def sync_duett_with_meta(duett, meta, log=None):
     return duett
 
 
+def join_process_group(args) -> None:
+    """Under a launcher (``WORLD_SIZE`` > 1 with ``MASTER_ADDR``,
+    ``MASTER_PORT`` and ``RANK``, as ``torchrun`` sets them) join its
+    ``torch.distributed`` group, so that the teacher, SSL and KD loops run
+    data-parallel (``parallel/multihost.initialize_distributed``); nothing
+    for one process."""
+    from ..parallel.multihost import initialize_distributed
+    initialize_distributed(device=args.device)
+
+
 def make_run_dir(base: str, cfg) -> str:
-    run_dir = os.path.join(base, make_run_id(cfg))
-    os.makedirs(run_dir, exist_ok=False)   # never overwrite a previous run
-    cfg.save_json(os.path.join(run_dir, "config.json"))
+    """A new run directory under ``base`` with the config's JSON; in a
+    multi-process run rank 0 makes it and every rank gets its name."""
+    from ..parallel import multihost as mh
+    run_dir = None
+    if mh.is_main_process():
+        run_dir = os.path.join(base, make_run_id(cfg))
+        os.makedirs(run_dir, exist_ok=False)   # never overwrite a run
+        cfg.save_json(os.path.join(run_dir, "config.json"))
+    if mh.process_count() > 1:
+        names = [None] * mh.process_count()
+        torch.distributed.all_gather_object(names, run_dir)
+        run_dir = names[0]
     return run_dir

@@ -15,9 +15,12 @@ id not in the bank answers NaN, as in JAX).
 ``--image_mode synthetic``: requests name an ``image_id`` and each batch's
 images are the JAX package's procedural ones for those ids, drawn on the
 device with the labels fixed to zeros, through the ViT (demos, load tests;
-no image payloads). ``--data_parallel`` and ``--aot_dir`` are not ported yet
-(ROADMAP P17) and raise when given. Every bucket runs once before the port
-opens, so the first request never pays a kernel build.
+no image payloads). ``--data_parallel N`` serves N replicas of the model on
+cards 0..N-1 (``serve/predictor.py``: buckets of multiples of N, each batch
+split across the replicas; more than the cards there are raises);
+``--aot_dir`` is not ported yet (ROADMAP P10) and raises when given. Every
+bucket runs once before the port opens, so the first request never pays a
+kernel build.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from .common import add_queued_flags, refuse_queued_flags
 
 # JAX flags whose feature is not ported yet → their ROADMAP item
-QUEUED_FLAGS = {"--data_parallel": "P18", "--aot_dir": "P10"}
+QUEUED_FLAGS = {"--aot_dir": "P10"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +52,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_batch", type=int, default=32)
     p.add_argument("--max_wait_ms", type=float, default=4.0)
     p.add_argument("--max_queue", type=int, default=1024)
+    p.add_argument("--data_parallel", type=int, default=1,
+                   help="serve N replicas on cards 0..N-1: buckets snap to "
+                        "multiples of N and each batch splits across them")
     p.add_argument("--labels", type=str, default="",
                    help="comma-separated label names (default: the "
                         "DataConfig pathology set)")
@@ -58,12 +64,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def jpeg_feature_source(model, root: str, dtype=torch.bfloat16) -> tuple:
+def jpeg_feature_source(model, root: str, dtype=torch.bfloat16,
+                        devices=None) -> tuple:
     """``--image_mode jpeg_root``'s startup (JAX ``cli/serve.py:90-110``):
     every ``{image_id}.jpg`` under ``root`` decoded and encoded once
     through ``model``'s frozen ViT into a ``CXRFeatureBank`` on the model's
     device. Returns (the feature source over raw image ids, {"n_images",
-    "encode_s"})."""
+    "encode_s"}); with ``devices`` (data-parallel replicas) a list of
+    sources, each over a copy of the bank on its device."""
     from ..data import features as F
     from ..data.images import JpegStore, decode_batch
     ids = sorted(int(f[:-4]) for f in os.listdir(root) if f.endswith(".jpg"))
@@ -86,8 +94,11 @@ def jpeg_feature_source(model, root: str, dtype=torch.bfloat16) -> tuple:
         else torch.bfloat16)
     if bank.cls.device.type == "cuda":
         torch.cuda.synchronize(bank.cls.device)
-    return bank.feature_source(keyed_by_row=False), {
-        "n_images": len(ids), "encode_s": time.perf_counter() - t0}
+    info = {"n_images": len(ids), "encode_s": time.perf_counter() - t0}
+    if devices is None:
+        return bank.feature_source(keyed_by_row=False), info
+    return [F.CXRFeatureBank(bank.ids, bank.cls.to(d), bank.patches.to(d))
+            .feature_source(keyed_by_row=False) for d in devices], info
 
 
 def synthetic_image_source(cfg) -> Callable[[dict], torch.Tensor]:
@@ -115,9 +126,14 @@ def main(argv=None):
 
     from ..config import DataConfig
     from ..serve import BatchingPredictor, make_server, serve_forever
+    from ..serve.predictor import replica_devices
     from ..train.checkpoint import load_teacher_from_ckpt
+    from ..utils import resolve_device
 
-    model, cfg, _ = load_teacher_from_ckpt(args.ckpt, device=args.device)
+    # N replicas on N cards: more than there are raises before any load
+    devices = replica_devices(resolve_device(args.device),
+                              args.data_parallel)
+    model, cfg, _ = load_teacher_from_ckpt(args.ckpt, device=devices[0])
     labels = (args.labels.split(",") if args.labels
               else list(DataConfig().pathology_labels))
     S = cfg.vit.image_size
@@ -125,13 +141,15 @@ def main(argv=None):
     if args.image_mode == "synthetic":
         image_source = synthetic_image_source(cfg)
     elif args.image_mode == "jpeg_root":
-        feature_source, _ = jpeg_feature_source(model.eval(),
-                                                args.cxr_jpeg_root)
+        feature_source, _ = jpeg_feature_source(
+            model.eval(), args.cxr_jpeg_root,
+            devices=devices if len(devices) > 1 else None)
     pred = BatchingPredictor(
         model, image_source=image_source, feature_source=feature_source,
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
-        dtype=torch.bfloat16, labels=labels, device=args.device).start()
+        dtype=torch.bfloat16, labels=labels, device=args.device,
+        data_parallel=args.data_parallel).start()
 
     T, V = cfg.duett.n_timesteps, cfg.duett.n_variables
     example = {"x_ts": np.zeros((T, 2 * V), np.float32),
@@ -148,7 +166,8 @@ def main(argv=None):
                 "perceiver": cfg.perceiver_type}
         server = make_server(pred, args.host, args.port, meta=meta)
         print(f"serving on http://{args.host}:{server.server_address[1]} "
-              f"(mode={args.image_mode}, device={args.device})", flush=True)
+              f"(mode={args.image_mode}, device={args.device}, "
+              f"replicas={len(devices)})", flush=True)
         try:
             serve_forever(server)
         except KeyboardInterrupt:

@@ -23,7 +23,8 @@ from ..data.sliding import build_sliding_ssl_dataset
 from ..train.ssl_loop import train_ssl
 from ..utils.logging import Logger
 from .common import (add_common_flags, configs_from_args, load_data,
-                     make_run_dir, sync_duett_with_meta, wandb_project)
+                     join_process_group, make_run_dir,
+                     sync_duett_with_meta, wandb_project)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -53,6 +54,7 @@ def main(argv=None):
     if args.state_backend == "orbax":
         raise NotImplementedError("--state_backend orbax is not ported yet "
                                   "(ROADMAP P16)")
+    join_process_group(args)
     dcfg, duett, tcfg = configs_from_args(args)
     duett = duett.replace(pretrain_masked_steps=args.pretrain_masked_steps)
     logger = Logger("duett_ssl", wandb_project(args),

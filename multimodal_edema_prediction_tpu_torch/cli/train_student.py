@@ -30,7 +30,8 @@ from ..ops.losses import resolve_kd_loss
 from ..train.kd_loop import train_student_kd
 from ..utils.logging import Logger
 from .common import (add_common_flags, configs_from_args, load_data,
-                     make_run_dir, sync_duett_with_meta, wandb_project)
+                     join_process_group, make_run_dir,
+                     sync_duett_with_meta, wandb_project)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -73,6 +74,7 @@ def main(argv=None):
         raise NotImplementedError("--state_backend orbax is not ported yet "
                                   "(ROADMAP P16)")
     resolve_kd_loss(args.kd_name)
+    join_process_group(args)
     dcfg, duett, tcfg = configs_from_args(args)
     tcfg = tcfg.replace(kd_name=args.kd_name, kd_T=args.kd_T,
                         kd_alpha=args.kd_alpha)

@@ -61,7 +61,8 @@ from ..train.ssl_loop import transplant_encoder
 from ..train.teacher_loop import pretrained_head_spec, train_teacher
 from ..utils.logging import Logger
 from .common import (add_common_flags, configs_from_args, load_data,
-                     make_run_dir, sync_duett_with_meta, wandb_project)
+                     join_process_group, make_run_dir,
+                     sync_duett_with_meta, wandb_project)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -216,6 +217,7 @@ def main(argv=None):
         raise NotImplementedError("--state_backend orbax is not ported yet "
                                   "(ROADMAP P16)")
 
+    join_process_group(args)
     dcfg, duett, tcfg = configs_from_args(args)
     vit = vit_config(args)
     logger = Logger("teacher", wandb_project(args),

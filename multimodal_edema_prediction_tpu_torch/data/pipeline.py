@@ -13,8 +13,12 @@
    ``train_test_split`` over the CXR catalog, written here in numpy
    (``train_test_split`` below) because the port does not use sklearn.
 
-Single process only: the JAX package's host-partitioned batches
-(multi-process feeding) wait for ROADMAP P18.
+Multi-process feeding (JAX ``pipeline.py:262-360``): every process builds
+the same global batches and keeps its own rows
+(``parallel/multihost.split_batch_for_process``), and with
+``host_partition_count`` P the global batch is composed of P per-partition
+picks (``image_id % P``), so that a rank's rows only name its own images and
+its image bank or feature store holds only those.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ..config import DataConfig
+from ..parallel.multihost import split_batch_for_process
 from .meta import Meta
 from .synthetic import AnchorTable, EventTable, StaticTable
 
@@ -323,9 +328,14 @@ class AnchorDataset:
     meta: Meta
     n_timesteps: int
     # optional host-side batch transform (e.g. the feature bank's id → row
-    # rewrite); applied by iter_batches so trainers and evaluators see the
-    # same enriched batches.
+    # rewrite); applied by iter_batches, to this process's rows only, so
+    # trainers and evaluators see the same enriched batches.
     batch_hook: Optional[Callable[[dict], dict]] = None
+    # >0: partition samples over this many processes by image_id % P, and
+    # build each global batch as the concat of the partitions' picks, so
+    # that process p's rows only name ITS OWN images (per-process image
+    # banks and feature stores; the anchor arrays stay on every process)
+    host_partition_count: int = 0
 
     def to(self, device) -> "AnchorDataset":
         """Move the grid and the static table to ``device`` (in place)."""
@@ -360,7 +370,14 @@ class AnchorDataset:
         """Fixed-shape host batches in the JAX package's order (a seeded
         permutation when shuffling; shuffled training drops the ragged tail,
         evaluation pads it with the batch's first row, masked out through
-        ``y_multi_mask`` and ``valid``)."""
+        ``y_multi_mask`` and ``valid``). ``batch_size`` is the GLOBAL batch:
+        in a multi-process run each process gets its contiguous rows, the
+        labels' global copies under ``_global``, and runs the hook on its
+        rows alone."""
+        if self.host_partition_count > 0:
+            yield from self._iter_batches_partitioned(
+                name, batch_size, shuffle, seed, drop_last, limit)
+            return
         idx = self.splits[name]
         if shuffle:
             idx = np.random.default_rng(seed).permutation(idx)
@@ -380,6 +397,62 @@ class AnchorDataset:
             else:
                 batch = self.anchor_batch(b)
                 batch["valid"] = np.ones(batch_size, np.float32)
+            batch = split_batch_for_process(batch)
+            if self.batch_hook is not None:
+                batch = self.batch_hook(batch)
+            yield batch
+            count += 1
+            if limit and count >= limit:
+                return
+
+    def _iter_batches_partitioned(self, name: str, batch_size: int,
+                                  shuffle: bool, seed: int,
+                                  drop_last: Optional[bool], limit: int
+                                  ) -> Iterator[dict]:
+        """Partitioned batch composition (JAX ``pipeline.py:306-360``):
+        every process computes the same global batches, each the concat of
+        the P partitions' next ``batch_size/P`` picks, so that after the
+        process split process p's rows name only partition p's images. An
+        uneven pool pads with its own first element, masked through
+        ``valid`` and ``y_multi_mask``; shuffled training drops each pool's
+        ragged tail instead."""
+        P = self.host_partition_count
+        if batch_size % P:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{P} host partitions")
+        local = batch_size // P
+        idx = self.splits[name]
+        assign = self.anchor["image_ids"][idx] % P
+        pools = [idx[assign == p] for p in range(P)]
+        for p_i, pool in enumerate(pools):
+            if len(pool) == 0:
+                raise ValueError(
+                    f"host partition {p_i} owns no samples in split "
+                    f"{name!r}: too many partitions for this cohort")
+        rng = np.random.default_rng(seed)
+        if shuffle:
+            pools = [rng.permutation(p) for p in pools]
+        drop = shuffle if drop_last is None else drop_last
+        if drop:
+            nb = min(len(p) // local for p in pools)
+        else:
+            nb = max((len(p) + local - 1) // local for p in pools)
+        count = 0
+        for i in range(nb):
+            picks, valid = [], []
+            for p in pools:
+                b = p[i * local:(i + 1) * local]
+                pad = local - len(b)
+                if pad:
+                    fill = p[:1] if len(b) == 0 else b[:1]
+                    b = np.concatenate([b, np.repeat(fill, pad)])
+                picks.append(b)
+                valid.append(np.r_[np.ones(local - pad), np.zeros(pad)])
+            batch = self.anchor_batch(np.concatenate(picks))
+            v = np.concatenate(valid).astype(np.float32)
+            batch["valid"] = v
+            batch["y_multi_mask"] = batch["y_multi_mask"] * v[:, None]
+            batch = split_batch_for_process(batch)
             if self.batch_hook is not None:
                 batch = self.batch_hook(batch)
             yield batch

@@ -67,8 +67,10 @@ class DevicePrefetcher:
         return False
 
     def _stage(self, batch: dict):
-        """(tensors, the copy's event or None, the pinned host tensors)."""
-        host = {k: _host_tensor(v) for k, v in batch.items()}
+        """(tensors, the copy's event or None, the pinned host tensors);
+        the batch's ``_``-keys (host-only side channels) stay behind."""
+        host = {k: _host_tensor(v) for k, v in batch.items()
+                if not k.startswith("_")}
         if not self._cuda:
             return host, None, None
         pinned = {k: t.pin_memory() for k, t in host.items()

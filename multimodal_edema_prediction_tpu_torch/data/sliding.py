@@ -19,6 +19,7 @@ from typing import Dict, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel.multihost import split_batch_for_process
 from .meta import Meta
 from .pipeline import densify_events, encode_static_table
 
@@ -60,18 +61,21 @@ class SlidingSSLDataset:
     def iter_batches(self, name: str, batch_size: int, shuffle: bool,
                      seed: int = 0, limit: int = 0) -> Iterator[dict]:
         """Fixed-shape host batches in the JAX package's order (a seeded
-        permutation when shuffling); the incomplete last batch is
-        dropped."""
+        permutation when shuffling); the incomplete last batch is dropped.
+        ``batch_size`` is the GLOBAL batch: in a multi-process run each
+        process gets its contiguous rows (JAX ``sliding.py:52-81``,
+        ``parallel/multihost.split_batch_for_process``)."""
         pairs = self.samples[name]
         if shuffle:
             pairs = np.random.default_rng(seed).permutation(pairs)
         n = len(pairs) - (len(pairs) % batch_size)
         for count, i in enumerate(range(0, n, batch_size), start=1):
             b = pairs[i:i + batch_size]
-            yield {"stay_rows": b[:, 0],
-                   "slot_idx": b[:, 1] + self.n_timesteps,   # slot_end
-                   "bin_ends": np.broadcast_to(
-                       self.bin_ends, (batch_size, self.n_timesteps))}
+            yield split_batch_for_process({
+                "stay_rows": b[:, 0],
+                "slot_idx": b[:, 1] + self.n_timesteps,   # slot_end
+                "bin_ends": np.broadcast_to(
+                    self.bin_ends, (batch_size, self.n_timesteps))})
             if limit and count >= limit:
                 return
 
@@ -87,6 +91,8 @@ class StayLabelDataset(SlidingSSLDataset):
                      seed: int = 0, limit: int = 0) -> Iterator[dict]:
         for b in super().iter_batches(name, batch_size, shuffle, seed, limit):
             b["y"] = self.labels[b["stay_rows"]]
+            if "_global" in b:   # multi-process: the global labels, for eval
+                b["_global"]["y"] = self.labels[b["_global"]["stay_rows"]]
             yield b
 
     def pos_frac(self, name: str = "train") -> float:

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..config import DuettConfig
+from ..parallel.multihost import draw_rows
 from .layers import (CVE, PerVariableMLP, SimpleMLP, TransformerEncoder,
                      init_like_flax)
 
@@ -50,8 +51,9 @@ def feats_to_input(x_ts: torch.Tensor, x_static: torch.Tensor,
             raise ValueError("augmentation needs a torch.Generator")
 
         def normal(shape, dtype):
-            return torch.randn(shape, generator=gen, device=x_ts.device,
-                               dtype=torch.float32).to(dtype)
+            return draw_rows(lambda sh: torch.randn(
+                sh, generator=gen, device=x_ts.device,
+                dtype=torch.float32), shape).to(dtype)
 
         if aug_noise > 0:
             values = values + aug_noise * normal(values.shape,
@@ -59,8 +61,8 @@ def feats_to_input(x_ts: torch.Tensor, x_static: torch.Tensor,
             x_static = x_static + aug_noise * normal(x_static.shape,
                                                      x_static.dtype)
         if aug_mask > 0:
-            m = torch.rand(B, T, generator=gen, device=x_ts.device) \
-                < aug_mask
+            m = draw_rows(lambda sh: torch.rand(
+                sh, generator=gen, device=x_ts.device), (B, T)) < aug_mask
             values = values.masked_fill(m[..., None], 0.0)
             counts = counts.masked_fill(m[..., None], 0.0)
             mask_col = m[..., None].to(x_ts.dtype)
@@ -105,8 +107,8 @@ def pretrain_prep_batch(x_ts: torch.Tensor, masked_steps: int = 1,
 
     values, counts = x_ts[..., :V], x_ts[..., V:]
     if mask_idx is None:
-        mask_idx = torch.randint(0, T, (B, S), generator=need_gen(),
-                                 device=dev)
+        mask_idx = draw_rows(lambda sh: torch.randint(
+            0, T, sh, generator=need_gen(), device=dev), (B, S))
     mask_idx = mask_idx.to(device=dev, dtype=torch.int64).reshape(B, S)
     idx = mask_idx[..., None].expand(B, S, V)
     y_value = torch.gather(values, 1, idx)                     # [B,S,V]
@@ -118,8 +120,8 @@ def pretrain_prep_batch(x_ts: torch.Tensor, masked_steps: int = 1,
     mask_col = row_masked[..., None].to(x_ts.dtype)
 
     if event_var is None:
-        event_var = torch.randint(0, V, (B,), generator=need_gen(),
-                                  device=dev)
+        event_var = draw_rows(lambda sh: torch.randint(
+            0, V, sh, generator=need_gen(), device=dev), (B,))
     event_var = event_var.to(device=dev, dtype=torch.int64).reshape(B)
     rows = torch.arange(B, device=dev)
     y_events = values[rows, :, event_var]                      # [B,T]
@@ -131,7 +133,8 @@ def pretrain_prep_batch(x_ts: torch.Tensor, masked_steps: int = 1,
         x_cnt = x_cnt.masked_fill(vmask, -1.0)
 
     if pretrain_dropout > 0:
-        keep = torch.rand(B, V, generator=need_gen(), device=dev) \
+        keep = draw_rows(lambda sh: torch.rand(
+            sh, generator=need_gen(), device=dev), (B, V)) \
             > pretrain_dropout
         observed_at_masked = y_presence_mask.sum(dim=1).clamp(0.0, 1.0)
         keep = (observed_at_masked < 0.5) | keep                # [B,V]

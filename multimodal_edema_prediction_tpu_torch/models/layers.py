@@ -11,7 +11,10 @@ reading ``nn.Module.training``, so that a frozen submodule can run in eval
 mode inside a training step. With ``train=True`` dropout draws from the
 ``torch.Generator`` passed as ``gen`` (flax's ``"dropout"`` rng), and
 BatchNorm normalizes with batch statistics and updates its running buffers
-in place (flax's mutable ``"batch_stats"``).
+in place (flax's mutable ``"batch_stats"``). In a multi-process run
+(``parallel/multihost.py``) both take the global batch's meaning: dropout
+keeps this rank's rows of the global batch's draw, and BatchNorm the global
+batch's statistics.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ from torch import nn
 
 from ..ops.attention import flash_mha
 from ..ops.int8 import int8_dense, int8_out_bhnk, int8_proj_bhnk
+from ..parallel.multihost import all_reduce_sum, draw_rows, process_count
 
 
 def dropout(x: torch.Tensor, p: float, train: bool,
@@ -35,7 +39,9 @@ def dropout(x: torch.Tensor, p: float, train: bool,
         return x
     if gen is None:
         raise ValueError("dropout while training needs a torch.Generator")
-    keep = torch.rand(x.shape, generator=gen, device=x.device) < 1.0 - p
+    keep = draw_rows(lambda sh: torch.rand(sh, generator=gen,
+                                           device=x.device), x.shape) \
+        < 1.0 - p
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
@@ -43,13 +49,25 @@ def _batch_moments(x: torch.Tensor, dims: tuple, running_mean: torch.Tensor,
                    running_var: torch.Tensor):
     """Batch mean and biased variance over ``dims`` in float32, with the
     running update of torch BatchNorm1d: momentum 0.1 and the UNBIASED
-    variance (×n/(n−1)), as the JAX ``_TorchBatchNorm`` does."""
+    variance (×n/(n−1)), as the JAX ``_TorchBatchNorm`` does. In a
+    multi-process run the moments and n are the global batch's, summed over
+    the ranks (``parallel/multihost.all_reduce_sum``), as JAX's sharded
+    mean is; one process takes the local path unchanged."""
     x32 = x.float()
-    mean = x32.mean(dim=dims)
-    var = x32.var(dim=dims, unbiased=False)
     n = 1
     for d in dims:
         n *= x.shape[d]
+    world = process_count()
+    if world == 1:
+        mean = x32.mean(dim=dims)
+        var = x32.var(dim=dims, unbiased=False)
+    else:
+        # the global batch's moments (two passes over every rank's rows)
+        n *= world
+        mean = all_reduce_sum(x32.sum(dim=dims)) / n
+        dev = x32 - mean.reshape([1 if i in dims else s
+                                  for i, s in enumerate(x32.shape)])
+        var = all_reduce_sum((dev * dev).sum(dim=dims)) / n
     with torch.no_grad():
         running_mean.copy_(0.9 * running_mean + 0.1 * mean)
         running_var.copy_(0.9 * running_var

@@ -5,7 +5,11 @@
 ``multimodal_edema_prediction_tpu/ops/losses.py:18-199``.
 
 Every function computes in float32 whatever the dtype of its inputs, and
-returns float32 scalars or [K] vectors.
+returns float32 scalars or [K] vectors. Their means divide by counts of the
+batch they are given: in a multi-process run the steps
+(``train/engine.py``) hand them the global batch's rows, gathered over the
+ranks, so a count of valid entries is the global count, as under JAX's
+GSPMD, and never a mean of the ranks' means.
 """
 from __future__ import annotations
 

@@ -16,12 +16,19 @@ normalized on the device inside the step. Given an ``image_source`` or a
 ``image_id`` instead and batches carry ``image_ids``. A teacher of a
 residual-fusion mode serves (``dual_patch``, ``dual_patch_event``,
 ``dual``); a ``single`` or ``legacy`` one has no fusion logits, and its
-batches fail with the JAX predictor's ``RuntimeError``. The JAX package's
-``mesh`` (data-parallel serving) and ``aot_dir`` (persisted executables)
-have no counterpart yet (ROADMAP P17/P18).
+batches fail with the JAX predictor's ``RuntimeError``.
+
+- **Data parallelism** (``data_parallel`` N, JAX's ``mesh``,
+  ``predictor.py:117-135``): N replicas of the model, one per card (on the
+  CPU, N replicas of the one device); every bucket is a multiple of N, each
+  batch is split into N equal parts, each part runs on its replica, and the
+  outputs are concatenated in order. N above the cards there are raises
+  JAX's ``create_mesh`` error. ``aot_dir`` (persisted executables) has no
+  counterpart yet (ROADMAP P10).
 """
 from __future__ import annotations
 
+import copy
 import queue
 import threading
 import time
@@ -32,6 +39,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..parallel import mesh as meshlib
 from ..train import engine
 from ..utils import resolve_device
 
@@ -84,6 +92,17 @@ def _bucket_ladder(max_batch: int) -> tuple:
     return tuple(sizes)
 
 
+def replica_devices(device: torch.device, n: int) -> list:
+    """The devices of ``n`` replicas: cards 0..n-1 for a CUDA ``device``
+    (``create_mesh``'s error when there are fewer), else ``device`` n
+    times."""
+    if n <= 1:
+        return [device]
+    pool = [torch.device("cuda", i) for i in range(torch.cuda.device_count())
+            ] if device.type == "cuda" else [device] * n
+    return list(meshlib.create_mesh(n, 1, pool).devices)
+
+
 class BatchingPredictor:
     """Threaded micro-batching front end over one teacher eval step.
 
@@ -100,6 +119,9 @@ class BatchingPredictor:
     dtype: compute dtype (parameters stay float32, cast at use).
     device: where the model runs; ``"cuda"`` unless the caller asks for the
         CPU. The model is moved there.
+    data_parallel: replicas of the model (module docstring); the buckets
+        become multiples of it. ``feature_source`` may then be one source
+        per replica, each reading a bank on its replica's device.
     """
 
     def __init__(self, model, *, image_source: Optional[Callable] = None,
@@ -107,16 +129,30 @@ class BatchingPredictor:
                  max_batch: int = 32,
                  max_wait_ms: float = 4.0, max_queue: int = 1024,
                  dtype=torch.bfloat16, labels: Optional[Sequence[str]] = None,
-                 device="cuda"):
-        self._device = resolve_device(device)
-        self._model = model.to(self._device).eval()
+                 device="cuda", data_parallel: int = 1):
+        self.devices = replica_devices(resolve_device(device),
+                                       int(data_parallel))
+        self._model = model.to(self.devices[0]).eval()
         self._pixel_mode = image_source is None and feature_source is None
-        self._step = engine.make_teacher_eval_from_windows(
-            self._model, dtype,
-            image_source=image_source or engine.default_image_source,
-            feature_source=feature_source)
+        n = len(self.devices)
+        sources = list(feature_source) \
+            if isinstance(feature_source, (list, tuple)) \
+            else [feature_source] * n
+        if len(sources) != n:
+            raise ValueError(f"{len(sources)} feature sources for {n} "
+                             "replicas")
+        self._steps = []
+        for dev, source in zip(self.devices, sources):
+            replica = self._model if dev == self.devices[0] \
+                else copy.deepcopy(self._model).to(dev)
+            self._steps.append(engine.make_teacher_eval_from_windows(
+                replica, dtype,
+                image_source=image_source or engine.default_image_source,
+                feature_source=source))
         self._cfg = model.cfg
-        self.buckets = _bucket_ladder(max(1, int(max_batch)))
+        # every bucket a multiple of the replicas (JAX predictor.py:127-135)
+        self.buckets = tuple(b * n for b in _bucket_ladder(
+            max(1, int(max_batch) // n)))
         self.max_wait_s = float(max_wait_ms) / 1e3
         self._q: "queue.Queue[_Item]" = queue.Queue(maxsize=int(max_queue))
         self._stats = PredictorStats()
@@ -267,6 +303,23 @@ class BatchingPredictor:
                 [items[i].image_id for i in idx], np.int32)
         return x_ts, static, batch
 
+    def _forward(self, x_ts, static, batch: dict) -> dict:
+        """The bucket's outputs as host arrays: one replica's step, or each
+        replica's equal part (all launched before any is read back),
+        concatenated in order."""
+        n = len(self._steps)
+        if n == 1:
+            return {k: v.cpu().numpy() for k, v in
+                    self._steps[0](x_ts, static, batch).items()}
+        part = len(x_ts) // n
+        outs = [step(x_ts[i * part:(i + 1) * part],
+                     static[i * part:(i + 1) * part],
+                     {k: v[i * part:(i + 1) * part]
+                      for k, v in batch.items()})
+                for i, step in enumerate(self._steps)]
+        return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
+                for k in outs[0]}
+
     def _run_batch(self, items: list, bucket: Optional[int] = None,
                    record: bool = True) -> None:
         n = len(items)
@@ -276,8 +329,8 @@ class BatchingPredictor:
         # inference mode is thread-local: entered here, in the thread that
         # runs the model
         with torch.inference_mode():
-            out = self._step(x_ts, static, batch)
-            out = {k: v[:n].cpu().numpy() for k, v in out.items()}
+            out = self._forward(x_ts, static, batch)
+            out = {k: v[:n] for k, v in out.items()}
         if "fusion_logits" not in out:
             raise RuntimeError(
                 "serving requires a dual_patch/dual-mode teacher (got a "

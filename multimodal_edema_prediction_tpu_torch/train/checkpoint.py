@@ -464,6 +464,12 @@ class FullStateResumer:
 
     def save(self, state, epoch: int, stopper, tracker, history: list,
              n_steps: int, gen) -> None:
+        """Call on every process; only the main one writes (JAX
+        ``checkpoint.py:195-216``, msgpack backend): the ranks hold the
+        same state, and a shared directory takes one writer."""
+        from ..parallel.multihost import is_main_process
+        if not is_main_process():
+            return
         meta: Any = {"epoch": epoch, "stopper_best": stopper.best,
                      "bad_epochs": stopper.bad_epochs,
                      "tracker": tracker.entries, "history": history,

@@ -36,6 +36,7 @@ from ..ops.losses import masked_per_label_bce
 from ..utils import resolve_device
 from .checkpoint import load_checkpoint, save_checkpoint
 from .engine import default_image_source, to_device
+from .loops import refuse_multi_process
 from .optim import MultiGroupAdamW
 
 
@@ -145,6 +146,7 @@ def train_cxr_head(cls_features: np.ndarray, labels: np.ndarray,
     ``seed``). Returns {"best_val_macro_auroc", "test_macro_auroc",
     "test_per_label", "val_macro_auroc" (per epoch), "ckpt_path",
     "head"}."""
+    refuse_multi_process("CXR-head training", "P18b")
     dev = resolve_device(device)
     K = labels.shape[1]
     if head is None:

@@ -13,7 +13,11 @@ augmentation → model forward/backward → optimizer update. The encode-once
 tier's ``feature_source`` (``data/features.py``) and the pixel tier's
 ``image_source`` share one code path, as in JAX: the first replaces the ViT
 forward with two K2 gathers (the device bank) or with the tokens the host
-store's hook attached to the batch. On the pixel tier with
+store's hook attached to the batch. In a multi-process run each rank's step
+sees its rows of the global batch; the outputs that feed a loss and their
+labels are gathered over the ranks first (``parallel/multihost.gather_rows``,
+the identity for one process), so every masked count is the global batch's
+and each rank's gradient is its rows' share of the global one. On the pixel tier with
 ``freeze_cxr=False`` the ViT trains in the step: nothing here detaches its
 tokens, and its attention's backward runs K1's dkv and dq kernels.
 """
@@ -30,6 +34,8 @@ from ..models.duett import feats_to_input, pretrain_prep_batch
 from ..models.teacher import ATTN_KEYS
 from ..models.vit import normalize_image
 from ..ops import losses as L
+from ..parallel.multihost import gather_rows as G
+from ..parallel.multihost import param_term
 from .state import TrainState
 
 EVAL_KEYS = ("main_logit", "img_logits", "ts_logits", "fusion_logits",
@@ -53,8 +59,10 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
 
 
 def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host batch (numpy) → tensors on ``device``, copied ``non_blocking``."""
-    return {k: _as_tensor(v, device) for k, v in batch.items()}
+    """Host batch (numpy) → tensors on ``device``, copied ``non_blocking``;
+    host-only side channels (``_global``, any ``_``-key) stay behind."""
+    return {k: _as_tensor(v, device) for k, v in batch.items()
+            if not k.startswith("_")}
 
 
 def _prep_inputs(grid, static, batch, n_timesteps, dtype, gen=None,
@@ -113,22 +121,23 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
                           gen=gen, cxr_feats=feats)
         lw = torch.as_tensor(label_weights, dtype=torch.float32,
                              device=x_in.device)
+        img, y, ym = G(out["img_logits"]), G(batch["y_multi"]), \
+            G(batch["y_multi_mask"])
         losses = L.dual_pathology_loss(
-            out["img_logits"], out["ts_logits"], out["fusion_logits"],
-            batch["y_multi"], batch["y_multi_mask"], lw, pos_weight,
-            cfg.alpha_img, cfg.alpha_ts, cfg.alpha_fus)
+            img, G(out["ts_logits"]), G(out["fusion_logits"]), y, ym, lw,
+            pos_weight, cfg.alpha_img, cfg.alpha_ts, cfg.alpha_fus)
         total = losses["total"]
+        if cfg.aux_residual_alpha > 0.0 or lp_mode:
+            corr = G(out["scaled_correction"])
         if cfg.aux_residual_alpha > 0.0:
-            aux = L.aux_residual_kl(out["img_logits"],
-                                    out["scaled_correction"],
-                                    batch["y_multi"], batch["y_multi_mask"])
+            aux = L.aux_residual_kl(img, corr, y, ym)
             losses["aux_residual"] = aux
             total = total + cfg.aux_residual_alpha * aux
         if lp_mode:
             beta = state.model.perceiver.beta
-            losses["reg_beta_l2"] = lp_beta_l2 * (beta ** 2).mean()
-            losses["reg_corr_l2"] = lp_corr_l2 * (
-                out["scaled_correction"] ** 2).mean()
+            losses["reg_beta_l2"] = lp_beta_l2 * param_term(
+                (beta ** 2).mean())
+            losses["reg_corr_l2"] = lp_corr_l2 * (corr ** 2).mean()
             total = total + losses["reg_beta_l2"] + losses["reg_corr_l2"]
         losses["total"] = total
         state.apply_gradients(total)
@@ -164,9 +173,9 @@ def make_teacher_pathology_step(cfg: TrainConfig, duett_cfg: DuettConfig,
         lw = torch.as_tensor(label_weights, dtype=torch.float32,
                              device=x_in.device)
         losses = L.pathology_multilabel_loss(
-            out["stage2_logits"], out["stage4_logits"], batch["y_multi"],
-            batch["y_multi_mask"], lw, pos_weight, alpha_stage2,
-            alpha_stage4)
+            G(out["stage2_logits"]), G(out["stage4_logits"]),
+            G(batch["y_multi"]), G(batch["y_multi_mask"]), lw, pos_weight,
+            alpha_stage2, alpha_stage4)
         state.apply_gradients(losses["total"])
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["main_logit"] = out["main_logit"].detach().float()
@@ -192,8 +201,9 @@ def make_teacher_legacy_step(cfg: TrainConfig, duett_cfg: DuettConfig,
             duett_cfg.aug_noise, duett_cfg.aug_mask, train=True)
         out = state.model(x_in, x_static, times,
                           image_source(batch).to(dtype), train=True, gen=gen)
-        main_loss = L.bce_with_logits(out["main_logit"], batch["y"])
-        aux_loss = L.bce_with_logits(out["aux_logit"], batch["y"]) \
+        y = G(batch["y"])
+        main_loss = L.bce_with_logits(G(out["main_logit"]), y)
+        aux_loss = L.bce_with_logits(G(out["aux_logit"]), y) \
             if aux_alpha > 0 else torch.zeros((), device=x_in.device)
         total = main_loss + aux_alpha * aux_loss
         state.apply_gradients(total)
@@ -329,7 +339,7 @@ def make_kd_step(cfg: TrainConfig, duett_cfg: DuettConfig, n_timesteps: int,
             grid, static, batch, n_timesteps, dtype, gen,
             duett_cfg.aug_noise, duett_cfg.aug_mask, train=True)
         z_s = state.model(x_in, x_static, times, train=True, gen=gen)
-        losses = L.student_kd_loss(z_s, z_t, batch["y"], cfg.kd_T,
+        losses = L.student_kd_loss(G(z_s), G(z_t), G(batch["y"]), cfg.kd_T,
                                    cfg.kd_alpha, kd_name=cfg.kd_name)
         state.apply_gradients(losses["total"])
         metrics = {k: v.detach() for k, v in losses.items()}
@@ -354,9 +364,10 @@ def _ssl_forward(model, duett_cfg: DuettConfig, n_timesteps: int, grid,
     pb = pb._replace(x_in=pb.x_in.to(dtype))
     out = model(pb, x_static, times, train=train, gen=gen)
     return L.ssl_pretrain_loss(
-        out["y_hat_value"], out["y_hat_presence"], out["y_hat_events"],
-        out["y_hat_events_presence"], pb.y_value, pb.y_presence_mask,
-        pb.y_events, pb.y_events_mask,
+        G(out["y_hat_value"]), G(out["y_hat_presence"]),
+        G(out["y_hat_events"]), G(out["y_hat_events_presence"]),
+        G(pb.y_value), G(pb.y_presence_mask), G(pb.y_events),
+        G(pb.y_events_mask),
         pretrain_value=duett_cfg.pretrain_value,
         pretrain_presence=duett_cfg.pretrain_presence,
         presence_weight=duett_cfg.pretrain_presence_weight,

@@ -4,7 +4,11 @@ tables; the port's counterpart of
 ``multimodal_edema_prediction_tpu/train/evaluator.py`` (reference
 ``training_duett/evaluator.py:101-175, :198-391``). Logits stream from
 the eval step to host numpy; metrics are the sklearn-exact numpy
-implementations in :mod:`..ops.metrics`.
+implementations in :mod:`..ops.metrics`. In a multi-process run each rank
+evaluates its rows; the outputs are gathered over the ranks
+(``parallel/multihost.fetch_global``) and aligned with the global labels
+the dataset keeps under ``batch["_global"]`` (JAX ``evaluator.py:25-39``),
+so every rank computes the same metrics.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..ops import metrics as M
+from ..parallel.multihost import fetch_global
 from .engine import to_device
 
 
@@ -26,16 +31,18 @@ def collect_dual_outputs(eval_step, model, dataset, split: str,
     acc = {k: [] for k in ("img", "ts", "fus", "corr", "y", "mask", "main")}
     for batch in dataset.iter_batches(split, batch_size, shuffle=False,
                                       limit=limit):
-        valid = np.asarray(batch.pop("valid")) > 0
+        src = batch.get("_global", batch)
+        valid = np.asarray(src["valid"]) > 0
+        batch.pop("valid")
         out = eval_step(model, dataset.grid, dataset.static,
                         to_device(batch, device))
         for key, name in (("img", "img_logits"), ("ts", "ts_logits"),
                           ("fus", "fusion_logits"),
                           ("corr", "scaled_correction"),
                           ("main", "main_logit")):
-            acc[key].append(out[name].cpu().numpy()[valid])
-        acc["y"].append(np.asarray(batch["y_multi"])[valid])
-        acc["mask"].append(np.asarray(batch["y_multi_mask"])[valid])
+            acc[key].append(fetch_global(out[name])[valid])
+        acc["y"].append(np.asarray(src["y_multi"])[valid])
+        acc["mask"].append(np.asarray(src["y_multi_mask"])[valid])
     return {k: np.concatenate(v) for k, v in acc.items()}
 
 
@@ -98,13 +105,15 @@ def evaluate_pathology(eval_step, model, dataset, split: str,
     acc = {k: [] for k in ("s2", "s4", "y", "mask")}
     for batch in dataset.iter_batches(split, batch_size, shuffle=False,
                                       limit=limit):
-        valid = np.asarray(batch.pop("valid")) > 0
+        src = batch.get("_global", batch)
+        valid = np.asarray(src["valid"]) > 0
+        batch.pop("valid")
         out = eval_step(model, dataset.grid, dataset.static,
                         to_device(batch, device))
-        acc["s2"].append(out["stage2_logits"].cpu().numpy()[valid])
-        acc["s4"].append(out["stage4_logits"].cpu().numpy()[valid])
-        acc["y"].append(np.asarray(batch["y_multi"])[valid])
-        acc["mask"].append(np.asarray(batch["y_multi_mask"])[valid])
+        acc["s2"].append(fetch_global(out["stage2_logits"])[valid])
+        acc["s4"].append(fetch_global(out["stage4_logits"])[valid])
+        acc["y"].append(np.asarray(src["y_multi"])[valid])
+        acc["mask"].append(np.asarray(src["y_multi_mask"])[valid])
     o = {k: np.concatenate(v) for k, v in acc.items()}
     per = M.masked_multilabel_metrics(o["y"], o["mask"],
                                       {"stage2": o["s2"], "stage4": o["s4"]})

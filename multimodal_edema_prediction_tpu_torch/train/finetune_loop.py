@@ -115,7 +115,7 @@ def finetune_duett(ds: StayLabelDataset, duett_cfg: DuettConfig,
     measurement reads: the averaged model's state as it sits on the device
     (``avg_state``), the kept checkpoints (``entries``), and the train steps
     and their wall seconds."""
-    refuse_multi_process("fine-tuning", "P18")
+    refuse_multi_process("fine-tuning", "P18b")
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     ds.to(dev)

@@ -29,10 +29,18 @@ boundary and ends the call cleanly. The teacher may be of any mode: the
 student distills its ``main_logit`` (JAX ``kd_loop.py:80-82``; the
 reference distills only from ``dual``). Not ported, each
 refused naming its ROADMAP item: multi-step dispatch (``steps_per_call >
-1``, P10), the orbax backend (P16), more than one process (P18).
+1``, P10), the orbax backend (P16).
+
+Multi-process (JAX ``kd_loop.py:74-311``): under an initialised
+``torch.distributed`` group each rank distills on its rows of the same
+global batches (``parallel/multihost.py``: the global batch's loss and
+draws, gradients summed over the ranks); a cached tier encodes only the
+rank's ``image_id % P`` share into a host store (no card bank); every rank
+keeps the best student in memory and tests it, and only rank 0 writes.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Callable, Optional
 
@@ -41,12 +49,13 @@ import torch
 from ..config import StudentConfig, TrainConfig
 from ..data.pipeline import AnchorDataset
 from ..models.student import StudentModel, init_student
+from ..parallel import mesh as meshlib
+from ..parallel import multihost as mh
 from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer,
                          load_student_from_ckpt, load_teacher_from_ckpt)
-from .loops import (EarlyStopper, TrainResult, evaluate_binary_split,
-                    refuse_multi_process)
+from .loops import EarlyStopper, TrainResult, evaluate_binary_split
 from .optim import MultiGroupAdamW
 from .ssl_loop import transplant_encoder
 from .state import TrainState, param_count
@@ -56,13 +65,18 @@ from .teacher_loop import (DTYPES, _sync, build_feature_tier,
 LOSS_KEYS = ("total", "bce", "kd")
 
 
-def check_ported(cfg: TrainConfig) -> None:
-    """Raise on what the port cannot run yet, on every device."""
+def check_ported(cfg: TrainConfig) -> int:
+    """Raise on what the port cannot run yet, on every device, or on a
+    launcher's process count with no group to run it; → the process
+    count."""
     if cfg.steps_per_call > 1:
         raise NotImplementedError(
             f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
             "not ported yet (ROADMAP P10)")
-    refuse_multi_process("KD", "P18")
+    world = mh.check_group()
+    if world > 1:
+        meshlib.create_mesh(cfg.n_data, cfg.n_model)
+    return world
 
 
 def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
@@ -92,13 +106,13 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
     once per unique image by the cached tiers. ``stop_after_epochs`` pauses
     after that many epochs of this call, the state saved as a preempted
     run's would be."""
-    check_ported(cfg)
+    multi = check_ported(cfg) > 1
     if feature_cache not in ("none", "auto", "hbm", "host"):
         raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
     if save_full_state is None:
         save_full_state = auto_resume
     resumer = FullStateResumer(ckpt_dir, state_backend)
-    dev = resolve_device(device)
+    dev = mh.rank_device(resolve_device(device))
     dtype = DTYPES[cfg.dtype]
 
     teacher, teacher_cfg, t_ckpt = load_teacher_from_ckpt(teacher_ckpt, dev)
@@ -154,6 +168,7 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
     cfg_dict = {"model": student_cfg.to_dict(), "train": cfg.to_dict(),
                 "teacher_ckpt": teacher_ckpt}
     history, start_epoch, n_steps = [], 0, 0
+    best_state = None   # multi-process: every rank keeps the best in memory
     if auto_resume:
         meta = resumer.restore(state)
         if meta is not None:
@@ -187,14 +202,19 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
         val = run_eval(model, "val")
         improved = stopper.update(val["auroc"])
         if improved:
-            tracker.offer(val["auroc"], model, state.step, cfg_dict)
+            if multi:
+                best_state = {k: v.detach().clone()
+                              for k, v in model.state_dict().items()}
+            if mh.is_main_process():
+                tracker.offer(val["auroc"], model, state.step, cfg_dict)
         history.append({"epoch": epoch,
                         **{f"train_{k}": v / nb for k, v in run.items()},
                         **val})
         log(f"epoch {epoch:3d}  loss={run['total'] / nb:.4f} "
             f"(bce={run['bce'] / nb:.3f} kd={run['kd'] / nb:.3f})  "
             f"val_auroc={val['auroc']:.4f}{'  *' if improved else ''}")
-        preempted = preemption.requested()
+        # agreed over the ranks: a SIGTERM may reach only some of them
+        preempted = mh.any_flag(preemption.requested())
         if save_full_state or preempted:
             resumer.save(state, epoch, stopper, tracker, history, n_steps,
                          gen)
@@ -211,10 +231,21 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
     _sync(dev)
     elapsed = time.perf_counter() - t_start
 
-    tracker.ensure_saved(model, state.step, cfg_dict)
-    best_metric, best_path = tracker.best
-    best_model, _, _ = load_student_from_ckpt(best_path, dev)
+    if mh.is_main_process():
+        tracker.ensure_saved(model, state.step, cfg_dict)
+        best_metric, best_path = tracker.best
+    else:
+        best_metric = stopper.best if stopper.best is not None \
+            else float("nan")
+        best_path = ""
+    if multi:
+        best_model = copy.deepcopy(model)
+        if best_state is not None:
+            best_model.load_state_dict(best_state)
+    else:
+        best_model, _, _ = load_student_from_ckpt(best_path, dev)
     test = run_eval(best_model, "test")
+    mh.barrier()    # rank 0's files are complete before any rank returns
     log(f"test: auroc={test['auroc']:.4f} auprc={test['auprc']:.4f}")
 
     ran = n_steps - resumed_steps

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from ..ops import metrics as M
+from ..parallel.multihost import fetch_global
 from . import engine
 from .engine import to_device
 
@@ -55,16 +56,21 @@ def evaluate_binary_split(eval_step, model, dataset, split: str,
     batch)`` to the host and keep the ``valid`` rows (the padded tail's
     are not) → ``binary_metrics`` of ``batch['y']`` (JAX
     ``loops.py:62-85``, reference evaluator.py:10-37); with
-    ``keep_logits`` the host logits ride along under ``logits``."""
+    ``keep_logits`` the host logits ride along under ``logits``. In a
+    multi-process run the logits are gathered over the ranks and the labels
+    and ``valid`` are the global copies under ``batch["_global"]``, so
+    every rank computes the same metrics."""
     device = dataset.grid.device
     logits_all, y_all = [], []
     for batch in dataset.iter_batches(split, batch_size, shuffle=False,
                                       limit=limit):
-        keep = np.asarray(batch.pop("valid")) > 0
-        logits = eval_step(model, dataset.grid, dataset.static,
-                           to_device(batch, device))
-        logits_all.append(logits.cpu().numpy()[keep])
-        y_all.append(np.asarray(batch["y"])[keep])
+        src = batch.get("_global", batch)
+        keep = np.asarray(src["valid"]) > 0
+        batch.pop("valid")
+        logits = fetch_global(eval_step(model, dataset.grid, dataset.static,
+                                        to_device(batch, device)))
+        logits_all.append(logits[keep])
+        y_all.append(np.asarray(src["y"])[keep])
     logits = np.concatenate(logits_all)
     r = M.binary_metrics(np.concatenate(y_all), logits)
     return {**r, "logits": logits} if keep_logits else r
@@ -122,7 +128,9 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
     reloaded, is evaluated on the test split. ``dataset`` is an
     ``AnchorDataset``; ``model``: the initial weights (default:
     ``init_student`` from ``cfg.seed``), moved to ``device`` and trained in
-    place. Multi-step dispatch (``steps_per_call > 1``) is ROADMAP P10."""
+    place. Multi-step dispatch (``steps_per_call > 1``) is ROADMAP P10,
+    more than one process P18b (JAX's loop has no multi-process branch
+    either)."""
     from ..models.student import init_student
     from .checkpoint import BestKTracker, load_student_from_ckpt
     from .optim import MultiGroupAdamW
@@ -134,7 +142,7 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
         raise NotImplementedError(
             f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
             "not ported yet (ROADMAP P10)")
-    refuse_multi_process("supervised training", "P18")
+    refuse_multi_process("supervised training", "P18b")
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     dataset.to(dev)

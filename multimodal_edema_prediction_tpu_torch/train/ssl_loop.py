@@ -10,9 +10,16 @@ the checkpoints: the contract every later stage reads. With
 ``save_full_state`` the full train state is saved at every epoch boundary
 (msgpack, ``FullStateResumer``), and ``auto_resume`` continues from it bit
 for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
-and ends the call cleanly. Single process. Not ported, each named by its
-ROADMAP item: multi-step dispatch (``steps_per_call > 1``, P10), the orbax
-backend (P16), multi-process (P18).
+and ends the call cleanly. Not ported, each named by its ROADMAP item:
+multi-step dispatch (``steps_per_call > 1``, P10), the orbax backend (P16).
+
+Multi-process (JAX ``ssl_loop.py:49-232``): under an initialised
+``torch.distributed`` group each rank trains on its rows of the same global
+batches; the masks and the loss are the global batch's
+(``parallel/multihost.py``) and the gradients are summed over the ranks.
+The validation batch is snapped down to a multiple of the ranks (JAX
+``ssl_loop.py:173-187``), and only rank 0 writes the meta contract, the
+checkpoints and the full state.
 """
 from __future__ import annotations
 
@@ -26,11 +33,13 @@ import torch
 from ..config import DuettConfig, TrainConfig
 from ..data.sliding import SlidingSSLDataset
 from ..models.duett import DuettPretrainModel, init_pretrain_model
+from ..parallel import mesh as meshlib
+from ..parallel import multihost as mh
 from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer, load_checkpoint,
                          restore_tolerant)
-from .loops import EarlyStopper, TrainResult, refuse_multi_process
+from .loops import EarlyStopper, TrainResult
 from .optim import MultiGroupAdamW, invsqrt_warmup
 from .state import TrainState, param_count
 from .teacher_loop import DTYPES, _sync
@@ -55,11 +64,13 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
         raise NotImplementedError(
             f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
             "not ported yet (ROADMAP P10)")
-    refuse_multi_process("SSL pretraining", "P18")
+    world = mh.check_group()
+    if world > 1:
+        meshlib.create_mesh(cfg.n_data, cfg.n_model)
     if save_full_state is None:
         save_full_state = auto_resume
     resumer = FullStateResumer(ckpt_dir, state_backend)
-    dev = resolve_device(device)
+    dev = mh.rank_device(resolve_device(device))
     dtype = DTYPES[cfg.dtype]
     if model is None:
         model = init_pretrain_model(duett_cfg, cfg.seed)
@@ -86,11 +97,15 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
                 f"{start_epoch}")
 
     # the meta contract, next to the checkpoints
-    dataset.meta.save(os.path.join(ckpt_dir, "meta_with_stats.pkl"))
-    if dataset.split_size("val") < 1:
-        raise ValueError("the val split has no window: SSL validation needs "
-                         "at least one")
-    val_bs = min(cfg.batch_size, dataset.split_size("val"))
+    if mh.is_main_process():
+        dataset.meta.save(os.path.join(ckpt_dir, "meta_with_stats.pkl"))
+    n_val = dataset.split_size("val")
+    if n_val < world:
+        raise ValueError(
+            f"the val split has {n_val} windows, fewer than the {world} "
+            "processes: SSL validation needs one full batch")
+    # a multiple of the ranks, so that the batch splits over them
+    val_bs = max(min(cfg.batch_size, n_val) // world * world, world)
 
     def evaluate(m, split: str = "val") -> float:
         """Mean eval ``total`` over ``split``, each batch with its own
@@ -123,13 +138,14 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
                 f"non-finite SSL loss at epoch {epoch}; aborting")
         val_loss = evaluate(model)
         improved = stopper.update(val_loss)
-        if improved:
+        if improved and mh.is_main_process():
             tracker.offer(val_loss, model, state.step, cfg_dict)
         history.append({"epoch": epoch, "train_loss": train_loss,
                         "val_loss": val_loss})
         log(f"epoch {epoch:3d}  train={train_loss:.4f}  val={val_loss:.4f}"
             f"{'  *' if improved else ''}")
-        preempted = preemption.requested()
+        # agreed over the ranks: a SIGTERM may reach only some of them
+        preempted = mh.any_flag(preemption.requested())
         if save_full_state or preempted:
             resumer.save(state, epoch, stopper, tracker, history, n_steps,
                          gen)
@@ -146,8 +162,14 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
     _sync(dev)
     elapsed = time.perf_counter() - t_start
 
-    tracker.ensure_saved(model, state.step, cfg_dict)
-    best_metric, best_path = tracker.best
+    if mh.is_main_process():
+        tracker.ensure_saved(model, state.step, cfg_dict)
+        best_metric, best_path = tracker.best
+    else:
+        best_metric = stopper.best if stopper.best is not None \
+            else float("nan")
+        best_path = ""
+    mh.barrier()    # rank 0's files are complete before any rank returns
     ran = n_steps - resumed_steps
     sps = ran / max(elapsed, 1e-9)
     return TrainResult(best_metric=best_metric, best_path=best_path,

@@ -51,8 +51,26 @@ moments, step count, the step generator and the loop's bookkeeping) is
 saved at every epoch boundary, and ``auto_resume`` continues from it bit
 for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
 and ends the call cleanly; ``stop_after_epochs`` pauses after that many
-epochs of one call. Single process only. Not ported yet, each named by its
-ROADMAP item: the orbax state backend (P16), multi-process (P18).
+epochs of one call. Not ported yet: the orbax state backend (P16) and
+multi-step dispatch (``steps_per_call`` > 1, P10), each refused naming its
+ROADMAP item.
+
+Multi-process (JAX ``teacher_loop.py:180-293, :519-617, :694-724``; ROADMAP
+P18): under an initialised ``torch.distributed`` group
+(``parallel/multihost.initialize_distributed``) every rank iterates the
+same global batches of ``cfg.batch_size`` and trains on its own rows; the
+step's losses, BatchNorm statistics and draws are the global batch's and
+the gradients are summed over the ranks (``parallel/multihost.py``), so
+the ranks hold the same weights. Real images and the encode-once tier are
+partitioned by ``image_id % P``: each rank decodes (``HostU8Bank``, or a
+``U8MemmapStore`` at ``{u8_store_path}.host{rank}``) or encodes
+(``HostFeatureStore``, at ``{feature_store_path}.host{rank}``) only its
+share, and no card-resident bank is built. Evaluations gather the outputs,
+so every rank takes the same early-stop decision; each keeps the best
+weights in memory and tests them, and only rank 0 writes checkpoints and
+the full state. A SIGTERM on any rank stops all of them at the same epoch
+boundary. ``n_model`` must be 1, and the gradient-flow diagnostics
+(``grad_diag_every``) are single-process (ROADMAP P18b).
 
 With ``prefetch_depth`` > 0 (2, as in JAX) the epoch's train batches come
 through ``data/prefetch.py``: a worker thread runs the batch hook (the
@@ -71,6 +89,7 @@ scalars (``test/*``).
 """
 from __future__ import annotations
 
+import copy
 import os
 import time
 from typing import Callable, Optional, Sequence, Tuple
@@ -82,13 +101,15 @@ from ..config import TeacherConfig, TrainConfig
 from ..convert import load_flax, to_flax
 from ..data.features import (CXRFeatureBank, HostFeatureStore,
                              encode_fn_for_teacher, features_from_batch)
-from ..data.images import (HBMImageBank, JpegStore, U8MemmapStore,
-                           make_jpeg_host_fn)
+from ..data.images import (HBMImageBank, HostU8Bank, JpegStore,
+                           U8MemmapStore, make_jpeg_host_fn)
 from ..data.pipeline import AnchorDataset, synthetic_image_device
 from ..data.prefetch import prefetch
 from ..data.synthetic import synthetic_image_batch
 from ..models.teacher import TeacherModel, init_teacher
 from ..models.vit import IMAGE_MEAN, IMAGE_STD, normalize_image
+from ..parallel import mesh as meshlib
+from ..parallel import multihost as mh
 from ..utils import preemption, resolve_device
 from ..utils.logging import Logger
 from . import engine
@@ -98,8 +119,7 @@ from .cxr_head_loop import load_cxr_head_into_teacher
 from .evaluator import (evaluate_dual_pathology, evaluate_pathology,
                         format_dual_pathology_gap_table,
                         format_pathology_gap_table)
-from .loops import (EarlyStopper, TrainResult, evaluate_binary_split,
-                    refuse_multi_process)
+from .loops import EarlyStopper, TrainResult, evaluate_binary_split
 from .optim import MultiGroupAdamW, default_label_fn
 from .state import TrainState, param_count
 
@@ -254,6 +274,16 @@ def pixels_for_ids_fn(dataset: AnchorDataset, image_hook
     return all_ids, pixels_for_ids
 
 
+def _own_partition(dataset: AnchorDataset, all_ids: np.ndarray
+                   ) -> np.ndarray:
+    """This rank's ``image_id % P`` share of ``all_ids``; the dataset's
+    batches are composed per partition from now on (JAX
+    ``teacher_loop.py:236-239, :341-344``)."""
+    P, pid = mh.process_count(), mh.process_index()
+    dataset.host_partition_count = P
+    return all_ids[all_ids % P == pid]
+
+
 def build_feature_tier(model, dataset: AnchorDataset, image_hook, dtype,
                        feature_cache: str, hbm_feature_budget_gb: float,
                        feature_store_path: Optional[str], device,
@@ -264,18 +294,27 @@ def build_feature_tier(model, dataset: AnchorDataset, image_hook, dtype,
     card ("hbm", or "auto" within ``hbm_feature_budget_gb``) or a host
     store (otherwise; a disk memmap at ``feature_store_path``, reopened
     when its fingerprint matches). A ``dual`` teacher's tier hands the
-    step the CLS token alone. Sets ``dataset.batch_hook`` to the tier's
-    hook; returns (the step's feature source, {"tier", "n_images",
-    "bytes", "build_s"})."""
+    step the CLS token alone. In a multi-process run each rank encodes
+    only its ``image_id % P`` share into a host store (at
+    ``{feature_store_path}.host{rank}``) and no bank is built (JAX
+    ``teacher_loop.py:341-355``, ``kd_loop.py:116-136``). Sets
+    ``dataset.batch_hook`` to the tier's hook; returns (the step's feature
+    source, {"tier", "n_images", "bytes", "build_s"})."""
     all_ids, pixels_for_ids = pixels_for_ids_fn(dataset, image_hook)
+    if mh.process_count() > 1:
+        all_ids = _own_partition(dataset, all_ids)
+        if feature_store_path:
+            feature_store_path = \
+                f"{feature_store_path}.host{mh.process_index()}"
     vit = model.cfg.vit
     # tokens at the loop's compute precision: bf16 storage is lossless for
     # bf16 compute, float32 loops keep float32
     out_dtype = torch.float32 if dtype == torch.float32 else torch.bfloat16
     nbytes = CXRFeatureBank.nbytes(len(all_ids), vit.n_patches, vit.d_model,
                                    out_dtype.itemsize)
-    on_card = feature_cache == "hbm" or (
-        feature_cache == "auto" and nbytes <= hbm_feature_budget_gb * 2 ** 30)
+    on_card = mh.process_count() == 1 and (feature_cache == "hbm" or (
+        feature_cache == "auto"
+        and nbytes <= hbm_feature_budget_gb * 2 ** 30))
     encode = encode_fn_for_teacher(model, dtype)
     cls_only = model.cfg.perceiver_type == "dual"
     t0 = time.perf_counter()
@@ -313,8 +352,11 @@ def build_image_tier(dataset: AnchorDataset, jpeg_store: JpegStore,
     is decoded once into the card's uint8 bank (``image_bank`` "hbm", or
     "auto" when it fits ``hbm_image_budget_gb``), else into the disk
     memmap store at ``u8_store_path``, else decoded per batch ("stream").
-    Returns (the batch hook, the step's image source, {"tier", "n_images",
-    "bytes", "build_s"})."""
+    In a multi-process run each rank decodes only its ``image_id % P``
+    share, into host RAM (``HostU8Bank``) or the memmap store at
+    ``{u8_store_path}.host{rank}``, and no card bank is built (JAX
+    ``teacher_loop.py:236-253``). Returns (the batch hook, the step's image
+    source, {"tier", "n_images", "bytes", "build_s"})."""
     if feature_cache != "none":
         return (make_jpeg_host_fn(jpeg_store, side),
                 engine.default_image_source, {"tier": "jpeg_for_features"})
@@ -325,7 +367,21 @@ def build_image_tier(dataset: AnchorDataset, jpeg_store: JpegStore,
     use_bank = image_bank == "hbm" or (
         image_bank == "auto" and nbytes <= hbm_image_budget_gb * 2 ** 30)
     t0 = time.perf_counter()
-    if use_bank:
+    if mh.process_count() > 1:
+        own = _own_partition(dataset, all_ids)
+        pid = mh.process_index()
+        if u8_store_path:
+            store = U8MemmapStore.build(jpeg_store, own, side,
+                                        f"{u8_store_path}.host{pid}")
+            hook, tier = store.host_fn(), "u8_store_partition"
+        else:
+            hook, tier = HostU8Bank(jpeg_store, own, side).host_fn(), \
+                "host_u8_partition"
+        source = engine.default_image_source
+        where = (f"rank {pid}'s u8 partition ({len(own)} of "
+                 f"{len(all_ids)} images)")
+        all_ids = own
+    elif use_bank:
         bank = HBMImageBank(jpeg_store, all_ids, side, device=device)
         hook, source, tier = bank.host_fn(), bank.image_source(), "hbm"
         where = f"u8 bank on {device}"
@@ -432,7 +488,13 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         raise NotImplementedError(
             f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
             "not ported yet (ROADMAP P10)")
-    refuse_multi_process("teacher training", "P18")
+    multi = mh.check_group() > 1
+    if multi:
+        meshlib.create_mesh(cfg.n_data, cfg.n_model)
+        if grad_diag_every > 0:
+            raise NotImplementedError(
+                "grad_diag_every > 0: the gradient-flow diagnostics of a "
+                "multi-process run are not ported yet (ROADMAP P18b)")
     mode = teacher_cfg.perceiver_type
     lp_mode = lp_from is not None
     if log is None:
@@ -458,7 +520,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     if save_full_state is None:
         save_full_state = auto_resume
     resumer = FullStateResumer(ckpt_dir, state_backend)
-    dev = resolve_device(device)
+    dev = mh.rank_device(resolve_device(device))
     dtype = DTYPES[cfg.dtype]
     head = pretrained_head_spec(teacher_cfg, pretrained_head_ckpt,
                                 pathology_labels)
@@ -592,6 +654,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         if head["static_keep_idx"] is not None:
             cfg_dict["static_keep_idx"] = list(head["static_keep_idx"])
     best_val_outputs = None
+    best_state = None   # multi-process: every rank keeps the best in memory
     history, start_epoch, n_steps = [], 0, 0
     if auto_resume:
         meta = resumer.restore(state)
@@ -640,7 +703,11 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         val_metric = val["main_auroc"]
         improved = stopper.update(val_metric)
         if improved:
-            tracker.offer(val_metric, model, state.step, cfg_dict)
+            if multi:
+                best_state = {k: v.detach().clone()
+                              for k, v in model.state_dict().items()}
+            if mh.is_main_process():
+                tracker.offer(val_metric, model, state.step, cfg_dict)
             best_val_outputs = val["outputs"]
         history.append({"epoch": epoch,
                         **{f"train_{k}": v / max(nb, 1)
@@ -703,7 +770,8 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                 diag, labels=list(pathology_labels))
             history[-1].update(diag_row)
             metrics(diag_row, epoch)
-        preempted = preemption.requested()
+        # agreed over the ranks: a SIGTERM may reach only some of them
+        preempted = mh.any_flag(preemption.requested())
         if save_full_state or preempted:
             t0 = time.perf_counter()
             resumer.save(state, epoch, stopper, tracker, history, n_steps,
@@ -723,10 +791,22 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
             break
     elapsed = time.perf_counter() - t_start
 
-    tracker.ensure_saved(model, state.step, cfg_dict)
-    best_metric, best_path = tracker.best
-    best_model, _, _ = load_teacher_from_ckpt(best_path, device=dev)
+    if mh.is_main_process():
+        tracker.ensure_saved(model, state.step, cfg_dict)
+        best_metric, best_path = tracker.best
+    else:
+        best_metric = stopper.best if stopper.best is not None \
+            else float("nan")
+        best_path = ""
+    if multi:
+        # the best weights from memory: ranks need not share rank 0's disk
+        best_model = copy.deepcopy(model)
+        if best_state is not None:
+            best_model.load_state_dict(best_state)
+    else:
+        best_model, _, _ = load_teacher_from_ckpt(best_path, device=dev)
     test = run_eval(best_model, "test")
+    mh.barrier()    # rank 0's files are complete before any rank returns
     log(f"test: main AUROC={test['main_auroc']:.4f}\n" + test["table"])
     metrics({"test/auroc": test["main_auroc"],
              **_split_scalars("test", test)})

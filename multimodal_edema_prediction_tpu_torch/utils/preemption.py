@@ -5,7 +5,10 @@ A SIGTERM (or SIGUSR1, which some schedulers send as the warning before
 preemption) sets a flag; the training loops read it at every epoch
 boundary, save the full train state (``train/checkpoint.py::
 FullStateResumer``) and return cleanly, so the restarted job continues bit
-for bit with ``auto_resume`` / ``--resume_dir``.
+for bit with ``auto_resume`` / ``--resume_dir``. In a multi-process run
+the loops agree on the flag over the ranks
+(``parallel/multihost.any_flag``), so a signal that reaches one rank stops
+every rank at the same boundary.
 """
 from __future__ import annotations
 

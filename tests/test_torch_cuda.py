@@ -22,7 +22,10 @@ gradient 1e-4 of its max abs floored at 1e-2 of the largest gradient (a
 leaf whose exact gradient is 0 keeps only rounding noise); one float32
 gradient-flow diagnostics batch on the card against a CPU copy, each array
 1e-4 of its max abs; the figure suite's kNN and t-SNE on the card against
-a CPU copy (``test_knn_and_tsne_on_the_card_match_a_cpu_copy``).
+a CPU copy (``test_knn_and_tsne_on_the_card_match_a_cpu_copy``); two
+ranks sharing the card over gloo, a ViT-B block's all-reduced gradient
+against one rank's, 1e-4 of each leaf's max abs floored at 1e-2 of the
+largest gradient.
 """
 import numpy as np
 import pytest
@@ -1153,3 +1156,75 @@ def test_int8_ops_on_the_card_match_their_cpu_plain_versions(cuda, op,
     assert torch.equal(acc.cpu(), I.int_mm_reference(qh, wq.t()))
     with pytest.raises(ValueError, match="multiples of 8"):
         I.int_mm(q[:, :60].contiguous(), wq.t()[:60].to(cuda))
+
+
+# one rank of test_two_ranks_on_the_card_sum_a_vit_blocks_gradient: joins a
+# gloo group of 2 (the ranks share the card, which NCCL refuses), runs the
+# ViT-B block on its half of the batch through K1's float32 forward and
+# backward, gathers the outputs for the global loss and all-reduces the
+# gradient (parallel/multihost.py), then saves it
+_RANK = r"""
+import sys, torch
+from multimodal_edema_prediction_tpu_torch.config import ViTConfig
+from multimodal_edema_prediction_tpu_torch.models.layers import init_like_flax
+from multimodal_edema_prediction_tpu_torch.models.vit import DinoBlock
+from multimodal_edema_prediction_tpu_torch.parallel import multihost as mh
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+assert mh.initialize_distributed(f"localhost:{port}", 2, rank) == "gloo"
+block = init_like_flax(DinoBlock(ViTConfig()), 0).cuda()
+x = torch.randn(4, 1370, 768, generator=torch.Generator().manual_seed(1))
+y = mh.gather_rows(block(x[2 * rank:2 * rank + 2].cuda()))
+(y.float() ** 2).mean().backward()
+mh.all_reduce_grads(list(block.parameters()))
+torch.save({n: p.grad.cpu() for n, p in block.named_parameters()}, out)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_ranks_on_the_card_sum_a_vit_blocks_gradient(cuda, tmp_path):
+    """Two processes share the card over gloo (``parallel/multihost``:
+    ``choose_backend`` takes gloo for 2 ranks on 1 card; gloo all-reduces
+    CUDA tensors), each with 2 of 4 images through a ViT-B/14 block at
+    1370 tokens in float32; the all-reduced gradient of the global loss
+    equals one process's on all 4 images within 1e-4 of each leaf's max
+    abs floored at 1e-2 of the largest gradient (the halves' sums in
+    another order; the key bias's exact gradient is 0, and only rounding
+    noise of ~1e-12 is left in both)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from multimodal_edema_prediction_tpu_torch.config import ViTConfig
+    from multimodal_edema_prediction_tpu_torch.models.layers import \
+        init_like_flax
+    from multimodal_edema_prediction_tpu_torch.models.vit import DinoBlock
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = {**os.environ, "PYTHONPATH": repo}
+    env.pop("WORLD_SIZE", None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _RANK, str(r), port,
+         str(tmp_path / f"grad{r}.pt")], cwd=repo, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT) for r in range(2)]
+    for p in procs:
+        out, _ = p.communicate(timeout=600)
+        assert p.returncode == 0, out.decode(errors="replace")[-3000:]
+    block = init_like_flax(DinoBlock(ViTConfig()), 0).to(cuda)
+    x = torch.randn(4, 1370, 768, generator=torch.Generator().manual_seed(1))
+    before = A.LAUNCHES[A.launch_key("flash_attention", torch.float32)]
+    (block(x.to(cuda)).float() ** 2).mean().backward()
+    assert A.LAUNCHES[A.launch_key("flash_attention", torch.float32)] \
+        == before + 1
+    grads = [torch.load(tmp_path / f"grad{r}.pt") for r in range(2)]
+    top = max(p.grad.abs().max().item() for p in block.parameters())
+    for n, p in block.named_parameters():
+        want = p.grad.cpu()
+        tol = 1e-4 * max(want.abs().max().item(), 1e-2 * top)
+        assert torch.equal(grads[0][n], grads[1][n]), n
+        assert (grads[0][n] - want).abs().max().item() <= tol, n

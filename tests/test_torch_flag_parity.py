@@ -13,7 +13,8 @@ that item right after parsing, before any data, model or device work.
 ``--eval_train_batches`` is ported: one CPU teacher run shows the
 train-subset evaluation and its gap table. The teacher's P13 flags (the
 other modes and LP mode) and P15 flags (the image feed tiers), and
-serving's ``--cxr_jpeg_root``, were waived until their items were done;
+serving's ``--cxr_jpeg_root`` (P15) and ``--data_parallel`` (P18), were
+waived until their items were done;
 each now reaches the configuration, the loop's arguments or the server's
 startup (``PORTED``). The P14 and P17 CLIs' flags each reach their loop's
 or their eval's arguments (``SUPERVISED_PORTED``, ``PREDICT_PORTED``).
@@ -122,7 +123,7 @@ WAIVERS = {
     "train_ssl": {},
     "train_student": {},
     "train_cxr_head": {},
-    "serve": {"--data_parallel": "P18", "--aot_dir": "P10"},
+    "serve": {"--aot_dir": "P10"},
     "finetune_mimic": {},
     "train_physionet": {},
     "predict": {},
@@ -153,8 +154,8 @@ PORTED = {
     "--u8_store_path": lambda c: c["images"]["u8_store_path"],
     "--prefetch_depth": lambda c: c["images"]["prefetch_depth"],
 }
-# serving's flags waived until their item (P15) was done
-SERVE_PORTED = ("--cxr_jpeg_root",)
+# serving's flags waived until their item (P15, P18) was done
+SERVE_PORTED = ("--cxr_jpeg_root", "--data_parallel")
 # the logging flags waived until P20 was done: (cli, flag) → the argv that
 # gives it and what it must set: the ``Logger``'s project or run name, or
 # the loop's ``TrainConfig.log_every``
@@ -241,7 +242,8 @@ def test_waived_flag_raises_naming_its_item(cli, flag):
     until its item was done) parses to the value given, which reaches the
     configs, the LP arguments or the image arguments, with
     ``--lp_only_correction`` (JAX sets LP mode's dropout and checkpoint
-    only with it); serving's ``--cxr_jpeg_root`` (``SERVE_PORTED``) is
+    only with it); serving's ``--cxr_jpeg_root`` and ``--data_parallel``
+    (``SERVE_PORTED``) parse to the value given, and the first is
     read by ``--image_mode jpeg_root``'s startup, which refuses a
     directory without JPEGs."""
     jax_mod, port_mod = CLIS[cli]
@@ -250,7 +252,8 @@ def test_waived_flag_raises_naming_its_item(cli, flag):
     _parser(jax_mod).parse_args(REQUIRED.get(cli, []) + argv)
     if cli == "serve" and flag in SERVE_PORTED:
         args = port_mod.build_parser().parse_args(REQUIRED[cli] + argv)
-        assert args.cxr_jpeg_root == argv[1]
+        got = getattr(args, flag[2:])
+        assert got == type(got)(argv[1])
         return
     if flag in PORTED:
         from multimodal_edema_prediction_tpu_torch.cli.common import \

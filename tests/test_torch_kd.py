@@ -478,8 +478,11 @@ def test_kd_loop_refuses_what_is_not_ported(teacher_ckpt, tmp_path,
             K.train_student_kd(None, scfg, teacher_ckpt, run_cfg,
                                str(tmp_path), device="cpu",
                                state_backend=backend)
+    # multi-process KD runs since P18 was ported (tests/
+    # test_torch_multihost_2proc.py); a launcher's WORLD_SIZE with no
+    # initialised process group is refused before any work
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="P18"):
+    with pytest.raises(RuntimeError, match="no torch.distributed process"):
         K.train_student_kd(None, scfg, teacher_ckpt, cfg, str(tmp_path),
                            device="cpu")
     monkeypatch.delenv("WORLD_SIZE")
