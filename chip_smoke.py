@@ -5798,6 +5798,8 @@ def _predicted_k1(run: dict) -> int:
 def _serve_data_parallel(port, device, ckpt: str) -> dict:
     """``--data_parallel 1`` serves bit for bit as a predictor built
     without it; 2 raises ``create_mesh``'s error on a one-card host."""
+    from concurrent.futures import Future
+
     import torch
     model, cfg, _ = port["checkpoint"].load_teacher_from_ckpt(ckpt, device)
     rng = np.random.default_rng(0)
@@ -5814,7 +5816,6 @@ def _serve_data_parallel(port, device, ckpt: str) -> dict:
             model, max_batch=4, max_wait_ms=0.0, dtype=torch.bfloat16,
             device="cuda", **kw)
         items = [pred._parse(r) for r in reqs]
-        from concurrent.futures import Future
         for it in items:
             it.future = Future()
         pred._run_batch(items)

@@ -174,6 +174,9 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
         if meta is not None:
             start_epoch, history, n_steps = resumer.apply_meta(
                 meta, stopper, tracker, gen)
+            if multi and tracker.best is not None:
+                # the best so far, from the run directory every rank reads
+                best_state = load_student_from_ckpt(tracker.best[1], dev)[0].state_dict()
             log(f"[resume:{state_backend}] continuing at epoch "
                 f"{start_epoch}")
 

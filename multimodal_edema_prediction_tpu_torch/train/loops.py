@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..ops import metrics as M
-from ..parallel.multihost import fetch_global
+from ..parallel.multihost import fetch_global, process_count
 from . import engine
 from .engine import to_device
 
@@ -76,21 +76,12 @@ def evaluate_binary_split(eval_step, model, dataset, split: str,
     return {**r, "logits": logits} if keep_logits else r
 
 
-def world_size() -> int:
-    """The run's process count: the launcher's ``WORLD_SIZE``, or the size
-    of an initialised ``torch.distributed`` group when that is larger."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        world = max(world, torch.distributed.get_world_size())
-    return world
-
-
 def refuse_multi_process(loop: str, item: str) -> None:
     """Raise ``NotImplementedError`` naming ROADMAP ``item`` when ``loop``
-    would run in more than one process: each would train on every batch
-    alone and write the same checkpoints."""
-    world = world_size()
+    would run in more than one process (a launcher's ``WORLD_SIZE``, or an
+    initialised group): each would train on every batch alone and write
+    the same checkpoints."""
+    world = max(int(os.environ.get("WORLD_SIZE", "1")), process_count())
     if world > 1:
         raise NotImplementedError(
             f"{world} processes: multi-process {loop} is not ported yet "

@@ -102,8 +102,8 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
     n_val = dataset.split_size("val")
     if n_val < world:
         raise ValueError(
-            f"the val split has {n_val} windows, fewer than the {world} "
-            "processes: SSL validation needs one full batch")
+            f"the val split has {n_val} windows for {world} process(es): "
+            "SSL validation needs at least one window a process")
     # a multiple of the ranks, so that the batch splits over them
     val_bs = max(min(cfg.batch_size, n_val) // world * world, world)
 

@@ -661,6 +661,9 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         if meta is not None:
             start_epoch, history, n_steps = resumer.apply_meta(
                 meta, stopper, tracker, gen)
+            if multi and tracker.best is not None:
+                # the best so far, from the run directory every rank reads
+                best_state = load_teacher_from_ckpt(tracker.best[1], device=dev)[0].state_dict()
             log(f"[resume:{state_backend}] restored epoch {meta['epoch']} "
                 f"from {ckpt_dir}; continuing at epoch {start_epoch}")
     resumed_steps = n_steps
