@@ -3884,7 +3884,7 @@ def _serve_by_id(port, device, model, source: dict, reqs: list,
                                       dtype=torch.bfloat16, device=device,
                                       **source)
     served = []
-    step = pred._step
+    step = pred._steps[0]
 
     def recording_step(x_ts, static, batch):
         out = step(x_ts, static, batch)
@@ -3892,7 +3892,7 @@ def _serve_by_id(port, device, model, source: dict, reqs: list,
                        {k: v.cpu() for k, v in out.items()}))
         return out
 
-    pred._step = recording_step
+    pred._steps[0] = recording_step
     pred.start()
     n_req = n_clients * posts_per_client
     server, probed = None, None
@@ -5426,7 +5426,7 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
                                       dtype=torch.bfloat16, device=device)
     # record every batch the batcher runs, to re-run it directly afterwards
     served_batches = []
-    step = pred._step
+    step = pred._steps[0]
 
     def recording_step(x_ts, static, batch):
         out = step(x_ts, static, batch)
@@ -5434,7 +5434,7 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
                                {k: v.cpu() for k, v in out.items()}))
         return out
 
-    pred._step = recording_step
+    pred._steps[0] = recording_step
     pred.start()
     server = None
     try:
