@@ -435,6 +435,23 @@ build:
             --only-parallel`` runs the device, build and parallel phases
             alone (no summary, no ``ok`` line).
 
+L0 preprocessing without pandas (ROADMAP P21) adds, after ``int8``:
+
+30. l0      the port's ``data/synthetic_raw`` writes a raw MIMIC-IV +
+            MIMIC-CXR layout of 24 subjects (seed 0) and one of
+            L0_SUBJECTS (seed 1); ``cli/preprocess.main`` turns each into
+            ``cohort.npz`` + ``meta_with_stats.pkl`` (seconds, raw rows
+            read and rows/s on the card's host CPU, stays, event rows,
+            anchors); ``pandas``, ``pyarrow`` and ``PIL`` are not in
+            ``sys.modules``; the 24-subject cohort's arrays hash to
+            L0_DIGESTS (the JAX package's ``run_l0`` output on the same
+            layout, held in ``tests/test_torch_preprocess_cli.py``; a
+            mismatch names the array); then ``cli/train_teacher`` on the
+            large cohort (``--data_dir``) at full width on procedural
+            pixels in bf16, 1 epoch of L0_LIMIT_BATCHES batches of 32:
+            finite losses and K1's launches as predicted from the cohort's
+            splits before the call (12 a train step and an eval step).
+
 Every phase line carries ``t_s``, the seconds since the script started.
 Then the run's total seconds on a line of their own.
 
@@ -629,6 +646,8 @@ def import_port():
                                                            train_ssl,
                                                            train_student,
                                                            train_teacher)
+    from multimodal_edema_prediction_tpu_torch.cli import \
+        preprocess as cli_preprocess
     from multimodal_edema_prediction_tpu_torch.data import (features, images,
                                                             ingest,
                                                             native_loader,
@@ -637,6 +656,18 @@ def import_port():
                                                             prefetch,
                                                             sliding,
                                                             synthetic)
+    from multimodal_edema_prediction_tpu_torch.data import (cxr_catalog,
+                                                            demographics,
+                                                            frames,
+                                                            jpeg_writer,
+                                                            preprocess,
+                                                            prompts,
+                                                            raw_mimic,
+                                                            reports,
+                                                            static_info,
+                                                            subtype,
+                                                            synthetic_raw,
+                                                            text_embeddings)
     from multimodal_edema_prediction_tpu_torch.models import (duett, student,
                                                               teacher,
                                                               trajectory,
@@ -692,7 +723,13 @@ def import_port():
                 visualize_pathology=visualize_pathology, tsne=tsne,
                 umap_impl=umap_impl,
                 train_trajectory_probe=train_trajectory_probe,
-                trajectory=trajectory, mesh=mesh, multihost=multihost)
+                trajectory=trajectory, mesh=mesh, multihost=multihost,
+                cli_preprocess=cli_preprocess, raw_mimic=raw_mimic,
+                synthetic_raw=synthetic_raw, frames=frames,
+                static_info=static_info, cxr_catalog=cxr_catalog,
+                preprocess=preprocess, demographics=demographics,
+                subtype=subtype, prompts=prompts, reports=reports,
+                text_embeddings=text_embeddings, jpeg_writer=jpeg_writer)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -5918,6 +5955,191 @@ def phase_parallel(port, device, card: str = "") -> dict:
     return info
 
 
+L0_RUNS = os.path.join(REPO, "build", "chip_smoke_l0")
+L0_SUBJECTS = 2000
+L0_LIMIT_BATCHES = 2
+L0_BATCH = 32
+# SHA-256 of each array of the cohort.npz that the 24-subject raw layout
+# (seed 0) gives: equal to the JAX package's run_l0 output on the same
+# layout (tests/test_torch_preprocess_cli.py computes both on the CPU)
+L0_DIGESTS = {
+    "an_image_ids":
+        "4bed7e83ede4af9bb196076f6a5d44814c9cd3c892fb81d437c30559ef6cef6c",
+    "an_labels":
+        "15117eb186bb23b126531fdec7436bd8e7dff0a3fe532fc4418d3b3254dc4658",
+    "an_slot_idx":
+        "5cfbc6d7528c8177c4b7182ce71453cac5ab8d03781f6ce5980f91046e2160fe",
+    "an_stay_ids":
+        "660416940613ed6652d34d22b35a3c708b9e3ecafa7ad6b5ef56ac31a9cefea4",
+    "an_subject_ids":
+        "0a43e3ebb1b830946099b36df71d58a71193dd17b62341b8fcf51e00e679c9a0",
+    "cat_image_ids":
+        "4bed7e83ede4af9bb196076f6a5d44814c9cd3c892fb81d437c30559ef6cef6c",
+    "cat_labels":
+        "158b456e54759541cd64a38f03c9a67200f23a730a1d6f1fa71362ab77e9cd09",
+    "cat_subject_ids":
+        "0a43e3ebb1b830946099b36df71d58a71193dd17b62341b8fcf51e00e679c9a0",
+    "ev_counts":
+        "b5980e6b339fba58f7ab05eca92e555495364e8921f44f79f9ece79db3da7ba2",
+    "ev_offsets":
+        "35d341ef4bfe9ec986e62a44c5874b2cdb7d7f07550bf17e0537b43886762fe6",
+    "ev_slot_idx":
+        "7318afb872819003f5cac202308e796bbe07ebb93c9a4a472cf446196e9f8908",
+    "ev_stay_ids":
+        "f6b3b6b1646781ff73a8b6163fac43dd7c4b946f5e3392abc7d839360a25cbf9",
+    "ev_stay_len":
+        "0a9021d6d0269ffaa9755ca1e6d92c57baf1d1e1d4afa0167dfa0eed57c1b5d4",
+    "ev_subject_ids":
+        "5a59779b0b85669450b6ad46bc606daa4010e38098a86d43a7f7352caa244f8e",
+    "ev_values":
+        "b9cafeba99e7295cbbcc0afe9ea8014636c522cccb0e4566125923b425478e32",
+    "onehot_names":
+        "f1e0b9a98804a23203a5400f99678589b612f015c3ae5ac270c532b0a5a0654b",
+    "st_age":
+        "778a2231e52db6cbe638a7aad5aab1692c758e69f90caae60ac2d75e7c685507",
+    "st_death":
+        "e92a622bfc0bc6ca4e41ec5454ca573494b9a25a7ff06d623d0d08acd1f5710f",
+    "st_onehot":
+        "e3bb4ae5a610cb9608cc3bd3ed4021224dceca80db627770787bd3fcdf59f9ae",
+    "st_stay_ids":
+        "f6b3b6b1646781ff73a8b6163fac43dd7c4b946f5e3392abc7d839360a25cbf9",
+    "st_subject_ids":
+        "5a59779b0b85669450b6ad46bc606daa4010e38098a86d43a7f7352caa244f8e",
+    "var_names":
+        "a6bfa3f7c73c0bbc303074b1d0cf977cd062d26833ba1706b304ac2d9b00e553",
+}
+
+
+def array_digest(a: np.ndarray) -> str:
+    """SHA-256 of an array's dtype, shape and bytes (C order)."""
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def cohort_digests(path: str) -> dict:
+    """{array name: ``array_digest``} of a ``cohort.npz``."""
+    with np.load(path, allow_pickle=False) as z:
+        return {k: array_digest(z[k]) for k in sorted(z.files)}
+
+
+def _raw_rows(root: str) -> int:
+    """The data rows of every raw table under ``root`` (headers not
+    counted): what the L0 chain reads."""
+    n = 0
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if name.endswith(".csv"):
+                with open(os.path.join(dirpath, name), "rb") as f:
+                    n += sum(1 for line in f if line.strip()) - 1
+    return n
+
+
+def l0_teacher_steps(port, data_dir: str, batch: int, limit: int) -> tuple:
+    """(split sizes, train steps, eval steps) of one epoch of the teacher
+    CLI on a cohort: the shuffled train split drops its ragged tail and
+    stops at ``limit`` batches; the val split (once an epoch) and the test
+    split (once, after training) pad theirs. K1 launches 12 times a ViT
+    forward, one forward a step, on the pixel tier."""
+    import math
+    ds, meta = port["ingest"].load_artifacts(data_dir)
+    ads = port["pipeline"].build_anchor_dataset(
+        ds, meta, port["config"].DataConfig())
+    split = {k: len(v) for k, v in ads.splits.items()}
+    steps = min(limit, split["train"] // batch)
+    evals = math.ceil(split["val"] / batch) + math.ceil(split["test"] / batch)
+    return split, steps, evals
+
+
+def phase_l0(port, device, card: str = "") -> dict:
+    """L0 on the card's host without pandas (ROADMAP P21): raw layouts
+    written and preprocessed by the port's CLI, the small cohort held to
+    pinned digests, the teacher trained on the large one at full width."""
+    import torch
+    t_phase = time.perf_counter()
+    shutil.rmtree(L0_RUNS, ignore_errors=True)
+    runs = {}
+    for name, n_subjects, seed in (("fixture", 24, 0),
+                                   ("cohort", L0_SUBJECTS, 1)):
+        raw = os.path.join(L0_RUNS, f"raw_{name}")
+        out = os.path.join(L0_RUNS, name)
+        t0 = time.perf_counter()
+        port["synthetic_raw"].make_raw_layout(raw, n_subjects=n_subjects,
+                                              seed=seed)
+        layout_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        paths = port["cli_preprocess"].main(["--raw_root", raw,
+                                             "--out_dir", out])
+        seconds = time.perf_counter() - t0
+        rows = _raw_rows(raw)
+        ds = port["ingest"].load_npz(paths["cohort"])
+        runs[name] = {"subjects": n_subjects, "seed": seed,
+                      "layout_s": layout_s, "preprocess_s": seconds,
+                      "raw_rows": rows, "rows_per_s": rows / seconds,
+                      "stays": len(ds.events.stay_ids),
+                      "event_rows": len(ds.events.slot_idx),
+                      "anchors": len(ds.anchors.image_ids),
+                      "catalog_images": len(ds.cxr_catalog.image_ids),
+                      "onehot": len(ds.onehot_names), "paths": paths}
+    loaded = sorted(m for m in ("pandas", "pyarrow", "PIL")
+                    if m in sys.modules)
+    got = cohort_digests(runs["fixture"]["paths"]["cohort"])
+    wrong = sorted(k for k in set(got) | set(L0_DIGESTS)
+                   if got.get(k) != L0_DIGESTS.get(k))
+
+    # the teacher at full width on the large cohort, K1 predicted first
+    data_dir = os.path.dirname(runs["cohort"]["paths"]["cohort"])
+    split, steps, evals = l0_teacher_steps(port, data_dir, L0_BATCH,
+                                           L0_LIMIT_BATCHES)
+    n_layers = port["config"].ViTConfig().n_layers
+    expect = {"flash_attention": n_layers * (steps + evals)}
+    argv = ["--device", "cuda", "--data_dir", data_dir, "--batch_size",
+            str(L0_BATCH), "--epochs", "1", "--limit_batches",
+            str(L0_LIMIT_BATCHES), "--no_save_state", "--ckpt_dir",
+            os.path.join(L0_RUNS, "teacher")]
+    torch.cuda.synchronize()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_teacher"].main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts(port).items() if v}
+    ex = res.extras
+    info = {"phase": "l0", "card": card,
+            "runs": {k: {x: y for x, y in r.items() if x != "paths"}
+                     for k, r in runs.items()},
+            "modules_loaded": loaded, "digests_checked": len(got),
+            "digest_mismatch": wrong, "splits": split,
+            "teacher": {"argv": argv, "wall_s": wall,
+                        "predicted_train_steps": steps,
+                        "predicted_eval_steps": evals,
+                        "train_steps": ex["n_train_steps"],
+                        "eval_steps": ex["n_eval_steps"],
+                        "launches": launches,
+                        "expected_launches": expect,
+                        "epoch_losses": [h["train_total"]
+                                         for h in res.history],
+                        "val_auroc": [h["val_main_auroc"]
+                                      for h in res.history],
+                        "test_auroc": res.test_metrics["main_auroc"]},
+            "seconds": time.perf_counter() - t_phase}
+    emit(info)
+    shutil.rmtree(L0_RUNS, ignore_errors=True)
+    if loaded:
+        raise AssertionError(f"the L0 chain loaded {loaded}")
+    if wrong:
+        raise AssertionError(f"cohort.npz arrays differ from the pinned "
+                             f"digests: {wrong}")
+    if not all(np.isfinite(x) for x in info["teacher"]["epoch_losses"]):
+        raise AssertionError(f"non-finite losses "
+                             f"{info['teacher']['epoch_losses']}")
+    if launches != expect:
+        raise AssertionError(f"K1 launched {launches} on the L0 cohort, "
+                             f"predicted {expect}")
+    return {**info, "launches": launches}
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         rank, world, port_no = (int(a) for a in sys.argv[2:5])
@@ -6055,6 +6277,7 @@ def main() -> int:
     analysis_b = phase_analysis_b(port, device, train["teacher_ckpt"],
                                   card=dev["nvidia_smi"])
     int8 = phase_int8(port, device, card=dev["nvidia_smi"])
+    l0 = phase_l0(port, device, card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -6098,7 +6321,8 @@ def main() -> int:
                 "int8": {**{run: r["launches"].get(name, 0)
                             for run, r in int8["runs"].items()},
                          "serve": int8["serve"]["k1_launches"]
-                         if name == "flash_attention" else 0}}
+                         if name == "flash_attention" else 0},
+                "l0": l0["launches"].get(name, 0)}
 
     def supervised_by_path(name):
         return {"finetune": {way: r["launches"][name]

@@ -3,8 +3,8 @@ directories, data loading (the counterpart of
 ``multimodal_edema_prediction_tpu/cli/common.py``, with the same flag names
 and defaults for what the port trains).
 
-Data: ``--data_dir`` reads a cohort converted by the JAX package's
-preprocessing (``cohort.npz`` + ``meta_with_stats.pkl``); otherwise the
+Data: ``--data_dir`` reads a cohort written by ``cli.preprocess``
+(``cohort.npz`` + ``meta_with_stats.pkl``); otherwise the
 learnable synthetic cohort is generated (``--synthetic``, the default, as
 in the JAX CLIs). ``--device`` (default ``cuda``) picks where training
 runs. Under a launcher (``torchrun``'s environment) the teacher, SSL and

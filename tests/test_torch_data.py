@@ -104,7 +104,8 @@ def test_gather_windows_clamps_like_dynamic_slice():
 
 def test_reads_a_cohort_the_jax_package_wrote(cohorts, tmp_path):
     """``cohort.npz`` + ``meta_with_stats.pkl`` as the JAX package writes
-    them (``save_npz``, ``Meta.save``) load into the same anchor dataset."""
+    them (``save_npz``, ``Meta.save``) load into the same anchor dataset;
+    a directory without them names the port's ``cli.preprocess``."""
     jds, jmeta, jad, _, _, _ = cohorts
     JI.save_npz(str(tmp_path / "cohort.npz"), JI.IngestedDataset(
         jds.events, jds.static, jds.anchors, jds.cxr_catalog,
@@ -117,5 +118,5 @@ def test_reads_a_cohort_the_jax_package_wrote(cohorts, tmp_path):
     np.testing.assert_array_equal(ad.grid.numpy(), np.asarray(jad.grid))
     for k in jad.splits:
         np.testing.assert_array_equal(ad.splits[k], jad.splits[k])
-    with pytest.raises(FileNotFoundError, match="P21"):
+    with pytest.raises(FileNotFoundError, match="cli.preprocess"):
         I.load_artifacts(str(tmp_path / "missing"))

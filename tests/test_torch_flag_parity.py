@@ -2,7 +2,8 @@
 
 The JAX parsers of ``cli/train_teacher``, ``cli/train_ssl``,
 ``cli/train_student``, ``cli/train_cxr_head``, ``cli/serve``,
-``cli/finetune_mimic``, ``cli/train_physionet`` and ``cli/predict`` are
+``cli/finetune_mimic``, ``cli/train_physionet``, ``cli/predict`` and
+``cli/preprocess`` are
 collected by intercepting
 ``parse_args``, as ``tests/test_flag_parity.py:39-64`` collects the
 reference's. Each of their
@@ -50,6 +51,7 @@ from multimodal_edema_prediction_tpu.analysis import (
 from multimodal_edema_prediction_tpu.cli import \
     finetune_mimic as jax_finetune
 from multimodal_edema_prediction_tpu.cli import predict as jax_predict
+from multimodal_edema_prediction_tpu.cli import preprocess as jax_preprocess
 from multimodal_edema_prediction_tpu.cli import serve as jax_serve
 from multimodal_edema_prediction_tpu.cli import train_cxr_head as jax_cxr_head
 from multimodal_edema_prediction_tpu.cli import \
@@ -64,7 +66,8 @@ from multimodal_edema_prediction_tpu_torch.analysis import (
     train_trajectory_probe, trajectory_availability, unimodal_linear_probe,
     visualize_pathology, why_we_need_multimodal)
 from multimodal_edema_prediction_tpu_torch.cli import (finetune_mimic,
-                                                       predict, serve,
+                                                       predict, preprocess,
+                                                       serve,
                                                        train_cxr_head,
                                                        train_physionet,
                                                        train_ssl)
@@ -92,6 +95,8 @@ CLIS = {"train_teacher": (jax_teacher, train_teacher),
         "finetune_mimic": (jax_finetune, finetune_mimic),
         "train_physionet": (jax_physionet, train_physionet),
         "predict": (jax_predict, predict),
+        # the L0 CLI of ROADMAP P21
+        "preprocess": (jax_preprocess, preprocess),
         # the analysis scripts of ROADMAP P19a
         "trajectory_availability": (jax_trajectory, trajectory_availability),
         "residual_by_confidence": (jax_residual, residual_by_confidence),

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of it, and what
 ``chip_smoke.py`` imports, brings in neither JAX nor flax nor optax nor
-msgpack nor sklearn nor ml_dtypes nor PIL nor pandas nor the JAX package,
+msgpack nor sklearn nor ml_dtypes nor PIL nor pandas nor pyarrow (the L0
+chain, ``data/raw_mimic.py``, is numpy only) nor the JAX package,
 nor umap-learn, nor matplotlib or scipy (which the analysis scripts import
 only inside the functions that draw a figure or fit a probe), nor wandb
 (imported only inside ``utils/logging.Logger``; ``torch.profiler``, which
@@ -26,7 +27,7 @@ from multimodal_edema_prediction_tpu_torch.ops import (attention, dual_axis,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
-             "ml_dtypes", "PIL", "pandas", "umap",
+             "ml_dtypes", "PIL", "pandas", "pyarrow", "umap",
              "multimodal_edema_prediction_tpu")
 # imported inside a function only, never when a module is imported
 LAZY = ("matplotlib", "scipy", "wandb")
@@ -63,7 +64,12 @@ def test_imports_bring_in_no_jax():
                  "analysis.raw_trajectory_conditional_probe",
                  "analysis.umap_impl", "analysis.tsne",
                  "analysis.visualize_pathology", "ops.int8",
-                 "ops.lupi_losses", "utils.logging", "utils.profiling"):
+                 "ops.lupi_losses", "utils.logging", "utils.profiling",
+                 "data.frames", "data.raw_mimic", "data.synthetic_raw",
+                 "data.static_info", "data.cxr_catalog", "data.preprocess",
+                 "data.demographics", "data.subtype", "data.prompts",
+                 "data.reports", "data.text_embeddings", "data.jpeg_writer",
+                 "cli.preprocess"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
