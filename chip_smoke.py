@@ -6140,6 +6140,419 @@ def phase_l0(port, device, card: str = "") -> dict:
     return {**info, "launches": launches}
 
 
+# multi-step dispatch (the multistep phase): each route's K; the runs'
+# cohort, batch and batches an epoch (60 stays give 13 train batches of 4;
+# 10 = 4 + 4 + 2 at K = 4 and 8 + 2 at K = 8: the first epoch runs the
+# groups' graph eagerly, captures it and runs the remainder eagerly, the
+# second replays the groups' graph twice and captures the remainder's);
+# the steady steps at the CLIs' own batch (32; SSL 128; the unfrozen ViT
+# at 8) on the train phase's 240 stays
+MULTISTEP_K = {"hbm": 4, "pixels": 4, "unfrozen": 4, "ssl": 8, "kd": 4}
+MULTISTEP_LIMIT = 10
+MULTISTEP_CLI = {"hbm": (60, 4), "pixels": (60, 4), "unfrozen": (60, 4),
+                 "ssl": (240, 128), "kd": (60, 4)}
+MULTISTEP_STEADY_BATCH = {"hbm": 32, "pixels": 32, "unfrozen": 8,
+                          "ssl": 128, "kd": 32}
+MULTISTEP_STEADY_STAYS = 240
+
+
+class _Tee:
+    """Standard output, also kept in ``lines`` (the CLIs' log lines)."""
+
+    def __init__(self, out):
+        self.out, self.lines = out, []
+
+    def write(self, s):
+        self.lines.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _train_state_of(res) -> dict:
+    """A loop's final train state, copied on its device: every parameter
+    and buffer, both AdamW moments, the device step count, and the step
+    generator's state."""
+    state, gen = res.extras["state"], res.extras["generator"]
+    snap = {f"model/{n}": t.detach().clone()
+            for n, t in state.model.state_dict().items()}
+    for m in ("mu", "nu"):
+        flat = [t for ts in getattr(state.optimizer, m) for t in ts]
+        snap.update({f"{m}/{i}": t.clone() for i, t in enumerate(flat)})
+    snap["step_t"] = state.step_t.clone()
+    snap["generator"] = gen.get_state()
+    return snap
+
+
+def _multistep_run(port, device, run, batch: int) -> dict:
+    """One training run of the ``multistep`` phase (``run()``: a CLI's
+    ``main`` or a loop, logging to standard output): its history and final
+    train state (``_train_state_of``), every kernel's launches over exactly
+    this run, its peak memory, the graphs it captured (its ``[multistep]
+    captured`` lines) and the loop's train samples/s."""
+    import torch
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(port)
+    tee = _Tee(sys.stdout)
+    sys.stdout = tee
+    t0 = time.perf_counter()
+    try:
+        res = run()
+        _sync(device)
+    finally:
+        sys.stdout = tee.out
+    wall = time.perf_counter() - t0
+    ex = res.extras
+    train_s = ex["phase_seconds"]["train"] if "phase_seconds" in ex \
+        else ex["train_seconds"]
+    out = {"wall_s": wall, "history": res.history,
+           "launches": read_counts(port),
+           "graphs_captured": sum("[multistep] captured" in s
+                                  for s in "".join(tee.lines).splitlines()),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()
+           if device.type == "cuda" else None,
+           "train_steps": ex["n_train_steps"],
+           "host_step": ex["state"].step, "train_s": train_s,
+           "train_samples_per_s": ex["n_train_steps"] * batch / train_s}
+    out["state"] = _train_state_of(res)
+    out["best_path"] = res.best_path
+    return out
+
+
+def _state_diff(a: dict, b: dict) -> list:
+    """The entries of two ``_train_state_of`` copies that differ."""
+    import torch
+    if a.keys() != b.keys():
+        return sorted(a.keys() ^ b.keys())
+    return [k for k in a if not torch.equal(a[k], b[k])]
+
+
+def _steady_calls(fn, device, k: int, reps: int = 5) -> dict:
+    """``fn`` (one call of ``k`` steps) after 3 warm-up calls (a multi-step
+    call's eager first call and its capture among them): the median host
+    time of ``reps`` calls, each to a device sync, per step; the peak
+    memory of those calls; and the CUDA-event time of ``reps`` more calls
+    made back to back (the device's time; for a graph replay, nearly its
+    busy time: no host work between its kernels)."""
+    import torch
+    for _ in range(3):
+        fn()
+    _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    call_ms = statistics.median(times)
+    out = {"step_ms": call_ms / k, "call_ms_all": times,
+           "peak_memory_bytes": None, "device_ms_per_step": None}
+    if device.type == "cuda":
+        out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out["device_ms_per_step"] = start.elapsed_time(end) / reps / k
+    return out
+
+
+def _steady_teacher_data(port, device, tiny: bool, bases: dict) -> dict:
+    """The teacher routes' steady set-up, made once: the train phase's
+    240-stay cohort on ``device``, 4 shuffled train batches of 32 with
+    their procedural pixels (the hook run once), a full-width frozen
+    teacher (seeded), and its bank of those batches' images, encoded from
+    the same pixels."""
+    import torch
+    cfgmod, P, F = port["config"], port["pipeline"], port["features"]
+    tl = port["teacher_loop"]
+    cfg = _multistep_teacher_cfg(port, tiny)
+    ds = port["synthetic"].make_synthetic(
+        seed=0, n_stays=MULTISTEP_STEADY_STAYS,
+        n_subjects=MULTISTEP_STEADY_STAYS // 3,
+        n_variables=cfg.duett.n_variables)
+    dcfg = cfgmod.DataConfig()
+    data = P.build_anchor_dataset(ds, P.meta_from_events(ds, dcfg),
+                                  dcfg).to(device)
+    hook = tl.make_synthetic_pixel_hook(cfg.vit.image_size)
+    pixels = []
+    for b in data.iter_batches("train", 32, shuffle=True, seed=0,
+                               limit=max(MULTISTEP_K.values())):
+        b.pop("valid")
+        pixels.append(hook(b))
+    if "pixels" not in bases:
+        bases["pixels"] = port["teacher"].init_teacher(cfg, 0).to(device)
+    teacher = bases["pixels"]
+    first = {}
+    for b in pixels:
+        for i, image_id in enumerate(b["image_ids"]):
+            first.setdefault(int(image_id), b["pixel_values"][i])
+    ids = np.array(sorted(first))
+    bank = F.CXRFeatureBank.build(
+        F.encode_fn_for_teacher(teacher, torch.bfloat16),
+        lambda q: np.stack([first[int(i)] for i in q]), ids)
+    cached = [bank.host_fn()({n: v for n, v in b.items()
+                              if n != "pixel_values"}) for b in pixels]
+    return {"cfg": cfg, "data": data, "teacher": teacher, "bank": bank,
+            "pixels": pixels, "cached": cached, "bases": bases}
+
+
+def _steady_route(port, device, route: str, k: int, tiny: bool,
+                  shared) -> dict:
+    """One route's step at a steady state, K = 1 against K = ``k`` from the
+    same weights on the same batches (full width, seeded weights, the
+    route's CLI batch): the host time of a step, samples/s, peak memory,
+    and the device's idle share: 1 − the device time of a step of
+    back-to-back graph replays (its kernels with no host gap) over each
+    dispatch's host time of a step."""
+    import torch
+    cfgmod, eng, st, optim = (port["config"], port["engine"], port["state"],
+                              port["optim"])
+    bf16 = torch.bfloat16
+    batch = MULTISTEP_STEADY_BATCH[route]
+    if route == "ssl":
+        argv = ["--device", device.type, "--synthetic_stays",
+                str(MULTISTEP_CLI["ssl"][0]), "--stride", "2"]
+        if tiny:
+            argv += ["--n_variables", "6", "--d_embedding", "8"]
+        duett, data = _ssl_data(port, argv, device)
+        host = list(data.iter_batches("train", batch, shuffle=True, seed=0,
+                                      limit=k))
+        model = port["duett"].init_pretrain_model(duett, 0).to(device)
+        opt = optim.MultiGroupAdamW.one_group(
+            model, optim.invsqrt_warmup(3e-4, 8), 0.1, 1.0)
+        step = eng.make_ssl_step(duett, data.n_timesteps, bf16)
+        fixed = (data.grid, data.static)
+    else:
+        cfg, data = shared["cfg"], shared["data"]
+        trn = cfgmod.TrainConfig(batch_size=batch)
+        source = shared["bank"].feature_source() \
+            if route in ("hbm", "kd") else None
+        host = shared["cached"] if source is not None else \
+            [{n: v[:batch] for n, v in b.items()} for b in shared["pixels"]]
+        host = host[:k]
+        if route == "kd":
+            scfg = cfgmod.StudentConfig(duett=cfg.duett)
+            model = port["student"].init_student(scfg, 0).to(device)
+            shared["teacher"].requires_grad_(False)
+            opt = optim.MultiGroupAdamW(model, trn.optim, 100)
+            step = eng.make_kd_step(trn, scfg.duett, data.n_timesteps, bf16,
+                                    feature_source=source)
+            fixed = (shared["teacher"], data.grid, data.static)
+        else:
+            if route == "unfrozen":
+                cfg = cfg.replace(freeze_cxr=False)
+                model = shared["bases"].get("unfrozen") or \
+                    port["teacher"].init_teacher(cfg, 0).to(device)
+            else:
+                model = shared["teacher"]
+            opt = optim.MultiGroupAdamW(
+                model, trn.optim, 100,
+                frozen_prefixes=port["teacher_loop"].teacher_frozen_prefixes(
+                    cfg))
+            step = eng.make_teacher_step(trn, cfg.duett, data.n_timesteps,
+                                         np.ones(7, np.float32), None, bf16,
+                                         feature_source=source)
+            fixed = (data.grid, data.static)
+    state = st.TrainState(model, opt)
+    gen = torch.Generator(device=device).manual_seed(1)
+    one = eng.to_device(host[0], device)
+    stacked = eng.to_device(next(port["prefetch"].stack_host_batches(
+        host, k)), device)
+    multi = eng.scan_steps(step, k)
+    out = {"batch": batch, "k": k,
+           "k1": _steady_calls(lambda: step(state, *fixed, one, gen),
+                               device, 1),
+           f"k{k}": _steady_calls(lambda: multi(state, *fixed, stacked, gen),
+                                  device, k)}
+    busy = out[f"k{k}"]["device_ms_per_step"]
+    for n in ("k1", f"k{k}"):
+        out[n]["samples_per_s"] = batch * 1e3 / out[n]["step_ms"]
+        out[n]["idle_share"] = None if busy is None \
+            else 1.0 - busy / out[n]["step_ms"]
+    out["speedup"] = out["k1"]["step_ms"] / out[f"k{k}"]["step_ms"]
+    del state, opt, multi, step
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _multistep_teacher_cfg(port, tiny: bool):
+    cfgmod = port["config"]
+    if not tiny:
+        return cfgmod.TeacherConfig()
+    return cfgmod.TeacherConfig(
+        duett=cfgmod.DuettConfig(n_variables=34, d_embedding=8, n_layers=1),
+        vit=cfgmod.ViTConfig(image_size=56, d_model=32, n_layers=2,
+                             n_heads=2, d_feedforward=64),
+        perceiver=cfgmod.PerceiverConfig(d_latent=32, n_heads=2))
+
+
+def _multistep_runs(port, device, route: str, k: int, tiny: bool,
+                    root: str, teacher_ckpt: str, bases: dict) -> tuple:
+    """One route's two runs, K = 1 and K = ``k``, from the same seed: the
+    ``hbm``, SSL and KD routes through their CLIs (``--steps_per_call``),
+    the two pixel routes through ``train_teacher`` itself, each run on a
+    copy of one seeded full-width teacher made once (``bases``), as its
+    CLI would make it; → (the two runs, the CLI's argv or None)."""
+    dev = device.type
+    stays, batch = MULTISTEP_CLI[route]
+    argv = ["--device", dev, "--synthetic_stays", str(stays),
+            "--batch_size", str(batch), "--epochs", "2", "--limit_batches",
+            str(MULTISTEP_LIMIT), "--no_save_state"]
+    if route == "ssl":
+        cli = "train_ssl"
+        argv += ["--stride", "2", "--ssl_warmup", "8"] + (
+            ["--n_variables", "6", "--d_embedding", "8"] if tiny else [])
+    elif route == "kd":
+        cli = "train_student"
+        argv += ["--warmup_steps", "4", "--cxr_feature_cache", "hbm",
+                 "--teacher_ckpt", teacher_ckpt]
+    elif route == "hbm":
+        cli = "train_teacher"
+        argv += ["--warmup_steps", "4", "--cxr_feature_cache", "hbm"] + (
+            ["--vit_size", "tiny"] if tiny else [])
+    else:
+        cli = None
+    runs = {}
+    for kk in (1, k):
+        ckpt_dir = os.path.join(root, f"{route}_k{kk}")
+        if cli is not None:
+            def run(kk=kk, ckpt_dir=ckpt_dir):
+                return port[cli].main(argv + ["--steps_per_call", str(kk),
+                                              "--ckpt_dir", ckpt_dir])
+        else:
+            def run(kk=kk, ckpt_dir=ckpt_dir):
+                return _pixel_loop(port, device, route, kk, tiny, ckpt_dir,
+                                   bases)
+        runs[kk] = _multistep_run(port, device, run, batch)
+    return runs, argv if cli is not None else None
+
+
+def _pixel_loop(port, device, route: str, k: int, tiny: bool,
+                ckpt_dir: str, bases: dict):
+    """``train_teacher`` on procedural pixels as ``cli.train_teacher``
+    runs it (``--unfreeze_cxr`` for the unfrozen route), from a copy of
+    the route's seeded teacher."""
+    cfgmod, P, tl = port["config"], port["pipeline"], port["teacher_loop"]
+    stays, batch = MULTISTEP_CLI[route]
+    cfg = _multistep_teacher_cfg(port, tiny)
+    if route == "unfrozen":
+        cfg = cfg.replace(freeze_cxr=False)
+    if route not in bases:
+        bases[route] = port["teacher"].init_teacher(cfg, 0).to(device)
+    dcfg = cfgmod.DataConfig()
+    ds = port["synthetic"].make_synthetic(
+        seed=0, n_stays=stays, n_subjects=max(stays // 3, 10),
+        n_variables=cfg.duett.n_variables)
+    data = P.build_anchor_dataset(ds, P.meta_from_events(ds, dcfg), dcfg)
+    trn = cfgmod.TrainConfig(
+        batch_size=batch, epochs=2, limit_batches=MULTISTEP_LIMIT,
+        steps_per_call=k, optim=cfgmod.OptimConfig(warmup_steps=4))
+    return tl.train_teacher(data, cfg, trn, ckpt_dir, dcfg.pathology_labels,
+                            model=copy.deepcopy(bases[route]),
+                            device=device)
+
+
+def phase_multistep(port, device, card: str = "", tiny: bool = False,
+                    routes=None) -> dict:
+    """Multi-step dispatch (``--steps_per_call K``, ROADMAP P10) through
+    the training CLIs at full width: each route (the teacher on ``hbm``,
+    on procedural pixels and with ``--unfreeze_cxr``, SSL, KD on ``hbm``)
+    run with K = 1 and with its K (MULTISTEP_K) from the same seed, and
+    held bit-equal: the per-epoch history and the final train state (every
+    parameter and buffer, both AdamW moments, the device step count, the
+    generator's state) and the host step count; every kernel's launches
+    equal the K = 1 run's (a replay counts what its graph launches); each
+    K run captured two graphs (the groups of K and the remainder group),
+    K = 1 none. Then each route's steady step, K = 1 against K from the
+    same weights (``_steady_route``). ``tiny`` (a CPU rehearsal) swaps in
+    small widths; ``routes`` picks some (``kd`` distills the teacher the
+    ``hbm`` route kept)."""
+    dev = device.type
+    root = os.path.join(REPO, "build", "chip_smoke_multistep")
+    # the hbm route's K = 1 teacher, which the kd route distills
+    teacher_ckpt = os.path.join(REPO, "build",
+                                "chip_smoke_multistep_teacher.msgpack")
+    out, fails, bases = {}, [], {}
+    wanted = routes or ("hbm", "pixels", "unfrozen", "ssl", "kd")
+    for route in wanted:
+        k = MULTISTEP_K[route]
+        runs, argv = _multistep_runs(port, device, route, k, tiny, root,
+                                     teacher_ckpt, bases)
+        if route == "hbm":
+            _keep_ckpt(runs[1]["best_path"], teacher_ckpt)
+        shutil.rmtree(root, ignore_errors=True)
+        a, b = runs[1], runs[k]
+        differ = _state_diff(a.pop("state"), b.pop("state"))
+        r = {"k": k, "argv": argv, "k1": a, f"k{k}": b,
+             "equal": {"history": a["history"] == b["history"],
+                       "train_state": not differ,
+                       "host_step": a["host_step"] == b["host_step"],
+                       "launches": a["launches"] == b["launches"]},
+             "differing_state": differ[:8]}
+        out[route] = r
+        if not all(r["equal"].values()):
+            fails.append(f"{route}: K={k} differs from K=1: {r['equal']} "
+                         f"{differ[:8]}")
+        if a["graphs_captured"] != 0 or b["graphs_captured"] != (
+                2 if dev == "cuda" else 0):
+            fails.append(f"{route}: graphs captured {a['graphs_captured']} "
+                         f"(K=1), {b['graphs_captured']} (K={k})")
+        kernel = "gather_rows_bulk" if route in ("hbm", "kd") \
+            else "flash_attention" if route != "ssl" else None
+        if dev == "cuda" and kernel and not b["launches"][kernel]:
+            fails.append(f"{route}: no {kernel} launch")
+        if not all(np.isfinite(v) for h in a["history"] for v in h.values()
+                   if isinstance(v, float)):
+            fails.append(f"{route}: non-finite history {a['history']}")
+    # the steady steps, after every run: the seeded teachers are theirs now
+    shared = _steady_teacher_data(port, device, tiny, bases)
+    for route in wanted:
+        r = out[route]
+        r["steady"] = _steady_route(port, device, route, r["k"], tiny,
+                                    shared)
+        emit({"phase": "multistep_route", "route": route, "card": card,
+              **r})
+    del shared, bases
+    shutil.rmtree(root, ignore_errors=True)
+    info = {"phase": "multistep", "card": card, "routes": {}}
+    for route, r in out.items():
+        kk = f"k{r['k']}"
+        info["routes"][route] = {
+            "k": r["k"], "equal": r["equal"],
+            "launches": {n: {key: v for key, v in r[n]["launches"].items()
+                             if v} for n in ("k1", kk)},
+            "graphs_captured": r[kk]["graphs_captured"],
+            **{key: {n: r[n][key] for n in ("k1", kk)} for key in (
+                "train_samples_per_s", "peak_memory_bytes", "wall_s")},
+            **{f"steady_{key}": {n: r["steady"][n][key] for n in ("k1", kk)}
+               for key in ("step_ms", "samples_per_s", "idle_share",
+                           "peak_memory_bytes")},
+            "steady_batch": r["steady"]["batch"],
+            "steady_device_ms_per_step": r["steady"][kk][
+                "device_ms_per_step"],
+            "steady_speedup": r["steady"]["speedup"]}
+    emit(info)
+    if fails:
+        raise AssertionError("; ".join(fails))
+    return info
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         rank, world, port_no = (int(a) for a in sys.argv[2:5])
@@ -6278,6 +6691,7 @@ def main() -> int:
                                   card=dev["nvidia_smi"])
     int8 = phase_int8(port, device, card=dev["nvidia_smi"])
     l0 = phase_l0(port, device, card=dev["nvidia_smi"])
+    multistep = phase_multistep(port, device, card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -6322,7 +6736,10 @@ def main() -> int:
                             for run, r in int8["runs"].items()},
                          "serve": int8["serve"]["k1_launches"]
                          if name == "flash_attention" else 0},
-                "l0": l0["launches"].get(name, 0)}
+                "l0": l0["launches"].get(name, 0),
+                "multistep": {f"{route}_{kk}": n.get(name, 0)
+                              for route, r in multistep["routes"].items()
+                              for kk, n in r["launches"].items()}}
 
     def supervised_by_path(name):
         return {"finetune": {way: r["launches"][name]

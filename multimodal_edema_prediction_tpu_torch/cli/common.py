@@ -17,7 +17,10 @@ was given, and ``refuse_queued_flags`` raises ``NotImplementedError``
 naming its ROADMAP item before any data, model or device work.
 ``--wandb_project`` (unless ``--wandb_disabled``) and ``--wandb_run_name``
 go to the CLI's ``utils/logging.Logger``; ``--log_every`` to
-``TrainConfig.log_every``.
+``TrainConfig.log_every``; ``--steps_per_call K`` to
+``TrainConfig.steps_per_call`` (``train/engine.py::scan_steps``: K steps
+per call, a ``[multistep] captured K=...`` line when a card's graph is
+captured).
 """
 from __future__ import annotations
 
@@ -95,8 +98,9 @@ def add_common_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mixed_precision", type=str, default="bf16",
                    choices=["no", "bf16"])
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="K optimizer steps per dispatch: only 1 is ported "
-                        "(ROADMAP P10)")
+                   help="K optimizer steps per dispatch: on a card one CUDA "
+                        "graph replay per K steps (the teacher's dual modes "
+                        "and LP, SSL, KD); bit-equal to K = 1")
     p.add_argument("--ckpt_dir", type=str, default="runs")
     p.add_argument("--wandb_project", type=str, default="")
     p.add_argument("--wandb_run_name", type=str, default="")
@@ -125,10 +129,6 @@ def configs_from_args(args) -> tuple:
     # exit; utils/preemption.py)
     from ..utils import preemption
     preemption.install_handler()
-    if args.steps_per_call != 1:
-        raise NotImplementedError(
-            f"--steps_per_call {args.steps_per_call}: multi-step dispatch is "
-            "not ported yet (ROADMAP P10)")
     dcfg = DataConfig(label_col=args.label_col,
                       n_timesteps=args.n_timesteps,
                       split_seed=args.split_seed, data_dir=args.data_dir)
@@ -143,7 +143,7 @@ def configs_from_args(args) -> tuple:
         limit_batches=args.limit_batches,
         eval_train_batches=args.eval_train_batches,
         dtype="bfloat16" if args.mixed_precision == "bf16" else "float32",
-        log_every=args.log_every,
+        log_every=args.log_every, steps_per_call=args.steps_per_call,
         alpha_img=args.aux_img_alpha, alpha_ts=args.aux_ts_alpha,
         alpha_fus=args.aux_fus_alpha,
         aux_residual_alpha=args.aux_residual_alpha,

@@ -18,7 +18,7 @@ device with the labels fixed to zeros, through the ViT (demos, load tests;
 no image payloads). ``--data_parallel N`` serves N replicas of the model on
 cards 0..N-1 (``serve/predictor.py``: buckets of multiples of N, each batch
 split across the replicas; more than the cards there are raises);
-``--aot_dir`` is not ported yet (ROADMAP P10) and raises when given. Every
+``--aot_dir`` is not ported yet (ROADMAP P10b) and raises when given. Every
 bucket runs once before the port opens, so the first request never pays a
 kernel build.
 """
@@ -35,7 +35,7 @@ import torch
 from .common import add_queued_flags, refuse_queued_flags
 
 # JAX flags whose feature is not ported yet → their ROADMAP item
-QUEUED_FLAGS = {"--aot_dir": "P10"}
+QUEUED_FLAGS = {"--aot_dir": "P10b"}
 
 
 def build_parser() -> argparse.ArgumentParser:

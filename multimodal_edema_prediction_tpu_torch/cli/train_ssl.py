@@ -10,8 +10,9 @@ Writes ``pretrain-step<N>-<val>.msgpack`` (the best val loss, JAX format),
 epoch into a new run directory under ``--ckpt_dir``; ``--resume_dir``
 continues such a run bit for bit; a SIGTERM saves the state at the next
 epoch boundary and exits cleanly. The teacher starts from the checkpoint
-with ``cli.train_teacher --duett_ckpt``. ``--state_backend orbax`` (P16),
-``--steps_per_call`` > 1 (P10) are not ported and raise; the wandb flags
+with ``cli.train_teacher --duett_ckpt``. ``--steps_per_call K`` runs K
+steps per call (one CUDA graph replay on a card, bit-equal to K = 1).
+``--state_backend orbax`` (P16) is not ported and raises; the wandb flags
 reach its ``Logger``; ``--eval_train_batches`` and ``--log_every`` are
 accepted and, as in the JAX CLI, unused by the SSL loop.
 """

@@ -18,8 +18,9 @@ Writes ``best-step<N>-<auroc>.msgpack`` and, by default, the full train
 state of every epoch into a new run directory under ``--ckpt_dir``;
 ``--resume_dir`` continues such a run bit for bit; a SIGTERM saves the
 state at the next epoch boundary and exits cleanly. The wandb flags reach
-its ``Logger``. Refused, naming their ROADMAP item: ``--state_backend
-orbax`` (P16), ``--steps_per_call`` > 1 (P10).
+its ``Logger``. ``--steps_per_call K`` runs K KD steps per call (one
+CUDA graph replay on a card, bit-equal to K = 1). Refused, naming its
+ROADMAP item: ``--state_backend orbax`` (P16).
 """
 from __future__ import annotations
 

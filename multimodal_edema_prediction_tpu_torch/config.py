@@ -4,7 +4,7 @@ The PyTorch port's own copy of ``multimodal_edema_prediction_tpu/config.py``
 (the port imports nothing of the JAX package); ``tests/test_torch_config.py``
 pins it equal to the original, so checkpoints keep one config contract.
 Fields that only the JAX package reads (``flash_block_b``, ``quant``,
-``n_data``/``n_model``, ``steps_per_call``) stay so that sidecars round-trip.
+``n_data``/``n_model``) stay so that sidecars round-trip.
 
 Replaces the reference's ~60-flag argparse namespaces
 (``training_duett/run.py:49-178``) with frozen dataclasses that:
@@ -304,10 +304,10 @@ class TrainConfig(_ConfigBase):
     # mesh
     n_data: int = 0                  # 0 → all devices on the data axis
     n_model: int = 1
-    # fuse K optimizer steps into one jitted lax.scan program
-    # (engine.scan_steps) — amortizes per-step host dispatch on the
-    # device-resident input tiers (HBM bank / encode-once features);
-    # 1 = one program per step (the reference's only mode)
+    # K optimizer steps per call (engine.scan_steps): on a card one CUDA
+    # graph replay per K steps, which amortizes per-step host dispatch on
+    # the device-resident input tiers; 1 = one step per call (the
+    # reference's only mode)
     steps_per_call: int = 1
     optim: OptimConfig = field(default_factory=OptimConfig)
 

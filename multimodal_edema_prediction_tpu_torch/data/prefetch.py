@@ -16,6 +16,10 @@ only after the consumer has waited on its copy. On the CPU the worker
 yields the host batch's tensors as they are, in order. A worker's
 exception is raised in the consumer; ``close`` (also when the consumer
 stops early) stops the worker and joins it.
+
+``stack_host_batches`` groups a host stream into K-stacked batches for
+multi-step dispatch (``train/engine.py::scan_steps``); the prefetcher
+carries such a batch as any other, its leading axis K included.
 """
 from __future__ import annotations
 
@@ -137,3 +141,19 @@ def prefetch(batches: Iterable[dict], device, depth: int = 2,
         yield from p
     finally:
         p.close()
+
+
+def stack_host_batches(batches: Iterable[dict], k: int) -> Iterator[dict]:
+    """Group a host batch stream into K-stacked batches for
+    ``engine.scan_steps`` (a new leading axis K on every field; JAX
+    ``data/prefetch.py:73-88``). The last group carries the remainder
+    (< k), which ``scan_steps`` runs as a shape of its own (on a card, a
+    second captured graph)."""
+    buf = []
+    for b in batches:
+        buf.append(b)
+        if len(buf) == k:
+            yield {key: np.stack([bb[key] for bb in buf]) for key in buf[0]}
+            buf = []
+    if buf:
+        yield {key: np.stack([bb[key] for bb in buf]) for key in buf[0]}

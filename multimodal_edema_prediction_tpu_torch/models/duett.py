@@ -114,8 +114,10 @@ def pretrain_prep_batch(x_ts: torch.Tensor, masked_steps: int = 1,
     y_value = torch.gather(values, 1, idx)                     # [B,S,V]
     y_presence_mask = torch.gather(counts, 1, idx).clamp(0.0, 1.0)
 
-    row_masked = torch.zeros(B, T, dtype=torch.bool, device=dev)
-    row_masked[torch.arange(B, device=dev)[:, None], mask_idx] = True
+    # [B, T]: step t is masked when any of the S draws is t (no host
+    # value written in: a CUDA graph's capture takes no such copy)
+    row_masked = (torch.arange(T, device=dev)[None, None]
+                  == mask_idx[..., None]).any(1)
     x_masked = x_ts.masked_fill(row_masked[..., None], 0.0)
     mask_col = row_masked[..., None].to(x_ts.dtype)
 

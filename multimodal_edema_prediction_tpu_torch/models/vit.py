@@ -42,12 +42,21 @@ IMAGE_MEAN = (0.5307, 0.5307, 0.5307)
 IMAGE_STD = (0.2583, 0.2583, 0.2583)
 
 
+# (device, dtype, mean, std) → the two constants on that device, made once:
+# a copy from the host inside a step would stop a CUDA graph's capture
+_NORM_CONSTANTS: dict = {}
+
+
 def normalize_image(pixels: torch.Tensor, mean=IMAGE_MEAN, std=IMAGE_STD
                     ) -> torch.Tensor:
     """[B, H, W, 3] in [0, 1] → normalized, in the input's dtype."""
-    m = torch.tensor(mean, dtype=pixels.dtype, device=pixels.device)
-    s = torch.tensor(std, dtype=pixels.dtype, device=pixels.device)
-    return (pixels - m) / s
+    key = (pixels.device, pixels.dtype, tuple(mean), tuple(std))
+    ms = _NORM_CONSTANTS.get(key)
+    if ms is None:
+        ms = _NORM_CONSTANTS[key] = tuple(
+            torch.tensor(v, dtype=pixels.dtype, device=pixels.device)
+            for v in (mean, std))
+    return (pixels - ms[0]) / ms[1]
 
 
 class DinoBlock(nn.Module):

@@ -24,7 +24,7 @@ batches fail with the JAX predictor's ``RuntimeError``.
   batch is split into N equal parts, each part runs on its replica, and the
   outputs are concatenated in order. N above the cards there are raises
   JAX's ``create_mesh`` error. ``aot_dir`` (persisted executables) has no
-  counterpart yet (ROADMAP P10).
+  counterpart yet (ROADMAP P10b).
 """
 from __future__ import annotations
 

@@ -6,7 +6,9 @@
 ``teacher_loop.py:464-479``), ``default_image_source``,
 ``make_teacher_eval_from_windows``, ``make_supervised_ts_step``,
 ``make_supervised_ts_eval``,
-``make_kd_step``, ``make_ssl_step``, ``make_ssl_eval``).
+``make_kd_step``, ``make_ssl_step``, ``make_ssl_eval``), and
+``scan_steps``, K steps per call (``--steps_per_call``; one CUDA graph
+replay per call on a card).
 
 A step runs eagerly on the device that holds the batch: window gather →
 augmentation → model forward/backward → optimizer update. The encode-once
@@ -65,6 +67,22 @@ def to_device(batch: dict, device: torch.device) -> Dict[str, torch.Tensor]:
             if not k.startswith("_")}
 
 
+def _on_device(array) -> Callable[[torch.device], torch.Tensor]:
+    """``device`` → ``array`` as a float32 tensor there, copied once per
+    device (a step copies nothing from the host: a CUDA graph's capture
+    would stop at such a copy)."""
+    made: Dict[torch.device, torch.Tensor] = {}
+
+    def get(device: torch.device) -> torch.Tensor:
+        t = made.get(device)
+        if t is None:
+            t = made[device] = torch.as_tensor(array, dtype=torch.float32,
+                                               device=device)
+        return t
+
+    return get
+
+
 def _prep_inputs(grid, static, batch, n_timesteps, dtype, gen=None,
                  aug_noise=0.0, aug_mask=0.0, train=False):
     x_ts = gather_windows(grid, batch["stay_rows"], batch["slot_idx"],
@@ -109,6 +127,7 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
     ``reg_beta_l2 = lp_beta_l2·mean(β²)`` and ``reg_corr_l2 =
     lp_corr_l2·mean(scaled_correction²)``."""
     train = not lp_mode
+    weights = _on_device(label_weights)
 
     def step(state: TrainState, grid, static, batch, gen
              ) -> Dict[str, torch.Tensor]:
@@ -119,8 +138,7 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
                                     dtype)
         out = state.model(x_in, x_static, times, pixels, train=train,
                           gen=gen, cxr_feats=feats)
-        lw = torch.as_tensor(label_weights, dtype=torch.float32,
-                             device=x_in.device)
+        lw = weights(x_in.device)
         img, y, ym = G(out["img_logits"]), G(batch["y_multi"]), \
             G(batch["y_multi_mask"])
         losses = L.dual_pathology_loss(
@@ -148,6 +166,196 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
     return step
 
 
+_WARM = object()     # a K-stacked shape whose eager first call has run
+
+
+def _launch_counters() -> tuple:
+    """Every kernel wrapper's launch counter (and the int8 matmul's call
+    counter): the dicts a graph's replay adds its captured launches to."""
+    from ..ops import attention, dual_axis, gather, int8, jpeg, ln_qkv
+    return (attention.LAUNCHES, gather.LAUNCHES, dual_axis.LAUNCHES,
+            ln_qkv.LAUNCHES, jpeg.LAUNCHES, int8.CALLS)
+
+
+def _collect(outs: list) -> Dict[str, torch.Tensor]:
+    """K steps' metrics as JAX ``scan_steps`` returns them: each scalar
+    summed over the K steps, its K values under ``per_step``; any other
+    metric stacked [K, ...]."""
+    out: Dict[str, torch.Tensor] = {}
+    per_step: Dict[str, torch.Tensor] = {}
+    for key in outs[0]:
+        vals = torch.stack([o[key] for o in outs])
+        if vals.ndim == 1:
+            per_step[key] = vals
+            out[key] = vals.sum(0)
+        else:
+            out[key] = vals
+    out["per_step"] = per_step
+    return out
+
+
+class _CapturedSteps:
+    """K steps captured as one CUDA graph, with static input buffers for the
+    K-stacked batch and a memory pool of its own. The capture runs no step
+    (the graph's first replay does), but the wrappers count the launches
+    they record: that count is the graph's, added again at each later
+    replay."""
+
+    def __init__(self, step: Callable, state: TrainState, fixed: tuple,
+                 batches: Dict[str, torch.Tensor], gen: torch.Generator):
+        self.k = next(iter(batches.values())).shape[0]
+        self.state, self.fixed, self.gen = state, fixed, gen
+        self.version = state.optimizer.version
+        self.inputs = {n: torch.empty_like(v) for n, v in batches.items()}
+        for n, v in batches.items():
+            self.inputs[n].copy_(v)
+        self.graph = torch.cuda.CUDAGraph()
+        # replays then draw from ``gen`` at its state of the moment, and
+        # advance it by what the K steps draw, as eager steps do
+        self.graph.register_generator_state(gen)
+        counters = _launch_counters()
+        before = [dict(c) for c in counters]
+        # thread_local: the prefetch worker's pinned copies and allocations
+        # on its own stream and thread go on during the capture
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            self.out = _collect([
+                step(state, *fixed,
+                     {n: v[i] for n, v in self.inputs.items()}, gen)
+                for i in range(self.k)])
+        self.launches = [{n: c[n] - b[n] for n in c}
+                         for c, b in zip(counters, before)]
+        # the capture advanced the host count by K, the replay advances
+        # the device count
+        self.graph.replay()
+
+    def binds(self, state: TrainState, fixed: tuple,
+              gen: torch.Generator) -> bool:
+        """Whether a call with these arguments is one this graph replays."""
+        return state is self.state and gen is self.gen and \
+            len(fixed) == len(self.fixed) and \
+            all(a is b for a, b in zip(fixed, self.fixed))
+
+    def replay(self, batches: Dict[str, torch.Tensor]) -> None:
+        for n, v in batches.items():
+            self.inputs[n].copy_(v)
+        self.graph.replay()
+        self.state.advance_host_step(self.k)
+        for counter, added in zip(_launch_counters(), self.launches):
+            for n, v in added.items():
+                counter[n] += v
+
+    def outputs(self) -> Dict[str, torch.Tensor]:
+        """This replay's metrics, copied out of the graph's buffers."""
+        out = {k: v.clone() for k, v in self.out.items() if k != "per_step"}
+        out["per_step"] = {k: v.clone()
+                           for k, v in self.out["per_step"].items()}
+        return out
+
+
+def steps_per_call(k: int, world: int) -> int:
+    """A loop's steps per call (at least 1); more than one in a
+    multi-process run raises: the in-step gathers and the gradients' sum
+    run over gloo as well as NCCL, and a gloo collective cannot be
+    captured in a CUDA graph (ROADMAP P10b)."""
+    k = max(1, int(k))
+    if k > 1 and world > 1:
+        raise NotImplementedError(
+            f"steps_per_call={k} in a run of {world} processes: multi-step "
+            "dispatch of a multi-process run is not ported yet (ROADMAP "
+            "P10b)")
+    return k
+
+
+def step_rows(out: Dict[str, torch.Tensor], keys) -> torch.Tensor:
+    """[K, len(keys)]: the scalars ``keys`` of each step of a call, in step
+    order, from a single step's metrics (K = 1) or a ``scan_steps`` call's
+    ``per_step``. A loop that sums them row by row sums what K single
+    steps give it in the same order, so its sums do not depend on K."""
+    if "per_step" in out:
+        return torch.stack([out["per_step"][k] for k in keys], 1)
+    return torch.stack([out[k] for k in keys])[None]
+
+
+def scan_steps(step: Callable, k: int,
+               log: Optional[Callable[[str], None]] = None) -> Callable:
+    """K train steps per call: the counterpart of JAX ``engine.py:239``
+    ``scan_steps`` (``--steps_per_call K``).
+
+    ``step(state, [consts,] grid, static, batch, gen)`` is a step factory's
+    step; the returned ``multi(state, [consts,] grid, static, batches,
+    gen)`` takes a K-stacked batch (``data/prefetch.stack_host_batches``,
+    a leading axis of 1..``k`` on every field) and runs its K steps in
+    order, exactly as K calls of ``step``: the same losses, parameters,
+    BatchNorm statistics, AdamW moments, step count and generator state,
+    bit for bit. Returned metrics: each scalar summed over the K steps, its
+    K values under ``out["per_step"]`` (for ``--log_every`` and for sums
+    taken in step order), any other metric (``main_logit``) stacked
+    [K, ...].
+
+    On the CPU a call is a loop of the K steps. On a card, each K-stacked
+    shape (the full groups, and the remainder group as a second shape, as
+    JAX compiles a second scan) runs its first call as K eager steps
+    (real steps, which also warm up what capture needs: the kernels'
+    build, cuBLAS, the autograd streams); its second call captures the K
+    steps as one ``torch.cuda.CUDAGraph`` and replays it; every later call
+    copies its batch into the graph's input buffers and replays. A capture
+    or replay that fails raises: there is no return to eager steps. The
+    graph binds the state, the constants, grid, static and ``gen`` of its
+    capture; a call with others raises. A change of the optimizer's
+    schedule table (``MultiGroupAdamW.reserve`` growing it) drops the
+    graph, which the next two calls build again. The step generator must
+    be the one the steps draw from, registered with each graph
+    (``CUDAGraph.register_generator_state``), so that a replay draws what
+    K eager steps draw.
+
+    JAX's ``split_chain`` has no counterpart: the port's steps draw from
+    one ``torch.Generator`` in step order, so K steps in one call consume
+    it as K calls do; the bit-equal tests of ``tests/test_torch_multistep
+    .py`` hold the port to that, as JAX's ``split_chain`` holds the key
+    chain to its single-step loop's."""
+    if k < 1:
+        raise ValueError(f"steps per call must be at least 1, got {k}")
+    # K-stacked shape → _WARM after its eager first call, then its graph
+    graphs: Dict[tuple, object] = {}
+
+    def multi(state: TrainState, *args) -> Dict[str, torch.Tensor]:
+        *fixed, batches, gen = args
+        sizes = {v.shape[0] for v in batches.values()}
+        if len(sizes) != 1 or not 1 <= min(sizes) <= k:
+            raise ValueError(f"a K-stacked batch of 1..{k} steps expected, "
+                             f"got leading sizes {sorted(sizes)}")
+        kk = sizes.pop()
+        key = tuple(sorted((n, tuple(v.shape), v.dtype)
+                           for n, v in batches.items()))
+        g = None
+        if state.step_t.device.type == "cuda":
+            state.optimizer.reserve(state.step + kk)
+            g = graphs.get(key)
+            if isinstance(g, _CapturedSteps) and \
+                    g.version != state.optimizer.version:
+                g = None        # its schedule table was replaced
+            graphs[key] = g or _WARM
+        if g is None:           # the CPU, or a shape's first call
+            return _collect([
+                step(state, *fixed, {n: v[i] for n, v in batches.items()},
+                     gen) for i in range(kk)])
+        if g is _WARM:
+            g = graphs[key] = _CapturedSteps(step, state, tuple(fixed),
+                                              batches, gen)
+            if log is not None:
+                log(f"[multistep] captured K={kk} steps as one CUDA graph "
+                    f"(step {state.step - kk})")
+        elif g.binds(state, tuple(fixed), gen):
+            g.replay(batches)
+        else:
+            raise ValueError("a captured multi-step call replays with the "
+                             "state, constants, data and generator of its "
+                             "capture")
+        return g.outputs()
+
+    return multi
+
+
 def make_teacher_pathology_step(cfg: TrainConfig, duett_cfg: DuettConfig,
                                 n_timesteps: int, label_weights,
                                 pos_weight=None, dtype=torch.bfloat16,
@@ -161,6 +369,8 @@ def make_teacher_pathology_step(cfg: TrainConfig, duett_cfg: DuettConfig,
     BCE, weighted ``alpha_stage2`` and ``alpha_stage4`` (the loop passes
     ``TrainConfig.aux_stage2_alpha`` and ``aux_stage4_alpha``). Returns
     the loss parts and ``main_logit``, detached."""
+    weights = _on_device(label_weights)
+
     def step(state: TrainState, grid, static, batch, gen
              ) -> Dict[str, torch.Tensor]:
         x_in, x_static, times = _prep_inputs(
@@ -170,8 +380,7 @@ def make_teacher_pathology_step(cfg: TrainConfig, duett_cfg: DuettConfig,
                                     dtype)
         out = state.model(x_in, x_static, times, pixels, train=True, gen=gen,
                           cxr_feats=feats)
-        lw = torch.as_tensor(label_weights, dtype=torch.float32,
-                             device=x_in.device)
+        lw = weights(x_in.device)
         losses = L.pathology_multilabel_loss(
             G(out["stage2_logits"]), G(out["stage4_logits"]),
             G(batch["y_multi"]), G(batch["y_multi_mask"]), lw, pos_weight,

@@ -27,9 +27,16 @@ boundary (msgpack, ``FullStateResumer``) and ``auto_resume`` continues from
 it bit for bit; a SIGTERM (``utils/preemption.py``) saves it at the next
 boundary and ends the call cleanly. The teacher may be of any mode: the
 student distills its ``main_logit`` (JAX ``kd_loop.py:80-82``; the
-reference distills only from ``dual``). Not ported, each
-refused naming its ROADMAP item: multi-step dispatch (``steps_per_call >
-1``, P10), the orbax backend (P16).
+reference distills only from ``dual``). Not ported: the orbax backend
+(P16), refused naming its ROADMAP item.
+
+Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX ``kd_loop.py:
+194-250``): each group of K train batches (``stack_host_batches``; the
+remainder group last) goes through ``engine.scan_steps``, the frozen
+teacher's eval-mode forward (under ``no_grad``) inside each of the K
+steps, one CUDA graph replay per group on a card; the history, weights
+and generator equal K = 1's bit for bit. A multi-process run with K > 1
+raises (ROADMAP P10b).
 
 Multi-process (JAX ``kd_loop.py:74-311``): under an initialised
 ``torch.distributed`` group each rank distills on its rows of the same
@@ -48,6 +55,7 @@ import torch
 
 from ..config import StudentConfig, TrainConfig
 from ..data.pipeline import AnchorDataset
+from ..data.prefetch import stack_host_batches
 from ..models.student import StudentModel, init_student
 from ..parallel import mesh as meshlib
 from ..parallel import multihost as mh
@@ -55,7 +63,8 @@ from ..utils import preemption, resolve_device
 from . import engine
 from .checkpoint import (BestKTracker, FullStateResumer,
                          load_student_from_ckpt, load_teacher_from_ckpt)
-from .loops import EarlyStopper, TrainResult, evaluate_binary_split
+from .loops import (EarlyStopper, TrainResult, evaluate_binary_split,
+                    without_valid)
 from .optim import MultiGroupAdamW
 from .ssl_loop import transplant_encoder
 from .state import TrainState, param_count
@@ -67,13 +76,10 @@ LOSS_KEYS = ("total", "bce", "kd")
 
 def check_ported(cfg: TrainConfig) -> int:
     """Raise on what the port cannot run yet, on every device, or on a
-    launcher's process count with no group to run it; → the process
-    count."""
-    if cfg.steps_per_call > 1:
-        raise NotImplementedError(
-            f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
-            "not ported yet (ROADMAP P10)")
+    launcher's process count with no group to run it (or K > 1 steps per
+    call in a multi-process run, ROADMAP P10b); → the process count."""
     world = mh.check_group()
+    engine.steps_per_call(cfg.steps_per_call, world)
     if world > 1:
         meshlib.create_mesh(cfg.n_data, cfg.n_model)
     return world
@@ -106,7 +112,8 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
     once per unique image by the cached tiers. ``stop_after_epochs`` pauses
     after that many epochs of this call, the state saved as a preempted
     run's would be."""
-    multi = check_ported(cfg) > 1
+    world = check_ported(cfg)
+    multi = world > 1
     if feature_cache not in ("none", "auto", "hbm", "host"):
         raise ValueError(f"unknown feature_cache mode {feature_cache!r}")
     if save_full_state is None:
@@ -148,6 +155,10 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
     T = dataset.n_timesteps
     kd_step = engine.make_kd_step(cfg, student_cfg.duett, T, dtype,
                                   feature_source=feature_source)
+    scan_k = engine.steps_per_call(cfg.steps_per_call, world)
+    if scan_k > 1:
+        # the frozen teacher rides along as a constant of the K steps
+        kd_step = engine.scan_steps(kd_step, scan_k, log)
     loop_eval = engine.make_supervised_ts_eval(T, dtype)
     n_eval = [0]
 
@@ -186,14 +197,17 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
     for epoch in range(start_epoch, cfg.epochs):
         outs = []
         t0 = time.perf_counter()
-        for b in dataset.iter_batches("train", cfg.batch_size, shuffle=True,
-                                      seed=cfg.seed + epoch,
-                                      limit=cfg.limit_batches):
-            b.pop("valid")
+        batches = without_valid(dataset.iter_batches(
+            "train", cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
+            limit=cfg.limit_batches))
+        if scan_k > 1:
+            batches = stack_host_batches(batches, scan_k)
+        for b in batches:
             out = kd_step(state, teacher, dataset.grid, dataset.static,
                           engine.to_device(b, dev), gen)
-            outs.append(torch.stack([out[k] for k in LOSS_KEYS]))
-            n_steps += 1
+            rows = engine.step_rows(out, LOSS_KEYS)
+            outs.extend(rows)
+            n_steps += rows.shape[0]
         # one host sync per epoch
         per_step = torch.stack(outs).tolist() if outs else []
         phase["train"] += time.perf_counter() - t0
@@ -259,4 +273,5 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
         samples_per_sec=sps * cfg.batch_size,
         extras={"phase_seconds": phase, "n_train_steps": ran,
                 "n_eval_steps": n_eval[0], "feature_tier": tier,
-                "step_losses": step_losses, "evaluate": run_eval})
+                "step_losses": step_losses, "evaluate": run_eval,
+                "state": state, "generator": gen})

@@ -12,6 +12,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from ..data.prefetch import stack_host_batches
 from ..ops import metrics as M
 from ..parallel.multihost import fetch_global, process_count
 from . import engine
@@ -100,10 +101,18 @@ class TrainResult:
     # phase_seconds (feature_build / train / eval wall seconds, each ended
     # by a device sync), n_train_steps, n_eval_steps, feature_tier (the
     # image tier and, for a cached one, its images, bytes and build time),
-    # best_val_outputs (the host arrays of the best epoch's val eval) and
+    # best_val_outputs (the host arrays of the best epoch's val eval),
     # evaluate(model, split), the loop's own evaluation on its own data and
-    # image tier
+    # image tier, and the final train state and step generator (``state``,
+    # ``generator``)
     extras: dict = field(default_factory=dict)
+
+
+def without_valid(batches):
+    """Train batches without their ``valid`` column."""
+    for b in batches:
+        b.pop("valid")
+        yield b
 
 
 def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
@@ -119,9 +128,11 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
     reloaded, is evaluated on the test split. ``dataset`` is an
     ``AnchorDataset``; ``model``: the initial weights (default:
     ``init_student`` from ``cfg.seed``), moved to ``device`` and trained in
-    place. Multi-step dispatch (``steps_per_call > 1``) is ROADMAP P10,
-    more than one process P18b (JAX's loop has no multi-process branch
-    either)."""
+    place. With ``cfg.steps_per_call`` K > 1 each group of K train batches
+    (the remainder group last) goes through ``engine.scan_steps`` (JAX
+    ``loops.py:132-167``; one CUDA graph replay per group on a card), the
+    history and weights equal to K = 1's bit for bit. More than one process
+    is ROADMAP P18b (JAX's loop has no multi-process branch either)."""
     from ..models.student import init_student
     from .checkpoint import BestKTracker, load_student_from_ckpt
     from .optim import MultiGroupAdamW
@@ -129,11 +140,8 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
     from .teacher_loop import DTYPES, _sync
     from ..utils import resolve_device
 
-    if cfg.steps_per_call > 1:
-        raise NotImplementedError(
-            f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
-            "not ported yet (ROADMAP P10)")
     refuse_multi_process("supervised training", "P18b")
+    scan_k = engine.steps_per_call(cfg.steps_per_call, 1)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     dataset.to(dev)
@@ -148,6 +156,8 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
     state = TrainState(model, MultiGroupAdamW(
         model, cfg.optim, steps_per_epoch * cfg.epochs))
     train_step = engine.make_supervised_ts_step(model_cfg.duett, T, dtype)
+    if scan_k > 1:
+        train_step = engine.scan_steps(train_step, scan_k, log)
     eval_step = engine.make_supervised_ts_eval(T, dtype)
     stopper = EarlyStopper(cfg.patience, mode="max")
     tracker = BestKTracker(ckpt_dir, k=1, mode="max", prefix="best")
@@ -157,14 +167,17 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
     t_start = time.perf_counter()
     for epoch in range(cfg.epochs):
         losses = []
-        for b in dataset.iter_batches("train", cfg.batch_size, shuffle=True,
-                                      seed=cfg.seed + epoch,
-                                      limit=cfg.limit_batches):
-            b.pop("valid")
+        batches = without_valid(dataset.iter_batches(
+            "train", cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
+            limit=cfg.limit_batches))
+        if scan_k > 1:
+            batches = stack_host_batches(batches, scan_k)
+        for b in batches:
             out = train_step(state, dataset.grid, dataset.static,
                              to_device(b, dev), gen)
-            losses.append(out["loss"])
-            n_steps += 1
+            for (loss,) in engine.step_rows(out, ("loss",)):
+                losses.append(loss)
+                n_steps += 1
         # one host sync per epoch
         train_loss = float(torch.stack(losses).mean()) if losses \
             else float("nan")
@@ -196,4 +209,5 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
                        steps_per_sec=sps,
                        samples_per_sec=sps * cfg.batch_size,
                        extras={"n_train_steps": n_steps,
-                               "train_seconds": elapsed})
+                               "train_seconds": elapsed, "state": state,
+                               "generator": gen})

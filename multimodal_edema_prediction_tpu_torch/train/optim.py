@@ -24,6 +24,14 @@ requiring gradients. The Adam state lives beside the parameters (two
 float32 tensors each); ``state_dict`` hands it to the loops' full-state
 checkpoint (``train/checkpoint.py::FullStateResumer``).
 
+Each update's learning rates and float32 bias corrections come from a
+device table (``scalars``: one row per step count, one ``(bc1, bc2, -lr)``
+triple per group, filled on the host from the schedules), indexed by a
+device step counter. So an update reads no host value that changes from
+step to step, and a CUDA graph that captured K updates
+(``engine.scan_steps``) replays the schedule as K eager updates read it,
+bit for bit.
+
 SSL pretraining (``ssl_loop.py:82-85``) takes one group over every
 parameter: ``MultiGroupAdamW.one_group`` with ``invsqrt_warmup``, behind
 ``clip_by_global_norm(grad_clip)``; the supervised fine-tuning loop takes
@@ -32,7 +40,7 @@ parameter: ``MultiGroupAdamW.one_group`` with ``invsqrt_warmup``, behind
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -121,7 +129,8 @@ class MultiGroupAdamW:
     that it follows optax's arithmetic, float32 bias corrections included.
 
     ``step(count)`` applies one update, with each group's learning rate read
-    at ``count`` (the number of updates before this one)."""
+    at ``count`` (the number of updates before this one) from the device
+    table ``scalars``."""
 
     def __init__(self, model: nn.Module, cfg: OptimConfig, total_steps: int,
                  frozen_prefixes: Sequence[str] = (),
@@ -142,7 +151,7 @@ class MultiGroupAdamW:
                 groups.setdefault(label, []).append(p)
         self.labels = list(groups)
         self.params = [groups[label] for label in self.labels]
-        self._moments()
+        self._init_state(total_steps)
         self.schedules = []
         for label in self.labels:
             mult = mults[label]
@@ -164,13 +173,16 @@ class MultiGroupAdamW:
         self = cls.__new__(cls)
         self.labels = ["all"]
         self.params = [list(model.parameters())]
-        self._moments()
+        self._init_state()
         self.schedules = [schedule]
         self.cfg = OptimConfig(weight_decay=weight_decay, grad_clip=grad_clip,
                                b1=b1, b2=b2)
         return self
 
-    def _moments(self) -> None:
+    def _init_state(self, horizon: int = 0) -> None:
+        # the schedule table is built at the first update
+        self.scalars: Optional[torch.Tensor] = None
+        self.version, self._horizon = 0, int(horizon)
         self.mu = [[torch.zeros_like(p) for p in ps] for ps in self.params]
         self.nu = [[torch.zeros_like(p) for p in ps] for ps in self.params]
 
@@ -194,15 +206,51 @@ class MultiGroupAdamW:
             for p in ps:
                 p.grad = None
 
+    def _rows(self, lo: int, hi: int) -> np.ndarray:
+        """The scalars of counts ``lo..hi-1``: [hi - lo, groups, 3] float32
+        (bc1, bc2, -lr), as optax computes them (bias corrections and the
+        learning rate in float32)."""
+        b1, b2 = np.float32(self.cfg.b1), np.float32(self.cfg.b2)
+        out = np.empty((hi - lo, len(self.schedules), 3), np.float32)
+        for i, count in enumerate(range(lo, hi)):
+            n = np.float32(count + 1)
+            for g, schedule in enumerate(self.schedules):
+                out[i, g] = (1 - b1 ** n, 1 - b2 ** n,
+                             -np.float32(schedule(count)))
+        return out
+
+    def reserve(self, n_steps: int) -> None:
+        """Make ``scalars`` cover the counts ``0..n_steps-1``. Growing it
+        makes a new tensor (``version`` counts them), which a graph that
+        read the old one must not replay."""
+        have = 0 if self.scalars is None else self.scalars.shape[0]
+        if n_steps <= have:
+            return
+        n = max(n_steps, 2 * have, self._horizon, 64)
+        device = next((p.device for ps in self.params for p in ps),
+                      torch.device("cpu"))
+        rows = torch.from_numpy(self._rows(have, n)).to(device)
+        self.scalars = rows if self.scalars is None \
+            else torch.cat([self.scalars, rows])
+        self.version += 1
+
     @torch.no_grad()
-    def step(self, count: int) -> None:
+    def step(self, count: int, count_t: Optional[torch.Tensor] = None
+             ) -> None:
+        """One update at step count ``count`` (the number of updates before
+        this one). ``count_t``: the same count as a device int64 tensor
+        (``TrainState.step_t``), from which the update reads its scalars;
+        when it is None, one is made from ``count``."""
         cfg = self.cfg
         b1, b2 = cfg.b1, cfg.b2
-        # optax computes the bias corrections in float32
-        bc1 = float(1 - np.float32(b1) ** np.float32(count + 1))
-        bc2 = float(1 - np.float32(b2) ** np.float32(count + 1))
-        for ps, mu, nu, schedule in zip(self.params, self.mu, self.nu,
-                                        self.schedules):
+        self.reserve(count + 1)
+        if count_t is None:
+            count_t = torch.full((), count, dtype=torch.long,
+                                 device=self.scalars.device)
+        # [groups, 3]: this count's row, read on the device
+        row = self.scalars.index_select(0, count_t.reshape(1))[0]
+        for g, (ps, mu, nu) in enumerate(zip(self.params, self.mu, self.nu)):
+            bc1, bc2, neg_lr = row[g, 0], row[g, 1], row[g, 2]
             # optax decays and moves a parameter with no gradient all the same
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in ps]
@@ -217,6 +265,5 @@ class MultiGroupAdamW:
             torch._foreach_add_(denom, 1e-8)
             upd = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
             torch._foreach_add_(upd, torch._foreach_mul(ps, cfg.weight_decay))
-            torch._foreach_mul_(upd, -float(np.float32(schedule(count))))
+            torch._foreach_mul_(upd, neg_lr)
             torch._foreach_add_(ps, upd)
-

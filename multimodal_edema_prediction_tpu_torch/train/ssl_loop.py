@@ -10,8 +10,15 @@ the checkpoints: the contract every later stage reads. With
 ``save_full_state`` the full train state is saved at every epoch boundary
 (msgpack, ``FullStateResumer``), and ``auto_resume`` continues from it bit
 for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
-and ends the call cleanly. Not ported, each named by its ROADMAP item:
-multi-step dispatch (``steps_per_call > 1``, P10), the orbax backend (P16).
+and ends the call cleanly. Not ported: the orbax backend (P16), refused
+naming its ROADMAP item.
+
+Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX ``ssl_loop.py:
+103-147``): each group of K train batches (``stack_host_batches``; the
+remainder group last) goes through ``engine.scan_steps``, one CUDA graph
+replay per group on a card; the history, weights and generator equal
+K = 1's bit for bit. A multi-process run with K > 1 raises (ROADMAP
+P10b).
 
 Multi-process (JAX ``ssl_loop.py:49-232``): under an initialised
 ``torch.distributed`` group each rank trains on its rows of the same global
@@ -31,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import DuettConfig, TrainConfig
+from ..data.prefetch import stack_host_batches
 from ..data.sliding import SlidingSSLDataset
 from ..models.duett import DuettPretrainModel, init_pretrain_model
 from ..parallel import mesh as meshlib
@@ -60,11 +68,8 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
     ``init_pretrain_model`` from ``cfg.seed``), moved to ``device`` and
     trained in place. ``stop_after_epochs`` pauses after that many epochs
     of this call (the state saved, as a preempted run's would be)."""
-    if cfg.steps_per_call > 1:
-        raise NotImplementedError(
-            f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
-            "not ported yet (ROADMAP P10)")
     world = mh.check_group()
+    scan_k = engine.steps_per_call(cfg.steps_per_call, world)
     if world > 1:
         meshlib.create_mesh(cfg.n_data, cfg.n_model)
     if save_full_state is None:
@@ -82,6 +87,9 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
     state = TrainState(model, MultiGroupAdamW.one_group(
         model, invsqrt_warmup(lr, warmup_steps), weight_decay, grad_clip))
     train_step = engine.make_ssl_step(duett_cfg, T, dtype)
+    if scan_k > 1:
+        # SSL steps are small: host dispatch bounds them (JAX :104-108)
+        train_step = engine.scan_steps(train_step, scan_k, log)
     eval_step = engine.make_ssl_eval(duett_cfg, T, dtype)
     tracker = BestKTracker(ckpt_dir, k=1, mode="min", prefix="pretrain")
     stopper = EarlyStopper(cfg.patience, mode="min")
@@ -123,14 +131,19 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
     t_start, resumed_steps = time.perf_counter(), n_steps
     for epoch in range(start_epoch, cfg.epochs):
         acc, nb = None, 0
-        for batch in dataset.iter_batches("train", cfg.batch_size,
-                                          shuffle=True, seed=cfg.seed + epoch,
-                                          limit=cfg.limit_batches):
+        batches = dataset.iter_batches("train", cfg.batch_size,
+                                       shuffle=True, seed=cfg.seed + epoch,
+                                       limit=cfg.limit_batches)
+        if scan_k > 1:
+            batches = stack_host_batches(batches, scan_k)
+        for batch in batches:
             out = train_step(state, dataset.grid, dataset.static,
                              engine.to_device(batch, dev), gen)
-            acc = out["total"] if acc is None else acc + out["total"]
-            nb += 1
-            n_steps += 1
+            # step by step, in step order, whatever K
+            for (total,) in engine.step_rows(out, ("total",)):
+                acc = total if acc is None else acc + total
+                nb += 1
+                n_steps += 1
         # one host sync per epoch
         train_loss = float(acc) / nb if nb else float("nan")
         if nb and not np.isfinite(train_loss):
@@ -177,7 +190,8 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
                        samples_per_sec=sps * cfg.batch_size,
                        extras={"n_train_steps": ran,
                                "train_seconds": elapsed,
-                               "evaluate": evaluate})
+                               "evaluate": evaluate, "state": state,
+                               "generator": gen})
 
 
 def transplant_encoder(ssl_ckpt_path: str, model: torch.nn.Module,

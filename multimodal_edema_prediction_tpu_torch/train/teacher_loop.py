@@ -51,9 +51,17 @@ moments, step count, the step generator and the loop's bookkeeping) is
 saved at every epoch boundary, and ``auto_resume`` continues from it bit
 for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
 and ends the call cleanly; ``stop_after_epochs`` pauses after that many
-epochs of one call. Not ported yet: the orbax state backend (P16) and
-multi-step dispatch (``steps_per_call`` > 1, P10), each refused naming its
-ROADMAP item.
+epochs of one call. Not ported yet: the orbax state backend (P16),
+refused naming its ROADMAP item.
+
+Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX
+``teacher_loop.py:414-445, :536-577``): the residual-fusion modes and LP
+mode run each group of K train batches (``stack_host_batches``; the
+remainder group last) through ``engine.scan_steps``, one CUDA graph replay
+per group on a card, a loop of K steps on the CPU; the history, weights,
+moments and generator equal K = 1's bit for bit. ``single`` and
+``legacy`` log JAX's line and run K = 1; a multi-process run with K > 1
+raises (ROADMAP P10b).
 
 Multi-process (JAX ``teacher_loop.py:180-293, :519-617, :694-724``; ROADMAP
 P18): under an initialised ``torch.distributed`` group
@@ -104,7 +112,7 @@ from ..data.features import (CXRFeatureBank, HostFeatureStore,
 from ..data.images import (HBMImageBank, HostU8Bank, JpegStore,
                            U8MemmapStore, make_jpeg_host_fn)
 from ..data.pipeline import AnchorDataset, synthetic_image_device
-from ..data.prefetch import prefetch
+from ..data.prefetch import prefetch, stack_host_batches
 from ..data.synthetic import synthetic_image_batch
 from ..models.teacher import TeacherModel, init_teacher
 from ..models.vit import IMAGE_MEAN, IMAGE_STD, normalize_image
@@ -119,7 +127,8 @@ from .cxr_head_loop import load_cxr_head_into_teacher
 from .evaluator import (evaluate_dual_pathology, evaluate_pathology,
                         format_dual_pathology_gap_table,
                         format_pathology_gap_table)
-from .loops import EarlyStopper, TrainResult, evaluate_binary_split
+from .loops import (EarlyStopper, TrainResult, evaluate_binary_split,
+                    without_valid)
 from .optim import MultiGroupAdamW, default_label_fn
 from .state import TrainState, param_count
 
@@ -408,20 +417,19 @@ def _sync(device: torch.device) -> None:
 
 
 def _train_batches(dataset: AnchorDataset, cfg: TrainConfig, epoch: int,
-                   device, prefetch_depth: int):
-    """The epoch's shuffled train batches on ``device``: through the
-    prefetch worker with ``prefetch_depth`` > 0, else hooked and copied
-    inline. A generator either way (``close`` stops the worker)."""
-    def host_batches():
-        for b in dataset.iter_batches("train", cfg.batch_size, shuffle=True,
-                                      seed=cfg.seed + epoch,
-                                      limit=cfg.limit_batches):
-            b.pop("valid")
-            yield b
-
+                   device, prefetch_depth: int, k: int = 1):
+    """The epoch's shuffled train batches on ``device``, K-stacked in
+    groups of ``k`` when ``k`` > 1: through the prefetch worker with
+    ``prefetch_depth`` > 0, else hooked and copied inline. A generator
+    either way (``close`` stops the worker)."""
+    host = without_valid(dataset.iter_batches(
+        "train", cfg.batch_size, shuffle=True, seed=cfg.seed + epoch,
+        limit=cfg.limit_batches))
+    if k > 1:
+        host = stack_host_batches(host, k)
     if prefetch_depth > 0:
-        return prefetch(host_batches(), device, prefetch_depth)
-    return (engine.to_device(b, device) for b in host_batches())
+        return prefetch(host, device, prefetch_depth)
+    return (engine.to_device(b, device) for b in host)
 
 
 def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
@@ -484,11 +492,9 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     scalars go into the epoch's history entry.
     ``log``: the console lines (default: ``logger.info``, else ``print``);
     ``logger``: the telemetry sink (module docstring)."""
-    if cfg.steps_per_call > 1:
-        raise NotImplementedError(
-            f"steps_per_call={cfg.steps_per_call}: multi-step dispatch is "
-            "not ported yet (ROADMAP P10)")
-    multi = mh.check_group() > 1
+    world = mh.check_group()
+    multi = world > 1
+    scan_k = engine.steps_per_call(cfg.steps_per_call, world)
     if multi:
         meshlib.create_mesh(cfg.n_data, cfg.n_model)
         if grad_diag_every > 0:
@@ -573,6 +579,10 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         else teacher_frozen_prefixes(teacher_cfg),
         label_fn=lp_frozen_label_fn if lp_mode else default_label_fn))
     uses_dual = mode in DUAL_MODES
+    if scan_k > 1 and not uses_dual:
+        log(f"steps_per_call={scan_k} is wired for the dual modes only; "
+            "falling back to single-step dispatch")
+        scan_k = 1
     if uses_dual:
         train_step = engine.make_teacher_step(
             cfg, teacher_cfg.duett, T, lw, None, dtype,
@@ -605,6 +615,10 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                                              image_source=image_source,
                                              keys=None)
         loss_keys = ("loss", "main_loss", "aux_loss")
+    # K steps per call (engine.scan_steps): one CUDA graph replay a call on
+    # a card; the same steps as K = 1, bit for bit
+    if scan_k > 1:
+        train_step = engine.scan_steps(train_step, scan_k, log)
     n_eval = [0]
 
     def eval_step(m, grid, static, batch):
@@ -673,19 +687,22 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     for epoch in range(start_epoch, cfg.epochs):
         acc, nb = None, 0
         t0 = time.perf_counter()
-        batches = _train_batches(dataset, cfg, epoch, dev, prefetch_depth)
+        batches = _train_batches(dataset, cfg, epoch, dev, prefetch_depth,
+                                 scan_k)
         try:
             for dev_batch in batches:
                 out = train_step(state, dataset.grid, dataset.static,
                                  dev_batch, gen)
-                cur = torch.stack([out[k] for k in loss_keys])
-                acc = cur if acc is None else acc + cur
-                nb += 1
-                n_steps += 1
-                if step_log and n_steps % cfg.log_every == 0:
-                    metrics({f"train_step/{k}": float(out[k])
-                             for k in loss_keys}, n_steps)
-                if n_steps == resumed_steps + 1:
+                first = n_steps == resumed_steps
+                # step by step, in step order, whatever K (JAX :564-577)
+                for cur in engine.step_rows(out, loss_keys):
+                    acc = cur if acc is None else acc + cur
+                    nb += 1
+                    n_steps += 1
+                    if step_log and n_steps % cfg.log_every == 0:
+                        metrics({f"train_step/{k}": float(v)
+                                 for k, v in zip(loss_keys, cur)}, n_steps)
+                if first:
                     _sync(dev)
                     log(f"step {n_steps} done "
                         f"({time.perf_counter() - t0:.2f}s after the epoch "
@@ -829,4 +846,4 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
                 "feature_tier": tier, "image_tier": image_tier,
                 "n_eval_steps": n_eval[0],
                 "best_val_outputs": best_val_outputs,
-                "evaluate": run_eval})
+                "evaluate": run_eval, "state": state, "generator": gen})

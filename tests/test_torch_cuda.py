@@ -25,7 +25,8 @@ gradient-flow diagnostics batch on the card against a CPU copy, each array
 a CPU copy (``test_knn_and_tsne_on_the_card_match_a_cpu_copy``); two
 ranks sharing the card over gloo, a ViT-B block's all-reduced gradient
 against one rank's, 1e-4 of each leaf's max abs floored at 1e-2 of the
-largest gradient.
+largest gradient; three teacher steps captured as one CUDA graph and
+replayed (``engine.scan_steps``) against three eager steps, bit for bit.
 """
 import numpy as np
 import pytest
@@ -732,6 +733,92 @@ def test_encode_once_train_step_on_the_card(cuda):
     torch.cuda.synchronize()
     assert G.LAUNCHES["gather_rows_bulk"] == before + 2
     assert bool(torch.isfinite(out["total"])) and state.step == 1
+
+
+def test_captured_teacher_steps_equal_eager_steps(cuda):
+    """``engine.scan_steps`` on the card: calls of 3 bf16 teacher steps on
+    the encode-once tier (the first eager, the second captured as one CUDA
+    graph and replayed, the third a replay) against 9 eager single steps
+    from the same weights on the same batches: every loss, parameter,
+    buffer, AdamW moment, both step counts and the generator's state bit
+    for bit, and K2's ``LAUNCHES`` count the replays' gathers as the eager
+    steps' (2 a step)."""
+    from multimodal_edema_prediction_tpu_torch.config import (
+        DuettConfig, PerceiverConfig, TeacherConfig, TrainConfig, ViTConfig)
+    from multimodal_edema_prediction_tpu_torch.data.features import \
+        CXRFeatureBank, encode_fn_for_teacher
+    from multimodal_edema_prediction_tpu_torch.models.teacher import \
+        init_teacher
+    from multimodal_edema_prediction_tpu_torch.train import engine
+    from multimodal_edema_prediction_tpu_torch.train.optim import \
+        MultiGroupAdamW
+    from multimodal_edema_prediction_tpu_torch.train.state import TrainState
+    cfg = TeacherConfig(
+        duett=DuettConfig(n_variables=5, d_embedding=8, n_layers=1),
+        vit=ViTConfig(image_size=224, d_model=128, n_layers=1, n_heads=2,
+                      d_feedforward=128),
+        perceiver=PerceiverConfig(d_latent=32, n_heads=2, dropout=0.1))
+    rng = np.random.default_rng(0)
+    bank = CXRFeatureBank.build(
+        encode_fn_for_teacher(init_teacher(cfg, 0).to(cuda)),
+        lambda ids: rng.normal(size=(len(ids), 224, 224, 3)).astype(
+            np.float32), np.arange(5))
+    step = engine.make_teacher_step(TrainConfig(), cfg.duett, 24,
+                                    np.ones(7, np.float32),
+                                    feature_source=bank.feature_source())
+    grid = torch.randn(3, 30, 10, device=cuda).abs()
+    static = torch.randn(3, 18, device=cuda)
+    batches = [{
+        "stay_rows": rng.integers(0, 3, 4).astype(np.int32),
+        "slot_idx": rng.integers(24, 31, 4).astype(np.int32),
+        "image_ids": rng.integers(0, 5, 4).astype(np.int32),
+        "y_multi": rng.integers(0, 2, (4, 7)).astype(np.float32),
+        "y_multi_mask": np.ones((4, 7), np.float32),
+        "bin_ends": np.tile(np.arange(1, 25, dtype=np.float32) / 24,
+                            (4, 1))} for _ in range(9)]
+
+    def fresh():
+        model = init_teacher(cfg, 0).to(cuda)
+        return TrainState(model, MultiGroupAdamW(
+            model, TrainConfig().optim, 10, frozen_prefixes=("cxr/",))), \
+            torch.Generator(device=cuda).manual_seed(3)
+
+    eager, g1 = fresh()
+    before = G.LAUNCHES["gather_rows_bulk"]
+    want = [step(eager, grid, static, engine.to_device(b, cuda), g1)
+            for b in batches]
+    torch.cuda.synchronize()
+    eager_launches = G.LAUNCHES["gather_rows_bulk"] - before
+    graph, g2 = fresh()
+    lines = []
+    multi = engine.scan_steps(step, 3, lines.append)
+    before = G.LAUNCHES["gather_rows_bulk"]
+    got = []
+    for i in range(3):
+        stacked = {k: np.stack([b[k] for b in batches[3 * i:3 * i + 3]])
+                   for k in batches[0]}
+        got.append(multi(graph, grid, static, engine.to_device(stacked, cuda),
+                         g2))
+    torch.cuda.synchronize()
+    assert eager_launches == 18
+    assert G.LAUNCHES["gather_rows_bulk"] - before == eager_launches
+    assert len(lines) == 1 and "captured K=3" in lines[0]
+    for i, w in enumerate(want):
+        for k, v in w.items():
+            if v.ndim == 0:
+                assert torch.equal(got[i // 3]["per_step"][k][i % 3], v), k
+            else:
+                assert torch.equal(got[i // 3][k][i % 3], v), k
+    for (k, a), b in zip(eager.model.state_dict().items(),
+                         graph.model.state_dict().values()):
+        assert torch.equal(a, b), k
+    for m in ("mu", "nu"):
+        for a, b in zip(getattr(eager.optimizer, m),
+                        getattr(graph.optimizer, m)):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), m
+    assert eager.step == graph.step == 9
+    assert int(eager.step_t) == int(graph.step_t) == 9
+    assert torch.equal(g1.get_state(), g2.get_state())
 
 
 def test_kd_step_on_the_card_matches_a_cpu_copy(cuda):

@@ -128,7 +128,7 @@ WAIVERS = {
     "train_ssl": {},
     "train_student": {},
     "train_cxr_head": {},
-    "serve": {"--aot_dir": "P10"},
+    "serve": {"--aot_dir": "P10b"},
     "finetune_mimic": {},
     "train_physionet": {},
     "predict": {},
@@ -311,18 +311,21 @@ def test_logging_flags_reach_the_logger(cli, flag, monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("cli", ["train_teacher", "train_ssl"])
 def test_accepted_flags_reach_the_configs(cli):
-    """``--synthetic`` and ``--eval_train_batches`` as JAX takes them
-    (``cli/common.py:25, :55, :105``); the teacher's ``--flash_block_b``
-    (a TPU tuning knob) is parsed and ignored."""
+    """``--synthetic``, ``--eval_train_batches`` and ``--steps_per_call``
+    (no longer queued since P10) as JAX takes them (``cli/common.py:25,
+    :55, :62, :105``); the teacher's ``--flash_block_b`` (a TPU tuning
+    knob) is parsed and ignored."""
     from multimodal_edema_prediction_tpu_torch.cli.common import \
         configs_from_args
     port_mod = CLIS[cli][1]
-    argv = ["--synthetic", "--eval_train_batches", "3"]
+    argv = ["--synthetic", "--eval_train_batches", "3", "--steps_per_call",
+            "4"]
     if cli == "train_teacher":
         argv += ["--flash_block_b", "4", "--no_save_state"]
     args = port_mod.build_parser().parse_args(argv)
     assert args.synthetic is True
     assert configs_from_args(args)[2].eval_train_batches == 3
+    assert configs_from_args(args)[2].steps_per_call == 4
     if cli == "train_teacher":
         assert args.flash_block_b == 4 and args.save_state is False
 

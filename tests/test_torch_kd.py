@@ -467,17 +467,24 @@ def test_kd_loop_tiers_train_as_hbm(loops, teacher_ckpt, student_vars,
             np.testing.assert_allclose(got, want[k], rtol=1e-6, err_msg=k)
 
 
-def test_kd_loop_refuses_what_is_not_ported(teacher_ckpt, tmp_path,
+def test_kd_loop_refuses_what_is_not_ported(loops, teacher_ckpt,
+                                            student_vars, tmp_path,
                                             monkeypatch):
     cfg = TrainConfig.from_dict(TRAIN)
     scfg = StudentConfig.from_dict(JSCFG.to_dict())
-    for run_cfg, backend, match in (
-            (cfg.replace(steps_per_call=2), "msgpack", "P10"),
-            (cfg, "orbax", "P16")):
-        with pytest.raises(NotImplementedError, match=match):
-            K.train_student_kd(None, scfg, teacher_ckpt, run_cfg,
-                               str(tmp_path), device="cpu",
-                               state_backend=backend)
+    # multi-step dispatch (P10) is done: 2 steps a call give the K = 1
+    # loop's step losses and history bit for bit
+    _, res = loops
+    two = K.train_student_kd(
+        _port_data(), scfg, teacher_ckpt, cfg.replace(steps_per_call=2),
+        str(tmp_path / "k2"), model=_port_student(student_vars),
+        device="cpu", image_hook=TL.make_synthetic_pixel_hook(56),
+        feature_cache="hbm", log=lambda s: None)
+    assert two.extras["step_losses"] == res.extras["step_losses"]
+    assert two.history == res.history
+    with pytest.raises(NotImplementedError, match="P16"):
+        K.train_student_kd(None, scfg, teacher_ckpt, cfg, str(tmp_path),
+                           device="cpu", state_backend="orbax")
     # multi-process KD runs since P18 was ported (tests/
     # test_torch_multihost_2proc.py); a launcher's WORLD_SIZE with no
     # initialised process group is refused before any work
@@ -552,7 +559,18 @@ def test_cli_distills_from_the_chain_on_the_cpu(chain, monkeypatch):
     (["--state_backend", "orbax"], NotImplementedError, "P16"),
     (["--steps_per_call", "2"], NotImplementedError, "P10"),
     (["--kd_name", "feature_kd"], ValueError, "unknown KD loss")])
-def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path):
+def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path,
+                                        request):
+    """What the CLI does not port raises before any work; ``--steps_per_call
+    2`` (P10, done) distills from the chain's teacher instead."""
+    if match == "P10":
+        _, teacher_path, common, _ = request.getfixturevalue("chain")
+        res = cli.main(common + ["--teacher_ckpt", teacher_path,
+                                 "--warmup_steps", "2", "--no_save_state",
+                                 "--ckpt_dir", str(tmp_path)] + argv)
+        assert res.extras["n_train_steps"] == 2
+        assert np.isfinite(res.history[0]["train_total"])
+        return
     with pytest.raises(error, match=match):
         cli.main(["--device", "cpu", "--teacher_ckpt", "x.msgpack",
                   "--ckpt_dir", str(tmp_path)] + argv)

@@ -140,8 +140,13 @@ def test_multi_process_loop_refuses_tensor_parallelism(loop, tmp_path,
         PARALLEL[loop](str(tmp_path), TrainConfig(n_model=2))
 
 
-def test_teacher_loop_refuses_multistep_dispatch(tmp_path):
-    with pytest.raises(NotImplementedError, match="P10"):
+def test_teacher_loop_refuses_multistep_dispatch(tmp_path, monkeypatch):
+    """Multi-step dispatch runs in one process since P10; in a
+    multi-process run it raises naming P10b (gloo collectives cannot be
+    captured in a CUDA graph), before any data is read."""
+    monkeypatch.setattr(mh, "check_group", lambda: 2)
+    monkeypatch.setattr(mh, "process_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="P10b"):
         TL.train_teacher(None, TeacherConfig(),
                          TrainConfig(steps_per_call=2), str(tmp_path), (),
                          device="cpu")
@@ -361,7 +366,7 @@ def test_data_parallel_serving_matches_one_replica(jax_teacher):
 
 def test_serve_cli_takes_data_parallel_and_refuses_missing_cards(
         monkeypatch):
-    assert cli_serve.QUEUED_FLAGS == {"--aot_dir": "P10"}
+    assert cli_serve.QUEUED_FLAGS == {"--aot_dir": "P10b"}
     args = cli_serve.build_parser().parse_args(
         ["--ckpt", "x.msgpack", "--data_parallel", "2"])
     assert args.data_parallel == 2

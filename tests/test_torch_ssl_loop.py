@@ -10,6 +10,8 @@ function of each window's stay and end slot) and ``pretrain_dropout`` 0:
 per-epoch train and val losses within 5e-3 relative (the precedent of
 ``tests/test_student_loop_parity.py``).
 """
+import json
+
 import jax
 import numpy as np
 import pytest
@@ -183,11 +185,27 @@ def test_ssl_resume_is_bit_exact(runs, tmp_path):
             np.testing.assert_array_equal(a, b)
 
 
-def test_ssl_loop_refuses_what_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="P10"):
-        L.train_ssl(None, DuettConfig(**DUETT),
-                    TrainConfig(**{**TRAIN, "steps_per_call": 4}),
-                    str(tmp_path), device="cpu")
+def test_ssl_loop_refuses_what_is_not_ported(runs, tmp_path):
+    """The orbax backend (P16) raises naming its item. Multi-step dispatch
+    (P10) is done: ``steps_per_call=4`` trains, to the K = 1 run's history
+    and full state bit for bit (2 batches an epoch: one call of 2, the
+    remainder shape)."""
+    _, res, root, params, stats = runs
+    four = L.train_ssl(_port_data(), DuettConfig(**DUETT),
+                       TrainConfig(**{**TRAIN, "steps_per_call": 4}),
+                       str(tmp_path / "k4"), model=_port_model(params, stats),
+                       device="cpu", save_full_state=True,
+                       log=lambda s: None, **LOOP)
+    assert four.history == res.history
+    for name in ("train_state.msgpack", "train_state.meta.json"):
+        with open(root / "port" / name, "rb") as f, \
+                open(tmp_path / "k4" / name, "rb") as g:
+            want, got = f.read(), g.read()
+        if name.endswith(".json"):   # the tracker's paths differ
+            want, got = (json.loads(x) for x in (want, got))
+            want, got = ({k: x[k] for k in ("rng", "history", "n_steps")}
+                         for x in (want, got))
+        assert got == want, name
     with pytest.raises(NotImplementedError, match="P16"):
         L.train_ssl(None, DuettConfig(**DUETT), TrainConfig(**TRAIN),
                     str(tmp_path), state_backend="orbax", device="cpu")
@@ -197,10 +215,19 @@ def test_ssl_loop_refuses_what_is_not_ported(tmp_path):
     (["--state_backend", "orbax"], "P16"),
     (["--steps_per_call", "4"], "P10")])
 def test_ssl_cli_refuses_what_is_not_ported(argv, match, tmp_path):
+    """``--state_backend orbax`` raises naming P16; ``--steps_per_call 4``
+    (P10, done) parses and trains."""
+    base = ["--device", "cpu", "--synthetic_stays", "40", "--n_variables",
+            "6", "--ckpt_dir", str(tmp_path)]
+    if match == "P10":
+        res = cli_ssl.main(base + ["--batch_size", "16", "--epochs", "1",
+                                   "--limit_batches", "3", "--no_save_state",
+                                   "--d_embedding", "8"] + argv)
+        assert res.extras["n_train_steps"] == 3
+        assert np.isfinite(res.history[0]["train_loss"])
+        return
     with pytest.raises(NotImplementedError, match=match):
-        cli_ssl.main(["--device", "cpu", "--synthetic_stays", "40",
-                      "--n_variables", "6", "--ckpt_dir", str(tmp_path)]
-                     + argv)
+        cli_ssl.main(base + argv)
 
 
 def _teacher_cfg():

@@ -43,26 +43,32 @@ TRAIN = dict(batch_size=32, epochs=2, patience=5, dtype="float32", seed=3,
              limit_batches=2)
 
 
+OPTIM = dict(lr=1e-3, warmup_steps=2, weight_decay=1e-4)
+
+
+def _initial_model(pcfg, jcfg):
+    """The JAX loop's own initial weights: model.init from key(seed), whose
+    draws depend on the shapes alone."""
+    x_in, x_static, times = _classifier_inputs(TRAIN["batch_size"])
+    v = JStudentModel(jcfg).init({"params": jax.random.key(TRAIN["seed"])},
+                                 x_in, x_static, times)
+    return load_flax(StudentModel(pcfg), jax.tree.map(np.asarray,
+                                                      v["params"]),
+                     jax.tree.map(np.asarray, v["batch_stats"]))
+
+
 @pytest.fixture(scope="module")
 def supervised_runs(tmp_path_factory):
     root = tmp_path_factory.mktemp("supervised")
     pcfg, jcfg = _student_cfgs()
     jdata, data = _anchor_datasets()
-    optim = dict(lr=1e-3, warmup_steps=2, weight_decay=1e-4)
     jres = JL.train_supervised_ts(
-        jdata, jcfg, JTrain(**TRAIN, optim=JOptim(**optim)),
+        jdata, jcfg, JTrain(**TRAIN, optim=JOptim(**OPTIM)),
         str(root / "jax"))
-    # the JAX loop's own initial weights: model.init from key(seed), whose
-    # draws depend on the shapes alone
-    x_in, x_static, times = _classifier_inputs(TRAIN["batch_size"])
-    v = JStudentModel(jcfg).init({"params": jax.random.key(TRAIN["seed"])},
-                                 x_in, x_static, times)
-    model = load_flax(StudentModel(pcfg), jax.tree.map(np.asarray,
-                                                       v["params"]),
-                      jax.tree.map(np.asarray, v["batch_stats"]))
     res = L.train_supervised_ts(
-        data, pcfg, TrainConfig(**TRAIN, optim=OptimConfig(**optim)),
-        str(root / "port"), model=model, device="cpu", log=lambda s: None)
+        data, pcfg, TrainConfig(**TRAIN, optim=OptimConfig(**OPTIM)),
+        str(root / "port"), model=_initial_model(pcfg, jcfg), device="cpu",
+        log=lambda s: None)
     return jres, res
 
 
@@ -97,8 +103,17 @@ def test_supervised_best_checkpoint_loads_in_jax(supervised_runs):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
-def test_supervised_ts_refuses_multistep_dispatch(tmp_path):
-    pcfg, _ = _student_cfgs()
-    with pytest.raises(NotImplementedError, match="P10"):
-        L.train_supervised_ts(None, pcfg, TrainConfig(steps_per_call=4),
-                              str(tmp_path), device="cpu")
+def test_supervised_ts_runs_multistep_dispatch(supervised_runs, tmp_path):
+    """Multi-step dispatch (P10) is done: 4 steps a call (2 batches an
+    epoch: one call of the remainder's shape) give the K = 1 loop's
+    history and test metrics bit for bit."""
+    _, res = supervised_runs
+    pcfg, jcfg = _student_cfgs()
+    _, data = _anchor_datasets()
+    four = L.train_supervised_ts(
+        data, pcfg, TrainConfig(**TRAIN, steps_per_call=4,
+                                optim=OptimConfig(**OPTIM)),
+        str(tmp_path), model=_initial_model(pcfg, jcfg), device="cpu",
+        log=lambda s: None)
+    assert four.history == res.history
+    assert four.test_metrics == res.test_metrics

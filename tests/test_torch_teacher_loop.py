@@ -133,7 +133,7 @@ def _tiny(**kw):
 
 # ROADMAP items done since their cases were written: their modes and
 # flags now train where they used to raise
-DONE = {"P13", "P15", "P20"}
+DONE = {"P10", "P13", "P15", "P20"}
 
 
 def _cohort():
@@ -186,8 +186,9 @@ def test_loop_refuses_a_feature_cache_for_a_trainable_vit(feature_cache,
     (["--vit_quant", "int8"], "P20")])
 def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     """What the CLI does not port raises naming its ROADMAP item; the flags
-    of a done item train an epoch instead: P13's two modes, and LP mode
-    from a checkpoint of the CLI's default mode; P15's ``--cxr_jpeg_root``
+    of a done item train an epoch instead: P10's ``--steps_per_call``, P13's
+    two modes, and LP mode from a checkpoint of the CLI's default mode;
+    P15's ``--cxr_jpeg_root``
     from a directory of JPEGs written here (``scripts/jpeg_fixtures.py``)."""
     base = ["--device", "cpu", "--vit_size", "tiny", "--synthetic_stays",
             "40"]

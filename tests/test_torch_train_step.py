@@ -55,8 +55,8 @@ class _Probe:
     def zero_grad(self):
         self.model.zero_grad(set_to_none=True)
 
-    def step(self, count):
-        del count
+    def step(self, count, count_t=None):
+        del count, count_t
 
 
 def _jax_probe():
