@@ -20,8 +20,10 @@ prints the final ``ok`` line:
             ``tests/goldens/rad_dino_full_geometry.npz``.
 5. serve    the full-width ``dual_patch`` teacher (seeded weights) behind
             the HTTP server in bf16; concurrent clients; every response
-            checked against a direct eval of the batch it was served in;
-            K1's launches counted over exactly this run.
+            checked against a direct eval of the batch it was served in
+            (each batch a replay of its bucket's CUDA graph, recorded at
+            the predictor's ``_forward``); K1's launches counted over
+            exactly this run, replays included.
 6. kernels  holds K2 (row gather) against ``gather_rows_reference`` on the
             card, bit for bit: the bf16 patch bank [401, 1370, 768] with
             32 rows (repeats and the NaN sentinel among them), the CLS bank
@@ -234,8 +236,8 @@ Student distillation and the host feature store (ROADMAP P11, P8) add:
 
 13. ssl_to_teacher  also keeps its teacher checkpoint for the next phase.
 14. kd      the student CLI (``cli/train_student.main``) at full width from
-            that teacher and the SSL checkpoint (240 stays, batch 32, 1
-            epoch of 4 batches, bf16) on each image tier: ``none``,
+            that teacher and the SSL checkpoint (SHORT_STAYS stays, batch
+            32, 1 epoch of 4 batches, bf16) on each image tier: ``none``,
             ``hbm``, ``host`` in RAM, ``host`` on disk twice (the second
             run reopens the store); every kernel's launches over exactly
             each run (K1's forward 12 a pixel step, only the bank build's
@@ -263,7 +265,8 @@ serving; ROADMAP P13) add:
             exactly this run), 50 full-batch epochs of the head;
             ``feature_extract_s``, images/s, the best val macro AUROC.
 16. dual_teacher  ``cli/train_teacher.main --perceiver_type dual
-            --pretrained_cxr_head_ckpt`` (240 stays, batch 32, 2 epochs) on
+            --pretrained_cxr_head_ckpt`` (SHORT_STAYS stays, batch 32, 2
+            epochs) on
             the ``hbm`` tier (K2 once a train and eval step, the CLS bank
             alone) and the pixel tier (4 batches an epoch, K1 12 a step);
             launches over exactly each run, the frozen head bit-equal, the
@@ -274,7 +277,8 @@ serving; ROADMAP P13) add:
             bit for bit.
 18. dual_serve  that teacher served over HTTP (4 clients x 3 POSTs), every
             response against a direct eval of its batch (SERVE_TOL).
-19. resume  the ``dual_patch`` teacher on ``hbm`` (3 epochs of 4 batches):
+19. resume  the ``dual_patch`` teacher on ``hbm`` (2 epochs of 4 batches,
+            120 stays):
             an uninterrupted run, a control run, a run paused after one
             epoch and resumed with ``--resume_dir``, and the CLI as a
             subprocess sent SIGTERM after its first step (exit 0, the state
@@ -284,7 +288,8 @@ serving; ROADMAP P13) add:
 
 The teacher's other modes and LP mode (ROADMAP P13's second half) add:
 
-20. modes  ``cli/train_teacher.main`` at full width (240 stays, batch 32,
+20. modes  ``cli/train_teacher.main`` at full width (SHORT_STAYS stays,
+            batch 32,
             2 epochs, bf16, ``--no_save_state``): ``single`` and
             ``dual_patch_event`` on ``hbm`` and on pixels (4 batches an
             epoch), ``legacy`` on pixels (``--use_aux_cxr --aux_cxr_alpha
@@ -306,7 +311,8 @@ The teacher's other modes and LP mode (ROADMAP P13's second half) add:
 Real chest X-rays (ROADMAP P15: the JPEG decoder, the image feed tiers, the
 prefetcher) add:
 
-21. jpeg  the cohort's 405 JPEGs (512 x 416), the catalog's 775 (384 x
+21. jpeg  SHORT_STAYS stays: the cohort's 205 JPEGs (512 x 416), the
+            catalog's 546 (384 x
             320) and 8 at MIMIC-CXR-JPG's 3056 x 2544, grayscale, written
             by ``scripts/jpeg_fixtures.py``; what the host offers a decoder
             and the route the port takes (libjpeg built with g++, or
@@ -430,10 +436,22 @@ build:
             of its rows; 12 a build chunk of its share) and K2 none; each
             rank's step time and the phase's seconds; ``--data_parallel
             1`` serving bit-equal to the predictor without it, 2 refused on
-            a one-card host. A rank that fails, finds no card or runs past
-            PARALLEL_RANK_TIMEOUT fails the phase. ``python3 chip_smoke.py
-            --only-parallel`` runs the device, build and parallel phases
-            alone (no summary, no ``ok`` line).
+            a one-card host. Multi-step dispatch across processes (ROADMAP
+            P10b): on each gloo rank the encode-once run again at K =
+            PARALLEL_K (a loop, its log line), in the world-1 NCCL group
+            the encode-once teacher (PARALLEL_K_ARGV, bf16, 2 epochs of 5
+            batches of 16) at K = 1 and K = PARALLEL_K (captured: two
+            graphs, the groups' and the remainder's), K = PARALLEL_K
+            bit-equal to K = 1 (history, a digest of the weights, moments,
+            step count and generator, launches); the encode-once runs
+            take 5 batches (a group of 4 and a remainder); an
+            all-reduce captured in a ``torch.cuda.CUDAGraph`` in the NCCL
+            group, replayed twice ([0]×4 after the capture, [2]×4 after
+            the replays), with the NCCL version and any warning. A rank
+            that fails, finds no card or runs past PARALLEL_RANK_TIMEOUT
+            fails the phase. ``python3 chip_smoke.py --only-parallel``
+            runs the device, build and parallel phases alone (no summary,
+            no ``ok`` line).
 
 L0 preprocessing without pandas (ROADMAP P21) adds, after ``int8``:
 
@@ -451,6 +469,25 @@ L0 preprocessing without pandas (ROADMAP P21) adds, after ``int8``:
             pixels in bf16, 1 epoch of L0_LIMIT_BATCHES batches of 32:
             finite losses and K1's launches as predicted from the cohort's
             splits before the call (12 a train step and an eval step).
+
+Serving's bucket graphs and ``--aot_dir`` (ROADMAP P10b) add, after
+``serve``:
+
+31. aot_serve  two worker processes of this script (``--aot-worker DIR
+            cold|warm``), each warming a pixel-mode predictor on the
+            full-width teacher (seeded weights, buckets 1..32, bf16) with
+            ``aot_dir`` DIR/aot: the cold one on a fresh directory (every
+            bucket a miss, every kernel library built into the entry), the
+            warm one after it (every bucket a hit, every library found: no
+            nvcc run); each one's warm-up seconds and
+            ``torch.cuda.memory_reserved``; then, in the warm one, every
+            bucket's replay against the eager step on random inputs (bit
+            for bit, K1 12 a batch, replays counted), the direct step at
+            buckets 1, 8 and 32 eagerly and as a replay (host ms to the
+            outputs on the host, the device ms of back-to-back replays,
+            each route's idle share), and ``jpeg_root`` through the graphs
+            (AOT_JPEG_IMAGES JPEGs encoded once; a batch of 8 ids bit-equal
+            to the eager step, K2 2 launches, an unknown id NaN).
 
 Every phase line carries ``t_s``, the seconds since the script started.
 Then the run's total seconds on a line of their own.
@@ -610,6 +647,12 @@ KD_F32_TOL = 1e-4
 # leaves; a resume that lost the optimizer state or the step generator
 # moves every epoch's loss by orders of magnitude more.
 RESUME_SPREAD_FACTOR = 4.0
+# the cohort of the kd, dual_teacher, dual_kd, modes, resume and jpeg phases:
+# 120 synthetic stays (145 train anchors, 4 batches of 32; 205 images a
+# bank build, 546 in the catalog), cut from 240 (405 images, 775) for the
+# time limit when the aot_serve phase and the parallel phase's multi-step
+# runs were added
+SHORT_STAYS = "120"
 
 
 T_START = time.perf_counter()
@@ -1112,13 +1155,13 @@ def _reload_val(port, res, device) -> tuple:
     return model, tcfg, ck, again, diff
 
 
-def _train_batch(port, device, cfg) -> tuple:
+def _train_batch(port, device, cfg, n_stays: int = 240) -> tuple:
     """The steady-step phases' data: the synthetic cohort of the train
-    phase on ``device``, one shuffled train batch of 32 (host arrays) and
-    the procedural pixel hook."""
+    phase (``n_stays`` stays) on ``device``, one shuffled train batch of 32
+    (host arrays) and the procedural pixel hook."""
     cfgmod, P, S = port["config"], port["pipeline"], port["synthetic"]
     dcfg = cfgmod.DataConfig()
-    ds = S.make_synthetic(seed=0, n_stays=240, n_subjects=80,
+    ds = S.make_synthetic(seed=0, n_stays=n_stays, n_subjects=n_stays // 3,
                           n_variables=cfg.duett.n_variables)
     data = P.build_anchor_dataset(ds, P.meta_from_events(ds, dcfg),
                                   dcfg).to(device)
@@ -2392,7 +2435,8 @@ def phase_kd(port, device, teacher_ckpt: str, ssl_ckpt: str,
     """Student distillation (``cli/train_student.main``) at full width from
     the ``ssl_to_teacher`` phase's teacher (ViT-B/14 at 518, the default
     DuETT, perceiver 7 × 256) and the SSL checkpoint for the student's
-    backbone: 240 stays, batch 32, 1 epoch of 4 batches, bf16, on each
+    backbone: SHORT_STAYS stays, batch 32, 1 epoch of 4 batches, bf16, on
+    each
     image tier: ``none`` (the teacher's ViT in every KD step), ``hbm``,
     ``host`` in RAM, and ``host`` on disk twice (the second run reopens the
     store). Every kernel's launches counted over exactly each run: K1's
@@ -2422,7 +2466,7 @@ def phase_kd(port, device, teacher_ckpt: str, ssl_ckpt: str,
     n_layers = tcfg.vit.n_layers
     store = os.path.join(KD_RUNS, "store", "feat")
     base = ["--device", "cuda", "--teacher_ckpt", teacher_ckpt,
-            "--duett_ckpt", ssl_ckpt, "--synthetic_stays", "240",
+            "--duett_ckpt", ssl_ckpt, "--synthetic_stays", SHORT_STAYS,
             "--batch_size", "32", "--epochs", "1", "--limit_batches", "4"]
     ways = {"none": ["--cxr_feature_cache", "none"],
             "hbm": ["--cxr_feature_cache", "hbm"],
@@ -2729,7 +2773,8 @@ def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
                        reps: int = 5) -> dict:
     """The ``dual`` teacher through ``cli/train_teacher.main --perceiver_type
     dual --pretrained_cxr_head_ckpt`` at full width (the default
-    ``TeacherConfig``, bf16), 240 stays, batch 32: 2 epochs on the ``hbm``
+    ``TeacherConfig``, bf16), SHORT_STAYS stays, batch 32: 2 epochs on the
+    ``hbm``
     tier (K2 once a train and eval step, the CLS bank alone; K1 in the bank
     build only) and 1 epoch of 4 batches on the pixel tier (K1 12 a train
     and eval step). Every kernel's launches over exactly each run; finite
@@ -2747,7 +2792,7 @@ def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
     head = ck_mod.load_checkpoint(head_ckpt)["params"]["linear"]
     base = ["--device", "cuda", "--perceiver_type", "dual",
             "--pretrained_cxr_head_ckpt", head_ckpt, "--synthetic_stays",
-            "240", "--batch_size", "32", "--epochs", "2"]
+            SHORT_STAYS, "--batch_size", "32", "--epochs", "2"]
     ways = {"hbm": ["--cxr_feature_cache", "hbm"],
             # 1 epoch of 4 batches (cut from 2 for the time limit)
             "pixels": ["--cxr_feature_cache", "none", "--limit_batches", "4",
@@ -2849,7 +2894,8 @@ def phase_dual_teacher(port, device, head_ckpt: str, card: str = "",
 
 def phase_dual_kd(port, device, teacher_ckpt: str, card: str = "") -> dict:
     """The student distilled from the ``dual`` teacher (``cli/
-    train_student.main``, the default ``StudentConfig``, 240 stays, batch
+    train_student.main``, the default ``StudentConfig``, SHORT_STAYS stays,
+    batch
     32, 1 epoch of 4 batches, bf16) on the ``hbm`` and ``host`` tiers:
     every kernel's launches over exactly each run (K1 only in the bank
     build; K2 once a KD step on ``hbm``, the CLS bank alone, none on
@@ -2859,8 +2905,8 @@ def phase_dual_kd(port, device, teacher_ckpt: str, card: str = "") -> dict:
     import math
     n_layers = port["config"].ViTConfig().n_layers
     base = ["--device", "cuda", "--teacher_ckpt", teacher_ckpt,
-            "--synthetic_stays", "240", "--batch_size", "32", "--epochs",
-            "1", "--limit_batches", "4"]
+            "--synthetic_stays", SHORT_STAYS, "--batch_size", "32",
+            "--epochs", "1", "--limit_batches", "4"]
     runs = {way: _kd_cli_run(port, device,
                              base + ["--cxr_feature_cache", way],
                              os.path.join(DUAL_RUNS, "kd"))
@@ -2955,7 +3001,8 @@ def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
     """The teacher's other modes and LP mode (ROADMAP P13) through
     ``cli/train_teacher.main`` at full width (the default ``TeacherConfig``:
     ViT-B/14 at 518, the default DuETT, the perceiver 256 × 4 heads; bf16;
-    240 stays, batch 32, 1 epoch, 4 batches of it on pixels): ``single``
+    SHORT_STAYS stays, batch 32, 1 epoch, 4 batches of it on pixels):
+    ``single``
     and ``dual_patch_event`` on ``hbm`` and on pixels, ``legacy`` on pixels
     with
     its auxiliary CXR head (``--use_aux_cxr --aux_cxr_alpha 0.5``), and LP
@@ -2978,8 +3025,8 @@ def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
     os.makedirs(MODES_RUNS)
     seconds = {"start": time.perf_counter()}
     # 1 epoch a run (cut from 2 to keep the script within its time limit)
-    base = ["--device", "cuda", "--synthetic_stays", "240", "--batch_size",
-            "32", "--epochs", "1", "--no_save_state"]
+    base = ["--device", "cuda", "--synthetic_stays", SHORT_STAYS,
+            "--batch_size", "32", "--epochs", "1", "--no_save_state"]
     hbm = ["--cxr_feature_cache", "hbm"]
     pixels = ["--cxr_feature_cache", "none", "--limit_batches", "4"]
     kept = {m: os.path.join(MODES_RUNS, f"{m}.msgpack")
@@ -3125,7 +3172,8 @@ def phase_modes(port, device, card: str = "", reps: int = 5) -> dict:
     # two KD steps from the single teacher on hbm
     kd = _kd_cli_run(port, device, [
         "--device", "cuda", "--teacher_ckpt", kept["single"],
-        "--synthetic_stays", "240", "--batch_size", "32", "--epochs", "1",
+        "--synthetic_stays", SHORT_STAYS, "--batch_size", "32", "--epochs",
+        "1",
         "--limit_batches", "2", "--cxr_feature_cache", "hbm",
         "--no_save_state"], os.path.join(MODES_RUNS, "kd"))
     n_layers = cfgmod.ViTConfig().n_layers
@@ -3197,8 +3245,9 @@ def _history_diff(a: list, b: list) -> float:
 
 def phase_resume(port, device, card: str = "") -> dict:
     """Resume and preemption of the ``dual_patch`` teacher at full width on
-    the ``hbm`` tier through ``cli/train_teacher.main`` (240 stays, batch
-    32, 2 epochs of 4 batches (cut from 3 for the time limit), the
+    the ``hbm`` tier through ``cli/train_teacher.main`` (120 stays, cut
+    from 240 for the time limit; batch 32, 2 epochs of 4 batches (cut from
+    3 for the time limit), the
     full state saved every epoch by default): an uninterrupted run and a
     second one (the control: what two runs of the same tree differ by on
     the card); a run paused after one epoch (``stop_after_epochs=1``), then
@@ -3216,8 +3265,8 @@ def phase_resume(port, device, card: str = "") -> dict:
     tt = port["train_teacher"]
     shutil.rmtree(RESUME_RUNS, ignore_errors=True)
     base = ["--device", "cuda", "--cxr_feature_cache", "hbm",
-            "--synthetic_stays", "240", "--batch_size", "32", "--epochs",
-            "2", "--limit_batches", "4"]
+            "--synthetic_stays", SHORT_STAYS, "--batch_size", "32",
+            "--epochs", "2", "--limit_batches", "4"]
 
     def cli(name, extra=(), **loop_kw):
         """The CLI; ``loop_kw`` (which it has no flag for) handed to the
@@ -3615,7 +3664,8 @@ def _feed_ms(hook, host: dict, device, reps: int = 3) -> float:
 def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     """Real chest X-rays (ROADMAP P15) at full width: the default
     ``TeacherConfig`` (ViT-B/14 at 518, DuETT over 34 variables, bf16),
-    240 synthetic stays (405 images), batch 32, their JPEGs written by
+    SHORT_STAYS synthetic stays (205 images), batch 32, their JPEGs written
+    by
     ``scripts/jpeg_fixtures.py``.
 
     The host's decoder facts and the route taken; on the card route
@@ -3632,8 +3682,8 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     tier: depth 0 and 2, losses bit-equal); each tier's steady step
     (CUDA events, peak memory, ``torch.profiler``) and host feed, and the
     ``stream`` feed of 32 MIMIC-size files; one unfrozen step from the bank (K1's forward, D, dkv, dq
-    12 each); the CXR head's CLI over the catalog's 775 JPEGs (K1's float32
-    forward 156 launches); ``cli/serve``'s ``jpeg_root`` startup (every
+    12 each); the CXR head's CLI over the catalog's 546 JPEGs (K1's float32
+    forward 108 launches); ``cli/serve``'s ``jpeg_root`` startup (every
     file encoded once) serving clients by image id (K2 2 a batch, K1 0),
     served = direct within SERVE_TOL, an unknown id NaN."""
     import math
@@ -3646,8 +3696,8 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     seconds = {"start": time.perf_counter()}
     cfgmod, P, S = port["config"], port["pipeline"], port["synthetic"]
     dcfg = cfgmod.DataConfig()
-    ds = S.make_synthetic(seed=0, n_stays=240, n_subjects=80,
-                          n_variables=34)
+    ds = S.make_synthetic(seed=0, n_stays=int(SHORT_STAYS),
+                          n_subjects=int(SHORT_STAYS) // 3, n_variables=34)
     anchor_ids = np.unique(P.build_anchor_dataset(
         ds, P.meta_from_events(ds, dcfg), dcfg).anchor["image_ids"])
     cohort = os.path.join(JPEG_RUNS, "cohort")
@@ -3678,9 +3728,9 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     seconds["decoder"] = time.perf_counter()
 
     # 1 epoch a run (cut from 2 to keep the script within its time limit)
-    base = ["--device", "cuda", "--synthetic_stays", "240", "--batch_size",
-            "32", "--epochs", "1", "--no_save_state", "--cxr_jpeg_root",
-            cohort]
+    base = ["--device", "cuda", "--synthetic_stays", SHORT_STAYS,
+            "--batch_size", "32", "--epochs", "1", "--no_save_state",
+            "--cxr_jpeg_root", cohort]
     pixels = ["--limit_batches", "4"]
     store = os.path.join(JPEG_RUNS, "store", "u8")
     ways = [("hbm", pixels + ["--image_bank", "hbm"]),
@@ -3736,7 +3786,8 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
                           port["features"], port["images"])
     optim, st = port["optim"], port["state"]
     tcfg = cfgmod.TeacherConfig()
-    data, host, _ = _train_batch(port, device, tcfg)
+    # the JPEG cohort's stays, whose images the files hold
+    data, host, _ = _train_batch(port, device, tcfg, int(SHORT_STAYS))
     trn = cfgmod.TrainConfig(batch_size=32)
     lw = np.ones(7, np.float32)
     model = port["teacher"].init_teacher(tcfg, 0).to(device)
@@ -3804,8 +3855,9 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     reset_counts(port)
     t0 = time.perf_counter()
     head = port["train_cxr_head"].main([
-        "--device", "cuda", "--synthetic_stays", "240", "--batch_size", "64",
-        "--epochs", "50", "--ckpt_dir", os.path.join(JPEG_RUNS, "cxr_head"),
+        "--device", "cuda", "--synthetic_stays", SHORT_STAYS, "--batch_size",
+        "64", "--epochs", "50", "--ckpt_dir", os.path.join(JPEG_RUNS,
+                                                           "cxr_head"),
         "--cxr_jpeg_root", catalog])
     torch.cuda.synchronize()
     n_cat = head["n_images"]
@@ -3886,7 +3938,8 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
                                  f"losses on {way}")
     if not info["store_equals_bank"]:
         raise AssertionError("the u8 store's losses differ from the bank's")
-    if runs["hbm"]["image_tier"]["bytes"] != 326_013_660:
+    # the u8 bank holds each of the cohort's images at 518 x 518 x 3
+    if runs["hbm"]["image_tier"]["bytes"] != len(anchor_ids) * 518 * 518 * 3:
         raise AssertionError(f"bank bytes {runs['hbm']['image_tier']}")
     for way, r in steady.items():
         want = {"gather_rows_bulk": 2} if way == "features" \
@@ -3906,6 +3959,23 @@ def phase_jpeg(port, device, card: str = "", reps: int = 5) -> dict:
     return info
 
 
+def _recording_forward(pred, served: list):
+    """``pred._forward`` that also appends (x_ts, static, batch, outputs) of
+    every batch it runs to ``served``: on the card the outputs of the
+    bucket graph's replay, which no step wrapper sees."""
+    import torch
+    forward = pred._forward
+
+    def recording_forward(x_ts, static, batch):
+        out = forward(x_ts, static, batch)
+        served.append((x_ts, static, batch,
+                       {k: torch.from_numpy(v.copy()) for k, v in
+                        out.items()}))
+        return out
+
+    return recording_forward
+
+
 def _serve_by_id(port, device, model, source: dict, reqs: list,
                  n_clients: int, posts_per_client: int, probe=None) -> dict:
     """``model`` behind the HTTP server with ``source`` (the predictor's
@@ -3921,15 +3991,7 @@ def _serve_by_id(port, device, model, source: dict, reqs: list,
                                       dtype=torch.bfloat16, device=device,
                                       **source)
     served = []
-    step = pred._steps[0]
-
-    def recording_step(x_ts, static, batch):
-        out = step(x_ts, static, batch)
-        served.append((x_ts, static, batch,
-                       {k: v.cpu() for k, v in out.items()}))
-        return out
-
-    pred._steps[0] = recording_step
+    pred._forward = _recording_forward(pred, served)
     pred.start()
     n_req = n_clients * posts_per_client
     server, probed = None, None
@@ -5461,17 +5523,10 @@ def phase_serve(port, device, cfg, n_clients: int, posts_per_client: int,
     T, V = d.n_timesteps, d.n_variables
     pred = pred_mod.BatchingPredictor(model, max_batch=32, max_wait_ms=20.0,
                                       dtype=torch.bfloat16, device=device)
-    # record every batch the batcher runs, to re-run it directly afterwards
+    # record every batch the batcher runs (its bucket graph's replay), to
+    # re-run it directly afterwards
     served_batches = []
-    step = pred._steps[0]
-
-    def recording_step(x_ts, static, batch):
-        out = step(x_ts, static, batch)
-        served_batches.append((x_ts, static, batch,
-                               {k: v.cpu() for k, v in out.items()}))
-        return out
-
-    pred._steps[0] = recording_step
+    pred._forward = _recording_forward(pred, served_batches)
     pred.start()
     server = None
     try:
@@ -5630,7 +5685,18 @@ PARALLEL_RUNS = os.path.join(REPO, "build", "chip_smoke_parallel")
 PARALLEL_ARGV = ["--device", "cuda", "--mixed_precision", "no",
                  "--synthetic_stays", "240", "--batch_size", "32",
                  "--epochs", "1", "--limit_batches", "3", "--no_save_state"]
-PARALLEL_CACHED = ["--cxr_feature_cache", "host"]
+PARALLEL_CACHED = ["--cxr_feature_cache", "host", "--limit_batches", "5"]
+# multi-step dispatch across processes (ROADMAP P10b), K = 4 over 5
+# batches an epoch (a group of 4 and a remainder of 1): on the gloo ranks
+# the encode-once run above at K = 4 (a loop) against itself at K = 1; in
+# the world-1 NCCL group the encode-once teacher in bf16, 2 epochs of 5
+# batches of 16 (the first runs each shape eagerly, the second captures
+# it), at K = 1 and K = 4
+PARALLEL_K_ARGV = ["--device", "cuda", "--synthetic_stays", "120",
+                   "--batch_size", "16", "--epochs", "2", "--limit_batches",
+                   "5", "--patience", "10", "--no_save_state",
+                   "--cxr_feature_cache", "host"]
+PARALLEL_K = 4
 # seconds a rank may take before the phase kills it and fails
 PARALLEL_RANK_TIMEOUT = 420
 # JAX's two-process tolerances (tests/test_multihost_2proc.py): the ranks
@@ -5666,14 +5732,21 @@ def _parallel_teacher(port, argv: list, ckpt_dir: str,
     torch.cuda.synchronize()
     reset_counts(port)
     t0 = time.perf_counter()
+    lines = []
     res = port["teacher_loop"].train_teacher(
         ads, teacher_cfg, tcfg, ckpt_dir, dcfg.pathology_labels,
         device="cuda", feature_cache=args.cxr_feature_cache,
-        save_full_state=args.save_state, log=lambda msg: None,
+        save_full_state=args.save_state, log=lines.append,
         **cli.image_kwargs(args))
     torch.cuda.synchronize()
     ex = res.extras
+    digest = hashlib.sha256()
+    for k, t in sorted(_train_state_of(res).items()):
+        digest.update(k.encode())
+        digest.update(t.cpu().contiguous().numpy().tobytes())
     return {"wall_s": time.perf_counter() - t0,
+            "multistep_lines": [ln for ln in lines if "[multistep]" in ln],
+            "state_digest": digest.hexdigest(),
             "history": res.history, "best_metric": res.best_metric,
             "test_auroc": res.test_metrics["main_auroc"],
             "best_path": res.best_path, "launches": read_counts(port),
@@ -5686,15 +5759,48 @@ def _parallel_teacher(port, argv: list, ckpt_dir: str,
             "files": sorted(os.listdir(ckpt_dir))}
 
 
+def _nccl_graph_capture(dist) -> dict:
+    """An all-reduce captured in a ``torch.cuda.CUDAGraph`` in the NCCL
+    group (after an eager one made the communicator): the capture runs
+    nothing, each replay adds 1 and all-reduces. With the torch and NCCL
+    versions, the NCCL environment the process group reads, and any
+    warning the capture raised."""
+    import warnings
+
+    import torch
+    t = torch.zeros(4, device="cuda")
+    dist.all_reduce(t)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.cuda.graph(g):
+            t.add_(1.0)
+            dist.all_reduce(t)
+    torch.cuda.synchronize()
+    after_capture = t.tolist()
+    g.replay()
+    g.replay()
+    torch.cuda.synchronize()
+    return {"after_capture": after_capture, "after_two_replays": t.tolist(),
+            "torch": torch.__version__,
+            "nccl": ".".join(map(str, torch.cuda.nccl.version())),
+            "env": {k: v for k, v in os.environ.items()
+                    if k.startswith(("TORCH_NCCL", "NCCL_"))},
+            "warnings": [str(w.message)[:300] for w in caught]}
+
+
 def parallel_worker(rank: int, world: int, port_no: int, out: str) -> int:
     """``chip_smoke.py --parallel-worker RANK WORLD PORT DIR``: one rank of
     the parallel phase. World 1: the pixel run with no process group, then
-    an NCCL group of one, an all-reduce through it, and the pixel run and
-    the encode-once run (batches composed for 2 partitions) inside it.
-    World 2 (the launcher's environment, set by the phase): the CLI helpers
-    join a gloo group (the ranks share the card), and the pixel and
-    encode-once runs follow on this rank's rows and partition. Writes
-    ``result_{rank}.json`` under ``out``."""
+    an NCCL group of one, an all-reduce through it, an all-reduce captured
+    in a CUDA graph and replayed twice, the pixel run and the encode-once
+    run (batches composed for 2 partitions) inside it, and the multi-step
+    runs (PARALLEL_K_ARGV at K = 1 and PARALLEL_K: captured). World 2 (the
+    launcher's environment, set by the phase): the CLI helpers join a gloo
+    group (the ranks share the card), and the pixel, encode-once and
+    multi-step runs (a loop over gloo) follow on this rank's rows and
+    partition. Writes ``result_{rank}.json`` under ``out``."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: parallel rank without a CUDA device",
@@ -5706,6 +5812,7 @@ def parallel_worker(rank: int, world: int, port_no: int, out: str) -> int:
     port["build"].build_all()
     dist, mh = torch.distributed, port["multihost"]
     res = {"rank": rank, "world": world}
+    k_flag = ["--steps_per_call", str(PARALLEL_K)]
     if world == 1:
         res["no_group"] = _parallel_teacher(
             port, PARALLEL_ARGV, os.path.join(out, "no_group"))
@@ -5720,12 +5827,21 @@ def parallel_worker(rank: int, world: int, port_no: int, out: str) -> int:
         res["cached"] = _parallel_teacher(
             port, PARALLEL_ARGV + PARALLEL_CACHED,
             os.path.join(out, "world1_cached"), partition=2)
+        res["nccl_graph"] = _nccl_graph_capture(dist)
+        res["k1"] = _parallel_teacher(port, PARALLEL_K_ARGV,
+                                      os.path.join(out, "world1_k1"))
+        res[f"k{PARALLEL_K}"] = _parallel_teacher(
+            port, PARALLEL_K_ARGV + k_flag,
+            os.path.join(out, f"world1_k{PARALLEL_K}"))
     else:
         res["pixels"] = _parallel_teacher(
             port, PARALLEL_ARGV, os.path.join(out, f"rank{rank}_pixels"))
         res["cached"] = _parallel_teacher(
             port, PARALLEL_ARGV + PARALLEL_CACHED,
             os.path.join(out, f"rank{rank}_cached"))
+        res[f"cached_k{PARALLEL_K}"] = _parallel_teacher(
+            port, PARALLEL_ARGV + PARALLEL_CACHED + k_flag,
+            os.path.join(out, f"rank{rank}_cached_k{PARALLEL_K}"))
     res["backend"] = dist.get_backend()
     res["process_count"] = mh.process_count()
     with open(os.path.join(out, f"result_{rank}.json"), "w") as f:
@@ -5890,10 +6006,11 @@ def phase_parallel(port, device, card: str = "") -> dict:
     t_a = time.perf_counter() - t0
     b = _spawn_ranks(2, os.path.join(PARALLEL_RUNS, "world2"))
     t_b = time.perf_counter() - t0 - t_a
+    kk = f"k{PARALLEL_K}"
     runs = {"no_group": a["no_group"], "world1_pixels": a["pixels"],
             "world1_cached": a["cached"],
             **{f"rank{r}_{kind}": b[r][kind] for r in range(2)
-               for kind in ("pixels", "cached")}}
+               for kind in ("pixels", "cached", f"cached_{kk}")}}
     info = {"phase": "parallel", "card": card,
             "backends": {"world1": a["backend"],
                          "world2": [x["backend"] for x in b]},
@@ -5944,6 +6061,38 @@ def phase_parallel(port, device, card: str = "") -> dict:
     if sum(own) != a["cached"]["feature_tier"]["n_images"]:
         problems.append(f"the ranks' partitions hold {own} images, one "
                         f"process {a['cached']['feature_tier']['n_images']}")
+    # multi-step dispatch across processes: K = PARALLEL_K equals K = 1 bit
+    # for bit in the world-1 NCCL group (captured: a graph for the groups
+    # and one for the remainder) and on each gloo rank (a loop, logged)
+    pairs = {"world1_nccl": (a["k1"], a[kk]),
+             **{f"rank{r}_gloo": (b[r]["cached"], b[r][f"cached_{kk}"])
+                for r in range(2)}}
+    info["multistep"] = {
+        name: {"k1_s": one["wall_s"], f"{kk}_s": many["wall_s"],
+               "lines": many["multistep_lines"],
+               "launches": {"k1": one["launches"], kk: many["launches"]},
+               "bit_equal": many["history"] == one["history"]
+               and many["state_digest"] == one["state_digest"]
+               and many["launches"] == one["launches"]}
+        for name, (one, many) in pairs.items()}
+    info["nccl_graph"] = a["nccl_graph"]
+    gloo_line = (f"[multistep] K={PARALLEL_K} as a loop over gloo (a "
+                 "host-side collective cannot be captured)")
+    for name, m in info["multistep"].items():
+        if not m["bit_equal"]:
+            problems.append(f"{name}: K={PARALLEL_K} differs from K=1")
+        want = [gloo_line] if "gloo" in name else None
+        if want is not None and m["lines"] != want or want is None and (
+                len(m["lines"]) != 2 or not all(
+                    "captured" in ln for ln in m["lines"])):
+            problems.append(f"{name}: multistep lines {m['lines']}")
+    if b[0][f"cached_{kk}"]["state_digest"] != \
+            b[1][f"cached_{kk}"]["state_digest"]:
+        problems.append("the gloo ranks' multi-step states differ")
+    g = a["nccl_graph"]
+    if g["after_capture"] != [0.0] * 4 or \
+            g["after_two_replays"] != [2.0] * 4:
+        problems.append(f"an NCCL all-reduce in a CUDA graph: {g}")
     info["serve"] = _serve_data_parallel(port, device,
                                          a["pixels"]["best_path"])
     info["seconds"] = time.perf_counter() - t0
@@ -5952,6 +6101,269 @@ def phase_parallel(port, device, card: str = "") -> dict:
     torch.cuda.empty_cache()
     if problems:
         raise AssertionError("parallel: " + "; ".join(problems))
+    return info
+
+
+# --- serving's --aot_dir and bucket graphs (ROADMAP P10b) -------------------
+AOT_RUNS = os.path.join(REPO, "build", "chip_smoke_aot")
+# seconds a worker process may take before the phase kills it and fails
+AOT_WORKER_TIMEOUT = 420
+# the buckets whose direct step is timed eagerly and as a replay
+AOT_TIMED_BUCKETS = (1, 8, 32)
+# the jpeg_root run's images (the jpeg phase's cohort shape) and batches
+AOT_JPEG_IMAGES = 24
+
+
+def _aot_example(cfg) -> dict:
+    d, S = cfg.duett, cfg.vit.image_size
+    return {"x_ts": np.zeros((d.n_timesteps, 2 * d.n_variables), np.float32),
+            "static": np.zeros(d.d_static, np.float32),
+            "pixel_u8": np.zeros((S, S, 3), np.uint8)}
+
+
+def _aot_bucket_arrays(pred, cfg, b: int, seed: int, pixels: bool = True
+                       ) -> tuple:
+    """A bucket's assembled host arrays (x_ts, static, batch) of ``b``
+    random requests."""
+    from concurrent.futures import Future
+    d, S = cfg.duett, cfg.vit.image_size
+    rng = np.random.default_rng(seed)
+    items = []
+    for _ in range(b):
+        r = {"x_ts": np.concatenate(
+                [rng.normal(size=(d.n_timesteps, d.n_variables)),
+                 rng.integers(-1, 4, size=(d.n_timesteps, d.n_variables))],
+                -1).astype(np.float32),
+             "static": rng.normal(size=d.d_static).astype(np.float32),
+             "image_id": int(rng.integers(0, AOT_JPEG_IMAGES + 4))}
+        if pixels:
+            r["pixel_u8"] = rng.integers(0, 256, (S, S, 3), dtype=np.uint8)
+        it = pred._parse(r)
+        it.future = Future()
+        items.append(it)
+    return pred._assemble(items, b)
+
+
+def _aot_bucket_checks(port, pred, cfg) -> dict:
+    """Each bucket of the ladder on random inputs: the replayed outputs
+    against the eager step's on the same inputs (bit for bit), K1's
+    launches over the replay (12 a batch); at AOT_TIMED_BUCKETS the direct
+    step eagerly and as a replay (host ms to the outputs on the host), the
+    device time of back-to-back replays (CUDA events over the staging copy
+    and the graph) and each route's idle share."""
+    import torch
+    step = pred._steps[0]
+    out = {"bit_equal": {}, "k1_launches": {}, "timed": {}}
+    device = pred._step_devices[0]
+    for b in pred.buckets:
+        x_ts, static, batch = _aot_bucket_arrays(pred, cfg, b, seed=b)
+        torch.cuda.synchronize()
+        reset_counts(port)
+        with torch.inference_mode():
+            got = pred._forward(x_ts, static, batch)
+        torch.cuda.synchronize()
+        out["k1_launches"][b] = read_counts(port)["flash_attention"]
+        want = {k: v.cpu().numpy() for k, v in step(x_ts, static,
+                                                   batch).items()}
+        out["bit_equal"][b] = sorted(got) == sorted(want) and all(
+            np.array_equal(got[k], want[k]) for k in want)
+        if b not in AOT_TIMED_BUCKETS:
+            continue
+        parts = pred._parts(x_ts, static, batch)[0]
+        graph = pred._graphs[(0, b)]
+
+        def eager():
+            return {k: v.cpu() for k, v in step(x_ts, static,
+                                                batch).items()}
+
+        def replay():
+            with torch.inference_mode():
+                return pred._forward(x_ts, static, batch)
+
+        def device_only():
+            graph.load(parts)
+            graph.replay()
+
+        e = _steady_calls(eager, device, 1)
+        r = _steady_calls(replay, device, 1)
+        dev = _steady_calls(device_only, device, 1)["device_ms_per_step"]
+        out["timed"][b] = {"eager_ms": e["step_ms"], "replay_ms": r["step_ms"],
+                           "replay_device_ms": dev,
+                           "eager_idle": 1 - dev / e["step_ms"],
+                           "replay_idle": 1 - dev / r["step_ms"],
+                           "eager_over_replay": e["step_ms"] / r["step_ms"]}
+    reset_counts(port)
+    return out
+
+
+def _aot_jpeg_root(port, out_dir: str) -> dict:
+    """``jpeg_root`` serving through the bucket graphs: AOT_JPEG_IMAGES
+    JPEGs written, ``cli/serve.jpeg_feature_source`` (the bank built
+    through the ViT), a predictor warmed, a batch of 8 ids (a few not in
+    the bank) replayed against the eager step, K2's launches over it (2 a
+    batch) and an unknown id's answer (NaN)."""
+    import torch
+    from concurrent.futures import Future
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import jpeg_fixtures as J
+    root = os.path.join(out_dir, "jpegs")
+    J.write_jpegs(root, range(AOT_JPEG_IMAGES), *JPEG_COHORT_SHAPE,
+                  processes=4)
+    cfg = port["config"].TeacherConfig()
+    model = port["teacher"].init_teacher(cfg, 1).to("cuda").eval()
+    source, startup = port["cli_serve"].jpeg_feature_source(model, root)
+    pred = port["predictor"].BatchingPredictor(
+        model, feature_source=source, max_batch=32, max_wait_ms=0.0,
+        device="cuda")
+    example = _aot_example(cfg)
+    example.pop("pixel_u8")
+    pred.warmup(example)
+    x_ts, static, batch = _aot_bucket_arrays(pred, cfg, 8, seed=3,
+                                             pixels=False)
+    torch.cuda.synchronize()
+    reset_counts(port)
+    with torch.inference_mode():
+        got = pred._forward(x_ts, static, batch)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in read_counts(port).items() if v}
+    want = {k: v.cpu().numpy()
+            for k, v in pred._steps[0](x_ts, static, batch).items()}
+    it = pred._parse({"x_ts": x_ts[0], "static": static[0],
+                      "image_id": 10 ** 6})
+    it.future = Future()
+    pred._run_batch([it])
+    unknown = it.future.result()["fusion_logits"]
+    known = batch["image_ids"] < AOT_JPEG_IMAGES
+    return {"n_images": startup["n_images"], "encode_s": startup["encode_s"],
+            "launches": launches,
+            "bit_equal": all(np.array_equal(got[k], want[k], equal_nan=True)
+                             for k in want),
+            "known_rows_finite": bool(np.isfinite(
+                got["fusion_logits"][known]).all()),
+            "unknown_id_nan": bool(np.isnan(unknown).all())}
+
+
+def aot_worker(out: str, kind: str) -> int:
+    """``chip_smoke.py --aot-worker DIR cold|warm``: one process of the
+    ``aot_serve`` phase. Warms a pixel-mode predictor on the full-width
+    teacher (seeded weights, the ladder 1..32) with ``aot_dir`` DIR/aot:
+    the warm-up's seconds, ``aot_hits``, which kernel libraries this
+    process built and which it found (``ops/build.origins``), the memory
+    the graphs hold; the warm process also checks every bucket
+    (``_aot_bucket_checks``) and serves ``jpeg_root`` through the graphs.
+    Writes ``result_{kind}.json`` under DIR."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: aot worker without a CUDA device",
+              file=sys.stderr)
+        return 2
+    t0 = time.perf_counter()
+    port = import_port()
+    cfg = port["config"].TeacherConfig()
+    model = port["teacher"].init_teacher(cfg, 0)
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter()
+    pred = port["predictor"].BatchingPredictor(
+        model, max_batch=32, max_wait_ms=0.0, dtype=torch.bfloat16,
+        device="cuda", aot_dir=os.path.join(out, "aot"))
+    by_bucket = pred.warmup(_aot_example(cfg))
+    torch.cuda.synchronize()
+    res = {"kind": kind, "warmup_s": time.perf_counter() - t_warm,
+           "warmup_by_bucket_s": by_bucket,
+           "aot_hits": {str(b): h for b, h in pred.aot_hits.items()},
+           "origins": port["build"].origins(),
+           "build_dir": port["build"].build_dir(),
+           "memory_reserved_bytes": torch.cuda.memory_reserved(),
+           "memory_allocated_bytes": torch.cuda.memory_allocated(),
+           "graphs": len(pred._graphs)}
+    if kind == "warm":
+        res["buckets"] = _aot_bucket_checks(port, pred, cfg)
+        del pred, model
+        torch.cuda.empty_cache()
+        res["jpeg_root"] = _aot_jpeg_root(port, out)
+        res["origins_after_jpeg_root"] = port["build"].origins()
+    res["process_s"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"result_{kind}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _run_aot_worker(out: str, kind: str) -> dict:
+    log_path = os.path.join(out, f"{kind}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                              "--aot-worker", out, kind], cwd=REPO,
+                             stdout=log, stderr=subprocess.STDOUT)
+        try:
+            p.wait(timeout=AOT_WORKER_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+            raise AssertionError(f"the {kind} aot worker ran past "
+                                 f"{AOT_WORKER_TIMEOUT} s")
+    if p.returncode != 0:
+        with open(log_path) as f:
+            raise AssertionError(f"the {kind} aot worker exited with "
+                                 f"{p.returncode}:\n{f.read()[-4000:]}")
+    with open(os.path.join(out, f"result_{kind}.json")) as f:
+        return {**json.load(f), "wall_s": time.perf_counter() - t0}
+
+
+def phase_aot_serve(port, device, card: str = "") -> dict:
+    """Serving's ``--aot_dir`` and bucket graphs (ROADMAP P10b) at full
+    width (``TeacherConfig()``, ViT-B/14 at 518, buckets 1..32), each step
+    a worker process of this script (``--aot-worker``): a cold start on a
+    fresh directory (every bucket a miss, every kernel library built into
+    the directory's entry), then a restart in a fresh process on the same
+    directory (every bucket a hit, every library found: no nvcc run), whose
+    every bucket's replay equals the eager step bit for bit with K1 12 a
+    batch, replays counted; the direct steps at AOT_TIMED_BUCKETS eagerly
+    and as a replay with the idle share; ``torch.cuda.memory_reserved``
+    after each warm-up; and ``jpeg_root`` served through the graphs (K2 2
+    a batch, an unknown id NaN)."""
+    import torch
+    shutil.rmtree(AOT_RUNS, ignore_errors=True)
+    os.makedirs(AOT_RUNS)
+    t0 = time.perf_counter()
+    cold = _run_aot_worker(AOT_RUNS, "cold")
+    warm = _run_aot_worker(AOT_RUNS, "warm")
+    n_layers = port["config"].TeacherConfig().vit.n_layers
+    info = {"phase": "aot_serve", "card": card, "cold": cold, "warm": warm,
+            "seconds": time.perf_counter() - t0}
+    emit(info)
+    shutil.rmtree(AOT_RUNS, ignore_errors=True)
+    problems = []
+    buckets = ["1", "2", "4", "8", "16", "32"]
+    if sorted(cold["aot_hits"], key=int) != buckets \
+            or any(cold["aot_hits"].values()):
+        problems.append(f"cold start hits {cold['aot_hits']}")
+    if sorted(warm["aot_hits"], key=int) != buckets \
+            or not all(warm["aot_hits"].values()):
+        problems.append(f"restart hits {warm['aot_hits']}")
+    if set(cold["origins"].values()) != {"built"} or \
+            set(cold["origins"]) != set(port["build"].SOURCES):
+        problems.append(f"cold start built {cold['origins']}")
+    if "built" in warm["origins_after_jpeg_root"].values():
+        problems.append(f"the restart ran nvcc: "
+                        f"{warm['origins_after_jpeg_root']}")
+    if cold["build_dir"] != warm["build_dir"] or \
+            not cold["build_dir"].startswith(AOT_RUNS):
+        problems.append(f"libraries in {cold['build_dir']} and "
+                        f"{warm['build_dir']}")
+    b = warm["buckets"]
+    if not all(b["bit_equal"].values()):
+        problems.append(f"replay differs from the eager step: "
+                        f"{b['bit_equal']}")
+    if any(n != n_layers for n in b["k1_launches"].values()):
+        problems.append(f"K1 launches a replayed batch {b['k1_launches']}")
+    j = warm["jpeg_root"]
+    if j["launches"] != {"gather_rows_bulk": 2} or not j["bit_equal"] \
+            or not j["unknown_id_nan"] or not j["known_rows_finite"]:
+        problems.append(f"jpeg_root through the graphs: {j}")
+    torch.cuda.empty_cache()
+    if problems:
+        raise AssertionError("aot_serve: " + "; ".join(problems))
     return info
 
 
@@ -6557,6 +6969,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--parallel-worker"]:
         rank, world, port_no = (int(a) for a in sys.argv[2:5])
         return parallel_worker(rank, world, port_no, sys.argv[5])
+    if sys.argv[1:2] == ["--aot-worker"]:
+        return aot_worker(sys.argv[2], sys.argv[3])
     try:
         import torch
     except ImportError:
@@ -6643,6 +7057,7 @@ def main() -> int:
     block = phase_block_grad(port, device)
     serve = phase_serve(port, device, cfgmod.TeacherConfig(), n_clients=12,
                         posts_per_client=4, card=dev["nvidia_smi"])
+    aot_serve = phase_aot_serve(port, device, card=dev["nvidia_smi"])
 
     gathers = phase_gather(port, device)
     train = phase_train(port, device, card=dev["nvidia_smi"])
@@ -6728,6 +7143,10 @@ def main() -> int:
                 **jpeg_by_path(name), **supervised_by_path(name),
                 "parallel": {run: n.get(name, 0) for run, n in
                              parallel["launches"].items()},
+                "parallel_multistep": {
+                    f"{run}_{k}": n.get(name, 0)
+                    for run, m in parallel["multistep"].items()
+                    for k, n in m["launches"].items()},
                 "analysis": {run: r["launches"].get(name, 0)
                              for run, r in analysis["runs"].items()},
                 "analysis_b": {run: r["launches"].get(name, 0)
@@ -6737,6 +7156,11 @@ def main() -> int:
                          "serve": int8["serve"]["k1_launches"]
                          if name == "flash_attention" else 0},
                 "l0": l0["launches"].get(name, 0),
+                "aot_serve": {
+                    "buckets": aot_serve["warm"]["buckets"]["k1_launches"]
+                    if name == "flash_attention" else 0,
+                    "jpeg_root": aot_serve["warm"]["jpeg_root"]["launches"]
+                    .get(name, 0)},
                 "multistep": {f"{route}_{kk}": n.get(name, 0)
                               for route, r in multistep["routes"].items()
                               for kk, n in r["launches"].items()}}

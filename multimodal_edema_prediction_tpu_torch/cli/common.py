@@ -11,12 +11,9 @@ runs. Under a launcher (``torchrun``'s environment) the teacher, SSL and
 student CLIs join its process group (``join_process_group``) and train
 data-parallel, one process per card (or over gloo, ranks sharing one).
 
-Every flag of the JAX CLIs parses here. The flags of what is not ported yet
-(a CLI's own table) have no default, so a parsed attribute means the flag
-was given, and ``refuse_queued_flags`` raises ``NotImplementedError``
-naming its ROADMAP item before any data, model or device work.
-``--wandb_project`` (unless ``--wandb_disabled``) and ``--wandb_run_name``
-go to the CLI's ``utils/logging.Logger``; ``--log_every`` to
+Every flag of the JAX CLIs parses here. ``--wandb_project`` (unless
+``--wandb_disabled``) and ``--wandb_run_name`` go to the CLI's
+``utils/logging.Logger``; ``--log_every`` to
 ``TrainConfig.log_every``; ``--steps_per_call K`` to
 ``TrainConfig.steps_per_call`` (``train/engine.py::scan_steps``: K steps
 per call, a ``[multistep] captured K=...`` line when a card's graph is
@@ -33,25 +30,6 @@ from ..config import (DataConfig, DuettConfig, OptimConfig, TrainConfig,
                       make_run_id)
 from ..data import pipeline as P
 from ..data import synthetic as S
-
-
-def add_queued_flags(p: argparse.ArgumentParser, queued: dict) -> None:
-    """Parse the flags of ``queued`` ({flag: ROADMAP item}) with no default:
-    the parsed args carry one only if it was given."""
-    for flag, item in queued.items():
-        p.add_argument(flag, default=argparse.SUPPRESS,
-                       help=f"not ported yet (ROADMAP {item}); refused")
-
-
-def refuse_queued_flags(args, *tables: dict) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    flag of ``tables`` ({flag: item} each) that was given."""
-    for queued in tables:
-        for flag, item in queued.items():
-            if hasattr(args, flag[2:]):
-                raise NotImplementedError(
-                    f"{flag} {getattr(args, flag[2:])} is not ported yet "
-                    f"(ROADMAP {item})")
 
 
 def add_common_flags(p: argparse.ArgumentParser) -> None:

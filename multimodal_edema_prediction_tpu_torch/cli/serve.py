@@ -17,10 +17,13 @@ images are the JAX package's procedural ones for those ids, drawn on the
 device with the labels fixed to zeros, through the ViT (demos, load tests;
 no image payloads). ``--data_parallel N`` serves N replicas of the model on
 cards 0..N-1 (``serve/predictor.py``: buckets of multiples of N, each batch
-split across the replicas; more than the cards there are raises);
-``--aot_dir`` is not ported yet (ROADMAP P10b) and raises when given. Every
+split across the replicas; more than the cards there are raises). Every
 bucket runs once before the port opens, so the first request never pays a
-kernel build.
+kernel build; on the card each bucket's forward is then one replay of a CUDA
+graph captured at warm-up. ``--aot_dir DIR`` keeps the kernel libraries and
+a manifest of the warmed buckets in ``DIR`` (``utils/aot.py``): a restart
+with the same ``DIR`` builds no kernel, captures its graphs again (a CUDA
+graph cannot be saved) and reports every bucket as a hit.
 """
 from __future__ import annotations
 
@@ -31,11 +34,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-
-from .common import add_queued_flags, refuse_queued_flags
-
-# JAX flags whose feature is not ported yet → their ROADMAP item
-QUEUED_FLAGS = {"--aot_dir": "P10b"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -58,9 +56,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--labels", type=str, default="",
                    help="comma-separated label names (default: the "
                         "DataConfig pathology set)")
+    p.add_argument("--aot_dir", type=str, default="",
+                   help="persist the kernel libraries and the warmed "
+                        "buckets' manifest here (utils/aot.py): restarts "
+                        "load the kernels instead of building them, and "
+                        "capture each bucket's CUDA graph again")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device; 'cpu' only when asked for")
-    add_queued_flags(p, QUEUED_FLAGS)
     return p
 
 
@@ -120,7 +122,6 @@ def synthetic_image_source(cfg) -> Callable[[dict], torch.Tensor]:
 def main(argv=None):
     p = build_parser()
     args = p.parse_args(argv)
-    refuse_queued_flags(args, QUEUED_FLAGS)
     if args.image_mode == "jpeg_root" and not args.cxr_jpeg_root:
         p.error("--image_mode jpeg_root requires --cxr_jpeg_root")
 
@@ -128,11 +129,14 @@ def main(argv=None):
     from ..serve import BatchingPredictor, make_server, serve_forever
     from ..serve.predictor import replica_devices
     from ..train.checkpoint import load_teacher_from_ckpt
-    from ..utils import resolve_device
+    from ..utils import aot, resolve_device
 
     # N replicas on N cards: more than there are raises before any load
     devices = replica_devices(resolve_device(args.device),
                               args.data_parallel)
+    if args.aot_dir:
+        # before jpeg_root's bank build, whose ViT launches K1
+        aot.load_or_build(args.aot_dir)
     model, cfg, _ = load_teacher_from_ckpt(args.ckpt, device=devices[0])
     labels = (args.labels.split(",") if args.labels
               else list(DataConfig().pathology_labels))
@@ -149,7 +153,8 @@ def main(argv=None):
         max_batch=args.max_batch,
         max_wait_ms=args.max_wait_ms, max_queue=args.max_queue,
         dtype=torch.bfloat16, labels=labels, device=args.device,
-        data_parallel=args.data_parallel).start()
+        data_parallel=args.data_parallel,
+        aot_dir=args.aot_dir or None).start()
 
     T, V = cfg.duett.n_timesteps, cfg.duett.n_variables
     example = {"x_ts": np.zeros((T, 2 * V), np.float32),
@@ -160,6 +165,10 @@ def main(argv=None):
         # a single/legacy teacher fails here, before the port opens
         print("warming buckets ...", flush=True)
         print(f"warm: {pred.warmup(example)}", flush=True)
+        if args.aot_dir:
+            print(f"aot cache: {sum(pred.aot_hits.values())}/"
+                  f"{len(pred.aot_hits)} buckets loaded from "
+                  f"{args.aot_dir}", flush=True)
         meta = {"n_timesteps": T, "n_variables": V,
                 "d_static": cfg.duett.d_static, "image_size": S,
                 "image_mode": args.image_mode,

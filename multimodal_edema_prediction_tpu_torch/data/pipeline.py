@@ -217,8 +217,9 @@ def _erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
     w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
 
     def coef(i):
-        return torch.where(lt, torch.tensor(_ERFINV_W_LT5[i], device=x.device),
-                           torch.tensor(_ERFINV_W_GE5[i], device=x.device))
+        # scalars, not tensors made from the host: a copy inside a step
+        # would stop a CUDA graph's capture (serving's synthetic mode)
+        return torch.where(lt, _ERFINV_W_LT5[i], _ERFINV_W_GE5[i])
 
     p = coef(0)
     for i in range(1, len(_ERFINV_W_LT5)):

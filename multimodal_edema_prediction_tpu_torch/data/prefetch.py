@@ -148,12 +148,27 @@ def stack_host_batches(batches: Iterable[dict], k: int) -> Iterator[dict]:
     ``engine.scan_steps`` (a new leading axis K on every field; JAX
     ``data/prefetch.py:73-88``). The last group carries the remainder
     (< k), which ``scan_steps`` runs as a shape of its own (on a card, a
-    second captured graph)."""
+    second captured graph). A nested dict (a process's ``_global`` labels,
+    ``parallel/multihost.split_batch_for_process``) is stacked key by key,
+    so that its row i stays step i's; a tensor field (a hook's bf16 tokens,
+    a card decoder's pixels) is stacked with ``torch.stack``."""
     buf = []
     for b in batches:
         buf.append(b)
         if len(buf) == k:
-            yield {key: np.stack([bb[key] for bb in buf]) for key in buf[0]}
+            yield _stack(buf)
             buf = []
     if buf:
-        yield {key: np.stack([bb[key] for bb in buf]) for key in buf[0]}
+        yield _stack(buf)
+
+
+def _stack(batches: list) -> dict:
+    out = {}
+    for key, first in batches[0].items():
+        vals = [b[key] for b in batches]
+        # a hook's tensors (bf16 tokens, a card decoder's pixels) stack as
+        # tensors where they lie: numpy has no bf16
+        out[key] = _stack(vals) if isinstance(first, dict) else \
+            torch.stack(vals) if isinstance(first, torch.Tensor) else \
+            np.stack(vals)
+    return out

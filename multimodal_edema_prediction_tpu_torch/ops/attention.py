@@ -197,12 +197,9 @@ def _launch(name: str, dtype: torch.dtype, args, device) -> None:
     stream; ``args`` are what comes between the dtype and the stream:
     tensors (as their data pointers, None as a null pointer), ints, floats
     and ctypes arrays (as their addresses). Raise if CUDA refused it."""
-    from .build import load
+    from .build import function, launch_error
     lib, argtypes = ENTRY_POINTS[name]
-    fn = getattr(load(lib), name)
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+    fn = function(lib, name, argtypes)
     conv = [a.data_ptr() if isinstance(a, torch.Tensor)
             else ctypes.addressof(a) if isinstance(a, ctypes.Array) else a
             for a in args]
@@ -210,7 +207,7 @@ def _launch(name: str, dtype: torch.dtype, args, device) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(_DTYPES[dtype], *conv, stream)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise launch_error(name, err)
 
 
 def _bnhd_empty(x: torch.Tensor) -> torch.Tensor:

@@ -2,11 +2,18 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C entry point, loaded with ``ctypes``. Libraries go to
-``build/torch_kernels/`` at the repo root (listed in ``.gitignore``), keyed by
-a hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so a
-checkout builds them at first use and reuses them afterwards. Nothing here
-runs at import time: this module imports on a machine without ``nvcc`` or a
-card.
+``build/torch_kernels/`` at the repo root (listed in ``.gitignore``), or to
+the directory a caller names before the first load (``set_build_dir``;
+serving's ``--aot_dir`` through ``utils/aot.py``), keyed by a hash of the
+source, the shared headers (``csrc/*.cuh``) and the flags, so a checkout
+builds them at first use and reuses them afterwards. ``origins`` says which
+libraries this process built and which it found built. A library in the
+directory that ``ctypes`` cannot load (truncated, or another toolkit's) is
+rebuilt once and replaced atomically; a launch refused for a missing or
+invalid kernel image raises ``StaleLibraryError``, after which a caller may
+rebuild (``build_all(force=True)``) and ``reload`` the libraries. Nothing
+here runs at import time: this module imports on a machine without
+``nvcc`` or a card.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -38,8 +45,59 @@ SOURCES = {"flash_attention": "flash_attention.cu",
 # what a library links beyond the CUDA runtime
 LINK_FLAGS = {"jpeg_resize": ("-lnvjpeg",)}
 
+# cudaErrorInvalidKernelImage, cudaErrorNoKernelImageForDevice: a library
+# built for another card or by another toolkit
+STALE_IMAGE_ERRORS = (200, 209)
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# bound C entry points, (library, name) -> function; emptied by ``reload``
+_fns: Dict[tuple, object] = {}
+# library -> "built" (compiled by this process) or "found" (loaded as built)
+_origin: Dict[str, str] = {}
+# the directory libraries are built into and loaded from
+_dir = BUILD_DIR
+# the directory of the first load: the process's directory from then on
+_loaded_dir: Optional[str] = None
+# how many times each library file was opened (a reopened file is loaded
+# through a copy of its own name: dlopen returns a loaded name's handle)
+_opened: Dict[str, int] = {}
+
+
+class StaleLibraryError(RuntimeError):
+    """A launch refused because the library holds no valid kernel image for
+    this card (``STALE_IMAGE_ERRORS``)."""
+
+
+def launch_error(name: str, err: int) -> RuntimeError:
+    """The exception of a launch of ``name`` that returned CUDA error
+    ``err``: ``StaleLibraryError`` for a missing or invalid kernel image."""
+    kind = StaleLibraryError if err in STALE_IMAGE_ERRORS else RuntimeError
+    return kind(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def build_dir() -> str:
+    return _dir
+
+
+def set_build_dir(path: Optional[str]) -> None:
+    """Build into and load from ``path`` (None: ``BUILD_DIR``). Raises once a
+    library was loaded from another directory: a process never holds two
+    copies of a kernel."""
+    global _dir
+    path = os.path.abspath(path) if path else BUILD_DIR
+    with _lock:
+        if _loaded_dir is not None and path != _loaded_dir:
+            raise RuntimeError(
+                f"kernel libraries were loaded from {_loaded_dir}; this "
+                f"process cannot load them from {path} as well")
+        _dir = path
+
+
+def origins() -> Dict[str, str]:
+    """Each library this process loaded or built: ``"built"`` if it ran
+    ``nvcc`` for it, else ``"found"``."""
+    return dict(_origin)
 
 
 def _nvcc() -> str:
@@ -54,26 +112,34 @@ def _nvcc() -> str:
     return cand
 
 
-def _lib_path(name: str) -> str:
+def source_digest(name: str) -> str:
+    """sha256 of library ``name``'s flags, source and the shared headers."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ()))
                             .encode())
     for src in [SOURCES[name]] + sorted(
             f for f in os.listdir(CSRC) if f.endswith(".cuh")):
         with open(os.path.join(CSRC, src), "rb") as f:
             digest.update(f.read())
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()
 
 
-def build_all() -> Dict[str, float]:
-    """Compile every kernel that is not built yet, one ``nvcc`` per source,
-    all started together. Returns the wall seconds per library built now;
-    ``ptxas`` register and spill reports go to ``<lib>.log``."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+def _lib_path(name: str) -> str:
+    return os.path.join(_dir, f"lib{name}-{source_digest(name)[:16]}.so")
+
+
+def build_all(force: bool = False,
+              names: Optional[Sequence[str]] = None) -> Dict[str, float]:
+    """Compile every kernel (of ``names``, default all) that is not built
+    yet, or every one with ``force``, one ``nvcc`` per source, all started
+    together; each library replaces its file atomically. Returns the wall
+    seconds per library built now; ``ptxas`` register and spill reports go
+    to ``<lib>.log``."""
+    os.makedirs(_dir, exist_ok=True)
     procs = {}
     t0 = time.time()
-    for name, src in SOURCES.items():
-        out = _lib_path(name)
-        if os.path.exists(out):
+    for name in names or SOURCES:
+        src, out = SOURCES[name], _lib_path(name)
+        if os.path.exists(out) and not force:
             continue
         tmp = f"{out}.{os.getpid()}.tmp"
         log = open(out + ".log", "w")
@@ -90,6 +156,7 @@ def build_all() -> Dict[str, float]:
                 raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
                                    f"(rc {rc}):\n{f.read()}")
         os.replace(tmp, out)
+        _origin[name] = "built"
         done[name] = time.time() - t0
     return done
 
@@ -209,13 +276,57 @@ def sass_setmaxnreg(listing: str) -> Dict[str, Dict[str, List[int]]]:
     return out
 
 
+def _open(path: str) -> ctypes.CDLL:
+    n = _opened.get(path, 0)
+    src = path
+    if n:
+        # the file was replaced after a load: open it under a name of its own
+        src = f"{path[:-3]}.r{n}.so"
+        shutil.copyfile(path, src)
+    lib = ctypes.CDLL(src)
+    _opened[path] = n + 1
+    return lib
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``, built first if needed. A library this
+    process did not build that ``ctypes`` cannot load is rebuilt once."""
+    global _loaded_dir
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            if not os.path.exists(_lib_path(name)):
+            path = _lib_path(name)
+            if not os.path.exists(path):
                 build_all()
-            lib = ctypes.CDLL(_lib_path(name))
+            try:
+                lib = _open(path)
+            except OSError:
+                if _origin.get(name) == "built":
+                    raise
+                build_all(force=True, names=(name,))
+                lib = _open(path)
+            _origin.setdefault(name, "found")
             _libs[name] = lib
+            _loaded_dir = _dir
         return lib
+
+
+def function(lib: str, name: str, argtypes: Sequence) -> Callable:
+    """The C entry point ``name`` of library ``lib`` (``load``), returning a
+    CUDA error code, with its ctypes signature."""
+    fn = _fns.get((lib, name))
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = list(argtypes)
+        _fns[(lib, name)] = fn
+    return fn
+
+
+def reload() -> None:
+    """Forget every loaded library and bound entry point, so that the next
+    launch loads the libraries as they are now on disk (after a
+    ``build_all(force=True)``). The old handles stay mapped, unused."""
+    with _lock:
+        _libs.clear()
+        _fns.clear()

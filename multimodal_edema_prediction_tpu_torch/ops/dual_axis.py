@@ -256,7 +256,6 @@ def _check(x: torch.Tensor, params: Dict[str, torch.Tensor], n_heads: int,
                          f"{d_head}")
 
 
-_FNS: dict = {}
 # per (device, stream): the tensor-core routes' arrival counters, one per
 # batch element, zero between launches (each kernel's last block of each
 # element resets its own)
@@ -264,17 +263,11 @@ _COUNTERS: Dict[tuple, torch.Tensor] = {}
 
 
 def _call(name: str, *args) -> None:
-    fn = _FNS.get(name)
-    if fn is None:
-        from .build import load
-        lib, argtypes = ENTRY_POINTS[name]
-        fn = getattr(load(lib), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _FNS[name] = fn
-    err = fn(*args)
+    from .build import function, launch_error
+    lib, argtypes = ENTRY_POINTS[name]
+    err = function(lib, name, argtypes)(*args)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise launch_error(name, err)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -94,21 +94,12 @@ def route(row_bytes: int, bank_ptr: int, out_ptr: int) -> str:
         else "vector"
 
 
-_FNS: dict = {}
-
-
 def _call(name: str, *args) -> None:
-    fn = _FNS.get(name)
-    if fn is None:
-        from .build import load
-        lib, argtypes = ENTRY_POINTS[name]
-        fn = getattr(load(lib), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _FNS[name] = fn
-    err = fn(*args)
+    from .build import function, launch_error
+    lib, argtypes = ENTRY_POINTS[name]
+    err = function(lib, name, argtypes)(*args)
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+        raise launch_error(name, err)
 
 
 def gather_rows(bank: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:

@@ -62,19 +62,10 @@ def nvjpeg_available() -> bool:
             and lib and torch.cuda.is_available())
 
 
-_FNS: dict = {}
-
-
 def _fn(name: str):
-    fn = _FNS.get(name)
-    if fn is None:
-        from .build import load
-        lib, argtypes = ENTRY_POINTS[name]
-        fn = getattr(load(lib), name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
-        _FNS[name] = fn
-    return fn
+    from .build import function
+    lib, argtypes = ENTRY_POINTS[name]
+    return function(lib, name, argtypes)
 
 
 def _call(name: str, *args) -> None:

@@ -144,12 +144,9 @@ def ln_qkv_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
     stats = torch.empty(B * N, 2, dtype=torch.float32, device=dev) \
         if dt == torch.float32 else None
 
-    from .build import load
+    from .build import function, launch_error
     lib, argtypes = ENTRY_POINTS["ln_qkv"]
-    fn = load(lib).ln_qkv
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+    fn = function(lib, "ln_qkv", argtypes)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[dt], x.data_ptr(), scale.data_ptr(),
@@ -157,7 +154,7 @@ def ln_qkv_kernel(x: torch.Tensor, params: Dict[str, torch.Tensor],
                  None if stats is None else stats.data_ptr(),
                  B, N, D, n_heads, float(eps), stream)
     if err != 0:
-        raise RuntimeError(f"ln_qkv kernel launch failed: CUDA error {err}")
+        raise launch_error("ln_qkv", err)
     LAUNCHES["ln_qkv_f32" if dt == torch.float32 else "ln_qkv"] += 1
     return out[0], out[1], out[2]
 

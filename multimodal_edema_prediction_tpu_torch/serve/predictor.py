@@ -23,8 +23,26 @@ batches fail with the JAX predictor's ``RuntimeError``.
   CPU, N replicas of the one device); every bucket is a multiple of N, each
   batch is split into N equal parts, each part runs on its replica, and the
   outputs are concatenated in order. N above the cards there are raises
-  JAX's ``create_mesh`` error. ``aot_dir`` (persisted executables) has no
-  counterpart yet (ROADMAP P10b).
+  JAX's ``create_mesh`` error.
+- **One CUDA graph per bucket** (JAX's compiled executable per bucket,
+  ``predictor.py:171-219``). On a card, each replica's eval step at each
+  bucket runs once eagerly (the kernels' build or load, cuBLAS's first
+  calls), is captured as a ``torch.cuda.CUDAGraph`` over static input
+  buffers on the replica's card, and replayed once; a replica's graphs
+  share one memory pool. A batch is copied into its bucket's buffers from
+  pinned staging, every replica's graph is replayed before any output is
+  read back, and the outputs are copied out before the next batch. The
+  kernels' launch counters add each graph's captured launches at every
+  replay. A capture or a replay that fails raises: no bucket returns to the
+  eager step. A bucket first met after ``warmup`` is captured then. On the
+  CPU every batch runs the eager step.
+- **``aot_dir``** (``utils/aot.py``): the kernel libraries are built into,
+  and loaded from, the directory's entry for this host, and a manifest
+  there names the buckets warmed before; ``aot_hits[b]`` is True when a
+  bucket was in the manifest and this process built no library. An entry
+  whose libraries fail at their first launch in warm-up for want of a
+  kernel image for this card is rebuilt (``load_or_build(force=True)``),
+  and every bucket warmed anew reports a miss.
 """
 from __future__ import annotations
 
@@ -39,9 +57,10 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops import build
 from ..parallel import mesh as meshlib
 from ..train import engine
-from ..utils import resolve_device
+from ..utils import aot, resolve_device
 
 
 class QueueFullError(RuntimeError):
@@ -103,6 +122,57 @@ def replica_devices(device: torch.device, n: int) -> list:
     return list(meshlib.create_mesh(n, 1, pool).devices)
 
 
+class _BucketGraph:
+    """One replica's eval step at one bucket, captured as a CUDA graph over
+    static input buffers on the replica's card, with pinned host staging
+    for each input. The capture runs no step (the first replay does), but
+    the wrappers count the launches they record: that count is the
+    graph's, added again at each later replay."""
+
+    def __init__(self, step: Callable, device: torch.device, arrays: dict,
+                 pool):
+        # ordinary tensors, written in place by every batch, whether or
+        # not the caller runs in inference mode
+        with torch.inference_mode(False):
+            self.staging = {k: torch.empty(a.shape, dtype=_torch_dtype(a),
+                                           pin_memory=True)
+                            for k, a in arrays.items()}
+            self.inputs = {k: torch.empty_like(t, device=device)
+                           for k, t in self.staging.items()}
+        self.load(arrays)
+        before = [dict(c) for c in engine.launch_counters()]
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: other threads (HTTP handlers, another replica's
+        # batch) may run CUDA calls meanwhile
+        with torch.cuda.graph(self.graph, pool=pool,
+                              capture_error_mode="thread_local"):
+            self.out = step(*_step_args(self.inputs))
+        self.launches = engine.launches_since(before)
+        self.graph.replay()
+
+    def load(self, arrays: dict) -> None:
+        """Copy host arrays into the input buffers, through the pinned
+        staging, on the current stream (the previous batch's copies ended
+        when its outputs were read back)."""
+        for k, a in arrays.items():
+            np.copyto(self.staging[k].numpy(), a)
+            self.inputs[k].copy_(self.staging[k], non_blocking=True)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        engine.add_launches(self.launches)
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def _step_args(arrays: dict) -> tuple:
+    """(x_ts, static, batch) of an eval step from one flat dict."""
+    return arrays["x_ts"], arrays["static"], {
+        k: v for k, v in arrays.items() if k not in ("x_ts", "static")}
+
+
 class BatchingPredictor:
     """Threaded micro-batching front end over one teacher eval step.
 
@@ -122,6 +192,8 @@ class BatchingPredictor:
     data_parallel: replicas of the model (module docstring); the buckets
         become multiples of it. ``feature_source`` may then be one source
         per replica, each reading a bank on its replica's device.
+    aot_dir: where the kernel libraries and the bucket manifest persist
+        across processes (module docstring); ``warmup`` fills ``aot_hits``.
     """
 
     def __init__(self, model, *, image_source: Optional[Callable] = None,
@@ -129,7 +201,8 @@ class BatchingPredictor:
                  max_batch: int = 32,
                  max_wait_ms: float = 4.0, max_queue: int = 1024,
                  dtype=torch.bfloat16, labels: Optional[Sequence[str]] = None,
-                 device="cuda", data_parallel: int = 1):
+                 device="cuda", data_parallel: int = 1,
+                 aot_dir: Optional[str] = None):
         self.devices = replica_devices(resolve_device(device),
                                        int(data_parallel))
         self._model = model.to(self.devices[0]).eval()
@@ -141,14 +214,25 @@ class BatchingPredictor:
         if len(sources) != n:
             raise ValueError(f"{len(sources)} feature sources for {n} "
                              "replicas")
-        self._steps = []
+        self._steps, self._step_devices = [], []
         for dev, source in zip(self.devices, sources):
             replica = self._model if dev == self.devices[0] \
                 else copy.deepcopy(self._model).to(dev)
+            self._step_devices.append(next(replica.parameters()).device)
             self._steps.append(engine.make_teacher_eval_from_windows(
                 replica, dtype,
                 image_source=image_source or engine.default_image_source,
                 feature_source=source))
+        self._dtype = dtype
+        # (replica, rows of its part of a bucket) → its graph; one memory
+        # pool per replica
+        self._graphs: dict = {}
+        self._pools = [torch.cuda.graph_pool_handle()
+                       if d.type == "cuda" else None
+                       for d in self._step_devices]
+        self._device_lock = threading.Lock()
+        self._aot_dir = aot_dir or None
+        self.aot_hits: dict = {}
         self._cfg = model.cfg
         # every bucket a multiple of the replicas (JAX predictor.py:127-135)
         self.buckets = tuple(b * n for b in _bucket_ladder(
@@ -184,9 +268,32 @@ class BatchingPredictor:
             item.future.set_exception(RuntimeError("predictor closed"))
 
     def warmup(self, example: dict) -> dict:
-        """Run every bucket once from ONE example request dict; returns
-        per-bucket seconds. Run before opening the port so that the first
-        real request never pays a kernel build or a first launch."""
+        """Run every bucket once from ONE example request dict (on a card:
+        its eager run, its graph's capture and a replay); returns per-bucket
+        seconds. Run before opening the port so that the first real request
+        never pays a kernel build, a first launch or a capture. With
+        ``aot_dir``, ``aot_hits[b]`` records whether bucket ``b`` was loaded
+        from it."""
+        if self._aot_dir is None:
+            return self._warm_buckets(example)
+        aot.load_or_build(self._aot_dir)
+        try:
+            times = self._warm_buckets(example)
+        except build.StaleLibraryError:
+            # a library without a kernel image for this card: rebuild the
+            # entry, warm every bucket anew (a library that will not load
+            # at all, ops/build.py rebuilds by itself)
+            self._graphs.clear()
+            aot.load_or_build(self._aot_dir, force=True)
+            times = self._warm_buckets(example)
+        manifest = aot.Manifest(aot.entry_dir(self._aot_dir))
+        for b in self.buckets:
+            spec = self._bucket_spec(example, b)
+            self.aot_hits[b] = aot.bucket_hit(self._aot_dir, spec)
+            manifest.add(spec)
+        return times
+
+    def _warm_buckets(self, example: dict) -> dict:
         times = {}
         for b in self.buckets:
             items = [self._parse(example) for _ in range(b)]
@@ -196,6 +303,17 @@ class BatchingPredictor:
             self._run_batch(items, bucket=b, record=False)
             times[b] = round(time.time() - t0, 3)
         return times
+
+    def _bucket_spec(self, example: dict, bucket: int) -> dict:
+        """What the manifest records of a warmed bucket: each replica's
+        input shapes and dtypes, the mode, the replicas, the dtype."""
+        items = [self._parse(example) for _ in range(bucket)]
+        parts = self._parts(*self._assemble(items, bucket))
+        return {"bucket": bucket, "replicas": len(self._steps),
+                "mode": "pixel" if self._pixel_mode else "image_ids",
+                "dtype": str(self._dtype).replace("torch.", ""),
+                "inputs": {k: [list(a.shape), str(a.dtype)]
+                           for k, a in sorted(parts[0].items())}}
 
     # --------------------------------------------------------------- intake
     def _parse(self, req: dict) -> _Item:
@@ -303,20 +421,46 @@ class BatchingPredictor:
                 [items[i].image_id for i in idx], np.int32)
         return x_ts, static, batch
 
-    def _forward(self, x_ts, static, batch: dict) -> dict:
-        """The bucket's outputs as host arrays: one replica's step, or each
-        replica's equal part (all launched before any is read back),
-        concatenated in order."""
+    def _parts(self, x_ts, static, batch: dict) -> list:
+        """Each replica's equal part of a bucket, as one flat dict."""
         n = len(self._steps)
-        if n == 1:
-            return {k: v.cpu().numpy() for k, v in
-                    self._steps[0](x_ts, static, batch).items()}
         part = len(x_ts) // n
-        outs = [step(x_ts[i * part:(i + 1) * part],
-                     static[i * part:(i + 1) * part],
-                     {k: v[i * part:(i + 1) * part]
-                      for k, v in batch.items()})
-                for i, step in enumerate(self._steps)]
+        return [{"x_ts": x_ts[i * part:(i + 1) * part],
+                 "static": static[i * part:(i + 1) * part],
+                 **{k: v[i * part:(i + 1) * part] for k, v in batch.items()}}
+                for i in range(n)]
+
+    def _graph(self, replica: int, parts: dict) -> _BucketGraph:
+        """The replica's graph for this bucket's shapes: captured after one
+        eager run when the bucket is new."""
+        key = (replica, len(parts["x_ts"]))
+        g = self._graphs.get(key)
+        if g is None:
+            step = self._steps[replica]
+            with torch.cuda.device(self._step_devices[replica]):
+                step(*_step_args(parts))
+                g = self._graphs[key] = _BucketGraph(
+                    step, self._step_devices[replica], parts,
+                    self._pools[replica])
+        return g
+
+    def _forward(self, x_ts, static, batch: dict) -> dict:
+        """The bucket's outputs as host arrays: each replica's equal part
+        (one replica: the whole bucket), concatenated in order. On a card
+        each part is copied into its graph's buffers and every graph
+        replayed before any output is read back; on the CPU each part runs
+        the eager step."""
+        parts = self._parts(x_ts, static, batch)
+        if self._step_devices[0].type != "cuda":
+            outs = [step(*_step_args(p)) for step, p in zip(self._steps,
+                                                             parts)]
+        else:
+            graphs = [self._graph(i, p) for i, p in enumerate(parts)]
+            for i, (g, p) in enumerate(zip(graphs, parts)):
+                with torch.cuda.device(self._step_devices[i]):
+                    g.load(p)
+                    g.replay()
+            outs = [g.out for g in graphs]
         return {k: np.concatenate([o[k].cpu().numpy() for o in outs])
                 for k in outs[0]}
 
@@ -327,8 +471,9 @@ class BatchingPredictor:
             bucket = next(b for b in self.buckets if b >= n)
         x_ts, static, batch = self._assemble(items, bucket)
         # inference mode is thread-local: entered here, in the thread that
-        # runs the model
-        with torch.inference_mode():
+        # runs the model; one batch on the device at a time (warmup may run
+        # beside the batcher)
+        with self._device_lock, torch.inference_mode():
             out = self._forward(x_ts, static, batch)
             out = {k: v[:n] for k, v in out.items()}
         if "fusion_logits" not in out:

@@ -36,6 +36,7 @@ from ..models.duett import feats_to_input, pretrain_prep_batch
 from ..models.teacher import ATTN_KEYS
 from ..models.vit import normalize_image
 from ..ops import losses as L
+from ..parallel import multihost as mh
 from ..parallel.multihost import gather_rows as G
 from ..parallel.multihost import param_term
 from .state import TrainState
@@ -169,12 +170,27 @@ def make_teacher_step(cfg: TrainConfig, duett_cfg: DuettConfig,
 _WARM = object()     # a K-stacked shape whose eager first call has run
 
 
-def _launch_counters() -> tuple:
+def launch_counters() -> tuple:
     """Every kernel wrapper's launch counter (and the int8 matmul's call
     counter): the dicts a graph's replay adds its captured launches to."""
     from ..ops import attention, dual_axis, gather, int8, jpeg, ln_qkv
     return (attention.LAUNCHES, gather.LAUNCHES, dual_axis.LAUNCHES,
             ln_qkv.LAUNCHES, jpeg.LAUNCHES, int8.CALLS)
+
+
+def launches_since(before: list) -> list:
+    """What each counter of ``launch_counters`` gained since ``before``
+    (``[dict(c) for c in launch_counters()]``)."""
+    return [{n: c[n] - b[n] for n in c}
+            for c, b in zip(launch_counters(), before)]
+
+
+def add_launches(added: list) -> None:
+    """Count a graph's captured launches (``launches_since``) again: a
+    replay runs no wrapper."""
+    for counter, more in zip(launch_counters(), added):
+        for n, v in more.items():
+            counter[n] += v
 
 
 def _collect(outs: list) -> Dict[str, torch.Tensor]:
@@ -213,8 +229,7 @@ class _CapturedSteps:
         # replays then draw from ``gen`` at its state of the moment, and
         # advance it by what the K steps draw, as eager steps do
         self.graph.register_generator_state(gen)
-        counters = _launch_counters()
-        before = [dict(c) for c in counters]
+        before = [dict(c) for c in launch_counters()]
         # thread_local: the prefetch worker's pinned copies and allocations
         # on its own stream and thread go on during the capture
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
@@ -222,8 +237,7 @@ class _CapturedSteps:
                 step(state, *fixed,
                      {n: v[i] for n, v in self.inputs.items()}, gen)
                 for i in range(self.k)])
-        self.launches = [{n: c[n] - b[n] for n in c}
-                         for c, b in zip(counters, before)]
+        self.launches = launches_since(before)
         # the capture advanced the host count by K, the replay advances
         # the device count
         self.graph.replay()
@@ -240,9 +254,7 @@ class _CapturedSteps:
             self.inputs[n].copy_(v)
         self.graph.replay()
         self.state.advance_host_step(self.k)
-        for counter, added in zip(_launch_counters(), self.launches):
-            for n, v in added.items():
-                counter[n] += v
+        add_launches(self.launches)
 
     def outputs(self) -> Dict[str, torch.Tensor]:
         """This replay's metrics, copied out of the graph's buffers."""
@@ -252,18 +264,25 @@ class _CapturedSteps:
         return out
 
 
-def steps_per_call(k: int, world: int) -> int:
-    """A loop's steps per call (at least 1); more than one in a
-    multi-process run raises: the in-step gathers and the gradients' sum
-    run over gloo as well as NCCL, and a gloo collective cannot be
-    captured in a CUDA graph (ROADMAP P10b)."""
-    k = max(1, int(k))
-    if k > 1 and world > 1:
-        raise NotImplementedError(
-            f"steps_per_call={k} in a run of {world} processes: multi-step "
-            "dispatch of a multi-process run is not ported yet (ROADMAP "
-            "P10b)")
-    return k
+def steps_per_call(k: int) -> int:
+    """A loop's steps per call: ``k``, at least 1."""
+    return max(1, int(k))
+
+
+def capture_route(device, k: int,
+                  log: Optional[Callable[[str], None]] = None) -> bool:
+    """Whether ``scan_steps`` captures a loop's K steps on ``device`` as CUDA
+    graphs, chosen from the process group's backend before the first step:
+    on a card, in one process or an NCCL group (its collectives run on the
+    capturing stream); a loop of K steps in a gloo group, whose collectives
+    copy through the host (logged), and on the CPU."""
+    if mh.process_count() > 1 and torch.distributed.get_backend() != "nccl":
+        if log is not None:
+            log(f"[multistep] K={k} as a loop over "
+                f"{torch.distributed.get_backend()} (a host-side collective "
+                "cannot be captured)")
+        return False
+    return torch.device(device).type == "cuda"
 
 
 def step_rows(out: Dict[str, torch.Tensor], keys) -> torch.Tensor:
@@ -277,7 +296,8 @@ def step_rows(out: Dict[str, torch.Tensor], keys) -> torch.Tensor:
 
 
 def scan_steps(step: Callable, k: int,
-               log: Optional[Callable[[str], None]] = None) -> Callable:
+               log: Optional[Callable[[str], None]] = None,
+               capture: bool = True) -> Callable:
     """K train steps per call: the counterpart of JAX ``engine.py:239``
     ``scan_steps`` (``--steps_per_call K``).
 
@@ -292,7 +312,8 @@ def scan_steps(step: Callable, k: int,
     taken in step order), any other metric (``main_logit``) stacked
     [K, ...].
 
-    On the CPU a call is a loop of the K steps. On a card, each K-stacked
+    On the CPU, or with ``capture`` False (``capture_route``: a gloo group),
+    a call is a loop of the K steps. On a card, each K-stacked
     shape (the full groups, and the remainder group as a second shape, as
     JAX compiles a second scan) runs its first call as K eager steps
     (real steps, which also warm up what capture needs: the kernels'
@@ -312,7 +333,10 @@ def scan_steps(step: Callable, k: int,
     one ``torch.Generator`` in step order, so K steps in one call consume
     it as K calls do; the bit-equal tests of ``tests/test_torch_multistep
     .py`` hold the port to that, as JAX's ``split_chain`` holds the key
-    chain to its single-step loop's."""
+    chain to its single-step loop's. In a multi-process run each rank's K
+    steps draw at the global batch's size (``multihost.draw_rows``) and
+    gather as its K single steps do, so K steps equal K single steps there
+    too (``tests/test_torch_multihost_2proc.py``)."""
     if k < 1:
         raise ValueError(f"steps per call must be at least 1, got {k}")
     # K-stacked shape → _WARM after its eager first call, then its graph
@@ -328,7 +352,7 @@ def scan_steps(step: Callable, k: int,
         key = tuple(sorted((n, tuple(v.shape), v.dtype)
                            for n, v in batches.items()))
         g = None
-        if state.step_t.device.type == "cuda":
+        if capture and state.step_t.device.type == "cuda":
             state.optimizer.reserve(state.step + kk)
             g = graphs.get(key)
             if isinstance(g, _CapturedSteps) and \

@@ -34,9 +34,10 @@ Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX ``kd_loop.py:
 194-250``): each group of K train batches (``stack_host_batches``; the
 remainder group last) goes through ``engine.scan_steps``, the frozen
 teacher's eval-mode forward (under ``no_grad``) inside each of the K
-steps, one CUDA graph replay per group on a card; the history, weights
-and generator equal K = 1's bit for bit. A multi-process run with K > 1
-raises (ROADMAP P10b).
+steps, one CUDA graph replay per group on a card (in one process or an
+NCCL group; a loop of K steps over gloo, ``engine.capture_route``); the
+history, weights and generator equal K = 1's bit for bit, in a
+multi-process run too.
 
 Multi-process (JAX ``kd_loop.py:74-311``): under an initialised
 ``torch.distributed`` group each rank distills on its rows of the same
@@ -76,10 +77,9 @@ LOSS_KEYS = ("total", "bce", "kd")
 
 def check_ported(cfg: TrainConfig) -> int:
     """Raise on what the port cannot run yet, on every device, or on a
-    launcher's process count with no group to run it (or K > 1 steps per
-    call in a multi-process run, ROADMAP P10b); → the process count."""
+    launcher's process count with no group to run it; → the process
+    count."""
     world = mh.check_group()
-    engine.steps_per_call(cfg.steps_per_call, world)
     if world > 1:
         meshlib.create_mesh(cfg.n_data, cfg.n_model)
     return world
@@ -155,10 +155,11 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
     T = dataset.n_timesteps
     kd_step = engine.make_kd_step(cfg, student_cfg.duett, T, dtype,
                                   feature_source=feature_source)
-    scan_k = engine.steps_per_call(cfg.steps_per_call, world)
+    scan_k = engine.steps_per_call(cfg.steps_per_call)
     if scan_k > 1:
         # the frozen teacher rides along as a constant of the K steps
-        kd_step = engine.scan_steps(kd_step, scan_k, log)
+        kd_step = engine.scan_steps(kd_step, scan_k, log,
+                                    engine.capture_route(dev, scan_k, log))
     loop_eval = engine.make_supervised_ts_eval(T, dtype)
     n_eval = [0]
 

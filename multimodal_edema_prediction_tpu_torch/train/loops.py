@@ -141,7 +141,7 @@ def train_supervised_ts(dataset, model_cfg, cfg, ckpt_dir: str,
     from ..utils import resolve_device
 
     refuse_multi_process("supervised training", "P18b")
-    scan_k = engine.steps_per_call(cfg.steps_per_call, 1)
+    scan_k = engine.steps_per_call(cfg.steps_per_call)
     dev = resolve_device(device)
     dtype = DTYPES[cfg.dtype]
     dataset.to(dev)

@@ -16,9 +16,9 @@ naming its ROADMAP item.
 Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX ``ssl_loop.py:
 103-147``): each group of K train batches (``stack_host_batches``; the
 remainder group last) goes through ``engine.scan_steps``, one CUDA graph
-replay per group on a card; the history, weights and generator equal
-K = 1's bit for bit. A multi-process run with K > 1 raises (ROADMAP
-P10b).
+replay per group on a card (in one process or an NCCL group; a loop of K
+steps over gloo, ``engine.capture_route``); the history, weights and
+generator equal K = 1's bit for bit, in a multi-process run too.
 
 Multi-process (JAX ``ssl_loop.py:49-232``): under an initialised
 ``torch.distributed`` group each rank trains on its rows of the same global
@@ -69,7 +69,7 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
     trained in place. ``stop_after_epochs`` pauses after that many epochs
     of this call (the state saved, as a preempted run's would be)."""
     world = mh.check_group()
-    scan_k = engine.steps_per_call(cfg.steps_per_call, world)
+    scan_k = engine.steps_per_call(cfg.steps_per_call)
     if world > 1:
         meshlib.create_mesh(cfg.n_data, cfg.n_model)
     if save_full_state is None:
@@ -89,7 +89,8 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
     train_step = engine.make_ssl_step(duett_cfg, T, dtype)
     if scan_k > 1:
         # SSL steps are small: host dispatch bounds them (JAX :104-108)
-        train_step = engine.scan_steps(train_step, scan_k, log)
+        train_step = engine.scan_steps(
+            train_step, scan_k, log, engine.capture_route(dev, scan_k, log))
     eval_step = engine.make_ssl_eval(duett_cfg, T, dtype)
     tracker = BestKTracker(ckpt_dir, k=1, mode="min", prefix="pretrain")
     stopper = EarlyStopper(cfg.patience, mode="min")

@@ -59,9 +59,11 @@ Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX
 mode run each group of K train batches (``stack_host_batches``; the
 remainder group last) through ``engine.scan_steps``, one CUDA graph replay
 per group on a card, a loop of K steps on the CPU; the history, weights,
-moments and generator equal K = 1's bit for bit. ``single`` and
-``legacy`` log JAX's line and run K = 1; a multi-process run with K > 1
-raises (ROADMAP P10b).
+moments and generator equal K = 1's bit for bit. In a multi-process run
+the K steps are one graph over NCCL (one card per rank) and a loop of K
+steps over gloo (logged; ``engine.capture_route``), and equal K = 1 bit
+for bit there too. ``single`` and ``legacy`` log JAX's line and run
+K = 1.
 
 Multi-process (JAX ``teacher_loop.py:180-293, :519-617, :694-724``; ROADMAP
 P18): under an initialised ``torch.distributed`` group
@@ -494,7 +496,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     ``logger``: the telemetry sink (module docstring)."""
     world = mh.check_group()
     multi = world > 1
-    scan_k = engine.steps_per_call(cfg.steps_per_call, world)
+    scan_k = engine.steps_per_call(cfg.steps_per_call)
     if multi:
         meshlib.create_mesh(cfg.n_data, cfg.n_model)
         if grad_diag_every > 0:
@@ -618,7 +620,8 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     # K steps per call (engine.scan_steps): one CUDA graph replay a call on
     # a card; the same steps as K = 1, bit for bit
     if scan_k > 1:
-        train_step = engine.scan_steps(train_step, scan_k, log)
+        train_step = engine.scan_steps(
+            train_step, scan_k, log, engine.capture_route(dev, scan_k, log))
     n_eval = [0]
 
     def eval_step(m, grid, static, batch):

@@ -26,7 +26,11 @@ a CPU copy (``test_knn_and_tsne_on_the_card_match_a_cpu_copy``); two
 ranks sharing the card over gloo, a ViT-B block's all-reduced gradient
 against one rank's, 1e-4 of each leaf's max abs floored at 1e-2 of the
 largest gradient; three teacher steps captured as one CUDA graph and
-replayed (``engine.scan_steps``) against three eager steps, bit for bit.
+replayed (``engine.scan_steps``) against three eager steps, bit for bit;
+serving's bucket graphs against the eager step in every mode, bit for
+bit; two processes on one ``aot_dir`` (the second builds nothing); two
+NCCL ranks on two cards at K = 3 against K = 1, bit for bit (skipped
+below two cards).
 """
 import numpy as np
 import pytest
@@ -1315,3 +1319,245 @@ def test_two_ranks_on_the_card_sum_a_vit_blocks_gradient(cuda, tmp_path):
         tol = 1e-4 * max(want.abs().max().item(), 1e-2 * top)
         assert torch.equal(grads[0][n], grads[1][n]), n
         assert (grads[0][n] - want).abs().max().item() <= tol, n
+
+
+def _serve_cfg(mode: str):
+    from multimodal_edema_prediction_tpu_torch.config import (
+        DuettConfig, PerceiverConfig, TeacherConfig, ViTConfig)
+    return TeacherConfig(
+        duett=DuettConfig(n_variables=5, d_embedding=8, n_layers=1),
+        vit=ViTConfig(image_size=224, d_model=128, n_layers=2, n_heads=2,
+                      d_feedforward=128),
+        perceiver=PerceiverConfig(d_latent=32, n_heads=2),
+        perceiver_type="dual_patch" if mode in ("pixel", "jpeg_root",
+                                                "synthetic") else mode)
+
+
+def _serve_requests(cfg, n, seed, with_pixels):
+    rng = np.random.default_rng(seed)
+    d = cfg.duett
+    reqs = []
+    for i in range(n):
+        r = {"x_ts": np.concatenate(
+                [rng.normal(size=(d.n_timesteps, d.n_variables)),
+                 rng.integers(-1, 4, size=(d.n_timesteps, d.n_variables))],
+                -1).astype(np.float32),
+             "static": rng.normal(size=d.d_static).astype(np.float32),
+             "image_id": int(rng.integers(0, 6))}
+        if with_pixels:
+            S = cfg.vit.image_size
+            r["pixel_u8"] = rng.integers(0, 256, (S, S, 3), dtype=np.uint8)
+        reqs.append(r)
+    return reqs
+
+
+@pytest.mark.parametrize("mode", ["pixel", "jpeg_root", "synthetic", "dual",
+                                  "dual_patch_event"])
+def test_bucket_graphs_replay_the_eager_step(cuda, mode):
+    """Serving on the card (``serve/predictor.py``): each bucket's graph,
+    captured at warm-up, answers every bucket of the ladder exactly as the
+    eager eval step does on the same inputs (every output, bit for bit),
+    in every mode that serves: pixels (K1 a layer a batch), a bank keyed by
+    raw image ids (``jpeg_root``: the ``torch.searchsorted`` lookup, K2 2 a
+    batch, an unknown id NaN), the procedural images of ``synthetic``, and
+    the ``dual`` and ``dual_patch_event`` teachers; the launch counters add
+    each replay's captured launches."""
+    from concurrent.futures import Future
+
+    from multimodal_edema_prediction_tpu_torch.cli.serve import \
+        synthetic_image_source
+    from multimodal_edema_prediction_tpu_torch.data.features import \
+        CXRFeatureBank, encode_fn_for_teacher
+    from multimodal_edema_prediction_tpu_torch.models.teacher import \
+        init_teacher
+    from multimodal_edema_prediction_tpu_torch.serve import BatchingPredictor
+    cfg = _serve_cfg(mode)
+    head = {"n_pretrained_labels": 7, "static_keep_idx": (6, 0, 1, 2, 3, 4,
+                                                          5)} \
+        if mode == "dual" else {}
+    model = init_teacher(cfg, 0, **head).to(cuda).eval()
+    source = {}
+    if mode == "jpeg_root":
+        rng = np.random.default_rng(1)
+        bank = CXRFeatureBank.build(
+            encode_fn_for_teacher(model), lambda ids: rng.normal(
+                size=(len(ids), 224, 224, 3)).astype(np.float32),
+            np.arange(0, 10, 2))
+        source = {"feature_source": bank.feature_source(keyed_by_row=False)}
+    elif mode == "synthetic":
+        source = {"image_source": synthetic_image_source(cfg)}
+    pred = BatchingPredictor(model, max_batch=8, max_wait_ms=0.0,
+                             dtype=torch.bfloat16, device="cuda", **source)
+    pixels = not source
+    reqs = _serve_requests(cfg, 8, seed=2, with_pixels=pixels)
+    pred.warmup(reqs[0])
+    assert sorted(k[1] for k in pred._graphs) == list(pred.buckets)
+    n_layers = cfg.vit.n_layers
+    for b in pred.buckets:
+        items = [pred._parse(r) for r in reqs[:b]]
+        x_ts, static, batch = pred._assemble(items, b)
+        A.reset_launches()
+        G.reset_launches()
+        with torch.inference_mode():
+            got = pred._forward(x_ts, static, batch)
+        launches = (A.LAUNCHES[A.launch_key("flash_attention",
+                                            torch.bfloat16)],
+                    G.LAUNCHES["gather_rows_bulk"])
+        want = {k: v.cpu().numpy()
+                for k, v in pred._steps[0](x_ts, static, batch).items()}
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=(b, k))
+        assert launches == ((0, 2) if mode == "jpeg_root" else
+                            (n_layers, 0)), (b, launches)
+    if mode == "jpeg_root":
+        it = pred._parse({**reqs[0], "image_id": 7})
+        it.future = Future()
+        pred._run_batch([it])
+        assert np.isnan(it.future.result()["fusion_logits"]).all()
+
+
+_AOT_PROC = r"""
+import json, sys
+import numpy as np, torch
+from multimodal_edema_prediction_tpu_torch.ops import build
+from multimodal_edema_prediction_tpu_torch.serve import BatchingPredictor
+sys.path.insert(0, sys.argv[2])
+from test_torch_cuda import _serve_cfg, _serve_requests
+from multimodal_edema_prediction_tpu_torch.models.teacher import init_teacher
+cfg = _serve_cfg("pixel")
+pred = BatchingPredictor(init_teacher(cfg, 0), max_batch=4, max_wait_ms=0.0,
+                         device="cuda", aot_dir=sys.argv[1])
+pred.warmup(_serve_requests(cfg, 1, 0, True)[0])
+print(json.dumps({"hits": {str(b): h for b, h in pred.aot_hits.items()},
+                  "origins": build.origins(), "dir": build.build_dir()}))
+"""
+
+
+def test_a_second_predictor_on_an_aot_dir_builds_nothing(cuda, tmp_path):
+    """Two processes warm a predictor on one ``aot_dir``: the first builds
+    every kernel library into the directory's entry and reports every
+    bucket a miss; the second builds none (each library "found") and
+    reports every bucket a hit."""
+    import json
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(here)}
+    runs = []
+    for _ in range(2):
+        p = subprocess.run([sys.executable, "-c", _AOT_PROC,
+                            str(tmp_path / "aot"), here], env=env,
+                           capture_output=True, text=True, timeout=900)
+        assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-3000:]
+        runs.append(json.loads(p.stdout.strip().splitlines()[-1]))
+    cold, warm = runs
+    assert cold["dir"] == warm["dir"]
+    assert cold["dir"].startswith(str(tmp_path / "aot"))
+    assert set(cold["hits"]) == {"1", "2", "4"}
+    assert not any(cold["hits"].values()) and all(warm["hits"].values())
+    assert set(cold["origins"].values()) == {"built"}
+    assert set(warm["origins"].values()) == {"found"}
+    assert set(warm["origins"]) >= {"flash_attention"}
+
+
+_FAILED_CAPTURE = r"""
+import sys
+import numpy as np, torch
+from multimodal_edema_prediction_tpu_torch.cli.serve import \
+    synthetic_image_source
+from multimodal_edema_prediction_tpu_torch.serve import BatchingPredictor
+sys.path.insert(0, sys.argv[1])
+from test_torch_cuda import _serve_cfg, _serve_requests
+from multimodal_edema_prediction_tpu_torch.models.teacher import init_teacher
+cfg = _serve_cfg("synthetic")
+source = synthetic_image_source(cfg)
+
+def reads_the_host(batch):
+    px = source(batch)
+    # a host read inside the step: legal eagerly, refused in a capture
+    return px * float(px.abs().max() > 0)
+
+pred = BatchingPredictor(init_teacher(cfg, 0), max_batch=1, device="cuda",
+                         image_source=reads_the_host)
+try:
+    pred.warmup(_serve_requests(cfg, 1, 0, False)[0])
+except RuntimeError as e:     # torch.AcceleratorError is one
+    print("raised:", type(e).__name__, str(e)[:200])
+    print("graphs:", len(pred._graphs))
+    sys.exit(0)
+sys.exit(3)
+"""
+
+
+def test_a_failed_capture_raises(cuda, tmp_path):
+    """A step that reads the host cannot be captured: warm-up raises a
+    ``RuntimeError`` (CUDA's capture error, ``torch.AcceleratorError``) and
+    no graph is kept (no return to the eager step). Run in a process of
+    its own, so that the failed capture touches no other test's
+    context."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(here)}
+    p = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE, here],
+                       env=env, capture_output=True, text=True, timeout=900)
+    assert p.returncode == 0, p.stdout[-2000:] + p.stderr[-3000:]
+    assert "raised:" in p.stdout and "graphs: 0" in p.stdout
+
+
+_NCCL_RANK = r"""
+import json, os, sys
+import torch
+sys.path.insert(0, sys.argv[4])
+import torch_mh_worker as W
+from multimodal_edema_prediction_tpu_torch.parallel import multihost as mh
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+torch.backends.cuda.matmul.allow_tf32 = False
+assert mh.initialize_distributed(f"localhost:{port}", 2, rank) == "nccl"
+res = W.multistep_runs("teacher_cached", os.path.join(out, "shared"),
+                       device="cuda")
+with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+    json.dump(res, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_two_nccl_ranks_capture_k_steps_as_k_single_steps(cuda, tmp_path):
+    """Two ranks, a card each, in an NCCL group: the encode-once teacher at
+    ``steps_per_call`` 3 over 4 batches an epoch (a group and a remainder)
+    captures its K steps with their collectives as CUDA graphs and equals
+    the same ranks at K = 1 bit for bit (history, weights, moments,
+    generator); the ranks hold the same state. Needs two cards."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    here = os.path.dirname(os.path.abspath(__file__))
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(here)}
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _NCCL_RANK, str(r), port, str(tmp_path),
+         here], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    for p in procs:
+        out, _ = p.communicate(timeout=900)
+        assert p.returncode == 0, out.decode(errors="replace")[-3000:]
+    r0, r1 = (json.load(open(tmp_path / f"rank{r}.json")) for r in range(2))
+    for r in (r0, r1):
+        assert r["k3"]["history"] == r["k1"]["history"]
+        assert r["k3"]["digest"] == r["k1"]["digest"]
+        assert r["k1"]["multistep_lines"] == []
+        assert len(r["k3"]["multistep_lines"]) == 2
+        assert all("captured K=" in ln for ln in r["k3"]["multistep_lines"])
+    assert r0["k3"]["digest"] == r1["k3"]["digest"]

@@ -128,7 +128,7 @@ WAIVERS = {
     "train_ssl": {},
     "train_student": {},
     "train_cxr_head": {},
-    "serve": {"--aot_dir": "P10b"},
+    "serve": {},
     "finetune_mimic": {},
     "train_physionet": {},
     "predict": {},
@@ -160,7 +160,7 @@ PORTED = {
     "--prefetch_depth": lambda c: c["images"]["prefetch_depth"],
 }
 # serving's flags waived until their item (P15, P18) was done
-SERVE_PORTED = ("--cxr_jpeg_root", "--data_parallel")
+SERVE_PORTED = ("--cxr_jpeg_root", "--data_parallel", "--aot_dir")
 # the logging flags waived until P20 was done: (cli, flag) → the argv that
 # gives it and what it must set: the ``Logger``'s project or run name, or
 # the loop's ``TrainConfig.log_every``
@@ -247,9 +247,9 @@ def test_waived_flag_raises_naming_its_item(cli, flag):
     until its item was done) parses to the value given, which reaches the
     configs, the LP arguments or the image arguments, with
     ``--lp_only_correction`` (JAX sets LP mode's dropout and checkpoint
-    only with it); serving's ``--cxr_jpeg_root`` and ``--data_parallel``
-    (``SERVE_PORTED``) parse to the value given, and the first is
-    read by ``--image_mode jpeg_root``'s startup, which refuses a
+    only with it); serving's ``--cxr_jpeg_root``, ``--data_parallel`` and
+    ``--aot_dir`` (``SERVE_PORTED``) parse to the value given, and the
+    first is read by ``--image_mode jpeg_root``'s startup, which refuses a
     directory without JPEGs."""
     jax_mod, port_mod = CLIS[cli]
     argv = _given(_actions(_parser(jax_mod))[flag], flag)

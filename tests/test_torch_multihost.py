@@ -140,16 +140,25 @@ def test_multi_process_loop_refuses_tensor_parallelism(loop, tmp_path,
         PARALLEL[loop](str(tmp_path), TrainConfig(n_model=2))
 
 
-def test_teacher_loop_refuses_multistep_dispatch(tmp_path, monkeypatch):
-    """Multi-step dispatch runs in one process since P10; in a
-    multi-process run it raises naming P10b (gloo collectives cannot be
-    captured in a CUDA graph), before any data is read."""
-    monkeypatch.setattr(mh, "check_group", lambda: 2)
-    monkeypatch.setattr(mh, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="P10b"):
-        TL.train_teacher(None, TeacherConfig(),
-                         TrainConfig(steps_per_call=2), str(tmp_path), (),
-                         device="cpu")
+@pytest.mark.parametrize("world,backend,device,captured", [
+    (1, None, "cuda", True), (1, None, "cpu", False),
+    (2, "nccl", "cuda", True), (2, "gloo", "cuda", False),
+    (2, "gloo", "cpu", False)])
+def test_multistep_route_follows_the_backend(world, backend, device,
+                                             captured, monkeypatch):
+    """``engine.capture_route``, chosen before the first step: K steps are
+    captured on a card in one process or an NCCL group, and run as a loop
+    over gloo (logged, naming the backend) and on the CPU. The two-process
+    runs of both routes' loops are ``test_torch_multihost_2proc.py``'s
+    (gloo) and ``test_torch_cuda.py``'s (NCCL, two cards)."""
+    from multimodal_edema_prediction_tpu_torch.train import engine
+    monkeypatch.setattr(mh, "process_count", lambda: world)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: backend)
+    lines = []
+    assert engine.capture_route(device, 4, lines.append) is captured
+    assert lines == ([] if backend != "gloo" else [
+        "[multistep] K=4 as a loop over gloo (a host-side collective "
+        "cannot be captured)"])
 
 
 def test_multi_process_teacher_refuses_grad_diagnostics(tmp_path,
@@ -366,10 +375,11 @@ def test_data_parallel_serving_matches_one_replica(jax_teacher):
 
 def test_serve_cli_takes_data_parallel_and_refuses_missing_cards(
         monkeypatch):
-    assert cli_serve.QUEUED_FLAGS == {"--aot_dir": "P10b"}
+    # nothing of the serve CLI is queued any more (--aot_dir: P10b)
+    assert not hasattr(cli_serve, "QUEUED_FLAGS")
     args = cli_serve.build_parser().parse_args(
-        ["--ckpt", "x.msgpack", "--data_parallel", "2"])
-    assert args.data_parallel == 2
+        ["--ckpt", "x.msgpack", "--data_parallel", "2", "--aot_dir", "d"])
+    assert args.data_parallel == 2 and args.aot_dir == "d"
     # N replicas need N cards: JAX's create_mesh error, before any load
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

@@ -18,6 +18,14 @@ must equal the one-process step's (1e-5; the gradient to 1e-5 of its
 largest magnitude), and the losses and statistics lie far from what
 per-rank means would give (the two halves' steps averaged).
 
+Multi-step dispatch (``steps_per_call`` 3 over 4 batches an epoch, a group
+of 3 and a remainder of 1) in the encode-once teacher, SSL and KD: each
+rank's run at K = 3 equals the same pair's run at K = 1 bit for bit (the
+history, the best metric, the test AUROC, and a digest of the final
+weights, AdamW moments and step generator), logs that its K steps ran as a
+loop over gloo, and equals one process at K = 3 within the tolerances
+above.
+
 All the recipes run in one launch of the pair (a module fixture), with one
 retry on a fresh directory for gloo's startup race, as JAX's
 ``_run_two_proc`` does.
@@ -38,8 +46,10 @@ sys.path.insert(0, HERE)
 
 import torch_mh_worker as W  # noqa: E402
 
+MULTISTEP = ("teacher_cached", "ssl", "kd")
 RECIPES = ("teacher", "teacher_images", "teacher_cached", "teacher_preempt",
-           "teacher_preempt_resume", "ssl", "kd", "uneven")
+           "teacher_preempt_resume", "ssl", "kd", "uneven") + tuple(
+               f"multistep_{kind}" for kind in MULTISTEP)
 LOSS_KEY = {"ssl": "train_loss"}
 
 
@@ -204,3 +214,38 @@ def test_uneven_masks_take_global_statistics(two_proc, one_proc):
                           - np.asarray(one["bn"][k])))
             for k in one["bn"] if k.endswith("running_var")]
     assert max(gaps) > 100 * 1e-5
+
+
+@pytest.mark.parametrize("kind", MULTISTEP)
+def test_two_processes_run_k_steps_a_call_as_k_single_steps(kind, two_proc):
+    """Each rank's K = 3 run equals the pair's K = 1 run bit for bit, the
+    ranks hold the same state, and the K steps ran as a loop over gloo
+    (logged before the first step)."""
+    r0, r1 = (two_proc[i][f"multistep_{kind}"] for i in range(2))
+    for r in (r0, r1):
+        k1, k3 = r["k1"], r["k3"]
+        assert k3["n_train_steps"] == k1["n_train_steps"] \
+            == W.MULTISTEP_BATCHES * 2
+        for key in ("history", "best_metric", "digest"):
+            assert k3[key] == k1[key], key
+        if not math.isnan(k1["test_auroc"]):
+            assert k3["test_auroc"] == k1["test_auroc"]
+        assert k1["multistep_lines"] == []
+        assert k3["multistep_lines"] == [
+            f"[multistep] K={W.MULTISTEP_K} as a loop over gloo (a "
+            "host-side collective cannot be captured)"]
+    assert r0["k3"]["digest"] == r1["k3"]["digest"]
+
+
+@pytest.mark.parametrize("kind", MULTISTEP)
+def test_two_processes_at_k_steps_a_call_match_one(kind, two_proc, one_proc):
+    """The pair at K = 3 against one process at K = 3, within the
+    tolerances of ``test_two_processes_match_one``; one process logs no
+    ``[multistep]`` line on the CPU."""
+    r0, r1 = ({**two_proc[i][f"multistep_{kind}"]["k3"],
+               "is_main": two_proc[i][f"multistep_{kind}"]["is_main"]}
+              for i in range(2))
+    single = one_proc(f"multistep_{kind}")
+    _assert_equivalent(kind, r0, r1, single["k3"])
+    assert single["k3"]["multistep_lines"] == []
+    assert single["k3"]["digest"] == single["k1"]["digest"]

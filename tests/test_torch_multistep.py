@@ -409,24 +409,44 @@ def test_single_and_legacy_fall_back_to_one_step_per_call(mode, tmp_path):
         assert torch.equal(v, m2.state_dict()[key]), key
 
 
+@pytest.mark.parametrize("pid", [0, 1])
 @pytest.mark.parametrize("loop", ["ssl", "kd"])
-def test_multi_process_loops_refuse_steps_per_call(loop, tmp_path,
-                                                   monkeypatch):
-    """K > 1 in a multi-process run raises naming ROADMAP P10b (gloo
-    collectives cannot be captured in a CUDA graph), before any data is
-    read; the teacher's case is ``tests/test_torch_multihost.py``'s."""
+def test_process_slices_stack_step_by_step(loop, pid, monkeypatch):
+    """A multi-process run's K-stacked batch (``steps_per_call`` 2 over 5
+    batches: 2, 2, 1) is the K process slices of its global batches, and
+    its ``_global`` labels stay aligned with each of the K steps; the
+    loops run it (``tests/test_torch_multihost_2proc.py``)."""
     from multimodal_edema_prediction_tpu_torch.parallel import \
         multihost as mh
-    monkeypatch.setattr(mh, "check_group", lambda: 2)
     monkeypatch.setattr(mh, "process_count", lambda: 2)
-    cfg = TrainConfig(steps_per_call=2)
-    with pytest.raises(NotImplementedError, match="P10b"):
-        if loop == "ssl":
-            SL.train_ssl(None, DuettConfig(), cfg, str(tmp_path),
-                         device="cpu")
-        else:
-            KL.train_student_kd(None, StudentConfig(), "", cfg,
-                                str(tmp_path), device="cpu")
+    monkeypatch.setattr(mh, "process_index", lambda: pid)
+    ds = S.make_synthetic(**COHORT)
+    if loop == "ssl":
+        data = build_sliding_ssl_dataset(ds, P.meta_from_events(
+            ds, DataConfig()), 24, stride=4)
+    else:
+        data = P.build_anchor_dataset(ds, P.meta_from_events(
+            ds, DataConfig()), DataConfig())
+
+    def batches():
+        return data.iter_batches("train", 8, shuffle=True, seed=3, limit=5)
+
+    singles = list(batches())
+    groups = list(stack_host_batches(batches(), 2))
+    assert [len(g["stay_rows"]) for g in groups] == [2, 2, 1]
+    i = 0
+    for g in groups:
+        for j in range(len(g["stay_rows"])):
+            one = singles[i]
+            assert len(one["stay_rows"]) == 4      # this rank's half of 8
+            for k, v in one.items():
+                if k == "_global":
+                    for name, labels in v.items():
+                        np.testing.assert_array_equal(g[k][name][j], labels)
+                else:
+                    np.testing.assert_array_equal(g[k][j], v)
+            i += 1
+    assert i == 5 and set(singles[0]["_global"]) >= {"stay_rows"}
 
 
 JCFG = JTeacher.from_dict({**TCFG, "perceiver": {
@@ -470,3 +490,26 @@ def test_teacher_loop_with_two_steps_per_call_matches_jax(tmp_path):
                   "train_fus_total", "val_main_auroc"):
             np.testing.assert_allclose(got[k], want[k], rtol=5e-3,
                                        err_msg=f"epoch {got['epoch']} {k}")
+
+
+def test_stack_host_batches_stacks_tensor_fields():
+    """A hook's tensors (the host store's bf16 tokens, a card decoder's
+    pixels) stack as tensors, numpy fields as arrays, nested dicts key by
+    key; numpy has no bf16."""
+    rng = np.random.default_rng(0)
+    batches = [{"cls": torch.from_numpy(rng.normal(size=(2, 3)).astype(
+                    np.float32)).to(torch.bfloat16),
+                "y": rng.normal(size=2).astype(np.float32),
+                "_global": {"y": rng.normal(size=4).astype(np.float32)}}
+               for _ in range(5)]
+    groups = list(stack_host_batches(batches, 2))
+    assert [g["y"].shape[0] for g in groups] == [2, 2, 1]
+    for i, g in enumerate(groups):
+        assert g["cls"].dtype == torch.bfloat16 and isinstance(g["y"],
+                                                               np.ndarray)
+        for j in range(g["y"].shape[0]):
+            b = batches[2 * i + j]
+            assert torch.equal(g["cls"][j], b["cls"])
+            np.testing.assert_array_equal(g["y"][j], b["y"])
+            np.testing.assert_array_equal(g["_global"]["y"][j],
+                                          b["_global"]["y"])

@@ -23,7 +23,12 @@ process. Recipes:
   by rank 0 on the shared workdir);
 - ``uneven``: one teacher step on a hand-made batch whose rows have uneven
   label masks and shifted values across the ranks' halves, and its loss
-  parts, BatchNorm statistics and gradient.
+  parts, BatchNorm statistics and gradient;
+- ``multistep_teacher_cached``, ``multistep_ssl``, ``multistep_kd``: the
+  encode-once teacher, SSL and KD (its student; the teacher trained once)
+  at ``steps_per_call`` 1 and 3 over 4 batches an epoch (a group of 3 and a
+  remainder of 1), each with a digest of its final weights, optimizer
+  moments and step generator, and the ``[multistep]`` lines it logged.
 
 Usage: python torch_mh_worker.py <process_id> <num_processes> <port>
        <outdir> <recipe>[,<recipe>...]
@@ -187,6 +192,81 @@ def shifted_grid(anchor_ds, batch: dict) -> None:
     anchor_ds.grid[torch.as_tensor(rows, dtype=torch.long), :, :V] += 2.0
 
 
+# multi-step dispatch: K steps a call over 4 batches an epoch
+MULTISTEP_K = 3
+MULTISTEP_BATCHES = 4
+
+
+def state_digest(res) -> str:
+    """sha256 of a run's final weights and buffers, AdamW moments and step
+    generator state."""
+    import hashlib
+    state, h = res.extras["state"], hashlib.sha256()
+    sd = state.model.state_dict()
+    for k in sorted(sd):
+        h.update(k.encode())
+        h.update(sd[k].detach().cpu().contiguous().numpy().tobytes())
+    for moments in (state.optimizer.mu, state.optimizer.nu):
+        for ts in moments:
+            for t in ts:
+                h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    h.update(res.extras["generator"].get_state().numpy().tobytes())
+    return h.hexdigest()
+
+
+def multistep_runs(kind: str, workdir: str, device: str = "cpu") -> dict:
+    """``kind``'s run at K = 1 and at K = MULTISTEP_K on ``device``
+    (``run_recipe``'s ``multistep_*``; on the card, the NCCL test of
+    ``tests/test_torch_cuda.py``)."""
+    from multimodal_edema_prediction_tpu_torch.train.teacher_loop import \
+        train_teacher
+    tcfg, cfg = tiny_teacher_cfgs()
+    teacher_best = None
+    if kind == "kd":
+        import glob
+        _, _, ads = cohort()
+        t_dir = os.path.join(workdir, "ms_kd_teacher")
+        t_res = train_teacher(ads, tcfg, cfg, t_dir, LABELS, device=device,
+                              log=lambda msg: None)
+        teacher_best = t_res.best_path or sorted(glob.glob(
+            os.path.join(t_dir, "best-*.msgpack")))[-1]
+    out = {}
+    for k in (1, MULTISTEP_K):
+        lines = []
+        run_cfg = cfg.replace(limit_batches=MULTISTEP_BATCHES,
+                              steps_per_call=k)
+        run_dir = os.path.join(workdir, f"ms_{kind}_k{k}")
+        if kind == "teacher_cached":
+            _, _, ads = cohort()
+            ads.host_partition_count = 2
+            res = train_teacher(ads, tcfg, run_cfg, run_dir, LABELS,
+                                device=device, feature_cache="host",
+                                log=lines.append)
+        elif kind == "ssl":
+            from multimodal_edema_prediction_tpu_torch.data.sliding import \
+                build_sliding_ssl_dataset
+            from multimodal_edema_prediction_tpu_torch.train.ssl_loop import \
+                train_ssl
+            ds, meta, _ = cohort()
+            sds = build_sliding_ssl_dataset(ds, meta, n_timesteps=24,
+                                            stride=12)
+            res = train_ssl(sds, tcfg.duett, run_cfg, run_dir,
+                            warmup_steps=5, device=device, log=lines.append)
+        else:
+            from multimodal_edema_prediction_tpu_torch.train.kd_loop import \
+                train_student_kd
+            _, _, ads = cohort()
+            res = train_student_kd(ads, StudentConfig(duett=tcfg.duett),
+                                   teacher_best, run_cfg, run_dir,
+                                   device=device, log=lines.append)
+        r = _result(res)
+        r["digest"] = state_digest(res)
+        r["n_train_steps"] = res.extras["n_train_steps"]
+        r["multistep_lines"] = [ln for ln in lines if "[multistep]" in ln]
+        out[f"k{k}"] = r
+    return out
+
+
 def run_recipe(kind: str, workdir: str) -> dict:
     from multimodal_edema_prediction_tpu_torch.train.teacher_loop import \
         train_teacher
@@ -290,6 +370,9 @@ def run_recipe(kind: str, workdir: str) -> dict:
         batch = uneven_batch(ads)
         shifted_grid(ads, batch)
         return uneven_step(tcfg, ads, batch)
+
+    if kind.startswith("multistep_"):
+        return multistep_runs(kind[len("multistep_"):], workdir)
 
     raise ValueError(f"unknown recipe {kind!r}")
 
