@@ -460,15 +460,26 @@ L0 preprocessing without pandas (ROADMAP P21) adds, after ``int8``:
             L0_SUBJECTS (seed 1); ``cli/preprocess.main`` turns each into
             ``cohort.npz`` + ``meta_with_stats.pkl`` (seconds, raw rows
             read and rows/s on the card's host CPU, stays, event rows,
-            anchors); ``pandas``, ``pyarrow`` and ``PIL`` are not in
-            ``sys.modules``; the 24-subject cohort's arrays hash to
-            L0_DIGESTS (the JAX package's ``run_l0`` output on the same
-            layout, held in ``tests/test_torch_preprocess_cli.py``; a
-            mismatch names the array); then ``cli/train_teacher`` on the
-            large cohort (``--data_dir``) at full width on procedural
-            pixels in bf16, 1 epoch of L0_LIMIT_BATCHES batches of 32:
-            finite losses and K1's launches as predicted from the cohort's
-            splits before the call (12 a train step and an eval step).
+            anchors); the 24-subject cohort's arrays hash to L0_DIGESTS
+            (the JAX package's ``run_l0`` output on the same layout, held
+            in ``tests/test_torch_preprocess_cli.py``; a mismatch names the
+            array). Feather without pyarrow (ROADMAP P21c): the same 24
+            subjects as pyarrow wrote them (``tests/goldens/feather_l0``,
+            LZ4 and ZSTD, ``scripts/make_feather_goldens.py``) go through
+            the CLI and hash to L0_DIGESTS too; the large layout is
+            converted to feather by the port alone (``read_csv`` →
+            ``write_feather``, LZ4: groundwork cell 3) and preprocessed
+            again, its 22 arrays and ``meta_with_stats.pkl`` equal to the
+            CSV route's, its audit ``.ftr`` files read back equal to
+            ``raw_mimic.build_audit_frames`` in memory; each codec's
+            encode and decode MB/s on the card's host CPU; ``pandas``,
+            ``pyarrow``, ``PIL``, ``zstandard``, ``lz4`` and
+            ``flatbuffers`` are not in ``sys.modules``; then
+            ``cli/train_teacher`` on the feather route's large cohort
+            (``--data_dir``) at full width on procedural pixels in bf16, 1
+            epoch of L0_LIMIT_BATCHES batches of 32: finite losses and K1's
+            launches as predicted from the cohort's splits before the call
+            (12 a train step and an eval step).
 
 Serving's bucket graphs and ``--aot_dir`` (ROADMAP P10b) add, after
 ``serve``:
@@ -730,9 +741,10 @@ def import_port():
                                                              optim, ssl_loop,
                                                              state,
                                                              teacher_loop)
-    from multimodal_edema_prediction_tpu_torch.utils import (logging,
+    from multimodal_edema_prediction_tpu_torch.utils import (logging, lz4,
                                                              preemption,
-                                                             profiling)
+                                                             profiling, zstd)
+    from multimodal_edema_prediction_tpu_torch.data import arrow_ipc
     return dict(int8=int8, lupi_losses=lupi_losses, logging=logging,
                 profiling=profiling, config=config, convert=convert,
                 teacher=teacher, vit=vit,
@@ -772,7 +784,8 @@ def import_port():
                 static_info=static_info, cxr_catalog=cxr_catalog,
                 preprocess=preprocess, demographics=demographics,
                 subtype=subtype, prompts=prompts, reports=reports,
-                text_embeddings=text_embeddings, jpeg_writer=jpeg_writer)
+                text_embeddings=text_embeddings, jpeg_writer=jpeg_writer,
+                arrow_ipc=arrow_ipc, lz4=lz4, zstd=zstd)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -6464,44 +6477,180 @@ def l0_teacher_steps(port, data_dir: str, batch: int, limit: int) -> tuple:
     return split, steps, evals
 
 
+L0_GOLDENS = os.path.join(REPO, "tests", "goldens", "feather_l0")
+L0_FORBIDDEN = ("pandas", "pyarrow", "PIL", "zstandard", "lz4",
+                "flatbuffers")
+
+
+class CodecTimer:
+    """Times every call of a codec function (``compress`` or
+    ``decompress``) that ``data/arrow_ipc.py`` makes while the ``with``
+    block runs: (uncompressed bytes, seconds) a call."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        decode = self.name == "decompress"
+
+        def timed(data):
+            t0 = time.perf_counter()
+            out = self.orig(data)
+            dt = time.perf_counter() - t0
+            self.calls.append((len(out) if decode else len(data), dt))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def summary(self) -> dict:
+        mb = sum(n for n, _ in self.calls) / 1e6
+        sec = sum(t for _, t in self.calls)
+        return {"calls": len(self.calls), "MB": mb, "seconds": sec,
+                "MB_per_s": mb / sec if sec else None}
+
+
+def l0_to_feather(port, src: str, dst: str,
+                  compression: str = "lz4") -> dict:
+    """Every raw ``.csv`` table under ``src`` as ``.ftr`` under ``dst``, by
+    the port alone (``frames.read_csv`` → ``frames.write_feather``: the
+    reference's csv → feather conversion, groundwork cell 3)."""
+    frames = port["frames"]
+    read_s = write_s = 0.0
+    tables = 0
+    for dirpath, _, names in os.walk(src):
+        for name in sorted(n for n in names if n.endswith(".csv")):
+            rel = os.path.relpath(os.path.join(dirpath, name), src)
+            out = os.path.join(dst, rel[:-len(".csv")] + ".ftr")
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            t0 = time.perf_counter()
+            frame = frames.read_csv(os.path.join(dirpath, name))
+            t1 = time.perf_counter()
+            frames.write_feather(out, frame, compression=compression)
+            write_s += time.perf_counter() - t1
+            read_s += t1 - t0
+            tables += 1
+    return {"tables": tables, "read_csv_s": read_s, "write_feather_s": write_s,
+            "ftr_MB": sum(os.path.getsize(os.path.join(d, n)) for d, _, ns
+                          in os.walk(dst) for n in ns) / 1e6}
+
+
+def frames_equal(a: dict, b: dict) -> bool:
+    """Two frames of ``data/frames.py``: the same columns in order, each of
+    the same dtype and values (NaN and NaT equal)."""
+    if list(a) != list(b):
+        return False
+    for c in a:
+        x, y = np.asarray(a[c]), np.asarray(b[c])
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype == object:
+            if x.tolist() != y.tolist():
+                return False
+        elif x.dtype.kind in "fmM":
+            if not np.array_equal(x, y, equal_nan=True):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
 def phase_l0(port, device, card: str = "") -> dict:
-    """L0 on the card's host without pandas (ROADMAP P21): raw layouts
-    written and preprocessed by the port's CLI, the small cohort held to
-    pinned digests, the teacher trained on the large one at full width."""
+    """L0 on the card's host without pandas or pyarrow (ROADMAP P21, P21c):
+    raw layouts written and preprocessed by the port's CLI from CSV and
+    from feather, the small cohort held to pinned digests, the feather
+    route of the large one held to its CSV route, the teacher trained on
+    the feather route's cohort at full width."""
     import torch
     t_phase = time.perf_counter()
     shutil.rmtree(L0_RUNS, ignore_errors=True)
+    cli = port["cli_preprocess"]
     runs = {}
-    for name, n_subjects, seed in (("fixture", 24, 0),
-                                   ("cohort", L0_SUBJECTS, 1)):
-        raw = os.path.join(L0_RUNS, f"raw_{name}")
+
+    def preprocess(name, raw, rows, **extra):
         out = os.path.join(L0_RUNS, name)
+        timers = [CodecTimer(port["lz4"], "decompress"),
+                  CodecTimer(port["zstd"], "decompress")]
         t0 = time.perf_counter()
-        port["synthetic_raw"].make_raw_layout(raw, n_subjects=n_subjects,
-                                              seed=seed)
-        layout_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        paths = port["cli_preprocess"].main(["--raw_root", raw,
-                                             "--out_dir", out])
+        with timers[0], timers[1]:
+            paths = cli.main(["--raw_root", raw, "--out_dir", out])
         seconds = time.perf_counter() - t0
-        rows = _raw_rows(raw)
         ds = port["ingest"].load_npz(paths["cohort"])
-        runs[name] = {"subjects": n_subjects, "seed": seed,
-                      "layout_s": layout_s, "preprocess_s": seconds,
-                      "raw_rows": rows, "rows_per_s": rows / seconds,
+        runs[name] = {**extra, "preprocess_s": seconds, "raw_rows": rows,
+                      "rows_per_s": rows / seconds,
                       "stays": len(ds.events.stay_ids),
                       "event_rows": len(ds.events.slot_idx),
                       "anchors": len(ds.anchors.image_ids),
                       "catalog_images": len(ds.cxr_catalog.image_ids),
-                      "onehot": len(ds.onehot_names), "paths": paths}
-    loaded = sorted(m for m in ("pandas", "pyarrow", "PIL")
-                    if m in sys.modules)
+                      "onehot": len(ds.onehot_names),
+                      "lz4_decode": timers[0].summary(),
+                      "zstd_decode": timers[1].summary(), "paths": paths}
+        return paths
+
+    raws = {}
+    for name, n_subjects, seed in (("fixture", 24, 0),
+                                   ("cohort", L0_SUBJECTS, 1)):
+        raw = raws[name] = os.path.join(L0_RUNS, f"raw_{name}")
+        t0 = time.perf_counter()
+        port["synthetic_raw"].make_raw_layout(raw, n_subjects=n_subjects,
+                                              seed=seed)
+        layout_s = time.perf_counter() - t0
+        preprocess(name, raw, _raw_rows(raw), subjects=n_subjects, seed=seed,
+                   layout_s=layout_s, tables="csv")
+    # the fixture as pyarrow wrote it, once a codec
+    for codec in ("lz4", "zstd"):
+        raw = os.path.join(L0_RUNS, f"raw_fixture_{codec}")
+        shutil.copytree(os.path.join(L0_GOLDENS, codec), raw)
+        preprocess(f"fixture_{codec}", raw, runs["fixture"]["raw_rows"],
+                   subjects=24, seed=0, tables=f"feather ({codec}, pyarrow)")
+    # the large layout converted by the port, then preprocessed again
+    raw_ftr = os.path.join(L0_RUNS, "raw_cohort_ftr")
+    with CodecTimer(port["lz4"], "compress") as enc:
+        conversion = l0_to_feather(port, raws["cohort"], raw_ftr, "lz4")
+    conversion["lz4_encode"] = enc.summary()
+    conversion["write_MB_per_s"] = (conversion["lz4_encode"]["MB"]
+                                    / conversion["write_feather_s"])
+    ftr_paths = preprocess("cohort_ftr", raw_ftr, runs["cohort"]["raw_rows"],
+                           subjects=L0_SUBJECTS, seed=1,
+                           tables="feather (lz4, the port)")
+    t0 = time.perf_counter()
+    in_memory = port["raw_mimic"].build_audit_frames(raw_ftr)
+    audit_s = time.perf_counter() - t0
+    audit_equal = {
+        name: frames_equal(frame, port["frames"].read_feather(
+            ftr_paths[name]))
+        for name, frame in zip(("static_full", "final_df", "final_cxr_df"),
+                               in_memory)}
+    loaded = sorted(m for m in L0_FORBIDDEN if m in sys.modules)
+
+    def meta_bytes(run):
+        with open(runs[run]["paths"]["meta"], "rb") as f:
+            return f.read()
+
     got = cohort_digests(runs["fixture"]["paths"]["cohort"])
     wrong = sorted(k for k in set(got) | set(L0_DIGESTS)
                    if got.get(k) != L0_DIGESTS.get(k))
+    feather_wrong = {}
+    for codec in ("lz4", "zstd"):
+        g = cohort_digests(runs[f"fixture_{codec}"]["paths"]["cohort"])
+        feather_wrong[codec] = sorted(
+            k for k in set(g) | set(L0_DIGESTS)
+            if g.get(k) != L0_DIGESTS.get(k))
+        if meta_bytes(f"fixture_{codec}") != meta_bytes("fixture"):
+            feather_wrong[codec].append("meta_with_stats.pkl")
+    csv_d = cohort_digests(runs["cohort"]["paths"]["cohort"])
+    ftr_d = cohort_digests(ftr_paths["cohort"])
+    route_wrong = sorted(k for k in set(csv_d) | set(ftr_d)
+                         if csv_d.get(k) != ftr_d.get(k))
+    if meta_bytes("cohort_ftr") != meta_bytes("cohort"):
+        route_wrong.append("meta_with_stats.pkl")
 
-    # the teacher at full width on the large cohort, K1 predicted first
-    data_dir = os.path.dirname(runs["cohort"]["paths"]["cohort"])
+    # the teacher at full width on the feather route's large cohort, K1
+    # predicted first
+    data_dir = os.path.dirname(ftr_paths["cohort"])
     split, steps, evals = l0_teacher_steps(port, data_dir, L0_BATCH,
                                            L0_LIMIT_BATCHES)
     n_layers = port["config"].ViTConfig().n_layers
@@ -6521,8 +6670,11 @@ def phase_l0(port, device, card: str = "") -> dict:
     info = {"phase": "l0", "card": card,
             "runs": {k: {x: y for x, y in r.items() if x != "paths"}
                      for k, r in runs.items()},
+            "conversion": conversion, "audit_frames_s": audit_s,
+            "audit_frames_equal": audit_equal,
             "modules_loaded": loaded, "digests_checked": len(got),
-            "digest_mismatch": wrong, "splits": split,
+            "digest_mismatch": wrong, "feather_mismatch": feather_wrong,
+            "feather_vs_csv_mismatch": route_wrong, "splits": split,
             "teacher": {"argv": argv, "wall_s": wall,
                         "predicted_train_steps": steps,
                         "predicted_eval_steps": evals,
@@ -6543,6 +6695,15 @@ def phase_l0(port, device, card: str = "") -> dict:
     if wrong:
         raise AssertionError(f"cohort.npz arrays differ from the pinned "
                              f"digests: {wrong}")
+    if any(feather_wrong.values()):
+        raise AssertionError(f"the feather fixtures' cohorts differ from the "
+                             f"pinned digests: {feather_wrong}")
+    if route_wrong:
+        raise AssertionError(f"the feather route's cohort differs from the "
+                             f"CSV route's: {route_wrong}")
+    if not all(audit_equal.values()):
+        raise AssertionError(f"audit frames read back differ from the "
+                             f"frames in memory: {audit_equal}")
     if not all(np.isfinite(x) for x in info["teacher"]["epoch_losses"]):
         raise AssertionError(f"non-finite losses "
                              f"{info['teacher']['epoch_losses']}")

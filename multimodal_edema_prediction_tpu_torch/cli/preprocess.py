@@ -6,11 +6,12 @@ the reference's six preprocessing notebooks (SURVEY §2.3): it runs the
 full L0 chain (:mod:`..data.raw_mimic`, numpy only) and leaves
 ``cohort.npz`` + ``meta_with_stats.pkl`` (plus the reference-format
 ``final_df`` / ``static_full`` / ``final_cxr_df`` frames for auditing, as
-``.npz``) in ``--out_dir``, ready for ``--data_dir`` of every training
+``.ftr``) in ``--out_dir``, ready for ``--data_dir`` of every training
 CLI.
 
-Expected layout under ``--raw_root`` (csv or csv.gz; feather is ROADMAP
-P21c):
+Expected layout under ``--raw_root`` (each table as ``.ftr``,
+``.feather``, ``.csv`` or ``.csv.gz``, tried in that order; feather as
+``DataFrame.to_feather`` writes it, LZ4, ZSTD or uncompressed):
     hosp/admissions  hosp/patients  hosp/labevents  [hosp/omr]
     [hosp/diagnoses_icd]  icu/icustays  icu/chartevents  icu/inputevents
     icu/outputevents  cxr/mimic-cxr-2.0.0-metadata
@@ -25,7 +26,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--raw_root", required=True,
                    help="directory laid out like a MIMIC-IV + MIMIC-CXR "
-                        "download (see module docstring)")
+                        "download, tables as .ftr/.feather/.csv/.csv.gz "
+                        "(see module docstring)")
     p.add_argument("--out_dir", required=True)
     p.add_argument("--n_timesteps", type=int, default=24)
     p.add_argument("--label_policy", default="to_positive",

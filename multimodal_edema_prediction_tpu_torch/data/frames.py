@@ -18,16 +18,20 @@ column types as pandas' C parser does and parses floats with that parser's
 own algorithm (``precise_xstrtod``, which is not correctly rounded);
 grouped sums and means use pandas' Kahan summation; ``merge`` keeps the
 left frame's order (``inner`` / ``left``) or sorts the keys (``outer``);
-sorts are stable.
+sorts are stable. ``read_feather`` and ``write_feather`` stand for
+``pd.read_feather`` and ``DataFrame.to_feather``, on :mod:`.arrow_ipc`.
 """
 from __future__ import annotations
 
 import csv
 import gzip
 import io
+import json
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from . import arrow_ipc
 
 Frame = Dict[str, np.ndarray]
 
@@ -609,31 +613,110 @@ def get_dummies(f: Frame, columns: Sequence[str]) -> Frame:
 
 
 # =============================================================================
-# Audit frames on disk
+# Feather
 # =============================================================================
-def save_frame(path: str, f: Frame) -> None:
-    """One ``.npz``: ``columns`` (the names, in order) and ``c{i}`` per
-    column; a string column is stored as text, with ``n{i}`` marking its
-    nulls. No pickle."""
-    arrays = {"columns": np.array(list(f), dtype=str)}
-    for i, v in enumerate(f.values()):
-        if v.dtype == object:
-            miss = isnull(v)
-            arrays[f"c{i}"] = np.array(["" if z else str(x)
-                                        for x, z in zip(v, miss)], dtype=str)
-            arrays[f"n{i}"] = miss
+def read_feather(path: str) -> Frame:
+    """``pd.read_feather(path)`` of a Feather V1 or V2 file, in this
+    module's convention: integers with nulls become float64 with NaN,
+    booleans with nulls object (``True``/``False``/``None``), strings
+    (dictionary-encoded ones too) object ``str`` with ``None``, a null
+    column object ``None``; timestamps keep their unit, with ``NaT``. A
+    column that the file's pandas metadata names as the index is left
+    out, as pandas moves it to the index."""
+    t = arrow_ipc.read_table(path)
+    index = set()
+    if "pandas" in t.metadata:
+        index = {c for c in json.loads(t.metadata["pandas"]).get(
+            "index_columns", []) if isinstance(c, str)}
+    return {f.name: _from_arrow(f, c) for f, c in zip(t.fields, t.columns)
+            if f.name not in index}
+
+
+def _from_arrow(f: "arrow_ipc.Field", c: "arrow_ipc.Column") -> np.ndarray:
+    t, v, valid = f.type, c.values, c.valid
+    if t.kind == "timestamp" and t.tz:
+        raise ValueError(f"column {f.name!r}: time zones are not supported")
+    if valid is None or t.kind in ("null", "utf8", "large_utf8"):
+        return v
+    miss = ~valid
+    if t.kind in ("int", "uint"):
+        v = v.astype(np.float64)
+    elif t.kind == "bool":
+        v = v.astype(object)
+    v[miss] = (np.nan if v.dtype.kind == "f" else np.datetime64("NaT")
+               if v.dtype.kind == "M" else None)
+    return v
+
+
+def _to_arrow(name: str, col: np.ndarray):
+    """(Arrow field, column, pandas type, numpy type) of one column, as
+    ``pa.Table.from_pandas`` types the pandas column JAX's frame holds."""
+    col = np.asarray(col)
+    kind = col.dtype.kind
+    valid = None
+    if kind in "iu":
+        t = arrow_ipc.ArrowType("int" if kind == "i" else "uint",
+                                col.dtype.itemsize * 8)
+        ptype = ntype = col.dtype.name
+    elif kind == "f":
+        t = arrow_ipc.ArrowType("float", col.dtype.itemsize * 8)
+        ptype = ntype = col.dtype.name
+        miss = np.isnan(col)
+        valid = ~miss if miss.any() else None
+    elif kind == "b":
+        t, ptype, ntype = arrow_ipc.ArrowType("bool"), "bool", "bool"
+    elif kind == "M":
+        unit = np.datetime_data(col.dtype)[0]
+        if unit not in ("s", "ms", "us", "ns"):
+            col, unit = col.astype("datetime64[s]"), "s"
+        t = arrow_ipc.ArrowType("timestamp", unit=unit)
+        ptype, ntype = "datetime", f"datetime64[{unit}]"
+        miss = np.isnat(col)
+        valid = ~miss if miss.any() else None
+    elif col.dtype == object:
+        miss = isnull(col)
+        present = {type(x) for x in col[~miss].tolist()}
+        if present <= {str}:
+            t = arrow_ipc.ArrowType("large_utf8")
+            ptype, ntype = "object", "str"
+        elif present <= {bool, np.bool_}:
+            t, ptype, ntype = arrow_ipc.ArrowType("bool"), "bool", "object"
         else:
-            arrays[f"c{i}"] = v
-    np.savez_compressed(path, **arrays)
+            raise ValueError(f"column {name!r} mixes "
+                             f"{sorted(map(str, present))}")
+        if miss.any():
+            valid = ~miss
+            col = col.copy()
+            col[miss] = None
+    else:
+        raise ValueError(f"column {name!r}: dtype {col.dtype} is not written")
+    return (arrow_ipc.Field(name, t), arrow_ipc.Column(col, valid),
+            ptype, ntype)
 
 
-def load_frame(path: str) -> Frame:
-    with np.load(path, allow_pickle=False) as z:
-        out = {}
-        for i, name in enumerate(z["columns"].tolist()):
-            v = z[f"c{i}"]
-            if f"n{i}" in z.files:
-                v = v.astype(object)
-                v[z[f"n{i}"]] = None
-            out[name] = v
-        return out
+def write_feather(path: str, f: Frame, compression: str = "lz4") -> None:
+    """``DataFrame.to_feather(path, compression=...)`` of the pandas frame
+    JAX's chain holds where the port holds ``f``: the Arrow schema that
+    pyarrow gives it (int and float widths kept, bool, ``timestamp[unit]``,
+    strings as ``large_string``, every field nullable; NaN and NaT
+    written as nulls), record batches of 65,536 rows, each buffer an LZ4
+    frame (``compression="uncompressed"`` for none), and the ``pandas``
+    schema metadata of a frame with a RangeIndex, so that
+    ``pd.read_feather`` rebuilds the same dtypes."""
+    fields, columns, cols_meta = [], [], []
+    for name, col in f.items():
+        fld, c, ptype, ntype = _to_arrow(name, col)
+        fields.append(fld)
+        columns.append(c)
+        cols_meta.append({"name": name, "field_name": name,
+                          "pandas_type": ptype, "numpy_type": ntype,
+                          "metadata": None})
+    meta = {"index_columns": [{"kind": "range", "name": None, "start": 0,
+                               "stop": nrows(f), "step": 1}],
+            "column_indexes": [{"name": None, "field_name": None,
+                                "pandas_type": "unicode", "numpy_type": "str",
+                                "metadata": {"encoding": "UTF-8"}}],
+            "columns": cols_meta, "attributes": {},
+            "creator": {"library": "multimodal_edema_prediction_tpu_torch"}}
+    arrow_ipc.write_table(path, fields, columns,
+                          {"pandas": json.dumps(meta)}, compression)

@@ -12,11 +12,11 @@ notebooks are data and are copied as they are. Cell citations point into
 the reference notebooks (groundwork cells 36-252, input_preprocess cells
 71-94, cxr_db cells 19-53).
 
-Differences from the JAX chain, both forced by the missing pyarrow:
-- raw tables are read from ``.csv`` or ``.csv.gz``; a table present as
-  ``.ftr``/``.feather`` raises ``NotImplementedError`` (ROADMAP P21c);
-- the audit frames (``static_full``, ``final_df``, ``final_cxr_df``) are
-  written as ``<name>.npz`` (:func:`.frames.save_frame`), not feather.
+Raw tables are read from ``.ftr``, ``.feather``, ``.csv`` or ``.csv.gz``,
+in JAX's order (Feather through :func:`.frames.read_feather`, Arrow
+without pyarrow), and the audit frames (``static_full``, ``final_df``,
+``final_cxr_df``) are written as ``<name>.ftr``
+(:func:`.frames.write_feather`), as JAX's ``to_feather`` writes them.
 
 Run it as ``python -m multimodal_edema_prediction_tpu_torch.cli.preprocess
 --raw_root … --out_dir …``.
@@ -226,24 +226,41 @@ _TIME_COLS = ("admittime", "dischtime", "deathtime", "intime", "outtime",
 # IO
 # =============================================================================
 def read_table(root: str, stems: Sequence[str]) -> Optional[Frame]:
-    """Read ``<root>/<stem>.{csv,csv.gz}``, the first stem found winning,
-    with ``_TIME_COLS`` as datetimes. JAX's chain reads a ``.ftr`` /
-    ``.feather`` file of a stem before its CSV: such a file raises here
-    (reading Arrow without pyarrow is ROADMAP P21c), so that a stem with
-    both is never read from the CSV that JAX would not read."""
+    """Read ``<root>/<stem>.{ftr,feather,csv,csv.gz}``, the first hit
+    winning (the reference converts csv.gz to feather up front, groundwork
+    cell 3), with ``_TIME_COLS`` through ``pd.to_datetime`` as
+    ``datetime64[ns]``."""
     for stem in stems:
         base = os.path.join(root, stem)
         for ext in (".ftr", ".feather"):
             if os.path.exists(base + ext):
-                raise NotImplementedError(
-                    f"{base + ext}: reading Arrow/feather raw tables without "
-                    "pyarrow is ROADMAP P21c; give the table as .csv or "
-                    ".csv.gz")
+                df = F.read_feather(base + ext)
+                return {c: to_datetime(v) if c in _TIME_COLS else v
+                        for c, v in df.items()}
         for ext in (".csv", ".csv.gz"):
             p = base + ext
             if os.path.exists(p):
                 return F.read_csv(p, dates=_TIME_COLS)
     return None
+
+
+def to_datetime(col: np.ndarray) -> np.ndarray:
+    """``pd.to_datetime`` of a column as a feather table stores it:
+    strings parsed as the CSV route parses them (None -> NaT), timestamps
+    cast to ``datetime64[ns]``; a column with no time at all, which
+    ``pd.read_csv`` reads as float64 NaN, becomes NaT."""
+    kind = col.dtype.kind
+    if kind == "M":
+        return col.astype("datetime64[ns]")
+    if kind == "O":
+        if any(not isinstance(v, str) for v in col if v is not None):
+            raise ValueError("a time column holds values that are neither "
+                             "strings nor null")
+        return F._datetimes(["" if v is None else v for v in col])
+    if kind == "f" and np.isnan(col).all():
+        return np.full(len(col), np.datetime64("NaT"), "datetime64[ns]")
+    raise ValueError(f"a time column of dtype {col.dtype} cannot be "
+                     "converted to datetimes")
 
 
 def load_raw_tables(root: str) -> Dict[str, Frame]:
@@ -253,7 +270,7 @@ def load_raw_tables(root: str) -> Dict[str, Frame]:
         if df is None and name not in OPTIONAL_TABLES:
             raise FileNotFoundError(
                 f"required raw table {name!r} not found under {root} "
-                f"(tried {stems} with .csv/.csv.gz)")
+                f"(tried {stems} with .ftr/.csv/.csv.gz)")
         if df is not None:
             out[name] = df
     return out
@@ -942,19 +959,10 @@ def build_final_df(icu_events: Frame, anchors: Frame) -> Frame:
 # =============================================================================
 # Orchestrator
 # =============================================================================
-def run_l0(raw_root: str, out_dir: str, n_timesteps: int = 24,
-           label_policy: str = "to_positive", split_seed: int = 42,
-           count_clip: int = 15) -> Dict[str, str]:
-    """Full L0 chain → reference artifact frames + columnar cohort.
-
-    Writes ``static_full.npz``, ``final_df.npz``, ``final_cxr_df.npz``
-    (:func:`.frames.save_frame`), ``cohort.npz`` and
-    ``meta_with_stats.pkl`` into ``out_dir``; returns the path map, with
-    the keys of the JAX package's."""
-    from ..config import DEFAULT_PATHOLOGY_LABELS, DataConfig
-    from .ingest import from_reference_frames, save_npz
-    from .pipeline import meta_from_events
-
+def build_audit_frames(raw_root: str, label_policy: str = "to_positive"
+                       ) -> Tuple[Frame, Frame, Frame]:
+    """The reference artifact frames of a raw layout: ``(static_full,
+    final_df, final_cxr_df)``, as :func:`run_l0` writes them."""
     t = load_raw_tables(raw_root)
     icustays = t["icustays"]
 
@@ -979,12 +987,30 @@ def run_l0(raw_root: str, out_dir: str, n_timesteps: int = 24,
         lung_mask_root=os.path.join(raw_root, "cxr"))
     final_df = build_final_df(icu_events, anchors)
 
+    return static_df, final_df, catalog
+
+
+def run_l0(raw_root: str, out_dir: str, n_timesteps: int = 24,
+           label_policy: str = "to_positive", split_seed: int = 42,
+           count_clip: int = 15) -> Dict[str, str]:
+    """Full L0 chain → reference artifact frames + columnar cohort.
+
+    Writes ``static_full.ftr``, ``final_df.ftr``, ``final_cxr_df.ftr``
+    (:func:`.frames.write_feather`), ``cohort.npz`` and
+    ``meta_with_stats.pkl`` into ``out_dir``; returns the path map, with
+    the keys of the JAX package's."""
+    from ..config import DEFAULT_PATHOLOGY_LABELS, DataConfig
+    from .ingest import from_reference_frames, save_npz
+    from .pipeline import meta_from_events
+
+    static_df, final_df, catalog = build_audit_frames(raw_root, label_policy)
+
     os.makedirs(out_dir, exist_ok=True)
     paths = {}
     for name, df in (("static_full", static_df), ("final_df", final_df),
                      ("final_cxr_df", catalog)):
-        paths[name] = os.path.join(out_dir, f"{name}.npz")
-        F.save_frame(paths[name], df)
+        paths[name] = os.path.join(out_dir, f"{name}.ftr")
+        F.write_feather(paths[name], df)
 
     labels = [c for c in DEFAULT_PATHOLOGY_LABELS if c in final_df]
     ds = from_reference_frames(final_df, static_df, catalog,

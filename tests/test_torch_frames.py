@@ -194,16 +194,6 @@ def test_write_csv_is_to_csv(tmp_path):
     assert p.read_text(encoding="utf-8") == buf.getvalue()
 
 
-def test_audit_frame_round_trip(tmp_path):
-    f = _frame(7, 20)
-    p = str(tmp_path / "f.npz")
-    F.save_frame(p, f)
-    g = F.load_frame(p)
-    assert list(g) == list(f)
-    for c in f:
-        assert_column_equal(f[c], g[c], c)
-
-
 @pytest.mark.parametrize("keys", [["k"], ["k", "j"]])
 def test_inner_and_left_merges_on_random_keys(keys):
     """Repeated keys on both sides, sorted and unsorted, unmatched rows:

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of it, and what
 ``chip_smoke.py`` imports, brings in neither JAX nor flax nor optax nor
 msgpack nor sklearn nor ml_dtypes nor PIL nor pandas nor pyarrow (the L0
-chain, ``data/raw_mimic.py``, is numpy only) nor the JAX package,
+chain, ``data/raw_mimic.py``, is numpy only) nor zstandard, lz4 or
+flatbuffers (``data/arrow_ipc.py`` reads and writes feather with the
+port's own codecs) nor the JAX package,
 nor umap-learn, nor matplotlib or scipy (which the analysis scripts import
 only inside the functions that draw a figure or fit a probe), nor wandb
 (imported only inside ``utils/logging.Logger``; ``torch.profiler``, which
@@ -27,8 +29,8 @@ from multimodal_edema_prediction_tpu_torch.ops import (attention, dual_axis,
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
-             "ml_dtypes", "PIL", "pandas", "pyarrow", "umap",
-             "multimodal_edema_prediction_tpu")
+             "ml_dtypes", "PIL", "pandas", "pyarrow", "umap", "zstandard",
+             "lz4", "flatbuffers", "multimodal_edema_prediction_tpu")
 # imported inside a function only, never when a module is imported
 LAZY = ("matplotlib", "scipy", "wandb")
 
@@ -69,7 +71,8 @@ def test_imports_bring_in_no_jax():
                  "data.static_info", "data.cxr_catalog", "data.preprocess",
                  "data.demographics", "data.subtype", "data.prompts",
                  "data.reports", "data.text_embeddings", "data.jpeg_writer",
-                 "cli.preprocess"):
+                 "cli.preprocess", "data.arrow_ipc", "utils.lz4",
+                 "utils.zstd", "utils.xxhash"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -6,13 +6,17 @@ bit for bit, and the audit frames against JAX's ``.ftr`` files. The
 layouts are JAX's ``make_raw_layout`` (seeds 0 and 1 at 24 subjects, 120
 subjects), and edge cases written from it: no BP rows, no pre-ICU ward
 labs, no CXLSeg-mask table, no ``valueuom`` column, duplicate charttimes
-within a slot; a table given only as feather raises naming P21c."""
+within a slot; the same layouts with their tables as feather (LZ4, ZSTD,
+uncompressed; times as strings or ``timestamp[ns|us]``; ``.feather``
+names; a ``.ftr`` beside a different CSV), and feather tables that make
+JAX's chain raise."""
 import os
 import pickle
-import shutil
 
 import numpy as np
 import pandas as pd
+import pyarrow as pa
+import pyarrow.ipc  # noqa: F401
 import pytest
 
 from multimodal_edema_prediction_tpu.data import raw_mimic as J
@@ -215,10 +219,24 @@ def assert_outputs_equal(jp: dict, pp: dict):
         else:           # names, ints, and float stats bit for bit
             assert type(v) is type(mb[k]) and v == mb[k], k
     for name in ("static_full", "final_df", "final_cxr_df"):
-        assert pp[name].endswith(f"{name}.npz")
-        want = pd.read_feather(jp[name]) if jp[name].endswith(".ftr") \
-            else pd.read_pickle(jp[name])
-        assert_frames_equal(want, F.load_frame(pp[name]), name)
+        assert jp[name].endswith(f"{name}.ftr")
+        assert pp[name].endswith(f"{name}.ftr")
+        assert_feather_equal(jp[name], pp[name])
+        assert_frames_equal(pd.read_feather(jp[name]),
+                            F.read_feather(pp[name]), name)
+
+
+def assert_feather_equal(want_path: str, got_path: str):
+    """Two feather files: Arrow schemas equal field for field (name,
+    type, nullability), and ``pd.read_feather`` of the two equal with no
+    tolerance."""
+    a = pa.ipc.open_file(want_path).schema
+    b = pa.ipc.open_file(got_path).schema
+    assert [(f.name, f.type, f.nullable) for f in a] == \
+        [(f.name, f.type, f.nullable) for f in b], got_path
+    pd.testing.assert_frame_equal(pd.read_feather(want_path),
+                                  pd.read_feather(got_path),
+                                  check_exact=True)
 
 
 @pytest.mark.parametrize("layout", sorted(LAYOUTS))
@@ -235,19 +253,120 @@ def test_run_l0_equals_jax(layout, tmp_path):
     if layout == "no_bp":
         assert (z["ev_counts"][:, P.ALL_VARS.index("map")] == 0).all()
     if layout == "no_seg_mask":
-        assert "lung_mask_path" not in F.load_frame(pp["final_cxr_df"])
+        assert "lung_mask_path" not in F.read_feather(pp["final_cxr_df"])
 
 
-@pytest.mark.parametrize("both", [False, True])
-def test_a_feather_table_raises_naming_p21c(tmp_path, both):
-    """A raw table given as feather (alone, or beside a CSV that JAX would
-    not read) raises ``NotImplementedError`` naming ROADMAP P21c."""
+def _to_feather(root: str, compression: str = "lz4", times: str = "",
+                suffix: str = ".ftr", only=None):
+    """Each raw table as ``pd.read_csv(p).to_feather(q)`` (groundwork cell
+    3), the CSV removed; ``times`` ("ns"/"us") stores the time columns as
+    ``timestamp[unit]`` instead of strings; ``only`` limits the tables."""
+    for d, _, names in os.walk(root):
+        for n in names:
+            if not n.endswith(".csv"):
+                continue
+            rel = os.path.relpath(os.path.join(d, n), root)[:-4]
+            if only is not None and rel not in only:
+                continue
+            df = pd.read_csv(os.path.join(d, n))
+            if times:
+                for c in df.columns:
+                    if c in J._TIME_COLS:
+                        df[c] = pd.to_datetime(df[c]).astype(
+                            f"datetime64[{times}]")
+            df.to_feather(os.path.join(d, n[:-4] + suffix),
+                          compression=compression)
+            os.remove(os.path.join(d, n))
+
+
+def _no_deaths(root: str):
+    """No death anywhere: ``deathtime`` and ``dod`` are empty columns,
+    which ``pd.read_csv`` reads as float64 NaN and feather stores as
+    all-null doubles."""
+    for rel, col in (("hosp/admissions", "deathtime"),
+                     ("hosp/patients", "dod")):
+        p = os.path.join(root, rel + ".csv")
+        df = pd.read_csv(p)
+        df[col] = np.nan
+        df.to_csv(p, index=False)
+
+
+FEATHER_LAYOUTS = {
+    "lz4": dict(compression="lz4"),
+    "zstd": dict(compression="zstd"),
+    "uncompressed": dict(compression="uncompressed"),
+    "timestamp_ns": dict(times="ns"),
+    "timestamp_us": dict(times="us"),
+    "feather_suffix": dict(suffix=".feather",
+                           only={"icu/chartevents", "hosp/patients"}),
+    "empty_time_columns": dict(edit=_no_deaths),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(FEATHER_LAYOUTS))
+def test_run_l0_on_feather_tables_equals_jax(layout, tmp_path):
+    """Raw tables as feather (times as strings under each codec, or as
+    ``timestamp[ns]`` / ``timestamp[us]``; ``.feather``-named tables
+    beside CSVs; time columns with no time at all): the port reads them
+    without pyarrow and gives JAX's cohort, meta and audit files."""
+    root = str(tmp_path / "raw")
+    make_raw_layout(root)
+    opts = dict(FEATHER_LAYOUTS[layout])
+    edit = opts.pop("edit", None)
+    if edit is not None:
+        edit(root)
+    _to_feather(root, **opts)
+    if edit is _no_deaths:
+        t = pa.ipc.open_file(os.path.join(root, "hosp", "patients.ftr"))
+        assert t.schema.field("dod").type == pa.float64()
+    jp, pp = run_both(root, str(tmp_path))
+    assert_outputs_equal(jp, pp)
+
+
+def test_a_feather_table_wins_over_its_csv(tmp_path):
+    """A stem with a ``.ftr`` and a different ``.csv``: both packages read
+    the ``.ftr`` (two stays fewer than the CSV holds)."""
     root = str(tmp_path / "raw")
     make_raw_layout(root)
     csv = os.path.join(root, "icu", "icustays.csv")
-    pd.read_csv(csv).to_feather(os.path.join(root, "icu", "icustays.ftr"))
-    if not both:
-        os.remove(csv)
-    with pytest.raises(NotImplementedError, match="P21c"):
-        P.run_l0(root, str(tmp_path / "out"))
-    shutil.rmtree(root)
+    df = pd.read_csv(csv)
+    df.iloc[:-2].to_feather(os.path.join(root, "icu", "icustays.ftr"))
+    jp, pp = run_both(root, str(tmp_path))
+    assert_outputs_equal(jp, pp)
+    z = np.load(pp["cohort"])
+    assert len(z["st_stay_ids"]) <= len(df) - 2
+    assert not set(df["stay_id"].iloc[-2:]) & set(z["st_stay_ids"].tolist())
+
+
+def _truncate(path: str):
+    with open(path, "rb") as fh:
+        data = fh.read()
+    with open(path, "wb") as fh:
+        fh.write(data[:len(data) // 2])
+
+
+def _bad_time(path: str):
+    df = pd.read_feather(path)
+    df.loc[0, "intime"] = "not a time"
+    df.to_feather(path)
+
+
+def _bool_time(path: str):
+    df = pd.read_feather(path)
+    df["intime"] = True
+    df.to_feather(path)
+
+
+@pytest.mark.parametrize("edit", [_truncate, _bad_time, _bool_time],
+                         ids=["truncated", "bad_time", "bool_time"])
+def test_a_bad_feather_table_raises_in_both(edit, tmp_path):
+    """Where JAX's chain raises on a feather table, the port raises too
+    (``ValueError``)."""
+    root = str(tmp_path / "raw")
+    make_raw_layout(root)
+    _to_feather(root, only={"icu/icustays"})
+    edit(os.path.join(root, "icu", "icustays.ftr"))
+    with pytest.raises(Exception):
+        J.run_l0(root, str(tmp_path / "jax"))
+    with pytest.raises(ValueError):
+        P.run_l0(root, str(tmp_path / "port"))
