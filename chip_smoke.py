@@ -383,7 +383,7 @@ The supervised DuETT recipe (ROADMAP P14), the inference CLI and serving's
             and on ``--cxr_feature_cache hbm`` in float32 (the four
             probes' AUROCs within ANALYSIS_TIER_TOL; a bank that hands
             each image the next image's tokens beyond it); the raw
-            trajectory probe over the 7 labels; the figure suite with
+            trajectory probe over the 7 labels (3 folds); the figure suite with
             ``--dim_reduce auto`` (UMAP) and ``tsne`` (both projections
             and the token t-SNE finite, [N·K, 2] and [N, 2]; the CSVs);
             the trajectory-encoder probe (d_model 128, 3 epochs: finite
@@ -427,7 +427,8 @@ build:
             pixels (PARALLEL_ARGV): (a) one rank in an NCCL group, its
             pixel run bit-equal to the same run with no group, an
             all-reduce through NCCL, and the encode-once run with the
-            batches composed for 2 partitions; (b) two ranks sharing the
+            batches composed for 2 partitions; (b), started with (a) and
+            run beside it, two ranks sharing the
             card over gloo, 16 rows each, the pixel run and the encode-once
             run (each rank encoding its ``image_id % 2`` share into a host
             store): the ranks agree to PARALLEL_RANKS_TOL, rank 0 equals
@@ -488,8 +489,8 @@ Serving's bucket graphs and ``--aot_dir`` (ROADMAP P10b) add, after
             cold|warm``), each warming a pixel-mode predictor on the
             full-width teacher (seeded weights, buckets 1..32, bf16) with
             ``aot_dir`` DIR/aot: the cold one on a fresh directory (every
-            bucket a miss, every kernel library built into the entry), the
-            warm one after it (every bucket a hit, every library found: no
+            bucket a miss, every kernel library built into the entry; it
+            runs beside the parallel phase's ranks), the warm one after it (every bucket a hit, every library found: no
             nvcc run); each one's warm-up seconds and
             ``torch.cuda.memory_reserved``; then, in the warm one, every
             bucket's replay against the eager step on random inputs (bit
@@ -519,6 +520,7 @@ package.
 """
 from __future__ import annotations
 
+import atexit
 import base64
 import copy
 import functools
@@ -906,9 +908,17 @@ def phase_build_facts(port) -> dict:
     ``ops/dual_axis.py::tc_smem_bytes`` (bf16) or ``tf32_smem_bytes``
     (float32, both axes), or if there is no SASS listing to count."""
     import ctypes
+    from concurrent.futures import ThreadPoolExecutor
     build = port["build"]
     info = {"phase": "build_facts"}
     serialised = {"C7511", "C7514", "C7515"}
+    libs = ("flash_attention", "flash_attention_bwd", "ln_qkv",
+            "dual_axis_block_tc", "dual_axis_block_tf32")
+    for lib in libs:
+        build.load(lib)
+    # one cuobjdump a library, all started together
+    with ThreadPoolExecutor(len(libs)) as pool:
+        listings = dict(zip(libs, pool.map(build.sass, libs)))
     # library, its dynamic shared memory query, the query's result and
     # argument types → (key, the kernel's name in the build log, the
     # query's arguments, its matrix opcode and the form required of it)
@@ -941,7 +951,7 @@ def phase_build_facts(port) -> dict:
                (25, 840, 2, 12), "HMMA", "TF32")))):
         log = build.build_log(lib)
         usage, warnings = build.ptxas_usage(log), build.ptxas_warnings(log)
-        listing = build.sass(lib)
+        listing = listings[lib]
         if listing is None:
             raise AssertionError(f"no SASS listing of {lib} (cuobjdump "
                                  f"missing or failed)")
@@ -1324,15 +1334,16 @@ def _profile(fn, n: int, step_ms: float, watch: dict,
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # device activity alone: the readings below take device events
+        # only, and tracing the host's operators too made each reading of
+        # a training step take ~9 s instead of ~2 on an H100's host
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
     except RuntimeError as e:       # no CUPTI on this machine: say so
         return {"device_time": f"not measured ({e})"}
-    # device-side events only (kernels, copies, memsets): an operator's
-    # own row repeats the device time of the kernels it launched
+    # device-side events only (kernels, copies, memsets)
     rows = [(e.device_time_total, e.key, e.count)
             for e in prof.key_averages()
             if getattr(e.device_type, "name", "") == "CUDA"
@@ -3265,9 +3276,9 @@ def phase_resume(port, device, card: str = "") -> dict:
     second one (the control: what two runs of the same tree differ by on
     the card); a run paused after one epoch (``stop_after_epochs=1``), then
     ``--resume_dir`` to 2 epochs; and the CLI as a subprocess with
-    ``--no_save_state``, sent SIGTERM after its first step's log line,
-    which must save the state at the epoch boundary and exit 0, then
-    ``--resume_dir`` to 2 epochs. Each resumed
+    ``--no_save_state`` (run beside those four), sent SIGTERM after its
+    first step's log line, which must save the state at the epoch
+    boundary and exit 0, then ``--resume_dir`` to 2 epochs. Each resumed
     history is held to RESUME_SPREAD_FACTOR × the control's difference
     (to equality when the control's is 0). Reports each save's seconds
     and the state file's bytes (the saves fall outside the train window
@@ -3293,18 +3304,8 @@ def phase_resume(port, device, card: str = "") -> dict:
         finally:
             tt.train_teacher = train
 
-    torch.cuda.synchronize()
-    reset_counts(port)
-    whole = cli("whole")
-    torch.cuda.synchronize()
-    launches = read_counts(port)
-    control = cli("control")
-    paused = cli("paused", stop_after_epochs=1)
-    resumed = cli("paused", ["--resume_dir",
-                             os.path.dirname(paused.best_path)])
-
-    # the CLI in a process of its own, sent SIGTERM after its first step
-    torch.cuda.empty_cache()
+    # the CLI in a process of its own, sent SIGTERM after its first step;
+    # it runs beside the four runs below (for the script's time limit)
     sig_root = os.path.join(RESUME_RUNS, "sigterm")
     cmd = [sys.executable, "-m", f"{PKG}.cli.train_teacher", *base,
            "--no_save_state", "--ckpt_dir", sig_root]
@@ -3313,21 +3314,40 @@ def phase_resume(port, device, card: str = "") -> dict:
                             env={**os.environ, "PYTHONUNBUFFERED": "1"})
     watchdog = threading.Timer(600, proc.kill)
     watchdog.start()
-    lines, t_sent = [], None
-    try:
+    lines, sent = [], {}
+
+    def read():
         for line in proc.stdout:
             lines.append(line.rstrip())
             # the CLI's Logger prefixes each line with "[teacher +s] "
-            if t_sent is None and "] step 1 done" in line:
+            if "t" not in sent and "] step 1 done" in line:
                 proc.send_signal(signal.SIGTERM)
-                t_sent = time.perf_counter()
-        rc = proc.wait()
-        t_exit = time.perf_counter()
+                sent["t"] = time.perf_counter()
+        proc.wait()
+        sent["exit"] = time.perf_counter()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        torch.cuda.synchronize()
+        reset_counts(port)
+        whole = cli("whole")
+        torch.cuda.synchronize()
+        launches = read_counts(port)
+        control = cli("control")
+        paused = cli("paused", stop_after_epochs=1)
+        resumed = cli("paused", ["--resume_dir",
+                                 os.path.dirname(paused.best_path)])
+        reader.join()
     finally:
         watchdog.cancel()
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+        reader.join()
+    rc = proc.returncode
+    t_sent, t_exit = sent.get("t"), sent.get("exit")
+    torch.cuda.empty_cache()
     run_dirs = os.listdir(sig_root) if os.path.isdir(sig_root) else []
     sig_dir = os.path.join(sig_root, run_dirs[0]) if run_dirs else ""
     files = sorted(os.listdir(sig_dir)) if sig_dir else []
@@ -4958,8 +4978,10 @@ def phase_analysis_b(port, device, frozen_ckpt: str, card: str = "") -> dict:
         ("conditional_hbm_f32_wrong_rows", "conditional_information_probe",
          cond + ["--label_idx", "0"] + hbm, True,
          {k1f: L * bank_chunks, "gather_rows_bulk": 2 * per_label}),
+        # 3 folds of its host L-BFGS fits (the CLI's default 5; cut for
+        # the script's time limit)
         ("raw_trajectory", "raw_trajectory_conditional_probe",
-         cond, False, {k1: L * per_label}),
+         cond + ["--cv_folds", "3"], False, {k1: L * per_label}),
         ("visualize_umap", "visualize_pathology",
          base + ["--ckpt", frozen_ckpt, "--dim_reduce", "auto"], False,
          {k1: L * viz_batches}),
@@ -5872,13 +5894,11 @@ def _free_port() -> int:
     return port_no
 
 
-def _spawn_ranks(world: int, out: str) -> list:
+def _start_ranks(world: int, out: str, port_no: int) -> tuple:
     """``world`` worker processes of this script (``--parallel-worker``),
-    under a launcher's environment when ``world`` > 1; each must end
-    within PARALLEL_RANK_TIMEOUT with code 0, else every rank is killed
-    and the phase fails. → their results, by rank."""
+    under a launcher's environment when ``world`` > 1, started and not
+    waited for (``_wait_ranks``)."""
     os.makedirs(out, exist_ok=True)
-    port_no = _free_port()
     procs = []
     for r in range(world):
         env = {k: v for k, v in os.environ.items()
@@ -5893,7 +5913,24 @@ def _spawn_ranks(world: int, out: str) -> list:
             [sys.executable, os.path.abspath(__file__), "--parallel-worker",
              str(r), str(world), str(port_no), out],
             cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT), log))
-    deadline = time.monotonic() + PARALLEL_RANK_TIMEOUT
+    return world, out, procs, time.monotonic() + PARALLEL_RANK_TIMEOUT
+
+
+def _stop_ranks(started: tuple) -> None:
+    """Kills what is left of ``_start_ranks``' processes, closes their
+    logs."""
+    for p, log in started[2]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log.close()
+
+
+def _wait_ranks(started: tuple) -> list:
+    """The ranks of ``_start_ranks``: each must end within
+    PARALLEL_RANK_TIMEOUT of its start with code 0, else every rank is
+    killed and the phase fails. → their results, by rank."""
+    world, out, procs, deadline = started
     try:
         for p, _ in procs:
             p.wait(timeout=max(deadline - time.monotonic(), 1))
@@ -5901,11 +5938,7 @@ def _spawn_ranks(world: int, out: str) -> list:
         raise AssertionError(f"a rank of {world} ran past "
                              f"{PARALLEL_RANK_TIMEOUT} s")
     finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
+        _stop_ranks(started)
     for r, (p, _) in enumerate(procs):
         if p.returncode != 0:
             with open(os.path.join(out, f"rank{r}.log")) as f:
@@ -6015,10 +6048,23 @@ def phase_parallel(port, device, card: str = "") -> dict:
     import torch
     shutil.rmtree(PARALLEL_RUNS, ignore_errors=True)
     t0 = time.perf_counter()
-    (a,) = _spawn_ranks(1, os.path.join(PARALLEL_RUNS, "world1"))
-    t_a = time.perf_counter() - t0
-    b = _spawn_ranks(2, os.path.join(PARALLEL_RUNS, "world2"))
-    t_b = time.perf_counter() - t0 - t_a
+    # the two worlds run side by side on the card (started together to fit
+    # the script's time limit): their step times are taken under each
+    # other's load
+    port_a = _free_port()
+    port_b = _free_port()
+    while port_b == port_a:
+        port_b = _free_port()
+    world1 = _start_ranks(1, os.path.join(PARALLEL_RUNS, "world1"), port_a)
+    world2 = _start_ranks(2, os.path.join(PARALLEL_RUNS, "world2"), port_b)
+    try:
+        (a,) = _wait_ranks(world1)
+        t_a = time.perf_counter() - t0
+        b = _wait_ranks(world2)
+        t_b = time.perf_counter() - t0
+    finally:
+        _stop_ranks(world1)
+        _stop_ranks(world2)
     kk = f"k{PARALLEL_K}"
     runs = {"no_group": a["no_group"], "world1_pixels": a["pixels"],
             "world1_cached": a["cached"],
@@ -6301,29 +6347,55 @@ def aot_worker(out: str, kind: str) -> int:
     return 0
 
 
-def _run_aot_worker(out: str, kind: str) -> dict:
-    log_path = os.path.join(out, f"{kind}.log")
-    t0 = time.perf_counter()
-    with open(log_path, "w") as log:
-        p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
-                              "--aot-worker", out, kind], cwd=REPO,
-                             stdout=log, stderr=subprocess.STDOUT)
-        try:
-            p.wait(timeout=AOT_WORKER_TIMEOUT)
-        except subprocess.TimeoutExpired:
-            p.kill()
-            p.wait()
-            raise AssertionError(f"the {kind} aot worker ran past "
-                                 f"{AOT_WORKER_TIMEOUT} s")
+def _start_aot_worker(out: str, kind: str) -> tuple:
+    """An ``--aot-worker`` process of this script, started and not waited
+    for (``_finish_aot_worker``)."""
+    log = open(os.path.join(out, f"{kind}.log"), "w")
+    p = subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                          "--aot-worker", out, kind], cwd=REPO, stdout=log,
+                         stderr=subprocess.STDOUT)
+    return out, kind, p, log, time.perf_counter()
+
+
+def _stop_aot_worker(started: tuple) -> None:
+    _, _, p, log, _ = started
+    if p.poll() is None:
+        p.kill()
+        p.wait()
+    log.close()
+
+
+def _finish_aot_worker(started: tuple) -> dict:
+    """The worker's result; it must end within AOT_WORKER_TIMEOUT of its
+    start with code 0, else it is killed and the phase fails."""
+    out, kind, p, log, t0 = started
+    try:
+        p.wait(timeout=max(t0 + AOT_WORKER_TIMEOUT - time.perf_counter(), 1))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"the {kind} aot worker ran past "
+                             f"{AOT_WORKER_TIMEOUT} s")
+    finally:
+        _stop_aot_worker(started)
     if p.returncode != 0:
-        with open(log_path) as f:
+        with open(log.name) as f:
             raise AssertionError(f"the {kind} aot worker exited with "
                                  f"{p.returncode}:\n{f.read()[-4000:]}")
     with open(os.path.join(out, f"result_{kind}.json")) as f:
         return {**json.load(f), "wall_s": time.perf_counter() - t0}
 
 
-def phase_aot_serve(port, device, card: str = "") -> dict:
+def start_aot_cold() -> tuple:
+    """The ``aot_serve`` phase's cold worker on a fresh AOT_RUNS, started
+    and not waited for: ``main`` runs it beside the parallel phase's ranks
+    (for the script's time limit), so its warm-up seconds are taken under
+    their load."""
+    shutil.rmtree(AOT_RUNS, ignore_errors=True)
+    os.makedirs(AOT_RUNS)
+    return _start_aot_worker(AOT_RUNS, "cold")
+
+
+def phase_aot_serve(port, device, card: str = "",
+                    cold: dict = None) -> dict:
     """Serving's ``--aot_dir`` and bucket graphs (ROADMAP P10b) at full
     width (``TeacherConfig()``, ViT-B/14 at 518, buckets 1..32), each step
     a worker process of this script (``--aot-worker``): a cold start on a
@@ -6334,16 +6406,15 @@ def phase_aot_serve(port, device, card: str = "") -> dict:
     batch, replays counted; the direct steps at AOT_TIMED_BUCKETS eagerly
     and as a replay with the idle share; ``torch.cuda.memory_reserved``
     after each warm-up; and ``jpeg_root`` served through the graphs (K2 2
-    a batch, an unknown id NaN)."""
+    a batch, an unknown id NaN). ``cold``: the cold worker's result where
+    ``start_aot_cold`` ran it earlier (``seconds`` is the two workers'
+    wall seconds)."""
     import torch
-    shutil.rmtree(AOT_RUNS, ignore_errors=True)
-    os.makedirs(AOT_RUNS)
-    t0 = time.perf_counter()
-    cold = _run_aot_worker(AOT_RUNS, "cold")
-    warm = _run_aot_worker(AOT_RUNS, "warm")
+    cold = cold or _finish_aot_worker(start_aot_cold())
+    warm = _finish_aot_worker(_start_aot_worker(AOT_RUNS, "warm"))
     n_layers = port["config"].TeacherConfig().vit.n_layers
     info = {"phase": "aot_serve", "card": card, "cold": cold, "warm": warm,
-            "seconds": time.perf_counter() - t0}
+            "seconds": cold["wall_s"] + warm["wall_s"]}
     emit(info)
     shutil.rmtree(AOT_RUNS, ignore_errors=True)
     problems = []
@@ -7160,7 +7231,10 @@ def main() -> int:
         emit({"phase": "total", "seconds": time.perf_counter() - t_start})
         return 0
     built = phase_build_facts(port)
+    aot_started = start_aot_cold()
+    atexit.register(_stop_aot_worker, aot_started)
     parallel = phase_parallel(port, device, card=dev["nvidia_smi"])
+    aot_cold = _finish_aot_worker(aot_started)
     bf16, f32 = torch.bfloat16, torch.float32
     n_predict, predict_batch = _predict_split(port)
     checks = phase_kernels(port, device, [
@@ -7218,7 +7292,8 @@ def main() -> int:
     block = phase_block_grad(port, device)
     serve = phase_serve(port, device, cfgmod.TeacherConfig(), n_clients=12,
                         posts_per_client=4, card=dev["nvidia_smi"])
-    aot_serve = phase_aot_serve(port, device, card=dev["nvidia_smi"])
+    aot_serve = phase_aot_serve(port, device, card=dev["nvidia_smi"],
+                                cold=aot_cold)
 
     gathers = phase_gather(port, device)
     train = phase_train(port, device, card=dev["nvidia_smi"])

@@ -18,6 +18,8 @@ the same tables and pixels in both packages (``tests/test_torch_data.py``).
 """
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -188,29 +190,45 @@ def make_synthetic(seed: int = 0, n_subjects: int = 120, n_stays: int = 150,
 
 
 def synthetic_image_batch(rng: np.ndarray, image_ids: np.ndarray,
-                          labels: np.ndarray, size: int = 518) -> np.ndarray:
+                          labels: np.ndarray, size: int = 518,
+                          mean=None, std=None) -> np.ndarray:
     """Procedural 'CXR' images [B, H, W, 3] with label-dependent structure.
 
     The port's synthetic pixel source for both image tiers. (The JAX
     package's training loop draws its synthetic pixels on the device from
-    ``jax.random`` instead; parity tests feed both packages these.)
+    ``jax.random`` instead; parity tests feed both packages these.) With
+    ``mean`` and ``std`` each image is normalized in place, ``(px - mean)
+    / std`` over the channel axis. The images are drawn on a pool of host
+    threads, one image a task: each has its own generator (seeded by its
+    id) and its own rows of the output, so the result does not depend on
+    the number of threads.
     """
     B = len(image_ids)
     out = np.empty((B, size, size, 3), np.float32)
+    if B == 0:
+        return out
     yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) / size
-    K = labels.shape[1]
+    lab = np.nan_to_num(np.asarray(labels), nan=0.0) > 0.5
     blobs = {}      # label k's blob, the same for every image: made once
-    for i in range(B):
+    for k in np.nonzero(lab.any(axis=0))[0].tolist():
+        cx = 0.2 + 0.6 * (k % 3) / 2.0
+        cy = 0.2 + 0.6 * (k // 3) / 2.0
+        blobs[k] = 0.5 * np.exp(-(((xx - cx) ** 2 + (yy - cy) ** 2) / 0.02))
+
+    def draw(i: int) -> None:
         r = np.random.default_rng(int(image_ids[i]))
         img = 0.3 + 0.1 * r.normal(size=(size, size)).astype(np.float32)
-        lab = np.nan_to_num(labels[i], nan=0.0)
-        for k in range(K):
-            if lab[k] > 0.5:
-                if k not in blobs:
-                    cx = 0.2 + 0.6 * (k % 3) / 2.0
-                    cy = 0.2 + 0.6 * (k // 3) / 2.0
-                    blobs[k] = 0.5 * np.exp(-(((xx - cx) ** 2
-                                               + (yy - cy) ** 2) / 0.02))
-                img += blobs[k]
+        for k in np.nonzero(lab[i])[0].tolist():
+            img += blobs[k]
         out[i] = np.clip(img, 0, 1)[..., None]
+        if mean is not None:
+            out[i] -= mean
+            out[i] /= std
+
+    workers = min(B, len(os.sched_getaffinity(0)))
+    if workers == 1:
+        draw(0)
+    else:
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(draw, range(B)))
     return out

@@ -147,9 +147,7 @@ def make_synthetic_pixel_hook(image_size: int = 518
 
     def hook(batch: dict) -> dict:
         px = synthetic_image_batch(None, batch["image_ids"],
-                                   batch["y_multi"], image_size)
-        px -= mean          # in place: the same values as (px - mean) / std
-        px /= std
+                                   batch["y_multi"], image_size, mean, std)
         return {**batch, "pixel_values": px}
 
     return hook

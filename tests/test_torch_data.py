@@ -57,6 +57,28 @@ def test_synthetic_cohort_and_pixels(cohorts):
         JS.synthetic_image_batch(None, ids, lab, 56))
 
 
+def test_synthetic_pixels_do_not_depend_on_the_thread_pool():
+    """The images are drawn on a pool of host threads: a batch equals its
+    images drawn one at a time (one image takes no pool), and the hook's
+    normalization equals ``(px - mean) / std`` of the raw images."""
+    from multimodal_edema_prediction_tpu_torch.train import teacher_loop
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, 10**6, 9)
+    lab = np.where(rng.random((9, 7)) < 0.2, np.nan,
+                   rng.random((9, 7)) > 0.5).astype(np.float32)
+    batch = S.synthetic_image_batch(None, ids, lab, 56)
+    one_by_one = np.concatenate([S.synthetic_image_batch(
+        None, ids[i:i + 1], lab[i:i + 1], 56) for i in range(9)])
+    np.testing.assert_array_equal(batch, one_by_one)
+    mean = np.asarray(teacher_loop.IMAGE_MEAN, np.float32)
+    std = np.asarray(teacher_loop.IMAGE_STD, np.float32)
+    hooked = teacher_loop.make_synthetic_pixel_hook(56)(
+        {"image_ids": ids, "y_multi": lab})["pixel_values"]
+    np.testing.assert_array_equal(hooked, (batch - mean) / std)
+    assert S.synthetic_image_batch(None, ids[:0], lab[:0], 56).shape == (
+        0, 56, 56, 3)
+
+
 def test_meta_grid_and_splits(cohorts):
     _, jmeta, jad, _, meta, ad = cohorts
     for f in ("means", "stds", "age_mean", "age_std", "train_ids",
