@@ -279,12 +279,18 @@ serving; ROADMAP P13) add:
             response against a direct eval of its batch (SERVE_TOL).
 19. resume  the ``dual_patch`` teacher on ``hbm`` (2 epochs of 4 batches,
             120 stays):
-            an uninterrupted run, a control run, a run paused after one
-            epoch and resumed with ``--resume_dir``, and the CLI as a
-            subprocess sent SIGTERM after its first step (exit 0, the state
-            saved at the boundary), resumed; resumed histories within
-            RESUME_SPREAD_FACTOR x the control's difference; the saves'
-            seconds and the state file's bytes.
+            an uninterrupted run and a control run (both
+            ``--no_save_state``), a run paused after one
+            epoch and resumed with ``--resume_dir``, the same on
+            ``--state_backend orbax`` (K1/K2 launches counted), and the CLI
+            as two subprocesses (msgpack, orbax) sent SIGTERM after their
+            first step (exit 0, the state saved at the boundary), resumed;
+            resumed histories within RESUME_SPREAD_FACTOR x the control's
+            difference; the saves' seconds (orbax: host copy and background
+            write), both backends' state bytes, the orbax restore's
+            seconds; the committed orbax golden
+            (``tests/goldens/orbax_state``) read without orbax to its
+            recorded arrays.
 
 The teacher's other modes and LP mode (ROADMAP P13's second half) add:
 
@@ -574,6 +580,7 @@ SSL_RUNS = os.path.join(REPO, "build", "chip_smoke_ssl")
 KD_RUNS = os.path.join(REPO, "build", "chip_smoke_kd")
 DUAL_RUNS = os.path.join(REPO, "build", "chip_smoke_dual")
 RESUME_RUNS = os.path.join(REPO, "build", "chip_smoke_resume")
+ORBAX_GOLDEN = os.path.join(REPO, "tests", "goldens", "orbax_state")
 MODES_RUNS = os.path.join(REPO, "build", "chip_smoke_modes")
 TRAIN_BEST = os.path.join(REPO, "build", "chip_smoke_train_best.msgpack")
 PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 (NVIDIA data sheet)
@@ -740,12 +747,16 @@ def import_port():
                                                              engine,
                                                              finetune_loop,
                                                              kd_loop, loops,
-                                                             optim, ssl_loop,
+                                                             optim,
+                                                             orbax_io,
+                                                             ssl_loop,
                                                              state,
                                                              teacher_loop)
-    from multimodal_edema_prediction_tpu_torch.utils import (logging, lz4,
+    from multimodal_edema_prediction_tpu_torch.utils import (crc32c, logging,
+                                                             lz4, ocdbt,
                                                              preemption,
-                                                             profiling, zstd)
+                                                             profiling, zarr2,
+                                                             zstd)
     from multimodal_edema_prediction_tpu_torch.data import arrow_ipc
     return dict(int8=int8, lupi_losses=lupi_losses, logging=logging,
                 profiling=profiling, config=config, convert=convert,
@@ -760,6 +771,7 @@ def import_port():
                 train_ssl=train_ssl, student=student, kd_loop=kd_loop,
                 train_student=train_student, train_cxr_head=train_cxr_head,
                 cxr_head_loop=cxr_head_loop, preemption=preemption,
+                orbax_io=orbax_io, crc32c=crc32c, ocdbt=ocdbt, zarr2=zarr2,
                 images=images, native_loader=native_loader,
                 prefetch=prefetch, jpeg=jpeg, physionet=physionet,
                 finetune_loop=finetune_loop, loops=loops,
@@ -3267,6 +3279,25 @@ def _history_diff(a: list, b: list) -> float:
                default=0.0)
 
 
+def _orbax_golden(port) -> dict:
+    """The committed orbax store that the JAX package's orbax wrote
+    (``tests/goldens/orbax_state``, ``scripts/make_orbax_goldens.py``: zstd
+    nodes and chunks, its two-level layout), read with the port's reader
+    on a host with no orbax, against its recorded arrays."""
+    t0 = time.perf_counter()
+    got = port["orbax_io"].read_arrays(os.path.join(
+        ORBAX_GOLDEN, "1", port["orbax_io"].ITEM))
+    seconds = time.perf_counter() - t0
+    z = np.load(os.path.join(ORBAX_GOLDEN, "expected.npz"))
+    dtypes = json.loads(str(z["__dtypes__"]))
+    bad = sorted(set(got) ^ set(dtypes)) + [
+        k for k, (a, dt) in got.items() if k in dtypes and (
+            dt != dtypes[k] or a.dtype != z[k].dtype
+            or not np.array_equal(a, z[k]))]
+    return {"arrays": len(got), "dtypes": sorted(set(dtypes.values())),
+            "read_s": seconds, "mismatched": bad[:5]}
+
+
 def phase_resume(port, device, card: str = "") -> dict:
     """Resume and preemption of the ``dual_patch`` teacher at full width on
     the ``hbm`` tier through ``cli/train_teacher.main`` (120 stays, cut
@@ -3274,23 +3305,33 @@ def phase_resume(port, device, card: str = "") -> dict:
     3 for the time limit), the
     full state saved every epoch by default): an uninterrupted run and a
     second one (the control: what two runs of the same tree differ by on
-    the card); a run paused after one epoch (``stop_after_epochs=1``), then
-    ``--resume_dir`` to 2 epochs; and the CLI as a subprocess with
-    ``--no_save_state`` (run beside those four), sent SIGTERM after its
-    first step's log line, which must save the state at the epoch
-    boundary and exit 0, then ``--resume_dir`` to 2 epochs. Each resumed
-    history is held to RESUME_SPREAD_FACTOR × the control's difference
-    (to equality when the control's is 0). Reports each save's seconds
-    and the state file's bytes (the saves fall outside the train window
-    that ``train_samples_per_s`` times)."""
+    the card), both with ``--no_save_state`` (for the time limit: a save
+    falls outside what their histories read); a run paused after one epoch
+    (``stop_after_epochs=1``), then
+    ``--resume_dir`` to 2 epochs; the same pause and resume on
+    ``--state_backend orbax`` (K1's and K2's launches counted over those
+    two runs); and the CLI as two subprocesses with ``--no_save_state``
+    (run beside those six), one on each backend, each sent SIGTERM after
+    its first step's log line, which must save the state at the epoch
+    boundary (orbax: committed before the exit) and exit 0, then
+    ``--resume_dir --no_save_state`` to 2 epochs. Each resumed history is
+    held to
+    RESUME_SPREAD_FACTOR × the control's difference (to equality when the
+    control's is 0). Reports each save's seconds (orbax: the host copy in
+    the loop and the background write), the state's bytes on both
+    backends, the orbax restore's seconds (the saves fall outside the train
+    window that ``train_samples_per_s`` times), and the committed orbax
+    golden read without orbax (``_orbax_golden``)."""
     import signal
 
     import torch
     tt = port["train_teacher"]
     shutil.rmtree(RESUME_RUNS, ignore_errors=True)
+    golden = _orbax_golden(port)
     base = ["--device", "cuda", "--cxr_feature_cache", "hbm",
             "--synthetic_stays", SHORT_STAYS, "--batch_size", "32",
             "--epochs", "2", "--limit_batches", "4"]
+    orbax = ["--state_backend", "orbax"]
 
     def cli(name, extra=(), **loop_kw):
         """The CLI; ``loop_kw`` (which it has no flag for) handed to the
@@ -3304,92 +3345,154 @@ def phase_resume(port, device, card: str = "") -> dict:
         finally:
             tt.train_teacher = train
 
-    # the CLI in a process of its own, sent SIGTERM after its first step;
-    # it runs beside the four runs below (for the script's time limit)
-    sig_root = os.path.join(RESUME_RUNS, "sigterm")
-    cmd = [sys.executable, "-m", f"{PKG}.cli.train_teacher", *base,
-           "--no_save_state", "--ckpt_dir", sig_root]
-    proc = subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True,
-                            env={**os.environ, "PYTHONUNBUFFERED": "1"})
-    watchdog = threading.Timer(600, proc.kill)
-    watchdog.start()
-    lines, sent = [], {}
+    def sigterm_cli(root, extra=()):
+        """The CLI in a process of its own, sent SIGTERM after its first
+        step; it runs beside the in-process runs (for the script's time
+        limit)."""
+        cmd = [sys.executable, "-m", f"{PKG}.cli.train_teacher", *base,
+               *extra, "--no_save_state", "--ckpt_dir", root]
+        run = {"root": root, "lines": [], "sent": {},
+               "proc": subprocess.Popen(
+                   cmd, cwd=REPO, stdout=subprocess.PIPE,
+                   stderr=subprocess.STDOUT, text=True,
+                   env={**os.environ, "PYTHONUNBUFFERED": "1"})}
+        run["watchdog"] = threading.Timer(600, run["proc"].kill)
+        run["watchdog"].start()
 
-    def read():
-        for line in proc.stdout:
-            lines.append(line.rstrip())
-            # the CLI's Logger prefixes each line with "[teacher +s] "
-            if "t" not in sent and "] step 1 done" in line:
-                proc.send_signal(signal.SIGTERM)
-                sent["t"] = time.perf_counter()
-        proc.wait()
-        sent["exit"] = time.perf_counter()
+        def read():
+            proc, sent = run["proc"], run["sent"]
+            for line in proc.stdout:
+                run["lines"].append(line.rstrip())
+                # the CLI's Logger prefixes each line with "[teacher +s] "
+                if "t" not in sent and "] step 1 done" in line:
+                    proc.send_signal(signal.SIGTERM)
+                    sent["t"] = time.perf_counter()
+            proc.wait()
+            sent["exit"] = time.perf_counter()
 
-    reader = threading.Thread(target=read, daemon=True)
-    reader.start()
+        run["reader"] = threading.Thread(target=read, daemon=True)
+        run["reader"].start()
+        return run
+
+    def sigterm_end(run) -> dict:
+        run["watchdog"].cancel()
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            run["proc"].wait()
+        run["reader"].join()
+        root, sent = run["root"], run["sent"]
+        dirs = os.listdir(root) if os.path.isdir(root) else []
+        d = os.path.join(root, dirs[0]) if dirs else ""
+        t_sent, t_exit = sent.get("t"), sent.get("exit")
+        return {"exit_code": run["proc"].returncode, "dir": d,
+                "files": sorted(os.listdir(d)) if d else [],
+                "stopped": [ln for ln in run["lines"]
+                            if "] SIGTERM/preemption" in ln],
+                "sent": t_sent is not None,
+                "sigterm_to_exit_s": (t_exit - t_sent if t_sent else None),
+                "log_tail": run["lines"][-6:]}
+
+    sig_runs = {"msgpack": sigterm_cli(os.path.join(RESUME_RUNS, "sigterm")),
+                "orbax": sigterm_cli(os.path.join(RESUME_RUNS,
+                                                  "sigterm_orbax"), orbax)}
     try:
         torch.cuda.synchronize()
         reset_counts(port)
-        whole = cli("whole")
+        whole = cli("whole", ["--no_save_state"])
         torch.cuda.synchronize()
         launches = read_counts(port)
-        control = cli("control")
+        control = cli("control", ["--no_save_state"])
         paused = cli("paused", stop_after_epochs=1)
         resumed = cli("paused", ["--resume_dir",
                                  os.path.dirname(paused.best_path)])
-        reader.join()
+        torch.cuda.synchronize()
+        reset_counts(port)
+        ob_paused = cli("orbax", orbax, stop_after_epochs=1)
+        ob_resumed = cli("orbax", orbax + [
+            "--resume_dir", os.path.dirname(ob_paused.best_path)])
+        torch.cuda.synchronize()
+        ob_launches = read_counts(port)
+        for run in sig_runs.values():
+            run["reader"].join()
     finally:
-        watchdog.cancel()
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-        reader.join()
-    rc = proc.returncode
-    t_sent, t_exit = sent.get("t"), sent.get("exit")
+        sig = {way: sigterm_end(run) for way, run in sig_runs.items()}
     torch.cuda.empty_cache()
-    run_dirs = os.listdir(sig_root) if os.path.isdir(sig_root) else []
-    sig_dir = os.path.join(sig_root, run_dirs[0]) if run_dirs else ""
-    files = sorted(os.listdir(sig_dir)) if sig_dir else []
-    stopped = [ln for ln in lines if "] SIGTERM/preemption" in ln]
-    sig_resumed = cli("sigterm_resume", ["--resume_dir", sig_dir]) \
-        if rc == 0 and "train_state.meta.json" in files else None
+    ob_dir = os.path.dirname(ob_paused.best_path)
+    ob_steps = port["orbax_io"].make_manager(
+        os.path.join(ob_dir, "orbax_state")).all_steps()
+    sig_state = {"msgpack": {"train_state.msgpack"}, "orbax": {"orbax_state"}}
+    for way, r in sig.items():
+        r["saved"] = r["exit_code"] == 0 and (
+            sig_state[way] | {"train_state.meta.json"}) <= set(r["files"])
+        if way == "orbax" and r["saved"]:
+            r["orbax_steps"] = port["orbax_io"].make_manager(os.path.join(
+                r["dir"], "orbax_state")).all_steps()
+            r["saved"] = r["orbax_steps"] == [0]
+    sig_resumed = {way: cli(f"sigterm_{way}_resume", (
+        orbax if way == "orbax" else []) + ["--resume_dir", r["dir"],
+                                            "--no_save_state"])
+        if r["saved"] else None for way, r in sig.items()}
 
     spread = _history_diff(control.history, whole.history)
     diffs = {"resumed": _history_diff(resumed.history, whole.history),
-             "sigterm_resumed": (_history_diff(sig_resumed.history,
-                                               whole.history)
-                                 if sig_resumed else float("inf"))}
+             "orbax_resumed": _history_diff(ob_resumed.history,
+                                            whole.history),
+             **{f"sigterm_{way}_resumed": (
+                 _history_diff(r.history, whole.history) if r
+                 else float("inf")) for way, r in sig_resumed.items()}}
     bound = RESUME_SPREAD_FACTOR * spread
-    ex = whole.extras
+    ex, ob = whole.extras, ob_paused.extras
     info = {"phase": "resume", "card": card, "argv": base,
-            "launches": launches,
+            "launches": launches, "orbax_launches": ob_launches,
             "epochs_paused_run": len(paused.history),
             "resumed_start_epoch": resumed.extras["start_epoch"],
             "control_max_history_diff": spread,
             "max_history_diff": diffs, "bound": bound,
-            "state_save_s": ex["state_save_s"],
-            "state_bytes": ex["state_bytes"],
+            # the paused run's save (epoch 0) and its resume's (epoch 1)
+            "state_save_s": paused.extras["state_save_s"]
+            + resumed.extras["state_save_s"],
+            "state_bytes": paused.extras["state_bytes"],
+            "orbax": {"epochs_paused_run": len(ob_paused.history),
+                      "resumed_start_epoch": ob_resumed.extras[
+                          "start_epoch"],
+                      "save_copy_s": ob["state_save_s"],
+                      "save_write_s": ob["state_write_s"],
+                      "resumed_save_copy_s": ob_resumed.extras[
+                          "state_save_s"],
+                      "resumed_save_write_s": ob_resumed.extras[
+                          "state_write_s"],
+                      "state_bytes": ob["state_bytes"],
+                      "restore_s": ob_resumed.extras["state_restore_s"],
+                      "steps_kept": ob_steps, "golden": golden},
             "train_samples_per_s": ex["n_train_steps"] * 32
             / ex["phase_seconds"]["train"],
-            "sigterm": {"exit_code": rc, "files": files,
-                        "stopped": stopped,
-                        "sigterm_to_exit_s": (t_exit - t_sent
-                                              if t_sent else None),
-                        "log_tail": lines[-6:]},
+            "sigterm": sig["msgpack"], "sigterm_orbax": sig["orbax"],
             "history_whole": whole.history}
     emit(info)
     shutil.rmtree(RESUME_RUNS, ignore_errors=True)
-    if len(paused.history) != 1 or resumed.extras["start_epoch"] != 1:
-        raise AssertionError("resume: the paused run did not stop after "
-                             "one epoch and resume at the second")
-    if t_sent is None or rc != 0 or not stopped or not {
-            "train_state.msgpack", "train_state.meta.json"} <= set(files):
-        raise AssertionError(f"resume: the SIGTERM run did not save and "
-                             f"exit 0: {info['sigterm']}")
-    if len(sig_resumed.history) != 2:
-        raise AssertionError("resume: the SIGTERM run's resume did not "
-                             "reach 2 epochs")
+    if golden["mismatched"] or golden["dtypes"] != ["<f4", "<i4",
+                                                    "bfloat16"]:
+        raise AssertionError(f"resume: the orbax golden read {golden}")
+    for runs, what in (((paused, resumed), "msgpack"),
+                       ((ob_paused, ob_resumed), "orbax")):
+        if len(runs[0].history) != 1 or runs[1].extras["start_epoch"] != 1:
+            raise AssertionError(f"resume: the paused {what} run did not "
+                                 "stop after one epoch and resume at the "
+                                 "second")
+    if ob_steps != [0, 1] or not ob["state_bytes"]:
+        raise AssertionError(f"resume: orbax steps {ob_steps}, "
+                             f"{ob['state_bytes']} bytes")
+    for k in ("flash_attention", "gather_rows_bulk"):
+        if not ob_launches.get(k):
+            raise AssertionError(f"resume: no {k} launch on the orbax runs "
+                                 f"({ob_launches})")
+    for way, r in sig.items():
+        if not (r["sent"] and r["stopped"] and r["saved"]):
+            raise AssertionError(f"resume: the {way} SIGTERM run did not "
+                                 f"save and exit 0: {r}")
+        if len(sig_resumed[way].history) != 2:
+            raise AssertionError(f"resume: the {way} SIGTERM run's resume "
+                                 "did not reach 2 epochs")
     if not max(diffs.values()) <= bound:
         raise AssertionError(f"resume: resumed histories {diffs} differ from "
                              f"the uninterrupted run by more than "
@@ -7370,6 +7473,7 @@ def main() -> int:
                             for way, r in dual_kd["runs"].items()},
                 "dual_serve": dual_serve["launches"][name],
                 "resume": resume["launches"][name],
+                "resume_orbax": resume["orbax_launches"][name],
                 "modes": {way: r["launches"][name]
                           for way, r in modes["runs"].items()},
                 "modes_unfreeze_step": modes["unfreeze_step"]["launches"]

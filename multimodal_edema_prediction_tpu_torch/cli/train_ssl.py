@@ -12,7 +12,8 @@ continues such a run bit for bit; a SIGTERM saves the state at the next
 epoch boundary and exits cleanly. The teacher starts from the checkpoint
 with ``cli.train_teacher --duett_ckpt``. ``--steps_per_call K`` runs K
 steps per call (one CUDA graph replay on a card, bit-equal to K = 1).
-``--state_backend orbax`` (P16) is not ported and raises; the wandb flags
+``--state_backend orbax`` writes the state as orbax steps
+(``train/orbax_io.py``); the wandb flags
 reach its ``Logger``; ``--eval_train_batches`` and ``--log_every`` are
 accepted and, as in the JAX CLI, unused by the SSL loop.
 """
@@ -43,7 +44,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "state at the last completed epoch and continue "
                         "bit-exactly")
     p.add_argument("--state_backend", type=str, default="msgpack",
-                   choices=["msgpack", "orbax"])
+                   choices=["msgpack", "orbax"],
+                   help="full-state checkpoint format: 'msgpack' (one file) "
+                        "or 'orbax' (JAX's optax tree as orbax steps under "
+                        "orbax_state/, written in the background)")
     p.add_argument("--save_state", action="store_true", default=True)
     p.add_argument("--no_save_state", dest="save_state",
                    action="store_false")
@@ -52,9 +56,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.state_backend == "orbax":
-        raise NotImplementedError("--state_backend orbax is not ported yet "
-                                  "(ROADMAP P16)")
     join_process_group(args)
     dcfg, duett, tcfg = configs_from_args(args)
     duett = duett.replace(pretrain_masked_steps=args.pretrain_masked_steps)

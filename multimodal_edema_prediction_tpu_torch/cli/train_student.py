@@ -19,8 +19,8 @@ state of every epoch into a new run directory under ``--ckpt_dir``;
 ``--resume_dir`` continues such a run bit for bit; a SIGTERM saves the
 state at the next epoch boundary and exits cleanly. The wandb flags reach
 its ``Logger``. ``--steps_per_call K`` runs K KD steps per call (one
-CUDA graph replay on a card, bit-equal to K = 1). Refused, naming its
-ROADMAP item: ``--state_backend orbax`` (P16).
+CUDA graph replay on a card, bit-equal to K = 1). ``--state_backend
+orbax`` writes the state as orbax steps (``train/orbax_io.py``).
 """
 from __future__ import annotations
 
@@ -54,7 +54,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "bit-exactly")
     p.add_argument("--state_backend", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="'orbax' is not ported yet (ROADMAP P16)")
+                   help="full-state checkpoint format: 'msgpack' (one file) "
+                        "or 'orbax' (JAX's optax tree as orbax steps under "
+                        "orbax_state/, written in the background)")
     p.add_argument("--save_state", action="store_true", default=True)
     p.add_argument("--no_save_state", dest="save_state",
                    action="store_false")
@@ -71,9 +73,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.state_backend == "orbax":
-        raise NotImplementedError("--state_backend orbax is not ported yet "
-                                  "(ROADMAP P16)")
     resolve_kd_loss(args.kd_name)
     join_process_group(args)
     dcfg, duett, tcfg = configs_from_args(args)

@@ -142,7 +142,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "and trains on bit for bit")
     p.add_argument("--state_backend", type=str, default="msgpack",
                    choices=["msgpack", "orbax"],
-                   help="'orbax' is not ported yet (ROADMAP P16)")
+                   help="full-state checkpoint format: 'msgpack' (one file) "
+                        "or 'orbax' (JAX's optax tree as orbax steps under "
+                        "orbax_state/, written in the background)")
     p.add_argument("--save_state", action="store_true", default=True,
                    help="write the full train state every epoch so that the "
                         "run resumes with --resume_dir (default on)")
@@ -213,9 +215,6 @@ def main(argv=None):
     if args.vit_quant != "none" and args.unfreeze_cxr:
         p.error("--vit_quant requires a frozen CXR branch (the quantized "
                 "matmuls are inference-only)")
-    if args.state_backend == "orbax":
-        raise NotImplementedError("--state_backend orbax is not ported yet "
-                                  "(ROADMAP P16)")
 
     join_process_group(args)
     dcfg, duett, tcfg = configs_from_args(args)

@@ -14,11 +14,13 @@ package's ``load_checkpoint`` and in the port's own loaders.
 Full-state resume (the teacher, SSL and KD loops'; JAX
 ``checkpoint.py:100-221``): ``save_train_state`` writes the weights in the
 flax layout, the AdamW moments in parameter order and the step count to one
-msgpack file in the port's own layout; ``FullStateResumer`` adds a JSON
-sidecar with the loop's bookkeeping and the ``torch.Generator`` state, so a
-restarted run continues bit for bit. A run directory the JAX package wrote
-has the same two file names but an optax tree and a JAX key; the resumer
-refuses it before it loads anything.
+msgpack file in the port's own layout; the ``orbax`` backend writes the
+same state as JAX's optax tree, one orbax step an epoch under
+``orbax_state/`` (``train/orbax_io.py``), asynchronously.
+``FullStateResumer`` adds a JSON sidecar with the loop's bookkeeping and
+the ``torch.Generator`` state, so a restarted run continues bit for bit. A
+run directory the JAX package wrote has the same file names but a JAX key
+in its sidecar; the resumer refuses it before it loads anything.
 """
 from __future__ import annotations
 
@@ -412,27 +414,37 @@ def load_train_state(path: str, state) -> Tuple[int, dict]:
 
 class FullStateResumer:
     """Epoch-boundary full-state saves and their restore for a training
-    loop (JAX ``checkpoint.py:136-221``, msgpack backend): the train state
-    (``save_train_state``) plus a JSON sidecar with the early-stop
-    watermark, the best-checkpoint tracker's entries, the history, the step
-    count and the ``torch.Generator`` state. The orbax backend is ROADMAP
-    P16 (the port may not import orbax)."""
+    loop (JAX ``checkpoint.py:136-221``): the train state, as one msgpack
+    file (``save_train_state``) or as orbax steps under ``orbax_state/``
+    (``train/orbax_io.py``: async, the last two kept), plus a JSON sidecar
+    with the early-stop watermark, the best-checkpoint tracker's entries,
+    the history, the step count and the ``torch.Generator`` state. With
+    orbax the sidecar is written when its step is committed, so the two
+    never disagree; ``finish`` waits for the save in flight."""
 
     def __init__(self, ckpt_dir: str, backend: str = "msgpack"):
-        if backend == "orbax":
-            raise NotImplementedError("state_backend='orbax' is not ported "
-                                      "yet (ROADMAP P16)")
-        if backend != "msgpack":
+        if backend not in ("msgpack", "orbax"):
             raise ValueError(f"unknown state_backend {backend!r}")
         self.ckpt_dir = ckpt_dir
+        self.backend = backend
         self.state_path = os.path.join(ckpt_dir, "train_state.msgpack")
         self.meta_path = os.path.join(ckpt_dir, "train_state.meta.json")
+        self.orbax_dir = os.path.join(ckpt_dir, "orbax_state")
+        self._mgr = None
+
+    @property
+    def manager(self):
+        """The orbax manager, made at its first use (JAX ``_mgr``)."""
+        if self._mgr is None:
+            from .orbax_io import make_manager
+            self._mgr = make_manager(self.orbax_dir, max_to_keep=2)
+        return self._mgr
 
     def restore(self, state) -> Optional[dict]:
         """Load the saved state into ``state``; → its meta, or None when
-        there is nothing to resume."""
-        if not (os.path.exists(self.meta_path)
-                and os.path.exists(self.state_path)):
+        there is nothing to resume (no sidecar). A sidecar without this
+        backend's state raises, naming what the directory holds."""
+        if not os.path.exists(self.meta_path):
             return None
         with open(self.meta_path) as f:
             meta = json.load(f)
@@ -444,8 +456,29 @@ class FullStateResumer:
                 "package (multimodal_edema_prediction_tpu: a JAX key and an "
                 "optax tree), which this package cannot resume; start a new "
                 "run from its best checkpoint instead")
+        epoch = int(meta["epoch"])
+        if self.backend == "orbax":
+            if not (os.path.isdir(self.orbax_dir)
+                    and epoch in self.manager.all_steps()):
+                raise ValueError(self._missing_state(epoch))
+            from .orbax_io import restore_state
+            restore_state(self.manager, state, epoch)
+            return meta
+        if not os.path.exists(self.state_path):
+            raise ValueError(self._missing_state(epoch))
         load_train_state(self.state_path, state)
         return meta
+
+    def _missing_state(self, epoch: int) -> str:
+        held = [n for n, there in (
+            ("orbax_state/ (--state_backend orbax)",
+             os.path.isdir(self.orbax_dir)),
+            ("train_state.msgpack (--state_backend msgpack)",
+             os.path.exists(self.state_path))) if there]
+        return (f"{self.ckpt_dir}: its train_state.meta.json names epoch "
+                f"{epoch}, but the {self.backend} state of that epoch is "
+                f"not there; the directory holds "
+                f"{' and '.join(held) or 'no train state'}")
 
     @staticmethod
     def apply_meta(meta: dict, stopper, tracker, gen) -> Tuple[int, list,
@@ -462,6 +495,11 @@ class FullStateResumer:
         return int(meta["epoch"]) + 1, list(meta["history"]), \
             int(meta["n_steps"])
 
+    def _write_meta(self, text: str) -> None:
+        with open(self.meta_path + ".tmp", "w") as f:
+            f.write(text)
+        os.replace(self.meta_path + ".tmp", self.meta_path)
+
     def save(self, state, epoch: int, stopper, tracker, history: list,
              n_steps: int, gen) -> None:
         """Call on every process; only the main one writes (JAX
@@ -476,7 +514,31 @@ class FullStateResumer:
                      "n_steps": n_steps,
                      "rng": base64.b64encode(gen.get_state().numpy()
                                              .tobytes()).decode()}
+        text = json.dumps(meta)
+        if self.backend == "orbax":
+            from .orbax_io import save_state
+            save_state(self.manager, epoch, state,
+                       on_commit=lambda: self._write_meta(text))
+            return
         save_train_state(self.state_path, state, epoch)
-        with open(self.meta_path + ".tmp", "w") as f:
-            json.dump(meta, f)
-        os.replace(self.meta_path + ".tmp", self.meta_path)
+        self._write_meta(text)
+
+    def finish(self) -> None:
+        """Wait for the orbax save in flight to commit (a no-op for
+        msgpack, and when no manager was made)."""
+        if self._mgr is not None:
+            self._mgr.wait_until_finished()
+
+    def state_bytes(self) -> int:
+        """The bytes of the last state written (0 when none was)."""
+        if self.backend == "orbax":
+            rows = self._mgr.saves if self._mgr is not None else []
+            return rows[-1].get("bytes", 0) if rows else 0
+        return os.path.getsize(self.state_path) \
+            if os.path.exists(self.state_path) else 0
+
+    def write_seconds(self) -> list:
+        """Each orbax save's background write, in seconds (None while in
+        flight); empty for msgpack, whose save the loop times whole."""
+        rows = self._mgr.saves if self._mgr is not None else []
+        return [r.get("write_s") for r in rows]

@@ -23,12 +23,12 @@ neither kernel for them; ``"auto"`` takes the bank within
 needs no teacher and no image.
 
 With ``save_full_state`` the full train state is saved at every epoch
-boundary (msgpack, ``FullStateResumer``) and ``auto_resume`` continues from
-it bit for bit; a SIGTERM (``utils/preemption.py``) saves it at the next
-boundary and ends the call cleanly. The teacher may be of any mode: the
-student distills its ``main_logit`` (JAX ``kd_loop.py:80-82``; the
-reference distills only from ``dual``). Not ported: the orbax backend
-(P16), refused naming its ROADMAP item.
+boundary (``FullStateResumer``: msgpack, or ``state_backend="orbax"``'s
+async orbax steps, committed before the call returns) and ``auto_resume``
+continues from it bit for bit; a SIGTERM (``utils/preemption.py``) saves it
+at the next boundary and ends the call cleanly. The teacher may be of any
+mode: the student distills its ``main_logit`` (JAX ``kd_loop.py:80-82``;
+the reference distills only from ``dual``).
 
 Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX ``kd_loop.py:
 194-250``): each group of K train batches (``stack_host_batches``; the
@@ -246,6 +246,7 @@ def train_student_kd(dataset: AnchorDataset, student_cfg: StudentConfig,
                 and epoch + 1 - start_epoch >= stop_after_epochs:
             log(f"pausing after {stop_after_epochs} epochs")
             break
+    resumer.finish()    # the orbax save in flight, committed (JAX :307)
     _sync(dev)
     elapsed = time.perf_counter() - t_start
 

@@ -49,6 +49,13 @@ from torch import nn
 from ..config import OptimConfig
 from ..convert import flax_paths
 
+# the parameter groups, sorted as optax keeps ``multi_transform``'s
+# ``inner_states``: ``frozen`` takes no update (JAX ``make_optimizer``'s
+# ``set_to_zero``), each other group AdamW at its own learning-rate
+# multiplier
+FROZEN = "frozen"
+GROUPS = ("backbone", "correction", FROZEN, "queries", "rest")
+
 
 def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
                   min_lr_ratio: float = 0.01,
@@ -142,10 +149,10 @@ class MultiGroupAdamW:
         groups = {}
         for name, p in model.named_parameters():
             path = paths[name][1]
-            label = "frozen" if any(path.startswith(f)
-                                    for f in frozen_prefixes) \
+            label = FROZEN if any(path.startswith(f)
+                                  for f in frozen_prefixes) \
                 else label_fn(path)
-            if label == "frozen":
+            if label == FROZEN:
                 p.requires_grad_(False)
             else:
                 groups.setdefault(label, []).append(p)

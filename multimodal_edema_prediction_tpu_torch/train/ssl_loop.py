@@ -8,10 +8,10 @@ global norm, the best checkpoint by the lowest val loss (JAX format, prefix
 ``pretrain``), early stopping, and ``meta_with_stats.pkl`` written beside
 the checkpoints: the contract every later stage reads. With
 ``save_full_state`` the full train state is saved at every epoch boundary
-(msgpack, ``FullStateResumer``), and ``auto_resume`` continues from it bit
-for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
-and ends the call cleanly. Not ported: the orbax backend (P16), refused
-naming its ROADMAP item.
+(``FullStateResumer``: msgpack, or ``state_backend="orbax"``'s async orbax
+steps, committed before the call returns), and ``auto_resume`` continues
+from it bit for bit; a SIGTERM (``utils/preemption.py``) saves it at the
+next boundary and ends the call cleanly.
 
 Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX ``ssl_loop.py:
 103-147``): each group of K train batches (``stack_host_batches``; the
@@ -173,6 +173,7 @@ def train_ssl(dataset: SlidingSSLDataset, duett_cfg: DuettConfig,
                 and epoch + 1 - start_epoch >= stop_after_epochs:
             log(f"pausing after {stop_after_epochs} epochs")
             break
+    resumer.finish()    # the orbax save in flight, committed (JAX :229)
     _sync(dev)
     elapsed = time.perf_counter() - t_start
 

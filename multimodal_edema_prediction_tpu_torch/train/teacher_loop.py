@@ -51,8 +51,9 @@ moments, step count, the step generator and the loop's bookkeeping) is
 saved at every epoch boundary, and ``auto_resume`` continues from it bit
 for bit; a SIGTERM (``utils/preemption.py``) saves it at the next boundary
 and ends the call cleanly; ``stop_after_epochs`` pauses after that many
-epochs of one call. Not ported yet: the orbax state backend (P16),
-refused naming its ROADMAP item.
+epochs of one call. ``state_backend="orbax"`` writes the state as JAX's
+optax tree in orbax steps (``train/orbax_io.py``), in the background; the
+call commits the last one before it returns.
 
 Multi-step dispatch (``cfg.steps_per_call`` K > 1; JAX
 ``teacher_loop.py:414-445, :536-577``): the residual-fusion modes and LP
@@ -100,7 +101,6 @@ scalars (``test/*``).
 from __future__ import annotations
 
 import copy
-import os
 import time
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -131,7 +131,7 @@ from .evaluator import (evaluate_dual_pathology, evaluate_pathology,
                         format_pathology_gap_table)
 from .loops import (EarlyStopper, TrainResult, evaluate_binary_split,
                     without_valid)
-from .optim import MultiGroupAdamW, default_label_fn
+from .optim import FROZEN, MultiGroupAdamW, default_label_fn
 from .state import TrainState, param_count
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -221,7 +221,7 @@ def lp_frozen_label_fn(path: str) -> str:
     reference trainer.py:194-202): only the correction head and β train."""
     if any(path.startswith(p) for p in LP_TRAINABLE):
         return "correction"
-    return "frozen"
+    return FROZEN
 
 
 def load_lp_start(model: TeacherModel, lp_from: str,
@@ -671,8 +671,11 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     best_val_outputs = None
     best_state = None   # multi-process: every rank keeps the best in memory
     history, start_epoch, n_steps = [], 0, 0
+    restore_s = None
     if auto_resume:
+        t0 = time.perf_counter()
         meta = resumer.restore(state)
+        restore_s = time.perf_counter() - t0
         if meta is not None:
             start_epoch, history, n_steps = resumer.apply_meta(
                 meta, stopper, tracker, gen)
@@ -810,6 +813,7 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
             log(f"pausing after {stop_after_epochs} epochs of this call "
                 "(resume with auto_resume)")
             break
+    resumer.finish()    # the orbax save in flight, committed (JAX :711)
     elapsed = time.perf_counter() - t_start
 
     if mh.is_main_process():
@@ -842,8 +846,9 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
         samples_per_sec=sps * cfg.batch_size,
         extras={"phase_seconds": phase, "n_train_steps": ran,
                 "start_epoch": start_epoch, "state_save_s": saves,
-                "state_bytes": (os.path.getsize(resumer.state_path)
-                                if saves else 0),
+                "state_write_s": resumer.write_seconds(),
+                "state_restore_s": restore_s,
+                "state_bytes": resumer.state_bytes() if saves else 0,
                 "feature_tier": tier, "image_tier": image_tier,
                 "n_eval_steps": n_eval[0],
                 "best_val_outputs": best_val_outputs,

@@ -19,8 +19,15 @@ skippable frames included:
   window;
 - the content checksum (the low 32 bits of XXH64), verified when present.
 
-A malformed frame raises ``ValueError``. No encoder: the port writes LZ4
-(:mod:`.lz4`), as pandas does by default.
+A malformed frame raises ``ValueError``.
+
+:func:`compress_raw` is the one encoder: a single-segment frame of raw
+blocks (at most 128 KiB each, no checksum), valid Zstandard that any decoder
+reads, with no entropy coding. The port's orbax states store their zarr
+chunks so (``compressor: zstd`` in each ``.zarray``, as orbax writes it),
+and restoring them copies blocks instead of running the entropy decoder
+above. Feather files the port writes are LZ4 (:mod:`.lz4`), as pandas
+writes by default.
 """
 from __future__ import annotations
 
@@ -574,3 +581,29 @@ def _frame(data: bytes, p: int, out: bytearray) -> int:
             raise ValueError("zstd: content checksum mismatch")
         p += 4
     return p
+
+
+def compress_raw(data) -> bytes:
+    """``data`` as one Zstandard frame (RFC 8878) of raw blocks: the frame
+    header names the content size (single segment, so the window is the
+    content), then blocks of at most 128 KiB, the last one flagged."""
+    data = memoryview(data).cast("B")
+    n = len(data)
+    if n < 256:
+        fhd, fcs = 0x20, n.to_bytes(1, "little")
+    elif n < 65536 + 256:
+        fhd, fcs = 0x60, (n - 256).to_bytes(2, "little")
+    elif n < 1 << 32:
+        fhd, fcs = 0xA0, n.to_bytes(4, "little")
+    else:
+        fhd, fcs = 0xE0, n.to_bytes(8, "little")
+    out = [MAGIC.to_bytes(4, "little"), bytes([fhd]), fcs]
+    p = 0
+    while True:
+        size = min(n - p, _BLOCK_MAX)
+        last = p + size == n
+        out.append((int(last) | size << 3).to_bytes(3, "little"))
+        out.append(data[p:p + size])
+        p += size
+        if last:
+            return b"".join(out)

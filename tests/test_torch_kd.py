@@ -482,9 +482,18 @@ def test_kd_loop_refuses_what_is_not_ported(loops, teacher_ckpt,
         feature_cache="hbm", log=lambda s: None)
     assert two.extras["step_losses"] == res.extras["step_losses"]
     assert two.history == res.history
-    with pytest.raises(NotImplementedError, match="P16"):
-        K.train_student_kd(None, scfg, teacher_ckpt, cfg, str(tmp_path),
-                           device="cpu", state_backend="orbax")
+    # the orbax backend (P16) is done: the same history, its epochs
+    # committed as orbax steps (the last two kept)
+    orbax = K.train_student_kd(
+        _port_data(), scfg, teacher_ckpt, cfg, str(tmp_path / "orbax"),
+        model=_port_student(student_vars), device="cpu",
+        image_hook=TL.make_synthetic_pixel_hook(56), feature_cache="hbm",
+        save_full_state=True, state_backend="orbax", log=lambda s: None)
+    assert orbax.history == res.history
+    from multimodal_edema_prediction_tpu_torch.train.orbax_io import \
+        make_manager
+    assert make_manager(str(tmp_path / "orbax" / "orbax_state")
+                        ).all_steps() == list(range(cfg.epochs))[-2:]
     # multi-process KD runs since P18 was ported (tests/
     # test_torch_multihost_2proc.py); a launcher's WORLD_SIZE with no
     # initialised process group is refused before any work
@@ -562,7 +571,21 @@ def test_cli_distills_from_the_chain_on_the_cpu(chain, monkeypatch):
 def test_cli_refuses_what_is_not_ported(argv, error, match, tmp_path,
                                         request):
     """What the CLI does not port raises before any work; ``--steps_per_call
-    2`` (P10, done) distills from the chain's teacher instead."""
+    2`` (P10, done) distills from the chain's teacher instead, and
+    ``--state_backend orbax`` (P16, done) distills and commits the epoch's
+    state as orbax step 0."""
+    if match == "P16":
+        from multimodal_edema_prediction_tpu_torch.train.orbax_io import \
+            make_manager
+        _, teacher_path, common, _ = request.getfixturevalue("chain")
+        res = cli.main(common + ["--teacher_ckpt", teacher_path,
+                                 "--warmup_steps", "2",
+                                 "--ckpt_dir", str(tmp_path)] + argv)
+        assert np.isfinite(res.history[0]["train_total"])
+        run_dir = os.path.dirname(res.best_path)
+        assert make_manager(os.path.join(run_dir, "orbax_state")
+                            ).all_steps() == [0]
+        return
     if match == "P10":
         _, teacher_path, common, _ = request.getfixturevalue("chain")
         res = cli.main(common + ["--teacher_ckpt", teacher_path,

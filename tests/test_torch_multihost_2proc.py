@@ -18,6 +18,11 @@ must equal the one-process step's (1e-5; the gradient to 1e-5 of its
 largest magnitude), and the losses and statistics lie far from what
 per-rank means would give (the two halves' steps averaged).
 
+The ``teacher_orbax`` recipe (JAX's ``teacher_orbax``) trains on the orbax
+state backend, paused after epoch 1 and resumed: rank 0 alone writes the
+steps into the shared directory, both ranks restore from it, and the pair
+ends in one state and equals one process.
+
 Multi-step dispatch (``steps_per_call`` 3 over 4 batches an epoch, a group
 of 3 and a remainder of 1) in the encode-once teacher, SSL and KD: each
 rank's run at K = 3 equals the same pair's run at K = 1 bit for bit (the
@@ -48,7 +53,8 @@ import torch_mh_worker as W  # noqa: E402
 
 MULTISTEP = ("teacher_cached", "ssl", "kd")
 RECIPES = ("teacher", "teacher_images", "teacher_cached", "teacher_preempt",
-           "teacher_preempt_resume", "ssl", "kd", "uneven") + tuple(
+           "teacher_preempt_resume", "teacher_orbax", "ssl", "kd",
+           "uneven") + tuple(
                f"multistep_{kind}" for kind in MULTISTEP)
 LOSS_KEY = {"ssl": "train_loss"}
 
@@ -143,10 +149,19 @@ def _assert_equivalent(kind, r0, r1, single):
 
 
 @pytest.mark.parametrize("kind", ["teacher", "teacher_images",
-                                  "teacher_cached", "ssl", "kd"])
+                                  "teacher_cached", "teacher_orbax", "ssl",
+                                  "kd"])
 def test_two_processes_match_one(kind, two_proc, one_proc):
     r0, r1 = (two_proc[i][kind] for i in range(2))
     _assert_equivalent(kind, r0, r1, one_proc(kind))
+    if kind == "teacher_orbax":
+        # paused after epoch 1 and resumed from rank 0's committed steps:
+        # both ranks restored the same state and ended in it
+        assert r0["start_epoch"] == r1["start_epoch"] == 1
+        assert r0["orbax_steps"] == r1["orbax_steps"] \
+            == one_proc(kind)["orbax_steps"] == [0, 1]
+        assert r0["digest"] == r1["digest"]
+        assert r0["first_history"] == r0["history"][:1]
     if kind == "kd":
         assert r0["teacher_best"] == pytest.approx(r1["teacher_best"],
                                                    abs=1e-12)

@@ -11,6 +11,7 @@ per-epoch train and val losses within 5e-3 relative (the precedent of
 ``tests/test_student_loop_parity.py``).
 """
 import json
+import os
 
 import jax
 import numpy as np
@@ -186,10 +187,11 @@ def test_ssl_resume_is_bit_exact(runs, tmp_path):
 
 
 def test_ssl_loop_refuses_what_is_not_ported(runs, tmp_path):
-    """The orbax backend (P16) raises naming its item. Multi-step dispatch
-    (P10) is done: ``steps_per_call=4`` trains, to the K = 1 run's history
-    and full state bit for bit (2 batches an epoch: one call of 2, the
-    remainder shape)."""
+    """Multi-step dispatch (P10) is done: ``steps_per_call=4`` trains, to
+    the K = 1 run's history and full state bit for bit (2 batches an epoch:
+    one call of 2, the remainder shape). The orbax backend (P16) is done:
+    it trains to the same history and commits the same final state as
+    orbax steps."""
     _, res, root, params, stats = runs
     four = L.train_ssl(_port_data(), DuettConfig(**DUETT),
                        TrainConfig(**{**TRAIN, "steps_per_call": 4}),
@@ -206,17 +208,35 @@ def test_ssl_loop_refuses_what_is_not_ported(runs, tmp_path):
             want, got = ({k: x[k] for k in ("rng", "history", "n_steps")}
                          for x in (want, got))
         assert got == want, name
-    with pytest.raises(NotImplementedError, match="P16"):
-        L.train_ssl(None, DuettConfig(**DUETT), TrainConfig(**TRAIN),
-                    str(tmp_path), state_backend="orbax", device="cpu")
+    orbax = L.train_ssl(_port_data(), DuettConfig(**DUETT),
+                        TrainConfig(**TRAIN), str(tmp_path / "orbax"),
+                        model=_port_model(params, stats), device="cpu",
+                        save_full_state=True, state_backend="orbax",
+                        log=lambda s: None, **LOOP)
+    assert orbax.history == res.history
+    from multimodal_edema_prediction_tpu_torch.convert import (flatten_state,
+                                                               optax_state)
+    from multimodal_edema_prediction_tpu_torch.train import orbax_io
+    mgr = orbax_io.make_manager(str(tmp_path / "orbax" / "orbax_state"))
+    stored = orbax_io.read_arrays(os.path.join(
+        mgr.step_dir(mgr.latest_step()), orbax_io.ITEM))
+    want = res.extras["state"]
+    leaves = {".".join(k for k, _ in p): t for p, t in flatten_state(
+        optax_state(want.model, want.optimizer, want.step))
+        if isinstance(t, torch.Tensor)}
+    assert stored.keys() == leaves.keys()
+    for k, t in leaves.items():
+        np.testing.assert_array_equal(stored[k][0], t.detach().numpy(),
+                                      err_msg=k)
 
 
 @pytest.mark.parametrize("argv,match", [
     (["--state_backend", "orbax"], "P16"),
     (["--steps_per_call", "4"], "P10")])
 def test_ssl_cli_refuses_what_is_not_ported(argv, match, tmp_path):
-    """``--state_backend orbax`` raises naming P16; ``--steps_per_call 4``
-    (P10, done) parses and trains."""
+    """``--state_backend orbax`` (P16, done) trains and commits the epoch's
+    state as orbax step 0; ``--steps_per_call 4`` (P10, done) parses and
+    trains."""
     base = ["--device", "cpu", "--synthetic_stays", "40", "--n_variables",
             "6", "--ckpt_dir", str(tmp_path)]
     if match == "P10":
@@ -226,8 +246,15 @@ def test_ssl_cli_refuses_what_is_not_ported(argv, match, tmp_path):
         assert res.extras["n_train_steps"] == 3
         assert np.isfinite(res.history[0]["train_loss"])
         return
-    with pytest.raises(NotImplementedError, match=match):
-        cli_ssl.main(base + argv)
+    from multimodal_edema_prediction_tpu_torch.train.orbax_io import \
+        make_manager
+    res = cli_ssl.main(base + ["--batch_size", "16", "--epochs", "1",
+                               "--limit_batches", "3", "--d_embedding", "8"]
+                       + argv)
+    assert np.isfinite(res.history[0]["train_loss"])
+    run_dir = os.path.dirname(res.best_path)
+    assert make_manager(os.path.join(run_dir, "orbax_state")
+                        ).all_steps() == [0]
 
 
 def _teacher_cfg():

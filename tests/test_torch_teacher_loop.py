@@ -133,7 +133,7 @@ def _tiny(**kw):
 
 # ROADMAP items done since their cases were written: their modes and
 # flags now train where they used to raise
-DONE = {"P10", "P13", "P15", "P20"}
+DONE = {"P10", "P13", "P15", "P16", "P20"}
 
 
 def _cohort():
@@ -189,7 +189,9 @@ def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
     of a done item train an epoch instead: P10's ``--steps_per_call``, P13's
     two modes, and LP mode from a checkpoint of the CLI's default mode;
     P15's ``--cxr_jpeg_root``
-    from a directory of JPEGs written here (``scripts/jpeg_fixtures.py``)."""
+    from a directory of JPEGs written here (``scripts/jpeg_fixtures.py``);
+    P16's ``--state_backend orbax`` leaves the epoch's state committed as
+    orbax step 0 under the run's ``orbax_state/``."""
     base = ["--device", "cpu", "--vit_size", "tiny", "--synthetic_stays",
             "40"]
     if match not in DONE:
@@ -216,8 +218,20 @@ def test_cli_refuses_what_is_not_ported(argv, match, tmp_path):
         jpeg_fixtures.write_jpegs(str(root), np.unique(
             ad.anchor["image_ids"]), 40, 36)
         argv = ["--cxr_jpeg_root", str(root)]
+    if match == "P16":
+        run.remove("--no_save_state")
     res = cli.main(run + ["--ckpt_dir", str(tmp_path / "run")] + argv)
     assert np.isfinite(list(res.history[0].values())[1])
+    if match == "P16":
+        import os
+
+        from multimodal_edema_prediction_tpu_torch.train.orbax_io import \
+            make_manager
+        run_dir = os.path.dirname(res.best_path)
+        assert make_manager(os.path.join(run_dir, "orbax_state")
+                            ).all_steps() == [0]
+        assert not os.path.exists(os.path.join(run_dir,
+                                               "train_state.msgpack"))
     if "--lp_only_correction" in argv:
         assert "lp_beta_mean_abs" in res.history[0]
 

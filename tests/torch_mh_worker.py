@@ -306,6 +306,27 @@ def run_recipe(kind: str, workdir: str) -> dict:
         out["n_images"] = res.extras["feature_tier"]["n_images"]
         return out
 
+    if kind == "teacher_orbax":
+        # JAX's recipe on the orbax backend, paused after epoch 1 and
+        # resumed: rank 0 alone writes the steps (the ranks hold the same
+        # state), every rank restores from the shared directory
+        from multimodal_edema_prediction_tpu_torch.train.orbax_io import \
+            make_manager
+        _, _, ads = cohort()
+        d = os.path.join(workdir, "teacher_orbax")
+        first = train_teacher(ads, tcfg, cfg, d, LABELS, device="cpu",
+                              save_full_state=True, state_backend="orbax",
+                              stop_after_epochs=1)
+        res = train_teacher(ads, tcfg, cfg, d, LABELS, device="cpu",
+                            auto_resume=True, state_backend="orbax")
+        out = _result(res)
+        out["first_history"] = first.history
+        out["start_epoch"] = res.extras["start_epoch"]
+        out["orbax_steps"] = make_manager(os.path.join(
+            d, "orbax_state")).all_steps()
+        out["digest"] = state_digest(res)
+        return out
+
     if kind in ("teacher_preempt", "teacher_preempt_resume",
                 "teacher_4epochs"):
         from multimodal_edema_prediction_tpu_torch.utils import preemption
