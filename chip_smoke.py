@@ -389,8 +389,9 @@ The supervised DuETT recipe (ROADMAP P14), the inference CLI and serving's
             and on ``--cxr_feature_cache hbm`` in float32 (the four
             probes' AUROCs within ANALYSIS_TIER_TOL; a bank that hands
             each image the next image's tokens beyond it); the raw
-            trajectory probe over the 7 labels (3 folds); the figure suite with
-            ``--dim_reduce auto`` (UMAP) and ``tsne`` (both projections
+            trajectory probe over the 7 labels (3 folds, 2
+            permutations); the figure suite with ``--dim_reduce auto``
+            (UMAP) and ``tsne`` (both projections
             and the token t-SNE finite, [N·K, 2] and [N, 2]; the CSVs);
             the trajectory-encoder probe (d_model 128, 3 epochs: finite
             AUROCs, no kernel launched, its checkpoint reloaded into the
@@ -458,7 +459,16 @@ build:
             that fails, finds no card or runs past PARALLEL_RANK_TIMEOUT
             fails the phase. ``python3 chip_smoke.py --only-parallel``
             runs the device, build and parallel phases alone (no summary,
-            no ``ok`` line).
+            no ``ok`` line). The gradient-flow diagnostics over processes
+            (ROADMAP P18b): the pixel runs (world 1 with and without its
+            group, each gloo rank) take ``--grad_diag_every 1
+            --grad_diag_batches 1``; each rank's ``grad_diag/*`` equals the
+            other's within PARALLEL_RANKS_TOL and world 1's within the
+            loss and metric tolerances (per key: PARALLEL_LOSS_RTOL
+            relative or PARALLEL_METRIC_TOL absolute), world 1's with and
+            without its group are equal, and K1's predicted launches count
+            the diagnostics' val batch (12 a forward, no backward through
+            the frozen ViT).
 
 L0 preprocessing without pandas (ROADMAP P21) adds, after ``int8``:
 
@@ -486,7 +496,39 @@ L0 preprocessing without pandas (ROADMAP P21) adds, after ``int8``:
             (``--data_dir``) at full width on procedural pixels in bf16, 1
             epoch of L0_LIMIT_BATCHES batches of 32: finite losses and K1's
             launches as predicted from the cohort's splits before the call
-            (12 a train step and an eval step).
+            (12 a train step and an eval step). Before it, the host
+            data-path ops (``densify_events_native``,
+            ``gather_windows_native``, g++ from ``csrc/host/data_ops.cpp``)
+            on that cohort and on the synthetic one at 2,000 stays
+            (NATIVE_SYNTHETIC) against the port's main path (numpy
+            densify within rtol 1e-6, the card's window gather bit for
+            bit, 1 thread and all the host's cores bit-equal), each
+            route's host milliseconds and the thread count.
+
+RAD-DINO weights with no JAX on the card's host add, after ``golden``:
+
+32. rad_dino  a seeded ViT-B/14 state dict in Hugging Face's names and
+            shapes (``hf_dinov2_shapes``, 518², ~86.6 M float32 values)
+            written as ``model.safetensors`` in numpy, with ``config.json``
+            and ``preprocessor_config.json``; ``cli/convert_rad_dino.main``
+            on that directory with ``transformers`` and ``safetensors``
+            hidden from the call (the route of a host without them: it
+            must print that the conversion is unverified), and where this
+            host has ``transformers``, the file's ViT in float32 on the
+            CPU against ``Dinov2Model`` (atol 2e-4, rtol 1e-3; a process
+            of its own on 2 host threads beside the later phases, its line
+            ``rad_dino_vs_transformers`` after ``multistep``); every
+            converted array equal to its source after the mapping's
+            transposes (``hf_to_flax``, written apart from the
+            converters); the full-width ViT from the file through K1
+            against the same ViT through ``flash_mha_reference`` (bf16
+            within TOL_BF16 of each output's max abs; float32 within the
+            golden phase's atol 2e-4, rtol 1e-3), 12 launches a forward;
+            ``cli/train_teacher.main --vit_weights`` at full width on
+            procedural pixels (bf16, SHORT_STAYS stays, 1 epoch of
+            RAD_DINO_LIMIT batches of RAD_DINO_BATCH): K1 12 a train and
+            eval step, finite losses, the best checkpoint's ViT bit-equal
+            to the converted file's.
 
 Serving's bucket graphs and ``--aot_dir`` (ROADMAP P10b) add, after
 ``serve``:
@@ -531,6 +573,7 @@ import base64
 import copy
 import functools
 import hashlib
+import importlib.util
 import json
 import os
 import shutil
@@ -711,6 +754,8 @@ def import_port():
                                                            train_teacher)
     from multimodal_edema_prediction_tpu_torch.cli import \
         preprocess as cli_preprocess
+    from multimodal_edema_prediction_tpu_torch.cli import \
+        convert_rad_dino as cli_convert_rad_dino
     from multimodal_edema_prediction_tpu_torch.data import (features, images,
                                                             ingest,
                                                             native_loader,
@@ -755,8 +800,9 @@ def import_port():
     from multimodal_edema_prediction_tpu_torch.utils import (crc32c, logging,
                                                              lz4, ocdbt,
                                                              preemption,
-                                                             profiling, zarr2,
-                                                             zstd)
+                                                             profiling,
+                                                             safetensors_io,
+                                                             zarr2, zstd)
     from multimodal_edema_prediction_tpu_torch.data import arrow_ipc
     return dict(int8=int8, lupi_losses=lupi_losses, logging=logging,
                 profiling=profiling, config=config, convert=convert,
@@ -799,7 +845,9 @@ def import_port():
                 preprocess=preprocess, demographics=demographics,
                 subtype=subtype, prompts=prompts, reports=reports,
                 text_embeddings=text_embeddings, jpeg_writer=jpeg_writer,
-                arrow_ipc=arrow_ipc, lz4=lz4, zstd=zstd)
+                arrow_ipc=arrow_ipc, lz4=lz4, zstd=zstd,
+                cli_convert_rad_dino=cli_convert_rad_dino,
+                safetensors_io=safetensors_io)
 
 
 def golden_vit_state(cfg) -> dict:
@@ -5081,10 +5129,12 @@ def phase_analysis_b(port, device, frozen_ckpt: str, card: str = "") -> dict:
         ("conditional_hbm_f32_wrong_rows", "conditional_information_probe",
          cond + ["--label_idx", "0"] + hbm, True,
          {k1f: L * bank_chunks, "gather_rows_bulk": 2 * per_label}),
-        # 3 folds of its host L-BFGS fits (the CLI's default 5; cut for
-        # the script's time limit)
+        # 3 folds of its host L-BFGS fits (the CLI's default 5) and 2
+        # permutations (each a 5-fold refit; the other runs' 5): cut for
+        # the script's time limit
         ("raw_trajectory", "raw_trajectory_conditional_probe",
-         cond + ["--cv_folds", "3"], False, {k1: L * per_label}),
+         cond + ["--cv_folds", "3", "--n_perm", "2"], False,
+         {k1: L * per_label}),
         ("visualize_umap", "visualize_pathology",
          base + ["--ckpt", frozen_ckpt, "--dim_reduce", "auto"], False,
          {k1: L * viz_batches}),
@@ -5630,6 +5680,347 @@ def phase_golden(port, device, cfg, golden_path) -> dict:
     return info
 
 
+# --- RAD-DINO conversion with no JAX on the card's host --------------------
+RAD_DINO_RUNS = os.path.join(REPO, "build", "chip_smoke_rad_dino")
+# the teacher CLI from the converted file: 1 epoch of 2 batches
+RAD_DINO_BATCH = 16
+RAD_DINO_LIMIT = 2
+
+
+# the converter's check against transformers' Dinov2Model, in a process of
+# its own on the CPU: argv the converted file, the Hugging Face directory
+# and the ViT's config as JSON
+RAD_DINO_VERIFY = """
+import json, sys, time
+t0 = time.perf_counter()
+from multimodal_edema_prediction_tpu_torch.cli import convert_rad_dino as C
+from multimodal_edema_prediction_tpu_torch.config import ViTConfig
+from multimodal_edema_prediction_tpu_torch.models.vit import (DinoViT,
+                                                              load_vit_params)
+cfg = ViTConfig.from_dict(json.loads(sys.argv[3]))
+vit = DinoViT(cfg)
+vit.load_state_dict(load_vit_params(sys.argv[1], cfg), strict=True)
+err = C.verify(vit.eval(), sys.argv[2], cfg)
+print(json.dumps({"max_abs_err": err, "seconds": time.perf_counter() - t0}))
+"""
+RAD_DINO_VERIFY_TIMEOUT = 300
+
+
+def _kill(proc) -> None:
+    """Kill ``proc`` (a ``Popen``, or None) if it still runs."""
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def rad_dino_state(shapes: list, seed: int = 0) -> dict:
+    """A seeded ``Dinov2Model`` state dict of ``shapes`` (Hugging Face's
+    names and shapes, ``models/vit.py::hf_dinov2_shapes``), float32:
+    weights and biases N(0, 0.02²), the LayerNorms' weights 1 + N(0,
+    0.02²), the layer scales 0.1 + N(0, 0.01²)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes:
+        x = rng.standard_normal(shape, dtype=np.float32)
+        if "norm" in name and name.endswith(".weight"):
+            out[name] = 1.0 + 0.02 * x
+        elif "layer_scale" in name:
+            out[name] = 0.1 + 0.01 * x
+        else:
+            out[name] = 0.02 * x
+    return out
+
+
+def hf_to_flax(name: str) -> tuple:
+    """A Hugging Face Dinov2 array's flax path (a tuple of keys) and the
+    transpose that takes it there, written out apart from the converters
+    (JAX ``convert_hf_dinov2``'s layout): linear weights [out, in] become
+    kernels [in, out], the patch conv [D, 3, P, P] an HWIO kernel."""
+    parts = name.split(".")
+    leaf = {"weight": "kernel", "bias": "bias"}
+    if name.startswith("embeddings.patch_embeddings.projection."):
+        return ("patch_embed", leaf[parts[-1]]), \
+            ((2, 3, 1, 0) if parts[-1] == "weight" else None)
+    if name == "embeddings.cls_token":
+        return ("cls_token",), None
+    if name == "embeddings.position_embeddings":
+        return ("pos_embed",), None
+    if name.startswith("layernorm."):
+        return ("final_norm", {"weight": "scale", "bias": "bias"}[
+            parts[-1]]), None
+    block = f"block_{parts[2]}"
+    rest = ".".join(parts[3:])
+    if rest.startswith(("norm1.", "norm2.")):
+        return (block, parts[3], {"weight": "scale", "bias": "bias"}[
+            parts[-1]]), None
+    if rest.startswith("layer_scale"):
+        return (block, f"layerscale{rest[len('layer_scale')]}"), None
+    sub = {"attention.attention.query": ("attn", "q"),
+           "attention.attention.key": ("attn", "k"),
+           "attention.attention.value": ("attn", "v"),
+           "attention.output.dense": ("attn", "out"),
+           "mlp.fc1": ("mlp_in",), "mlp.fc2": ("mlp_out",)}[
+        ".".join(parts[3:-1])]
+    return (block, *sub, leaf[parts[-1]]), \
+        ((1, 0) if parts[-1] == "weight" else None)
+
+
+def _vit_tokens(model, px, dtype) -> tuple:
+    import torch
+    with torch.inference_mode():
+        cls, patches = model(px.to(dtype))
+    torch.cuda.synchronize()
+    return cls.float().cpu().numpy(), patches.float().cpu().numpy()
+
+
+def phase_rad_dino(port, device, card: str = "") -> dict:
+    """RAD-DINO weights to the port's teacher on a host with no JAX, no
+    ``transformers`` and no ``safetensors``: a seeded ViT-B/14 state dict
+    in Hugging Face's names and shapes written as ``model.safetensors`` in
+    numpy (``utils/safetensors_io.py``) with ``config.json`` and
+    ``preprocessor_config.json``; ``cli/convert_rad_dino.main`` on that
+    directory with ``transformers`` and ``safetensors`` hidden (it must say
+    the conversion is unverified), and where the host has
+    ``transformers`` the converter's ``verify`` of the file's ViT on the
+    CPU against ``Dinov2Model``, started here and collected by
+    ``finish_rad_dino_check``; every converted
+    array equal to its source after the mapping's transposes; the
+    full-width ViT from the file through K1 against the same ViT through
+    ``flash_mha_reference``, in bf16 (TOL_BF16 of each output's max abs)
+    and in float32 (the golden phase's atol 2e-4, rtol 1e-3), K1 12 times
+    a forward; then ``cli/train_teacher.main --vit_weights`` at full width
+    on procedural pixels (bf16, 1 epoch of RAD_DINO_LIMIT batches of
+    RAD_DINO_BATCH): K1 12 a train and eval step, finite losses, and the
+    best checkpoint's ViT bit-equal to the converted file's."""
+    import contextlib
+    import io
+
+    import torch
+    t_phase = time.perf_counter()
+    shutil.rmtree(RAD_DINO_RUNS, ignore_errors=True)
+    cfg = port["config"].ViTConfig()
+    hf_dir = os.path.join(RAD_DINO_RUNS, "rad-dino")
+    os.makedirs(hf_dir)
+    t0 = time.perf_counter()
+    sd = rad_dino_state(port["vit"].hf_dinov2_shapes(cfg))
+    port["safetensors_io"].save_file(sd, os.path.join(
+        hf_dir, "model.safetensors"), metadata={"format": "pt"})
+    with open(os.path.join(hf_dir, "config.json"), "w") as f:
+        json.dump({"model_type": "dinov2", "hidden_size": cfg.d_model,
+                   "num_hidden_layers": cfg.n_layers,
+                   "num_attention_heads": cfg.n_heads,
+                   "mlp_ratio": cfg.d_feedforward // cfg.d_model,
+                   "image_size": cfg.image_size,
+                   "patch_size": cfg.patch_size}, f)
+    with open(os.path.join(hf_dir, "preprocessor_config.json"), "w") as f:
+        json.dump({"image_mean": [0.5307] * 3, "image_std": [0.2583] * 3},
+                  f)
+    write_s = time.perf_counter() - t0
+    out = os.path.join(RAD_DINO_RUNS, "rad_dino_flax.msgpack")
+    # where this host has transformers, the converter's own check runs too,
+    # in a process of its own on 2 host threads beside the phases after
+    # this one (``finish_rad_dino_check``), so that transformers, and what
+    # it loads, stays out of this process
+    checker = None
+    printed = io.StringIO()
+    # the route of a host with neither transformers nor safetensors, taken
+    # whether or not this host has them (each hidden for the call)
+    hidden = ("transformers", "safetensors")
+    installed = {m: importlib.util.find_spec(m) is not None
+                 for m in hidden + ("jax",)}
+    saved = {m: sys.modules.get(m) for m in hidden}
+    t0 = time.perf_counter()
+    try:
+        for m in hidden:
+            sys.modules[m] = None
+        with contextlib.redirect_stdout(printed):
+            conv = port["cli_convert_rad_dino"].main(
+                ["--source", hf_dir, "--out", out])
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                del sys.modules[m]
+            else:
+                sys.modules[m] = mod
+    convert_s = time.perf_counter() - t0
+    unverified = "UNVERIFIED: transformers is not installed" \
+        in printed.getvalue()
+    if installed["transformers"]:
+        checker = subprocess.Popen(
+            [sys.executable, "-c", RAD_DINO_VERIFY, out, hf_dir,
+             json.dumps(cfg.to_dict())], cwd=REPO,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "OMP_NUM_THREADS": "2"},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        atexit.register(_kill, checker)
+    manifest = conv["manifest"]
+    params = port["checkpoint"].load_checkpoint(out)["params"]
+    mismatched, checked = [], 0
+    for name, arr in sd.items():
+        if name == "embeddings.mask_token":     # unused by the ViT
+            continue
+        checked += 1
+        path, perm = hf_to_flax(name)
+        node = params
+        for key in path:
+            node = node[key]
+        want = arr.transpose(perm) if perm else arr
+        if node.dtype != np.float32 or node.shape != want.shape \
+                or not np.array_equal(node, want):
+            mismatched.append(name)
+    n_source = sum(a.size for k, a in sd.items()
+                   if k != "embeddings.mask_token")
+    del sd
+
+    # the full-width ViT from the file: K1 against the plain attention
+    vit, att = port["vit"], port["attention"]
+    layers = sys.modules[f"{PKG}.models.layers"]
+    model = vit.DinoViT(cfg)
+    model.load_state_dict(vit.load_vit_params(out, cfg), strict=True)
+    model = model.to(device).eval()
+    S = cfg.image_size
+    g = torch.Generator(device=device).manual_seed(0)
+    px = torch.rand(2, S, S, 3, generator=g, device=device)
+    tokens = {}
+    for dtype, tol in ((torch.bfloat16, None), (torch.float32, (2e-4, 1e-3))):
+        name = str(dtype).split(".")[-1]
+        reset_counts(port)
+        got = _vit_tokens(model, px, dtype)
+        k1_key = att.launch_key("flash_attention", dtype)
+        k1 = read_counts(port)[k1_key]
+        kernel = layers.flash_mha
+        layers.flash_mha = att.flash_mha_reference
+        try:
+            want = _vit_tokens(model, px, dtype)
+        finally:
+            layers.flash_mha = kernel
+        errs = [float(np.abs(a - b).max()) for a, b in zip(got, want)]
+        scale = [float(np.abs(b).max()) for b in want]
+        if tol is None:
+            ok = all(e <= TOL_BF16 * s for e, s in zip(errs, scale))
+        else:
+            ok = all(np.allclose(a, b, atol=tol[0], rtol=tol[1])
+                     for a, b in zip(got, want))
+        tokens[name] = {"k1_key": k1_key, "k1_launches": k1,
+                        "max_abs_err_cls": errs[0],
+                        "max_abs_err_patches": errs[1],
+                        "max_abs_cls": scale[0], "max_abs_patches": scale[1],
+                        "within_tol": bool(ok),
+                        "finite": bool(all(np.isfinite(a).all()
+                                           for a in got))}
+    del model
+    torch.cuda.empty_cache()
+
+    # the teacher CLI from the file, the CXR branch frozen
+    argv = ["--device", "cuda", "--synthetic_stays", SHORT_STAYS,
+            "--batch_size", str(RAD_DINO_BATCH), "--epochs", "1",
+            "--limit_batches", str(RAD_DINO_LIMIT), "--no_save_state",
+            "--vit_weights", out, "--ckpt_dir",
+            os.path.join(RAD_DINO_RUNS, "teacher")]
+    torch.cuda.synchronize()
+    reset_counts(port)
+    t0 = time.perf_counter()
+    res = port["train_teacher"].main(argv)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read_counts(port).items() if v}
+    ex = res.extras
+    expect = {"flash_attention": cfg.n_layers * (ex["n_train_steps"]
+                                                 + ex["n_eval_steps"])}
+    best = _flat(port["checkpoint"].load_checkpoint(
+        res.best_path)["params"]["cxr"])
+    src = _flat(params)
+    vit_equal = best.keys() == src.keys() and all(
+        best[k].dtype == v.dtype and best[k].tobytes() == v.tobytes()
+        for k, v in src.items())
+    losses = [h["train_total"] for h in res.history]
+    info = {"phase": "rad_dino", "card": card,
+            "geometry": [S, cfg.patch_size, cfg.d_model, cfg.n_layers],
+            "safetensors_MB": os.path.getsize(os.path.join(
+                hf_dir, "model.safetensors")) / 1e6,
+            "msgpack_MB": os.path.getsize(out) / 1e6,
+            "write_s": write_s, "convert_s": convert_s,
+            "convert_lines": printed.getvalue().strip().splitlines(),
+            "unverified_line": unverified,
+            "verified_max_abs_err": manifest["verified_max_abs_err"],
+            "host_has": installed,
+            "vs_transformers": "running" if checker else "not installed",
+            "n_params": manifest["n_params"], "n_source": int(n_source),
+            "arrays_checked": checked,
+            "arrays_mismatched": mismatched, "tokens": tokens,
+            "teacher": {"argv": argv, "wall_s": train_s,
+                        "train_steps": ex["n_train_steps"],
+                        "eval_steps": ex["n_eval_steps"],
+                        "launches": launches, "expected_launches": expect,
+                        "epoch_losses": losses,
+                        "vit_bit_equal_to_file": vit_equal},
+            "modules_loaded": sorted(
+                m for m in ("jax", "flax") if sys.modules.get(m) is not None),
+            "seconds": time.perf_counter() - t_phase}
+    emit(info)
+    if checker is None:
+        shutil.rmtree(RAD_DINO_RUNS, ignore_errors=True)
+    else:
+        # the checker reads the file and the directory; the teacher's run
+        # directory goes now
+        shutil.rmtree(os.path.join(RAD_DINO_RUNS, "teacher"),
+                      ignore_errors=True)
+    problems = []
+    if not unverified or manifest["verified_max_abs_err"] is not None:
+        problems.append("the converter did not say it was unverified")
+    if mismatched or manifest["n_params"] != n_source:
+        problems.append(f"converted arrays differ from the source: "
+                        f"{mismatched[:8]}, {manifest['n_params']} params "
+                        f"of {n_source}")
+    for name, t in tokens.items():
+        if not (t["within_tol"] and t["finite"]):
+            problems.append(f"the ViT from the file in {name}: {t}")
+        if t["k1_launches"] != cfg.n_layers:
+            problems.append(f"K1 ({name}) launched {t['k1_launches']} "
+                            f"times a forward, expected {cfg.n_layers}")
+    if launches != expect:
+        problems.append(f"the teacher launched {launches}, expected "
+                        f"{expect}")
+    if not vit_equal:
+        problems.append("the trained teacher's ViT differs from the "
+                        "converted file's")
+    if not all(np.isfinite(losses)):
+        problems.append(f"non-finite losses {losses}")
+    if info["modules_loaded"]:
+        problems.append(f"loaded {info['modules_loaded']}")
+    if problems:
+        raise AssertionError("rad_dino: " + "; ".join(problems))
+    return {**info, "launches": launches, "checker": checker}
+
+
+def finish_rad_dino_check(rad_dino: dict, card: str = "") -> dict:
+    """Collect ``phase_rad_dino``'s check against transformers'
+    ``Dinov2Model`` (the converted full-width ViT in float32 on the CPU,
+    atol 2e-4, rtol 1e-3); one line; fails where it failed."""
+    checker = rad_dino.pop("checker")
+    info = {"phase": "rad_dino_vs_transformers", "card": card,
+            "atol": 2e-4, "rtol": 1e-3}
+    if checker is None:
+        info["skipped"] = "transformers is not installed on this host"
+        emit(info)
+        return info
+    try:
+        text, _ = checker.communicate(timeout=RAD_DINO_VERIFY_TIMEOUT)
+    finally:
+        _kill(checker)
+        shutil.rmtree(RAD_DINO_RUNS, ignore_errors=True)
+    info["rc"] = checker.returncode
+    try:
+        info.update(json.loads(text.strip().splitlines()[-1]))
+    except (ValueError, IndexError):
+        info["output"] = text[-3000:]
+    emit(info)
+    if checker.returncode != 0 or "max_abs_err" not in info:
+        raise AssertionError(f"the converted ViT against Dinov2Model: "
+                             f"{info}")
+    return info
+
+
 def _instance(req: dict) -> dict:
     return {"x_ts": req["x_ts"].tolist(), "static": req["static"].tolist(),
             "pixel_u8_b64": base64.b64encode(
@@ -5824,6 +6215,10 @@ PARALLEL_ARGV = ["--device", "cuda", "--mixed_precision", "no",
                  "--synthetic_stays", "240", "--batch_size", "32",
                  "--epochs", "1", "--limit_batches", "3", "--no_save_state"]
 PARALLEL_CACHED = ["--cxr_feature_cache", "host", "--limit_batches", "5"]
+# the pixel runs (world 1 with and without its group, each gloo rank) also
+# run the gradient-flow diagnostics after their epoch, over one val batch
+# (ROADMAP P18b): every rank on the same rows as one process
+PARALLEL_DIAG = ["--grad_diag_every", "1", "--grad_diag_batches", "1"]
 # multi-step dispatch across processes (ROADMAP P10b), K = 4 over 5
 # batches an epoch (a group of 4 and a remainder of 1): on the gloo ranks
 # the encode-once run above at K = 4 (a loop) against itself at K = 1; in
@@ -5875,9 +6270,13 @@ def _parallel_teacher(port, argv: list, ckpt_dir: str,
         ads, teacher_cfg, tcfg, ckpt_dir, dcfg.pathology_labels,
         device="cuda", feature_cache=args.cxr_feature_cache,
         save_full_state=args.save_state, log=lines.append,
-        **cli.image_kwargs(args))
+        grad_diag_every=args.grad_diag_every,
+        grad_diag_batches=args.grad_diag_batches, **cli.image_kwargs(args))
     torch.cuda.synchronize()
     ex = res.extras
+    every = args.grad_diag_every
+    diag_epochs = sum(1 for e in range(len(res.history))
+                      if every > 0 and (e + 1) % every == 0)
     digest = hashlib.sha256()
     for k, t in sorted(_train_state_of(res).items()):
         digest.update(k.encode())
@@ -5890,6 +6289,10 @@ def _parallel_teacher(port, argv: list, ckpt_dir: str,
             "best_path": res.best_path, "launches": read_counts(port),
             "train_steps": ex["n_train_steps"],
             "eval_steps": ex["n_eval_steps"],
+            # the diagnostics' forwards: one a val batch of each diagnosed
+            # epoch
+            "diag_batches": diag_epochs * args.grad_diag_batches,
+            "diag_lines": sum("grad-flow diagnostics" in ln for ln in lines),
             "step_ms": ex["phase_seconds"]["train"]
             / ex["n_train_steps"] * 1e3,
             "feature_tier": {k: v for k, v in ex["feature_tier"].items()
@@ -5951,9 +6354,10 @@ def parallel_worker(rank: int, world: int, port_no: int, out: str) -> int:
     dist, mh = torch.distributed, port["multihost"]
     res = {"rank": rank, "world": world}
     k_flag = ["--steps_per_call", str(PARALLEL_K)]
+    pixel_argv = PARALLEL_ARGV + PARALLEL_DIAG
     if world == 1:
         res["no_group"] = _parallel_teacher(
-            port, PARALLEL_ARGV, os.path.join(out, "no_group"))
+            port, pixel_argv, os.path.join(out, "no_group"))
         dist.init_process_group(mh.choose_backend(1, "cuda"),
                                 init_method=f"tcp://localhost:{port_no}",
                                 world_size=1, rank=0)
@@ -5961,7 +6365,7 @@ def parallel_worker(rank: int, world: int, port_no: int, out: str) -> int:
         dist.all_reduce(t)
         res["all_reduce"] = t.tolist()
         res["pixels"] = _parallel_teacher(
-            port, PARALLEL_ARGV, os.path.join(out, "world1_pixels"))
+            port, pixel_argv, os.path.join(out, "world1_pixels"))
         res["cached"] = _parallel_teacher(
             port, PARALLEL_ARGV + PARALLEL_CACHED,
             os.path.join(out, "world1_cached"), partition=2)
@@ -5973,7 +6377,7 @@ def parallel_worker(rank: int, world: int, port_no: int, out: str) -> int:
             os.path.join(out, f"world1_k{PARALLEL_K}"))
     else:
         res["pixels"] = _parallel_teacher(
-            port, PARALLEL_ARGV, os.path.join(out, f"rank{rank}_pixels"))
+            port, pixel_argv, os.path.join(out, f"rank{rank}_pixels"))
         res["cached"] = _parallel_teacher(
             port, PARALLEL_ARGV + PARALLEL_CACHED,
             os.path.join(out, f"rank{rank}_cached"))
@@ -6087,13 +6491,48 @@ def _check_ranks_agree(r0: dict, r1: dict, what: str) -> float:
     return gap
 
 
+def _diag_rows(run: dict) -> list:
+    """Each epoch's ``grad_diag/*`` scalars of a run's history."""
+    return [{k: v for k, v in h.items() if k.startswith("grad_diag/")}
+            for h in run["history"]]
+
+
+def _diag_gap(a: dict, b: dict, abs_tol: float = 0.0,
+              rel_tol: float = 0.0) -> dict:
+    """The largest absolute and relative gaps between two runs'
+    ``grad_diag/*``, and the keys outside both ``abs_tol`` and ``rel_tol``
+    of ``b``'s value (NaN equal to NaN; a NaN against a number, or a key in
+    one run only, is outside)."""
+    ra, rb = _diag_rows(a), _diag_rows(b)
+    gap = {"abs": 0.0, "rel": 0.0, "n": 0, "outside": []}
+    if len(ra) != len(rb) or any(x.keys() != y.keys()
+                                 for x, y in zip(ra, rb)):
+        return {**gap, "outside": ["the runs' keys or epochs differ"]}
+    for epoch, (x, y) in enumerate(zip(ra, rb)):
+        for k in x:
+            u, v = x[k], y[k]
+            gap["n"] += 1
+            if np.isnan(u) and np.isnan(v):
+                continue
+            d = abs(u - v)
+            d = float("inf") if np.isnan(d) else d
+            gap["abs"] = max(gap["abs"], d)
+            gap["rel"] = max(gap["rel"], d / max(abs(v), 1e-30))
+            if d > abs_tol and d > rel_tol * abs(v):
+                gap["outside"].append(f"{epoch}:{k}")
+    return gap
+
+
 def _predicted_k1(run: dict) -> int:
     """K1's float32 launches a run should make: one per layer of every ViT
-    forward, on the rank's rows; the encode-once tier runs the ViT only in
-    its build, over the rank's images in chunks of BUILD_CHUNK."""
+    forward, on the rank's rows, and of every val batch of the gradient-flow
+    diagnostics (the whole batch on every rank; the frozen ViT takes no
+    backward); the encode-once tier runs the ViT only in its build, over
+    the rank's images in chunks of BUILD_CHUNK."""
     ft = run["feature_tier"]
     if ft["tier"] == "pixels":
-        return K1_PER_FORWARD * (run["train_steps"] + run["eval_steps"])
+        return K1_PER_FORWARD * (run["train_steps"] + run["eval_steps"]
+                                 + run["diag_batches"])
     return K1_PER_FORWARD * -(-ft["n_images"] // BUILD_CHUNK)
 
 
@@ -6147,7 +6586,9 @@ def phase_parallel(port, device, card: str = "") -> dict:
     agree to PARALLEL_RANKS_TOL, rank 0 equals (a) within JAX's
     tolerances, only rank 0 wrote files, and each rank's K1 launches are
     as predicted (``_predicted_k1``; K2 none: the host store's tokens come
-    with the batch). Then ``--data_parallel`` serving."""
+    with the batch). The pixel runs take the gradient-flow diagnostics
+    (PARALLEL_DIAG), held rank against rank and against world 1. Then
+    ``--data_parallel`` serving."""
     import torch
     shutil.rmtree(PARALLEL_RUNS, ignore_errors=True)
     t0 = time.perf_counter()
@@ -6205,6 +6646,25 @@ def phase_parallel(port, device, card: str = "") -> dict:
             b[0][kind], a[kind], kind) for kind in ("pixels", "cached")}
     except AssertionError as e:
         problems.append(str(e))
+    # the gradient-flow diagnostics over processes (ROADMAP P18b): each
+    # rank's grad_diag/* against the other's and against world 1's (the
+    # tolerances of each epoch's loss and metric: the weights they read
+    # differ by the ranks' summation order)
+    diag = {"ranks": _diag_gap(b[0]["pixels"], b[1]["pixels"],
+                               PARALLEL_RANKS_TOL),
+            **{f"rank{r}_vs_world1": _diag_gap(
+                b[r]["pixels"], a["pixels"], PARALLEL_METRIC_TOL,
+                PARALLEL_LOSS_RTOL) for r in range(2)},
+            "no_group_vs_world1": _diag_gap(a["no_group"], a["pixels"])}
+    info["grad_diag"] = {
+        "gaps": diag, "keys": diag["ranks"]["n"],
+        "diag_batches": {k: runs[k]["diag_batches"] for k in (
+            "no_group", "world1_pixels", "rank0_pixels", "rank1_pixels")},
+        "world1": {k: v for k, v in _diag_rows(a["pixels"])[-1].items()
+                   if "/label/" not in k} if a["pixels"]["history"] else {}}
+    if diag["ranks"]["n"] == 0 or any(g["outside"] for g in diag.values()) \
+            or any(v != 1 for v in info["grad_diag"]["diag_batches"].values()):
+        problems.append(f"grad_diag over processes: {info['grad_diag']}")
     for k, r in runs.items():
         n = r["launches"]
         if n["flash_attention_f32"] != info["predicted_k1"][k] \
@@ -6732,6 +7192,96 @@ def frames_equal(a: dict, b: dict) -> bool:
     return True
 
 
+# the host data ops' second cohort: the synthetic one at 2,000 stays
+NATIVE_SYNTHETIC = dict(seed=0, n_subjects=700, n_stays=2000)
+
+
+def native_ops(port, device, data_dir: str) -> dict:
+    """The host data-path ops (``data/native_loader.py``:
+    ``densify_events_native``, ``gather_windows_native``, built from
+    ``csrc/host/data_ops.cpp`` with g++) against the port's main path
+    (``data/pipeline.py::densify_events`` in numpy,
+    ``pipeline.gather_windows`` on the card), on the preprocessed cohort in
+    ``data_dir`` and on the synthetic cohort at NATIVE_SYNTHETIC's 2,000
+    stays: the grid within rtol 1e-6 (atol 1e-6), every anchor's window
+    bit-equal, 1 thread and all the host's cores bit-equal; the host
+    milliseconds of each route (best of 3; the card's gather to a
+    sync)."""
+    nl, P = port["native_loader"], port["pipeline"]
+    threads = len(os.sched_getaffinity(0))
+    t0 = time.perf_counter()
+    nl.build_data_ops()
+    out = {"threads": threads, "build_s": time.perf_counter() - t0}
+    synth = port["synthetic"].make_synthetic(**NATIVE_SYNTHETIC)
+    cfg = port["config"].DataConfig()
+    for name, (ds, meta) in (
+            ("l0_cohort", port["ingest"].load_artifacts(data_dir)),
+            ("synthetic_2000", (synth, P.meta_from_events(synth, cfg)))):
+        out[name] = _native_case(port, device, ds, meta, cfg, threads)
+        bad = [k for k in ("densify_within_tol", "densify_threads_bit_equal",
+                           "gather_bit_equal", "gather_threads_bit_equal")
+               if not out[name][k]]
+        if bad:
+            raise AssertionError(f"the host data ops against the port's "
+                                 f"main path on {name}: {bad} ({out})")
+    return out
+
+
+def _native_case(port, device, ds, meta, cfg, threads: int) -> dict:
+    import torch
+    nl, P = port["native_loader"], port["pipeline"]
+    ev = ds.events
+    L = int(ev.stay_len.max())
+
+    def timed(fn, reps=3):
+        out, best = None, float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+        return out, best * 1e3
+
+    def native_grid(n):
+        return nl.densify_events_native(
+            ev.offsets, ev.slot_idx, ev.values, ev.counts, meta.means,
+            meta.stds, L, count_clip=cfg.count_clip, n_threads=n)
+
+    plain, plain_ms = timed(lambda: P.densify_events(ev, meta, L,
+                                                     cfg.count_clip))
+    one, one_ms = timed(lambda: native_grid(1))
+    many, many_ms = timed(lambda: native_grid(threads))
+    ads = P.build_anchor_dataset(ds, meta, cfg)
+    rows, ends = ads.anchor["stay_rows"], ads.anchor["slot_idx"]
+    T = cfg.n_timesteps
+    grid_dev = torch.from_numpy(plain).to(device)
+    rows_dev = torch.from_numpy(rows).to(device)
+    ends_dev = torch.from_numpy(ends).to(device)
+
+    def card_gather():
+        out = P.gather_windows(grid_dev, rows_dev, ends_dev, T)
+        torch.cuda.synchronize()
+        return out
+
+    card, card_ms = timed(card_gather)
+    w1, w1_ms = timed(lambda: nl.gather_windows_native(plain, rows, ends, T,
+                                                       n_threads=1))
+    wn, wn_ms = timed(lambda: nl.gather_windows_native(plain, rows, ends, T,
+                                                       n_threads=threads))
+    card = card.cpu().numpy()
+    return {"grid": list(plain.shape), "event_rows": int(len(ev.slot_idx)),
+            "windows": [len(rows), T, plain.shape[-1]],
+            "densify_ms": {"numpy": plain_ms, "native_1": one_ms,
+                           f"native_{threads}": many_ms},
+            "gather_ms": {"torch_card": card_ms, "native_1": w1_ms,
+                          f"native_{threads}": wn_ms},
+            "densify_max_abs_err": float(np.abs(many - plain).max()),
+            "densify_within_tol": bool(np.allclose(many, plain, rtol=1e-6,
+                                                   atol=1e-6)),
+            "densify_threads_bit_equal": one.tobytes() == many.tobytes(),
+            "gather_bit_equal": wn.tobytes() == card.tobytes(),
+            "gather_threads_bit_equal": w1.tobytes() == wn.tobytes()}
+
+
 def phase_l0(port, device, card: str = "") -> dict:
     """L0 on the card's host without pandas or pyarrow (ROADMAP P21, P21c):
     raw layouts written and preprocessed by the port's CLI from CSV and
@@ -6822,9 +7372,10 @@ def phase_l0(port, device, card: str = "") -> dict:
     if meta_bytes("cohort_ftr") != meta_bytes("cohort"):
         route_wrong.append("meta_with_stats.pkl")
 
-    # the teacher at full width on the feather route's large cohort, K1
-    # predicted first
+    # the host data-path ops on the large cohort, then the teacher at full
+    # width on the feather route's cohort, K1 predicted first
     data_dir = os.path.dirname(ftr_paths["cohort"])
+    native = native_ops(port, device, data_dir)
     split, steps, evals = l0_teacher_steps(port, data_dir, L0_BATCH,
                                            L0_LIMIT_BATCHES)
     n_layers = port["config"].ViTConfig().n_layers
@@ -6849,6 +7400,7 @@ def phase_l0(port, device, card: str = "") -> dict:
             "modules_loaded": loaded, "digests_checked": len(got),
             "digest_mismatch": wrong, "feather_mismatch": feather_wrong,
             "feather_vs_csv_mismatch": route_wrong, "splits": split,
+            "native_ops": native,
             "teacher": {"argv": argv, "wall_s": wall,
                         "predicted_train_steps": steps,
                         "predicted_eval_steps": evals,
@@ -7392,6 +7944,7 @@ def main() -> int:
     k4_checks = read_counts(port)["ln_qkv"]
     k4_f32_checks = read_counts(port)["ln_qkv_f32"]
     golden = phase_golden(port, device, cfgmod.ViTConfig(), GOLDEN)
+    rad_dino = phase_rad_dino(port, device, card=dev["nvidia_smi"])
     block = phase_block_grad(port, device)
     serve = phase_serve(port, device, cfgmod.TeacherConfig(), n_clients=12,
                         posts_per_client=4, card=dev["nvidia_smi"])
@@ -7446,6 +7999,7 @@ def main() -> int:
     int8 = phase_int8(port, device, card=dev["nvidia_smi"])
     l0 = phase_l0(port, device, card=dev["nvidia_smi"])
     multistep = phase_multistep(port, device, card=dev["nvidia_smi"])
+    finish_rad_dino_check(rad_dino, card=dev["nvidia_smi"])
 
     # K1's four rows take their launches from the unfrozen training run,
     # whose K1 work is the pixel step's batch of 32, and K2's from the
@@ -7496,6 +8050,11 @@ def main() -> int:
                          "serve": int8["serve"]["k1_launches"]
                          if name == "flash_attention" else 0},
                 "l0": l0["launches"].get(name, 0),
+                "rad_dino": {
+                    "teacher": rad_dino["launches"].get(name, 0),
+                    "vit": sum(t["k1_launches"]
+                               for t in rad_dino["tokens"].values()
+                               if t["k1_key"] == name)},
                 "aot_serve": {
                     "buckets": aot_serve["warm"]["buckets"]["k1_launches"]
                     if name == "flash_attention" else 0,

@@ -13,6 +13,8 @@ artifact ``cli.train_teacher --perceiver_type dual
 synthetic cohort's, its images the procedural ones or, with
 ``--cxr_jpeg_root DIR``, the real chest X-rays ``DIR/{image_id}.jpg``
 (decoded by the port's own decoder a chunk ahead of the card).
+``--vit_params`` is the RAD-DINO checkpoint that ``cli/convert_rad_dino.py``
+(or the JAX package's ``scripts/convert_rad_dino.py``) writes.
 """
 from __future__ import annotations
 
@@ -39,7 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vit_size", type=str, default="base",
                    choices=["tiny", "base"])
     p.add_argument("--vit_params", type=str, default="",
-                   help="converted RAD-DINO weights (msgpack); random if empty")
+                   help="converted RAD-DINO weights (msgpack, from python -m "
+                        "multimodal_edema_prediction_tpu_torch.cli."
+                        "convert_rad_dino); random if empty")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--lr", type=float, default=1e-3)

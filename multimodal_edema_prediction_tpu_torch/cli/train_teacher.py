@@ -23,7 +23,8 @@ the card within ``--hbm_feature_budget_gb``, else the host).
 ``--unfreeze_cxr`` fine-tunes the ViT too, on the pixel tier only, its
 attention's gradient through K1's
 backward kernels; ``--vit_weights`` starts the ViT from a converted
-RAD-DINO checkpoint (``scripts/convert_rad_dino.py``); ``--duett_ckpt``
+RAD-DINO checkpoint (``cli/convert_rad_dino.py``, which needs no JAX, or
+the JAX package's ``scripts/convert_rad_dino.py``); ``--duett_ckpt``
 starts the DuETT backbone (weights and BatchNorm statistics) from an SSL
 checkpoint of ``cli.train_ssl``, written by either package.
 ``--cxr_jpeg_root DIR`` trains on the chest X-rays ``DIR/{image_id}.jpg``
@@ -80,7 +81,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["none", "int8"])
     p.add_argument("--vit_weights", type=str, default="",
                    help="converted RAD-DINO checkpoint for the CXR branch "
-                        "(scripts/convert_rad_dino.py)")
+                        "(python -m multimodal_edema_prediction_tpu_torch."
+                        "cli.convert_rad_dino, or the JAX package's "
+                        "scripts/convert_rad_dino.py)")
     p.add_argument("--duett_ckpt", type=str, default="",
                    help="SSL checkpoint to initialize the DuETT backbone")
     p.add_argument("--lp_only_correction", action="store_true")

@@ -196,8 +196,9 @@ def convert_hf_dinov2(state_dict: dict, cfg: ViTConfig) -> dict:
 
 
 def load_vit_params(path: str, cfg: ViTConfig) -> dict:
-    """A converted RAD-DINO checkpoint (``scripts/convert_rad_dino.py``
-    output, the JAX package's ``save_checkpoint`` format) as a ``DinoViT``
+    """A converted RAD-DINO checkpoint (``cli/convert_rad_dino.py``'s or
+    ``scripts/convert_rad_dino.py``'s output, the JAX package's
+    ``save_checkpoint`` format) as a ``DinoViT``
     state dict, every array's presence and shape checked against
     ``DinoViT(cfg)``: the counterpart of the JAX package's
     ``models/vit.py::load_vit_params``. Raises ``ValueError`` on a missing,

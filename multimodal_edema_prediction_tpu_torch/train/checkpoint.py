@@ -7,9 +7,12 @@ flax or ``msgpack``.
 decodes the msgpack subset that writer emits: maps, arrays (lists), str,
 bin, ints, floats, nil/bools, and ext type 1 (an ndarray packed as
 ``(shape, dtype name, C-order bytes)``) or 3 (a numpy scalar, the same
-encoding). ``_pack`` writes the same subset, so a checkpoint the port saves
-(its weights in the flax layout, ``convert.to_flax``) loads in the JAX
-package's ``load_checkpoint`` and in the port's own loaders.
+encoding). ``_pack`` writes the same subset, each map's keys sorted at
+every level as flax's writer sorts them (it maps the tree through
+``jax.tree_util`` first), so a checkpoint the port saves (its weights in
+the flax layout, ``convert.to_flax``) is byte for byte the file the JAX
+package's ``save_checkpoint`` writes for the same tree, and loads in its
+``load_checkpoint`` and in the port's own loaders.
 
 Full-state resume (the teacher, SSL and KD loops'; JAX
 ``checkpoint.py:100-221``): ``save_train_state`` writes the weights in the
@@ -151,6 +154,11 @@ def _pack_ext(out: List[bytes], code: int, data: bytes) -> None:
     out.append(data)
 
 
+# (code, struct format) of msgpack's unsigned and signed int forms, by width
+_UINTS = ((0xCC, "B"), (0xCD, "H"), (0xCE, "I"), (0xCF, "Q"))
+_INTS = ((0xD0, "b"), (0xD1, "h"), (0xD2, "i"), (0xD3, "q"))
+
+
 def _pack(obj, out: List[bytes]) -> None:
     """Append the msgpack encoding of ``obj`` (the subset ``_unpack``
     reads) to ``out``."""
@@ -159,12 +167,17 @@ def _pack(obj, out: List[bytes]) -> None:
     elif isinstance(obj, bool):
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, int):
+        # the smallest form, as msgpack packs an int
         if 0 <= obj < 128 or -32 <= obj < 0:
             out.append(struct.pack(">b", obj) if obj < 0 else bytes([obj]))
         elif obj >= 0:
-            out.append(struct.pack(">BQ", 0xCF, obj))
+            code, fmt = next(c for c in _UINTS
+                             if obj < 2 ** (8 * struct.calcsize(c[1])))
+            out.append(struct.pack(f">B{fmt}", code, obj))
         else:
-            out.append(struct.pack(">Bq", 0xD3, obj))
+            code, fmt = next(c for c in _INTS
+                             if obj >= -2 ** (8 * struct.calcsize(c[1]) - 1))
+            out.append(struct.pack(f">B{fmt}", code, obj))
     elif isinstance(obj, float):
         out.append(struct.pack(">Bd", 0xCB, obj))
     elif isinstance(obj, str):
@@ -186,8 +199,9 @@ def _pack(obj, out: List[bytes]) -> None:
                   b"".join(payload))
     elif isinstance(obj, dict):
         _pack_len(out, len(obj), 0x80, 15, (0, 0xDE, 0xDF))
-        for k, v in obj.items():
-            _pack(str(k), out)
+        for k, v in sorted(((str(k), v) for k, v in obj.items()),
+                           key=lambda kv: kv[0]):
+            _pack(k, out)
             _pack(v, out)
     elif isinstance(obj, (list, tuple)):
         _pack_len(out, len(obj), 0x90, 15, (0, 0xDC, 0xDD))
@@ -199,7 +213,8 @@ def _pack(obj, out: List[bytes]) -> None:
 
 def msgpack_serialize(tree) -> bytes:
     """The counterpart of ``flax.serialization.msgpack_serialize`` for
-    trees of dicts, lists, numbers, strings and numpy arrays."""
+    trees of dicts, lists, numbers, strings and numpy arrays: the same
+    bytes, map keys sorted."""
     out: List[bytes] = []
     _pack(tree, out)
     return b"".join(out)
@@ -212,6 +227,17 @@ def save_checkpoint(path: str, model, step: int, metric: float,
     (flax layout, ``convert.to_flax``) plus the ``.config.json`` sidecar."""
     from ..convert import to_flax
     params, batch_stats = to_flax(model)
+    save_flax_checkpoint(path, params, batch_stats, step, metric, config,
+                         extra)
+
+
+def save_flax_checkpoint(path: str, params: dict,
+                         batch_stats: Optional[dict], step: int,
+                         metric: float, config: Optional[dict] = None,
+                         extra: Optional[dict] = None) -> None:
+    """The JAX package's ``save_checkpoint`` (``train/checkpoint.py:30-44``)
+    on flax trees of numpy arrays: ``batch_stats`` may be None, as the
+    RAD-DINO converter writes it."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     payload = {"params": params, "batch_stats": batch_stats,
                "step": int(step), "metric": float(metric),

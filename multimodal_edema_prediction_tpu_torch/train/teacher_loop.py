@@ -80,8 +80,14 @@ share, and no card-resident bank is built. Evaluations gather the outputs,
 so every rank takes the same early-stop decision; each keeps the best
 weights in memory and tests them, and only rank 0 writes checkpoints and
 the full state. A SIGTERM on any rank stops all of them at the same epoch
-boundary. ``n_model`` must be 1, and the gradient-flow diagnostics
-(``grad_diag_every``) are single-process (ROADMAP P18b).
+boundary. ``n_model`` must be 1. The gradient-flow diagnostics
+(``grad_diag_every``) run on every rank at the epochs of a one-process run,
+over the same first val rows (JAX's ``run_diagnostics`` does not partition
+them), so every rank's report is the one-process report and nothing is
+reduced; only a ``Logger`` prints, on rank 0. On real images they are
+refused over processes: a rank's host store holds only its share of the
+pixels, and JAX's diagnostics raise there (its image source reads
+``pixel_values``, which their batch does not carry).
 
 With ``prefetch_depth`` > 0 (2, as in JAX) the epoch's train batches come
 through ``data/prefetch.py``: a worker thread runs the batch hook (the
@@ -489,7 +495,9 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     (``analysis/grad_flow_diagnostics.run_diagnostics``) over
     ``grad_diag_batches`` val batches, on the pixels of the run's image
     feed (JAX ``teacher_loop.py:677-690``): the report is printed and its
-    scalars go into the epoch's history entry.
+    scalars go into the epoch's history entry. Over processes every rank
+    runs them on the same rows; with ``jpeg_store`` there they raise
+    ``ValueError`` before anything runs.
     ``log``: the console lines (default: ``logger.info``, else ``print``);
     ``logger``: the telemetry sink (module docstring)."""
     world = mh.check_group()
@@ -497,10 +505,14 @@ def train_teacher(dataset: AnchorDataset, teacher_cfg: TeacherConfig,
     scan_k = engine.steps_per_call(cfg.steps_per_call)
     if multi:
         meshlib.create_mesh(cfg.n_data, cfg.n_model)
-        if grad_diag_every > 0:
-            raise NotImplementedError(
-                "grad_diag_every > 0: the gradient-flow diagnostics of a "
-                "multi-process run are not ported yet (ROADMAP P18b)")
+        if grad_diag_every > 0 and jpeg_store is not None:
+            # JAX's default_image_source raises KeyError 'pixel_values' on
+            # the diagnostics' batch in every JPEG tier over processes
+            raise ValueError(
+                "grad_diag_every > 0 on real images over processes: the "
+                "diagnostics read the first val rows' pixels, and each "
+                "rank's per-host u8 partition (or feature store) holds only "
+                "its image_id % P share of the JPEGs; JAX raises here too")
     mode = teacher_cfg.perceiver_type
     lp_mode = lp_from is not None
     if log is None:

@@ -2,7 +2,9 @@
 ``convert.to_flax``) load in the JAX package's ``load_checkpoint`` and in
 the port's own ``load_teacher_from_ckpt`` (what ``cli/serve.py`` calls).
 
-Tolerances: the arrays round-trip bit-identically; the JAX
+Tolerances: the arrays round-trip bit-identically, and the port's file is
+byte for byte the JAX package's ``save_checkpoint`` of the same trees
+(flax's writer sorts each map's keys, and so does the port's); the JAX
 ``TeacherModel.apply`` on the loaded trees equals the port's eval of the
 model that was saved within 1e-4 at float32 (the whole teacher, as in
 ``tests/test_torch_teacher.py``).
@@ -19,6 +21,8 @@ import torch
 from multimodal_edema_prediction_tpu.models.teacher import TeacherModel as JT
 from multimodal_edema_prediction_tpu.train.checkpoint import \
     load_checkpoint as jload
+from multimodal_edema_prediction_tpu.train.checkpoint import \
+    save_checkpoint as jsave
 from multimodal_edema_prediction_tpu.train.teacher_loop import init_teacher
 from multimodal_edema_prediction_tpu_torch.config import TeacherConfig
 from multimodal_edema_prediction_tpu_torch.convert import load_flax, to_flax
@@ -85,6 +89,56 @@ def test_jax_apply_on_port_checkpoint_matches_port_eval(saved):
                                            rtol=1e-4, err_msg=k)
     for k, v in model.state_dict().items():
         assert torch.equal(reloaded.state_dict()[k], v), k
+
+
+def _read(path):
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def test_port_checkpoint_is_byte_equal_to_jax(saved, tmp_path):
+    """The same teacher tree saved by each package: the same bytes, the
+    sidecar too (a tree whose insertion order is not flax's sorted one)."""
+    _, model, params, stats, path, config = saved
+    jpath = str(tmp_path / "jax.msgpack")
+    jsave(jpath, params, stats, step=17, metric=0.625, config=config,
+          extra={"epoch": 4})
+    assert _read(path) == _read(jpath)
+    assert _read(path + ".config.json") == _read(jpath + ".config.json")
+
+
+def test_batch_stats_none_is_byte_equal_to_jax(tmp_path):
+    """A ViT tree with ``batch_stats`` None, as the RAD-DINO converters
+    write it, through ``save_flax_checkpoint``: the same bytes as JAX's."""
+    from multimodal_edema_prediction_tpu.models.vit import DinoViT as JV
+    jcfg = tiny_teacher_cfg().vit
+    params = perturb(JV(jcfg).init(
+        jax.random.key(1), np.zeros((1, jcfg.image_size, jcfg.image_size, 3),
+                                    np.float32), train=False)["params"])
+    config = {"vit": jcfg.to_dict(), "source": "hf_dir",
+              "image_mean": [0.5], "image_std": [0.25]}
+    ppath, jpath = str(tmp_path / "port.msgpack"), str(tmp_path / "jax.msgpack")
+    P.save_flax_checkpoint(ppath, params, None, step=0, metric=0.0,
+                           config=config)
+    jsave(jpath, params, None, step=0, metric=0.0, config=config)
+    assert _read(ppath) == _read(jpath)
+    assert _read(ppath + ".config.json") == _read(jpath + ".config.json")
+    assert P.load_checkpoint(ppath)["batch_stats"] is None
+
+
+def test_writer_sorts_map_keys_as_flax():
+    """Flax maps a tree through ``jax.tree_util`` before packing, which
+    sorts dict keys at every level; scalars, strings and lists pack as
+    msgpack packs them, each int in its smallest form."""
+    from flax import serialization
+    for value in ({"b": 1, "a": 2}, {"z": {"y": [1, {"d": 0, "c": 1}]},
+                                     "a": np.arange(3, dtype=np.float32)},
+                  np.ones(2, np.int32), 2.5, "s", [3, 1],
+                  [0, 127, 128, 255, 256, 65536, 2 ** 40, -1, -32, -33, -129,
+                   -2 ** 40]):
+        assert P.msgpack_serialize(value) == \
+            serialization.msgpack_serialize(value)
+    assert P.msgpack_serialize({"b": 1, "a": 2}).hex() == "82a16102a16201"
 
 
 def test_to_flax_round_trip(saved):

@@ -4,10 +4,12 @@ msgpack nor sklearn nor ml_dtypes nor PIL nor pandas nor pyarrow (the L0
 chain, ``data/raw_mimic.py``, is numpy only) nor zstandard, lz4 or
 flatbuffers (``data/arrow_ipc.py`` reads and writes feather with the
 port's own codecs) nor orbax, tensorstore, zarr or numcodecs
-(``train/orbax_io.py`` reads and writes orbax's layout itself) nor the JAX
-package,
-nor umap-learn, nor matplotlib or scipy (which the analysis scripts import
-only inside the functions that draw a figure or fit a probe), nor wandb
+(``train/orbax_io.py`` reads and writes orbax's layout itself) nor
+safetensors (``utils/safetensors_io.py`` reads and writes it in numpy) nor
+the JAX package, nor umap-learn, nor matplotlib or scipy (which the
+analysis scripts import only inside the functions that draw a figure or
+fit a probe), nor transformers (imported only inside
+``cli/convert_rad_dino.verify``), nor wandb
 (imported only inside ``utils/logging.Logger``; ``torch.profiler``, which
 torch itself loads, is imported only inside ``utils/profiling.trace``),
 and no module of it loads the JAX package's native library; its entry points
@@ -33,9 +35,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "sklearn",
              "ml_dtypes", "PIL", "pandas", "pyarrow", "umap", "zstandard",
              "lz4", "flatbuffers", "orbax", "tensorstore", "zarr",
-             "numcodecs", "multimodal_edema_prediction_tpu")
+             "numcodecs", "safetensors", "multimodal_edema_prediction_tpu")
 # imported inside a function only, never when a module is imported
-LAZY = ("matplotlib", "scipy", "wandb")
+LAZY = ("matplotlib", "scipy", "wandb", "transformers")
 
 
 def _all_port_modules():
@@ -76,7 +78,8 @@ def test_imports_bring_in_no_jax():
                  "data.reports", "data.text_embeddings", "data.jpeg_writer",
                  "cli.preprocess", "data.arrow_ipc", "utils.lz4",
                  "utils.zstd", "utils.xxhash", "utils.crc32c",
-                 "utils.ocdbt", "utils.zarr2", "train.orbax_io"):
+                 "utils.ocdbt", "utils.zarr2", "train.orbax_io",
+                 "cli.convert_rad_dino", "utils.safetensors_io"):
         assert f"multimodal_edema_prediction_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"

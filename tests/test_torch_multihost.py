@@ -163,11 +163,60 @@ def test_multistep_route_follows_the_backend(world, backend, device,
 
 def test_multi_process_teacher_refuses_grad_diagnostics(tmp_path,
                                                         monkeypatch):
+    """On real images over processes the diagnostics are refused before
+    anything runs: a rank's store holds only its share of the pixels, and
+    JAX raises there (``test_jax_diagnostics_raise_on_a_jpeg_tiers_source``).
+    """
     monkeypatch.setattr(mh, "check_group", lambda: 2)
     monkeypatch.setattr(mh, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="P18b"):
+    with pytest.raises(ValueError, match="real images over processes"):
         TL.train_teacher(None, TeacherConfig(), TrainConfig(), str(tmp_path),
-                         (), device="cpu", grad_diag_every=1)
+                         (), device="cpu", grad_diag_every=1,
+                         jpeg_store=object())
+
+
+class _Reached(Exception):
+    pass
+
+
+class _StopAtData:
+    """A dataset that stops the loop where it first touches the data."""
+
+    def to(self, device):
+        raise _Reached
+
+
+def test_multi_process_teacher_takes_grad_diagnostics_on_pixels(
+        tmp_path, monkeypatch):
+    """On procedural pixels a world of 2 gets past the checks with
+    ``grad_diag_every`` 1 and goes on to the data (two real processes run
+    the diagnostics in ``test_torch_multihost_2proc.py``)."""
+    monkeypatch.setattr(mh, "check_group", lambda: 2)
+    monkeypatch.setattr(mh, "process_count", lambda: 2)
+    with pytest.raises(_Reached):
+        TL.train_teacher(_StopAtData(), TeacherConfig.from_dict(
+            tiny_teacher_cfg().to_dict()), TrainConfig(), str(tmp_path), (),
+            device="cpu", grad_diag_every=1)
+
+
+def test_jax_diagnostics_raise_on_a_jpeg_tiers_source(datasets):
+    """What JAX does on every JPEG tier over processes: its loop hands
+    ``run_diagnostics`` ``engine.default_image_source``, which reads the
+    batch's ``pixel_values`` (or ``pixel_u8``), and the diagnostics'
+    batch carries neither."""
+    from multimodal_edema_prediction_tpu.analysis.grad_flow_diagnostics \
+        import run_diagnostics
+    from multimodal_edema_prediction_tpu.train import engine as jengine
+    _, jads, _, _, _ = datasets
+    cfg = tiny_teacher_cfg()
+    cfg = cfg.replace(duett=cfg.duett.replace(
+        n_variables=jads.grid.shape[-1] // 2))
+    model = JT(cfg)
+    v = JTL.init_teacher(model, cfg, 2, cfg.duett.n_timesteps,
+                         jax.random.key(0))
+    with pytest.raises(KeyError, match="pixel_values"):
+        run_diagnostics(model, v["params"], v["batch_stats"], jads,
+                        jengine.default_image_source, "val", 4, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -178,6 +178,30 @@ def test_two_processes_match_one(kind, two_proc, one_proc):
             == one_proc(kind)["n_images"]
 
 
+def test_two_processes_run_the_gradient_diagnostics_as_one(two_proc,
+                                                           one_proc):
+    """``grad_diag_every`` 1 over processes (ROADMAP P18b): each rank runs
+    the diagnostics on the same val rows at every epoch, with no
+    collective; the ranks' ``grad_diag/*`` agree to 1e-12 and equal one
+    process's within the tolerances above (1e-3 relative, 5e-3 absolute),
+    and only rank 0's ``Logger`` printed the reports and its lines."""
+    single = one_proc("teacher")
+    r0, r1 = (two_proc[i]["teacher"] for i in range(2))
+    for h0, h1, hs in zip(r0["history"], r1["history"], single["history"]):
+        keys = sorted(k for k in hs if k.startswith("grad_diag/"))
+        assert keys and keys == sorted(
+            k for k in h0 if k.startswith("grad_diag/")) == sorted(
+            k for k in h1 if k.startswith("grad_diag/"))
+        assert h0["grad_diag/samples"] == W.DIAG_BATCHES * 32
+        for k in keys:
+            assert h0[k] == pytest.approx(h1[k], abs=1e-12), k
+            assert h0[k] == pytest.approx(hs[k], rel=1e-3, abs=5e-3), k
+    n_epochs = len(single["history"])
+    assert single["printed_diagnostics"] == r0["printed_diagnostics"] \
+        == n_epochs
+    assert r1["printed_diagnostics"] == r1["printed_lines"] == 0
+
+
 def test_sigterm_on_one_rank_stops_both(two_proc, one_proc):
     """Rank 1 alone receives SIGTERM during epoch 1; both ranks stop at its
     end with the state saved (``multihost.any_flag``), and a two-process

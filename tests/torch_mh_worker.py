@@ -9,7 +9,9 @@ results to ``result_{pid}.json``. ``tests/test_torch_multihost_2proc.py``
 compares the two ranks with each other and with the same recipes run in one
 process. Recipes:
 
-- ``teacher``: the ``dual_patch`` teacher on procedural pixels;
+- ``teacher``: the ``dual_patch`` teacher on procedural pixels, with the
+  gradient-flow diagnostics every epoch (``grad_diag/*`` in the history;
+  the count of reports each rank printed through its ``Logger``);
 - ``teacher_images``: real JPEGs, each rank decoding only its ``image_id %
   2`` share into a ``HostU8Bank`` (one process: the same batch composition,
   ``host_partition_count`` 2, and the card-tier bank);
@@ -33,6 +35,7 @@ process. Recipes:
 Usage: python torch_mh_worker.py <process_id> <num_processes> <port>
        <outdir> <recipe>[,<recipe>...]
 """
+import contextlib
 import io
 import json
 import os
@@ -55,6 +58,8 @@ LABELS = DataConfig().pathology_labels
 # the step of rank 1's run after which it sends itself SIGTERM: the first
 # step of epoch 1 (3 steps an epoch)
 PREEMPT_AT_STEP = 4
+# the ``teacher`` recipe's gradient-flow diagnostics: val batches an epoch
+DIAG_BATCHES = 1
 
 
 def tiny_teacher_cfgs():
@@ -274,10 +279,23 @@ def run_recipe(kind: str, workdir: str) -> dict:
     tcfg, cfg = tiny_teacher_cfgs()
 
     if kind == "teacher":
+        # with the gradient-flow diagnostics every epoch, printed through
+        # a Logger (rank 0 alone prints)
+        from multimodal_edema_prediction_tpu_torch.utils.logging import \
+            Logger
         _, _, ads = cohort()
-        return _result(train_teacher(ads, tcfg, cfg,
-                                     os.path.join(workdir, "teacher"),
-                                     LABELS, device="cpu"))
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            res = train_teacher(ads, tcfg, cfg,
+                                os.path.join(workdir, "teacher"), LABELS,
+                                device="cpu", grad_diag_every=1,
+                                grad_diag_batches=DIAG_BATCHES,
+                                logger=Logger("teacher"))
+        out = _result(res)
+        out["printed_diagnostics"] = printed.getvalue().count(
+            "grad-flow diagnostics")
+        out["printed_lines"] = len(printed.getvalue().splitlines())
+        return out
 
     if kind == "teacher_images":
         from multimodal_edema_prediction_tpu_torch.data.images import \
